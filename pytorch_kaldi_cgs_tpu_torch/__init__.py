@@ -7,18 +7,26 @@ needs (HCGS masks, initializers) so that the same seed gives the same
 arrays in both.
 
 Slice 1 is the serving path: audio -> fbank -> HCGS LSTM -> MLP head ->
-prior normalization -> batched phone-loop Viterbi. Its one TPU kernel,
-the fused LSTM forward, is a hand-written CUDA kernel for ``sm_90a``
-(``ops/csrc/fused_lstm_fwd.cu``), built with ``nvcc`` at first use.
+prior normalization -> batched phone-loop Viterbi. Slice 2 is the
+training step: chunk config -> NetGraph -> HCGS LSTM with fused BPTT ->
+masked NLL -> torch optimizers (ChunkRunner.train_step). Their TPU
+kernels, the fused LSTM forward and its two BPTT variants, are
+hand-written CUDA kernels for ``sm_90a`` (``ops/csrc/``), built with
+``nvcc`` at first use.
 
 Layout:
   _device.py   device resolution (the card by default; the CPU on request)
   convert.py   JAX {"params","state","masks"} numpy trees <-> port tensors
+  config/      model DSL parser, chunk-config stream parsing, resolve_proto
+  proto/       the typed config schemas this package reads (model.proto)
+  data/        chunk layout (ChunkData, FeaStream, LabStream)
   sparsity/    HCGS mask generators, ceil quantizers with STE
-  models/      layers, AcousticModel base, LSTM, MLP (nn.Modules)
-  ops/         fused LSTM forward (CUDA kernel + plain twin), fbank frontend
+  models/      layers, AcousticModel base, LSTM, MLP (nn.Modules), registry
+  ops/         fused LSTM forward + BPTT (CUDA kernels, plain twins,
+               autograd Function), fbank frontend
   decode/      phone-loop HMM, numpy and batched on-device Viterbi
-  runtime/     Recognizer, StreamingRecognizer
+  runtime/     Recognizer, StreamingRecognizer; NetGraph, ChunkRunner,
+               optimizers
 """
 
 from ._device import resolve_device

@@ -6,6 +6,8 @@ e.g. ``params["wfx0"]``, ``params["bn_wfx0"]["gamma"]``,
 ``state["bn_wfx0"]["mean"]``, ``masks["hcgs_wfx0"]``. The port keeps
 the same leaves as tensors under flat keys that join the nested names
 with ``/`` (``"bn_wfx0/gamma"``): the key names are the JAX package's.
+A graph of nets (``runtime.graph.NetGraph``) keeps one such tree per
+architecture name, as the JAX package's graph variables do.
 """
 
 from __future__ import annotations
@@ -57,3 +59,11 @@ def to_jax_variables(tree: Mapping[str, Mapping[str, torch.Tensor]]
     return {c: unflatten({k: v.detach().cpu().numpy()
                           for k, v in tree.get(c, {}).items()})
             for c in COLLECTIONS}
+
+
+def to_jax_graph_variables(trees: Mapping[str, Mapping[str, Mapping[str,
+                                                                  torch.Tensor]]]
+                           ) -> Dict[str, Any]:
+    """Per-architecture flat trees (``NetGraph.variables()``) -> the JAX
+    package's graph variables ``{arch: {"params","state","masks"}}``."""
+    return {arch: to_jax_variables(tree) for arch, tree in trees.items()}

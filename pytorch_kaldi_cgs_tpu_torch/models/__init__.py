@@ -1,7 +1,35 @@
-"""Acoustic models ported so far: LSTM and MLP."""
+"""Acoustic models ported so far: LSTM and MLP.
+
+Configs name a model by ``arch_library`` + ``arch_class``;
+:func:`get_model_class` resolves the built-in names to this package's
+classes. The JAX package's library name maps here too, so its configs
+run unchanged, and never makes that package be imported.
+"""
 
 from .base import AcousticModel, CompressionSpec
 from .mlp import MLP
 from .recurrent import LSTM
 
-__all__ = ["AcousticModel", "CompressionSpec", "LSTM", "MLP"]
+__all__ = ["AcousticModel", "CompressionSpec", "LSTM", "MLP",
+           "get_model_class"]
+
+_REGISTRY = {"MLP": MLP, "LSTM": LSTM}
+
+#: Library names that mean "the built-in models".
+BUILTIN_LIBRARIES = ("pytorch_kaldi_cgs_tpu_torch.models",
+                     "pytorch_kaldi_cgs_tpu.models", "neural_networks",
+                     "models", "")
+
+
+def get_model_class(arch_library: str, arch_class: str):
+    """Built-in names -> this package's classes (a built-in class that
+    is not ported yet raises); any other library through importlib, as
+    the reference's dynamic import."""
+    if arch_library in BUILTIN_LIBRARIES:
+        if arch_class not in _REGISTRY:
+            raise NotImplementedError(
+                "arch_class %r is not ported yet (have %s)"
+                % (arch_class, sorted(_REGISTRY)))
+        return _REGISTRY[arch_class]
+    import importlib
+    return getattr(importlib.import_module(arch_library), arch_class)

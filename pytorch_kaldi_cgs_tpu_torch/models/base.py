@@ -23,18 +23,8 @@ from torch import nn
 
 from .. import convert
 from .._device import DeviceLike, resolve_device
+from ..config.proto import strtobool
 from ..sparsity.quantize import ste_quantize_input, ste_quantize_weight
-
-
-def strtobool(s) -> bool:
-    if isinstance(s, bool):
-        return s
-    v = str(s).strip().lower()
-    if v in ("true", "1", "yes", "on"):
-        return True
-    if v in ("false", "0", "no", "off"):
-        return False
-    raise ValueError("invalid boolean %r" % s)
 
 
 def opt_bool(options: Mapping[str, Any], key: str, default: bool = False
@@ -83,6 +73,8 @@ class CompressionSpec:
         self.prune_perc = opt_list(options, prefix + "_prune_perc", float,
                                    [0.0])
         self.if_pattern = opt_bool(options, "if_pattern")
+        # the net drops out of cost_l1/l2/gl (runtime/graph.py)
+        self.skip_regularization = opt_bool(options, "skip_regularization")
 
     def layer_bits(self, i: int) -> int:
         return self.param_quant[min(i, len(self.param_quant) - 1)]
@@ -210,6 +202,12 @@ class AcousticModel(nn.Module):
         batch statistics, updates the running ones in place and draws
         dropout masks from ``generator``."""
         return self._run(x, self.training, None, generator)[0]
+
+    def run(self, x: torch.Tensor, *, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """:meth:`forward` in the mode asked for, whatever
+        ``self.training`` says (the graph runs frozen nets in eval)."""
+        return self._run(x, train, None, generator)[0]
 
     def apply_streaming(self, x: torch.Tensor, carries=None):
         """Chunked eval-mode inference with carried recurrent state:

@@ -4,10 +4,11 @@ recurrent.py``: ``_RecurrentBase`` and ``LSTM``).
 Time-major (T, B, F). Per layer: one fused input projection for the four
 gates (HCGS mask + quantizer applied to the weights), batch norm on each
 gate projection over the flattened (T*B) axis, then the recurrence. The
-recurrence runs the fused LSTM forward (``ops.fused_lstm``: the CUDA
-kernel on the card, its plain twin on the CPU) whenever the layer has no
-in-scan layer norm and its activation is tanh, relu, htanh or linear;
-otherwise a plain step loop. Streaming passes the (h, c) carries as
+recurrence runs the fused LSTM (``ops.fused_lstm``: the CUDA kernels on
+the card, their plain twins on the CPU; under autograd the BPTT kernels
+give the gradients) whenever the layer has no in-scan layer norm and its
+activation is tanh, relu, htanh or linear; otherwise a plain step loop
+that autograd differentiates. Streaming passes the (h, c) carries as
 arguments and takes the seeded-carry variant.
 
 The block-sparse layouts and sequence parallelism of the JAX package are
@@ -177,8 +178,8 @@ class LSTM(AcousticModel):
         h, c = carry if carry is not None else (gates.new_zeros((B, H)),) * 2
         hs = []
         for t in range(T):
-            h, c = fused_lstm.lstm_cell(gates[t], h, c, Uc, drop, actf, qb,
-                                        self.compute_bf16)
+            h, c, _ = fused_lstm.lstm_cell(gates[t], h, c, Uc, drop, actf,
+                                           qb, self.compute_bf16)
             if self.use_laynorm[i]:
                 h = layer_norm(h, self.params["ln%d/gamma" % i],
                                self.params["ln%d/beta" % i])

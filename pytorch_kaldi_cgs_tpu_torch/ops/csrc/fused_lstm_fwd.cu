@@ -1,8 +1,10 @@
 // Fused LSTM forward recurrence for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernel pytorch_kaldi_cgs_tpu/ops/fused_lstm.py:_build_fwd
-// (its with_init, cdt="bf16" and qbits variants; the training-only stash
-// variant is not ported yet). Per step t, gate order (f, i, o, c):
+// in all its variants: with_init, cdt="bf16", qbits and stash (the
+// training forward, which also writes the post-activation gates
+// (f, i, o, act(c~)) of every step for the BPTT kernel in
+// fused_lstm_bwd.cu). Per step t, gate order (f, i, o, c):
 //
 //   u = q(h_{t-1}) @ U^T                 U: (4H, H), f32 or bf16
 //   f, i, o = sigmoid(g_t + u)
@@ -78,6 +80,7 @@ lstm_step(const float* __restrict__ g_t,       // (B, 4H) gates of step t
           const float* __restrict__ c_prev,    // (B, H); nullptr = zeros
           float* __restrict__ h_out,           // (B, H) of step t
           float* __restrict__ c_out,
+          float* __restrict__ a_out,           // (B, 4H) stash or nullptr
           const unsigned* __restrict__ scale_in,  // max|h_prev| bits or nullptr
           unsigned* __restrict__ scale_out,       // max|h_t| slot or nullptr
           int B, int H, int act, float qscale) {
@@ -139,6 +142,13 @@ lstm_step(const float* __restrict__ g_t,       // (B, 4H) gates of step t
     const float h = o * act_fn(c, act);
     h_out[bb * H + j] = h;
     c_out[bb * H + j] = c;
+    if (a_out) {
+      float* a = a_out + bb * 4 * H;
+      a[j] = f;
+      a[H + j] = i;
+      a[2 * H + j] = o;
+      a[3 * H + j] = cc;
+    }
     m = max(m, __float_as_uint(fabsf(h)));
   }
   if (scale_out) {
@@ -168,11 +178,12 @@ const char* pk_error_string(int err) {
 // Launches the whole layer on `stream`: T step kernels (plus one small
 // reduction over h0 when qbits > 0 and h0 is given). Returns the first
 // cudaError_t seen, 0 on success. h0/c0 may both be null (zero state).
-// qslots: T+1 unsigned ints of scratch, used when qbits > 0.
+// acts: (T, B, 4H) stash output, or null. qslots: T+1 unsigned ints of
+// scratch, used when qbits > 0.
 int fused_lstm_fwd(const float* gates, const void* U, const float* drop,
                    const float* h0, const float* c0, float* hs, float* cs,
-                   unsigned* qslots, int T, int B, int H, int act, int qbits,
-                   int u_bf16, void* stream_ptr) {
+                   float* acts, unsigned* qslots, int T, int B, int H,
+                   int act, int qbits, int u_bf16, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   auto kern = u_bf16 ? lstm_step<true> : lstm_step<false>;
   const size_t smem = (size_t)BT * H * sizeof(float);
@@ -197,7 +208,7 @@ int fused_lstm_fwd(const float* gates, const void* U, const float* drop,
     kern<<<grid, THREADS, smem, stream>>>(
         gates + (size_t)t * 4 * bh, U, drop,
         t ? hs + (t - 1) * bh : h0, t ? cs + (t - 1) * bh : c0,
-        hs + t * bh, cs + t * bh,
+        hs + t * bh, cs + t * bh, acts ? acts + (size_t)t * 4 * bh : nullptr,
         q ? qslots + t : nullptr, q ? qslots + t + 1 : nullptr,
         B, H, act, qscale);
     err = cudaGetLastError();

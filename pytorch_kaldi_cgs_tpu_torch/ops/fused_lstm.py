@@ -1,15 +1,28 @@
-"""Fused LSTM forward recurrence: the whole layer's time loop.
+"""Fused LSTM recurrence: the whole layer's time loop, forward and BPTT.
 
-Port of ``pytorch_kaldi_cgs_tpu/ops/fused_lstm.py`` (forward only): the
-TPU kernel ``_build_fwd`` becomes the CUDA kernel in
-``csrc/fused_lstm_fwd.cu`` (one step kernel per time step, see its
-header for the design and what bounds it on the H100), and
-:func:`fused_lstm_fwd_plain` is its plain PyTorch twin with the same
-casts and the same per-step quantizer.
+Port of ``pytorch_kaldi_cgs_tpu/ops/fused_lstm.py`` (the dense path).
+Three TPU kernels become CUDA kernels for ``sm_90a``, each with a plain
+PyTorch twin that repeats its arithmetic and is what the CPU runs:
 
-:func:`fused_lstm_fwd` is the wrapper: on a CUDA tensor it launches the
-kernel (or raises), on a CPU tensor it runs the twin. Its attribute
-``launches`` counts kernel launches (one per time step).
+- ``_build_fwd`` (``stash`` included): ``csrc/fused_lstm_fwd.cu``,
+  :func:`fused_lstm_fwd` / :func:`fused_lstm_fwd_plain`;
+- ``_build_bwd_stash``: ``csrc/fused_lstm_bwd.cu``,
+  :func:`fused_lstm_bwd_stash` / :func:`fused_lstm_bwd_stash_plain`;
+- ``_build_bwd``: ``csrc/fused_lstm_bwd.cu``,
+  :func:`fused_lstm_bwd` / :func:`fused_lstm_bwd_plain`.
+
+A wrapper launches its kernel on a CUDA tensor (or raises) and runs its
+twin on a CPU tensor; its attribute ``launches`` counts kernel launches
+(one per time step, plus one for the ``dh0`` dot of a seeded backward).
+
+:func:`lstm_scan_fused` (zero initial state) and
+:func:`lstm_scan_fused_seeded` (seeded carry, returns the final state)
+are the differentiable entry points: a ``torch.autograd.Function`` whose
+forward runs the forward kernel and whose backward runs one of the two
+BPTT kernels, then ``dU`` as ONE matmul over the unrolled (T*B) batch,
+as the JAX package's custom VJPs do. The backward is the stashed-
+activation one unless ``PKC_LSTM_BWD_RECOMPUTE=1`` (or
+``PKC_BWD_STASH_CELLS`` without ``lstm``), the JAX package's knobs.
 
 Per step t, gate order (f, i, o, c):
 
@@ -17,16 +30,23 @@ Per step t, gate order (f, i, o, c):
     f, i, o = sigmoid(g_t + u)
     c = i * act(g_c + u_c) * drop + f * c
     h = o * act(c)
+
+``q`` is the per-step recurrent-input quantizer (scale max|h| over the
+step's (B, H) block) with a straight-through gradient; bf16 rounds U
+and q(h) (forward) or dg (backward) to bf16 before each dot, with
+float32 products, sums, carries and gate math.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..sparsity.quantize import bf16_round, quantize_input
+from ..sparsity.quantize import (bf16_round, quantize_input,
+                                 quantize_input_per_step, ste_quantize_input)
 
 ACTS = {
     "tanh": torch.tanh,
@@ -36,48 +56,191 @@ ACTS = {
 }
 _ACT_CODE = {"tanh": 0, "relu": 1, "htanh": 2, "linear": 3}
 
+# act'(x) from the activation's OUTPUT y = act(x) (stash backward) ...
+DACTS_OUT = {
+    "tanh": lambda y: 1.0 - y * y,
+    "relu": lambda y: (y > 0).to(y.dtype),
+    "htanh": lambda y: ((y > -1.0) & (y < 1.0)).to(y.dtype),
+    "linear": torch.ones_like,
+}
+
+
+def dact_pre(act: str, x: torch.Tensor) -> torch.Tensor:
+    """... and from the PRE-activation x (recompute backward)."""
+    if act == "tanh":
+        t = torch.tanh(x)
+        return 1.0 - t * t
+    if act in ("relu", "htanh", "linear"):
+        return DACTS_OUT[act](x)
+    raise ValueError(act)
+
+
+#: Which cells default to the stashed-activation backward (the JAX
+#: package's ``_STASH_DEFAULT``; only the LSTM is ported).
+_STASH_DEFAULT = {"lstm": True}
+
+
+def bwd_stash_enabled(cell: str = "lstm") -> bool:
+    """The JAX package's ``_bwd_stash_enabled``: the per-cell default,
+    ``PKC_LSTM_BWD_RECOMPUTE=1`` forces the recompute backward,
+    ``PKC_BWD_STASH_CELLS=lstm,...`` forces stash for exactly the
+    listed cells."""
+    if os.environ.get("PKC_LSTM_BWD_RECOMPUTE", "") == "1":
+        return False
+    forced = os.environ.get("PKC_BWD_STASH_CELLS", "")
+    if forced:
+        return cell in [c.strip() for c in forced.split(",")]
+    return _STASH_DEFAULT.get(cell, False)
+
+
+# ---------------------------------------------------------------------------
+# plain twins
+# ---------------------------------------------------------------------------
 
 def lstm_cell(g_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
               U: torch.Tensor, drop: torch.Tensor, actf: Callable, qbits: int,
-              bf16: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+              bf16: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step: ``U`` is float32 (already bf16-rounded when ``bf16``);
-    ``q(h)`` is the per-step quantizer, scale max|h| over (B, H)."""
+    ``q(h)`` is the per-step quantizer, scale max|h| over (B, H), with
+    a straight-through gradient. -> (h, c, the post-activation gates
+    (f, i, o, act(c~)) as (B, 4H))."""
     H = h.shape[-1]
-    hin = quantize_input(h, qbits) if qbits > 0 else h
+    hin = ste_quantize_input(h, qbits) if qbits > 0 else h
     if bf16:
         hin = bf16_round(hin)
     g = g_t + hin @ U.T
-    f = torch.sigmoid(g[:, :H])
-    i = torch.sigmoid(g[:, H:2 * H])
-    o = torch.sigmoid(g[:, 2 * H:3 * H])
-    c = i * actf(g[:, 3 * H:]) * drop + f * c
-    return o * actf(c), c
+    a = torch.cat([torch.sigmoid(g[:, :3 * H]), actf(g[:, 3 * H:])], dim=1)
+    c = a[:, H:2 * H] * a[:, 3 * H:] * drop + a[:, :H] * c
+    return a[:, 2 * H:3 * H] * actf(c), c, a
 
 
 def fused_lstm_fwd_plain(gates: torch.Tensor, U: torch.Tensor,
                          drop: torch.Tensor, h0: Optional[torch.Tensor],
                          c0: Optional[torch.Tensor], act: str, qbits: int,
-                         bf16: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain twin: a Python loop over t. -> (hs, cs)."""
+                         bf16: bool, stash: bool = False):
+    """The forward kernel's plain twin: a Python loop over t.
+    -> ``(hs, cs)``, plus ``acts`` (T, B, 4H), the post-activation gates
+    (f, i, o, act(c~)), when ``stash``."""
     T, B, G4 = gates.shape
     H = G4 // 4
     Uc = bf16_round(U) if bf16 else U.to(torch.float32)
     z = gates.new_zeros((B, H))
     h = z if h0 is None else h0
     c = z if c0 is None else c0
-    hs, cs = [], []
+    hs, cs, acts = [], [], []
     for t in range(T):
-        h, c = lstm_cell(gates[t], h, c, Uc, drop, ACTS[act], qbits, bf16)
+        h, c, a = lstm_cell(gates[t], h, c, Uc, drop, ACTS[act], qbits, bf16)
         hs.append(h)
         cs.append(c)
-    return torch.stack(hs), torch.stack(cs)
+        acts.append(a)
+    out = (torch.stack(hs), torch.stack(cs))
+    return out + (torch.stack(acts),) if stash else out
 
 
-def _kernel(gates, U, drop, h0, c0, act, qbits, bf16):
+def _dgates(dh, dc, gf, gi, go, gc, ac, c_prev, drop, dact_c, dact_gc):
+    """The elementwise cotangent chain of one step (JAX ``_build_bwd``
+    :273-279 / ``_build_bwd_stash`` :390-396). -> (dg (B, 4H), dc)."""
+    dc = dc + dh * go * dact_c
+    dgo = dh * ac * go * (1.0 - go)
+    dgf = dc * c_prev * gf * (1.0 - gf)
+    dgi = dc * gc * drop * gi * (1.0 - gi)
+    dgc = dc * gi * drop * dact_gc
+    return torch.cat([dgf, dgi, dgo, dgc], dim=1), dc
+
+
+def _bwd_loop(step, T, B, H, U, dhs, dhT, dcT, bf16, like):
+    """Reverse-time loop shared by the two twins: ``step(t, dh, dc)``
+    gives (dg_t, dc, gf); the carry into step t-1 is dh = dg_t @ U."""
+    Uc = bf16_round(U) if bf16 else U.to(torch.float32)
+    with_init = dhT is not None
+    dh = dhT if with_init else like.new_zeros((B, H))
+    dc = dcT if with_init else like.new_zeros((B, H))
+    dg = like.new_empty((T, B, 4 * H))
+    for t in range(T - 1, -1, -1):
+        d, dc_t, gf = step(t, dh + dhs[t], dc)
+        dg[t] = d
+        dc = dc_t * gf
+        if t or with_init:
+            dh = (bf16_round(d) if bf16 else d) @ Uc
+    return (dg, dh, dc) if with_init else dg
+
+
+def fused_lstm_bwd_stash_plain(acts: torch.Tensor, U: torch.Tensor,
+                               drop: torch.Tensor, cs: torch.Tensor,
+                               c_prev: torch.Tensor, dhs: torch.Tensor,
+                               dhT: Optional[torch.Tensor] = None,
+                               dcT: Optional[torch.Tensor] = None,
+                               act: str = "tanh", bf16: bool = False):
+    """Twin of the stash BPTT kernel: reverse loop over the forward's
+    post-activation gates ``acts``; ``dact`` from the activation output.
+    -> dg (T, B, 4H), and ``(dg, dh0, dc0)`` when seeded with
+    ``dhT``/``dcT``."""
+    T, B, G4 = acts.shape
+    H = G4 // 4
+    actf, dactf = ACTS[act], DACTS_OUT[act]
+
+    def step(t, dh, dc):
+        a = acts[t]
+        gf, gi, go, gc = a.split(H, dim=1)
+        ac = actf(cs[t])
+        d, dc = _dgates(dh, dc, gf, gi, go, gc, ac, c_prev[t], drop,
+                        dactf(ac), dactf(gc))
+        return d, dc, gf
+
+    return _bwd_loop(step, T, B, H, U, dhs, dhT, dcT, bf16, acts)
+
+
+def fused_lstm_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
+                         drop: torch.Tensor, h_prev: torch.Tensor,
+                         c_prev: torch.Tensor, dhs: torch.Tensor,
+                         dhT: Optional[torch.Tensor] = None,
+                         dcT: Optional[torch.Tensor] = None,
+                         act: str = "tanh", qbits: int = 0,
+                         bf16: bool = False):
+    """Twin of the recompute BPTT kernel: per step it rebuilds
+    u = q(h_{t-1}) @ U.T and the gates, ``dact`` from the
+    pre-activation. -> as :func:`fused_lstm_bwd_stash_plain`."""
+    T, B, G4 = gates.shape
+    H = G4 // 4
+    actf = ACTS[act]
+    Uc = bf16_round(U) if bf16 else U.to(torch.float32)
+
+    def step(t, dh, dc):
+        hq = quantize_input(h_prev[t], qbits) if qbits > 0 else h_prev[t]
+        if bf16:
+            hq = bf16_round(hq)
+        g = gates[t] + hq @ Uc.T
+        gf = torch.sigmoid(g[:, :H])
+        gi = torch.sigmoid(g[:, H:2 * H])
+        go = torch.sigmoid(g[:, 2 * H:3 * H])
+        gc_pre = g[:, 3 * H:]
+        gc = actf(gc_pre)
+        c = gi * gc * drop + gf * c_prev[t]
+        d, dc = _dgates(dh, dc, gf, gi, go, gc, actf(c), c_prev[t], drop,
+                        dact_pre(act, c), dact_pre(act, gc_pre))
+        return d, dc, gf
+
+    return _bwd_loop(step, T, B, H, U, dhs, dhT, dcT, bf16, gates)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _fwd_kernel(gates, U, drop, h0, c0, act, qbits, bf16, stash):
     from . import _build
     lib = _build.load("fused_lstm_fwd")
     fn = lib.fused_lstm_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     T, B, G4 = gates.shape
@@ -85,89 +248,267 @@ def _kernel(gates, U, drop, h0, c0, act, qbits, bf16):
     Uk = U.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
     hs = torch.empty((T, B, H), dtype=torch.float32, device=gates.device)
     cs = torch.empty_like(hs)
+    acts = torch.empty_like(gates) if stash else None
     qslots = torch.empty(T + 1 if qbits > 0 else 1, dtype=torch.int32,
                          device=gates.device)
-    ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(gates.device):
-        stream = torch.cuda.current_stream(gates.device).cuda_stream
-        rc = fn(gates.data_ptr(), Uk.data_ptr(), drop.data_ptr(), ptr(h0),
-                ptr(c0), hs.data_ptr(), cs.data_ptr(), qslots.data_ptr(),
-                T, B, H, _ACT_CODE[act], qbits, int(bf16), stream)
+        rc = fn(gates.data_ptr(), Uk.data_ptr(), drop.data_ptr(), _ptr(h0),
+                _ptr(c0), hs.data_ptr(), cs.data_ptr(), _ptr(acts),
+                qslots.data_ptr(), T, B, H, _ACT_CODE[act], qbits, int(bf16),
+                _stream(gates.device))
     _build.check(lib, rc, "fused_lstm_fwd")
     fused_lstm_fwd.launches += T
-    return hs, cs
+    return (hs, cs, acts) if stash else (hs, cs)
+
+
+def _check_common(name, lead, U, drop, act, others):
+    """Shared validation: (T, B, 4H) float32 ``lead``, U (4H, H), one
+    device, contiguous float32 sequences. -> (T, B, H, drop as (B, H))."""
+    if act not in ACTS:
+        raise ValueError("fused LSTM activation %r not in %s"
+                         % (act, sorted(ACTS)))
+    if lead.ndim != 3 or lead.shape[2] % 4:
+        raise ValueError("%s must be (T, B, 4H), got %s"
+                         % (name, tuple(lead.shape)))
+    T, B, G4 = lead.shape
+    H = G4 // 4
+    if tuple(U.shape) != (G4, H):
+        raise ValueError("U must be (%d, %d), got %s" % (G4, H,
+                                                          tuple(U.shape)))
+    dev = lead.device
+    for n, t in (("U", U), ("drop", drop)) + tuple(others):
+        if t is not None and t.device != dev:
+            raise ValueError("%s on %s, %s on %s" % (n, t.device, name, dev))
+    for n, t in ((name, lead),) + tuple(others):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise ValueError("%s must be float32, got %s" % (n, t.dtype))
+        if dev.type == "cuda" and not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % n)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError("unsupported device %s" % dev)
+    drop = torch.broadcast_to(drop.to(torch.float32), (B, H)).contiguous()
+    return T, B, H, drop
+
+
+def _check_shapes(shapes):
+    for n, t, shape in shapes:
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError("%s must be %s, got %s"
+                             % (n, shape, tuple(t.shape)))
 
 
 def fused_lstm_fwd(gates: torch.Tensor, U: torch.Tensor,
                    drop: torch.Tensor, h0: Optional[torch.Tensor] = None,
                    c0: Optional[torch.Tensor] = None, act: str = "tanh",
-                   qbits: int = 0, bf16: bool = False
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   qbits: int = 0, bf16: bool = False, stash: bool = False):
     """Whole-layer LSTM forward. ``gates`` (T, B, 4H) float32, ``U``
     (4H, H), ``drop`` broadcastable to (B, H), optional seed carry
     ``h0``/``c0`` (B, H) float32 (both or neither). -> ``(hs, cs)``,
-    each (T, B, H) float32.
+    each (T, B, H) float32, and the stashed post-activation gates
+    ``acts`` (T, B, 4H) when ``stash``.
 
-    CUDA tensors run the kernel, CPU tensors the plain twin; the CUDA
-    path has no backward yet and refuses inputs that need a gradient."""
-    if act not in ACTS:
-        raise ValueError("fused LSTM activation %r not in %s"
-                         % (act, sorted(ACTS)))
-    if gates.ndim != 3 or gates.shape[2] % 4:
-        raise ValueError("gates must be (T, B, 4H), got %s"
-                         % (tuple(gates.shape),))
-    T, B, G4 = gates.shape
-    H = G4 // 4
-    if tuple(U.shape) != (G4, H):
-        raise ValueError("U must be (%d, %d), got %s" % (G4, H,
-                                                          tuple(U.shape)))
+    CUDA tensors run the kernel, CPU tensors the plain twin. This is the
+    raw kernel call, with no autograd: differentiable callers use
+    :func:`lstm_scan_fused` / :func:`lstm_scan_fused_seeded`."""
     if (h0 is None) != (c0 is None):
         raise ValueError("h0 and c0 go together")
-    dev = gates.device
-    for name, t in (("U", U), ("drop", drop), ("h0", h0), ("c0", c0)):
-        if t is not None and t.device != dev:
-            raise ValueError("%s on %s, gates on %s" % (name, t.device, dev))
-    drop = torch.broadcast_to(drop.to(torch.float32), (B, H)).contiguous()
-    for name, t in (("gates", gates), ("h0", h0), ("c0", c0)):
-        if t is not None and t.dtype != torch.float32:
-            raise ValueError("%s must be float32, got %s" % (name, t.dtype))
-    if h0 is not None and (tuple(h0.shape) != (B, H)
-                           or tuple(c0.shape) != (B, H)):
-        raise ValueError("h0/c0 must be (%d, %d)" % (B, H))
-    if dev.type == "cpu":
-        return fused_lstm_fwd_plain(gates, U, drop, h0, c0, act, qbits, bf16)
-    if dev.type != "cuda":
-        raise ValueError("unsupported device %s" % dev)
+    T, B, H, drop = _check_common("gates", gates, U, drop, act,
+                                  (("h0", h0), ("c0", c0)))
+    _check_shapes((("h0", h0, (B, H)), ("c0", c0, (B, H))))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (gates, U, h0, c0)):
-        raise RuntimeError("the CUDA fused LSTM has a forward only: run it "
-                           "under torch.no_grad() / inference_mode()")
-    for name, t in (("gates", gates), ("h0", h0), ("c0", c0)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError("%s must be contiguous" % name)
-    return _kernel(gates, U, drop, h0, c0, act, qbits, bf16)
+        raise RuntimeError("fused_lstm_fwd has no autograd of its own: call "
+                           "lstm_scan_fused / lstm_scan_fused_seeded, which "
+                           "carry the BPTT kernels")
+    if gates.device.type == "cpu":
+        return fused_lstm_fwd_plain(gates, U, drop, h0, c0, act, qbits, bf16,
+                                    stash)
+    return _fwd_kernel(gates, U, drop, h0, c0, act, qbits, bf16, stash)
 
 
 fused_lstm_fwd.launches = 0
+
+
+def _bwd_kernel(wrapper, lead, U, drop, h_prev, cs, c_prev, dhs, dhT, dcT,
+                act, qbits, bf16, stash):
+    from . import _build
+    lib = _build.load("fused_lstm_bwd")
+    fn = lib.fused_lstm_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    T, B, G4 = lead.shape
+    H = G4 // 4
+    dev = lead.device
+    Uk = U.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
+    Ut = Uk.t().contiguous()                 # (H, 4H): rows for dg @ U
+    with_init = dhT is not None
+    dg = torch.empty_like(lead)
+    dc = (dcT.clone() if with_init
+          else torch.zeros((B, H), dtype=torch.float32, device=dev))
+    dh0 = torch.empty_like(dc) if with_init else None
+    qslots = torch.empty(T if (qbits > 0 and not stash) else 1,
+                         dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(lead.data_ptr(), Uk.data_ptr(), Ut.data_ptr(),
+                drop.data_ptr(), _ptr(h_prev), _ptr(cs), c_prev.data_ptr(),
+                dhs.data_ptr(), _ptr(dhT), dc.data_ptr(), dg.data_ptr(),
+                _ptr(dh0), qslots.data_ptr(), T, B, H, _ACT_CODE[act], qbits,
+                int(stash), int(bf16), _stream(dev))
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += T + (1 if with_init else 0)
+    return (dg, dh0, dc) if with_init else dg
+
+
+def _check_bwd(name, lead, U, drop, act, seqs, dhT, dcT):
+    if (dhT is None) != (dcT is None):
+        raise ValueError("dhT and dcT go together")
+    T, B, H, drop = _check_common(name, lead, U, drop, act,
+                                  tuple(seqs) + (("dhT", dhT), ("dcT", dcT)))
+    _check_shapes([(n, t, (T, B, H)) for n, t in seqs]
+                  + [("dhT", dhT, (B, H)), ("dcT", dcT, (B, H))])
+    return drop
+
+
+def fused_lstm_bwd_stash(acts: torch.Tensor, U: torch.Tensor,
+                         drop: torch.Tensor, cs: torch.Tensor,
+                         c_prev: torch.Tensor, dhs: torch.Tensor,
+                         dhT: Optional[torch.Tensor] = None,
+                         dcT: Optional[torch.Tensor] = None,
+                         act: str = "tanh", bf16: bool = False):
+    """BPTT over the stashed activations (TPU kernel ``_build_bwd_stash``):
+    ``acts`` (T, B, 4H) from the stash forward, ``cs`` and ``c_prev``
+    (T, B, H), upstream ``dhs`` (T, B, H), optional final-state
+    cotangents ``dhT``/``dcT`` (B, H). -> dg (T, B, 4H), and
+    ``(dg, dh0, dc0)`` when seeded. CUDA tensors run the kernel, CPU
+    tensors the twin."""
+    drop = _check_bwd("acts", acts, U, drop, act,
+                      (("cs", cs), ("c_prev", c_prev), ("dhs", dhs)), dhT, dcT)
+    if acts.device.type == "cpu":
+        return fused_lstm_bwd_stash_plain(acts, U, drop, cs, c_prev, dhs,
+                                          dhT, dcT, act, bf16)
+    return _bwd_kernel(fused_lstm_bwd_stash, acts, U, drop, None, cs, c_prev,
+                       dhs, dhT, dcT, act, 0, bf16, True)
+
+
+fused_lstm_bwd_stash.launches = 0
+
+
+def fused_lstm_bwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
+                   h_prev: torch.Tensor, c_prev: torch.Tensor,
+                   dhs: torch.Tensor, dhT: Optional[torch.Tensor] = None,
+                   dcT: Optional[torch.Tensor] = None, act: str = "tanh",
+                   qbits: int = 0, bf16: bool = False):
+    """BPTT with recompute (TPU kernel ``_build_bwd``): ``gates`` are the
+    forward's inputs, ``h_prev``/``c_prev`` (T, B, H) the carries
+    entering each step. -> as :func:`fused_lstm_bwd_stash`."""
+    drop = _check_bwd("gates", gates, U, drop, act,
+                      (("h_prev", h_prev), ("c_prev", c_prev), ("dhs", dhs)),
+                      dhT, dcT)
+    if gates.device.type == "cpu":
+        return fused_lstm_bwd_plain(gates, U, drop, h_prev, c_prev, dhs, dhT,
+                                    dcT, act, qbits, bf16)
+    return _bwd_kernel(fused_lstm_bwd, gates, U, drop, h_prev, None, c_prev,
+                       dhs, dhT, dcT, act, qbits, bf16, False)
+
+
+fused_lstm_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+class _FusedLSTM(torch.autograd.Function):
+    """The JAX package's ``lstm_scan_fused`` / ``lstm_scan_fused_seeded``
+    custom VJPs. Zero carry -> hs; seeded -> (hs, h_T, c_T)."""
+
+    @staticmethod
+    def forward(ctx, gates, U, drop, h0, c0, act, qbits, bf16):
+        stash = bwd_stash_enabled("lstm")
+        seeded = h0 is not None
+        out = fused_lstm_fwd(gates, U, drop, h0, c0, act, qbits, bf16, stash)
+        hs, cs = out[0], out[1]
+        ctx.meta = (act, qbits, bf16, stash, seeded)
+        ctx.save_for_backward(gates if not stash else None, U, drop, h0, c0,
+                              hs, cs, out[2] if stash else None)
+        ctx.set_materialize_grads(False)
+        if not seeded:
+            return hs
+        return hs, hs[-1].clone(), cs[-1].clone()
+
+    @staticmethod
+    def backward(ctx, dhs, dhT=None, dcT=None):
+        act, qbits, bf16, stash, seeded = ctx.meta
+        gates, U, drop, h0, c0, hs, cs, acts = ctx.saved_tensors
+        T, B, H = hs.shape
+        dhs = torch.zeros_like(hs) if dhs is None else dhs.contiguous()
+        zero = hs.new_zeros((1, B, H))
+        h_prev = torch.cat([h0[None] if seeded else zero, hs[:-1]])
+        c_prev = torch.cat([c0[None] if seeded else zero, cs[:-1]])
+        if seeded:
+            dhT = torch.zeros_like(h0) if dhT is None else dhT.contiguous()
+            dcT = torch.zeros_like(c0) if dcT is None else dcT.contiguous()
+        if stash:
+            out = fused_lstm_bwd_stash(acts, U, drop, cs, c_prev, dhs, dhT,
+                                       dcT, act, bf16)
+        else:
+            out = fused_lstm_bwd(gates, U, drop, h_prev, c_prev, dhs, dhT,
+                                 dcT, act, qbits, bf16)
+        dg, dh0, dc0 = out if seeded else (out, None, None)
+        dU = None
+        if ctx.needs_input_grad[1]:
+            # one K=T*B product over the unrolled batch, h quantized per step
+            hq = (quantize_input_per_step(h_prev, qbits) if qbits > 0
+                  else h_prev)
+            dgf, hqf = dg.reshape(T * B, 4 * H), hq.reshape(T * B, H)
+            if bf16:
+                dgf, hqf = bf16_round(dgf), bf16_round(hqf)
+            dU = dgf.T @ hqf
+        return dg, dU, None, dh0, dc0, None, None, None
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _is_bf16(compute_dtype: str) -> bool:
+    return compute_dtype in ("bf16", "bfloat16")
 
 
 def lstm_scan_fused(gates_t: torch.Tensor, U: torch.Tensor,
                     drop_mask: torch.Tensor, act: str = "tanh",
                     quant_bits: int = 0, compute_dtype: str = ""
                     ) -> torch.Tensor:
-    """hs (T, B, H) from zero initial state (the JAX package's
-    ``lstm_scan_fused``, forward only)."""
-    bf16 = compute_dtype in ("bf16", "bfloat16")
+    """hs (T, B, H) from zero initial state, differentiable in
+    ``gates_t`` and ``U`` (``drop_mask`` is a constant)."""
+    bf16 = _is_bf16(compute_dtype)
+    if _needs_grad(gates_t, U):
+        return _FusedLSTM.apply(gates_t, U, drop_mask, None, None, act,
+                                quant_bits, bf16)
     return fused_lstm_fwd(gates_t, U, drop_mask, act=act, qbits=quant_bits,
                           bf16=bf16)[0]
 
 
-def lstm_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
+def lstm_scan_fused_seeded(gates_t: torch.Tensor, U: torch.Tensor,
                            drop_mask: torch.Tensor, h0: torch.Tensor,
                            c0: torch.Tensor, act: str = "tanh",
                            quant_bits: int = 0, compute_dtype: str = ""):
-    """Seeded-carry variant for streaming: -> ``(hs, (h_T, c_T))``."""
-    bf16 = compute_dtype in ("bf16", "bfloat16")
+    """Seeded carry: -> ``(hs, (h_T, c_T))``, differentiable in
+    ``gates_t``, ``U``, ``h0`` and ``c0``. Without gradients it is the
+    streaming forward."""
+    bf16 = _is_bf16(compute_dtype)
+    if _needs_grad(gates_t, U, h0, c0):
+        hs, hT, cT = _FusedLSTM.apply(gates_t, U, drop_mask, h0, c0, act,
+                                      quant_bits, bf16)
+        return hs, (hT, cT)
     hs, cs = fused_lstm_fwd(gates_t, U, drop_mask, h0, c0, act=act,
                             qbits=quant_bits, bf16=bf16)
     return hs, (hs[-1], cs[-1])
+
+
+#: The streaming name the serving path uses.
+lstm_scan_fused_stream = lstm_scan_fused_seeded

@@ -18,14 +18,27 @@ def quantize_weight(w: torch.Tensor, num_bits: int) -> torch.Tensor:
     return torch.ceil(w.abs() * scale) / scale * torch.sign(w)
 
 
-def quantize_input(x: torch.Tensor, num_bits: int) -> torch.Tensor:
-    """Normalize by max |x| over the whole tensor, ceil-quantize the
-    magnitude to 2^(b-1) levels, rescale. No-op on an all-zero tensor."""
+def _quantize_by(x: torch.Tensor, var: torch.Tensor, num_bits: int
+                 ) -> torch.Tensor:
     scale = 2.0 ** (num_bits - 1)
-    var = x.abs().max()
     safe = torch.where(var == 0, torch.ones_like(var), var)
     q = torch.ceil(x.abs() / safe * scale) / scale * safe * torch.sign(x)
     return torch.where(var == 0, x, q)
+
+
+def quantize_input(x: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """Normalize by max |x| over the whole tensor, ceil-quantize the
+    magnitude to 2^(b-1) levels, rescale. No-op on an all-zero tensor."""
+    return _quantize_by(x, x.abs().max(), num_bits)
+
+
+def quantize_input_per_step(x: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """:func:`quantize_input` applied to each (B, H) step of a (T, B, H)
+    sequence with that step's own scale max|x_t| (the JAX package's
+    ``_q_vmap``): the fused recurrence quantizes h per step, so the
+    ``dU`` contraction over the unrolled (T*B) batch must too."""
+    return _quantize_by(x, x.abs().amax(dim=tuple(range(1, x.ndim)),
+                                        keepdim=True), num_bits)
 
 
 def ste_quantize_weight(w: torch.Tensor, num_bits: int) -> torch.Tensor:
