@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the serving path and
-the training step.
+the training step of the flagship 2x512 LSTM, and of the 2x1024 CGS-16x
+LSTM through the block-sparse recurrence.
 
     python3 chip_smoke.py
 
@@ -31,6 +32,26 @@ Phases (any failure raises and the script exits non-zero):
 7. times   — CUDA-event times of every kernel, its twin, its bound and a
              cuDNN yardstick; the recognizer's ms per batch and audio-s/s;
              the train step's ms and frames/s and its device busy share.
+8. sparse_kernels — the sparse forward (plain and stash), both sparse
+             BPTT kernels and the block-sparse dw kernel against their
+             twins: qbits 0/16, tanh/relu, w3g in f32 and in bf16 (the
+             bf16 case forced by a small PKC_SPARSE_SCAN_VMEM_MB), dw with
+             and without the level-2 submask, at a small shape, the
+             serving shape (T=398, B=8, H=1024) and the training shape
+             (T=300, B=16, H=1024), on the CGS-16x recurrent layout.
+9. sparse_serve — ``Recognizer.recognize`` over the CGS-16x stack (the
+             cfg's 2x1024 LSTM with lstm_block_sparse=auto -> 1944-way
+             head, feat_dim 40) on the same audio: card vs CPU, the
+             sparse forward's launches; ``StreamingRecognizer`` (the dense
+             seeded kernel) in one chunk and in chunks of 100 frames,
+             against the sparse whole-utterance posteriors.
+10. sparse_train — ``ChunkRunner.train_step`` over the CGS-16x cfg's
+             sections (two heads, cd 1944 and mono 48, loss_cd + loss_mono;
+             x of width 143, T=300, B=16): card vs CPU, launches per step
+             (stash and recompute), 10 steps in f32 and in bf16.
+11. sparse_times — the new kernels' times, twins, bounds and yardsticks,
+             the dense fused kernels on the same H=1024 layer, and the
+             CGS-16x train step and recognize.
 
 The line before the last pair is the kernels JSON, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, ...}``. Needs
@@ -49,7 +70,6 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-KERNELS = ["fused_lstm_fwd", "fused_lstm_bwd"]
 SERVE_TBH = (398, 8, 512)        # 4 s at 16 kHz -> 398 frames, B=8, H=512
 TRAIN_TBH = (300, 16, 512)       # bench.py's flagship train step
 SMALL_TBH = (13, 5, 18)          # ragged: B not a multiple of 8, H of 4
@@ -84,6 +104,20 @@ TOL_STREAM = 1e-5                # same kernels, chunked: row-count-dependent GE
 HEAD_GAIN = 1000.0
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FLOPS = {"f32": 67e12, "bf16": 989e12}   # f32 without tensor cores
+
+# The CGS-16x slice: cfg/TIMIT_CGS/TIMIT_LSTM_fmllr_cgs_hcgs_16x_a.cfg
+CGS_CFG = os.path.join(ROOT, "cfg", "TIMIT_CGS",
+                       "TIMIT_LSTM_fmllr_cgs_hcgs_16x_a.cfg")
+SP_SMALL_TBH = (13, 5, 256)      # 128-blocks: Kb=2, R=1
+SP_SERVE_TBH = (398, 8, 1024)    # Kb=8, R=2: a quarter of U's blocks
+SP_TRAIN_TBH = (300, 16, 1024)
+N_MONO = 48                      # stands in for TIMIT's mono phone count
+# The masked 1944-way head sees ~1/16 of its 1024 inputs: a larger gain
+# than the flagship's gives its logits a like spread.
+CGS_HEAD_GAIN = 4000.0
+# PKC_SPARSE_SCAN_VMEM_MB at which the JAX package's size rule reads w3g
+# in bf16 at both the serving and the training shape (4.2 MB of w3g)
+SP_BF16_VMEM_MB = "4"
 
 
 def flagship_options(to_do="forward", compute_dtype=""):
@@ -142,13 +176,13 @@ def build_stack(dev, feat_dim=40):
     return Stack(lstm, mlp).eval()
 
 
-def build_recognizer(dev):
+def build_recognizer(dev, stack_fn=build_stack):
     from pytorch_kaldi_cgs_tpu_torch.decode.viterbi import PhoneLoopHMM
     from pytorch_kaldi_cgs_tpu_torch.ops.frontend import Frontend
     from pytorch_kaldi_cgs_tpu_torch.runtime.serve import Recognizer
     p = np.random.RandomState(2).rand(PHONES * SPP) + 0.1
     log_priors = np.log(p / p.sum()).astype(np.float32)
-    return Recognizer(build_stack(dev), PhoneLoopHMM(PHONES, SPP),
+    return Recognizer(stack_fn(dev), PhoneLoopHMM(PHONES, SPP),
                       frontend=Frontend(sample_rate=SR, num_mel_bins=40),
                       log_priors=log_priors, seq_model=True, device=dev)
 
@@ -189,11 +223,12 @@ def sync(dev):
 def phase_build():
     from pytorch_kaldi_cgs_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    logs = _build.build(KERNELS)
+    logs = _build.build(_build.SOURCES)
     for name, log in logs.items():
         print("[build] %s.cu (nvcc -Xptxas -v):\n%s" % (name, log.strip()))
     print("[build] %d kernel source(s) in %.1f s -> %s"
-          % (len(KERNELS), time.perf_counter() - t0, _build.BUILD_DIR))
+          % (len(_build.SOURCES), time.perf_counter() - t0,
+             _build.BUILD_DIR))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -241,31 +276,32 @@ def phase_kernels(dev, shapes=(SMALL_TBH, SERVE_TBH)):
     return checks
 
 
-def phase_serve(dev, audio, lens):
-    """The main path: Recognizer.recognize, launch counter read around
-    it; then the same recognizer on the CPU (plain twin)."""
-    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
-    rec = build_recognizer(dev)
+def phase_serve(dev, audio, lens, stack_fn=build_stack, tag="serve",
+                kernel="fused_lstm_fwd"):
+    """A serving path: Recognizer.recognize with every launch counter
+    set to 0 just before and read just after (``kernel`` must run 2
+    layers x T times, no other kernel); then the same recognizer on the
+    CPU (the plain twins)."""
+    rec = build_recognizer(dev, stack_fn)
     T_frames = rec.frontend.num_frames(audio.shape[1])
-    F.fused_lstm_fwd.launches = 0
-    phones = rec.recognize(audio, lens)
-    launches = F.fused_lstm_fwd.launches
-    print("[serve] recognize: fused_lstm_fwd launches %d (2 layers x %d steps)"
-          % (launches, T_frames))
-    if torch.device(dev).type == "cuda" and launches != 2 * T_frames:
-        raise AssertionError("the main path did not run the kernel: %d "
-                             "launches, expected %d" % (launches, 2 * T_frames))
+    phones, launches = counted(lambda: rec.recognize(audio, lens))
+    print("[%s] recognize: launches %s (%s: 2 layers x %d steps)"
+          % (tag, launches, kernel, T_frames))
+    if launches != expected(**{kernel: 2 * T_frames}):
+        raise AssertionError("the %s path did not run %s alone: launches %s"
+                             % (tag, kernel, launches))
+    launches = launches[kernel]
     logp = rec.posteriors(audio)
     if tuple(logp.shape) != (N_UTT, T_frames, PHONES * SPP) or \
             not bool(torch.isfinite(logp).all()):
         raise AssertionError("bad posteriors: %s" % (tuple(logp.shape),))
-    ref = build_recognizer("cpu")
+    ref = build_recognizer("cpu", stack_fn)
     logp_ref = ref.posteriors(audio)
     err = float((logp.cpu() - logp_ref.cpu()).abs().max())
     phones_ref = ref.recognize(audio, lens)
-    print("[serve] log-posteriors %s vs %s: max abs err %.3g (tol %g); "
+    print("[%s] log-posteriors %s vs %s: max abs err %.3g (tol %g); "
           "phones equal: %s; phones per utt: %s"
-          % (dev, "cpu", err, TOL_POST, phones == phones_ref,
+          % (tag, dev, "cpu", err, TOL_POST, phones == phones_ref,
              [len(p) for p in phones]))
     if not err <= TOL_POST:
         raise AssertionError("recognizer posteriors disagree with the CPU")
@@ -274,31 +310,54 @@ def phase_serve(dev, audio, lens):
     return rec, phones, logp, launches, err
 
 
-def phase_stream(dev, rec, audio, lens, phones, logp, chunk=100):
-    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+def phase_stream(dev, rec, audio, lens, phones, logp, chunk=100,
+                 tag="stream", tol=TOL_STREAM):
+    """StreamingRecognizer over the recognizer's features in chunks: the
+    dense seeded kernel (the only streaming kernel) against whole-
+    utterance posteriors ``logp`` within ``tol``, and the phones."""
     from pytorch_kaldi_cgs_tpu_torch.runtime.serve import StreamingRecognizer
     srec = StreamingRecognizer(rec.model, hmm=rec.hmm,
                                log_priors=rec.log_priors.cpu().numpy(),
                                device=dev)
     x = rec.features(audio).transpose(0, 1).contiguous()      # (T, B, F)
     T = x.shape[0]
-    F.fused_lstm_fwd.launches = 0
     sess = srec.start()
-    for a in range(0, T, chunk):
-        srec.accept(sess, x[a:a + chunk])
-    launches = F.fused_lstm_fwd.launches
+
+    def accept_all():
+        for a in range(0, T, chunk):
+            srec.accept(sess, x[a:a + chunk])
+    _, launches = counted(accept_all)
+    if launches != expected(fused_lstm_fwd=2 * T):
+        raise AssertionError("%s: launches %s, expected the dense seeded "
+                             "kernel 2 x %d times" % (tag, launches, T))
+    launches = launches["fused_lstm_fwd"]
     streamed = np.concatenate(sess["chunks"]).transpose(1, 0, 2)
     err = float(np.abs(streamed - logp.cpu().numpy()).max())
     final = srec.finalize(sess, rec.frame_lengths(N_UTT, audio.shape[1], lens))
-    print("[stream] %d chunks of <=%d frames: launches %d; streamed vs "
+    print("[%s] %d chunks of <=%d frames: launches %d; streamed vs "
           "whole max abs err %.3g (tol %g); finalize == recognize: %s"
-          % (-(-T // chunk), chunk, launches, err, TOL_STREAM,
+          % (tag, -(-T // chunk), chunk, launches, err, tol,
              final == phones))
-    if torch.device(dev).type == "cuda" and launches != 2 * T:
-        raise AssertionError("streaming did not run the kernel")
-    if not err <= TOL_STREAM or final != phones:
-        raise AssertionError("streaming disagrees with the whole utterance")
+    if not err <= tol or final != phones:
+        raise AssertionError("%s disagrees with the whole utterance" % tag)
     return launches, err
+
+
+def phase_sparse_stream(dev, rec, audio, lens, phones, logp):
+    """The CGS-16x stack streams on the dense seeded kernel (the JAX
+    package turns the sparse recurrence off under a stream). One chunk of
+    the whole utterance is held to the sparse whole-utterance posteriors
+    within TOL_STREAM, as slice 1's stream. Chunks of 100 frames are held
+    within TOL_POST: the input quantizer scales by max|x| over each call,
+    so a chunk's features quantize otherwise than the whole utterance's
+    (in both packages)."""
+    T = rec.frontend.num_frames(audio.shape[1])
+    _, err_one = phase_stream(dev, rec, audio, lens, phones, logp, chunk=T,
+                              tag="sparse_stream_one_chunk")
+    launches, err = phase_stream(dev, rec, audio, lens, phones, logp,
+                                 tag="sparse_stream", tol=TOL_POST)
+    return launches, {"one_chunk_vs_sparse": err_one,
+                      "chunked_vs_sparse": err}
 
 
 @contextlib.contextmanager
@@ -501,32 +560,48 @@ def train_runner(dev, compute_dtype=""):
     return ChunkRunner(graph, config), batch
 
 
+def wrappers():
+    """Every kernel wrapper of the port, by kernel name."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    return {"fused_lstm_fwd": F.fused_lstm_fwd,
+            "fused_lstm_bwd_stash": F.fused_lstm_bwd_stash,
+            "fused_lstm_bwd": F.fused_lstm_bwd,
+            "fused_lstm_fwd_sparse": F.fused_lstm_fwd_sparse,
+            "fused_lstm_bwd_sparse_stash": F.fused_lstm_bwd_sparse_stash,
+            "fused_lstm_bwd_sparse": F.fused_lstm_bwd_sparse,
+            "block_sparse_dw": BS.block_sparse_dw}
+
+
 def counted(fn):
     """Run fn with every kernel's launch counter set to 0 just before and
     read just after. -> (fn's result, {kernel: launches})."""
-    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
-    wrappers = {"fused_lstm_fwd": F.fused_lstm_fwd,
-                "fused_lstm_bwd_stash": F.fused_lstm_bwd_stash,
-                "fused_lstm_bwd": F.fused_lstm_bwd}
-    for w in wrappers.values():
+    wrappers_ = wrappers()
+    for w in wrappers_.values():
         w.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {n: w.launches for n, w in wrappers.items()}
+    return out, {n: w.launches for n, w in wrappers_.items()}
 
 
 @contextlib.contextmanager
-def recompute_backward(on):
-    """PKC_LSTM_BWD_RECOMPUTE, the JAX package's knob for the backward."""
-    old = os.environ.get("PKC_LSTM_BWD_RECOMPUTE")
-    os.environ["PKC_LSTM_BWD_RECOMPUTE"] = "1" if on else "0"
+def env(name, value):
+    """The environment variable ``name`` set to ``value`` (None: unset)
+    inside the block: the JAX package's knobs, PKC_LSTM_BWD_RECOMPUTE
+    (the backward) and PKC_SPARSE_SCAN_VMEM_MB (the sparse recurrence's
+    eligibility and weight-dtype rule)."""
+    old = os.environ.get(name)
+
+    def put(v):
+        if v is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = v
+    put(value)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["PKC_LSTM_BWD_RECOMPUTE"]
-        else:
-            os.environ["PKC_LSTM_BWD_RECOMPUTE"] = old
+        put(old)
 
 
 def grads_of(runner):
@@ -534,25 +609,36 @@ def grads_of(runner):
             for k, p in net.params.items()}
 
 
-def phase_train(dev):
-    """The main training path: ChunkRunner.train_step on the card. One
-    step against the CPU, launches per step (stash and recompute), then
-    TRAIN_STEPS steps on the one batch in f32 and bf16."""
-    T, B, H = TRAIN_TBH
+def expected(**nonzero):
+    """Launches per kernel: the ones named, 0 for every other kernel."""
+    out = dict.fromkeys(wrappers(), 0)
+    out.update(nonzero)
+    return out
+
+
+def phase_train(dev, make_runner=train_runner, tag="train",
+                expect_stash=None, expect_recompute=None):
+    """A training path: ChunkRunner.train_step on the card. One step
+    against the CPU, launches per step (stash and recompute), then
+    TRAIN_STEPS steps on the one batch in f32 and bf16. Defaults: the
+    flagship's, whose two layers run the dense kernels T times each."""
     out = {}
-    runner, (inp, mask) = train_runner(dev)
-    with recompute_backward(False):
+    runner, (inp, mask) = make_runner(dev)
+    T, B = inp.shape[:2]
+    expect_stash = expect_stash or expected(fused_lstm_fwd=2 * T,
+                                            fused_lstm_bwd_stash=2 * T)
+    expect_recompute = expect_recompute or expected(fused_lstm_fwd=2 * T,
+                                                    fused_lstm_bwd=2 * T)
+    with env("PKC_LSTM_BWD_RECOMPUTE", "0"):
         (loss, err), launches = counted(lambda: runner.train_step(inp, mask))
     out["launches_stash"] = launches
-    print("[train] step (stash backward): loss %.6f err %.4f, launches %s"
-          % (float(loss), float(err), launches))
-    expect = {"fused_lstm_fwd": 2 * T, "fused_lstm_bwd_stash": 2 * T,
-              "fused_lstm_bwd": 0}
-    if launches != expect:
-        raise AssertionError("train step launches %s, expected %s"
-                             % (launches, expect))
-    cpu, _ = train_runner("cpu")
-    with recompute_backward(False):
+    print("[%s] step (stash backward): loss %.6f err %.4f, launches %s"
+          % (tag, float(loss), float(err), launches))
+    if launches != expect_stash:
+        raise AssertionError("%s step launches %s, expected %s"
+                             % (tag, launches, expect_stash))
+    cpu, _ = make_runner("cpu")
+    with env("PKC_LSTM_BWD_RECOMPUTE", "0"):
         loss_c, err_c = cpu.train_step(inp, mask)
     g_dev, g_cpu = grads_of(runner), grads_of(cpu)
     grad_errs = {k: float((g_dev[k].cpu() - g_cpu[k]).abs().max())
@@ -563,31 +649,30 @@ def phase_train(dev):
                err_card=float(err), err_cpu=float(err_c),
                loss_rel_err=loss_rel, grads_compared=len(grad_errs),
                grad_rel_err_max=grad_errs[worst], grad_rel_err_worst=worst)
-    print("[train] card vs CPU: loss %.7f vs %.7f (rel %.3g, tol %g); %d "
+    print("[%s] card vs CPU: loss %.7f vs %.7f (rel %.3g, tol %g); %d "
           "gradients, worst rel err %.3g at %s (tol %g)"
-          % (float(loss), float(loss_c), loss_rel, TOL_LOSS_REL,
+          % (tag, float(loss), float(loss_c), loss_rel, TOL_LOSS_REL,
              len(grad_errs), grad_errs[worst], worst, TOL_GRAD_REL))
     if not (loss_rel <= TOL_LOSS_REL and grad_errs[worst] <= TOL_GRAD_REL
             and abs(float(err) - float(err_c)) <= 1.0 / (T * B) + 1e-7):
-        raise AssertionError("train step on the card disagrees with the CPU")
-    with recompute_backward(True):
+        raise AssertionError("%s step on the card disagrees with the CPU"
+                             % tag)
+    with env("PKC_LSTM_BWD_RECOMPUTE", "1"):
         (loss_r, _), launches = counted(lambda: runner.train_step(inp, mask))
     out["launches_recompute"] = launches
-    print("[train] step (recompute backward): loss %.6f, launches %s"
-          % (float(loss_r), launches))
-    expect = {"fused_lstm_fwd": 2 * T, "fused_lstm_bwd_stash": 0,
-              "fused_lstm_bwd": 2 * T}
-    if launches != expect:
-        raise AssertionError("recompute train step launches %s, expected %s"
-                             % (launches, expect))
+    print("[%s] step (recompute backward): loss %.6f, launches %s"
+          % (tag, float(loss_r), launches))
+    if launches != expect_recompute:
+        raise AssertionError("%s recompute step launches %s, expected %s"
+                             % (tag, launches, expect_recompute))
     for cdt in ("", "bf16"):
-        r, (inp, mask) = train_runner(dev, cdt)
+        r, (inp, mask) = make_runner(dev, cdt)
         losses = [float(r.train_step(inp, mask)[0])
                   for _ in range(TRAIN_STEPS)]
         name = "bf16" if cdt else "f32"
         out["losses_" + name] = losses
-        print("[train] %s: %d steps on one batch, loss %s"
-              % (name, TRAIN_STEPS, ["%.4f" % v for v in losses]))
+        print("[%s] %s: %d steps on one batch, loss %s"
+              % (tag, name, TRAIN_STEPS, ["%.4f" % v for v in losses]))
         if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise AssertionError("%s training loss did not fall" % name)
     return out
@@ -607,21 +692,24 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def lstm_bound_ms(T, B, H, dtype="f32", kind="fwd"):
+def lstm_bound_ms(T, B, H, dtype="f32", kind="fwd", kept=None):
     """Least time for one layer call: each input read once, each output
     written once, over the HBM rate; the FMAs over the peak of their
     type. kind: "fwd" (gates, drop, U in; hs, cs out), "fwd_stash" (and
     the (T, B, 4H) activations out), "bwd_stash" (activations, cs,
     c_prev, dhs, drop, U in; dg out; one (B, 4H) x (4H, H) product per
     step), "bwd" (gates, h_prev, c_prev, dhs, drop, U in; dg out; that
-    product and the forward's). -> (ms, "bytes"|"operations")."""
+    product and the forward's). ``kept``: the block-sparse recurrence's
+    R*bs kept columns per row of U (w3g is (4H, kept) in all), None for
+    the dense U. -> (ms, "bytes"|"operations")."""
     u_bytes = 2 if dtype == "bf16" else 4
+    kept = H if kept is None else kept
     gates, seq, bh = T * B * 4 * H * 4, T * B * H * 4, B * H * 4
     nbytes = {"fwd": gates + bh + 2 * seq,
               "fwd_stash": 2 * gates + bh + 2 * seq,
               "bwd_stash": 2 * gates + bh + 3 * seq,
-              "bwd": 2 * gates + bh + 3 * seq}[kind] + 4 * H * H * u_bytes
-    flops = 2 * T * B * H * 4 * H * (2 if kind == "bwd" else 1)
+              "bwd": 2 * gates + bh + 3 * seq}[kind] + 4 * H * kept * u_bytes
+    flops = 2 * T * B * 4 * H * kept * (2 if kind == "bwd" else 1)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_FLOPS[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -777,8 +865,9 @@ def step_parts(runner, inp, mask, reps=5):
 
 def kernel_classes(by_name):
     """Device ms per class of kernel, from the profile's kernel names."""
-    classes = {"lstm_fwd_kernel": ("lstm_step",),
-               "lstm_bptt_kernel": ("lstm_bwd",),
+    classes = {"lstm_fwd_kernel": ("lstm_step", "sparse_fwd_step"),
+               "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step"),
+               "block_sparse_dw_kernel": ("dw3_tile",),
                "matmul": ("gemm", "cutlass", "sm90_", "ampere_", "cublas"),
                }
     out = {k: 0.0 for k in classes}
@@ -824,6 +913,382 @@ def device_busy(fn, top=6):
             "top_kernels_ms": [[name[:60], n, t / 1e3]
                                for name, (n, t) in ranked[:top]],
             "by_name": by_name}
+
+
+# ---------------------------------------------------------------------------
+# the CGS-16x slice: the block-sparse HCGS recurrence
+# ---------------------------------------------------------------------------
+
+def cgs_sections(compute_dtype=""):
+    """The CGS-16x cfg's [architecture1..3] and [model], read from the
+    file, with lstm_block_sparse=auto (the JAX package's default; the
+    file says False), the port's arch_library, N_out_lab_cd = 1944 and
+    N_out_lab_mono = 48."""
+    import configparser
+    src = configparser.ConfigParser()
+    if not src.read(CGS_CFG):
+        raise FileNotFoundError(CGS_CFG)
+    secs = {k: dict(src[k]) for k in ("architecture1", "architecture2",
+                                      "architecture3", "model")}
+    secs["architecture1"]["lstm_block_sparse"] = "auto"
+    for k in ("architecture1", "architecture2", "architecture3"):
+        secs[k]["arch_library"] = "pytorch_kaldi_cgs_tpu_torch.models"
+        secs[k]["compute_dtype"] = compute_dtype
+    for k, n in (("architecture2", "N_out_lab_cd"),
+                 ("architecture3", "N_out_lab_mono")):
+        secs[k]["dnn_lay"] = secs[k]["dnn_lay"].replace(
+            n, str(PHONES * SPP if n.endswith("cd") else N_MONO))
+    return secs
+
+
+def build_cgs_stack(dev, feat_dim=40):
+    """The CGS-16x LSTM -> its 1944-way cd head (weights from init(0) /
+    init(1)); both recurrences must take the block-sparse path."""
+    from pytorch_kaldi_cgs_tpu_torch.models import LSTM, MLP
+    secs = cgs_sections()
+    lstm = LSTM(dict(secs["architecture1"], to_do="forward"), feat_dim,
+                seed=0, device=dev)
+    mlp = MLP(dict(secs["architecture2"], to_do="forward"), lstm.out_dim,
+              seed=1, device=dev)
+    if sorted(lstm._rec_layouts) != [0, 1]:
+        raise AssertionError("the CGS-16x recurrences have no sparse layout")
+    with torch.no_grad():
+        mlp.params["w0"].mul_(CGS_HEAD_GAIN)
+    return Stack(lstm, mlp).eval()
+
+
+def cgs_layout(H, seed):
+    """A CGS-16x recurrent mask (HCGS 128,8 at 75,75) of width H, its
+    layout, the level-2 submask in the w3g layout of the four gates."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.sparsity.hcgs import hcgs_mask
+    mask = hcgs_mask(H, H, [128, 8], [75, 75],
+                     rng=np.random.RandomState(seed))
+    layout = BS.pack_layout(mask, 128)
+    sub3 = BS.stack_w3_gates([BS.pack_w3(mask, layout)] * 4)
+    return mask, layout, sub3
+
+
+def sparse_inputs(T, B, H, seed, dev):
+    """Gates, the masked dense U (4H, H) and its w3g, a (B, H) dropout
+    mask and upstream cotangents, on the CGS-16x recurrent layout."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    mask, layout, sub3 = cgs_layout(H, seed)
+    rng = np.random.RandomState(seed + 1)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    U = rng.randn(4 * H, H) / np.sqrt(layout.R * layout.bs / 4.0)
+    U = (U * np.tile(mask, (4, 1))).astype(np.float32)
+    w3g = BS.stack_w3_gates([BS.pack_w3(U[g * H:(g + 1) * H], layout)
+                             for g in range(4)])
+    return {"g": t(rng.randn(T, B, 4 * H) * 0.5), "U": t(U), "w3g": t(w3g),
+            "drop": t((rng.rand(B, H) > 0.2) * 1.0),
+            "dhs": t(rng.randn(T, B, H) * 0.1), "layout": layout,
+            "sub3": t(sub3)}
+
+
+def dw_operands(dg, h_prev, layout):
+    """A layer's dU operands over (T*B), as ``sparse_dU`` hands them to
+    the dw kernel: dg in its (M, Nb*4*bs) order, and h_prev (M, H)."""
+    T, B, H = h_prev.shape
+    dg_flat = dg.reshape(T * B, 4, layout.Nb, layout.bs).transpose(1, 2) \
+        .reshape(T * B, -1).contiguous()
+    return dg_flat, h_prev.reshape(T * B, H).contiguous()
+
+
+def phase_sparse_kernels(dev):
+    """The sparse forward (plain and stash), both sparse BPTT kernels
+    and the block-sparse dw kernel against their twins on the same
+    tensors: qbits 0/16 x tanh/relu x w3g f32/bf16; dw with and without
+    the level-2 submask; at the small, serving and training shapes."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    checks = []
+
+    def check(name, shape, variant, err_rel, tol, by_rel):
+        err, rel = err_rel
+        c = {"kernel": name, "T": shape[0], "B": shape[1], "H": shape[2],
+             **variant, "max_abs_err": err, "rel_err": rel, "tol": tol,
+             "ok": bool(np.isfinite(err) and (rel if by_rel else err) <= tol)}
+        checks.append(c)
+        print("[sparse_kernels] %s" % json.dumps(c))
+
+    for shape in (SP_SMALL_TBH, SP_SERVE_TBH, SP_TRAIN_TBH):
+        T, B, H = shape
+        small, serve = shape == SP_SMALL_TBH, shape == SP_SERVE_TBH
+        cases = [(wbf16, qbits, act) for wbf16 in (False, True)
+                 for qbits in (0, 16) for act in ("tanh", "relu")]
+        for k, (wbf16, qbits, act) in enumerate(cases):
+            inp = sparse_inputs(T, B, H, 70 + k, dev)
+            g, w3g, drop, dhs, layout = (inp[n] for n in (
+                "g", "w3g", "drop", "dhs", "layout"))
+            # the JAX package's rule reads w3g in bf16 when its budget is
+            # small; a 256-wide layer always fits, so there the bf16
+            # variant is asked for directly
+            with env("PKC_SPARSE_SCAN_VMEM_MB",
+                     SP_BF16_VMEM_MB if wbf16 else None):
+                rule = F.sparse_scan_fits(B, H, layout)
+            if not small and rule != ("bf16" if wbf16 else "f32"):
+                raise AssertionError("sparse_scan_fits gave %r" % rule)
+            bf16 = wbf16
+            variant = {"w3g": "bf16" if bf16 else "f32", "qbits": qbits,
+                       "act": act, "Kb": layout.Kb, "R": layout.R}
+            tol = TOL_BF16 if bf16 else (TOL_F32_SMALL if small
+                                         else TOL_F32_SERVE)
+            with torch.no_grad():
+                ref = F.fused_lstm_fwd_sparse_plain(g, w3g, drop, layout, act,
+                                                    qbits, bf16, True)
+                check("fused_lstm_fwd_sparse", shape, variant, rel_err(
+                    F.fused_lstm_fwd_sparse(g, w3g, drop, layout, act, qbits,
+                                            bf16), ref[:2]), tol, False)
+                if serve:
+                    continue
+                hs, cs, acts = F.fused_lstm_fwd_sparse(
+                    g, w3g, drop, layout, act, qbits, bf16, stash=True)
+                check("fused_lstm_fwd_sparse/stash", shape, variant,
+                      rel_err((hs, cs, acts), ref), tol, False)
+                h_prev, c_prev = shifted(hs, cs, None, None)
+                dg = F.fused_lstm_bwd_sparse_stash(acts, w3g, drop, cs, c_prev,
+                                                   dhs, layout, act, bf16)
+                check("fused_lstm_bwd_sparse_stash", shape, variant, rel_err(
+                    dg, F.fused_lstm_bwd_sparse_stash_plain(
+                        acts, w3g, drop, cs, c_prev, dhs, layout, act,
+                        bf16)), tol, True)
+                check("fused_lstm_bwd_sparse", shape, variant, rel_err(
+                    F.fused_lstm_bwd_sparse(g, w3g, drop, h_prev, c_prev, dhs,
+                                            layout, act, qbits, bf16),
+                    F.fused_lstm_bwd_sparse_plain(
+                        g, w3g, drop, h_prev, c_prev, dhs, layout, act, qbits,
+                        bf16)), tol, True)
+                if bf16 or qbits:
+                    continue
+                dg_flat, x = dw_operands(dg, h_prev, layout)
+                for sub in (None, inp["sub3"]):
+                    check("block_sparse_dw", shape,
+                          {"fuse_sub": sub is not None, "act": act,
+                           "M": T * B, "Kb": layout.Kb, "R": layout.R},
+                          rel_err(BS.block_sparse_dw(dg_flat, x, layout, 4,
+                                                     sub),
+                                  BS.block_sparse_dw_plain(dg_flat, x, layout,
+                                                           4, sub)),
+                          TOL_F32_SMALL, True)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("a sparse kernel disagrees with its plain "
+                             "twin: %s" % bad)
+    return checks
+
+
+def cgs_train_setup(compute_dtype=""):
+    """The CGS-16x train step as a chunk config + chunk: the cfg's
+    sections (cgs_sections) over an in-memory chunk of 16 sentences of
+    300 frames: fMLLR-shaped x ~ N(0, 1) of width 143 and cd labels in
+    [0, 1944) from RandomState(0) as train_setup draws them, then mono
+    labels in [0, 48). -> (config, chunk, (inp, mask) of the batch)."""
+    import configparser
+    from pytorch_kaldi_cgs_tpu_torch.data.dataset import (ChunkData,
+                                                          FeaStream,
+                                                          LabStream)
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import make_seq_batches
+    T, B, _ = SP_TRAIN_TBH
+    config = configparser.ConfigParser()
+    config.read_string(
+        "[exp]\nto_do = train\nseed = 0\n\n[batches]\nbatch_size_train = %d"
+        "\n\n[data_chunk]\nfea = fea_name=fmllr\n\tfea_lst=none\n"
+        "\tfea_opts=none\n\tcw_left=0\n\tcw_right=0\n"
+        "lab = lab_name=lab_cd\n\tlab_folder=none\n\tlab_opts=ali-to-pdf\n"
+        "\n\tlab_name=lab_mono\n\tlab_folder=none\n"
+        "\tlab_opts=ali-to-phones\n" % B)
+    for name, sec in cgs_sections(compute_dtype).items():
+        config[name] = sec
+    rng = np.random.RandomState(0)
+    x = rng.randn(T, B, FEAT).astype(np.float32)
+    cd = rng.randint(0, PHONES * SPP, (T, B))
+    mono = rng.randint(0, N_MONO, (T, B))
+    data = np.concatenate([np.concatenate(
+        [x[:, b], cd[:, b, None], mono[:, b, None]], 1)
+        for b in range(B)]).astype(np.float32)
+    chunk = ChunkData(["utt%02d" % b for b in range(B)], data,
+                      np.cumsum([T] * B),
+                      {"fmllr": FeaStream("fmllr", "none", col_start=0,
+                                          col_end=FEAT)},
+                      {"lab_cd": LabStream("lab_cd", "none", col=FEAT),
+                       "lab_mono": LabStream("lab_mono", "none",
+                                             col=FEAT + 1)})
+    inp, mask, _, _ = next(make_seq_batches(chunk, B, True,
+                                            np.random.RandomState(0),
+                                            bucket=T))
+    assert inp.shape == (T, B, FEAT + 2) and mask.all()
+    np.testing.assert_array_equal(inp[..., :FEAT], x)
+    return config, chunk, (inp, mask)
+
+
+def cgs_train_runner(dev, compute_dtype=""):
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    config, chunk, batch = cgs_train_setup(compute_dtype)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    if sorted(graph.nets["LSTM_layers"]._rec_layouts) != [0, 1]:
+        raise AssertionError("the CGS-16x recurrences have no sparse layout")
+    return ChunkRunner(graph, config), batch
+
+
+def phase_sparse_train(dev):
+    T = SP_TRAIN_TBH[0]
+    return phase_train(
+        dev, cgs_train_runner, "sparse_train",
+        expected(fused_lstm_fwd_sparse=2 * T,
+                 fused_lstm_bwd_sparse_stash=2 * T, block_sparse_dw=2),
+        expected(fused_lstm_fwd_sparse=2 * T, fused_lstm_bwd_sparse=2 * T,
+                 block_sparse_dw=2))
+
+
+def phase_sparse_times(dev, rec, audio, lens):
+    """CUDA-event times of the sparse kernels per layer call at the
+    training shape (the forward also at the serving shape), in f32 and
+    with w3g in bf16; their twins, bounds and yardsticks (cuDNN's dense
+    nn.LSTM(1024, 1024); torch.bmm over the pre-gathered dw operands);
+    the dense fused kernels on the same layer (the masked U, H=1024);
+    the CGS-16x train step and recognize."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    T, B, H = SP_TRAIN_TBH
+    inp = sparse_inputs(T, B, H, 97, dev)
+    g, U, w3g, drop, dhs, layout = (inp[n] for n in (
+        "g", "U", "w3g", "drop", "dhs", "layout"))
+    kept = layout.R * layout.bs
+    times = {}
+    with torch.no_grad():
+        for bf16 in (False, True):
+            sfx = "_bf16" if bf16 else ""
+            dt = "bf16" if bf16 else "f32"
+            hs, cs, acts = F.fused_lstm_fwd_sparse(g, w3g, drop, layout,
+                                                   bf16=bf16, stash=True)
+            h_prev, c_prev = shifted(hs, cs, None, None)
+            calls = {
+                "fused_lstm_fwd_sparse": (
+                    lambda: F.fused_lstm_fwd_sparse(
+                        g, w3g, drop, layout, bf16=bf16, stash=True),
+                    lambda: F.fused_lstm_fwd_sparse_plain(
+                        g, w3g, drop, layout, "tanh", 0, bf16, True),
+                    "fwd_stash"),
+                "fused_lstm_bwd_sparse_stash": (
+                    lambda: F.fused_lstm_bwd_sparse_stash(
+                        acts, w3g, drop, cs, c_prev, dhs, layout, bf16=bf16),
+                    lambda: F.fused_lstm_bwd_sparse_stash_plain(
+                        acts, w3g, drop, cs, c_prev, dhs, layout, "tanh",
+                        bf16), "bwd_stash"),
+                "fused_lstm_bwd_sparse": (
+                    lambda: F.fused_lstm_bwd_sparse(
+                        g, w3g, drop, h_prev, c_prev, dhs, layout, bf16=bf16),
+                    lambda: F.fused_lstm_bwd_sparse_plain(
+                        g, w3g, drop, h_prev, c_prev, dhs, layout, "tanh", 0,
+                        bf16), "bwd")}
+            for name, (fn, plain, kind) in calls.items():
+                times[name + "_ms" + sfx] = cuda_ms(fn, reps=10)
+                times[name + "_plain_ms" + sfx] = cuda_ms(plain, reps=2,
+                                                          warmup=1)
+                bound, by = lstm_bound_ms(T, B, H, dt, kind, kept)
+                times[name + "_bound_ms" + sfx] = bound
+                times[name + "_bound_by" + sfx] = by
+            # the dense fused kernels on the same layer: the masked U
+            dense = {
+                "fused_lstm_fwd": lambda: F.fused_lstm_fwd(
+                    g, U, drop, bf16=bf16, stash=True),
+                "fused_lstm_bwd_stash": lambda: F.fused_lstm_bwd_stash(
+                    acts, U, drop, cs, c_prev, dhs, bf16=bf16),
+                "fused_lstm_bwd": lambda: F.fused_lstm_bwd(
+                    g, U, drop, h_prev, c_prev, dhs, bf16=bf16)}
+            for name, fn in dense.items():
+                times["dense_" + name + "_ms" + sfx] = cuda_ms(fn, reps=10)
+        # the serving forward (no stash) at the serving shape
+        Ts, Bs, _ = SP_SERVE_TBH
+        sv = sparse_inputs(Ts, Bs, H, 96, dev)
+        for bf16 in (False, True):
+            sfx = "_bf16" if bf16 else ""
+            times["serve_fwd_sparse_ms" + sfx] = cuda_ms(
+                lambda: F.fused_lstm_fwd_sparse(sv["g"], sv["w3g"], sv["drop"],
+                                                sv["layout"], bf16=bf16),
+                reps=10)
+            times["serve_dense_fwd_ms" + sfx] = cuda_ms(
+                lambda: F.fused_lstm_fwd(sv["g"], sv["U"], sv["drop"],
+                                         bf16=bf16), reps=10)
+        times["serve_fwd_sparse_plain_ms"] = cuda_ms(
+            lambda: F.fused_lstm_fwd_sparse_plain(
+                sv["g"], sv["w3g"], sv["drop"], sv["layout"], "tanh", 0,
+                False), reps=2, warmup=1)
+        times["serve_fwd_sparse_bound_ms"], times["serve_fwd_sparse_bound_by"] \
+            = lstm_bound_ms(Ts, Bs, H, "f32", "fwd", kept)
+        # the block-sparse dw over (T*B) at the training shape
+        hs, cs, acts = F.fused_lstm_fwd_sparse(g, w3g, drop, layout,
+                                               stash=True)
+        h_prev, c_prev = shifted(hs, cs, None, None)
+        dg_flat, x = dw_operands(F.fused_lstm_bwd_sparse_stash(
+            acts, w3g, drop, cs, c_prev, dhs, layout), h_prev, layout)
+        sub3 = inp["sub3"]
+        times["block_sparse_dw_ms"] = cuda_ms(
+            lambda: BS.block_sparse_dw(dg_flat, x, layout, 4), reps=20)
+        times["block_sparse_dw_ms_fuse_sub"] = cuda_ms(
+            lambda: BS.block_sparse_dw(dg_flat, x, layout, 4, sub3), reps=20)
+        times["block_sparse_dw_plain_ms"] = cuda_ms(
+            lambda: BS.block_sparse_dw_plain(dg_flat, x, layout, 4), reps=5)
+        M = T * B
+        dgb = dg_flat.reshape(M, layout.Nb, 4 * layout.bs).permute(1, 2, 0) \
+            .contiguous()
+        xg = BS.gather_cols(x, layout).contiguous()
+        times["block_sparse_dw_library_ms"] = cuda_ms(
+            lambda: torch.bmm(dgb, xg), reps=20)
+        flops = 2 * M * 4 * layout.bs * kept * layout.Nb
+        nbytes = (dg_flat.numel() + x.numel()
+                  + layout.Nb * 4 * layout.bs * kept) * 4
+        t_ops = flops / H100_FLOPS["f32"] * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        times["block_sparse_dw_bound_ms"], times["block_sparse_dw_bound_by"] \
+            = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    # cuDNN's dense nn.LSTM at the same widths: a yardstick, not the
+    # same function (dense, no quantizer, no dropout mask)
+    cudnn = torch.nn.LSTM(H, H).to(dev)
+    xin = torch.randn(T, B, H, device=dev, requires_grad=True)
+    dy = torch.randn(T, B, H, device=dev)
+    fwd_ms = cuda_ms(lambda: cudnn(xin)[0], reps=10)
+    fb_ms = cuda_ms(lambda: cudnn(xin)[0].backward(dy), reps=10)
+    with torch.no_grad():
+        xs = torch.randn(Ts, Bs, H, device=dev)
+        times["cudnn_serve_fwd_ms"] = cuda_ms(lambda: cudnn(xs), reps=10)
+    times.update(cudnn_fwd_ms=fwd_ms, cudnn_fwd_bwd_ms=fb_ms,
+                 cudnn_bwd_ms=fb_ms - fwd_ms)
+    print("[sparse_times] kernels at T=%d B=%d H=%d (Kb=%d, R=%d): %s"
+          % (T, B, H, layout.Kb, layout.R, json.dumps(times)))
+    step = {}
+    for cdt in ("", "bf16"):
+        name = "bf16" if cdt else "f32"
+        runner, (x_in, mask) = cgs_train_runner(dev, cdt)
+        x_in = torch.as_tensor(x_in, device=dev)
+        mask = torch.as_tensor(mask, device=dev)
+        ms = cuda_ms(lambda: runner.train_step(x_in, mask), reps=5)
+        step[name] = {"step_ms": ms, "frames_per_s": T * B / (ms / 1e3)}
+        step[name].update(step_parts(runner, x_in, mask, reps=3))
+        busy = device_busy(lambda: runner.train_step(x_in, mask), top=10)
+        busy["device_ms_by_class"] = kernel_classes(busy.pop("by_name"))
+        step[name].update(busy)
+        print("[sparse_times] CGS-16x train step %s: %s"
+              % (name, json.dumps(step[name])))
+    rec_ms = []
+    rec.recognize(audio, lens)
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.recognize(audio, lens)
+        torch.cuda.synchronize()
+        rec_ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(rec_ms))
+    serve = {"recognize_ms_runs": rec_ms, "recognize_ms_median": med,
+             "audio_s_per_s_padded": N_UTT * SECONDS / (med / 1e3)}
+    serve.update(device_busy(lambda: rec.recognize(audio, lens)))
+    serve["device_ms_by_class"] = kernel_classes(serve.pop("by_name"))
+    print("[sparse_times] CGS-16x recognizer (8 x 4 s batch): %s"
+          % json.dumps(serve))
+    return times, step, serve
 
 
 def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
@@ -884,6 +1349,73 @@ def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
             library_note="cuDNN nn.LSTM backward (fwd+bwd minus fwd)")]}
 
 
+def sparse_rows(checks, times, launches):
+    """The kernels JSON rows of the block-sparse slice. ``ms`` etc. are
+    per layer call at the CGS-16x training shape (f32 w3g); ``launches``
+    counts one CGS-16x train step (stash backward; the recompute
+    backward for fused_lstm_bwd_sparse); ``dense_h1024_ms`` is the
+    dense fused kernel on the same layer (the masked U)."""
+    T, B, H = SP_TRAIN_TBH
+    csrc = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/%s.cu"
+    jax_fl = "pytorch_kaldi_cgs_tpu/ops/fused_lstm.py:%d"
+    cudnn_bwd = "cuDNN nn.LSTM(1024, 1024) backward (fwd+bwd minus fwd)"
+
+    def err_at(kernel, **want):
+        hits = [c for c in checks if c["kernel"] == kernel
+                and (c["T"], c["B"], c["H"]) == SP_TRAIN_TBH
+                and all(c.get(k) == v for k, v in want.items())]
+        return hits[0]["max_abs_err"]
+
+    def row(name, source, replaces, library_ms, library_note, err, dense,
+            **extra):
+        mine = [c for c in checks if c["kernel"].split("/")[0] == name]
+        r = {"name": name, "route": "cuda", "source": csrc % source,
+             "replaces": replaces, "launches": launches[name]["main"],
+             "launches_by_path": launches[name], "max_abs_err": err,
+             "ms": times[name + "_ms"], "plain_ms": times[name + "_plain_ms"],
+             "bound_ms": times[name + "_bound_ms"],
+             "bound_by": times[name + "_bound_by"], "library_ms": library_ms,
+             "library_note": library_note,
+             "shape": {"T": T, "B": B, "H": H, "Kb": 8, "R": 2, "bs": 128},
+             "checks": len(mine), "checks_ok": all(c["ok"] for c in mine)}
+        if dense:
+            r.update(ms_bf16=times[name + "_ms_bf16"],
+                     bound_ms_bf16=times[name + "_bound_ms_bf16"],
+                     dense_h1024_ms=times["dense_%s_ms" % dense],
+                     dense_h1024_ms_bf16=times["dense_%s_ms_bf16" % dense])
+        r.update(extra)
+        return r
+
+    f32 = {"w3g": "f32", "qbits": 0, "act": "tanh"}
+    return [
+        row("fused_lstm_fwd_sparse", "fused_lstm_sparse", jax_fl % 707,
+            times["cudnn_fwd_ms"], "cuDNN nn.LSTM(1024, 1024) forward",
+            err_at("fused_lstm_fwd_sparse/stash", **f32), "fused_lstm_fwd",
+            variant="stash (training forward)",
+            serve={"T": SP_SERVE_TBH[0], "B": SP_SERVE_TBH[1], "H": H,
+                   "ms": times["serve_fwd_sparse_ms"],
+                   "ms_bf16": times["serve_fwd_sparse_ms_bf16"],
+                   "plain_ms": times["serve_fwd_sparse_plain_ms"],
+                   "bound_ms": times["serve_fwd_sparse_bound_ms"],
+                   "bound_by": times["serve_fwd_sparse_bound_by"],
+                   "library_ms": times["cudnn_serve_fwd_ms"],
+                   "dense_h1024_ms": times["serve_dense_fwd_ms"],
+                   "dense_h1024_ms_bf16": times["serve_dense_fwd_ms_bf16"]}),
+        row("fused_lstm_bwd_sparse_stash", "fused_lstm_sparse", jax_fl % 788,
+            times["cudnn_bwd_ms"], cudnn_bwd,
+            err_at("fused_lstm_bwd_sparse_stash", **f32),
+            "fused_lstm_bwd_stash"),
+        row("fused_lstm_bwd_sparse", "fused_lstm_sparse", jax_fl % 859,
+            times["cudnn_bwd_ms"], cudnn_bwd,
+            err_at("fused_lstm_bwd_sparse", **f32), "fused_lstm_bwd"),
+        row("block_sparse_dw", "block_sparse_dw",
+            "pytorch_kaldi_cgs_tpu/ops/block_sparse.py:856",
+            times["block_sparse_dw_library_ms"],
+            "torch.bmm over the pre-gathered operands",
+            err_at("block_sparse_dw", fuse_sub=False, act="tanh"), None,
+            ms_fuse_sub=times["block_sparse_dw_ms_fuse_sub"])]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -897,14 +1429,41 @@ def main():
     smi = phase_build()
     fwd_checks = phase_kernels(dev)
     train_checks = phase_train_kernels(dev)
+    sp_checks = phase_sparse_kernels(dev)
     audio, lens = make_audio()
     rec, phones, logp, serve_launches, post_err = phase_serve(dev, audio, lens)
     stream_launches, _ = phase_stream(dev, rec, audio, lens, phones, logp)
     phase_entry(dev)
     train = phase_train(dev)
+    sp_rec, sp_phones, sp_logp, sp_serve_launches, sp_post_err = phase_serve(
+        dev, audio, lens, build_cgs_stack, "sparse_serve",
+        "fused_lstm_fwd_sparse")
+    sp_stream_launches, sp_stream_err = phase_sparse_stream(
+        dev, sp_rec, audio, lens, sp_phones, sp_logp)
+    sp_train = phase_sparse_train(dev)
     serve_times, serve = phase_times(dev, rec, audio, lens)
     serve["posteriors_vs_cpu_max_abs_err"] = post_err
     times, step = phase_train_times(dev)
+    sp_times, sp_step, sp_serve = phase_sparse_times(dev, sp_rec, audio, lens)
+    sp_serve.update(posteriors_vs_cpu_max_abs_err=sp_post_err,
+                    stream_vs_whole_max_abs_err=sp_stream_err,
+                    dense_stream_launches=sp_stream_launches)
+    sp_stash, sp_rec_l = sp_train["launches_stash"], \
+        sp_train["launches_recompute"]
+    sp_launches = {
+        "fused_lstm_fwd_sparse": {
+            "main": sp_stash["fused_lstm_fwd_sparse"],
+            "sparse_train_recompute": sp_rec_l["fused_lstm_fwd_sparse"],
+            "sparse_serve": sp_serve_launches},
+        "fused_lstm_bwd_sparse_stash": {
+            "main": sp_stash["fused_lstm_bwd_sparse_stash"]},
+        "fused_lstm_bwd_sparse": {"main": sp_rec_l["fused_lstm_bwd_sparse"]},
+        "block_sparse_dw": {
+            "main": sp_stash["block_sparse_dw"],
+            "sparse_train_recompute": sp_rec_l["block_sparse_dw"]}}
+    for name, paths in sp_launches.items():
+        if not paths["main"]:
+            raise AssertionError("%s was not launched on its path" % name)
     launches = {
         "fused_lstm_fwd": {"train": train["launches_stash"]["fused_lstm_fwd"],
                            "train_recompute":
@@ -922,8 +1481,15 @@ def main():
         "cudnn_yardstick": {k: times[k] for k in (
             "cudnn_fwd_ms", "cudnn_fwd_bwd_ms", "cudnn_bwd_ms")},
         "dU_matmul_ms": times["dU_matmul_ms"]}))
-    print(json.dumps(kernels_line(fwd_checks, train_checks, serve_times,
-                                  times, launches)))
+    print("[summary] CGS-16x %s" % json.dumps({
+        "sparse_serve": sp_serve, "sparse_train": sp_train,
+        "sparse_train_step": sp_step,
+        "sparse_vs_dense_h1024": {k: v for k, v in sp_times.items()
+                                  if "dense" in k or "cudnn" in k}}))
+    line = kernels_line(fwd_checks, train_checks, serve_times, times,
+                        launches)
+    line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
+    print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

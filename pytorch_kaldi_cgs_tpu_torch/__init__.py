@@ -9,10 +9,13 @@ arrays in both.
 Slice 1 is the serving path: audio -> fbank -> HCGS LSTM -> MLP head ->
 prior normalization -> batched phone-loop Viterbi. Slice 2 is the
 training step: chunk config -> NetGraph -> HCGS LSTM with fused BPTT ->
-masked NLL -> torch optimizers (ChunkRunner.train_step). Their TPU
-kernels, the fused LSTM forward and its two BPTT variants, are
-hand-written CUDA kernels for ``sm_90a`` (``ops/csrc/``), built with
-``nvcc`` at first use.
+masked NLL -> torch optimizers (ChunkRunner.train_step). Slice 3 is
+the block-sparse HCGS recurrence the 2x1024 CGS-16x LSTM serves and
+trains through (``lstm_block_sparse=auto``). Their TPU kernels, the
+fused LSTM forward and its two BPTT variants, dense and over the kept
+HCGS blocks, and the block-sparse weight gradient, are hand-written
+CUDA kernels for ``sm_90a`` (``ops/csrc/``), built with ``nvcc`` at
+first use.
 
 Layout:
   _device.py   device resolution (the card by default; the CPU on request)
@@ -22,8 +25,9 @@ Layout:
   data/        chunk layout (ChunkData, FeaStream, LabStream)
   sparsity/    HCGS mask generators, ceil quantizers with STE
   models/      layers, AcousticModel base, LSTM, MLP (nn.Modules), registry
-  ops/         fused LSTM forward + BPTT (CUDA kernels, plain twins,
-               autograd Function), fbank frontend
+  ops/         fused LSTM forward + BPTT, dense and block-sparse (CUDA
+               kernels, plain twins, autograd Functions), block-sparse
+               layouts and dw, fbank frontend
   decode/      phone-loop HMM, numpy and batched on-device Viterbi
   runtime/     Recognizer, StreamingRecognizer; NetGraph, ChunkRunner,
                optimizers

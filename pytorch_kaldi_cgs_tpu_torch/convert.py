@@ -7,7 +7,9 @@ e.g. ``params["wfx0"]``, ``params["bn_wfx0"]["gamma"]``,
 the same leaves as tensors under flat keys that join the nested names
 with ``/`` (``"bn_wfx0/gamma"``): the key names are the JAX package's.
 A graph of nets (``runtime.graph.NetGraph``) keeps one such tree per
-architecture name, as the JAX package's graph variables do.
+architecture name, as the JAX package's graph variables do. HCGS masks
+cross as float32 0/1 arrays both ways, so both packages derive the same
+block-sparse layouts from them.
 """
 
 from __future__ import annotations

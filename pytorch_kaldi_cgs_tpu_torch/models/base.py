@@ -18,12 +18,14 @@ from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from .. import convert
 from .._device import DeviceLike, resolve_device
 from ..config.proto import strtobool
+from ..ops import block_sparse as BS
 from ..sparsity.quantize import ste_quantize_input, ste_quantize_weight
 
 
@@ -117,6 +119,36 @@ def maybe_quant_input(x: torch.Tensor, spec: CompressionSpec) -> torch.Tensor:
     return x
 
 
+def host_mask(masks: Mapping[str, Any], key: str) -> Optional[np.ndarray]:
+    """``masks[key]`` as a host numpy array, None when absent."""
+    m = masks.get(key)
+    if isinstance(m, torch.Tensor):
+        return m.detach().cpu().numpy()
+    return None if m is None else np.asarray(m)
+
+
+def v3_projection_layout(mask: Optional[np.ndarray], bs: int, mode: str
+                         ) -> Optional[BS.BlockLayout]:
+    """The JAX package's rule (its models' ``prepare_block_sparse``) for
+    running a projection on its v3 block-sparse kernels: the layout of a
+    128-alignable HCGS mask, padded to whole blocks; under ``auto`` only
+    from Kb >= 16 column blocks with at least half of each row's blocks
+    dropped. None keeps the projection dense-masked."""
+    if mask is None or not bs or bs % 128 or mask.shape[0] % bs:
+        return None
+    auto = mode.lower() == "auto"
+    if auto and -(-mask.shape[1] // bs) < 16:
+        return None
+    try:
+        layout = BS.pack_layout(mask, bs, pad_k=True)
+    except ValueError:          # irregular layout
+        return None
+    if layout.R < 1 or (auto and not (layout.Kb >= 16
+                                      and layout.R * 2 <= layout.Kb)):
+        return None
+    return layout
+
+
 class TensorDict(nn.Module):
     """A dict of buffers (batch-norm state, masks): moves with the
     module and is saved in its ``state_dict``."""
@@ -179,7 +211,18 @@ class AcousticModel(nn.Module):
             for k, v in tree.get(name, {}).items():
                 coll[k] = v.to(self.device, torch.float32)
             setattr(self, name, coll)
+        self.prepare_block_sparse()
         return self
+
+    def prepare_block_sparse(self, variables=None) -> None:
+        """Derive the block-sparse layouts from the masks (``variables``,
+        default this model's own): the JAX package's host-side step, run
+        here whenever the variables load. None by default."""
+
+    def pack_variables(self) -> None:
+        """Move block-sparse layers' weights into packed storage, as the
+        JAX package does before building the optimizer state. None by
+        default."""
 
     def variables(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """Flat-keyed tensors of the three collections

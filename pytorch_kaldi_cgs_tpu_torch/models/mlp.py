@@ -2,9 +2,11 @@
 the dense path).
 
 A chain of (masked, quantized) matmuls with per-layer batch/layer norm,
-activation and dropout. The block-sparse path of the JAX package is not
-ported yet: HCGS layers run dense-masked (at the flagship's 1944x512
-head the JAX package's own auto rule keeps them dense too).
+activation and dropout. HCGS layers run dense-masked; a layer the JAX
+package's ``mlp_block_sparse`` rule (auto by default) would put on its
+v3 block-sparse kernels raises in :meth:`MLP.prepare_block_sparse`,
+since those kernels are not ported yet. The 1944-way and mono heads stay
+dense under that rule: their widths are not multiples of 128.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from .._device import DeviceLike
 from ..sparsity import hcgs as hcgs_mod
 from ..sparsity.quantize import bf16_round
 from .base import (AcousticModel, CompressionSpec, effective_weight,
-                   flag_list, maybe_quant_input, opt_bool)
+                   flag_list, host_mask, maybe_quant_input, opt_bool,
+                   v3_projection_layout)
 from .layers import (act_fun, batch_norm, batch_norm_params, batch_norm_state,
                      dropout, layer_norm, layer_norm_params,
                      small_uniform_init)
@@ -28,11 +31,10 @@ class MLP(AcousticModel):
     def __init__(self, options: Mapping[str, Any], inp_dim: int, *,
                  seed: int = 0, device: DeviceLike = None):
         super().__init__(options, inp_dim, device)
-        if str(options.get("mlp_block_sparse", "")).strip() in (
-                "True", "true", "1"):
-            raise NotImplementedError(
-                "mlp_block_sparse=True: the block-sparse kernels are not "
-                "ported yet")
+        self.block_sparse_mode = str(
+            options.get("mlp_block_sparse", "auto") or "auto").strip()
+        self.block_sparse = self.block_sparse_mode.lower() not in (
+            "false", "0", "no")
         self.dnn_lay = [int(v) for v in options["dnn_lay"].split(",")]
         self.dnn_drop = [float(v) for v in options["dnn_drop"].split(",")]
         self.use_batchnorm = flag_list(options, "dnn_use_batchnorm")
@@ -76,6 +78,27 @@ class MLP(AcousticModel):
                     self.spec.hcgs_sparse, rng=rng)
             cur = out_f
         return {"params": params, "state": state, "masks": masks}
+
+    def prepare_block_sparse(self, variables=None) -> None:
+        """The JAX package's rule for its block-sparse matmul path: a
+        layer it would run on the v3 kernels raises (not ported yet);
+        every other layer stays dense-masked."""
+        if not (self.block_sparse and self.spec.hcgs) or \
+                self.spec.guided_hcgs or self.spec.if_pattern or self.spec.prune:
+            return
+        masks = (variables or self.variables())["masks"]
+        bs = self.spec.hcgs_block[0] if self.spec.hcgs_block else 0
+        for i in range(self.N):
+            layout = v3_projection_layout(host_mask(masks, "hcgs_w%d" % i),
+                                          bs, self.block_sparse_mode)
+            if layout is None:
+                continue
+            raise NotImplementedError(
+                "mlp layer %d: the JAX package runs it (Kb=%d, R=%d, "
+                "mlp_block_sparse=%s) on its v3 block-sparse kernels "
+                "(ops/block_sparse.py:_make_fwd_v3, _make_dx_v3), which are "
+                "not ported yet" % (i, layout.Kb, layout.R,
+                                    self.block_sparse_mode))
 
     def _bn(self, key: str, x: torch.Tensor, train: bool) -> torch.Tensor:
         return batch_norm(x, self.params[key + "/gamma"],

@@ -11,8 +11,15 @@ activation is tanh, relu, htanh or linear; otherwise a plain step loop
 that autograd differentiates. Streaming passes the (h, c) carries as
 arguments and takes the seeded-carry variant.
 
-The block-sparse layouts and sequence parallelism of the JAX package are
-not ported yet: HCGS layers run dense-masked.
+Block sparsity (``lstm_block_sparse``: auto by default, True or False),
+by the JAX package's rules: a layer whose recurrent HCGS mask at 128-
+multiple blocks drops at least half the blocks of each row runs its
+whole-utterance recurrence over the kept blocks only
+(``fused_lstm.lstm_scan_fused_sparse``), in float32 whatever the compute
+dtype, as the JAX package does; streaming keeps the dense seeded kernel.
+An x-projection the JAX package would put on its v3 block-sparse kernels
+raises (not ported yet); every other HCGS projection runs dense-masked.
+Sequence parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -23,11 +30,13 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike
+from ..ops import block_sparse as BS
 from ..ops import fused_lstm
 from ..sparsity import hcgs as hcgs_mod
 from ..sparsity.quantize import bf16_round
 from .base import (AcousticModel, CompressionSpec, effective_weight,
-                   flag_list, maybe_quant_input, opt_bool)
+                   flag_list, host_mask, maybe_quant_input, opt_bool,
+                   v3_projection_layout)
 from .layers import (act_fun, batch_norm, batch_norm_params, batch_norm_state,
                      layer_norm, layer_norm_params, orthogonal_init,
                      shared_time_drop_mask, torch_linear_init)
@@ -46,11 +55,11 @@ class LSTM(AcousticModel):
                  seed: int = 0, device: DeviceLike = None):
         super().__init__(options, inp_dim, device)
         p = self.prefix
-        if str(options.get(p + "_block_sparse", "")).strip() in (
-                "True", "true", "1"):
-            raise NotImplementedError(
-                "%s_block_sparse=True: the block-sparse kernels are not "
-                "ported yet" % p)
+        self.block_sparse_mode = str(
+            options.get(p + "_block_sparse", "auto") or "auto").strip()
+        self.block_sparse = self.block_sparse_mode.lower() not in (
+            "false", "0", "no")
+        self._rec_layouts: Dict[int, BS.BlockLayout] = {}
         self.lay = [int(v) for v in options[p + "_lay"].split(",")]
         self.drop = [float(v) for v in options[p + "_drop"].split(",")]
         self.use_batchnorm = flag_list(options, p + "_use_batchnorm")
@@ -117,6 +126,75 @@ class LSTM(AcousticModel):
             cur = H * (2 if self.bidir else 1)
         return {"params": params, "state": state, "masks": masks}
 
+    # -- block-sparse layouts ---------------------------------------------
+    def prepare_block_sparse(self, variables=None) -> None:
+        """Derive the static level-1 block layouts from the HCGS masks
+        (``variables``, default this model's own), by the JAX package's
+        ``prepare_block_sparse`` rules: the recurrent layouts the fused
+        sparse recurrence takes; an x-projection the JAX package would
+        run on its v3 kernels raises (not ported yet)."""
+        self._rec_layouts = {}
+        if not (self.block_sparse and self.spec.hcgs):
+            return
+        if self.spec.guided_hcgs or self.spec.if_pattern or self.spec.prune:
+            return   # dynamic-mask modes stay on the dense-masked path
+        masks = (variables or self.variables())["masks"]
+        self._prepare_sparse_recurrence(masks)
+        bs = self.spec.hcgsx_block[0] if self.spec.hcgsx_block else 0
+        for i in range(self.N):
+            layout = v3_projection_layout(
+                host_mask(masks, "hcgs_%s%d" % (self.gates_x[0], i)), bs,
+                self.block_sparse_mode)
+            if layout is None:
+                continue
+            raise NotImplementedError(
+                "%s layer %d: the JAX package runs this x-projection "
+                "(Kb=%d, R=%d, %s_block_sparse=%s) on its v3 block-sparse "
+                "kernels (ops/block_sparse.py:_make_fwd_v3, _make_dx_v3), "
+                "which are not ported yet" % (self.prefix, i, layout.Kb,
+                                              layout.R, self.prefix,
+                                              self.block_sparse_mode))
+
+    def _prepare_sparse_recurrence(self, masks) -> None:
+        """The block-sparse fused-recurrence layout of each layer over
+        its (H, H) recurrent mask, shared by the four gates: only with a
+        real cut (at least half the blocks of a row dropped)."""
+        bs = self.spec.hcgsh_block[0] if self.spec.hcgsh_block else 0
+        if not bs or bs % 128:
+            return
+        for i in range(self.N):
+            mask = host_mask(masks, "hcgs_%s%d" % (self.gates_h[0], i))
+            if mask is None:
+                continue
+            try:
+                layout = BS.pack_layout(mask, bs)
+            except ValueError:
+                continue
+            if layout.R >= 1 and layout.R * 2 <= layout.Kb:
+                self._rec_layouts[i] = layout
+
+    def _sparse_rec_layout(self, i: int, B: int, H: int):
+        """Layer ``i``'s block-sparse recurrence layout, or None: no
+        layout, in-scan layer norm, another activation, or a batch for
+        which the JAX package's size rule keeps it dense. Unlike the JAX
+        package the port takes the path on every device (its twin on the
+        CPU), as it does the dense fused recurrence."""
+        layout = self._rec_layouts.get(i)
+        if (layout is None or self.use_laynorm[i]
+                or self.act_names[i] not in fused_lstm.ACTS
+                or not fused_lstm.sparse_scan_fits(B, H, layout)):
+            return None
+        return layout
+
+    def _rec_w3g(self, U: torch.Tensor, layout) -> torch.Tensor:
+        """The stacked effective (4H, H) U -> its kept blocks in the w3g
+        layout (Nb, 4*bs, R*bs), differentiable (the gradient scatters
+        back into U)."""
+        H = U.shape[1]
+        gates = [U[g * H:(g + 1) * H] for g in range(4)]
+        return BS.v3_from_blocks(BS.gather_blocks_multi(gates, layout),
+                                 layout, 4)
+
     # -- helpers ---------------------------------------------------------
     def _stacked(self, names: List[str], i: int) -> torch.Tensor:
         """Effective per-gate weights stacked to (4H, in)."""
@@ -158,6 +236,13 @@ class LSTM(AcousticModel):
         qb = (self.spec.inp_quant[0]
               if (self.spec.quant and self.spec.quant_inp) else 0)
         cdt = "bf16" if self.compute_bf16 else ""
+        if carry is None:
+            B, H = gates.shape[1], gates.shape[2] // 4
+            layout = self._sparse_rec_layout(i, B, H)
+            if layout is not None:
+                return fused_lstm.lstm_scan_fused_sparse(
+                    gates, self._rec_w3g(U, layout), layout, drop, act=act,
+                    quant_bits=qb), None
         if not self.use_laynorm[i] and act in fused_lstm.ACTS:
             if carry is None:
                 return fused_lstm.lstm_scan_fused(
@@ -174,11 +259,11 @@ class LSTM(AcousticModel):
         T, B, G4 = gates.shape
         H = G4 // 4
         actf = act_fun(self.act_names[i])
-        Uc = bf16_round(U) if self.compute_bf16 else U
+        rec_u = fused_lstm.dense_u(U, self.compute_bf16)
         h, c = carry if carry is not None else (gates.new_zeros((B, H)),) * 2
         hs = []
         for t in range(T):
-            h, c, _ = fused_lstm.lstm_cell(gates[t], h, c, Uc, drop, actf,
+            h, c, _ = fused_lstm.lstm_cell(gates[t], h, c, rec_u, drop, actf,
                                            qb, self.compute_bf16)
             if self.use_laynorm[i]:
                 h = layer_norm(h, self.params["ln%d/gamma" % i],

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own into ``build/torch_kernels/lib<name>-<hash>.so`` of the checkout,
 at first use, then loaded with ``ctypes``. The file name carries a hash
-of the source, so an edited source is rebuilt. Several sources build in
-parallel (one ``nvcc`` each). A failed build raises.
+of the source and of the shared headers (``csrc/*.cuh``), so an edited
+source is rebuilt. Several sources build in parallel (one ``nvcc``
+each; :data:`SOURCES` names them all). A failed build raises.
 """
 
 from __future__ import annotations
@@ -22,6 +23,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+#: Every kernel source of the port, for building them all at once.
+SOURCES = ("fused_lstm_fwd", "fused_lstm_bwd", "fused_lstm_sparse",
+           "block_sparse_dw")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -37,8 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / (name + ".cu")).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    src = (CSRC / (name + ".cu")).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / ("lib%s-%s.so" % (name, digest))
 
 

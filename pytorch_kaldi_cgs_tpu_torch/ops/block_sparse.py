@@ -1,0 +1,285 @@
+"""Block-sparse HCGS layouts and the block-sparse weight gradient (port of
+the host side of ``pytorch_kaldi_cgs_tpu/ops/block_sparse.py`` and of its
+``_make_dw_v3`` kernel).
+
+HCGS keeps the same number R of level-1 blocks in every block row of a
+mask, so the kept blocks of an (N, K) weight pack row-major into the
+"w3" layout ``(Nb, bs, R*bs)`` (one out-block per slice, its R kept
+column blocks side by side); G weights that share one mask stack along
+the middle axis into ``(Nb, G*bs, R*bs)``. :class:`BlockLayout` holds the
+static index structure, in numpy with the JAX package's field values.
+
+One TPU kernel becomes a CUDA kernel for ``sm_90a``:
+
+- ``_make_dw_v3`` (``ops/block_sparse.py:856``): ``csrc/block_sparse_dw.cu``,
+  :func:`block_sparse_dw` / :func:`block_sparse_dw_plain`, with the
+  optional level-2 submask epilogue (``sub3``). It is the ``dU`` of the
+  sparse fused recurrence (``ops.fused_lstm.sparse_dU``).
+
+The wrapper launches its kernel on a CUDA tensor (or raises) and runs
+its twin on a CPU tensor; ``block_sparse_dw.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+
+# ---------------------------------------------------------------------------
+# layout packing (host side, static per mask)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)   # identity hash: reuse layout objects
+class BlockLayout:
+    """Static index structure of one HCGS mask at block size ``bs``.
+
+    For w of shape (N, K) with Nb x Kb block grid and R kept blocks per
+    block-row:
+      col_idx[j*R + k]  : in-block column of the k-th kept block of row j
+      (transposed, padded to C = max blocks per column, with one zero
+       block appended at packed position nnz)
+      t_row_idx[c*C + k]: out-block row of the k-th block in column c
+      t_perm[c*C + k]   : its packed position (nnz => pad, no block)
+    """
+    N: int
+    K: int
+    bs: int
+    R: int
+    C: int
+    nnz: int
+    col_idx: np.ndarray      # (Nb*R,) int32
+    t_row_idx: np.ndarray    # (Kb*C,) int32
+    t_perm: np.ndarray       # (Kb*C,) int32
+    rows: np.ndarray         # (nnz,) out-block row per packed block
+    cols: np.ndarray         # (nnz,) in-block col per packed block
+    K_orig: int = 0          # pre-padding K (0 => K, no padding)
+
+    @property
+    def k_true(self) -> int:
+        return self.K_orig or self.K
+
+    @property
+    def Nb(self) -> int:
+        return self.N // self.bs
+
+    @property
+    def Kb(self) -> int:
+        return self.K // self.bs
+
+    def density(self) -> float:
+        return self.nnz / (self.Nb * self.Kb)
+
+    def device_index(self, name: str, device) -> torch.Tensor:
+        """``col_idx`` / ``t_row_idx`` / ``t_perm`` as an int32 tensor on
+        ``device``, made once per device."""
+        cache = self.__dict__.setdefault("_dev_idx", {})
+        key = (name, str(device))
+        if key not in cache:
+            cache[key] = torch.as_tensor(getattr(self, name), dtype=torch.int32,
+                                         device=device)
+        return cache[key]
+
+
+def pack_layout(mask: np.ndarray, bs: int,
+                pad_k: bool = False) -> BlockLayout:
+    """Build the BlockLayout from a 0/1 mask (N, K). Requires equal kept
+    count per block-row (guaranteed by HCGS generation).
+
+    pad_k=True zero-pads the mask's column dim to the next multiple of
+    ``bs`` (e.g. the 143-wide fMLLR input): ``layout.K`` becomes the
+    padded width and ``layout.K_orig`` keeps the true one."""
+    N, K = mask.shape
+    K_orig = K
+    if pad_k and K % bs:
+        mask = np.concatenate(
+            [np.asarray(mask), np.zeros((N, bs - K % bs), mask.dtype)],
+            axis=1)
+        K = mask.shape[1]
+    if N % bs or K % bs:
+        raise ValueError("mask %s not divisible by block %d" % (mask.shape, bs))
+    Nb, Kb = N // bs, K // bs
+    occ = mask.reshape(Nb, bs, Kb, bs).transpose(0, 2, 1, 3).any(axis=(2, 3))
+    counts = occ.sum(axis=1)
+    R = int(counts.max()) if counts.size else 0
+    if not np.all(counts == R):
+        raise ValueError("HCGS layout requires equal kept blocks per row, "
+                         "got %s" % np.unique(counts))
+    col_idx = np.zeros(Nb * R, np.int32)
+    for j in range(Nb):
+        col_idx[j * R:(j + 1) * R] = np.where(occ[j])[0]
+    rows = np.repeat(np.arange(Nb, dtype=np.int32), R)
+    cols = col_idx.copy()
+    nnz = Nb * R
+    # transposed (per in-block column) with padding
+    percol = [[] for _ in range(Kb)]
+    for p in range(nnz):
+        percol[cols[p]].append(p)
+    C = max(max((len(v) for v in percol), default=0), 1)
+    t_row_idx = np.zeros(Kb * C, np.int32)
+    t_perm = np.full(Kb * C, nnz, np.int32)  # nnz => pad
+    for c in range(Kb):
+        for k, p in enumerate(percol[c]):
+            t_row_idx[c * C + k] = rows[p]
+            t_perm[c * C + k] = p
+    return BlockLayout(N=N, K=K, bs=bs, R=R, C=C, nnz=nnz, col_idx=col_idx,
+                       t_row_idx=t_row_idx, t_perm=t_perm, rows=rows,
+                       cols=cols, K_orig=K_orig if K_orig != K else 0)
+
+
+def pack_blocks(w: np.ndarray, layout: BlockLayout) -> np.ndarray:
+    """Gather dense (N, K) into packed (nnz, bs, bs). A K-padded layout
+    accepts the original-width w and zero-pads the tail block columns."""
+    w = np.asarray(w)
+    if w.shape[1] < layout.K:
+        w = np.concatenate(
+            [w, np.zeros((w.shape[0], layout.K - w.shape[1]), w.dtype)],
+            axis=1)
+    bs = layout.bs
+    out = np.zeros((layout.nnz, bs, bs), w.dtype)
+    for p in range(layout.nnz):
+        r, c = layout.rows[p], layout.cols[p]
+        out[p] = w[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs]
+    return out
+
+
+def unpack_blocks(w_packed: np.ndarray, layout: BlockLayout) -> np.ndarray:
+    bs = layout.bs
+    out = np.zeros((layout.N, layout.K), np.asarray(w_packed).dtype)
+    for p in range(layout.nnz):
+        r, c = layout.rows[p], layout.cols[p]
+        out[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs] = w_packed[p]
+    return out[:, :layout.k_true]
+
+
+def pack_w3(w: np.ndarray, layout: BlockLayout) -> np.ndarray:
+    """Dense (N, K) -> packed (Nb, bs, R*bs) (host side, numpy)."""
+    blocks = pack_blocks(np.asarray(w), layout)            # (nnz, bs, bs)
+    return blocks.reshape(layout.Nb, layout.R, layout.bs, layout.bs) \
+        .transpose(0, 2, 1, 3) \
+        .reshape(layout.Nb, layout.bs, layout.R * layout.bs)
+
+
+def unpack_w3(w3: np.ndarray, layout: BlockLayout) -> np.ndarray:
+    """Packed (Nb, bs, R*bs) -> dense (N, K) with dropped blocks zero."""
+    blocks = np.asarray(w3).reshape(layout.Nb, layout.bs, layout.R,
+                                    layout.bs).transpose(0, 2, 1, 3) \
+        .reshape(layout.nnz, layout.bs, layout.bs)
+    return unpack_blocks(blocks, layout)
+
+
+def stack_w3_gates(gate_w3s) -> np.ndarray:
+    """Per-gate packed (Nb, bs, R*bs) -> the kernels' (Nb, G*bs, R*bs)."""
+    return np.concatenate([np.asarray(w) for w in gate_w3s], axis=1)
+
+
+# ---------------------------------------------------------------------------
+# differentiable gathers (torch)
+# ---------------------------------------------------------------------------
+
+def gather_blocks_multi(ws: Sequence[torch.Tensor],
+                        layout: BlockLayout) -> torch.Tensor:
+    """Kept blocks of G dense (N, K) weights -> (nnz, G*bs, bs); the
+    gradient scatters back into the dense weights."""
+    bs = layout.bs
+    rows = torch.as_tensor(layout.rows, dtype=torch.long, device=ws[0].device)
+    cols = torch.as_tensor(layout.cols, dtype=torch.long, device=ws[0].device)
+    parts = [w.reshape(layout.Nb, bs, layout.Kb, bs).permute(0, 2, 1, 3)
+             [rows, cols] for w in ws]                      # (nnz, bs, bs)
+    return torch.cat(parts, dim=1)
+
+
+def v3_from_blocks(blocks: torch.Tensor, layout: BlockLayout,
+                   G: int) -> torch.Tensor:
+    """Packed (nnz, G*bs, bs) blocks -> the w3 kernel layout
+    (Nb, G*bs, R*bs), differentiable (the JAX package's ``w3`` half;
+    its column-oriented ``w3csc`` copy is read by no kernel)."""
+    bs = layout.bs
+    return blocks.reshape(layout.Nb, layout.R, G * bs, bs) \
+        .permute(0, 2, 1, 3).reshape(layout.Nb, G * bs, layout.R * bs)
+
+
+# ---------------------------------------------------------------------------
+# the block-sparse weight gradient (TPU kernel _make_dw_v3)
+# ---------------------------------------------------------------------------
+
+def gather_cols(x: torch.Tensor, layout: BlockLayout) -> torch.Tensor:
+    """x (M, K) -> (Nb, M, R*bs): per out-block j, its R kept column
+    blocks ``x[:, col_idx[j*R + k]*bs : +bs]`` side by side."""
+    M, bs = x.shape[0], layout.bs
+    idx = torch.as_tensor(layout.col_idx, dtype=torch.long, device=x.device)
+    xg = x.reshape(M, layout.Kb, bs)[:, idx]               # (M, Nb*R, bs)
+    return xg.reshape(M, layout.Nb, layout.R * bs).transpose(0, 1)
+
+
+def block_sparse_dw_plain(dg_flat: torch.Tensor, x: torch.Tensor,
+                          layout: BlockLayout, G: int,
+                          sub3: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The kernel's plain twin: gather the R kept column blocks of x per
+    out-block, then one batched matmul over M."""
+    M = x.shape[0]
+    dgb = dg_flat.reshape(M, layout.Nb, G * layout.bs).permute(1, 2, 0)
+    dw = torch.matmul(dgb, gather_cols(x, layout))       # (Nb, G*bs, R*bs)
+    return dw * sub3 if sub3 is not None else dw
+
+
+def _dw_kernel(dg_flat, x, layout, G, sub3):
+    from . import _build
+    lib = _build.load("block_sparse_dw")
+    fn = lib.block_sparse_dw
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    M = x.shape[0]
+    dev = x.device
+    out = torch.empty((layout.Nb, G * layout.bs, layout.R * layout.bs),
+                      dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(dg_flat.data_ptr(), x.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                None if sub3 is None else sub3.data_ptr(), out.data_ptr(),
+                M, layout.K, layout.Nb, layout.R, layout.bs, G,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "block_sparse_dw")
+    block_sparse_dw.launches += 1
+    return out
+
+
+def block_sparse_dw(dg_flat: torch.Tensor, x: torch.Tensor,
+                    layout: BlockLayout, G: int,
+                    sub3: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dw3g[j] = dg_flat[:, j*G*bs:(j+1)*G*bs].T @ concat_k x[:,
+    col_idx[j*R+k]*bs : +bs]`` -> (Nb, G*bs, R*bs) float32, times the
+    level-2 submask ``sub3`` (same layout) when given.
+
+    ``dg_flat`` (M, Nb*G*bs): per out-block j, its G gates' bs-wide
+    slices side by side; ``x`` (M, K). Float32, contiguous. CUDA tensors
+    run the kernel (float32 FMAs, no TF32), CPU tensors the twin."""
+    M = x.shape[0]
+    shapes = (("dg_flat", dg_flat, (M, layout.Nb * G * layout.bs)),
+              ("x", x, (M, layout.K)),
+              ("sub3", sub3, (layout.Nb, G * layout.bs, layout.R * layout.bs)))
+    for name, t, shape in shapes:
+        if t is None:
+            continue
+        if tuple(t.shape) != shape:
+            raise ValueError("%s must be %s, got %s"
+                             % (name, shape, tuple(t.shape)))
+        if t.dtype != torch.float32:
+            raise ValueError("%s must be float32, got %s" % (name, t.dtype))
+        if t.device != x.device:
+            raise ValueError("%s on %s, x on %s" % (name, t.device, x.device))
+        if x.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    if x.device.type == "cpu":
+        return block_sparse_dw_plain(dg_flat, x, layout, G, sub3)
+    if x.device.type != "cuda":
+        raise ValueError("unsupported device %s" % x.device)
+    return _dw_kernel(dg_flat, x, layout, G, sub3)
+
+
+block_sparse_dw.launches = 0

@@ -36,10 +36,9 @@
 // bf16: U is bf16, q(h) is rounded to bf16 before the dot; products and
 // sums are float32, as are the gate math and the carries.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cmath>
+
+#include "lstm_common.cuh"
 
 namespace {
 
@@ -48,28 +47,6 @@ constexpr int ROWS = 4 * UNITS;     // U rows per block (4 gates)
 constexpr int BT = 8;               // batch rows per block
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-
-enum Act { ACT_TANH = 0, ACT_RELU = 1, ACT_HTANH = 2, ACT_LINEAR = 3 };
-
-__device__ __forceinline__ float act_fn(float x, int act) {
-  switch (act) {
-    case ACT_TANH: return tanhf(x);
-    case ACT_RELU: return fmaxf(x, 0.f);
-    case ACT_HTANH: return fminf(fmaxf(x, -1.f), 1.f);
-    default: return x;
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// ceil(|x| / var * scale) / scale * var * sign(x); identity when var == 0
-__device__ __forceinline__ float quant(float x, float var, float scale) {
-  if (var == 0.f) return x;
-  float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  return ceilf(fabsf(x) / var * scale) / scale * var * s;
-}
 
 template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
@@ -155,16 +132,6 @@ lstm_step(const float* __restrict__ g_t,       // (B, 4H) gates of step t
     m = __reduce_max_sync(0xffffffffu, m);
     if (lane == 0 && m) atomicMax(scale_out, m);
   }
-}
-
-__global__ void absmax_bits(const float* __restrict__ x, int n,
-                            unsigned* __restrict__ out) {
-  unsigned m = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x)
-    m = max(m, __float_as_uint(fabsf(x[i])));
-  m = __reduce_max_sync(0xffffffffu, m);
-  if ((threadIdx.x & 31) == 0 && m) atomicMax(out, m);
 }
 
 }  // namespace

@@ -1,15 +1,22 @@
 """Fused LSTM recurrence: the whole layer's time loop, forward and BPTT.
 
-Port of ``pytorch_kaldi_cgs_tpu/ops/fused_lstm.py`` (the dense path).
-Three TPU kernels become CUDA kernels for ``sm_90a``, each with a plain
-PyTorch twin that repeats its arithmetic and is what the CPU runs:
+Port of ``pytorch_kaldi_cgs_tpu/ops/fused_lstm.py``. Six TPU kernels
+become CUDA kernels for ``sm_90a``, each with a plain PyTorch twin that
+repeats its arithmetic and is what the CPU runs:
 
 - ``_build_fwd`` (``stash`` included): ``csrc/fused_lstm_fwd.cu``,
   :func:`fused_lstm_fwd` / :func:`fused_lstm_fwd_plain`;
 - ``_build_bwd_stash``: ``csrc/fused_lstm_bwd.cu``,
   :func:`fused_lstm_bwd_stash` / :func:`fused_lstm_bwd_stash_plain`;
 - ``_build_bwd``: ``csrc/fused_lstm_bwd.cu``,
-  :func:`fused_lstm_bwd` / :func:`fused_lstm_bwd_plain`.
+  :func:`fused_lstm_bwd` / :func:`fused_lstm_bwd_plain`;
+- the block-sparse recurrence over the kept HCGS blocks of U (w3g
+  layout, ``ops.block_sparse``): ``_build_fwd_sparse``,
+  ``_build_bwd_sparse_stash`` and ``_build_bwd_sparse`` in
+  ``csrc/fused_lstm_sparse.cu``, :func:`fused_lstm_fwd_sparse`,
+  :func:`fused_lstm_bwd_sparse_stash`, :func:`fused_lstm_bwd_sparse` and
+  their ``*_plain`` twins, behind :func:`lstm_scan_fused_sparse` with
+  :func:`sparse_dU` on the block-sparse dw kernel.
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and runs its
 twin on a CPU tensor; its attribute ``launches`` counts kernel launches
@@ -47,6 +54,7 @@ import torch
 
 from ..sparsity.quantize import (bf16_round, quantize_input,
                                  quantize_input_per_step, ste_quantize_input)
+from .block_sparse import block_sparse_dw, gather_cols
 
 ACTS = {
     "tanh": torch.tanh,
@@ -97,22 +105,48 @@ def bwd_stash_enabled(cell: str = "lstm") -> bool:
 # plain twins
 # ---------------------------------------------------------------------------
 
+def dense_u(U: torch.Tensor, bf16: bool) -> Callable:
+    """The dense recurrent product ``hin -> hin @ U.T`` (U bf16-rounded
+    when ``bf16``), as :func:`lstm_cell` takes it."""
+    Uc = bf16_round(U) if bf16 else U.to(torch.float32)
+    return lambda x: x @ Uc.T
+
+
 def lstm_cell(g_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-              U: torch.Tensor, drop: torch.Tensor, actf: Callable, qbits: int,
+              rec_u: Callable, drop: torch.Tensor, actf: Callable, qbits: int,
               bf16: bool
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One step: ``U`` is float32 (already bf16-rounded when ``bf16``);
-    ``q(h)`` is the per-step quantizer, scale max|h| over (B, H), with
-    a straight-through gradient. -> (h, c, the post-activation gates
-    (f, i, o, act(c~)) as (B, 4H))."""
+    """One step: ``rec_u(q(h))`` gives the recurrent pre-activations
+    (B, 4H), ``q`` the per-step quantizer (scale max|h| over (B, H))
+    with a straight-through gradient, ``q(h)`` rounded to bf16 first
+    when ``bf16``. -> (h, c, the post-activation gates (f, i, o,
+    act(c~)) as (B, 4H))."""
     H = h.shape[-1]
     hin = ste_quantize_input(h, qbits) if qbits > 0 else h
     if bf16:
         hin = bf16_round(hin)
-    g = g_t + hin @ U.T
+    g = g_t + rec_u(hin)
     a = torch.cat([torch.sigmoid(g[:, :3 * H]), actf(g[:, 3 * H:])], dim=1)
     c = a[:, H:2 * H] * a[:, 3 * H:] * drop + a[:, :H] * c
     return a[:, 2 * H:3 * H] * actf(c), c, a
+
+
+def _fwd_loop(gates, rec_u, drop, h0, c0, act, qbits, bf16, stash):
+    """The forward twins' Python loop over t."""
+    T, B, G4 = gates.shape
+    H = G4 // 4
+    z = gates.new_zeros((B, H))
+    h = z if h0 is None else h0
+    c = z if c0 is None else c0
+    hs, cs, acts = [], [], []
+    for t in range(T):
+        h, c, a = lstm_cell(gates[t], h, c, rec_u, drop, ACTS[act], qbits,
+                            bf16)
+        hs.append(h)
+        cs.append(c)
+        acts.append(a)
+    out = (torch.stack(hs), torch.stack(cs))
+    return out + (torch.stack(acts),) if stash else out
 
 
 def fused_lstm_fwd_plain(gates: torch.Tensor, U: torch.Tensor,
@@ -122,20 +156,8 @@ def fused_lstm_fwd_plain(gates: torch.Tensor, U: torch.Tensor,
     """The forward kernel's plain twin: a Python loop over t.
     -> ``(hs, cs)``, plus ``acts`` (T, B, 4H), the post-activation gates
     (f, i, o, act(c~)), when ``stash``."""
-    T, B, G4 = gates.shape
-    H = G4 // 4
-    Uc = bf16_round(U) if bf16 else U.to(torch.float32)
-    z = gates.new_zeros((B, H))
-    h = z if h0 is None else h0
-    c = z if c0 is None else c0
-    hs, cs, acts = [], [], []
-    for t in range(T):
-        h, c, a = lstm_cell(gates[t], h, c, Uc, drop, ACTS[act], qbits, bf16)
-        hs.append(h)
-        cs.append(c)
-        acts.append(a)
-    out = (torch.stack(hs), torch.stack(cs))
-    return out + (torch.stack(acts),) if stash else out
+    return _fwd_loop(gates, dense_u(U, bf16), drop, h0, c0, act, qbits, bf16,
+                     stash)
 
 
 def _dgates(dh, dc, gf, gi, go, gc, ac, c_prev, drop, dact_c, dact_gc):
@@ -149,10 +171,10 @@ def _dgates(dh, dc, gf, gi, go, gc, ac, c_prev, drop, dact_c, dact_gc):
     return torch.cat([dgf, dgi, dgo, dgc], dim=1), dc
 
 
-def _bwd_loop(step, T, B, H, U, dhs, dhT, dcT, bf16, like):
-    """Reverse-time loop shared by the two twins: ``step(t, dh, dc)``
-    gives (dg_t, dc, gf); the carry into step t-1 is dh = dg_t @ U."""
-    Uc = bf16_round(U) if bf16 else U.to(torch.float32)
+def _bwd_loop(step, carry, dhs, dhT, dcT, like):
+    """Reverse-time loop shared by the BPTT twins: ``step(t, dh, dc)``
+    gives (dg_t, dc, gf); ``carry(dg_t)`` is dh entering step t-1."""
+    T, B, H = dhs.shape
     with_init = dhT is not None
     dh = dhT if with_init else like.new_zeros((B, H))
     dc = dcT if with_init else like.new_zeros((B, H))
@@ -162,8 +184,51 @@ def _bwd_loop(step, T, B, H, U, dhs, dhT, dcT, bf16, like):
         dg[t] = d
         dc = dc_t * gf
         if t or with_init:
-            dh = (bf16_round(d) if bf16 else d) @ Uc
+            dh = carry(d)
     return (dg, dh, dc) if with_init else dg
+
+
+def _stash_step(acts, drop, cs, c_prev, act):
+    """One reverse step over the stashed activations (``dact`` from the
+    activation output)."""
+    H = acts.shape[2] // 4
+    actf, dactf = ACTS[act], DACTS_OUT[act]
+
+    def step(t, dh, dc):
+        gf, gi, go, gc = acts[t].split(H, dim=1)
+        ac = actf(cs[t])
+        d, dc = _dgates(dh, dc, gf, gi, go, gc, ac, c_prev[t], drop,
+                        dactf(ac), dactf(gc))
+        return d, dc, gf
+    return step
+
+
+def _recompute_step(gates, rec_u, drop, h_prev, c_prev, act, qbits, bf16):
+    """One reverse step rebuilding u = rec_u(q(h_{t-1})) and the gates
+    (``dact`` from the pre-activation)."""
+    H = gates.shape[2] // 4
+    actf = ACTS[act]
+
+    def step(t, dh, dc):
+        hq = quantize_input(h_prev[t], qbits) if qbits > 0 else h_prev[t]
+        if bf16:
+            hq = bf16_round(hq)
+        g = gates[t] + rec_u(hq)
+        gf = torch.sigmoid(g[:, :H])
+        gi = torch.sigmoid(g[:, H:2 * H])
+        go = torch.sigmoid(g[:, 2 * H:3 * H])
+        gc_pre = g[:, 3 * H:]
+        gc = actf(gc_pre)
+        c = gi * gc * drop + gf * c_prev[t]
+        d, dc = _dgates(dh, dc, gf, gi, go, gc, actf(c), c_prev[t], drop,
+                        dact_pre(act, c), dact_pre(act, gc_pre))
+        return d, dc, gf
+    return step
+
+
+def _dense_carry(U, bf16):
+    Uc = bf16_round(U) if bf16 else U.to(torch.float32)
+    return lambda d: (bf16_round(d) if bf16 else d) @ Uc
 
 
 def fused_lstm_bwd_stash_plain(acts: torch.Tensor, U: torch.Tensor,
@@ -176,19 +241,8 @@ def fused_lstm_bwd_stash_plain(acts: torch.Tensor, U: torch.Tensor,
     post-activation gates ``acts``; ``dact`` from the activation output.
     -> dg (T, B, 4H), and ``(dg, dh0, dc0)`` when seeded with
     ``dhT``/``dcT``."""
-    T, B, G4 = acts.shape
-    H = G4 // 4
-    actf, dactf = ACTS[act], DACTS_OUT[act]
-
-    def step(t, dh, dc):
-        a = acts[t]
-        gf, gi, go, gc = a.split(H, dim=1)
-        ac = actf(cs[t])
-        d, dc = _dgates(dh, dc, gf, gi, go, gc, ac, c_prev[t], drop,
-                        dactf(ac), dactf(gc))
-        return d, dc, gf
-
-    return _bwd_loop(step, T, B, H, U, dhs, dhT, dcT, bf16, acts)
+    return _bwd_loop(_stash_step(acts, drop, cs, c_prev, act),
+                     _dense_carry(U, bf16), dhs, dhT, dcT, acts)
 
 
 def fused_lstm_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
@@ -201,27 +255,9 @@ def fused_lstm_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
     """Twin of the recompute BPTT kernel: per step it rebuilds
     u = q(h_{t-1}) @ U.T and the gates, ``dact`` from the
     pre-activation. -> as :func:`fused_lstm_bwd_stash_plain`."""
-    T, B, G4 = gates.shape
-    H = G4 // 4
-    actf = ACTS[act]
-    Uc = bf16_round(U) if bf16 else U.to(torch.float32)
-
-    def step(t, dh, dc):
-        hq = quantize_input(h_prev[t], qbits) if qbits > 0 else h_prev[t]
-        if bf16:
-            hq = bf16_round(hq)
-        g = gates[t] + hq @ Uc.T
-        gf = torch.sigmoid(g[:, :H])
-        gi = torch.sigmoid(g[:, H:2 * H])
-        go = torch.sigmoid(g[:, 2 * H:3 * H])
-        gc_pre = g[:, 3 * H:]
-        gc = actf(gc_pre)
-        c = gi * gc * drop + gf * c_prev[t]
-        d, dc = _dgates(dh, dc, gf, gi, go, gc, actf(c), c_prev[t], drop,
-                        dact_pre(act, c), dact_pre(act, gc_pre))
-        return d, dc, gf
-
-    return _bwd_loop(step, T, B, H, U, dhs, dhT, dcT, bf16, gates)
+    step = _recompute_step(gates, dense_u(U, bf16), drop, h_prev, c_prev,
+                           act, qbits, bf16)
+    return _bwd_loop(step, _dense_carry(U, bf16), dhs, dhT, dcT, gates)
 
 
 # ---------------------------------------------------------------------------
@@ -261,9 +297,11 @@ def _fwd_kernel(gates, U, drop, h0, c0, act, qbits, bf16, stash):
     return (hs, cs, acts) if stash else (hs, cs)
 
 
-def _check_common(name, lead, U, drop, act, others):
-    """Shared validation: (T, B, 4H) float32 ``lead``, U (4H, H), one
-    device, contiguous float32 sequences. -> (T, B, H, drop as (B, H))."""
+def _check_common(name, lead, U, drop, act, others, u_name="U",
+                  u_shape=None):
+    """Shared validation: (T, B, 4H) float32 ``lead``, the recurrent
+    weight ``U`` of shape ``u_shape`` (default (4H, H)), one device,
+    contiguous float32 sequences. -> (T, B, H, drop as (B, H))."""
     if act not in ACTS:
         raise ValueError("fused LSTM activation %r not in %s"
                          % (act, sorted(ACTS)))
@@ -272,11 +310,12 @@ def _check_common(name, lead, U, drop, act, others):
                          % (name, tuple(lead.shape)))
     T, B, G4 = lead.shape
     H = G4 // 4
-    if tuple(U.shape) != (G4, H):
-        raise ValueError("U must be (%d, %d), got %s" % (G4, H,
-                                                          tuple(U.shape)))
+    u_shape = (G4, H) if u_shape is None else u_shape
+    if tuple(U.shape) != u_shape:
+        raise ValueError("%s must be %s, got %s" % (u_name, u_shape,
+                                                    tuple(U.shape)))
     dev = lead.device
-    for n, t in (("U", U), ("drop", drop)) + tuple(others):
+    for n, t in ((u_name, U), ("drop", drop)) + tuple(others):
         if t is not None and t.device != dev:
             raise ValueError("%s on %s, %s on %s" % (n, t.device, name, dev))
     for n, t in ((name, lead),) + tuple(others):
@@ -512,3 +551,335 @@ def lstm_scan_fused_seeded(gates_t: torch.Tensor, U: torch.Tensor,
 
 #: The streaming name the serving path uses.
 lstm_scan_fused_stream = lstm_scan_fused_seeded
+
+
+# ---------------------------------------------------------------------------
+# block-sparse recurrence: the four per-gate (H, H) recurrent matrices
+# share one HCGS mask, so their kept bs x bs blocks pack into the w3
+# layout w3g (Nb, 4*bs, R*bs) (``ops.block_sparse``); each step touches
+# only those blocks. dU comes from the block-sparse dw kernel over the
+# unrolled (T*B) batch.
+# ---------------------------------------------------------------------------
+
+def sparse_recurrent_u(h: torch.Tensor, w3g: torch.Tensor, layout,
+                       G: int = 4) -> torch.Tensor:
+    """u = h @ U_stacked.T over kept blocks only: gather the R kept
+    bs-column slices of h per out-block, one batched matmul against
+    w3g, back to the dense gate-major (B, G*H) layout (block j of gate g
+    at g*H + j*bs)."""
+    B, bs, Nb = h.shape[0], layout.bs, layout.Nb
+    part = torch.bmm(gather_cols(h, layout), w3g.transpose(1, 2))
+    return part.reshape(Nb, B, G, bs).permute(1, 2, 0, 3).reshape(B, -1)
+
+
+def sparse_dh_parts(dg: torch.Tensor, w3g: torch.Tensor, layout,
+                    G: int = 4) -> torch.Tensor:
+    """The d(h_prev) contribution of each kept block: dg gathered per
+    out-block (Nb, B, G*bs), batched matmul with w3g -> (Nb, B, R*bs)."""
+    B, bs, Nb = dg.shape[0], layout.bs, layout.Nb
+    dgb = dg.reshape(B, G, Nb, bs).permute(2, 0, 1, 3).reshape(Nb, B, G * bs)
+    return torch.bmm(dgb, w3g)
+
+
+def sparse_dh(dg: torch.Tensor, w3g: torch.Tensor, layout,
+              G: int = 4) -> torch.Tensor:
+    """dh_prev (B, H): :func:`sparse_dh_parts` added into the columns of
+    their kept blocks (the JAX package's ``scatter_add_cols``)."""
+    B, bs, R = dg.shape[0], layout.bs, layout.R
+    parts = sparse_dh_parts(dg, w3g, layout, G)            # (Nb, B, R*bs)
+    parts = parts.reshape(layout.Nb, B, R, bs).transpose(0, 1) \
+        .reshape(B, layout.nnz, bs)
+    idx = torch.as_tensor(layout.col_idx, dtype=torch.long, device=dg.device)
+    dh = dg.new_zeros((B, layout.Kb, bs)).index_add_(1, idx, parts)
+    return dh.reshape(B, layout.K)
+
+
+def _sparse_fns(w3g, layout, bf16):
+    """(rec_u, carry) of the sparse twins; w3g bf16-rounded and dg
+    rounded before the carry dot when ``bf16``."""
+    wc = bf16_round(w3g) if bf16 else w3g
+
+    def carry(d):
+        return sparse_dh(bf16_round(d) if bf16 else d, wc, layout)
+    return (lambda x: sparse_recurrent_u(x, wc, layout)), carry
+
+
+def fused_lstm_fwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
+                                drop: torch.Tensor, layout, act: str = "tanh",
+                                qbits: int = 0, bf16: bool = False,
+                                stash: bool = False):
+    """Twin of the sparse forward kernel (zero initial state).
+    -> ``(hs, cs)`` (+ ``acts`` when ``stash``)."""
+    rec_u, _ = _sparse_fns(w3g, layout, bf16)
+    return _fwd_loop(gates, rec_u, drop, None, None, act, qbits, bf16, stash)
+
+
+def fused_lstm_bwd_sparse_stash_plain(acts: torch.Tensor, w3g: torch.Tensor,
+                                      drop: torch.Tensor, cs: torch.Tensor,
+                                      c_prev: torch.Tensor, dhs: torch.Tensor,
+                                      layout, act: str = "tanh",
+                                      bf16: bool = False) -> torch.Tensor:
+    """Twin of the sparse stash BPTT kernel. -> dg (T, B, 4H)."""
+    _, carry = _sparse_fns(w3g, layout, bf16)
+    return _bwd_loop(_stash_step(acts, drop, cs, c_prev, act), carry, dhs,
+                     None, None, acts)
+
+
+def fused_lstm_bwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
+                                drop: torch.Tensor, h_prev: torch.Tensor,
+                                c_prev: torch.Tensor, dhs: torch.Tensor,
+                                layout, act: str = "tanh", qbits: int = 0,
+                                bf16: bool = False) -> torch.Tensor:
+    """Twin of the sparse recompute BPTT kernel. -> dg (T, B, 4H)."""
+    rec_u, carry = _sparse_fns(w3g, layout, bf16)
+    step = _recompute_step(gates, rec_u, drop, h_prev, c_prev, act, qbits,
+                           bf16)
+    return _bwd_loop(step, carry, dhs, None, None, gates)
+
+
+#: Shared memory a block may use on sm_90 (bytes), and the sparse
+#: backward's static part (dhsm, usm, the entry lists).
+_SMEM_MAX, _SPARSE_BWD_STATIC = 232448, 8 * 8 * 4 + 8 * 32 * 4 + 2 * 64 * 4
+
+
+def _check_sparse(name, lead, w3g, layout, drop, act, others):
+    if layout.N != layout.K or lead.ndim != 3 or \
+            lead.shape[2] != 4 * layout.N:
+        raise ValueError("%s must be (T, B, 4H) with H = the layout's %d"
+                         % (name, layout.N))
+    if lead.device.type == "cuda" and (layout.bs % 8 or layout.C > 64):
+        raise ValueError("the sparse kernels take bs % 8 == 0 and at most "
+                         "64 blocks per column, got bs=%d C=%d"
+                         % (layout.bs, layout.C))
+    return _check_common(name, lead, w3g, drop, act, others, "w3g",
+                         (layout.Nb, 4 * layout.bs, layout.R * layout.bs))
+
+
+def _sparse_w(w3g, bf16):
+    return w3g.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
+
+
+def _fwd_sparse_kernel(gates, w3g, drop, layout, act, qbits, bf16, stash):
+    from . import _build
+    lib = _build.load("fused_lstm_sparse")
+    fn = lib.fused_lstm_fwd_sparse
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    T, B, G4 = gates.shape
+    H = G4 // 4
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(hs)
+    acts = torch.empty_like(gates) if stash else None
+    qslots = torch.empty(T + 1 if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    wk = _sparse_w(w3g, bf16)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), wk.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                drop.data_ptr(), hs.data_ptr(), cs.data_ptr(), _ptr(acts),
+                qslots.data_ptr(), T, B, H, layout.R, layout.bs,
+                _ACT_CODE[act], qbits, int(bf16), _stream(dev))
+    _build.check(lib, rc, "fused_lstm_fwd_sparse")
+    fused_lstm_fwd_sparse.launches += T
+    return (hs, cs, acts) if stash else (hs, cs)
+
+
+def fused_lstm_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                          drop: torch.Tensor, layout, act: str = "tanh",
+                          qbits: int = 0, bf16: bool = False,
+                          stash: bool = False):
+    """Whole-layer LSTM forward from the zero state over the kept blocks
+    of U (TPU kernel ``_build_fwd_sparse``): ``gates`` (T, B, 4H)
+    float32, ``w3g`` (Nb, 4*bs, R*bs) float32 (cast to bf16 for the
+    kernel when ``bf16``), ``drop`` broadcastable to (B, H). -> ``(hs,
+    cs)``, and ``acts`` (T, B, 4H) when ``stash``. CUDA tensors run the
+    kernel, CPU tensors the plain twin; no autograd of its own
+    (:func:`lstm_scan_fused_sparse` carries the BPTT kernels)."""
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act, ())
+    if _needs_grad(gates, w3g):
+        raise RuntimeError("fused_lstm_fwd_sparse has no autograd of its "
+                           "own: call lstm_scan_fused_sparse")
+    if gates.device.type == "cpu":
+        return fused_lstm_fwd_sparse_plain(gates, w3g, drop, layout, act,
+                                           qbits, bf16, stash)
+    return _fwd_sparse_kernel(gates, w3g, drop, layout, act, qbits, bf16,
+                              stash)
+
+
+fused_lstm_fwd_sparse.launches = 0
+
+
+def _bwd_sparse_kernel(wrapper, lead, w3g, drop, h_prev, cs, c_prev, dhs,
+                       layout, act, qbits, bf16, stash):
+    from . import _build
+    T, B, G4 = lead.shape
+    H = G4 // 4
+    R, bs, C = layout.R, layout.bs, layout.C
+    smem = 4 * 8 * (C * 4 * bs + (0 if stash else R * bs))
+    if smem + _SPARSE_BWD_STATIC > _SMEM_MAX:
+        raise ValueError("%s: %d blocks per column of %d need %d bytes of "
+                         "shared memory, more than a block has"
+                         % (wrapper.__name__, C, bs, smem))
+    lib = _build.load("fused_lstm_sparse")
+    fn = lib.fused_lstm_bwd_sparse
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = lead.device
+    wk = _sparse_w(w3g, bf16)
+    wt = wk.transpose(1, 2).contiguous()      # (Nb, R*bs, 4bs): carry dots
+    dg = torch.empty_like(lead)
+    dc = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    qslots = torch.empty(T if (qbits > 0 and not stash) else 1,
+                         dtype=torch.int32, device=dev)
+    idx = [layout.device_index(n, dev).data_ptr()
+           for n in ("col_idx", "t_row_idx", "t_perm")]
+    with torch.cuda.device(dev):
+        rc = fn(lead.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
+                drop.data_ptr(), _ptr(h_prev), _ptr(cs), c_prev.data_ptr(),
+                dhs.data_ptr(), dc.data_ptr(), dg.data_ptr(),
+                qslots.data_ptr(), T, B, H, R, bs, C, layout.nnz,
+                _ACT_CODE[act], qbits, int(stash), int(bf16), _stream(dev))
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += T
+    return dg
+
+
+def fused_lstm_bwd_sparse_stash(acts: torch.Tensor, w3g: torch.Tensor,
+                                drop: torch.Tensor, cs: torch.Tensor,
+                                c_prev: torch.Tensor, dhs: torch.Tensor,
+                                layout, act: str = "tanh",
+                                bf16: bool = False) -> torch.Tensor:
+    """Sparse BPTT over the stashed activations (TPU kernel
+    ``_build_bwd_sparse_stash``): ``acts`` (T, B, 4H) from the stash
+    forward, ``cs``, ``c_prev``, ``dhs`` (T, B, H). -> dg (T, B, 4H).
+    CUDA tensors run the kernel, CPU tensors the twin."""
+    seqs = (("cs", cs), ("c_prev", c_prev), ("dhs", dhs))
+    T, B, H, drop = _check_sparse("acts", acts, w3g, layout, drop, act, seqs)
+    _check_shapes([(n, t, (T, B, H)) for n, t in seqs])
+    if acts.device.type == "cpu":
+        return fused_lstm_bwd_sparse_stash_plain(acts, w3g, drop, cs, c_prev,
+                                                 dhs, layout, act, bf16)
+    return _bwd_sparse_kernel(fused_lstm_bwd_sparse_stash, acts, w3g, drop,
+                              None, cs, c_prev, dhs, layout, act, 0, bf16,
+                              True)
+
+
+fused_lstm_bwd_sparse_stash.launches = 0
+
+
+def fused_lstm_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                          drop: torch.Tensor, h_prev: torch.Tensor,
+                          c_prev: torch.Tensor, dhs: torch.Tensor, layout,
+                          act: str = "tanh", qbits: int = 0,
+                          bf16: bool = False) -> torch.Tensor:
+    """Sparse BPTT with recompute (TPU kernel ``_build_bwd_sparse``):
+    ``gates`` are the forward's inputs, ``h_prev``/``c_prev`` (T, B, H)
+    the carries entering each step. -> dg (T, B, 4H)."""
+    seqs = (("h_prev", h_prev), ("c_prev", c_prev), ("dhs", dhs))
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act,
+                                  seqs)
+    _check_shapes([(n, t, (T, B, H)) for n, t in seqs])
+    if gates.device.type == "cpu":
+        return fused_lstm_bwd_sparse_plain(gates, w3g, drop, h_prev, c_prev,
+                                           dhs, layout, act, qbits, bf16)
+    return _bwd_sparse_kernel(fused_lstm_bwd_sparse, gates, w3g, drop, h_prev,
+                              None, c_prev, dhs, layout, act, qbits, bf16,
+                              False)
+
+
+fused_lstm_bwd_sparse.launches = 0
+
+
+def sparse_dU(dg_m: torch.Tensor, hq_m: torch.Tensor, layout,
+              G: int = 4) -> torch.Tensor:
+    """dw3g (Nb, G*bs, R*bs) from the gate cotangents over the unrolled
+    batch, through the block-sparse dw kernel. dg_m: (M, G*H)
+    gate-major; hq_m: (M, H) the (quantized) recurrent inputs."""
+    M = dg_m.shape[0]
+    dg_flat = dg_m.reshape(M, G, layout.Nb, layout.bs).transpose(1, 2) \
+        .reshape(M, -1)
+    return block_sparse_dw(dg_flat, hq_m.contiguous(), layout, G)
+
+
+def sparse_scan_fits(B: int, H: int, layout, G: int = 4) -> str:
+    """The JAX package's ``sparse_scan_fits_vmem``: "f32", "bf16" or ""
+    from a VMEM budget of ``PKC_SPARSE_SCAN_VMEM_MB`` (default 15) MB
+    against the resident w3g and the step's working set.
+
+    Not a fact about this card: it is kept as the JAX package's
+    eligibility and weight-dtype rule, so that the same layers take the
+    sparse recurrence in both packages ("" keeps a layer dense) and w3g
+    is rounded to bf16 in the same cases."""
+    work = 10 * B * H * 4 + 3 * B * 4 * H * 4
+    budget = int(os.environ.get("PKC_SPARSE_SCAN_VMEM_MB", "15")) * 1024 * 1024
+    u_f32 = layout.nnz * G * layout.bs * layout.bs * 4
+    if u_f32 + work < budget:
+        return "f32"
+    if u_f32 // 2 + work < budget:
+        return "bf16"
+    return ""
+
+
+class _FusedLSTMSparse(torch.autograd.Function):
+    """The JAX package's ``lstm_scan_fused_sparse`` custom VJP: forward
+    kernel (stash or not), BPTT kernel, then dw3g through the
+    block-sparse dw kernel over the (T*B) batch with h quantized per
+    step. Under ``wbf16`` the kernels read w3g in bf16 and dw3g is
+    rounded to bf16 (the JAX op's primal is the bf16 w3g)."""
+
+    @staticmethod
+    def forward(ctx, gates, w3g, drop, layout, act, qbits, wbf16):
+        stash = bwd_stash_enabled("lstm")
+        out = fused_lstm_fwd_sparse(gates, w3g, drop, layout, act, qbits,
+                                    wbf16, stash)
+        hs, cs = out[0], out[1]
+        ctx.meta = (layout, act, qbits, wbf16, stash)
+        ctx.save_for_backward(gates if not stash else None, w3g, drop, hs,
+                              cs, out[2] if stash else None)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        layout, act, qbits, wbf16, stash = ctx.meta
+        gates, w3g, drop, hs, cs, acts = ctx.saved_tensors
+        T, B, H = hs.shape
+        dhs = dhs.contiguous()
+        zero = hs.new_zeros((1, B, H))
+        h_prev = torch.cat([zero, hs[:-1]])
+        c_prev = torch.cat([zero, cs[:-1]])
+        if stash:
+            dg = fused_lstm_bwd_sparse_stash(acts, w3g, drop, cs, c_prev, dhs,
+                                             layout, act, wbf16)
+        else:
+            dg = fused_lstm_bwd_sparse(gates, w3g, drop, h_prev, c_prev, dhs,
+                                       layout, act, qbits, wbf16)
+        dw3g = None
+        if ctx.needs_input_grad[1]:
+            hq = (quantize_input_per_step(h_prev, qbits) if qbits > 0
+                  else h_prev)
+            dw3g = sparse_dU(dg.reshape(T * B, 4 * H), hq.reshape(T * B, H),
+                             layout)
+            if wbf16:
+                dw3g = bf16_round(dw3g)
+        return dg, dw3g, None, None, None, None, None
+
+
+def lstm_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
+                           drop_mask: torch.Tensor, act: str = "tanh",
+                           quant_bits: int = 0) -> torch.Tensor:
+    """hs (T, B, H) from the zero state with block-sparse per-gate
+    recurrent matrices sharing one HCGS mask, differentiable in
+    ``gates_t`` and ``w3g`` (Nb, 4*bs, R*bs) (``drop_mask`` is a
+    constant). As in the JAX package it takes no ``compute_dtype``: the
+    recurrence runs in float32, with w3g read in bf16 only where
+    :func:`sparse_scan_fits` says "bf16"."""
+    T, B, G4 = gates_t.shape
+    wbf16 = sparse_scan_fits(B, G4 // 4, layout) == "bf16"
+    if _needs_grad(gates_t, w3g):
+        return _FusedLSTMSparse.apply(gates_t, w3g, drop_mask, layout, act,
+                                      quant_bits, wbf16)
+    return fused_lstm_fwd_sparse(gates_t, w3g, drop_mask, layout, act,
+                                 quant_bits, wbf16)[0]

@@ -79,6 +79,11 @@ class ChunkRunner:
         current parameters (call again after ``graph.init_variables``)."""
         g = self.graph
         for arch, net in g.nets.items():
+            # block-sparse layouts from the current masks, and packed
+            # storage, before the optimizer state mirrors the params (as
+            # the JAX package's run_nn does)
+            net.prepare_block_sparse()
+            net.pack_variables()
             for p in net.params.values():
                 p.requires_grad_(not g.freeze[arch])
         self.optimizers = {
