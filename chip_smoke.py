@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the serving path and
-the training step of the flagship 2x512 LSTM, and of the 2x1024 CGS-16x
-LSTM through the block-sparse recurrence.
+the training step of the flagship 2x512 LSTM, of the 2x1024 CGS-16x
+LSTM through the block-sparse recurrence, and of the TIMIT 2x1024 HCGS
+Li-GRU through the fused liGRU kernels.
 
     python3 chip_smoke.py
 
@@ -52,6 +53,32 @@ Phases (any failure raises and the script exits non-zero):
 11. sparse_times — the new kernels' times, twins, bounds and yardsticks,
              the dense fused kernels on the same H=1024 layer, and the
              CGS-16x train step and recognize.
+12. ligru_kernels — the liGRU forward (plain, stash, seeded) and both
+             BPTT kernels against their twins: qbits 0/16 x relu/tanh at
+             the small shape, H=550 (T=50, B=8), the serving shape
+             (T=398, B=8, H=1024; forward only) and the training shape
+             (T=300, B=8, H=1024).
+13. ligru_serve — ``Recognizer.recognize`` over the TIMIT Li-GRU stack
+             (``cfg/TIMIT_baselines/TIMIT_liGRU_fmllr_hcgs.cfg``'s 2x1024
+             liGRU -> 1944-way head, feat_dim 40) on the same audio: card
+             vs CPU, 2 x 398 forward launches; again without the 16-bit
+             quantizers (``ligru_quant_inp=False``) at TOL_POST.
+14. ligru_stream — ``StreamingRecognizer`` on the seeded forward: one
+             chunk of the whole utterance against the whole-utterance
+             posteriors; chunks of 100 frames against the CPU's stream.
+15. ligru_train — ``ChunkRunner.train_step`` over the cfg's sections (x of
+             width 40, T=300, B=8, dropout masks from one CPU generator):
+             card vs CPU at GRAD_FLIP_K x the CPU's own one-ulp
+             sensitivity, launches per step (recompute by default, stash
+             under PKC_BWD_STASH_CELLS=ligru), 10 steps in f32 and bf16
+             at lr/16, the cfg's rates for 4 steps; the same step without
+             the 16-bit quantizers against the CPU at TOL_GRAD_REL.
+16. ligru_times — the liGRU kernels' times, twins and bounds, cuDNN's
+             nn.GRU(1024, 1024) as a yardstick, the dU matmul, the Li-GRU
+             train step (as users run it: masks drawn on the card) and
+             recognize.
+
+Each phase prints its wall time (``[timing]``).
 
 The line before the last pair is the kernels JSON, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, ...}``. Needs
@@ -119,6 +146,48 @@ CGS_HEAD_GAIN = 4000.0
 # in bf16 at both the serving and the training shape (4.2 MB of w3g)
 SP_BF16_VMEM_MB = "4"
 
+# The Li-GRU slice: cfg/TIMIT_baselines/TIMIT_liGRU_fmllr_hcgs.cfg (2x1024
+# liGRU, HCGS 128,4 at 25,62.5 on x and h: Kb=8, R=6, so the dense fused
+# recurrence)
+LIGRU_CFG = os.path.join(ROOT, "cfg", "TIMIT_baselines",
+                         "TIMIT_liGRU_fmllr_hcgs.cfg")
+LG_MID_TBH = (50, 8, 550)        # the width of the 4x550 TIMIT Li-GRU
+LG_SERVE_TBH = (398, 8, 1024)
+LG_TRAIN_TBH = (300, 8, 1024)    # the cfg's batch_size_train = 8
+LG_FEAT = 40                     # fMLLR, cw_left = cw_right = 0
+# init(1)'s head leaves the Li-GRU's log-posteriors nearly constant over
+# time: the x3000 head makes each utterance decode to several phones.
+LIGRU_HEAD_GAIN = 3000.0
+# Li-GRU log-posteriors card vs CPU as the cfg ships it: its 16-bit
+# ceil quantizers turn one-ulp differences between the card's and the
+# CPU's sums into whole quantizer steps (max|h|/2^15), which the x3000
+# head carries into the log-posteriors at a few 1e-3, still ~1/2000 of
+# their per-frame spread; the phones must be equal. The same stack
+# without the 16-bit quantizers is held to TOL_POST.
+TOL_POST_Q16 = 1e-2
+# liGRU kernels vs twins with the 16-bit quantizer: a one-ulp difference
+# at a ceil step becomes one step (max|h|/2^15), which the later steps'
+# dots carry on
+TOL_Q16 = 1e-4
+# The Li-GRU train step as the cfg ships it (relu behind 16-bit ceil
+# quantizers) has gradients that jump with its inputs: a one-ulp change
+# of x moves a quantized value a whole step, which can move a
+# pre-activation across 0 and flip relu's derivative there. So that step
+# is held to GRAD_FLIP_K times the CPU reference's own worst gradient
+# change under a one-ulp change of x (ulp_sensitivity, measured in the
+# run; at least TOL_GRAD_REL), which a wrong cotangent chain exceeds
+# (O(1)); the same cfg without the 16-bit quantizers is held to
+# TOL_GRAD_REL.
+GRAD_FLIP_K = 4.0
+# The cfg's learning rates (RMSprop 0.0016 / 0.0008) diverge on one batch
+# of random 1944-way labels: RMSprop's first steps move every weight by
+# ~lr/sqrt(1 - alpha), which blows up the 1024-wide relu recurrence by
+# the third or fourth step (the JAX package's step does the same). The
+# loss-falls check runs at a sixteenth of them; the cfg's rates are run
+# for LG_CFG_LR_STEPS steps and printed.
+LG_FALL_LR_SCALE = 1.0 / 16
+LG_CFG_LR_STEPS = 4
+
 
 def flagship_options(to_do="forward", compute_dtype=""):
     """``__graft_entry__._flagship``: 2x512 LSTM, BN on the gate
@@ -149,19 +218,20 @@ def flagship_options(to_do="forward", compute_dtype=""):
 
 
 class Stack(torch.nn.Module):
-    """LSTM -> MLP head over (T, B, F) sequences."""
+    """Recurrent net (LSTM or liGRU) -> MLP head over (T, B, F)
+    sequences."""
 
-    def __init__(self, lstm, mlp):
+    def __init__(self, rnn, mlp):
         super().__init__()
-        self.lstm, self.mlp = lstm, mlp
+        self.rnn, self.mlp = rnn, mlp
 
     def forward(self, x):
-        h = self.lstm(x)
+        h = self.rnn(x)
         T, B, _ = h.shape
         return self.mlp(h.reshape(T * B, -1)).reshape(T, B, -1)
 
     def apply_streaming(self, x, carries=None):
-        h, carries = self.lstm.apply_streaming(x, carries)
+        h, carries = self.rnn.apply_streaming(x, carries)
         T, B, _ = h.shape
         return self.mlp(h.reshape(T * B, -1)).reshape(T, B, -1), carries
 
@@ -277,11 +347,12 @@ def phase_kernels(dev, shapes=(SMALL_TBH, SERVE_TBH)):
 
 
 def phase_serve(dev, audio, lens, stack_fn=build_stack, tag="serve",
-                kernel="fused_lstm_fwd"):
+                kernel="fused_lstm_fwd", tol=TOL_POST):
     """A serving path: Recognizer.recognize with every launch counter
     set to 0 just before and read just after (``kernel`` must run 2
     layers x T times, no other kernel); then the same recognizer on the
-    CPU (the plain twins)."""
+    CPU (the plain twins): log-posteriors within ``tol``, equal
+    phones."""
     rec = build_recognizer(dev, stack_fn)
     T_frames = rec.frontend.num_frames(audio.shape[1])
     phones, launches = counted(lambda: rec.recognize(audio, lens))
@@ -301,39 +372,48 @@ def phase_serve(dev, audio, lens, stack_fn=build_stack, tag="serve",
     phones_ref = ref.recognize(audio, lens)
     print("[%s] log-posteriors %s vs %s: max abs err %.3g (tol %g); "
           "phones equal: %s; phones per utt: %s"
-          % (tag, dev, "cpu", err, TOL_POST, phones == phones_ref,
+          % (tag, dev, "cpu", err, tol, phones == phones_ref,
              [len(p) for p in phones]))
-    if not err <= TOL_POST:
+    if not err <= tol:
         raise AssertionError("recognizer posteriors disagree with the CPU")
     if phones != phones_ref:
         raise AssertionError("recognizer phones disagree with the CPU")
     return rec, phones, logp, launches, err
 
 
-def phase_stream(dev, rec, audio, lens, phones, logp, chunk=100,
-                 tag="stream", tol=TOL_STREAM):
-    """StreamingRecognizer over the recognizer's features in chunks: the
-    dense seeded kernel (the only streaming kernel) against whole-
-    utterance posteriors ``logp`` within ``tol``, and the phones."""
+def stream_run(dev, rec, audio, lens, chunk):
+    """StreamingRecognizer over the recognizer's features in chunks of
+    ``chunk`` frames, launch counters read around the accepts. ->
+    (log-posteriors (B, T, S) as numpy, finalized phones, launches)."""
     from pytorch_kaldi_cgs_tpu_torch.runtime.serve import StreamingRecognizer
     srec = StreamingRecognizer(rec.model, hmm=rec.hmm,
                                log_priors=rec.log_priors.cpu().numpy(),
                                device=dev)
     x = rec.features(audio).transpose(0, 1).contiguous()      # (T, B, F)
-    T = x.shape[0]
     sess = srec.start()
 
     def accept_all():
-        for a in range(0, T, chunk):
+        for a in range(0, x.shape[0], chunk):
             srec.accept(sess, x[a:a + chunk])
     _, launches = counted(accept_all)
-    if launches != expected(fused_lstm_fwd=2 * T):
+    streamed = np.concatenate(sess["chunks"]).transpose(1, 0, 2)
+    final = srec.finalize(sess, rec.frame_lengths(N_UTT, audio.shape[1], lens))
+    return streamed, final, launches
+
+
+def phase_stream(dev, rec, audio, lens, phones, logp, chunk=100,
+                 tag="stream", tol=TOL_STREAM, kernel="fused_lstm_fwd"):
+    """StreamingRecognizer over the recognizer's features in chunks: the
+    dense seeded kernel (``kernel``, the cell's only streaming kernel)
+    against whole-utterance posteriors ``logp`` within ``tol``, and the
+    phones."""
+    T = rec.frontend.num_frames(audio.shape[1])
+    streamed, final, launches = stream_run(dev, rec, audio, lens, chunk)
+    if launches != expected(**{kernel: 2 * T}):
         raise AssertionError("%s: launches %s, expected the dense seeded "
                              "kernel 2 x %d times" % (tag, launches, T))
-    launches = launches["fused_lstm_fwd"]
-    streamed = np.concatenate(sess["chunks"]).transpose(1, 0, 2)
+    launches = launches[kernel]
     err = float(np.abs(streamed - logp.cpu().numpy()).max())
-    final = srec.finalize(sess, rec.frame_lengths(N_UTT, audio.shape[1], lens))
     print("[%s] %d chunks of <=%d frames: launches %d; streamed vs "
           "whole max abs err %.3g (tol %g); finalize == recognize: %s"
           % (tag, -(-T // chunk), chunk, launches, err, tol,
@@ -480,7 +560,7 @@ def phase_train_kernels(dev, shapes=(SMALL_TBH, TRAIN_TBH)):
     return checks
 
 
-TRAIN_CFG = """[exp]
+CHUNK_CFG = """[exp]
 to_do = train
 seed = 0
 
@@ -488,68 +568,76 @@ seed = 0
 batch_size_train = {B}
 
 [data_chunk]
-fea = fea_name=fea
+fea = fea_name={fea}
 \tfea_lst=none
 \tfea_opts=none
 \tcw_left=0
 \tcw_right=0
-lab = lab_name=lab_cd
-\tlab_folder=none
-\tlab_opts=ali-to-pdf
-
-[architecture1]
-{lstm}
-
-[architecture2]
-{mlp}
-
-[model]
-model_proto = proto/model.proto
-model = out_rnn=compute(LSTM_layers,fea)
-\tout_dnn1=compute(MLP_out,out_rnn)
-\tloss_final=cost_nll(out_dnn1,lab_cd)
-\terr_final=cost_err(out_dnn1,lab_cd)
+lab = {labs}
 """
 
 
-def train_setup(compute_dtype=""):
-    """bench.py's flagship train step as a chunk config + chunk: the
-    flagship options with to_do=train, RMSprop lr 0.0016 alpha 0.95 eps
-    1e-8, inputs x ~ N(0, 1) (T, B, 143) and labels in [0, 1944) from
-    RandomState(0), as bench.py draws them; 16 sentences of 300 frames.
-    -> (config, chunk, (inp, mask) of the one batch)."""
+def chunk_setup(sections, T, B, fea, feat, labels):
+    """A train step as a chunk config + in-memory chunk: ``sections``
+    (the [architecture*] and [model] sections) over B sentences of T
+    frames: x ~ N(0, 1) of width ``feat`` (feature stream ``fea``), then
+    one label stream per ``labels`` entry (name, lab_opts, classes) in
+    [0, classes), drawn in that order from RandomState(0) as bench.py
+    draws them. -> (config, chunk, (inp, mask) of the one batch)."""
     import configparser
     from pytorch_kaldi_cgs_tpu_torch.data.dataset import (ChunkData,
                                                           FeaStream,
                                                           LabStream)
     from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import make_seq_batches
+    labs = "\n\n\t".join("lab_name=%s\n\tlab_folder=none\n\tlab_opts=%s"
+                         % (name, opts) for name, opts, _ in labels)
+    config = configparser.ConfigParser()
+    config.read_string(CHUNK_CFG.format(B=B, fea=fea, labs=labs))
+    for name, sec in sections.items():
+        config[name] = sec
+    rng = np.random.RandomState(0)
+    x = rng.randn(T, B, feat).astype(np.float32)
+    ys = [rng.randint(0, n, (T, B)) for _, _, n in labels]
+    data = np.concatenate([np.concatenate(
+        [x[:, b]] + [y[:, b, None] for y in ys], 1)
+        for b in range(B)]).astype(np.float32)
+    chunk = ChunkData(["utt%02d" % b for b in range(B)], data,
+                      np.cumsum([T] * B),
+                      {fea: FeaStream(fea, "none", col_start=0, col_end=feat)},
+                      {name: LabStream(name, "none", col=feat + k)
+                       for k, (name, _, _) in enumerate(labels)})
+    inp, mask, _, _ = next(make_seq_batches(chunk, B, True,
+                                            np.random.RandomState(0),
+                                            bucket=T))
+    assert inp.shape == (T, B, feat + len(labels)) and mask.all()
+    np.testing.assert_array_equal(inp[..., :feat], x)
+    return config, chunk, (inp, mask)
+
+
+CD_LABELS = [("lab_cd", "ali-to-pdf", PHONES * SPP)]
+
+
+def train_setup(compute_dtype=""):
+    """bench.py's flagship train step (chunk_setup): the flagship options
+    with to_do=train, RMSprop lr 0.0016 alpha 0.95 eps 1e-8, x of width
+    143 and cd labels, 16 sentences of 300 frames."""
     T, B, _ = TRAIN_TBH
     lo, mo = flagship_options("train", compute_dtype)
     opt = {"arch_lr": "0.0016", "arch_opt": "rmsprop", "opt_momentum": "0.0",
            "opt_alpha": "0.95", "opt_eps": "1e-8", "opt_centered": "False",
            "opt_weight_decay": "0.0", "arch_freeze": "False",
            "arch_library": "pytorch_kaldi_cgs_tpu_torch.models"}
-    lo = dict(lo, arch_class="LSTM", arch_seq_model="True", **opt)
-    mo = dict(mo, arch_class="MLP", arch_seq_model="False", **opt)
-    fmt = lambda d: "\n".join("%s = %s" % kv for kv in d.items())
-    config = configparser.ConfigParser()
-    config.read_string(TRAIN_CFG.format(B=B, lstm=fmt(lo), mlp=fmt(mo)))
-    rng = np.random.RandomState(0)
-    x = rng.randn(T, B, FEAT).astype(np.float32)
-    labels = rng.randint(0, PHONES * SPP, (T, B))
-    data = np.concatenate([np.concatenate([x[:, b], labels[:, b, None]], 1)
-                           for b in range(B)]).astype(np.float32)
-    chunk = ChunkData(["utt%02d" % b for b in range(B)], data,
-                      np.cumsum([T] * B),
-                      {"fea": FeaStream("fea", "none", col_start=0,
-                                        col_end=FEAT)},
-                      {"lab_cd": LabStream("lab_cd", "none", col=FEAT)})
-    inp, mask, _, _ = next(make_seq_batches(chunk, B, True,
-                                            np.random.RandomState(0),
-                                            bucket=T))
-    assert inp.shape == (T, B, FEAT + 1) and mask.all()
-    np.testing.assert_array_equal(inp[..., :FEAT], x)
-    return config, chunk, (inp, mask)
+    model = {"model_proto": "proto/model.proto",
+             "model": "out_rnn=compute(LSTM_layers,fea)\n"
+                      "out_dnn1=compute(MLP_out,out_rnn)\n"
+                      "loss_final=cost_nll(out_dnn1,lab_cd)\n"
+                      "err_final=cost_err(out_dnn1,lab_cd)"}
+    return chunk_setup({
+        "architecture1": dict(lo, arch_class="LSTM", arch_seq_model="True",
+                              **opt),
+        "architecture2": dict(mo, arch_class="MLP", arch_seq_model="False",
+                              **opt),
+        "model": model}, T, B, "fea", FEAT, CD_LABELS)
 
 
 def train_runner(dev, compute_dtype=""):
@@ -564,7 +652,11 @@ def wrappers():
     """Every kernel wrapper of the port, by kernel name."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
-    return {"fused_lstm_fwd": F.fused_lstm_fwd,
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    return {"fused_ligru_fwd": R.fused_ligru_fwd,
+            "fused_ligru_bwd_stash": R.fused_ligru_bwd_stash,
+            "fused_ligru_bwd": R.fused_ligru_bwd,
+            "fused_lstm_fwd": F.fused_lstm_fwd,
             "fused_lstm_bwd_stash": F.fused_lstm_bwd_stash,
             "fused_lstm_bwd": F.fused_lstm_bwd,
             "fused_lstm_fwd_sparse": F.fused_lstm_fwd_sparse,
@@ -616,57 +708,96 @@ def expected(**nonzero):
     return out
 
 
-def phase_train(dev, make_runner=train_runner, tag="train",
-                expect_stash=None, expect_recompute=None):
-    """A training path: ChunkRunner.train_step on the card. One step
-    against the CPU, launches per step (stash and recompute), then
-    TRAIN_STEPS steps on the one batch in f32 and bf16. Defaults: the
+def lstm_modes(T, stash=None, recompute=None):
+    """The LSTM train step's two backward modes: (name, knob, value,
+    expected launches per step), the first the default. Defaults: the
     flagship's, whose two layers run the dense kernels T times each."""
-    out = {}
-    runner, (inp, mask) = make_runner(dev)
+    return (("stash", "PKC_LSTM_BWD_RECOMPUTE", "0",
+             stash or expected(fused_lstm_fwd=2 * T,
+                               fused_lstm_bwd_stash=2 * T)),
+            ("recompute", "PKC_LSTM_BWD_RECOMPUTE", "1",
+             recompute or expected(fused_lstm_fwd=2 * T,
+                                   fused_lstm_bwd=2 * T)))
+
+
+def dropout_gen():
+    """A card-vs-CPU comparison's dropout masks come from one CPU
+    generator on the card and on the CPU alike (drawn on its device,
+    then moved), so the two runs drop the same units."""
+    return torch.Generator().manual_seed(0)
+
+
+def grad_rel_errs(runner, ref):
+    """Each gradient's max abs difference over the reference's largest
+    magnitude, by parameter."""
+    g_dev, g_ref = grads_of(runner), grads_of(ref)
+    return {k: float((g_dev[k].cpu() - g_ref[k]).abs().max())
+            / max(float(g_ref[k].abs().max()), 1e-30) for k in g_ref}
+
+
+def card_vs_cpu(runner, cpu, inp, mask, loss_err, knob, value, tag,
+                grad_tol=TOL_GRAD_REL):
+    """The CPU runner's step against the card's (``loss_err``, its
+    gradients in ``runner``): loss within TOL_LOSS_REL, err within one
+    frame, every gradient within ``grad_tol`` of its scale."""
     T, B = inp.shape[:2]
-    expect_stash = expect_stash or expected(fused_lstm_fwd=2 * T,
-                                            fused_lstm_bwd_stash=2 * T)
-    expect_recompute = expect_recompute or expected(fused_lstm_fwd=2 * T,
-                                                    fused_lstm_bwd=2 * T)
-    with env("PKC_LSTM_BWD_RECOMPUTE", "0"):
-        (loss, err), launches = counted(lambda: runner.train_step(inp, mask))
-    out["launches_stash"] = launches
-    print("[%s] step (stash backward): loss %.6f err %.4f, launches %s"
-          % (tag, float(loss), float(err), launches))
-    if launches != expect_stash:
-        raise AssertionError("%s step launches %s, expected %s"
-                             % (tag, launches, expect_stash))
-    cpu, _ = make_runner("cpu")
-    with env("PKC_LSTM_BWD_RECOMPUTE", "0"):
-        loss_c, err_c = cpu.train_step(inp, mask)
-    g_dev, g_cpu = grads_of(runner), grads_of(cpu)
-    grad_errs = {k: float((g_dev[k].cpu() - g_cpu[k]).abs().max())
-                 / max(float(g_cpu[k].abs().max()), 1e-30) for k in g_cpu}
+    loss, err = loss_err
+    with env(knob, value):
+        loss_c, err_c = cpu.train_step(inp, mask, dropout_gen())
+    grad_errs = grad_rel_errs(runner, cpu)
     loss_rel = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
     worst = max(grad_errs, key=grad_errs.get)
-    out.update(loss_card=float(loss), loss_cpu=float(loss_c),
+    out = dict(loss_card=float(loss), loss_cpu=float(loss_c),
                err_card=float(err), err_cpu=float(err_c),
                loss_rel_err=loss_rel, grads_compared=len(grad_errs),
-               grad_rel_err_max=grad_errs[worst], grad_rel_err_worst=worst)
+               grad_rel_err_max=grad_errs[worst], grad_rel_err_worst=worst,
+               grad_tol=grad_tol)
     print("[%s] card vs CPU: loss %.7f vs %.7f (rel %.3g, tol %g); %d "
           "gradients, worst rel err %.3g at %s (tol %g)"
           % (tag, float(loss), float(loss_c), loss_rel, TOL_LOSS_REL,
-             len(grad_errs), grad_errs[worst], worst, TOL_GRAD_REL))
-    if not (loss_rel <= TOL_LOSS_REL and grad_errs[worst] <= TOL_GRAD_REL
+             len(grad_errs), grad_errs[worst], worst, grad_tol))
+    if not (loss_rel <= TOL_LOSS_REL and grad_errs[worst] <= grad_tol
             and abs(float(err) - float(err_c)) <= 1.0 / (T * B) + 1e-7):
         raise AssertionError("%s step on the card disagrees with the CPU"
                              % tag)
-    with env("PKC_LSTM_BWD_RECOMPUTE", "1"):
-        (loss_r, _), launches = counted(lambda: runner.train_step(inp, mask))
-    out["launches_recompute"] = launches
-    print("[%s] step (recompute backward): loss %.6f, launches %s"
-          % (tag, float(loss_r), launches))
-    if launches != expect_recompute:
-        raise AssertionError("%s recompute step launches %s, expected %s"
-                             % (tag, launches, expect_recompute))
+    return out
+
+
+def phase_train(dev, make_runner=train_runner, tag="train", modes=None,
+                grad_tol=TOL_GRAD_REL, fall_runner=None):
+    """A training path: ChunkRunner.train_step on the card. One step in
+    the default backward mode against the CPU (card_vs_cpu), launches
+    per step in each of ``modes`` (``lstm_modes`` by default), then
+    TRAIN_STEPS steps on the one batch in f32 and bf16 (runners from
+    ``fall_runner``, default ``make_runner``)."""
+    out = {}
+    runner, (inp, mask) = make_runner(dev)
+    T, B = inp.shape[:2]
+    modes = modes or lstm_modes(T)
+    (name, knob, value, expect), second = modes
+    with env(knob, value):
+        (loss, err), launches = counted(
+            lambda: runner.train_step(inp, mask, dropout_gen()))
+    out["launches_" + name] = launches
+    print("[%s] step (%s backward): loss %.6f err %.4f, launches %s"
+          % (tag, name, float(loss), float(err), launches))
+    if launches != expect:
+        raise AssertionError("%s step launches %s, expected %s"
+                             % (tag, launches, expect))
+    out.update(card_vs_cpu(runner, make_runner("cpu")[0], inp, mask,
+                           (loss, err), knob, value, tag, grad_tol))
+    name, knob, value, expect = second
+    with env(knob, value):
+        (loss_r, _), launches = counted(
+            lambda: runner.train_step(inp, mask, dropout_gen()))
+    out["launches_" + name] = launches
+    print("[%s] step (%s backward): loss %.6f, launches %s"
+          % (tag, name, float(loss_r), launches))
+    if launches != expect:
+        raise AssertionError("%s %s step launches %s, expected %s"
+                             % (tag, name, launches, expect))
     for cdt in ("", "bf16"):
-        r, (inp, mask) = make_runner(dev, cdt)
+        r, (inp, mask) = (fall_runner or make_runner)(dev, cdt)
         losses = [float(r.train_step(inp, mask)[0])
                   for _ in range(TRAIN_STEPS)]
         name = "bf16" if cdt else "f32"
@@ -690,6 +821,20 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps=5):
+    """Host wall times (ms) of ``reps`` synchronized calls after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def lstm_bound_ms(T, B, H, dtype="f32", kind="fwd", kept=None):
@@ -737,39 +882,56 @@ def phase_times(dev, rec, audio, lens):
                                   times["plain_ms"], times["library_ms"],
                                   times["bound_ms"], times["bound_by"]))
 
-    def wall(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    from pytorch_kaldi_cgs_tpu_torch.decode.viterbi import \
-        batched_viterbi_decode
-    rec_ms = wall(lambda: rec.recognize(audio, lens))
-    post_ms = wall(lambda: rec.posteriors(audio))
-    feat_ms = wall(lambda: rec.features(audio))
-    logp = rec.posteriors(audio)
-    frames = rec.frame_lengths(N_UTT, audio.shape[1], lens)
-    dec_ms = wall(lambda: batched_viterbi_decode(logp, frames, rec.hmm,
-                                                 acwt=rec.acwt))
-    med = float(np.median(rec_ms))
-    padded_s = N_UTT * SECONDS
-    speech_s = float(np.sum(lens)) / SR
-    serve = {"recognize_ms_runs": rec_ms, "recognize_ms_median": med,
-             "features_ms_median": float(np.median(feat_ms)),
-             "posteriors_ms_median": float(np.median(post_ms)),
-             "decode_ms_median": float(np.median(dec_ms)),
-             "audio_s_per_s_padded": padded_s / (med / 1e3),
-             "audio_s_per_s_speech": speech_s / (med / 1e3)}
-    serve.update(device_busy(lambda: rec.recognize(audio, lens)))
-    serve.pop("by_name")
+    serve = serve_timings(rec, audio, lens)
     print("[times] recognizer (8 x 4 s batch): %s" % json.dumps(serve))
     return times, serve
+
+
+def serve_timings(rec, audio, lens):
+    """A recognizer's host wall times (median of 5 synchronized calls):
+    recognize, and its features, posteriors and Viterbi parts; audio-s/s
+    over the padded and the speech seconds; one profiled recognize."""
+    from pytorch_kaldi_cgs_tpu_torch.decode.viterbi import \
+        batched_viterbi_decode
+    rec_ms = wall_ms(lambda: rec.recognize(audio, lens))
+    logp = rec.posteriors(audio)
+    frames = rec.frame_lengths(N_UTT, audio.shape[1], lens)
+    med = float(np.median(rec_ms))
+    serve = {"recognize_ms_runs": rec_ms, "recognize_ms_median": med,
+             "features_ms_median": float(np.median(wall_ms(
+                 lambda: rec.features(audio)))),
+             "posteriors_ms_median": float(np.median(wall_ms(
+                 lambda: rec.posteriors(audio)))),
+             "decode_ms_median": float(np.median(wall_ms(
+                 lambda: batched_viterbi_decode(logp, frames, rec.hmm,
+                                                acwt=rec.acwt)))),
+             "audio_s_per_s_padded": N_UTT * SECONDS / (med / 1e3),
+             "audio_s_per_s_speech": float(np.sum(lens)) / SR / (med / 1e3)}
+    serve.update(device_busy(lambda: rec.recognize(audio, lens)))
+    serve["device_ms_by_class"] = kernel_classes(serve.pop("by_name"))
+    return serve
+
+
+def train_step_times(dev, make_runner, tag, reps, part_reps):
+    """A train step as users run it, ``runner.train_step(inp, mask)``
+    (dropout masks drawn on the card), in f32 and bf16: CUDA-event ms
+    (mean of ``reps``) and frames/s, its parts (step_parts), one profiled
+    step's device busy share and device ms by class of kernel."""
+    step = {}
+    for cdt in ("", "bf16"):
+        name = "bf16" if cdt else "f32"
+        runner, (inp, mask) = make_runner(dev, cdt)
+        inp = torch.as_tensor(inp, device=dev)
+        mask = torch.as_tensor(mask, device=dev)
+        T, B = inp.shape[:2]
+        ms = cuda_ms(lambda: runner.train_step(inp, mask), reps=reps)
+        step[name] = {"step_ms": ms, "frames_per_s": T * B / (ms / 1e3)}
+        step[name].update(step_parts(runner, inp, mask, reps=part_reps))
+        busy = device_busy(lambda: runner.train_step(inp, mask), top=10)
+        busy["device_ms_by_class"] = kernel_classes(busy.pop("by_name"))
+        step[name].update(busy)
+        print("[%s] train step %s: %s" % (tag, name, json.dumps(step[name])))
+    return step
 
 
 def phase_train_times(dev):
@@ -825,20 +987,7 @@ def phase_train_times(dev):
     times["dU_matmul_ms"] = cuda_ms(lambda: dg.T @ hq, reps=20)
     print("[times] kernels at T=%d B=%d H=%d: %s" % (T, B, H,
                                                     json.dumps(times)))
-    step = {}
-    for cdt in ("", "bf16"):
-        name = "bf16" if cdt else "f32"
-        runner, (inp, mask) = train_runner(dev, cdt)
-        inp = torch.as_tensor(inp, device=dev)
-        mask = torch.as_tensor(mask, device=dev)
-        ms = cuda_ms(lambda: runner.train_step(inp, mask), reps=10)
-        step[name] = {"step_ms": ms, "frames_per_s": T * B / (ms / 1e3)}
-        step[name].update(step_parts(runner, inp, mask))
-        busy = device_busy(lambda: runner.train_step(inp, mask), top=10)
-        busy["device_ms_by_class"] = kernel_classes(busy.pop("by_name"))
-        step[name].update(busy)
-        print("[times] train step %s: %s" % (name, json.dumps(step[name])))
-    return times, step
+    return times, train_step_times(dev, train_runner, "times", 10, 5)
 
 
 def step_parts(runner, inp, mask, reps=5):
@@ -867,6 +1016,8 @@ def kernel_classes(by_name):
     """Device ms per class of kernel, from the profile's kernel names."""
     classes = {"lstm_fwd_kernel": ("lstm_step", "sparse_fwd_step"),
                "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step"),
+               "ligru_fwd_kernel": ("ligru_step",),
+               "ligru_bptt_kernel": ("ligru_bwd",),
                "block_sparse_dw_kernel": ("dw3_tile",),
                "matmul": ("gemm", "cutlass", "sm90_", "ampere_", "cublas"),
                }
@@ -1080,47 +1231,12 @@ def phase_sparse_kernels(dev):
 
 
 def cgs_train_setup(compute_dtype=""):
-    """The CGS-16x train step as a chunk config + chunk: the cfg's
-    sections (cgs_sections) over an in-memory chunk of 16 sentences of
-    300 frames: fMLLR-shaped x ~ N(0, 1) of width 143 and cd labels in
-    [0, 1944) from RandomState(0) as train_setup draws them, then mono
-    labels in [0, 48). -> (config, chunk, (inp, mask) of the batch)."""
-    import configparser
-    from pytorch_kaldi_cgs_tpu_torch.data.dataset import (ChunkData,
-                                                          FeaStream,
-                                                          LabStream)
-    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import make_seq_batches
+    """The CGS-16x train step (chunk_setup): the cfg's sections
+    (cgs_sections), 16 sentences of 300 frames, fMLLR-shaped x of width
+    143, cd labels then mono labels in [0, 48)."""
     T, B, _ = SP_TRAIN_TBH
-    config = configparser.ConfigParser()
-    config.read_string(
-        "[exp]\nto_do = train\nseed = 0\n\n[batches]\nbatch_size_train = %d"
-        "\n\n[data_chunk]\nfea = fea_name=fmllr\n\tfea_lst=none\n"
-        "\tfea_opts=none\n\tcw_left=0\n\tcw_right=0\n"
-        "lab = lab_name=lab_cd\n\tlab_folder=none\n\tlab_opts=ali-to-pdf\n"
-        "\n\tlab_name=lab_mono\n\tlab_folder=none\n"
-        "\tlab_opts=ali-to-phones\n" % B)
-    for name, sec in cgs_sections(compute_dtype).items():
-        config[name] = sec
-    rng = np.random.RandomState(0)
-    x = rng.randn(T, B, FEAT).astype(np.float32)
-    cd = rng.randint(0, PHONES * SPP, (T, B))
-    mono = rng.randint(0, N_MONO, (T, B))
-    data = np.concatenate([np.concatenate(
-        [x[:, b], cd[:, b, None], mono[:, b, None]], 1)
-        for b in range(B)]).astype(np.float32)
-    chunk = ChunkData(["utt%02d" % b for b in range(B)], data,
-                      np.cumsum([T] * B),
-                      {"fmllr": FeaStream("fmllr", "none", col_start=0,
-                                          col_end=FEAT)},
-                      {"lab_cd": LabStream("lab_cd", "none", col=FEAT),
-                       "lab_mono": LabStream("lab_mono", "none",
-                                             col=FEAT + 1)})
-    inp, mask, _, _ = next(make_seq_batches(chunk, B, True,
-                                            np.random.RandomState(0),
-                                            bucket=T))
-    assert inp.shape == (T, B, FEAT + 2) and mask.all()
-    np.testing.assert_array_equal(inp[..., :FEAT], x)
-    return config, chunk, (inp, mask)
+    return chunk_setup(cgs_sections(compute_dtype), T, B, "fmllr", FEAT,
+                       CD_LABELS + [("lab_mono", "ali-to-phones", N_MONO)])
 
 
 def cgs_train_runner(dev, compute_dtype=""):
@@ -1135,12 +1251,11 @@ def cgs_train_runner(dev, compute_dtype=""):
 
 def phase_sparse_train(dev):
     T = SP_TRAIN_TBH[0]
-    return phase_train(
-        dev, cgs_train_runner, "sparse_train",
-        expected(fused_lstm_fwd_sparse=2 * T,
-                 fused_lstm_bwd_sparse_stash=2 * T, block_sparse_dw=2),
+    return phase_train(dev, cgs_train_runner, "sparse_train", lstm_modes(
+        T, expected(fused_lstm_fwd_sparse=2 * T,
+                    fused_lstm_bwd_sparse_stash=2 * T, block_sparse_dw=2),
         expected(fused_lstm_fwd_sparse=2 * T, fused_lstm_bwd_sparse=2 * T,
-                 block_sparse_dw=2))
+                 block_sparse_dw=2)))
 
 
 def phase_sparse_times(dev, rec, audio, lens):
@@ -1259,36 +1374,397 @@ def phase_sparse_times(dev, rec, audio, lens):
                  cudnn_bwd_ms=fb_ms - fwd_ms)
     print("[sparse_times] kernels at T=%d B=%d H=%d (Kb=%d, R=%d): %s"
           % (T, B, H, layout.Kb, layout.R, json.dumps(times)))
-    step = {}
-    for cdt in ("", "bf16"):
-        name = "bf16" if cdt else "f32"
-        runner, (x_in, mask) = cgs_train_runner(dev, cdt)
-        x_in = torch.as_tensor(x_in, device=dev)
-        mask = torch.as_tensor(mask, device=dev)
-        ms = cuda_ms(lambda: runner.train_step(x_in, mask), reps=5)
-        step[name] = {"step_ms": ms, "frames_per_s": T * B / (ms / 1e3)}
-        step[name].update(step_parts(runner, x_in, mask, reps=3))
-        busy = device_busy(lambda: runner.train_step(x_in, mask), top=10)
-        busy["device_ms_by_class"] = kernel_classes(busy.pop("by_name"))
-        step[name].update(busy)
-        print("[sparse_times] CGS-16x train step %s: %s"
-              % (name, json.dumps(step[name])))
-    rec_ms = []
-    rec.recognize(audio, lens)
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rec.recognize(audio, lens)
-        torch.cuda.synchronize()
-        rec_ms.append((time.perf_counter() - t0) * 1e3)
-    med = float(np.median(rec_ms))
-    serve = {"recognize_ms_runs": rec_ms, "recognize_ms_median": med,
-             "audio_s_per_s_padded": N_UTT * SECONDS / (med / 1e3)}
-    serve.update(device_busy(lambda: rec.recognize(audio, lens)))
-    serve["device_ms_by_class"] = kernel_classes(serve.pop("by_name"))
+    step = train_step_times(dev, cgs_train_runner, "sparse_times", 5, 3)
+    serve = serve_timings(rec, audio, lens)
     print("[sparse_times] CGS-16x recognizer (8 x 4 s batch): %s"
           % json.dumps(serve))
     return times, step, serve
+
+
+# ---------------------------------------------------------------------------
+# the Li-GRU slice: the dense fused liGRU recurrence
+# ---------------------------------------------------------------------------
+
+def ligru_sections(compute_dtype="", quant_inp=True, lr_scale=1.0):
+    """The TIMIT Li-GRU cfg's [architecture1..2] and [model], read from
+    the file, with the port's arch_library and N_out_lab_cd = 1944;
+    ``quant_inp=False`` turns the liGRU's 16-bit input quantizers off,
+    ``lr_scale`` scales both nets' learning rates."""
+    import configparser
+    src = configparser.ConfigParser()
+    if not src.read(LIGRU_CFG):
+        raise FileNotFoundError(LIGRU_CFG)
+    secs = {k: dict(src[k]) for k in ("architecture1", "architecture2",
+                                      "model")}
+    for k in ("architecture1", "architecture2"):
+        secs[k]["arch_library"] = "pytorch_kaldi_cgs_tpu_torch.models"
+        secs[k]["compute_dtype"] = compute_dtype
+        secs[k]["arch_lr"] = repr(float(secs[k]["arch_lr"]) * lr_scale)
+    secs["architecture2"]["dnn_lay"] = secs["architecture2"]["dnn_lay"] \
+        .replace("N_out_lab_cd", str(PHONES * SPP))
+    if not quant_inp:
+        secs["architecture1"]["ligru_quant_inp"] = "False"
+    return secs
+
+
+def build_ligru_stack(dev, feat_dim=LG_FEAT, quant_inp=True):
+    """The TIMIT Li-GRU -> its 1944-way cd head (weights from init(0) /
+    init(1)); both recurrences must take the dense fused path.
+    ``quant_inp=False`` turns the liGRU's 16-bit input quantizers off."""
+    from pytorch_kaldi_cgs_tpu_torch.models import MLP, liGRU
+    secs = ligru_sections(quant_inp=quant_inp)
+    rnn = liGRU(dict(secs["architecture1"], to_do="forward"), feat_dim,
+                seed=0, device=dev)
+    mlp = MLP(dict(secs["architecture2"], to_do="forward"), rnn.out_dim,
+              seed=1, device=dev)
+    if rnn._rec_layouts:
+        raise AssertionError("the TIMIT Li-GRU recurrence has a sparse layout")
+    with torch.no_grad():
+        mlp.params["w0"].mul_(LIGRU_HEAD_GAIN)
+    return Stack(rnn, mlp).eval()
+
+
+def ligru_inputs(T, B, H, seed, dev, act):
+    """Gates (T, B, 2H) [h | z], U (2H, H), a (B, H) dropout mask, h0 and
+    upstream cotangents. For relu the candidate's gate inputs sit at
+    +-(4 + |N(0, 0.5)|) and U at 0.2/sqrt(H), so the recurrent term
+    (std ~0.5) never brings a pre-activation within reach of the ulp-level
+    difference between the kernel's and the twin's sums, where relu's
+    derivative would flip between 0 and 1 (both branches still run)."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    g = rng.randn(T, B, 2 * H) * 0.5
+    u_scale = 1.0
+    if act == "relu":
+        sign = np.where(rng.rand(1, B, H) > 0.5, 1.0, -1.0)
+        g[..., :H] = sign * (4.0 + np.abs(g[..., :H]))
+        u_scale = 0.2
+    U = rng.randn(2 * H, H) * u_scale / np.sqrt(H)
+    return {"g": t(g), "U": t(U), "drop": t((rng.rand(B, H) > 0.2) * 1.0),
+            "h0": t(rng.randn(B, H) * 0.3), "dhs": t(rng.randn(T, B, H) * 0.1)}
+
+
+def phase_ligru_kernels(dev):
+    """The liGRU forward (plain, stash and seeded) and both BPTT kernels
+    against their twins on the same tensors: qbits 0/16 x relu/tanh, at
+    the small ragged shape, H=550, the serving shape (forward only) and
+    the training shape."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    checks = []
+
+    def check(name, shape, variant, err_rel, tol, by_rel):
+        err, rel = err_rel
+        c = {"kernel": name, "T": shape[0], "B": shape[1], "H": shape[2],
+             **variant, "max_abs_err": err, "rel_err": rel, "tol": tol,
+             "ok": bool(np.isfinite(err) and (rel if by_rel else err) <= tol)}
+        checks.append(c)
+        print("[ligru_kernels] %s" % json.dumps(c))
+
+    for shape in (SMALL_TBH, LG_MID_TBH, LG_SERVE_TBH, LG_TRAIN_TBH):
+        T, B, H = shape
+        small, serve = shape == SMALL_TBH, shape == LG_SERVE_TBH
+        cases = [(q, a) for q in (0, 16) for a in ("relu", "tanh")]
+        for k, (qbits, act) in enumerate(cases):
+            inp = ligru_inputs(T, B, H, 80 + k, dev, act)
+            g, U, drop, h0, dhs = (inp[n] for n in ("g", "U", "drop", "h0",
+                                                    "dhs"))
+            variant = {"qbits": qbits, "act": act}
+            tol = TOL_F32_SMALL if small else TOL_F32_SERVE
+            tol_q = TOL_Q16 if qbits else tol
+            with torch.no_grad():
+                ref = R.fused_ligru_fwd_plain(g, U, drop, None, act, qbits,
+                                              True)
+                check("fused_ligru_fwd", shape, variant, rel_err(
+                    R.fused_ligru_fwd(g, U, drop, act=act, qbits=qbits),
+                    ref[0]), tol_q, False)
+                check("fused_ligru_fwd/seeded", shape, variant, rel_err(
+                    R.fused_ligru_fwd(g, U, drop, h0, act=act, qbits=qbits),
+                    R.fused_ligru_fwd_plain(g, U, drop, h0, act, qbits)),
+                    tol_q, False)
+                if serve:
+                    continue
+                hs, acts = R.fused_ligru_fwd(g, U, drop, act=act, qbits=qbits,
+                                             stash=True)
+                check("fused_ligru_fwd/stash", shape, variant,
+                      rel_err((hs, acts), ref), tol_q, False)
+                h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                check("fused_ligru_bwd_stash", shape, variant, rel_err(
+                    R.fused_ligru_bwd_stash(acts, U, drop, h_prev, dhs, act),
+                    R.fused_ligru_bwd_stash_plain(acts, U, drop, h_prev, dhs,
+                                                  act)), tol, True)
+                check("fused_ligru_bwd", shape, variant, rel_err(
+                    R.fused_ligru_bwd(g, U, drop, h_prev, dhs, act, qbits),
+                    R.fused_ligru_bwd_plain(g, U, drop, h_prev, dhs, act,
+                                            qbits)), tol_q, True)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("a liGRU kernel disagrees with its plain twin: "
+                             "%s" % bad)
+    return checks
+
+
+def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100):
+    """The Li-GRU streams on the seeded forward. One chunk of the whole
+    utterance is held to the whole-utterance posteriors within
+    TOL_STREAM. Chunks of 100 frames are held within TOL_POST_Q16 (as
+    ligru_serve) to the same chunks streamed on the CPU (same phones),
+    not to the whole
+    utterance: the cfg's ligru_quant_inp=True scales each call's x (and
+    layer 1's input) by its own max|x|, which at the head's x3000 logits
+    moves the posteriors by ~1e-2 in both packages; that difference is
+    printed."""
+    T = rec.frontend.num_frames(audio.shape[1])
+    _, err_one = phase_stream(dev, rec, audio, lens, phones, logp, chunk=T,
+                              tag="ligru_stream_one_chunk",
+                              kernel="fused_ligru_fwd")
+    streamed, final, launches = stream_run(dev, rec, audio, lens, chunk)
+    if launches != expected(fused_ligru_fwd=2 * T):
+        raise AssertionError("ligru_stream: launches %s, expected the "
+                             "seeded forward 2 x %d times" % (launches, T))
+    ref, final_ref, _ = stream_run("cpu", build_recognizer(
+        "cpu", build_ligru_stack), audio, lens, chunk)
+    err = float(np.abs(streamed - ref).max())
+    vs_whole = float(np.abs(streamed - logp.cpu().numpy()).max())
+    print("[ligru_stream] %d chunks of <=%d frames: launches %d; card vs "
+          "CPU stream max abs err %.3g (tol %g), phones equal: %s; chunked "
+          "vs whole utterance %.3g; finalize == recognize: %s"
+          % (-(-T // chunk), chunk, launches["fused_ligru_fwd"], err,
+             TOL_POST_Q16, final == final_ref, vs_whole, final == phones))
+    if not err <= TOL_POST_Q16 or final != final_ref:
+        raise AssertionError("ligru_stream disagrees with the CPU stream")
+    return launches["fused_ligru_fwd"], {
+        "one_chunk_vs_whole": err_one, "chunked_card_vs_cpu": err,
+        "chunked_vs_whole": vs_whole,
+        "chunked_phones_equal_whole": final == phones}
+
+
+def ligru_train_setup(compute_dtype="", quant_inp=True, lr_scale=1.0):
+    """The TIMIT Li-GRU train step (chunk_setup): the cfg's sections
+    (ligru_sections), 8 sentences of 300 frames, fMLLR x of width 40 and
+    cd labels."""
+    T, B, _ = LG_TRAIN_TBH
+    return chunk_setup(ligru_sections(compute_dtype, quant_inp, lr_scale),
+                       T, B, "fmllr", LG_FEAT, CD_LABELS)
+
+
+def ligru_train_runner(dev, compute_dtype="", quant_inp=True, lr_scale=1.0):
+    from pytorch_kaldi_cgs_tpu_torch.models import liGRU
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    config, chunk, batch = ligru_train_setup(compute_dtype, quant_inp,
+                                             lr_scale)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    rnn = graph.nets["RNN_layers"]
+    if type(rnn) is not liGRU or rnn._rec_layouts:
+        raise AssertionError("the Li-GRU cfg did not build a dense liGRU")
+    return ChunkRunner(graph, config), batch
+
+
+def ulp_sensitivity(make_runner, inp, mask):
+    """How far the CPU reference's own gradients move when x changes by
+    one ulp (each feature times 1 +- 2^-23, random signs): the worst
+    gradient's max abs change over its scale, and where."""
+    ref, _ = make_runner("cpu")
+    ref.train_step(inp, mask, dropout_gen())
+    moved, _ = make_runner("cpu")
+    x = inp.copy()
+    sign = np.random.RandomState(1).choice([-1.0, 1.0], x[..., :LG_FEAT].shape)
+    x[..., :LG_FEAT] *= (1.0 + sign * 2.0 ** -23).astype(np.float32)
+    moved.train_step(x, mask, dropout_gen())
+    errs = grad_rel_errs(moved, ref)
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def phase_ligru_train(dev):
+    """The default backward (recompute) is compared with the CPU, held to
+    GRAD_FLIP_K times the CPU's own one-ulp sensitivity; the same step
+    without the 16-bit quantizers to TOL_GRAD_REL; the stash backward
+    runs under PKC_BWD_STASH_CELLS=ligru."""
+    T = LG_TRAIN_TBH[0]
+    knob = "PKC_BWD_STASH_CELLS"
+    inp, mask = ligru_train_setup()[2]
+    sens, where = ulp_sensitivity(ligru_train_runner, inp, mask)
+    grad_tol = max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
+    print("[ligru_train] the CPU's own gradients under a one-ulp change of "
+          "x: worst rel change %.3g at %s; card vs CPU bar %.3g"
+          % (sens, where, grad_tol))
+    out = phase_train(dev, ligru_train_runner, "ligru_train", (
+        ("recompute", knob, None,
+         expected(fused_ligru_fwd=2 * T, fused_ligru_bwd=2 * T)),
+        ("stash", knob, "ligru",
+         expected(fused_ligru_fwd=2 * T, fused_ligru_bwd_stash=2 * T))),
+        grad_tol=grad_tol, fall_runner=lambda d, cdt="":
+        ligru_train_runner(d, cdt, lr_scale=LG_FALL_LR_SCALE))
+    out.update(cpu_ulp_grad_rel_change=sens, cpu_ulp_worst=where)
+    runner, (inp, mask) = ligru_train_runner(dev)
+    cfg_lr = [float(runner.train_step(inp, mask)[0])
+              for _ in range(LG_CFG_LR_STEPS)]
+    out["losses_f32_cfg_lr"] = [v if np.isfinite(v) else str(v)
+                                for v in cfg_lr]
+    print("[ligru_train] f32 at the cfg's learning rates: loss %s"
+          % ["%.4f" % v for v in cfg_lr])
+
+    def no_quant(d, cdt=""):
+        return ligru_train_runner(d, cdt, quant_inp=False)
+    runner, (inp, mask) = no_quant(dev)
+    with env(knob, None):
+        loss_err = runner.train_step(inp, mask, dropout_gen())
+    out["no_quant_inp"] = card_vs_cpu(
+        runner, no_quant("cpu")[0], inp, mask, loss_err, knob, None,
+        "ligru_train, ligru_quant_inp=False")
+    return out
+
+
+def ligru_bound_ms(T, B, H, kind):
+    """Least time for one liGRU layer call in float32: each input read
+    once, each output written once, over the HBM rate; the FMAs over
+    the float32 peak. kind: "fwd" (gates, U, drop in; hs out),
+    "fwd_stash" (and the (T, B, 2H) stash out), "bwd_stash" (stash, U,
+    drop, h_prev, dhs in; dg out; one (B, 2H) x (2H, H) product per
+    step), "bwd" (gates instead of the stash; that product and the
+    forward's). -> (ms, "bytes"|"operations")."""
+    gates, seq, bh = T * B * 2 * H * 4, T * B * H * 4, B * H * 4
+    nbytes = {"fwd": gates + bh + seq, "fwd_stash": 2 * gates + bh + seq,
+              "bwd_stash": 2 * gates + bh + 2 * seq,
+              "bwd": 2 * gates + bh + 2 * seq}[kind] + 2 * H * H * 4
+    flops = 2 * T * B * 2 * H * H * (2 if kind == "bwd" else 1)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FLOPS["f32"] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_ligru_times(dev, rec, audio, lens):
+    """CUDA-event times of the liGRU kernels per layer call at the
+    training shape (the forward also at the serving shape), as the
+    cfg's main path runs them (relu, 16-bit recurrent quantizer); their
+    twins and bounds; cuDNN's nn.GRU(1024, 1024) as a yardstick (three
+    gates, no quantizer: not the same function); the dU matmul; the
+    Li-GRU train step and recognize."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = LG_TRAIN_TBH
+    qb, act = 16, "relu"
+    inp = ligru_inputs(T, B, H, 95, dev, act)
+    g, U, drop, dhs = (inp[n] for n in ("g", "U", "drop", "dhs"))
+    times = {}
+    with torch.no_grad():
+        hs, acts = R.fused_ligru_fwd(g, U, drop, act=act, qbits=qb,
+                                     stash=True)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        calls = {
+            "fused_ligru_fwd": (
+                lambda: R.fused_ligru_fwd(g, U, drop, act=act, qbits=qb,
+                                          stash=True),
+                lambda: R.fused_ligru_fwd_plain(g, U, drop, None, act, qb,
+                                                True), "fwd_stash"),
+            "fused_ligru_bwd_stash": (
+                lambda: R.fused_ligru_bwd_stash(acts, U, drop, h_prev, dhs,
+                                                act),
+                lambda: R.fused_ligru_bwd_stash_plain(acts, U, drop, h_prev,
+                                                      dhs, act), "bwd_stash"),
+            "fused_ligru_bwd": (
+                lambda: R.fused_ligru_bwd(g, U, drop, h_prev, dhs, act, qb),
+                lambda: R.fused_ligru_bwd_plain(g, U, drop, h_prev, dhs, act,
+                                                qb), "bwd")}
+        for name, (fn, plain, kind) in calls.items():
+            times[name + "_ms"] = cuda_ms(fn, reps=10)
+            times[name + "_plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                ligru_bound_ms(T, B, H, kind)
+        # the forward without the stash, and both without the quantizer
+        # (no per-step absmax): interleaved with a repeat of the stash one
+        for q in (qb, 0):
+            sfx = "_q0" if q == 0 else ""
+            times["fused_ligru_fwd_nostash_ms" + sfx] = cuda_ms(
+                lambda: R.fused_ligru_fwd(g, U, drop, act=act, qbits=q),
+                reps=10)
+            times["fused_ligru_fwd_stash_ms" + sfx] = cuda_ms(
+                lambda: R.fused_ligru_fwd(g, U, drop, act=act, qbits=q,
+                                          stash=True), reps=10)
+        Ts, Bs, _ = LG_SERVE_TBH
+        sv = ligru_inputs(Ts, Bs, H, 94, dev, act)
+        times["serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_ligru_fwd(sv["g"], sv["U"], sv["drop"], act=act,
+                                      qbits=qb), reps=10)
+        times["serve_fwd_plain_ms"] = cuda_ms(
+            lambda: R.fused_ligru_fwd_plain(sv["g"], sv["U"], sv["drop"],
+                                            None, act, qb), reps=2, warmup=1)
+        times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
+            ligru_bound_ms(Ts, Bs, H, "fwd")
+        # the dU product outside the BPTT kernel: (2H, T*B) @ (T*B, H)
+        dg = torch.randn(T * B, 2 * H, device=dev)
+        hq = torch.randn(T * B, H, device=dev)
+        times["dU_matmul_ms"] = cuda_ms(lambda: dg.T @ hq, reps=20)
+    gru = torch.nn.GRU(H, H).to(dev)
+    xin = torch.randn(T, B, H, device=dev, requires_grad=True)
+    dy = torch.randn(T, B, H, device=dev)
+    fwd_ms = cuda_ms(lambda: gru(xin)[0], reps=10)
+    fb_ms = cuda_ms(lambda: gru(xin)[0].backward(dy), reps=10)
+    with torch.no_grad():
+        xs = torch.randn(Ts, Bs, H, device=dev)
+        times["cudnn_gru_serve_fwd_ms"] = cuda_ms(lambda: gru(xs), reps=10)
+    times.update(cudnn_gru_fwd_ms=fwd_ms, cudnn_gru_fwd_bwd_ms=fb_ms,
+                 cudnn_gru_bwd_ms=fb_ms - fwd_ms)
+    print("[ligru_times] kernels at T=%d B=%d H=%d (relu, qbits 16): %s"
+          % (T, B, H, json.dumps(times)))
+    step = train_step_times(dev, ligru_train_runner, "ligru_times", 5, 3)
+    serve = serve_timings(rec, audio, lens)
+    print("[ligru_times] Li-GRU recognizer (8 x 4 s batch): %s"
+          % json.dumps(serve))
+    return times, step, serve
+
+
+def ligru_rows(checks, times, launches):
+    """The kernels JSON rows of the Li-GRU slice. ``ms`` etc. are per
+    layer call at the training shape (relu, qbits 16, as the cfg runs
+    them); ``launches`` counts one Li-GRU train step (the default
+    recompute backward; the stash one for fused_ligru_bwd_stash);
+    ``library_ms`` is cuDNN's nn.GRU(1024, 1024), a yardstick."""
+    T, B, H = LG_TRAIN_TBH
+    src = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/fused_ligru.cu"
+    jax_fr = "pytorch_kaldi_cgs_tpu/ops/fused_rnn.py:%d"
+    note = ("cuDNN nn.GRU(1024, 1024) %s: a yardstick (three gates, no "
+            "quantizer), not the same function")
+
+    def err_at(kernel):
+        return [c for c in checks if c["kernel"] == kernel
+                and (c["T"], c["B"], c["H"]) == LG_TRAIN_TBH
+                and c["qbits"] == 0 and c["act"] == "relu"][0]["max_abs_err"]
+
+    def row(name, replaces, library_ms, library_note, err, **extra):
+        mine = [c for c in checks if c["kernel"].split("/")[0] == name]
+        r = {"name": name, "route": "cuda", "source": src,
+             "replaces": jax_fr % replaces, "launches": launches[name]["main"],
+             "launches_by_path": launches[name], "max_abs_err": err,
+             "ms": times[name + "_ms"], "plain_ms": times[name + "_plain_ms"],
+             "bound_ms": times[name + "_bound_ms"],
+             "bound_by": times[name + "_bound_by"], "library_ms": library_ms,
+             "library_note": library_note,
+             "shape": {"T": T, "B": B, "H": H, "act": "relu", "qbits": 16},
+             "checks": len(mine), "checks_ok": all(c["ok"] for c in mine)}
+        r.update(extra)
+        return r
+
+    return [
+        row("fused_ligru_fwd", 28, times["cudnn_gru_fwd_ms"], note % "forward",
+            err_at("fused_ligru_fwd/stash"),
+            variant="stash (training forward)",
+            ms_nostash=times["fused_ligru_fwd_nostash_ms"],
+            ms_repeat=times["fused_ligru_fwd_stash_ms"],
+            ms_q0=times["fused_ligru_fwd_stash_ms_q0"],
+            ms_nostash_q0=times["fused_ligru_fwd_nostash_ms_q0"],
+            serve={"T": LG_SERVE_TBH[0], "B": LG_SERVE_TBH[1], "H": H,
+                   "ms": times["serve_fwd_ms"],
+                   "plain_ms": times["serve_fwd_plain_ms"],
+                   "bound_ms": times["serve_fwd_bound_ms"],
+                   "bound_by": times["serve_fwd_bound_by"],
+                   "library_ms": times["cudnn_gru_serve_fwd_ms"]}),
+        row("fused_ligru_bwd_stash", 112, times["cudnn_gru_bwd_ms"],
+            note % "backward (fwd+bwd minus fwd)",
+            err_at("fused_ligru_bwd_stash")),
+        row("fused_ligru_bwd", 168, times["cudnn_gru_bwd_ms"],
+            note % "backward (fwd+bwd minus fwd)", err_at("fused_ligru_bwd"))]
 
 
 def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
@@ -1416,6 +1892,14 @@ def sparse_rows(checks, times, launches):
             ms_fuse_sub=times["block_sparse_dw_ms_fuse_sub"])]
 
 
+def timed(name, fn, *args):
+    """Run one phase, printing its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print("[timing] %s: %.1f s" % (name, time.perf_counter() - t0))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1423,28 +1907,47 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     dev = "cuda"
+    t_start = time.perf_counter()
     print("[env] python %s, torch %s, CUDA %s, %s x%d" % (
         sys.version.split()[0], torch.__version__, torch.version.cuda,
         torch.cuda.get_device_name(0), torch.cuda.device_count()))
-    smi = phase_build()
-    fwd_checks = phase_kernels(dev)
-    train_checks = phase_train_kernels(dev)
-    sp_checks = phase_sparse_kernels(dev)
+    smi = timed("build", phase_build)
+    fwd_checks = timed("kernels", phase_kernels, dev)
+    train_checks = timed("train_kernels", phase_train_kernels, dev)
+    sp_checks = timed("sparse_kernels", phase_sparse_kernels, dev)
+    lg_checks = timed("ligru_kernels", phase_ligru_kernels, dev)
     audio, lens = make_audio()
-    rec, phones, logp, serve_launches, post_err = phase_serve(dev, audio, lens)
-    stream_launches, _ = phase_stream(dev, rec, audio, lens, phones, logp)
-    phase_entry(dev)
-    train = phase_train(dev)
-    sp_rec, sp_phones, sp_logp, sp_serve_launches, sp_post_err = phase_serve(
-        dev, audio, lens, build_cgs_stack, "sparse_serve",
-        "fused_lstm_fwd_sparse")
-    sp_stream_launches, sp_stream_err = phase_sparse_stream(
-        dev, sp_rec, audio, lens, sp_phones, sp_logp)
-    sp_train = phase_sparse_train(dev)
-    serve_times, serve = phase_times(dev, rec, audio, lens)
+    rec, phones, logp, serve_launches, post_err = timed(
+        "serve", phase_serve, dev, audio, lens)
+    stream_launches, _ = timed("stream", phase_stream, dev, rec, audio, lens,
+                               phones, logp)
+    timed("entry", phase_entry, dev)
+    train = timed("train", phase_train, dev)
+    sp_rec, sp_phones, sp_logp, sp_serve_launches, sp_post_err = timed(
+        "sparse_serve", phase_serve, dev, audio, lens, build_cgs_stack,
+        "sparse_serve", "fused_lstm_fwd_sparse")
+    sp_stream_launches, sp_stream_err = timed(
+        "sparse_stream", phase_sparse_stream, dev, sp_rec, audio, lens,
+        sp_phones, sp_logp)
+    sp_train = timed("sparse_train", phase_sparse_train, dev)
+    lg_rec, lg_phones, lg_logp, lg_serve_launches, lg_post_err = timed(
+        "ligru_serve", phase_serve, dev, audio, lens, build_ligru_stack,
+        "ligru_serve", "fused_ligru_fwd", TOL_POST_Q16)
+    lg_post_err_noq = timed(
+        "ligru_serve_noq", phase_serve, dev, audio, lens,
+        lambda d: build_ligru_stack(d, quant_inp=False),
+        "ligru_serve, ligru_quant_inp=False", "fused_ligru_fwd")[4]
+    lg_stream_launches, lg_stream_err = timed(
+        "ligru_stream", phase_ligru_stream, dev, lg_rec, audio, lens,
+        lg_phones, lg_logp)
+    lg_train = timed("ligru_train", phase_ligru_train, dev)
+    serve_times, serve = timed("times", phase_times, dev, rec, audio, lens)
     serve["posteriors_vs_cpu_max_abs_err"] = post_err
-    times, step = phase_train_times(dev)
-    sp_times, sp_step, sp_serve = phase_sparse_times(dev, sp_rec, audio, lens)
+    times, step = timed("train_times", phase_train_times, dev)
+    sp_times, sp_step, sp_serve = timed("sparse_times", phase_sparse_times,
+                                        dev, sp_rec, audio, lens)
+    lg_times, lg_step, lg_serve = timed("ligru_times", phase_ligru_times,
+                                        dev, lg_rec, audio, lens)
     sp_serve.update(posteriors_vs_cpu_max_abs_err=sp_post_err,
                     stream_vs_whole_max_abs_err=sp_stream_err,
                     dense_stream_launches=sp_stream_launches)
@@ -1486,9 +1989,30 @@ def main():
         "sparse_train_step": sp_step,
         "sparse_vs_dense_h1024": {k: v for k, v in sp_times.items()
                                   if "dense" in k or "cudnn" in k}}))
+    lg_serve.update(posteriors_vs_cpu_max_abs_err=lg_post_err,
+                    posteriors_vs_cpu_max_abs_err_no_quant_inp=lg_post_err_noq,
+                    stream_vs_whole_max_abs_err=lg_stream_err)
+    lg_rc, lg_st = lg_train["launches_recompute"], lg_train["launches_stash"]
+    lg_launches = {
+        "fused_ligru_fwd": {"main": lg_rc["fused_ligru_fwd"],
+                            "ligru_train_stash": lg_st["fused_ligru_fwd"],
+                            "ligru_serve": lg_serve_launches,
+                            "ligru_stream": lg_stream_launches},
+        "fused_ligru_bwd_stash": {"main": lg_st["fused_ligru_bwd_stash"]},
+        "fused_ligru_bwd": {"main": lg_rc["fused_ligru_bwd"]}}
+    for name, paths in lg_launches.items():
+        if not paths["main"]:
+            raise AssertionError("%s was not launched on its path" % name)
+    print("[summary] Li-GRU %s" % json.dumps({
+        "ligru_serve": lg_serve, "ligru_train": lg_train,
+        "ligru_train_step": lg_step,
+        "yardsticks": {k: v for k, v in lg_times.items()
+                       if "cudnn" in k or "dU" in k}}))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
                         launches)
     line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
+    line["kernels"] += ligru_rows(lg_checks, lg_times, lg_launches)
+    print("[timing] total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

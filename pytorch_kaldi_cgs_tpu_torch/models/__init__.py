@@ -1,4 +1,4 @@
-"""Acoustic models ported so far: LSTM and MLP.
+"""Acoustic models ported so far: LSTM, liGRU and MLP.
 
 Configs name a model by ``arch_library`` + ``arch_class``;
 :func:`get_model_class` resolves the built-in names to this package's
@@ -8,12 +8,12 @@ run unchanged, and never makes that package be imported.
 
 from .base import AcousticModel, CompressionSpec
 from .mlp import MLP
-from .recurrent import LSTM
+from .recurrent import LSTM, liGRU
 
-__all__ = ["AcousticModel", "CompressionSpec", "LSTM", "MLP",
+__all__ = ["AcousticModel", "CompressionSpec", "LSTM", "MLP", "liGRU",
            "get_model_class"]
 
-_REGISTRY = {"MLP": MLP, "LSTM": LSTM}
+_REGISTRY = {"MLP": MLP, "LSTM": LSTM, "liGRU": liGRU}
 
 #: Library names that mean "the built-in models".
 BUILTIN_LIBRARIES = ("pytorch_kaldi_cgs_tpu_torch.models",

@@ -142,8 +142,12 @@ def shared_time_drop_mask(shape, rate: float, train: bool,
                           ) -> torch.Tensor:
     """The recurrent per-sequence dropout mask: one Bernoulli(1-p) draw
     shared by all time steps in train mode; at eval the *scalar* (1-p)
-    as a (1, 1) tensor — not inverted, like the reference."""
+    as a (1, 1) tensor — not inverted, like the reference. The draw is
+    made on the generator's device and moved to ``device``, so one CPU
+    generator gives the same masks to a run on the card and on the
+    CPU."""
     if train:
-        keep = torch.rand(shape, generator=generator, device=device) < 1.0 - rate
-        return keep.to(torch.float32)
+        src = generator.device if generator is not None else device
+        keep = torch.rand(shape, generator=generator, device=src) < 1.0 - rate
+        return keep.to(device=device, dtype=torch.float32)
     return torch.full((1, 1), 1.0 - rate, dtype=torch.float32, device=device)

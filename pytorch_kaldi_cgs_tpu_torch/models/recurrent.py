@@ -1,23 +1,31 @@
-"""The LSTM acoustic model (port of ``pytorch_kaldi_cgs_tpu/models/
-recurrent.py``: ``_RecurrentBase`` and ``LSTM``).
+"""The recurrent acoustic models (port of ``pytorch_kaldi_cgs_tpu/models/
+recurrent.py``: ``_RecurrentBase``, ``LSTM`` and ``liGRU``).
 
-Time-major (T, B, F). Per layer: one fused input projection for the four
-gates (HCGS mask + quantizer applied to the weights), batch norm on each
-gate projection over the flattened (T*B) axis, then the recurrence. The
-recurrence runs the fused LSTM (``ops.fused_lstm``: the CUDA kernels on
+Time-major (T, B, F). Per layer: one fused input projection for all the
+x-gates (HCGS mask + quantizer applied to the weights), batch norm on
+each gate projection named in ``bn_gates`` over the flattened (T*B)
+axis, then the cell's recurrence. A cell names its gates and implements
+``_recurrence``; everything else lives in :class:`_RecurrentBase`.
+
+A layer's recurrence runs its cell's fused kernels (the CUDA kernels on
 the card, their plain twins on the CPU; under autograd the BPTT kernels
 give the gradients) whenever the layer has no in-scan layer norm and its
-activation is tanh, relu, htanh or linear; otherwise a plain step loop
-that autograd differentiates. Streaming passes the (h, c) carries as
-arguments and takes the seeded-carry variant.
+activation is tanh, relu, htanh or linear (``_fused_ok``); otherwise a
+plain step loop that autograd differentiates. LSTM: ``ops.fused_lstm``,
+streaming passes the (h, c) carries to the seeded-carry variant. liGRU:
+``ops.fused_rnn``, in float32 whatever the compute dtype, as the JAX
+package's fused liGRU; streaming passes the h carry to the seeded
+forward. The JAX package's VMEM size rules and ``*_fused_scan`` options
+do not choose the path here: the kernels take any batch.
 
-Block sparsity (``lstm_block_sparse``: auto by default, True or False),
-by the JAX package's rules: a layer whose recurrent HCGS mask at 128-
-multiple blocks drops at least half the blocks of each row runs its
-whole-utterance recurrence over the kept blocks only
+Block sparsity (``<prefix>_block_sparse``: auto by default, True or
+False), by the JAX package's rules: an LSTM layer whose recurrent HCGS
+mask at 128-multiple blocks drops at least half the blocks of each row
+runs its whole-utterance recurrence over the kept blocks only
 (``fused_lstm.lstm_scan_fused_sparse``), in float32 whatever the compute
 dtype, as the JAX package does; streaming keeps the dense seeded kernel.
-An x-projection the JAX package would put on its v3 block-sparse kernels
+Such a liGRU layer raises: its sparse kernels are not ported yet. An
+x-projection the JAX package would put on its v3 block-sparse kernels
 raises (not ported yet); every other HCGS projection runs dense-masked.
 Sequence parallelism is not ported.
 """
@@ -31,7 +39,7 @@ import torch
 
 from .._device import DeviceLike
 from ..ops import block_sparse as BS
-from ..ops import fused_lstm
+from ..ops import fused_lstm, fused_rnn
 from ..sparsity import hcgs as hcgs_mod
 from ..sparsity.quantize import bf16_round
 from .base import (AcousticModel, CompressionSpec, effective_weight,
@@ -42,14 +50,13 @@ from .layers import (act_fun, batch_norm, batch_norm_params, batch_norm_state,
                      shared_time_drop_mask, torch_linear_init)
 
 
-class LSTM(AcousticModel):
-    """4-gate LSTM: f/i/o sigmoid gates, candidate through the layer
-    activation, per-sequence dropout on the candidate term only,
-    optional layer norm on h."""
+class _RecurrentBase(AcousticModel):
+    """Shared construction and execution of the recurrent cells."""
 
-    prefix = "lstm"
-    gates_x = ["wfx", "wix", "wox", "wcx"]
-    gates_h = ["ufh", "uih", "uoh", "uch"]
+    prefix: str            # option prefix: lstm / ligru
+    gates_x: List[str]     # input projection names, e.g. [wfx, wix, wox, wcx]
+    gates_h: List[str]     # recurrent projection names, e.g. [ufh, ...]
+    bn_gates: List[str]    # which input projections get batch norm
 
     def __init__(self, options: Mapping[str, Any], inp_dim: int, *,
                  seed: int = 0, device: DeviceLike = None):
@@ -99,7 +106,7 @@ class LSTM(AcousticModel):
                 else:
                     params["%s%d" % (g, i)] = torch_linear_init(rng, H, H)[0]
             if self.use_batchnorm[i]:
-                for g in self.gates_x:
+                for g in self.bn_gates:
                     params["bn_%s%d" % (g, i)] = batch_norm_params(H)
                     state["bn_%s%d" % (g, i)] = batch_norm_state(H)
             if self.use_laynorm[i]:
@@ -157,7 +164,7 @@ class LSTM(AcousticModel):
 
     def _prepare_sparse_recurrence(self, masks) -> None:
         """The block-sparse fused-recurrence layout of each layer over
-        its (H, H) recurrent mask, shared by the four gates: only with a
+        its (H, H) recurrent mask, shared by the h-gates: only with a
         real cut (at least half the blocks of a row dropped)."""
         bs = self.spec.hcgsh_block[0] if self.spec.hcgsh_block else 0
         if not bs or bs % 128:
@@ -182,22 +189,23 @@ class LSTM(AcousticModel):
         layout = self._rec_layouts.get(i)
         if (layout is None or self.use_laynorm[i]
                 or self.act_names[i] not in fused_lstm.ACTS
-                or not fused_lstm.sparse_scan_fits(B, H, layout)):
+                or not fused_lstm.sparse_scan_fits(B, H, layout,
+                                                   len(self.gates_h))):
             return None
         return layout
 
     def _rec_w3g(self, U: torch.Tensor, layout) -> torch.Tensor:
-        """The stacked effective (4H, H) U -> its kept blocks in the w3g
-        layout (Nb, 4*bs, R*bs), differentiable (the gradient scatters
+        """The stacked effective (G*H, H) U -> its kept blocks in the w3g
+        layout (Nb, G*bs, R*bs), differentiable (the gradient scatters
         back into U)."""
-        H = U.shape[1]
-        gates = [U[g * H:(g + 1) * H] for g in range(4)]
+        H, G = U.shape[1], len(self.gates_h)
+        gates = [U[g * H:(g + 1) * H] for g in range(G)]
         return BS.v3_from_blocks(BS.gather_blocks_multi(gates, layout),
-                                 layout, 4)
+                                 layout, G)
 
     # -- helpers ---------------------------------------------------------
     def _stacked(self, names: List[str], i: int) -> torch.Tensor:
-        """Effective per-gate weights stacked to (4H, in)."""
+        """Effective per-gate weights stacked to (G*H, in)."""
         return torch.cat([effective_weight(self.params["%s%d" % (g, i)],
                                            self.masks, "%s%d" % (g, i),
                                            self.spec, i) for g in names])
@@ -211,30 +219,90 @@ class LSTM(AcousticModel):
         return y.reshape(x.shape)
 
     def _gates(self, x: torch.Tensor, i: int, train: bool) -> torch.Tensor:
-        """Input projections of the four gates + bias or batch norm ->
-        (T, B, 4H) float32, gate order (f, i, o, c)."""
+        """Input projections of the x-gates + bias, batch norm on the
+        ``bn_gates`` -> (T, B, G*H) float32, in ``gates_x`` order."""
         T, B, F = x.shape
         W = self._stacked(self.gates_x, i)
         xin = maybe_quant_input(x, self.spec)
         if self.compute_bf16:
             xin, W = bf16_round(xin), bf16_round(W)
         outs = list(torch.chunk((xin.reshape(T * B, F) @ W.T)
-                                .reshape(T, B, -1), 4, dim=-1))
+                                .reshape(T, B, -1), len(self.gates_x), dim=-1))
         for k, g in enumerate(self.gates_x):
             bkey = "%s_b%d" % (g, i)
             if bkey in self.params:
                 outs[k] = outs[k] + self.params[bkey]
-            if self.use_batchnorm[i]:
+            if self.use_batchnorm[i] and g in self.bn_gates:
                 outs[k] = self._norm("bn_%s%d" % (g, i), outs[k], train)
         return torch.cat(outs, dim=-1).contiguous()
+
+    def _rec_qbits(self) -> int:
+        """Bits of the recurrent-input quantizer, 0 for none."""
+        return (self.spec.inp_quant[0]
+                if (self.spec.quant and self.spec.quant_inp) else 0)
+
+    def _fused_ok(self, i: int) -> bool:
+        """Whether layer ``i``'s recurrence takes the cell's fused
+        kernels: no in-scan layer norm and an activation they take."""
+        return not self.use_laynorm[i] and self.act_names[i] in fused_lstm.ACTS
+
+    def _zero_carry(self, z: torch.Tensor):
+        """A fresh stream's carry, from a (B, H) zero tensor."""
+        raise NotImplementedError
 
     def _recurrence(self, gates: torch.Tensor, U: torch.Tensor,
                     drop: torch.Tensor, i: int, carry):
         """-> (hs, final carry). ``carry`` None = zero initial state, for
         a whole utterance (the final carry is then not returned)."""
+        raise NotImplementedError
+
+    # -- forward ---------------------------------------------------------
+    def _run(self, x: torch.Tensor, train: bool, carries,
+             generator: Optional[torch.Generator]):
+        if self.use_laynorm_inp:
+            x = layer_norm(x, self.params["ln0/gamma"],
+                           self.params["ln0/beta"])
+        if self.use_batchnorm_inp:
+            x = self._norm("bn0", x, train)
+        carries_out = []
+        for i, H in enumerate(self.lay):
+            orig_B = x.shape[1]
+            if self.bidir:
+                x = torch.cat([x, torch.flip(x, [0])], dim=1)
+            B = x.shape[1]
+            drop = shared_time_drop_mask((B, H), self.drop[i], train,
+                                         x.device, generator)
+            gates = self._gates(x, i, train)
+            U = self._stacked(self.gates_h, i)
+            carry = None
+            if carries is not None:       # streaming: fresh streams start at 0
+                carry = (carries[i] if i < len(carries)
+                         else self._zero_carry(x.new_zeros((B, H))))
+            h, fin = self._recurrence(gates, U, drop, i, carry)
+            carries_out.append(fin)
+            if self.bidir:
+                h = torch.cat([h[:, :orig_B], torch.flip(h[:, orig_B:], [0])],
+                              dim=2)
+            x = h
+        return x, (None if carries is None else carries_out)
+
+
+class LSTM(_RecurrentBase):
+    """4-gate LSTM: f/i/o sigmoid gates, candidate through the layer
+    activation, per-sequence dropout on the candidate term only,
+    optional layer norm on h."""
+
+    prefix = "lstm"
+    gates_x = ["wfx", "wix", "wox", "wcx"]
+    gates_h = ["ufh", "uih", "uoh", "uch"]
+    bn_gates = ["wfx", "wix", "wox", "wcx"]
+
+    def _zero_carry(self, z):
+        return (z, z)
+
+    def _recurrence(self, gates, U, drop, i, carry):
         act = self.act_names[i]
-        qb = (self.spec.inp_quant[0]
-              if (self.spec.quant and self.spec.quant_inp) else 0)
+        qb = self._rec_qbits()
         cdt = "bf16" if self.compute_bf16 else ""
         if carry is None:
             B, H = gates.shape[1], gates.shape[2] // 4
@@ -243,7 +311,7 @@ class LSTM(AcousticModel):
                 return fused_lstm.lstm_scan_fused_sparse(
                     gates, self._rec_w3g(U, layout), layout, drop, act=act,
                     quant_bits=qb), None
-        if not self.use_laynorm[i] and act in fused_lstm.ACTS:
+        if self._fused_ok(i):
             if carry is None:
                 return fused_lstm.lstm_scan_fused(
                     gates, U, drop, act=act, quant_bits=qb,
@@ -271,32 +339,54 @@ class LSTM(AcousticModel):
             hs.append(h)
         return torch.stack(hs), (h, c)
 
-    # -- forward ---------------------------------------------------------
-    def _run(self, x: torch.Tensor, train: bool, carries,
-             generator: Optional[torch.Generator]):
-        if self.use_laynorm_inp:
-            x = layer_norm(x, self.params["ln0/gamma"],
-                           self.params["ln0/beta"])
-        if self.use_batchnorm_inp:
-            x = self._norm("bn0", x, train)
-        carries_out = []
-        for i, H in enumerate(self.lay):
-            orig_B = x.shape[1]
-            if self.bidir:
-                x = torch.cat([x, torch.flip(x, [0])], dim=1)
-            B = x.shape[1]
-            drop = shared_time_drop_mask((B, H), self.drop[i], train,
-                                         x.device, generator)
-            gates = self._gates(x, i, train)
-            U = self._stacked(self.gates_h, i)
-            carry = None
-            if carries is not None:       # streaming: fresh streams start at 0
-                z = x.new_zeros((B, H))
-                carry = carries[i] if i < len(carries) else (z, z)
-            h, fin = self._recurrence(gates, U, drop, i, carry)
-            carries_out.append(fin)
-            if self.bidir:
-                h = torch.cat([h[:, :orig_B], torch.flip(h[:, orig_B:], [0])],
-                              dim=2)
-            x = h
-        return x, (None if carries is None else carries_out)
+
+class liGRU(_RecurrentBase):
+    """Light GRU: one update gate z, a candidate through the layer
+    activation with per-sequence dropout, no reset gate; gates ordered
+    [h, z] (candidate first), U stacked [Uh; Uz]."""
+
+    prefix = "ligru"
+    gates_x = ["wh", "wz"]
+    gates_h = ["uh", "uz"]
+    bn_gates = ["wh", "wz"]
+
+    def _zero_carry(self, z):
+        return z
+
+    def _recurrence(self, gates, U, drop, i, carry):
+        act = self.act_names[i]
+        qb = self._rec_qbits()
+        B, H = gates.shape[1], gates.shape[2] // 2
+        if carry is None:
+            layout = self._sparse_rec_layout(i, B, H)
+            if layout is not None:
+                raise NotImplementedError(
+                    "ligru layer %d: the JAX package runs this recurrence "
+                    "(Kb=%d, R=%d) on its block-sparse liGRU kernels "
+                    "(ops/fused_rnn.py:_build_ligru_fwd_sparse, "
+                    "_build_ligru_bwd_sparse), which are not ported yet"
+                    % (i, layout.Kb, layout.R))
+        if self._fused_ok(i):
+            if carry is None:
+                return fused_rnn.ligru_scan_fused(
+                    gates, U, drop, act=act, quant_bits=qb), None
+            return fused_rnn.ligru_scan_fused_stream(
+                gates, U, drop, carry, act=act, quant_bits=qb)
+        return self._steps_plain(gates, U, drop, i, carry, qb)
+
+    def _steps_plain(self, gates, U, drop, i, carry, qb):
+        """Plain step loop (the JAX package's ``lax.scan`` step): the
+        recurrent dots take bf16-rounded inputs under bf16 compute."""
+        T, B, G2 = gates.shape
+        actf = act_fun(self.act_names[i])
+        rec_u = fused_lstm.dense_u(U, self.compute_bf16)
+        h = carry if carry is not None else gates.new_zeros((B, G2 // 2))
+        hs = []
+        for t in range(T):
+            h, _ = fused_rnn.ligru_cell(gates[t], h, rec_u, drop, actf, qb,
+                                        self.compute_bf16)
+            if self.use_laynorm[i]:
+                h = layer_norm(h, self.params["ln%d/gamma" % i],
+                               self.params["ln%d/beta" % i])
+            hs.append(h)
+        return torch.stack(hs), h

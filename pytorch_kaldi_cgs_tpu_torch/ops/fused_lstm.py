@@ -84,8 +84,8 @@ def dact_pre(act: str, x: torch.Tensor) -> torch.Tensor:
 
 
 #: Which cells default to the stashed-activation backward (the JAX
-#: package's ``_STASH_DEFAULT``; only the LSTM is ported).
-_STASH_DEFAULT = {"lstm": True}
+#: package's ``_STASH_DEFAULT``, for the cells ported so far).
+_STASH_DEFAULT = {"lstm": True, "ligru": False}
 
 
 def bwd_stash_enabled(cell: str = "lstm") -> bool:
@@ -298,19 +298,20 @@ def _fwd_kernel(gates, U, drop, h0, c0, act, qbits, bf16, stash):
 
 
 def _check_common(name, lead, U, drop, act, others, u_name="U",
-                  u_shape=None):
-    """Shared validation: (T, B, 4H) float32 ``lead``, the recurrent
-    weight ``U`` of shape ``u_shape`` (default (4H, H)), one device,
-    contiguous float32 sequences. -> (T, B, H, drop as (B, H))."""
+                  u_shape=None, gates=4):
+    """Shared validation: (T, B, gates*H) float32 ``lead``, the
+    recurrent weight ``U`` of shape ``u_shape`` (default (gates*H, H)),
+    one device, contiguous float32 sequences. -> (T, B, H, drop as
+    (B, H))."""
     if act not in ACTS:
-        raise ValueError("fused LSTM activation %r not in %s"
+        raise ValueError("fused recurrence activation %r not in %s"
                          % (act, sorted(ACTS)))
-    if lead.ndim != 3 or lead.shape[2] % 4:
-        raise ValueError("%s must be (T, B, 4H), got %s"
-                         % (name, tuple(lead.shape)))
-    T, B, G4 = lead.shape
-    H = G4 // 4
-    u_shape = (G4, H) if u_shape is None else u_shape
+    if lead.ndim != 3 or lead.shape[2] % gates:
+        raise ValueError("%s must be (T, B, %dH), got %s"
+                         % (name, gates, tuple(lead.shape)))
+    T, B, G = lead.shape
+    H = G // gates
+    u_shape = (G, H) if u_shape is None else u_shape
     if tuple(U.shape) != u_shape:
         raise ValueError("%s must be %s, got %s" % (u_name, u_shape,
                                                     tuple(U.shape)))
