@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the serving path and
 the training step of the flagship 2x512 LSTM, of the 2x1024 CGS-16x
-LSTM through the block-sparse recurrence, and of the TIMIT 2x1024 HCGS
-Li-GRU through the fused liGRU kernels.
+LSTM through the block-sparse recurrence, of the TIMIT 2x1024 HCGS
+Li-GRU through the fused liGRU kernels, and of the LibriSpeech 5x1024
+bidirectional HCGS GRU through the sparse GRU and v3 projection
+kernels.
 
     python3 chip_smoke.py
 
@@ -77,6 +79,28 @@ Phases (any failure raises and the script exits non-zero):
              nn.GRU(1024, 1024) as a yardstick, the dU matmul, the Li-GRU
              train step (as users run it: masks drawn on the card) and
              recognize.
+17. gru_kernels — the sparse GRU forward and BPTT kernels against their
+             twins (qbits 0/16, w3g f32/bf16, tanh; relu at the small
+             shape) at H=256 (T=13, B=5), the serving shape (T=398, 16
+             rows; forward only) and the training shape (T=200, 32 rows,
+             H=1024); the v3 forward and dx kernels at M=6400 (G=3,
+             K=2048, R=4, 8-bit, submask; G=1; K-padded 2000 -> 2048;
+             plain); the dw kernel at the path's G=3 (v3) and G=1, 2 (dU).
+18. gru_serve — ``Recognizer.recognize`` over the LibriSpeech GRU stack
+             (``cfg/LibriSpeech_baselines/libri_GRU_hcgs_multihost.cfg``'s
+             5x1024 bidirectional GRU -> 1944-way head, feat_dim 40) on the
+             same audio: card vs CPU (TOL_POST, or GRAD_FLIP_K x the CPU's
+             own one-ulp sensitivity where the 16-bit quantizers exceed
+             it, and then again without them at TOL_POST), 5 x 2 x 398
+             sparse forward launches and 4 v3 forwards.
+19. gru_train — ``ChunkRunner.train_step`` over the cfg's sections (x of
+             width 40, T=200, 16 sentences = 32 rows): card vs CPU as
+             shipped (and without the quantizers where those miss
+             TOL_GRAD_REL), launches per step (the dw kernel's by G), 10
+             steps at the cfg's lr in f32 and bf16.
+20. gru_times — the four kernels' times, twins and bounds, cuDNN's
+             nn.GRU(1024, 1024) and the dense-masked matmul as yardsticks,
+             the libri GRU train step and recognize.
 
 Each phase prints its wall time (``[timing]``).
 
@@ -187,6 +211,24 @@ GRAD_FLIP_K = 4.0
 # for LG_CFG_LR_STEPS steps and printed.
 LG_FALL_LR_SCALE = 1.0 / 16
 LG_CFG_LR_STEPS = 4
+
+# The LibriSpeech GRU slice: cfg/LibriSpeech_baselines/
+# libri_GRU_hcgs_multihost.cfg (5x1024 bidirectional GRU, HCGS 128,4 at
+# 75,50 on x and h: every recurrence Kb=8, R=2 on the sparse GRU kernels;
+# layers 1-4's 2048-wide x-projections Kb=16, R=4 on the v3 kernels)
+GRU_CFG = os.path.join(ROOT, "cfg", "LibriSpeech_baselines",
+                       "libri_GRU_hcgs_multihost.cfg")
+GR_SMALL_TBH = (13, 5, 256)      # 128-blocks: Kb=2, R=1; ragged B
+GR_SERVE_TBH = (398, 16, 1024)   # 8 utterances, both directions
+GR_TRAIN_TBH = (200, 32, 1024)   # start_seq_len_train; 16 x 2 directions
+GR_FEAT = 40                     # fMLLR, --delta-order=0, cw 0
+GR_LAYERS = 5
+# init(1)'s head over the GRU's 2048 outputs spreads the logits by only
+# ~0.02 across classes and over time even at x1000 (every utterance
+# decodes to one phone); x16000 gives 1-4 phones per utterance on the
+# CPU, and the CPU's own log-posteriors still move by only 1.3e-4 under
+# a one-ulp change of the features (1.9e-6 without the 16-bit quantizers).
+GRU_HEAD_GAIN = 16000.0
 
 
 def flagship_options(to_do="forward", compute_dtype=""):
@@ -347,29 +389,39 @@ def phase_kernels(dev, shapes=(SMALL_TBH, SERVE_TBH)):
 
 
 def phase_serve(dev, audio, lens, stack_fn=build_stack, tag="serve",
-                kernel="fused_lstm_fwd", tol=TOL_POST):
+                kernel="fused_lstm_fwd", tol=TOL_POST, expect=None):
     """A serving path: Recognizer.recognize with every launch counter
     set to 0 just before and read just after (``kernel`` must run 2
-    layers x T times, no other kernel); then the same recognizer on the
-    CPU (the plain twins): log-posteriors within ``tol``, equal
-    phones."""
+    layers x T times, no other kernel; or the launches ``expect(T)``
+    gives, which are then returned whole); then the same recognizer on
+    the CPU (the plain twins): log-posteriors within ``tol`` (a number,
+    or a function of the error and the CPU recognizer that returns the
+    bar), equal phones."""
     rec = build_recognizer(dev, stack_fn)
     T_frames = rec.frontend.num_frames(audio.shape[1])
     phones, launches = counted(lambda: rec.recognize(audio, lens))
-    print("[%s] recognize: launches %s (%s: 2 layers x %d steps)"
-          % (tag, launches, kernel, T_frames))
-    if launches != expected(**{kernel: 2 * T_frames}):
-        raise AssertionError("the %s path did not run %s alone: launches %s"
-                             % (tag, kernel, launches))
-    launches = launches[kernel]
+    want = (expect(T_frames) if expect
+            else expected(**{kernel: 2 * T_frames}))
+    print("[%s] recognize: launches %s (expected %s)"
+          % (tag, {k: v for k, v in launches.items() if v},
+             {k: v for k, v in want.items() if v}))
+    if launches != want:
+        raise AssertionError("the %s path did not run its kernels alone: "
+                             "launches %s" % (tag, launches))
+    launches = launches if expect else launches[kernel]
     logp = rec.posteriors(audio)
     if tuple(logp.shape) != (N_UTT, T_frames, PHONES * SPP) or \
             not bool(torch.isfinite(logp).all()):
         raise AssertionError("bad posteriors: %s" % (tuple(logp.shape),))
+    from pytorch_kaldi_cgs_tpu_torch.decode.viterbi import \
+        batched_viterbi_decode
     ref = build_recognizer("cpu", stack_fn)
     logp_ref = ref.posteriors(audio)
     err = float((logp.cpu() - logp_ref.cpu()).abs().max())
-    phones_ref = ref.recognize(audio, lens)
+    phones_ref = batched_viterbi_decode(   # ref.recognize, posteriors reused
+        logp_ref, ref.frame_lengths(N_UTT, audio.shape[1], lens), ref.hmm,
+        acwt=ref.acwt)
+    tol = tol(err, ref, audio) if callable(tol) else tol
     print("[%s] log-posteriors %s vs %s: max abs err %.3g (tol %g); "
           "phones equal: %s; phones per utt: %s"
           % (tag, dev, "cpu", err, tol, phones == phones_ref,
@@ -656,6 +708,10 @@ def wrappers():
     return {"fused_ligru_fwd": R.fused_ligru_fwd,
             "fused_ligru_bwd_stash": R.fused_ligru_bwd_stash,
             "fused_ligru_bwd": R.fused_ligru_bwd,
+            "fused_gru_fwd_sparse": R.fused_gru_fwd_sparse,
+            "fused_gru_bwd_sparse": R.fused_gru_bwd_sparse,
+            "block_sparse_v3_fwd": BS.block_sparse_v3_fwd,
+            "block_sparse_v3_dx": BS.block_sparse_v3_dx,
             "fused_lstm_fwd": F.fused_lstm_fwd,
             "fused_lstm_bwd_stash": F.fused_lstm_bwd_stash,
             "fused_lstm_bwd": F.fused_lstm_bwd,
@@ -739,7 +795,8 @@ def card_vs_cpu(runner, cpu, inp, mask, loss_err, knob, value, tag,
                 grad_tol=TOL_GRAD_REL):
     """The CPU runner's step against the card's (``loss_err``, its
     gradients in ``runner``): loss within TOL_LOSS_REL, err within one
-    frame, every gradient within ``grad_tol`` of its scale."""
+    frame, every gradient within ``grad_tol`` of its scale (a number, or
+    a function of the worst gradient error that returns the bar)."""
     T, B = inp.shape[:2]
     loss, err = loss_err
     with env(knob, value):
@@ -747,6 +804,8 @@ def card_vs_cpu(runner, cpu, inp, mask, loss_err, knob, value, tag,
     grad_errs = grad_rel_errs(runner, cpu)
     loss_rel = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
     worst = max(grad_errs, key=grad_errs.get)
+    if callable(grad_tol):          # a bar that depends on the error seen
+        grad_tol = grad_tol(grad_errs[worst])
     out = dict(loss_card=float(loss), loss_cpu=float(loss_c),
                err_card=float(err), err_cpu=float(err_c),
                loss_rel_err=loss_rel, grads_compared=len(grad_errs),
@@ -774,7 +833,7 @@ def phase_train(dev, make_runner=train_runner, tag="train", modes=None,
     runner, (inp, mask) = make_runner(dev)
     T, B = inp.shape[:2]
     modes = modes or lstm_modes(T)
-    (name, knob, value, expect), second = modes
+    (name, knob, value, expect), *others = modes
     with env(knob, value):
         (loss, err), launches = counted(
             lambda: runner.train_step(inp, mask, dropout_gen()))
@@ -786,16 +845,16 @@ def phase_train(dev, make_runner=train_runner, tag="train", modes=None,
                              % (tag, launches, expect))
     out.update(card_vs_cpu(runner, make_runner("cpu")[0], inp, mask,
                            (loss, err), knob, value, tag, grad_tol))
-    name, knob, value, expect = second
-    with env(knob, value):
-        (loss_r, _), launches = counted(
-            lambda: runner.train_step(inp, mask, dropout_gen()))
-    out["launches_" + name] = launches
-    print("[%s] step (%s backward): loss %.6f, launches %s"
-          % (tag, name, float(loss_r), launches))
-    if launches != expect:
-        raise AssertionError("%s %s step launches %s, expected %s"
-                             % (tag, name, launches, expect))
+    for name, knob, value, expect in others:
+        with env(knob, value):
+            (loss_r, _), launches = counted(
+                lambda: runner.train_step(inp, mask, dropout_gen()))
+        out["launches_" + name] = launches
+        print("[%s] step (%s backward): loss %.6f, launches %s"
+              % (tag, name, float(loss_r), launches))
+        if launches != expect:
+            raise AssertionError("%s %s step launches %s, expected %s"
+                                 % (tag, name, launches, expect))
     for cdt in ("", "bf16"):
         r, (inp, mask) = (fall_runner or make_runner)(dev, cdt)
         losses = [float(r.train_step(inp, mask)[0])
@@ -837,6 +896,14 @@ def wall_ms(fn, reps=5):
     return out
 
 
+def roofline_ms(nbytes, flops, dtype="f32"):
+    """The least time (ms) for ``nbytes`` moved over the HBM rate and
+    ``flops`` at the peak of their type: -> (ms, "bytes"|"operations")."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FLOPS[dtype] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def lstm_bound_ms(T, B, H, dtype="f32", kind="fwd", kept=None):
     """Least time for one layer call: each input read once, each output
     written once, over the HBM rate; the FMAs over the peak of their
@@ -855,9 +922,7 @@ def lstm_bound_ms(T, B, H, dtype="f32", kind="fwd", kept=None):
               "bwd_stash": 2 * gates + bh + 3 * seq,
               "bwd": 2 * gates + bh + 3 * seq}[kind] + 4 * H * kept * u_bytes
     flops = 2 * T * B * 4 * H * kept * (2 if kind == "bwd" else 1)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FLOPS[dtype] * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return roofline_ms(nbytes, flops, dtype)
 
 
 def phase_times(dev, rec, audio, lens):
@@ -1018,6 +1083,9 @@ def kernel_classes(by_name):
                "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step"),
                "ligru_fwd_kernel": ("ligru_step",),
                "ligru_bptt_kernel": ("ligru_bwd",),
+               "gru_fwd_kernel": ("gru_zr_step", "gru_h_step"),
+               "gru_bptt_kernel": ("gru_bwd_carry", "gru_bwd_ds"),
+               "v3_kernel": ("v3_fwd_tile", "v3_dx_tile"),
                "block_sparse_dw_kernel": ("dw3_tile",),
                "matmul": ("gemm", "cutlass", "sm90_", "ampere_", "cublas"),
                }
@@ -1146,6 +1214,19 @@ def dw_operands(dg, h_prev, layout):
     return dg_flat, h_prev.reshape(T * B, H).contiguous()
 
 
+def record_check(checks, tag, name, where, variant, err_rel, tol, by_rel):
+    """Append and print one kernel-vs-twin check: ``where`` (shape keys)
+    and ``variant`` describe it; ok when the max abs error (or, with
+    ``by_rel``, that error over the twin's largest |value|) is finite and
+    within ``tol``."""
+    err, rel = err_rel
+    c = {"kernel": name, **where, **variant, "max_abs_err": err,
+         "rel_err": rel, "tol": tol,
+         "ok": bool(np.isfinite(err) and (rel if by_rel else err) <= tol)}
+    checks.append(c)
+    print("[%s] %s" % (tag, json.dumps(c)))
+
+
 def phase_sparse_kernels(dev):
     """The sparse forward (plain and stash), both sparse BPTT kernels
     and the block-sparse dw kernel against their twins on the same
@@ -1156,12 +1237,8 @@ def phase_sparse_kernels(dev):
     checks = []
 
     def check(name, shape, variant, err_rel, tol, by_rel):
-        err, rel = err_rel
-        c = {"kernel": name, "T": shape[0], "B": shape[1], "H": shape[2],
-             **variant, "max_abs_err": err, "rel_err": rel, "tol": tol,
-             "ok": bool(np.isfinite(err) and (rel if by_rel else err) <= tol)}
-        checks.append(c)
-        print("[sparse_kernels] %s" % json.dumps(c))
+        record_check(checks, "sparse_kernels", name, dict(zip("TBH", shape)), variant,
+                     err_rel, tol, by_rel)
 
     for shape in (SP_SMALL_TBH, SP_SERVE_TBH, SP_TRAIN_TBH):
         T, B, H = shape
@@ -1353,13 +1430,10 @@ def phase_sparse_times(dev, rec, audio, lens):
         xg = BS.gather_cols(x, layout).contiguous()
         times["block_sparse_dw_library_ms"] = cuda_ms(
             lambda: torch.bmm(dgb, xg), reps=20)
-        flops = 2 * M * 4 * layout.bs * kept * layout.Nb
-        nbytes = (dg_flat.numel() + x.numel()
-                  + layout.Nb * 4 * layout.bs * kept) * 4
-        t_ops = flops / H100_FLOPS["f32"] * 1e3
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         times["block_sparse_dw_bound_ms"], times["block_sparse_dw_bound_by"] \
-            = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+            = roofline_ms((dg_flat.numel() + x.numel()
+                           + layout.Nb * 4 * layout.bs * kept) * 4,
+                          2 * M * 4 * layout.bs * kept * layout.Nb)
     # cuDNN's dense nn.LSTM at the same widths: a yardstick, not the
     # same function (dense, no quantizer, no dropout mask)
     cudnn = torch.nn.LSTM(H, H).to(dev)
@@ -1453,12 +1527,8 @@ def phase_ligru_kernels(dev):
     checks = []
 
     def check(name, shape, variant, err_rel, tol, by_rel):
-        err, rel = err_rel
-        c = {"kernel": name, "T": shape[0], "B": shape[1], "H": shape[2],
-             **variant, "max_abs_err": err, "rel_err": rel, "tol": tol,
-             "ok": bool(np.isfinite(err) and (rel if by_rel else err) <= tol)}
-        checks.append(c)
-        print("[ligru_kernels] %s" % json.dumps(c))
+        record_check(checks, "ligru_kernels", name, dict(zip("TBH", shape)), variant,
+                     err_rel, tol, by_rel)
 
     for shape in (SMALL_TBH, LG_MID_TBH, LG_SERVE_TBH, LG_TRAIN_TBH):
         T, B, H = shape
@@ -1561,16 +1631,17 @@ def ligru_train_runner(dev, compute_dtype="", quant_inp=True, lr_scale=1.0):
     return ChunkRunner(graph, config), batch
 
 
-def ulp_sensitivity(make_runner, inp, mask):
+def ulp_sensitivity(make_runner, inp, mask, feat=LG_FEAT):
     """How far the CPU reference's own gradients move when x changes by
-    one ulp (each feature times 1 +- 2^-23, random signs): the worst
-    gradient's max abs change over its scale, and where."""
+    one ulp (each of the ``feat`` features times 1 +- 2^-23, random
+    signs): the worst gradient's max abs change over its scale, and
+    where."""
     ref, _ = make_runner("cpu")
     ref.train_step(inp, mask, dropout_gen())
     moved, _ = make_runner("cpu")
     x = inp.copy()
-    sign = np.random.RandomState(1).choice([-1.0, 1.0], x[..., :LG_FEAT].shape)
-    x[..., :LG_FEAT] *= (1.0 + sign * 2.0 ** -23).astype(np.float32)
+    sign = np.random.RandomState(1).choice([-1.0, 1.0], x[..., :feat].shape)
+    x[..., :feat] *= (1.0 + sign * 2.0 ** -23).astype(np.float32)
     moved.train_step(x, mask, dropout_gen())
     errs = grad_rel_errs(moved, ref)
     worst = max(errs, key=errs.get)
@@ -1629,10 +1700,8 @@ def ligru_bound_ms(T, B, H, kind):
     nbytes = {"fwd": gates + bh + seq, "fwd_stash": 2 * gates + bh + seq,
               "bwd_stash": 2 * gates + bh + 2 * seq,
               "bwd": 2 * gates + bh + 2 * seq}[kind] + 2 * H * H * 4
-    flops = 2 * T * B * 2 * H * H * (2 if kind == "bwd" else 1)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FLOPS["f32"] * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return roofline_ms(nbytes,
+                       2 * T * B * 2 * H * H * (2 if kind == "bwd" else 1))
 
 
 def phase_ligru_times(dev, rec, audio, lens):
@@ -1765,6 +1834,512 @@ def ligru_rows(checks, times, launches):
             err_at("fused_ligru_bwd_stash")),
         row("fused_ligru_bwd", 168, times["cudnn_gru_bwd_ms"],
             note % "backward (fwd+bwd minus fwd)", err_at("fused_ligru_bwd"))]
+
+
+# ---------------------------------------------------------------------------
+# the LibriSpeech GRU slice: the sparse GRU recurrence and the v3
+# block-sparse x-projections
+# ---------------------------------------------------------------------------
+
+def gru_sections(compute_dtype="", quant_inp=True):
+    """The libri GRU cfg's [architecture1..2] and [model], read from the
+    file, with the port's arch_library and N_out_lab_cd = 1944 (the
+    LibriSpeech alignments are not in the repo; 1944 keeps the
+    PhoneLoopHMM(648, 3) decode of the other stacks); ``quant_inp=False``
+    turns the GRU's 16-bit input quantizers off."""
+    import configparser
+    src = configparser.ConfigParser()
+    if not src.read(GRU_CFG):
+        raise FileNotFoundError(GRU_CFG)
+    secs = {k: dict(src[k]) for k in ("architecture1", "architecture2",
+                                      "model")}
+    for k in ("architecture1", "architecture2"):
+        secs[k]["arch_library"] = "pytorch_kaldi_cgs_tpu_torch.models"
+        secs[k]["compute_dtype"] = compute_dtype
+    secs["architecture2"]["dnn_lay"] = secs["architecture2"]["dnn_lay"] \
+        .replace("N_out_lab_cd", str(PHONES * SPP))
+    if not quant_inp:
+        secs["architecture1"]["gru_quant_inp"] = "False"
+    return secs
+
+
+def check_gru_layouts(rnn):
+    """The libri GRU as the JAX package's rules place it: every
+    recurrence sparse, layers 1-4's x-projections on v3."""
+    if sorted(rnn._rec_layouts) != list(range(GR_LAYERS)) or \
+            sorted(rnn._bs_layouts) != list(range(1, GR_LAYERS)):
+        raise AssertionError("the libri GRU's layouts: recurrences %s, v3 %s"
+                             % (sorted(rnn._rec_layouts),
+                                sorted(rnn._bs_layouts)))
+
+
+def build_gru_stack(dev, feat_dim=GR_FEAT, quant_inp=True):
+    """The libri GRU -> its 1944-way cd head (weights from init(0) /
+    init(1), the head times GRU_HEAD_GAIN)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import GRU, MLP
+    secs = gru_sections(quant_inp=quant_inp)
+    rnn = GRU(dict(secs["architecture1"], to_do="forward"), feat_dim,
+              seed=0, device=dev)
+    mlp = MLP(dict(secs["architecture2"], to_do="forward"), rnn.out_dim,
+              seed=1, device=dev)
+    check_gru_layouts(rnn)
+    with torch.no_grad():
+        mlp.params["w0"].mul_(GRU_HEAD_GAIN)
+    return Stack(rnn, mlp).eval()
+
+
+def gru_layout(N, K, seed, pad_k=False):
+    """An HCGS mask of the libri cfg (128,4 at 75,50), its layout."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.sparsity.hcgs import hcgs_mask
+    mask = hcgs_mask(N, K, [128, 4], [75, 50],
+                     rng=np.random.RandomState(seed))
+    return mask, BS.pack_layout(mask, 128, pad_k=pad_k)
+
+
+def gru_inputs(T, B, H, seed, dev):
+    """Gates (T, B, 3H) [h | z | r], w3g (Nb, 3bs, R*bs) on the libri
+    recurrent layout, a (B, H) dropout mask, upstream cotangents."""
+    _, layout = gru_layout(H, H, seed)
+    rng = np.random.RandomState(seed + 1)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    w3g = rng.randn(layout.Nb, 3 * 128, layout.R * 128) \
+        / np.sqrt(layout.R * 128)
+    return {"g": t(rng.randn(T, B, 3 * H) * 0.5), "w3g": t(w3g),
+            "drop": t((rng.rand(B, H) > 0.2) * 1.0),
+            "dhs": t(rng.randn(T, B, H) * 0.1), "layout": layout}
+
+
+def v3_inputs(M, G, seed, dev, K=2048, N=1024):
+    """x (M, K_true), w3 (Nb, G*bs, R*bs) at 8-bit-scale weights, the
+    level-2 submask sub3 and a flat cotangent, on a libri x-projection
+    layout (K-padded when K is not a multiple of 128)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    mask, layout = gru_layout(N, K, seed, pad_k=True)
+    rng = np.random.RandomState(seed + 1)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    return {"x": t(rng.randn(M, K)), "layout": layout,
+            "w3": t(rng.randn(layout.Nb, G * 128, layout.R * 128) * 0.05),
+            "sub3": t(BS.stack_w3_gates([BS.pack_w3(mask, layout)] * G)),
+            "gy": t(rng.randn(M, layout.Nb * G * 128))}
+
+
+def phase_gru_kernels(dev):
+    """The sparse GRU forward and BPTT kernels (qbits 0/16, w3g f32 and
+    bf16, tanh as the cfg and relu at the small shape) at the small,
+    serving and training shapes (the BPTT at the small and training
+    ones), the v3 forward and dx kernels (G=3 with the 8-bit quantizer
+    and the submask; G=1; a K-padded layout; the plain variant) and the
+    dw kernel at the path's G=1, 2, 3, against their twins."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    checks = []
+
+    def check(name, shape, variant, err_rel, tol, by_rel):
+        record_check(checks, "gru_kernels", name, {"shape": list(shape)},
+                     variant, err_rel, tol, by_rel)
+
+    for shape in (GR_SMALL_TBH, GR_SERVE_TBH, GR_TRAIN_TBH):
+        T, B, H = shape
+        small, serve = shape == GR_SMALL_TBH, shape == GR_SERVE_TBH
+        cases = [(q, wb, "tanh") for q in (0, 16) for wb in (False, True)
+                 if not (serve and wb)]
+        if small:
+            cases += [(16, False, "relu")]
+        for k, (qbits, wbf16, act) in enumerate(cases):
+            inp = gru_inputs(T, B, H, 110 + k, dev)
+            g, w3g, drop, dhs, layout = (inp[n] for n in (
+                "g", "w3g", "drop", "dhs", "layout"))
+            variant = {"qbits": qbits, "w3g": "bf16" if wbf16 else "f32",
+                       "act": act, "Kb": layout.Kb, "R": layout.R}
+            tol = TOL_BF16 if wbf16 else (
+                TOL_Q16 if qbits else (TOL_F32_SMALL if small
+                                       else TOL_F32_SERVE))
+            with torch.no_grad():
+                hs = R.fused_gru_fwd_sparse(g, w3g, drop, layout, act, qbits,
+                                            wbf16)
+                check("fused_gru_fwd_sparse", shape, variant, rel_err(
+                    hs, R.fused_gru_fwd_sparse_plain(g, w3g, drop, layout,
+                                                     act, qbits, wbf16)),
+                    tol, False)
+                if serve:
+                    continue
+                h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                check("fused_gru_bwd_sparse", shape, variant, rel_err(
+                    R.fused_gru_bwd_sparse(g, w3g, drop, h_prev, dhs, layout,
+                                           act, qbits, wbf16),
+                    R.fused_gru_bwd_sparse_plain(g, w3g, drop, h_prev, dhs,
+                                                 layout, act, qbits, wbf16)),
+                    tol, True)
+    # the v3 pair at the training M = T*B (and G=1, K-padded, plain)
+    M = GR_TRAIN_TBH[0] * GR_TRAIN_TBH[1]
+    for k, (G, K, qbits, sub) in enumerate(((3, 2048, 8, True),
+                                            (1, 2048, 8, True),
+                                            (3, 2000, 8, True),
+                                            (3, 2048, 0, False))):
+        v = v3_inputs(M, G, 130 + k, dev, K=K)
+        layout, sub3 = v["layout"], (v["sub3"] if sub else None)
+        xp = BS.pad_cols(v["x"], layout.K).contiguous()
+        variant = {"G": G, "K": K, "K_padded": layout.K, "qbits": qbits,
+                   "fuse_sub": sub, "M": M, "Kb": layout.Kb, "R": layout.R}
+        with torch.no_grad():
+            check("block_sparse_v3_fwd", (M, K, layout.N), variant, rel_err(
+                BS.block_sparse_v3_fwd(xp, v["w3"], layout, G, qbits, sub3),
+                BS.block_sparse_v3_fwd_plain(xp, v["w3"], layout, G, qbits,
+                                             sub3)), TOL_F32_SMALL, True)
+            check("block_sparse_v3_dx", (M, K, layout.N), variant, rel_err(
+                BS.block_sparse_v3_dx(v["gy"], v["w3"], layout, G, qbits,
+                                      sub3),
+                BS.block_sparse_v3_dx_plain(v["gy"], v["w3"], layout, G,
+                                            qbits, sub3)),
+                TOL_F32_SMALL, True)
+            if k == 0:
+                check("block_sparse_dw", (M, K, layout.N),
+                      dict(variant, path="v3 dw, G=3"), rel_err(
+                          BS.block_sparse_dw(v["gy"], xp, layout, G, sub3),
+                          BS.block_sparse_dw_plain(v["gy"], xp, layout, G,
+                                                   sub3)),
+                      TOL_F32_SMALL, True)
+    # the GRU's dU: G=1 over q(s), G=2 over q(h_prev), K = H
+    T, B, H = GR_TRAIN_TBH
+    _, layout = gru_layout(H, H, 140)
+    rng = np.random.RandomState(141)
+    for G in (1, 2):
+        dg = torch.tensor(rng.randn(T * B, layout.Nb * G * 128)
+                          .astype(np.float32), device=dev)
+        x = torch.tensor(rng.randn(T * B, H).astype(np.float32), device=dev)
+        with torch.no_grad():
+            check("block_sparse_dw", (T * B, H, H),
+                  {"G": G, "path": "GRU dU", "Kb": layout.Kb,
+                   "R": layout.R}, rel_err(
+                      BS.block_sparse_dw(dg, x, layout, G),
+                      BS.block_sparse_dw_plain(dg, x, layout, G)),
+                  TOL_F32_SMALL, True)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("a GRU-slice kernel disagrees with its plain "
+                             "twin: %s" % bad)
+    return checks
+
+
+def gru_expect_serve(T):
+    """Launches per recognize: 5 layers x 2 per frame (sparse GRU), one
+    v3 forward for each of layers 1-4."""
+    return expected(fused_gru_fwd_sparse=GR_LAYERS * 2 * T,
+                    block_sparse_v3_fwd=GR_LAYERS - 1)
+
+
+def gru_expect_train(T):
+    """Launches per train step: the serving ones, the BPTT (2 + 2 per
+    frame per layer), layers 1-4's dx, and the dw kernel for layers 1-4's
+    v3 dw (G=3) and two dU products per layer (G=1 and G=2)."""
+    return expected(fused_gru_fwd_sparse=GR_LAYERS * 2 * T,
+                    fused_gru_bwd_sparse=GR_LAYERS * (2 * T + 2),
+                    block_sparse_v3_fwd=GR_LAYERS - 1,
+                    block_sparse_v3_dx=GR_LAYERS - 1,
+                    block_sparse_dw=GR_LAYERS - 1 + 2 * GR_LAYERS)
+
+
+def gru_serve_bar(err, ref, audio):
+    """The recognizer's card-vs-CPU bar: TOL_POST, or where the 16-bit
+    ceil input quantizers put more than that between the card's and the
+    CPU's sums, GRAD_FLIP_K times the CPU recognizer's own change of its
+    log-posteriors under a one-ulp change of its features (measured)."""
+    if err <= TOL_POST:
+        return TOL_POST
+    x = ref.features(audio).transpose(0, 1).contiguous()
+    sign = torch.as_tensor(np.random.RandomState(1).choice(
+        [-1.0, 1.0], tuple(x.shape)).astype(np.float32))
+    with torch.inference_mode():
+        sens = float((ref.model(x * (1.0 + sign * 2.0 ** -23))
+                      - ref.model(x)).abs().max())
+    print("[gru_serve] the CPU's own log-posteriors under a one-ulp change "
+          "of the features: %.3g" % sens)
+    return max(TOL_POST, GRAD_FLIP_K * sens)
+
+
+def gru_train_setup(compute_dtype="", quant_inp=True):
+    """The libri GRU train step (chunk_setup): the cfg's sections
+    (gru_sections), 16 sentences of 200 frames (start_seq_len_train),
+    fMLLR x of width 40 and cd labels."""
+    T, B, _ = GR_TRAIN_TBH
+    return chunk_setup(gru_sections(compute_dtype, quant_inp), T, B // 2,
+                       "fmllr", GR_FEAT, CD_LABELS)
+
+
+def gru_train_runner(dev, compute_dtype="", quant_inp=True):
+    """A ChunkRunner over the libri GRU's sections and its one batch;
+    ``runner.train_step(inp, mask, chip_smoke.dropout_gen())`` for masks
+    that match the CPU's (the cfg has dropout 0.2)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import GRU
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    config, chunk, batch = gru_train_setup(compute_dtype, quant_inp)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    rnn = graph.nets["GRU_layers"]
+    if type(rnn) is not GRU:
+        raise AssertionError("the libri cfg did not build a GRU")
+    check_gru_layouts(rnn)
+    return ChunkRunner(graph, config), batch
+
+
+@contextlib.contextmanager
+def dw_groups():
+    """Count the block-sparse dw kernel's launches by G (the v3 dw at
+    G=3, the GRU's dU at G=1 and G=2) while the block runs."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    real, by_g = BS._dw_kernel, {}
+
+    def spy(dg_flat, x, layout, G, sub3):
+        by_g[G] = by_g.get(G, 0) + 1
+        return real(dg_flat, x, layout, G, sub3)
+    BS._dw_kernel = spy
+    try:
+        yield by_g
+    finally:
+        BS._dw_kernel = real
+
+
+def phase_gru_train(dev):
+    """One train step on the card against the CPU (loss, err, every
+    gradient, the packed x-weights' included): as shipped at TOL_GRAD_REL,
+    or, where the 16-bit ceil input quantizers put more than that between
+    the card's and the CPU's sums, GRAD_FLIP_K times the CPU's own
+    one-ulp sensitivity and then the same cfg without the quantizers at
+    TOL_GRAD_REL. Launches per step (the dw kernel's by G), 10 steps at
+    the cfg's learning rates in f32 and bf16."""
+    T = GR_TRAIN_TBH[0]
+    knob = "PKC_BWD_STASH_CELLS"    # the sparse GRU has one backward
+
+    def bar(worst):
+        if worst <= TOL_GRAD_REL:
+            return TOL_GRAD_REL
+        inp, mask = gru_train_setup()[2]
+        sens, where = ulp_sensitivity(gru_train_runner, inp, mask, GR_FEAT)
+        print("[gru_train] the CPU's own gradients under a one-ulp change "
+              "of x: worst rel change %.3g at %s" % (sens, where))
+        return max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
+    with dw_groups() as by_g:
+        out = phase_train(dev, gru_train_runner, "gru_train", (
+            ("recompute", knob, None, gru_expect_train(T)),),
+            grad_tol=bar)
+        out["block_sparse_dw_by_G"] = dict(by_g)
+    print("[gru_train] dw kernel launches by G over the checked steps: %s"
+          % out["block_sparse_dw_by_G"])
+    if sorted(by_g) != [1, 2, 3]:
+        raise AssertionError("the dw kernel did not run at G=1, 2 and 3")
+    if out["grad_rel_err_max"] <= TOL_GRAD_REL:
+        return out                  # the shipped cfg met the tight bar
+
+    def no_quant(d, cdt=""):
+        return gru_train_runner(d, cdt, quant_inp=False)
+    runner, (inp, mask) = no_quant(dev)
+    loss_err = runner.train_step(inp, mask, dropout_gen())
+    out["no_quant_inp"] = card_vs_cpu(
+        runner, no_quant("cpu")[0], inp, mask, loss_err, knob, None,
+        "gru_train, gru_quant_inp=False")
+    return out
+
+
+def gru_bound_ms(T, B, H, kept, kind):
+    """Least time for one sparse GRU layer call in float32: each input
+    read once, each output written once, over the HBM rate; the FMAs of
+    its products (three gates over the R*bs = ``kept`` columns of each
+    row) over the float32 peak. kind: "fwd" (gates, w3g, drop in; hs out)
+    or "bwd" (gates, w3g, drop, h_prev, dhs in; dg and s out; the
+    forward's products and their transposes)."""
+    gates, seq = T * B * 3 * H * 4, T * B * H * 4
+    w = 3 * H * kept * 4
+    nbytes = {"fwd": gates + w + B * H * 4 + seq,
+              "bwd": 2 * gates + w + B * H * 4 + 3 * seq}[kind]
+    return roofline_ms(nbytes,
+                       2 * T * B * 3 * H * kept * (2 if kind == "bwd" else 1))
+
+
+def v3_bound_ms(M, layout, G):
+    """Least time for one v3 forward or dx call in float32: x (M, K),
+    w3 and sub3 in, (G, M, N) out (or the reverse), and 2*M*nnz*bs^2*G
+    FMAs over the float32 peak."""
+    bs = layout.bs
+    return roofline_ms((M * layout.K + 2 * layout.nnz * G * bs * bs
+                        + G * M * layout.N) * 4,
+                       2 * M * layout.nnz * bs * bs * G)
+
+
+def phase_gru_times(dev, rec, audio, lens):
+    """CUDA-event times per layer call at the training shape (T=200, 32
+    rows, H=1024; tanh, qbits 16 as the cfg runs them; the GRU forward
+    also at the serving shape, T=398, 16 rows) of the sparse GRU kernels
+    and the v3 pair (M = T*32, G=3, K=2048, qbits 8 with the submask; the
+    forward also at the serving M), their twins, bounds and yardsticks
+    (cuDNN's nn.GRU(1024, 1024) at 32 rows; the dense-masked
+    torch.matmul the v3 layer replaces); the libri GRU train step and
+    recognize."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = GR_TRAIN_TBH
+    qb, act = 16, "tanh"
+    inp = gru_inputs(T, B, H, 150, dev)
+    g, w3g, drop, dhs, layout = (inp[n] for n in ("g", "w3g", "drop", "dhs",
+                                                  "layout"))
+    kept = layout.R * layout.bs
+    times = {}
+    with torch.no_grad():
+        hs = R.fused_gru_fwd_sparse(g, w3g, drop, layout, act, qb)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        calls = {
+            "fused_gru_fwd_sparse": (
+                lambda: R.fused_gru_fwd_sparse(g, w3g, drop, layout, act, qb),
+                lambda: R.fused_gru_fwd_sparse_plain(g, w3g, drop, layout,
+                                                     act, qb), "fwd"),
+            "fused_gru_bwd_sparse": (
+                lambda: R.fused_gru_bwd_sparse(g, w3g, drop, h_prev, dhs,
+                                               layout, act, qb),
+                lambda: R.fused_gru_bwd_sparse_plain(
+                    g, w3g, drop, h_prev, dhs, layout, act, qb), "bwd")}
+        for name, (fn, plain, kind) in calls.items():
+            times[name + "_ms"] = cuda_ms(fn, reps=10)
+            times[name + "_plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                gru_bound_ms(T, B, H, kept, kind)
+        times["fused_gru_fwd_sparse_ms_q0"] = cuda_ms(
+            lambda: R.fused_gru_fwd_sparse(g, w3g, drop, layout, act, 0),
+            reps=10)
+        Ts, Bs, _ = GR_SERVE_TBH
+        sv = gru_inputs(Ts, Bs, H, 151, dev)
+        times["serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_gru_fwd_sparse(sv["g"], sv["w3g"], sv["drop"],
+                                           sv["layout"], act, qb), reps=10)
+        times["serve_fwd_plain_ms"] = cuda_ms(
+            lambda: R.fused_gru_fwd_sparse_plain(
+                sv["g"], sv["w3g"], sv["drop"], sv["layout"], act, qb),
+            reps=2, warmup=1)
+        times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
+            gru_bound_ms(Ts, Bs, H, kept, "fwd")
+        # the v3 pair and its dw at the training M
+        M, G = T * B, 3
+        v = v3_inputs(M, G, 152, dev)
+        vl, sub3 = v["layout"], v["sub3"]
+        x, w3, gy = v["x"], v["w3"], v["gy"]
+        v3 = {
+            "block_sparse_v3_fwd": (
+                lambda: BS.block_sparse_v3_fwd(x, w3, vl, G, 8, sub3),
+                lambda: BS.block_sparse_v3_fwd_plain(x, w3, vl, G, 8, sub3)),
+            "block_sparse_v3_dx": (
+                lambda: BS.block_sparse_v3_dx(gy, w3, vl, G, 8, sub3),
+                lambda: BS.block_sparse_v3_dx_plain(gy, w3, vl, G, 8, sub3))}
+        for name, (fn, plain) in v3.items():
+            times[name + "_ms"] = cuda_ms(fn, reps=10)
+            times[name + "_plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                v3_bound_ms(M, vl, G)
+        times["v3_dw_ms"] = cuda_ms(
+            lambda: BS.block_sparse_dw(gy, x, vl, G, sub3), reps=10)
+        xs = torch.randn(Ts * Bs, vl.K, device=dev)
+        times["serve_v3_fwd_ms"] = cuda_ms(
+            lambda: BS.block_sparse_v3_fwd(xs, w3, vl, G, 8, sub3), reps=10)
+        times["serve_v3_fwd_bound_ms"], times["serve_v3_fwd_bound_by"] = \
+            v3_bound_ms(Ts * Bs, vl, G)
+        # the dense-masked projection the v3 layer replaces: (M, 2048) @
+        # (2048, 3072) and its dx, (M, 3072) @ (3072, 2048)
+        W = torch.randn(G * vl.N, vl.K, device=dev)
+        dy = torch.randn(M, G * vl.N, device=dev)
+        times["dense_masked_fwd_ms"] = cuda_ms(lambda: x @ W.T, reps=20)
+        times["dense_masked_dx_ms"] = cuda_ms(lambda: dy @ W, reps=20)
+        times["serve_dense_masked_fwd_ms"] = cuda_ms(lambda: xs @ W.T,
+                                                     reps=20)
+    gru = torch.nn.GRU(H, H).to(dev)
+    xin = torch.randn(T, B, H, device=dev, requires_grad=True)
+    dy = torch.randn(T, B, H, device=dev)
+    fwd_ms = cuda_ms(lambda: gru(xin)[0], reps=10)
+    fb_ms = cuda_ms(lambda: gru(xin)[0].backward(dy), reps=10)
+    with torch.no_grad():
+        xsv = torch.randn(Ts, Bs, H, device=dev)
+        times["cudnn_gru_serve_fwd_ms"] = cuda_ms(lambda: gru(xsv), reps=10)
+    times.update(cudnn_gru_fwd_ms=fwd_ms, cudnn_gru_fwd_bwd_ms=fb_ms,
+                 cudnn_gru_bwd_ms=fb_ms - fwd_ms)
+    print("[gru_times] kernels at T=%d B=%d H=%d (Kb=%d, R=%d; tanh, qbits "
+          "16) and v3 at M=%d K=%d G=3 (Kb=%d, R=%d): %s"
+          % (T, B, H, layout.Kb, layout.R, M, vl.K, vl.Kb, vl.R,
+             json.dumps(times)))
+    step = train_step_times(dev, gru_train_runner, "gru_times", 5, 3)
+    serve = serve_timings(rec, audio, lens)
+    print("[gru_times] libri GRU recognizer (8 x 4 s batch): %s"
+          % json.dumps(serve))
+    return times, step, serve
+
+
+def gru_rows(checks, times, launches):
+    """The kernels JSON rows of the LibriSpeech GRU slice. ``ms`` etc. are
+    per layer call at the training shape (the GRU: T=200, 32 rows,
+    H=1024, tanh, qbits 16; v3: M=6400, K=2048, N=1024, G=3, qbits 8 with
+    the submask); ``launches`` counts one libri GRU train step;
+    ``library_ms`` is cuDNN's nn.GRU(1024, 1024) for the recurrence (a
+    yardstick: dense, no quantizer) and the dense-masked torch.matmul for
+    the v3 pair (the JAX package's path at Kb < 16)."""
+    T, B, H = GR_TRAIN_TBH
+    fr = "pytorch_kaldi_cgs_tpu/ops/fused_rnn.py:%d"
+    bsp = "pytorch_kaldi_cgs_tpu/ops/block_sparse.py:%d"
+    src = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/%s.cu"
+
+    def err_at(kernel, **want):
+        hits = [c for c in checks if c["kernel"] == kernel
+                and all(c.get(k) == v for k, v in want.items())]
+        return hits[0]["max_abs_err"]
+
+    def row(name, source, replaces, library_ms, library_note, err, shape,
+            **extra):
+        mine = [c for c in checks if c["kernel"] == name]
+        r = {"name": name, "route": "cuda", "source": src % source,
+             "replaces": replaces, "launches": launches[name]["main"],
+             "launches_by_path": launches[name], "max_abs_err": err,
+             "ms": times[name + "_ms"], "plain_ms": times[name + "_plain_ms"],
+             "bound_ms": times[name + "_bound_ms"],
+             "bound_by": times[name + "_bound_by"], "library_ms": library_ms,
+             "library_note": library_note, "shape": shape,
+             "checks": len(mine), "checks_ok": all(c["ok"] for c in mine)}
+        r.update(extra)
+        return r
+
+    rec = {"T": T, "B": B, "H": H, "Kb": 8, "R": 2, "act": "tanh",
+           "qbits": 16}
+    train = list(GR_TRAIN_TBH)
+    v3 = {"M": T * B, "K": 2048, "N": 1024, "G": 3, "Kb": 16, "R": 4,
+          "qbits": 8, "fuse_sub": True}
+    dense = "dense-masked torch.matmul %s, the JAX package's path at Kb < 16"
+    return [
+        row("fused_gru_fwd_sparse", "fused_gru_sparse", fr % 1443,
+            times["cudnn_gru_fwd_ms"],
+            "cuDNN nn.GRU(1024, 1024) forward at 32 rows: a yardstick "
+            "(dense, no quantizer)",
+            err_at("fused_gru_fwd_sparse", shape=train, qbits=16, w3g="f32"),
+            rec, ms_q0=times["fused_gru_fwd_sparse_ms_q0"],
+            serve={"T": GR_SERVE_TBH[0], "B": GR_SERVE_TBH[1], "H": H,
+                   "ms": times["serve_fwd_ms"],
+                   "plain_ms": times["serve_fwd_plain_ms"],
+                   "bound_ms": times["serve_fwd_bound_ms"],
+                   "bound_by": times["serve_fwd_bound_by"],
+                   "library_ms": times["cudnn_gru_serve_fwd_ms"]}),
+        row("fused_gru_bwd_sparse", "fused_gru_sparse", fr % 1495,
+            times["cudnn_gru_bwd_ms"],
+            "cuDNN nn.GRU(1024, 1024) backward (fwd+bwd minus fwd)",
+            err_at("fused_gru_bwd_sparse", shape=train, qbits=16, w3g="f32"),
+            rec),
+        row("block_sparse_v3_fwd", "block_sparse_v3", bsp % 656,
+            times["dense_masked_fwd_ms"],
+            dense % "(6400, 2048) x (2048, 3072)",
+            err_at("block_sparse_v3_fwd", G=3, K=2048, qbits=8), v3,
+            serve={"M": GR_SERVE_TBH[0] * GR_SERVE_TBH[1],
+                   "ms": times["serve_v3_fwd_ms"],
+                   "bound_ms": times["serve_v3_fwd_bound_ms"],
+                   "bound_by": times["serve_v3_fwd_bound_by"],
+                   "library_ms": times["serve_dense_masked_fwd_ms"]}),
+        row("block_sparse_v3_dx", "block_sparse_v3", bsp % 744,
+            times["dense_masked_dx_ms"],
+            dense % "(6400, 3072) x (3072, 2048)",
+            err_at("block_sparse_v3_dx", G=3, K=2048, qbits=8), v3,
+            v3_dw_ms=times["v3_dw_ms"])]
 
 
 def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
@@ -1941,6 +2516,18 @@ def main():
         "ligru_stream", phase_ligru_stream, dev, lg_rec, audio, lens,
         lg_phones, lg_logp)
     lg_train = timed("ligru_train", phase_ligru_train, dev)
+    gr_checks = timed("gru_kernels", phase_gru_kernels, dev)
+    gr_rec, gr_phones, gr_logp, gr_serve_launches, gr_post_err = timed(
+        "gru_serve", phase_serve, dev, audio, lens, build_gru_stack,
+        "gru_serve", "fused_gru_fwd_sparse", gru_serve_bar, gru_expect_serve)
+    gr_post_err_noq = None          # needed where the shipped cfg is
+    if gr_post_err > TOL_POST:      # held to its measured sensitivity
+        gr_post_err_noq = timed(
+            "gru_serve_noq", phase_serve, dev, audio, lens,
+            lambda d: build_gru_stack(d, quant_inp=False),
+            "gru_serve, gru_quant_inp=False", "fused_gru_fwd_sparse",
+            TOL_POST, gru_expect_serve)[4]
+    gr_train = timed("gru_train", phase_gru_train, dev)
     serve_times, serve = timed("times", phase_times, dev, rec, audio, lens)
     serve["posteriors_vs_cpu_max_abs_err"] = post_err
     times, step = timed("train_times", phase_train_times, dev)
@@ -1948,6 +2535,8 @@ def main():
                                         dev, sp_rec, audio, lens)
     lg_times, lg_step, lg_serve = timed("ligru_times", phase_ligru_times,
                                         dev, lg_rec, audio, lens)
+    gr_times, gr_step, gr_serve = timed("gru_times", phase_gru_times, dev,
+                                        gr_rec, audio, lens)
     sp_serve.update(posteriors_vs_cpu_max_abs_err=sp_post_err,
                     stream_vs_whole_max_abs_err=sp_stream_err,
                     dense_stream_launches=sp_stream_launches)
@@ -2008,10 +2597,34 @@ def main():
         "ligru_train_step": lg_step,
         "yardsticks": {k: v for k, v in lg_times.items()
                        if "cudnn" in k or "dU" in k}}))
+    gr_serve.update(posteriors_vs_cpu_max_abs_err=gr_post_err,
+                    posteriors_vs_cpu_max_abs_err_no_quant_inp=gr_post_err_noq)
+    gr_tr = gr_train["launches_recompute"]
+    gr_launches = {
+        name: {"main": gr_tr[name], "gru_serve": gr_serve_launches[name]}
+        for name in ("fused_gru_fwd_sparse", "fused_gru_bwd_sparse",
+                     "block_sparse_v3_fwd", "block_sparse_v3_dx")}
+    for name in ("fused_gru_fwd_sparse", "block_sparse_v3_fwd"):
+        if not (gr_tr[name] and gr_serve_launches[name]):
+            raise AssertionError("%s was not launched in recognize and in "
+                                 "train_step" % name)
+    for name in ("fused_gru_bwd_sparse", "block_sparse_v3_dx",
+                 "block_sparse_dw"):
+        if not gr_tr[name]:
+            raise AssertionError("%s was not launched in train_step" % name)
+    sp_launches["block_sparse_dw"].update(
+        gru_train=gr_tr["block_sparse_dw"],
+        gru_train_by_G=gr_train["block_sparse_dw_by_G"])
+    print("[summary] LibriSpeech GRU %s" % json.dumps({
+        "gru_serve": gr_serve, "gru_train": gr_train,
+        "gru_train_step": gr_step,
+        "yardsticks": {k: v for k, v in gr_times.items()
+                       if "cudnn" in k or "dense" in k or "dw" in k}}))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
                         launches)
     line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
     line["kernels"] += ligru_rows(lg_checks, lg_times, lg_launches)
+    line["kernels"] += gru_rows(gr_checks, gr_times, gr_launches)
     print("[timing] total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps(line))
     print(smi)

@@ -9,7 +9,9 @@ with ``/`` (``"bn_wfx0/gamma"``): the key names are the JAX package's.
 A graph of nets (``runtime.graph.NetGraph``) keeps one such tree per
 architecture name, as the JAX package's graph variables do. HCGS masks
 cross as float32 0/1 arrays both ways, so both packages derive the same
-block-sparse layouts from them.
+block-sparse layouts from them; a trained net's packed v3 weights
+(``wh1__bs``, (Nb, bs, R*bs), after ``pack_variables``) cross as leaves
+like any other.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Acoustic models ported so far: LSTM, liGRU and MLP.
+"""Acoustic models ported so far: LSTM, GRU (its block-sparse
+recurrence), liGRU and MLP.
 
 Configs name a model by ``arch_library`` + ``arch_class``;
 :func:`get_model_class` resolves the built-in names to this package's
@@ -8,12 +9,12 @@ run unchanged, and never makes that package be imported.
 
 from .base import AcousticModel, CompressionSpec
 from .mlp import MLP
-from .recurrent import LSTM, liGRU
+from .recurrent import GRU, LSTM, liGRU
 
-__all__ = ["AcousticModel", "CompressionSpec", "LSTM", "MLP", "liGRU",
+__all__ = ["AcousticModel", "CompressionSpec", "GRU", "LSTM", "MLP", "liGRU",
            "get_model_class"]
 
-_REGISTRY = {"MLP": MLP, "LSTM": LSTM, "liGRU": liGRU}
+_REGISTRY = {"MLP": MLP, "LSTM": LSTM, "GRU": GRU, "liGRU": liGRU}
 
 #: Library names that mean "the built-in models".
 BUILTIN_LIBRARIES = ("pytorch_kaldi_cgs_tpu_torch.models",

@@ -127,6 +127,14 @@ def host_mask(masks: Mapping[str, Any], key: str) -> Optional[np.ndarray]:
     return None if m is None else np.asarray(m)
 
 
+def v3_submask(masks, keys, layout: BS.BlockLayout, device) -> torch.Tensor:
+    """The level-2 submask of the weights ``keys`` in the w3 layout,
+    stacked along the gate axis as the v3 kernels read it."""
+    return torch.as_tensor(np.concatenate(
+        [BS.pack_w3(host_mask(masks, "hcgs_" + k), layout) for k in keys],
+        axis=1), dtype=torch.float32, device=device)
+
+
 def v3_projection_layout(mask: Optional[np.ndarray], bs: int, mode: str
                          ) -> Optional[BS.BlockLayout]:
     """The JAX package's rule (its models' ``prepare_block_sparse``) for
@@ -219,10 +227,40 @@ class AcousticModel(nn.Module):
         default this model's own): the JAX package's host-side step, run
         here whenever the variables load. None by default."""
 
+    def _v3_weights(self):
+        """(layout, dense weight keys) of every layer whose projection
+        runs on the v3 block-sparse kernels; none by default."""
+        return []
+
     def pack_variables(self) -> None:
-        """Move block-sparse layers' weights into packed storage, as the
-        JAX package does before building the optimizer state. None by
-        default."""
+        """Move the v3 layers' dense weights into packed storage, as the
+        JAX package does before building the optimizer state: ``<key>``
+        (N, K) becomes the trainable leaf ``<key>__bs`` (Nb, bs, R*bs),
+        the kept blocks only. Idempotent."""
+        for layout, keys in self._v3_weights():
+            for key in keys:
+                if key in self.params:
+                    w = self.params.pop(key).detach().cpu().numpy()
+                    self.params[key + "__bs"] = nn.Parameter(torch.as_tensor(
+                        BS.pack_w3(w, layout), device=self.device))
+
+    def unpack_variables(self) -> None:
+        """The inverse of :meth:`pack_variables` (dense weights, dropped
+        blocks zero), for export. Idempotent."""
+        for layout, keys in self._v3_weights():
+            for key in keys:
+                if key + "__bs" in self.params:
+                    w3 = self.params.pop(key + "__bs").detach().cpu().numpy()
+                    self.params[key] = nn.Parameter(torch.as_tensor(
+                        BS.unpack_w3(w3, layout), device=self.device))
+
+    def _v3_w3(self, keys, layout) -> torch.Tensor:
+        """The kernels' w3 (Nb, G*bs, R*bs) of the weights ``keys``: their
+        packed leaves side by side, or (unpacked, as a recognizer keeps
+        them) gathered differentiably from the dense weights."""
+        if all(k + "__bs" in self.params for k in keys):
+            return torch.cat([self.params[k + "__bs"] for k in keys], dim=1)
+        return BS.gather_w3([self.params[k] for k in keys], layout)
 
     def variables(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """Flat-keyed tensors of the three collections

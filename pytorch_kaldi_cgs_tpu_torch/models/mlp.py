@@ -1,12 +1,14 @@
-"""MLP acoustic model (port of ``pytorch_kaldi_cgs_tpu/models/mlp.py``,
-the dense path).
+"""MLP acoustic model (port of ``pytorch_kaldi_cgs_tpu/models/mlp.py``).
 
 A chain of (masked, quantized) matmuls with per-layer batch/layer norm,
-activation and dropout. HCGS layers run dense-masked; a layer the JAX
-package's ``mlp_block_sparse`` rule (auto by default) would put on its
-v3 block-sparse kernels raises in :meth:`MLP.prepare_block_sparse`,
-since those kernels are not ported yet. The 1944-way and mono heads stay
-dense under that rule: their widths are not multiples of 128.
+activation and dropout. A layer the JAX package's ``mlp_block_sparse``
+rule (auto by default) puts on its v3 block-sparse kernels runs on them
+here too (``block_sparse.block_sparse_matmul_v3`` at G=1, float32
+whatever the compute dtype, the weight quantizer and the level-2 submask
+inside the kernels): from the packed ``w<i>__bs`` leaf after
+``pack_variables``, else from the kept blocks of the dense weight. Every
+other HCGS layer runs dense-masked; the 1944-way and mono heads do under
+that rule (their widths are not multiples of 128).
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ import torch
 from .._device import DeviceLike
 from ..sparsity import hcgs as hcgs_mod
 from ..sparsity.quantize import bf16_round
+from ..ops import block_sparse as BS
 from .base import (AcousticModel, CompressionSpec, effective_weight,
                    flag_list, host_mask, maybe_quant_input, opt_bool,
-                   v3_projection_layout)
+                   v3_projection_layout, v3_submask)
 from .layers import (act_fun, batch_norm, batch_norm_params, batch_norm_state,
                      dropout, layer_norm, layer_norm_params,
                      small_uniform_init)
@@ -35,6 +38,7 @@ class MLP(AcousticModel):
             options.get("mlp_block_sparse", "auto") or "auto").strip()
         self.block_sparse = self.block_sparse_mode.lower() not in (
             "false", "0", "no")
+        self._bs_layouts: Dict[int, Any] = {}     # layer -> (layout, sub3)
         self.dnn_lay = [int(v) for v in options["dnn_lay"].split(",")]
         self.dnn_drop = [float(v) for v in options["dnn_drop"].split(",")]
         self.use_batchnorm = flag_list(options, "dnn_use_batchnorm")
@@ -80,9 +84,10 @@ class MLP(AcousticModel):
         return {"params": params, "state": state, "masks": masks}
 
     def prepare_block_sparse(self, variables=None) -> None:
-        """The JAX package's rule for its block-sparse matmul path: a
-        layer it would run on the v3 kernels raises (not ported yet);
-        every other layer stays dense-masked."""
+        """The JAX package's rule for its block-sparse matmul path: the
+        layouts (and level-2 submasks in the w3 layout) of the layers on
+        the v3 kernels; every other layer stays dense-masked."""
+        self._bs_layouts = {}
         if not (self.block_sparse and self.spec.hcgs) or \
                 self.spec.guided_hcgs or self.spec.if_pattern or self.spec.prune:
             return
@@ -91,14 +96,13 @@ class MLP(AcousticModel):
         for i in range(self.N):
             layout = v3_projection_layout(host_mask(masks, "hcgs_w%d" % i),
                                           bs, self.block_sparse_mode)
-            if layout is None:
-                continue
-            raise NotImplementedError(
-                "mlp layer %d: the JAX package runs it (Kb=%d, R=%d, "
-                "mlp_block_sparse=%s) on its v3 block-sparse kernels "
-                "(ops/block_sparse.py:_make_fwd_v3, _make_dx_v3), which are "
-                "not ported yet" % (i, layout.Kb, layout.R,
-                                    self.block_sparse_mode))
+            if layout is not None:
+                self._bs_layouts[i] = (layout, v3_submask(
+                    masks, ["w%d" % i], layout, self.device))
+
+    def _v3_weights(self):
+        return [(layout, ["w%d" % i])
+                for i, (layout, _) in self._bs_layouts.items()]
 
     def _bn(self, key: str, x: torch.Tensor, train: bool) -> torch.Tensor:
         return batch_norm(x, self.params[key + "/gamma"],
@@ -119,11 +123,18 @@ class MLP(AcousticModel):
             x = self._bn("bn0", x, train)
         for i in range(self.N):
             xin = maybe_quant_input(x, self.spec)
-            w = effective_weight(self.params["w%d" % i], self.masks,
-                                 "w%d" % i, self.spec, i)
-            if self.compute_bf16:
-                xin, w = bf16_round(xin), bf16_round(w)
-            y = xin @ w.T + self.params["b%d" % i]
+            if i in self._bs_layouts:
+                layout, sub3 = self._bs_layouts[i]
+                y = BS.block_sparse_matmul_v3(
+                    xin, self._v3_w3(["w%d" % i], layout), layout, 1,
+                    self.spec.layer_bits(i) if self.spec.quant else 0,
+                    sub3)[0] + self.params["b%d" % i]
+            else:
+                w = effective_weight(self.params["w%d" % i], self.masks,
+                                     "w%d" % i, self.spec, i)
+                if self.compute_bf16:
+                    xin, w = bf16_round(xin), bf16_round(w)
+                y = xin @ w.T + self.params["b%d" % i]
             if self.use_laynorm[i]:
                 y = self._ln("ln%d" % i, y)
             if self.use_batchnorm[i]:

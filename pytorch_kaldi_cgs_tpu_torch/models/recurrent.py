@@ -1,5 +1,5 @@
 """The recurrent acoustic models (port of ``pytorch_kaldi_cgs_tpu/models/
-recurrent.py``: ``_RecurrentBase``, ``LSTM`` and ``liGRU``).
+recurrent.py``: ``_RecurrentBase``, ``LSTM``, ``GRU`` and ``liGRU``).
 
 Time-major (T, B, F). Per layer: one fused input projection for all the
 x-gates (HCGS mask + quantizer applied to the weights), batch norm on
@@ -15,18 +15,26 @@ plain step loop that autograd differentiates. LSTM: ``ops.fused_lstm``,
 streaming passes the (h, c) carries to the seeded-carry variant. liGRU:
 ``ops.fused_rnn``, in float32 whatever the compute dtype, as the JAX
 package's fused liGRU; streaming passes the h carry to the seeded
-forward. The JAX package's VMEM size rules and ``*_fused_scan`` options
-do not choose the path here: the kernels take any batch.
+forward. GRU: only its block-sparse recurrence is ported; a layer that
+would take the dense fused GRU raises. The JAX package's VMEM size rules
+and ``*_fused_scan`` options do not choose the path here: the kernels
+take any batch.
 
 Block sparsity (``<prefix>_block_sparse``: auto by default, True or
-False), by the JAX package's rules: an LSTM layer whose recurrent HCGS
-mask at 128-multiple blocks drops at least half the blocks of each row
-runs its whole-utterance recurrence over the kept blocks only
-(``fused_lstm.lstm_scan_fused_sparse``), in float32 whatever the compute
-dtype, as the JAX package does; streaming keeps the dense seeded kernel.
-Such a liGRU layer raises: its sparse kernels are not ported yet. An
-x-projection the JAX package would put on its v3 block-sparse kernels
-raises (not ported yet); every other HCGS projection runs dense-masked.
+False), by the JAX package's rules: an LSTM or GRU layer whose recurrent
+HCGS mask at 128-multiple blocks drops at least half the blocks of each
+row runs its whole-utterance recurrence over the kept blocks only
+(``fused_lstm.lstm_scan_fused_sparse``, ``fused_rnn.
+gru_scan_fused_sparse``), in float32 whatever the compute dtype, as the
+JAX package does; the LSTM streams on the dense seeded kernel. Such a
+liGRU layer raises: its sparse kernels are not ported yet. An
+x-projection the JAX package puts on its v3 block-sparse kernels (128-
+multiple blocks; under auto from 16 column blocks with at least half of
+each row's dropped) runs on them here too
+(``block_sparse.block_sparse_matmul_v3``, float32 whatever the compute
+dtype): from the packed ``<gate><i>__bs`` leaves after
+``pack_variables`` (training), else from kept blocks gathered out of the
+dense weights (serving); every other HCGS projection runs dense-masked.
 Sequence parallelism is not ported.
 """
 
@@ -44,7 +52,7 @@ from ..sparsity import hcgs as hcgs_mod
 from ..sparsity.quantize import bf16_round
 from .base import (AcousticModel, CompressionSpec, effective_weight,
                    flag_list, host_mask, maybe_quant_input, opt_bool,
-                   v3_projection_layout)
+                   v3_projection_layout, v3_submask)
 from .layers import (act_fun, batch_norm, batch_norm_params, batch_norm_state,
                      layer_norm, layer_norm_params, orthogonal_init,
                      shared_time_drop_mask, torch_linear_init)
@@ -67,6 +75,8 @@ class _RecurrentBase(AcousticModel):
         self.block_sparse = self.block_sparse_mode.lower() not in (
             "false", "0", "no")
         self._rec_layouts: Dict[int, BS.BlockLayout] = {}
+        # x-projections on the v3 kernels: layer -> (layout, sub3)
+        self._bs_layouts: Dict[int, Any] = {}
         self.lay = [int(v) for v in options[p + "_lay"].split(",")]
         self.drop = [float(v) for v in options[p + "_drop"].split(",")]
         self.use_batchnorm = flag_list(options, p + "_use_batchnorm")
@@ -138,9 +148,10 @@ class _RecurrentBase(AcousticModel):
         """Derive the static level-1 block layouts from the HCGS masks
         (``variables``, default this model's own), by the JAX package's
         ``prepare_block_sparse`` rules: the recurrent layouts the fused
-        sparse recurrence takes; an x-projection the JAX package would
-        run on its v3 kernels raises (not ported yet)."""
-        self._rec_layouts = {}
+        sparse recurrence takes, and the x-projections on the v3 kernels
+        with their level-2 submasks in the w3 layout (the x-gates'
+        stacked along the gate axis)."""
+        self._rec_layouts, self._bs_layouts = {}, {}
         if not (self.block_sparse and self.spec.hcgs):
             return
         if self.spec.guided_hcgs or self.spec.if_pattern or self.spec.prune:
@@ -152,15 +163,16 @@ class _RecurrentBase(AcousticModel):
             layout = v3_projection_layout(
                 host_mask(masks, "hcgs_%s%d" % (self.gates_x[0], i)), bs,
                 self.block_sparse_mode)
-            if layout is None:
-                continue
-            raise NotImplementedError(
-                "%s layer %d: the JAX package runs this x-projection "
-                "(Kb=%d, R=%d, %s_block_sparse=%s) on its v3 block-sparse "
-                "kernels (ops/block_sparse.py:_make_fwd_v3, _make_dx_v3), "
-                "which are not ported yet" % (self.prefix, i, layout.Kb,
-                                              layout.R, self.prefix,
-                                              self.block_sparse_mode))
+            if layout is not None:
+                self._bs_layouts[i] = (layout, v3_submask(
+                    masks, self._x_keys(i), layout, self.device))
+
+    def _x_keys(self, i: int) -> List[str]:
+        return ["%s%d" % (g, i) for g in self.gates_x]
+
+    def _v3_weights(self):
+        return [(layout, self._x_keys(i))
+                for i, (layout, _) in self._bs_layouts.items()]
 
     def _prepare_sparse_recurrence(self, masks) -> None:
         """The block-sparse fused-recurrence layout of each layer over
@@ -220,14 +232,24 @@ class _RecurrentBase(AcousticModel):
 
     def _gates(self, x: torch.Tensor, i: int, train: bool) -> torch.Tensor:
         """Input projections of the x-gates + bias, batch norm on the
-        ``bn_gates`` -> (T, B, G*H) float32, in ``gates_x`` order."""
+        ``bn_gates`` -> (T, B, G*H) float32, in ``gates_x`` order. A v3
+        layer projects on the block-sparse kernels, with the weight
+        quantizer and the level-2 submask applied inside them."""
         T, B, F = x.shape
-        W = self._stacked(self.gates_x, i)
-        xin = maybe_quant_input(x, self.spec)
-        if self.compute_bf16:
-            xin, W = bf16_round(xin), bf16_round(W)
-        outs = list(torch.chunk((xin.reshape(T * B, F) @ W.T)
-                                .reshape(T, B, -1), len(self.gates_x), dim=-1))
+        xin = maybe_quant_input(x, self.spec).reshape(T * B, F)
+        G = len(self.gates_x)
+        if i in self._bs_layouts:
+            layout, sub3 = self._bs_layouts[i]
+            ys = BS.block_sparse_matmul_v3(
+                xin, self._v3_w3(self._x_keys(i), layout), layout, G,
+                self.spec.layer_bits(i) if self.spec.quant else 0, sub3)
+            outs = [y.reshape(T, B, -1) for y in ys]
+        else:
+            W = self._stacked(self.gates_x, i)
+            if self.compute_bf16:
+                xin, W = bf16_round(xin), bf16_round(W)
+            outs = list(torch.chunk((xin @ W.T).reshape(T, B, -1), G,
+                                    dim=-1))
         for k, g in enumerate(self.gates_x):
             bkey = "%s_b%d" % (g, i)
             if bkey in self.params:
@@ -338,6 +360,61 @@ class LSTM(_RecurrentBase):
                                self.params["ln%d/beta" % i])
             hs.append(h)
         return torch.stack(hs), (h, c)
+
+
+class GRU(_RecurrentBase):
+    """GRU with update and reset gates; gates ordered [h, z, r]
+    (candidate first), U stacked [Uh; Uz; Ur], batch norm on all three
+    gate projections. The reset gate scales the candidate's recurrent
+    input: a = act(g_h + q(r * h) @ Uh.T)."""
+
+    prefix = "gru"
+    gates_x = ["wh", "wz", "wr"]
+    gates_h = ["uh", "uz", "ur"]
+    bn_gates = ["wh", "wz", "wr"]
+
+    def _zero_carry(self, z):
+        return z
+
+    def _recurrence(self, gates, U, drop, i, carry):
+        act = self.act_names[i]
+        qb = self._rec_qbits()
+        B, H = gates.shape[1], gates.shape[2] // 3
+        if carry is None:
+            layout = self._sparse_rec_layout(i, B, H)
+            if layout is not None:
+                return fused_rnn.gru_scan_fused_sparse(
+                    gates, self._rec_w3g(U, layout), layout, drop, act=act,
+                    quant_bits=qb), None
+        if self._fused_ok(i):
+            raise NotImplementedError(
+                "gru layer %d: the JAX package runs this recurrence (%s, "
+                "H=%d, B=%d) on its dense fused GRU kernels "
+                "(ops/fused_rnn.py:_build_gru_fwd, _build_gru_bwd, "
+                "_build_gru_bwd_stash), which are not ported yet"
+                % (i, "streaming" if carry is not None else "no sparse "
+                   "recurrent layout", H, B))
+        return self._steps_plain(gates, U, drop, i, carry, qb)
+
+    def _steps_plain(self, gates, U, drop, i, carry, qb):
+        """Plain step loop (the JAX package's ``lax.scan`` step) for the
+        layers the kernels do not take: in-scan layer norm on h, or
+        another activation; bf16-rounded recurrent dots under bf16."""
+        T, B, G3 = gates.shape
+        H = G3 // 3
+        actf = act_fun(self.act_names[i])
+        rec_h = fused_lstm.dense_u(U[:H], self.compute_bf16)
+        rec_zr = fused_lstm.dense_u(U[H:], self.compute_bf16)
+        h = carry if carry is not None else gates.new_zeros((B, H))
+        hs = []
+        for t in range(T):
+            h = fused_rnn.gru_cell(gates[t], h, rec_zr, rec_h, drop, actf, qb,
+                                   self.compute_bf16)
+            if self.use_laynorm[i]:
+                h = layer_norm(h, self.params["ln%d/gamma" % i],
+                               self.params["ln%d/beta" % i])
+            hs.append(h)
+        return torch.stack(hs), h
 
 
 class liGRU(_RecurrentBase):

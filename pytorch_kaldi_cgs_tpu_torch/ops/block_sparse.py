@@ -1,6 +1,6 @@
-"""Block-sparse HCGS layouts and the block-sparse weight gradient (port of
-the host side of ``pytorch_kaldi_cgs_tpu/ops/block_sparse.py`` and of its
-``_make_dw_v3`` kernel).
+"""Block-sparse HCGS layouts, the v3 block-sparse projection and the
+block-sparse weight gradient (port of ``pytorch_kaldi_cgs_tpu/ops/
+block_sparse.py``: its host side and its three v3 kernels).
 
 HCGS keeps the same number R of level-1 blocks in every block row of a
 mask, so the kept blocks of an (N, K) weight pack row-major into the
@@ -9,15 +9,27 @@ column blocks side by side); G weights that share one mask stack along
 the middle axis into ``(Nb, G*bs, R*bs)``. :class:`BlockLayout` holds the
 static index structure, in numpy with the JAX package's field values.
 
-One TPU kernel becomes a CUDA kernel for ``sm_90a``:
+Three TPU kernels become CUDA kernels for ``sm_90a``:
 
-- ``_make_dw_v3`` (``ops/block_sparse.py:856``): ``csrc/block_sparse_dw.cu``,
+- ``_make_fwd_v3`` (``ops/block_sparse.py:656``): ``csrc/block_sparse_v3.cu``,
+  :func:`block_sparse_v3_fwd` / :func:`block_sparse_v3_fwd_plain`:
+  ``ys[g] = x @ w_eff_g.T`` over the kept blocks only;
+- ``_make_dx_v3`` (``:744``): ``csrc/block_sparse_v3.cu``,
+  :func:`block_sparse_v3_dx` / :func:`block_sparse_v3_dx_plain`;
+- ``_make_dw_v3`` (``:856``): ``csrc/block_sparse_dw.cu``,
   :func:`block_sparse_dw` / :func:`block_sparse_dw_plain`, with the
-  optional level-2 submask epilogue (``sub3``). It is the ``dU`` of the
-  sparse fused recurrence (``ops.fused_lstm.sparse_dU``).
+  optional level-2 submask epilogue (``sub3``). It is the dw of the v3
+  projection and the ``dU`` of the sparse fused recurrences
+  (``ops.fused_lstm.sparse_dU``).
 
-The wrapper launches its kernel on a CUDA tensor (or raises) and runs
-its twin on a CPU tensor; ``block_sparse_dw.launches`` counts launches.
+The effective weight of the v3 pair is ``ceil_quant(w3) * sub3`` (the
+8-bit weight quantizer and the level-2 submask applied to each weight
+as the kernel reads it); :func:`block_sparse_matmul_v3` is the
+differentiable entry point, the JAX package's ``block_sparse_matmul_v3``
+custom VJP (straight-through quantizer, dw times the submask).
+
+A wrapper launches its kernel on a CUDA tensor (or raises) and runs its
+twin on a CPU tensor; its attribute ``launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -203,6 +215,24 @@ def v3_from_blocks(blocks: torch.Tensor, layout: BlockLayout,
         .permute(0, 2, 1, 3).reshape(layout.Nb, G * bs, layout.R * bs)
 
 
+def pad_cols(x: torch.Tensor, K: int) -> torch.Tensor:
+    """Zero-pad the last axis of ``x`` to ``K`` (a K-padded layout),
+    differentiably; ``x`` itself when already that wide."""
+    if x.shape[-1] == K:
+        return x
+    return torch.nn.functional.pad(x, (0, K - x.shape[-1]))
+
+
+def gather_w3(ws: Sequence[torch.Tensor], layout: BlockLayout
+              ) -> torch.Tensor:
+    """G dense (N, K_true) weights -> their kept blocks in the w3 layout
+    (Nb, G*bs, R*bs), differentiable (the JAX package's ``gather_v3``,
+    its ``w3`` half): the gradient scatters back into the dense weights,
+    zero on the dropped blocks."""
+    return v3_from_blocks(gather_blocks_multi(
+        [pad_cols(w, layout.K) for w in ws], layout), layout, len(ws))
+
+
 # ---------------------------------------------------------------------------
 # the block-sparse weight gradient (TPU kernel _make_dw_v3)
 # ---------------------------------------------------------------------------
@@ -260,9 +290,30 @@ def block_sparse_dw(dg_flat: torch.Tensor, x: torch.Tensor,
     slices side by side; ``x`` (M, K). Float32, contiguous. CUDA tensors
     run the kernel (float32 FMAs, no TF32), CPU tensors the twin."""
     M = x.shape[0]
-    shapes = (("dg_flat", dg_flat, (M, layout.Nb * G * layout.bs)),
-              ("x", x, (M, layout.K)),
-              ("sub3", sub3, (layout.Nb, G * layout.bs, layout.R * layout.bs)))
+    if _check_operands(dg_flat, (("dg_flat", dg_flat,
+                                  (M, _flat_width(layout, G))),
+                           ("x", x, (M, layout.K)),
+                           ("sub3", sub3, _w3_shape(layout, G)))):
+        return block_sparse_dw_plain(dg_flat, x, layout, G, sub3)
+    return _dw_kernel(dg_flat, x, layout, G, sub3)
+
+
+block_sparse_dw.launches = 0
+
+
+def _w3_shape(layout: BlockLayout, G: int):
+    return (layout.Nb, G * layout.bs, layout.R * layout.bs)
+
+
+def _flat_width(layout: BlockLayout, G: int) -> int:
+    """Columns of a flat cotangent: per out-block, its G gates' slices."""
+    return layout.Nb * G * layout.bs
+
+
+def _check_operands(lead: torch.Tensor, shapes) -> bool:
+    """Shapes, float32, one device and (on the card) contiguity of a
+    wrapper's operands ((name, tensor or None, shape) each). -> True for
+    the CPU (run the twin), False for a CUDA device (launch)."""
     for name, t, shape in shapes:
         if t is None:
             continue
@@ -271,15 +322,194 @@ def block_sparse_dw(dg_flat: torch.Tensor, x: torch.Tensor,
                              % (name, shape, tuple(t.shape)))
         if t.dtype != torch.float32:
             raise ValueError("%s must be float32, got %s" % (name, t.dtype))
-        if t.device != x.device:
-            raise ValueError("%s on %s, x on %s" % (name, t.device, x.device))
-        if x.device.type == "cuda" and not t.is_contiguous():
+        if t.device != lead.device:
+            raise ValueError("%s on %s, %s on %s" % (
+                name, t.device, shapes[0][0], lead.device))
+        if lead.device.type == "cuda" and not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
-    if x.device.type == "cpu":
-        return block_sparse_dw_plain(dg_flat, x, layout, G, sub3)
-    if x.device.type != "cuda":
-        raise ValueError("unsupported device %s" % x.device)
-    return _dw_kernel(dg_flat, x, layout, G, sub3)
+    if lead.device.type not in ("cpu", "cuda"):
+        raise ValueError("unsupported device %s" % lead.device)
+    return lead.device.type == "cpu"
 
 
-block_sparse_dw.launches = 0
+# ---------------------------------------------------------------------------
+# the v3 projection (TPU kernels _make_fwd_v3 and _make_dx_v3)
+# ---------------------------------------------------------------------------
+
+def ceil_quant(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """The kernels' weight quantizer (the JAX package's ``_ceil_quant``,
+    equal to ``sparsity.quantize.quantize_weight``): clip to [-1, 1],
+    ceil the magnitude to 2^(bits-1) levels, sign restored."""
+    scale = 2.0 ** (bits - 1)
+    w = torch.clamp(w, -1.0, 1.0)
+    return torch.sign(w) * (torch.ceil(torch.abs(w) * scale) / scale)
+
+
+def v3_weight(w3: torch.Tensor, qbits: int = 0,
+              sub3: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The effective weight both v3 kernels contract against:
+    ``ceil_quant(w3, qbits) * sub3`` (either step skipped when off)."""
+    w = ceil_quant(w3, qbits) if qbits else w3
+    return w * sub3 if sub3 is not None else w
+
+
+def block_sparse_v3_fwd_plain(x: torch.Tensor, w3: torch.Tensor,
+                              layout: BlockLayout, G: int, qbits: int = 0,
+                              sub3: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Twin of the v3 forward kernel: gather the R kept column blocks of
+    x per out-block, one batched matmul against the effective weight,
+    the G gates' output planes apart. -> (G, M, N)."""
+    M, bs, Nb = x.shape[0], layout.bs, layout.Nb
+    ys = torch.bmm(gather_cols(x, layout),
+                   v3_weight(w3, qbits, sub3).transpose(1, 2))
+    return ys.reshape(Nb, M, G, bs).permute(2, 1, 0, 3).reshape(G, M, layout.N)
+
+
+def block_sparse_v3_dx_plain(gy_flat: torch.Tensor, w3: torch.Tensor,
+                             layout: BlockLayout, G: int, qbits: int = 0,
+                             sub3: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Twin of the v3 dx kernel: per out-block j, ``gy_j @ w_eff[j]``
+    (M, R*bs), each kept block's slice added into its column block;
+    column blocks no row keeps stay zero. -> (M, K)."""
+    M, bs, Nb, R = gy_flat.shape[0], layout.bs, layout.Nb, layout.R
+    gyb = gy_flat.reshape(M, Nb, G * bs).transpose(0, 1)      # (Nb, M, G*bs)
+    part = torch.bmm(gyb, v3_weight(w3, qbits, sub3))         # (Nb, M, R*bs)
+    parts = part.reshape(Nb, M, R, bs).transpose(0, 1).reshape(M, -1, bs)
+    idx = torch.as_tensor(layout.col_idx, dtype=torch.long,
+                          device=gy_flat.device)
+    dx = gy_flat.new_zeros((M, layout.Kb, bs)).index_add_(1, idx, parts)
+    return dx.reshape(M, layout.K)
+
+
+def _qscale(qbits: int) -> float:
+    return 2.0 ** (qbits - 1) if qbits else 0.0
+
+
+def _v3_kernel(name, args, ints, out, qbits, sub3):
+    """Launch ``name`` of ``csrc/block_sparse_v3.cu``: the pointers of
+    ``args``, then sub3 (or null) and ``out``, the ints, the quantizer's
+    scale and the stream."""
+    from . import _build
+    lib = _build.load("block_sparse_v3")
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * (len(args) + 2)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_float,
+                                                   ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = out.device
+    with torch.cuda.device(dev):
+        rc = fn(*[a.data_ptr() for a in args],
+                None if sub3 is None else sub3.data_ptr(), out.data_ptr(),
+                *ints, _qscale(qbits), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, name)
+
+
+def block_sparse_v3_fwd(x: torch.Tensor, w3: torch.Tensor,
+                        layout: BlockLayout, G: int, qbits: int = 0,
+                        sub3: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The v3 forward (TPU kernel ``_make_fwd_v3``): ``ys[g][:, j*bs:
+    (j+1)*bs] = concat_k x[:, col_idx[j*R+k]*bs : +bs] @ w_eff[j, g*bs:
+    (g+1)*bs].T`` with ``w_eff = ceil_quant(w3, qbits) * sub3``.
+
+    ``x`` (M, K) of a K-padded layout's padded width, ``w3`` and ``sub3``
+    (Nb, G*bs, R*bs), float32. -> (G, M, N) float32. CUDA tensors run the
+    kernel (float32 FMAs, no TF32), CPU tensors the twin; no autograd
+    (:func:`block_sparse_matmul_v3` carries the backward)."""
+    M = x.shape[0]
+    if _check_operands(x, (("x", x, (M, layout.K)),
+                           ("w3", w3, _w3_shape(layout, G)),
+                           ("sub3", sub3, _w3_shape(layout, G)))):
+        return block_sparse_v3_fwd_plain(x, w3, layout, G, qbits, sub3)
+    ys = torch.empty((G, M, layout.N), dtype=torch.float32, device=x.device)
+    _v3_kernel("block_sparse_v3_fwd",
+               (x, w3, layout.device_index("col_idx", x.device)),
+               (M, layout.K, layout.N, layout.Nb, layout.R, layout.bs, G),
+               ys, qbits, sub3)
+    block_sparse_v3_fwd.launches += 1
+    return ys
+
+
+block_sparse_v3_fwd.launches = 0
+
+
+def block_sparse_v3_dx(gy_flat: torch.Tensor, w3: torch.Tensor,
+                       layout: BlockLayout, G: int, qbits: int = 0,
+                       sub3: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The v3 input gradient (TPU kernel ``_make_dx_v3``): ``gy_flat``
+    (M, Nb*G*bs), per out-block its G gates' bs-wide cotangent slices
+    side by side, against the forward's effective weight. -> dx (M, K)
+    float32 (K the layout's padded width). CUDA tensors run the kernel,
+    CPU tensors the twin."""
+    M = gy_flat.shape[0]
+    if _check_operands(gy_flat, (
+            ("gy_flat", gy_flat, (M, _flat_width(layout, G))),
+            ("w3", w3, _w3_shape(layout, G)),
+            ("sub3", sub3, _w3_shape(layout, G)))):
+        return block_sparse_v3_dx_plain(gy_flat, w3, layout, G, qbits, sub3)
+    dev = gy_flat.device
+    dx = torch.empty((M, layout.K), dtype=torch.float32, device=dev)
+    _v3_kernel("block_sparse_v3_dx",
+               (gy_flat, w3, layout.device_index("t_row_idx", dev),
+                layout.device_index("t_perm", dev)),
+               (M, layout.K, layout.Nb, layout.R, layout.bs, G, layout.C,
+                layout.nnz), dx, qbits, sub3)
+    block_sparse_v3_dx.launches += 1
+    return dx
+
+
+block_sparse_v3_dx.launches = 0
+
+
+def flatten_cotangent(gy: torch.Tensor, layout: BlockLayout) -> torch.Tensor:
+    """(G, M, N) -> (M, Nb*G*bs): out-block j's columns hold all G gates'
+    bs-wide slices for j (the JAX package's ``_flatten_cotangent``, the
+    layout both backward kernels read)."""
+    G, M = gy.shape[:2]
+    return gy.reshape(G, M, layout.Nb, layout.bs).permute(1, 2, 0, 3) \
+        .reshape(M, -1).contiguous()
+
+
+class _BlockSparseV3(torch.autograd.Function):
+    """The JAX package's ``block_sparse_matmul_v3`` custom VJP over
+    (x, w3): forward kernel; backward dx kernel and dw through the dw
+    kernel, both against the flat cotangent; the quantizer passes the
+    gradient straight through and the submask multiplies dw."""
+
+    @staticmethod
+    def forward(ctx, x, w3, sub3, layout, G, qbits):
+        xp = pad_cols(x, layout.K).contiguous()
+        ctx.meta = (layout, G, qbits, x.shape[1])
+        ctx.save_for_backward(xp, w3, sub3)
+        return block_sparse_v3_fwd(xp, w3, layout, G, qbits, sub3)
+
+    @staticmethod
+    def backward(ctx, gy):
+        layout, G, qbits, F = ctx.meta
+        xp, w3, sub3 = ctx.saved_tensors
+        gg = flatten_cotangent(gy, layout)
+        dx = dw3 = None
+        if ctx.needs_input_grad[0]:
+            dx = block_sparse_v3_dx(gg, w3, layout, G, qbits, sub3)[:, :F]
+        if ctx.needs_input_grad[1]:
+            dw3 = block_sparse_dw(gg, xp, layout, G, sub3)
+        return dx, dw3, None, None, None, None
+
+
+def block_sparse_matmul_v3(x: torch.Tensor, w3: torch.Tensor,
+                           layout: BlockLayout, G: int = 1, qbits: int = 0,
+                           sub3: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """``ys[g] = x @ w_eff_g.T`` over the kept blocks, differentiable in
+    ``x`` (M, K_true) and ``w3`` (Nb, G*bs, R*bs); ``sub3`` is a constant.
+    A K-padded layout pads x with zero columns (its gradient is sliced
+    back). Float32 whatever the caller's compute dtype, as in the JAX
+    package. -> (G, M, N)."""
+    x = x.to(torch.float32).contiguous()
+    w3 = w3.to(torch.float32)
+    if torch.is_grad_enabled() and (x.requires_grad or w3.requires_grad):
+        return _BlockSparseV3.apply(x, w3.contiguous(), sub3, layout, G,
+                                    qbits)
+    return block_sparse_v3_fwd(pad_cols(x, layout.K).contiguous(),
+                               w3.contiguous(), layout, G, qbits, sub3)

@@ -643,17 +643,21 @@ def fused_lstm_bwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
 _SMEM_MAX, _SPARSE_BWD_STATIC = 232448, 8 * 8 * 4 + 8 * 32 * 4 + 2 * 64 * 4
 
 
-def _check_sparse(name, lead, w3g, layout, drop, act, others):
+def _check_sparse(name, lead, w3g, layout, drop, act, others, gates=4):
+    """A sparse recurrence's operands: (T, B, gates*H) ``lead`` with H the
+    square layout's width, w3g (Nb, gates*bs, R*bs), and on the card the
+    block sizes the kernels take. -> as :func:`_check_common`."""
     if layout.N != layout.K or lead.ndim != 3 or \
-            lead.shape[2] != 4 * layout.N:
-        raise ValueError("%s must be (T, B, 4H) with H = the layout's %d"
-                         % (name, layout.N))
+            lead.shape[2] != gates * layout.N:
+        raise ValueError("%s must be (T, B, %dH) with H = the layout's %d"
+                         % (name, gates, layout.N))
     if lead.device.type == "cuda" and (layout.bs % 8 or layout.C > 64):
         raise ValueError("the sparse kernels take bs % 8 == 0 and at most "
                          "64 blocks per column, got bs=%d C=%d"
                          % (layout.bs, layout.C))
     return _check_common(name, lead, w3g, drop, act, others, "w3g",
-                         (layout.Nb, 4 * layout.bs, layout.R * layout.bs))
+                         (layout.Nb, gates * layout.bs,
+                          layout.R * layout.bs), gates=gates)
 
 
 def _sparse_w(w3g, bf16):

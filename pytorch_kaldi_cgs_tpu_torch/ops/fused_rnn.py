@@ -1,9 +1,11 @@
-"""Fused liGRU recurrence: the whole layer's time loop, forward and BPTT.
+"""Fused liGRU and block-sparse GRU recurrences: the whole layer's time
+loop, forward and BPTT.
 
-Port of the liGRU part of ``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``.
-Three TPU kernels become CUDA kernels for ``sm_90a`` in
-``csrc/fused_ligru.cu``, each with a plain PyTorch twin that repeats its
-arithmetic and is what the CPU runs:
+Port of the liGRU part and the sparse GRU part of
+``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``. The GRU's (below, after the
+liGRU's) has its own notes. Three liGRU TPU kernels become CUDA kernels
+for ``sm_90a`` in ``csrc/fused_ligru.cu``, each with a plain PyTorch
+twin that repeats its arithmetic and is what the CPU runs:
 
 - ``_build_ligru_fwd`` (``stash`` and the seeded ``with_init`` included):
   :func:`fused_ligru_fwd` / :func:`fused_ligru_fwd_plain`;
@@ -45,9 +47,11 @@ import torch
 
 from ..sparsity.quantize import (bf16_round, quantize_input,
                                  quantize_input_per_step, ste_quantize_input)
-from .fused_lstm import (_ACT_CODE, ACTS, DACTS_OUT, _check_common,
-                         _check_shapes, _needs_grad, _ptr, _stream,
-                         bwd_stash_enabled, dact_pre, dense_u)
+from .fused_lstm import (_ACT_CODE, _SMEM_MAX, ACTS, DACTS_OUT,
+                         _check_common, _check_shapes, _check_sparse,
+                         _needs_grad, _ptr, _sparse_w, _stream,
+                         bwd_stash_enabled, dact_pre, dense_u, sparse_dh,
+                         sparse_dU, sparse_recurrent_u, sparse_scan_fits)
 
 
 # ---------------------------------------------------------------------------
@@ -322,3 +326,271 @@ def ligru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
                              drop_mask, h0.to(torch.float32), act=act,
                              qbits=quant_bits)
     return hs, hs[-1]
+
+
+# ---------------------------------------------------------------------------
+# the block-sparse GRU: TPU kernels _build_gru_fwd_sparse and
+# _build_gru_bwd_sparse become csrc/fused_gru_sparse.cu.
+#
+# The three recurrent matrices share one HCGS mask; their kept blocks pack
+# into w3g (Nb, 3*bs, R*bs), each block gate-major [h | z | r]. Per step t,
+# gates ordered [h | z | r]:
+#
+#     z, r = sigmoid(g_zr + q(h) @ [Uz; Ur].T)
+#     s    = r * h
+#     a    = act(g_h + q(s) @ Uh.T)
+#     h    = z * h + (1 - z) * a * drop
+#
+# with both products over the kept blocks only. ``q`` is the per-step
+# input quantizer (its scale max|v| over the step's (B, H) block) with a
+# straight-through gradient. The forward kernel runs two launches per step
+# (one grid-wide barrier for r, one for max|s|); the backward rebuilds the
+# forward's quantities for all steps at once, then runs two launches per
+# reverse step, and also returns s for the dU, which is two block-sparse dw
+# products over the unrolled (T*B) batch: U_h's rows from q(s), U_z's and
+# U_r's from q(h_{t-1}).
+# ---------------------------------------------------------------------------
+
+def gru_cell(g_t: torch.Tensor, h: torch.Tensor, rec_zr: Callable,
+             rec_h: Callable, drop: torch.Tensor, actf: Callable, qbits: int,
+             bf16: bool = False) -> torch.Tensor:
+    """One GRU step (the JAX package's GRU scan step): ``rec_zr(q(h))``
+    gives the z and r pre-activations (B, 2H), ``rec_h(q(r * h))`` the
+    candidate's (B, H); ``q`` the per-step quantizer with a
+    straight-through gradient, its output rounded to bf16 when ``bf16``.
+    -> h."""
+    H = h.shape[-1]
+    hin = ste_quantize_input(h, qbits) if qbits > 0 else h
+    if bf16:
+        hin = bf16_round(hin)
+    zr = torch.sigmoid(g_t[:, H:] + rec_zr(hin))
+    z, r = zr[:, :H], zr[:, H:]
+    s = r * h
+    sin = ste_quantize_input(s, qbits) if qbits > 0 else s
+    if bf16:
+        sin = bf16_round(sin)
+    a = actf(g_t[:, :H] + rec_h(sin))
+    return z * h + (1.0 - z) * (a * drop)
+
+
+def _gru_sparse_fns(w3g, layout, bf16):
+    """(w3g's U_h and [U_z; U_r] parts, rec_zr, rec_h) of the sparse
+    twins; w3g bf16-rounded when ``bf16``."""
+    wc = bf16_round(w3g) if bf16 else w3g
+    w_h, w_zr = wc[:, :layout.bs], wc[:, layout.bs:]
+    return (w_h, w_zr, lambda x: sparse_recurrent_u(x, w_zr, layout, 2),
+            lambda x: sparse_recurrent_u(x, w_h, layout, 1))
+
+
+def fused_gru_fwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
+                               drop: torch.Tensor, layout, act: str = "tanh",
+                               qbits: int = 0, bf16: bool = False
+                               ) -> torch.Tensor:
+    """Twin of the sparse GRU forward kernel (zero initial state): a
+    Python loop over :func:`gru_cell`. -> hs (T, B, H)."""
+    T, B, G3 = gates.shape
+    _, _, rec_zr, rec_h = _gru_sparse_fns(w3g, layout, bf16)
+    h = gates.new_zeros((B, G3 // 3))
+    hs = []
+    for t in range(T):
+        h = gru_cell(gates[t], h, rec_zr, rec_h, drop, ACTS[act], qbits, bf16)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def fused_gru_bwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
+                               drop: torch.Tensor, h_prev: torch.Tensor,
+                               dhs: torch.Tensor, layout, act: str = "tanh",
+                               qbits: int = 0, bf16: bool = False):
+    """Twin of the sparse GRU BPTT kernel: per reverse step it rebuilds
+    z, r, s and the candidate from ``h_prev``, runs the cotangent chain
+    (JAX ``_build_gru_bwd_sparse`` :1523-1538; ``act'`` from the
+    pre-activation, dh through the quantizers unchanged) and carries
+    ``dh * z + ds * r + dzr @ [U_z; U_r]`` into step t-1. -> (dg
+    (T, B, 3H), s (T, B, H))."""
+    T, B, H = h_prev.shape
+    w_h, w_zr, rec_zr, rec_h = _gru_sparse_fns(w3g, layout, bf16)
+    actf = ACTS[act]
+
+    def dot_in(v, quant):
+        v = quantize_input(v, qbits) if (quant and qbits > 0) else v
+        return bf16_round(v) if bf16 else v
+    dg = gates.new_empty((T, B, 3 * H))
+    s_seq = gates.new_empty((T, B, H))
+    dh_carry = gates.new_zeros((B, H))
+    for t in range(T - 1, -1, -1):
+        hp, g = h_prev[t], gates[t]
+        zr = torch.sigmoid(g[:, H:] + rec_zr(dot_in(hp, True)))
+        z, r = zr[:, :H], zr[:, H:]
+        s = r * hp
+        a_pre = g[:, :H] + rec_h(dot_in(s, True))
+        dh = dh_carry + dhs[t]
+        dz = dh * (hp - actf(a_pre) * drop)
+        dah = dh * (1.0 - z) * drop * dact_pre(act, a_pre)
+        ds = sparse_dh(dot_in(dah, False), w_h, layout, 1)
+        dzr = torch.cat([dz * z * (1.0 - z), ds * hp * r * (1.0 - r)], dim=1)
+        dh_carry = dh * z + ds * r + sparse_dh(dot_in(dzr, False), w_zr,
+                                               layout, 2)
+        dg[t] = torch.cat([dah, dzr], dim=1)
+        s_seq[t] = s
+    return dg, s_seq
+
+
+def fused_gru_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                         drop: torch.Tensor, layout, act: str = "tanh",
+                         qbits: int = 0, bf16: bool = False) -> torch.Tensor:
+    """Whole-layer GRU forward from the zero state over the kept blocks of
+    U (TPU kernel ``_build_gru_fwd_sparse``): ``gates`` (T, B, 3H) float32
+    ordered [h | z | r], ``w3g`` (Nb, 3*bs, R*bs) float32 (cast to bf16
+    for the kernel when ``bf16``), ``drop`` broadcastable to (B, H). ->
+    hs (T, B, H). CUDA tensors run the kernel (two launches per step),
+    CPU tensors the twin; no autograd of its own
+    (:func:`gru_scan_fused_sparse` carries the BPTT kernel)."""
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act, (),
+                                  gates=3)
+    if _needs_grad(gates, w3g):
+        raise RuntimeError("fused_gru_fwd_sparse has no autograd of its "
+                           "own: call gru_scan_fused_sparse")
+    if gates.device.type == "cpu":
+        return fused_gru_fwd_sparse_plain(gates, w3g, drop, layout, act,
+                                          qbits, bf16)
+    from . import _build
+    lib = _build.load("fused_gru_sparse")
+    fn = lib.fused_gru_fwd_sparse
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    fw = torch.empty((B, 3 * H), dtype=torch.float32, device=dev)
+    s = torch.empty((B, H), dtype=torch.float32, device=dev)
+    qslots = torch.empty(2 * T + 1 if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    wk = _sparse_w(w3g, bf16)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), wk.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                drop.data_ptr(), hs.data_ptr(), fw.data_ptr(), s.data_ptr(),
+                qslots.data_ptr(), T, B, H, layout.R, layout.bs,
+                _ACT_CODE[act], qbits, int(bf16), _stream(dev))
+    _build.check(lib, rc, "fused_gru_fwd_sparse")
+    fused_gru_fwd_sparse.launches += 2 * T
+    return hs
+
+
+fused_gru_fwd_sparse.launches = 0
+
+
+#: The sparse GRU backward's static shared memory (the per-unit sums and
+#: the entry lists).
+_GRU_BWD_STATIC = 8 * 8 * 4 + 2 * 64 * 4
+
+
+def fused_gru_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                         drop: torch.Tensor, h_prev: torch.Tensor,
+                         dhs: torch.Tensor, layout, act: str = "tanh",
+                         qbits: int = 0, bf16: bool = False):
+    """Sparse GRU BPTT (TPU kernel ``_build_gru_bwd_sparse``): ``gates``
+    are the forward's inputs, ``h_prev`` (T, B, H) the carries entering
+    each step, ``dhs`` (T, B, H) the upstream cotangents. -> (dg
+    (T, B, 3H), s (T, B, H), the candidate's recurrent inputs r * h_prev).
+    CUDA tensors run the kernel (two launches for the forward quantities,
+    then two per reverse step), CPU tensors the twin."""
+    seqs = (("h_prev", h_prev), ("dhs", dhs))
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act,
+                                  seqs, gates=3)
+    _check_shapes([(n, t, (T, B, H)) for n, t in seqs])
+    if gates.device.type == "cpu":
+        return fused_gru_bwd_sparse_plain(gates, w3g, drop, h_prev, dhs,
+                                          layout, act, qbits, bf16)
+    smem = 4 * 8 * layout.C * 2 * layout.bs
+    if smem + _GRU_BWD_STATIC > _SMEM_MAX:
+        raise ValueError("fused_gru_bwd_sparse: %d blocks per column of %d "
+                         "need %d bytes of shared memory, more than a block "
+                         "has" % (layout.C, layout.bs, smem))
+    from . import _build
+    lib = _build.load("fused_gru_sparse")
+    fn = lib.fused_gru_bwd_sparse
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    wk = _sparse_w(w3g, bf16)
+    wt = wk.transpose(1, 2).contiguous()      # (Nb, R*bs, 3bs): carry dots
+    f32 = dict(dtype=torch.float32, device=dev)
+    fw = torch.empty((T, B, 3 * H), **f32)
+    s_seq = torch.empty((T, B, H), **f32)
+    dh, ds = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
+    dg = torch.empty((T, B, 3 * H), **f32)
+    qslots = torch.empty(2 * T if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    idx = [layout.device_index(n, dev).data_ptr()
+           for n in ("col_idx", "t_row_idx", "t_perm")]
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
+                drop.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(),
+                fw.data_ptr(), s_seq.data_ptr(), dh.data_ptr(), ds.data_ptr(),
+                dg.data_ptr(), qslots.data_ptr(), T, B, H, layout.R,
+                layout.bs, layout.C, layout.nnz, _ACT_CODE[act], qbits,
+                int(bf16), _stream(dev))
+    _build.check(lib, rc, "fused_gru_bwd_sparse")
+    fused_gru_bwd_sparse.launches += 2 * T + 2
+    return dg, s_seq
+
+
+fused_gru_bwd_sparse.launches = 0
+
+
+class _FusedGRUSparse(torch.autograd.Function):
+    """The JAX package's ``gru_scan_fused_sparse`` custom VJP over
+    (gates, w3g): forward kernel, BPTT kernel, then dw3g as two
+    block-sparse dw products over the (T*B) batch, joined in w3g's
+    [h | z | r] row order. Under ``wbf16`` the kernels read w3g in bf16
+    and dw3g is rounded to bf16 (the JAX op's primal is the bf16 w3g)."""
+
+    @staticmethod
+    def forward(ctx, gates, w3g, drop, layout, act, qbits, wbf16):
+        hs = fused_gru_fwd_sparse(gates, w3g, drop, layout, act, qbits, wbf16)
+        ctx.meta = (layout, act, qbits, wbf16)
+        ctx.save_for_backward(gates, w3g, drop, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        layout, act, qbits, wbf16 = ctx.meta
+        gates, w3g, drop, hs = ctx.saved_tensors
+        T, B, H = hs.shape
+        h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
+        dg, s_seq = fused_gru_bwd_sparse(gates, w3g, drop, h_prev,
+                                         dhs.contiguous(), layout, act, qbits,
+                                         wbf16)
+        dw3g = None
+        if ctx.needs_input_grad[1]:
+            M = T * B
+            hq, sq = ((quantize_input_per_step(v, qbits) if qbits > 0 else v)
+                      .reshape(M, H) for v in (h_prev, s_seq))
+            dgm = dg.reshape(M, 3 * H)
+            dw3g = torch.cat([
+                sparse_dU(dgm[:, :H].contiguous(), sq, layout, 1),
+                sparse_dU(dgm[:, H:].contiguous(), hq, layout, 2)], dim=1)
+            if wbf16:
+                dw3g = bf16_round(dw3g)
+        return dg, dw3g, None, None, None, None, None
+
+
+def gru_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
+                          drop_mask: torch.Tensor, act: str = "tanh",
+                          quant_bits: int = 0) -> torch.Tensor:
+    """hs (T, B, H) from the zero state with block-sparse recurrent
+    matrices U_h, U_z, U_r sharing one HCGS mask, differentiable in
+    ``gates_t`` (T, B, 3H) [h | z | r] and ``w3g`` (Nb, 3*bs, R*bs)
+    (``drop_mask`` is a constant). As in the JAX package it takes no
+    compute dtype: the recurrence runs in float32, with w3g read in bf16
+    only where :func:`sparse_scan_fits` says "bf16"."""
+    gates_t, w3g = gates_t.to(torch.float32), w3g.to(torch.float32)
+    T, B, G3 = gates_t.shape
+    wbf16 = sparse_scan_fits(B, G3 // 3, layout, 3) == "bf16"
+    if _needs_grad(gates_t, w3g):
+        return _FusedGRUSparse.apply(gates_t, w3g, drop_mask, layout, act,
+                                     quant_bits, wbf16)
+    return fused_gru_fwd_sparse(gates_t, w3g, drop_mask, layout, act,
+                                quant_bits, wbf16)

@@ -437,18 +437,33 @@ def test_lstm_sparse_matches_jax(monkeypatch, cdt):
     np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5)
 
 
-def test_x_projection_on_v3_raises():
+def test_x_projection_on_v3_raises(monkeypatch):
     """Where the JAX rule puts an x-projection on the v3 kernels (True,
-    or auto with Kb >= 16 and R*2 <= Kb), the port refuses instead of
-    running it dense: those kernels are not ported yet."""
-    from pytorch_kaldi_cgs_tpu_torch.models import LSTM
+    or auto with Kb >= 16 and R*2 <= Kb) the port takes them too (it
+    raised before they were ported) and gives the dense-masked
+    projection's output; auto keeps a Kb=8 input dense."""
+    from pytorch_kaldi_cgs_tpu_torch.models import LSTM, MLP
+    calls = []
+    real = tbs.block_sparse_v3_fwd_plain
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(tbs, "block_sparse_v3_fwd_plain", spy)
     x50 = {"x_drop": "50", "x_block": "128"}
-    with pytest.raises(NotImplementedError, match="_make_fwd_v3"):
-        LSTM(lstm_opts("True", **x50), 256, device="cpu")
-    with pytest.raises(NotImplementedError, match="_make_fwd_v3"):
-        LSTM(lstm_opts("auto", **x50), 2048, device="cpu")
+    assert 0 in LSTM(lstm_opts("auto", **x50), 2048, device="cpu")._bs_layouts
     m = LSTM(lstm_opts("auto", **x50), 1024, device="cpu")      # Kb=8
-    assert 0 in m._rec_layouts
+    assert 0 in m._rec_layouts and not m._bs_layouts
+    x = torch.from_numpy(np.random.RandomState(3).randn(6, 2, 256)
+                         .astype(np.float32))
+    ys = {}
+    for mode in ("True", "False"):
+        m = LSTM(lstm_opts(mode, **x50), 256, seed=1, device="cpu")
+        assert (0 in m._bs_layouts) == (mode == "True")
+        with torch.no_grad():
+            ys[mode] = m.run(x, train=False).numpy()
+    assert calls
+    np.testing.assert_allclose(ys["True"], ys["False"], atol=1e-5)
 
 
 @pytest.mark.parametrize("width,mode,raises", [
@@ -456,9 +471,9 @@ def test_x_projection_on_v3_raises():
     (2048, "auto", True), (512, "True", True), (512, "False", False)])
 def test_mlp_block_sparse_rule(width, mode, raises):
     """The MLP keeps a layer dense where the JAX rule does (the 1944-way
-    and mono heads: not multiples of 128; auto with Kb < 16) and raises
-    where it would take the v3 kernels."""
-    from pytorch_kaldi_cgs_tpu_torch.models import MLP
+    and mono heads: not multiples of 128; auto with Kb < 16) and takes
+    the v3 kernels where it would (``raises``: it raised before they
+    were ported)."""
     opts = {"to_do": "train", "arch_name": "mlp", "dnn_lay": str(width),
             "dnn_drop": "0.0", "dnn_use_batchnorm": "False",
             "dnn_use_laynorm": "False", "dnn_use_laynorm_inp": "False",
@@ -467,11 +482,9 @@ def test_mlp_block_sparse_rule(width, mode, raises):
             "hcgs_sparse": "75,75", "mlp_quant": "False", "param_quant": "8",
             "mlp_quant_inp": "False", "inp_quant": "16",
             "mlp_block_sparse": mode}
-    if raises:
-        with pytest.raises(NotImplementedError, match="_make_fwd_v3"):
-            MLP(opts, 2048, device="cpu")
-    else:
-        MLP(opts, 2048, device="cpu")
+    from pytorch_kaldi_cgs_tpu_torch.models import MLP
+    m = MLP(opts, 2048, device="cpu")
+    assert (0 in m._bs_layouts) == raises
 
 
 # ---------------------------------------------------------------------------
