@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the serving path and
 the training step of the flagship 2x512 LSTM, of the 2x1024 CGS-16x
 LSTM through the block-sparse recurrence, of the TIMIT 2x1024 HCGS
-Li-GRU through the fused liGRU kernels, and of the LibriSpeech 5x1024
+Li-GRU through the fused liGRU kernels, of the LibriSpeech 5x1024
 bidirectional HCGS GRU through the sparse GRU and v3 projection
+kernels, and of the TIMIT 4x550 GRU through the dense fused GRU
 kernels.
 
     python3 chip_smoke.py
@@ -101,6 +102,28 @@ Phases (any failure raises and the script exits non-zero):
 20. gru_times — the four kernels' times, twins and bounds, cuDNN's
              nn.GRU(1024, 1024) and the dense-masked matmul as yardsticks,
              the libri GRU train step and recognize.
+21. timit_gru_kernels — the dense GRU forward (plain, stash, seeded) and
+             both BPTT kernels against their twins, each launch counter
+             checked: qbits 0/16 x tanh/relu at the small shape, the
+             training shape (T=300, B=8, H=550), the serving shape (T=398;
+             forward only) and H=1024 (T=6, 96 rows).
+22. timit_gru_serve — ``Recognizer.recognize`` over the TIMIT GRU stack
+             (``cfg/TIMIT_baselines/TIMIT_GRU_fmllr.cfg``'s 4x550 GRU ->
+             1944-way head, feat_dim 40) on the same audio: card vs CPU at
+             TOL_POST, 4 x 2 x 398 forward launches.
+23. timit_gru_stream — ``StreamingRecognizer`` in chunks of 100 frames on
+             the seeded forward against the whole utterance.
+24. timit_gru_train — ``ChunkRunner.train_step`` over the cfg's sections
+             (x of width 40, T=300, B=8): card vs CPU with the stash
+             backward (the default) and the recompute one, launches per
+             step, 10 steps at the cfg's lr in f32 and bf16.
+25. gru_large_batch — the libri GRU's and the CGS-16x LSTM's first layer
+             at 160 rows (T=398), where the JAX size rule keeps them off
+             their sparse kernels: the sparse forward alone, against the
+             model on its twin; the sparse BPTT kernels at 160 rows.
+26. timit_gru_times — the dense GRU kernels' times, twins and bounds,
+             cuDNN's nn.GRU(550, 550) as a yardstick, the dU matmuls, the
+             TIMIT GRU train step and recognize.
 
 Each phase prints its wall time (``[timing]``).
 
@@ -229,6 +252,26 @@ GR_LAYERS = 5
 # CPU, and the CPU's own log-posteriors still move by only 1.3e-4 under
 # a one-ulp change of the features (1.9e-6 without the 16-bit quantizers).
 GRU_HEAD_GAIN = 16000.0
+
+# The TIMIT GRU slice: cfg/TIMIT_baselines/TIMIT_GRU_fmllr.cfg (4x550 GRU,
+# tanh, BN on all three gate projections, dropout 0.2, no HCGS, no
+# quantizers, unidirectional: every layer on the dense fused GRU)
+TIMIT_GRU_CFG = os.path.join(ROOT, "cfg", "TIMIT_baselines",
+                             "TIMIT_GRU_fmllr.cfg")
+TG_SERVE_TBH = (398, 8, 550)
+TG_TRAIN_TBH = (300, 8, 550)     # the cfg's batch_size_train = 8
+# H=1024, the JAX package's bf16-caveat width (its size rule lets a bf16
+# GRU layer this wide onto the fused kernel up to 102 rows)
+TG_WIDE_TBH = (6, 96, 1024)
+TG_FEAT, TG_LAYERS = 40, 4       # fMLLR, cw_left = cw_right = 0
+# init(1)'s head over the GRU's 550 outputs, U(+-sqrt(0.01/(550+1944))),
+# barely moves the log-posteriors over time: x3000 makes the utterances
+# decode to several phones (timit_gru_serve prints how many)
+TIMIT_GRU_HEAD_GAIN = 3000.0
+# The large-batch check of the sparse recurrence: 80 utterances of the
+# libri GRU (160 rows, both directions), 160 of the CGS-16x LSTM; the JAX
+# size rule says "" there (from 158 and 152 rows)
+LARGE_ROWS = 160
 
 
 def flagship_options(to_do="forward", compute_dtype=""):
@@ -454,16 +497,18 @@ def stream_run(dev, rec, audio, lens, chunk):
 
 
 def phase_stream(dev, rec, audio, lens, phones, logp, chunk=100,
-                 tag="stream", tol=TOL_STREAM, kernel="fused_lstm_fwd"):
+                 tag="stream", tol=TOL_STREAM, kernel="fused_lstm_fwd",
+                 per_frame=2):
     """StreamingRecognizer over the recognizer's features in chunks: the
-    dense seeded kernel (``kernel``, the cell's only streaming kernel)
-    against whole-utterance posteriors ``logp`` within ``tol``, and the
-    phones."""
+    dense seeded kernel (``kernel``, the cell's only streaming kernel,
+    ``per_frame`` launches a frame over all layers) against
+    whole-utterance posteriors ``logp`` within ``tol``, and the phones."""
     T = rec.frontend.num_frames(audio.shape[1])
     streamed, final, launches = stream_run(dev, rec, audio, lens, chunk)
-    if launches != expected(**{kernel: 2 * T}):
+    if launches != expected(**{kernel: per_frame * T}):
         raise AssertionError("%s: launches %s, expected the dense seeded "
-                             "kernel 2 x %d times" % (tag, launches, T))
+                             "kernel %d x %d times"
+                             % (tag, launches, per_frame, T))
     launches = launches[kernel]
     err = float(np.abs(streamed - logp.cpu().numpy()).max())
     print("[%s] %d chunks of <=%d frames: launches %d; streamed vs "
@@ -493,21 +538,26 @@ def phase_sparse_stream(dev, rec, audio, lens, phones, logp):
 
 
 @contextlib.contextmanager
+def swapped(module, name, fn):
+    """``module.name`` replaced by ``fn`` inside the block: routes a
+    model's recurrence through a kernel's plain twin on the same tensors
+    (the kernel's comparison, not a path of the port)."""
+    kernel = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel)
+
+
 def plain_twin_on_card():
-    """Route the model's recurrence through the plain twin on the same
-    tensors (the kernel's comparison, not a path of the port)."""
+    """The dense LSTM forward routed through its plain twin."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
-    kernel = F.fused_lstm_fwd
 
     def plain(gates, U, drop, h0=None, c0=None, act="tanh", qbits=0,
               bf16=False):
         return F.fused_lstm_fwd_plain(gates, U, drop, h0, c0, act, qbits, bf16)
-
-    F.fused_lstm_fwd = plain
-    try:
-        yield
-    finally:
-        F.fused_lstm_fwd = kernel
+    return swapped(F, "fused_lstm_fwd", plain)
 
 
 def phase_entry(dev, T=200, B=8, F_in=143):
@@ -710,6 +760,9 @@ def wrappers():
             "fused_ligru_bwd": R.fused_ligru_bwd,
             "fused_gru_fwd_sparse": R.fused_gru_fwd_sparse,
             "fused_gru_bwd_sparse": R.fused_gru_bwd_sparse,
+            "fused_gru_fwd": R.fused_gru_fwd,
+            "fused_gru_bwd_stash": R.fused_gru_bwd_stash,
+            "fused_gru_bwd": R.fused_gru_bwd,
             "block_sparse_v3_fwd": BS.block_sparse_v3_fwd,
             "block_sparse_v3_dx": BS.block_sparse_v3_dx,
             "fused_lstm_fwd": F.fused_lstm_fwd,
@@ -1459,23 +1512,32 @@ def phase_sparse_times(dev, rec, audio, lens):
 # the Li-GRU slice: the dense fused liGRU recurrence
 # ---------------------------------------------------------------------------
 
-def ligru_sections(compute_dtype="", quant_inp=True, lr_scale=1.0):
-    """The TIMIT Li-GRU cfg's [architecture1..2] and [model], read from
-    the file, with the port's arch_library and N_out_lab_cd = 1944;
-    ``quant_inp=False`` turns the liGRU's 16-bit input quantizers off,
-    ``lr_scale`` scales both nets' learning rates."""
+def cfg_sections(path, compute_dtype="", lr_scale=1.0):
+    """A shipped cfg's [architecture1..2] (a recurrent net and its cd
+    head) and [model], read from the file, with the port's arch_library,
+    N_out_lab_cd = 1944 (the PhoneLoopHMM(648, 3) decode of every stack)
+    and both nets' learning rates times ``lr_scale``."""
     import configparser
     src = configparser.ConfigParser()
-    if not src.read(LIGRU_CFG):
-        raise FileNotFoundError(LIGRU_CFG)
+    if not src.read(path):
+        raise FileNotFoundError(path)
     secs = {k: dict(src[k]) for k in ("architecture1", "architecture2",
                                       "model")}
     for k in ("architecture1", "architecture2"):
         secs[k]["arch_library"] = "pytorch_kaldi_cgs_tpu_torch.models"
         secs[k]["compute_dtype"] = compute_dtype
-        secs[k]["arch_lr"] = repr(float(secs[k]["arch_lr"]) * lr_scale)
+        if lr_scale != 1.0:
+            secs[k]["arch_lr"] = repr(float(secs[k]["arch_lr"]) * lr_scale)
     secs["architecture2"]["dnn_lay"] = secs["architecture2"]["dnn_lay"] \
         .replace("N_out_lab_cd", str(PHONES * SPP))
+    return secs
+
+
+def ligru_sections(compute_dtype="", quant_inp=True, lr_scale=1.0):
+    """The TIMIT Li-GRU cfg's sections (cfg_sections);
+    ``quant_inp=False`` turns the liGRU's 16-bit input quantizers off,
+    ``lr_scale`` scales both nets' learning rates."""
+    secs = cfg_sections(LIGRU_CFG, compute_dtype, lr_scale)
     if not quant_inp:
         secs["architecture1"]["ligru_quant_inp"] = "False"
     return secs
@@ -1498,22 +1560,24 @@ def build_ligru_stack(dev, feat_dim=LG_FEAT, quant_inp=True):
     return Stack(rnn, mlp).eval()
 
 
-def ligru_inputs(T, B, H, seed, dev, act):
-    """Gates (T, B, 2H) [h | z], U (2H, H), a (B, H) dropout mask, h0 and
-    upstream cotangents. For relu the candidate's gate inputs sit at
-    +-(4 + |N(0, 0.5)|) and U at 0.2/sqrt(H), so the recurrent term
-    (std ~0.5) never brings a pre-activation within reach of the ulp-level
-    difference between the kernel's and the twin's sums, where relu's
-    derivative would flip between 0 and 1 (both branches still run)."""
+def gated_inputs(T, B, H, seed, dev, act, gates=2):
+    """Gates (T, B, gates*H), the candidate's first ([h | z] for the
+    liGRU, [h | z | r] for the GRU), U (gates*H, H), a (B, H) dropout
+    mask, h0 and upstream cotangents. For relu the candidate's gate
+    inputs sit at +-(4 + |N(0, 0.5)|) and U at 0.2/sqrt(H), so the
+    recurrent term (std ~0.5) never brings a pre-activation within reach
+    of the ulp-level difference between the kernel's and the twin's sums,
+    where relu's derivative would flip between 0 and 1 (both branches
+    still run)."""
     rng = np.random.RandomState(seed)
     t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
-    g = rng.randn(T, B, 2 * H) * 0.5
+    g = rng.randn(T, B, gates * H) * 0.5
     u_scale = 1.0
     if act == "relu":
         sign = np.where(rng.rand(1, B, H) > 0.5, 1.0, -1.0)
         g[..., :H] = sign * (4.0 + np.abs(g[..., :H]))
         u_scale = 0.2
-    U = rng.randn(2 * H, H) * u_scale / np.sqrt(H)
+    U = rng.randn(gates * H, H) * u_scale / np.sqrt(H)
     return {"g": t(g), "U": t(U), "drop": t((rng.rand(B, H) > 0.2) * 1.0),
             "h0": t(rng.randn(B, H) * 0.3), "dhs": t(rng.randn(T, B, H) * 0.1)}
 
@@ -1535,7 +1599,7 @@ def phase_ligru_kernels(dev):
         small, serve = shape == SMALL_TBH, shape == LG_SERVE_TBH
         cases = [(q, a) for q in (0, 16) for a in ("relu", "tanh")]
         for k, (qbits, act) in enumerate(cases):
-            inp = ligru_inputs(T, B, H, 80 + k, dev, act)
+            inp = gated_inputs(T, B, H, 80 + k, dev, act)
             g, U, drop, h0, dhs = (inp[n] for n in ("g", "U", "drop", "h0",
                                                     "dhs"))
             variant = {"qbits": qbits, "act": act}
@@ -1704,6 +1768,23 @@ def ligru_bound_ms(T, B, H, kind):
                        2 * T * B * 2 * H * H * (2 if kind == "bwd" else 1))
 
 
+def cudnn_gru_times(dev, T, B, H, Ts, Bs):
+    """cuDNN's nn.GRU(H, H), the GRU yardstick: forward and forward +
+    backward at (T, B), the backward as their difference, and the
+    forward at the serving (Ts, Bs)."""
+    gru = torch.nn.GRU(H, H).to(dev)
+    xin = torch.randn(T, B, H, device=dev, requires_grad=True)
+    dy = torch.randn(T, B, H, device=dev)
+    fwd_ms = cuda_ms(lambda: gru(xin)[0], reps=10)
+    fb_ms = cuda_ms(lambda: gru(xin)[0].backward(dy), reps=10)
+    with torch.no_grad():
+        xs = torch.randn(Ts, Bs, H, device=dev)
+        serve_ms = cuda_ms(lambda: gru(xs), reps=10)
+    return {"cudnn_gru_fwd_ms": fwd_ms, "cudnn_gru_fwd_bwd_ms": fb_ms,
+            "cudnn_gru_bwd_ms": fb_ms - fwd_ms,
+            "cudnn_gru_serve_fwd_ms": serve_ms}
+
+
 def phase_ligru_times(dev, rec, audio, lens):
     """CUDA-event times of the liGRU kernels per layer call at the
     training shape (the forward also at the serving shape), as the
@@ -1714,7 +1795,7 @@ def phase_ligru_times(dev, rec, audio, lens):
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     T, B, H = LG_TRAIN_TBH
     qb, act = 16, "relu"
-    inp = ligru_inputs(T, B, H, 95, dev, act)
+    inp = gated_inputs(T, B, H, 95, dev, act)
     g, U, drop, dhs = (inp[n] for n in ("g", "U", "drop", "dhs"))
     times = {}
     with torch.no_grad():
@@ -1752,7 +1833,7 @@ def phase_ligru_times(dev, rec, audio, lens):
                 lambda: R.fused_ligru_fwd(g, U, drop, act=act, qbits=q,
                                           stash=True), reps=10)
         Ts, Bs, _ = LG_SERVE_TBH
-        sv = ligru_inputs(Ts, Bs, H, 94, dev, act)
+        sv = gated_inputs(Ts, Bs, H, 94, dev, act)
         times["serve_fwd_ms"] = cuda_ms(
             lambda: R.fused_ligru_fwd(sv["g"], sv["U"], sv["drop"], act=act,
                                       qbits=qb), reps=10)
@@ -1765,16 +1846,7 @@ def phase_ligru_times(dev, rec, audio, lens):
         dg = torch.randn(T * B, 2 * H, device=dev)
         hq = torch.randn(T * B, H, device=dev)
         times["dU_matmul_ms"] = cuda_ms(lambda: dg.T @ hq, reps=20)
-    gru = torch.nn.GRU(H, H).to(dev)
-    xin = torch.randn(T, B, H, device=dev, requires_grad=True)
-    dy = torch.randn(T, B, H, device=dev)
-    fwd_ms = cuda_ms(lambda: gru(xin)[0], reps=10)
-    fb_ms = cuda_ms(lambda: gru(xin)[0].backward(dy), reps=10)
-    with torch.no_grad():
-        xs = torch.randn(Ts, Bs, H, device=dev)
-        times["cudnn_gru_serve_fwd_ms"] = cuda_ms(lambda: gru(xs), reps=10)
-    times.update(cudnn_gru_fwd_ms=fwd_ms, cudnn_gru_fwd_bwd_ms=fb_ms,
-                 cudnn_gru_bwd_ms=fb_ms - fwd_ms)
+    times.update(cudnn_gru_times(dev, T, B, H, Ts, Bs))
     print("[ligru_times] kernels at T=%d B=%d H=%d (relu, qbits 16): %s"
           % (T, B, H, json.dumps(times)))
     step = train_step_times(dev, ligru_train_runner, "ligru_times", 5, 3)
@@ -1784,56 +1856,60 @@ def phase_ligru_times(dev, rec, audio, lens):
     return times, step, serve
 
 
-def ligru_rows(checks, times, launches):
-    """The kernels JSON rows of the Li-GRU slice. ``ms`` etc. are per
-    layer call at the training shape (relu, qbits 16, as the cfg runs
-    them); ``launches`` counts one Li-GRU train step (the default
-    recompute backward; the stash one for fused_ligru_bwd_stash);
-    ``library_ms`` is cuDNN's nn.GRU(1024, 1024), a yardstick."""
-    T, B, H = LG_TRAIN_TBH
-    src = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/fused_ligru.cu"
-    jax_fr = "pytorch_kaldi_cgs_tpu/ops/fused_rnn.py:%d"
-    note = ("cuDNN nn.GRU(1024, 1024) %s: a yardstick (three gates, no "
-            "quantizer), not the same function")
+def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
+                   serve_tbh, act, qbits, library, fwd_extra):
+    """The kernels JSON rows of a dense fused cell's three kernels,
+    ``fused_<cell>_fwd`` (the stash variant), ``_bwd_stash`` and ``_bwd``
+    from ``csrc/fused_<cell>.cu``, replacing the JAX functions defined at
+    lines ``replaces`` of ops/fused_rnn.py. ``ms`` etc. are per layer call
+    at ``train_tbh`` (``act``, ``qbits`` as the cfg runs them; the
+    forward also at ``serve_tbh``); ``launches`` counts one train step
+    (the default backward; the other one for the kernel only it runs);
+    ``max_abs_err`` is the check at ``train_tbh`` with qbits 0;
+    ``library_ms`` is ``library`` (cuDNN's nn.GRU), a yardstick.
+    ``fwd_extra`` maps more keys of the forward's row to ``times``."""
+    T, B, H = train_tbh
+    note = "%s %%s: a yardstick, not the same function" % library
+    bwd_note = note % "backward (fwd+bwd minus fwd)"
 
     def err_at(kernel):
         return [c for c in checks if c["kernel"] == kernel
-                and (c["T"], c["B"], c["H"]) == LG_TRAIN_TBH
-                and c["qbits"] == 0 and c["act"] == "relu"][0]["max_abs_err"]
+                and (c["T"], c["B"], c["H"]) == train_tbh
+                and c["qbits"] == 0 and c["act"] == act][0]["max_abs_err"]
 
-    def row(name, replaces, library_ms, library_note, err, **extra):
+    def row(name, line, library_ms, library_note, err, **extra):
         mine = [c for c in checks if c["kernel"].split("/")[0] == name]
-        r = {"name": name, "route": "cuda", "source": src,
-             "replaces": jax_fr % replaces, "launches": launches[name]["main"],
+        r = {"name": name, "route": "cuda",
+             "source": "pytorch_kaldi_cgs_tpu_torch/ops/csrc/fused_%s.cu"
+             % cell,
+             "replaces": "pytorch_kaldi_cgs_tpu/ops/fused_rnn.py:%d" % line,
+             "launches": launches[name]["main"],
              "launches_by_path": launches[name], "max_abs_err": err,
              "ms": times[name + "_ms"], "plain_ms": times[name + "_plain_ms"],
              "bound_ms": times[name + "_bound_ms"],
              "bound_by": times[name + "_bound_by"], "library_ms": library_ms,
              "library_note": library_note,
-             "shape": {"T": T, "B": B, "H": H, "act": "relu", "qbits": 16},
+             "shape": {"T": T, "B": B, "H": H, "act": act, "qbits": qbits},
              "checks": len(mine), "checks_ok": all(c["ok"] for c in mine)}
         r.update(extra)
         return r
 
+    fwd, bwd_stash, bwd = ("fused_%s_%s" % (cell, k)
+                           for k in ("fwd", "bwd_stash", "bwd"))
     return [
-        row("fused_ligru_fwd", 28, times["cudnn_gru_fwd_ms"], note % "forward",
-            err_at("fused_ligru_fwd/stash"),
-            variant="stash (training forward)",
-            ms_nostash=times["fused_ligru_fwd_nostash_ms"],
-            ms_repeat=times["fused_ligru_fwd_stash_ms"],
-            ms_q0=times["fused_ligru_fwd_stash_ms_q0"],
-            ms_nostash_q0=times["fused_ligru_fwd_nostash_ms_q0"],
-            serve={"T": LG_SERVE_TBH[0], "B": LG_SERVE_TBH[1], "H": H,
+        row(fwd, replaces[0], times["cudnn_gru_fwd_ms"], note % "forward",
+            err_at(fwd + "/stash"), variant="stash (training forward)",
+            serve={"T": serve_tbh[0], "B": serve_tbh[1], "H": H,
                    "ms": times["serve_fwd_ms"],
                    "plain_ms": times["serve_fwd_plain_ms"],
                    "bound_ms": times["serve_fwd_bound_ms"],
                    "bound_by": times["serve_fwd_bound_by"],
-                   "library_ms": times["cudnn_gru_serve_fwd_ms"]}),
-        row("fused_ligru_bwd_stash", 112, times["cudnn_gru_bwd_ms"],
-            note % "backward (fwd+bwd minus fwd)",
-            err_at("fused_ligru_bwd_stash")),
-        row("fused_ligru_bwd", 168, times["cudnn_gru_bwd_ms"],
-            note % "backward (fwd+bwd minus fwd)", err_at("fused_ligru_bwd"))]
+                   "library_ms": times["cudnn_gru_serve_fwd_ms"]},
+            **{k: times[v] for k, v in fwd_extra.items()}),
+        row(bwd_stash, replaces[1], times["cudnn_gru_bwd_ms"], bwd_note,
+            err_at(bwd_stash)),
+        row(bwd, replaces[2], times["cudnn_gru_bwd_ms"], bwd_note,
+            err_at(bwd))]
 
 
 # ---------------------------------------------------------------------------
@@ -1842,22 +1918,11 @@ def ligru_rows(checks, times, launches):
 # ---------------------------------------------------------------------------
 
 def gru_sections(compute_dtype="", quant_inp=True):
-    """The libri GRU cfg's [architecture1..2] and [model], read from the
-    file, with the port's arch_library and N_out_lab_cd = 1944 (the
-    LibriSpeech alignments are not in the repo; 1944 keeps the
-    PhoneLoopHMM(648, 3) decode of the other stacks); ``quant_inp=False``
-    turns the GRU's 16-bit input quantizers off."""
-    import configparser
-    src = configparser.ConfigParser()
-    if not src.read(GRU_CFG):
-        raise FileNotFoundError(GRU_CFG)
-    secs = {k: dict(src[k]) for k in ("architecture1", "architecture2",
-                                      "model")}
-    for k in ("architecture1", "architecture2"):
-        secs[k]["arch_library"] = "pytorch_kaldi_cgs_tpu_torch.models"
-        secs[k]["compute_dtype"] = compute_dtype
-    secs["architecture2"]["dnn_lay"] = secs["architecture2"]["dnn_lay"] \
-        .replace("N_out_lab_cd", str(PHONES * SPP))
+    """The libri GRU cfg's sections (cfg_sections; the LibriSpeech
+    alignments are not in the repo, so N_out_lab_cd = 1944 as for the
+    TIMIT stacks); ``quant_inp=False`` turns the GRU's 16-bit input
+    quantizers off."""
+    secs = cfg_sections(GRU_CFG, compute_dtype)
     if not quant_inp:
         secs["architecture1"]["gru_quant_inp"] = "False"
     return secs
@@ -2143,18 +2208,22 @@ def phase_gru_train(dev):
 
 
 def gru_bound_ms(T, B, H, kept, kind):
-    """Least time for one sparse GRU layer call in float32: each input
-    read once, each output written once, over the HBM rate; the FMAs of
-    its products (three gates over the R*bs = ``kept`` columns of each
-    row) over the float32 peak. kind: "fwd" (gates, w3g, drop in; hs out)
-    or "bwd" (gates, w3g, drop, h_prev, dhs in; dg and s out; the
-    forward's products and their transposes)."""
+    """Least time for one GRU layer call in float32: each input read
+    once, each output written once, over the HBM rate; the FMAs of its
+    products (three gates over the ``kept`` columns of each row: R*bs
+    sparse, H dense) over the float32 peak. kind: "fwd" (gates, U or w3g,
+    drop in; hs out), "fwd_stash" (and the (T, B, 3H) stash out), "bwd"
+    (the sparse BPTT: gates, w3g, drop, h_prev, dhs in; dg and s out; the
+    forward's products and their transposes), "bwd_dense" (the dense
+    recompute BPTT: the same without s out), "bwd_stash" (the stash, U,
+    drop, h_prev, dhs in; dg out; the two transposed products)."""
     gates, seq = T * B * 3 * H * 4, T * B * H * 4
-    w = 3 * H * kept * 4
-    nbytes = {"fwd": gates + w + B * H * 4 + seq,
-              "bwd": 2 * gates + w + B * H * 4 + 3 * seq}[kind]
-    return roofline_ms(nbytes,
-                       2 * T * B * 3 * H * kept * (2 if kind == "bwd" else 1))
+    nbytes = {"fwd": gates + seq, "fwd_stash": 2 * gates + seq,
+              "bwd": 2 * gates + 3 * seq, "bwd_dense": 2 * gates + 2 * seq,
+              "bwd_stash": 2 * gates + 2 * seq}[kind]
+    recompute = kind in ("bwd", "bwd_dense")
+    return roofline_ms(nbytes + 3 * H * kept * 4 + B * H * 4,
+                       2 * T * B * 3 * H * kept * (2 if recompute else 1))
 
 
 def v3_bound_ms(M, layout, G):
@@ -2249,16 +2318,7 @@ def phase_gru_times(dev, rec, audio, lens):
         times["dense_masked_dx_ms"] = cuda_ms(lambda: dy @ W, reps=20)
         times["serve_dense_masked_fwd_ms"] = cuda_ms(lambda: xs @ W.T,
                                                      reps=20)
-    gru = torch.nn.GRU(H, H).to(dev)
-    xin = torch.randn(T, B, H, device=dev, requires_grad=True)
-    dy = torch.randn(T, B, H, device=dev)
-    fwd_ms = cuda_ms(lambda: gru(xin)[0], reps=10)
-    fb_ms = cuda_ms(lambda: gru(xin)[0].backward(dy), reps=10)
-    with torch.no_grad():
-        xsv = torch.randn(Ts, Bs, H, device=dev)
-        times["cudnn_gru_serve_fwd_ms"] = cuda_ms(lambda: gru(xsv), reps=10)
-    times.update(cudnn_gru_fwd_ms=fwd_ms, cudnn_gru_fwd_bwd_ms=fb_ms,
-                 cudnn_gru_bwd_ms=fb_ms - fwd_ms)
+    times.update(cudnn_gru_times(dev, T, B, H, Ts, Bs))
     print("[gru_times] kernels at T=%d B=%d H=%d (Kb=%d, R=%d; tanh, qbits "
           "16) and v3 at M=%d K=%d G=3 (Kb=%d, R=%d): %s"
           % (T, B, H, layout.Kb, layout.R, M, vl.K, vl.Kb, vl.R,
@@ -2340,6 +2400,311 @@ def gru_rows(checks, times, launches):
             dense % "(6400, 3072) x (3072, 2048)",
             err_at("block_sparse_v3_dx", G=3, K=2048, qbits=8), v3,
             v3_dw_ms=times["v3_dw_ms"])]
+
+
+# ---------------------------------------------------------------------------
+# the TIMIT GRU slice: the dense fused GRU (serve, stream, train), and the
+# sparse recurrences at a batch the JAX size rule keeps off them
+# ---------------------------------------------------------------------------
+
+def check_timit_gru(rnn):
+    """The TIMIT GRU as the cfg ships it: 4x550, no sparse layout, every
+    layer on the dense fused GRU."""
+    if (list(rnn.lay) != [TG_TRAIN_TBH[2]] * TG_LAYERS or rnn._rec_layouts
+            or rnn._bs_layouts
+            or not all(rnn._fused_ok(i) for i in range(rnn.N))):
+        raise AssertionError("the TIMIT GRU cfg did not build a 4x550 GRU "
+                             "on the dense fused kernels")
+
+
+def build_timit_gru_stack(dev, feat_dim=TG_FEAT):
+    """The TIMIT GRU -> its 1944-way cd head (weights from init(0) /
+    init(1), the head times TIMIT_GRU_HEAD_GAIN)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import GRU, MLP
+    secs = cfg_sections(TIMIT_GRU_CFG)
+    rnn = GRU(dict(secs["architecture1"], to_do="forward"), feat_dim,
+              seed=0, device=dev)
+    mlp = MLP(dict(secs["architecture2"], to_do="forward"), rnn.out_dim,
+              seed=1, device=dev)
+    check_timit_gru(rnn)
+    with torch.no_grad():
+        mlp.params["w0"].mul_(TIMIT_GRU_HEAD_GAIN)
+    return Stack(rnn, mlp).eval()
+
+
+def phase_timit_gru_kernels(dev):
+    """The dense GRU forward (plain, stash and seeded) and both BPTT
+    kernels against their twins on the same tensors: qbits 0/16 x
+    tanh/relu at the small ragged shape, the training shape, the serving
+    shape (forward only) and H=1024 (T=6, 96 rows); each wrapper's
+    launch counter must move by its launches."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    checks = []
+
+    def check(name, shape, variant, err_rel, tol, by_rel):
+        record_check(checks, "timit_gru_kernels", name,
+                     dict(zip("TBH", shape)), variant, err_rel, tol, by_rel)
+
+    def launched(w, n, fn):
+        before = w.launches
+        out = fn()
+        if w.launches - before != n:
+            raise AssertionError("%s: %d launches, expected %d"
+                                 % (w.__name__, w.launches - before, n))
+        return out
+
+    for shape in (SMALL_TBH, TG_TRAIN_TBH, TG_SERVE_TBH, TG_WIDE_TBH):
+        T, B, H = shape
+        small, serve = shape == SMALL_TBH, shape == TG_SERVE_TBH
+        cases = [(q, a) for q in (0, 16) for a in ("tanh", "relu")]
+        for k, (qbits, act) in enumerate(cases):
+            inp = gated_inputs(T, B, H, 160 + k, dev, act, 3)
+            g, U, drop, h0, dhs = (inp[n] for n in ("g", "U", "drop", "h0",
+                                                    "dhs"))
+            variant = {"qbits": qbits, "act": act}
+            tol = TOL_F32_SMALL if small else TOL_F32_SERVE
+            tol_q = TOL_Q16 if qbits else tol
+            fwd = R.fused_gru_fwd
+            with torch.no_grad():
+                ref = R.fused_gru_fwd_plain(g, U, drop, None, act, qbits, True)
+                check("fused_gru_fwd", shape, variant, rel_err(launched(
+                    fwd, 2 * T, lambda: fwd(g, U, drop, act=act,
+                                            qbits=qbits)), ref[0]),
+                    tol_q, False)
+                check("fused_gru_fwd/seeded", shape, variant, rel_err(
+                    launched(fwd, 2 * T, lambda: fwd(g, U, drop, h0, act=act,
+                                                     qbits=qbits)),
+                    R.fused_gru_fwd_plain(g, U, drop, h0, act, qbits)),
+                    tol_q, False)
+                if serve:
+                    continue
+                hs, acts = launched(fwd, 2 * T, lambda: fwd(
+                    g, U, drop, act=act, qbits=qbits, stash=True))
+                check("fused_gru_fwd/stash", shape, variant,
+                      rel_err((hs, acts), ref), tol_q, False)
+                h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                check("fused_gru_bwd_stash", shape, variant, rel_err(
+                    launched(R.fused_gru_bwd_stash, 2 * T,
+                             lambda: R.fused_gru_bwd_stash(
+                                 acts, U, drop, h_prev, dhs, act)),
+                    R.fused_gru_bwd_stash_plain(acts, U, drop, h_prev, dhs,
+                                                act)), tol, True)
+                check("fused_gru_bwd", shape, variant, rel_err(
+                    launched(R.fused_gru_bwd, 2 * T + 2,
+                             lambda: R.fused_gru_bwd(g, U, drop, h_prev, dhs,
+                                                     act, qbits)),
+                    R.fused_gru_bwd_plain(g, U, drop, h_prev, dhs, act,
+                                          qbits)), tol_q, True)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("a dense GRU kernel disagrees with its plain "
+                             "twin: %s" % bad)
+    return checks
+
+
+def timit_gru_expect_serve(T):
+    """Launches per recognize: 4 layers x 2 per frame."""
+    return expected(fused_gru_fwd=TG_LAYERS * 2 * T)
+
+
+def timit_gru_train_setup(compute_dtype=""):
+    """The TIMIT GRU train step (chunk_setup): the cfg's sections, 8
+    sentences of 300 frames, fMLLR x of width 40 and cd labels."""
+    T, B, _ = TG_TRAIN_TBH
+    return chunk_setup(cfg_sections(TIMIT_GRU_CFG, compute_dtype), T, B,
+                       "fmllr", TG_FEAT, CD_LABELS)
+
+
+def timit_gru_train_runner(dev, compute_dtype=""):
+    """A ChunkRunner over the TIMIT GRU's sections and its one batch;
+    ``runner.train_step(inp, mask, chip_smoke.dropout_gen())`` for masks
+    that match the CPU's (the cfg has dropout 0.2)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import GRU
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    config, chunk, batch = timit_gru_train_setup(compute_dtype)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    rnn = graph.nets["RNN_layers"]
+    if type(rnn) is not GRU:
+        raise AssertionError("the TIMIT GRU cfg did not build a GRU")
+    check_timit_gru(rnn)
+    return ChunkRunner(graph, config), batch
+
+
+def phase_timit_gru_train(dev):
+    """One train step on the card against the CPU with the stash backward
+    (the default) and, from fresh runners, with the recompute one
+    (PKC_LSTM_BWD_RECOMPUTE=1); launches per step in both; 10 steps at
+    the cfg's learning rates in f32 and bf16."""
+    T = TG_TRAIN_TBH[0]
+    n = TG_LAYERS * 2 * T
+    out = phase_train(dev, timit_gru_train_runner, "timit_gru_train",
+                      lstm_modes(T, expected(fused_gru_fwd=n,
+                                             fused_gru_bwd_stash=n),
+                                 expected(fused_gru_fwd=n, fused_gru_bwd=(
+                                     TG_LAYERS * (2 * T + 2)))))
+    knob = "PKC_LSTM_BWD_RECOMPUTE"
+    runner, (inp, mask) = timit_gru_train_runner(dev)
+    with env(knob, "1"):
+        loss_err = runner.train_step(inp, mask, dropout_gen())
+    out["recompute_vs_cpu"] = card_vs_cpu(
+        runner, timit_gru_train_runner("cpu")[0], inp, mask, loss_err, knob,
+        "1", "timit_gru_train, recompute backward")
+    return out
+
+
+def first_layer(sec, prefix):
+    """An architecture section cut to its first layer (the per-layer
+    lists: widths, dropout, norms, activation, weight bits)."""
+    keys = ["%s_%s" % (prefix, k) for k in ("lay", "drop", "use_laynorm",
+                                            "use_batchnorm", "act")]
+    return dict(sec, **{k: sec[k].split(",")[0]
+                        for k in keys + ["param_quant"] if k in sec})
+
+
+def phase_gru_large_batch(dev):
+    """The sparse recurrences at a batch the JAX size rule keeps off its
+    sparse kernels (it says "" from 158 rows for the libri GRU, 152 for
+    the CGS-16x LSTM): the libri GRU's first layer over 80 utterances of
+    T=398 (160 rows, both directions) and the CGS-16x LSTM's over 160.
+    Each runs its sparse forward kernel alone, matching the model run on
+    the sparse twin; the sparse BPTT kernels take 160 rows too (T=16,
+    against their twins)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import GRU, LSTM
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, rows = SP_SERVE_TBH[0], LARGE_ROWS
+    x = torch.tensor(np.random.RandomState(170).randn(T, rows, TG_FEAT)
+                     .astype(np.float32), device=dev)
+    out, checks = {}, []
+    for tag, cls, sections, prefix, G, mod, kernel, n in (
+            ("gru", GRU, gru_sections, "gru", 3, R, "fused_gru_fwd_sparse",
+             2 * T),
+            ("lstm", LSTM, cgs_sections, "lstm", 4, F,
+             "fused_lstm_fwd_sparse", T)):
+        sec = first_layer(sections()["architecture1"], prefix)
+        net = cls(dict(sec, to_do="forward"), TG_FEAT, seed=0,
+                  device=dev).eval()
+        layout = net._rec_layouts.get(0)
+        B = rows // 2 if net.bidir else rows
+        if layout is None or F.sparse_scan_fits(rows, layout.N, layout,
+                                                G) != "":
+            raise AssertionError("%s: no sparse layout, or one the JAX size "
+                                 "rule keeps at %d rows" % (tag, rows))
+        with torch.inference_mode():
+            y, launches = counted(lambda: net(x[:, :B]))
+            with swapped(mod, kernel, getattr(mod, kernel + "_plain")):
+                y_plain = net(x[:, :B])
+        if launches != expected(**{kernel: n}):
+            raise AssertionError("gru_large_batch %s: launches %s" % (tag,
+                                                                    launches))
+        record_check(checks, "gru_large_batch", kernel + "/model",
+                     {"T": T, "rows": rows}, {"Kb": layout.Kb, "R": layout.R},
+                     rel_err(y, y_plain), TOL_Q16, False)
+        out[tag] = {"rows": rows, "launches": launches[kernel]}
+    # the sparse BPTT kernels at 160 rows
+    gi = gru_inputs(16, rows, 1024, 171, dev)
+    si = sparse_inputs(16, rows, 1024, 172, dev)
+    with torch.no_grad():
+        hs = R.fused_gru_fwd_sparse(gi["g"], gi["w3g"], gi["drop"],
+                                    gi["layout"], "tanh", 16)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        args = (gi["g"], gi["w3g"], gi["drop"], h_prev, gi["dhs"],
+                gi["layout"], "tanh", 16)
+        record_check(checks, "gru_large_batch", "fused_gru_bwd_sparse",
+                     {"T": 16, "rows": rows}, {"qbits": 16}, rel_err(
+                         R.fused_gru_bwd_sparse(*args),
+                         R.fused_gru_bwd_sparse_plain(*args)), TOL_Q16, True)
+        lay = si["layout"]
+        hs, cs, acts = F.fused_lstm_fwd_sparse(si["g"], si["w3g"], si["drop"],
+                                               lay, stash=True)
+        h_prev, c_prev = shifted(hs, cs, None, None)
+        a_st = (acts, si["w3g"], si["drop"], cs, c_prev, si["dhs"], lay)
+        a_rc = (si["g"], si["w3g"], si["drop"], h_prev, c_prev, si["dhs"],
+                lay)
+        record_check(checks, "gru_large_batch", "fused_lstm_bwd_sparse_stash",
+                     {"T": 16, "rows": rows}, {"qbits": 0}, rel_err(
+                         F.fused_lstm_bwd_sparse_stash(*a_st),
+                         F.fused_lstm_bwd_sparse_stash_plain(*a_st)),
+                     TOL_F32_SERVE, True)
+        record_check(checks, "gru_large_batch", "fused_lstm_bwd_sparse",
+                     {"T": 16, "rows": rows}, {"qbits": 0}, rel_err(
+                         F.fused_lstm_bwd_sparse(*a_rc),
+                         F.fused_lstm_bwd_sparse_plain(*a_rc)),
+                     TOL_F32_SERVE, True)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("gru_large_batch: %s" % bad)
+    out["checks"] = checks
+    return out
+
+
+def phase_timit_gru_times(dev, rec, audio, lens):
+    """CUDA-event times of the dense GRU kernels per layer call at the
+    training shape (the forward also at the serving shape), as the cfg
+    runs them (tanh, no quantizer); their twins and bounds; cuDNN's
+    nn.GRU(550, 550) as a yardstick; the dU matmuls; the TIMIT GRU train
+    step and recognize."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = TG_TRAIN_TBH
+    act = "tanh"
+    inp = gated_inputs(T, B, H, 175, dev, act, 3)
+    g, U, drop, dhs = (inp[n] for n in ("g", "U", "drop", "dhs"))
+    times = {}
+    with torch.no_grad():
+        hs, acts = R.fused_gru_fwd(g, U, drop, act=act, stash=True)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        calls = {
+            "fused_gru_fwd": (
+                lambda: R.fused_gru_fwd(g, U, drop, act=act, stash=True),
+                lambda: R.fused_gru_fwd_plain(g, U, drop, None, act, 0, True),
+                "fwd_stash"),
+            "fused_gru_bwd_stash": (
+                lambda: R.fused_gru_bwd_stash(acts, U, drop, h_prev, dhs,
+                                              act),
+                lambda: R.fused_gru_bwd_stash_plain(acts, U, drop, h_prev,
+                                                    dhs, act), "bwd_stash"),
+            "fused_gru_bwd": (
+                lambda: R.fused_gru_bwd(g, U, drop, h_prev, dhs, act),
+                lambda: R.fused_gru_bwd_plain(g, U, drop, h_prev, dhs, act),
+                "bwd_dense")}
+        for name, (fn, plain, kind) in calls.items():
+            times[name + "_ms"] = cuda_ms(fn, reps=10)
+            times[name + "_plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                gru_bound_ms(T, B, H, H, kind)
+        times["fused_gru_fwd_nostash_ms"] = cuda_ms(
+            lambda: R.fused_gru_fwd(g, U, drop, act=act), reps=10)
+        times["fused_gru_fwd_ms_q16"] = cuda_ms(
+            lambda: R.fused_gru_fwd(g, U, drop, act=act, qbits=16,
+                                    stash=True), reps=10)
+        Ts, Bs, _ = TG_SERVE_TBH
+        sv = gated_inputs(Ts, Bs, H, 176, dev, act, 3)
+        times["serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_gru_fwd(sv["g"], sv["U"], sv["drop"], act=act),
+            reps=10)
+        times["serve_fwd_plain_ms"] = cuda_ms(
+            lambda: R.fused_gru_fwd_plain(sv["g"], sv["U"], sv["drop"], None,
+                                          act, 0), reps=2, warmup=1)
+        times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
+            gru_bound_ms(Ts, Bs, H, H, "fwd")
+        # the dU products outside the BPTT kernel: (H, T*B) @ (T*B, H) for
+        # Uh over q(s), (2H, T*B) @ (T*B, H) for [Uz; Ur] over q(h_prev)
+        dg = torch.randn(T * B, 3 * H, device=dev)
+        sq, hq = (torch.randn(T * B, H, device=dev) for _ in range(2))
+        times["dU_matmul_ms"] = cuda_ms(
+            lambda: torch.cat([dg[:, :H].T @ sq, dg[:, H:].T @ hq]), reps=20)
+    times.update(cudnn_gru_times(dev, T, B, H, Ts, Bs))
+    print("[timit_gru_times] kernels at T=%d B=%d H=%d (tanh, no quantizer): "
+          "%s" % (T, B, H, json.dumps(times)))
+    step = train_step_times(dev, timit_gru_train_runner, "timit_gru_times", 5,
+                            3)
+    serve = serve_timings(rec, audio, lens)
+    print("[timit_gru_times] TIMIT GRU recognizer (8 x 4 s batch): %s"
+          % json.dumps(serve))
+    return times, step, serve
 
 
 def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
@@ -2528,6 +2893,17 @@ def main():
             "gru_serve, gru_quant_inp=False", "fused_gru_fwd_sparse",
             TOL_POST, gru_expect_serve)[4]
     gr_train = timed("gru_train", phase_gru_train, dev)
+    tg_checks = timed("timit_gru_kernels", phase_timit_gru_kernels, dev)
+    tg_rec, tg_phones, tg_logp, tg_serve_launches, tg_post_err = timed(
+        "timit_gru_serve", phase_serve, dev, audio, lens,
+        build_timit_gru_stack, "timit_gru_serve", "fused_gru_fwd", TOL_POST,
+        timit_gru_expect_serve)
+    tg_stream_launches, tg_stream_err = timed(
+        "timit_gru_stream", phase_stream, dev, tg_rec, audio, lens, tg_phones,
+        tg_logp, 100, "timit_gru_stream", TOL_STREAM, "fused_gru_fwd",
+        2 * TG_LAYERS)
+    tg_train = timed("timit_gru_train", phase_timit_gru_train, dev)
+    large = timed("gru_large_batch", phase_gru_large_batch, dev)
     serve_times, serve = timed("times", phase_times, dev, rec, audio, lens)
     serve["posteriors_vs_cpu_max_abs_err"] = post_err
     times, step = timed("train_times", phase_train_times, dev)
@@ -2537,6 +2913,9 @@ def main():
                                         dev, lg_rec, audio, lens)
     gr_times, gr_step, gr_serve = timed("gru_times", phase_gru_times, dev,
                                         gr_rec, audio, lens)
+    tg_times, tg_step, tg_serve = timed("timit_gru_times",
+                                        phase_timit_gru_times, dev, tg_rec,
+                                        audio, lens)
     sp_serve.update(posteriors_vs_cpu_max_abs_err=sp_post_err,
                     stream_vs_whole_max_abs_err=sp_stream_err,
                     dense_stream_launches=sp_stream_launches)
@@ -2615,16 +2994,53 @@ def main():
     sp_launches["block_sparse_dw"].update(
         gru_train=gr_tr["block_sparse_dw"],
         gru_train_by_G=gr_train["block_sparse_dw_by_G"])
+    sp_launches["fused_lstm_fwd_sparse"]["large_batch_160_rows"] = \
+        large["lstm"]["launches"]
+    gr_launches["fused_gru_fwd_sparse"]["large_batch_160_rows"] = \
+        large["gru"]["launches"]
     print("[summary] LibriSpeech GRU %s" % json.dumps({
         "gru_serve": gr_serve, "gru_train": gr_train,
         "gru_train_step": gr_step,
         "yardsticks": {k: v for k, v in gr_times.items()
                        if "cudnn" in k or "dense" in k or "dw" in k}}))
+    tg_serve.update(posteriors_vs_cpu_max_abs_err=tg_post_err,
+                    stream_vs_whole_max_abs_err=tg_stream_err)
+    tg_st, tg_rc = tg_train["launches_stash"], tg_train["launches_recompute"]
+    tg_launches = {
+        "fused_gru_fwd": {"main": tg_st["fused_gru_fwd"],
+                          "timit_gru_train_recompute": tg_rc["fused_gru_fwd"],
+                          "timit_gru_serve": tg_serve_launches["fused_gru_fwd"],
+                          "timit_gru_stream": tg_stream_launches},
+        "fused_gru_bwd_stash": {"main": tg_st["fused_gru_bwd_stash"]},
+        "fused_gru_bwd": {"main": tg_rc["fused_gru_bwd"]}}
+    for name, paths in tg_launches.items():
+        if not all(paths.values()):
+            raise AssertionError("%s was not launched on every path: %s"
+                                 % (name, paths))
+    print("[summary] TIMIT GRU %s" % json.dumps({
+        "timit_gru_serve": tg_serve, "timit_gru_train": tg_train,
+        "timit_gru_train_step": tg_step,
+        "gru_large_batch": large,
+        "yardsticks": {k: v for k, v in tg_times.items()
+                       if "cudnn" in k or "dU" in k}}))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
                         launches)
     line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
-    line["kernels"] += ligru_rows(lg_checks, lg_times, lg_launches)
+    line["kernels"] += dense_rnn_rows(
+        lg_checks, lg_times, lg_launches, "ligru", (28, 112, 168),
+        LG_TRAIN_TBH, LG_SERVE_TBH, "relu", 16,
+        "cuDNN nn.GRU(1024, 1024) (three gates, no quantizer)",
+        {"ms_nostash": "fused_ligru_fwd_nostash_ms",
+         "ms_repeat": "fused_ligru_fwd_stash_ms",
+         "ms_q0": "fused_ligru_fwd_stash_ms_q0",
+         "ms_nostash_q0": "fused_ligru_fwd_nostash_ms_q0"})
     line["kernels"] += gru_rows(gr_checks, gr_times, gr_launches)
+    line["kernels"] += dense_rnn_rows(
+        tg_checks, tg_times, tg_launches, "gru", (301, 386, 449),
+        TG_TRAIN_TBH, TG_SERVE_TBH, "tanh", 0,
+        "cuDNN nn.GRU(550, 550) (torch's gate order, no dropout)",
+        {"ms_nostash": "fused_gru_fwd_nostash_ms",
+         "ms_q16": "fused_gru_fwd_ms_q16"})
     print("[timing] total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps(line))
     print(smi)

@@ -1,5 +1,4 @@
-"""Acoustic models ported so far: LSTM, GRU (its block-sparse
-recurrence), liGRU and MLP.
+"""Acoustic models ported so far: LSTM, GRU, liGRU and MLP.
 
 Configs name a model by ``arch_library`` + ``arch_class``;
 :func:`get_model_class` resolves the built-in names to this package's

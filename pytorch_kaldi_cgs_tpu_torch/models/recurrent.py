@@ -12,13 +12,12 @@ the card, their plain twins on the CPU; under autograd the BPTT kernels
 give the gradients) whenever the layer has no in-scan layer norm and its
 activation is tanh, relu, htanh or linear (``_fused_ok``); otherwise a
 plain step loop that autograd differentiates. LSTM: ``ops.fused_lstm``,
-streaming passes the (h, c) carries to the seeded-carry variant. liGRU:
-``ops.fused_rnn``, in float32 whatever the compute dtype, as the JAX
-package's fused liGRU; streaming passes the h carry to the seeded
-forward. GRU: only its block-sparse recurrence is ported; a layer that
-would take the dense fused GRU raises. The JAX package's VMEM size rules
-and ``*_fused_scan`` options do not choose the path here: the kernels
-take any batch.
+streaming passes the (h, c) carries to the seeded-carry variant. liGRU
+and GRU: ``ops.fused_rnn``, in float32 whatever the compute dtype, as
+the JAX package's fused liGRU and GRU; streaming passes the h carry to
+the seeded forward. The JAX package's VMEM size rules and
+``*_fused_scan`` options do not choose the path here: the kernels take
+any batch.
 
 Block sparsity (``<prefix>_block_sparse``: auto by default, True or
 False), by the JAX package's rules: an LSTM or GRU layer whose recurrent
@@ -26,8 +25,9 @@ HCGS mask at 128-multiple blocks drops at least half the blocks of each
 row runs its whole-utterance recurrence over the kept blocks only
 (``fused_lstm.lstm_scan_fused_sparse``, ``fused_rnn.
 gru_scan_fused_sparse``), in float32 whatever the compute dtype, as the
-JAX package does; the LSTM streams on the dense seeded kernel. Such a
-liGRU layer raises: its sparse kernels are not ported yet. An
+JAX package does, at any batch; the LSTM and the GRU stream on their
+dense seeded kernels over the masked U. Such a liGRU layer raises where
+the JAX package would take its sparse kernels (not ported yet). An
 x-projection the JAX package puts on its v3 block-sparse kernels (128-
 multiple blocks; under auto from 16 column blocks with at least half of
 each row's dropped) runs on them here too
@@ -192,17 +192,20 @@ class _RecurrentBase(AcousticModel):
             if layout.R >= 1 and layout.R * 2 <= layout.Kb:
                 self._rec_layouts[i] = layout
 
-    def _sparse_rec_layout(self, i: int, B: int, H: int):
+    def _sparse_rec_layout(self, i: int):
         """Layer ``i``'s block-sparse recurrence layout, or None: no
-        layout, in-scan layer norm, another activation, or a batch for
-        which the JAX package's size rule keeps it dense. Unlike the JAX
-        package the port takes the path on every device (its twin on the
-        CPU), as it does the dense fused recurrence."""
+        layout, in-scan layer norm or another activation. Unlike the JAX
+        package the port takes the path at every batch (the sparse
+        kernels tile the rows by 8, with no memory limit that grows with
+        them) and on every device (its twin on the CPU), as it does the
+        dense fused recurrence. The JAX package's size rule
+        (``fused_lstm.sparse_scan_fits``) only picks the w3g dtype: bf16
+        where it says "bf16", float32 elsewhere, also where it says ""
+        and the JAX package runs its float32 ``lax.scan`` over the masked
+        U (the same math to float32 rounding)."""
         layout = self._rec_layouts.get(i)
         if (layout is None or self.use_laynorm[i]
-                or self.act_names[i] not in fused_lstm.ACTS
-                or not fused_lstm.sparse_scan_fits(B, H, layout,
-                                                   len(self.gates_h))):
+                or self.act_names[i] not in fused_lstm.ACTS):
             return None
         return layout
 
@@ -327,8 +330,7 @@ class LSTM(_RecurrentBase):
         qb = self._rec_qbits()
         cdt = "bf16" if self.compute_bf16 else ""
         if carry is None:
-            B, H = gates.shape[1], gates.shape[2] // 4
-            layout = self._sparse_rec_layout(i, B, H)
+            layout = self._sparse_rec_layout(i)
             if layout is not None:
                 return fused_lstm.lstm_scan_fused_sparse(
                     gates, self._rec_w3g(U, layout), layout, drop, act=act,
@@ -379,21 +381,18 @@ class GRU(_RecurrentBase):
     def _recurrence(self, gates, U, drop, i, carry):
         act = self.act_names[i]
         qb = self._rec_qbits()
-        B, H = gates.shape[1], gates.shape[2] // 3
         if carry is None:
-            layout = self._sparse_rec_layout(i, B, H)
+            layout = self._sparse_rec_layout(i)
             if layout is not None:
                 return fused_rnn.gru_scan_fused_sparse(
                     gates, self._rec_w3g(U, layout), layout, drop, act=act,
                     quant_bits=qb), None
         if self._fused_ok(i):
-            raise NotImplementedError(
-                "gru layer %d: the JAX package runs this recurrence (%s, "
-                "H=%d, B=%d) on its dense fused GRU kernels "
-                "(ops/fused_rnn.py:_build_gru_fwd, _build_gru_bwd, "
-                "_build_gru_bwd_stash), which are not ported yet"
-                % (i, "streaming" if carry is not None else "no sparse "
-                   "recurrent layout", H, B))
+            if carry is None:
+                return fused_rnn.gru_scan_fused(
+                    gates, U, drop, act=act, quant_bits=qb), None
+            return fused_rnn.gru_scan_fused_stream(
+                gates, U, drop, carry, act=act, quant_bits=qb)
         return self._steps_plain(gates, U, drop, i, carry, qb)
 
     def _steps_plain(self, gates, U, drop, i, carry, qb):
@@ -408,8 +407,8 @@ class GRU(_RecurrentBase):
         h = carry if carry is not None else gates.new_zeros((B, H))
         hs = []
         for t in range(T):
-            h = fused_rnn.gru_cell(gates[t], h, rec_zr, rec_h, drop, actf, qb,
-                                   self.compute_bf16)
+            h, _ = fused_rnn.gru_cell(gates[t], h, rec_zr, rec_h, drop, actf,
+                                      qb, self.compute_bf16)
             if self.use_laynorm[i]:
                 h = layer_norm(h, self.params["ln%d/gamma" % i],
                                self.params["ln%d/beta" % i])
@@ -435,8 +434,12 @@ class liGRU(_RecurrentBase):
         qb = self._rec_qbits()
         B, H = gates.shape[1], gates.shape[2] // 2
         if carry is None:
-            layout = self._sparse_rec_layout(i, B, H)
-            if layout is not None:
+            # where the JAX size rule keeps the layer off its sparse
+            # kernels, both packages run the dense recurrence over the
+            # masked U
+            layout = self._sparse_rec_layout(i)
+            if layout is not None and fused_lstm.sparse_scan_fits(B, H,
+                                                                  layout, 2):
                 raise NotImplementedError(
                     "ligru layer %d: the JAX package runs this recurrence "
                     "(Kb=%d, R=%d) on its block-sparse liGRU kernels "

@@ -1,9 +1,9 @@
-"""Fused liGRU and block-sparse GRU recurrences: the whole layer's time
-loop, forward and BPTT.
+"""Fused liGRU and GRU recurrences (the GRU's dense and block-sparse):
+the whole layer's time loop, forward and BPTT.
 
-Port of the liGRU part and the sparse GRU part of
+Port of the liGRU part and the GRU parts of
 ``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``. The GRU's (below, after the
-liGRU's) has its own notes. Three liGRU TPU kernels become CUDA kernels
+liGRU's) have their own notes. Three liGRU TPU kernels become CUDA kernels
 for ``sm_90a`` in ``csrc/fused_ligru.cu``, each with a plain PyTorch
 twin that repeats its arithmetic and is what the CPU runs:
 
@@ -329,36 +329,39 @@ def ligru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the block-sparse GRU: TPU kernels _build_gru_fwd_sparse and
-# _build_gru_bwd_sparse become csrc/fused_gru_sparse.cu.
-#
-# The three recurrent matrices share one HCGS mask; their kept blocks pack
-# into w3g (Nb, 3*bs, R*bs), each block gate-major [h | z | r]. Per step t,
-# gates ordered [h | z | r]:
+# the GRU, dense and block-sparse. Per step t, gates ordered [h | z | r]
+# (candidate first), U stacked [Uh; Uz; Ur]:
 #
 #     z, r = sigmoid(g_zr + q(h) @ [Uz; Ur].T)
 #     s    = r * h
 #     a    = act(g_h + q(s) @ Uh.T)
 #     h    = z * h + (1 - z) * a * drop
 #
-# with both products over the kept blocks only. ``q`` is the per-step
-# input quantizer (its scale max|v| over the step's (B, H) block) with a
-# straight-through gradient. The forward kernel runs two launches per step
-# (one grid-wide barrier for r, one for max|s|); the backward rebuilds the
-# forward's quantities for all steps at once, then runs two launches per
-# reverse step, and also returns s for the dU, which is two block-sparse dw
-# products over the unrolled (T*B) batch: U_h's rows from q(s), U_z's and
-# U_r's from q(h_{t-1}).
+# ``q`` is the per-step input quantizer (its scale max|v| over the step's
+# (B, H) block) with a straight-through gradient. Each step has two
+# grid-wide dependencies (s needs r of every unit, q(s) needs max|s|), so
+# the forward kernels run two launches per step. In reverse, from
+# dh_carry = 0 at t = T-1:
+#
+#     dh   = dh_carry + dhs[t]
+#     dg_h = dh * (1 - z) * drop * act'
+#     dg_z = dh * (h_{t-1} - a * drop) * z (1 - z)
+#     ds   = dg_h @ Uh
+#     dg_r = ds * h_{t-1} * r (1 - r)
+#     dh_carry = dh * z + ds * r + [dg_z | dg_r] @ [Uz; Ur]
+#
+# dU is two products over the unrolled (T*B) batch: Uh's rows from q(s),
+# Uz's and Ur's from q(h_{t-1}).
 # ---------------------------------------------------------------------------
 
 def gru_cell(g_t: torch.Tensor, h: torch.Tensor, rec_zr: Callable,
              rec_h: Callable, drop: torch.Tensor, actf: Callable, qbits: int,
-             bf16: bool = False) -> torch.Tensor:
+             bf16: bool = False):
     """One GRU step (the JAX package's GRU scan step): ``rec_zr(q(h))``
     gives the z and r pre-activations (B, 2H), ``rec_h(q(r * h))`` the
     candidate's (B, H); ``q`` the per-step quantizer with a
     straight-through gradient, its output rounded to bf16 when ``bf16``.
-    -> h."""
+    -> (h, the stash [act(a_h), z, r] as (B, 3H))."""
     H = h.shape[-1]
     hin = ste_quantize_input(h, qbits) if qbits > 0 else h
     if bf16:
@@ -370,8 +373,312 @@ def gru_cell(g_t: torch.Tensor, h: torch.Tensor, rec_zr: Callable,
     if bf16:
         sin = bf16_round(sin)
     a = actf(g_t[:, :H] + rec_h(sin))
-    return z * h + (1.0 - z) * (a * drop)
+    return z * h + (1.0 - z) * (a * drop), torch.cat([a, zr], dim=1)
 
+
+def _gru_bwd_loop(step, h_prev, dhs, drop, dot_h, dot_zr, like):
+    """Reverse-time loop shared by the GRU's BPTT twins: ``step(t)``
+    gives step t's (act(a_h), z, r, act'), ``dot_h(dg_h)`` is ds and
+    ``dot_zr([dg_z | dg_r])`` the carry's product (JAX
+    ``_build_gru_bwd_stash`` :411-425). -> dg (T, B, 3H)."""
+    T, B, H = h_prev.shape
+    dg = like.new_empty((T, B, 3 * H))
+    dh_carry = like.new_zeros((B, H))
+    for t in range(T - 1, -1, -1):
+        hp = h_prev[t]
+        a, z, r, dact = step(t)
+        dh = dh_carry + dhs[t]
+        dz = dh * (hp - a * drop)
+        dah = dh * (1.0 - z) * drop * dact
+        ds = dot_h(dah)
+        dzr = torch.cat([dz * z * (1.0 - z), ds * hp * r * (1.0 - r)], dim=1)
+        dh_carry = dh * z + ds * r + dot_zr(dzr)
+        dg[t] = torch.cat([dah, dzr], dim=1)
+    return dg
+
+
+def _gru_recompute_step(gates, h_prev, rec_zr, rec_h, act, qbits, bf16,
+                        s_seq=None):
+    """``step`` of :func:`_gru_bwd_loop` rebuilding z, r, s and the
+    candidate from ``h_prev`` (q per step, bf16-rounded dot inputs when
+    ``bf16``; act' from the pre-activation); s into ``s_seq`` when
+    given."""
+    H = h_prev.shape[2]
+    actf = ACTS[act]
+
+    def dot_in(v):
+        v = quantize_input(v, qbits) if qbits > 0 else v
+        return bf16_round(v) if bf16 else v
+
+    def step(t):
+        hp, g = h_prev[t], gates[t]
+        zr = torch.sigmoid(g[:, H:] + rec_zr(dot_in(hp)))
+        z, r = zr[:, :H], zr[:, H:]
+        s = r * hp
+        if s_seq is not None:
+            s_seq[t] = s
+        a_pre = g[:, :H] + rec_h(dot_in(s))
+        return actf(a_pre), z, r, dact_pre(act, a_pre)
+    return step
+
+
+# -- the dense GRU: TPU kernels _build_gru_fwd, _build_gru_bwd_stash and
+# _build_gru_bwd become csrc/fused_gru.cu. Everything is float32 (the JAX
+# package casts U to float32 for them whatever the compute dtype).
+
+def _gru_dense_fns(U):
+    """(rec_zr, rec_h, dot_h, dot_zr) of the dense twins over U (3H, H)."""
+    H = U.shape[1]
+    Uf = U.to(torch.float32)
+    Uh, Uzr = Uf[:H], Uf[H:]
+    return (lambda x: x @ Uzr.T, lambda x: x @ Uh.T, lambda d: d @ Uh,
+            lambda d: d @ Uzr)
+
+
+def fused_gru_fwd_plain(gates: torch.Tensor, U: torch.Tensor,
+                        drop: torch.Tensor, h0: Optional[torch.Tensor],
+                        act: str, qbits: int, stash: bool = False):
+    """The forward kernel's plain twin: a Python loop over
+    :func:`gru_cell`. -> hs (T, B, H), and ``(hs, acts)`` with the stash
+    [act(a_h), z, r] (T, B, 3H) when ``stash``."""
+    T, B, G3 = gates.shape
+    rec_zr, rec_h, _, _ = _gru_dense_fns(U)
+    h = gates.new_zeros((B, G3 // 3)) if h0 is None else h0
+    hs, acts = [], []
+    for t in range(T):
+        h, a = gru_cell(gates[t], h, rec_zr, rec_h, drop, ACTS[act], qbits)
+        hs.append(h)
+        acts.append(a)
+    return (torch.stack(hs), torch.stack(acts)) if stash else torch.stack(hs)
+
+
+def fused_gru_bwd_stash_plain(acts: torch.Tensor, U: torch.Tensor,
+                              drop: torch.Tensor, h_prev: torch.Tensor,
+                              dhs: torch.Tensor, act: str = "tanh"
+                              ) -> torch.Tensor:
+    """Twin of the stash BPTT kernel: reverse loop over the forward's
+    stash [act(a_h), z, r]; act' from the activation's output. -> dg
+    (T, B, 3H)."""
+    H = h_prev.shape[2]
+    _, _, dot_h, dot_zr = _gru_dense_fns(U)
+    dactf = DACTS_OUT[act]
+
+    def step(t):
+        a, z, r = acts[t, :, :H], acts[t, :, H:2 * H], acts[t, :, 2 * H:]
+        return a, z, r, dactf(a)
+    return _gru_bwd_loop(step, h_prev, dhs, drop, dot_h, dot_zr, acts)
+
+
+def fused_gru_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
+                        drop: torch.Tensor, h_prev: torch.Tensor,
+                        dhs: torch.Tensor, act: str = "tanh", qbits: int = 0
+                        ) -> torch.Tensor:
+    """Twin of the recompute BPTT kernel: per reverse step it rebuilds z,
+    r, s and the candidate from ``h_prev`` (q per step), act' from the
+    pre-activation. -> dg (T, B, 3H)."""
+    rec_zr, rec_h, dot_h, dot_zr = _gru_dense_fns(U)
+    step = _gru_recompute_step(gates, h_prev, rec_zr, rec_h, act, qbits,
+                               False)
+    return _gru_bwd_loop(step, h_prev, dhs, drop, dot_h, dot_zr, gates)
+
+
+def _gru_check(name, lead, U, drop, act, others):
+    """(T, B, 3H) float32 ``lead``, U (3H, H) float32, one device,
+    contiguous float32 sequences; on the card a width whose staged rows
+    fit a block's shared memory. -> (T, B, H, drop as (B, H))."""
+    out = _check_common(name, lead, U, drop, act, (("U", U),) + others,
+                        gates=3)
+    if lead.device.type == "cuda" and 4 * 8 * 2 * out[2] > _SMEM_MAX:
+        raise ValueError("the dense GRU kernels take H <= %d, got %d"
+                         % (_SMEM_MAX // 64, out[2]))
+    return out
+
+
+def fused_gru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
+                  h0: Optional[torch.Tensor] = None, act: str = "tanh",
+                  qbits: int = 0, stash: bool = False):
+    """Whole-layer GRU forward (TPU kernel ``_build_gru_fwd``): ``gates``
+    (T, B, 3H) float32 ordered [h | z | r], ``U`` (3H, H) float32 stacked
+    [Uh; Uz; Ur], ``drop`` broadcastable to (B, H), optional seed carry
+    ``h0`` (B, H). -> hs (T, B, H) float32, and ``(hs, acts)`` with the
+    stash [act(a_h), z, r] (T, B, 3H) when ``stash``.
+
+    CUDA tensors run the kernel (two launches per step), CPU tensors the
+    plain twin. This is the raw kernel call, with no autograd:
+    differentiable callers use :func:`gru_scan_fused`."""
+    T, B, H, drop = _gru_check("gates", gates, U, drop, act, (("h0", h0),))
+    _check_shapes((("h0", h0, (B, H)),))
+    if _needs_grad(gates, U, h0):
+        raise RuntimeError("fused_gru_fwd has no autograd of its own: call "
+                           "gru_scan_fused")
+    if gates.device.type == "cpu":
+        return fused_gru_fwd_plain(gates, U, drop, h0, act, qbits, stash)
+    from . import _build
+    lib = _build.load("fused_gru")
+    fn = lib.fused_gru_fwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    hs = torch.empty((T, B, H), **f32)
+    acts = torch.empty_like(gates) if stash else None
+    fw = None if stash else torch.empty((B, 3 * H), **f32)
+    s = torch.empty((B, H), **f32)
+    qslots = torch.empty(2 * T + 1 if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), U.data_ptr(), drop.data_ptr(), _ptr(h0),
+                hs.data_ptr(), _ptr(acts), _ptr(fw), s.data_ptr(),
+                qslots.data_ptr(), T, B, H, _ACT_CODE[act], qbits,
+                _stream(dev))
+    _build.check(lib, rc, "fused_gru_fwd")
+    fused_gru_fwd.launches += 2 * T
+    return (hs, acts) if stash else hs
+
+
+fused_gru_fwd.launches = 0
+
+
+def _gru_bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
+    T, B, H, drop = _gru_check("acts" if stash else "gates", lead, U, drop,
+                               act, (("h_prev", h_prev), ("dhs", dhs)))
+    _check_shapes((("h_prev", h_prev, (T, B, H)), ("dhs", dhs, (T, B, H))))
+    if lead.device.type == "cpu":
+        if stash:
+            return fused_gru_bwd_stash_plain(lead, U, drop, h_prev, dhs, act)
+        return fused_gru_bwd_plain(lead, U, drop, h_prev, dhs, act, qbits)
+    from . import _build
+    lib = _build.load("fused_gru")
+    fn = lib.fused_gru_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = lead.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    Ut = U.t().contiguous()                  # (H, 3H): rows for dg @ U
+    fw = None if stash else torch.empty((T, B, 3 * H), **f32)
+    s_seq = None if stash else torch.empty((T, B, H), **f32)
+    dh, ds = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
+    dg = torch.empty_like(lead)
+    qslots = torch.empty(2 * T if (qbits > 0 and not stash) else 1,
+                         dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(lead.data_ptr(), U.data_ptr(), Ut.data_ptr(), drop.data_ptr(),
+                h_prev.data_ptr(), dhs.data_ptr(), _ptr(fw), _ptr(s_seq),
+                dh.data_ptr(), ds.data_ptr(), dg.data_ptr(),
+                qslots.data_ptr(), T, B, H, _ACT_CODE[act], qbits, int(stash),
+                _stream(dev))
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += 2 * T + (0 if stash else 2)
+    return dg
+
+
+def fused_gru_bwd_stash(acts: torch.Tensor, U: torch.Tensor,
+                        drop: torch.Tensor, h_prev: torch.Tensor,
+                        dhs: torch.Tensor, act: str = "tanh") -> torch.Tensor:
+    """BPTT over the stash (TPU kernel ``_build_gru_bwd_stash``, the
+    default backward): ``acts`` (T, B, 3H) from the stash forward,
+    ``h_prev`` (T, B, H) the carries entering each step, upstream ``dhs``
+    (T, B, H). -> dg (T, B, 3H). CUDA tensors run the kernel (two
+    launches per reverse step), CPU tensors the twin."""
+    return _gru_bwd(fused_gru_bwd_stash, acts, U, drop, h_prev, dhs, act, 0,
+                    True)
+
+
+fused_gru_bwd_stash.launches = 0
+
+
+def fused_gru_bwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
+                  h_prev: torch.Tensor, dhs: torch.Tensor, act: str = "tanh",
+                  qbits: int = 0) -> torch.Tensor:
+    """BPTT with recompute (TPU kernel ``_build_gru_bwd``, under
+    ``PKC_LSTM_BWD_RECOMPUTE=1``): ``gates`` are the forward's inputs,
+    ``h_prev`` (T, B, H) the carries entering each step, re-quantized per
+    step. -> as :func:`fused_gru_bwd_stash`. On the card two launches
+    rebuild the forward's quantities for all steps, then two run per
+    reverse step."""
+    return _gru_bwd(fused_gru_bwd, gates, U, drop, h_prev, dhs, act, qbits,
+                    False)
+
+
+fused_gru_bwd.launches = 0
+
+
+class _FusedGRU(torch.autograd.Function):
+    """The JAX package's ``gru_scan_fused`` custom VJP over (gates, U):
+    forward kernel (stash or not), BPTT kernel, then dU as two matmuls
+    over the (T*B) batch, s = r * h_prev from the stashed r or, on the
+    recompute path, from r recomputed over the unrolled batch."""
+
+    @staticmethod
+    def forward(ctx, gates, U, drop, act, qbits):
+        stash = bwd_stash_enabled("gru")
+        out = fused_gru_fwd(gates, U, drop, act=act, qbits=qbits, stash=stash)
+        hs, acts = out if stash else (out, None)
+        ctx.meta = (act, qbits, stash)
+        ctx.save_for_backward(None if stash else gates, U, drop, hs, acts)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        act, qbits, stash = ctx.meta
+        gates, U, drop, hs, acts = ctx.saved_tensors
+        T, B, H = hs.shape
+        M = T * B
+        dhs = dhs.contiguous()
+        h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
+        if stash:
+            dg = fused_gru_bwd_stash(acts, U, drop, h_prev, dhs, act)
+        else:
+            dg = fused_gru_bwd(gates, U, drop, h_prev, dhs, act, qbits)
+        dU = None
+        if ctx.needs_input_grad[1]:
+            def q(v):
+                return quantize_input_per_step(v, qbits) if qbits > 0 else v
+            hp, hq = h_prev.reshape(M, H), q(h_prev).reshape(M, H)
+            if stash:
+                s = acts.reshape(M, 3 * H)[:, 2 * H:] * hp
+            else:     # r recomputed over the unrolled batch, as in JAX
+                s = torch.sigmoid(gates.reshape(M, 3 * H)[:, 2 * H:]
+                                  + hq @ U[2 * H:].T) * hp
+            sq = q(s.reshape(T, B, H)).reshape(M, H)
+            dgm = dg.reshape(M, 3 * H)
+            dU = torch.cat([dgm[:, :H].T @ sq, dgm[:, H:].T @ hq])
+        return dg, dU, None, None, None
+
+
+def gru_scan_fused(gates_t: torch.Tensor, U: torch.Tensor,
+                   drop_mask: torch.Tensor, act: str = "tanh",
+                   quant_bits: int = 0) -> torch.Tensor:
+    """hs (T, B, H) from zero initial state, differentiable in
+    ``gates_t`` (T, B, 3H) [h | z | r] and ``U`` (3H, H) [Uh; Uz; Ur]
+    (``drop_mask`` is a constant). As in the JAX package it takes no
+    compute dtype: the recurrence runs in float32."""
+    gates_t, U = gates_t.to(torch.float32), U.to(torch.float32)
+    if _needs_grad(gates_t, U):
+        return _FusedGRU.apply(gates_t, U, drop_mask, act, quant_bits)
+    return fused_gru_fwd(gates_t, U, drop_mask, act=act, qbits=quant_bits)
+
+
+def gru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
+                          drop_mask: torch.Tensor, h0: torch.Tensor,
+                          act: str = "tanh", quant_bits: int = 0):
+    """Streaming (inference-only) GRU forward seeded with the carry
+    ``h0`` (B, H): -> ``(hs, hs[-1])``. Not differentiable."""
+    with torch.no_grad():
+        hs = fused_gru_fwd(gates_t.to(torch.float32), U.to(torch.float32),
+                           drop_mask, h0.to(torch.float32), act=act,
+                           qbits=quant_bits)
+    return hs, hs[-1]
+
+
+# -- the block-sparse GRU: TPU kernels _build_gru_fwd_sparse and
+# _build_gru_bwd_sparse become csrc/fused_gru_sparse.cu. The three
+# recurrent matrices share one HCGS mask; their kept blocks pack into w3g
+# (Nb, 3*bs, R*bs), each block gate-major [h | z | r], and both products
+# run over the kept blocks only. The backward rebuilds the forward's
+# quantities for all steps at once, then runs two launches per reverse
+# step, and also returns s for the dU: two block-sparse dw products.
 
 def _gru_sparse_fns(w3g, layout, bf16):
     """(w3g's U_h and [U_z; U_r] parts, rec_zr, rec_h) of the sparse
@@ -393,7 +700,8 @@ def fused_gru_fwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
     h = gates.new_zeros((B, G3 // 3))
     hs = []
     for t in range(T):
-        h = gru_cell(gates[t], h, rec_zr, rec_h, drop, ACTS[act], qbits, bf16)
+        h, _ = gru_cell(gates[t], h, rec_zr, rec_h, drop, ACTS[act], qbits,
+                        bf16)
         hs.append(h)
     return torch.stack(hs)
 
@@ -403,36 +711,20 @@ def fused_gru_bwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
                                dhs: torch.Tensor, layout, act: str = "tanh",
                                qbits: int = 0, bf16: bool = False):
     """Twin of the sparse GRU BPTT kernel: per reverse step it rebuilds
-    z, r, s and the candidate from ``h_prev``, runs the cotangent chain
-    (JAX ``_build_gru_bwd_sparse`` :1523-1538; ``act'`` from the
-    pre-activation, dh through the quantizers unchanged) and carries
-    ``dh * z + ds * r + dzr @ [U_z; U_r]`` into step t-1. -> (dg
-    (T, B, 3H), s (T, B, H))."""
-    T, B, H = h_prev.shape
+    z, r, s and the candidate from ``h_prev`` and runs the cotangent
+    chain (JAX ``_build_gru_bwd_sparse`` :1523-1538; ``act'`` from the
+    pre-activation, dh through the quantizers unchanged, the cotangents
+    bf16-rounded before their dots when ``bf16``). -> (dg (T, B, 3H),
+    s (T, B, H))."""
     w_h, w_zr, rec_zr, rec_h = _gru_sparse_fns(w3g, layout, bf16)
-    actf = ACTS[act]
+    s_seq = torch.empty_like(h_prev)
+    step = _gru_recompute_step(gates, h_prev, rec_zr, rec_h, act, qbits, bf16,
+                               s_seq)
 
-    def dot_in(v, quant):
-        v = quantize_input(v, qbits) if (quant and qbits > 0) else v
-        return bf16_round(v) if bf16 else v
-    dg = gates.new_empty((T, B, 3 * H))
-    s_seq = gates.new_empty((T, B, H))
-    dh_carry = gates.new_zeros((B, H))
-    for t in range(T - 1, -1, -1):
-        hp, g = h_prev[t], gates[t]
-        zr = torch.sigmoid(g[:, H:] + rec_zr(dot_in(hp, True)))
-        z, r = zr[:, :H], zr[:, H:]
-        s = r * hp
-        a_pre = g[:, :H] + rec_h(dot_in(s, True))
-        dh = dh_carry + dhs[t]
-        dz = dh * (hp - actf(a_pre) * drop)
-        dah = dh * (1.0 - z) * drop * dact_pre(act, a_pre)
-        ds = sparse_dh(dot_in(dah, False), w_h, layout, 1)
-        dzr = torch.cat([dz * z * (1.0 - z), ds * hp * r * (1.0 - r)], dim=1)
-        dh_carry = dh * z + ds * r + sparse_dh(dot_in(dzr, False), w_zr,
-                                               layout, 2)
-        dg[t] = torch.cat([dah, dzr], dim=1)
-        s_seq[t] = s
+    def dots(w, G):
+        return lambda d: sparse_dh(bf16_round(d) if bf16 else d, w, layout, G)
+    dg = _gru_bwd_loop(step, h_prev, dhs, drop, dots(w_h, 1), dots(w_zr, 2),
+                       gates)
     return dg, s_seq
 
 

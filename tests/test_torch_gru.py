@@ -532,21 +532,94 @@ def test_gru_plain_loop_matches_jax(jm, opts):
 
 
 @pytest.mark.parametrize("case", ["no_sparse_layout", "streaming"])
-def test_gru_dense_fused_layer_raises_not_ported(case):
-    """A layer the JAX package would run on its dense fused GRU (rows
-    19-21: no sparse recurrent layout, or a stream) raises instead of
-    running a plain loop."""
-    if case == "no_sparse_layout":
-        m = GRU(gru_opts(mode="False", bidir=False), F_IN, device="cpu")
-        assert not m._rec_layouts
-        run = lambda: m.eval()(torch.zeros(3, 2, F_IN))
-    else:
-        m = GRU(gru_opts(bidir=False), F_IN, device="cpu")
-        assert sorted(m._rec_layouts) == [0, 1]
-        run = lambda: m.apply_streaming(torch.zeros(3, 2, F_IN))
-    with pytest.raises(NotImplementedError, match="_build_gru_fwd"):
+def test_gru_dense_fused_layer_runs(jm, monkeypatch, case):
+    """A layer the JAX package runs on its dense fused GRU (rows 19-21: no
+    sparse recurrent layout, or a stream, which drops the sparse layout)
+    runs on the port's (``gru_scan_fused``, ``gru_scan_fused_stream``)
+    and matches JAX's output (its Pallas kernels, interpret mode);
+    tests/test_torch_gru_dense.py holds those kernels in full."""
+    name = "gru_scan_fused" if case == "no_sparse_layout" \
+        else "gru_scan_fused_stream"
+    calls, real = [], getattr(tfr, name)
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(tfr, name, spy)
+    opts = gru_opts(mode="False" if case == "no_sparse_layout" else "True",
+                    bidir=False)
+    jmod, tree, packed = _jax_packed(jm, opts, 6, perturb=7)
+    m = _port(opts, tree).eval()
+    assert sorted(m._rec_layouts) == ([] if case == "no_sparse_layout"
+                                      else [0, 1])
+    x = np.random.RandomState(8).randn(5, 2, F_IN).astype(np.float32)
+    with torch.no_grad():
+        if case == "no_sparse_layout":
+            y = m(tt(x)).numpy()
+            y_ref = _np(jmod.apply(packed, x, train=False)[0])
+        else:
+            y0, carries = m.apply_streaming(tt(x[:2]))
+            y1, _ = m.apply_streaming(tt(x[2:]), carries)
+            y = torch.cat([y0, y1]).numpy()
+            j0, jc = jmod.apply_streaming(packed, x[:2])
+            y_ref = np.concatenate([_np(j0), _np(
+                jmod.apply_streaming(packed, x[2:], jc)[0])])
+    assert len(calls) == (2 if case == "no_sparse_layout" else 4)
+    np.testing.assert_allclose(y, y_ref, atol=ATOL_Q)
+
+
+def test_sparse_recurrence_at_any_batch(jm, monkeypatch):
+    """The port keeps a recurrence with a sparse layout on the sparse
+    kernels at every batch. With a 1 MB budget the JAX size rule says ""
+    at 40 rows for a 256-wide GRU and LSTM (Kb=2, R=1), and the JAX
+    package runs its float32 lax.scan over the masked U
+    (``*_fused_scan=False`` keeps it off its fused kernels); the port
+    runs the sparse twins with float32 w3g, and the outputs agree."""
+    from pytorch_kaldi_cgs_tpu_torch.models import LSTM
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as tfl
+    monkeypatch.setenv("PKC_SPARSE_SCAN_VMEM_MB", "1")
+    rows, calls = 40, []
+    for mod, name in ((tfr, "fused_gru_fwd_sparse_plain"),
+                      (tfl, "fused_lstm_fwd_sparse_plain")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, name, spy)
+    lstm = {"compute_dtype": "", "to_do": "forward", "arch_name": "lstm",
+            "lstm_lay": "256", "lstm_drop": "0.0",
+            "lstm_use_batchnorm": "True", "lstm_use_laynorm": "False",
+            "lstm_use_laynorm_inp": "False", "lstm_use_batchnorm_inp": "False",
+            "lstm_act": "tanh", "lstm_orthinit": "True", "lstm_bidir": "False",
+            "lstm_hcgs": "True", "hcgsx_block": "8,2", "hcgsx_sparse": "25,50",
+            "hcgsh_block": "128,8", "hcgsh_sparse": "50,75",
+            "lstm_quant": "True", "param_quant": "8",
+            "lstm_quant_inp": "True", "inp_quant": "16",
+            "lstm_fused_scan": "False", "scan_unroll": "1"}
+    x = np.random.RandomState(9).randn(4, rows, F_IN).astype(np.float32)
+    for jcls, tcls, opts, G, n in (
+            (jm.GRU, GRU, dict(gru_opts(mode="auto", bidir=False),
+                               gru_fused_scan="False"), 3, 2),
+            (jm.LSTM, LSTM, lstm, 4, 1)):
+        jmod = jcls(opts, F_IN)
+        tree = _perturbed(jmod.init(1), 2)
+        port = tcls(opts, F_IN, device="cpu").load_variables(
+            convert.from_jax_variables(tree))
+        layout = port._rec_layouts[0]
+        assert sorted(port._rec_layouts) == list(range(n))
+        assert (layout.Kb, layout.R) == (2, 1)
+        from pytorch_kaldi_cgs_tpu_torch.ops.fused_lstm import \
+            sparse_scan_fits
+        assert sparse_scan_fits(rows, 256, layout, G) == ""
+        calls.clear()
         with torch.no_grad():
-            run()
+            y = port.eval()(tt(x))
+        assert calls == [("fused_gru_fwd_sparse_plain" if G == 3
+                          else "fused_lstm_fwd_sparse_plain")] * n
+        y_ref, _ = jmod.apply(tree, x, train=False)
+        np.testing.assert_allclose(y.numpy(), _np(y_ref), atol=ATOL_Q,
+                                   err_msg=tcls.__name__)
 
 
 def test_gru_pack_unpack_round_trip():
