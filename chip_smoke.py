@@ -4,8 +4,9 @@ the training step of the flagship 2x512 LSTM, of the 2x1024 CGS-16x
 LSTM through the block-sparse recurrence, of the TIMIT 2x1024 HCGS
 Li-GRU through the fused liGRU kernels, of the LibriSpeech 5x1024
 bidirectional HCGS GRU through the sparse GRU and v3 projection
-kernels, and of the TIMIT 4x550 GRU through the dense fused GRU
-kernels.
+kernels, of the TIMIT 4x550 GRU through the dense fused GRU kernels,
+and of the TIMIT 4x550 relu RNN through the dense fused RNN kernels,
+with the cuDNN-class LSTM_cudnn and RNN_cudnn on the ported kernels.
 
     python3 chip_smoke.py
 
@@ -121,9 +122,39 @@ Phases (any failure raises and the script exits non-zero):
              at 160 rows (T=398), where the JAX size rule keeps them off
              their sparse kernels: the sparse forward alone, against the
              model on its twin; the sparse BPTT kernels at 160 rows.
-26. timit_gru_times — the dense GRU kernels' times, twins and bounds,
+26. timit_rnn_kernels — the dense RNN forward (plain, stash, seeded,
+             and seeded from h_{k-1} against the zero-state run's later
+             steps) and both BPTT kernels against their twins, each launch
+             counter checked: qbits 0/16 x tanh/relu at the small shape
+             (a (B, H) mask and the eval scalar), the training shape
+             (T=300, B=8, H=550), the serving shape (T=398, the eval
+             scalar; forward only) and H=1024 (T=6, 96 rows).
+27. timit_rnn_serve — ``Recognizer.recognize`` over the TIMIT RNN stack
+             (``cfg/TIMIT_baselines/TIMIT_RNN_fmllr.cfg``'s 4x550 relu RNN
+             -> 1944-way head, feat_dim 40) on the same audio: card vs CPU
+             at TOL_POST, 4 x 398 forward launches.
+28. timit_rnn_stream — ``StreamingRecognizer`` on the seeded forward: one
+             chunk of the whole utterance against the whole-utterance
+             posteriors at TOL_STREAM; chunks of 100 frames at TOL_POST
+             (cuBLAS sums fewer rows in another order), equal phones.
+29. timit_rnn_train — ``ChunkRunner.train_step`` over the cfg's sections
+             (x of width 40, T=300, B=8): card vs CPU with the recompute
+             backward (the default) and the stash one
+             (PKC_BWD_STASH_CELLS=rnn) at GRAD_FLIP_K x the CPU's own
+             one-ulp sensitivity (relu flips at 0), and with rnn_act=tanh
+             at TOL_GRAD_REL; launches per step; 10 steps in f32 and bf16
+             at lr/32 (the cfg's lr diverges, in both packages), the cfg's
+             lr for 4 steps.
+30. cudnn_wrappers — RNN_cudnn (2x550 relu) and LSTM_cudnn (2x512), both
+             bidirectional, at T=300, B=8: eval and a train-mode forward +
+             backward, card vs CPU, launching only the ported RNN and LSTM
+             kernels.
+31. timit_gru_times — the dense GRU kernels' times, twins and bounds,
              cuDNN's nn.GRU(550, 550) as a yardstick, the dU matmuls, the
              TIMIT GRU train step and recognize.
+32. timit_rnn_times — the dense RNN kernels' times, twins and bounds,
+             cuDNN's nn.RNN(550, 550, relu) as a yardstick, the dU matmul,
+             the TIMIT RNN train step and recognize.
 
 Each phase prints its wall time (``[timing]``).
 
@@ -268,6 +299,36 @@ TG_FEAT, TG_LAYERS = 40, 4       # fMLLR, cw_left = cw_right = 0
 # barely moves the log-posteriors over time: x3000 makes the utterances
 # decode to several phones (timit_gru_serve prints how many)
 TIMIT_GRU_HEAD_GAIN = 3000.0
+# The TIMIT RNN slice: cfg/TIMIT_baselines/TIMIT_RNN_fmllr.cfg (4x550 RNN,
+# relu, BN on the projection, dropout 0.2 on the whole state, no HCGS, no
+# quantizers, unidirectional: every layer on the dense fused RNN)
+TIMIT_RNN_CFG = os.path.join(ROOT, "cfg", "TIMIT_baselines",
+                             "TIMIT_RNN_fmllr.cfg")
+TR_SERVE_TBH = (398, 8, 550)
+TR_TRAIN_TBH = (300, 8, 550)     # the cfg's batch_size_train = 8
+TR_WIDE_TBH = (6, 96, 1024)
+TR_FEAT, TR_LAYERS = 40, 4       # fMLLR, cw_left = cw_right = 0
+# init(1)'s head over the RNN's 550 outputs (small at random init: each
+# layer's eval dropout scalar and BN's unit running variance shrink them
+# to ~0.01) barely moves the log-posteriors: x5000 makes the utterances
+# decode to 1-3 phones (timit_rnn_serve prints how many) and the
+# frame-level argmax change every few frames
+TIMIT_RNN_HEAD_GAIN = 5000.0
+# The cfg's learning rates (RMSprop 0.0016 / 0.0008) diverge on one batch
+# of random 1944-way labels: NaN by the third step, in the JAX package's
+# step too (CPU, full width); at a sixteenth of them both packages' loss
+# spikes past 1e6 at step 7. The relu recurrence has no gradient
+# clipping. The loss-falls check runs at a thirty-second of them, where
+# it falls step by step on the CPU in f32 and bf16; the cfg's rates are
+# run for TR_CFG_LR_STEPS steps and printed.
+TR_FALL_LR_SCALE = 1.0 / 32
+TR_CFG_LR_STEPS = 4
+# The cuDNN-class wrappers, at the widths their users run: nn.RNN-style
+# 2x550 relu and nn.LSTM-style 2x512, both bidirectional, over the fMLLR
+# features at the TIMIT RNN's training shape
+CUDNN_CASES = (("RNN_cudnn", 550, {"nonlinearity": "relu"}),
+               ("LSTM_cudnn", 512, {}))
+
 # The large-batch check of the sparse recurrence: 80 utterances of the
 # libri GRU (160 rows, both directions), 160 of the CGS-16x LSTM; the JAX
 # size rule says "" there (from 158 and 152 rows)
@@ -520,21 +581,30 @@ def phase_stream(dev, rec, audio, lens, phones, logp, chunk=100,
     return launches, err
 
 
-def phase_sparse_stream(dev, rec, audio, lens, phones, logp):
-    """The CGS-16x stack streams on the dense seeded kernel (the JAX
-    package turns the sparse recurrence off under a stream). One chunk of
-    the whole utterance is held to the sparse whole-utterance posteriors
-    within TOL_STREAM, as slice 1's stream. Chunks of 100 frames are held
-    within TOL_POST: the input quantizer scales by max|x| over each call,
-    so a chunk's features quantize otherwise than the whole utterance's
-    (in both packages)."""
+def phase_chunked_stream(dev, rec, audio, lens, phones, logp,
+                         tag="sparse_stream", kernel="fused_lstm_fwd",
+                         per_frame=2):
+    """A stream whose chunks of 100 frames cannot match the whole
+    utterance to TOL_STREAM: one chunk of the whole utterance is held to
+    the whole-utterance posteriors within TOL_STREAM, as slice 1's
+    stream, and chunks of 100 frames within TOL_POST, with equal phones.
+
+    The CGS-16x stack streams on the dense seeded kernel (the JAX
+    package turns the sparse recurrence off under a stream), and its
+    input quantizer scales by max|x| over each call, so a chunk's
+    features quantize otherwise than the whole utterance's (in both
+    packages). The TIMIT RNN's chunks run the x-projection GEMMs over
+    fewer rows, where cuBLAS sums in another order: its relu recurrence
+    and x5000 head carry that to ~6e-5 in the log-posteriors, the size
+    of the card-vs-CPU difference."""
     T = rec.frontend.num_frames(audio.shape[1])
-    _, err_one = phase_stream(dev, rec, audio, lens, phones, logp, chunk=T,
-                              tag="sparse_stream_one_chunk")
-    launches, err = phase_stream(dev, rec, audio, lens, phones, logp,
-                                 tag="sparse_stream", tol=TOL_POST)
-    return launches, {"one_chunk_vs_sparse": err_one,
-                      "chunked_vs_sparse": err}
+    _, err_one = phase_stream(dev, rec, audio, lens, phones, logp, T,
+                              tag + "_one_chunk", TOL_STREAM, kernel,
+                              per_frame)
+    launches, err = phase_stream(dev, rec, audio, lens, phones, logp, 100,
+                                 tag, TOL_POST, kernel, per_frame)
+    return launches, {"one_chunk_vs_whole": err_one,
+                      "chunks_of_100_vs_whole": err}
 
 
 @contextlib.contextmanager
@@ -763,6 +833,9 @@ def wrappers():
             "fused_gru_fwd": R.fused_gru_fwd,
             "fused_gru_bwd_stash": R.fused_gru_bwd_stash,
             "fused_gru_bwd": R.fused_gru_bwd,
+            "fused_rnn_fwd": R.fused_rnn_fwd,
+            "fused_rnn_bwd_stash": R.fused_rnn_bwd_stash,
+            "fused_rnn_bwd": R.fused_rnn_bwd,
             "block_sparse_v3_fwd": BS.block_sparse_v3_fwd,
             "block_sparse_v3_dx": BS.block_sparse_v3_dx,
             "fused_lstm_fwd": F.fused_lstm_fwd,
@@ -1138,6 +1211,8 @@ def kernel_classes(by_name):
                "ligru_bptt_kernel": ("ligru_bwd",),
                "gru_fwd_kernel": ("gru_zr_step", "gru_h_step"),
                "gru_bptt_kernel": ("gru_bwd_carry", "gru_bwd_ds"),
+               "rnn_fwd_kernel": ("rnn_step",),
+               "rnn_bptt_kernel": ("rnn_bwd_step",),
                "v3_kernel": ("v3_fwd_tile", "v3_dx_tile"),
                "block_sparse_dw_kernel": ("dw3_tile",),
                "matmul": ("gemm", "cutlass", "sm90_", "ampere_", "cublas"),
@@ -1768,11 +1843,12 @@ def ligru_bound_ms(T, B, H, kind):
                        2 * T * B * 2 * H * H * (2 if kind == "bwd" else 1))
 
 
-def cudnn_gru_times(dev, T, B, H, Ts, Bs):
-    """cuDNN's nn.GRU(H, H), the GRU yardstick: forward and forward +
-    backward at (T, B), the backward as their difference, and the
-    forward at the serving (Ts, Bs)."""
-    gru = torch.nn.GRU(H, H).to(dev)
+def cudnn_times(dev, T, B, H, Ts, Bs, module=None, key="cudnn_gru"):
+    """cuDNN's nn.GRU(H, H) (or ``module``, an (H, H) cuDNN recurrence),
+    the yardstick: forward and forward + backward at (T, B), the backward
+    as their difference, and the forward at the serving (Ts, Bs), under
+    ``<key>_*`` keys."""
+    gru = (module or torch.nn.GRU(H, H)).to(dev)
     xin = torch.randn(T, B, H, device=dev, requires_grad=True)
     dy = torch.randn(T, B, H, device=dev)
     fwd_ms = cuda_ms(lambda: gru(xin)[0], reps=10)
@@ -1780,9 +1856,9 @@ def cudnn_gru_times(dev, T, B, H, Ts, Bs):
     with torch.no_grad():
         xs = torch.randn(Ts, Bs, H, device=dev)
         serve_ms = cuda_ms(lambda: gru(xs), reps=10)
-    return {"cudnn_gru_fwd_ms": fwd_ms, "cudnn_gru_fwd_bwd_ms": fb_ms,
-            "cudnn_gru_bwd_ms": fb_ms - fwd_ms,
-            "cudnn_gru_serve_fwd_ms": serve_ms}
+    return {key + "_fwd_ms": fwd_ms, key + "_fwd_bwd_ms": fb_ms,
+            key + "_bwd_ms": fb_ms - fwd_ms,
+            key + "_serve_fwd_ms": serve_ms}
 
 
 def phase_ligru_times(dev, rec, audio, lens):
@@ -1846,7 +1922,7 @@ def phase_ligru_times(dev, rec, audio, lens):
         dg = torch.randn(T * B, 2 * H, device=dev)
         hq = torch.randn(T * B, H, device=dev)
         times["dU_matmul_ms"] = cuda_ms(lambda: dg.T @ hq, reps=20)
-    times.update(cudnn_gru_times(dev, T, B, H, Ts, Bs))
+    times.update(cudnn_times(dev, T, B, H, Ts, Bs))
     print("[ligru_times] kernels at T=%d B=%d H=%d (relu, qbits 16): %s"
           % (T, B, H, json.dumps(times)))
     step = train_step_times(dev, ligru_train_runner, "ligru_times", 5, 3)
@@ -1857,7 +1933,8 @@ def phase_ligru_times(dev, rec, audio, lens):
 
 
 def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
-                   serve_tbh, act, qbits, library, fwd_extra):
+                   serve_tbh, act, qbits, library, fwd_extra,
+                   lib="cudnn_gru"):
     """The kernels JSON rows of a dense fused cell's three kernels,
     ``fused_<cell>_fwd`` (the stash variant), ``_bwd_stash`` and ``_bwd``
     from ``csrc/fused_<cell>.cu``, replacing the JAX functions defined at
@@ -1866,8 +1943,10 @@ def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
     forward also at ``serve_tbh``); ``launches`` counts one train step
     (the default backward; the other one for the kernel only it runs);
     ``max_abs_err`` is the check at ``train_tbh`` with qbits 0;
-    ``library_ms`` is ``library`` (cuDNN's nn.GRU), a yardstick.
-    ``fwd_extra`` maps more keys of the forward's row to ``times``."""
+    ``library_ms`` is ``library`` (a cuDNN module), a yardstick, read
+    from ``times`` under ``<lib>_fwd_ms``, ``<lib>_bwd_ms`` and
+    ``<lib>_serve_fwd_ms``. ``fwd_extra`` maps more keys of the forward's
+    row to ``times``."""
     T, B, H = train_tbh
     note = "%s %%s: a yardstick, not the same function" % library
     bwd_note = note % "backward (fwd+bwd minus fwd)"
@@ -1897,18 +1976,18 @@ def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
     fwd, bwd_stash, bwd = ("fused_%s_%s" % (cell, k)
                            for k in ("fwd", "bwd_stash", "bwd"))
     return [
-        row(fwd, replaces[0], times["cudnn_gru_fwd_ms"], note % "forward",
+        row(fwd, replaces[0], times[lib + "_fwd_ms"], note % "forward",
             err_at(fwd + "/stash"), variant="stash (training forward)",
             serve={"T": serve_tbh[0], "B": serve_tbh[1], "H": H,
                    "ms": times["serve_fwd_ms"],
                    "plain_ms": times["serve_fwd_plain_ms"],
                    "bound_ms": times["serve_fwd_bound_ms"],
                    "bound_by": times["serve_fwd_bound_by"],
-                   "library_ms": times["cudnn_gru_serve_fwd_ms"]},
+                   "library_ms": times[lib + "_serve_fwd_ms"]},
             **{k: times[v] for k, v in fwd_extra.items()}),
-        row(bwd_stash, replaces[1], times["cudnn_gru_bwd_ms"], bwd_note,
+        row(bwd_stash, replaces[1], times[lib + "_bwd_ms"], bwd_note,
             err_at(bwd_stash)),
-        row(bwd, replaces[2], times["cudnn_gru_bwd_ms"], bwd_note,
+        row(bwd, replaces[2], times[lib + "_bwd_ms"], bwd_note,
             err_at(bwd))]
 
 
@@ -2318,7 +2397,7 @@ def phase_gru_times(dev, rec, audio, lens):
         times["dense_masked_dx_ms"] = cuda_ms(lambda: dy @ W, reps=20)
         times["serve_dense_masked_fwd_ms"] = cuda_ms(lambda: xs @ W.T,
                                                      reps=20)
-    times.update(cudnn_gru_times(dev, T, B, H, Ts, Bs))
+    times.update(cudnn_times(dev, T, B, H, Ts, Bs))
     print("[gru_times] kernels at T=%d B=%d H=%d (Kb=%d, R=%d; tanh, qbits "
           "16) and v3 at M=%d K=%d G=3 (Kb=%d, R=%d): %s"
           % (T, B, H, layout.Kb, layout.R, M, vl.K, vl.Kb, vl.R,
@@ -2696,13 +2775,370 @@ def phase_timit_gru_times(dev, rec, audio, lens):
         sq, hq = (torch.randn(T * B, H, device=dev) for _ in range(2))
         times["dU_matmul_ms"] = cuda_ms(
             lambda: torch.cat([dg[:, :H].T @ sq, dg[:, H:].T @ hq]), reps=20)
-    times.update(cudnn_gru_times(dev, T, B, H, Ts, Bs))
+    times.update(cudnn_times(dev, T, B, H, Ts, Bs))
     print("[timit_gru_times] kernels at T=%d B=%d H=%d (tanh, no quantizer): "
           "%s" % (T, B, H, json.dumps(times)))
     step = train_step_times(dev, timit_gru_train_runner, "timit_gru_times", 5,
                             3)
     serve = serve_timings(rec, audio, lens)
     print("[timit_gru_times] TIMIT GRU recognizer (8 x 4 s batch): %s"
+          % json.dumps(serve))
+    return times, step, serve
+
+
+# ---------------------------------------------------------------------------
+# the TIMIT RNN slice: the dense fused RNN (serve, stream, train), and the
+# cuDNN-class wrappers on the ported kernels
+# ---------------------------------------------------------------------------
+
+def check_timit_rnn(rnn, act="relu"):
+    """The TIMIT RNN as the cfg ships it: 4x550 relu (or ``act``), no
+    sparse layout, every layer on the dense fused RNN."""
+    if (list(rnn.lay) != [TR_TRAIN_TBH[2]] * TR_LAYERS or rnn._rec_layouts
+            or rnn._bs_layouts or set(rnn.act_names) != {act}
+            or not all(rnn._fused_ok(i) for i in range(rnn.N))):
+        raise AssertionError("the TIMIT RNN cfg did not build a 4x550 %s "
+                             "RNN on the dense fused kernels" % act)
+
+
+def build_timit_rnn_stack(dev, feat_dim=TR_FEAT):
+    """The TIMIT RNN -> its 1944-way cd head (weights from init(0) /
+    init(1), the head times TIMIT_RNN_HEAD_GAIN)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import MLP, RNN
+    secs = cfg_sections(TIMIT_RNN_CFG)
+    rnn = RNN(dict(secs["architecture1"], to_do="forward"), feat_dim,
+              seed=0, device=dev)
+    mlp = MLP(dict(secs["architecture2"], to_do="forward"), rnn.out_dim,
+              seed=1, device=dev)
+    check_timit_rnn(rnn)
+    with torch.no_grad():
+        mlp.params["w0"].mul_(TIMIT_RNN_HEAD_GAIN)
+    return Stack(rnn, mlp).eval()
+
+
+def phase_timit_rnn_kernels(dev):
+    """The dense RNN forward (plain, stash and seeded) and both BPTT
+    kernels against their twins on the same tensors: qbits 0/16 x
+    tanh/relu at the small ragged shape (a (B, H) mask and the eval
+    scalar), the training shape (mask), the serving shape (the eval
+    scalar; forward only) and H=1024 (T=6, 96 rows; the scalar); the
+    seeded forward from h_{k-1} against the zero-state forward's steps
+    k..T-1; each wrapper's launch counter must move by its launches."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    checks = []
+
+    def check(name, shape, variant, err_rel, tol, by_rel):
+        record_check(checks, "timit_rnn_kernels", name,
+                     dict(zip("TBH", shape)), variant, err_rel, tol, by_rel)
+
+    def launched(w, n, fn):
+        before = w.launches
+        out = fn()
+        if w.launches - before != n:
+            raise AssertionError("%s: %d launches, expected %d"
+                                 % (w.__name__, w.launches - before, n))
+        return out
+
+    drops = {SMALL_TBH: ("(B,H)", "(1,1)"), TR_TRAIN_TBH: ("(B,H)",),
+             TR_SERVE_TBH: ("(1,1)",), TR_WIDE_TBH: ("(1,1)",)}
+    k = 0
+    for shape, shape_drops in drops.items():
+        T, B, H = shape
+        small, serve = shape == SMALL_TBH, shape == TR_SERVE_TBH
+        cases = [(q, a, d) for q in (0, 16) for a in ("tanh", "relu")
+                 for d in shape_drops]
+        for qbits, act, dname in cases:
+            k += 1
+            inp = gated_inputs(T, B, H, 180 + k, dev, act, 1)
+            g, U, h0, dhs = (inp[n] for n in ("g", "U", "h0", "dhs"))
+            drop = (inp["drop"] if dname == "(B,H)"
+                    else torch.full((1, 1), 0.8, device=dev))
+            variant = {"qbits": qbits, "act": act, "drop": dname}
+            tol = TOL_F32_SMALL if small else TOL_F32_SERVE
+            tol_q = TOL_Q16 if qbits else tol
+            fwd = R.fused_rnn_fwd
+            with torch.no_grad():
+                ref = R.fused_rnn_fwd_plain(g, U, drop, None, act, qbits, True)
+                hs = launched(fwd, T, lambda: fwd(g, U, drop, act=act,
+                                                  qbits=qbits))
+                check("fused_rnn_fwd", shape, variant, rel_err(hs, ref[0]),
+                      tol_q, False)
+                check("fused_rnn_fwd/seeded", shape, variant, rel_err(
+                    launched(fwd, T, lambda: fwd(g, U, drop, h0, act=act,
+                                                 qbits=qbits)),
+                    R.fused_rnn_fwd_plain(g, U, drop, h0, act, qbits)),
+                    tol_q, False)
+                s = T // 2          # seeded from h_{s-1}: steps s..T-1
+                check("fused_rnn_fwd/seeded_vs_shifted", shape, variant,
+                      rel_err(launched(fwd, T - s, lambda: fwd(
+                          g[s:].contiguous(), U, drop, hs[s - 1].contiguous(),
+                          act=act, qbits=qbits)), hs[s:]), tol_q, False)
+                if serve:
+                    continue
+                hs_s, acts = launched(fwd, T, lambda: fwd(
+                    g, U, drop, act=act, qbits=qbits, stash=True))
+                check("fused_rnn_fwd/stash", shape, variant,
+                      rel_err((hs_s, acts), ref), tol_q, False)
+                h_prev = torch.cat([torch.zeros_like(hs_s[:1]), hs_s[:-1]])
+                check("fused_rnn_bwd_stash", shape, variant, rel_err(
+                    launched(R.fused_rnn_bwd_stash, T,
+                             lambda: R.fused_rnn_bwd_stash(
+                                 acts, U, drop, dhs, act)),
+                    R.fused_rnn_bwd_stash_plain(acts, U, drop, dhs, act)),
+                    tol, True)
+                check("fused_rnn_bwd", shape, variant, rel_err(
+                    launched(R.fused_rnn_bwd, T + 1,
+                             lambda: R.fused_rnn_bwd(g, U, drop, h_prev, dhs,
+                                                     act, qbits)),
+                    R.fused_rnn_bwd_plain(g, U, drop, h_prev, dhs, act,
+                                          qbits)), tol_q, True)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("a dense RNN kernel disagrees with its plain "
+                             "twin: %s" % bad)
+    return checks
+
+
+def timit_rnn_expect_serve(T):
+    """Launches per recognize: 4 layers x 1 per frame."""
+    return expected(fused_rnn_fwd=TR_LAYERS * T)
+
+
+def timit_rnn_train_setup(compute_dtype="", lr_scale=1.0, act="relu"):
+    """The TIMIT RNN train step (chunk_setup): the cfg's sections (its
+    relu, or ``act`` on every layer), 8 sentences of 300 frames, fMLLR x
+    of width 40 and cd labels."""
+    T, B, _ = TR_TRAIN_TBH
+    secs = cfg_sections(TIMIT_RNN_CFG, compute_dtype, lr_scale)
+    if act != "relu":
+        secs["architecture1"]["rnn_act"] = ",".join([act] * TR_LAYERS)
+    return chunk_setup(secs, T, B, "fmllr", TR_FEAT, CD_LABELS)
+
+
+def timit_rnn_train_runner(dev, compute_dtype="", lr_scale=1.0,
+                           act="relu"):
+    """A ChunkRunner over the TIMIT RNN's sections and its one batch;
+    ``runner.train_step(inp, mask, chip_smoke.dropout_gen())`` for masks
+    that match the CPU's (the cfg has dropout 0.2)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import RNN
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    config, chunk, batch = timit_rnn_train_setup(compute_dtype, lr_scale, act)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    rnn = graph.nets["RNN_layers"]
+    if type(rnn) is not RNN:
+        raise AssertionError("the TIMIT RNN cfg did not build an RNN")
+    check_timit_rnn(rnn, act)
+    return ChunkRunner(graph, config), batch
+
+
+def phase_timit_rnn_train(dev):
+    """One train step on the card against the CPU with the recompute
+    backward (the default) and, from fresh runners, with the stash one
+    (PKC_BWD_STASH_CELLS=rnn); launches per step in both; 10 steps at
+    TR_FALL_LR_SCALE times the cfg's learning rates in f32 and bf16, and
+    TR_CFG_LR_STEPS at the cfg's own (printed, not checked).
+
+    The relu recurrence has ~5M pre-activations a step, some within an
+    ulp of 0, where relu's derivative flips between the card's sums and
+    the CPU's: the shipped cfg's gradients are held to GRAD_FLIP_K times
+    the CPU's own worst change under a one-ulp change of x (measured in
+    the run, at least TOL_GRAD_REL), as the Li-GRU's; the same step with
+    rnn_act=tanh (no flips) to TOL_GRAD_REL, with both backwards."""
+    T = TR_TRAIN_TBH[0]
+    n = TR_LAYERS * T
+    knob = "PKC_BWD_STASH_CELLS"
+    inp, mask = timit_rnn_train_setup()[2]
+    sens, where = ulp_sensitivity(timit_rnn_train_runner, inp, mask,
+                                  TR_FEAT)
+    grad_tol = max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
+    print("[timit_rnn_train] the CPU's own gradients under a one-ulp change "
+          "of x: worst rel change %.3g at %s; card vs CPU bar %.3g"
+          % (sens, where, grad_tol))
+    out = phase_train(dev, timit_rnn_train_runner, "timit_rnn_train", (
+        ("recompute", knob, None,
+         expected(fused_rnn_fwd=n, fused_rnn_bwd=TR_LAYERS * (T + 1))),
+        ("stash", knob, "rnn",
+         expected(fused_rnn_fwd=n, fused_rnn_bwd_stash=n))),
+        grad_tol=grad_tol, fall_runner=lambda d, cdt="":
+        timit_rnn_train_runner(d, cdt, TR_FALL_LR_SCALE))
+    out.update(cpu_ulp_grad_rel_change=sens, cpu_ulp_worst=where)
+    runner, (inp, mask) = timit_rnn_train_runner(dev)
+    cfg_lr = [float(runner.train_step(inp, mask)[0])
+              for _ in range(TR_CFG_LR_STEPS)]
+    out["losses_f32_cfg_lr"] = [v if np.isfinite(v) else str(v)
+                                for v in cfg_lr]
+    print("[timit_rnn_train] f32 at the cfg's learning rates: loss %s"
+          % ["%.4f" % v for v in cfg_lr])
+    runner, (inp, mask) = timit_rnn_train_runner(dev)
+    with env(knob, "rnn"):
+        loss_err = runner.train_step(inp, mask, dropout_gen())
+    out["stash_vs_cpu"] = card_vs_cpu(
+        runner, timit_rnn_train_runner("cpu")[0], inp, mask, loss_err, knob,
+        "rnn", "timit_rnn_train, stash backward", grad_tol)
+
+    def tanh(d, cdt=""):
+        return timit_rnn_train_runner(d, cdt, act="tanh")
+    for name, value in (("recompute", None), ("stash", "rnn")):
+        runner, (inp, mask) = tanh(dev)
+        with env(knob, value):
+            loss_err = runner.train_step(inp, mask, dropout_gen())
+        out["tanh_%s_vs_cpu" % name] = card_vs_cpu(
+            runner, tanh("cpu")[0], inp, mask, loss_err, knob, value,
+            "timit_rnn_train, rnn_act=tanh, %s backward" % name)
+    return out
+
+
+def cudnn_wrapper(dev, name, H, extra):
+    """A cuDNN-class wrapper as a user builds it: 2 layers of H, both
+    directions, inter-layer dropout 0.2, over the fMLLR width."""
+    from pytorch_kaldi_cgs_tpu_torch import models
+    opts = dict({"hidden_size": str(H), "num_layers": "2",
+                 "bidirectional": "True", "dropout": "0.2", "bias": "True",
+                 "arch_name": name}, **extra)
+    return getattr(models, name)(opts, TR_FEAT, seed=0, device=dev)
+
+
+def phase_cudnn_wrappers(dev):
+    """RNN_cudnn (2x550 relu) and LSTM_cudnn (2x512), bidirectional, at
+    T=300 over 8 sentences: eval and a train-mode forward + backward on
+    the card, launch counters set to 0 just before and read just after
+    each (only the ported kernels: 4 layer calls a direction pair, the
+    default backward), against the same model on the CPU: outputs within
+    TOL_F32_SERVE, every gradient within TOL_GRAD_REL of its scale."""
+    T, B, _ = TR_TRAIN_TBH
+    x = torch.tensor(np.random.RandomState(7).randn(T, B, TR_FEAT)
+                     .astype(np.float32))
+    dy = torch.tensor(np.random.RandomState(8).randn(T, B, 1100)
+                      .astype(np.float32) * 0.01)
+    out = {}
+    for name, H, extra in CUDNN_CASES:
+        cell = "rnn" if name == "RNN_cudnn" else "lstm"
+        want_eval = expected(**{"fused_%s_fwd" % cell: 4 * T})
+        want_train = expected(**(
+            {"fused_rnn_fwd": 4 * T, "fused_rnn_bwd": 4 * (T + 1)}
+            if cell == "rnn" else
+            {"fused_lstm_fwd": 4 * T, "fused_lstm_bwd_stash": 4 * T}))
+
+        def run(d):
+            """-> (eval y, train y, grads, eval and train launches)."""
+            model = cudnn_wrapper(d, name, H, extra)
+            xd, dyd = x.to(d), dy[..., :2 * H].to(d)
+            count = counted if d == dev else (lambda fn: (fn(), None))
+
+            def train():
+                y = model.run(xd, train=True, generator=dropout_gen())
+                y.backward(dyd)
+                return y.detach()
+            with torch.no_grad():
+                y_eval, l_eval = count(lambda: model.run(xd, train=False))
+            y_train, l_train = count(train)
+            return (y_eval.cpu(), y_train.cpu(),
+                    {k: p.grad.cpu() for k, p in model.params.items()},
+                    l_eval, l_train)
+        ye, yt, gd, l_eval, l_train = run(dev)
+        ye_c, yt_c, gc, _, _ = run("cpu")
+        if l_eval != want_eval or l_train != want_train:
+            raise AssertionError("%s launched %s (eval), %s (train); "
+                                 "expected %s, %s" % (
+                                     name, l_eval, l_train, want_eval,
+                                     want_train))
+        grad_errs = {k: float((gd[k] - gc[k]).abs().max())
+                     / max(float(gc[k].abs().max()), 1e-30) for k in gc}
+        worst = max(grad_errs, key=grad_errs.get)
+        r = {"H": H, "eval_max_abs_err": float((ye - ye_c).abs().max()),
+             "train_max_abs_err": float((yt - yt_c).abs().max()),
+             "grads_compared": len(grad_errs),
+             "grad_rel_err_max": grad_errs[worst], "grad_rel_err_worst": worst,
+             "launches_eval": {k: v for k, v in l_eval.items() if v},
+             "launches_train": {k: v for k, v in l_train.items() if v}}
+        print("[cudnn_wrappers] %s: %s" % (name, json.dumps(r)))
+        if not (r["eval_max_abs_err"] <= TOL_F32_SERVE
+                and r["train_max_abs_err"] <= TOL_F32_SERVE
+                and r["grad_rel_err_max"] <= TOL_GRAD_REL):
+            raise AssertionError("%s on the card disagrees with the CPU"
+                                 % name)
+        out[name] = r
+    return out
+
+
+def rnn_bound_ms(T, B, H, kind):
+    """Least time for one RNN layer call in float32: each input read
+    once, each output written once, over the HBM rate; the FMAs of its
+    (B, H) x (H, H) products over the float32 peak. kind: "fwd" (gates,
+    U, drop in; hs out), "fwd_stash" (and the (T, B, H) stash out),
+    "bwd_stash" (stash, U, drop, dhs in; dg out; one product per step),
+    "bwd" (gates, U, drop, h_prev, dhs in; dg out; that product and the
+    forward's)."""
+    seq = T * B * H * 4
+    nbytes = {"fwd": 2 * seq, "fwd_stash": 3 * seq, "bwd_stash": 3 * seq,
+              "bwd": 4 * seq}[kind]
+    return roofline_ms(nbytes + H * H * 4 + B * H * 4,
+                       2 * T * B * H * H * (2 if kind == "bwd" else 1))
+
+
+def phase_timit_rnn_times(dev, rec, audio, lens):
+    """CUDA-event times of the dense RNN kernels per layer call at the
+    training shape (the forward also at the serving shape, with the eval
+    scalar), as the cfg runs them (relu, no quantizer); their twins and
+    bounds; cuDNN's nn.RNN(550, 550, nonlinearity="relu") as a
+    yardstick; the dU matmul; the TIMIT RNN train step and recognize."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = TR_TRAIN_TBH
+    act = "relu"
+    inp = gated_inputs(T, B, H, 195, dev, act, 1)
+    g, U, drop, dhs = (inp[n] for n in ("g", "U", "drop", "dhs"))
+    times = {}
+    with torch.no_grad():
+        hs, acts = R.fused_rnn_fwd(g, U, drop, act=act, stash=True)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        calls = {
+            "fused_rnn_fwd": (
+                lambda: R.fused_rnn_fwd(g, U, drop, act=act, stash=True),
+                lambda: R.fused_rnn_fwd_plain(g, U, drop, None, act, 0, True),
+                "fwd_stash"),
+            "fused_rnn_bwd_stash": (
+                lambda: R.fused_rnn_bwd_stash(acts, U, drop, dhs, act),
+                lambda: R.fused_rnn_bwd_stash_plain(acts, U, drop, dhs, act),
+                "bwd_stash"),
+            "fused_rnn_bwd": (
+                lambda: R.fused_rnn_bwd(g, U, drop, h_prev, dhs, act),
+                lambda: R.fused_rnn_bwd_plain(g, U, drop, h_prev, dhs, act),
+                "bwd")}
+        for name, (fn, plain, kind) in calls.items():
+            times[name + "_ms"] = cuda_ms(fn, reps=10)
+            times[name + "_plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                rnn_bound_ms(T, B, H, kind)
+        times["fused_rnn_fwd_nostash_ms"] = cuda_ms(
+            lambda: R.fused_rnn_fwd(g, U, drop, act=act), reps=10)
+        times["fused_rnn_fwd_ms_q16"] = cuda_ms(
+            lambda: R.fused_rnn_fwd(g, U, drop, act=act, qbits=16,
+                                    stash=True), reps=10)
+        Ts, Bs, _ = TR_SERVE_TBH
+        sv = gated_inputs(Ts, Bs, H, 196, dev, act, 1)
+        d11 = torch.full((1, 1), 0.8, device=dev)
+        times["serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_rnn_fwd(sv["g"], sv["U"], d11, act=act), reps=10)
+        times["serve_fwd_plain_ms"] = cuda_ms(
+            lambda: R.fused_rnn_fwd_plain(sv["g"], sv["U"], d11, None, act,
+                                          0), reps=2, warmup=1)
+        times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
+            rnn_bound_ms(Ts, Bs, H, "fwd")
+        # the dU product outside the BPTT kernel: (H, T*B) @ (T*B, H)
+        dg = torch.randn(T * B, H, device=dev)
+        hq = torch.randn(T * B, H, device=dev)
+        times["dU_matmul_ms"] = cuda_ms(lambda: dg.T @ hq, reps=20)
+    times.update(cudnn_times(
+        dev, T, B, H, Ts, Bs, torch.nn.RNN(H, H, nonlinearity="relu"),
+        "cudnn_rnn"))
+    print("[timit_rnn_times] kernels at T=%d B=%d H=%d (relu, no quantizer): "
+          "%s" % (T, B, H, json.dumps(times)))
+    step = train_step_times(dev, timit_rnn_train_runner, "timit_rnn_times",
+                            5, 3)
+    serve = serve_timings(rec, audio, lens)
+    print("[timit_rnn_times] TIMIT RNN recognizer (8 x 4 s batch): %s"
           % json.dumps(serve))
     return times, step, serve
 
@@ -2867,7 +3303,7 @@ def main():
         "sparse_serve", phase_serve, dev, audio, lens, build_cgs_stack,
         "sparse_serve", "fused_lstm_fwd_sparse")
     sp_stream_launches, sp_stream_err = timed(
-        "sparse_stream", phase_sparse_stream, dev, sp_rec, audio, lens,
+        "sparse_stream", phase_chunked_stream, dev, sp_rec, audio, lens,
         sp_phones, sp_logp)
     sp_train = timed("sparse_train", phase_sparse_train, dev)
     lg_rec, lg_phones, lg_logp, lg_serve_launches, lg_post_err = timed(
@@ -2904,6 +3340,16 @@ def main():
         2 * TG_LAYERS)
     tg_train = timed("timit_gru_train", phase_timit_gru_train, dev)
     large = timed("gru_large_batch", phase_gru_large_batch, dev)
+    tr_checks = timed("timit_rnn_kernels", phase_timit_rnn_kernels, dev)
+    tr_rec, tr_phones, tr_logp, tr_serve_launches, tr_post_err = timed(
+        "timit_rnn_serve", phase_serve, dev, audio, lens,
+        build_timit_rnn_stack, "timit_rnn_serve", "fused_rnn_fwd", TOL_POST,
+        timit_rnn_expect_serve)
+    tr_stream_launches, tr_stream_err = timed(
+        "timit_rnn_stream", phase_chunked_stream, dev, tr_rec, audio, lens,
+        tr_phones, tr_logp, "timit_rnn_stream", "fused_rnn_fwd", TR_LAYERS)
+    tr_train = timed("timit_rnn_train", phase_timit_rnn_train, dev)
+    cudnn = timed("cudnn_wrappers", phase_cudnn_wrappers, dev)
     serve_times, serve = timed("times", phase_times, dev, rec, audio, lens)
     serve["posteriors_vs_cpu_max_abs_err"] = post_err
     times, step = timed("train_times", phase_train_times, dev)
@@ -2915,6 +3361,9 @@ def main():
                                         gr_rec, audio, lens)
     tg_times, tg_step, tg_serve = timed("timit_gru_times",
                                         phase_timit_gru_times, dev, tg_rec,
+                                        audio, lens)
+    tr_times, tr_step, tr_serve = timed("timit_rnn_times",
+                                        phase_timit_rnn_times, dev, tr_rec,
                                         audio, lens)
     sp_serve.update(posteriors_vs_cpu_max_abs_err=sp_post_err,
                     stream_vs_whole_max_abs_err=sp_stream_err,
@@ -3023,6 +3472,38 @@ def main():
         "gru_large_batch": large,
         "yardsticks": {k: v for k, v in tg_times.items()
                        if "cudnn" in k or "dU" in k}}))
+    tr_serve.update(posteriors_vs_cpu_max_abs_err=tr_post_err,
+                    stream_vs_whole_max_abs_err=tr_stream_err)
+    tr_rc, tr_st = tr_train["launches_recompute"], tr_train["launches_stash"]
+    rc_eval, rc_train = (cudnn["RNN_cudnn"]["launches_eval"],
+                         cudnn["RNN_cudnn"]["launches_train"])
+    tr_launches = {
+        "fused_rnn_fwd": {"main": tr_rc["fused_rnn_fwd"],
+                          "timit_rnn_train_stash": tr_st["fused_rnn_fwd"],
+                          "timit_rnn_serve":
+                              tr_serve_launches["fused_rnn_fwd"],
+                          "timit_rnn_stream": tr_stream_launches,
+                          "rnn_cudnn_eval": rc_eval["fused_rnn_fwd"],
+                          "rnn_cudnn_train": rc_train["fused_rnn_fwd"]},
+        "fused_rnn_bwd_stash": {"main": tr_st["fused_rnn_bwd_stash"]},
+        "fused_rnn_bwd": {"main": tr_rc["fused_rnn_bwd"],
+                          "rnn_cudnn_train": rc_train["fused_rnn_bwd"]}}
+    for name, paths in tr_launches.items():
+        if not all(paths.values()):
+            raise AssertionError("%s was not launched on every path: %s"
+                                 % (name, paths))
+    lc_eval, lc_train = (cudnn["LSTM_cudnn"]["launches_eval"],
+                         cudnn["LSTM_cudnn"]["launches_train"])
+    launches["fused_lstm_fwd"].update(
+        lstm_cudnn_eval=lc_eval["fused_lstm_fwd"],
+        lstm_cudnn_train=lc_train["fused_lstm_fwd"])
+    launches["fused_lstm_bwd_stash"]["lstm_cudnn_train"] = \
+        lc_train["fused_lstm_bwd_stash"]
+    print("[summary] TIMIT RNN %s" % json.dumps({
+        "timit_rnn_serve": tr_serve, "timit_rnn_train": tr_train,
+        "timit_rnn_train_step": tr_step, "cudnn_wrappers": cudnn,
+        "yardsticks": {k: v for k, v in tr_times.items()
+                       if "cudnn" in k or "dU" in k}}))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
                         launches)
     line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
@@ -3041,6 +3522,12 @@ def main():
         "cuDNN nn.GRU(550, 550) (torch's gate order, no dropout)",
         {"ms_nostash": "fused_gru_fwd_nostash_ms",
          "ms_q16": "fused_gru_fwd_ms_q16"})
+    line["kernels"] += dense_rnn_rows(
+        tr_checks, tr_times, tr_launches, "rnn", (1047, 1116, 1160),
+        TR_TRAIN_TBH, TR_SERVE_TBH, "relu", 0,
+        "cuDNN nn.RNN(550, 550, nonlinearity='relu') (no dropout)",
+        {"ms_nostash": "fused_rnn_fwd_nostash_ms",
+         "ms_q16": "fused_rnn_fwd_ms_q16"}, "cudnn_rnn")
     print("[timing] total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps(line))
     print(smi)

@@ -1,4 +1,5 @@
-"""Acoustic models ported so far: LSTM, GRU, liGRU and MLP.
+"""Acoustic models ported so far: LSTM, GRU, liGRU, RNN, the cuDNN-class
+LSTM_cudnn and RNN_cudnn, and MLP.
 
 Configs name a model by ``arch_library`` + ``arch_class``;
 :func:`get_model_class` resolves the built-in names to this package's
@@ -8,12 +9,18 @@ run unchanged, and never makes that package be imported.
 
 from .base import AcousticModel, CompressionSpec
 from .mlp import MLP
-from .recurrent import GRU, LSTM, liGRU
+from .recurrent import GRU, LSTM, RNN, LSTM_cudnn, RNN_cudnn, liGRU
 
-__all__ = ["AcousticModel", "CompressionSpec", "GRU", "LSTM", "MLP", "liGRU",
-           "get_model_class"]
+__all__ = ["AcousticModel", "CompressionSpec", "GRU", "LSTM", "LSTM_cudnn",
+           "MLP", "RNN", "RNN_cudnn", "liGRU", "get_model_class"]
 
-_REGISTRY = {"MLP": MLP, "LSTM": LSTM, "GRU": GRU, "liGRU": liGRU}
+_REGISTRY = {"MLP": MLP, "LSTM": LSTM, "GRU": GRU, "liGRU": liGRU,
+             "RNN": RNN, "LSTM_cudnn": LSTM_cudnn, "RNN_cudnn": RNN_cudnn}
+
+#: Built-in classes that wait on TPU kernels not ported yet.
+_WAITING = {"GRU_cudnn": "its torch-semantics GRU kernels "
+                         "(ops/fused_rnn.py:_build_gru_torch_fwd, "
+                         "_build_gru_torch_bwd)"}
 
 #: Library names that mean "the built-in models".
 BUILTIN_LIBRARIES = ("pytorch_kaldi_cgs_tpu_torch.models",
@@ -26,6 +33,10 @@ def get_model_class(arch_library: str, arch_class: str):
     is not ported yet raises); any other library through importlib, as
     the reference's dynamic import."""
     if arch_library in BUILTIN_LIBRARIES:
+        if arch_class in _WAITING:
+            raise NotImplementedError(
+                "arch_class %r is not ported yet: it needs %s"
+                % (arch_class, _WAITING[arch_class]))
         if arch_class not in _REGISTRY:
             raise NotImplementedError(
                 "arch_class %r is not ported yet (have %s)"

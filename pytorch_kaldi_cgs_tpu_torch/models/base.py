@@ -295,7 +295,8 @@ class AcousticModel(nn.Module):
         ``carries`` is what the previous call returned (None for fresh
         streams). Feeding the chunks back to back reproduces the
         whole-utterance eval output."""
-        if getattr(self, "bidir", False):
+        if getattr(self, "bidir", False) or getattr(self, "bidirectional",
+                                                    False):
             raise ValueError("bidirectional models cannot stream (%s)"
                              % self.arch_name)
         return self._run(x, False, list(carries or []), None)

@@ -128,11 +128,15 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout (MLP path)."""
+    """Inverted dropout (the MLP's and the cuDNN-class wrappers'
+    inter-layer path). The draw is made on the generator's device and
+    moved to ``x``'s, as :func:`shared_time_drop_mask` does."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    src = generator.device if generator is not None else x.device
+    mask = (torch.rand(x.shape, generator=generator, device=src) < keep
+            ).to(x.device)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

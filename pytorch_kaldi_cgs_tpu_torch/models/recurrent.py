@@ -1,5 +1,7 @@
 """The recurrent acoustic models (port of ``pytorch_kaldi_cgs_tpu/models/
-recurrent.py``: ``_RecurrentBase``, ``LSTM``, ``GRU`` and ``liGRU``).
+recurrent.py``: ``_RecurrentBase``, ``LSTM``, ``GRU``, ``liGRU`` and
+``RNN``, and the cuDNN-class ``_CudnnBase``, ``LSTM_cudnn`` and
+``RNN_cudnn``; ``GRU_cudnn`` waits on its torch-semantics GRU kernels).
 
 Time-major (T, B, F). Per layer: one fused input projection for all the
 x-gates (HCGS mask + quantizer applied to the weights), batch norm on
@@ -12,10 +14,10 @@ the card, their plain twins on the CPU; under autograd the BPTT kernels
 give the gradients) whenever the layer has no in-scan layer norm and its
 activation is tanh, relu, htanh or linear (``_fused_ok``); otherwise a
 plain step loop that autograd differentiates. LSTM: ``ops.fused_lstm``,
-streaming passes the (h, c) carries to the seeded-carry variant. liGRU
-and GRU: ``ops.fused_rnn``, in float32 whatever the compute dtype, as
-the JAX package's fused liGRU and GRU; streaming passes the h carry to
-the seeded forward. The JAX package's VMEM size rules and
+streaming passes the (h, c) carries to the seeded-carry variant. liGRU,
+GRU and RNN: ``ops.fused_rnn``, in float32 whatever the compute dtype,
+as the JAX package's fused liGRU, GRU and RNN; streaming passes the h
+carry to the seeded forward. The JAX package's VMEM size rules and
 ``*_fused_scan`` options do not choose the path here: the kernels take
 any batch.
 
@@ -26,8 +28,9 @@ row runs its whole-utterance recurrence over the kept blocks only
 (``fused_lstm.lstm_scan_fused_sparse``, ``fused_rnn.
 gru_scan_fused_sparse``), in float32 whatever the compute dtype, as the
 JAX package does, at any batch; the LSTM and the GRU stream on their
-dense seeded kernels over the masked U. Such a liGRU layer raises where
-the JAX package would take its sparse kernels (not ported yet). An
+dense seeded kernels over the masked U. Such a liGRU or RNN layer
+raises where the JAX package would take its sparse kernels (not ported
+yet). An
 x-projection the JAX package puts on its v3 block-sparse kernels (128-
 multiple blocks; under auto from 16 column blocks with at least half of
 each row's dropped) runs on them here too
@@ -36,6 +39,14 @@ dtype): from the packed ``<gate><i>__bs`` leaves after
 ``pack_variables`` (training), else from kept blocks gathered out of the
 dense weights (serving); every other HCGS projection runs dense-masked.
 Sequence parallelism is not ported.
+
+The cuDNN-class wrappers keep torch's parameter names and gate orders:
+``LSTM_cudnn`` permutes (i, f, g, o) onto the fused LSTM's (f, i, o, c),
+``RNN_cudnn`` runs the fused RNN; both fold ``b_hh`` into the
+projection, take a mask of ones, run a second direction over the
+time-flipped input, stream on the seeded kernels and ignore the compute
+dtype, as in the JAX package. Their inter-layer dropout is inverted and
+drawn from the caller's generator.
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ from .base import (AcousticModel, CompressionSpec, effective_weight,
                    flag_list, host_mask, maybe_quant_input, opt_bool,
                    v3_projection_layout, v3_submask)
 from .layers import (act_fun, batch_norm, batch_norm_params, batch_norm_state,
-                     layer_norm, layer_norm_params, orthogonal_init,
+                     dropout, layer_norm, layer_norm_params, orthogonal_init,
                      shared_time_drop_mask, torch_linear_init)
 
 
@@ -470,3 +481,189 @@ class liGRU(_RecurrentBase):
                                self.params["ln%d/beta" % i])
             hs.append(h)
         return torch.stack(hs), h
+
+
+class RNN(_RecurrentBase):
+    """Vanilla RNN: h = act(g + q(h) @ U.T) * drop, where the dropout
+    scales the whole hidden state (at eval the scalar 1 - p, not
+    inverted); one gate projection with batch norm."""
+
+    prefix = "rnn"
+    gates_x = ["wh"]
+    gates_h = ["uh"]
+    bn_gates = ["wh"]
+
+    def _zero_carry(self, z):
+        return z
+
+    def _recurrence(self, gates, U, drop, i, carry):
+        act = self.act_names[i]
+        qb = self._rec_qbits()
+        B, H = gates.shape[1], gates.shape[2]
+        if carry is None:
+            # where the JAX size rule keeps the layer off its sparse
+            # kernels, both packages run the dense recurrence over the
+            # masked U
+            layout = self._sparse_rec_layout(i)
+            if layout is not None and fused_lstm.sparse_scan_fits(B, H,
+                                                                  layout, 1):
+                raise NotImplementedError(
+                    "rnn layer %d: the JAX package runs this recurrence "
+                    "(Kb=%d, R=%d) on its block-sparse RNN kernels "
+                    "(ops/fused_rnn.py:_build_rnn_fwd_sparse, "
+                    "_build_rnn_bwd_sparse), which are not ported yet"
+                    % (i, layout.Kb, layout.R))
+        if self._fused_ok(i):
+            if carry is None:
+                return fused_rnn.rnn_scan_fused(
+                    gates, U, drop, act=act, quant_bits=qb), None
+            return fused_rnn.rnn_scan_fused_stream(
+                gates, U, drop, carry, act=act, quant_bits=qb)
+        return self._steps_plain(gates, U, drop, i, carry, qb)
+
+    def _steps_plain(self, gates, U, drop, i, carry, qb):
+        """Plain step loop (the JAX package's ``lax.scan`` step) for the
+        layers the kernels do not take: in-scan layer norm on h, or
+        another activation; bf16-rounded recurrent dots under bf16."""
+        T, B, H = gates.shape
+        actf = act_fun(self.act_names[i])
+        rec_u = fused_lstm.dense_u(U, self.compute_bf16)
+        h = carry if carry is not None else gates.new_zeros((B, H))
+        hs = []
+        for t in range(T):
+            h, _ = fused_rnn.rnn_cell(gates[t], h, rec_u, drop, actf, qb,
+                                      self.compute_bf16)
+            if self.use_laynorm[i]:
+                h = layer_norm(h, self.params["ln%d/gamma" % i],
+                               self.params["ln%d/beta" % i])
+            hs.append(h)
+        return torch.stack(hs), h
+
+
+# ---------------------------------------------------------------------------
+# the "cudnn-class" wrappers: plain multi-layer cells with torch's
+# parameter names and gate orders, input and recurrent biases, inverted
+# inter-layer dropout and a second direction over the time-flipped input.
+# As in the JAX package they run the custom cells' fused kernels (b_hh
+# folded into the time-batched projection, a mask of ones) and ignore the
+# compute dtype.
+# ---------------------------------------------------------------------------
+
+class _CudnnBase(AcousticModel):
+    """Shared construction and execution of ``LSTM_cudnn`` and
+    ``RNN_cudnn``: per layer and direction ``w_ih_l<i>[_r]`` (G*H, in),
+    ``w_hh_l<i>[_r]`` (G*H, H) and, with ``bias``, ``b_ih_*`` and
+    ``b_hh_*`` (G*H,), drawn U(+-1/sqrt(H)) in the JAX package's order."""
+
+    n_gates: int
+
+    def __init__(self, options: Mapping[str, Any], inp_dim: int, *,
+                 seed: int = 0, device: DeviceLike = None):
+        super().__init__(options, inp_dim, device)
+        self.hidden_size = int(options["hidden_size"])
+        self.num_layers = int(options["num_layers"])
+        self.bias = opt_bool(options, "bias", True)
+        self.bidirectional = opt_bool(options, "bidirectional", False)
+        self.dropout_p = float(options.get("dropout", 0.0) or 0.0)
+        self.out_dim = self.hidden_size * (2 if self.bidirectional else 1)
+        self.init(seed)
+
+    def init_variables(self, seed: int) -> Dict[str, Any]:
+        rng = np.random.RandomState(seed)
+        params: Dict[str, Any] = {}
+        cur, H = self.input_dim, self.hidden_size
+        nd = 2 if self.bidirectional else 1
+        k = 1.0 / np.sqrt(H)
+        for i in range(self.num_layers):
+            for d in range(nd):
+                sfx = "l%d%s" % (i, "_r" if d else "")
+                params["w_ih_" + sfx] = rng.uniform(
+                    -k, k, (self.n_gates * H, cur)).astype(np.float32)
+                params["w_hh_" + sfx] = rng.uniform(
+                    -k, k, (self.n_gates * H, H)).astype(np.float32)
+                if self.bias:
+                    params["b_ih_" + sfx] = rng.uniform(
+                        -k, k, (self.n_gates * H,)).astype(np.float32)
+                    params["b_hh_" + sfx] = rng.uniform(
+                        -k, k, (self.n_gates * H,)).astype(np.float32)
+            cur = H * nd
+        return {"params": params, "state": {}, "masks": {}}
+
+    def _zero_carry(self, z: torch.Tensor):
+        raise NotImplementedError
+
+    def _scan(self, gates: torch.Tensor, W_hh: torch.Tensor, carry):
+        """The recurrence over the projection with b_hh folded in ->
+        (hs, final carry); ``carry`` None = zero initial state."""
+        raise NotImplementedError
+
+    def _dir(self, x: torch.Tensor, sfx: str, carry):
+        proj = x @ self.params["w_ih_" + sfx].T
+        if self.bias:
+            proj = proj + self.params["b_ih_" + sfx] \
+                + self.params["b_hh_" + sfx]
+        return self._scan(proj.contiguous(), self.params["w_hh_" + sfx],
+                          carry)
+
+    def _run(self, x: torch.Tensor, train: bool, carries,
+             generator: Optional[torch.Generator]):
+        carries_out = []
+        for i in range(self.num_layers):
+            carry = None
+            if carries is not None:       # streaming: fresh streams start at 0
+                carry = (carries[i] if i < len(carries) else
+                         self._zero_carry(x.new_zeros((x.shape[1],
+                                                       self.hidden_size))))
+            h, fin = self._dir(x, "l%d" % i, carry)
+            carries_out.append(fin)
+            if self.bidirectional:
+                h_r, _ = self._dir(torch.flip(x, [0]), "l%d_r" % i, None)
+                h = torch.cat([h, torch.flip(h_r, [0])], dim=2)
+            x = h
+            if i < self.num_layers - 1:
+                x = dropout(x, self.dropout_p, train, generator)
+        return x, (None if carries is None else carries_out)
+
+
+class LSTM_cudnn(_CudnnBase):
+    """torch's ``nn.LSTM`` (gates i, f, g, o) on the dense fused LSTM
+    kernels: the gates permuted to the kernels' (f, i, o, c)."""
+
+    n_gates = 4
+    PERM = [1, 0, 3, 2]       # ifgo -> fioc
+
+    def _zero_carry(self, z):
+        return (z, z)
+
+    def _scan(self, gates, W_hh, carry):
+        B, H = gates.shape[1], self.hidden_size
+        g = torch.cat([gates.chunk(4, dim=-1)[k] for k in self.PERM], dim=-1)
+        U = torch.cat([W_hh.chunk(4, dim=0)[k] for k in self.PERM])
+        ones = g.new_ones((B, H))
+        if carry is None:
+            return fused_lstm.lstm_scan_fused(g, U, ones, act="tanh"), None
+        return fused_lstm.lstm_scan_fused_stream(g, U, ones, carry[0],
+                                                 carry[1], act="tanh")
+
+
+class RNN_cudnn(_CudnnBase):
+    """torch's ``nn.RNN`` (``nonlinearity`` tanh or relu) on the dense
+    fused RNN kernels."""
+
+    n_gates = 1
+
+    def __init__(self, options: Mapping[str, Any], inp_dim: int, **kw):
+        super().__init__(options, inp_dim, **kw)
+        self.act = ("tanh" if "tanh" in options.get("nonlinearity", "tanh")
+                    else "relu")
+
+    def _zero_carry(self, z):
+        return z
+
+    def _scan(self, gates, W_hh, carry):
+        ones = gates.new_ones((gates.shape[1], self.hidden_size))
+        if carry is None:
+            return fused_rnn.rnn_scan_fused(gates, W_hh, ones,
+                                            act=self.act), None
+        return fused_rnn.rnn_scan_fused_stream(gates, W_hh, ones, carry,
+                                               act=self.act)

@@ -1,0 +1,331 @@
+// Fused vanilla-RNN recurrence for Hopper (sm_90a), forward and BPTT,
+// plain C interface.
+//
+// Replaces three TPU kernels of pytorch_kaldi_cgs_tpu/ops/fused_rnn.py:
+//   _build_rnn_fwd (fused_rnn_fwd): the forward, in all its variants: the
+//     seeded carry h0 (with_init, the streaming forward) and stash (the
+//     training forward, which also writes the post-activation a of every
+//     step, BEFORE the dropout: h / drop would divide by dropped zeros);
+//   _build_rnn_bwd_stash (fused_rnn_bwd, stash=1): the reverse recurrence
+//     over that stash;
+//   _build_rnn_bwd (fused_rnn_bwd, stash=0): the same, rebuilding the
+//     pre-activation from g and h_{t-1} (the default backward).
+// U is (H, H). Per step t:
+//
+//   a   = act(g_t + q(h_{t-1}) @ U^T)
+//   h_t = a * drop                   dropout scales the whole state
+//
+// and in reverse, from carry = 0 at t = T-1 (q passes the gradient
+// straight through, as the TPU kernels' does):
+//
+//   dh    = carry + dhs[t]
+//   dg_t  = dh * drop * act'
+//   carry = dg_t @ U
+//
+// act' comes from the activation's output a (stash) or its input a_pre
+// (recompute), as the TPU kernels take it; relu's is 1 where the value is
+// > 0 in both. dU is not formed here: the caller computes it as one
+// (H, T*B) @ (T*B, H) product. Every value is float32 (the TPU kernels
+// get U in float32 whatever the compute dtype).
+//
+// What bounds it on this card: at the TIMIT RNN's training shape (T=300,
+// B=8, H=550) the forward's products are 2*T*B*H*H = 1.45 GFLOP of
+// float32 FMAs, 0.022 ms at 67 TFLOP/s; the stash forward moves ~17 MB
+// (0.005 ms at 3.35 TB/s), so operations bound it; the recompute backward
+// does the forward's products and their transposes (0.043 ms). But each
+// step needs all of h_{t-1} (forward) or all of dg_{t+1} (backward),
+// written by every block of the step before, and on Hopper blocks run in
+// no order: as the other fused recurrences do, this first design launches
+// one kernel per step from the host loop (the launch boundary is the
+// grid-wide barrier) and re-reads U (1.2 MB at H=550, resident in the
+// 50 MB L2) every step. Its time is ~T launches, far above the bound; a
+// persistent kernel with U split across the SMs' shared memory is later
+// work.
+//
+// The recompute backward's pre-activations a_pre = g + q(h_{t-1}) @ U^T
+// do not depend on dh, so one launch rebuilds them for all T (grid.z =
+// steps) before the reverse loop, after one reduction for the T scales of
+// q(h_{t-1}) when qbits > 0. The reverse chain then has one dependent
+// product per step, against rows of U^T (passed in, (H, H)) so that the
+// lanes read consecutive addresses.
+//
+// Per step, a block owns UNITS hidden units and BT batch rows: it stages
+// the rows' q(h_{t-1}) or dg_{t+1} (BT x H floats, 32 KB at H=1024) in
+// shared memory, and each warp forms the dot of one row of U (or U^T)
+// with every staged row (lanes over k, then a shuffle reduction). Widths
+// need not be multiples of 32 or of UNITS (H=550): every loop masks.
+//
+// qbits > 0: q() scales by max|h_{t-1}| over the step's whole (B, H)
+// block, taken with an atomicMax on the float bits (a non-negative float's
+// bits order like its value) into a per-step slot zeroed first; slot 0
+// holds max|h0| (0 for the zero state, which leaves h unquantized). The
+// stash backward takes no quantizer.
+
+#include <cmath>
+
+#include "lstm_common.cuh"
+
+namespace {
+
+constexpr int UNITS = 8;            // hidden units per block
+constexpr int BT = 8;               // batch rows per block
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+
+// Stage nb rows of q(v) (B, H) from row b0 into sm (BT x H); no quantizer
+// when scale is null; nullptr v stages zeros.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ v,
+                                           int b0, int nb, int H,
+                                           const unsigned* __restrict__ scale,
+                                           float qscale, float* sm) {
+  const float var = scale ? __uint_as_float(*scale) : 0.f;
+  for (int e = threadIdx.x; e < nb * H; e += THREADS) {
+    float x = v ? v[(size_t)b0 * H + e] : 0.f;
+    if (scale) x = quant(x, var, qscale);
+    sm[e] = x;
+  }
+}
+
+// usm[b][r] = sum_k sm[b][k] * W[u0 + r][k] for the block's UNITS rows of
+// the (H, H) matrix W: one warp per row, lanes over k, then a shuffle
+// reduction.
+__device__ __forceinline__ void row_dots(const float* __restrict__ W,
+                                         const float* sm, int u0, int nb,
+                                         int H, float (*usm)[UNITS]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < UNITS; r += WARPS) {
+    const int j = u0 + r;
+    float acc[BT];
+#pragma unroll
+    for (int b = 0; b < BT; ++b) acc[b] = 0.f;
+    if (j < H) {
+      const float* row = W + (size_t)j * H;
+#pragma unroll 4
+      for (int k = lane; k < H; k += 32) {
+        const float w = row[k];
+#pragma unroll
+        for (int b = 0; b < BT; ++b)
+          if (b < nb) acc[b] = fmaf(sm[b * H + k], w, acc[b]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < BT; ++b) {
+      float v = acc[b];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) usm[b][r] = v;
+    }
+  }
+}
+
+// One forward step (blockIdx.z = step within the launch: the forward
+// launches one step, the recompute backward's rebuild all T). With h_out
+// (the forward): a = act(g + q(h_prev) @ U^T), h_t = a * drop into h_out,
+// a into a_out when it is given (the stash), max|h_t| bits into
+// scale_out. Without (the rebuild): a_pre = g + q(h_prev) @ U^T into
+// a_out.
+__global__ void __launch_bounds__(THREADS)
+rnn_step(const float* __restrict__ g,          // (B, H) gates of the step
+         const float* __restrict__ U,          // (H, H)
+         const float* __restrict__ drop,       // (B, H)
+         const float* __restrict__ h_prev,     // (B, H); nullptr = zeros
+         float* __restrict__ h_out,            // (B, H) or nullptr
+         float* __restrict__ a_out,            // (B, H) or nullptr
+         const unsigned* __restrict__ scale_in,  // max|h_prev| bits or null
+         unsigned* __restrict__ scale_out,       // max|h_t| slot or null
+         int B, int H, int act, float qscale) {
+  extern __shared__ float sm[];                  // (BT, H) q(h_prev)
+  __shared__ float usm[BT][UNITS];
+  const size_t t = blockIdx.z, bh = (size_t)B * H;
+  g += t * bh;
+  if (a_out) a_out += t * bh;
+  if (h_prev) h_prev += t * bh;
+  if (scale_in) scale_in += t;
+  const int u0 = blockIdx.x * UNITS;
+  const int b0 = blockIdx.y * BT, nb = min(BT, B - b0);
+
+  stage_rows(h_prev, b0, nb, H, scale_in, qscale, sm);
+  __syncthreads();
+  row_dots(U, sm, u0, nb, H, usm);
+  __syncthreads();
+
+  unsigned m = 0;  // max |h_t| bits seen by this thread
+  for (int e = threadIdx.x; e < nb * UNITS; e += THREADS) {
+    const int b = e / UNITS, jj = e - b * UNITS, j = u0 + jj;
+    if (j >= H) continue;
+    const size_t ih = (size_t)(b0 + b) * H + j;
+    const float a_pre = g[ih] + usm[b][jj];
+    if (h_out) {
+      const float a = act_fn(a_pre, act);
+      const float h = a * drop[ih];
+      h_out[ih] = h;
+      if (a_out) a_out[ih] = a;
+      m = max(m, __float_as_uint(fabsf(h)));
+    } else {
+      a_out[ih] = a_pre;
+    }
+  }
+  if (h_out && scale_out) {
+    m = __reduce_max_sync(0xffffffffu, m);
+    if ((threadIdx.x & 31) == 0 && m) atomicMax(scale_out, m);
+  }
+}
+
+// Reverse step t: dh = dg_{t+1} @ U + dhs[t] (dg_{t+1} null at t = T-1:
+// dh = dhs[t]), dg_t = dh * drop * act'. PRE: a_t holds a_pre (act' from
+// the input), else the stashed a (act' from the output).
+template <bool PRE>
+__global__ void __launch_bounds__(THREADS)
+rnn_bwd_step(const float* __restrict__ a_t,      // (B, H) a or a_pre
+             const float* __restrict__ Ut,       // (H, H) = U^T
+             const float* __restrict__ drop,     // (B, H)
+             const float* __restrict__ dh_in,    // (B, H) dhs[t]
+             const float* __restrict__ dg_next,  // (B, H) dg_{t+1} or null
+             float* __restrict__ dg_out,         // (B, H) dg_t
+             int B, int H, int act) {
+  extern __shared__ float sm[];                  // (BT, H) dg_{t+1}
+  __shared__ float csm[BT][UNITS];
+  const int u0 = blockIdx.x * UNITS;
+  const int b0 = blockIdx.y * BT, nb = min(BT, B - b0);
+  if (dg_next) {
+    stage_rows(dg_next, b0, nb, H, nullptr, 0.f, sm);
+    __syncthreads();
+    row_dots(Ut, sm, u0, nb, H, csm);
+    __syncthreads();
+  }
+
+  for (int e = threadIdx.x; e < nb * UNITS; e += THREADS) {
+    const int b = e / UNITS, jj = e - b * UNITS, j = u0 + jj;
+    if (j >= H) continue;
+    const size_t ih = (size_t)(b0 + b) * H + j;
+    const float dh = (dg_next ? csm[b][jj] : 0.f) + dh_in[ih];
+    const float da = PRE ? dact_pre(a_t[ih], act) : dact_out(a_t[ih], act);
+    dg_out[ih] = dh * drop[ih] * da;
+  }
+}
+
+cudaError_t allow_smem(const void* kern, size_t smem) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+cudaError_t run_fwd(const float* gates, const float* U, const float* drop,
+                    const float* h0, float* hs, float* acts, unsigned* qslots,
+                    int T, int B, int H, int act, int qbits,
+                    cudaStream_t stream) {
+  const size_t smem = (size_t)BT * H * sizeof(float);
+  cudaError_t err = allow_smem((const void*)rnn_step, smem);
+  if (err != cudaSuccess) return err;
+  const bool q = qbits > 0;
+  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+  if (q) {
+    err = cudaMemsetAsync(qslots, 0, (size_t)(T + 1) * sizeof(unsigned),
+                          stream);
+    if (err != cudaSuccess) return err;
+    if (h0) {
+      absmax_bits<<<(B * H + 255) / 256, 256, 0, stream>>>(h0, B * H, qslots);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  const dim3 grid((H + UNITS - 1) / UNITS, (B + BT - 1) / BT);
+  const size_t bh = (size_t)B * H;
+  for (int t = 0; t < T; ++t) {
+    rnn_step<<<grid, THREADS, smem, stream>>>(
+        gates + t * bh, U, drop, t ? hs + (t - 1) * bh : h0, hs + t * bh,
+        acts ? acts + t * bh : nullptr, q ? qslots + t : nullptr,
+        q ? qslots + t + 1 : nullptr, B, H, act, qscale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <bool PRE>
+cudaError_t run_bwd(const float* lead, const float* U, const float* Ut,
+                    const float* drop, const float* h_prev, const float* dhs,
+                    float* pre, float* dg, unsigned* qslots, int T, int B,
+                    int H, int act, int qbits, cudaStream_t stream) {
+  const size_t smem = (size_t)BT * H * sizeof(float);
+  cudaError_t err = allow_smem((const void*)rnn_bwd_step<PRE>, smem);
+  if (err != cudaSuccess) return err;
+  const size_t bh = (size_t)B * H;
+  const float* a = lead;
+  if (PRE) {
+    // the pre-activations of every step at once, from the gates
+    err = allow_smem((const void*)rnn_step, smem);
+    if (err != cudaSuccess) return err;
+    const bool q = qbits > 0;
+    const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+    if (q) {
+      err = cudaMemsetAsync(qslots, 0, (size_t)T * sizeof(unsigned), stream);
+      if (err != cudaSuccess) return err;
+      const int nblk = (int)((bh + 255) / 256 < 16 ? (bh + 255) / 256 : 16);
+      absmax_steps<<<dim3(nblk, T), 256, 0, stream>>>(h_prev, (int)bh,
+                                                      qslots);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    const dim3 grid((H + UNITS - 1) / UNITS, (B + BT - 1) / BT, T);
+    rnn_step<<<grid, THREADS, smem, stream>>>(
+        lead, U, drop, h_prev, nullptr, pre, q ? qslots : nullptr, nullptr, B,
+        H, act, qscale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    a = pre;
+  }
+  // the reverse chain, one kernel per step
+  const dim3 grid((H + UNITS - 1) / UNITS, (B + BT - 1) / BT);
+  for (int t = T - 1; t >= 0; --t) {
+    rnn_bwd_step<PRE><<<grid, THREADS, smem, stream>>>(
+        a + t * bh, Ut, drop, dhs + t * bh,
+        t + 1 < T ? dg + (t + 1) * bh : nullptr, dg + t * bh, B, H, act);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* pk_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The forward on `stream`: T step kernels (plus one small reduction over
+// h0 when qbits > 0 and h0 is given). Returns the first cudaError_t seen,
+// 0 on success.
+//   gates: (T, B, H);  U: (H, H);  drop: (B, H)
+//   h0:    (B, H) seed carry, or null for zeros
+//   hs:    (T, B, H) output;  acts: (T, B, H) stash output (a), or null
+//   qslots: T+1 unsigned ints of scratch, used when qbits > 0
+int fused_rnn_fwd(const float* gates, const float* U, const float* drop,
+                  const float* h0, float* hs, float* acts, unsigned* qslots,
+                  int T, int B, int H, int act, int qbits, void* stream_ptr) {
+  return run_fwd(gates, U, drop, h0, hs, acts, qslots, T, B, H, act, qbits,
+                 static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The backward on `stream`: T step kernels in reverse time; the recompute
+// backward (stash=0) first rebuilds the pre-activations of all steps in
+// one launch (after one reduction for the T scales of q(h_{t-1}) when
+// qbits > 0). Returns the first cudaError_t seen, 0 on success.
+//   lead:   (T, B, H) stash a (stash=1) or gates (stash=0)
+//   U, Ut:  (H, H) and its transpose
+//   h_prev: (T, B, H) carries entering each step (read when stash=0)
+//   dhs:    (T, B, H);  pre: (T, B, H) scratch when stash=0
+//   dg:     (T, B, H) output
+//   qslots: T unsigned ints of scratch when stash=0 and qbits > 0
+int fused_rnn_bwd(const float* lead, const float* U, const float* Ut,
+                  const float* drop, const float* h_prev, const float* dhs,
+                  float* pre, float* dg, unsigned* qslots, int T, int B,
+                  int H, int act, int qbits, int stash, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  auto fn = stash ? run_bwd<false> : run_bwd<true>;
+  return fn(lead, U, Ut, drop, h_prev, dhs, pre, dg, qslots, T, B, H, act,
+            qbits, stream);
+}
+
+}  // extern "C"

@@ -1,11 +1,12 @@
-"""Fused liGRU and GRU recurrences (the GRU's dense and block-sparse):
-the whole layer's time loop, forward and BPTT.
+"""Fused liGRU, GRU (dense and block-sparse) and vanilla-RNN
+recurrences: the whole layer's time loop, forward and BPTT.
 
-Port of the liGRU part and the GRU parts of
-``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``. The GRU's (below, after the
-liGRU's) have their own notes. Three liGRU TPU kernels become CUDA kernels
-for ``sm_90a`` in ``csrc/fused_ligru.cu``, each with a plain PyTorch
-twin that repeats its arithmetic and is what the CPU runs:
+Port of the liGRU, GRU and RNN parts of
+``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``. The GRU's and the RNN's
+(below, after the liGRU's) have their own notes. Three liGRU TPU
+kernels become CUDA kernels for ``sm_90a`` in ``csrc/fused_ligru.cu``,
+each with a plain PyTorch twin that repeats its arithmetic and is what
+the CPU runs:
 
 - ``_build_ligru_fwd`` (``stash`` and the seeded ``with_init`` included):
   :func:`fused_ligru_fwd` / :func:`fused_ligru_fwd_plain`;
@@ -886,3 +887,264 @@ def gru_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
                                      quant_bits, wbf16)
     return fused_gru_fwd_sparse(gates_t, w3g, drop_mask, layout, act,
                                 quant_bits, wbf16)
+
+
+# ---------------------------------------------------------------------------
+# the vanilla RNN: TPU kernels _build_rnn_fwd, _build_rnn_bwd_stash and
+# _build_rnn_bwd become csrc/fused_rnn.cu. Per step t, U (H, H):
+#
+#     a = act(g + q(h) @ U.T)
+#     h = a * drop                  dropout scales the whole state
+#
+# In reverse, from carry = 0 at t = T-1:
+#
+#     dh    = carry + dhs[t]
+#     dg    = dh * drop * act'      act' from a (stash) or a_pre (recompute)
+#     carry = dg @ U
+#
+# dU is one product over the unrolled (T*B) batch with h quantized per
+# step. The stash holds a before the dropout (h / drop would divide by the
+# dropped zeros). Everything is float32, as in the JAX package. The
+# backward is the recompute one unless PKC_BWD_STASH_CELLS lists rnn.
+# ---------------------------------------------------------------------------
+
+def rnn_cell(g_t: torch.Tensor, h: torch.Tensor, rec_u: Callable,
+             drop: torch.Tensor, actf: Callable, qbits: int,
+             bf16: bool = False):
+    """One RNN step (the JAX package's RNN scan step): ``rec_u(q(h))``
+    gives the recurrent pre-activations (B, H), ``q`` the per-step
+    quantizer with a straight-through gradient, ``q(h)`` rounded to bf16
+    first when ``bf16``. -> (h, the stash a = act(...) before the
+    dropout)."""
+    hin = ste_quantize_input(h, qbits) if qbits > 0 else h
+    if bf16:
+        hin = bf16_round(hin)
+    a = actf(g_t + rec_u(hin))
+    return a * drop, a
+
+
+def fused_rnn_fwd_plain(gates: torch.Tensor, U: torch.Tensor,
+                        drop: torch.Tensor, h0: Optional[torch.Tensor],
+                        act: str, qbits: int, stash: bool = False):
+    """The forward kernel's plain twin: a Python loop over
+    :func:`rnn_cell`. -> hs (T, B, H), and ``(hs, acts)`` with the stash
+    a (T, B, H) when ``stash``."""
+    T, B, H = gates.shape
+    rec_u, actf = dense_u(U, False), ACTS[act]
+    h = gates.new_zeros((B, H)) if h0 is None else h0
+    hs, acts = [], []
+    for t in range(T):
+        h, a = rnn_cell(gates[t], h, rec_u, drop, actf, qbits)
+        hs.append(h)
+        acts.append(a)
+    return (torch.stack(hs), torch.stack(acts)) if stash else torch.stack(hs)
+
+
+def _rnn_bwd_loop(dact, U, drop, dhs):
+    """Reverse-time loop shared by the RNN's BPTT twins: ``dact(t)`` is
+    step t's act' (JAX ``_build_rnn_bwd_stash`` :1133-1139). -> dg
+    (T, B, H)."""
+    T, B, H = dhs.shape
+    Uf = U.to(torch.float32)
+    dg = dhs.new_empty((T, B, H))
+    carry = dhs.new_zeros((B, H))
+    for t in range(T - 1, -1, -1):
+        dg[t] = (carry + dhs[t]) * drop * dact(t)
+        carry = dg[t] @ Uf
+    return dg
+
+
+def fused_rnn_bwd_stash_plain(acts: torch.Tensor, U: torch.Tensor,
+                              drop: torch.Tensor, dhs: torch.Tensor,
+                              act: str = "tanh") -> torch.Tensor:
+    """Twin of the stash BPTT kernel: reverse loop over the forward's
+    stash a; act' from the activation's output. -> dg (T, B, H)."""
+    dactf = DACTS_OUT[act]
+    return _rnn_bwd_loop(lambda t: dactf(acts[t]), U, drop, dhs)
+
+
+def fused_rnn_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
+                        drop: torch.Tensor, h_prev: torch.Tensor,
+                        dhs: torch.Tensor, act: str = "tanh",
+                        qbits: int = 0) -> torch.Tensor:
+    """Twin of the recompute BPTT kernel: per reverse step it rebuilds
+    a_pre = g + q(h_{t-1}) @ U.T (q per step), act' from a_pre. -> dg
+    (T, B, H)."""
+    rec_u = dense_u(U, False)
+
+    def dact(t):
+        hq = quantize_input(h_prev[t], qbits) if qbits > 0 else h_prev[t]
+        return dact_pre(act, gates[t] + rec_u(hq))
+    return _rnn_bwd_loop(dact, U, drop, dhs)
+
+
+def _rnn_check(name, lead, U, drop, act, others):
+    """(T, B, H) float32 ``lead``, U (H, H) float32, one device,
+    contiguous float32 sequences; on the card a width whose staged rows
+    fit a block's shared memory. -> (T, B, H, drop as (B, H))."""
+    out = _check_common(name, lead, U, drop, act, (("U", U),) + others,
+                        gates=1)
+    if lead.device.type == "cuda" and 4 * 8 * out[2] > _SMEM_MAX:
+        raise ValueError("the RNN kernels take H <= %d, got %d"
+                         % (_SMEM_MAX // 32, out[2]))
+    return out
+
+
+def fused_rnn_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
+                  h0: Optional[torch.Tensor] = None, act: str = "tanh",
+                  qbits: int = 0, stash: bool = False):
+    """Whole-layer RNN forward (TPU kernel ``_build_rnn_fwd``): ``gates``
+    (T, B, H) float32, ``U`` (H, H) float32, ``drop`` broadcastable to
+    (B, H), optional seed carry ``h0`` (B, H). -> hs (T, B, H) float32,
+    and ``(hs, acts)`` with the stash a (T, B, H), the activations before
+    the dropout, when ``stash``.
+
+    CUDA tensors run the kernel (one launch per step), CPU tensors the
+    plain twin. This is the raw kernel call, with no autograd:
+    differentiable callers use :func:`rnn_scan_fused`."""
+    T, B, H, drop = _rnn_check("gates", gates, U, drop, act, (("h0", h0),))
+    _check_shapes((("h0", h0, (B, H)),))
+    if _needs_grad(gates, U, h0):
+        raise RuntimeError("fused_rnn_fwd has no autograd of its own: call "
+                           "rnn_scan_fused")
+    if gates.device.type == "cpu":
+        return fused_rnn_fwd_plain(gates, U, drop, h0, act, qbits, stash)
+    from . import _build
+    lib = _build.load("fused_rnn")
+    fn = lib.fused_rnn_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    acts = torch.empty_like(hs) if stash else None
+    qslots = torch.empty(T + 1 if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), U.data_ptr(), drop.data_ptr(), _ptr(h0),
+                hs.data_ptr(), _ptr(acts), qslots.data_ptr(), T, B, H,
+                _ACT_CODE[act], qbits, _stream(dev))
+    _build.check(lib, rc, "fused_rnn_fwd")
+    fused_rnn_fwd.launches += T
+    return (hs, acts) if stash else hs
+
+
+fused_rnn_fwd.launches = 0
+
+
+def _rnn_bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
+    T, B, H, drop = _rnn_check("acts" if stash else "gates", lead, U, drop,
+                               act, (("h_prev", h_prev), ("dhs", dhs)))
+    _check_shapes((("h_prev", h_prev, (T, B, H)), ("dhs", dhs, (T, B, H))))
+    if lead.device.type == "cpu":
+        if stash:
+            return fused_rnn_bwd_stash_plain(lead, U, drop, dhs, act)
+        return fused_rnn_bwd_plain(lead, U, drop, h_prev, dhs, act, qbits)
+    from . import _build
+    lib = _build.load("fused_rnn")
+    fn = lib.fused_rnn_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = lead.device
+    Ut = U.t().contiguous()                  # rows for dg @ U
+    pre = None if stash else torch.empty_like(lead)
+    dg = torch.empty_like(lead)
+    qslots = torch.empty(T if (qbits > 0 and not stash) else 1,
+                         dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(lead.data_ptr(), U.data_ptr(), Ut.data_ptr(), drop.data_ptr(),
+                _ptr(h_prev), dhs.data_ptr(), _ptr(pre), dg.data_ptr(),
+                qslots.data_ptr(), T, B, H, _ACT_CODE[act], qbits, int(stash),
+                _stream(dev))
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += T + (0 if stash else 1)
+    return dg
+
+
+def fused_rnn_bwd_stash(acts: torch.Tensor, U: torch.Tensor,
+                        drop: torch.Tensor, dhs: torch.Tensor,
+                        act: str = "tanh") -> torch.Tensor:
+    """BPTT over the stash (TPU kernel ``_build_rnn_bwd_stash``, under
+    ``PKC_BWD_STASH_CELLS=rnn``): ``acts`` (T, B, H) the stash forward's
+    activations before the dropout, upstream ``dhs`` (T, B, H). -> dg
+    (T, B, H). CUDA tensors run the kernel (one launch per reverse step),
+    CPU tensors the twin."""
+    return _rnn_bwd(fused_rnn_bwd_stash, acts, U, drop, None, dhs, act, 0,
+                    True)
+
+
+fused_rnn_bwd_stash.launches = 0
+
+
+def fused_rnn_bwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
+                  h_prev: torch.Tensor, dhs: torch.Tensor, act: str = "tanh",
+                  qbits: int = 0) -> torch.Tensor:
+    """BPTT with recompute (TPU kernel ``_build_rnn_bwd``, the default
+    backward): ``gates`` are the forward's inputs, ``h_prev`` (T, B, H)
+    the carries entering each step, re-quantized per step. -> as
+    :func:`fused_rnn_bwd_stash`. On the card one launch rebuilds the
+    pre-activations of all steps, then one runs per reverse step."""
+    return _rnn_bwd(fused_rnn_bwd, gates, U, drop, h_prev, dhs, act, qbits,
+                    False)
+
+
+fused_rnn_bwd.launches = 0
+
+
+class _FusedRNN(torch.autograd.Function):
+    """The JAX package's ``rnn_scan_fused`` custom VJP over (gates, U):
+    forward kernel (stash or not), BPTT kernel, then dU as one matmul
+    over the (T*B) batch with h quantized per step."""
+
+    @staticmethod
+    def forward(ctx, gates, U, drop, act, qbits):
+        stash = bwd_stash_enabled("rnn")
+        out = fused_rnn_fwd(gates, U, drop, act=act, qbits=qbits, stash=stash)
+        hs, acts = out if stash else (out, None)
+        ctx.meta = (act, qbits, stash)
+        ctx.save_for_backward(None if stash else gates, U, drop, hs, acts)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        act, qbits, stash = ctx.meta
+        gates, U, drop, hs, acts = ctx.saved_tensors
+        T, B, H = hs.shape
+        dhs = dhs.contiguous()
+        h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
+        if stash:
+            dg = fused_rnn_bwd_stash(acts, U, drop, dhs, act)
+        else:
+            dg = fused_rnn_bwd(gates, U, drop, h_prev, dhs, act, qbits)
+        dU = None
+        if ctx.needs_input_grad[1]:
+            hq = (quantize_input_per_step(h_prev, qbits) if qbits > 0
+                  else h_prev)
+            dU = dg.reshape(T * B, H).T @ hq.reshape(T * B, H)
+        return dg, dU, None, None, None
+
+
+def rnn_scan_fused(gates_t: torch.Tensor, U: torch.Tensor,
+                   drop_mask: torch.Tensor, act: str = "tanh",
+                   quant_bits: int = 0) -> torch.Tensor:
+    """hs (T, B, H) from zero initial state, differentiable in
+    ``gates_t`` (T, B, H) and ``U`` (H, H) (``drop_mask`` is a constant).
+    As in the JAX package it takes no compute dtype: the recurrence runs
+    in float32."""
+    gates_t, U = gates_t.to(torch.float32), U.to(torch.float32)
+    if _needs_grad(gates_t, U):
+        return _FusedRNN.apply(gates_t, U, drop_mask, act, quant_bits)
+    return fused_rnn_fwd(gates_t, U, drop_mask, act=act, qbits=quant_bits)
+
+
+def rnn_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
+                          drop_mask: torch.Tensor, h0: torch.Tensor,
+                          act: str = "tanh", quant_bits: int = 0):
+    """Streaming (inference-only) RNN forward seeded with the carry
+    ``h0`` (B, H): -> ``(hs, hs[-1])``. Not differentiable."""
+    with torch.no_grad():
+        hs = fused_rnn_fwd(gates_t.to(torch.float32), U.to(torch.float32),
+                           drop_mask, h0.to(torch.float32), act=act,
+                           qbits=quant_bits)
+    return hs, hs[-1]
