@@ -4,9 +4,11 @@ the training step of the flagship 2x512 LSTM, of the 2x1024 CGS-16x
 LSTM through the block-sparse recurrence, of the TIMIT 2x1024 HCGS
 Li-GRU through the fused liGRU kernels, of the LibriSpeech 5x1024
 bidirectional HCGS GRU through the sparse GRU and v3 projection
-kernels, of the TIMIT 4x550 GRU through the dense fused GRU kernels,
-and of the TIMIT 4x550 relu RNN through the dense fused RNN kernels,
-with the cuDNN-class LSTM_cudnn and RNN_cudnn on the ported kernels.
+kernels, of the TIMIT 4x550 GRU through the dense fused GRU kernels, of
+the TIMIT 4x550 relu RNN through the dense fused RNN kernels, and of the
+TIMIT 2x1024 Li-GRU at CGS-16x HCGS through the block-sparse liGRU
+kernels, with the cuDNN-class LSTM_cudnn, RNN_cudnn and GRU_cudnn on the
+ported kernels.
 
     python3 chip_smoke.py
 
@@ -119,9 +121,10 @@ Phases (any failure raises and the script exits non-zero):
              backward (the default) and the recompute one, launches per
              step, 10 steps at the cfg's lr in f32 and bf16.
 25. gru_large_batch — the libri GRU's and the CGS-16x LSTM's first layer
-             at 160 rows (T=398), where the JAX size rule keeps them off
-             their sparse kernels: the sparse forward alone, against the
-             model on its twin; the sparse BPTT kernels at 160 rows.
+             at 160 rows and the CGS-16x Li-GRU's at 256 (T=398), where
+             the JAX size rule keeps them off their sparse kernels: the
+             sparse forward alone, with f32 w3g, against the model on its
+             twin; the sparse BPTT kernels at those batches.
 26. timit_rnn_kernels — the dense RNN forward (plain, stash, seeded,
              and seeded from h_{k-1} against the zero-state run's later
              steps) and both BPTT kernels against their twins, each launch
@@ -145,16 +148,47 @@ Phases (any failure raises and the script exits non-zero):
              at TOL_GRAD_REL; launches per step; 10 steps in f32 and bf16
              at lr/32 (the cfg's lr diverges, in both packages), the cfg's
              lr for 4 steps.
-30. cudnn_wrappers — RNN_cudnn (2x550 relu) and LSTM_cudnn (2x512), both
-             bidirectional, at T=300, B=8: eval and a train-mode forward +
-             backward, card vs CPU, launching only the ported RNN and LSTM
-             kernels.
+30. cudnn_wrappers — RNN_cudnn (2x550 relu), LSTM_cudnn (2x512) and
+             GRU_cudnn (2x550), all bidirectional, at T=300, B=8: eval and
+             a train-mode forward + backward, card vs CPU, launching only
+             the ported RNN, LSTM and torch-semantics GRU kernels.
 31. timit_gru_times — the dense GRU kernels' times, twins and bounds,
              cuDNN's nn.GRU(550, 550) as a yardstick, the dU matmuls, the
              TIMIT GRU train step and recognize.
 32. timit_rnn_times — the dense RNN kernels' times, twins and bounds,
              cuDNN's nn.RNN(550, 550, relu) as a yardstick, the dU matmul,
              the TIMIT RNN train step and recognize.
+33. cgs_ligru_kernels — the sparse liGRU forward and BPTT kernels
+             against their twins, each launch counter checked: qbits 0/16
+             x relu/tanh at 13x5x256 (Kb=2, R=1), 398x8x1024 (forward
+             only) and 300x8x1024 (Kb=8, R=2; and w3g in bf16).
+34. cgs_ligru_serve — ``Recognizer.recognize`` over the CGS-16x Li-GRU
+             stack (``TIMIT_liGRU_fmllr_hcgs.cfg``'s 2x1024 liGRU with the
+             16x cfg's HCGS fields -> 1944-way head, feat_dim 40): card vs
+             CPU at TOL_POST_Q16, 2 x 398 sparse forward launches and no
+             dense liGRU one; again without the 16-bit quantizers at
+             TOL_POST.
+35. cgs_ligru_stream — the dense seeded forward over the masked U (the
+             stream drops the sparse layout, as in the JAX package): one
+             chunk against the sparse whole utterance, chunks of 100
+             against the CPU's stream, and without the quantizers against
+             the whole utterance.
+36. cgs_ligru_train — ``ChunkRunner.train_step`` (T=300, B=8): card vs
+             CPU at GRAD_FLIP_K x the CPU's own one-ulp sensitivity, the
+             sparse kernels alone (and the dw kernel for dU), 10 steps in
+             f32 and bf16 at lr/16; without the quantizers at
+             TOL_GRAD_REL.
+37. gru_torch_kernels — the torch-semantics GRU forward (zero, seeded,
+             seeded from h_{k-1} against steps k..T-1) and BPTT kernels
+             against their twins at 13x5x18 and 300x8x550.
+38. gru_cudnn — GRU_cudnn 4x550 unidirectional, dropout 0.2, T=300, B=8:
+             eval and train card vs CPU (every gradient, b_hh included),
+             eval against torch.nn.GRU with the same weights, the stream
+             in chunks of 100 against the whole utterance; the
+             torch-semantics GRU kernels alone.
+39. cgs_ligru_times, gru_torch_times — the four kernels' times, twins,
+             bounds and cuDNN nn.GRU yardsticks; the CGS-16x Li-GRU train
+             step and recognize.
 
 Each phase prints its wall time (``[timing]``).
 
@@ -324,10 +358,31 @@ TIMIT_RNN_HEAD_GAIN = 5000.0
 TR_FALL_LR_SCALE = 1.0 / 32
 TR_CFG_LR_STEPS = 4
 # The cuDNN-class wrappers, at the widths their users run: nn.RNN-style
-# 2x550 relu and nn.LSTM-style 2x512, both bidirectional, over the fMLLR
-# features at the TIMIT RNN's training shape
+# 2x550 relu, nn.LSTM-style 2x512 and nn.GRU-style 2x550, all
+# bidirectional, over the fMLLR features at the TIMIT RNN's training shape
 CUDNN_CASES = (("RNN_cudnn", 550, {"nonlinearity": "relu"}),
-               ("LSTM_cudnn", 512, {}))
+               ("LSTM_cudnn", 512, {}), ("GRU_cudnn", 550, {}))
+
+# The CGS-16x Li-GRU slice: the TIMIT Li-GRU cfg with the CGS-16x paper's
+# HCGS setting (cfg/TIMIT_CGS/TIMIT_LSTM_fmllr_cgs_hcgs_16x_a.cfg:122-125)
+# on x and h: both 2x1024 recurrences Kb=8, R=2 on the sparse liGRU
+# kernels; the x-projections dense-masked (Kb < 16)
+HCGS_16X = {"hcgsx_block": "128,8", "hcgsx_sparse": "75,75",
+            "hcgsh_block": "128,8", "hcgsh_sparse": "75,75"}
+CL_SMALL_TBH = (13, 5, 256)      # 128-blocks at 50%: Kb=2, R=1
+CL_SERVE_TBH = (398, 8, 1024)
+CL_TRAIN_TBH = (300, 8, 1024)    # the cfg's batch_size_train = 8
+# the first layer at a batch where the JAX size rule says "" (from 163
+# rows at this layout)
+CL_LARGE_ROWS = 256
+# init(1)'s head at the Li-GRU's x3000 decodes 7 of the 8 utterances to
+# one phone: x10000 makes them decode to several (cgs_ligru_serve prints
+# how many)
+CGS_LIGRU_HEAD_GAIN = 10000.0
+# GRU_cudnn at the TIMIT GRU's width and depth: 4 x 550, unidirectional
+GT_TRAIN_TBH = (300, 8, 550)
+GT_SERVE_TBH = (398, 8, 550)
+GT_LAYERS = 4
 
 # The large-batch check of the sparse recurrence: 80 utterances of the
 # libri GRU (160 rows, both directions), 160 of the CGS-16x LSTM; the JAX
@@ -836,6 +891,10 @@ def wrappers():
             "fused_rnn_fwd": R.fused_rnn_fwd,
             "fused_rnn_bwd_stash": R.fused_rnn_bwd_stash,
             "fused_rnn_bwd": R.fused_rnn_bwd,
+            "fused_ligru_fwd_sparse": R.fused_ligru_fwd_sparse,
+            "fused_ligru_bwd_sparse": R.fused_ligru_bwd_sparse,
+            "fused_gru_torch_fwd": R.fused_gru_torch_fwd,
+            "fused_gru_torch_bwd": R.fused_gru_torch_bwd,
             "block_sparse_v3_fwd": BS.block_sparse_v3_fwd,
             "block_sparse_v3_dx": BS.block_sparse_v3_dx,
             "fused_lstm_fwd": F.fused_lstm_fwd,
@@ -845,6 +904,16 @@ def wrappers():
             "fused_lstm_bwd_sparse_stash": F.fused_lstm_bwd_sparse_stash,
             "fused_lstm_bwd_sparse": F.fused_lstm_bwd_sparse,
             "block_sparse_dw": BS.block_sparse_dw}
+
+
+def launched(w, n, fn):
+    """fn(), checking that wrapper ``w``'s launch counter moved by n."""
+    before = w.launches
+    out = fn()
+    if w.launches - before != n:
+        raise AssertionError("%s: %d launches, expected %d"
+                             % (w.__name__, w.launches - before, n))
+    return out
 
 
 def counted(fn):
@@ -1205,7 +1274,13 @@ def step_parts(runner, inp, mask, reps=5):
 
 def kernel_classes(by_name):
     """Device ms per class of kernel, from the profile's kernel names."""
-    classes = {"lstm_fwd_kernel": ("lstm_step", "sparse_fwd_step"),
+    # the first match names the class: the sparse liGRU's kernels before
+    # the sparse LSTM's ("sparse_bwd_step")
+    classes = {"ligru_sparse_fwd_kernel": ("ligru_sparse_step",),
+               "ligru_sparse_bptt_kernel": ("ligru_sparse_bwd",),
+               "gru_torch_fwd_kernel": ("gru_torch_step",),
+               "gru_torch_bptt_kernel": ("gru_torch_bwd",),
+               "lstm_fwd_kernel": ("lstm_step", "sparse_fwd_step"),
                "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step"),
                "ligru_fwd_kernel": ("ligru_step",),
                "ligru_bptt_kernel": ("ligru_bwd",),
@@ -1713,35 +1788,36 @@ def phase_ligru_kernels(dev):
     return checks
 
 
-def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100):
-    """The Li-GRU streams on the seeded forward. One chunk of the whole
-    utterance is held to the whole-utterance posteriors within
-    TOL_STREAM. Chunks of 100 frames are held within TOL_POST_Q16 (as
-    ligru_serve) to the same chunks streamed on the CPU (same phones),
-    not to the whole
-    utterance: the cfg's ligru_quant_inp=True scales each call's x (and
-    layer 1's input) by its own max|x|, which at the head's x3000 logits
-    moves the posteriors by ~1e-2 in both packages; that difference is
-    printed."""
+def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
+                       stack_fn=build_ligru_stack, tag="ligru_stream",
+                       one_chunk_tol=TOL_STREAM):
+    """A Li-GRU (``stack_fn``'s) streams on the seeded forward. One chunk
+    of the whole utterance is held to the whole-utterance posteriors
+    within ``one_chunk_tol``. Chunks of 100 frames are held within
+    TOL_POST_Q16 (as ligru_serve) to the same chunks streamed on the CPU
+    (same phones), not to the whole utterance: the cfg's
+    ligru_quant_inp=True scales each call's x (and layer 1's input) by
+    its own max|x|, which at the head's x3000 logits moves the
+    posteriors by ~1e-2 in both packages; that difference is printed."""
     T = rec.frontend.num_frames(audio.shape[1])
     _, err_one = phase_stream(dev, rec, audio, lens, phones, logp, chunk=T,
-                              tag="ligru_stream_one_chunk",
+                              tag=tag + "_one_chunk", tol=one_chunk_tol,
                               kernel="fused_ligru_fwd")
     streamed, final, launches = stream_run(dev, rec, audio, lens, chunk)
     if launches != expected(fused_ligru_fwd=2 * T):
-        raise AssertionError("ligru_stream: launches %s, expected the "
-                             "seeded forward 2 x %d times" % (launches, T))
+        raise AssertionError("%s: launches %s, expected the seeded forward "
+                             "2 x %d times" % (tag, launches, T))
     ref, final_ref, _ = stream_run("cpu", build_recognizer(
-        "cpu", build_ligru_stack), audio, lens, chunk)
+        "cpu", stack_fn), audio, lens, chunk)
     err = float(np.abs(streamed - ref).max())
     vs_whole = float(np.abs(streamed - logp.cpu().numpy()).max())
-    print("[ligru_stream] %d chunks of <=%d frames: launches %d; card vs "
-          "CPU stream max abs err %.3g (tol %g), phones equal: %s; chunked "
-          "vs whole utterance %.3g; finalize == recognize: %s"
-          % (-(-T // chunk), chunk, launches["fused_ligru_fwd"], err,
+    print("[%s] %d chunks of <=%d frames: launches %d; card vs CPU stream "
+          "max abs err %.3g (tol %g), phones equal: %s; chunked vs whole "
+          "utterance %.3g; finalize == recognize: %s"
+          % (tag, -(-T // chunk), chunk, launches["fused_ligru_fwd"], err,
              TOL_POST_Q16, final == final_ref, vs_whole, final == phones))
     if not err <= TOL_POST_Q16 or final != final_ref:
-        raise AssertionError("ligru_stream disagrees with the CPU stream")
+        raise AssertionError("%s disagrees with the CPU stream" % tag)
     return launches["fused_ligru_fwd"], {
         "one_chunk_vs_whole": err_one, "chunked_card_vs_cpu": err,
         "chunked_vs_whole": vs_whole,
@@ -1827,20 +1903,23 @@ def phase_ligru_train(dev):
     return out
 
 
-def ligru_bound_ms(T, B, H, kind):
+def ligru_bound_ms(T, B, H, kind, kept=None):
     """Least time for one liGRU layer call in float32: each input read
     once, each output written once, over the HBM rate; the FMAs over
     the float32 peak. kind: "fwd" (gates, U, drop in; hs out),
     "fwd_stash" (and the (T, B, 2H) stash out), "bwd_stash" (stash, U,
     drop, h_prev, dhs in; dg out; one (B, 2H) x (2H, H) product per
     step), "bwd" (gates instead of the stash; that product and the
-    forward's). -> (ms, "bytes"|"operations")."""
+    forward's). ``kept``: the block-sparse recurrence's R*bs kept columns
+    per row of U (w3g is (2H, kept) in all), None for the dense U. ->
+    (ms, "bytes"|"operations")."""
+    kept = H if kept is None else kept
     gates, seq, bh = T * B * 2 * H * 4, T * B * H * 4, B * H * 4
     nbytes = {"fwd": gates + bh + seq, "fwd_stash": 2 * gates + bh + seq,
               "bwd_stash": 2 * gates + bh + 2 * seq,
-              "bwd": 2 * gates + bh + 2 * seq}[kind] + 2 * H * H * 4
+              "bwd": 2 * gates + bh + 2 * seq}[kind] + 2 * H * kept * 4
     return roofline_ms(nbytes,
-                       2 * T * B * 2 * H * H * (2 if kind == "bwd" else 1))
+                       2 * T * B * 2 * H * kept * (2 if kind == "bwd" else 1))
 
 
 def cudnn_times(dev, T, B, H, Ts, Bs, module=None, key="cudnn_gru"):
@@ -2295,7 +2374,11 @@ def gru_bound_ms(T, B, H, kept, kind):
     (the sparse BPTT: gates, w3g, drop, h_prev, dhs in; dg and s out; the
     forward's products and their transposes), "bwd_dense" (the dense
     recompute BPTT: the same without s out), "bwd_stash" (the stash, U,
-    drop, h_prev, dhs in; dg out; the two transposed products)."""
+    drop, h_prev, dhs in; dg out; the two transposed products). The
+    torch-semantics GRU reads b_hh (3H) where these read drop (B*H; 11 KB
+    more at the TIMIT width, and operations bound both) and its BPTT
+    writes dm where the sparse one writes s: "fwd" and "bwd" count it
+    with kept = H."""
     gates, seq = T * B * 3 * H * 4, T * B * H * 4
     nbytes = {"fwd": gates + seq, "fwd_stash": 2 * gates + seq,
               "bwd": 2 * gates + 3 * seq, "bwd_dense": 2 * gates + 2 * seq,
@@ -2524,14 +2607,6 @@ def phase_timit_gru_kernels(dev):
         record_check(checks, "timit_gru_kernels", name,
                      dict(zip("TBH", shape)), variant, err_rel, tol, by_rel)
 
-    def launched(w, n, fn):
-        before = w.launches
-        out = fn()
-        if w.launches - before != n:
-            raise AssertionError("%s: %d launches, expected %d"
-                                 % (w.__name__, w.launches - before, n))
-        return out
-
     for shape in (SMALL_TBH, TG_TRAIN_TBH, TG_SERVE_TBH, TG_WIDE_TBH):
         T, B, H = shape
         small, serve = shape == SMALL_TBH, shape == TG_SERVE_TBH
@@ -2645,23 +2720,28 @@ def first_layer(sec, prefix):
 def phase_gru_large_batch(dev):
     """The sparse recurrences at a batch the JAX size rule keeps off its
     sparse kernels (it says "" from 158 rows for the libri GRU, 152 for
-    the CGS-16x LSTM): the libri GRU's first layer over 80 utterances of
-    T=398 (160 rows, both directions) and the CGS-16x LSTM's over 160.
-    Each runs its sparse forward kernel alone, matching the model run on
-    the sparse twin; the sparse BPTT kernels take 160 rows too (T=16,
-    against their twins)."""
-    from pytorch_kaldi_cgs_tpu_torch.models import GRU, LSTM
+    the CGS-16x LSTM, 163 for the CGS-16x Li-GRU): the libri GRU's first
+    layer over 80 utterances of T=398 (160 rows, both directions), the
+    CGS-16x LSTM's over 160 and the CGS-16x Li-GRU's over CL_LARGE_ROWS.
+    Each runs its sparse forward kernel alone, with float32 w3g (the
+    scans read it in bf16 only where the rule says "bf16"), matching the
+    model run on the sparse twin; the sparse BPTT kernels take those
+    batches too (T=16, against their twins)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import GRU, LSTM, liGRU
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
-    T, rows = SP_SERVE_TBH[0], LARGE_ROWS
-    x = torch.tensor(np.random.RandomState(170).randn(T, rows, TG_FEAT)
-                     .astype(np.float32), device=dev)
+    T = SP_SERVE_TBH[0]
+    x = torch.tensor(np.random.RandomState(170).randn(
+        T, max(LARGE_ROWS, CL_LARGE_ROWS), TG_FEAT).astype(np.float32),
+        device=dev)
     out, checks = {}, []
-    for tag, cls, sections, prefix, G, mod, kernel, n in (
+    for tag, cls, sections, prefix, G, mod, kernel, n, rows in (
             ("gru", GRU, gru_sections, "gru", 3, R, "fused_gru_fwd_sparse",
-             2 * T),
+             2 * T, LARGE_ROWS),
             ("lstm", LSTM, cgs_sections, "lstm", 4, F,
-             "fused_lstm_fwd_sparse", T)):
+             "fused_lstm_fwd_sparse", T, LARGE_ROWS),
+            ("ligru", liGRU, cgs_ligru_sections, "ligru", 2, R,
+             "fused_ligru_fwd_sparse", T, CL_LARGE_ROWS)):
         sec = first_layer(sections()["architecture1"], prefix)
         net = cls(dict(sec, to_do="forward"), TG_FEAT, seed=0,
                   device=dev).eval()
@@ -2682,9 +2762,10 @@ def phase_gru_large_batch(dev):
                      {"T": T, "rows": rows}, {"Kb": layout.Kb, "R": layout.R},
                      rel_err(y, y_plain), TOL_Q16, False)
         out[tag] = {"rows": rows, "launches": launches[kernel]}
-    # the sparse BPTT kernels at 160 rows
-    gi = gru_inputs(16, rows, 1024, 171, dev)
-    si = sparse_inputs(16, rows, 1024, 172, dev)
+    # the sparse BPTT kernels at those batches
+    gi = gru_inputs(16, LARGE_ROWS, 1024, 171, dev)
+    si = sparse_inputs(16, LARGE_ROWS, 1024, 172, dev)
+    li = cgs_ligru_inputs(16, CL_LARGE_ROWS, 1024, 173, dev, "relu")
     with torch.no_grad():
         hs = R.fused_gru_fwd_sparse(gi["g"], gi["w3g"], gi["drop"],
                                     gi["layout"], "tanh", 16)
@@ -2692,7 +2773,7 @@ def phase_gru_large_batch(dev):
         args = (gi["g"], gi["w3g"], gi["drop"], h_prev, gi["dhs"],
                 gi["layout"], "tanh", 16)
         record_check(checks, "gru_large_batch", "fused_gru_bwd_sparse",
-                     {"T": 16, "rows": rows}, {"qbits": 16}, rel_err(
+                     {"T": 16, "rows": LARGE_ROWS}, {"qbits": 16}, rel_err(
                          R.fused_gru_bwd_sparse(*args),
                          R.fused_gru_bwd_sparse_plain(*args)), TOL_Q16, True)
         lay = si["layout"]
@@ -2703,15 +2784,25 @@ def phase_gru_large_batch(dev):
         a_rc = (si["g"], si["w3g"], si["drop"], h_prev, c_prev, si["dhs"],
                 lay)
         record_check(checks, "gru_large_batch", "fused_lstm_bwd_sparse_stash",
-                     {"T": 16, "rows": rows}, {"qbits": 0}, rel_err(
+                     {"T": 16, "rows": LARGE_ROWS}, {"qbits": 0}, rel_err(
                          F.fused_lstm_bwd_sparse_stash(*a_st),
                          F.fused_lstm_bwd_sparse_stash_plain(*a_st)),
                      TOL_F32_SERVE, True)
         record_check(checks, "gru_large_batch", "fused_lstm_bwd_sparse",
-                     {"T": 16, "rows": rows}, {"qbits": 0}, rel_err(
+                     {"T": 16, "rows": LARGE_ROWS}, {"qbits": 0}, rel_err(
                          F.fused_lstm_bwd_sparse(*a_rc),
                          F.fused_lstm_bwd_sparse_plain(*a_rc)),
                      TOL_F32_SERVE, True)
+        hs = R.fused_ligru_fwd_sparse(li["g"], li["w3g"], li["drop"],
+                                      li["layout"], "relu", 16)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        args = (li["g"], li["w3g"], li["drop"], h_prev, li["dhs"],
+                li["layout"], "relu", 16)
+        record_check(checks, "gru_large_batch", "fused_ligru_bwd_sparse",
+                     {"T": 16, "rows": CL_LARGE_ROWS}, {"qbits": 16},
+                     rel_err(R.fused_ligru_bwd_sparse(*args),
+                             R.fused_ligru_bwd_sparse_plain(*args)),
+                     TOL_Q16, True)
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
@@ -2830,14 +2921,6 @@ def phase_timit_rnn_kernels(dev):
     def check(name, shape, variant, err_rel, tol, by_rel):
         record_check(checks, "timit_rnn_kernels", name,
                      dict(zip("TBH", shape)), variant, err_rel, tol, by_rel)
-
-    def launched(w, n, fn):
-        before = w.launches
-        out = fn()
-        if w.launches - before != n:
-            raise AssertionError("%s: %d launches, expected %d"
-                                 % (w.__name__, w.launches - before, n))
-        return out
 
     drops = {SMALL_TBH: ("(B,H)", "(1,1)"), TR_TRAIN_TBH: ("(B,H)",),
              TR_SERVE_TBH: ("(1,1)",), TR_WIDE_TBH: ("(1,1)",)}
@@ -2990,20 +3073,21 @@ def phase_timit_rnn_train(dev):
     return out
 
 
-def cudnn_wrapper(dev, name, H, extra):
-    """A cuDNN-class wrapper as a user builds it: 2 layers of H, both
-    directions, inter-layer dropout 0.2, over the fMLLR width."""
+def cudnn_wrapper(dev, name, H, extra, layers=2, bidir=True):
+    """A cuDNN-class wrapper as a user builds it: ``layers`` of H, both
+    directions (or one), inter-layer dropout 0.2, over the fMLLR
+    width."""
     from pytorch_kaldi_cgs_tpu_torch import models
-    opts = dict({"hidden_size": str(H), "num_layers": "2",
-                 "bidirectional": "True", "dropout": "0.2", "bias": "True",
-                 "arch_name": name}, **extra)
+    opts = dict({"hidden_size": str(H), "num_layers": str(layers),
+                 "bidirectional": str(bidir), "dropout": "0.2",
+                 "bias": "True", "arch_name": name}, **extra)
     return getattr(models, name)(opts, TR_FEAT, seed=0, device=dev)
 
 
 def phase_cudnn_wrappers(dev):
-    """RNN_cudnn (2x550 relu) and LSTM_cudnn (2x512), bidirectional, at
-    T=300 over 8 sentences: eval and a train-mode forward + backward on
-    the card, launch counters set to 0 just before and read just after
+    """RNN_cudnn (2x550 relu), LSTM_cudnn (2x512) and GRU_cudnn (2x550),
+    bidirectional, at T=300 over 8 sentences: eval and a train-mode
+    forward + backward on the card, launch counters set to 0 just before and read just after
     each (only the ported kernels: 4 layer calls a direction pair, the
     default backward), against the same model on the CPU: outputs within
     TOL_F32_SERVE, every gradient within TOL_GRAD_REL of its scale."""
@@ -3014,12 +3098,14 @@ def phase_cudnn_wrappers(dev):
                       .astype(np.float32) * 0.01)
     out = {}
     for name, H, extra in CUDNN_CASES:
-        cell = "rnn" if name == "RNN_cudnn" else "lstm"
+        cell = {"RNN_cudnn": "rnn", "LSTM_cudnn": "lstm",
+                "GRU_cudnn": "gru_torch"}[name]
         want_eval = expected(**{"fused_%s_fwd" % cell: 4 * T})
-        want_train = expected(**(
-            {"fused_rnn_fwd": 4 * T, "fused_rnn_bwd": 4 * (T + 1)}
-            if cell == "rnn" else
-            {"fused_lstm_fwd": 4 * T, "fused_lstm_bwd_stash": 4 * T}))
+        want_train = expected(**{
+            "rnn": {"fused_rnn_fwd": 4 * T, "fused_rnn_bwd": 4 * (T + 1)},
+            "lstm": {"fused_lstm_fwd": 4 * T, "fused_lstm_bwd_stash": 4 * T},
+            "gru_torch": {"fused_gru_torch_fwd": 4 * T,
+                          "fused_gru_torch_bwd": 4 * (T + 1)}}[cell])
 
         def run(d):
             """-> (eval y, train y, grads, eval and train launches)."""
@@ -3141,6 +3227,556 @@ def phase_timit_rnn_times(dev, rec, audio, lens):
     print("[timit_rnn_times] TIMIT RNN recognizer (8 x 4 s batch): %s"
           % json.dumps(serve))
     return times, step, serve
+
+
+# ---------------------------------------------------------------------------
+# the CGS-16x Li-GRU slice: the sparse liGRU recurrence (serve, stream,
+# train); GRU_cudnn on the torch-semantics GRU kernels
+# ---------------------------------------------------------------------------
+
+def cgs_ligru_sections(compute_dtype="", quant_inp=True, lr_scale=1.0):
+    """The TIMIT Li-GRU cfg's sections (ligru_sections) with the CGS-16x
+    paper's HCGS fields on the liGRU (HCGS_16X)."""
+    secs = ligru_sections(compute_dtype, quant_inp, lr_scale)
+    secs["architecture1"].update(HCGS_16X)
+    return secs
+
+
+def check_cgs_ligru(rnn):
+    """Both 1024-wide recurrences on a Kb=8, R=2 sparse layout; the
+    x-projections dense-masked (no v3 layout at this setting)."""
+    lays = [(l.Kb, l.R) for _, l in sorted(rnn._rec_layouts.items())]
+    if list(rnn.lay) != [1024, 1024] or lays != [(8, 2)] * 2 \
+            or rnn._bs_layouts:
+        raise AssertionError("the CGS-16x Li-GRU did not build two Kb=8, "
+                             "R=2 sparse recurrences: %s, %s"
+                             % (lays, sorted(rnn._bs_layouts)))
+
+
+def build_cgs_ligru_stack(dev, feat_dim=LG_FEAT, quant_inp=True):
+    """The CGS-16x Li-GRU -> its 1944-way cd head (weights from init(0) /
+    init(1), the head times CGS_LIGRU_HEAD_GAIN)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import MLP, liGRU
+    secs = cgs_ligru_sections(quant_inp=quant_inp)
+    rnn = liGRU(dict(secs["architecture1"], to_do="forward"), feat_dim,
+                seed=0, device=dev)
+    mlp = MLP(dict(secs["architecture2"], to_do="forward"), rnn.out_dim,
+              seed=1, device=dev)
+    check_cgs_ligru(rnn)
+    with torch.no_grad():
+        mlp.params["w0"].mul_(CGS_LIGRU_HEAD_GAIN)
+    return Stack(rnn, mlp).eval()
+
+
+def cgs_ligru_inputs(T, B, H, seed, dev, act):
+    """gated_inputs' gates, drop and cotangents, and a 128-block HCGS
+    recurrent mask of width H (128,8 at 75,75 from H=1024: Kb=8, R=2; 128
+    at 50 below: Kb=2, R=1), its layout and the masked U's kept blocks as
+    w3g (Nb, 2*bs, R*bs)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.sparsity.hcgs import hcgs_mask
+    inp = gated_inputs(T, B, H, seed, dev, act)
+    blocks, sparse = ([128, 8], [75, 75]) if H >= 1024 else ([128], [50])
+    mask = hcgs_mask(H, H, blocks, sparse, rng=np.random.RandomState(seed))
+    layout = BS.pack_layout(mask, 128)
+    # U's scale over the kept columns, as gated_inputs' over all of them
+    U = inp["U"].cpu().numpy() * np.sqrt(H / (layout.R * layout.bs))
+    w3g = BS.stack_w3_gates([BS.pack_w3(U[g * H:(g + 1) * H] * mask, layout)
+                             for g in range(2)])
+    inp.update(layout=layout,
+               w3g=torch.tensor(np.asarray(w3g, np.float32), device=dev))
+    return inp
+
+
+def phase_cgs_ligru_kernels(dev):
+    """The sparse liGRU forward and BPTT kernels against their twins on
+    the same tensors, each launch counter checked (T and T + 1): qbits
+    0/16 x relu/tanh at the small shape (Kb=2, R=1), the serving shape
+    (forward only) and the training shape (Kb=8, R=2); w3g in bf16 at the
+    training shape (the JAX size rule's bf16 case)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    checks = []
+    k = 0
+    for shape in (CL_SMALL_TBH, CL_SERVE_TBH, CL_TRAIN_TBH):
+        T, B, H = shape
+        small, serve = shape == CL_SMALL_TBH, shape == CL_SERVE_TBH
+        cases = [(q, a, False) for q in (0, 16) for a in ("relu", "tanh")]
+        if shape == CL_TRAIN_TBH:
+            cases += [(16, "relu", True), (0, "tanh", True)]
+        for qbits, act, bf16 in cases:
+            k += 1
+            inp = cgs_ligru_inputs(T, B, H, 300 + k, dev, act)
+            g, w3g, drop, dhs, lay = (inp[n] for n in ("g", "w3g", "drop",
+                                                       "dhs", "layout"))
+            variant = {"qbits": qbits, "act": act, "Kb": lay.Kb, "R": lay.R,
+                       "w3g": "bf16" if bf16 else "f32"}
+            tol = TOL_BF16 if bf16 else (
+                TOL_Q16 if qbits else (TOL_F32_SMALL if small
+                                       else TOL_F32_SERVE))
+            where = dict(zip("TBH", shape))
+            fwd, bwd = R.fused_ligru_fwd_sparse, R.fused_ligru_bwd_sparse
+            with torch.no_grad():
+                hs = launched(fwd, T, lambda: fwd(g, w3g, drop, lay, act,
+                                                  qbits, bf16))
+                record_check(checks, "cgs_ligru_kernels",
+                             "fused_ligru_fwd_sparse", where, variant,
+                             rel_err(hs, R.fused_ligru_fwd_sparse_plain(
+                                 g, w3g, drop, lay, act, qbits, bf16)),
+                             tol, False)
+                if serve:
+                    continue
+                h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                args = (g, w3g, drop, h_prev, dhs, lay, act, qbits, bf16)
+                record_check(checks, "cgs_ligru_kernels",
+                             "fused_ligru_bwd_sparse", where, variant,
+                             rel_err(launched(bwd, T + 1, lambda: bwd(*args)),
+                                     R.fused_ligru_bwd_sparse_plain(*args)),
+                             tol, True)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("a sparse liGRU kernel disagrees with its plain "
+                             "twin: %s" % bad)
+    return checks
+
+
+def cgs_ligru_expect_serve(T):
+    """Launches per recognize: 2 layers x 1 sparse step per frame; the
+    dense liGRU none."""
+    return expected(fused_ligru_fwd_sparse=2 * T)
+
+
+def phase_cgs_ligru_stream(dev, rec, audio, lens, phones, logp, noq,
+                           chunk=100):
+    """A stream drops the sparse layout (as the JAX package's does) and
+    runs the dense seeded liGRU forward over the masked U, 2 launches a
+    frame. As shipped: one chunk of the whole utterance against the
+    sparse whole-utterance posteriors within TOL_Q16 (the recurrent
+    quantizer's ceil steps: the dense and the sparse product sum in
+    another order); chunks of 100 frames against the CPU's stream of the
+    same chunks within TOL_POST_Q16 with equal phones (the input
+    quantizer scales each chunk by its own max|x|: phase_ligru_stream).
+    Without the 16-bit quantizers: chunks of 100 against the whole
+    utterance within TOL_POST. ``noq``: phase_serve's (rec, phones,
+    logp, ...) of the stack without them."""
+    launches, out = phase_ligru_stream(
+        dev, rec, audio, lens, phones, logp, chunk, build_cgs_ligru_stack,
+        "cgs_ligru_stream", TOL_Q16)
+    rec_noq, phones_noq, logp_noq = noq[:3]
+    _, out["chunks_vs_whole_no_quant_inp"] = phase_stream(
+        dev, rec_noq, audio, lens, phones_noq, logp_noq, chunk,
+        "cgs_ligru_stream, ligru_quant_inp=False", TOL_POST,
+        "fused_ligru_fwd")
+    return launches, out
+
+
+def cgs_ligru_train_setup(compute_dtype="", quant_inp=True, lr_scale=1.0):
+    """The CGS-16x Li-GRU train step (chunk_setup): its sections, 8
+    sentences of 300 frames, fMLLR x of width 40 and cd labels."""
+    T, B, _ = CL_TRAIN_TBH
+    return chunk_setup(cgs_ligru_sections(compute_dtype, quant_inp,
+                                          lr_scale),
+                       T, B, "fmllr", LG_FEAT, CD_LABELS)
+
+
+def cgs_ligru_train_runner(dev, compute_dtype="", quant_inp=True,
+                           lr_scale=1.0):
+    """A ChunkRunner over the CGS-16x Li-GRU's sections and its one
+    batch."""
+    from pytorch_kaldi_cgs_tpu_torch.models import liGRU
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    config, chunk, batch = cgs_ligru_train_setup(compute_dtype, quant_inp,
+                                                 lr_scale)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    rnn = graph.nets["RNN_layers"]
+    if type(rnn) is not liGRU:
+        raise AssertionError("the CGS-16x Li-GRU cfg did not build a liGRU")
+    check_cgs_ligru(rnn)
+    return ChunkRunner(graph, config), batch
+
+
+def phase_cgs_ligru_train(dev):
+    """One train step on the card against the CPU, held to GRAD_FLIP_K
+    times the CPU's own one-ulp sensitivity (relu behind the 16-bit ceil
+    quantizers, as the Li-GRU's), launches per step (the sparse kernels
+    alone: T per layer forward, T + 1 per layer backward, one dw launch
+    per layer; no dense liGRU kernel), 10 steps in f32 and bf16 at
+    LG_FALL_LR_SCALE times the cfg's rates; the same step without the
+    16-bit quantizers at TOL_GRAD_REL."""
+    T = CL_TRAIN_TBH[0]
+    knob = "PKC_BWD_STASH_CELLS"     # no stash variant: both read the same
+    inp, mask = cgs_ligru_train_setup()[2]
+    sens, where = ulp_sensitivity(cgs_ligru_train_runner, inp, mask)
+    grad_tol = max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
+    print("[cgs_ligru_train] the CPU's own gradients under a one-ulp change "
+          "of x: worst rel change %.3g at %s; card vs CPU bar %.3g"
+          % (sens, where, grad_tol))
+    want = expected(fused_ligru_fwd_sparse=2 * T,
+                    fused_ligru_bwd_sparse=2 * (T + 1), block_sparse_dw=2)
+    out = phase_train(dev, cgs_ligru_train_runner, "cgs_ligru_train", (
+        ("recompute", knob, None, want), ("stash_knob", knob, "ligru", want)),
+        grad_tol=grad_tol, fall_runner=lambda d, cdt="":
+        cgs_ligru_train_runner(d, cdt, lr_scale=LG_FALL_LR_SCALE))
+    out.update(cpu_ulp_grad_rel_change=sens, cpu_ulp_worst=where)
+
+    def no_quant(d, cdt=""):
+        return cgs_ligru_train_runner(d, cdt, quant_inp=False)
+    runner, (inp, mask) = no_quant(dev)
+    loss_err = runner.train_step(inp, mask, dropout_gen())
+    out["no_quant_inp"] = card_vs_cpu(
+        runner, no_quant("cpu")[0], inp, mask, loss_err, knob, None,
+        "cgs_ligru_train, ligru_quant_inp=False")
+    return out
+
+
+def phase_cgs_ligru_times(dev, rec, audio, lens):
+    """CUDA-event times of the sparse liGRU kernels per layer call at the
+    training shape (the forward also at the serving shape), as the cfg
+    runs them (relu, 16-bit recurrent quantizer, Kb=8, R=2); their twins
+    and bounds; the dense liGRU forward on the same layer (the masked U);
+    cuDNN's nn.GRU(1024, 1024) at B=8 as a yardstick (three gates, dense,
+    no quantizer: not the same function); the CGS-16x Li-GRU train step
+    and recognize."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = CL_TRAIN_TBH
+    qb, act = 16, "relu"
+    inp = cgs_ligru_inputs(T, B, H, 320, dev, act)
+    g, w3g, drop, dhs, lay = (inp[n] for n in ("g", "w3g", "drop", "dhs",
+                                               "layout"))
+    kept = lay.R * lay.bs
+    times = {}
+    with torch.no_grad():
+        hs = R.fused_ligru_fwd_sparse(g, w3g, drop, lay, act, qb)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        bargs = (g, w3g, drop, h_prev, dhs, lay, act, qb)
+        calls = {
+            "fused_ligru_fwd_sparse": (
+                lambda: R.fused_ligru_fwd_sparse(g, w3g, drop, lay, act, qb),
+                lambda: R.fused_ligru_fwd_sparse_plain(g, w3g, drop, lay, act,
+                                                       qb), "fwd"),
+            "fused_ligru_bwd_sparse": (
+                lambda: R.fused_ligru_bwd_sparse(*bargs),
+                lambda: R.fused_ligru_bwd_sparse_plain(*bargs), "bwd")}
+        for name, (fn, plain, kind) in calls.items():
+            times[name + "_ms"] = cuda_ms(fn, reps=10)
+            times[name + "_plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                ligru_bound_ms(T, B, H, kind, kept)
+        times["fused_ligru_fwd_sparse_ms_q0"] = cuda_ms(
+            lambda: R.fused_ligru_fwd_sparse(g, w3g, drop, lay, act, 0),
+            reps=10)
+        # the dense liGRU kernels on the same layer: the masked U
+        U = np.concatenate([BS.unpack_w3(w.cpu().numpy(), lay) for w in
+                            (w3g[:, :lay.bs], w3g[:, lay.bs:])])
+        U = torch.as_tensor(np.ascontiguousarray(U, np.float32), device=dev)
+        times["dense_fused_ligru_fwd_ms"] = cuda_ms(
+            lambda: R.fused_ligru_fwd(g, U, drop, act=act, qbits=qb),
+            reps=10)
+        times["dense_fused_ligru_bwd_ms"] = cuda_ms(
+            lambda: R.fused_ligru_bwd(g, U, drop, h_prev, dhs, act, qb),
+            reps=10)
+        Ts, Bs, _ = CL_SERVE_TBH
+        sv = cgs_ligru_inputs(Ts, Bs, H, 321, dev, act)
+        sargs = (sv["g"], sv["w3g"], sv["drop"], sv["layout"], act, qb)
+        times["serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_ligru_fwd_sparse(*sargs), reps=10)
+        times["serve_fwd_plain_ms"] = cuda_ms(
+            lambda: R.fused_ligru_fwd_sparse_plain(*sargs), reps=2, warmup=1)
+        times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
+            ligru_bound_ms(Ts, Bs, H, "fwd", kept)
+        # the dU product on the dw kernel: G=2 over (T*B, H)
+        dg = torch.randn(T * B, 2 * H, device=dev)
+        hq = torch.randn(T * B, H, device=dev)
+        times["dU_dw_ms"] = cuda_ms(lambda: R.sparse_dU(dg, hq, lay, 2),
+                                    reps=20)
+    times.update(cudnn_times(dev, T, B, H, Ts, Bs))
+    print("[cgs_ligru_times] kernels at T=%d B=%d H=%d (relu, qbits 16, "
+          "Kb=%d, R=%d): %s" % (T, B, H, lay.Kb, lay.R, json.dumps(times)))
+    step = train_step_times(dev, cgs_ligru_train_runner, "cgs_ligru_times",
+                            5, 3)
+    serve = serve_timings(rec, audio, lens)
+    print("[cgs_ligru_times] CGS-16x Li-GRU recognizer (8 x 4 s batch): %s"
+          % json.dumps(serve))
+    return times, step, serve
+
+
+def gru_torch_inputs(T, B, H, seed, dev):
+    """Gates (T, B, 3H) [r | z | n], W_hh (3H, H) and b_hh (3H,) drawn as
+    torch draws them (U(+-1/sqrt(H))), h0 and upstream cotangents."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    k = 1.0 / np.sqrt(H)
+    return {"g": t(rng.randn(T, B, 3 * H) * 0.5),
+            "W": t(rng.uniform(-k, k, (3 * H, H))),
+            "b": t(rng.uniform(-k, k, (3 * H,))),
+            "h0": t(rng.randn(B, H) * 0.3),
+            "dhs": t(rng.randn(T, B, H) * 0.1)}
+
+
+def phase_gru_torch_kernels(dev):
+    """The torch-semantics GRU forward (zero state, seeded, and seeded
+    from h_{k-1} against the zero-state run's steps k..T-1) and BPTT
+    kernel against their twins, each launch counter checked (T, and
+    T + 1 for the BPTT), at the small ragged shape and the TIMIT width's
+    training shape."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    checks = []
+    fwd, bwd = R.fused_gru_torch_fwd, R.fused_gru_torch_bwd
+    for k, shape in enumerate((SMALL_TBH, GT_TRAIN_TBH)):
+        T, B, H = shape
+        inp = gru_torch_inputs(T, B, H, 330 + k, dev)
+        g, W, b, h0, dhs = (inp[n] for n in ("g", "W", "b", "h0", "dhs"))
+        tol = TOL_F32_SMALL if shape == SMALL_TBH else TOL_F32_SERVE
+        where = dict(zip("TBH", shape))
+
+        def check(name, got, ref, by_rel):
+            record_check(checks, "gru_torch_kernels", name, where, {},
+                         rel_err(got, ref), tol, by_rel)
+        with torch.no_grad():
+            hs = launched(fwd, T, lambda: fwd(g, W, b))
+            check("fused_gru_torch_fwd", hs,
+                  R.fused_gru_torch_fwd_plain(g, W, b), False)
+            check("fused_gru_torch_fwd/seeded",
+                  launched(fwd, T, lambda: fwd(g, W, b, h0)),
+                  R.fused_gru_torch_fwd_plain(g, W, b, h0), False)
+            s = T // 2
+            check("fused_gru_torch_fwd/seeded_vs_shifted",
+                  launched(fwd, T - s, lambda: fwd(
+                      g[s:].contiguous(), W, b, hs[s - 1].contiguous())),
+                  hs[s:], False)
+            h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+            check("fused_gru_torch_bwd",
+                  launched(bwd, T + 1, lambda: bwd(g, W, b, h_prev, dhs)),
+                  R.fused_gru_torch_bwd_plain(g, W, b, h_prev, dhs), True)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("a torch-semantics GRU kernel disagrees with its "
+                             "plain twin: %s" % bad)
+    return checks
+
+
+def nn_gru_of(model):
+    """torch.nn.GRU with a GRU_cudnn wrapper's weights (cuDNN's own
+    implementation: a check of the wrapper's semantics)."""
+    H, L = model.hidden_size, model.num_layers
+    ref = torch.nn.GRU(model.input_dim, H, L,
+                       bidirectional=model.bidirectional)
+    ref = ref.to(next(iter(model.params.values())).device)
+    with torch.no_grad():
+        for name, p in model.params.items():
+            kind, _, sfx = name.split("_")[:3]
+            torch_name = "%s_%s_%s" % ({"w": "weight", "b": "bias"}[kind[0]],
+                                       name.split("_")[1], sfx)
+            if name.endswith("_r"):
+                torch_name += "_reverse"
+            getattr(ref, torch_name).copy_(p)
+    return ref.eval()
+
+
+def phase_gru_cudnn(dev):
+    """GRU_cudnn as its users run it at the TIMIT width: 4 layers of 550,
+    unidirectional, dropout 0.2, over the fMLLR features (T=300, B=8).
+    Eval and a train-mode forward + backward on the card with the launch
+    counters set to 0 just before and read just after (the
+    torch-semantics GRU kernels alone: 4 x T forward, 4 x (T + 1)
+    backward), against the same model on the CPU (outputs within
+    TOL_POST, every gradient, b_hh included, within TOL_GRAD_REL of its
+    scale); the eval output against torch.nn.GRU with the same weights
+    within TOL_STREAM (cudnn.allow_tf32 off); the stream in chunks of 100
+    frames (the seeded forward, 4 x T launches) against the whole
+    utterance within TOL_STREAM."""
+    T, B, H = GT_TRAIN_TBH
+    x = torch.tensor(np.random.RandomState(340).randn(T, B, TR_FEAT)
+                     .astype(np.float32))
+    dy = torch.tensor(np.random.RandomState(341).randn(T, B, H)
+                      .astype(np.float32) * 0.01)
+    L = GT_LAYERS
+
+    def run(d):
+        model = cudnn_wrapper(d, "GRU_cudnn", H, {}, layers=L, bidir=False)
+        xd = x.to(d)
+        count = counted if d == dev else (lambda fn: (fn(), None))
+
+        def train():
+            y = model.run(xd, train=True, generator=dropout_gen())
+            y.backward(dy.to(d))
+            return y.detach()
+        with torch.no_grad():
+            y_eval, l_eval = count(lambda: model.run(xd, train=False))
+        y_train, l_train = count(train)
+        return (model, y_eval, y_train.cpu(),
+                {k: p.grad.cpu() for k, p in model.params.items()},
+                l_eval, l_train)
+    model, ye, yt, gd, l_eval, l_train = run(dev)
+    _, ye_c, yt_c, gc, _, _ = run("cpu")
+    want_eval = expected(fused_gru_torch_fwd=L * T)
+    want_train = expected(fused_gru_torch_fwd=L * T,
+                          fused_gru_torch_bwd=L * (T + 1))
+    if l_eval != want_eval or l_train != want_train:
+        raise AssertionError("GRU_cudnn launched %s (eval), %s (train)"
+                             % (l_eval, l_train))
+    with torch.no_grad():
+        y_nn = nn_gru_of(model)(x.to(dev))[0]
+        (streamed, carries), l_stream = counted(lambda: _stream_chunks(
+            model, x.to(dev), 100))
+    if l_stream != want_eval:
+        raise AssertionError("GRU_cudnn stream launched %s" % l_stream)
+    grad_errs = {k: float((gd[k] - gc[k]).abs().max())
+                 / max(float(gc[k].abs().max()), 1e-30) for k in gc}
+    worst = max(grad_errs, key=grad_errs.get)
+    r = {"T": T, "B": B, "H": H, "layers": L,
+         "eval_vs_cpu": float((ye.cpu() - ye_c).abs().max()),
+         "train_vs_cpu": float((yt - yt_c).abs().max()),
+         "grads_compared": len(grad_errs), "grad_rel_err_max": grad_errs[worst],
+         "grad_rel_err_worst": worst,
+         "b_hh_grad_rel_err_max": max(v for k, v in grad_errs.items()
+                                      if k.startswith("b_hh")),
+         "eval_vs_nn_gru": float((ye - y_nn).abs().max()),
+         "stream_vs_whole": float((streamed - ye).abs().max()),
+         "launches_eval": l_eval["fused_gru_torch_fwd"],
+         "launches_train": {k: v for k, v in l_train.items() if v},
+         "launches_stream": l_stream["fused_gru_torch_fwd"]}
+    print("[gru_cudnn] %s" % json.dumps(r))
+    if not (r["eval_vs_cpu"] <= TOL_POST and r["train_vs_cpu"] <= TOL_POST
+            and r["grad_rel_err_max"] <= TOL_GRAD_REL
+            and r["eval_vs_nn_gru"] <= TOL_STREAM
+            and r["stream_vs_whole"] <= TOL_STREAM):
+        raise AssertionError("GRU_cudnn on the card disagrees: %s" % r)
+    return r
+
+
+def _stream_chunks(model, x, chunk):
+    """A unidirectional wrapper's stream over x in chunks of ``chunk``
+    frames: -> (the concatenated outputs, the final carries)."""
+    carries, outs = None, []
+    for a in range(0, x.shape[0], chunk):
+        y, carries = model.apply_streaming(x[a:a + chunk], carries)
+        outs.append(y)
+    return torch.cat(outs), carries
+
+
+def phase_gru_torch_times(dev):
+    """CUDA-event times of the torch-semantics GRU kernels per layer call
+    at the TIMIT width's training shape (the forward also at the serving
+    shape), their twins and bounds, and cuDNN's nn.GRU(550, 550): the
+    same function (torch's GRU), the library's time for it."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = GT_TRAIN_TBH
+    inp = gru_torch_inputs(T, B, H, 350, dev)
+    g, W, b, dhs = (inp[n] for n in ("g", "W", "b", "dhs"))
+    times = {}
+    with torch.no_grad():
+        hs = R.fused_gru_torch_fwd(g, W, b)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        calls = {
+            "fused_gru_torch_fwd": (
+                lambda: R.fused_gru_torch_fwd(g, W, b),
+                lambda: R.fused_gru_torch_fwd_plain(g, W, b), "fwd"),
+            "fused_gru_torch_bwd": (
+                lambda: R.fused_gru_torch_bwd(g, W, b, h_prev, dhs),
+                lambda: R.fused_gru_torch_bwd_plain(g, W, b, h_prev, dhs),
+                "bwd")}
+        for name, (fn, plain, kind) in calls.items():
+            times[name + "_ms"] = cuda_ms(fn, reps=10)
+            times[name + "_plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                gru_bound_ms(T, B, H, H, kind)
+        Ts, Bs, _ = GT_SERVE_TBH
+        sv = gru_torch_inputs(Ts, Bs, H, 351, dev)
+        times["serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_gru_torch_fwd(sv["g"], sv["W"], sv["b"]),
+            reps=10)
+        times["serve_fwd_plain_ms"] = cuda_ms(
+            lambda: R.fused_gru_torch_fwd_plain(sv["g"], sv["W"], sv["b"]),
+            reps=2, warmup=1)
+        times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
+            gru_bound_ms(Ts, Bs, H, H, "fwd")
+    times.update(cudnn_times(dev, T, B, H, Ts, Bs, torch.nn.GRU(H, H),
+                             "cudnn_gru550"))
+    print("[gru_torch_times] kernels at T=%d B=%d H=%d: %s"
+          % (T, B, H, json.dumps(times)))
+    return times
+
+
+def slice8_rows(cl_checks, cl_times, cl_launches, gt_checks, gt_times,
+                gt_launches):
+    """The kernels JSON rows of the CGS-16x Li-GRU slice and GRU_cudnn.
+    The sparse liGRU's ``ms`` etc. are per layer call at CL_TRAIN_TBH
+    (relu, qbits 16, Kb=8, R=2; the forward also at CL_SERVE_TBH);
+    ``launches`` counts one CGS-16x Li-GRU train step; ``library_ms`` is
+    cuDNN's nn.GRU(1024, 1024) at B=8, a yardstick. The torch GRU's are
+    per layer call at GT_TRAIN_TBH; ``launches`` counts GRU_cudnn's
+    4-layer train-mode forward + backward; ``library_ms`` is
+    nn.GRU(550, 550), which computes the same function."""
+    fr = "pytorch_kaldi_cgs_tpu/ops/fused_rnn.py:%d"
+    src = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/%s.cu"
+
+    def err_at(checks, kernel, shape, **want):
+        return [c for c in checks if c["kernel"] == kernel
+                and (c["T"], c["B"], c["H"]) == shape
+                and all(c.get(k) == v for k, v in want.items())][0][
+                    "max_abs_err"]
+
+    def row(name, source, line, times, launches, checks, err, library_ms,
+            note, shape, **extra):
+        mine = [c for c in checks if c["kernel"].split("/")[0] == name]
+        r = {"name": name, "route": "cuda", "source": src % source,
+             "replaces": fr % line, "launches": launches[name]["main"],
+             "launches_by_path": launches[name], "max_abs_err": err,
+             "ms": times[name + "_ms"], "plain_ms": times[name + "_plain_ms"],
+             "bound_ms": times[name + "_bound_ms"],
+             "bound_by": times[name + "_bound_by"], "library_ms": library_ms,
+             "library_note": note, "shape": shape, "checks": len(mine),
+             "checks_ok": all(c["ok"] for c in mine)}
+        r.update(extra)
+        return r
+
+    T, B, H = CL_TRAIN_TBH
+    sp = {"T": T, "B": B, "H": H, "Kb": 8, "R": 2, "bs": 128, "act": "relu",
+          "qbits": 16}
+    tt_ = {"T": GT_TRAIN_TBH[0], "B": GT_TRAIN_TBH[1], "H": GT_TRAIN_TBH[2]}
+    yard = "cuDNN nn.GRU(1024, 1024) %s at B=8: a yardstick (three gates, " \
+           "dense, no quantizer)"
+    lib = "cuDNN nn.GRU(550, 550) %s: the same function"
+    f32 = dict(qbits=0, act="relu", w3g="f32")
+    return [
+        row("fused_ligru_fwd_sparse", "fused_ligru_sparse", 1291, cl_times,
+            cl_launches, cl_checks,
+            err_at(cl_checks, "fused_ligru_fwd_sparse", CL_TRAIN_TBH, **f32),
+            cl_times["cudnn_gru_fwd_ms"], yard % "forward", sp,
+            ms_q0=cl_times["fused_ligru_fwd_sparse_ms_q0"],
+            dense_fused_ligru_fwd_ms=cl_times["dense_fused_ligru_fwd_ms"],
+            serve={"T": CL_SERVE_TBH[0], "B": CL_SERVE_TBH[1], "H": H,
+                   "ms": cl_times["serve_fwd_ms"],
+                   "plain_ms": cl_times["serve_fwd_plain_ms"],
+                   "bound_ms": cl_times["serve_fwd_bound_ms"],
+                   "bound_by": cl_times["serve_fwd_bound_by"],
+                   "library_ms": cl_times["cudnn_gru_serve_fwd_ms"]}),
+        row("fused_ligru_bwd_sparse", "fused_ligru_sparse", 1339, cl_times,
+            cl_launches, cl_checks,
+            err_at(cl_checks, "fused_ligru_bwd_sparse", CL_TRAIN_TBH, **f32),
+            cl_times["cudnn_gru_bwd_ms"],
+            yard % "backward (fwd+bwd minus fwd)", sp,
+            dense_fused_ligru_bwd_ms=cl_times["dense_fused_ligru_bwd_ms"],
+            dU_dw_ms=cl_times["dU_dw_ms"]),
+        row("fused_gru_torch_fwd", "fused_gru_torch", 603, gt_times,
+            gt_launches, gt_checks,
+            err_at(gt_checks, "fused_gru_torch_fwd", GT_TRAIN_TBH),
+            gt_times["cudnn_gru550_fwd_ms"], lib % "forward", tt_,
+            serve={"T": GT_SERVE_TBH[0], "B": GT_SERVE_TBH[1],
+                   "H": GT_SERVE_TBH[2], "ms": gt_times["serve_fwd_ms"],
+                   "plain_ms": gt_times["serve_fwd_plain_ms"],
+                   "bound_ms": gt_times["serve_fwd_bound_ms"],
+                   "bound_by": gt_times["serve_fwd_bound_by"],
+                   "library_ms": gt_times["cudnn_gru550_serve_fwd_ms"]}),
+        row("fused_gru_torch_bwd", "fused_gru_torch", 651, gt_times,
+            gt_launches, gt_checks,
+            err_at(gt_checks, "fused_gru_torch_bwd", GT_TRAIN_TBH),
+            gt_times["cudnn_gru550_bwd_ms"],
+            lib % "backward (fwd+bwd minus fwd)", tt_)]
 
 
 def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
@@ -3350,6 +3986,22 @@ def main():
         tr_phones, tr_logp, "timit_rnn_stream", "fused_rnn_fwd", TR_LAYERS)
     tr_train = timed("timit_rnn_train", phase_timit_rnn_train, dev)
     cudnn = timed("cudnn_wrappers", phase_cudnn_wrappers, dev)
+    cl_checks = timed("cgs_ligru_kernels", phase_cgs_ligru_kernels, dev)
+    cl_rec, cl_phones, cl_logp, cl_serve_launches, cl_post_err = timed(
+        "cgs_ligru_serve", phase_serve, dev, audio, lens,
+        build_cgs_ligru_stack, "cgs_ligru_serve", "fused_ligru_fwd_sparse",
+        TOL_POST_Q16, cgs_ligru_expect_serve)
+    cl_noq = timed(
+        "cgs_ligru_serve_noq", phase_serve, dev, audio, lens,
+        lambda d: build_cgs_ligru_stack(d, quant_inp=False),
+        "cgs_ligru_serve, ligru_quant_inp=False", "fused_ligru_fwd_sparse",
+        TOL_POST, cgs_ligru_expect_serve)
+    cl_stream_launches, cl_stream_err = timed(
+        "cgs_ligru_stream", phase_cgs_ligru_stream, dev, cl_rec, audio, lens,
+        cl_phones, cl_logp, cl_noq)
+    cl_train = timed("cgs_ligru_train", phase_cgs_ligru_train, dev)
+    gt_checks = timed("gru_torch_kernels", phase_gru_torch_kernels, dev)
+    gt_cudnn = timed("gru_cudnn", phase_gru_cudnn, dev)
     serve_times, serve = timed("times", phase_times, dev, rec, audio, lens)
     serve["posteriors_vs_cpu_max_abs_err"] = post_err
     times, step = timed("train_times", phase_train_times, dev)
@@ -3365,6 +4017,10 @@ def main():
     tr_times, tr_step, tr_serve = timed("timit_rnn_times",
                                         phase_timit_rnn_times, dev, tr_rec,
                                         audio, lens)
+    cl_times, cl_step, cl_serve = timed("cgs_ligru_times",
+                                        phase_cgs_ligru_times, dev, cl_rec,
+                                        audio, lens)
+    gt_times = timed("gru_torch_times", phase_gru_torch_times, dev)
     sp_serve.update(posteriors_vs_cpu_max_abs_err=sp_post_err,
                     stream_vs_whole_max_abs_err=sp_stream_err,
                     dense_stream_launches=sp_stream_launches)
@@ -3504,6 +4160,42 @@ def main():
         "timit_rnn_train_step": tr_step, "cudnn_wrappers": cudnn,
         "yardsticks": {k: v for k, v in tr_times.items()
                        if "cudnn" in k or "dU" in k}}))
+    cl_serve.update(posteriors_vs_cpu_max_abs_err=cl_post_err,
+                    posteriors_vs_cpu_max_abs_err_no_quant_inp=cl_noq[4],
+                    stream=cl_stream_err,
+                    dense_stream_launches=cl_stream_launches)
+    cl_tr = cl_train["launches_recompute"]
+    cl_launches = {
+        "fused_ligru_fwd_sparse": {
+            "main": cl_tr["fused_ligru_fwd_sparse"],
+            "cgs_ligru_serve": cl_serve_launches["fused_ligru_fwd_sparse"],
+            "large_batch_%d_rows" % CL_LARGE_ROWS:
+                large["ligru"]["launches"]},
+        "fused_ligru_bwd_sparse": {"main": cl_tr["fused_ligru_bwd_sparse"]}}
+    gc_eval, gc_train = (cudnn["GRU_cudnn"]["launches_eval"],
+                         cudnn["GRU_cudnn"]["launches_train"])
+    gt_launches = {
+        "fused_gru_torch_fwd": {
+            "main": gt_cudnn["launches_train"]["fused_gru_torch_fwd"],
+            "gru_cudnn_eval": gt_cudnn["launches_eval"],
+            "gru_cudnn_stream": gt_cudnn["launches_stream"],
+            "cudnn_wrappers_eval": gc_eval["fused_gru_torch_fwd"],
+            "cudnn_wrappers_train": gc_train["fused_gru_torch_fwd"]},
+        "fused_gru_torch_bwd": {
+            "main": gt_cudnn["launches_train"]["fused_gru_torch_bwd"],
+            "cudnn_wrappers_train": gc_train["fused_gru_torch_bwd"]}}
+    for name, paths in list(cl_launches.items()) + list(gt_launches.items()):
+        if not all(paths.values()):
+            raise AssertionError("%s was not launched on every path: %s"
+                                 % (name, paths))
+    print("[summary] CGS-16x Li-GRU %s" % json.dumps({
+        "cgs_ligru_serve": cl_serve, "cgs_ligru_train": cl_train,
+        "cgs_ligru_train_step": cl_step,
+        "yardsticks": {k: v for k, v in cl_times.items()
+                       if "cudnn" in k or "dU" in k or "dense" in k}}))
+    print("[summary] GRU_cudnn %s" % json.dumps({
+        "gru_cudnn": gt_cudnn, "yardsticks": {
+            k: v for k, v in gt_times.items() if "cudnn" in k}}))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
                         launches)
     line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
@@ -3528,6 +4220,8 @@ def main():
         "cuDNN nn.RNN(550, 550, nonlinearity='relu') (no dropout)",
         {"ms_nostash": "fused_rnn_fwd_nostash_ms",
          "ms_q16": "fused_rnn_fwd_ms_q16"}, "cudnn_rnn")
+    line["kernels"] += slice8_rows(cl_checks, cl_times, cl_launches,
+                                   gt_checks, gt_times, gt_launches)
     print("[timing] total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps(line))
     print(smi)

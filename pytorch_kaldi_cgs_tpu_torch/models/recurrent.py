@@ -1,7 +1,7 @@
 """The recurrent acoustic models (port of ``pytorch_kaldi_cgs_tpu/models/
 recurrent.py``: ``_RecurrentBase``, ``LSTM``, ``GRU``, ``liGRU`` and
-``RNN``, and the cuDNN-class ``_CudnnBase``, ``LSTM_cudnn`` and
-``RNN_cudnn``; ``GRU_cudnn`` waits on its torch-semantics GRU kernels).
+``RNN``, and the cuDNN-class ``_CudnnBase``, ``LSTM_cudnn``,
+``GRU_cudnn`` and ``RNN_cudnn``).
 
 Time-major (T, B, F). Per layer: one fused input projection for all the
 x-gates (HCGS mask + quantizer applied to the weights), batch norm on
@@ -22,15 +22,15 @@ carry to the seeded forward. The JAX package's VMEM size rules and
 any batch.
 
 Block sparsity (``<prefix>_block_sparse``: auto by default, True or
-False), by the JAX package's rules: an LSTM or GRU layer whose recurrent
-HCGS mask at 128-multiple blocks drops at least half the blocks of each
-row runs its whole-utterance recurrence over the kept blocks only
-(``fused_lstm.lstm_scan_fused_sparse``, ``fused_rnn.
-gru_scan_fused_sparse``), in float32 whatever the compute dtype, as the
-JAX package does, at any batch; the LSTM and the GRU stream on their
-dense seeded kernels over the masked U. Such a liGRU or RNN layer
-raises where the JAX package would take its sparse kernels (not ported
-yet). An
+False), by the JAX package's rules: an LSTM, GRU or liGRU layer whose
+recurrent HCGS mask at 128-multiple blocks drops at least half the
+blocks of each row runs its whole-utterance recurrence over the kept
+blocks only (``fused_lstm.lstm_scan_fused_sparse``, ``fused_rnn.
+gru_scan_fused_sparse``, ``fused_rnn.ligru_scan_fused_sparse``), in
+float32 whatever the compute dtype, as the JAX package does, at any
+batch; they stream on their dense seeded kernels over the masked U.
+Such an RNN layer raises where the JAX package would take its sparse
+kernels (not ported yet). An
 x-projection the JAX package puts on its v3 block-sparse kernels (128-
 multiple blocks; under auto from 16 column blocks with at least half of
 each row's dropped) runs on them here too
@@ -43,10 +43,13 @@ Sequence parallelism is not ported.
 The cuDNN-class wrappers keep torch's parameter names and gate orders:
 ``LSTM_cudnn`` permutes (i, f, g, o) onto the fused LSTM's (f, i, o, c),
 ``RNN_cudnn`` runs the fused RNN; both fold ``b_hh`` into the
-projection, take a mask of ones, run a second direction over the
-time-flipped input, stream on the seeded kernels and ignore the compute
-dtype, as in the JAX package. Their inter-layer dropout is inverted and
-drawn from the caller's generator.
+projection and take a mask of ones. ``GRU_cudnn`` runs the
+torch-semantics GRU kernels in torch's gate order (r, z, n), with
+``b_hh`` passed apart: ``b_hn`` sits inside ``r * (U_n h + b_hn)``. All
+three run a second direction over the time-flipped input, stream
+(unidirectional) on the seeded kernels and ignore the compute dtype, as
+in the JAX package. Their inter-layer dropout is inverted and drawn from
+the caller's generator.
 """
 
 from __future__ import annotations
@@ -430,7 +433,13 @@ class GRU(_RecurrentBase):
 class liGRU(_RecurrentBase):
     """Light GRU: one update gate z, a candidate through the layer
     activation with per-sequence dropout, no reset gate; gates ordered
-    [h, z] (candidate first), U stacked [Uh; Uz]."""
+    [h, z] (candidate first), U stacked [Uh; Uz]. A layer with a sparse
+    recurrent layout runs the block-sparse liGRU kernels at every batch
+    (``_sparse_rec_layout``: w3g in bf16 only where the JAX size rule
+    says "bf16"; where it says "", the JAX package runs its float32
+    ``lax.scan`` over the masked U, the same math to float32 rounding);
+    a stream drops the layout and runs the dense seeded forward over the
+    masked U, as the JAX package does."""
 
     prefix = "ligru"
     gates_x = ["wh", "wz"]
@@ -443,20 +452,12 @@ class liGRU(_RecurrentBase):
     def _recurrence(self, gates, U, drop, i, carry):
         act = self.act_names[i]
         qb = self._rec_qbits()
-        B, H = gates.shape[1], gates.shape[2] // 2
         if carry is None:
-            # where the JAX size rule keeps the layer off its sparse
-            # kernels, both packages run the dense recurrence over the
-            # masked U
             layout = self._sparse_rec_layout(i)
-            if layout is not None and fused_lstm.sparse_scan_fits(B, H,
-                                                                  layout, 2):
-                raise NotImplementedError(
-                    "ligru layer %d: the JAX package runs this recurrence "
-                    "(Kb=%d, R=%d) on its block-sparse liGRU kernels "
-                    "(ops/fused_rnn.py:_build_ligru_fwd_sparse, "
-                    "_build_ligru_bwd_sparse), which are not ported yet"
-                    % (i, layout.Kb, layout.R))
+            if layout is not None:
+                return fused_rnn.ligru_scan_fused_sparse(
+                    gates, self._rec_w3g(U, layout), layout, drop, act=act,
+                    quant_bits=qb), None
         if self._fused_ok(i):
             if carry is None:
                 return fused_rnn.ligru_scan_fused(
@@ -550,8 +551,8 @@ class RNN(_RecurrentBase):
 # ---------------------------------------------------------------------------
 
 class _CudnnBase(AcousticModel):
-    """Shared construction and execution of ``LSTM_cudnn`` and
-    ``RNN_cudnn``: per layer and direction ``w_ih_l<i>[_r]`` (G*H, in),
+    """Shared construction and execution of ``LSTM_cudnn``, ``GRU_cudnn``
+    and ``RNN_cudnn``: per layer and direction ``w_ih_l<i>[_r]`` (G*H, in),
     ``w_hh_l<i>[_r]`` (G*H, H) and, with ``bias``, ``b_ih_*`` and
     ``b_hh_*`` (G*H,), drawn U(+-1/sqrt(H)) in the JAX package's order."""
 
@@ -592,17 +593,20 @@ class _CudnnBase(AcousticModel):
     def _zero_carry(self, z: torch.Tensor):
         raise NotImplementedError
 
-    def _scan(self, gates: torch.Tensor, W_hh: torch.Tensor, carry):
-        """The recurrence over the projection with b_hh folded in ->
-        (hs, final carry); ``carry`` None = zero initial state."""
+    def _scan(self, gates: torch.Tensor, W_hh: torch.Tensor,
+              b_hh: Optional[torch.Tensor], carry):
+        """The recurrence over the projection (b_ih added) with the
+        recurrent bias ``b_hh`` (None without bias) -> (hs, final carry);
+        ``carry`` None = zero initial state."""
         raise NotImplementedError
 
     def _dir(self, x: torch.Tensor, sfx: str, carry):
         proj = x @ self.params["w_ih_" + sfx].T
+        b_hh = None
         if self.bias:
-            proj = proj + self.params["b_ih_" + sfx] \
-                + self.params["b_hh_" + sfx]
-        return self._scan(proj.contiguous(), self.params["w_hh_" + sfx],
+            proj = proj + self.params["b_ih_" + sfx]
+            b_hh = self.params["b_hh_" + sfx]
+        return self._scan(proj.contiguous(), self.params["w_hh_" + sfx], b_hh,
                           carry)
 
     def _run(self, x: torch.Tensor, train: bool, carries,
@@ -635,8 +639,9 @@ class LSTM_cudnn(_CudnnBase):
     def _zero_carry(self, z):
         return (z, z)
 
-    def _scan(self, gates, W_hh, carry):
+    def _scan(self, gates, W_hh, b_hh, carry):
         B, H = gates.shape[1], self.hidden_size
+        gates = gates if b_hh is None else gates + b_hh
         g = torch.cat([gates.chunk(4, dim=-1)[k] for k in self.PERM], dim=-1)
         U = torch.cat([W_hh.chunk(4, dim=0)[k] for k in self.PERM])
         ones = g.new_ones((B, H))
@@ -644,6 +649,22 @@ class LSTM_cudnn(_CudnnBase):
             return fused_lstm.lstm_scan_fused(g, U, ones, act="tanh"), None
         return fused_lstm.lstm_scan_fused_stream(g, U, ones, carry[0],
                                                  carry[1], act="tanh")
+
+
+class GRU_cudnn(_CudnnBase):
+    """torch's ``nn.GRU`` (gates r, z, n; ``b_hn`` inside the reset
+    product) on the torch-semantics GRU kernels."""
+
+    n_gates = 3
+
+    def _zero_carry(self, z):
+        return z
+
+    def _scan(self, gates, W_hh, b_hh, carry):
+        if carry is None:
+            return fused_rnn.gru_cudnn_scan_fused(gates, W_hh, b_hh), None
+        return fused_rnn.gru_cudnn_scan_fused_stream(gates, W_hh, b_hh,
+                                                     carry)
 
 
 class RNN_cudnn(_CudnnBase):
@@ -660,7 +681,8 @@ class RNN_cudnn(_CudnnBase):
     def _zero_carry(self, z):
         return z
 
-    def _scan(self, gates, W_hh, carry):
+    def _scan(self, gates, W_hh, b_hh, carry):
+        gates = gates if b_hh is None else gates + b_hh
         ones = gates.new_ones((gates.shape[1], self.hidden_size))
         if carry is None:
             return fused_rnn.rnn_scan_fused(gates, W_hh, ones,

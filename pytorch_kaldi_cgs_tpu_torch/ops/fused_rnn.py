@@ -1,9 +1,11 @@
-"""Fused liGRU, GRU (dense and block-sparse) and vanilla-RNN
-recurrences: the whole layer's time loop, forward and BPTT.
+"""Fused liGRU and GRU (dense and block-sparse), torch-semantics GRU
+and vanilla-RNN recurrences: the whole layer's time loop, forward and
+BPTT.
 
-Port of the liGRU, GRU and RNN parts of
-``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``. The GRU's and the RNN's
-(below, after the liGRU's) have their own notes. Three liGRU TPU
+Port of the liGRU, GRU, torch-GRU and RNN parts of
+``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``. The GRU's, the block-sparse
+liGRU's, the RNN's and the torch-semantics GRU's (below, after the
+dense liGRU's) have their own notes. Three liGRU TPU
 kernels become CUDA kernels for ``sm_90a`` in ``csrc/fused_ligru.cu``,
 each with a plain PyTorch twin that repeats its arithmetic and is what
 the CPU runs:
@@ -93,19 +95,25 @@ def fused_ligru_fwd_plain(gates: torch.Tensor, U: torch.Tensor,
     return (torch.stack(hs), torch.stack(acts)) if stash else torch.stack(hs)
 
 
-def _bwd_loop(step, U, dhs, like):
-    """Reverse-time loop shared by the BPTT twins: ``step(t, dh)`` gives
-    (dg_t, z_t); dh entering step t-1 is ``dh * z + dg_t @ U``."""
+def _bwd_loop(step, dot, dhs, like):
+    """Reverse-time loop shared by the liGRU's BPTT twins: ``step(t, dh)``
+    gives (dg_t, z_t); dh entering step t-1 is ``dh * z + dot(dg_t)``, the
+    product with U (dense, or over its kept blocks)."""
     T, B, H = dhs.shape
-    Uf = U.to(torch.float32)
     dh_carry = like.new_zeros((B, H))
     dg = like.new_empty((T, B, 2 * H))
     for t in range(T - 1, -1, -1):
         dh = dh_carry + dhs[t]
         d, z = step(t, dh)
         dg[t] = d
-        dh_carry = dh * z + d @ Uf
+        dh_carry = dh * z + dot(d)
     return dg
+
+
+def _dense_dot(U):
+    """``d -> d @ U`` in float32: the dense twins' carry product."""
+    Uf = U.to(torch.float32)
+    return lambda d: d @ Uf
 
 
 def _dgates(dh, a, z, h_prev, drop, dact):
@@ -132,7 +140,7 @@ def fused_ligru_bwd_stash_plain(acts: torch.Tensor, U: torch.Tensor,
     def step(t, dh):
         a, z = acts[t, :, :H], acts[t, :, H:]
         return _dgates(dh, a, z, h_prev[t], drop, dactf(a)), z
-    return _bwd_loop(step, U, dhs, acts)
+    return _bwd_loop(step, _dense_dot(U), dhs, acts)
 
 
 def fused_ligru_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
@@ -151,7 +159,7 @@ def fused_ligru_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
         ac = g[:, :H]
         z = torch.sigmoid(g[:, H:])
         return _dgates(dh, actf(ac), z, h_prev[t], drop, dact_pre(act, ac)), z
-    return _bwd_loop(step, U, dhs, gates)
+    return _bwd_loop(step, _dense_dot(U), dhs, gates)
 
 
 # ---------------------------------------------------------------------------
@@ -773,8 +781,8 @@ def fused_gru_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
 fused_gru_fwd_sparse.launches = 0
 
 
-#: The sparse GRU backward's static shared memory (the per-unit sums and
-#: the entry lists).
+#: The sparse GRU and liGRU backwards' static shared memory (the per-unit
+#: sums and the entry lists).
 _GRU_BWD_STATIC = 8 * 8 * 4 + 2 * 64 * 4
 
 
@@ -887,6 +895,215 @@ def gru_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
                                      quant_bits, wbf16)
     return fused_gru_fwd_sparse(gates_t, w3g, drop_mask, layout, act,
                                 quant_bits, wbf16)
+
+
+# -- the block-sparse liGRU: TPU kernels _build_ligru_fwd_sparse and
+# _build_ligru_bwd_sparse become csrc/fused_ligru_sparse.cu. U_h and U_z
+# share one HCGS mask; their kept blocks pack into w3g (Nb, 2*bs, R*bs),
+# each block gate-major [h | z], and the step's one product runs over the
+# kept blocks only. The backward rebuilds [a_pre | z] for all steps at
+# once, then runs one launch per reverse step; dU is one block-sparse dw
+# product (G=2) over q(h_{t-1}).
+
+def _ligru_sparse_fns(w3g, layout, bf16):
+    """(rec_u, carry dot) of the sparse liGRU twins; w3g bf16-rounded,
+    and dg rounded before the carry dot, when ``bf16``."""
+    wc = bf16_round(w3g) if bf16 else w3g
+
+    def dot(d):
+        return sparse_dh(bf16_round(d) if bf16 else d, wc, layout, 2)
+    return (lambda x: sparse_recurrent_u(x, wc, layout, 2)), dot
+
+
+def fused_ligru_fwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
+                                 drop: torch.Tensor, layout,
+                                 act: str = "relu", qbits: int = 0,
+                                 bf16: bool = False) -> torch.Tensor:
+    """Twin of the sparse liGRU forward kernel (zero initial state): a
+    Python loop over :func:`ligru_cell`, q(h) rounded to bf16 before the
+    product when ``bf16``. -> hs (T, B, H)."""
+    T, B, G2 = gates.shape
+    rec_u, _ = _ligru_sparse_fns(w3g, layout, bf16)
+    h = gates.new_zeros((B, G2 // 2))
+    hs = []
+    for t in range(T):
+        h, _ = ligru_cell(gates[t], h, rec_u, drop, ACTS[act], qbits, bf16)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def fused_ligru_bwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
+                                 drop: torch.Tensor, h_prev: torch.Tensor,
+                                 dhs: torch.Tensor, layout,
+                                 act: str = "relu", qbits: int = 0,
+                                 bf16: bool = False) -> torch.Tensor:
+    """Twin of the sparse liGRU BPTT kernel: per reverse step it rebuilds
+    the gates from ``h_prev`` (q per step) and runs the cotangent chain of
+    JAX ``_build_ligru_bwd_sparse`` (:1358-1370; act' from the
+    pre-activation, dh through the quantizer unchanged, the cotangents
+    bf16-rounded before their dot when ``bf16``). -> dg (T, B, 2H)."""
+    H = h_prev.shape[2]
+    rec_u, dot = _ligru_sparse_fns(w3g, layout, bf16)
+    actf = ACTS[act]
+
+    def step(t, dh):
+        hq = quantize_input(h_prev[t], qbits) if qbits > 0 else h_prev[t]
+        g = gates[t] + rec_u(bf16_round(hq) if bf16 else hq)
+        ac = g[:, :H]
+        z = torch.sigmoid(g[:, H:])
+        return _dgates(dh, actf(ac), z, h_prev[t], drop, dact_pre(act, ac)), z
+    return _bwd_loop(step, dot, dhs, gates)
+
+
+def fused_ligru_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                           drop: torch.Tensor, layout, act: str = "relu",
+                           qbits: int = 0, bf16: bool = False
+                           ) -> torch.Tensor:
+    """Whole-layer liGRU forward from the zero state over the kept blocks
+    of U (TPU kernel ``_build_ligru_fwd_sparse``): ``gates`` (T, B, 2H)
+    float32 ordered [h | z], ``w3g`` (Nb, 2*bs, R*bs) float32 (cast to
+    bf16 for the kernel when ``bf16``), ``drop`` broadcastable to (B, H).
+    -> hs (T, B, H). CUDA tensors run the kernel (one launch per step),
+    CPU tensors the twin; no autograd of its own
+    (:func:`ligru_scan_fused_sparse` carries the BPTT kernel)."""
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act, (),
+                                  gates=2)
+    if _needs_grad(gates, w3g):
+        raise RuntimeError("fused_ligru_fwd_sparse has no autograd of its "
+                           "own: call ligru_scan_fused_sparse")
+    if gates.device.type == "cpu":
+        return fused_ligru_fwd_sparse_plain(gates, w3g, drop, layout, act,
+                                            qbits, bf16)
+    from . import _build
+    lib = _build.load("fused_ligru_sparse")
+    fn = lib.fused_ligru_fwd_sparse
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    qslots = torch.empty(T + 1 if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    wk = _sparse_w(w3g, bf16)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), wk.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                drop.data_ptr(), hs.data_ptr(), qslots.data_ptr(), T, B, H,
+                layout.R, layout.bs, _ACT_CODE[act], qbits, int(bf16),
+                _stream(dev))
+    _build.check(lib, rc, "fused_ligru_fwd_sparse")
+    fused_ligru_fwd_sparse.launches += T
+    return hs
+
+
+fused_ligru_fwd_sparse.launches = 0
+
+
+def fused_ligru_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                           drop: torch.Tensor, h_prev: torch.Tensor,
+                           dhs: torch.Tensor, layout, act: str = "relu",
+                           qbits: int = 0, bf16: bool = False
+                           ) -> torch.Tensor:
+    """Sparse liGRU BPTT (TPU kernel ``_build_ligru_bwd_sparse``):
+    ``gates`` are the forward's inputs, ``h_prev`` (T, B, H) the carries
+    entering each step, ``dhs`` (T, B, H) the upstream cotangents. -> dg
+    (T, B, 2H). CUDA tensors run the kernel (one launch for the forward
+    quantities of all steps, then one per reverse step), CPU tensors the
+    twin."""
+    seqs = (("h_prev", h_prev), ("dhs", dhs))
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act,
+                                  seqs, gates=2)
+    _check_shapes([(n, t, (T, B, H)) for n, t in seqs])
+    if gates.device.type == "cpu":
+        return fused_ligru_bwd_sparse_plain(gates, w3g, drop, h_prev, dhs,
+                                            layout, act, qbits, bf16)
+    smem = 4 * 8 * layout.C * 2 * layout.bs
+    if smem + _GRU_BWD_STATIC > _SMEM_MAX:
+        raise ValueError("fused_ligru_bwd_sparse: %d blocks per column of "
+                         "%d need %d bytes of shared memory, more than a "
+                         "block has" % (layout.C, layout.bs, smem))
+    from . import _build
+    lib = _build.load("fused_ligru_sparse")
+    fn = lib.fused_ligru_bwd_sparse
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    wk = _sparse_w(w3g, bf16)
+    wt = wk.transpose(1, 2).contiguous()      # (Nb, R*bs, 2bs): carry dots
+    f32 = dict(dtype=torch.float32, device=dev)
+    fw = torch.empty((T, B, 2 * H), **f32)
+    dh = torch.empty((B, H), **f32)
+    dg = torch.empty((T, B, 2 * H), **f32)
+    qslots = torch.empty(T if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    idx = [layout.device_index(n, dev).data_ptr()
+           for n in ("col_idx", "t_row_idx", "t_perm")]
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
+                drop.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(),
+                fw.data_ptr(), dh.data_ptr(), dg.data_ptr(),
+                qslots.data_ptr(), T, B, H, layout.R, layout.bs, layout.C,
+                layout.nnz, _ACT_CODE[act], qbits, int(bf16), _stream(dev))
+    _build.check(lib, rc, "fused_ligru_bwd_sparse")
+    fused_ligru_bwd_sparse.launches += T + 1
+    return dg
+
+
+fused_ligru_bwd_sparse.launches = 0
+
+
+class _FusedLiGRUSparse(torch.autograd.Function):
+    """The JAX package's ``ligru_scan_fused_sparse`` custom VJP over
+    (gates, w3g): forward kernel, BPTT kernel, then dw3g as one
+    block-sparse dw product (G=2) over the (T*B) batch with h quantized
+    per step. Under ``wbf16`` the kernels read w3g in bf16 and dw3g is
+    rounded to bf16 (the JAX op's primal is the bf16 w3g)."""
+
+    @staticmethod
+    def forward(ctx, gates, w3g, drop, layout, act, qbits, wbf16):
+        hs = fused_ligru_fwd_sparse(gates, w3g, drop, layout, act, qbits,
+                                    wbf16)
+        ctx.meta = (layout, act, qbits, wbf16)
+        ctx.save_for_backward(gates, w3g, drop, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        layout, act, qbits, wbf16 = ctx.meta
+        gates, w3g, drop, hs = ctx.saved_tensors
+        T, B, H = hs.shape
+        h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
+        dg = fused_ligru_bwd_sparse(gates, w3g, drop, h_prev,
+                                    dhs.contiguous(), layout, act, qbits,
+                                    wbf16)
+        dw3g = None
+        if ctx.needs_input_grad[1]:
+            hq = (quantize_input_per_step(h_prev, qbits) if qbits > 0
+                  else h_prev)
+            dw3g = sparse_dU(dg.reshape(T * B, 2 * H), hq.reshape(T * B, H),
+                             layout, 2)
+            if wbf16:
+                dw3g = bf16_round(dw3g)
+        return dg, dw3g, None, None, None, None, None
+
+
+def ligru_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
+                            drop_mask: torch.Tensor, act: str = "relu",
+                            quant_bits: int = 0) -> torch.Tensor:
+    """hs (T, B, H) from the zero state with block-sparse recurrent
+    matrices U_h, U_z sharing one HCGS mask, differentiable in ``gates_t``
+    (T, B, 2H) [h | z] and ``w3g`` (Nb, 2*bs, R*bs) (``drop_mask`` is a
+    constant). As in the JAX package it takes no compute dtype: the
+    recurrence runs in float32, with w3g read in bf16 only where
+    :func:`sparse_scan_fits` says "bf16"."""
+    gates_t, w3g = gates_t.to(torch.float32), w3g.to(torch.float32)
+    T, B, G2 = gates_t.shape
+    wbf16 = sparse_scan_fits(B, G2 // 2, layout, 2) == "bf16"
+    if _needs_grad(gates_t, w3g):
+        return _FusedLiGRUSparse.apply(gates_t, w3g, drop_mask, layout, act,
+                                       quant_bits, wbf16)
+    return fused_ligru_fwd_sparse(gates_t, w3g, drop_mask, layout, act,
+                                  quant_bits, wbf16)
 
 
 # ---------------------------------------------------------------------------
@@ -1147,4 +1364,240 @@ def rnn_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
         hs = fused_rnn_fwd(gates_t.to(torch.float32), U.to(torch.float32),
                            drop_mask, h0.to(torch.float32), act=act,
                            qbits=quant_bits)
+    return hs, hs[-1]
+
+
+# ---------------------------------------------------------------------------
+# the torch-semantics GRU of the GRU_cudnn wrapper (torch's nn.GRU): TPU
+# kernels _build_gru_torch_fwd and _build_gru_torch_bwd become
+# csrc/fused_gru_torch.cu. Gates (T, B, 3H) = x @ W_ih.T + b_ih in torch's
+# order [r | z | n], W_hh (3H, H), b_hh (3H,). The reset gate multiplies
+# the already projected candidate, so a step is one product:
+#
+#     u    = h @ W_hh.T + b_hh
+#     r, z = sigmoid(g_rz + u_rz)
+#     n    = tanh(g_n + r * u_n)
+#     h    = (1 - z) * n + z * h
+#
+# In reverse, from dh_carry = 0 at t = T-1:
+#
+#     dh   = dh_carry + dhs[t]
+#     da_n = dh * (1 - z) * (1 - n^2),   dm = da_n * r
+#     da_r = da_n * u_n * r (1 - r),     da_z = dh * (h_{t-1} - n) * z (1 - z)
+#     dh_carry = dh * z + [da_r | da_z | dm] @ W_hh
+#
+# The kernels emit dg = [da_r | da_z | da_n] and dm; dW_hh and db_hh are
+# one product and one sum over the unrolled (T*B) batch outside, as in the
+# JAX package. No dropout, no quantizer; everything is float32.
+# ---------------------------------------------------------------------------
+
+def gru_torch_cell(g_t: torch.Tensor, h: torch.Tensor, W_hh: torch.Tensor,
+                   b_hh: torch.Tensor):
+    """One torch-semantics GRU step. -> (h_t, u = h @ W_hh.T + b_hh)."""
+    H = h.shape[-1]
+    u = h @ W_hh.T + b_hh
+    r = torch.sigmoid(g_t[:, :H] + u[:, :H])
+    z = torch.sigmoid(g_t[:, H:2 * H] + u[:, H:2 * H])
+    n = torch.tanh(g_t[:, 2 * H:] + r * u[:, 2 * H:])
+    return (1.0 - z) * n + z * h, u
+
+
+def fused_gru_torch_fwd_plain(gates: torch.Tensor, W_hh: torch.Tensor,
+                              b_hh: torch.Tensor,
+                              h0: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """The forward kernel's plain twin: a Python loop over
+    :func:`gru_torch_cell`. -> hs (T, B, H)."""
+    T, B, G3 = gates.shape
+    h = gates.new_zeros((B, G3 // 3)) if h0 is None else h0
+    hs = []
+    for t in range(T):
+        h, _ = gru_torch_cell(gates[t], h, W_hh, b_hh)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def fused_gru_torch_bwd_plain(gates: torch.Tensor, W_hh: torch.Tensor,
+                              b_hh: torch.Tensor, h_prev: torch.Tensor,
+                              dhs: torch.Tensor):
+    """Twin of the BPTT kernel (JAX ``_build_gru_torch_bwd`` :675-689):
+    per reverse step it rebuilds u from ``h_prev``. -> (dg (T, B, 3H)
+    [da_r | da_z | da_n], dm (T, B, H))."""
+    T, B, H = h_prev.shape
+    dg = gates.new_empty((T, B, 3 * H))
+    dm = gates.new_empty((T, B, H))
+    dh_carry = gates.new_zeros((B, H))
+    for t in range(T - 1, -1, -1):
+        hp, g = h_prev[t], gates[t]
+        u = hp @ W_hh.T + b_hh
+        r = torch.sigmoid(g[:, :H] + u[:, :H])
+        z = torch.sigmoid(g[:, H:2 * H] + u[:, H:2 * H])
+        n = torch.tanh(g[:, 2 * H:] + r * u[:, 2 * H:])
+        dh = dh_carry + dhs[t]
+        da_n = dh * (1.0 - z) * (1.0 - n * n)
+        dm[t] = da_n * r
+        dg[t] = torch.cat([da_n * u[:, 2 * H:] * r * (1.0 - r),
+                           dh * (hp - n) * z * (1.0 - z), da_n], dim=1)
+        du = torch.cat([dg[t, :, :2 * H], dm[t]], dim=1)
+        dh_carry = dh * z + du @ W_hh
+    return dg, dm
+
+
+def _gru_torch_check(gates, W_hh, b_hh, seqs):
+    """(T, B, 3H) float32 ``gates``, W_hh (3H, H), b_hh (3H,) and the
+    ``seqs`` (name, tensor or None), all float32 on one device,
+    contiguous on the card, and a width whose staged rows fit a block's
+    shared memory there. -> (T, B, H)."""
+    if gates.ndim != 3 or gates.shape[2] % 3:
+        raise ValueError("gates must be (T, B, 3H), got %s"
+                         % (tuple(gates.shape),))
+    T, B, G3 = gates.shape
+    H = G3 // 3
+    _check_shapes((("W_hh", W_hh, (G3, H)), ("b_hh", b_hh, (G3,))))
+    dev = gates.device
+    for n, t in (("gates", gates), ("W_hh", W_hh), ("b_hh", b_hh)) + seqs:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError("%s on %s, gates on %s" % (n, t.device, dev))
+        if t.dtype != torch.float32:
+            raise ValueError("%s must be float32, got %s" % (n, t.dtype))
+        if dev.type == "cuda" and not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % n)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError("unsupported device %s" % dev)
+    if dev.type == "cuda" and 4 * 8 * G3 > _SMEM_MAX:
+        raise ValueError("the torch-semantics GRU kernels take H <= %d, got "
+                         "%d" % (_SMEM_MAX // 96, H))
+    return T, B, H
+
+
+def fused_gru_torch_fwd(gates: torch.Tensor, W_hh: torch.Tensor,
+                        b_hh: torch.Tensor, h0: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Whole-layer torch-semantics GRU forward (TPU kernel
+    ``_build_gru_torch_fwd``; the seeded carry ``h0`` (B, H) for
+    streaming): ``gates`` (T, B, 3H) float32 [r | z | n], ``W_hh`` (3H,
+    H), ``b_hh`` (3H,). -> hs (T, B, H). CUDA tensors run the kernel (one
+    launch per step), CPU tensors the twin. No autograd of its own:
+    differentiable callers use :func:`gru_cudnn_scan_fused`."""
+    T, B, H = _gru_torch_check(gates, W_hh, b_hh, (("h0", h0),))
+    _check_shapes((("h0", h0, (B, H)),))
+    if _needs_grad(gates, W_hh, b_hh, h0):
+        raise RuntimeError("fused_gru_torch_fwd has no autograd of its own: "
+                           "call gru_cudnn_scan_fused")
+    if gates.device.type == "cpu":
+        return fused_gru_torch_fwd_plain(gates, W_hh, b_hh, h0)
+    from . import _build
+    lib = _build.load("fused_gru_torch")
+    fn = lib.fused_gru_torch_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), W_hh.data_ptr(), b_hh.data_ptr(), _ptr(h0),
+                hs.data_ptr(), T, B, H, _stream(dev))
+    _build.check(lib, rc, "fused_gru_torch_fwd")
+    fused_gru_torch_fwd.launches += T
+    return hs
+
+
+fused_gru_torch_fwd.launches = 0
+
+
+def fused_gru_torch_bwd(gates: torch.Tensor, W_hh: torch.Tensor,
+                        b_hh: torch.Tensor, h_prev: torch.Tensor,
+                        dhs: torch.Tensor):
+    """Torch-semantics GRU BPTT (TPU kernel ``_build_gru_torch_bwd``):
+    ``gates`` are the forward's inputs, ``h_prev`` (T, B, H) the carries
+    entering each step, ``dhs`` (T, B, H) the upstream cotangents. ->
+    (dg (T, B, 3H) [da_r | da_z | da_n], dm (T, B, H) the cotangent of
+    u_n). CUDA tensors run the kernel (one launch rebuilds u for all
+    steps, then one runs per reverse step), CPU tensors the twin."""
+    T, B, H = _gru_torch_check(gates, W_hh, b_hh, (("h_prev", h_prev),
+                                                    ("dhs", dhs)))
+    _check_shapes((("h_prev", h_prev, (T, B, H)), ("dhs", dhs, (T, B, H))))
+    if gates.device.type == "cpu":
+        return fused_gru_torch_bwd_plain(gates, W_hh, b_hh, h_prev, dhs)
+    from . import _build
+    lib = _build.load("fused_gru_torch")
+    fn = lib.fused_gru_torch_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    Wt = W_hh.t().contiguous()               # (H, 3H): rows for du @ W_hh
+    u = torch.empty((T, B, 3 * H), **f32)
+    dh = torch.empty((B, H), **f32)
+    dg = torch.empty((T, B, 3 * H), **f32)
+    dm = torch.empty((T, B, H), **f32)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), W_hh.data_ptr(), Wt.data_ptr(),
+                b_hh.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(),
+                u.data_ptr(), dh.data_ptr(), dg.data_ptr(), dm.data_ptr(), T,
+                B, H, _stream(dev))
+    _build.check(lib, rc, "fused_gru_torch_bwd")
+    fused_gru_torch_bwd.launches += T + 1
+    return dg, dm
+
+
+fused_gru_torch_bwd.launches = 0
+
+
+class _FusedGRUTorch(torch.autograd.Function):
+    """The JAX package's ``gru_cudnn_scan_fused`` custom VJP over (gates,
+    W_hh, b_hh): forward kernel, BPTT kernel, then dW_hh as one matmul and
+    db_hh as one sum over the (T*B) batch of du = [da_r | da_z | dm]."""
+
+    @staticmethod
+    def forward(ctx, gates, W_hh, b_hh):
+        hs = fused_gru_torch_fwd(gates, W_hh, b_hh)
+        ctx.save_for_backward(gates, W_hh, b_hh, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        gates, W_hh, b_hh, hs = ctx.saved_tensors
+        T, B, H = hs.shape
+        M = T * B
+        h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
+        dg, dm = fused_gru_torch_bwd(gates, W_hh, b_hh, h_prev,
+                                     dhs.contiguous())
+        du = torch.cat([dg[..., :2 * H], dm], dim=-1).reshape(M, 3 * H)
+        dW = du.T @ h_prev.reshape(M, H) if ctx.needs_input_grad[1] else None
+        db = du.sum(0) if ctx.needs_input_grad[2] else None
+        return dg, dW, db
+
+
+def _b_hh(b_hh, like):
+    """b_hh as a float32 (3H,) tensor; None gives zeros (no bias)."""
+    if b_hh is None:
+        return like.new_zeros((like.shape[-1],), dtype=torch.float32)
+    return b_hh.to(torch.float32)
+
+
+def gru_cudnn_scan_fused(gates_t: torch.Tensor, W_hh: torch.Tensor,
+                         b_hh: Optional[torch.Tensor]) -> torch.Tensor:
+    """hs (T, B, H) of the torch-semantics GRU from the zero state:
+    ``gates_t`` (T, B, 3H) = x @ W_ih.T + b_ih in torch's order [r | z |
+    n], ``W_hh`` (3H, H), ``b_hh`` (3H,) or None (no bias),
+    differentiable in all three. The recurrence runs in float32."""
+    gates_t, W_hh = gates_t.to(torch.float32), W_hh.to(torch.float32)
+    b_hh = _b_hh(b_hh, gates_t)
+    if _needs_grad(gates_t, W_hh, b_hh):
+        return _FusedGRUTorch.apply(gates_t, W_hh, b_hh)
+    return fused_gru_torch_fwd(gates_t, W_hh, b_hh)
+
+
+def gru_cudnn_scan_fused_stream(gates_t: torch.Tensor, W_hh: torch.Tensor,
+                                b_hh: Optional[torch.Tensor],
+                                h0: torch.Tensor):
+    """Streaming (inference-only) torch-semantics GRU forward seeded with
+    the carry ``h0`` (B, H): -> ``(hs, hs[-1])``. Not differentiable."""
+    with torch.no_grad():
+        hs = fused_gru_torch_fwd(gates_t.to(torch.float32),
+                                 W_hh.to(torch.float32),
+                                 _b_hh(b_hh, gates_t), h0.to(torch.float32))
     return hs, hs[-1]

@@ -423,18 +423,29 @@ def test_ligru_streaming_equals_whole_utterance(jm):
                                atol=ATOL)
 
 
-def test_sparse_recurrence_layout_raises_not_ported():
+def test_sparse_recurrence_layout_raises_not_ported(monkeypatch):
     """A 128-block recurrent HCGS mask that drops half of each row's
-    blocks would put the JAX package on its sparse liGRU kernels: the
-    port refuses rather than run it dense. The shipped TIMIT Li-GRU
-    (128,4 at 25,62.5: Kb=8, R=6) keeps the dense fused recurrence."""
+    blocks, which the port once refused, now runs on the block-sparse
+    liGRU kernels (their twins here) in both layers, at every batch;
+    tests/test_torch_ligru_sparse.py holds them against the JAX package.
+    The shipped TIMIT Li-GRU (128,4 at 25,62.5: Kb=8, R=6) keeps the
+    dense fused recurrence."""
     assert get_model_class("pytorch_kaldi_cgs_tpu.models", "liGRU") is liGRU
+    calls = []
+    real = tfr.ligru_scan_fused_sparse
+
+    def spy(gates, *a, **k):
+        calls.append(gates.shape[1])
+        return real(gates, *a, **k)
+    monkeypatch.setattr(tfr, "ligru_scan_fused_sparse", spy)
     m = liGRU(ligru_opts(hcgsh="128,2", hcgsh_sparse="50,50", lay=256),
               F_IN, device="cpu").eval()
     assert sorted(m._rec_layouts) == [0, 1]
-    with pytest.raises(NotImplementedError, match="_build_ligru_fwd_sparse"):
+    for rows in (2, 300):
         with torch.no_grad():
-            m(torch.zeros(3, 2, F_IN))
+            y = m(torch.randn(3, rows, F_IN))
+        assert y.shape == (3, rows, 256) and bool(torch.isfinite(y).all())
+    assert calls == [2, 2, 300, 300]
     shipped = liGRU(ligru_opts(hcgsh="128,4", lay=1024), F_IN, device="cpu")
     assert shipped._rec_layouts == {}
 

@@ -24,7 +24,8 @@ interpret mode.
 - ``LSTM_cudnn`` and ``RNN_cudnn`` (2 layers, bidirectional) against the
   JAX classes with ``fused_scan=True``: ``init``, eval, gradients in
   train mode (dropout 0: the JAX package draws its inter-layer mask from
-  ``jax.random``), and unidirectional streaming; ``GRU_cudnn`` raises.
+  ``jax.random``), and unidirectional streaming; the registry
+  (``GRU_cudnn`` has its own tests/test_torch_gru_cudnn.py).
 
 Tolerances: float32 atol 1e-5 (sums in another order than XLA's); with a
 16-bit quantizer 1e-4: a one-ulp difference at a ceil step becomes one
@@ -689,15 +690,17 @@ def test_cudnn_train_dropout_is_inverted_and_seeded(monkeypatch):
 
 
 def test_model_registry():
-    """The configs' names resolve; GRU_cudnn waits on rows 22-23."""
+    """The configs' names resolve, GRU_cudnn's too now that its kernels
+    (rows 22-23) are ported; a built-in class not ported yet raises."""
+    from pytorch_kaldi_cgs_tpu_torch.models import GRU_cudnn
     for lib in ("pytorch_kaldi_cgs_tpu.models",
                 "pytorch_kaldi_cgs_tpu_torch.models"):
         assert get_model_class(lib, "RNN") is RNN
         assert get_model_class(lib, "LSTM_cudnn") is LSTM_cudnn
         assert get_model_class(lib, "RNN_cudnn") is RNN_cudnn
-        with pytest.raises(NotImplementedError,
-                           match="_build_gru_torch_fwd"):
-            get_model_class(lib, "GRU_cudnn")
+        assert get_model_class(lib, "GRU_cudnn") is GRU_cudnn
+        with pytest.raises(NotImplementedError, match="minimalGRU"):
+            get_model_class(lib, "minimalGRU")
 
 
 # ---------------------------------------------------------------------------
