@@ -7,8 +7,9 @@ bidirectional HCGS GRU through the sparse GRU and v3 projection
 kernels, of the TIMIT 4x550 GRU through the dense fused GRU kernels, of
 the TIMIT 4x550 relu RNN through the dense fused RNN kernels, and of the
 TIMIT 2x1024 Li-GRU at CGS-16x HCGS through the block-sparse liGRU
-kernels, with the cuDNN-class LSTM_cudnn, RNN_cudnn and GRU_cudnn on the
-ported kernels.
+kernels, and of that cfg's 2x1024 as a minimalGRU through the dense and
+(at CGS-16x) the block-sparse minimalGRU kernels, with the cuDNN-class
+LSTM_cudnn, RNN_cudnn and GRU_cudnn on the ported kernels.
 
     python3 chip_smoke.py
 
@@ -189,6 +190,38 @@ Phases (any failure raises and the script exits non-zero):
 39. cgs_ligru_times, gru_torch_times — the four kernels' times, twins,
              bounds and cuDNN nn.GRU yardsticks; the CGS-16x Li-GRU train
              step and recognize.
+40. mgru_kernels — the dense minimalGRU forward (plain, stash, seeded,
+             seeded from h_{k-1} against steps k..T-1) and both BPTT
+             kernels, the sparse forward and BPTT (dg and s; w3g f32, and
+             bf16 at the training shape), against their twins, each
+             launch counter checked: qbits 0/16 x relu/tanh at 13x5x256
+             (sparse Kb=2, R=1), 300x8x1024 and 398x8x1024 (forwards
+             only; sparse Kb=8, R=2); the sparse kernels at 256 rows.
+41. mgru_serve, mgru_stream, mgru_train — the TIMIT Li-GRU cfg's
+             [architecture1] renamed to a minimalGRU (2x1024 relu, the
+             cfg's HCGS: the dense kernels alone): ``recognize`` card vs
+             CPU (TOL_POST_Q16, and without the 16-bit quantizers at
+             TOL_POST), 2 x 2 x 398 forward launches; the stream on the
+             seeded forward (one chunk against the whole utterance,
+             chunks of 100 against the CPU's stream, and without the
+             quantizers against the whole); one train step card vs CPU
+             (GRAD_FLIP_K x the CPU's one-ulp sensitivity; without the
+             quantizers and with tanh, where relu' cannot flip at 0, at
+             TOL_GRAD_REL), launches with the recompute
+             backward (the default) and the stash one
+             (PKC_BWD_STASH_CELLS=mgru, its gradients against the
+             default's at the one-ulp bar, and within MG_STASH_TOL
+             without the quantizers), 10 steps in f32 and bf16 at lr/16.
+42. cgs_mgru_serve, cgs_mgru_stream, cgs_mgru_train — the same at the
+             CGS-16x HCGS fields: both recurrences on the sparse
+             minimalGRU kernels (and the dw kernel for dU), the stream on
+             the dense seeded forward over the masked U.
+43. mgru_large_batch — the CGS-16x minimalGRU's first layer at 256 rows
+             (T=398), where the JAX size rule says "": the sparse forward
+             alone with f32 w3g against the model on its twin.
+44. mgru_times — the five kernels' times, twins and bounds, cuDNN's
+             nn.GRU(1024) at B=8 as a yardstick, the dU products, both
+             minimalGRU train steps and recognize.
 
 Each phase prints its wall time (``[timing]``).
 
@@ -383,6 +416,29 @@ CGS_LIGRU_HEAD_GAIN = 10000.0
 GT_TRAIN_TBH = (300, 8, 550)
 GT_SERVE_TBH = (398, 8, 550)
 GT_LAYERS = 4
+
+# The minimalGRU slice: the TIMIT Li-GRU cfg's [architecture1] as a
+# minimalGRU (no shipped cfg names one; arch_class, arch_proto and every
+# ligru_* field renamed): 2x1024, relu, BN, dropout 0.2, 8-bit weights,
+# 16-bit input quantizers. At the cfg's own HCGS (128,4 at 25,62.5: Kb=8,
+# R=6) both recurrences take the dense fused minimalGRU kernels; with the
+# CGS-16x fields (HCGS_16X: Kb=8, R=2) the sparse ones.
+MG_SMALL_TBH = (13, 5, 256)      # sparse at 128-blocks, 50%: Kb=2, R=1
+MG_TRAIN_TBH = (300, 8, 1024)    # the cfg's batch_size_train = 8
+MG_SERVE_TBH = (398, 8, 1024)
+# the CGS-16x layer at a batch where the JAX size rule says "" (from 163
+# rows at this layout, G=2)
+MG_LARGE_ROWS = 256
+# that layer without the quantizers, kernel vs twin (float32 sums in
+# another order over 398 steps)
+MG_LARGE_TOL = 1e-5
+# the stash backward's gradients against the recompute one's on the card
+# without the 16-bit quantizers, of each gradient's scale (the same
+# forward; only the dU's recomputed z differs in rounding)
+MG_STASH_TOL = 1e-5
+# init(1)'s head: gains as the Li-GRU's (dense) and the CGS-16x Li-GRU's
+MGRU_HEAD_GAIN = 3000.0
+CGS_MGRU_HEAD_GAIN = 10000.0
 
 # The large-batch check of the sparse recurrence: 80 utterances of the
 # libri GRU (160 rows, both directions), 160 of the CGS-16x LSTM; the JAX
@@ -895,6 +951,11 @@ def wrappers():
             "fused_ligru_bwd_sparse": R.fused_ligru_bwd_sparse,
             "fused_gru_torch_fwd": R.fused_gru_torch_fwd,
             "fused_gru_torch_bwd": R.fused_gru_torch_bwd,
+            "fused_mgru_fwd": R.fused_mgru_fwd,
+            "fused_mgru_bwd_stash": R.fused_mgru_bwd_stash,
+            "fused_mgru_bwd": R.fused_mgru_bwd,
+            "fused_mgru_fwd_sparse": R.fused_mgru_fwd_sparse,
+            "fused_mgru_bwd_sparse": R.fused_mgru_bwd_sparse,
             "block_sparse_v3_fwd": BS.block_sparse_v3_fwd,
             "block_sparse_v3_dx": BS.block_sparse_v3_dx,
             "fused_lstm_fwd": F.fused_lstm_fwd,
@@ -982,7 +1043,7 @@ def grad_rel_errs(runner, ref):
     """Each gradient's max abs difference over the reference's largest
     magnitude, by parameter."""
     g_dev, g_ref = grads_of(runner), grads_of(ref)
-    return {k: float((g_dev[k].cpu() - g_ref[k]).abs().max())
+    return {k: float((g_dev[k].cpu() - g_ref[k].cpu()).abs().max())
             / max(float(g_ref[k].abs().max()), 1e-30) for k in g_ref}
 
 
@@ -1275,8 +1336,14 @@ def step_parts(runner, inp, mask, reps=5):
 def kernel_classes(by_name):
     """Device ms per class of kernel, from the profile's kernel names."""
     # the first match names the class: the sparse liGRU's kernels before
-    # the sparse LSTM's ("sparse_bwd_step")
-    classes = {"ligru_sparse_fwd_kernel": ("ligru_sparse_step",),
+    # the sparse LSTM's ("sparse_bwd_step"), the minimalGRU's (the GRU's
+    # step kernels at G=2) before the GRU's
+    mg = ["gru_%s<%s2>" % (k, p) for k in ("zr_step", "h_step", "bwd_carry",
+                                          "bwd_ds")
+          for p in ("", "false, ", "true, ")]
+    classes = {"mgru_fwd_kernel": tuple(mg[:6]),
+               "mgru_bptt_kernel": tuple(mg[6:]),
+               "ligru_sparse_fwd_kernel": ("ligru_sparse_step",),
                "ligru_sparse_bptt_kernel": ("ligru_sparse_bwd",),
                "gru_torch_fwd_kernel": ("gru_torch_step",),
                "gru_torch_bptt_kernel": ("gru_torch_bwd",),
@@ -1790,8 +1857,10 @@ def phase_ligru_kernels(dev):
 
 def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
                        stack_fn=build_ligru_stack, tag="ligru_stream",
-                       one_chunk_tol=TOL_STREAM):
-    """A Li-GRU (``stack_fn``'s) streams on the seeded forward. One chunk
+                       one_chunk_tol=TOL_STREAM, kernel="fused_ligru_fwd",
+                       per_frame=2):
+    """A Li-GRU (``stack_fn``'s; or a minimalGRU: ``kernel``, launched
+    ``per_frame`` times a frame) streams on the seeded forward. One chunk
     of the whole utterance is held to the whole-utterance posteriors
     within ``one_chunk_tol``. Chunks of 100 frames are held within
     TOL_POST_Q16 (as ligru_serve) to the same chunks streamed on the CPU
@@ -1802,11 +1871,11 @@ def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
     T = rec.frontend.num_frames(audio.shape[1])
     _, err_one = phase_stream(dev, rec, audio, lens, phones, logp, chunk=T,
                               tag=tag + "_one_chunk", tol=one_chunk_tol,
-                              kernel="fused_ligru_fwd")
+                              kernel=kernel, per_frame=per_frame)
     streamed, final, launches = stream_run(dev, rec, audio, lens, chunk)
-    if launches != expected(fused_ligru_fwd=2 * T):
+    if launches != expected(**{kernel: per_frame * T}):
         raise AssertionError("%s: launches %s, expected the seeded forward "
-                             "2 x %d times" % (tag, launches, T))
+                             "%d x %d times" % (tag, launches, per_frame, T))
     ref, final_ref, _ = stream_run("cpu", build_recognizer(
         "cpu", stack_fn), audio, lens, chunk)
     err = float(np.abs(streamed - ref).max())
@@ -1814,11 +1883,11 @@ def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
     print("[%s] %d chunks of <=%d frames: launches %d; card vs CPU stream "
           "max abs err %.3g (tol %g), phones equal: %s; chunked vs whole "
           "utterance %.3g; finalize == recognize: %s"
-          % (tag, -(-T // chunk), chunk, launches["fused_ligru_fwd"], err,
+          % (tag, -(-T // chunk), chunk, launches[kernel], err,
              TOL_POST_Q16, final == final_ref, vs_whole, final == phones))
     if not err <= TOL_POST_Q16 or final != final_ref:
         raise AssertionError("%s disagrees with the CPU stream" % tag)
-    return launches["fused_ligru_fwd"], {
+    return launches[kernel], {
         "one_chunk_vs_whole": err_one, "chunked_card_vs_cpu": err,
         "chunked_vs_whole": vs_whole,
         "chunked_phones_equal_whole": final == phones}
@@ -1910,16 +1979,20 @@ def ligru_bound_ms(T, B, H, kind, kept=None):
     "fwd_stash" (and the (T, B, 2H) stash out), "bwd_stash" (stash, U,
     drop, h_prev, dhs in; dg out; one (B, 2H) x (2H, H) product per
     step), "bwd" (gates instead of the stash; that product and the
-    forward's). ``kept``: the block-sparse recurrence's R*bs kept columns
-    per row of U (w3g is (2H, kept) in all), None for the dense U. ->
-    (ms, "bytes"|"operations")."""
+    forward's), "bwd_s" (as "bwd", and s (T, B, H) out: the sparse
+    minimalGRU's BPTT). ``kept``: the block-sparse recurrence's R*bs kept
+    columns per row of U (w3g is (2H, kept) in all), None for the dense
+    U. The minimalGRU has the liGRU's shapes and products. -> (ms,
+    "bytes"|"operations")."""
     kept = H if kept is None else kept
     gates, seq, bh = T * B * 2 * H * 4, T * B * H * 4, B * H * 4
     nbytes = {"fwd": gates + bh + seq, "fwd_stash": 2 * gates + bh + seq,
               "bwd_stash": 2 * gates + bh + 2 * seq,
-              "bwd": 2 * gates + bh + 2 * seq}[kind] + 2 * H * kept * 4
+              "bwd": 2 * gates + bh + 2 * seq,
+              "bwd_s": 2 * gates + bh + 3 * seq}[kind] + 2 * H * kept * 4
+    recompute = kind in ("bwd", "bwd_s")
     return roofline_ms(nbytes,
-                       2 * T * B * 2 * H * kept * (2 if kind == "bwd" else 1))
+                       2 * T * B * 2 * H * kept * (2 if recompute else 1))
 
 
 def cudnn_times(dev, T, B, H, Ts, Bs, module=None, key="cudnn_gru"):
@@ -3272,7 +3345,8 @@ def cgs_ligru_inputs(T, B, H, seed, dev, act):
     """gated_inputs' gates, drop and cotangents, and a 128-block HCGS
     recurrent mask of width H (128,8 at 75,75 from H=1024: Kb=8, R=2; 128
     at 50 below: Kb=2, R=1), its layout and the masked U's kept blocks as
-    w3g (Nb, 2*bs, R*bs)."""
+    w3g (Nb, 2*bs, R*bs): the sparse liGRU's and minimalGRU's operands
+    (both cells have gates [h | z])."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.sparsity.hcgs import hcgs_mask
     inp = gated_inputs(T, B, H, seed, dev, act)
@@ -3701,6 +3775,540 @@ def phase_gru_torch_times(dev):
     return times
 
 
+# ---------------------------------------------------------------------------
+# the minimalGRU slice: the TIMIT Li-GRU cfg as a minimalGRU, dense (the
+# cfg's own HCGS) and at CGS-16x (the sparse kernels)
+# ---------------------------------------------------------------------------
+
+def mgru_sections(compute_dtype="", quant_inp=True, lr_scale=1.0,
+                  hcgs=None, act=None):
+    """The TIMIT Li-GRU cfg's sections (ligru_sections) with its
+    [architecture1] as a minimalGRU: arch_class, arch_proto and every
+    ligru_* field renamed (no shipped cfg names minimalGRU). ``hcgs``:
+    HCGS fields to set (HCGS_16X for the CGS-16x model); ``act``: both
+    layers' activation in place of the cfg's relu."""
+    secs = ligru_sections(compute_dtype, quant_inp, lr_scale)
+    arch = {k.replace("ligru_", "minimalgru_"): v
+            for k, v in secs["architecture1"].items()}
+    arch.update(arch_class="minimalGRU", arch_proto="proto/minimalGRU.proto",
+                **(hcgs or {}))
+    if act:
+        arch["minimalgru_act"] = "%s,%s" % (act, act)
+    secs["architecture1"] = arch
+    return secs
+
+
+def check_mgru(rnn, sparse):
+    """2x1024, every recurrence on the dense fused minimalGRU kernels, or
+    (``sparse``) on a Kb=8, R=2 sparse layout; the x-projections
+    dense-masked (no v3 layout at either setting)."""
+    lays = [(l.Kb, l.R) for _, l in sorted(rnn._rec_layouts.items())]
+    if list(rnn.lay) != [1024, 1024] or rnn._bs_layouts \
+            or lays != ([(8, 2)] * 2 if sparse else []) \
+            or not all(rnn._fused_ok(i) for i in range(rnn.N)):
+        raise AssertionError("the minimalGRU (sparse=%s) did not build as "
+                             "expected: %s, %s"
+                             % (sparse, lays, sorted(rnn._bs_layouts)))
+
+
+def build_mgru_stack(dev, feat_dim=LG_FEAT, quant_inp=True, sparse=False):
+    """The cfg's minimalGRU -> its 1944-way cd head (weights from init(0)
+    / init(1), the head times MGRU_HEAD_GAIN, or CGS_MGRU_HEAD_GAIN for
+    the ``sparse`` CGS-16x model)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import MLP, minimalGRU
+    secs = mgru_sections(quant_inp=quant_inp,
+                         hcgs=HCGS_16X if sparse else None)
+    rnn = minimalGRU(dict(secs["architecture1"], to_do="forward"), feat_dim,
+                     seed=0, device=dev)
+    mlp = MLP(dict(secs["architecture2"], to_do="forward"), rnn.out_dim,
+              seed=1, device=dev)
+    check_mgru(rnn, sparse)
+    with torch.no_grad():
+        mlp.params["w0"].mul_(CGS_MGRU_HEAD_GAIN if sparse
+                              else MGRU_HEAD_GAIN)
+    return Stack(rnn, mlp).eval()
+
+
+def build_cgs_mgru_stack(dev, quant_inp=True):
+    return build_mgru_stack(dev, quant_inp=quant_inp, sparse=True)
+
+
+def mgru_expect_serve(T):
+    """Launches per recognize: 2 layers x 2 per frame on the dense
+    minimalGRU forward, no other kernel."""
+    return expected(fused_mgru_fwd=2 * 2 * T)
+
+
+def cgs_mgru_expect_serve(T):
+    """Launches per recognize: 2 layers x 2 per frame on the sparse
+    minimalGRU forward, no other kernel."""
+    return expected(fused_mgru_fwd_sparse=2 * 2 * T)
+
+
+def phase_mgru_kernels(dev):
+    """The dense minimalGRU forward (plain, stash, seeded, and seeded from
+    h_{k-1} against the zero-state run's steps k..T-1) and both BPTT
+    kernels, and the sparse forward and BPTT (hs, dg and the emitted s;
+    w3g in f32, and in bf16 at the training shape), against their twins
+    on the same tensors, each launch counter checked (2T per forward, 2T
+    for the stash BPTT, 2T + 2 for the recompute ones): qbits 0/16 x
+    relu/tanh at MG_SMALL_TBH (sparse: Kb=2, R=1), the training shape
+    and the serving shape (forward only; sparse Kb=8, R=2); the sparse
+    kernels also at MG_LARGE_ROWS rows (T=16)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    checks = []
+    k = 0
+    for shape in (MG_SMALL_TBH, MG_TRAIN_TBH, MG_SERVE_TBH):
+        T, B, H = shape
+        small, serve = shape == MG_SMALL_TBH, shape == MG_SERVE_TBH
+        where = dict(zip("TBH", shape))
+        for qbits in (0, 16):
+            for act in ("relu", "tanh"):
+                k += 1
+                inp = gated_inputs(T, B, H, 400 + k, dev, act)
+                g, U, drop, h0, dhs = (inp[n] for n in ("g", "U", "drop",
+                                                        "h0", "dhs"))
+                variant = {"qbits": qbits, "act": act}
+                tol = TOL_F32_SMALL if small else TOL_F32_SERVE
+                tol_q = TOL_Q16 if qbits else tol
+                fwd = R.fused_mgru_fwd
+
+                def check(name, err_rel, tol_, by_rel):
+                    record_check(checks, "mgru_kernels", name, where,
+                                 variant, err_rel, tol_, by_rel)
+                with torch.no_grad():
+                    ref = R.fused_mgru_fwd_plain(g, U, drop, None, act,
+                                                 qbits, True)
+                    hs = launched(fwd, 2 * T, lambda: fwd(
+                        g, U, drop, act=act, qbits=qbits))
+                    check("fused_mgru_fwd", rel_err(hs, ref[0]), tol_q,
+                          False)
+                    check("fused_mgru_fwd/seeded", rel_err(
+                        launched(fwd, 2 * T, lambda: fwd(
+                            g, U, drop, h0, act=act, qbits=qbits)),
+                        R.fused_mgru_fwd_plain(g, U, drop, h0, act, qbits)),
+                        tol_q, False)
+                    s = T // 2      # seeded from h_{s-1}: steps s..T-1
+                    check("fused_mgru_fwd/seeded_vs_shifted", rel_err(
+                        launched(fwd, 2 * (T - s), lambda: fwd(
+                            g[s:].contiguous(), U, drop,
+                            hs[s - 1].contiguous(), act=act, qbits=qbits)),
+                        hs[s:]), tol_q, False)
+                    if not serve:
+                        hs_s, acts = launched(fwd, 2 * T, lambda: fwd(
+                            g, U, drop, act=act, qbits=qbits, stash=True))
+                        check("fused_mgru_fwd/stash", rel_err(
+                            (hs_s, acts), ref), tol_q, False)
+                        h_prev = torch.cat([torch.zeros_like(hs_s[:1]),
+                                            hs_s[:-1]])
+                        check("fused_mgru_bwd_stash", rel_err(
+                            launched(R.fused_mgru_bwd_stash, 2 * T,
+                                     lambda: R.fused_mgru_bwd_stash(
+                                         acts, U, drop, h_prev, dhs, act)),
+                            R.fused_mgru_bwd_stash_plain(acts, U, drop,
+                                                         h_prev, dhs, act)),
+                            tol, True)
+                        check("fused_mgru_bwd", rel_err(
+                            launched(R.fused_mgru_bwd, 2 * T + 2,
+                                     lambda: R.fused_mgru_bwd(
+                                         g, U, drop, h_prev, dhs, act,
+                                         qbits)),
+                            R.fused_mgru_bwd_plain(g, U, drop, h_prev, dhs,
+                                                   act, qbits)), tol_q, True)
+                sparse_cases = [False] + ([True] if shape == MG_TRAIN_TBH
+                                          else [])
+                for bf16 in sparse_cases:
+                    k += 1
+                    _mgru_sparse_check(checks, R, shape, qbits, act, bf16,
+                                       not serve, 400 + k, dev)
+    for qbits, act in ((16, "relu"), (0, "tanh")):
+        k += 1
+        _mgru_sparse_check(checks, R, (16, MG_LARGE_ROWS, 1024), qbits, act,
+                           False, True, 400 + k, dev)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("a minimalGRU kernel disagrees with its plain "
+                             "twin: %s" % bad)
+    return checks
+
+
+def _mgru_sparse_check(checks, R, shape, qbits, act, bf16, bwd, seed, dev):
+    """The sparse minimalGRU forward (and, with ``bwd``, its BPTT: dg and
+    s) against the twins at ``shape``."""
+    T, B, H = shape
+    inp = cgs_ligru_inputs(T, B, H, seed, dev, act)
+    gm, w3g, drop, dhs, lay = (inp[n] for n in ("g", "w3g", "drop", "dhs",
+                                                "layout"))
+    variant = {"qbits": qbits, "act": act, "Kb": lay.Kb, "R": lay.R,
+               "w3g": "bf16" if bf16 else "f32"}
+    tol = TOL_BF16 if bf16 else (
+        TOL_Q16 if qbits else (TOL_F32_SMALL if shape == MG_SMALL_TBH
+                               else TOL_F32_SERVE))
+    where = dict(zip("TBH", shape))
+    fwd, bwdk = R.fused_mgru_fwd_sparse, R.fused_mgru_bwd_sparse
+    with torch.no_grad():
+        hs = launched(fwd, 2 * T, lambda: fwd(gm, w3g, drop, lay, act, qbits,
+                                              bf16))
+        record_check(checks, "mgru_kernels", "fused_mgru_fwd_sparse", where,
+                     variant, rel_err(hs, R.fused_mgru_fwd_sparse_plain(
+                         gm, w3g, drop, lay, act, qbits, bf16)), tol, False)
+        if not bwd:
+            return
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        args = (gm, w3g, drop, h_prev, dhs, lay, act, qbits, bf16)
+        record_check(checks, "mgru_kernels", "fused_mgru_bwd_sparse", where,
+                     variant, rel_err(
+                         launched(bwdk, 2 * T + 2, lambda: bwdk(*args)),
+                         R.fused_mgru_bwd_sparse_plain(*args)), tol, True)
+
+
+def phase_mgru_train(dev, sparse=False):
+    """One train step of the cfg's minimalGRU on the card against the
+    CPU, held to GRAD_FLIP_K times the CPU's own one-ulp sensitivity
+    (relu behind two 16-bit ceil quantizers in series), with the
+    recompute backward (the default); the stash one
+    (PKC_BWD_STASH_CELLS=mgru) from a fresh runner, its gradients held to
+    the default's on the card (as shipped at the one-ulp bar, without
+    the quantizers within MG_STASH_TOL of scale); launches per
+    step in each (the minimalGRU kernels alone; ``sparse``: the sparse
+    kernels in both modes and the dw kernel, two launches a layer, for
+    dU); 10 steps in f32 and bf16 at LG_FALL_LR_SCALE times the cfg's
+    rates; the same step without the 16-bit quantizers and with tanh in
+    place of relu against the CPU at TOL_GRAD_REL. (Without the
+    quantizers relu still flips: this step has pre-activations within
+    1e-7 of 0 in both layers, where the card's and the CPU's sums, an
+    ulp apart, take relu' to 0 and to 1; one flip moves wh1's gradient
+    by 5.6e-2 of its scale. The TIMIT RNN's check is held the same way.)"""
+    T = MG_TRAIN_TBH[0]
+    tag = "cgs_mgru_train" if sparse else "mgru_train"
+    knob = "PKC_BWD_STASH_CELLS"
+
+    def make(d, cdt="", quant_inp=True, lr_scale=1.0, act=None):
+        return mgru_train_runner(d, cdt, quant_inp, lr_scale, sparse, act)
+    inp, mask = mgru_train_setup(sparse=sparse)[2]
+    sens, where = ulp_sensitivity(make, inp, mask)
+    grad_tol = max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
+    print("[%s] the CPU's own gradients under a one-ulp change of x: "
+          "worst rel change %.3g at %s; card vs CPU bar %.3g"
+          % (tag, sens, where, grad_tol))
+    if sparse:
+        want = expected(fused_mgru_fwd_sparse=2 * 2 * T,
+                        fused_mgru_bwd_sparse=2 * (2 * T + 2),
+                        block_sparse_dw=2 * 2)
+        modes = (("recompute", knob, None, want),
+                 ("stash_knob", knob, "mgru", want))
+    else:
+        modes = (("recompute", knob, None,
+                  expected(fused_mgru_fwd=2 * 2 * T,
+                           fused_mgru_bwd=2 * (2 * T + 2))),
+                 ("stash", knob, "mgru",
+                  expected(fused_mgru_fwd=2 * 2 * T,
+                           fused_mgru_bwd_stash=2 * 2 * T)))
+    out = phase_train(dev, make, tag, modes, grad_tol=grad_tol,
+                      fall_runner=lambda d, cdt="": make(
+                          d, cdt, lr_scale=LG_FALL_LR_SCALE))
+    out.update(cpu_ulp_grad_rel_change=sens, cpu_ulp_worst=where)
+    # the two backwards from the same parameters, on the card: as shipped
+    # at the one-ulp bar (dU's s comes from the stashed z or from z
+    # recomputed by cuBLAS, an ulp apart, which the 16-bit ceil quantizer
+    # can move a whole step), without the quantizers at MG_STASH_TOL
+    for quant_inp, tol in ((True, grad_tol), (False, MG_STASH_TOL)):
+        grads = {}
+        for value in (None, "mgru"):
+            runner, (inp, mask) = make(dev, quant_inp=quant_inp)
+            with env(knob, value):
+                runner.train_step(inp, mask, dropout_gen())
+            grads[value] = runner
+        errs = grad_rel_errs(grads["mgru"], grads[None])
+        worst = max(errs, key=errs.get)
+        key = "stash_vs_recompute_grad_rel_err_max" + (
+            "" if quant_inp else "_no_quant_inp")
+        out[key] = errs[worst]
+        print("[%s] PKC_BWD_STASH_CELLS=mgru vs the default (quant_inp=%s): "
+              "worst gradient rel err %.3g at %s (tol %g)"
+              % (tag, quant_inp, errs[worst], worst, tol))
+        if not errs[worst] <= tol:
+            raise AssertionError("%s: the stash backward's gradients "
+                                 "disagree with the recompute one's" % tag)
+    runner, (inp, mask) = make(dev, quant_inp=False, act="tanh")
+    loss_err = runner.train_step(inp, mask, dropout_gen())
+    out["no_quant_inp_tanh"] = card_vs_cpu(
+        runner, make("cpu", quant_inp=False, act="tanh")[0], inp, mask,
+        loss_err, knob, None,
+        tag + ", minimalgru_quant_inp=False, minimalgru_act=tanh")
+    return out
+
+
+def mgru_train_setup(compute_dtype="", quant_inp=True, lr_scale=1.0,
+                     sparse=False, act=None):
+    """The minimalGRU train step (chunk_setup): its sections
+    (mgru_sections), 8 sentences of 300 frames, fMLLR x of width 40 and
+    cd labels."""
+    T, B, _ = MG_TRAIN_TBH
+    return chunk_setup(mgru_sections(compute_dtype, quant_inp, lr_scale,
+                                     HCGS_16X if sparse else None, act),
+                       T, B, "fmllr", LG_FEAT, CD_LABELS)
+
+
+def mgru_train_runner(dev, compute_dtype="", quant_inp=True, lr_scale=1.0,
+                      sparse=False, act=None):
+    """A ChunkRunner over the cfg's minimalGRU (``sparse``: at the
+    CGS-16x HCGS fields) and its one batch; pass
+    ``chip_smoke.dropout_gen()`` to ``train_step`` for masks that match
+    the CPU's."""
+    from pytorch_kaldi_cgs_tpu_torch.models import minimalGRU
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    config, chunk, batch = mgru_train_setup(compute_dtype, quant_inp,
+                                            lr_scale, sparse, act)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    rnn = graph.nets["RNN_layers"]
+    if type(rnn) is not minimalGRU:
+        raise AssertionError("the cfg did not build a minimalGRU")
+    check_mgru(rnn, sparse)
+    return ChunkRunner(graph, config), batch
+
+
+def cgs_mgru_train_runner(dev, compute_dtype="", quant_inp=True,
+                          lr_scale=1.0):
+    return mgru_train_runner(dev, compute_dtype, quant_inp, lr_scale, True)
+
+
+def phase_mgru_stream(dev, rec, audio, lens, phones, logp, noq, sparse):
+    """The minimalGRU streams on the dense seeded forward (a sparse layer
+    drops its layout under a stream, as in the JAX package), 2 layers x
+    2 launches a frame: phase_ligru_stream's checks (one chunk against
+    the whole utterance, within TOL_STREAM dense, TOL_Q16 sparse: the
+    dense and the sparse product sum in another order; chunks of 100
+    against the CPU's stream at TOL_POST_Q16) and, without the 16-bit
+    quantizers, chunks of 100 against the whole utterance at TOL_POST."""
+    tag = "cgs_mgru_stream" if sparse else "mgru_stream"
+    stack = build_cgs_mgru_stack if sparse else build_mgru_stack
+    launches, out = phase_ligru_stream(
+        dev, rec, audio, lens, phones, logp, 100, stack, tag,
+        TOL_Q16 if sparse else TOL_STREAM, "fused_mgru_fwd", 4)
+    rec_noq, phones_noq, logp_noq = noq[:3]
+    _, out["chunks_vs_whole_no_quant_inp"] = phase_stream(
+        dev, rec_noq, audio, lens, phones_noq, logp_noq, 100,
+        tag + ", minimalgru_quant_inp=False", TOL_POST, "fused_mgru_fwd", 4)
+    return launches, out
+
+
+def phase_mgru_large_batch(dev):
+    """The CGS-16x minimalGRU's first layer over MG_LARGE_ROWS utterances
+    of T=398, where the JAX size rule says "" (it would run its float32
+    lax.scan over the masked U): the sparse forward alone, 2 x 398
+    launches, with float32 w3g (the scan reads it in bf16 only where the
+    rule says "bf16"), against the model on the sparse twin;
+    as shipped at TOL_Q16 and without the 16-bit quantizers at
+    MG_LARGE_TOL."""
+    from pytorch_kaldi_cgs_tpu_torch.models import minimalGRU
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, rows = MG_SERVE_TBH[0], MG_LARGE_ROWS
+    x = torch.tensor(np.random.RandomState(410).randn(T, rows, LG_FEAT)
+                     .astype(np.float32), device=dev)
+    out, checks = {}, []
+    for quant_inp, tol in ((True, TOL_Q16), (False, MG_LARGE_TOL)):
+        sec = first_layer(mgru_sections(quant_inp=quant_inp, hcgs=HCGS_16X)
+                          ["architecture1"], "minimalgru")
+        net = minimalGRU(dict(sec, to_do="forward"), LG_FEAT, seed=0,
+                         device=dev).eval()
+        layout = net._rec_layouts.get(0)
+        if layout is None or F.sparse_scan_fits(rows, layout.N, layout,
+                                                2) != "":
+            raise AssertionError("mgru_large_batch: no sparse layout, or one "
+                                 "the JAX size rule keeps at %d rows" % rows)
+        with torch.inference_mode():
+            y, launches = counted(lambda: net(x))
+            with swapped(R, "fused_mgru_fwd_sparse",
+                         R.fused_mgru_fwd_sparse_plain):
+                y_plain = net(x)
+        if launches != expected(fused_mgru_fwd_sparse=2 * T):
+            raise AssertionError("mgru_large_batch: launches %s" % launches)
+        record_check(checks, "mgru_large_batch",
+                     "fused_mgru_fwd_sparse/model",
+                     {"T": T, "rows": rows},
+                     {"Kb": layout.Kb, "R": layout.R, "w3g": "f32",
+                      "quant_inp": quant_inp}, rel_err(y, y_plain), tol,
+                     False)
+        out["launches" if quant_inp else "launches_noq"] = \
+            launches["fused_mgru_fwd_sparse"]
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("mgru_large_batch: %s" % bad)
+    out.update(rows=rows, checks=checks)
+    return out
+
+
+def phase_mgru_times(dev, rec, cgs_rec, audio, lens):
+    """CUDA-event times of the five minimalGRU kernels per layer call at
+    the training shape (the forwards also at the serving shape), as the
+    cfg runs them (relu, 16-bit recurrent quantizers; the sparse ones at
+    Kb=8, R=2 with f32 w3g); their twins and bounds; cuDNN's
+    nn.GRU(1024, 1024) at B=8 as a yardstick (three gates, dense, no
+    quantizer: not the same function); the dU products; the train step
+    and recognize of both models."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = MG_TRAIN_TBH
+    Ts, Bs, _ = MG_SERVE_TBH
+    qb, act = 16, "relu"
+    inp = gated_inputs(T, B, H, 420, dev, act)
+    g, U, drop, dhs = (inp[n] for n in ("g", "U", "drop", "dhs"))
+    sp = cgs_ligru_inputs(T, B, H, 421, dev, act)
+    sg, w3g, sdrop, sdhs, lay = (sp[n] for n in ("g", "w3g", "drop", "dhs",
+                                                  "layout"))
+    kept = lay.R * lay.bs
+    times = {}
+    with torch.no_grad():
+        hs, acts = R.fused_mgru_fwd(g, U, drop, act=act, qbits=qb,
+                                    stash=True)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        shs = R.fused_mgru_fwd_sparse(sg, w3g, sdrop, lay, act, qb)
+        sh_prev = torch.cat([torch.zeros_like(shs[:1]), shs[:-1]])
+        bargs = (sg, w3g, sdrop, sh_prev, sdhs, lay, act, qb)
+        calls = {
+            "fused_mgru_fwd": (
+                lambda: R.fused_mgru_fwd(g, U, drop, act=act, qbits=qb,
+                                         stash=True),
+                lambda: R.fused_mgru_fwd_plain(g, U, drop, None, act, qb,
+                                               True), "fwd_stash", None),
+            "fused_mgru_bwd_stash": (
+                lambda: R.fused_mgru_bwd_stash(acts, U, drop, h_prev, dhs,
+                                               act),
+                lambda: R.fused_mgru_bwd_stash_plain(acts, U, drop, h_prev,
+                                                     dhs, act),
+                "bwd_stash", None),
+            "fused_mgru_bwd": (
+                lambda: R.fused_mgru_bwd(g, U, drop, h_prev, dhs, act, qb),
+                lambda: R.fused_mgru_bwd_plain(g, U, drop, h_prev, dhs, act,
+                                               qb), "bwd", None),
+            "fused_mgru_fwd_sparse": (
+                lambda: R.fused_mgru_fwd_sparse(sg, w3g, sdrop, lay, act, qb),
+                lambda: R.fused_mgru_fwd_sparse_plain(sg, w3g, sdrop, lay,
+                                                      act, qb), "fwd", kept),
+            "fused_mgru_bwd_sparse": (
+                lambda: R.fused_mgru_bwd_sparse(*bargs),
+                lambda: R.fused_mgru_bwd_sparse_plain(*bargs), "bwd_s",
+                kept)}
+        for name, (fn, plain, kind, k) in calls.items():
+            times[name + "_ms"] = cuda_ms(fn, reps=5)
+            times[name + "_plain_ms"] = cuda_ms(plain, reps=1, warmup=1)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                ligru_bound_ms(T, B, H, kind, k)
+        times["fused_mgru_fwd_nostash_ms"] = cuda_ms(
+            lambda: R.fused_mgru_fwd(g, U, drop, act=act, qbits=qb), reps=5)
+        times["fused_mgru_fwd_ms_q0"] = cuda_ms(
+            lambda: R.fused_mgru_fwd(g, U, drop, act=act, qbits=0,
+                                     stash=True), reps=5)
+        sv = gated_inputs(Ts, Bs, H, 422, dev, act)
+        times["serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_mgru_fwd(sv["g"], sv["U"], sv["drop"], act=act,
+                                     qbits=qb), reps=5)
+        times["serve_fwd_plain_ms"] = cuda_ms(
+            lambda: R.fused_mgru_fwd_plain(sv["g"], sv["U"], sv["drop"],
+                                           None, act, qb), reps=1, warmup=1)
+        times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
+            ligru_bound_ms(Ts, Bs, H, "fwd")
+        ssv = cgs_ligru_inputs(Ts, Bs, H, 423, dev, act)
+        sargs = (ssv["g"], ssv["w3g"], ssv["drop"], ssv["layout"], act, qb)
+        times["sparse_serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_mgru_fwd_sparse(*sargs), reps=5)
+        times["sparse_serve_fwd_plain_ms"] = cuda_ms(
+            lambda: R.fused_mgru_fwd_sparse_plain(*sargs), reps=1, warmup=1)
+        times["sparse_serve_fwd_bound_ms"], \
+            times["sparse_serve_fwd_bound_by"] = \
+            ligru_bound_ms(Ts, Bs, H, "fwd", kept)
+        # dU outside the BPTT kernels: two (H, T*B) @ (T*B, H) matmuls
+        # (dense), two dw launches at G=1 (sparse)
+        dg = torch.randn(T * B, 2 * H, device=dev)
+        hq = torch.randn(T * B, H, device=dev)
+        times["dU_matmul_ms"] = cuda_ms(
+            lambda: (dg[:, :H].T @ hq, dg[:, H:].T @ hq), reps=10)
+        dgc = (dg[:, :H].contiguous(), dg[:, H:].contiguous())
+        times["dU_dw_ms"] = cuda_ms(
+            lambda: [R.sparse_dU(d, hq, lay, 1) for d in dgc], reps=10)
+    times.update(cudnn_times(dev, T, B, H, Ts, Bs))
+    print("[mgru_times] kernels at T=%d B=%d H=%d (relu, qbits 16; sparse "
+          "Kb=%d, R=%d): %s" % (T, B, H, lay.Kb, lay.R, json.dumps(times)))
+    steps, serves = {}, {}
+    for tag, runner_fn, r in (("mgru", mgru_train_runner, rec),
+                              ("cgs_mgru", cgs_mgru_train_runner, cgs_rec)):
+        steps[tag] = train_step_times(dev, runner_fn, tag + "_times", 3, 2)
+        serves[tag] = serve_timings(r, audio, lens)
+        print("[mgru_times] %s recognizer (8 x 4 s batch): %s"
+              % (tag, json.dumps(serves[tag])))
+    return times, steps, serves
+
+
+def slice9_rows(checks, times, launches):
+    """The kernels JSON rows of the five minimalGRU kernels: ``ms`` etc.
+    per layer call at MG_TRAIN_TBH (relu, qbits 16; the sparse ones at
+    Kb=8, R=2, f32 w3g; the forwards also at MG_SERVE_TBH); ``launches``
+    counts one train step (the default backward; the other one for the
+    kernel only it runs); ``max_abs_err`` is the check at MG_TRAIN_TBH,
+    relu, qbits 0; ``library_ms`` is cuDNN's nn.GRU(1024, 1024) at B=8,
+    a yardstick (no PyTorch call computes this function)."""
+    T, B, H = MG_TRAIN_TBH
+    fr = "pytorch_kaldi_cgs_tpu/ops/fused_rnn.py:%d"
+    src = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/%s.cu"
+    yard = "cuDNN nn.GRU(1024, 1024) %s at B=8: a yardstick (three gates, " \
+           "dense, no quantizer)"
+    bwd_note = yard % "backward (fwd+bwd minus fwd)"
+
+    def err_at(kernel):
+        return [c for c in checks if c["kernel"] == kernel
+                and (c["T"], c["B"], c["H"]) == MG_TRAIN_TBH
+                and c["qbits"] == 0 and c["act"] == "relu"
+                and c.get("w3g", "f32") == "f32"][0]["max_abs_err"]
+
+    def row(name, source, line, err, library_ms, note, **extra):
+        mine = [c for c in checks if c["kernel"].split("/")[0] == name]
+        r = {"name": name, "route": "cuda", "source": src % source,
+             "replaces": fr % line, "launches": launches[name]["main"],
+             "launches_by_path": launches[name], "max_abs_err": err,
+             "ms": times[name + "_ms"], "plain_ms": times[name + "_plain_ms"],
+             "bound_ms": times[name + "_bound_ms"],
+             "bound_by": times[name + "_bound_by"], "library_ms": library_ms,
+             "library_note": note,
+             "shape": {"T": T, "B": B, "H": H, "act": "relu", "qbits": 16},
+             "checks": len(mine), "checks_ok": all(c["ok"] for c in mine)}
+        r.update(extra)
+        return r
+
+    def serve(prefix):
+        return {"T": MG_SERVE_TBH[0], "B": MG_SERVE_TBH[1], "H": H,
+                "ms": times[prefix + "serve_fwd_ms"],
+                "plain_ms": times[prefix + "serve_fwd_plain_ms"],
+                "bound_ms": times[prefix + "serve_fwd_bound_ms"],
+                "bound_by": times[prefix + "serve_fwd_bound_by"],
+                "library_ms": times["cudnn_gru_serve_fwd_ms"]}
+    return [
+        row("fused_mgru_fwd", "fused_gru", 771, err_at("fused_mgru_fwd/stash"),
+            times["cudnn_gru_fwd_ms"], yard % "forward",
+            variant="stash (the forward of a step under "
+                    "PKC_BWD_STASH_CELLS=mgru); ms_nostash is the default "
+                    "training and serving forward",
+            ms_nostash=times["fused_mgru_fwd_nostash_ms"],
+            ms_q0=times["fused_mgru_fwd_ms_q0"], serve=serve("")),
+        row("fused_mgru_bwd_stash", "fused_gru", 848,
+            err_at("fused_mgru_bwd_stash"), times["cudnn_gru_bwd_ms"],
+            bwd_note),
+        row("fused_mgru_bwd", "fused_gru", 906, err_at("fused_mgru_bwd"),
+            times["cudnn_gru_bwd_ms"], bwd_note,
+            dU_matmul_ms=times["dU_matmul_ms"]),
+        row("fused_mgru_fwd_sparse", "fused_gru_sparse", 1617,
+            err_at("fused_mgru_fwd_sparse"), times["cudnn_gru_fwd_ms"],
+            yard % "forward", serve=serve("sparse_"),
+            sparse={"Kb": 8, "R": 2, "bs": 128, "w3g": "f32"}),
+        row("fused_mgru_bwd_sparse", "fused_gru_sparse", 1663,
+            err_at("fused_mgru_bwd_sparse"), times["cudnn_gru_bwd_ms"],
+            bwd_note, sparse={"Kb": 8, "R": 2, "bs": 128, "w3g": "f32"},
+            dU_dw_ms=times["dU_dw_ms"])]
+
+
 def slice8_rows(cl_checks, cl_times, cl_launches, gt_checks, gt_times,
                 gt_launches):
     """The kernels JSON rows of the CGS-16x Li-GRU slice and GRU_cudnn.
@@ -4002,6 +4610,27 @@ def main():
     cl_train = timed("cgs_ligru_train", phase_cgs_ligru_train, dev)
     gt_checks = timed("gru_torch_kernels", phase_gru_torch_kernels, dev)
     gt_cudnn = timed("gru_cudnn", phase_gru_cudnn, dev)
+    mg_checks = timed("mgru_kernels", phase_mgru_kernels, dev)
+    mg = {}
+    for sparse, tag, stack, kernel, expect in (
+            (False, "mgru", build_mgru_stack, "fused_mgru_fwd",
+             mgru_expect_serve),
+            (True, "cgs_mgru", build_cgs_mgru_stack, "fused_mgru_fwd_sparse",
+             cgs_mgru_expect_serve)):
+        r = mg[tag] = {}
+        r["rec"], phones_, logp_, r["serve_launches"], r["post_err"] = \
+            timed(tag + "_serve", phase_serve, dev, audio, lens, stack,
+                  tag + "_serve", kernel, TOL_POST_Q16, expect)
+        noq = timed(tag + "_serve_noq", phase_serve, dev, audio, lens,
+                    lambda d, s=stack: s(d, quant_inp=False),
+                    tag + "_serve, minimalgru_quant_inp=False", kernel,
+                    TOL_POST, expect)
+        r["post_err_noq"] = noq[4]
+        r["stream_launches"], r["stream"] = timed(
+            tag + "_stream", phase_mgru_stream, dev, r["rec"], audio, lens,
+            phones_, logp_, noq, sparse)
+        r["train"] = timed(tag + "_train", phase_mgru_train, dev, sparse)
+    mg_large = timed("mgru_large_batch", phase_mgru_large_batch, dev)
     serve_times, serve = timed("times", phase_times, dev, rec, audio, lens)
     serve["posteriors_vs_cpu_max_abs_err"] = post_err
     times, step = timed("train_times", phase_train_times, dev)
@@ -4021,6 +4650,9 @@ def main():
                                         phase_cgs_ligru_times, dev, cl_rec,
                                         audio, lens)
     gt_times = timed("gru_torch_times", phase_gru_torch_times, dev)
+    mg_times, mg_steps, mg_serves = timed(
+        "mgru_times", phase_mgru_times, dev, mg["mgru"]["rec"],
+        mg["cgs_mgru"]["rec"], audio, lens)
     sp_serve.update(posteriors_vs_cpu_max_abs_err=sp_post_err,
                     stream_vs_whole_max_abs_err=sp_stream_err,
                     dense_stream_launches=sp_stream_launches)
@@ -4196,6 +4828,41 @@ def main():
     print("[summary] GRU_cudnn %s" % json.dumps({
         "gru_cudnn": gt_cudnn, "yardsticks": {
             k: v for k, v in gt_times.items() if "cudnn" in k}}))
+    dn, sp_ = mg["mgru"], mg["cgs_mgru"]
+    dn_rc, dn_st = dn["train"]["launches_recompute"], \
+        dn["train"]["launches_stash"]
+    sp_rc = sp_["train"]["launches_recompute"]
+    mg_launches = {
+        "fused_mgru_fwd": {
+            "main": dn_rc["fused_mgru_fwd"],
+            "mgru_train_stash": dn_st["fused_mgru_fwd"],
+            "mgru_serve": dn["serve_launches"]["fused_mgru_fwd"],
+            "mgru_stream": dn["stream_launches"],
+            "cgs_mgru_stream": sp_["stream_launches"]},
+        "fused_mgru_bwd_stash": {"main": dn_st["fused_mgru_bwd_stash"]},
+        "fused_mgru_bwd": {"main": dn_rc["fused_mgru_bwd"]},
+        "fused_mgru_fwd_sparse": {
+            "main": sp_rc["fused_mgru_fwd_sparse"],
+            "cgs_mgru_serve": sp_["serve_launches"]["fused_mgru_fwd_sparse"],
+            "large_batch_%d_rows" % MG_LARGE_ROWS: mg_large["launches"]},
+        "fused_mgru_bwd_sparse": {"main": sp_rc["fused_mgru_bwd_sparse"]}}
+    for name, paths in mg_launches.items():
+        if not all(paths.values()):
+            raise AssertionError("%s was not launched on every path: %s"
+                                 % (name, paths))
+    sp_launches["block_sparse_dw"]["cgs_mgru_train"] = \
+        sp_rc["block_sparse_dw"]
+    print("[summary] minimalGRU %s" % json.dumps({
+        tag: {"serve": dict(mg_serves[tag],
+                            posteriors_vs_cpu_max_abs_err=r["post_err"],
+                            posteriors_vs_cpu_max_abs_err_no_quant_inp=r[
+                                "post_err_noq"],
+                            stream=r["stream"]),
+              "train": r["train"], "train_step": mg_steps[tag]}
+        for tag, r in mg.items()}))
+    print("[summary] minimalGRU large batch %s; yardsticks %s" % (
+        json.dumps(mg_large), json.dumps({
+            k: v for k, v in mg_times.items() if "cudnn" in k or "dU" in k})))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
                         launches)
     line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
@@ -4222,6 +4889,7 @@ def main():
          "ms_q16": "fused_rnn_fwd_ms_q16"}, "cudnn_rnn")
     line["kernels"] += slice8_rows(cl_checks, cl_times, cl_launches,
                                    gt_checks, gt_times, gt_launches)
+    line["kernels"] += slice9_rows(mg_checks, mg_times, mg_launches)
     print("[timing] total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps(line))
     print(smi)

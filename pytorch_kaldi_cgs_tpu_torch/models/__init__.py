@@ -1,5 +1,5 @@
-"""Acoustic models ported so far: LSTM, GRU, liGRU, RNN, the cuDNN-class
-LSTM_cudnn, GRU_cudnn and RNN_cudnn, and MLP.
+"""Acoustic models ported so far: LSTM, GRU, liGRU, minimalGRU, RNN, the
+cuDNN-class LSTM_cudnn, GRU_cudnn and RNN_cudnn, and MLP.
 
 Configs name a model by ``arch_library`` + ``arch_class``;
 :func:`get_model_class` resolves the built-in names to this package's
@@ -10,15 +10,15 @@ run unchanged, and never makes that package be imported.
 from .base import AcousticModel, CompressionSpec
 from .mlp import MLP
 from .recurrent import (GRU, LSTM, RNN, GRU_cudnn, LSTM_cudnn, RNN_cudnn,
-                        liGRU)
+                        liGRU, minimalGRU)
 
 __all__ = ["AcousticModel", "CompressionSpec", "GRU", "GRU_cudnn", "LSTM",
-           "LSTM_cudnn", "MLP", "RNN", "RNN_cudnn", "liGRU",
+           "LSTM_cudnn", "MLP", "RNN", "RNN_cudnn", "liGRU", "minimalGRU",
            "get_model_class"]
 
 _REGISTRY = {"MLP": MLP, "LSTM": LSTM, "GRU": GRU, "liGRU": liGRU,
-             "RNN": RNN, "LSTM_cudnn": LSTM_cudnn, "GRU_cudnn": GRU_cudnn,
-             "RNN_cudnn": RNN_cudnn}
+             "minimalGRU": minimalGRU, "RNN": RNN, "LSTM_cudnn": LSTM_cudnn,
+             "GRU_cudnn": GRU_cudnn, "RNN_cudnn": RNN_cudnn}
 
 #: Built-in classes that wait on TPU kernels not ported yet.
 _WAITING: dict = {}

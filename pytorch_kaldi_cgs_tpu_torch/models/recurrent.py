@@ -1,6 +1,6 @@
 """The recurrent acoustic models (port of ``pytorch_kaldi_cgs_tpu/models/
-recurrent.py``: ``_RecurrentBase``, ``LSTM``, ``GRU``, ``liGRU`` and
-``RNN``, and the cuDNN-class ``_CudnnBase``, ``LSTM_cudnn``,
+recurrent.py``: ``_RecurrentBase``, ``LSTM``, ``GRU``, ``liGRU``,
+``minimalGRU`` and ``RNN``, and the cuDNN-class ``_CudnnBase``, ``LSTM_cudnn``,
 ``GRU_cudnn`` and ``RNN_cudnn``).
 
 Time-major (T, B, F). Per layer: one fused input projection for all the
@@ -15,20 +15,21 @@ give the gradients) whenever the layer has no in-scan layer norm and its
 activation is tanh, relu, htanh or linear (``_fused_ok``); otherwise a
 plain step loop that autograd differentiates. LSTM: ``ops.fused_lstm``,
 streaming passes the (h, c) carries to the seeded-carry variant. liGRU,
-GRU and RNN: ``ops.fused_rnn``, in float32 whatever the compute dtype,
-as the JAX package's fused liGRU, GRU and RNN; streaming passes the h
-carry to the seeded forward. The JAX package's VMEM size rules and
-``*_fused_scan`` options do not choose the path here: the kernels take
-any batch.
+GRU, minimalGRU and RNN: ``ops.fused_rnn``, in float32 whatever the
+compute dtype, as the JAX package's fused liGRU, GRU, minimalGRU and
+RNN; streaming passes the h carry to the seeded forward. The JAX
+package's VMEM size rules and ``*_fused_scan`` options do not choose
+the path here: the kernels take any batch.
 
 Block sparsity (``<prefix>_block_sparse``: auto by default, True or
-False), by the JAX package's rules: an LSTM, GRU or liGRU layer whose
-recurrent HCGS mask at 128-multiple blocks drops at least half the
-blocks of each row runs its whole-utterance recurrence over the kept
-blocks only (``fused_lstm.lstm_scan_fused_sparse``, ``fused_rnn.
-gru_scan_fused_sparse``, ``fused_rnn.ligru_scan_fused_sparse``), in
-float32 whatever the compute dtype, as the JAX package does, at any
-batch; they stream on their dense seeded kernels over the masked U.
+False), by the JAX package's rules: an LSTM, GRU, liGRU or minimalGRU
+layer whose recurrent HCGS mask at 128-multiple blocks drops at least
+half the blocks of each row runs its whole-utterance recurrence over the
+kept blocks only (``fused_lstm.lstm_scan_fused_sparse``, ``fused_rnn.
+gru_scan_fused_sparse``, ``fused_rnn.ligru_scan_fused_sparse``,
+``fused_rnn.mgru_scan_fused_sparse``), in float32 whatever the compute
+dtype, as the JAX package does, at any batch; they stream on their
+dense seeded kernels over the masked U.
 Such an RNN layer raises where the JAX package would take its sparse
 kernels (not ported yet). An
 x-projection the JAX package puts on its v3 block-sparse kernels (128-
@@ -477,6 +478,64 @@ class liGRU(_RecurrentBase):
         for t in range(T):
             h, _ = fused_rnn.ligru_cell(gates[t], h, rec_u, drop, actf, qb,
                                         self.compute_bf16)
+            if self.use_laynorm[i]:
+                h = layer_norm(h, self.params["ln%d/gamma" % i],
+                               self.params["ln%d/beta" % i])
+            hs.append(h)
+        return torch.stack(hs), h
+
+
+class minimalGRU(_RecurrentBase):
+    """Minimal GRU (the reference's neural_networks.py:1602-1777): the
+    liGRU's gates, parameter names and batch norm, gates ordered [h, z]
+    (candidate first), U stacked [Uh; Uz], with z also gating the
+    candidate's recurrent input: a = act(g_h + q(z * h) @ Uh.T). A layer
+    with a sparse recurrent layout runs the block-sparse minimalGRU
+    kernels at every batch (w3g in bf16 only where the JAX size rule says
+    "bf16"); a stream drops the layout and runs the dense seeded forward
+    over the masked U, as the JAX package does."""
+
+    prefix = "minimalgru"
+    gates_x = ["wh", "wz"]
+    gates_h = ["uh", "uz"]
+    bn_gates = ["wh", "wz"]
+
+    def _zero_carry(self, z):
+        return z
+
+    def _recurrence(self, gates, U, drop, i, carry):
+        act = self.act_names[i]
+        qb = self._rec_qbits()
+        if carry is None:
+            layout = self._sparse_rec_layout(i)
+            if layout is not None:
+                return fused_rnn.mgru_scan_fused_sparse(
+                    gates, self._rec_w3g(U, layout), layout, drop, act=act,
+                    quant_bits=qb), None
+        if self._fused_ok(i):
+            if carry is None:
+                return fused_rnn.mgru_scan_fused(
+                    gates, U, drop, act=act, quant_bits=qb), None
+            return fused_rnn.mgru_scan_fused_stream(
+                gates, U, drop, carry, act=act, quant_bits=qb)
+        return self._steps_plain(gates, U, drop, i, carry, qb)
+
+    def _steps_plain(self, gates, U, drop, i, carry, qb):
+        """Plain step loop (the JAX package's ``lax.scan`` step) for the
+        layers the kernels do not take: in-scan layer norm on h, or
+        another activation; under bf16 compute both recurrent dots take
+        bf16-rounded inputs, q(z * h) quantized before Uh, as the JAX
+        ``_rmm(z * h, Uh)``."""
+        T, B, G2 = gates.shape
+        H = G2 // 2
+        actf = act_fun(self.act_names[i])
+        rec_h = fused_lstm.dense_u(U[:H], self.compute_bf16)
+        rec_z = fused_lstm.dense_u(U[H:], self.compute_bf16)
+        h = carry if carry is not None else gates.new_zeros((B, H))
+        hs = []
+        for t in range(T):
+            h, _ = fused_rnn.mgru_cell(gates[t], h, rec_z, rec_h, drop, actf,
+                                       qb, self.compute_bf16)
             if self.use_laynorm[i]:
                 h = layer_norm(h, self.params["ln%d/gamma" % i],
                                self.params["ln%d/beta" % i])

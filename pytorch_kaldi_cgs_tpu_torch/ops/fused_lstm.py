@@ -86,7 +86,7 @@ def dact_pre(act: str, x: torch.Tensor) -> torch.Tensor:
 #: Which cells default to the stashed-activation backward (the JAX
 #: package's ``_STASH_DEFAULT``, for the cells ported so far).
 _STASH_DEFAULT = {"lstm": True, "gru": True, "ligru": False,
-                  "rnn": False}
+                  "rnn": False, "mgru": False}
 
 
 def bwd_stash_enabled(cell: str = "lstm") -> bool:

@@ -1,11 +1,12 @@
-"""Fused liGRU and GRU (dense and block-sparse), torch-semantics GRU
-and vanilla-RNN recurrences: the whole layer's time loop, forward and
-BPTT.
+"""Fused liGRU, GRU and minimalGRU (dense and block-sparse),
+torch-semantics GRU and vanilla-RNN recurrences: the whole layer's time
+loop, forward and BPTT.
 
-Port of the liGRU, GRU, torch-GRU and RNN parts of
-``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``. The GRU's, the block-sparse
-liGRU's, the RNN's and the torch-semantics GRU's (below, after the
-dense liGRU's) have their own notes. Three liGRU TPU
+Port of the liGRU, GRU, minimalGRU, torch-GRU and RNN parts of
+``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``. The GRU's and the
+minimalGRU's (which share their code), the block-sparse liGRU's, the
+RNN's and the torch-semantics GRU's (below, after the dense liGRU's)
+have their own notes. Three liGRU TPU
 kernels become CUDA kernels for ``sm_90a`` in ``csrc/fused_ligru.cu``,
 each with a plain PyTorch twin that repeats its arithmetic and is what
 the CPU runs:
@@ -338,29 +339,36 @@ def ligru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the GRU, dense and block-sparse. Per step t, gates ordered [h | z | r]
-# (candidate first), U stacked [Uh; Uz; Ur]:
+# the GRU and the minimalGRU, dense and block-sparse. Per step t, gates
+# ordered [h | z | r] (candidate first), U stacked [Uh; Uz; Ur]:
 #
 #     z, r = sigmoid(g_zr + q(h) @ [Uz; Ur].T)
 #     s    = r * h
 #     a    = act(g_h + q(s) @ Uh.T)
 #     h    = z * h + (1 - z) * a * drop
 #
+# The minimalGRU (the Minimal Gated Unit, the reference's
+# neural_networks.py:1602-1777) is the same step with two gates [h | z],
+# U = [Uh; Uz] and z in the reset gate's place: s = z * h.
 # ``q`` is the per-step input quantizer (its scale max|v| over the step's
 # (B, H) block) with a straight-through gradient. Each step has two
-# grid-wide dependencies (s needs r of every unit, q(s) needs max|s|), so
-# the forward kernels run two launches per step. In reverse, from
-# dh_carry = 0 at t = T-1:
+# grid-wide dependencies (s needs r or z of every unit, q(s) needs
+# max|s|), so the forward kernels run two launches per step. In reverse,
+# from dh_carry = 0 at t = T-1:
 #
 #     dh   = dh_carry + dhs[t]
 #     dg_h = dh * (1 - z) * drop * act'
-#     dg_z = dh * (h_{t-1} - a * drop) * z (1 - z)
 #     ds   = dg_h @ Uh
-#     dg_r = ds * h_{t-1} * r (1 - r)
-#     dh_carry = dh * z + ds * r + [dg_z | dg_r] @ [Uz; Ur]
+#     GRU:        dg_z = dh * (h_{t-1} - a * drop) * z (1 - z)
+#                 dg_r = ds * h_{t-1} * r (1 - r)
+#                 dh_carry = dh * z + ds * r + [dg_z | dg_r] @ [Uz; Ur]
+#     minimalGRU: dg_z = (dh * (h_{t-1} - a * drop) + ds * h_{t-1}) z (1 - z)
+#                 dh_carry = dh * z + ds * z + dg_z @ Uz
 #
 # dU is two products over the unrolled (T*B) batch: Uh's rows from q(s),
-# Uz's and Ur's from q(h_{t-1}).
+# the others' from q(h_{t-1}). The plain twins, the wrappers' bodies and
+# the autograd rules serve both cells, which they tell apart by the gate
+# count; the CUDA kernels are one template over it.
 # ---------------------------------------------------------------------------
 
 def gru_cell(g_t: torch.Tensor, h: torch.Tensor, rec_zr: Callable,
@@ -370,37 +378,46 @@ def gru_cell(g_t: torch.Tensor, h: torch.Tensor, rec_zr: Callable,
     gives the z and r pre-activations (B, 2H), ``rec_h(q(r * h))`` the
     candidate's (B, H); ``q`` the per-step quantizer with a
     straight-through gradient, its output rounded to bf16 when ``bf16``.
-    -> (h, the stash [act(a_h), z, r] as (B, 3H))."""
+    -> (h, the stash [act(a_h), z, r] as (B, 3H)). Given gates [h | z]
+    and a ``rec_zr`` that gives z's pre-activations alone (B, H), it is
+    the minimalGRU's step (:data:`mgru_cell`): s = z * h, the stash
+    [act(a_h), z]."""
     H = h.shape[-1]
     hin = ste_quantize_input(h, qbits) if qbits > 0 else h
     if bf16:
         hin = bf16_round(hin)
     zr = torch.sigmoid(g_t[:, H:] + rec_zr(hin))
-    z, r = zr[:, :H], zr[:, H:]
-    s = r * h
+    s = zr[:, -H:] * h            # r * h, the minimalGRU's z * h
     sin = ste_quantize_input(s, qbits) if qbits > 0 else s
     if bf16:
         sin = bf16_round(sin)
     a = actf(g_t[:, :H] + rec_h(sin))
+    z = zr[:, :H]
     return z * h + (1.0 - z) * (a * drop), torch.cat([a, zr], dim=1)
 
 
 def _gru_bwd_loop(step, h_prev, dhs, drop, dot_h, dot_zr, like):
-    """Reverse-time loop shared by the GRU's BPTT twins: ``step(t)``
-    gives step t's (act(a_h), z, r, act'), ``dot_h(dg_h)`` is ds and
-    ``dot_zr([dg_z | dg_r])`` the carry's product (JAX
-    ``_build_gru_bwd_stash`` :411-425). -> dg (T, B, 3H)."""
+    """Reverse-time loop shared by the GRU's and the minimalGRU's BPTT
+    twins: ``step(t)`` gives step t's (act(a_h), [z | r] or z, act'),
+    ``dot_h(dg_h)`` is ds and ``dot_zr`` the carry's product (JAX
+    ``_build_gru_bwd_stash`` :411-425, ``_build_mgru_bwd_stash``
+    :871-881). -> dg shaped like ``like`` (T, B, G*H)."""
     T, B, H = h_prev.shape
-    dg = like.new_empty((T, B, 3 * H))
+    dg = like.new_empty(like.shape)
     dh_carry = like.new_zeros((B, H))
     for t in range(T - 1, -1, -1):
         hp = h_prev[t]
-        a, z, r, dact = step(t)
+        a, zr, dact = step(t)
+        z, r = zr[:, :H], zr[:, -H:]          # the minimalGRU's r is z
         dh = dh_carry + dhs[t]
         dz = dh * (hp - a * drop)
         dah = dh * (1.0 - z) * drop * dact
         ds = dot_h(dah)
-        dzr = torch.cat([dz * z * (1.0 - z), ds * hp * r * (1.0 - r)], dim=1)
+        if zr.shape[1] == H:      # minimalGRU: z also gates s = z * h
+            dzr = (dz + ds * hp) * z * (1.0 - z)
+        else:
+            dzr = torch.cat([dz * z * (1.0 - z), ds * hp * r * (1.0 - r)],
+                            dim=1)
         dh_carry = dh * z + ds * r + dot_zr(dzr)
         dg[t] = torch.cat([dah, dzr], dim=1)
     return dg
@@ -408,7 +425,7 @@ def _gru_bwd_loop(step, h_prev, dhs, drop, dot_h, dot_zr, like):
 
 def _gru_recompute_step(gates, h_prev, rec_zr, rec_h, act, qbits, bf16,
                         s_seq=None):
-    """``step`` of :func:`_gru_bwd_loop` rebuilding z, r, s and the
+    """``step`` of :func:`_gru_bwd_loop` rebuilding z (and r), s and the
     candidate from ``h_prev`` (q per step, bf16-rounded dot inputs when
     ``bf16``; act' from the pre-activation); s into ``s_seq`` when
     given."""
@@ -422,21 +439,22 @@ def _gru_recompute_step(gates, h_prev, rec_zr, rec_h, act, qbits, bf16,
     def step(t):
         hp, g = h_prev[t], gates[t]
         zr = torch.sigmoid(g[:, H:] + rec_zr(dot_in(hp)))
-        z, r = zr[:, :H], zr[:, H:]
-        s = r * hp
+        s = zr[:, -H:] * hp
         if s_seq is not None:
             s_seq[t] = s
         a_pre = g[:, :H] + rec_h(dot_in(s))
-        return actf(a_pre), z, r, dact_pre(act, a_pre)
+        return actf(a_pre), zr, dact_pre(act, a_pre)
     return step
 
 
-# -- the dense GRU: TPU kernels _build_gru_fwd, _build_gru_bwd_stash and
-# _build_gru_bwd become csrc/fused_gru.cu. Everything is float32 (the JAX
-# package casts U to float32 for them whatever the compute dtype).
+# -- the dense GRU and minimalGRU: TPU kernels _build_gru_fwd,
+# _build_gru_bwd_stash, _build_gru_bwd and _build_mgru_fwd,
+# _build_mgru_bwd_stash, _build_mgru_bwd become csrc/fused_gru.cu.
+# Everything is float32 (the JAX package casts U to float32 for them
+# whatever the compute dtype).
 
 def _gru_dense_fns(U):
-    """(rec_zr, rec_h, dot_h, dot_zr) of the dense twins over U (3H, H)."""
+    """(rec_zr, rec_h, dot_h, dot_zr) of the dense twins over U (G*H, H)."""
     H = U.shape[1]
     Uf = U.to(torch.float32)
     Uh, Uzr = Uf[:H], Uf[H:]
@@ -449,10 +467,11 @@ def fused_gru_fwd_plain(gates: torch.Tensor, U: torch.Tensor,
                         act: str, qbits: int, stash: bool = False):
     """The forward kernel's plain twin: a Python loop over
     :func:`gru_cell`. -> hs (T, B, H), and ``(hs, acts)`` with the stash
-    [act(a_h), z, r] (T, B, 3H) when ``stash``."""
-    T, B, G3 = gates.shape
+    [act(a_h), z, r] (T, B, 3H) when ``stash``. Over gates [h | z] and
+    U (2H, H) it is the minimalGRU's (stash [act(a_h), z])."""
+    T, B, _ = gates.shape
     rec_zr, rec_h, _, _ = _gru_dense_fns(U)
-    h = gates.new_zeros((B, G3 // 3)) if h0 is None else h0
+    h = gates.new_zeros((B, U.shape[1])) if h0 is None else h0
     hs, acts = [], []
     for t in range(T):
         h, a = gru_cell(gates[t], h, rec_zr, rec_h, drop, ACTS[act], qbits)
@@ -466,15 +485,15 @@ def fused_gru_bwd_stash_plain(acts: torch.Tensor, U: torch.Tensor,
                               dhs: torch.Tensor, act: str = "tanh"
                               ) -> torch.Tensor:
     """Twin of the stash BPTT kernel: reverse loop over the forward's
-    stash [act(a_h), z, r]; act' from the activation's output. -> dg
-    (T, B, 3H)."""
+    stash [act(a_h), z, r] (the minimalGRU's [act(a_h), z]); act' from
+    the activation's output. -> dg shaped like ``acts``."""
     H = h_prev.shape[2]
     _, _, dot_h, dot_zr = _gru_dense_fns(U)
     dactf = DACTS_OUT[act]
 
     def step(t):
-        a, z, r = acts[t, :, :H], acts[t, :, H:2 * H], acts[t, :, 2 * H:]
-        return a, z, r, dactf(a)
+        a = acts[t, :, :H]
+        return a, acts[t, :, H:], dactf(a)
     return _gru_bwd_loop(step, h_prev, dhs, drop, dot_h, dot_zr, acts)
 
 
@@ -482,25 +501,69 @@ def fused_gru_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
                         drop: torch.Tensor, h_prev: torch.Tensor,
                         dhs: torch.Tensor, act: str = "tanh", qbits: int = 0
                         ) -> torch.Tensor:
-    """Twin of the recompute BPTT kernel: per reverse step it rebuilds z,
-    r, s and the candidate from ``h_prev`` (q per step), act' from the
-    pre-activation. -> dg (T, B, 3H)."""
+    """Twin of the recompute BPTT kernel: per reverse step it rebuilds z
+    (and r), s and the candidate from ``h_prev`` (q per step), act' from
+    the pre-activation. -> dg shaped like ``gates``."""
     rec_zr, rec_h, dot_h, dot_zr = _gru_dense_fns(U)
     step = _gru_recompute_step(gates, h_prev, rec_zr, rec_h, act, qbits,
                                False)
     return _gru_bwd_loop(step, h_prev, dhs, drop, dot_h, dot_zr, gates)
 
 
-def _gru_check(name, lead, U, drop, act, others):
-    """(T, B, 3H) float32 ``lead``, U (3H, H) float32, one device,
+#: The minimalGRU's step and dense plain twins: the GRU's over gates
+#: [h | z] and U = [Uh; Uz] (the twins of the TPU kernels
+#: ``_build_mgru_fwd``, ``_build_mgru_bwd_stash`` and ``_build_mgru_bwd``).
+mgru_cell = gru_cell
+fused_mgru_fwd_plain = fused_gru_fwd_plain
+fused_mgru_bwd_stash_plain = fused_gru_bwd_stash_plain
+fused_mgru_bwd_plain = fused_gru_bwd_plain
+
+
+def _gru_check(name, lead, U, drop, act, others, G):
+    """(T, B, G*H) float32 ``lead``, U (G*H, H) float32, one device,
     contiguous float32 sequences; on the card a width whose staged rows
     fit a block's shared memory. -> (T, B, H, drop as (B, H))."""
     out = _check_common(name, lead, U, drop, act, (("U", U),) + others,
-                        gates=3)
+                        gates=G)
     if lead.device.type == "cuda" and 4 * 8 * 2 * out[2] > _SMEM_MAX:
         raise ValueError("the dense GRU kernels take H <= %d, got %d"
                          % (_SMEM_MAX // 64, out[2]))
     return out
+
+
+def _gru_fwd(wrapper, G, scan, gates, U, drop, h0, act, qbits, stash):
+    """The body of :func:`fused_gru_fwd` (G=3) and :func:`fused_mgru_fwd`
+    (G=2): the C entry point of ``wrapper``'s name, ``scan`` the
+    differentiable caller."""
+    T, B, H, drop = _gru_check("gates", gates, U, drop, act, (("h0", h0),),
+                               G)
+    _check_shapes((("h0", h0, (B, H)),))
+    if _needs_grad(gates, U, h0):
+        raise RuntimeError("%s has no autograd of its own: call %s"
+                           % (wrapper.__name__, scan))
+    if gates.device.type == "cpu":
+        return fused_gru_fwd_plain(gates, U, drop, h0, act, qbits, stash)
+    from . import _build
+    lib = _build.load("fused_gru")
+    fn = getattr(lib, wrapper.__name__)
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    hs = torch.empty((T, B, H), **f32)
+    acts = torch.empty_like(gates) if stash else None
+    fw = None if stash else torch.empty((B, G * H), **f32)
+    s = torch.empty((B, H), **f32)
+    qslots = torch.empty(2 * T + 1 if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), U.data_ptr(), drop.data_ptr(), _ptr(h0),
+                hs.data_ptr(), _ptr(acts), _ptr(fw), s.data_ptr(),
+                qslots.data_ptr(), T, B, H, _ACT_CODE[act], qbits,
+                _stream(dev))
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += 2 * T
+    return (hs, acts) if stash else hs
 
 
 def fused_gru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
@@ -515,42 +578,36 @@ def fused_gru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     CUDA tensors run the kernel (two launches per step), CPU tensors the
     plain twin. This is the raw kernel call, with no autograd:
     differentiable callers use :func:`gru_scan_fused`."""
-    T, B, H, drop = _gru_check("gates", gates, U, drop, act, (("h0", h0),))
-    _check_shapes((("h0", h0, (B, H)),))
-    if _needs_grad(gates, U, h0):
-        raise RuntimeError("fused_gru_fwd has no autograd of its own: call "
-                           "gru_scan_fused")
-    if gates.device.type == "cpu":
-        return fused_gru_fwd_plain(gates, U, drop, h0, act, qbits, stash)
-    from . import _build
-    lib = _build.load("fused_gru")
-    fn = lib.fused_gru_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dev = gates.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    hs = torch.empty((T, B, H), **f32)
-    acts = torch.empty_like(gates) if stash else None
-    fw = None if stash else torch.empty((B, 3 * H), **f32)
-    s = torch.empty((B, H), **f32)
-    qslots = torch.empty(2 * T + 1 if qbits > 0 else 1, dtype=torch.int32,
-                         device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(gates.data_ptr(), U.data_ptr(), drop.data_ptr(), _ptr(h0),
-                hs.data_ptr(), _ptr(acts), _ptr(fw), s.data_ptr(),
-                qslots.data_ptr(), T, B, H, _ACT_CODE[act], qbits,
-                _stream(dev))
-    _build.check(lib, rc, "fused_gru_fwd")
-    fused_gru_fwd.launches += 2 * T
-    return (hs, acts) if stash else hs
+    return _gru_fwd(fused_gru_fwd, 3, "gru_scan_fused", gates, U, drop, h0,
+                    act, qbits, stash)
 
 
 fused_gru_fwd.launches = 0
 
 
-def _gru_bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
+def fused_mgru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, act: str = "tanh",
+                   qbits: int = 0, stash: bool = False):
+    """Whole-layer minimalGRU forward (TPU kernel ``_build_mgru_fwd``):
+    ``gates`` (T, B, 2H) float32 ordered [h | z], ``U`` (2H, H) float32
+    stacked [Uh; Uz], ``drop`` broadcastable to (B, H), optional seed
+    carry ``h0`` (B, H). -> hs (T, B, H) float32, and ``(hs, acts)`` with
+    the stash [act(a_h), z] (T, B, 2H) when ``stash``. CUDA tensors run
+    the kernel (two launches per step), CPU tensors the plain twin; no
+    autograd (:func:`mgru_scan_fused`)."""
+    return _gru_fwd(fused_mgru_fwd, 2, "mgru_scan_fused", gates, U, drop, h0,
+                    act, qbits, stash)
+
+
+fused_mgru_fwd.launches = 0
+
+
+def _gru_bwd(wrapper, cname, G, lead, U, drop, h_prev, dhs, act, qbits,
+             stash):
+    """The body of the dense BPTT wrappers: the C entry point ``cname``
+    (``fused_gru_bwd`` or ``fused_mgru_bwd``) over G gates."""
     T, B, H, drop = _gru_check("acts" if stash else "gates", lead, U, drop,
-                               act, (("h_prev", h_prev), ("dhs", dhs)))
+                               act, (("h_prev", h_prev), ("dhs", dhs)), G)
     _check_shapes((("h_prev", h_prev, (T, B, H)), ("dhs", dhs, (T, B, H))))
     if lead.device.type == "cpu":
         if stash:
@@ -558,14 +615,14 @@ def _gru_bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
         return fused_gru_bwd_plain(lead, U, drop, h_prev, dhs, act, qbits)
     from . import _build
     lib = _build.load("fused_gru")
-    fn = lib.fused_gru_bwd
+    fn = getattr(lib, cname)
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     dev = lead.device
     f32 = dict(dtype=torch.float32, device=dev)
-    Ut = U.t().contiguous()                  # (H, 3H): rows for dg @ U
-    fw = None if stash else torch.empty((T, B, 3 * H), **f32)
+    Ut = U.t().contiguous()                  # (H, G*H): rows for dg @ U
+    fw = None if stash else torch.empty((T, B, G * H), **f32)
     s_seq = None if stash else torch.empty((T, B, H), **f32)
     dh, ds = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
     dg = torch.empty_like(lead)
@@ -590,8 +647,8 @@ def fused_gru_bwd_stash(acts: torch.Tensor, U: torch.Tensor,
     ``h_prev`` (T, B, H) the carries entering each step, upstream ``dhs``
     (T, B, H). -> dg (T, B, 3H). CUDA tensors run the kernel (two
     launches per reverse step), CPU tensors the twin."""
-    return _gru_bwd(fused_gru_bwd_stash, acts, U, drop, h_prev, dhs, act, 0,
-                    True)
+    return _gru_bwd(fused_gru_bwd_stash, "fused_gru_bwd", 3, acts, U, drop,
+                    h_prev, dhs, act, 0, True)
 
 
 fused_gru_bwd_stash.launches = 0
@@ -606,54 +663,120 @@ def fused_gru_bwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     step. -> as :func:`fused_gru_bwd_stash`. On the card two launches
     rebuild the forward's quantities for all steps, then two run per
     reverse step."""
-    return _gru_bwd(fused_gru_bwd, gates, U, drop, h_prev, dhs, act, qbits,
-                    False)
+    return _gru_bwd(fused_gru_bwd, "fused_gru_bwd", 3, gates, U, drop, h_prev,
+                    dhs, act, qbits, False)
 
 
 fused_gru_bwd.launches = 0
 
 
+def fused_mgru_bwd_stash(acts: torch.Tensor, U: torch.Tensor,
+                         drop: torch.Tensor, h_prev: torch.Tensor,
+                         dhs: torch.Tensor, act: str = "tanh"
+                         ) -> torch.Tensor:
+    """minimalGRU BPTT over the stash (TPU kernel
+    ``_build_mgru_bwd_stash``, under ``PKC_BWD_STASH_CELLS=mgru``):
+    ``acts`` (T, B, 2H) [act(a_h), z] from the stash forward, ``h_prev``
+    and ``dhs`` (T, B, H). -> dg (T, B, 2H). CUDA tensors run the kernel
+    (two launches per reverse step), CPU tensors the twin."""
+    return _gru_bwd(fused_mgru_bwd_stash, "fused_mgru_bwd", 2, acts, U, drop,
+                    h_prev, dhs, act, 0, True)
+
+
+fused_mgru_bwd_stash.launches = 0
+
+
+def fused_mgru_bwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
+                   h_prev: torch.Tensor, dhs: torch.Tensor, act: str = "tanh",
+                   qbits: int = 0) -> torch.Tensor:
+    """minimalGRU BPTT with recompute (TPU kernel ``_build_mgru_bwd``, the
+    default backward): ``gates`` (T, B, 2H) are the forward's inputs,
+    ``h_prev`` (T, B, H) the carries entering each step, re-quantized per
+    step. -> dg (T, B, 2H). On the card two launches rebuild the
+    forward's quantities for all steps, then two run per reverse step."""
+    return _gru_bwd(fused_mgru_bwd, "fused_mgru_bwd", 2, gates, U, drop,
+                    h_prev, dhs, act, qbits, False)
+
+
+fused_mgru_bwd.launches = 0
+
+
+def _dense_kernels(cell):
+    """A cell's dense (forward, stash BPTT, recompute BPTT) wrappers,
+    looked up when called (a swapped module attribute takes effect)."""
+    if cell == "gru":
+        return fused_gru_fwd, fused_gru_bwd_stash, fused_gru_bwd
+    return fused_mgru_fwd, fused_mgru_bwd_stash, fused_mgru_bwd
+
+
+def _gated_forward(ctx, cell, gates, U, drop, act, qbits):
+    """The forward rule of :class:`_FusedGRU` and :class:`_FusedMGRU`:
+    the stash forward when the cell's backward is the stash one."""
+    fwd = _dense_kernels(cell)[0]
+    stash = bwd_stash_enabled(cell)
+    out = fwd(gates, U, drop, act=act, qbits=qbits, stash=stash)
+    hs, acts = out if stash else (out, None)
+    ctx.meta = (cell, act, qbits, stash)
+    ctx.save_for_backward(None if stash else gates, U, drop, hs, acts)
+    return hs
+
+
+def _gated_backward(ctx, dhs):
+    """The backward rule of :class:`_FusedGRU` and :class:`_FusedMGRU`:
+    the BPTT kernel, then dU as two matmuls over the (T*B) batch: Uh's
+    rows over q(s), the others' over q(h_prev). s = r * h_prev (the
+    minimalGRU's z * h_prev) from the stashed gate or, on the recompute
+    path, from the gate recomputed over the unrolled batch, as in JAX."""
+    cell, act, qbits, stash = ctx.meta
+    _, bwd_stash, bwd = _dense_kernels(cell)
+    gates, U, drop, hs, acts = ctx.saved_tensors
+    T, B, H = hs.shape
+    M = T * B
+    dhs = dhs.contiguous()
+    h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
+    if stash:
+        dg = bwd_stash(acts, U, drop, h_prev, dhs, act)
+    else:
+        dg = bwd(gates, U, drop, h_prev, dhs, act, qbits)
+    dU = None
+    if ctx.needs_input_grad[1]:
+        def q(v):
+            return quantize_input_per_step(v, qbits) if qbits > 0 else v
+        GH = dg.shape[2]
+        hp, hq = h_prev.reshape(M, H), q(h_prev).reshape(M, H)
+        if stash:         # the gate that scales s is the stash's last H
+            s = acts.reshape(M, GH)[:, -H:] * hp
+        else:
+            s = torch.sigmoid(gates.reshape(M, GH)[:, -H:]
+                              + hq @ U[-H:].T) * hp
+        sq = q(s.reshape(T, B, H)).reshape(M, H)
+        dgm = dg.reshape(M, GH)
+        dU = torch.cat([dgm[:, :H].T @ sq, dgm[:, H:].T @ hq])
+    return dg, dU, None, None, None
+
+
 class _FusedGRU(torch.autograd.Function):
     """The JAX package's ``gru_scan_fused`` custom VJP over (gates, U):
     forward kernel (stash or not), BPTT kernel, then dU as two matmuls
-    over the (T*B) batch, s = r * h_prev from the stashed r or, on the
-    recompute path, from r recomputed over the unrolled batch."""
+    over the (T*B) batch."""
 
     @staticmethod
     def forward(ctx, gates, U, drop, act, qbits):
-        stash = bwd_stash_enabled("gru")
-        out = fused_gru_fwd(gates, U, drop, act=act, qbits=qbits, stash=stash)
-        hs, acts = out if stash else (out, None)
-        ctx.meta = (act, qbits, stash)
-        ctx.save_for_backward(None if stash else gates, U, drop, hs, acts)
-        return hs
+        return _gated_forward(ctx, "gru", gates, U, drop, act, qbits)
+
+    backward = staticmethod(_gated_backward)
+
+
+class _FusedMGRU(torch.autograd.Function):
+    """The JAX package's ``mgru_scan_fused`` custom VJP over (gates, U):
+    as :class:`_FusedGRU` on the minimalGRU's kernels (the backward is
+    the recompute one unless ``PKC_BWD_STASH_CELLS`` lists ``mgru``)."""
 
     @staticmethod
-    def backward(ctx, dhs):
-        act, qbits, stash = ctx.meta
-        gates, U, drop, hs, acts = ctx.saved_tensors
-        T, B, H = hs.shape
-        M = T * B
-        dhs = dhs.contiguous()
-        h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
-        if stash:
-            dg = fused_gru_bwd_stash(acts, U, drop, h_prev, dhs, act)
-        else:
-            dg = fused_gru_bwd(gates, U, drop, h_prev, dhs, act, qbits)
-        dU = None
-        if ctx.needs_input_grad[1]:
-            def q(v):
-                return quantize_input_per_step(v, qbits) if qbits > 0 else v
-            hp, hq = h_prev.reshape(M, H), q(h_prev).reshape(M, H)
-            if stash:
-                s = acts.reshape(M, 3 * H)[:, 2 * H:] * hp
-            else:     # r recomputed over the unrolled batch, as in JAX
-                s = torch.sigmoid(gates.reshape(M, 3 * H)[:, 2 * H:]
-                                  + hq @ U[2 * H:].T) * hp
-            sq = q(s.reshape(T, B, H)).reshape(M, H)
-            dgm = dg.reshape(M, 3 * H)
-            dU = torch.cat([dgm[:, :H].T @ sq, dgm[:, H:].T @ hq])
-        return dg, dU, None, None, None
+    def forward(ctx, gates, U, drop, act, qbits):
+        return _gated_forward(ctx, "mgru", gates, U, drop, act, qbits)
+
+    backward = staticmethod(_gated_backward)
 
 
 def gru_scan_fused(gates_t: torch.Tensor, U: torch.Tensor,
@@ -681,20 +804,48 @@ def gru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
     return hs, hs[-1]
 
 
-# -- the block-sparse GRU: TPU kernels _build_gru_fwd_sparse and
-# _build_gru_bwd_sparse become csrc/fused_gru_sparse.cu. The three
-# recurrent matrices share one HCGS mask; their kept blocks pack into w3g
-# (Nb, 3*bs, R*bs), each block gate-major [h | z | r], and both products
-# run over the kept blocks only. The backward rebuilds the forward's
-# quantities for all steps at once, then runs two launches per reverse
-# step, and also returns s for the dU: two block-sparse dw products.
+def mgru_scan_fused(gates_t: torch.Tensor, U: torch.Tensor,
+                    drop_mask: torch.Tensor, act: str = "tanh",
+                    quant_bits: int = 0) -> torch.Tensor:
+    """hs (T, B, H) of the minimalGRU from zero initial state,
+    differentiable in ``gates_t`` (T, B, 2H) [h | z] and ``U`` (2H, H)
+    [Uh; Uz] (``drop_mask`` is a constant); float32 whatever the compute
+    dtype, as in the JAX package."""
+    gates_t, U = gates_t.to(torch.float32), U.to(torch.float32)
+    if _needs_grad(gates_t, U):
+        return _FusedMGRU.apply(gates_t, U, drop_mask, act, quant_bits)
+    return fused_mgru_fwd(gates_t, U, drop_mask, act=act, qbits=quant_bits)
+
+
+def mgru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
+                           drop_mask: torch.Tensor, h0: torch.Tensor,
+                           act: str = "tanh", quant_bits: int = 0):
+    """Streaming (inference-only) minimalGRU forward seeded with the
+    carry ``h0`` (B, H): -> ``(hs, hs[-1])``. Not differentiable."""
+    with torch.no_grad():
+        hs = fused_mgru_fwd(gates_t.to(torch.float32), U.to(torch.float32),
+                            drop_mask, h0.to(torch.float32), act=act,
+                            qbits=quant_bits)
+    return hs, hs[-1]
+
+
+# -- the block-sparse GRU and minimalGRU: TPU kernels
+# _build_gru_fwd_sparse, _build_gru_bwd_sparse, _build_mgru_fwd_sparse and
+# _build_mgru_bwd_sparse become csrc/fused_gru_sparse.cu. The recurrent
+# matrices share one HCGS mask; their kept blocks pack into w3g
+# (Nb, G*bs, R*bs), each block gate-major [h | z | r] ([h | z]), and both
+# products run over the kept blocks only. The backward rebuilds the
+# forward's quantities for all steps at once, then runs two launches per
+# reverse step, and also returns s for the dU: two block-sparse dw
+# products.
 
 def _gru_sparse_fns(w3g, layout, bf16):
-    """(w3g's U_h and [U_z; U_r] parts, rec_zr, rec_h) of the sparse
-    twins; w3g bf16-rounded when ``bf16``."""
+    """(w3g's U_h and [U_z; U_r] (U_z) parts, rec_zr, rec_h) of the
+    sparse twins; w3g bf16-rounded when ``bf16``."""
     wc = bf16_round(w3g) if bf16 else w3g
     w_h, w_zr = wc[:, :layout.bs], wc[:, layout.bs:]
-    return (w_h, w_zr, lambda x: sparse_recurrent_u(x, w_zr, layout, 2),
+    G_zr = w_zr.shape[1] // layout.bs
+    return (w_h, w_zr, lambda x: sparse_recurrent_u(x, w_zr, layout, G_zr),
             lambda x: sparse_recurrent_u(x, w_h, layout, 1))
 
 
@@ -703,10 +854,11 @@ def fused_gru_fwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
                                qbits: int = 0, bf16: bool = False
                                ) -> torch.Tensor:
     """Twin of the sparse GRU forward kernel (zero initial state): a
-    Python loop over :func:`gru_cell`. -> hs (T, B, H)."""
-    T, B, G3 = gates.shape
+    Python loop over :func:`gru_cell`. -> hs (T, B, H). Over gates
+    [h | z] and w3g (Nb, 2*bs, R*bs) it is the minimalGRU's."""
+    T, B, _ = gates.shape
     _, _, rec_zr, rec_h = _gru_sparse_fns(w3g, layout, bf16)
-    h = gates.new_zeros((B, G3 // 3))
+    h = gates.new_zeros((B, layout.N))
     hs = []
     for t in range(T):
         h, _ = gru_cell(gates[t], h, rec_zr, rec_h, drop, ACTS[act], qbits,
@@ -720,21 +872,65 @@ def fused_gru_bwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
                                dhs: torch.Tensor, layout, act: str = "tanh",
                                qbits: int = 0, bf16: bool = False):
     """Twin of the sparse GRU BPTT kernel: per reverse step it rebuilds
-    z, r, s and the candidate from ``h_prev`` and runs the cotangent
-    chain (JAX ``_build_gru_bwd_sparse`` :1523-1538; ``act'`` from the
+    z (and r), s and the candidate from ``h_prev`` and runs the cotangent
+    chain (JAX ``_build_gru_bwd_sparse`` :1523-1538,
+    ``_build_mgru_bwd_sparse`` :1690-1701; ``act'`` from the
     pre-activation, dh through the quantizers unchanged, the cotangents
-    bf16-rounded before their dots when ``bf16``). -> (dg (T, B, 3H),
-    s (T, B, H))."""
+    bf16-rounded before their dots when ``bf16``). -> (dg shaped like
+    ``gates``, s (T, B, H))."""
     w_h, w_zr, rec_zr, rec_h = _gru_sparse_fns(w3g, layout, bf16)
     s_seq = torch.empty_like(h_prev)
     step = _gru_recompute_step(gates, h_prev, rec_zr, rec_h, act, qbits, bf16,
                                s_seq)
 
-    def dots(w, G):
+    def dots(w):
+        G = w.shape[1] // layout.bs
         return lambda d: sparse_dh(bf16_round(d) if bf16 else d, w, layout, G)
-    dg = _gru_bwd_loop(step, h_prev, dhs, drop, dots(w_h, 1), dots(w_zr, 2),
-                       gates)
+    dg = _gru_bwd_loop(step, h_prev, dhs, drop, dots(w_h), dots(w_zr), gates)
     return dg, s_seq
+
+
+#: The minimalGRU's sparse plain twins (of ``_build_mgru_fwd_sparse`` and
+#: ``_build_mgru_bwd_sparse``): the GRU's over gates [h | z] and w3g
+#: (Nb, 2*bs, R*bs); the backward's s is z * h_prev.
+fused_mgru_fwd_sparse_plain = fused_gru_fwd_sparse_plain
+fused_mgru_bwd_sparse_plain = fused_gru_bwd_sparse_plain
+
+
+def _gru_fwd_sparse(wrapper, G, scan, gates, w3g, drop, layout, act, qbits,
+                    bf16):
+    """The body of :func:`fused_gru_fwd_sparse` (G=3) and
+    :func:`fused_mgru_fwd_sparse` (G=2): the C entry point of
+    ``wrapper``'s name, ``scan`` the differentiable caller."""
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act, (),
+                                  gates=G)
+    if _needs_grad(gates, w3g):
+        raise RuntimeError("%s has no autograd of its own: call %s"
+                           % (wrapper.__name__, scan))
+    if gates.device.type == "cpu":
+        return fused_gru_fwd_sparse_plain(gates, w3g, drop, layout, act,
+                                          qbits, bf16)
+    from . import _build
+    lib = _build.load("fused_gru_sparse")
+    fn = getattr(lib, wrapper.__name__)
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    fw = torch.empty((B, G * H), dtype=torch.float32, device=dev)
+    s = torch.empty((B, H), dtype=torch.float32, device=dev)
+    qslots = torch.empty(2 * T + 1 if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    wk = _sparse_w(w3g, bf16)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), wk.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                drop.data_ptr(), hs.data_ptr(), fw.data_ptr(), s.data_ptr(),
+                qslots.data_ptr(), T, B, H, layout.R, layout.bs,
+                _ACT_CODE[act], qbits, int(bf16), _stream(dev))
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += 2 * T
+    return hs
 
 
 def fused_gru_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
@@ -747,43 +943,81 @@ def fused_gru_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     hs (T, B, H). CUDA tensors run the kernel (two launches per step),
     CPU tensors the twin; no autograd of its own
     (:func:`gru_scan_fused_sparse` carries the BPTT kernel)."""
-    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act, (),
-                                  gates=3)
-    if _needs_grad(gates, w3g):
-        raise RuntimeError("fused_gru_fwd_sparse has no autograd of its "
-                           "own: call gru_scan_fused_sparse")
-    if gates.device.type == "cpu":
-        return fused_gru_fwd_sparse_plain(gates, w3g, drop, layout, act,
-                                          qbits, bf16)
-    from . import _build
-    lib = _build.load("fused_gru_sparse")
-    fn = lib.fused_gru_fwd_sparse
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dev = gates.device
-    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    fw = torch.empty((B, 3 * H), dtype=torch.float32, device=dev)
-    s = torch.empty((B, H), dtype=torch.float32, device=dev)
-    qslots = torch.empty(2 * T + 1 if qbits > 0 else 1, dtype=torch.int32,
-                         device=dev)
-    wk = _sparse_w(w3g, bf16)
-    with torch.cuda.device(dev):
-        rc = fn(gates.data_ptr(), wk.data_ptr(),
-                layout.device_index("col_idx", dev).data_ptr(),
-                drop.data_ptr(), hs.data_ptr(), fw.data_ptr(), s.data_ptr(),
-                qslots.data_ptr(), T, B, H, layout.R, layout.bs,
-                _ACT_CODE[act], qbits, int(bf16), _stream(dev))
-    _build.check(lib, rc, "fused_gru_fwd_sparse")
-    fused_gru_fwd_sparse.launches += 2 * T
-    return hs
+    return _gru_fwd_sparse(fused_gru_fwd_sparse, 3, "gru_scan_fused_sparse",
+                           gates, w3g, drop, layout, act, qbits, bf16)
 
 
 fused_gru_fwd_sparse.launches = 0
 
 
+def fused_mgru_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                          drop: torch.Tensor, layout, act: str = "tanh",
+                          qbits: int = 0, bf16: bool = False
+                          ) -> torch.Tensor:
+    """Whole-layer minimalGRU forward from the zero state over the kept
+    blocks of U (TPU kernel ``_build_mgru_fwd_sparse``): ``gates``
+    (T, B, 2H) float32 ordered [h | z], ``w3g`` (Nb, 2*bs, R*bs) float32
+    (cast to bf16 for the kernel when ``bf16``), ``drop`` broadcastable to
+    (B, H). -> hs (T, B, H). CUDA tensors run the kernel (two launches per
+    step), CPU tensors the twin; no autograd
+    (:func:`mgru_scan_fused_sparse`)."""
+    return _gru_fwd_sparse(fused_mgru_fwd_sparse, 2, "mgru_scan_fused_sparse",
+                           gates, w3g, drop, layout, act, qbits, bf16)
+
+
+fused_mgru_fwd_sparse.launches = 0
+
+
 #: The sparse GRU and liGRU backwards' static shared memory (the per-unit
 #: sums and the entry lists).
 _GRU_BWD_STATIC = 8 * 8 * 4 + 2 * 64 * 4
+
+
+def _gru_bwd_sparse(wrapper, G, gates, w3g, drop, h_prev, dhs, layout, act,
+                    qbits, bf16):
+    """The body of :func:`fused_gru_bwd_sparse` (G=3) and
+    :func:`fused_mgru_bwd_sparse` (G=2): the C entry point of
+    ``wrapper``'s name."""
+    seqs = (("h_prev", h_prev), ("dhs", dhs))
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act,
+                                  seqs, gates=G)
+    _check_shapes([(n, t, (T, B, H)) for n, t in seqs])
+    if gates.device.type == "cpu":
+        return fused_gru_bwd_sparse_plain(gates, w3g, drop, h_prev, dhs,
+                                          layout, act, qbits, bf16)
+    smem = 4 * 8 * layout.C * (G - 1) * layout.bs
+    if smem + _GRU_BWD_STATIC > _SMEM_MAX:
+        raise ValueError("%s: %d blocks per column of %d need %d bytes of "
+                         "shared memory, more than a block has"
+                         % (wrapper.__name__, layout.C, layout.bs, smem))
+    from . import _build
+    lib = _build.load("fused_gru_sparse")
+    fn = getattr(lib, wrapper.__name__)
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    wk = _sparse_w(w3g, bf16)
+    wt = wk.transpose(1, 2).contiguous()      # (Nb, R*bs, G*bs): carry dots
+    f32 = dict(dtype=torch.float32, device=dev)
+    fw = torch.empty((T, B, G * H), **f32)
+    s_seq = torch.empty((T, B, H), **f32)
+    dh, ds = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
+    dg = torch.empty((T, B, G * H), **f32)
+    qslots = torch.empty(2 * T if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    idx = [layout.device_index(n, dev).data_ptr()
+           for n in ("col_idx", "t_row_idx", "t_perm")]
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
+                drop.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(),
+                fw.data_ptr(), s_seq.data_ptr(), dh.data_ptr(), ds.data_ptr(),
+                dg.data_ptr(), qslots.data_ptr(), T, B, H, layout.R,
+                layout.bs, layout.C, layout.nnz, _ACT_CODE[act], qbits,
+                int(bf16), _stream(dev))
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += 2 * T + 2
+    return dg, s_seq
 
 
 def fused_gru_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
@@ -796,49 +1030,73 @@ def fused_gru_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     (T, B, 3H), s (T, B, H), the candidate's recurrent inputs r * h_prev).
     CUDA tensors run the kernel (two launches for the forward quantities,
     then two per reverse step), CPU tensors the twin."""
-    seqs = (("h_prev", h_prev), ("dhs", dhs))
-    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act,
-                                  seqs, gates=3)
-    _check_shapes([(n, t, (T, B, H)) for n, t in seqs])
-    if gates.device.type == "cpu":
-        return fused_gru_bwd_sparse_plain(gates, w3g, drop, h_prev, dhs,
-                                          layout, act, qbits, bf16)
-    smem = 4 * 8 * layout.C * 2 * layout.bs
-    if smem + _GRU_BWD_STATIC > _SMEM_MAX:
-        raise ValueError("fused_gru_bwd_sparse: %d blocks per column of %d "
-                         "need %d bytes of shared memory, more than a block "
-                         "has" % (layout.C, layout.bs, smem))
-    from . import _build
-    lib = _build.load("fused_gru_sparse")
-    fn = lib.fused_gru_bwd_sparse
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    dev = gates.device
-    wk = _sparse_w(w3g, bf16)
-    wt = wk.transpose(1, 2).contiguous()      # (Nb, R*bs, 3bs): carry dots
-    f32 = dict(dtype=torch.float32, device=dev)
-    fw = torch.empty((T, B, 3 * H), **f32)
-    s_seq = torch.empty((T, B, H), **f32)
-    dh, ds = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
-    dg = torch.empty((T, B, 3 * H), **f32)
-    qslots = torch.empty(2 * T if qbits > 0 else 1, dtype=torch.int32,
-                         device=dev)
-    idx = [layout.device_index(n, dev).data_ptr()
-           for n in ("col_idx", "t_row_idx", "t_perm")]
-    with torch.cuda.device(dev):
-        rc = fn(gates.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
-                drop.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(),
-                fw.data_ptr(), s_seq.data_ptr(), dh.data_ptr(), ds.data_ptr(),
-                dg.data_ptr(), qslots.data_ptr(), T, B, H, layout.R,
-                layout.bs, layout.C, layout.nnz, _ACT_CODE[act], qbits,
-                int(bf16), _stream(dev))
-    _build.check(lib, rc, "fused_gru_bwd_sparse")
-    fused_gru_bwd_sparse.launches += 2 * T + 2
-    return dg, s_seq
+    return _gru_bwd_sparse(fused_gru_bwd_sparse, 3, gates, w3g, drop, h_prev,
+                           dhs, layout, act, qbits, bf16)
 
 
 fused_gru_bwd_sparse.launches = 0
+
+
+def fused_mgru_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                          drop: torch.Tensor, h_prev: torch.Tensor,
+                          dhs: torch.Tensor, layout, act: str = "tanh",
+                          qbits: int = 0, bf16: bool = False):
+    """Sparse minimalGRU BPTT (TPU kernel ``_build_mgru_bwd_sparse``):
+    ``gates`` (T, B, 2H) are the forward's inputs, ``h_prev`` and ``dhs``
+    (T, B, H). -> (dg (T, B, 2H), s (T, B, H), the candidate's recurrent
+    inputs z * h_prev). CUDA tensors run the kernel (two launches for the
+    forward quantities, then two per reverse step), CPU tensors the
+    twin."""
+    return _gru_bwd_sparse(fused_mgru_bwd_sparse, 2, gates, w3g, drop, h_prev,
+                           dhs, layout, act, qbits, bf16)
+
+
+fused_mgru_bwd_sparse.launches = 0
+
+
+def _sparse_kernels(cell):
+    """A cell's sparse (forward, BPTT) wrappers, looked up when called."""
+    if cell == "gru":
+        return fused_gru_fwd_sparse, fused_gru_bwd_sparse
+    return fused_mgru_fwd_sparse, fused_mgru_bwd_sparse
+
+
+def _gated_sparse_forward(ctx, cell, gates, w3g, drop, layout, act, qbits,
+                          wbf16):
+    """The forward rule of :class:`_FusedGRUSparse` and
+    :class:`_FusedMGRUSparse`."""
+    hs = _sparse_kernels(cell)[0](gates, w3g, drop, layout, act, qbits,
+                                  wbf16)
+    ctx.meta = (cell, layout, act, qbits, wbf16)
+    ctx.save_for_backward(gates, w3g, drop, hs)
+    return hs
+
+
+def _gated_sparse_backward(ctx, dhs):
+    """The backward rule of :class:`_FusedGRUSparse` and
+    :class:`_FusedMGRUSparse`: the BPTT kernel, then dw3g as two
+    block-sparse dw products over the (T*B) batch (U_h's rows over q(s),
+    the others' over q(h_prev)), joined in w3g's gate order."""
+    cell, layout, act, qbits, wbf16 = ctx.meta
+    gates, w3g, drop, hs = ctx.saved_tensors
+    T, B, H = hs.shape
+    h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
+    dg, s_seq = _sparse_kernels(cell)[1](gates, w3g, drop, h_prev,
+                                         dhs.contiguous(), layout, act, qbits,
+                                         wbf16)
+    dw3g = None
+    if ctx.needs_input_grad[1]:
+        M, GH = T * B, dg.shape[2]
+        hq, sq = ((quantize_input_per_step(v, qbits) if qbits > 0 else v)
+                  .reshape(M, H) for v in (h_prev, s_seq))
+        dgm = dg.reshape(M, GH)
+        dw3g = torch.cat([
+            sparse_dU(dgm[:, :H].contiguous(), sq, layout, 1),
+            sparse_dU(dgm[:, H:].contiguous(), hq, layout, GH // H - 1)],
+            dim=1)
+        if wbf16:
+            dw3g = bf16_round(dw3g)
+    return dg, dw3g, None, None, None, None, None
 
 
 class _FusedGRUSparse(torch.autograd.Function):
@@ -850,32 +1108,40 @@ class _FusedGRUSparse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gates, w3g, drop, layout, act, qbits, wbf16):
-        hs = fused_gru_fwd_sparse(gates, w3g, drop, layout, act, qbits, wbf16)
-        ctx.meta = (layout, act, qbits, wbf16)
-        ctx.save_for_backward(gates, w3g, drop, hs)
-        return hs
+        return _gated_sparse_forward(ctx, "gru", gates, w3g, drop, layout,
+                                     act, qbits, wbf16)
+
+    backward = staticmethod(_gated_sparse_backward)
+
+
+class _FusedMGRUSparse(torch.autograd.Function):
+    """The JAX package's ``mgru_scan_fused_sparse`` custom VJP over
+    (gates, w3g): as :class:`_FusedGRUSparse` on the minimalGRU's sparse
+    kernels, dw3g in the [h | z] row order (G=1 over q(s), G=1 over
+    q(h_prev))."""
 
     @staticmethod
-    def backward(ctx, dhs):
-        layout, act, qbits, wbf16 = ctx.meta
-        gates, w3g, drop, hs = ctx.saved_tensors
-        T, B, H = hs.shape
-        h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
-        dg, s_seq = fused_gru_bwd_sparse(gates, w3g, drop, h_prev,
-                                         dhs.contiguous(), layout, act, qbits,
-                                         wbf16)
-        dw3g = None
-        if ctx.needs_input_grad[1]:
-            M = T * B
-            hq, sq = ((quantize_input_per_step(v, qbits) if qbits > 0 else v)
-                      .reshape(M, H) for v in (h_prev, s_seq))
-            dgm = dg.reshape(M, 3 * H)
-            dw3g = torch.cat([
-                sparse_dU(dgm[:, :H].contiguous(), sq, layout, 1),
-                sparse_dU(dgm[:, H:].contiguous(), hq, layout, 2)], dim=1)
-            if wbf16:
-                dw3g = bf16_round(dw3g)
-        return dg, dw3g, None, None, None, None, None
+    def forward(ctx, gates, w3g, drop, layout, act, qbits, wbf16):
+        return _gated_sparse_forward(ctx, "mgru", gates, w3g, drop, layout,
+                                     act, qbits, wbf16)
+
+    backward = staticmethod(_gated_sparse_backward)
+
+
+def _gated_scan_sparse(cell, gates_t, w3g, layout, drop_mask, act,
+                       quant_bits):
+    """The body of :func:`gru_scan_fused_sparse` and
+    :func:`mgru_scan_fused_sparse`."""
+    gates_t, w3g = gates_t.to(torch.float32), w3g.to(torch.float32)
+    T, B, GH = gates_t.shape
+    G = GH // layout.N
+    wbf16 = sparse_scan_fits(B, layout.N, layout, G) == "bf16"
+    if _needs_grad(gates_t, w3g):
+        fn = _FusedGRUSparse if cell == "gru" else _FusedMGRUSparse
+        return fn.apply(gates_t, w3g, drop_mask, layout, act, quant_bits,
+                        wbf16)
+    return _sparse_kernels(cell)[0](gates_t, w3g, drop_mask, layout, act,
+                                    quant_bits, wbf16)
 
 
 def gru_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
@@ -887,14 +1153,21 @@ def gru_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
     (``drop_mask`` is a constant). As in the JAX package it takes no
     compute dtype: the recurrence runs in float32, with w3g read in bf16
     only where :func:`sparse_scan_fits` says "bf16"."""
-    gates_t, w3g = gates_t.to(torch.float32), w3g.to(torch.float32)
-    T, B, G3 = gates_t.shape
-    wbf16 = sparse_scan_fits(B, G3 // 3, layout, 3) == "bf16"
-    if _needs_grad(gates_t, w3g):
-        return _FusedGRUSparse.apply(gates_t, w3g, drop_mask, layout, act,
-                                     quant_bits, wbf16)
-    return fused_gru_fwd_sparse(gates_t, w3g, drop_mask, layout, act,
-                                quant_bits, wbf16)
+    return _gated_scan_sparse("gru", gates_t, w3g, layout, drop_mask, act,
+                              quant_bits)
+
+
+def mgru_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
+                           drop_mask: torch.Tensor, act: str = "tanh",
+                           quant_bits: int = 0) -> torch.Tensor:
+    """hs (T, B, H) of the minimalGRU from the zero state with
+    block-sparse U_h, U_z sharing one HCGS mask, differentiable in
+    ``gates_t`` (T, B, 2H) [h | z] and ``w3g`` (Nb, 2*bs, R*bs)
+    (``drop_mask`` is a constant); float32, with w3g read in bf16 only
+    where :func:`sparse_scan_fits` says "bf16" (at G=2), as in the JAX
+    package."""
+    return _gated_scan_sparse("mgru", gates_t, w3g, layout, drop_mask, act,
+                              quant_bits)
 
 
 # -- the block-sparse liGRU: TPU kernels _build_ligru_fwd_sparse and

@@ -60,7 +60,7 @@ from pytorch_kaldi_cgs_tpu_torch.models import LSTM, MLP, get_model_class
 got = [get_model_class("pytorch_kaldi_cgs_tpu.models", "LSTM") is LSTM,
        get_model_class("pytorch_kaldi_cgs_tpu_torch.models", "MLP") is MLP]
 try:
-    get_model_class("pytorch_kaldi_cgs_tpu.models", "minimalGRU")
+    get_model_class("pytorch_kaldi_cgs_tpu.models", "CNN")
 except NotImplementedError:
     got.append(True)
 path = resolve_proto("proto/model.proto")

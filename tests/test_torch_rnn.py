@@ -690,17 +690,19 @@ def test_cudnn_train_dropout_is_inverted_and_seeded(monkeypatch):
 
 
 def test_model_registry():
-    """The configs' names resolve, GRU_cudnn's too now that its kernels
-    (rows 22-23) are ported; a built-in class not ported yet raises."""
-    from pytorch_kaldi_cgs_tpu_torch.models import GRU_cudnn
+    """The configs' names resolve, GRU_cudnn's and minimalGRU's too now
+    that their kernels (rows 22-26, 34-35) are ported; a built-in class
+    not ported yet raises."""
+    from pytorch_kaldi_cgs_tpu_torch.models import GRU_cudnn, minimalGRU
     for lib in ("pytorch_kaldi_cgs_tpu.models",
                 "pytorch_kaldi_cgs_tpu_torch.models"):
         assert get_model_class(lib, "RNN") is RNN
         assert get_model_class(lib, "LSTM_cudnn") is LSTM_cudnn
         assert get_model_class(lib, "RNN_cudnn") is RNN_cudnn
         assert get_model_class(lib, "GRU_cudnn") is GRU_cudnn
-        with pytest.raises(NotImplementedError, match="minimalGRU"):
-            get_model_class(lib, "minimalGRU")
+        assert get_model_class(lib, "minimalGRU") is minimalGRU
+        with pytest.raises(NotImplementedError, match="SRU"):
+            get_model_class(lib, "SRU")
 
 
 # ---------------------------------------------------------------------------
