@@ -8,8 +8,9 @@ kernels, of the TIMIT 4x550 GRU through the dense fused GRU kernels, of
 the TIMIT 4x550 relu RNN through the dense fused RNN kernels, and of the
 TIMIT 2x1024 Li-GRU at CGS-16x HCGS through the block-sparse liGRU
 kernels, and of that cfg's 2x1024 as a minimalGRU through the dense and
-(at CGS-16x) the block-sparse minimalGRU kernels, with the cuDNN-class
-LSTM_cudnn, RNN_cudnn and GRU_cudnn on the ported kernels.
+(at CGS-16x) the block-sparse minimalGRU kernels, and of the TIMIT RNN
+cfg at 4x1024 and CGS-16x through the block-sparse RNN kernels, with the
+cuDNN-class LSTM_cudnn, RNN_cudnn and GRU_cudnn on the ported kernels.
 
     python3 chip_smoke.py
 
@@ -219,9 +220,36 @@ Phases (any failure raises and the script exits non-zero):
 43. mgru_large_batch — the CGS-16x minimalGRU's first layer at 256 rows
              (T=398), where the JAX size rule says "": the sparse forward
              alone with f32 w3g against the model on its twin.
-44. mgru_times — the five kernels' times, twins and bounds, cuDNN's
-             nn.GRU(1024) at B=8 as a yardstick, the dU products, both
-             minimalGRU train steps and recognize.
+44. mgru_stream_tanh — the dense minimalGRU with minimalgru_act = tanh
+             and the 16-bit quantizers: chunks of 100 card vs CPU beside
+             the relu stream's, naming which of relu or the quantizer
+             moves the chunked stream past 1e-3.
+45. rnn_sparse_kernels — the sparse RNN forward and BPTT kernels against
+             their twins, each launch counter checked: qbits 0/16 x
+             tanh/relu at 13x5x256 (Kb=2, R=1), 398x8x1024 (forward only)
+             and 300x8x1024 (Kb=8, R=2; w3g f32 and bf16), 100 x 256 rows
+             (the JAX size rule's "", f32 w3g); rnn_scan_fused_sparse
+             with w3g in bf16 under a small PKC_SPARSE_SCAN_VMEM_MB.
+46. rnn_sparse_serve, rnn_sparse_stream, rnn_sparse_train — the TIMIT
+             RNN cfg at rnn_lay = 4 x 1024 with rnn_hcgs, the CGS-16x
+             HCGS and quantizer fields (in memory): every recurrence on
+             the sparse RNN kernels; ``recognize`` card vs CPU
+             (TOL_POST_Q16, and without the 16-bit quantizers at
+             TOL_POST); the stream on the dense seeded forward over the
+             masked U (one chunk against the whole utterance, chunks of
+             100 against the CPU's stream, without the quantizers against
+             the whole); one train step card vs CPU (GRAD_FLIP_K x the
+             CPU's one-ulp sensitivity; with tanh and no quantizers at
+             TOL_GRAD_REL), launches per step, 10 steps in f32 and bf16
+             at lr/32.
+47. dense_width — every dense wrapper at its width limit (the shared
+             memory its blocks stage) and one unit past it (a ValueError);
+             a 1 x 2048 LSTM serving on the forward kernel and training
+             on the plain step loop, card vs CPU.
+48. mgru_times, rnn_sparse_times — the kernels' times, twins and
+             bounds, cuDNN's nn.GRU(1024) / nn.RNN(1024, relu) at B=8 as
+             yardsticks, the dense kernels on the same masked layer, the
+             dU products, the train steps and recognize.
 
 Each phase prints its wall time (``[timing]``).
 
@@ -439,6 +467,36 @@ MG_STASH_TOL = 1e-5
 # init(1)'s head: gains as the Li-GRU's (dense) and the CGS-16x Li-GRU's
 MGRU_HEAD_GAIN = 3000.0
 CGS_MGRU_HEAD_GAIN = 10000.0
+
+# The CGS-16x RNN slice: no shipped cfg has a sparse RNN (every RNN cfg is
+# 550 wide; a recurrent layout needs 128-multiple blocks), so the TIMIT
+# RNN cfg's sections (relu, BN on the projection, dropout 0.2 on the
+# whole state, unidirectional, 1944-way head) with rnn_lay = 4 x 1024,
+# rnn_hcgs = True, the CGS-16x paper's HCGS fields (HCGS_16X) and that
+# cfg's quantizer fields (QUANT_16X, TIMIT_LSTM_fmllr_cgs_hcgs_16x_a.cfg:
+# 126-129, renamed rnn_*): every recurrence Kb=8, R=2 on the sparse RNN
+# kernels; the x-projections dense-masked (Kb < 16)
+QUANT_16X = {"rnn_quant": "True", "param_quant": "8", "rnn_quant_inp": "True",
+             "inp_quant": "16"}
+RS_SMALL_TBH = (13, 5, 256)      # 128-blocks at 50%: Kb=2, R=1
+RS_SERVE_TBH = (398, 8, 1024)
+RS_TRAIN_TBH = (300, 8, 1024)    # the cfg's batch_size_train = 8
+RS_LAYERS = 4
+# the layer at 256 rows, where the JAX size rule says "" (from 169 rows
+# at this layout, G=1): kernel vs twin over 100 steps, f32 w3g
+RS_LARGE_TBH = (100, 256, 1024)
+# w3g in bf16 through rnn_scan_fused_sparse: at 16 rows a 2 MB budget
+# makes the JAX size rule say "bf16" (12 to 17 rows; at 8 rows no whole
+# number of MB does)
+RS_BF16_TBH, RS_BF16_VMEM_MB = (300, 16, 1024), "2"
+# init(1)'s head over the sparse RNN's 1024 outputs barely moves the
+# log-posteriors (each x-projection keeps 1/16 of its weights; the eval
+# dropout scalar and BN's unit running variance shrink every layer):
+# x1e6 makes two of the 8 utterances decode to 4 and 2 phones, its
+# log-posteriors 7.5e-3 apart card vs CPU as shipped. Tried on the card
+# from x1e5 to x5e6: x2e6 decodes 5 of 8 to several phones but doubles
+# the logits, and with them that difference, against TOL_POST_Q16's 1e-2
+RNN_SPARSE_HEAD_GAIN = 1e6
 
 # The large-batch check of the sparse recurrence: 80 utterances of the
 # libri GRU (160 rows, both directions), 160 of the CGS-16x LSTM; the JAX
@@ -956,6 +1014,8 @@ def wrappers():
             "fused_mgru_bwd": R.fused_mgru_bwd,
             "fused_mgru_fwd_sparse": R.fused_mgru_fwd_sparse,
             "fused_mgru_bwd_sparse": R.fused_mgru_bwd_sparse,
+            "fused_rnn_fwd_sparse": R.fused_rnn_fwd_sparse,
+            "fused_rnn_bwd_sparse": R.fused_rnn_bwd_sparse,
             "block_sparse_v3_fwd": BS.block_sparse_v3_fwd,
             "block_sparse_v3_dx": BS.block_sparse_v3_dx,
             "fused_lstm_fwd": F.fused_lstm_fwd,
@@ -1335,13 +1395,15 @@ def step_parts(runner, inp, mask, reps=5):
 
 def kernel_classes(by_name):
     """Device ms per class of kernel, from the profile's kernel names."""
-    # the first match names the class: the sparse liGRU's kernels before
-    # the sparse LSTM's ("sparse_bwd_step"), the minimalGRU's (the GRU's
-    # step kernels at G=2) before the GRU's
+    # the first match names the class: the sparse RNN's and the sparse
+    # liGRU's kernels before the sparse LSTM's ("sparse_bwd_step"), the
+    # minimalGRU's (the GRU's step kernels at G=2) before the GRU's
     mg = ["gru_%s<%s2>" % (k, p) for k in ("zr_step", "h_step", "bwd_carry",
                                           "bwd_ds")
           for p in ("", "false, ", "true, ")]
-    classes = {"mgru_fwd_kernel": tuple(mg[:6]),
+    classes = {"rnn_sparse_fwd_kernel": ("rnn_sparse_step",),
+               "rnn_sparse_bptt_kernel": ("rnn_sparse_bwd",),
+               "mgru_fwd_kernel": tuple(mg[:6]),
                "mgru_bptt_kernel": tuple(mg[6:]),
                "ligru_sparse_fwd_kernel": ("ligru_sparse_step",),
                "ligru_sparse_bptt_kernel": ("ligru_sparse_bwd",),
@@ -3222,19 +3284,22 @@ def phase_cudnn_wrappers(dev):
     return out
 
 
-def rnn_bound_ms(T, B, H, kind):
+def rnn_bound_ms(T, B, H, kind, kept=None):
     """Least time for one RNN layer call in float32: each input read
     once, each output written once, over the HBM rate; the FMAs of its
-    (B, H) x (H, H) products over the float32 peak. kind: "fwd" (gates,
-    U, drop in; hs out), "fwd_stash" (and the (T, B, H) stash out),
-    "bwd_stash" (stash, U, drop, dhs in; dg out; one product per step),
-    "bwd" (gates, U, drop, h_prev, dhs in; dg out; that product and the
-    forward's)."""
+    (B, H) x (H, kept) products over the float32 peak. kind: "fwd"
+    (gates, U, drop in; hs out), "fwd_stash" (and the (T, B, H) stash
+    out), "bwd_stash" (stash, U, drop, dhs in; dg out; one product per
+    step), "bwd" (gates, U, drop, h_prev, dhs in; dg out; that product
+    and the forward's). ``kept``: the block-sparse recurrence's R*bs
+    kept columns per row of U (w3g is (H, kept) in all), None for the
+    dense U."""
+    kept = H if kept is None else kept
     seq = T * B * H * 4
     nbytes = {"fwd": 2 * seq, "fwd_stash": 3 * seq, "bwd_stash": 3 * seq,
               "bwd": 4 * seq}[kind]
-    return roofline_ms(nbytes + H * H * 4 + B * H * 4,
-                       2 * T * B * H * H * (2 if kind == "bwd" else 1))
+    return roofline_ms(nbytes + H * kept * 4 + B * H * 4,
+                       2 * T * B * H * kept * (2 if kind == "bwd" else 1))
 
 
 def phase_timit_rnn_times(dev, rec, audio, lens):
@@ -3341,22 +3406,23 @@ def build_cgs_ligru_stack(dev, feat_dim=LG_FEAT, quant_inp=True):
     return Stack(rnn, mlp).eval()
 
 
-def cgs_ligru_inputs(T, B, H, seed, dev, act):
+def cgs_ligru_inputs(T, B, H, seed, dev, act, gates=2):
     """gated_inputs' gates, drop and cotangents, and a 128-block HCGS
     recurrent mask of width H (128,8 at 75,75 from H=1024: Kb=8, R=2; 128
     at 50 below: Kb=2, R=1), its layout and the masked U's kept blocks as
-    w3g (Nb, 2*bs, R*bs): the sparse liGRU's and minimalGRU's operands
-    (both cells have gates [h | z])."""
+    w3g (Nb, gates*bs, R*bs): the sparse liGRU's and minimalGRU's
+    operands (both cells have gates [h | z]), and at ``gates=1`` the
+    sparse RNN's."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.sparsity.hcgs import hcgs_mask
-    inp = gated_inputs(T, B, H, seed, dev, act)
+    inp = gated_inputs(T, B, H, seed, dev, act, gates)
     blocks, sparse = ([128, 8], [75, 75]) if H >= 1024 else ([128], [50])
     mask = hcgs_mask(H, H, blocks, sparse, rng=np.random.RandomState(seed))
     layout = BS.pack_layout(mask, 128)
     # U's scale over the kept columns, as gated_inputs' over all of them
     U = inp["U"].cpu().numpy() * np.sqrt(H / (layout.R * layout.bs))
     w3g = BS.stack_w3_gates([BS.pack_w3(U[g * H:(g + 1) * H] * mask, layout)
-                             for g in range(2)])
+                             for g in range(gates)])
     inp.update(layout=layout,
                w3g=torch.tensor(np.asarray(w3g, np.float32), device=dev))
     return inp
@@ -4243,6 +4309,495 @@ def phase_mgru_times(dev, rec, cgs_rec, audio, lens):
     return times, steps, serves
 
 
+# ---------------------------------------------------------------------------
+# the CGS-16x RNN slice: the block-sparse RNN recurrence (serve, stream,
+# train); the dense kernels' width limits; the minimalGRU stream with tanh
+# ---------------------------------------------------------------------------
+
+def rnn_sparse_sections(compute_dtype="", quant_inp=True, lr_scale=1.0,
+                        act=None):
+    """The TIMIT RNN cfg's sections (cfg_sections) with rnn_lay = 4 x
+    1024, rnn_hcgs = True, the CGS-16x HCGS and quantizer fields
+    (HCGS_16X, QUANT_16X; ``quant_inp=False`` turns the 16-bit input
+    quantizers off); ``act``: every layer's activation in place of the
+    cfg's relu."""
+    secs = cfg_sections(TIMIT_RNN_CFG, compute_dtype, lr_scale)
+    arch = secs["architecture1"]
+    arch.update(HCGS_16X, **QUANT_16X)
+    arch.update(rnn_lay=",".join([str(RS_TRAIN_TBH[2])] * RS_LAYERS),
+                rnn_hcgs="True", rnn_quant_inp=str(quant_inp))
+    if act:
+        arch["rnn_act"] = ",".join([act] * RS_LAYERS)
+    return secs
+
+
+def check_rnn_sparse(rnn):
+    """Four 1024-wide recurrences on a Kb=8, R=2 sparse layout; the
+    x-projections dense-masked (no v3 layout at this setting)."""
+    lays = [(l.Kb, l.R) for _, l in sorted(rnn._rec_layouts.items())]
+    if list(rnn.lay) != [RS_TRAIN_TBH[2]] * RS_LAYERS or rnn._bs_layouts \
+            or lays != [(8, 2)] * RS_LAYERS:
+        raise AssertionError("the CGS-16x RNN did not build four Kb=8, R=2 "
+                             "sparse recurrences: %s, %s"
+                             % (lays, sorted(rnn._bs_layouts)))
+
+
+def build_rnn_sparse_stack(dev, feat_dim=TR_FEAT, quant_inp=True):
+    """The CGS-16x RNN -> its 1944-way cd head (weights from init(0) /
+    init(1), the head times RNN_SPARSE_HEAD_GAIN)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import MLP, RNN
+    secs = rnn_sparse_sections(quant_inp=quant_inp)
+    rnn = RNN(dict(secs["architecture1"], to_do="forward"), feat_dim,
+              seed=0, device=dev)
+    mlp = MLP(dict(secs["architecture2"], to_do="forward"), rnn.out_dim,
+              seed=1, device=dev)
+    check_rnn_sparse(rnn)
+    with torch.no_grad():
+        mlp.params["w0"].mul_(RNN_SPARSE_HEAD_GAIN)
+    return Stack(rnn, mlp).eval()
+
+
+def rnn_sparse_expect_serve(T):
+    """Launches per recognize: 4 layers x 1 sparse step per frame; no
+    dense RNN kernel."""
+    return expected(fused_rnn_fwd_sparse=RS_LAYERS * T)
+
+
+def phase_rnn_sparse_kernels(dev):
+    """The sparse RNN forward and BPTT kernels against their twins on the
+    same tensors, each launch counter checked (T and T + 1): qbits 0/16 x
+    tanh/relu at the small shape (Kb=2, R=1), the serving shape (forward
+    only) and the training shape (Kb=8, R=2; and w3g in bf16); the
+    layer at RS_LARGE_TBH's 256 rows, where the JAX size rule says "",
+    on f32 w3g; rnn_scan_fused_sparse reading w3g in bf16 where a small
+    PKC_SPARSE_SCAN_VMEM_MB makes the rule say "bf16"."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    checks = []
+    k = 0
+    fwd, bwd = R.fused_rnn_fwd_sparse, R.fused_rnn_bwd_sparse
+    for shape in (RS_SMALL_TBH, RS_SERVE_TBH, RS_TRAIN_TBH, RS_LARGE_TBH):
+        T, B, H = shape
+        small, serve = shape == RS_SMALL_TBH, shape == RS_SERVE_TBH
+        cases = [(q, a, False) for q in (0, 16) for a in ("tanh", "relu")]
+        if shape == RS_TRAIN_TBH:
+            cases += [(16, "relu", True), (0, "tanh", True)]
+        if shape == RS_LARGE_TBH:
+            cases = [(16, "relu", False), (0, "tanh", False)]
+        for qbits, act, bf16 in cases:
+            k += 1
+            inp = cgs_ligru_inputs(T, B, H, 500 + k, dev, act, 1)
+            g, w3g, drop, dhs, lay = (inp[n] for n in ("g", "w3g", "drop",
+                                                       "dhs", "layout"))
+            if shape == RS_LARGE_TBH and F.sparse_scan_fits(B, H, lay, 1):
+                raise AssertionError("rnn_sparse_kernels: the JAX size rule "
+                                     "keeps %d rows" % B)
+            variant = {"qbits": qbits, "act": act, "Kb": lay.Kb, "R": lay.R,
+                       "w3g": "bf16" if bf16 else "f32"}
+            tol = TOL_BF16 if bf16 else (
+                TOL_Q16 if qbits else (TOL_F32_SMALL if small
+                                       else TOL_F32_SERVE))
+            where = dict(zip("TBH", shape))
+            with torch.no_grad():
+                hs = launched(fwd, T, lambda: fwd(g, w3g, drop, lay, act,
+                                                  qbits, bf16))
+                record_check(checks, "rnn_sparse_kernels",
+                             "fused_rnn_fwd_sparse", where, variant,
+                             rel_err(hs, R.fused_rnn_fwd_sparse_plain(
+                                 g, w3g, drop, lay, act, qbits, bf16)),
+                             tol, False)
+                if serve:
+                    continue
+                h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                args = (g, w3g, drop, h_prev, dhs, lay, act, qbits, bf16)
+                record_check(checks, "rnn_sparse_kernels",
+                             "fused_rnn_bwd_sparse", where, variant,
+                             rel_err(launched(bwd, T + 1, lambda: bwd(*args)),
+                                     R.fused_rnn_bwd_sparse_plain(*args)),
+                             tol, True)
+    T, B, H = RS_BF16_TBH
+    inp = cgs_ligru_inputs(T, B, H, 520, dev, "relu", 1)
+    g, w3g, drop, lay = (inp[n] for n in ("g", "w3g", "drop", "layout"))
+    with env("PKC_SPARSE_SCAN_VMEM_MB", RS_BF16_VMEM_MB), torch.no_grad():
+        if F.sparse_scan_fits(B, H, lay, 1) != "bf16":
+            raise AssertionError("rnn_sparse_kernels: no bf16 case")
+        hs = launched(fwd, T, lambda: R.rnn_scan_fused_sparse(
+            g, w3g, lay, drop, "relu", 16))
+    record_check(checks, "rnn_sparse_kernels",
+                 "fused_rnn_fwd_sparse/scan", dict(zip("TBH", RS_BF16_TBH)),
+                 {"qbits": 16, "act": "relu", "Kb": lay.Kb, "R": lay.R,
+                  "w3g": "bf16 (PKC_SPARSE_SCAN_VMEM_MB=%s)"
+                         % RS_BF16_VMEM_MB},
+                 rel_err(hs, R.fused_rnn_fwd_sparse_plain(
+                     g, w3g, drop, lay, "relu", 16, True)), TOL_BF16, False)
+    sync(dev)
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError("a sparse RNN kernel disagrees with its plain "
+                             "twin: %s" % bad)
+    return checks
+
+
+def phase_rnn_sparse_stream(dev, rec, audio, lens, phones, logp, noq,
+                            chunk=100):
+    """A stream drops the sparse layout (as the JAX package's does) and
+    runs the dense seeded RNN forward over the masked U, 4 launches a
+    frame: one chunk of the whole utterance against the sparse
+    whole-utterance posteriors within TOL_Q16, chunks of 100 against the
+    CPU's stream of the same chunks within TOL_POST_Q16 with equal phones
+    (phase_ligru_stream); without the 16-bit quantizers, chunks of 100
+    against the whole utterance within TOL_POST. ``noq``: phase_serve's
+    (rec, phones, logp, ...) of the stack without them."""
+    launches, out = phase_ligru_stream(
+        dev, rec, audio, lens, phones, logp, chunk, build_rnn_sparse_stack,
+        "rnn_sparse_stream", TOL_Q16, "fused_rnn_fwd", RS_LAYERS)
+    rec_noq, phones_noq, logp_noq = noq[:3]
+    _, out["chunks_vs_whole_no_quant_inp"] = phase_stream(
+        dev, rec_noq, audio, lens, phones_noq, logp_noq, chunk,
+        "rnn_sparse_stream, rnn_quant_inp=False", TOL_POST, "fused_rnn_fwd",
+        RS_LAYERS)
+    return launches, out
+
+
+def rnn_sparse_train_setup(compute_dtype="", quant_inp=True, lr_scale=1.0,
+                           act=None):
+    """The CGS-16x RNN train step (chunk_setup): its sections, 8
+    sentences of 300 frames, fMLLR x of width 40 and cd labels."""
+    T, B, _ = RS_TRAIN_TBH
+    return chunk_setup(rnn_sparse_sections(compute_dtype, quant_inp,
+                                           lr_scale, act),
+                       T, B, "fmllr", TR_FEAT, CD_LABELS)
+
+
+def rnn_sparse_train_runner(dev, compute_dtype="", quant_inp=True,
+                            lr_scale=1.0, act=None):
+    """A ChunkRunner over the CGS-16x RNN's sections and its one batch;
+    ``runner.train_step(inp, mask, chip_smoke.dropout_gen())`` for masks
+    that match the CPU's."""
+    from pytorch_kaldi_cgs_tpu_torch.models import RNN
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    config, chunk, batch = rnn_sparse_train_setup(compute_dtype, quant_inp,
+                                                  lr_scale, act)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    rnn = graph.nets["RNN_layers"]
+    if type(rnn) is not RNN:
+        raise AssertionError("the CGS-16x RNN cfg did not build an RNN")
+    check_rnn_sparse(rnn)
+    return ChunkRunner(graph, config), batch
+
+
+def phase_rnn_sparse_train(dev):
+    """One train step on the card against the CPU, held to GRAD_FLIP_K
+    times the CPU's own one-ulp sensitivity (relu behind the 16-bit ceil
+    quantizers, as the TIMIT RNN's and the Li-GRU's), launches per step
+    (the sparse kernels alone: T per layer forward, T + 1 per layer
+    backward, one dw launch per layer; no dense RNN kernel; the same
+    under PKC_BWD_STASH_CELLS=rnn, as the sparse RNN has no stash
+    variant), 10 steps in f32 and bf16 at TR_FALL_LR_SCALE times the
+    cfg's rates (the cfg's own diverge on random labels, in both
+    packages); the same step with rnn_act=tanh and no 16-bit quantizers
+    (no relu' flips at 0, no ceil steps) at TOL_GRAD_REL."""
+    T = RS_TRAIN_TBH[0]
+    knob = "PKC_BWD_STASH_CELLS"
+    inp, mask = rnn_sparse_train_setup()[2]
+    sens, where = ulp_sensitivity(rnn_sparse_train_runner, inp, mask,
+                                  TR_FEAT)
+    grad_tol = max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
+    print("[rnn_sparse_train] the CPU's own gradients under a one-ulp change "
+          "of x: worst rel change %.3g at %s; card vs CPU bar %.3g"
+          % (sens, where, grad_tol))
+    want = expected(fused_rnn_fwd_sparse=RS_LAYERS * T,
+                    fused_rnn_bwd_sparse=RS_LAYERS * (T + 1),
+                    block_sparse_dw=RS_LAYERS)
+    out = phase_train(dev, rnn_sparse_train_runner, "rnn_sparse_train", (
+        ("recompute", knob, None, want), ("stash_knob", knob, "rnn", want)),
+        grad_tol=grad_tol, fall_runner=lambda d, cdt="":
+        rnn_sparse_train_runner(d, cdt, lr_scale=TR_FALL_LR_SCALE))
+    out.update(cpu_ulp_grad_rel_change=sens, cpu_ulp_worst=where)
+
+    def strict(d, cdt=""):
+        return rnn_sparse_train_runner(d, cdt, quant_inp=False, act="tanh")
+    runner, (inp, mask) = strict(dev)
+    loss_err = runner.train_step(inp, mask, dropout_gen())
+    out["tanh_no_quant_inp"] = card_vs_cpu(
+        runner, strict("cpu")[0], inp, mask, loss_err, knob, None,
+        "rnn_sparse_train, rnn_act=tanh, rnn_quant_inp=False")
+    return out
+
+
+def phase_rnn_sparse_times(dev, rec, audio, lens):
+    """CUDA-event times of the sparse RNN kernels per layer call at the
+    training shape (the forward also at the serving shape), as the model
+    runs them (relu, 16-bit recurrent quantizer, Kb=8, R=2, f32 w3g);
+    their twins and bounds; the dense fused RNN kernels on the same layer
+    (the masked U); cuDNN's nn.RNN(1024, 1024, relu) at B=8 as a
+    yardstick (dense, no quantizer: not the same function); the dU dw
+    product; the CGS-16x RNN train step and recognize."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = RS_TRAIN_TBH
+    Ts, Bs, _ = RS_SERVE_TBH
+    qb, act = 16, "relu"
+    inp = cgs_ligru_inputs(T, B, H, 530, dev, act, 1)
+    g, w3g, drop, dhs, lay = (inp[n] for n in ("g", "w3g", "drop", "dhs",
+                                               "layout"))
+    kept = lay.R * lay.bs
+    times = {}
+    with torch.no_grad():
+        hs = R.fused_rnn_fwd_sparse(g, w3g, drop, lay, act, qb)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        bargs = (g, w3g, drop, h_prev, dhs, lay, act, qb)
+        calls = {
+            "fused_rnn_fwd_sparse": (
+                lambda: R.fused_rnn_fwd_sparse(g, w3g, drop, lay, act, qb),
+                lambda: R.fused_rnn_fwd_sparse_plain(g, w3g, drop, lay, act,
+                                                     qb), "fwd"),
+            "fused_rnn_bwd_sparse": (
+                lambda: R.fused_rnn_bwd_sparse(*bargs),
+                lambda: R.fused_rnn_bwd_sparse_plain(*bargs), "bwd")}
+        for name, (fn, plain, kind) in calls.items():
+            times[name + "_ms"] = cuda_ms(fn, reps=10)
+            times[name + "_plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                rnn_bound_ms(T, B, H, kind, kept)
+        times["fused_rnn_fwd_sparse_ms_q0"] = cuda_ms(
+            lambda: R.fused_rnn_fwd_sparse(g, w3g, drop, lay, act, 0),
+            reps=10)
+        # the dense RNN kernels on the same layer: the masked U
+        U = torch.as_tensor(np.ascontiguousarray(
+            BS.unpack_w3(w3g.cpu().numpy(), lay), np.float32), device=dev)
+        times["dense_fused_rnn_fwd_ms"] = cuda_ms(
+            lambda: R.fused_rnn_fwd(g, U, drop, act=act, qbits=qb), reps=10)
+        times["dense_fused_rnn_bwd_ms"] = cuda_ms(
+            lambda: R.fused_rnn_bwd(g, U, drop, h_prev, dhs, act, qb),
+            reps=10)
+        sv = cgs_ligru_inputs(Ts, Bs, H, 531, dev, act, 1)
+        sargs = (sv["g"], sv["w3g"], sv["drop"], sv["layout"], act, qb)
+        times["serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_rnn_fwd_sparse(*sargs), reps=10)
+        times["serve_fwd_plain_ms"] = cuda_ms(
+            lambda: R.fused_rnn_fwd_sparse_plain(*sargs), reps=2, warmup=1)
+        times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
+            rnn_bound_ms(Ts, Bs, H, "fwd", kept)
+        # the dU product on the dw kernel: G=1 over (T*B, H)
+        dg = torch.randn(T * B, H, device=dev)
+        hq = torch.randn(T * B, H, device=dev)
+        times["dU_dw_ms"] = cuda_ms(lambda: R.sparse_dU(dg, hq, lay, 1),
+                                    reps=20)
+    times.update(cudnn_times(dev, T, B, H, Ts, Bs,
+                             torch.nn.RNN(H, H, nonlinearity="relu"),
+                             "cudnn_rnn1024"))
+    print("[rnn_sparse_times] kernels at T=%d B=%d H=%d (relu, qbits 16, "
+          "Kb=%d, R=%d): %s" % (T, B, H, lay.Kb, lay.R, json.dumps(times)))
+    step = train_step_times(dev, rnn_sparse_train_runner, "rnn_sparse_times",
+                            5, 3)
+    serve = serve_timings(rec, audio, lens)
+    print("[rnn_sparse_times] CGS-16x RNN recognizer (8 x 4 s batch): %s"
+          % json.dumps(serve))
+    return times, step, serve
+
+
+#: Each dense wrapper and the backward kind its width limit counts
+DENSE_WIDTH_CASES = (
+    ("lstm", "fwd", "fused_lstm_fwd"),
+    ("lstm", "stash", "fused_lstm_bwd_stash"),
+    ("lstm", "recompute", "fused_lstm_bwd"),
+    ("ligru", "fwd", "fused_ligru_fwd"),
+    ("ligru", "stash", "fused_ligru_bwd_stash"),
+    ("ligru", "recompute", "fused_ligru_bwd"),
+    ("gru", "fwd", "fused_gru_fwd"), ("gru", "stash", "fused_gru_bwd_stash"),
+    ("gru", "recompute", "fused_gru_bwd"), ("mgru", "fwd", "fused_mgru_fwd"),
+    ("mgru", "stash", "fused_mgru_bwd_stash"),
+    ("mgru", "recompute", "fused_mgru_bwd"), ("rnn", "fwd", "fused_rnn_fwd"),
+    ("rnn", "stash", "fused_rnn_bwd_stash"),
+    ("rnn", "recompute", "fused_rnn_bwd"),
+    ("gru_torch", "fwd", "fused_gru_torch_fwd"),
+    ("gru_torch", "recompute", "fused_gru_torch_bwd"))
+GATES = {"lstm": 4, "ligru": 2, "gru": 3, "mgru": 2, "rnn": 1,
+         "gru_torch": 3}
+# the width check: a 2048-wide LSTM layer (beyond both LSTM backwards,
+# within the forward) trains on the plain step loop
+WIDE_LSTM_TBH = (50, 8, 2048)
+
+
+def dense_width_call(cell, kind, name, H, dev, T=2, B=1):
+    """One call of the dense wrapper ``name`` at width H on zeros."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    z = lambda *s: torch.zeros(s, device=dev)
+    G = GATES[cell]
+    lead, U, seq, drop = z(T, B, G * H), z(G * H, H), z(T, B, H), z(B, H)
+    fn = getattr(F if cell == "lstm" else R, name)
+    if cell == "gru_torch":
+        args = (lead, U, z(G * H)) + ((seq, seq) if kind != "fwd" else ())
+    elif cell == "lstm" and kind != "fwd":
+        args = (lead, U, drop, seq, seq, seq)
+    elif cell == "rnn" and kind == "stash":
+        args = (lead, U, drop, seq)
+    else:
+        args = (lead, U, drop) + ((seq, seq) if kind != "fwd" else ())
+    with torch.no_grad():
+        return fn(*args)
+
+
+def wide_lstm_runner(dev, compute_dtype=""):
+    """A 1 x 2048 LSTM (the flagship's options, one layer, no HCGS) ->
+    the 1944-way head train step at WIDE_LSTM_TBH."""
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    T, B, H = WIDE_LSTM_TBH
+    config, _, _ = train_setup(compute_dtype)
+    secs = {k: dict(config[k]) for k in ("architecture1", "architecture2",
+                                         "model")}
+    secs["architecture1"] = dict(first_layer(secs["architecture1"], "lstm"),
+                                 lstm_lay=str(H), lstm_hcgs="False")
+    config, chunk, batch = chunk_setup(secs, T, B, "fea", FEAT, CD_LABELS)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    return ChunkRunner(graph, config), batch
+
+
+def phase_dense_width(dev):
+    """The dense kernels' width limits (fused_lstm.dense_max_width, from
+    the shared memory their blocks stage): each dense wrapper runs at its
+    limit (zeros, T=2, B=1) and raises a ValueError naming it one unit
+    wider; a 2048-wide LSTM layer (past both LSTM backwards' limits)
+    serves on the forward kernel and trains on the plain step loop with
+    no LSTM kernel launched, its train step against the CPU's."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    out = {"limits": {}}
+    for cell, kind, name in DENSE_WIDTH_CASES:
+        limit = F.dense_max_width(cell, None if kind == "fwd" else kind)
+        w = wrappers()[name]
+        before = w.launches
+        dense_width_call(cell, kind, name, limit, dev)
+        sync(dev)
+        n = w.launches - before
+        if not n:
+            raise AssertionError("%s launched nothing at H=%d" % (name, limit))
+        try:
+            dense_width_call(cell, kind, name, limit + 1, dev)
+        except ValueError as e:
+            if "H <= %d" % limit not in str(e):
+                raise
+        else:
+            raise AssertionError("%s took H=%d past its limit" % (name,
+                                                                  limit + 1))
+        out["limits"][name] = {"H": limit, "launches": n}
+        print("[dense_width] %s runs at H=%d (%d launches), refuses H=%d"
+              % (name, limit, n, limit + 1))
+        torch.cuda.empty_cache()
+    T, B, H = WIDE_LSTM_TBH
+    runner, (inp, mask) = wide_lstm_runner(dev)
+    rnn = runner.graph.nets["LSTM_layers"]
+    if list(rnn.lay) != [H] or rnn._fused_ok(0, True) \
+            or not rnn._fused_ok(0):
+        raise AssertionError("dense_width: the wide LSTM is not routed as "
+                             "expected")
+    x = torch.as_tensor(inp[..., :FEAT], device=dev)
+    with torch.no_grad():
+        _, l_eval = counted(lambda: rnn.run(x, train=False))
+    (loss, err), l_train = counted(
+        lambda: runner.train_step(inp, mask, dropout_gen()))
+    if l_eval != expected(fused_lstm_fwd=T) or l_train != expected():
+        raise AssertionError("dense_width: launches %s (eval), %s (train)"
+                             % (l_eval, l_train))
+    out["wide_lstm"] = card_vs_cpu(
+        runner, wide_lstm_runner("cpu")[0], inp, mask, (loss, err),
+        "PKC_LSTM_BWD_RECOMPUTE", None,
+        "dense_width, 1 x %d LSTM on the plain loop" % H)
+    out["wide_lstm"]["eval_launches"] = l_eval["fused_lstm_fwd"]
+    return out
+
+
+def phase_mgru_stream_tanh(dev, audio, lens, relu):
+    """The dense minimalGRU as shipped but with minimalgru_act = tanh
+    (the 16-bit quantizers on): chunks of 100 frames on the card against
+    the CPU's stream of the same chunks, within TOL_POST_Q16 with equal
+    phones. Beside the relu stream's difference (``relu``, mgru_stream's
+    result) it says which of relu or the quantizer moves the chunked
+    stream past 1e-3: the quantizer if the tanh stream is past it too."""
+    def stack(d):
+        from pytorch_kaldi_cgs_tpu_torch.models import MLP, minimalGRU
+        secs = mgru_sections(act="tanh")
+        rnn = minimalGRU(dict(secs["architecture1"], to_do="forward"),
+                         LG_FEAT, seed=0, device=d)
+        mlp = MLP(dict(secs["architecture2"], to_do="forward"), rnn.out_dim,
+                  seed=1, device=d)
+        check_mgru(rnn, False)
+        with torch.no_grad():
+            mlp.params["w0"].mul_(MGRU_HEAD_GAIN)
+        return Stack(rnn, mlp).eval()
+    T = build_recognizer("cpu", stack).frontend.num_frames(audio.shape[1])
+    streamed, final, launches = stream_run(
+        dev, build_recognizer(dev, stack), audio, lens, 100)
+    if launches != expected(fused_mgru_fwd=4 * T):
+        raise AssertionError("mgru_stream_tanh: launches %s" % launches)
+    ref, final_ref, _ = stream_run("cpu", build_recognizer("cpu", stack),
+                                   audio, lens, 100)
+    err = float(np.abs(streamed - ref).max())
+    cause = "the 16-bit quantizer" if err > 1e-3 else "relu"
+    out = {"chunked_card_vs_cpu_tanh": err,
+           "chunked_card_vs_cpu_relu": relu["chunked_card_vs_cpu"],
+           "phones_equal": final == final_ref,
+           "past_1e-3_by": cause}
+    print("[mgru_stream_tanh] chunks of 100, card vs CPU: tanh %.3g, relu "
+          "%.3g (tol %g); phones equal: %s; the gap past 1e-3 comes with %s"
+          % (err, relu["chunked_card_vs_cpu"], TOL_POST_Q16,
+             final == final_ref, cause))
+    if not err <= TOL_POST_Q16 or final != final_ref:
+        raise AssertionError("mgru_stream_tanh disagrees with the CPU stream")
+    return out
+
+
+def slice10_rows(checks, times, launches):
+    """The kernels JSON rows of the sparse RNN: ``ms`` etc. per layer
+    call at RS_TRAIN_TBH (relu, qbits 16, Kb=8, R=2, f32 w3g; the
+    forward also at RS_SERVE_TBH); ``launches`` counts one CGS-16x RNN
+    train step; ``max_abs_err`` is the check at RS_TRAIN_TBH, relu,
+    qbits 0, f32 w3g; ``library_ms`` is cuDNN's nn.RNN(1024, 1024,
+    relu) at B=8, a yardstick (dense, no quantizer)."""
+    T, B, H = RS_TRAIN_TBH
+    shape = {"T": T, "B": B, "H": H, "Kb": 8, "R": 2, "bs": 128,
+             "act": "relu", "qbits": 16, "w3g": "f32"}
+    yard = "cuDNN nn.RNN(1024, 1024, relu) %s at B=8: a yardstick (dense, " \
+           "no quantizer)"
+
+    def row(name, line, library_ms, note, **extra):
+        mine = [c for c in checks if c["kernel"].split("/")[0] == name]
+        err = [c for c in mine if c["kernel"] == name
+               and (c["T"], c["B"], c["H"]) == RS_TRAIN_TBH
+               and c["qbits"] == 0 and c["act"] == "relu"
+               and c["w3g"] == "f32"][0]["max_abs_err"]
+        r = {"name": name, "route": "cuda",
+             "source": "pytorch_kaldi_cgs_tpu_torch/ops/csrc/"
+                       "fused_rnn_sparse.cu",
+             "replaces": "pytorch_kaldi_cgs_tpu/ops/fused_rnn.py:%d" % line,
+             "launches": launches[name]["main"],
+             "launches_by_path": launches[name], "max_abs_err": err,
+             "ms": times[name + "_ms"], "plain_ms": times[name + "_plain_ms"],
+             "bound_ms": times[name + "_bound_ms"],
+             "bound_by": times[name + "_bound_by"], "library_ms": library_ms,
+             "library_note": note, "shape": shape, "checks": len(mine),
+             "checks_ok": all(c["ok"] for c in mine)}
+        r.update(extra)
+        return r
+    return [
+        row("fused_rnn_fwd_sparse", 1779, times["cudnn_rnn1024_fwd_ms"],
+            yard % "forward", ms_q0=times["fused_rnn_fwd_sparse_ms_q0"],
+            dense_fused_rnn_fwd_ms=times["dense_fused_rnn_fwd_ms"],
+            serve={"T": RS_SERVE_TBH[0], "B": RS_SERVE_TBH[1], "H": H,
+                   "ms": times["serve_fwd_ms"],
+                   "plain_ms": times["serve_fwd_plain_ms"],
+                   "bound_ms": times["serve_fwd_bound_ms"],
+                   "bound_by": times["serve_fwd_bound_by"],
+                   "library_ms": times["cudnn_rnn1024_serve_fwd_ms"]}),
+        row("fused_rnn_bwd_sparse", 1818, times["cudnn_rnn1024_bwd_ms"],
+            yard % "backward (fwd+bwd minus fwd)",
+            dense_fused_rnn_bwd_ms=times["dense_fused_rnn_bwd_ms"],
+            dU_dw_ms=times["dU_dw_ms"])]
+
+
 def slice9_rows(checks, times, launches):
     """The kernels JSON rows of the five minimalGRU kernels: ``ms`` etc.
     per layer call at MG_TRAIN_TBH (relu, qbits 16; the sparse ones at
@@ -4631,6 +5186,23 @@ def main():
             phones_, logp_, noq, sparse)
         r["train"] = timed(tag + "_train", phase_mgru_train, dev, sparse)
     mg_large = timed("mgru_large_batch", phase_mgru_large_batch, dev)
+    mg_tanh = timed("mgru_stream_tanh", phase_mgru_stream_tanh, dev, audio,
+                    lens, mg["mgru"]["stream"])
+    rs_checks = timed("rnn_sparse_kernels", phase_rnn_sparse_kernels, dev)
+    rs_rec, rs_phones, rs_logp, rs_serve_launches, rs_post_err = timed(
+        "rnn_sparse_serve", phase_serve, dev, audio, lens,
+        build_rnn_sparse_stack, "rnn_sparse_serve", "fused_rnn_fwd_sparse",
+        TOL_POST_Q16, rnn_sparse_expect_serve)
+    rs_noq = timed(
+        "rnn_sparse_serve_noq", phase_serve, dev, audio, lens,
+        lambda d: build_rnn_sparse_stack(d, quant_inp=False),
+        "rnn_sparse_serve, rnn_quant_inp=False", "fused_rnn_fwd_sparse",
+        TOL_POST, rnn_sparse_expect_serve)
+    rs_stream_launches, rs_stream = timed(
+        "rnn_sparse_stream", phase_rnn_sparse_stream, dev, rs_rec, audio,
+        lens, rs_phones, rs_logp, rs_noq)
+    rs_train = timed("rnn_sparse_train", phase_rnn_sparse_train, dev)
+    width = timed("dense_width", phase_dense_width, dev)
     serve_times, serve = timed("times", phase_times, dev, rec, audio, lens)
     serve["posteriors_vs_cpu_max_abs_err"] = post_err
     times, step = timed("train_times", phase_train_times, dev)
@@ -4653,6 +5225,9 @@ def main():
     mg_times, mg_steps, mg_serves = timed(
         "mgru_times", phase_mgru_times, dev, mg["mgru"]["rec"],
         mg["cgs_mgru"]["rec"], audio, lens)
+    rs_times, rs_step, rs_serve = timed("rnn_sparse_times",
+                                        phase_rnn_sparse_times, dev, rs_rec,
+                                        audio, lens)
     sp_serve.update(posteriors_vs_cpu_max_abs_err=sp_post_err,
                     stream_vs_whole_max_abs_err=sp_stream_err,
                     dense_stream_launches=sp_stream_launches)
@@ -4860,9 +5435,31 @@ def main():
                             stream=r["stream"]),
               "train": r["train"], "train_step": mg_steps[tag]}
         for tag, r in mg.items()}))
-    print("[summary] minimalGRU large batch %s; yardsticks %s" % (
-        json.dumps(mg_large), json.dumps({
-            k: v for k, v in mg_times.items() if "cudnn" in k or "dU" in k})))
+    print("[summary] minimalGRU large batch %s; yardsticks %s; stream "
+          "with tanh %s" % (json.dumps(mg_large), json.dumps({
+              k: v for k, v in mg_times.items() if "cudnn" in k or "dU" in k}),
+              json.dumps(mg_tanh)))
+    rs_rc = rs_train["launches_recompute"]
+    rs_launches = {
+        "fused_rnn_fwd_sparse": {
+            "main": rs_rc["fused_rnn_fwd_sparse"],
+            "rnn_sparse_serve": rs_serve_launches["fused_rnn_fwd_sparse"]},
+        "fused_rnn_bwd_sparse": {"main": rs_rc["fused_rnn_bwd_sparse"]}}
+    for name, paths in rs_launches.items():
+        if not all(paths.values()):
+            raise AssertionError("%s was not launched on every path: %s"
+                                 % (name, paths))
+    tr_launches["fused_rnn_fwd"]["rnn_sparse_stream"] = rs_stream_launches
+    sp_launches["block_sparse_dw"]["rnn_sparse_train"] = \
+        rs_rc["block_sparse_dw"]
+    rs_serve.update(posteriors_vs_cpu_max_abs_err=rs_post_err,
+                    posteriors_vs_cpu_max_abs_err_no_quant_inp=rs_noq[4],
+                    stream=rs_stream, dense_stream_launches=rs_stream_launches)
+    print("[summary] CGS-16x RNN %s" % json.dumps({
+        "rnn_sparse_serve": rs_serve, "rnn_sparse_train": rs_train,
+        "rnn_sparse_train_step": rs_step, "dense_width": width,
+        "yardsticks": {k: v for k, v in rs_times.items()
+                       if "cudnn" in k or "dU" in k or "dense" in k}}))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
                         launches)
     line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
@@ -4890,6 +5487,7 @@ def main():
     line["kernels"] += slice8_rows(cl_checks, cl_times, cl_launches,
                                    gt_checks, gt_times, gt_launches)
     line["kernels"] += slice9_rows(mg_checks, mg_times, mg_launches)
+    line["kernels"] += slice10_rows(rs_checks, rs_times, rs_launches)
     print("[timing] total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps(line))
     print(smi)

@@ -11,9 +11,12 @@ axis, then the cell's recurrence. A cell names its gates and implements
 
 A layer's recurrence runs its cell's fused kernels (the CUDA kernels on
 the card, their plain twins on the CPU; under autograd the BPTT kernels
-give the gradients) whenever the layer has no in-scan layer norm and its
-activation is tanh, relu, htanh or linear (``_fused_ok``); otherwise a
-plain step loop that autograd differentiates. LSTM: ``ops.fused_lstm``,
+give the gradients) whenever the layer has no in-scan layer norm, its
+activation is tanh, relu, htanh or linear and its width fits the dense
+kernels' shared memory (``_fused_ok``: the forward's, and under autograd
+the backward's, ``fused_lstm.dense_max_width``); otherwise a plain step
+loop that autograd differentiates, as the JAX package runs its
+``lax.scan`` beyond its own size rule. LSTM: ``ops.fused_lstm``,
 streaming passes the (h, c) carries to the seeded-carry variant. liGRU,
 GRU, minimalGRU and RNN: ``ops.fused_rnn``, in float32 whatever the
 compute dtype, as the JAX package's fused liGRU, GRU, minimalGRU and
@@ -29,9 +32,8 @@ kept blocks only (``fused_lstm.lstm_scan_fused_sparse``, ``fused_rnn.
 gru_scan_fused_sparse``, ``fused_rnn.ligru_scan_fused_sparse``,
 ``fused_rnn.mgru_scan_fused_sparse``), in float32 whatever the compute
 dtype, as the JAX package does, at any batch; they stream on their
-dense seeded kernels over the masked U.
-Such an RNN layer raises where the JAX package would take its sparse
-kernels (not ported yet). An
+dense seeded kernels over the masked U. The RNN takes the same rule
+(``fused_rnn.rnn_scan_fused_sparse``). An
 x-projection the JAX package puts on its v3 block-sparse kernels (128-
 multiple blocks; under auto from 16 column blocks with at least half of
 each row's dropped) runs on them here too
@@ -46,8 +48,9 @@ The cuDNN-class wrappers keep torch's parameter names and gate orders:
 ``RNN_cudnn`` runs the fused RNN; both fold ``b_hh`` into the
 projection and take a mask of ones. ``GRU_cudnn`` runs the
 torch-semantics GRU kernels in torch's gate order (r, z, n), with
-``b_hh`` passed apart: ``b_hn`` sits inside ``r * (U_n h + b_hn)``. All
-three run a second direction over the time-flipped input, stream
+``b_hh`` passed apart: ``b_hn`` sits inside ``r * (U_n h + b_hn)``. A
+width the kernels do not take runs a plain step loop of the same cell.
+All three run a second direction over the time-flipped input, stream
 (unidirectional) on the seeded kernels and ignore the compute dtype, as
 in the JAX package. Their inter-layer dropout is inverted and drawn from
 the caller's generator.
@@ -77,6 +80,7 @@ class _RecurrentBase(AcousticModel):
     """Shared construction and execution of the recurrent cells."""
 
     prefix: str            # option prefix: lstm / ligru
+    cell: str              # the dense kernels' cell (fused_lstm._DENSE_SMEM)
     gates_x: List[str]     # input projection names, e.g. [wfx, wix, wox, wcx]
     gates_h: List[str]     # recurrent projection names, e.g. [ufh, ...]
     bn_gates: List[str]    # which input projections get batch norm
@@ -281,10 +285,17 @@ class _RecurrentBase(AcousticModel):
         return (self.spec.inp_quant[0]
                 if (self.spec.quant and self.spec.quant_inp) else 0)
 
-    def _fused_ok(self, i: int) -> bool:
-        """Whether layer ``i``'s recurrence takes the cell's fused
-        kernels: no in-scan layer norm and an activation they take."""
-        return not self.use_laynorm[i] and self.act_names[i] in fused_lstm.ACTS
+    def _fused_ok(self, i: int, grad: bool = False) -> bool:
+        """Whether layer ``i``'s recurrence takes the cell's dense fused
+        kernels: no in-scan layer norm, an activation they take, and a
+        width whose staged rows fit a block's shared memory in the
+        forward kernel and, when ``grad``, in the BPTT kernel autograd
+        runs. Decided from the shapes alone, on every device: a wider
+        layer takes the plain step loop, on the card and on the CPU."""
+        limit = fused_lstm.dense_max_width(
+            self.cell, fused_lstm.grad_backward(self.cell, grad))
+        return (not self.use_laynorm[i] and self.lay[i] <= limit
+                and self.act_names[i] in fused_lstm.ACTS)
 
     def _zero_carry(self, z: torch.Tensor):
         """A fresh stream's carry, from a (B, H) zero tensor."""
@@ -332,7 +343,7 @@ class LSTM(_RecurrentBase):
     activation, per-sequence dropout on the candidate term only,
     optional layer norm on h."""
 
-    prefix = "lstm"
+    prefix = cell = "lstm"
     gates_x = ["wfx", "wix", "wox", "wcx"]
     gates_h = ["ufh", "uih", "uoh", "uch"]
     bn_gates = ["wfx", "wix", "wox", "wcx"]
@@ -350,7 +361,7 @@ class LSTM(_RecurrentBase):
                 return fused_lstm.lstm_scan_fused_sparse(
                     gates, self._rec_w3g(U, layout), layout, drop, act=act,
                     quant_bits=qb), None
-        if self._fused_ok(i):
+        if self._fused_ok(i, fused_lstm._needs_grad(gates, U)):
             if carry is None:
                 return fused_lstm.lstm_scan_fused(
                     gates, U, drop, act=act, quant_bits=qb,
@@ -362,7 +373,8 @@ class LSTM(_RecurrentBase):
 
     def _steps_plain(self, gates, U, drop, i, carry, qb):
         """Plain step loop for the layers the kernel does not take:
-        in-scan layer norm on h, or another activation."""
+        in-scan layer norm on h, another activation, or a width beyond
+        the dense kernels'."""
         T, B, G4 = gates.shape
         H = G4 // 4
         actf = act_fun(self.act_names[i])
@@ -385,7 +397,7 @@ class GRU(_RecurrentBase):
     gate projections. The reset gate scales the candidate's recurrent
     input: a = act(g_h + q(r * h) @ Uh.T)."""
 
-    prefix = "gru"
+    prefix = cell = "gru"
     gates_x = ["wh", "wz", "wr"]
     gates_h = ["uh", "uz", "ur"]
     bn_gates = ["wh", "wz", "wr"]
@@ -402,7 +414,7 @@ class GRU(_RecurrentBase):
                 return fused_rnn.gru_scan_fused_sparse(
                     gates, self._rec_w3g(U, layout), layout, drop, act=act,
                     quant_bits=qb), None
-        if self._fused_ok(i):
+        if self._fused_ok(i, fused_lstm._needs_grad(gates, U)):
             if carry is None:
                 return fused_rnn.gru_scan_fused(
                     gates, U, drop, act=act, quant_bits=qb), None
@@ -412,8 +424,9 @@ class GRU(_RecurrentBase):
 
     def _steps_plain(self, gates, U, drop, i, carry, qb):
         """Plain step loop (the JAX package's ``lax.scan`` step) for the
-        layers the kernels do not take: in-scan layer norm on h, or
-        another activation; bf16-rounded recurrent dots under bf16."""
+        layers the kernels do not take: in-scan layer norm on h, another
+        activation, or a width beyond the dense kernels'; bf16-rounded
+        recurrent dots under bf16."""
         T, B, G3 = gates.shape
         H = G3 // 3
         actf = act_fun(self.act_names[i])
@@ -442,7 +455,7 @@ class liGRU(_RecurrentBase):
     a stream drops the layout and runs the dense seeded forward over the
     masked U, as the JAX package does."""
 
-    prefix = "ligru"
+    prefix = cell = "ligru"
     gates_x = ["wh", "wz"]
     gates_h = ["uh", "uz"]
     bn_gates = ["wh", "wz"]
@@ -459,7 +472,7 @@ class liGRU(_RecurrentBase):
                 return fused_rnn.ligru_scan_fused_sparse(
                     gates, self._rec_w3g(U, layout), layout, drop, act=act,
                     quant_bits=qb), None
-        if self._fused_ok(i):
+        if self._fused_ok(i, fused_lstm._needs_grad(gates, U)):
             if carry is None:
                 return fused_rnn.ligru_scan_fused(
                     gates, U, drop, act=act, quant_bits=qb), None
@@ -468,8 +481,10 @@ class liGRU(_RecurrentBase):
         return self._steps_plain(gates, U, drop, i, carry, qb)
 
     def _steps_plain(self, gates, U, drop, i, carry, qb):
-        """Plain step loop (the JAX package's ``lax.scan`` step): the
-        recurrent dots take bf16-rounded inputs under bf16 compute."""
+        """Plain step loop (the JAX package's ``lax.scan`` step) for the
+        layers the kernels do not take (layer norm, another activation,
+        a width beyond the dense kernels'): the recurrent dots take
+        bf16-rounded inputs under bf16 compute."""
         T, B, G2 = gates.shape
         actf = act_fun(self.act_names[i])
         rec_u = fused_lstm.dense_u(U, self.compute_bf16)
@@ -495,7 +510,7 @@ class minimalGRU(_RecurrentBase):
     "bf16"); a stream drops the layout and runs the dense seeded forward
     over the masked U, as the JAX package does."""
 
-    prefix = "minimalgru"
+    prefix, cell = "minimalgru", "mgru"
     gates_x = ["wh", "wz"]
     gates_h = ["uh", "uz"]
     bn_gates = ["wh", "wz"]
@@ -512,7 +527,7 @@ class minimalGRU(_RecurrentBase):
                 return fused_rnn.mgru_scan_fused_sparse(
                     gates, self._rec_w3g(U, layout), layout, drop, act=act,
                     quant_bits=qb), None
-        if self._fused_ok(i):
+        if self._fused_ok(i, fused_lstm._needs_grad(gates, U)):
             if carry is None:
                 return fused_rnn.mgru_scan_fused(
                     gates, U, drop, act=act, quant_bits=qb), None
@@ -522,8 +537,9 @@ class minimalGRU(_RecurrentBase):
 
     def _steps_plain(self, gates, U, drop, i, carry, qb):
         """Plain step loop (the JAX package's ``lax.scan`` step) for the
-        layers the kernels do not take: in-scan layer norm on h, or
-        another activation; under bf16 compute both recurrent dots take
+        layers the kernels do not take: in-scan layer norm on h, another
+        activation, or a width beyond the dense kernels'; under bf16
+        compute both recurrent dots take
         bf16-rounded inputs, q(z * h) quantized before Uh, as the JAX
         ``_rmm(z * h, Uh)``."""
         T, B, G2 = gates.shape
@@ -546,9 +562,15 @@ class minimalGRU(_RecurrentBase):
 class RNN(_RecurrentBase):
     """Vanilla RNN: h = act(g + q(h) @ U.T) * drop, where the dropout
     scales the whole hidden state (at eval the scalar 1 - p, not
-    inverted); one gate projection with batch norm."""
+    inverted); one gate projection with batch norm. A layer with a
+    sparse recurrent layout runs the block-sparse RNN kernels at every
+    batch (w3g in bf16 only where the JAX size rule says "bf16"; where it
+    says "", the JAX package runs its dense float32 recurrence over the
+    masked U, the same math to float32 rounding); a stream drops the
+    layout and runs the dense seeded forward over the masked U, as the
+    JAX package does."""
 
-    prefix = "rnn"
+    prefix = cell = "rnn"
     gates_x = ["wh"]
     gates_h = ["uh"]
     bn_gates = ["wh"]
@@ -559,21 +581,13 @@ class RNN(_RecurrentBase):
     def _recurrence(self, gates, U, drop, i, carry):
         act = self.act_names[i]
         qb = self._rec_qbits()
-        B, H = gates.shape[1], gates.shape[2]
         if carry is None:
-            # where the JAX size rule keeps the layer off its sparse
-            # kernels, both packages run the dense recurrence over the
-            # masked U
             layout = self._sparse_rec_layout(i)
-            if layout is not None and fused_lstm.sparse_scan_fits(B, H,
-                                                                  layout, 1):
-                raise NotImplementedError(
-                    "rnn layer %d: the JAX package runs this recurrence "
-                    "(Kb=%d, R=%d) on its block-sparse RNN kernels "
-                    "(ops/fused_rnn.py:_build_rnn_fwd_sparse, "
-                    "_build_rnn_bwd_sparse), which are not ported yet"
-                    % (i, layout.Kb, layout.R))
-        if self._fused_ok(i):
+            if layout is not None:
+                return fused_rnn.rnn_scan_fused_sparse(
+                    gates, self._rec_w3g(U, layout), layout, drop, act=act,
+                    quant_bits=qb), None
+        if self._fused_ok(i, fused_lstm._needs_grad(gates, U)):
             if carry is None:
                 return fused_rnn.rnn_scan_fused(
                     gates, U, drop, act=act, quant_bits=qb), None
@@ -583,8 +597,9 @@ class RNN(_RecurrentBase):
 
     def _steps_plain(self, gates, U, drop, i, carry, qb):
         """Plain step loop (the JAX package's ``lax.scan`` step) for the
-        layers the kernels do not take: in-scan layer norm on h, or
-        another activation; bf16-rounded recurrent dots under bf16."""
+        layers the kernels do not take: in-scan layer norm on h, another
+        activation, or a width beyond the dense kernels'; bf16-rounded
+        recurrent dots under bf16."""
         T, B, H = gates.shape
         actf = act_fun(self.act_names[i])
         rec_u = fused_lstm.dense_u(U, self.compute_bf16)
@@ -616,6 +631,7 @@ class _CudnnBase(AcousticModel):
     ``b_hh_*`` (G*H,), drawn U(+-1/sqrt(H)) in the JAX package's order."""
 
     n_gates: int
+    cell: str              # the dense kernels' cell (fused_lstm._DENSE_SMEM)
 
     def __init__(self, options: Mapping[str, Any], inp_dim: int, *,
                  seed: int = 0, device: DeviceLike = None):
@@ -651,6 +667,14 @@ class _CudnnBase(AcousticModel):
 
     def _zero_carry(self, z: torch.Tensor):
         raise NotImplementedError
+
+    def _fused_ok(self, *ts: Optional[torch.Tensor]) -> bool:
+        """Whether the width fits the cell's dense kernels: the forward's
+        and, when any of ``ts`` needs a gradient, the backward's
+        (``_RecurrentBase._fused_ok``'s rule); else a plain step loop."""
+        return self.hidden_size <= fused_lstm.dense_max_width(
+            self.cell, fused_lstm.grad_backward(self.cell,
+                                                fused_lstm._needs_grad(*ts)))
 
     def _scan(self, gates: torch.Tensor, W_hh: torch.Tensor,
               b_hh: Optional[torch.Tensor], carry):
@@ -692,7 +716,7 @@ class LSTM_cudnn(_CudnnBase):
     """torch's ``nn.LSTM`` (gates i, f, g, o) on the dense fused LSTM
     kernels: the gates permuted to the kernels' (f, i, o, c)."""
 
-    n_gates = 4
+    n_gates, cell = 4, "lstm"
     PERM = [1, 0, 3, 2]       # ifgo -> fioc
 
     def _zero_carry(self, z):
@@ -704,6 +728,15 @@ class LSTM_cudnn(_CudnnBase):
         g = torch.cat([gates.chunk(4, dim=-1)[k] for k in self.PERM], dim=-1)
         U = torch.cat([W_hh.chunk(4, dim=0)[k] for k in self.PERM])
         ones = g.new_ones((B, H))
+        if not self._fused_ok(g, U):
+            rec_u = fused_lstm.dense_u(U, False)
+            h, c = carry if carry is not None else (g.new_zeros((B, H)),) * 2
+            hs = []
+            for t in range(g.shape[0]):
+                h, c, _ = fused_lstm.lstm_cell(g[t], h, c, rec_u, ones,
+                                               torch.tanh, 0, False)
+                hs.append(h)
+            return torch.stack(hs), (h, c)
         if carry is None:
             return fused_lstm.lstm_scan_fused(g, U, ones, act="tanh"), None
         return fused_lstm.lstm_scan_fused_stream(g, U, ones, carry[0],
@@ -714,12 +747,21 @@ class GRU_cudnn(_CudnnBase):
     """torch's ``nn.GRU`` (gates r, z, n; ``b_hn`` inside the reset
     product) on the torch-semantics GRU kernels."""
 
-    n_gates = 3
+    n_gates, cell = 3, "gru_torch"
 
     def _zero_carry(self, z):
         return z
 
     def _scan(self, gates, W_hh, b_hh, carry):
+        if not self._fused_ok(gates, W_hh, b_hh):
+            bh = fused_rnn._b_hh(b_hh, gates)
+            h = (carry if carry is not None
+                 else gates.new_zeros((gates.shape[1], self.hidden_size)))
+            hs = []
+            for t in range(gates.shape[0]):
+                h, _ = fused_rnn.gru_torch_cell(gates[t], h, W_hh, bh)
+                hs.append(h)
+            return torch.stack(hs), h
         if carry is None:
             return fused_rnn.gru_cudnn_scan_fused(gates, W_hh, b_hh), None
         return fused_rnn.gru_cudnn_scan_fused_stream(gates, W_hh, b_hh,
@@ -730,7 +772,7 @@ class RNN_cudnn(_CudnnBase):
     """torch's ``nn.RNN`` (``nonlinearity`` tanh or relu) on the dense
     fused RNN kernels."""
 
-    n_gates = 1
+    n_gates, cell = 1, "rnn"
 
     def __init__(self, options: Mapping[str, Any], inp_dim: int, **kw):
         super().__init__(options, inp_dim, **kw)
@@ -743,6 +785,15 @@ class RNN_cudnn(_CudnnBase):
     def _scan(self, gates, W_hh, b_hh, carry):
         gates = gates if b_hh is None else gates + b_hh
         ones = gates.new_ones((gates.shape[1], self.hidden_size))
+        if not self._fused_ok(gates, W_hh):
+            rec_u, actf = fused_lstm.dense_u(W_hh, False), fused_lstm.ACTS[
+                self.act]
+            h = carry if carry is not None else torch.zeros_like(ones)
+            hs = []
+            for t in range(gates.shape[0]):
+                h, _ = fused_rnn.rnn_cell(gates[t], h, rec_u, ones, actf, 0)
+                hs.append(h)
+            return torch.stack(hs), h
         if carry is None:
             return fused_rnn.rnn_scan_fused(gates, W_hh, ones,
                                             act=self.act), None

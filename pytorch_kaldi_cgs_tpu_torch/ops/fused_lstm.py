@@ -358,6 +358,7 @@ def fused_lstm_fwd(gates: torch.Tensor, U: torch.Tensor,
     T, B, H, drop = _check_common("gates", gates, U, drop, act,
                                   (("h0", h0), ("c0", c0)))
     _check_shapes((("h0", h0, (B, H)), ("c0", c0, (B, H))))
+    check_dense_width("lstm", H, None, gates.device)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (gates, U, h0, c0)):
         raise RuntimeError("fused_lstm_fwd has no autograd of its own: call "
@@ -403,13 +404,14 @@ def _bwd_kernel(wrapper, lead, U, drop, h_prev, cs, c_prev, dhs, dhT, dcT,
     return (dg, dh0, dc) if with_init else dg
 
 
-def _check_bwd(name, lead, U, drop, act, seqs, dhT, dcT):
+def _check_bwd(name, lead, U, drop, act, seqs, dhT, dcT, backward):
     if (dhT is None) != (dcT is None):
         raise ValueError("dhT and dcT go together")
     T, B, H, drop = _check_common(name, lead, U, drop, act,
                                   tuple(seqs) + (("dhT", dhT), ("dcT", dcT)))
     _check_shapes([(n, t, (T, B, H)) for n, t in seqs]
                   + [("dhT", dhT, (B, H)), ("dcT", dcT, (B, H))])
+    check_dense_width("lstm", H, backward, lead.device)
     return drop
 
 
@@ -426,7 +428,8 @@ def fused_lstm_bwd_stash(acts: torch.Tensor, U: torch.Tensor,
     ``(dg, dh0, dc0)`` when seeded. CUDA tensors run the kernel, CPU
     tensors the twin."""
     drop = _check_bwd("acts", acts, U, drop, act,
-                      (("cs", cs), ("c_prev", c_prev), ("dhs", dhs)), dhT, dcT)
+                      (("cs", cs), ("c_prev", c_prev), ("dhs", dhs)), dhT, dcT,
+                      "stash")
     if acts.device.type == "cpu":
         return fused_lstm_bwd_stash_plain(acts, U, drop, cs, c_prev, dhs,
                                           dhT, dcT, act, bf16)
@@ -447,7 +450,7 @@ def fused_lstm_bwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     entering each step. -> as :func:`fused_lstm_bwd_stash`."""
     drop = _check_bwd("gates", gates, U, drop, act,
                       (("h_prev", h_prev), ("c_prev", c_prev), ("dhs", dhs)),
-                      dhT, dcT)
+                      dhT, dcT, "recompute")
     if gates.device.type == "cpu":
         return fused_lstm_bwd_plain(gates, U, drop, h_prev, c_prev, dhs, dhT,
                                     dcT, act, qbits, bf16)
@@ -639,9 +642,55 @@ def fused_lstm_bwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
     return _bwd_loop(step, carry, dhs, None, None, gates)
 
 
-#: Shared memory a block may use on sm_90 (bytes), and the sparse
-#: backward's static part (dhsm, usm, the entry lists).
+#: Shared memory a block may use on sm_90 (bytes, dynamic and static
+#: together), and the sparse backward's static part (dhsm, usm, the entry
+#: lists).
 _SMEM_MAX, _SPARSE_BWD_STATIC = 232448, 8 * 8 * 4 + 8 * 32 * 4 + 2 * 64 * 4
+
+#: The dense fused kernels' shared memory per block as (bytes per unit of
+#: the width H, static bytes), by cell: the forward's and each backward's
+#: largest kernel ("stash", "recompute"; the recompute one also runs the
+#: forward's). Each block stages 8 batch rows of q(h) (the forwards), of
+#: dg_{t+1} (the backwards) and, in the LSTM's and the liGRU's recompute
+#: backward, of q(h) too (csrc/*.cu).
+_DENSE_SMEM = {
+    "lstm": {"fwd": (32, 512), "stash": (128, 1280), "recompute": (160, 1280)},
+    "ligru": {"fwd": (32, 512), "stash": (64, 768), "recompute": (96, 768)},
+    "gru": {"fwd": (32, 256), "stash": (64, 256), "recompute": (64, 256)},
+    "mgru": {"fwd": (32, 256), "stash": (32, 256), "recompute": (32, 256)},
+    "rnn": {"fwd": (32, 256), "stash": (32, 256), "recompute": (32, 256)},
+    "gru_torch": {"fwd": (32, 384), "recompute": (96, 256)},
+}
+
+
+def dense_max_width(cell: str, backward: Optional[str] = None) -> int:
+    """The widest layer (H) whose staged rows fit a block's shared memory
+    in the cell's dense forward kernel and, with ``backward`` ("stash" or
+    "recompute"), in that BPTT kernel too."""
+    kinds = ("fwd",) + ((backward,) if backward else ())
+    return min((_SMEM_MAX - static) // per
+               for per, static in (_DENSE_SMEM[cell][k] for k in kinds))
+
+
+def check_dense_width(cell: str, H: int, backward: Optional[str],
+                      dev: torch.device) -> None:
+    """On the card, raise a ValueError that names the limit when a dense
+    kernel (:func:`dense_max_width`) cannot take the width H."""
+    limit = dense_max_width(cell, backward)
+    if dev.type == "cuda" and H > limit:
+        raise ValueError("the dense %s kernels%s take H <= %d, got %d"
+                         % (cell, " (%s backward)" % backward
+                            if backward else "", limit, H))
+
+
+def grad_backward(cell: str, grad: bool) -> Optional[str]:
+    """The backward a differentiable call of the cell's dense kernels
+    runs ("stash" or "recompute"; the torch-semantics GRU has only the
+    latter), None without gradients."""
+    if not grad:
+        return None
+    stash = "stash" in _DENSE_SMEM[cell] and bwd_stash_enabled(cell)
+    return "stash" if stash else "recompute"
 
 
 def _check_sparse(name, lead, w3g, layout, drop, act, others, gates=4):

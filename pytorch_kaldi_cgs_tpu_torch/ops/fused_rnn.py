@@ -1,12 +1,12 @@
-"""Fused liGRU, GRU and minimalGRU (dense and block-sparse),
-torch-semantics GRU and vanilla-RNN recurrences: the whole layer's time
+"""Fused liGRU, GRU, minimalGRU and vanilla-RNN recurrences (dense and
+block-sparse) and the torch-semantics GRU's: the whole layer's time
 loop, forward and BPTT.
 
 Port of the liGRU, GRU, minimalGRU, torch-GRU and RNN parts of
 ``pytorch_kaldi_cgs_tpu/ops/fused_rnn.py``. The GRU's and the
 minimalGRU's (which share their code), the block-sparse liGRU's, the
-RNN's and the torch-semantics GRU's (below, after the dense liGRU's)
-have their own notes. Three liGRU TPU
+RNN's (dense and block-sparse) and the torch-semantics GRU's (below,
+after the dense liGRU's) have their own notes. Three liGRU TPU
 kernels become CUDA kernels for ``sm_90a`` in ``csrc/fused_ligru.cu``,
 each with a plain PyTorch twin that repeats its arithmetic and is what
 the CPU runs:
@@ -54,8 +54,9 @@ from ..sparsity.quantize import (bf16_round, quantize_input,
 from .fused_lstm import (_ACT_CODE, _SMEM_MAX, ACTS, DACTS_OUT,
                          _check_common, _check_shapes, _check_sparse,
                          _needs_grad, _ptr, _sparse_w, _stream,
-                         bwd_stash_enabled, dact_pre, dense_u, sparse_dh,
-                         sparse_dU, sparse_recurrent_u, sparse_scan_fits)
+                         bwd_stash_enabled, check_dense_width, dact_pre,
+                         dense_u, sparse_dh, sparse_dU, sparse_recurrent_u,
+                         sparse_scan_fits)
 
 
 # ---------------------------------------------------------------------------
@@ -167,11 +168,14 @@ def fused_ligru_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, lead, U, drop, act, others):
+def _check(name, lead, U, drop, act, others, backward=None):
     """(T, B, 2H) float32 ``lead``, U (2H, H) float32, one device,
-    contiguous float32 sequences. -> (T, B, H, drop as (B, H))."""
-    return _check_common(name, lead, U, drop, act, (("U", U),) + others,
-                         gates=2)
+    contiguous float32 sequences; on the card a width the forward (and
+    ``backward``) kernel takes. -> (T, B, H, drop as (B, H))."""
+    out = _check_common(name, lead, U, drop, act, (("U", U),) + others,
+                        gates=2)
+    check_dense_width("ligru", out[2], backward, lead.device)
+    return out
 
 
 def fused_ligru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
@@ -217,7 +221,8 @@ fused_ligru_fwd.launches = 0
 
 def _bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
     T, B, H, drop = _check("acts" if stash else "gates", lead, U, drop, act,
-                           (("h_prev", h_prev), ("dhs", dhs)))
+                           (("h_prev", h_prev), ("dhs", dhs)),
+                           "stash" if stash else "recompute")
     _check_shapes((("h_prev", h_prev, (T, B, H)), ("dhs", dhs, (T, B, H))))
     if lead.device.type == "cpu":
         if stash:
@@ -519,15 +524,14 @@ fused_mgru_bwd_stash_plain = fused_gru_bwd_stash_plain
 fused_mgru_bwd_plain = fused_gru_bwd_plain
 
 
-def _gru_check(name, lead, U, drop, act, others, G):
+def _gru_check(name, lead, U, drop, act, others, G, backward=None):
     """(T, B, G*H) float32 ``lead``, U (G*H, H) float32, one device,
-    contiguous float32 sequences; on the card a width whose staged rows
-    fit a block's shared memory. -> (T, B, H, drop as (B, H))."""
+    contiguous float32 sequences; on the card a width the forward (and
+    ``backward``) kernels take. -> (T, B, H, drop as (B, H))."""
     out = _check_common(name, lead, U, drop, act, (("U", U),) + others,
                         gates=G)
-    if lead.device.type == "cuda" and 4 * 8 * 2 * out[2] > _SMEM_MAX:
-        raise ValueError("the dense GRU kernels take H <= %d, got %d"
-                         % (_SMEM_MAX // 64, out[2]))
+    check_dense_width("gru" if G == 3 else "mgru", out[2], backward,
+                      lead.device)
     return out
 
 
@@ -607,7 +611,8 @@ def _gru_bwd(wrapper, cname, G, lead, U, drop, h_prev, dhs, act, qbits,
     """The body of the dense BPTT wrappers: the C entry point ``cname``
     (``fused_gru_bwd`` or ``fused_mgru_bwd``) over G gates."""
     T, B, H, drop = _gru_check("acts" if stash else "gates", lead, U, drop,
-                               act, (("h_prev", h_prev), ("dhs", dhs)), G)
+                               act, (("h_prev", h_prev), ("dhs", dhs)), G,
+                               "stash" if stash else "recompute")
     _check_shapes((("h_prev", h_prev, (T, B, H)), ("dhs", dhs, (T, B, H))))
     if lead.device.type == "cpu":
         if stash:
@@ -1468,15 +1473,13 @@ def fused_rnn_bwd_plain(gates: torch.Tensor, U: torch.Tensor,
     return _rnn_bwd_loop(dact, U, drop, dhs)
 
 
-def _rnn_check(name, lead, U, drop, act, others):
+def _rnn_check(name, lead, U, drop, act, others, backward=None):
     """(T, B, H) float32 ``lead``, U (H, H) float32, one device,
-    contiguous float32 sequences; on the card a width whose staged rows
-    fit a block's shared memory. -> (T, B, H, drop as (B, H))."""
+    contiguous float32 sequences; on the card a width the forward (and
+    ``backward``) kernel takes. -> (T, B, H, drop as (B, H))."""
     out = _check_common(name, lead, U, drop, act, (("U", U),) + others,
                         gates=1)
-    if lead.device.type == "cuda" and 4 * 8 * out[2] > _SMEM_MAX:
-        raise ValueError("the RNN kernels take H <= %d, got %d"
-                         % (_SMEM_MAX // 32, out[2]))
+    check_dense_width("rnn", out[2], backward, lead.device)
     return out
 
 
@@ -1524,7 +1527,8 @@ fused_rnn_fwd.launches = 0
 
 def _rnn_bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
     T, B, H, drop = _rnn_check("acts" if stash else "gates", lead, U, drop,
-                               act, (("h_prev", h_prev), ("dhs", dhs)))
+                               act, (("h_prev", h_prev), ("dhs", dhs)),
+                               "stash" if stash else "recompute")
     _check_shapes((("h_prev", h_prev, (T, B, H)), ("dhs", dhs, (T, B, H))))
     if lead.device.type == "cpu":
         if stash:
@@ -1640,6 +1644,209 @@ def rnn_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
     return hs, hs[-1]
 
 
+# -- the block-sparse RNN: TPU kernels _build_rnn_fwd_sparse and
+# _build_rnn_bwd_sparse become csrc/fused_rnn_sparse.cu. U's kept blocks
+# pack into w3g (Nb, bs, R*bs) and the step's product runs over them only.
+# The backward rebuilds a_pre for all steps at once, then runs one launch
+# per reverse step, the carry dg @ U gathered per block column; dU is one
+# block-sparse dw product (G=1) over q(h_{t-1}). As in the JAX package
+# there is no stash variant.
+
+def _rnn_sparse_fns(w3g, layout, bf16):
+    """(rec_u, carry dot) of the sparse RNN twins; w3g bf16-rounded, and
+    dg rounded before the carry dot, when ``bf16``."""
+    wc = bf16_round(w3g) if bf16 else w3g
+
+    def dot(d):
+        return sparse_dh(bf16_round(d) if bf16 else d, wc, layout, 1)
+    return (lambda x: sparse_recurrent_u(x, wc, layout, 1)), dot
+
+
+def fused_rnn_fwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
+                               drop: torch.Tensor, layout, act: str = "tanh",
+                               qbits: int = 0, bf16: bool = False
+                               ) -> torch.Tensor:
+    """Twin of the sparse RNN forward kernel (zero initial state): a
+    Python loop over :func:`rnn_cell`, q(h) rounded to bf16 before the
+    product when ``bf16``. -> hs (T, B, H)."""
+    T, B, H = gates.shape
+    rec_u, _ = _rnn_sparse_fns(w3g, layout, bf16)
+    h = gates.new_zeros((B, H))
+    hs = []
+    for t in range(T):
+        h, _ = rnn_cell(gates[t], h, rec_u, drop, ACTS[act], qbits, bf16)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def fused_rnn_bwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
+                               drop: torch.Tensor, h_prev: torch.Tensor,
+                               dhs: torch.Tensor, layout, act: str = "tanh",
+                               qbits: int = 0, bf16: bool = False
+                               ) -> torch.Tensor:
+    """Twin of the sparse RNN BPTT kernel: per reverse step it rebuilds
+    a_pre = g + q(h_{t-1}) @ U_kept.T (q per step, bf16-rounded before
+    the product when ``bf16``), then dg = (carry + dhs[t]) * drop *
+    act'(a_pre) and carry = dg @ U_kept (JAX ``_build_rnn_bwd_sparse``
+    :1833-1842; dg rounded before the carry dot when ``bf16``). -> dg
+    (T, B, H)."""
+    rec_u, dot = _rnn_sparse_fns(w3g, layout, bf16)
+    dg = dhs.new_empty(dhs.shape)
+    carry = torch.zeros_like(dhs[0])
+    for t in range(dhs.shape[0] - 1, -1, -1):
+        hq = quantize_input(h_prev[t], qbits) if qbits > 0 else h_prev[t]
+        a_pre = gates[t] + rec_u(bf16_round(hq) if bf16 else hq)
+        dg[t] = (carry + dhs[t]) * drop * dact_pre(act, a_pre)
+        carry = dot(dg[t])
+    return dg
+
+
+def fused_rnn_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                         drop: torch.Tensor, layout, act: str = "tanh",
+                         qbits: int = 0, bf16: bool = False) -> torch.Tensor:
+    """Whole-layer RNN forward from the zero state over the kept blocks
+    of U (TPU kernel ``_build_rnn_fwd_sparse``): ``gates`` (T, B, H)
+    float32, ``w3g`` (Nb, bs, R*bs) float32 (cast to bf16 for the kernel
+    when ``bf16``), ``drop`` broadcastable to (B, H). -> hs (T, B, H).
+    CUDA tensors run the kernel (one launch per step), CPU tensors the
+    twin; no autograd of its own (:func:`rnn_scan_fused_sparse` carries
+    the BPTT kernel)."""
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act, (),
+                                  gates=1)
+    if _needs_grad(gates, w3g):
+        raise RuntimeError("fused_rnn_fwd_sparse has no autograd of its "
+                           "own: call rnn_scan_fused_sparse")
+    if gates.device.type == "cpu":
+        return fused_rnn_fwd_sparse_plain(gates, w3g, drop, layout, act,
+                                          qbits, bf16)
+    from . import _build
+    lib = _build.load("fused_rnn_sparse")
+    fn = lib.fused_rnn_fwd_sparse
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    qslots = torch.empty(T + 1 if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    wk = _sparse_w(w3g, bf16)
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), wk.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                drop.data_ptr(), hs.data_ptr(), qslots.data_ptr(), T, B, H,
+                layout.R, layout.bs, _ACT_CODE[act], qbits, int(bf16),
+                _stream(dev))
+    _build.check(lib, rc, "fused_rnn_fwd_sparse")
+    fused_rnn_fwd_sparse.launches += T
+    return hs
+
+
+fused_rnn_fwd_sparse.launches = 0
+
+
+def fused_rnn_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
+                         drop: torch.Tensor, h_prev: torch.Tensor,
+                         dhs: torch.Tensor, layout, act: str = "tanh",
+                         qbits: int = 0, bf16: bool = False) -> torch.Tensor:
+    """Sparse RNN BPTT (TPU kernel ``_build_rnn_bwd_sparse``): ``gates``
+    are the forward's inputs, ``h_prev`` (T, B, H) the carries entering
+    each step, ``dhs`` (T, B, H) the upstream cotangents. -> dg
+    (T, B, H). CUDA tensors run the kernel (one launch for the
+    pre-activations of all steps, then one per reverse step), CPU
+    tensors the twin."""
+    seqs = (("h_prev", h_prev), ("dhs", dhs))
+    T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act,
+                                  seqs, gates=1)
+    _check_shapes([(n, t, (T, B, H)) for n, t in seqs])
+    if gates.device.type == "cpu":
+        return fused_rnn_bwd_sparse_plain(gates, w3g, drop, h_prev, dhs,
+                                          layout, act, qbits, bf16)
+    smem = 4 * 8 * layout.C * layout.bs
+    if smem + _GRU_BWD_STATIC > _SMEM_MAX:
+        raise ValueError("fused_rnn_bwd_sparse: %d blocks per column of %d "
+                         "need %d bytes of shared memory, more than a block "
+                         "has" % (layout.C, layout.bs, smem))
+    from . import _build
+    lib = _build.load("fused_rnn_sparse")
+    fn = lib.fused_rnn_bwd_sparse
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = gates.device
+    wk = _sparse_w(w3g, bf16)
+    wt = wk.transpose(1, 2).contiguous()      # (Nb, R*bs, bs): carry dots
+    pre = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    dg = torch.empty_like(pre)
+    qslots = torch.empty(T if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    idx = [layout.device_index(n, dev).data_ptr()
+           for n in ("col_idx", "t_row_idx", "t_perm")]
+    with torch.cuda.device(dev):
+        rc = fn(gates.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
+                drop.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(),
+                pre.data_ptr(), dg.data_ptr(), qslots.data_ptr(), T, B, H,
+                layout.R, layout.bs, layout.C, layout.nnz, _ACT_CODE[act],
+                qbits, int(bf16), _stream(dev))
+    _build.check(lib, rc, "fused_rnn_bwd_sparse")
+    fused_rnn_bwd_sparse.launches += T + 1
+    return dg
+
+
+fused_rnn_bwd_sparse.launches = 0
+
+
+class _FusedRNNSparse(torch.autograd.Function):
+    """The JAX package's ``rnn_scan_fused_sparse`` custom VJP over
+    (gates, w3g): forward kernel, BPTT kernel, then dw3g as one
+    block-sparse dw product (G=1) over the (T*B) batch with h quantized
+    per step. Under ``wbf16`` the kernels read w3g in bf16 and dw3g is
+    rounded to bf16 (the JAX op's primal is the bf16 w3g)."""
+
+    @staticmethod
+    def forward(ctx, gates, w3g, drop, layout, act, qbits, wbf16):
+        hs = fused_rnn_fwd_sparse(gates, w3g, drop, layout, act, qbits,
+                                  wbf16)
+        ctx.meta = (layout, act, qbits, wbf16)
+        ctx.save_for_backward(gates, w3g, drop, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        layout, act, qbits, wbf16 = ctx.meta
+        gates, w3g, drop, hs = ctx.saved_tensors
+        T, B, H = hs.shape
+        h_prev = torch.cat([hs.new_zeros((1, B, H)), hs[:-1]])
+        dg = fused_rnn_bwd_sparse(gates, w3g, drop, h_prev, dhs.contiguous(),
+                                  layout, act, qbits, wbf16)
+        dw3g = None
+        if ctx.needs_input_grad[1]:
+            hq = (quantize_input_per_step(h_prev, qbits) if qbits > 0
+                  else h_prev)
+            dw3g = sparse_dU(dg.reshape(T * B, H), hq.reshape(T * B, H),
+                             layout, 1)
+            if wbf16:
+                dw3g = bf16_round(dw3g)
+        return dg, dw3g, None, None, None, None, None
+
+
+def rnn_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
+                          drop_mask: torch.Tensor, act: str = "tanh",
+                          quant_bits: int = 0) -> torch.Tensor:
+    """hs (T, B, H) from the zero state with a block-sparse recurrent
+    matrix, differentiable in ``gates_t`` (T, B, H) and ``w3g``
+    (Nb, bs, R*bs) (``drop_mask`` is a constant). As in the JAX package
+    it takes no compute dtype: the recurrence runs in float32, with w3g
+    read in bf16 only where :func:`sparse_scan_fits` says "bf16"."""
+    gates_t, w3g = gates_t.to(torch.float32), w3g.to(torch.float32)
+    T, B, H = gates_t.shape
+    wbf16 = sparse_scan_fits(B, H, layout, 1) == "bf16"
+    if _needs_grad(gates_t, w3g):
+        return _FusedRNNSparse.apply(gates_t, w3g, drop_mask, layout, act,
+                                     quant_bits, wbf16)
+    return fused_rnn_fwd_sparse(gates_t, w3g, drop_mask, layout, act,
+                                quant_bits, wbf16)
+
+
 # ---------------------------------------------------------------------------
 # the torch-semantics GRU of the GRU_cudnn wrapper (torch's nn.GRU): TPU
 # kernels _build_gru_torch_fwd and _build_gru_torch_bwd become
@@ -1716,7 +1923,7 @@ def fused_gru_torch_bwd_plain(gates: torch.Tensor, W_hh: torch.Tensor,
     return dg, dm
 
 
-def _gru_torch_check(gates, W_hh, b_hh, seqs):
+def _gru_torch_check(gates, W_hh, b_hh, seqs, backward=None):
     """(T, B, 3H) float32 ``gates``, W_hh (3H, H), b_hh (3H,) and the
     ``seqs`` (name, tensor or None), all float32 on one device,
     contiguous on the card, and a width whose staged rows fit a block's
@@ -1739,9 +1946,7 @@ def _gru_torch_check(gates, W_hh, b_hh, seqs):
             raise ValueError("%s must be contiguous" % n)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError("unsupported device %s" % dev)
-    if dev.type == "cuda" and 4 * 8 * G3 > _SMEM_MAX:
-        raise ValueError("the torch-semantics GRU kernels take H <= %d, got "
-                         "%d" % (_SMEM_MAX // 96, H))
+    check_dense_width("gru_torch", H, backward, dev)
     return T, B, H
 
 
@@ -1789,7 +1994,7 @@ def fused_gru_torch_bwd(gates: torch.Tensor, W_hh: torch.Tensor,
     u_n). CUDA tensors run the kernel (one launch rebuilds u for all
     steps, then one runs per reverse step), CPU tensors the twin."""
     T, B, H = _gru_torch_check(gates, W_hh, b_hh, (("h_prev", h_prev),
-                                                    ("dhs", dhs)))
+                                                    ("dhs", dhs)), "recompute")
     _check_shapes((("h_prev", h_prev, (T, B, H)), ("dhs", dhs, (T, B, H))))
     if gates.device.type == "cpu":
         return fused_gru_torch_bwd_plain(gates, W_hh, b_hh, h_prev, dhs)

@@ -512,26 +512,53 @@ def test_streaming_equals_whole_utterance_and_jax(jm, fused_calls, laynorm):
     np.testing.assert_allclose(got, np.concatenate(jgot), atol=ATOL_Q)
 
 
-def test_sparse_layout_raises_where_jax_takes_its_sparse_kernels(jm):
+def test_sparse_layout_raises_where_jax_takes_its_sparse_kernels(jm,
+                                                                 monkeypatch,
+                                                                 fused_calls):
     """A 128-block recurrent HCGS mask dropping half of each row's blocks
-    gives a sparse layout; where the JAX size rule lets the layer onto
-    its sparse RNN kernels (rows 36-37, not ported) the port raises, and
-    names them."""
+    gives a sparse layout, and where the JAX size rule lets the layer
+    onto its sparse RNN kernels (rows 36-37) the port, which raised here
+    before they were ported, now runs both layers on its own sparse
+    kernels (their twins here) and agrees with JAX ``apply`` on its
+    sparse Pallas kernels; no dense RNN kernel runs."""
+    seen = []
+    real = tfr.fused_rnn_fwd_sparse_plain
+
+    def spy(*a, **k):
+        seen.append(a[3])
+        return real(*a, **k)
+    monkeypatch.setattr(tfr, "fused_rnn_fwd_sparse_plain", spy)
     opts = rnn_opts(hcgs=True, lay=256, n=2)
-    port = RNN(opts, F_IN, seed=0, device="cpu").eval()
+    jmod = jm.RNN(opts, F_IN)
+    tree = _perturbed(jmod.init(0), 1)
+    jmod.prepare_block_sparse(tree)
+    assert sorted(jmod._rec_layouts) == [0, 1]
+    x = np.random.RandomState(4).randn(4, 2, F_IN).astype(np.float32)
+    y_ref, _ = jmod.apply(tree, x, train=False)
+    port = _port(RNN, opts, tree).eval()
     assert sorted(port._rec_layouts) == [0, 1]
-    x = torch.randn(4, 2, F_IN)
-    with pytest.raises(NotImplementedError, match="_build_rnn_fwd_sparse"):
-        with torch.no_grad():
-            port(x)
+    with torch.no_grad():
+        y = port(tt(x))
+    assert seen == [port._rec_layouts[0], port._rec_layouts[1]]
+    assert fused_calls["fused"] == 0
+    np.testing.assert_allclose(y.numpy(), _np(y_ref), atol=ATOL_Q)
 
 
 def test_sparse_layout_runs_dense_where_jax_size_rule_says_no(
         jm, monkeypatch, fused_calls):
     """Where the JAX size rule keeps the layer off its sparse kernels
-    (a budget of PKC_SPARSE_SCAN_VMEM_MB=0), both packages run the dense
-    fused recurrence over the masked U and agree."""
+    (a budget of PKC_SPARSE_SCAN_VMEM_MB=0) the JAX package runs the
+    dense fused recurrence over the masked U; the port stays on its
+    sparse kernels with float32 w3g (the same math to float32 rounding),
+    and the two agree."""
     monkeypatch.setenv("PKC_SPARSE_SCAN_VMEM_MB", "0")
+    seen = []
+    real = tfr.fused_rnn_fwd_sparse
+
+    def spy(*a, **k):
+        seen.append(a[6] if len(a) > 6 else k.get("bf16", False))
+        return real(*a, **k)
+    monkeypatch.setattr(tfr, "fused_rnn_fwd_sparse", spy)
     opts = rnn_opts(hcgs=True, lay=256, n=1)
     jmod = jm.RNN(opts, F_IN)
     tree = _perturbed(jmod.init(1), 2)
@@ -540,9 +567,10 @@ def test_sparse_layout_runs_dense_where_jax_size_rule_says_no(
     y_ref, _ = jmod.apply(tree, x, train=False)
     port = _port(RNN, opts, tree).eval()
     assert sorted(port._rec_layouts) == [0]
+    assert tfl.sparse_scan_fits(2, 256, port._rec_layouts[0], 1) == ""
     with torch.no_grad():
         y = port(tt(x))
-    assert fused_calls["fused"] == 1
+    assert seen == [False] and fused_calls["fused"] == 0
     np.testing.assert_allclose(y.numpy(), _np(y_ref), atol=ATOL_Q)
 
 
