@@ -9,8 +9,11 @@ the TIMIT 4x550 relu RNN through the dense fused RNN kernels, and of the
 TIMIT 2x1024 Li-GRU at CGS-16x HCGS through the block-sparse liGRU
 kernels, and of that cfg's 2x1024 as a minimalGRU through the dense and
 (at CGS-16x) the block-sparse minimalGRU kernels, and of the TIMIT RNN
-cfg at 4x1024 and CGS-16x through the block-sparse RNN kernels, with the
-cuDNN-class LSTM_cudnn, RNN_cudnn and GRU_cudnn on the ported kernels.
+cfg at 4x1024 and CGS-16x through the block-sparse RNN kernels, and of
+the LibriSpeech 5x1024 bidirectional Li-GRU through the fused liGRU
+kernels, with the cuDNN-class LSTM_cudnn, RNN_cudnn and GRU_cudnn on the
+ported kernels; and the legacy v1/v2 block-sparse matmul API on its
+three kernels at the shapes of real layers.
 
     python3 chip_smoke.py
 
@@ -250,6 +253,30 @@ Phases (any failure raises and the script exits non-zero):
              bounds, cuDNN's nn.GRU(1024) / nn.RNN(1024, relu) at B=8 as
              yardsticks, the dense kernels on the same masked layer, the
              dU products, the train steps and recognize.
+49. legacy_bs_kernels — the legacy v1/v2 block-sparse matmul's three
+             kernels (block_sparse_legacy.cu) through their six wrappers
+             against their twins, one launch each: the JAX tests' small
+             layouts (bs=8, one with uneven columns), the libri GRU's
+             x-projection layout (M=6400, G=1 and 3), the CGS-16x LSTM's
+             1024 x 1024 (M=4800, G=4), the flagship's 143-wide input
+             K-padded to 256 (M=4800, G=4); f32, bf16, bf16 x with f32 w;
+             both autograd Functions against the dense masked product with
+             exact launch counts, again with the twins swapped out.
+50. libri_ligru_serve, libri_ligru_stream, libri_ligru_train — the
+             LibriSpeech Li-GRU cfg (``cfg/LibriSpeech_baselines/
+             libri_liGRU_fmllr.cfg``: 5x1024 bidirectional relu liGRU, BN,
+             no quantizers -> 1944-way head, feat_dim 40) on the dense
+             fused liGRU: ``recognize`` card vs CPU at TOL_POST, 5 x 398
+             forward launches; the stream raises (bidirectional); one
+             train step (T=200, 32 rows) card vs CPU, launches with the
+             recompute and the stash backward, 10 steps in f32 and bf16
+             at the cfg's learning rates.
+51. legacy_bs_times — the legacy kernels' ms, twins, bounds and the
+             dense-masked torch.matmul (dw: torch.bmm) computing the same
+             function, at the libri layout (G=1, 3; f32, bf16) and the
+             CGS-16x G=4; the v3 kernels at the same G=3 shape.
+52. libri_ligru_times — rows 16-18 at the cfg's shapes, the libri
+             Li-GRU train step and recognize.
 
 Each phase prints its wall time (``[timing]``).
 
@@ -1024,7 +1051,8 @@ def wrappers():
             "fused_lstm_fwd_sparse": F.fused_lstm_fwd_sparse,
             "fused_lstm_bwd_sparse_stash": F.fused_lstm_bwd_sparse_stash,
             "fused_lstm_bwd_sparse": F.fused_lstm_bwd_sparse,
-            "block_sparse_dw": BS.block_sparse_dw}
+            "block_sparse_dw": BS.block_sparse_dw,
+            **{name: getattr(BS, name) for name in LB_WRAPPERS}}
 
 
 def launched(w, n, fn):
@@ -4942,6 +4970,532 @@ def slice8_rows(cl_checks, cl_times, cl_launches, gt_checks, gt_times,
             lib % "backward (fwd+bwd minus fwd)", tt_)]
 
 
+# ---------------------------------------------------------------------------
+# the legacy v1/v2 block-sparse matmul (rows 7-12): the ops-level API at the
+# shapes of real layers; no model path runs it
+# ---------------------------------------------------------------------------
+
+# The libri GRU's layers 1-4 x-projection (gru_layout 1024 x 2048: Kb=16,
+# R=4) at M = T * rows of its train step; the CGS-16x LSTM's 1024 x 1024
+# recurrent layout (Kb=8, R=2) with its four gates at M = T*B of its step;
+# the flagship's 143-wide input (HCGS 128,4 at 25,62.5, K-padded to 256)
+# with the LSTM's four gates.
+LB_M = GR_TRAIN_TBH[0] * GR_TRAIN_TBH[1]
+LB_CGS_M = SP_TRAIN_TBH[0] * SP_TRAIN_TBH[1]
+# kernel vs twin: float32 1e-5 of the twin's largest |value| (the same
+# float32 sums in another order); a bf16 output one bf16 ulp of that
+# value, bf16_ulp (both round one float32 sum, which can land on either
+# side of a rounding boundary)
+TOL_LB_F32 = 1e-5
+LB_DTYPES = (("f32", "f32"), ("bf16", "bf16"), ("bf16", "f32"))
+LB_WRAPPERS = ("bsl_fwd", "bsl_dx", "bsl_dw", "bsl_fwd_multi",
+               "bsl_dx_multi", "bsl_dw_multi")
+
+
+def bf16_ulp(scale):
+    """One bf16 ulp at ``scale``: 2^(floor(log2 scale) - 7), between 2^-8
+    and 2^-7 of it."""
+    return 2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7)
+
+
+def api_tile(M):
+    """The JAX API's row tile for M: its default 256 where that divides
+    M, else the largest multiple of 8 below it that does (M=4800: 240)."""
+    return max(t for t in range(8, 257, 8) if M % t == 0)
+
+
+def uneven_layout():
+    """tests/test_torch_block_sparse.py's uneven layout at bs=8: Nb=4,
+    Kb=6, R=2, column 1 kept by every row (C=4), column 5 by none."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    occ = np.zeros((4, 6), np.float32)
+    for j, cs in enumerate(((0, 1), (1, 2), (1, 3), (1, 4))):
+        occ[j, list(cs)] = 1
+    return BS.pack_layout(np.kron(occ, np.ones((8, 8), np.float32)), 8)
+
+
+def legacy_layouts():
+    """(name, layout, M, Gs, dtype rows) of the legacy kernels' checks."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.sparsity.hcgs import hcgs_mask
+    small = BS.pack_layout(hcgs_mask(32, 48, [8], [50],
+                                     rng=np.random.RandomState(0)), 8)
+    flag = BS.pack_layout(hcgs_mask(TRAIN_TBH[2], FEAT, [128, 4],
+                                    [25, 62.5], rng=np.random.RandomState(3)),
+                          128, pad_k=True)
+    small_dt = LB_DTYPES + (("f32", "bf16"),)
+    return (("small_hcgs", small, 16, (1, 4), small_dt),
+            ("small_uneven", uneven_layout(), 16, (1, 3), small_dt),
+            ("libri_x", gru_layout(1024, 2048, 170)[1], LB_M, (1, 3),
+             LB_DTYPES),
+            ("cgs16x", cgs_layout(1024, 171)[1], LB_CGS_M, (4,), LB_DTYPES),
+            ("k_padded_143", flag, LB_CGS_M, (4,), LB_DTYPES))
+
+
+def legacy_operands(layout, G, M, seed, dev, xdt="f32", wdt="f32"):
+    """x (M, K; a K-padded layout's pad columns zero), stacked w (nnz,
+    G*bs, bs) and a flat cotangent (M, Nb*G*bs) in x's dtype."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    bs = layout.bs
+    x = torch.randn(M, layout.K, device=dev, generator=gen)
+    x[:, layout.k_true:] = 0
+    w = torch.randn(layout.nnz, G * bs, bs, device=dev, generator=gen) \
+        / np.sqrt(layout.R * bs)
+    gy = torch.randn(M, layout.Nb * G * bs, device=dev, generator=gen)
+    return x.to(dt[xdt]), w.to(dt[wdt]), gy.to(dt[xdt])
+
+
+def legacy_calls(layout, G, x, w, gy):
+    """(wrapper name, kernel call, twin call) of the three kernels at G:
+    the v1 wrappers at G=1 (w as (nnz, bs, bs), the forward as (1, M, N)),
+    the v2 ones above."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    if G == 1:
+        return (("bsl_fwd", lambda: BS.bsl_fwd(x, w, layout)[None],
+                 lambda: BS.bsl_fwd_plain(x, w, layout, 1)),
+                ("bsl_dx", lambda: BS.bsl_dx(gy, w, layout),
+                 lambda: BS.bsl_dx_plain(gy, w, layout, 1)),
+                ("bsl_dw", lambda: BS.bsl_dw(gy, x, layout),
+                 lambda: BS.bsl_dw_plain(gy, x, layout, 1)))
+    return (("bsl_fwd_multi", lambda: BS.bsl_fwd_multi(x, w, layout, G),
+             lambda: BS.bsl_fwd_plain(x, w, layout, G)),
+            ("bsl_dx_multi", lambda: BS.bsl_dx_multi(gy, w, layout, G),
+             lambda: BS.bsl_dx_plain(gy, w, layout, G)),
+            ("bsl_dw_multi", lambda: BS.bsl_dw_multi(gy, x, layout, G),
+             lambda: BS.bsl_dw_plain(gy, x, layout, G)))
+
+
+def dense_of(w, layout, G):
+    """Stacked blocks (nnz, G*bs, bs) -> the G dense (N, K) weights (G, N,
+    K) with the dropped blocks zero, on w's device, float32."""
+    bs = layout.bs
+    rows = torch.as_tensor(layout.rows, dtype=torch.long, device=w.device)
+    cols = torch.as_tensor(layout.cols, dtype=torch.long, device=w.device)
+    dense = torch.zeros(G, layout.Nb, layout.Kb, bs, bs, device=w.device)
+    dense[:, rows, cols] = w.float().reshape(layout.nnz, G, bs, bs) \
+        .transpose(0, 1)
+    return dense.permute(0, 1, 3, 2, 4).reshape(G, layout.N, layout.K)
+
+
+def legacy_api_check(checks, name, layout, G, M, seed, dev):
+    """block_sparse_matmul (G=1) or block_sparse_matmul_multi forward and
+    backward on the card against the dense masked product (float32,
+    TF32 off), with the launch counters set to 0 just before and read
+    just after: one forward, one dx and one dw launch. -> launches."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    x, w, _ = legacy_operands(layout, G, M, seed, dev)
+    if G == 1:
+        w = w.reshape(layout.nnz, layout.bs, layout.bs)
+    cot = torch.randn(G, M, layout.N, device=dev)
+    xt, wt = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def run():
+        if G == 1:
+            y = BS.block_sparse_matmul(xt, wt, layout, api_tile(M))[None]
+        else:
+            y = BS.block_sparse_matmul_multi(xt, wt, layout, G, api_tile(M))
+        y.backward(cot)
+        return y.detach()
+    y, launches = counted(run)
+    v = "" if G == 1 else "_multi"
+    want = expected(**{"bsl_fwd" + v: 1, "bsl_dx" + v: 1, "bsl_dw" + v: 1})
+    if launches != want:
+        raise AssertionError("legacy %s G=%d: launches %s" % (
+            name, G, {k: n for k, n in launches.items() if n}))
+    W = dense_of(w, layout, G)
+    bs = layout.bs
+    y_ref = torch.einsum("mk,gnk->gmn", x, W)
+    dx_ref = torch.einsum("gmn,gnk->mk", cot, W)
+    dW = torch.einsum("gmn,mk->gnk", cot, x).reshape(
+        G, layout.Nb, bs, layout.Kb, bs).permute(1, 3, 0, 2, 4)
+    rows = torch.as_tensor(layout.rows, dtype=torch.long, device=dev)
+    cols = torch.as_tensor(layout.cols, dtype=torch.long, device=dev)
+    dw_ref = dW[rows, cols].reshape(layout.nnz, G * bs, bs)
+    sync(dev)
+    for what, got, ref in (("y", y, y_ref), ("dx", xt.grad, dx_ref),
+                           ("dw", wt.grad.reshape(dw_ref.shape), dw_ref)):
+        record_check(checks, "legacy_bs_kernels",
+                     "block_sparse_matmul" + v + "/" + what,
+                     {"layout": name, "M": M, "G": G},
+                     {"vs": "dense masked float32"}, rel_err(got, ref),
+                     TOL_LB_F32, True)
+    return launches
+
+
+def phase_legacy_bs_kernels(dev):
+    """The three legacy kernels through their six wrappers (v1 at G=1,
+    v2 at G>1) against their twins on the card, one launch each, at the
+    JAX tests' small shapes (bs=8: an HCGS and an uneven layout), the
+    libri GRU's x-projection layout (M=6400, G=1 and 3), the CGS-16x
+    LSTM's 1024 x 1024 (M=4800, G=4) and the flagship's K-padded 143-wide
+    input (M=4800, G=4), in f32, bf16 and bf16 x with f32 w (and f32 x
+    with bf16 w at the small shapes): float32 outputs within TOL_LB_F32
+    of the twin's scale, bf16 ones within one bf16 ulp of it (bf16_ulp);
+    both autograd Functions (the JAX row tile, api_tile) against the
+    dense masked product with exact launch counts, once more with the
+    six twins swapped for functions that raise (the card's path never
+    reaches them). -> (checks, API-path launches by wrapper)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    checks = []
+    cases = legacy_layouts()
+    for name, layout, M, Gs, dts in cases:
+        for G in Gs:
+            for k, (xdt, wdt) in enumerate(dts):
+                x, w, gy = legacy_operands(layout, G, M, 200 + k, dev, xdt,
+                                           wdt)
+                if G == 1:
+                    w = w.reshape(layout.nnz, layout.bs, layout.bs)
+                for wname, kernel, plain in legacy_calls(layout, G, x, w, gy):
+                    with torch.no_grad():
+                        got = launched(getattr(BS, wname), 1, kernel)
+                        sync(dev)
+                        ref = plain()
+                    if got.dtype != ref.dtype:
+                        raise AssertionError("%s: dtype %s, twin %s" % (
+                            wname, got.dtype, ref.dtype))
+                    bf16 = got.dtype == torch.bfloat16
+                    err = rel_err(got.float(), ref.float())
+                    record_check(checks, "legacy_bs_kernels", wname,
+                                 {"layout": name, "M": M, "K": layout.K,
+                                  "N": layout.N, "Kb": layout.Kb,
+                                  "R": layout.R, "C": layout.C,
+                                  "bs": layout.bs},
+                                 {"G": G, "x": xdt, "w": wdt,
+                                  "out": str(got.dtype).split(".")[-1]},
+                                 err, bf16_ulp(float(ref.float().abs().max()))
+                                 if bf16 else TOL_LB_F32, not bf16)
+                del x, w, gy
+        torch.cuda.empty_cache()
+    api = dict.fromkeys(LB_WRAPPERS, 0)
+    for name, layout, M, Gs, _ in cases[2:]:
+        for G in Gs:
+            for k, n in legacy_api_check(checks, name, layout, G, M, 210,
+                                         dev).items():
+                if k in api:
+                    api[k] += n
+
+    def boom(*a, **k):
+        raise AssertionError("a legacy twin ran on the card's path")
+    twins = ("bsl_fwd_plain", "bsl_dx_plain", "bsl_dw_plain")
+    with contextlib.ExitStack() as stack:
+        for t in twins:
+            stack.enter_context(swapped(BS, t, boom))
+        for k, n in legacy_api_check(checks, "libri_x, twins swapped out",
+                                     cases[2][1], 3, LB_M, 211,
+                                     dev).items():
+            if k in api:
+                api[k] += n
+    bad = [c for c in checks if not c["ok"]]
+    print("[legacy_bs_kernels] %d checks, %d failed; API-path launches %s"
+          % (len(checks), len(bad), api))
+    if bad:
+        raise AssertionError("legacy block-sparse kernels disagree: %s" % bad)
+    return checks, api
+
+
+def legacy_bound_ms(M, layout, G, op, dtype="f32"):
+    """Least time for one legacy kernel call: each input read once, each
+    output written once, over the HBM rate; 2*M*nnz*bs^2*G FMAs over the
+    peak of the operands' type (the bf16 rows: bf16 operands; mixed ones
+    count as f32). op: "fwd" (x, w in; (G, M, N) out), "dx" (gy, w in;
+    (M, K) out), "dw" (gy, x in; w's shape out)."""
+    bs, es = layout.bs, 2 if dtype == "bf16" else 4
+    x, w, y = M * layout.K, layout.nnz * G * bs * bs, G * M * layout.N
+    n = {"fwd": x + w + y, "dx": y + w + x, "dw": y + x + w}[op]
+    return roofline_ms(n * es, 2 * M * layout.nnz * bs * bs * G, dtype)
+
+
+def phase_legacy_bs_times(dev):
+    """CUDA-event ms per call of each legacy kernel at the libri GRU's
+    x-projection layout (M=6400; G=1 through the v1 wrappers, G=3 through
+    the v2 ones; f32, and bf16 x and w), its twin, its bound and the
+    library yardstick computing the same function: the dense-masked
+    torch.matmul (fwd: x @ W.T, dx: gy @ W, W the (G*N, K) scattered
+    weight) and, for dw, torch.bmm over the pre-gathered operands;
+    the v3 kernels at the same G=3 shape (no quantizer or submask, the
+    same function; and as the libri GRU runs them, qbits 8 with the
+    submask); the three at the CGS-16x LSTM's G=4, M=4800 (f32)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    times = {}
+    (_, libri, _, _, _), (_, cgs, _, _, _) = legacy_layouts()[2:4]
+    for layout, M, G, dts in ((libri, LB_M, 1, ("f32", "bf16")),
+                              (libri, LB_M, 3, ("f32", "bf16")),
+                              (cgs, LB_CGS_M, 4, ("f32",))):
+        tag = "libri_G%d" % G if layout is libri else "cgs16x_G4"
+        bs = layout.bs
+        rows = torch.as_tensor(layout.rows, dtype=torch.long, device=dev)
+        cols = torch.as_tensor(layout.cols, dtype=torch.long, device=dev)
+        for dt in dts:
+            x, w, gy = legacy_operands(layout, G, M, 220, dev, dt, dt)
+            if G == 1:
+                w = w.reshape(layout.nnz, bs, bs)
+            W = dense_of(w, layout, G).reshape(G * layout.N, layout.K) \
+                .to(x.dtype)
+            gyd = gy.reshape(M, layout.Nb, G, bs).permute(0, 2, 1, 3) \
+                .reshape(M, G * layout.N).contiguous()
+            gb = gy.reshape(M, layout.Nb, G * bs).transpose(0, 1)[rows] \
+                .transpose(1, 2).contiguous()             # (nnz, G*bs, M)
+            xb = x.reshape(M, layout.Kb, bs).transpose(0, 1)[cols] \
+                .contiguous()                              # (nnz, M, bs)
+            library = {"fwd": lambda: x @ W.T, "dx": lambda: gyd @ W,
+                       "dw": lambda: torch.bmm(gb, xb)}
+            with torch.no_grad():
+                for wname, kernel, plain in legacy_calls(layout, G, x, w,
+                                                         gy):
+                    op = wname.split("_")[1]
+                    key = "%s_%s_%s" % (tag, op, dt)
+                    times[key + "_ms"] = cuda_ms(kernel, reps=10)
+                    times[key + "_plain_ms"] = cuda_ms(plain, reps=3,
+                                                       warmup=1)
+                    times[key + "_library_ms"] = cuda_ms(library[op],
+                                                         reps=20)
+                    times[key + "_bound_ms"], times[key + "_bound_by"] = \
+                        legacy_bound_ms(M, layout, G, op, dt)
+            del x, w, gy, W, gyd, gb, xb
+            torch.cuda.empty_cache()
+    # the v3 kernels at the libri G=3 shape
+    v = v3_inputs(LB_M, 3, 152, dev)
+    vl, x, w3, gy, sub3 = v["layout"], v["x"], v["w3"], v["gy"], v["sub3"]
+    with torch.no_grad():
+        for q, sub, sfx in ((0, None, ""), (8, sub3, "_q8_sub")):
+            times["v3_fwd_ms" + sfx] = cuda_ms(
+                lambda: BS.block_sparse_v3_fwd(x, w3, vl, 3, q, sub), reps=10)
+            times["v3_dx_ms" + sfx] = cuda_ms(
+                lambda: BS.block_sparse_v3_dx(gy, w3, vl, 3, q, sub), reps=10)
+            times["v3_dw_ms" + sfx] = cuda_ms(
+                lambda: BS.block_sparse_dw(gy, x, vl, 3, sub), reps=10)
+    print("[legacy_bs_times] libri x-projection (M=%d, K=%d, N=%d, Kb=%d, "
+          "R=%d), CGS-16x (M=%d, Kb=%d, R=%d): %s"
+          % (LB_M, libri.K, libri.N, libri.Kb, libri.R, LB_CGS_M, cgs.Kb,
+             cgs.R, json.dumps(times)))
+    return times
+
+
+def slice11_rows(checks, times, api_launches):
+    """The kernels JSON rows of the legacy API (rows 7-12): ``ms`` etc.
+    per call at the libri x-projection layout, f32 (the v1 rows at G=1,
+    the v2 rows at G=3), bf16 and the CGS-16x G=4 numbers beside them;
+    ``launches`` counts the API path's calls in legacy_bs_kernels (the
+    autograd Functions: one launch of each a call); no model path runs
+    these kernels (0 launches in every other phase, by ``expected``);
+    ``library_ms`` computes the same function (the dense-masked
+    torch.matmul, or torch.bmm over the gathered operands for dw)."""
+    bsp = "pytorch_kaldi_cgs_tpu/ops/block_sparse.py:%d"
+    lib = {"fwd": "dense-masked torch.matmul x @ W.T, W (G*N, K)",
+           "dx": "dense-masked torch.matmul gy @ W",
+           "dw": "torch.bmm over the pre-gathered (nnz, G*bs, M) and "
+                 "(nnz, M, bs) operands"}
+    rows = []
+    for name, replaces in zip(LB_WRAPPERS, (198, 248, 294, 380, 439, 487)):
+        op = name.split("_")[1]
+        G = 3 if name.endswith("multi") else 1
+        key = "libri_G%d_%s_" % (G, op)
+        mine = [c for c in checks if c["kernel"] == name]
+        err = [c for c in mine if c["layout"] == "libri_x"
+               and c["x"] == c["w"] == "f32"][0]["max_abs_err"]
+        r = {"name": name, "route": "cuda",
+             "source": "pytorch_kaldi_cgs_tpu_torch/ops/csrc/"
+                       "block_sparse_legacy.cu",
+             "replaces": bsp % replaces, "launches": api_launches[name],
+             "launches_by_path": {"api": api_launches[name],
+                                  "model_paths": 0},
+             "max_abs_err": err, "ms": times[key + "f32_ms"],
+             "plain_ms": times[key + "f32_plain_ms"],
+             "bound_ms": times[key + "f32_bound_ms"],
+             "bound_by": times[key + "f32_bound_by"],
+             "library_ms": times[key + "f32_library_ms"],
+             "library_note": lib[op],
+             "shape": {"M": LB_M, "K": 2048, "N": 1024, "G": G, "bs": 128,
+                       "Kb": 16, "R": 4},
+             "bf16": {k: times[key + "bf16_" + k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             "checks": len(mine), "checks_ok": all(c["ok"] for c in mine)}
+        if G == 3:
+            ck = "cgs16x_G4_%s_f32_" % op
+            r["cgs16x_G4"] = {k: times[ck + k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            r["v3_same_shape_ms"] = times["v3_%s_ms" % op]
+        rows.append(r)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the LibriSpeech Li-GRU cfg (rows 16-18; no new kernel)
+# ---------------------------------------------------------------------------
+
+LIBRI_LIGRU_CFG = os.path.join(ROOT, "cfg", "LibriSpeech_baselines",
+                               "libri_liGRU_fmllr.cfg")
+LL_SERVE_TBH = (398, 16, 1024)   # 8 utterances, both directions
+LL_TRAIN_TBH = (200, 32, 1024)   # start_seq_len_train; 16 x 2 directions
+LL_LAYERS = 5
+# the random-init decode as a check: on an H100 x30000 decodes 3 of 8
+# utterances to two phones, x3000 one, x300 none
+LIBRI_LIGRU_HEAD_GAIN = 30000.0
+
+
+def libri_ligru_sections(compute_dtype="", act=None):
+    """The libri Li-GRU cfg's sections (cfg_sections: N_out_lab_cd =
+    1944, as for the libri GRU); ``act`` replaces every layer's
+    activation (the strict gradient check's tanh)."""
+    secs = cfg_sections(LIBRI_LIGRU_CFG, compute_dtype)
+    if act:
+        secs["architecture1"]["ligru_act"] = ",".join([act] * LL_LAYERS)
+    return secs
+
+
+def check_libri_ligru(rnn):
+    """The cfg as shipped: 5 x 1024 bidirectional, no layout, every
+    layer on the dense fused liGRU."""
+    if list(rnn.lay) != [1024] * LL_LAYERS or not rnn.bidir or \
+            rnn._rec_layouts or rnn._bs_layouts or \
+            not all(rnn._fused_ok(i, True) for i in range(LL_LAYERS)):
+        raise AssertionError("the libri Li-GRU is not 5 x 1024 bidirectional "
+                             "on the dense fused liGRU")
+
+
+def build_libri_ligru_stack(dev, feat_dim=GR_FEAT):
+    """The libri Li-GRU -> its 1944-way cd head (weights from init(0) /
+    init(1), the head times LIBRI_LIGRU_HEAD_GAIN)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import MLP, liGRU
+    secs = libri_ligru_sections()
+    rnn = liGRU(dict(secs["architecture1"], to_do="forward"), feat_dim,
+                seed=0, device=dev)
+    mlp = MLP(dict(secs["architecture2"], to_do="forward"), rnn.out_dim,
+              seed=1, device=dev)
+    check_libri_ligru(rnn)
+    with torch.no_grad():
+        mlp.params["w0"].mul_(LIBRI_LIGRU_HEAD_GAIN)
+    return Stack(rnn, mlp).eval()
+
+
+def libri_ligru_expect_serve(T):
+    """Launches per recognize: 5 layers x T forward steps (both
+    directions in one call)."""
+    return expected(fused_ligru_fwd=LL_LAYERS * T)
+
+
+def libri_ligru_train_runner(dev, compute_dtype="", act=None):
+    """A ChunkRunner over the libri Li-GRU's sections and its one batch
+    (16 sentences of 200 frames = 32 rows, fMLLR x of width 40)."""
+    from pytorch_kaldi_cgs_tpu_torch.models import liGRU
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    T, B, _ = LL_TRAIN_TBH
+    config, chunk, batch = chunk_setup(
+        libri_ligru_sections(compute_dtype, act), T, B // 2,
+        "fmllr", GR_FEAT, CD_LABELS)
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    rnn = graph.nets["liGRU_layers"]
+    if type(rnn) is not liGRU:
+        raise AssertionError("the libri Li-GRU cfg did not build a liGRU")
+    check_libri_ligru(rnn)
+    return ChunkRunner(graph, config), batch
+
+
+def phase_libri_ligru_stream(dev, rec, audio, lens):
+    """The cfg is bidirectional: a StreamingRecognizer's first chunk
+    raises (as the JAX package's apply_streaming does) and launches
+    nothing."""
+    def first_chunk():
+        try:
+            stream_run(dev, rec, audio, lens, 100)
+        except ValueError as e:
+            return str(e)
+        raise AssertionError("the bidirectional libri Li-GRU streamed")
+    msg, launches = counted(first_chunk)
+    print("[libri_ligru_stream] raises: %s; launches %s"
+          % (msg, {k: v for k, v in launches.items() if v}))
+    if "bidirectional models cannot stream" not in msg or \
+            launches != expected():
+        raise AssertionError("libri_ligru_stream: %s, launches %s"
+                             % (msg, launches))
+    return msg
+
+
+def phase_libri_ligru_train(dev):
+    """One train step on the card against the CPU: at TOL_GRAD_REL, or,
+    where relu' flips between the card's and the CPU's sums, GRAD_FLIP_K
+    times the CPU's own one-ulp sensitivity and then the same step with
+    tanh at TOL_GRAD_REL. Launches per step with the recompute backward
+    (the default) and the stash one (PKC_BWD_STASH_CELLS=ligru), 10 steps
+    in f32 and bf16 at the cfg's learning rates (the loss falls on random
+    labels there, unlike the TIMIT Li-GRU's)."""
+    T = LL_TRAIN_TBH[0]
+    knob = "PKC_BWD_STASH_CELLS"
+
+    def bar(worst):
+        if worst <= TOL_GRAD_REL:
+            return TOL_GRAD_REL
+        inp, mask = libri_ligru_train_runner("cpu")[1]
+        sens, where = ulp_sensitivity(libri_ligru_train_runner, inp, mask,
+                                      GR_FEAT)
+        print("[libri_ligru_train] the CPU's own gradients under a one-ulp "
+              "change of x: worst rel change %.3g at %s" % (sens, where))
+        return max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
+    out = phase_train(dev, libri_ligru_train_runner, "libri_ligru_train", (
+        ("recompute", knob, None,
+         expected(fused_ligru_fwd=LL_LAYERS * T,
+                  fused_ligru_bwd=LL_LAYERS * T)),
+        ("stash", knob, "ligru",
+         expected(fused_ligru_fwd=LL_LAYERS * T,
+                  fused_ligru_bwd_stash=LL_LAYERS * T))),
+        grad_tol=bar)
+    if out["grad_rel_err_max"] <= TOL_GRAD_REL:
+        return out                  # relu' flipped nowhere that mattered
+
+    def tanh(d, cdt=""):
+        return libri_ligru_train_runner(d, cdt, act="tanh")
+    runner, (inp, mask) = tanh(dev)
+    with env(knob, None):
+        loss_err = runner.train_step(inp, mask, dropout_gen())
+    out["tanh"] = card_vs_cpu(runner, tanh("cpu")[0], inp, mask, loss_err,
+                              knob, None, "libri_ligru_train, ligru_act=tanh")
+    return out
+
+
+def phase_libri_ligru_times(dev, rec, audio, lens):
+    """The liGRU kernels (rows 16-18) per layer call at the cfg's shapes:
+    T=200, 32 rows, H=1024, relu, no quantizer (the stash forward, both
+    BPTT kernels) and the forward at T=398, 16 rows; their bounds; the
+    libri Li-GRU train step (f32, bf16) and recognize."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = LL_TRAIN_TBH
+    act = "relu"
+    inp = gated_inputs(T, B, H, 230, dev, act)
+    g, U, drop, dhs = (inp[n] for n in ("g", "U", "drop", "dhs"))
+    times = {}
+    with torch.no_grad():
+        hs, acts = R.fused_ligru_fwd(g, U, drop, act=act, stash=True)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        for name, fn, kind in (
+                ("fused_ligru_fwd", lambda: R.fused_ligru_fwd(
+                    g, U, drop, act=act, stash=True), "fwd_stash"),
+                ("fused_ligru_bwd_stash", lambda: R.fused_ligru_bwd_stash(
+                    acts, U, drop, h_prev, dhs, act), "bwd_stash"),
+                ("fused_ligru_bwd", lambda: R.fused_ligru_bwd(
+                    g, U, drop, h_prev, dhs, act, 0), "bwd")):
+            times[name + "_ms"] = cuda_ms(fn, reps=10)
+            times[name + "_bound_ms"], times[name + "_bound_by"] = \
+                ligru_bound_ms(T, B, H, kind)
+        Ts, Bs, _ = LL_SERVE_TBH
+        sv = gated_inputs(Ts, Bs, H, 231, dev, act)
+        times["serve_fwd_ms"] = cuda_ms(
+            lambda: R.fused_ligru_fwd(sv["g"], sv["U"], sv["drop"], act=act),
+            reps=10)
+        times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
+            ligru_bound_ms(Ts, Bs, H, "fwd")
+    print("[libri_ligru_times] liGRU kernels at T=%d, %d rows, H=%d (relu, "
+          "no quantizer), serving T=%d, %d rows: %s"
+          % (T, B, H, Ts, Bs, json.dumps(times)))
+    step = train_step_times(dev, libri_ligru_train_runner,
+                            "libri_ligru_times", 5, 3)
+    serve = serve_timings(rec, audio, lens)
+    print("[libri_ligru_times] libri Li-GRU recognizer (8 x 4 s batch): %s"
+          % json.dumps(serve))
+    return times, step, serve
+
+
 def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
     """The kernels JSON: every kernel of the port with its numbers from
     this run. ``ms``/``plain_ms``/``bound_ms``/``library_ms`` are per layer
@@ -5202,6 +5756,15 @@ def main():
         "rnn_sparse_stream", phase_rnn_sparse_stream, dev, rs_rec, audio,
         lens, rs_phones, rs_logp, rs_noq)
     rs_train = timed("rnn_sparse_train", phase_rnn_sparse_train, dev)
+    lb_checks, lb_api = timed("legacy_bs_kernels", phase_legacy_bs_kernels,
+                              dev)
+    ll_rec, ll_phones, ll_logp, ll_serve_launches, ll_post_err = timed(
+        "libri_ligru_serve", phase_serve, dev, audio, lens,
+        build_libri_ligru_stack, "libri_ligru_serve", "fused_ligru_fwd",
+        TOL_POST, libri_ligru_expect_serve)
+    ll_stream = timed("libri_ligru_stream", phase_libri_ligru_stream, dev,
+                      ll_rec, audio, lens)
+    ll_train = timed("libri_ligru_train", phase_libri_ligru_train, dev)
     width = timed("dense_width", phase_dense_width, dev)
     serve_times, serve = timed("times", phase_times, dev, rec, audio, lens)
     serve["posteriors_vs_cpu_max_abs_err"] = post_err
@@ -5227,6 +5790,10 @@ def main():
         mg["cgs_mgru"]["rec"], audio, lens)
     rs_times, rs_step, rs_serve = timed("rnn_sparse_times",
                                         phase_rnn_sparse_times, dev, rs_rec,
+                                        audio, lens)
+    lb_times = timed("legacy_bs_times", phase_legacy_bs_times, dev)
+    ll_times, ll_step, ll_serve = timed("libri_ligru_times",
+                                        phase_libri_ligru_times, dev, ll_rec,
                                         audio, lens)
     sp_serve.update(posteriors_vs_cpu_max_abs_err=sp_post_err,
                     stream_vs_whole_max_abs_err=sp_stream_err,
@@ -5460,6 +6027,27 @@ def main():
         "rnn_sparse_train_step": rs_step, "dense_width": width,
         "yardsticks": {k: v for k, v in rs_times.items()
                        if "cudnn" in k or "dU" in k or "dense" in k}}))
+    ll_rc, ll_st = ll_train["launches_recompute"], \
+        ll_train["launches_stash"]
+    lg_launches["fused_ligru_fwd"].update(
+        libri_ligru_train=ll_rc["fused_ligru_fwd"],
+        libri_ligru_serve=ll_serve_launches["fused_ligru_fwd"])
+    lg_launches["fused_ligru_bwd"]["libri_ligru_train"] = \
+        ll_rc["fused_ligru_bwd"]
+    lg_launches["fused_ligru_bwd_stash"]["libri_ligru_train_stash"] = \
+        ll_st["fused_ligru_bwd_stash"]
+    for name, paths in lg_launches.items():
+        if not all(v for k, v in paths.items() if k.startswith("libri")):
+            raise AssertionError("%s was not launched on every libri Li-GRU "
+                                 "path: %s" % (name, paths))
+    ll_serve.update(posteriors_vs_cpu_max_abs_err=ll_post_err,
+                    stream_raises=ll_stream)
+    print("[summary] LibriSpeech Li-GRU %s" % json.dumps({
+        "libri_ligru_serve": ll_serve, "libri_ligru_train": ll_train,
+        "libri_ligru_train_step": ll_step, "rows_16_18_at_its_shape": ll_times,
+        "head_gain": LIBRI_LIGRU_HEAD_GAIN}))
+    print("[summary] legacy block-sparse API %s" % json.dumps({
+        "api_launches": lb_api, "checks": len(lb_checks), "times": lb_times}))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
                         launches)
     line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
@@ -5488,6 +6076,7 @@ def main():
                                    gt_checks, gt_times, gt_launches)
     line["kernels"] += slice9_rows(mg_checks, mg_times, mg_launches)
     line["kernels"] += slice10_rows(rs_checks, rs_times, rs_launches)
+    line["kernels"] += slice11_rows(lb_checks, lb_times, lb_api)
     print("[timing] total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps(line))
     print(smi)

@@ -1,6 +1,7 @@
-"""Block-sparse HCGS layouts, the v3 block-sparse projection and the
-block-sparse weight gradient (port of ``pytorch_kaldi_cgs_tpu/ops/
-block_sparse.py``: its host side and its three v3 kernels).
+"""Block-sparse HCGS layouts, the v3 block-sparse projection, the
+block-sparse weight gradient and the legacy v1/v2 block-sparse matmul
+(port of ``pytorch_kaldi_cgs_tpu/ops/block_sparse.py``: its host side and
+its nine kernels).
 
 HCGS keeps the same number R of level-1 blocks in every block row of a
 mask, so the kept blocks of an (N, K) weight pack row-major into the
@@ -21,6 +22,21 @@ Three TPU kernels become CUDA kernels for ``sm_90a``:
   optional level-2 submask epilogue (``sub3``). It is the dw of the v3
   projection and the ``dU`` of the sparse fused recurrences
   (``ops.fused_lstm.sparse_dU``).
+
+Six more, the legacy API over packed (nnz, G*bs, bs) blocks (v1 is
+G=1), become the three kernels of ``csrc/block_sparse_legacy.cu``, each
+taken at G=1 and at G>1, float32 or bfloat16 operands, float32 sums:
+
+- ``_make_fwd`` (``:198``) / ``_make_fwd_multi`` (``:380``):
+  :func:`bsl_fwd` / :func:`bsl_fwd_multi`, twin :func:`bsl_fwd_plain`;
+- ``_make_dx`` (``:248``) / ``_make_dx_multi`` (``:439``): :func:`bsl_dx`
+  / :func:`bsl_dx_multi`, twin :func:`bsl_dx_plain`;
+- ``_make_dw`` (``:294``) / ``_make_dw_multi`` (``:487``): :func:`bsl_dw`
+  / :func:`bsl_dw_multi`, twin :func:`bsl_dw_plain`;
+
+behind :func:`block_sparse_matmul` and :func:`block_sparse_matmul_multi`
+(the JAX custom VJPs); :func:`block_sparse_matmul_xla` is the plain
+reference. No model calls them.
 
 The effective weight of the v3 pair is ``ceil_quant(w3) * sub3`` (the
 8-bit weight quantizer and the level-2 submask applied to each weight
@@ -310,18 +326,22 @@ def _flat_width(layout: BlockLayout, G: int) -> int:
     return layout.Nb * G * layout.bs
 
 
-def _check_operands(lead: torch.Tensor, shapes) -> bool:
-    """Shapes, float32, one device and (on the card) contiguity of a
-    wrapper's operands ((name, tensor or None, shape) each). -> True for
-    the CPU (run the twin), False for a CUDA device (launch)."""
+def _check_operands(lead: torch.Tensor, shapes,
+                    dtypes=(torch.float32,)) -> bool:
+    """Shapes, dtype (one of ``dtypes``), one device and (on the card)
+    contiguity of a wrapper's operands ((name, tensor or None, shape)
+    each). -> True for the CPU (run the twin), False for a CUDA device
+    (launch)."""
     for name, t, shape in shapes:
         if t is None:
             continue
         if tuple(t.shape) != shape:
             raise ValueError("%s must be %s, got %s"
                              % (name, shape, tuple(t.shape)))
-        if t.dtype != torch.float32:
-            raise ValueError("%s must be float32, got %s" % (name, t.dtype))
+        if t.dtype not in dtypes:
+            raise ValueError("%s must be %s, got %s" % (
+                name, " or ".join(str(d).split(".")[-1] for d in dtypes),
+                t.dtype))
         if t.device != lead.device:
             raise ValueError("%s on %s, %s on %s" % (
                 name, t.device, shapes[0][0], lead.device))
@@ -513,3 +533,290 @@ def block_sparse_matmul_v3(x: torch.Tensor, w3: torch.Tensor,
                                     qbits)
     return block_sparse_v3_fwd(pad_cols(x, layout.K).contiguous(),
                                w3.contiguous(), layout, G, qbits, sub3)
+
+
+# ---------------------------------------------------------------------------
+# the legacy v1/v2 block-sparse matmul (TPU kernels _make_fwd, _make_dx,
+# _make_dw and their _multi forms)
+# ---------------------------------------------------------------------------
+
+def pack_submasks(mask: np.ndarray, layout: BlockLayout) -> np.ndarray:
+    """Level-2 fine masks inside kept blocks, packed like the weights
+    (float32); multiply them into the packed blocks before the call."""
+    return pack_blocks(mask.astype(np.float32), layout)
+
+
+def pack_blocks_multi(ws, layout: BlockLayout) -> np.ndarray:
+    """Stack G dense (N, K) matrices into (nnz, G*bs, bs): block p holds
+    matrix g's kept block in rows g*bs .. (g+1)*bs."""
+    G, bs = len(ws), layout.bs
+    out = np.zeros((layout.nnz, G * bs, bs), np.asarray(ws[0]).dtype)
+    for g, w in enumerate(ws):
+        out[:, g * bs:(g + 1) * bs, :] = pack_blocks(np.asarray(w), layout)
+    return out
+
+
+def block_sparse_matmul_xla(x: torch.Tensor, w_packed: torch.Tensor,
+                            layout: BlockLayout) -> torch.Tensor:
+    """The plain reference of :func:`block_sparse_matmul` (the JAX
+    package's name for its gather/einsum version), differentiable by
+    autograd: per packed block, ``x[:, col_p] @ w_p.T``, summed over the
+    blocks of each out-block row. x (M, K), w_packed (nnz, bs, bs) ->
+    (M, N) in their promoted dtype."""
+    bs, M = layout.bs, x.shape[0]
+    dt = torch.promote_types(x.dtype, w_packed.dtype)
+    cols = torch.as_tensor(layout.cols, dtype=torch.long, device=x.device)
+    rows = torch.as_tensor(layout.rows, dtype=torch.long, device=x.device)
+    xg = x.to(dt).reshape(M, layout.Kb, bs)[:, cols]         # (M, nnz, bs)
+    yb = torch.einsum("mpk,pnk->pmn", xg, w_packed.to(dt))    # (nnz, M, bs)
+    y = yb.new_zeros((layout.Nb, M, bs)).index_add(0, rows, yb)
+    return y.transpose(0, 1).reshape(M, layout.N)
+
+
+def bsl_fwd_plain(x: torch.Tensor, w: torch.Tensor, layout: BlockLayout,
+                  G: int) -> torch.Tensor:
+    """Twin of the legacy forward: the v3 twin over the packed blocks in
+    the w3 layout, all in float32, rounded once to x's dtype. x (M, K),
+    w (nnz, G*bs, bs) -> (G, M, N)."""
+    return block_sparse_v3_fwd_plain(
+        x.float(), v3_from_blocks(w.float(), layout, G), layout, G
+    ).to(x.dtype)
+
+
+def bsl_dx_plain(gy_flat: torch.Tensor, w: torch.Tensor, layout: BlockLayout,
+                 G: int) -> torch.Tensor:
+    """Twin of the legacy input gradient: the v3 dx twin, in float32,
+    rounded once to gy's dtype; column blocks no row keeps stay zero.
+    gy_flat (M, Nb*G*bs) -> (M, K)."""
+    return block_sparse_v3_dx_plain(
+        gy_flat.float(), v3_from_blocks(w.float(), layout, G), layout, G
+    ).to(gy_flat.dtype)
+
+
+def bsl_dw_plain(gy_flat: torch.Tensor, x: torch.Tensor, layout: BlockLayout,
+                 G: int) -> torch.Tensor:
+    """Twin of the legacy weight gradient: the v3 dw twin over all M in
+    float32, its (Nb, G*bs, R*bs) blocks back in packed order, rounded
+    once to gy's dtype. -> (nnz, G*bs, bs)."""
+    bs = layout.bs
+    dw3 = block_sparse_dw_plain(gy_flat.float(), x.float(), layout, G)
+    return dw3.reshape(layout.Nb, G * bs, layout.R, bs).permute(0, 2, 1, 3) \
+        .reshape(layout.nnz, G * bs, bs).to(gy_flat.dtype)
+
+
+_LEGACY_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    return 0 if t.dtype == torch.float32 else 1
+
+
+def _legacy_kernel(name, ptrs, out, codes, ints):
+    """Launch ``name`` of ``csrc/block_sparse_legacy.cu``: the pointers,
+    ``out``, the operands' dtype codes, the ints and the stream."""
+    from . import _build
+    lib = _build.load("block_sparse_legacy")
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 1)
+                   + [ctypes.c_int] * (len(codes) + len(ints))
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dev = out.device
+    with torch.cuda.device(dev):
+        rc = fn(*ptrs, out.data_ptr(), *codes, *ints,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, name)
+
+
+def _legacy_fwd(x, w, layout, G, wrapper):
+    """The forward at G: the twin on the CPU, else one launch counted on
+    ``wrapper``. -> (G, M, N) in x's dtype."""
+    M = x.shape[0]
+    if _check_operands(x, (("x", x, (M, layout.K)),
+                           ("w", w, (layout.nnz, G * layout.bs, layout.bs))),
+                       _LEGACY_DTYPES):
+        return bsl_fwd_plain(x, w, layout, G)
+    ys = torch.empty((G, M, layout.N), dtype=x.dtype, device=x.device)
+    _legacy_kernel("bsl_fwd", (x.data_ptr(), w.data_ptr(), layout.device_index(
+        "col_idx", x.device).data_ptr()), ys, (_dtype_code(x), _dtype_code(w)),
+        (M, layout.K, layout.N, layout.Nb, layout.R, layout.bs, G))
+    wrapper.launches += 1
+    return ys
+
+
+def _legacy_dx(gy_flat, w, layout, G, wrapper):
+    """dx at G (see :func:`_legacy_fwd`). -> (M, K) in gy's dtype."""
+    M, dev = gy_flat.shape[0], gy_flat.device
+    if _check_operands(gy_flat, (
+            ("gy", gy_flat, (M, _flat_width(layout, G))),
+            ("w", w, (layout.nnz, G * layout.bs, layout.bs))),
+            _LEGACY_DTYPES):
+        return bsl_dx_plain(gy_flat, w, layout, G)
+    dx = torch.empty((M, layout.K), dtype=gy_flat.dtype, device=dev)
+    _legacy_kernel("bsl_dx", (
+        gy_flat.data_ptr(), w.data_ptr(),
+        layout.device_index("t_row_idx", dev).data_ptr(),
+        layout.device_index("t_perm", dev).data_ptr()), dx,
+        (_dtype_code(gy_flat), _dtype_code(w)),
+        (M, layout.K, layout.Nb, layout.bs, G, layout.C, layout.nnz))
+    wrapper.launches += 1
+    return dx
+
+
+def _legacy_dw(gy_flat, x, layout, G, wrapper):
+    """dw at G (see :func:`_legacy_fwd`). -> (nnz, G*bs, bs) in gy's
+    dtype."""
+    M, dev = x.shape[0], x.device
+    if _check_operands(gy_flat, (
+            ("gy", gy_flat, (M, _flat_width(layout, G))),
+            ("x", x, (M, layout.K))), _LEGACY_DTYPES):
+        return bsl_dw_plain(gy_flat, x, layout, G)
+    dw = torch.empty((layout.nnz, G * layout.bs, layout.bs),
+                     dtype=gy_flat.dtype, device=dev)
+    _legacy_kernel("bsl_dw", (
+        gy_flat.data_ptr(), x.data_ptr(),
+        layout.device_index("rows", dev).data_ptr(),
+        layout.device_index("cols", dev).data_ptr()), dw,
+        (_dtype_code(gy_flat), _dtype_code(x)),
+        (M, layout.K, layout.Nb, layout.nnz, layout.bs, G))
+    wrapper.launches += 1
+    return dw
+
+
+def bsl_fwd(x: torch.Tensor, w_packed: torch.Tensor,
+            layout: BlockLayout) -> torch.Tensor:
+    """The v1 forward (TPU kernel ``_make_fwd``): ``y = x @
+    scatter(w_packed).T`` over the kept blocks. x (M, K) and w_packed
+    (nnz, bs, bs), each float32 or bfloat16 -> (M, N) in x's dtype,
+    summed in float32. CUDA tensors run ``bsl_fwd`` of
+    ``csrc/block_sparse_legacy.cu`` at G=1, CPU tensors the twin."""
+    return _legacy_fwd(x, w_packed, layout, 1, bsl_fwd)[0]
+
+
+def bsl_dx(gy: torch.Tensor, w_packed: torch.Tensor,
+           layout: BlockLayout) -> torch.Tensor:
+    """The v1 input gradient (TPU kernel ``_make_dx``): ``dx = gy @
+    scatter(w_packed)``, gy (M, N) -> (M, K) in gy's dtype."""
+    return _legacy_dx(gy, w_packed, layout, 1, bsl_dx)
+
+
+def bsl_dw(gy: torch.Tensor, x: torch.Tensor,
+           layout: BlockLayout) -> torch.Tensor:
+    """The v1 weight gradient (TPU kernel ``_make_dw``): per packed block
+    p, ``gy[:, row_p].T @ x[:, col_p]`` over all M -> (nnz, bs, bs) in
+    gy's dtype."""
+    return _legacy_dw(gy, x, layout, 1, bsl_dw)
+
+
+def bsl_fwd_multi(x: torch.Tensor, w_stacked: torch.Tensor,
+                  layout: BlockLayout, G: int) -> torch.Tensor:
+    """The v2 forward (TPU kernel ``_make_fwd_multi``): ``ys[g] = x @
+    scatter(w_g).T`` for the G matrices stacked in w_stacked (nnz, G*bs,
+    bs) -> (G, M, N) in x's dtype (the kernel writes the G planes, so no
+    regroup follows)."""
+    return _legacy_fwd(x, w_stacked, layout, G, bsl_fwd_multi)
+
+
+def bsl_dx_multi(gy_flat: torch.Tensor, w_stacked: torch.Tensor,
+                 layout: BlockLayout, G: int) -> torch.Tensor:
+    """The v2 input gradient (TPU kernel ``_make_dx_multi``) from the
+    flat cotangent (M, Nb*G*bs) (:func:`flatten_cotangent`) -> (M, K) in
+    its dtype."""
+    return _legacy_dx(gy_flat, w_stacked, layout, G, bsl_dx_multi)
+
+
+def bsl_dw_multi(gy_flat: torch.Tensor, x: torch.Tensor,
+                 layout: BlockLayout, G: int) -> torch.Tensor:
+    """The v2 weight gradient (TPU kernel ``_make_dw_multi``) from the
+    flat cotangent -> (nnz, G*bs, bs) in its dtype."""
+    return _legacy_dw(gy_flat, x, layout, G, bsl_dw_multi)
+
+
+for _w in (bsl_fwd, bsl_dx, bsl_dw, bsl_fwd_multi, bsl_dx_multi,
+           bsl_dw_multi):
+    _w.launches = 0
+del _w
+
+
+def _tile_m(M: int, tile_m: int) -> int:
+    """The JAX package's row tiling rule: tile_m clamped to M, M a
+    multiple of it (the kernels here take any M; the rule stays)."""
+    tile_m = min(tile_m, M)
+    if M % tile_m:
+        raise ValueError("M=%d not divisible by tile_m=%d" % (M, tile_m))
+    return tile_m
+
+
+class _BlockSparseMatmul(torch.autograd.Function):
+    """The JAX package's ``block_sparse_matmul`` custom VJP: forward
+    kernel; dx and dw kernels against the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, w_packed, layout):
+        ctx.layout = layout
+        ctx.save_for_backward(x, w_packed)
+        return bsl_fwd(x, w_packed, layout)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w_packed = ctx.saved_tensors
+        gy = gy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = bsl_dx(gy, w_packed, ctx.layout)
+        if ctx.needs_input_grad[1]:
+            dw = bsl_dw(gy, x, ctx.layout)
+        return dx, dw, None
+
+
+class _BlockSparseMatmulMulti(torch.autograd.Function):
+    """The JAX package's ``block_sparse_matmul_multi`` custom VJP: the
+    (G, M, N) cotangent flattened to (M, Nb*G*bs) (the JAX ``_regroup``),
+    then the dx and dw kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w_stacked, layout, G):
+        ctx.meta = (layout, G)
+        ctx.save_for_backward(x, w_stacked)
+        return bsl_fwd_multi(x, w_stacked, layout, G)
+
+    @staticmethod
+    def backward(ctx, gy):
+        layout, G = ctx.meta
+        x, w_stacked = ctx.saved_tensors
+        gg = flatten_cotangent(gy, layout)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = bsl_dx_multi(gg, w_stacked, layout, G)
+        if ctx.needs_input_grad[1]:
+            dw = bsl_dw_multi(gg, x, layout, G)
+        return dx, dw, None, None
+
+
+def block_sparse_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                        layout: BlockLayout,
+                        tile_m: int = 256) -> torch.Tensor:
+    """``y = x @ scatter(w_packed).T`` over the kept blocks,
+    differentiable in x and w_packed (the legacy v1 API).
+
+    x (M, layout.K): a K-padded layout takes x at its padded width;
+    w_packed (nnz, bs, bs); float32 or bfloat16 each. -> (M, N) in x's
+    dtype; dx and dw come in the cotangent's dtype (x's), and autograd
+    casts dw to w_packed's. ``tile_m`` is the JAX package's row tile:
+    clamped to M, and M must be a multiple of it."""
+    _tile_m(x.shape[0], tile_m)
+    return _BlockSparseMatmul.apply(x.contiguous(), w_packed.contiguous(),
+                                    layout)
+
+
+def block_sparse_matmul_multi(x: torch.Tensor, w_stacked: torch.Tensor,
+                              layout: BlockLayout, n_mats: int,
+                              tile_m: int = 256) -> torch.Tensor:
+    """``ys[g] = x @ scatter(w_g).T`` for G = ``n_mats`` matrices sharing
+    one layout (the legacy v2 API), differentiable. x (M, layout.K),
+    w_stacked (nnz, G*bs, bs) (:func:`pack_blocks_multi`) -> (G, M, N) in
+    x's dtype; ``tile_m`` as in :func:`block_sparse_matmul`."""
+    _tile_m(x.shape[0], tile_m)
+    return _BlockSparseMatmulMulti.apply(x.contiguous(),
+                                         w_stacked.contiguous(), layout,
+                                         n_mats)
