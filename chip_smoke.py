@@ -48,7 +48,8 @@ Phases (any failure raises and the script exits non-zero):
              BPTT kernels and the block-sparse dw kernel against their
              twins: qbits 0/16, tanh/relu, w3g in f32 and in bf16 (the
              bf16 case forced by a small PKC_SPARSE_SCAN_VMEM_MB), dw with
-             and without the level-2 submask, at a small shape, the
+             and without the level-2 submask (and at the training shape
+             twice, bit for bit: its M is split), at a small shape, the
              serving shape (T=398, B=8, H=1024) and the training shape
              (T=300, B=16, H=1024), on the CGS-16x recurrent layout.
 9. sparse_serve — ``Recognizer.recognize`` over the CGS-16x stack (the
@@ -94,7 +95,11 @@ Phases (any failure raises and the script exits non-zero):
              rows; forward only) and the training shape (T=200, 32 rows,
              H=1024); the v3 forward and dx kernels at M=6400 (G=3,
              K=2048, R=4, 8-bit, submask; G=1; K-padded 2000 -> 2048;
-             plain); the dw kernel at the path's G=3 (v3) and G=1, 2 (dU).
+             plain; the forward also at the serving M=6368); the dw kernel
+             at the path's G=3 (v3) and G=1, 2 (dU), and at M=2400 the
+             CGS-16x Li-GRU's G=2 and minimalGRU's / RNN's G=1, each split-M
+             call twice, bit for bit; the G=3 forward and dw also on their
+             scalar-load instantiation (x 4 bytes off a float4).
 18. gru_serve — ``Recognizer.recognize`` over the LibriSpeech GRU stack
              (``cfg/LibriSpeech_baselines/libri_GRU_hcgs_multihost.cfg``'s
              5x1024 bidirectional GRU -> 1944-way head, feat_dim 40) on the
@@ -274,11 +279,32 @@ Phases (any failure raises and the script exits non-zero):
 51. legacy_bs_times — the legacy kernels' ms, twins, bounds and the
              dense-masked torch.matmul (dw: torch.bmm) computing the same
              function, at the libri layout (G=1, 3; f32, bf16) and the
-             CGS-16x G=4; the v3 kernels at the same G=3 shape.
-52. libri_ligru_times — rows 16-18 at the cfg's shapes, the libri
+             CGS-16x G=4; the v3 kernels at the same G=3 shape, the timed
+             v3 forward and dw against their twins, two dw calls bit for
+             bit.
+52. bs_gemm_times — rows 15 and 13 on their register-blocked tile: the
+             dw at every shape a model path launches it (the CGS-16x
+             LSTM's G=4, the libri GRU's v3 dw G=3 and dU G=1 and G=2,
+             the CGS-16x Li-GRU's G=2 and minimalGRU's / RNN's G=1 at
+             M=2400) beside torch.bmm of the same gathered operands and
+             its bound; the v3 forward at the libri training and serving
+             M, with and without the 8-bit quantizer and the submask,
+             beside the dense-masked matmul; row 14 re-timed; the device
+             kernels of one call of each, counted by torch.profiler and
+             held to the design (v3 forward 2, dw 1 or 2).
+53. libri_ligru_times — rows 16-18 at the cfg's shapes, the libri
              Li-GRU train step and recognize.
 
 Each phase prints its wall time (``[timing]``).
+
+    python3 chip_smoke.py --gemm-times [DIR]
+
+runs bs_gemm_times and the libri GRU's and the CGS-16x LSTM's f32 train
+steps alone and prints one JSON line: with this checkout's package, or
+with the package of an earlier tree unpacked into DIR, a git-ignored
+directory inside this checkout (``git archive <commit> | tar -x -C
+build/parent``; its kernels build under DIR/build). Run parent, change,
+change, parent in one call to compare on one card.
 
 The line before the last pair is the kernels JSON, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, ...}``. Needs
@@ -288,6 +314,7 @@ no network and one card; exits non-zero without one.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -632,6 +659,14 @@ def sync(dev):
 # phases
 # ---------------------------------------------------------------------------
 
+def smi_card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
 def phase_build():
     from pytorch_kaldi_cgs_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -641,10 +676,7 @@ def phase_build():
     print("[build] %d kernel source(s) in %.1f s -> %s"
           % (len(_build.SOURCES), time.perf_counter() - t0,
              _build.BUILD_DIR))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
+    smi = smi_card()
     print("[build] card: %s" % smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1445,8 +1477,8 @@ def kernel_classes(by_name):
                "gru_bptt_kernel": ("gru_bwd_carry", "gru_bwd_ds"),
                "rnn_fwd_kernel": ("rnn_step",),
                "rnn_bptt_kernel": ("rnn_bwd_step",),
-               "v3_kernel": ("v3_fwd_tile", "v3_dx_tile"),
-               "block_sparse_dw_kernel": ("dw3_tile",),
+               "v3_kernel": ("v3_fwd_gemm", "v3_weight_t", "v3_dx_tile"),
+               "block_sparse_dw_kernel": ("dw_gemm", "dw_reduce"),
                "matmul": ("gemm", "cutlass", "sm90_", "ampere_", "cublas"),
                }
     out = {k: 0.0 for k in classes}
@@ -1492,6 +1524,53 @@ def device_busy(fn, top=6):
             "top_kernels_ms": [[name[:60], n, t / 1e3]
                                for name, (n, t) in ranked[:top]],
             "by_name": by_name}
+
+
+def kernel_short_name(name):
+    """``void (anonymous namespace)::dw_gemm<true>(float const*, ...)`` ->
+    ``dw_gemm``."""
+    s = name.replace("(anonymous namespace)::", "")
+    s = s[5:] if s.startswith("void ") else s
+    m = re.match(r"[\w:]+", s)
+    return m.group(0).split("::")[-1] if m else name[:40]
+
+
+def device_kernels(fn):
+    """The device kernels one call of ``fn`` launches, by short name, as
+    torch.profiler's trace records them (read from the trace file it
+    writes). Where the trace holds no kernel records it counts the CUDA
+    runtime's launch calls instead, ``{"cuda_launch_calls": n}`` (late in
+    the full run the trace of such a short call had no kernel records,
+    while a fresh process's had them); None where it holds neither."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("device_kernels"):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", "device_kernels_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    out, calls = {}, 0
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("cat") == "kernel":
+            k = kernel_short_name(name)
+            out[k] = out.get(k, 0) + 1
+        elif e.get("cat") == "cuda_runtime" and name.startswith(
+                ("cudaLaunchKernel", "cuLaunchKernel")):
+            calls += 1
+    if out:
+        return out
+    print("[device_kernels] no kernel records, %d launch calls; trace "
+          "categories: %s" % (calls, sorted({str(e.get("cat"))
+                                             for e in events})))
+    return {"cuda_launch_calls": calls} if calls else None
 
 
 # ---------------------------------------------------------------------------
@@ -1572,6 +1651,14 @@ def dw_operands(dg, h_prev, layout):
     dg_flat = dg.reshape(T * B, 4, layout.Nb, layout.bs).transpose(1, 2) \
         .reshape(T * B, -1).contiguous()
     return dg_flat, h_prev.reshape(T * B, H).contiguous()
+
+
+def same_bits(fn):
+    """(max abs difference, the same) of two calls of ``fn``: (0, 0) when
+    they give equal bits (a check at tol 0)."""
+    a, b = fn(), fn()
+    err = 0.0 if torch.equal(a, b) else float((a - b).abs().max())
+    return err, err
 
 
 def record_check(checks, tag, name, where, variant, err_rel, tol, by_rel):
@@ -1659,6 +1746,11 @@ def phase_sparse_kernels(dev):
                                   BS.block_sparse_dw_plain(dg_flat, x, layout,
                                                            4, sub)),
                           TOL_F32_SMALL, True)
+                if shape == SP_TRAIN_TBH and act == "tanh":
+                    check("block_sparse_dw/determinism", shape,
+                          {"M": T * B, "G": 4}, same_bits(
+                              lambda: BS.block_sparse_dw(dg_flat, x, layout,
+                                                         4)), 0.0, False)
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
@@ -2316,7 +2408,8 @@ def phase_gru_kernels(dev):
     serving and training shapes (the BPTT at the small and training
     ones), the v3 forward and dx kernels (G=3 with the 8-bit quantizer
     and the submask; G=1; a K-padded layout; the plain variant) and the
-    dw kernel at the path's G=1, 2, 3, against their twins."""
+    dw kernel at the path's G=1, 2, 3, against their twins; the forward
+    and the dw at G=3 also on their scalar-load instantiation."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
@@ -2386,21 +2479,64 @@ def phase_gru_kernels(dev):
                           BS.block_sparse_dw_plain(v["gy"], xp, layout, G,
                                                    sub3)),
                       TOL_F32_SMALL, True)
-    # the GRU's dU: G=1 over q(s), G=2 over q(h_prev), K = H
+                check("block_sparse_dw/determinism", (M, K, layout.N),
+                      dict(variant, path="v3 dw, G=3"), same_bits(
+                          lambda: BS.block_sparse_dw(v["gy"], xp, layout, G,
+                                                     sub3)), 0.0, False)
+                # the serving M (398 x 16): its last tile of M is ragged
+                Ms = GR_SERVE_TBH[0] * GR_SERVE_TBH[1]
+                check("block_sparse_v3_fwd", (Ms, K, layout.N),
+                      dict(variant, M=Ms), rel_err(
+                          BS.block_sparse_v3_fwd(xp[:Ms], v["w3"], layout, G,
+                                                 qbits, sub3),
+                          BS.block_sparse_v3_fwd_plain(xp[:Ms], v["w3"],
+                                                       layout, G, qbits,
+                                                       sub3)),
+                      TOL_F32_SMALL, True)
+                # the scalar-load instantiation of both GEMMs: x copied 4
+                # bytes off a float4 (no model path gives them one)
+                buf = torch.empty(xp.numel() + 1, device=dev)
+                xo = buf[1:].view(xp.shape).copy_(xp)
+                if BS.gemm_vec(layout.bs, xo):
+                    raise AssertionError("x 4 bytes off a float4 took the "
+                                         "16-byte loads")
+                scalar = dict(variant, loads="scalar")
+                check("block_sparse_v3_fwd", (M, K, layout.N), scalar,
+                      rel_err(BS.block_sparse_v3_fwd(xo, v["w3"], layout, G,
+                                                     qbits, sub3),
+                              BS.block_sparse_v3_fwd_plain(
+                                  xp, v["w3"], layout, G, qbits, sub3)),
+                      TOL_F32_SMALL, True)
+                check("block_sparse_dw", (M, K, layout.N),
+                      dict(scalar, path="v3 dw, G=3"), rel_err(
+                          BS.block_sparse_dw(v["gy"], xo, layout, G, sub3),
+                          BS.block_sparse_dw_plain(v["gy"], xp, layout, G,
+                                                   sub3)),
+                      TOL_F32_SMALL, True)
+                del buf, xo
+    # the GRU's dU: G=1 over q(s), G=2 over q(h_prev), K = H; the CGS-16x
+    # Li-GRU's (G=2) and minimalGRU's / RNN's (G=1) at T=300, B=8
     T, B, H = GR_TRAIN_TBH
     _, layout = gru_layout(H, H, 140)
+    cgs = cgs_layout(H, 142)[1]
     rng = np.random.RandomState(141)
-    for G in (1, 2):
-        dg = torch.tensor(rng.randn(T * B, layout.Nb * G * 128)
+    for lay, M, G, path in ((layout, T * B, 1, "GRU dU"),
+                            (layout, T * B, 2, "GRU dU"),
+                            (cgs, 2400, 2, "CGS-16x liGRU dU"),
+                            (cgs, 2400, 1, "CGS-16x minimalGRU/RNN dU")):
+        dg = torch.tensor(rng.randn(M, lay.Nb * G * 128)
                           .astype(np.float32), device=dev)
-        x = torch.tensor(rng.randn(T * B, H).astype(np.float32), device=dev)
+        x = torch.tensor(rng.randn(M, H).astype(np.float32), device=dev)
+        variant = {"G": G, "path": path, "M": M, "Kb": lay.Kb, "R": lay.R,
+                   "splits": BS.dw_plan(M, lay.Nb, G, lay.R, 128,
+                                        BS.gemm_grid(dev))[1]}
         with torch.no_grad():
-            check("block_sparse_dw", (T * B, H, H),
-                  {"G": G, "path": "GRU dU", "Kb": layout.Kb,
-                   "R": layout.R}, rel_err(
-                      BS.block_sparse_dw(dg, x, layout, G),
-                      BS.block_sparse_dw_plain(dg, x, layout, G)),
-                  TOL_F32_SMALL, True)
+            check("block_sparse_dw", (M, H, H), variant, rel_err(
+                BS.block_sparse_dw(dg, x, lay, G),
+                BS.block_sparse_dw_plain(dg, x, lay, G)), TOL_F32_SMALL, True)
+            check("block_sparse_dw/determinism", (M, H, H), variant,
+                  same_bits(lambda: BS.block_sparse_dw(dg, x, lay, G)), 0.0,
+                  False)
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
@@ -2473,11 +2609,15 @@ def gru_train_runner(dev, compute_dtype="", quant_inp=True):
 @contextlib.contextmanager
 def dw_groups():
     """Count the block-sparse dw kernel's launches by G (the v3 dw at
-    G=3, the GRU's dU at G=1 and G=2) while the block runs."""
+    G=3, the GRU's dU at G=1 and G=2) while the block runs; a launch that
+    takes the scalar-load instantiation (a misaligned operand) raises."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     real, by_g = BS._dw_kernel, {}
 
     def spy(dg_flat, x, layout, G, sub3):
+        if not BS.gemm_vec(layout.bs, dg_flat, x, sub3):
+            raise AssertionError("the dw kernel took its scalar loads at G=%d"
+                                 % G)
         by_g[G] = by_g.get(G, 0) + 1
         return real(dg_flat, x, layout, G, sub3)
     BS._dw_kernel = spy
@@ -2564,13 +2704,10 @@ def v3_bound_ms(M, layout, G):
 def phase_gru_times(dev, rec, audio, lens):
     """CUDA-event times per layer call at the training shape (T=200, 32
     rows, H=1024; tanh, qbits 16 as the cfg runs them; the GRU forward
-    also at the serving shape, T=398, 16 rows) of the sparse GRU kernels
-    and the v3 pair (M = T*32, G=3, K=2048, qbits 8 with the submask; the
-    forward also at the serving M), their twins, bounds and yardsticks
-    (cuDNN's nn.GRU(1024, 1024) at 32 rows; the dense-masked
-    torch.matmul the v3 layer replaces); the libri GRU train step and
-    recognize."""
-    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    also at the serving shape, T=398, 16 rows) of the sparse GRU kernels,
+    their twins, bounds and yardstick (cuDNN's nn.GRU(1024, 1024) at 32
+    rows); the libri GRU train step and recognize. The v3 pair's are
+    bs_gemm_times'."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     T, B, H = GR_TRAIN_TBH
     qb, act = 16, "tanh"
@@ -2611,43 +2748,9 @@ def phase_gru_times(dev, rec, audio, lens):
             reps=2, warmup=1)
         times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
             gru_bound_ms(Ts, Bs, H, kept, "fwd")
-        # the v3 pair and its dw at the training M
-        M, G = T * B, 3
-        v = v3_inputs(M, G, 152, dev)
-        vl, sub3 = v["layout"], v["sub3"]
-        x, w3, gy = v["x"], v["w3"], v["gy"]
-        v3 = {
-            "block_sparse_v3_fwd": (
-                lambda: BS.block_sparse_v3_fwd(x, w3, vl, G, 8, sub3),
-                lambda: BS.block_sparse_v3_fwd_plain(x, w3, vl, G, 8, sub3)),
-            "block_sparse_v3_dx": (
-                lambda: BS.block_sparse_v3_dx(gy, w3, vl, G, 8, sub3),
-                lambda: BS.block_sparse_v3_dx_plain(gy, w3, vl, G, 8, sub3))}
-        for name, (fn, plain) in v3.items():
-            times[name + "_ms"] = cuda_ms(fn, reps=10)
-            times[name + "_plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
-            times[name + "_bound_ms"], times[name + "_bound_by"] = \
-                v3_bound_ms(M, vl, G)
-        times["v3_dw_ms"] = cuda_ms(
-            lambda: BS.block_sparse_dw(gy, x, vl, G, sub3), reps=10)
-        xs = torch.randn(Ts * Bs, vl.K, device=dev)
-        times["serve_v3_fwd_ms"] = cuda_ms(
-            lambda: BS.block_sparse_v3_fwd(xs, w3, vl, G, 8, sub3), reps=10)
-        times["serve_v3_fwd_bound_ms"], times["serve_v3_fwd_bound_by"] = \
-            v3_bound_ms(Ts * Bs, vl, G)
-        # the dense-masked projection the v3 layer replaces: (M, 2048) @
-        # (2048, 3072) and its dx, (M, 3072) @ (3072, 2048)
-        W = torch.randn(G * vl.N, vl.K, device=dev)
-        dy = torch.randn(M, G * vl.N, device=dev)
-        times["dense_masked_fwd_ms"] = cuda_ms(lambda: x @ W.T, reps=20)
-        times["dense_masked_dx_ms"] = cuda_ms(lambda: dy @ W, reps=20)
-        times["serve_dense_masked_fwd_ms"] = cuda_ms(lambda: xs @ W.T,
-                                                     reps=20)
     times.update(cudnn_times(dev, T, B, H, Ts, Bs))
     print("[gru_times] kernels at T=%d B=%d H=%d (Kb=%d, R=%d; tanh, qbits "
-          "16) and v3 at M=%d K=%d G=3 (Kb=%d, R=%d): %s"
-          % (T, B, H, layout.Kb, layout.R, M, vl.K, vl.Kb, vl.R,
-             json.dumps(times)))
+          "16): %s" % (T, B, H, layout.Kb, layout.R, json.dumps(times)))
     step = train_step_times(dev, gru_train_runner, "gru_times", 5, 3)
     serve = serve_timings(rec, audio, lens)
     print("[gru_times] libri GRU recognizer (8 x 4 s batch): %s"
@@ -2719,12 +2822,19 @@ def gru_rows(checks, times, launches):
                    "ms": times["serve_v3_fwd_ms"],
                    "bound_ms": times["serve_v3_fwd_bound_ms"],
                    "bound_by": times["serve_v3_fwd_bound_by"],
-                   "library_ms": times["serve_dense_masked_fwd_ms"]}),
+                   "library_ms": times["serve_dense_masked_fwd_ms"],
+                   "ms_q0": times["serve_v3_fwd_ms_q0"],
+                   "device_launches": times["serve_v3_fwd_device_launches"],
+                   "max_abs_err": err_at("block_sparse_v3_fwd", G=3,
+                                         K=2048, qbits=8,
+                                         M=GR_SERVE_TBH[0] * GR_SERVE_TBH[1])},
+            ms_q0=times["block_sparse_v3_fwd_ms_q0"],
+            device_launches=times["block_sparse_v3_fwd_device_launches"]),
         row("block_sparse_v3_dx", "block_sparse_v3", bsp % 744,
             times["dense_masked_dx_ms"],
             dense % "(6400, 3072) x (3072, 2048)",
             err_at("block_sparse_v3_dx", G=3, K=2048, qbits=8), v3,
-            v3_dw_ms=times["v3_dw_ms"])]
+            v3_dw_ms=times["dw_libri_v3_G3_ms"])]
 
 
 # ---------------------------------------------------------------------------
@@ -5265,6 +5375,22 @@ def phase_legacy_bs_times(dev):
                 lambda: BS.block_sparse_v3_dx(gy, w3, vl, 3, q, sub), reps=10)
             times["v3_dw_ms" + sfx] = cuda_ms(
                 lambda: BS.block_sparse_dw(gy, x, vl, 3, sub), reps=10)
+            # the timed calls against their twins, and the split-M dw's
+            # two calls bit for bit
+            for op, got, ref in (
+                    ("fwd", BS.block_sparse_v3_fwd(x, w3, vl, 3, q, sub),
+                     BS.block_sparse_v3_fwd_plain(x, w3, vl, 3, q, sub)),
+                    ("dw", BS.block_sparse_dw(gy, x, vl, 3, sub),
+                     BS.block_sparse_dw_plain(gy, x, vl, 3, sub))):
+                rel = rel_err(got, ref)[1]
+                times["v3_%s_rel_err%s" % (op, sfx)] = rel
+                if not rel <= TOL_F32_SMALL:
+                    raise AssertionError("v3 %s%s disagrees with its twin: "
+                                         "%.3g" % (op, sfx, rel))
+            err = same_bits(lambda: BS.block_sparse_dw(gy, x, vl, 3, sub))[0]
+            if err:
+                raise AssertionError("two split-M dw calls differ by %g"
+                                     % err)
     print("[legacy_bs_times] libri x-projection (M=%d, K=%d, N=%d, Kb=%d, "
           "R=%d), CGS-16x (M=%d, Kb=%d, R=%d): %s"
           % (LB_M, libri.K, libri.N, libri.Kb, libri.R, LB_CGS_M, cgs.Kb,
@@ -5318,6 +5444,162 @@ def slice11_rows(checks, times, api_launches):
             r["v3_same_shape_ms"] = times["v3_%s_ms" % op]
         rows.append(r)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# rows 13 and 15 on the register-blocked GEMM tile: every shape a model
+# path launches them at
+# ---------------------------------------------------------------------------
+
+def dw_shapes():
+    """(tag, layout, M, G, sub3 or None) of every dw call on a model path:
+    the CGS-16x LSTM's dU (G=4, M=4800), the libri GRU's v3 dw (G=3, K=2048,
+    R=4, with the submask) and its dU (G=1 over q(r*h), G=2 over q(h); K=H,
+    R=2), the CGS-16x Li-GRU's dU (G=2) and the CGS-16x minimalGRU's and
+    RNN's (G=1) at T=300, B=8."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    cgs = cgs_layout(1024, 230)[1]
+    mask, v3 = gru_layout(1024, 2048, 231, pad_k=True)
+    rec = gru_layout(1024, 1024, 232)[1]
+    sub = BS.stack_w3_gates([BS.pack_w3(mask, v3)] * 3)
+    return (("cgs16x_lstm_G4", cgs, 4800, 4, None),
+            ("libri_v3_G3", v3, 6400, 3, sub),
+            ("libri_dU_G1", rec, 6400, 1, None),
+            ("libri_dU_G2", rec, 6400, 2, None),
+            ("cgs16x_ligru_G2", cgs, 2400, 2, None),
+            ("cgs16x_mgru_rnn_G1", cgs, 2400, 1, None))
+
+
+def dw_bound_ms(M, layout, G, sub=False):
+    """Least time for one dw call in float32: dg (M, Nb*G*bs) and x (M,
+    K) in (and sub3), dw3g out; 2*M*Nb*G*bs*R*bs FMAs over the float32
+    peak."""
+    w = layout.Nb * G * layout.bs * layout.R * layout.bs
+    return roofline_ms((M * layout.Nb * G * layout.bs + M * layout.K
+                        + w * (2 if sub else 1)) * 4, 2 * M * w)
+
+
+def phase_bs_gemm_times(dev, reps=20):
+    """CUDA-event ms per call of row 15 (the dw kernel) at every shape of
+    dw_shapes beside torch.bmm of the same gathered operands (the same
+    function in one PyTorch call) and its bound, and of row 13 (the v3
+    forward) at the libri GRU's training and serving M with and without
+    the 8-bit quantizer and the submask beside the dense-masked
+    torch.matmul, and row 14 (dx) re-timed; the device kernels of one
+    call of each (``device_kernels``). Only the public wrappers are
+    called, so the same phase times an earlier tree's kernels
+    (``--gemm-times DIR``)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    times = {}
+    gen = torch.Generator(device=dev).manual_seed(233)
+    with torch.no_grad():
+        for tag, layout, M, G, sub in dw_shapes():
+            bs, Nb = layout.bs, layout.Nb
+            dg = torch.randn(M, Nb * G * bs, device=dev, generator=gen)
+            x = torch.randn(M, layout.K, device=dev, generator=gen)
+            sub3 = None if sub is None else torch.tensor(sub, device=dev)
+            dgb = dg.reshape(M, Nb, G * bs).permute(1, 2, 0).contiguous()
+            xg = BS.gather_cols(x, layout).contiguous()
+            times["dw_%s_ms" % tag] = cuda_ms(
+                lambda: BS.block_sparse_dw(dg, x, layout, G, sub3), reps=reps)
+            times["dw_%s_library_ms" % tag] = cuda_ms(
+                lambda: torch.bmm(dgb, xg), reps=reps)
+            times["dw_%s_bound_ms" % tag], times["dw_%s_bound_by" % tag] = \
+                dw_bound_ms(M, layout, G, sub is not None)
+            times["dw_%s_shape" % tag] = {
+                "M": M, "G": G, "K": layout.K, "Nb": Nb, "R": layout.R,
+                "bs": bs, "sub3": sub is not None}
+            times["dw_%s_device_launches" % tag] = device_kernels(
+                lambda: BS.block_sparse_dw(dg, x, layout, G, sub3))
+            del dg, x, dgb, xg
+        # the v3 pair at the libri layout (G=3, K=2048, R=4), qbits 8 with
+        # the submask as the libri GRU runs it (and without), at the
+        # training M = T*32 and (the forward) the serving M = 398*16;
+        # gru_rows reads these keys
+        G = 3
+        for pre, (T, B, _) in (("block_sparse_v3_fwd", GR_TRAIN_TBH),
+                               ("serve_v3_fwd", GR_SERVE_TBH)):
+            M = T * B
+            train = pre == "block_sparse_v3_fwd"
+            v = v3_inputs(M, G, 234, dev)
+            vl, sub3, w3 = v["layout"], v["sub3"], v["w3"]
+            x = BS.pad_cols(v["x"], vl.K).contiguous()
+            times[pre + "_ms"] = cuda_ms(
+                lambda: BS.block_sparse_v3_fwd(x, w3, vl, G, 8, sub3),
+                reps=reps)
+            times[pre + "_ms_q0"] = cuda_ms(
+                lambda: BS.block_sparse_v3_fwd(x, w3, vl, G, 0, None),
+                reps=reps)
+            times[pre + "_device_launches"] = device_kernels(
+                lambda: BS.block_sparse_v3_fwd(x, w3, vl, G, 8, sub3))
+            times[pre + "_bound_ms"], times[pre + "_bound_by"] = \
+                v3_bound_ms(M, vl, G)
+            W = torch.randn(G * vl.N, vl.K, device=dev, generator=gen)
+            times[("" if train else "serve_") + "dense_masked_fwd_ms"] = \
+                cuda_ms(lambda: x @ W.T, reps=reps)
+            if train:
+                gy = v["gy"]
+                times[pre + "_plain_ms"] = cuda_ms(
+                    lambda: BS.block_sparse_v3_fwd_plain(x, w3, vl, G, 8,
+                                                         sub3),
+                    reps=3, warmup=1)
+                dx = "block_sparse_v3_dx"
+                times[dx + "_ms"] = cuda_ms(
+                    lambda: BS.block_sparse_v3_dx(gy, w3, vl, G, 8, sub3),
+                    reps=reps)
+                times[dx + "_plain_ms"] = cuda_ms(
+                    lambda: BS.block_sparse_v3_dx_plain(gy, w3, vl, G, 8,
+                                                        sub3),
+                    reps=3, warmup=1)
+                times[dx + "_bound_ms"], times[dx + "_bound_by"] = \
+                    v3_bound_ms(M, vl, G)
+                dy = torch.randn(M, G * vl.N, device=dev, generator=gen)
+                times["dense_masked_dx_ms"] = cuda_ms(lambda: dy @ W,
+                                                      reps=reps)
+                del gy, dy
+            del v, x, W
+    torch.cuda.empty_cache()
+    print("[bs_gemm_times] %s" % json.dumps(times))
+    return times
+
+
+def gemm_times_main(root):
+    """``python3 chip_smoke.py --gemm-times [DIR]``: phase_bs_gemm_times
+    and the f32 train steps of the libri GRU and the CGS-16x LSTM (CUDA
+    events, mean of 5 after 2) with the package of this checkout or of
+    the tree unpacked at DIR inside it (an earlier commit's, to compare
+    kernels on one card); one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    here = os.path.realpath(ROOT)
+    root = os.path.realpath(os.path.join(ROOT, root))
+    if os.path.commonpath([here, root]) != here:
+        print("chip_smoke: --gemm-times takes a directory inside %s" % here,
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
+    from pytorch_kaldi_cgs_tpu_torch.ops import _build
+    _build.build(_build.SOURCES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    out = {"root": os.path.relpath(root, here),
+           "package": os.path.relpath(os.path.dirname(_build.CSRC), here),
+           "card": smi_card(),
+           "times": phase_bs_gemm_times(dev)}
+    for tag, make in (("libri_gru", gru_train_runner),
+                      ("cgs16x_lstm", cgs_train_runner)):
+        runner, (inp, mask) = make(dev)
+        inp = torch.as_tensor(inp, device=dev)
+        mask = torch.as_tensor(mask, device=dev)
+        out["%s_step_ms_f32" % tag] = cuda_ms(
+            lambda: runner.train_step(inp, mask), reps=5)
+        del runner
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -5554,12 +5836,52 @@ def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
             library_note="cuDNN nn.LSTM backward (fwd+bwd minus fwd)")]}
 
 
-def sparse_rows(checks, times, launches):
+def dw_by_shape(bs_times):
+    """Row 15 at every shape of dw_shapes (bs_gemm_times): ms, torch.bmm
+    of the gathered operands, the bound, the shape and the device kernels
+    of one call as the profiler counted them."""
+    return {tag: dict(bs_times["dw_%s_shape" % tag],
+                      **{k: bs_times["dw_%s_%s" % (tag, k)] for k in (
+                          "ms", "library_ms", "bound_ms", "bound_by",
+                          "device_launches")})
+            for tag, *_ in dw_shapes()}
+
+
+def check_gemm_launches(bs_times, dev):
+    """The device kernels of one call as bs_gemm_times counted them
+    against the design: the v3 forward v3_weight_t then v3_fwd_gemm; the
+    dw one dw_gemm, and one dw_reduce where dw_plan splits M (where the
+    trace held only launch calls, their number). Raises on a difference;
+    where the profiler showed nothing there is nothing to hold."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    want = {"block_sparse_v3_fwd": {"v3_weight_t": 1, "v3_fwd_gemm": 1},
+            "serve_v3_fwd": {"v3_weight_t": 1, "v3_fwd_gemm": 1}}
+    for tag, layout, M, G, _ in dw_shapes():
+        splits = BS.dw_plan(M, layout.Nb, G, layout.R, layout.bs,
+                            BS.gemm_grid(dev))[1]
+        want["dw_" + tag] = dict({"dw_gemm": 1},
+                                 **({"dw_reduce": 1} if splits > 1 else {}))
+    def agrees(got, v):
+        if got is None or got == v:
+            return True
+        return list(got) == ["cuda_launch_calls"] and \
+            got["cuda_launch_calls"] == sum(v.values())
+    bad = {k: bs_times[k + "_device_launches"] for k, v in want.items()
+           if not agrees(bs_times[k + "_device_launches"], v)}
+    if bad:
+        raise AssertionError("device kernels per call differ from the "
+                             "design %s: %s" % (want, bad))
+    print("[bs_gemm_times] device kernels per call: %s" % json.dumps(
+        {k: bs_times[k + "_device_launches"] for k in want}))
+
+
+def sparse_rows(checks, times, launches, bs_times):
     """The kernels JSON rows of the block-sparse slice. ``ms`` etc. are
     per layer call at the CGS-16x training shape (f32 w3g); ``launches``
     counts one CGS-16x train step (stash backward; the recompute
     backward for fused_lstm_bwd_sparse); ``dense_h1024_ms`` is the
-    dense fused kernel on the same layer (the masked U)."""
+    dense fused kernel on the same layer (the masked U). Row 15 also at
+    every shape a model path gives it (``by_shape``, bs_gemm_times)."""
     T, B, H = SP_TRAIN_TBH
     csrc = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/%s.cu"
     jax_fl = "pytorch_kaldi_cgs_tpu/ops/fused_lstm.py:%d"
@@ -5618,7 +5940,10 @@ def sparse_rows(checks, times, launches):
             times["block_sparse_dw_library_ms"],
             "torch.bmm over the pre-gathered operands",
             err_at("block_sparse_dw", fuse_sub=False, act="tanh"), None,
-            ms_fuse_sub=times["block_sparse_dw_ms_fuse_sub"])]
+            ms_fuse_sub=times["block_sparse_dw_ms_fuse_sub"],
+            by_shape=dw_by_shape(bs_times),
+            deterministic=all(c["ok"] for c in checks if c["kernel"]
+                              == "block_sparse_dw/determinism"))]
 
 
 def timed(name, fn, *args):
@@ -5792,6 +6117,8 @@ def main():
                                         phase_rnn_sparse_times, dev, rs_rec,
                                         audio, lens)
     lb_times = timed("legacy_bs_times", phase_legacy_bs_times, dev)
+    bs_times = timed("bs_gemm_times", phase_bs_gemm_times, dev)
+    check_gemm_launches(bs_times, dev)
     ll_times, ll_step, ll_serve = timed("libri_ligru_times",
                                         phase_libri_ligru_times, dev, ll_rec,
                                         audio, lens)
@@ -5994,6 +6321,8 @@ def main():
                                  % (name, paths))
     sp_launches["block_sparse_dw"]["cgs_mgru_train"] = \
         sp_rc["block_sparse_dw"]
+    sp_launches["block_sparse_dw"]["cgs_ligru_train"] = \
+        cl_tr["block_sparse_dw"]
     print("[summary] minimalGRU %s" % json.dumps({
         tag: {"serve": dict(mg_serves[tag],
                             posteriors_vs_cpu_max_abs_err=r["post_err"],
@@ -6050,7 +6379,8 @@ def main():
         "api_launches": lb_api, "checks": len(lb_checks), "times": lb_times}))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
                         launches)
-    line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches)
+    line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches,
+                                   bs_times)
     line["kernels"] += dense_rnn_rows(
         lg_checks, lg_times, lg_launches, "ligru", (28, 112, 168),
         LG_TRAIN_TBH, LG_SERVE_TBH, "relu", 16,
@@ -6059,7 +6389,8 @@ def main():
          "ms_repeat": "fused_ligru_fwd_stash_ms",
          "ms_q0": "fused_ligru_fwd_stash_ms_q0",
          "ms_nostash_q0": "fused_ligru_fwd_nostash_ms_q0"})
-    line["kernels"] += gru_rows(gr_checks, gr_times, gr_launches)
+    line["kernels"] += gru_rows(gr_checks, dict(gr_times, **bs_times),
+                                gr_launches)
     line["kernels"] += dense_rnn_rows(
         tg_checks, tg_times, tg_launches, "gru", (301, 386, 449),
         TG_TRAIN_TBH, TG_SERVE_TBH, "tanh", 0,
@@ -6087,4 +6418,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gemm-times"]:
+        sys.exit(gemm_times_main(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

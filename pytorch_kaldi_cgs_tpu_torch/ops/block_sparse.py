@@ -23,6 +23,11 @@ Three TPU kernels become CUDA kernels for ``sm_90a``:
   projection and the ``dU`` of the sparse fused recurrences
   (``ops.fused_lstm.sparse_dU``).
 
+The forward and the dw run on one register-blocked float32 GEMM tile
+(``csrc/bs_gemm.cuh``: 128 x 128 outputs a block, cp.async-staged
+slabs); :func:`dw_plan` splits the dw's M where its grid is small, and
+:func:`gemm_vec` picks the 16-byte-load instantiation.
+
 Six more, the legacy API over packed (nnz, G*bs, bs) blocks (v1 is
 G=1), become the three kernels of ``csrc/block_sparse_legacy.cu``, each
 taken at G=1 and at G>1, float32 or bfloat16 operands, float32 sums:
@@ -51,6 +56,7 @@ twin on a CPU tensor; its attribute ``launches`` counts launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -274,21 +280,108 @@ def block_sparse_dw_plain(dg_flat: torch.Tensor, x: torch.Tensor,
     return dw * sub3 if sub3 is not None else dw
 
 
+@dataclass(frozen=True)
+class GemmGrid:
+    """What the dw kernel's split plan needs of the card and of
+    csrc/bs_gemm.cuh's tile: the card's SMs, the tile's output rows and
+    columns (TILE), its contraction rows per staged slab (BK) and the
+    blocks resident on an SM (MIN_BLOCKS of __launch_bounds__)."""
+    sms: int
+    tile: int
+    bk: int
+    blocks_per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_grid(index: int) -> GemmGrid:
+    from . import _build
+    fn = _build.load("block_sparse_dw").bs_gemm_config
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    tile = (ctypes.c_int * 3)()
+    fn(tile)
+    return GemmGrid(
+        torch.cuda.get_device_properties(index).multi_processor_count, *tile)
+
+
+def gemm_grid(dev) -> GemmGrid:
+    """The GemmGrid of CUDA device ``dev``: the tile as the built dw
+    library reports it (``bs_gemm_config``), the SM count as the device
+    does."""
+    dev = torch.device(dev)
+    return _gemm_grid(torch.cuda.current_device() if dev.index is None
+                      else dev.index)
+
+
+# the fewest rows of M one split of the dw kernel walks
+DW_SPLIT_MIN_ROWS = 128
+# a dw block's fixed cost in staged slabs: the pipeline's fill (the
+# tile's three slabs in flight) and its epilogue. Counted from the design,
+# not fitted to a measurement; with it the plan keeps one split where the
+# tiles fill whole rounds of slots
+DW_BLOCK_OVERHEAD_SLABS = 3
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(M: int, Nb: int, G: int, R: int, bs: int, grid: GemmGrid):
+    """The dw kernel's grid, from the shape and ``grid`` (:func:`gemm_grid`
+    on the card): -> (tiles, splits, rows). ``tiles`` counts its tile x
+    tile output tiles over the Nb (G*bs, R*bs) slices; M is cut into
+    ``splits`` parts of ``rows`` rows (a multiple of grid.bk; the last
+    part may be shorter), each at least DW_SPLIT_MIN_ROWS. The split
+    minimises the modelled time: rounds of the resident slots (sms x
+    blocks_per_sm) that tiles x splits blocks take, times the rows a block
+    walks plus its fixed cost (DW_BLOCK_OVERHEAD_SLABS slabs). Small grids
+    (the LibriSpeech GRU's dU: 16 tiles on the H100's 264 slots) split
+    into about one full round; a grid that fills whole rounds keeps one
+    split."""
+    tiles = Nb * _cdiv(G * bs, grid.tile) * _cdiv(R * bs, grid.tile)
+    slots = grid.sms * grid.blocks_per_sm
+    overhead = DW_BLOCK_OVERHEAD_SLABS * grid.bk
+    best = None
+    for want in range(1, max(1, M // DW_SPLIT_MIN_ROWS) + 1):
+        rows = _cdiv(_cdiv(max(M, 1), want), grid.bk) * grid.bk
+        splits = _cdiv(max(M, 1), rows)
+        cost = _cdiv(tiles * splits, slots) * (rows + overhead)
+        if best is None or cost < best[0]:
+            best = (cost, splits, rows)
+    return tiles, best[1], best[2]
+
+
+def gemm_vec(bs: int, *tensors: Optional[torch.Tensor]) -> bool:
+    """Whether the GEMM kernels take their 16-byte-load instantiation:
+    bs a multiple of 4 (a float4 of columns then lies inside one kept
+    block and one gate) and every operand 16-byte aligned; else the
+    scalar-load one."""
+    return bs % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0
+                               for t in tensors)
+
+
 def _dw_kernel(dg_flat, x, layout, G, sub3):
     from . import _build
     lib = _build.load("block_sparse_dw")
     fn = lib.block_sparse_dw
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    M = x.shape[0]
-    dev = x.device
-    out = torch.empty((layout.Nb, G * layout.bs, layout.R * layout.bs),
-                      dtype=torch.float32, device=dev)
+    M, dev = x.shape[0], x.device
+    _, splits, rows = dw_plan(M, layout.Nb, G, layout.R, layout.bs,
+                              gemm_grid(dev))
+    shape = _w3_shape(layout, G)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    part = None if splits == 1 else torch.empty(
+        (splits,) + shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = fn(dg_flat.data_ptr(), x.data_ptr(),
                 layout.device_index("col_idx", dev).data_ptr(),
                 None if sub3 is None else sub3.data_ptr(), out.data_ptr(),
-                M, layout.K, layout.Nb, layout.R, layout.bs, G,
+                None if part is None else part.data_ptr(),
+                M, layout.K, layout.Nb, layout.R, layout.bs, G, splits, rows,
+                int(gemm_vec(layout.bs, dg_flat, x, sub3)),
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "block_sparse_dw")
     block_sparse_dw.launches += 1
@@ -304,7 +397,10 @@ def block_sparse_dw(dg_flat: torch.Tensor, x: torch.Tensor,
 
     ``dg_flat`` (M, Nb*G*bs): per out-block j, its G gates' bs-wide
     slices side by side; ``x`` (M, K). Float32, contiguous. CUDA tensors
-    run the kernel (float32 FMAs, no TF32), CPU tensors the twin."""
+    run the kernel (float32 FMAs, no TF32; M split as :func:`dw_plan`
+    says, the partials summed in a fixed order by a second launch, so two
+    calls give the same bits), CPU tensors the twin; ``launches`` counts
+    calls."""
     M = x.shape[0]
     if _check_operands(dg_flat, (("dg_flat", dg_flat,
                                   (M, _flat_width(layout, G))),
@@ -435,18 +531,22 @@ def block_sparse_v3_fwd(x: torch.Tensor, w3: torch.Tensor,
 
     ``x`` (M, K) of a K-padded layout's padded width, ``w3`` and ``sub3``
     (Nb, G*bs, R*bs), float32. -> (G, M, N) float32. CUDA tensors run the
-    kernel (float32 FMAs, no TF32), CPU tensors the twin; no autograd
-    (:func:`block_sparse_matmul_v3` carries the backward)."""
+    kernel (float32 FMAs, no TF32: two launches, the effective weight
+    written once into scratch, then the GEMM; ``launches`` counts calls),
+    CPU tensors the twin; no autograd (:func:`block_sparse_matmul_v3`
+    carries the backward)."""
     M = x.shape[0]
     if _check_operands(x, (("x", x, (M, layout.K)),
                            ("w3", w3, _w3_shape(layout, G)),
                            ("sub3", sub3, _w3_shape(layout, G)))):
         return block_sparse_v3_fwd_plain(x, w3, layout, G, qbits, sub3)
     ys = torch.empty((G, M, layout.N), dtype=torch.float32, device=x.device)
+    wt = torch.empty((layout.Nb, layout.R * layout.bs, G * layout.bs),
+                     dtype=torch.float32, device=x.device)
     _v3_kernel("block_sparse_v3_fwd",
-               (x, w3, layout.device_index("col_idx", x.device)),
-               (M, layout.K, layout.N, layout.Nb, layout.R, layout.bs, G),
-               ys, qbits, sub3)
+               (x, w3, layout.device_index("col_idx", x.device), wt),
+               (M, layout.K, layout.N, layout.Nb, layout.R, layout.bs, G,
+                int(gemm_vec(layout.bs, x))), ys, qbits, sub3)
     block_sparse_v3_fwd.launches += 1
     return ys
 
