@@ -265,8 +265,11 @@ Phases (any failure raises and the script exits non-zero):
              x-projection layout (M=6400, G=1 and 3), the CGS-16x LSTM's
              1024 x 1024 (M=4800, G=4), the flagship's 143-wide input
              K-padded to 256 (M=4800, G=4); f32, bf16, bf16 x with f32 w;
-             both autograd Functions against the dense masked product with
-             exact launch counts, again with the twins swapped out.
+             the dw also with mixed operands (its bsl_dw_tile route; the
+             f32 and bf16 pairs run block_sparse_dw.cu's dw_gemm and
+             dw_mma); both autograd Functions against the dense masked
+             product with exact launch counts, again with the twins
+             swapped out.
 50. libri_ligru_serve, libri_ligru_stream, libri_ligru_train — the
              LibriSpeech Li-GRU cfg (``cfg/LibriSpeech_baselines/
              libri_liGRU_fmllr.cfg``: 5x1024 bidirectional relu liGRU, BN,
@@ -278,8 +281,9 @@ Phases (any failure raises and the script exits non-zero):
              at the cfg's learning rates.
 51. legacy_bs_times — the legacy kernels' ms, twins, bounds and the
              dense-masked torch.matmul (dw: torch.bmm) computing the same
-             function, at the libri layout (G=1, 3; f32, bf16) and the
-             CGS-16x G=4; the v3 kernels at the same G=3 shape, the timed
+             function, at the libri layout (G=1, 3) and the CGS-16x G=4,
+             f32 and bf16; the device kernels of one dw call (torch.
+             profiler); the v3 kernels at the same G=3 shape, the timed
              v3 forward and dw against their twins, two dw calls bit for
              bit.
 52. bs_gemm_times — rows 15 and 13 on their register-blocked tile: the
@@ -289,9 +293,12 @@ Phases (any failure raises and the script exits non-zero):
              M=2400) beside torch.bmm of the same gathered operands and
              its bound; the v3 forward at the libri training and serving
              M, with and without the 8-bit quantizer and the submask,
-             beside the dense-masked matmul; row 14 re-timed; the device
-             kernels of one call of each, counted by torch.profiler and
-             held to the design (v3 forward 2, dw 1 or 2).
+             beside the dense-masked matmul; row 14 re-timed; rows 9 and
+             12 (the legacy dw, through bsl_dw / bsl_dw_multi) at the
+             libri G=1 and 3 and the CGS-16x G=4 in f32 and bf16 beside
+             torch.bmm in the same dtype; the device kernels of one call
+             of each, counted by torch.profiler and held to the design
+             (v3 forward 2, dw and legacy dw 1 or 2).
 53. libri_ligru_times — rows 16-18 at the cfg's shapes, the libri
              Li-GRU train step and recognize.
 
@@ -5245,11 +5252,33 @@ def phase_legacy_bs_kernels(dev):
     both autograd Functions (the JAX row tile, api_tile) against the
     dense masked product with exact launch counts, once more with the
     six twins swapped for functions that raise (the card's path never
-    reaches them). -> (checks, API-path launches by wrapper)."""
+    reaches them). The dw also with the mixed pairs (float32 gy with bf16
+    x and the reverse: its bsl_dw_tile route); each dw check names the
+    route it took (BS.legacy_dw_route). -> (checks, API-path launches by
+    wrapper)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     checks = []
     cases = legacy_layouts()
+
+    def check(wname, kernel, plain, where, variant):
+        with torch.no_grad():
+            got = launched(getattr(BS, wname), 1, kernel)
+            sync(dev)
+            ref = plain()
+        if got.dtype != ref.dtype:
+            raise AssertionError("%s: dtype %s, twin %s" % (
+                wname, got.dtype, ref.dtype))
+        bf16 = got.dtype == torch.bfloat16
+        record_check(checks, "legacy_bs_kernels", wname, where,
+                     dict(variant, out=str(got.dtype).split(".")[-1]),
+                     rel_err(got.float(), ref.float()),
+                     bf16_ulp(float(ref.float().abs().max()))
+                     if bf16 else TOL_LB_F32, not bf16)
+
     for name, layout, M, Gs, dts in cases:
+        where = {"layout": name, "M": M, "K": layout.K, "N": layout.N,
+                 "Kb": layout.Kb, "R": layout.R, "C": layout.C,
+                 "bs": layout.bs}
         for G in Gs:
             for k, (xdt, wdt) in enumerate(dts):
                 x, w, gy = legacy_operands(layout, G, M, 200 + k, dev, xdt,
@@ -5257,24 +5286,20 @@ def phase_legacy_bs_kernels(dev):
                 if G == 1:
                     w = w.reshape(layout.nnz, layout.bs, layout.bs)
                 for wname, kernel, plain in legacy_calls(layout, G, x, w, gy):
-                    with torch.no_grad():
-                        got = launched(getattr(BS, wname), 1, kernel)
-                        sync(dev)
-                        ref = plain()
-                    if got.dtype != ref.dtype:
-                        raise AssertionError("%s: dtype %s, twin %s" % (
-                            wname, got.dtype, ref.dtype))
-                    bf16 = got.dtype == torch.bfloat16
-                    err = rel_err(got.float(), ref.float())
-                    record_check(checks, "legacy_bs_kernels", wname,
-                                 {"layout": name, "M": M, "K": layout.K,
-                                  "N": layout.N, "Kb": layout.Kb,
-                                  "R": layout.R, "C": layout.C,
-                                  "bs": layout.bs},
-                                 {"G": G, "x": xdt, "w": wdt,
-                                  "out": str(got.dtype).split(".")[-1]},
-                                 err, bf16_ulp(float(ref.float().abs().max()))
-                                 if bf16 else TOL_LB_F32, not bf16)
+                    variant = {"G": G, "x": xdt, "w": wdt}
+                    if wname.split("_")[1] == "dw":
+                        variant["route"] = BS.legacy_dw_route(gy, x,
+                                                              layout.bs)
+                    check(wname, kernel, plain, where, variant)
+                if k == 0:      # f32: the dw's mixed pairs
+                    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+                    for gdt, xdt_ in (("f32", "bf16"), ("bf16", "f32")):
+                        gm, xm = gy.to(dt[gdt]), x.to(dt[xdt_])
+                        wname, kernel, plain = legacy_calls(
+                            layout, G, xm, w, gm)[2]
+                        check(wname, kernel, plain, where, {
+                            "G": G, "gy": gdt, "x": xdt_, "w": "-",
+                            "route": BS.legacy_dw_route(gm, xm, layout.bs)})
                 del x, w, gy
         torch.cuda.empty_cache()
     api = dict.fromkeys(LB_WRAPPERS, 0)
@@ -5325,13 +5350,15 @@ def phase_legacy_bs_times(dev):
     weight) and, for dw, torch.bmm over the pre-gathered operands;
     the v3 kernels at the same G=3 shape (no quantizer or submask, the
     same function; and as the libri GRU runs them, qbits 8 with the
-    submask); the three at the CGS-16x LSTM's G=4, M=4800 (f32)."""
+    submask); the three at the CGS-16x LSTM's G=4, M=4800 (f32, bf16);
+    the device kernels of one dw call at each shape and dtype
+    (``device_kernels``)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     times = {}
     (_, libri, _, _, _), (_, cgs, _, _, _) = legacy_layouts()[2:4]
     for layout, M, G, dts in ((libri, LB_M, 1, ("f32", "bf16")),
                               (libri, LB_M, 3, ("f32", "bf16")),
-                              (cgs, LB_CGS_M, 4, ("f32",))):
+                              (cgs, LB_CGS_M, 4, ("f32", "bf16"))):
         tag = "libri_G%d" % G if layout is libri else "cgs16x_G4"
         bs = layout.bs
         rows = torch.as_tensor(layout.rows, dtype=torch.long, device=dev)
@@ -5355,13 +5382,17 @@ def phase_legacy_bs_times(dev):
                                                          gy):
                     op = wname.split("_")[1]
                     key = "%s_%s_%s" % (tag, op, dt)
-                    times[key + "_ms"] = cuda_ms(kernel, reps=10)
+                    # 50 calls: the bf16 dw takes 0.03-0.1 ms a call
+                    times[key + "_ms"] = cuda_ms(kernel, reps=50)
                     times[key + "_plain_ms"] = cuda_ms(plain, reps=3,
                                                        warmup=1)
                     times[key + "_library_ms"] = cuda_ms(library[op],
                                                          reps=20)
                     times[key + "_bound_ms"], times[key + "_bound_by"] = \
                         legacy_bound_ms(M, layout, G, op, dt)
+                    if op == "dw":
+                        times[key + "_device_kernels"] = device_kernels(
+                            kernel)
             del x, w, gy, W, gyd, gb, xb
             torch.cuda.empty_cache()
     # the v3 kernels at the libri G=3 shape
@@ -5406,8 +5437,12 @@ def slice11_rows(checks, times, api_launches):
     autograd Functions: one launch of each a call); no model path runs
     these kernels (0 launches in every other phase, by ``expected``);
     ``library_ms`` computes the same function (the dense-masked
-    torch.matmul, or torch.bmm over the gathered operands for dw)."""
+    torch.matmul, or torch.bmm over the gathered operands for dw). Rows 9
+    and 12 (the dw, redesigned) name their routes and the device kernels
+    of one call."""
     bsp = "pytorch_kaldi_cgs_tpu/ops/block_sparse.py:%d"
+    csrc = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/%s.cu"
+    stats = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lib = {"fwd": "dense-masked torch.matmul x @ W.T, W (G*N, K)",
            "dx": "dense-masked torch.matmul gy @ W",
            "dw": "torch.bmm over the pre-gathered (nnz, G*bs, M) and "
@@ -5420,9 +5455,10 @@ def slice11_rows(checks, times, api_launches):
         mine = [c for c in checks if c["kernel"] == name]
         err = [c for c in mine if c["layout"] == "libri_x"
                and c["x"] == c["w"] == "f32"][0]["max_abs_err"]
+        dw = op == "dw"
         r = {"name": name, "route": "cuda",
-             "source": "pytorch_kaldi_cgs_tpu_torch/ops/csrc/"
-                       "block_sparse_legacy.cu",
+             "source": csrc % ("block_sparse_dw" if dw
+                               else "block_sparse_legacy"),
              "replaces": bsp % replaces, "launches": api_launches[name],
              "launches_by_path": {"api": api_launches[name],
                                   "model_paths": 0},
@@ -5434,13 +5470,23 @@ def slice11_rows(checks, times, api_launches):
              "library_note": lib[op],
              "shape": {"M": LB_M, "K": 2048, "N": 1024, "G": G, "bs": 128,
                        "Kb": 16, "R": 4},
-             "bf16": {k: times[key + "bf16_" + k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             "bf16": {k: times[key + "bf16_" + k] for k in stats},
              "checks": len(mine), "checks_ok": all(c["ok"] for c in mine)}
+        if dw:
+            r["status"] = "redesigned"
+            r["routes"] = {
+                "f32": "dw_gemm (bs_gemm.cuh) + dw_reduce where M is split",
+                "bf16": "dw_mma (bs_mma.cuh, wgmma m64n128k16 bf16, "
+                        "float32 sums) + dw_reduce where M is split",
+                "mixed": "bsl_dw_tile (block_sparse_legacy.cu)"}
+            r["device_kernels_per_call"] = {
+                dt: times[key + dt + "_device_kernels"]
+                for dt in ("f32", "bf16")}
         if G == 3:
-            ck = "cgs16x_G4_%s_f32_" % op
-            r["cgs16x_G4"] = {k: times[ck + k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            r["cgs16x_G4"] = {k: times["cgs16x_G4_%s_f32_" % op + k]
+                              for k in stats}
+            r["cgs16x_G4_bf16"] = {k: times["cgs16x_G4_%s_bf16_" % op + k]
+                                   for k in stats}
             r["v3_same_shape_ms"] = times["v3_%s_ms" % op]
         rows.append(r)
     return rows
@@ -5470,6 +5516,15 @@ def dw_shapes():
             ("cgs16x_mgru_rnn_G1", cgs, 2400, 1, None))
 
 
+def legacy_dw_shapes():
+    """(tag, layout, M, G) of the timed legacy dw calls (rows 9 and 12):
+    the libri x-projection (Kb=16, R=4) at G=1 and 3, M=6400; the CGS-16x
+    LSTM's 1024 x 1024 (Kb=8, R=2) at G=4, M=4800."""
+    (_, libri, _, _, _), (_, cgs, _, _, _) = legacy_layouts()[2:4]
+    return (("libri_G1", libri, LB_M, 1), ("libri_G3", libri, LB_M, 3),
+            ("cgs16x_G4", cgs, LB_CGS_M, 4))
+
+
 def dw_bound_ms(M, layout, G, sub=False):
     """Least time for one dw call in float32: dg (M, Nb*G*bs) and x (M,
     K) in (and sub3), dw3g out; 2*M*Nb*G*bs*R*bs FMAs over the float32
@@ -5485,10 +5540,12 @@ def phase_bs_gemm_times(dev, reps=20):
     function in one PyTorch call) and its bound, and of row 13 (the v3
     forward) at the libri GRU's training and serving M with and without
     the 8-bit quantizer and the submask beside the dense-masked
-    torch.matmul, and row 14 (dx) re-timed; the device kernels of one
-    call of each (``device_kernels``). Only the public wrappers are
-    called, so the same phase times an earlier tree's kernels
-    (``--gemm-times DIR``)."""
+    torch.matmul, and row 14 (dx) re-timed; rows 9 and 12 (the legacy dw,
+    bsl_dw at G=1, bsl_dw_multi above) at legacy_dw_shapes in f32 and
+    bf16 beside torch.bmm of the pre-gathered operands in the same dtype
+    and their bounds; the device kernels of one call of each
+    (``device_kernels``). Only the public wrappers are called, so the
+    same phase times an earlier tree's kernels (``--gemm-times DIR``)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     times = {}
     gen = torch.Generator(device=dev).manual_seed(233)
@@ -5558,7 +5615,29 @@ def phase_bs_gemm_times(dev, reps=20):
                                                       reps=reps)
                 del gy, dy
             del v, x, W
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+        for tag, layout, M, G in legacy_dw_shapes():
+            bs = layout.bs
+            rows = torch.as_tensor(layout.rows, dtype=torch.long, device=dev)
+            cols = torch.as_tensor(layout.cols, dtype=torch.long, device=dev)
+            for dt in ("f32", "bf16"):
+                x, _, gy = legacy_operands(layout, G, M, 235, dev, dt, dt)
+                call = (lambda: BS.bsl_dw(gy, x, layout)) if G == 1 else \
+                    (lambda: BS.bsl_dw_multi(gy, x, layout, G))
+                gb = gy.reshape(M, layout.Nb, G * bs).transpose(0, 1)[rows] \
+                    .transpose(1, 2).contiguous()         # (nnz, G*bs, M)
+                xb = x.reshape(M, layout.Kb, bs).transpose(0, 1)[cols] \
+                    .contiguous()                          # (nnz, M, bs)
+                key = "bsl_dw_%s_%s" % (tag, dt)
+                # 100 calls: the bf16 dw takes 0.03-0.1 ms a call
+                times[key + "_ms"] = cuda_ms(call, reps=100)
+                times[key + "_library_ms"] = cuda_ms(
+                    lambda: torch.bmm(gb, xb), reps=100)
+                times[key + "_bound_ms"], times[key + "_bound_by"] = \
+                    legacy_bound_ms(M, layout, G, "dw", dt)
+                times[key + "_device_launches"] = device_kernels(call)
+                del x, gy, gb, xb
+            torch.cuda.empty_cache()
     print("[bs_gemm_times] %s" % json.dumps(times))
     return times
 
@@ -5850,7 +5929,8 @@ def dw_by_shape(bs_times):
 def check_gemm_launches(bs_times, dev):
     """The device kernels of one call as bs_gemm_times counted them
     against the design: the v3 forward v3_weight_t then v3_fwd_gemm; the
-    dw one dw_gemm, and one dw_reduce where dw_plan splits M (where the
+    dw one dw_gemm, and one dw_reduce where dw_plan splits M; the legacy
+    dw the same, dw_mma in place of dw_gemm in bf16 (where the
     trace held only launch calls, their number). Raises on a difference;
     where the profiler showed nothing there is nothing to hold."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
@@ -5861,6 +5941,15 @@ def check_gemm_launches(bs_times, dev):
                             BS.gemm_grid(dev))[1]
         want["dw_" + tag] = dict({"dw_gemm": 1},
                                  **({"dw_reduce": 1} if splits > 1 else {}))
+    # the legacy dw: float32 on dw_gemm, bf16 on dw_mma (the timed
+    # operands are fresh, so 16-byte aligned, at bs=128)
+    for tag, layout, M, G in legacy_dw_shapes():
+        for dt, tile, kernel in (("f32", "bs_gemm", "dw_gemm"),
+                                 ("bf16", "bs_mma", "dw_mma")):
+            splits = BS.dw_plan(M, layout.Nb, G, layout.R, layout.bs,
+                                BS.gemm_grid(dev, tile))[1]
+            want["bsl_dw_%s_%s" % (tag, dt)] = dict(
+                {kernel: 1}, **({"dw_reduce": 1} if splits > 1 else {}))
     def agrees(got, v):
         if got is None or got == v:
             return True

@@ -37,7 +37,12 @@ taken at G=1 and at G>1, float32 or bfloat16 operands, float32 sums:
 - ``_make_dx`` (``:248``) / ``_make_dx_multi`` (``:439``): :func:`bsl_dx`
   / :func:`bsl_dx_multi`, twin :func:`bsl_dx_plain`;
 - ``_make_dw`` (``:294``) / ``_make_dw_multi`` (``:487``): :func:`bsl_dw`
-  / :func:`bsl_dw_multi`, twin :func:`bsl_dw_plain`;
+  / :func:`bsl_dw_multi`, twin :func:`bsl_dw_plain`; the route is chosen
+  up front (:func:`legacy_dw_route`): float32 operands run the dw
+  kernel's float32 tile with a packed-layout epilogue, bf16 ones the
+  tensor-core tile of ``csrc/bs_mma.cuh`` (``dw_mma``), both in
+  ``csrc/block_sparse_dw.cu`` with M split as :func:`dw_plan` says; mixed
+  pairs keep the legacy file's own dw;
 
 behind :func:`block_sparse_matmul` and :func:`block_sparse_matmul_multi`
 (the JAX custom VJPs); :func:`block_sparse_matmul_xla` is the plain
@@ -282,35 +287,41 @@ def block_sparse_dw_plain(dg_flat: torch.Tensor, x: torch.Tensor,
 
 @dataclass(frozen=True)
 class GemmGrid:
-    """What the dw kernel's split plan needs of the card and of
-    csrc/bs_gemm.cuh's tile: the card's SMs, the tile's output rows and
-    columns (TILE), its contraction rows per staged slab (BK) and the
-    blocks resident on an SM (MIN_BLOCKS of __launch_bounds__)."""
+    """What the dw kernel's split plan needs of the card and of a GEMM
+    tile (csrc/bs_gemm.cuh's float32 one, csrc/bs_mma.cuh's bf16
+    tensor-core one): the card's SMs, the tile's output rows and columns
+    (TILE), its contraction rows per staged slab (BK), the blocks
+    resident on an SM (MIN_BLOCKS of __launch_bounds__) and the cost of a
+    last round in which the busiest SM holds fewer blocks than that, as
+    a share of a full round (``PARTIAL_ROUND``)."""
     sms: int
     tile: int
     bk: int
     blocks_per_sm: int
+    partial_round: float = 1.0
 
 
 @functools.lru_cache(maxsize=None)
-def _gemm_grid(index: int) -> GemmGrid:
+def _gemm_grid(index: int, tile_name: str) -> GemmGrid:
     from . import _build
-    fn = _build.load("block_sparse_dw").bs_gemm_config
+    fn = getattr(_build.load("block_sparse_dw"), tile_name + "_config")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     tile = (ctypes.c_int * 3)()
     fn(tile)
     return GemmGrid(
-        torch.cuda.get_device_properties(index).multi_processor_count, *tile)
+        torch.cuda.get_device_properties(index).multi_processor_count, *tile,
+        PARTIAL_ROUND[tile_name])
 
 
-def gemm_grid(dev) -> GemmGrid:
-    """The GemmGrid of CUDA device ``dev``: the tile as the built dw
-    library reports it (``bs_gemm_config``), the SM count as the device
-    does."""
+def gemm_grid(dev, tile_name: str = "bs_gemm") -> GemmGrid:
+    """The GemmGrid of CUDA device ``dev``: the tile ``tile_name``
+    ("bs_gemm", the float32 tile, or "bs_mma", the bf16 one) as the built
+    dw library reports it (``<tile_name>_config``), the SM count as the
+    device does."""
     dev = torch.device(dev)
     return _gemm_grid(torch.cuda.current_device() if dev.index is None
-                      else dev.index)
+                      else dev.index, tile_name)
 
 
 # the fewest rows of M one split of the dw kernel walks
@@ -320,6 +331,12 @@ DW_SPLIT_MIN_ROWS = 128
 # not fitted to a measurement; with it the plan keeps one split where the
 # tiles fill whole rounds of slots
 DW_BLOCK_OVERHEAD_SLABS = 3
+# GemmGrid.partial_round of each tile. The float32 tile charges a full
+# round: the model its plans (row 15's among them) were made and measured
+# with. The bf16 tile's share is measured: on the H100 one dw_mma block
+# alone on its SM takes 0.50 of the time of two co-resident ones over the
+# same rows (dw_split_sweep.py)
+PARTIAL_ROUND = {"bs_gemm": 1.0, "bs_mma": 0.50}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -333,20 +350,26 @@ def dw_plan(M: int, Nb: int, G: int, R: int, bs: int, grid: GemmGrid):
     tile output tiles over the Nb (G*bs, R*bs) slices; M is cut into
     ``splits`` parts of ``rows`` rows (a multiple of grid.bk; the last
     part may be shorter), each at least DW_SPLIT_MIN_ROWS. The split
-    minimises the modelled time: rounds of the resident slots (sms x
-    blocks_per_sm) that tiles x splits blocks take, times the rows a block
-    walks plus its fixed cost (DW_BLOCK_OVERHEAD_SLABS slabs). Small grids
-    (the LibriSpeech GRU's dU: 16 tiles on the H100's 264 slots) split
-    into about one full round; a grid that fills whole rounds keeps one
+    minimises the modelled time: the blocks the busiest SM runs
+    (tiles x splits over the SMs, rounded up) in rounds of
+    blocks_per_sm, a last round with fewer blocks charged
+    grid.partial_round of a full one, times the rows a block walks plus
+    its fixed cost (DW_BLOCK_OVERHEAD_SLABS slabs). With partial_round 1
+    (the float32 tile) that is the rounds of the resident slots (sms x
+    blocks_per_sm) that tiles x splits blocks take. Small grids (the
+    LibriSpeech GRU's dU: 16 tiles on the H100's 264 slots) split into
+    about one full round; a grid that fills whole rounds keeps one
     split."""
     tiles = Nb * _cdiv(G * bs, grid.tile) * _cdiv(R * bs, grid.tile)
-    slots = grid.sms * grid.blocks_per_sm
     overhead = DW_BLOCK_OVERHEAD_SLABS * grid.bk
     best = None
     for want in range(1, max(1, M // DW_SPLIT_MIN_ROWS) + 1):
         rows = _cdiv(_cdiv(max(M, 1), want), grid.bk) * grid.bk
         splits = _cdiv(max(M, 1), rows)
-        cost = _cdiv(tiles * splits, slots) * (rows + overhead)
+        full, part = divmod(_cdiv(tiles * splits, grid.sms),
+                            grid.blocks_per_sm)
+        cost = (full + (grid.partial_round if part else 0)) * (
+            rows + overhead)
         if best is None or cost < best[0]:
             best = (cost, splits, rows)
     return tiles, best[1], best[2]
@@ -361,29 +384,53 @@ def gemm_vec(bs: int, *tensors: Optional[torch.Tensor]) -> bool:
                                for t in tensors)
 
 
-def _dw_kernel(dg_flat, x, layout, G, sub3):
+def _dw_split(M, layout, G, dev, tile_name="bs_gemm"):
+    """The dw's split of M on device ``dev`` (:func:`dw_plan` over the
+    tile ``tile_name``) and its float32 partials' scratch: -> (splits,
+    rows, scratch or None)."""
+    _, splits, rows = dw_plan(M, layout.Nb, G, layout.R, layout.bs,
+                              gemm_grid(dev, tile_name))
+    part = None if splits == 1 else torch.empty(
+        (splits,) + _w3_shape(layout, G), dtype=torch.float32, device=dev)
+    return splits, rows, part
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_fn(lib_name: str, name: str, n_ptrs: int, n_ints: int):
+    """The launcher ``name`` of the built library ``lib_name``, its
+    argument types set once: ``n_ptrs`` pointers, ``n_ints`` ints and the
+    stream; it returns a cudaError_t. -> (library, function)."""
     from . import _build
-    lib = _build.load("block_sparse_dw")
-    fn = lib.block_sparse_dw
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    lib = _build.load(lib_name)
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    M, dev = x.shape[0], x.device
-    _, splits, rows = dw_plan(M, layout.Nb, G, layout.R, layout.bs,
-                              gemm_grid(dev))
-    shape = _w3_shape(layout, G)
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
-    part = None if splits == 1 else torch.empty(
-        (splits,) + shape, dtype=torch.float32, device=dev)
+    return lib, fn
+
+
+def _launch(lib_name: str, name: str, dev, ptrs, ints) -> None:
+    """Call the launcher ``name`` of ``lib_name`` with ``ptrs``, ``ints``
+    and the current stream of device ``dev``, that device current; a
+    failed launch raises (:func:`_build.check`)."""
+    from . import _build
+    lib, fn = _lib_fn(lib_name, name, len(ptrs), len(ints))
     with torch.cuda.device(dev):
-        rc = fn(dg_flat.data_ptr(), x.data_ptr(),
-                layout.device_index("col_idx", dev).data_ptr(),
-                None if sub3 is None else sub3.data_ptr(), out.data_ptr(),
-                None if part is None else part.data_ptr(),
-                M, layout.K, layout.Nb, layout.R, layout.bs, G, splits, rows,
-                int(gemm_vec(layout.bs, dg_flat, x, sub3)),
-                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "block_sparse_dw")
+        rc = fn(*ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, name)
+
+
+def _dw_kernel(dg_flat, x, layout, G, sub3):
+    M, dev = x.shape[0], x.device
+    splits, rows, part = _dw_split(M, layout, G, dev)
+    out = torch.empty(_w3_shape(layout, G), dtype=torch.float32, device=dev)
+    _launch("block_sparse_dw", "block_sparse_dw", dev, (
+        dg_flat.data_ptr(), x.data_ptr(),
+        layout.device_index("col_idx", dev).data_ptr(),
+        None if sub3 is None else sub3.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr()), (
+        M, layout.K, layout.Nb, layout.R, layout.bs, G, splits, rows,
+        int(gemm_vec(layout.bs, dg_flat, x, sub3))))
     block_sparse_dw.launches += 1
     return out
 
@@ -763,9 +810,44 @@ def _legacy_dx(gy_flat, w, layout, G, wrapper):
     return dx
 
 
+def legacy_dw_route(gy_flat: torch.Tensor, x: torch.Tensor,
+                    bs: int) -> str:
+    """The kernel of the legacy dw for these operands, chosen before the
+    launch: "gemm" where both are float32 (``dw_gemm`` of
+    csrc/block_sparse_dw.cu, the float32 tile of csrc/bs_gemm.cuh, its
+    16-byte loads as :func:`gemm_vec` says); "mma" where both are bf16, bs
+    is a multiple of 8 and both are 16-byte aligned (``dw_mma``, the
+    tensor-core tile of csrc/bs_mma.cuh: a 16-byte chunk is 8 columns of
+    one kept block); else "tile" (``bsl_dw_tile`` of
+    csrc/block_sparse_legacy.cu: the mixed pairs and the other bf16
+    ones)."""
+    if gy_flat.dtype == x.dtype == torch.float32:
+        return "gemm"
+    if gy_flat.dtype == x.dtype == torch.bfloat16 and bs % 8 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (gy_flat, x)):
+        return "mma"
+    return "tile"
+
+
+def _packed_dw_kernel(gy_flat, x, layout, G, route, dw):
+    """The legacy dw on the "gemm" or "mma" route into ``dw`` (nnz, G*bs,
+    bs): ``block_sparse_dw_packed`` of csrc/block_sparse_dw.cu, M split
+    as :func:`dw_plan` says for that route's tile."""
+    M, dev = x.shape[0], x.device
+    mma = route == "mma"
+    splits, rows, part = _dw_split(M, layout, G, dev,
+                                   "bs_mma" if mma else "bs_gemm")
+    _launch("block_sparse_dw", "block_sparse_dw_packed", dev, (
+        gy_flat.data_ptr(), x.data_ptr(),
+        layout.device_index("col_idx", dev).data_ptr(), dw.data_ptr(),
+        None if part is None else part.data_ptr()), (
+        int(mma), M, layout.K, layout.Nb, layout.R, layout.bs, G, splits,
+        rows, int(not mma and gemm_vec(layout.bs, gy_flat, x))))
+
+
 def _legacy_dw(gy_flat, x, layout, G, wrapper):
-    """dw at G (see :func:`_legacy_fwd`). -> (nnz, G*bs, bs) in gy's
-    dtype."""
+    """dw at G (see :func:`_legacy_fwd`) on the kernel
+    :func:`legacy_dw_route` picks. -> (nnz, G*bs, bs) in gy's dtype."""
     M, dev = x.shape[0], x.device
     if _check_operands(gy_flat, (
             ("gy", gy_flat, (M, _flat_width(layout, G))),
@@ -773,12 +855,16 @@ def _legacy_dw(gy_flat, x, layout, G, wrapper):
         return bsl_dw_plain(gy_flat, x, layout, G)
     dw = torch.empty((layout.nnz, G * layout.bs, layout.bs),
                      dtype=gy_flat.dtype, device=dev)
-    _legacy_kernel("bsl_dw", (
-        gy_flat.data_ptr(), x.data_ptr(),
-        layout.device_index("rows", dev).data_ptr(),
-        layout.device_index("cols", dev).data_ptr()), dw,
-        (_dtype_code(gy_flat), _dtype_code(x)),
-        (M, layout.K, layout.Nb, layout.nnz, layout.bs, G))
+    route = legacy_dw_route(gy_flat, x, layout.bs)
+    if route == "tile":
+        _legacy_kernel("bsl_dw", (
+            gy_flat.data_ptr(), x.data_ptr(),
+            layout.device_index("rows", dev).data_ptr(),
+            layout.device_index("cols", dev).data_ptr()), dw,
+            (_dtype_code(gy_flat), _dtype_code(x)),
+            (M, layout.K, layout.Nb, layout.nnz, layout.bs, G))
+    else:
+        _packed_dw_kernel(gy_flat, x, layout, G, route, dw)
     wrapper.launches += 1
     return dw
 
@@ -804,7 +890,8 @@ def bsl_dw(gy: torch.Tensor, x: torch.Tensor,
            layout: BlockLayout) -> torch.Tensor:
     """The v1 weight gradient (TPU kernel ``_make_dw``): per packed block
     p, ``gy[:, row_p].T @ x[:, col_p]`` over all M -> (nnz, bs, bs) in
-    gy's dtype."""
+    gy's dtype, on the kernel :func:`legacy_dw_route` picks (split-M
+    partials summed in a fixed order: two calls give the same bits)."""
     return _legacy_dw(gy, x, layout, 1, bsl_dw)
 
 

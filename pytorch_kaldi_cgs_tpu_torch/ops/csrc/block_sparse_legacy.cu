@@ -42,8 +42,19 @@
 //     pad block is concatenated and no float atomics are needed; a column
 //     block no row keeps is written as zeros;
 //   - dw: a block owns a tile of one packed block and loops over M in
-//     slabs, like dw3_tile in block_sparse_dw.cu.
+//     slabs.
 // No tensor cores, no pipelining: simple and right first.
+//
+// The dw here (bsl_dw_tile) is no longer the main route of rows 9 and 12:
+// the wrapper (ops/block_sparse.py, legacy_dw_route) sends both-float32
+// operands to block_sparse_dw.cu's dw_gemm (the register-blocked tile of
+// bs_gemm.cuh with a packed-layout epilogue, M split as dw_plan says) and
+// both-bf16 operands, at bs a multiple of 8 with gy and x 16-byte aligned,
+// to its dw_mma (the tensor-core tile of bs_mma.cuh). bsl_dw_tile keeps
+// the mixed pairs (float32 gy with bf16 x, or the reverse: reachable only
+// by calling bsl_dw / bsl_dw_multi directly, since the autograd path gives
+// gy in x's type) and the bf16 pairs at other bs or alignment: float32
+// sums over all of M, rounded once to gy's type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -32,7 +32,7 @@ __device__ __forceinline__ int tile_at(int t, int i) {
 
 // cp.async of 16 (or 4) bytes; src_ok false fills zeros (src-size 0) and
 // reads nothing (src must still be a valid address)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool src_ok) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),

@@ -1,7 +1,10 @@
-"""The register-blocked GEMM kernels of the port's block-sparse ops
+"""The GEMM kernels of the port's block-sparse ops
 (pytorch_kaldi_cgs_tpu_torch/ops/block_sparse.py: the dw kernel,
 ``csrc/block_sparse_dw.cu``, and the v3 forward, ``csrc/block_sparse_v3.cu``,
-on the tile of ``csrc/bs_gemm.cuh``).
+on the register-blocked float32 tile of ``csrc/bs_gemm.cuh``; the legacy
+v1/v2 dw, ``bsl_dw`` / ``bsl_dw_multi``, on that tile with a packed-layout
+epilogue for float32 operands and on the bf16 tensor-core tile of
+``csrc/bs_mma.cuh`` for bf16 ones).
 
 - On the CPU: the pure-Python plan of the two grids. ``dw_plan`` splits M
   so that the dw kernel's small output grids (the LibriSpeech GRU's dU,
@@ -27,6 +30,19 @@ on the tile of ``csrc/bs_gemm.cuh``).
   split plan's grid is the built library's tile and the card's SMs.
   Run there with ``python -m pytest --noconftest -q -m cuda
   tests/test_torch_bs_gemm.py``.
+- The legacy dw: on the CPU, the route each dtype pair, bs and
+  alignment takes (``legacy_dw_route``); the split plan of both tiles
+  (the bf16 tile's constants read from ``csrc/bs_mma.cuh``) at the three
+  timed shapes (the libri x-projection at G=1 and 3, M=6400; the CGS-16x
+  LSTM's G=4, M=4800) and the bs=8 layouts; the packed epilogue's index
+  map (``out_at<true>`` of the kernel, mirrored) over a CPU stand-in of
+  the split sum against ``bsl_dw_plain``. On the card (``cuda``): the
+  wrappers against ``bsl_dw_plain`` at every layout of
+  ``chip_smoke.legacy_layouts()``, G 1, 3, 4, M 7, 16, 4801, 6400, the
+  four dtype pairs (float32 within 1e-5 of the twin's largest magnitude,
+  a bf16 output within one bf16 ulp of it: both round one float32 sum
+  once); misaligned operands; two calls bit for bit; the device kernels
+  of one call (``torch.profiler``).
 """
 import functools
 import os
@@ -42,11 +58,12 @@ from pytorch_kaldi_cgs_tpu_torch.sparsity.hcgs import hcgs_mask
 ATOL = 1e-5
 
 
-def _tile_constants():
-    """TILE, BK and MIN_BLOCKS as csrc/bs_gemm.cuh defines them (the
-    built library reports the same through ``bs_gemm_config``)."""
+def _tile_constants(header="bs_gemm.cuh"):
+    """TILE, BK and MIN_BLOCKS as a tile's header defines them (the
+    built library reports the same through ``bs_gemm_config`` and
+    ``bs_mma_config``)."""
     with open(os.path.join(os.path.dirname(tbs.__file__), "csrc",
-                           "bs_gemm.cuh")) as f:
+                           header)) as f:
         src = f.read()
     return [int(re.search(r"constexpr int %s = (\d+);" % n, src).group(1))
             for n in ("TILE", "BK", "MIN_BLOCKS")]
@@ -54,6 +71,8 @@ def _tile_constants():
 
 SMS = 132                       # the H100 SXM's
 H100 = tbs.GemmGrid(SMS, *_tile_constants())
+H100_MMA = tbs.GemmGrid(SMS, *_tile_constants("bs_mma.cuh"),
+                        tbs.PARTIAL_ROUND["bs_mma"])
 
 # name: (N, K, blocks, drops, bs): HCGS layouts, K-padded where K is not
 # a multiple of bs
@@ -125,6 +144,16 @@ def test_dw_plan_fills_the_rounds_it_takes(shape):
     fixed = tbs.DW_BLOCK_OVERHEAD_SLABS * H100.bk
     one = -(-tiles // slots) * (-(-M // H100.bk) * H100.bk + fixed)
     assert rounds * (rows + fixed) < one
+
+
+def _modelled(grid, tiles, splits, rows):
+    """dw_plan's modelled time of a plan: the busiest SM's blocks in
+    rounds of blocks_per_sm, a last round with fewer blocks at the grid's
+    partial_round of a full one, times the rows a block walks plus its
+    fixed cost."""
+    full, part = divmod(-(-tiles * splits // grid.sms), grid.blocks_per_sm)
+    return (full + (grid.partial_round if part else 0)) * (
+        rows + tbs.DW_BLOCK_OVERHEAD_SLABS * grid.bk)
 
 
 @pytest.mark.parametrize("M", [300, 1000, 4801])
@@ -279,8 +308,9 @@ def test_cuda_dw_split_m_is_deterministic(cuda_device, G):
 
 
 def _offset(t):
-    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
-    boundary (the caching allocator's blocks start on 512)."""
+    """A contiguous copy of ``t`` that starts one element (4 bytes in
+    float32, 2 in bf16) past a 16-byte boundary (the caching allocator's
+    blocks start on 512)."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = buf[1:].view(t.shape)
     out.copy_(t)
@@ -336,3 +366,319 @@ def test_cuda_gemm_grid_reads_the_library_and_the_card(cuda_device):
     props = torch.cuda.get_device_properties(torch.cuda.current_device())
     assert grid == tbs.GemmGrid(props.multi_processor_count,
                                 *_tile_constants())
+
+
+# ---------------------------------------------------------------------------
+# the legacy dw (rows 9 and 12): routes, plans, the packed epilogue (CPU)
+# ---------------------------------------------------------------------------
+
+DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("gy,x,bs,off,route", [
+    ("f32", "f32", 128, None, "gemm"), ("f32", "f32", 6, None, "gemm"),
+    ("f32", "f32", 128, "x", "gemm"), ("bf16", "bf16", 128, None, "mma"),
+    ("bf16", "bf16", 8, None, "mma"), ("bf16", "bf16", 4, None, "tile"),
+    ("bf16", "bf16", 12, None, "tile"), ("bf16", "bf16", 128, "gy", "tile"),
+    ("bf16", "bf16", 128, "x", "tile"), ("f32", "bf16", 128, None, "tile"),
+    ("bf16", "f32", 128, None, "tile")], ids=str)
+def test_legacy_dw_route(gy, x, bs, off, route):
+    """Both float32: the float32 tile (its scalar loads where gemm_vec
+    says); both bf16 at bs a multiple of 8, 16-byte aligned: the
+    tensor-core tile; the mixed pairs and the other bf16 ones: the
+    legacy file's bsl_dw_tile."""
+    ops = {}
+    for name, dt in (("gy", gy), ("x", x)):
+        base = torch.zeros(65, dtype=DT[dt])
+        assert base.data_ptr() % 16 == 0
+        ops[name] = base[1:] if off == name else base[:64]
+    assert tbs.legacy_dw_route(ops["gy"], ops["x"], bs) == route
+    if route == "gemm":
+        assert tbs.gemm_vec(bs, ops["gy"], ops["x"]) == (bs % 4 == 0
+                                                         and off is None)
+
+
+# (M, Nb, G, R, bs) of the legacy dw's timed shapes: the libri
+# x-projection (Kb=16, R=4) at G=1 and G=3, the CGS-16x LSTM's 1024 x 1024
+# (Kb=8, R=2) at G=4
+LEGACY_TIMED = {"libri_G1": (6400, 8, 1, 4, 128),
+                "libri_G3": (6400, 8, 3, 4, 128),
+                "cgs16x_G4": (4800, 8, 4, 2, 128)}
+
+
+@pytest.mark.parametrize("grid", [H100, H100_MMA], ids=["f32", "bf16"])
+@pytest.mark.parametrize("tag", sorted(LEGACY_TIMED))
+def test_legacy_dw_plan_at_the_timed_shapes(tag, grid):
+    """Both tiles split M at the three timed shapes: the splits cover M
+    once, in rows a multiple of the tile's slab; every SM runs within 90%
+    of the blocks of the busiest one, and the modelled time is below one
+    split's and below twice as many splits'. The picks (float32 8, 8, 4;
+    bf16 4, 4, 2) are the fastest of 1-16 splits on the H100 or within 5%
+    of it (``dw_split_sweep.py``)."""
+    M, Nb, G, R, bs = LEGACY_TIMED[tag]
+    tiles, splits, rows = tbs.dw_plan(M, Nb, G, R, bs, grid)
+    assert tiles == Nb * (G * bs // grid.tile) * (R * bs // grid.tile)
+    assert splits == {
+        H100: {"libri_G1": 8, "libri_G3": 8, "cgs16x_G4": 4},
+        H100_MMA: {"libri_G1": 4, "libri_G3": 4, "cgs16x_G4": 2}}[grid][tag]
+    assert (splits - 1) * rows < M <= splits * rows
+    assert rows % grid.bk == 0 and rows >= tbs.DW_SPLIT_MIN_ROWS
+    busiest = -(-tiles * splits // grid.sms)
+    assert tiles * splits >= 0.9 * busiest * grid.sms
+    cost = _modelled(grid, tiles, splits, rows)
+    assert cost < _modelled(grid, tiles, 1, -(-M // grid.bk) * grid.bk)
+    twice = -(-(-(-M // (2 * splits))) // grid.bk) * grid.bk
+    assert cost < _modelled(grid, tiles, -(-M // twice), twice)
+
+
+def _small_legacy_layouts():
+    """chip_smoke.legacy_layouts()'s two bs=8 layouts: an HCGS 32 x 48
+    (keep 3 of 6 a row) and the uneven one (Kb=6, R=2, C=4)."""
+    small = tbs.pack_layout(hcgs_mask(32, 48, [8], [50],
+                                      rng=np.random.RandomState(0)), 8)
+    occ = np.zeros((4, 6), np.float32)
+    for j, cs in enumerate(((0, 1), (1, 2), (1, 3), (1, 4))):
+        occ[j, list(cs)] = 1
+    uneven = tbs.pack_layout(np.kron(occ, np.ones((8, 8), np.float32)), 8)
+    return {"small_hcgs": small, "small_uneven": uneven}
+
+
+@pytest.mark.parametrize("grid", [H100, H100_MMA], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [7, 16, 300, 4801])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("name", ["small_hcgs", "small_uneven"])
+def test_legacy_dw_plan_at_bs8(name, G, M, grid):
+    """The bs=8 layouts (one mostly empty tile an out-block): one split
+    below two DW_SPLIT_MIN_ROWS, else splits of at least that many rows
+    that cover M once, in rows a multiple of the slab."""
+    tl = _small_legacy_layouts()[name]
+    tiles, splits, rows = tbs.dw_plan(M, tl.Nb, G, tl.R, tl.bs, grid)
+    assert tiles == tl.Nb
+    assert (splits - 1) * rows < M <= splits * rows and rows % grid.bk == 0
+    if M < 2 * tbs.DW_SPLIT_MIN_ROWS:
+        assert splits == 1
+    else:
+        assert splits > 1 and rows >= tbs.DW_SPLIT_MIN_ROWS
+
+
+def _packed_epilogue(parts, layout, G, dtype):
+    """The kernel's two passes on the CPU: the float32 partials (S, Nb,
+    G*bs, R*bs) summed in split order, each (j, n, kk) written to the flat
+    index the epilogue computes (j's base j*G*bs*R*bs plus
+    ``out_at<true>``: ((kk / bs) * G*bs + n) * bs + kk % bs), rounded once
+    to ``dtype``. -> (nnz, G*bs, bs)."""
+    bs, R, Nb = layout.bs, layout.R, layout.Nb
+    GB, RB = G * bs, R * bs
+    dw3 = functools.reduce(torch.add, parts)
+    j, n, kk = np.meshgrid(np.arange(Nb), np.arange(GB), np.arange(RB),
+                           indexing="ij")
+    flat = j * GB * RB + ((kk // bs) * GB + n) * bs + kk % bs
+    assert sorted(flat.ravel()) == list(range(Nb * GB * RB))   # a bijection
+    out = torch.empty(Nb * GB * RB)
+    out[torch.from_numpy(flat.ravel())] = dw3.reshape(-1)
+    return out.reshape(layout.nnz, GB, bs).to(dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("name", ["small_hcgs", "small_uneven"])
+def test_legacy_dw_packed_epilogue_matches_twin(name, G, dt):
+    """The split plan of the route's tile, a dw per split's rows, the
+    partials summed in order and scattered through the epilogue's index
+    map: the legacy twin within 1e-5 of its scale (float32) or one bf16
+    ulp of it; the wrapper on CPU tensors is the twin."""
+    tl = _small_legacy_layouts()[name]
+    M, bs = 300, tl.bs
+    rng = np.random.RandomState(G)
+    gy = torch.from_numpy(rng.randn(M, tl.Nb * G * bs).astype(np.float32)
+                          ).to(DT[dt])
+    x = torch.from_numpy(rng.randn(M, tl.K).astype(np.float32)).to(DT[dt])
+    route = tbs.legacy_dw_route(gy, x, bs)
+    assert route == ("gemm" if dt == "f32" else "mma")
+    _, splits, rows = tbs.dw_plan(M, tl.Nb, G, tl.R, bs,
+                                  H100 if route == "gemm" else H100_MMA)
+    assert splits > 1
+    parts = [tbs.block_sparse_dw_plain(gy[s * rows:(s + 1) * rows].float(),
+                                       x[s * rows:(s + 1) * rows].float(),
+                                       tl, G) for s in range(splits)]
+    got = _packed_epilogue(parts, tl, G, DT[dt])
+    ref = tbs.bsl_dw_plain(gy, x, tl, G)
+    wrapped = tbs.bsl_dw(gy, x, tl) if G == 1 else \
+        tbs.bsl_dw_multi(gy, x, tl, G)
+    assert got.dtype == ref.dtype == wrapped.dtype == DT[dt]
+    assert torch.equal(wrapped, ref)
+    scale = ref.float().abs().max().item()
+    atol = ATOL * scale if dt == "f32" else \
+        2.0 ** (np.floor(np.log2(scale)) - 7)
+    np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                               rtol=0, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# the legacy dw on the card (skips without one)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _legacy_layout(name):
+    """chip_smoke.legacy_layouts()'s layouts: the two at bs=8, the libri
+    GRU's x-projection (HCGS 128,4 at 75,50 on 1024 x 2048), the CGS-16x
+    LSTM's 1024 x 1024 (128,8 at 75,75) and the flagship's 143-wide input
+    (128,4 at 25,62.5, K-padded to 256)."""
+    small = _small_legacy_layouts()
+    if name in small:
+        return small[name]
+    N, K, blocks, drops, seed = {
+        "libri_x": (1024, 2048, [128, 4], [75, 50], 170),
+        "cgs16x": (1024, 1024, [128, 8], [75, 75], 171),
+        "k_padded_143": (512, 143, [128, 4], [25, 62.5], 3)}[name]
+    mask = hcgs_mask(N, K, blocks, drops, rng=np.random.RandomState(seed))
+    return tbs.pack_layout(mask, 128, pad_k=K % 128 != 0)
+
+
+LEGACY_NAMES = ("small_hcgs", "small_uneven", "libri_x", "cgs16x",
+                "k_padded_143")
+PAIRS = (("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16"), ("bf16", "f32"))
+
+
+def _legacy_operands(tl, G, M, dev, gdt, xdt, seed=0):
+    """A flat cotangent (M, Nb*G*bs) and x (M, K; pad columns zero) on
+    the card, in the asked dtypes."""
+    gen = torch.Generator(device=dev).manual_seed(seed + M + G)
+    x = torch.randn(M, tl.K, device=dev, generator=gen)
+    x[:, tl.k_true:] = 0
+    gy = torch.randn(M, tl.Nb * G * tl.bs, device=dev, generator=gen)
+    return gy.to(DT[gdt]), x.to(DT[xdt])
+
+
+def _legacy_dw_call(gy, x, tl, G):
+    return tbs.bsl_dw(gy, x, tl) if G == 1 else \
+        tbs.bsl_dw_multi(gy, x, tl, G)
+
+
+def _assert_legacy_close(got, ref):
+    assert got.dtype == ref.dtype
+    bf16 = got.dtype == torch.bfloat16
+    got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
+    scale = max(float(np.abs(ref).max()), 1e-30)
+    atol = 2.0 ** (np.floor(np.log2(scale)) - 7) if bf16 else ATOL * scale
+    np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdt,xdt", PAIRS, ids=["-".join(p) for p in PAIRS])
+@pytest.mark.parametrize("M", [7, 16, 4801, 6400])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("name", LEGACY_NAMES)
+def test_cuda_legacy_dw_matches_twin(cuda_device, name, G, M, gdt, xdt):
+    """Each route against bsl_dw_plain on the same tensors: float32
+    within 1e-5 of the twin's scale, a bf16 output within one bf16 ulp of
+    it; one launch counted on the wrapper; the output in gy's dtype."""
+    tl = _legacy_layout(name)
+    gy, x = _legacy_operands(tl, G, M, cuda_device, gdt, xdt)
+    want = {("f32", "f32"): "gemm", ("bf16", "bf16"): "mma"}.get(
+        (gdt, xdt), "tile")
+    assert tbs.legacy_dw_route(gy, x, tl.bs) == want
+    wrapper = tbs.bsl_dw if G == 1 else tbs.bsl_dw_multi
+    before = wrapper.launches
+    got = _legacy_dw_call(gy, x, tl, G)
+    assert wrapper.launches == before + 1
+    ref = tbs.bsl_dw_plain(gy, x, tl, G)
+    torch.cuda.synchronize()
+    assert got.dtype == DT[gdt]
+    _assert_legacy_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gy", "x"])
+@pytest.mark.parametrize("dt,route", [("f32", "gemm"), ("bf16", "tile")])
+@pytest.mark.parametrize("M", [7, 4801])
+@pytest.mark.parametrize("name", ["small_hcgs", "libri_x"])
+def test_cuda_legacy_dw_misaligned_operand(cuda_device, name, M, dt, route,
+                                           which):
+    """One operand one element off a 16-byte boundary: float32 takes the
+    float32 tile's scalar loads, bf16 the legacy file's bsl_dw_tile; both
+    agree with the twin."""
+    tl, G = _legacy_layout(name), 3
+    ops = dict(zip(("gy", "x"), _legacy_operands(tl, G, M, cuda_device, dt,
+                                                 dt)))
+    ref = tbs.bsl_dw_plain(ops["gy"], ops["x"], tl, G)
+    ops[which] = _offset(ops[which])
+    assert tbs.legacy_dw_route(ops["gy"], ops["x"], tl.bs) == route
+    if route == "gemm":
+        assert not tbs.gemm_vec(tl.bs, ops["gy"], ops["x"])
+    got = tbs.bsl_dw_multi(ops["gy"], ops["x"], tl, G)
+    torch.cuda.synchronize()
+    _assert_legacy_close(got, ref)
+
+
+def _kernels_of(fn):
+    """The device kernels one call of ``fn`` launches, by short name, from
+    torch.profiler's exported trace; where the trace holds no kernel
+    records, ``{"cuda_launch_calls": n}`` of the runtime's launch calls."""
+    import json
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    out, calls = {}, 0
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("cat") == "kernel":
+            s = name.replace("(anonymous namespace)::", "")
+            s = s[5:] if s.startswith("void ") else s
+            k = re.match(r"[\w:]+", s).group(0).split("::")[-1]
+            out[k] = out.get(k, 0) + 1
+        elif e.get("cat") == "cuda_runtime" and name.startswith(
+                ("cudaLaunchKernel", "cuLaunchKernel")):
+            calls += 1
+    return out or {"cuda_launch_calls": calls}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdt,xdt", PAIRS, ids=["-".join(p) for p in PAIRS])
+@pytest.mark.parametrize("tag,M", [(t, LEGACY_TIMED[t][0])
+                                   for t in sorted(LEGACY_TIMED)]
+                         + [("libri_G3", 16)], ids=str)
+def test_cuda_legacy_dw_device_kernels_and_bits(cuda_device, tag, M, gdt,
+                                                xdt):
+    """The timed shapes (and one M too short to split): two calls give the
+    same bits; one call launches the route's tile, then dw_reduce where
+    its plan splits M (bsl_dw_tile alone for the mixed pairs)."""
+    G = LEGACY_TIMED[tag][2]
+    tl = _legacy_layout("libri_x" if tag.startswith("libri") else "cgs16x")
+    gy, x = _legacy_operands(tl, G, M, cuda_device, gdt, xdt, seed=7)
+    route = tbs.legacy_dw_route(gy, x, tl.bs)
+    a = _legacy_dw_call(gy, x, tl, G)
+    b = _legacy_dw_call(gy, x, tl, G)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    if route == "tile":
+        want = {"bsl_dw_tile": 1}
+    else:
+        grid = tbs.gemm_grid(cuda_device, "bs_mma" if route == "mma"
+                             else "bs_gemm")
+        splits = tbs.dw_plan(M, tl.Nb, G, tl.R, tl.bs, grid)[1]
+        assert (splits > 1) == (M > 16)
+        want = dict({"dw_mma" if route == "mma" else "dw_gemm": 1},
+                    **({"dw_reduce": 1} if splits > 1 else {}))
+    got = _kernels_of(lambda: _legacy_dw_call(gy, x, tl, G))
+    assert got in (want, {"cuda_launch_calls": sum(want.values())})
+
+
+@pytest.mark.cuda
+def test_cuda_mma_grid_reads_the_library_and_the_card(cuda_device):
+    """The bf16 tile's split grid: bs_mma.cuh's constants as the built
+    library reports them, and the device's SM count."""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    assert tbs.gemm_grid(cuda_device, "bs_mma") == tbs.GemmGrid(
+        props.multi_processor_count, *_tile_constants("bs_mma.cuh"),
+        tbs.PARTIAL_ROUND["bs_mma"])
