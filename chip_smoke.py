@@ -265,9 +265,12 @@ Phases (any failure raises and the script exits non-zero):
              x-projection layout (M=6400, G=1 and 3), the CGS-16x LSTM's
              1024 x 1024 (M=4800, G=4), the flagship's 143-wide input
              K-padded to 256 (M=4800, G=4); f32, bf16, bf16 x with f32 w;
-             the dw also with mixed operands (its bsl_dw_tile route; the
-             f32 and bf16 pairs run block_sparse_dw.cu's dw_gemm and
-             dw_mma); both autograd Functions against the dense masked
+             the forward's f32 x runs block_sparse_v3.cu's
+             packed_weight_t + v3_fwd_gemm, its bf16 pair fwd_mma, bf16 x
+             with f32 w bsl_fwd_tile; the dw also with mixed operands (its
+             bsl_dw_tile route; the f32 and bf16 pairs run
+             block_sparse_dw.cu's dw_gemm and dw_mma); each check names
+             its route; both autograd Functions against the dense masked
              product with exact launch counts, again with the twins
              swapped out.
 50. libri_ligru_serve, libri_ligru_stream, libri_ligru_train — the
@@ -282,8 +285,8 @@ Phases (any failure raises and the script exits non-zero):
 51. legacy_bs_times — the legacy kernels' ms, twins, bounds and the
              dense-masked torch.matmul (dw: torch.bmm) computing the same
              function, at the libri layout (G=1, 3) and the CGS-16x G=4,
-             f32 and bf16; the device kernels of one dw call (torch.
-             profiler); the v3 kernels at the same G=3 shape, the timed
+             f32 and bf16; the device kernels of one forward and one dw
+             call (torch.profiler); the v3 kernels at the same G=3 shape, the timed
              v3 forward and dw against their twins, two dw calls bit for
              bit.
 52. bs_gemm_times — rows 15 and 13 on their register-blocked tile: the
@@ -293,12 +296,14 @@ Phases (any failure raises and the script exits non-zero):
              M=2400) beside torch.bmm of the same gathered operands and
              its bound; the v3 forward at the libri training and serving
              M, with and without the 8-bit quantizer and the submask,
-             beside the dense-masked matmul; row 14 re-timed; rows 9 and
-             12 (the legacy dw, through bsl_dw / bsl_dw_multi) at the
-             libri G=1 and 3 and the CGS-16x G=4 in f32 and bf16 beside
-             torch.bmm in the same dtype; the device kernels of one call
-             of each, counted by torch.profiler and held to the design
-             (v3 forward 2, dw and legacy dw 1 or 2).
+             beside the dense-masked matmul; row 14 re-timed; rows 7-12
+             (the legacy forward, dx and dw, through bsl_fwd / bsl_dx /
+             bsl_dw and the _multi wrappers) at the libri G=1 and 3 and
+             the CGS-16x G=4 in f32 and bf16 beside the dense-masked
+             matmul (the dw: torch.bmm) in the same dtype; the device
+             kernels of one call of each, counted by torch.profiler and
+             held to the design (v3 forward 2, dw and legacy dw 1 or 2,
+             legacy forward 2 in f32 and 1 in bf16, legacy dx 1).
 53. libri_ligru_times — rows 16-18 at the cfg's shapes, the libri
              Li-GRU train step and recognize.
 
@@ -1542,20 +1547,17 @@ def kernel_short_name(name):
     return m.group(0).split("::")[-1] if m else name[:40]
 
 
-def device_kernels(fn):
-    """The device kernels one call of ``fn`` launches, by short name, as
-    torch.profiler's trace records them (read from the trace file it
-    writes). Where the trace holds no kernel records it counts the CUDA
-    runtime's launch calls instead, ``{"cuda_launch_calls": n}`` (late in
-    the full run the trace of such a short call had no kernel records,
-    while a fresh process's had them); None where it holds neither."""
+def trace_events(fn, reps=1):
+    """The events of torch.profiler's trace of ``reps`` calls of ``fn``
+    (after one warm-up call), read from the trace file it writes."""
     from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("device_kernels"):
-            fn()
+            for _ in range(reps):
+                fn()
         torch.cuda.synchronize()
     path = os.path.join(ROOT, "build", "device_kernels_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1563,6 +1565,40 @@ def device_kernels(fn):
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     os.remove(path)
+    return events
+
+
+def kernel_ms(fn, reps=20):
+    """Device time (ms) per call of the kernels one call of ``fn``
+    launches, summed over the kernel records of ``reps`` profiled calls;
+    None where the trace holds none."""
+    durs = [float(e.get("dur", 0)) for e in trace_events(fn, reps)
+            if e.get("cat") == "kernel"]
+    return sum(durs) / reps / 1e3 if durs else None
+
+
+def host_ms(fn, reps=100):
+    """Host time (ms) per call of ``reps`` calls enqueued back to back,
+    no synchronize inside the window: where it reaches the CUDA-event
+    time of the same calls, the host path bounds them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def device_kernels(fn):
+    """The device kernels one call of ``fn`` launches, by short name, as
+    torch.profiler's trace records them (read from the trace file it
+    writes). Where the trace holds no kernel records it counts the CUDA
+    runtime's launch calls instead, ``{"cuda_launch_calls": n}`` (late in
+    the full run the trace of such a short call had no kernel records,
+    while a fresh process's had them); None where it holds neither."""
+    events = trace_events(fn)
     out, calls = {}, 0
     for e in events:
         name = str(e.get("name", ""))
@@ -5253,9 +5289,9 @@ def phase_legacy_bs_kernels(dev):
     dense masked product with exact launch counts, once more with the
     six twins swapped for functions that raise (the card's path never
     reaches them). The dw also with the mixed pairs (float32 gy with bf16
-    x and the reverse: its bsl_dw_tile route); each dw check names the
-    route it took (BS.legacy_dw_route). -> (checks, API-path launches by
-    wrapper)."""
+    x and the reverse: its bsl_dw_tile route); each forward and dw check
+    names the route it took (BS.legacy_fwd_route, BS.legacy_dw_route).
+    -> (checks, API-path launches by wrapper)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     checks = []
     cases = legacy_layouts()
@@ -5287,9 +5323,13 @@ def phase_legacy_bs_kernels(dev):
                     w = w.reshape(layout.nnz, layout.bs, layout.bs)
                 for wname, kernel, plain in legacy_calls(layout, G, x, w, gy):
                     variant = {"G": G, "x": xdt, "w": wdt}
-                    if wname.split("_")[1] == "dw":
+                    op = wname.split("_")[1]
+                    if op == "dw":
                         variant["route"] = BS.legacy_dw_route(gy, x,
                                                               layout.bs)
+                    elif op == "fwd":
+                        variant["route"] = BS.legacy_fwd_route(x, w,
+                                                               layout.bs)
                     check(wname, kernel, plain, where, variant)
                 if k == 0:      # f32: the dw's mixed pairs
                     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -5351,8 +5391,8 @@ def phase_legacy_bs_times(dev):
     the v3 kernels at the same G=3 shape (no quantizer or submask, the
     same function; and as the libri GRU runs them, qbits 8 with the
     submask); the three at the CGS-16x LSTM's G=4, M=4800 (f32, bf16);
-    the device kernels of one dw call at each shape and dtype
-    (``device_kernels``)."""
+    the device kernels of one forward and one dw call at each shape and
+    dtype (``device_kernels``)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     times = {}
     (_, libri, _, _, _), (_, cgs, _, _, _) = legacy_layouts()[2:4]
@@ -5390,7 +5430,7 @@ def phase_legacy_bs_times(dev):
                                                          reps=20)
                     times[key + "_bound_ms"], times[key + "_bound_by"] = \
                         legacy_bound_ms(M, layout, G, op, dt)
-                    if op == "dw":
+                    if op in ("fwd", "dw"):
                         times[key + "_device_kernels"] = device_kernels(
                             kernel)
             del x, w, gy, W, gyd, gb, xb
@@ -5437,9 +5477,9 @@ def slice11_rows(checks, times, api_launches):
     autograd Functions: one launch of each a call); no model path runs
     these kernels (0 launches in every other phase, by ``expected``);
     ``library_ms`` computes the same function (the dense-masked
-    torch.matmul, or torch.bmm over the gathered operands for dw). Rows 9
-    and 12 (the dw, redesigned) name their routes and the device kernels
-    of one call."""
+    torch.matmul, or torch.bmm over the gathered operands for dw). Rows 7,
+    10 (the forward) and 9, 12 (the dw), redesigned, name their routes
+    and the device kernels of one call."""
     bsp = "pytorch_kaldi_cgs_tpu/ops/block_sparse.py:%d"
     csrc = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/%s.cu"
     stats = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5457,8 +5497,9 @@ def slice11_rows(checks, times, api_launches):
                and c["x"] == c["w"] == "f32"][0]["max_abs_err"]
         dw = op == "dw"
         r = {"name": name, "route": "cuda",
-             "source": csrc % ("block_sparse_dw" if dw
-                               else "block_sparse_legacy"),
+             "source": csrc % {"dw": "block_sparse_dw",
+                               "fwd": "block_sparse_v3"}.get(
+                                   op, "block_sparse_legacy"),
              "replaces": bsp % replaces, "launches": api_launches[name],
              "launches_by_path": {"api": api_launches[name],
                                   "model_paths": 0},
@@ -5479,6 +5520,15 @@ def slice11_rows(checks, times, api_launches):
                 "bf16": "dw_mma (bs_mma.cuh, wgmma m64n128k16 bf16, "
                         "float32 sums) + dw_reduce where M is split",
                 "mixed": "bsl_dw_tile (block_sparse_legacy.cu)"}
+        elif op == "fwd":
+            r["status"] = "redesigned"
+            r["routes"] = {
+                "f32 x (w f32 or bf16)": "packed_weight_t + v3_fwd_gemm "
+                                         "(block_sparse_v3.cu, bs_gemm.cuh)",
+                "bf16": "fwd_mma (block_sparse_v3.cu, bs_mma.cuh K-major, "
+                        "wgmma m64n128k16 bf16, float32 sums)",
+                "bf16 x, f32 w": "bsl_fwd_tile (block_sparse_legacy.cu)"}
+        if op in ("fwd", "dw"):
             r["device_kernels_per_call"] = {
                 dt: times[key + dt + "_device_kernels"]
                 for dt in ("f32", "bf16")}
@@ -5540,12 +5590,16 @@ def phase_bs_gemm_times(dev, reps=20):
     function in one PyTorch call) and its bound, and of row 13 (the v3
     forward) at the libri GRU's training and serving M with and without
     the 8-bit quantizer and the submask beside the dense-masked
-    torch.matmul, and row 14 (dx) re-timed; rows 9 and 12 (the legacy dw,
-    bsl_dw at G=1, bsl_dw_multi above) at legacy_dw_shapes in f32 and
-    bf16 beside torch.bmm of the pre-gathered operands in the same dtype
-    and their bounds; the device kernels of one call of each
-    (``device_kernels``). Only the public wrappers are called, so the
-    same phase times an earlier tree's kernels (``--gemm-times DIR``)."""
+    torch.matmul, and row 14 (dx) re-timed; the legacy API's three
+    kernels (bsl_fwd / bsl_dx / bsl_dw at G=1, the _multi wrappers above:
+    rows 7-12) at legacy_dw_shapes in f32 and bf16, the forward and dx
+    beside the dense-masked torch.matmul, the dw beside torch.bmm of the
+    pre-gathered operands, each in the same dtype, and their bounds; the
+    device kernels of one call of each (``device_kernels``), its host
+    time per call (``host_ms``) and its kernels' device time per call
+    (``kernel_ms``). Only the
+    public wrappers are called, so the same phase times an earlier tree's
+    kernels (``--gemm-times DIR``)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     times = {}
     gen = torch.Generator(device=dev).manual_seed(233)
@@ -5621,25 +5675,81 @@ def phase_bs_gemm_times(dev, reps=20):
             rows = torch.as_tensor(layout.rows, dtype=torch.long, device=dev)
             cols = torch.as_tensor(layout.cols, dtype=torch.long, device=dev)
             for dt in ("f32", "bf16"):
-                x, _, gy = legacy_operands(layout, G, M, 235, dev, dt, dt)
-                call = (lambda: BS.bsl_dw(gy, x, layout)) if G == 1 else \
-                    (lambda: BS.bsl_dw_multi(gy, x, layout, G))
+                x, w, gy = legacy_operands(layout, G, M, 235, dev, dt, dt)
+                if G == 1:
+                    w = w.reshape(layout.nnz, bs, bs)
+                W = dense_of(w, layout, G).reshape(G * layout.N, layout.K) \
+                    .to(x.dtype)
+                gyd = gy.reshape(M, layout.Nb, G, bs).permute(0, 2, 1, 3) \
+                    .reshape(M, G * layout.N).contiguous()
                 gb = gy.reshape(M, layout.Nb, G * bs).transpose(0, 1)[rows] \
                     .transpose(1, 2).contiguous()         # (nnz, G*bs, M)
                 xb = x.reshape(M, layout.Kb, bs).transpose(0, 1)[cols] \
                     .contiguous()                          # (nnz, M, bs)
-                key = "bsl_dw_%s_%s" % (tag, dt)
-                # 100 calls: the bf16 dw takes 0.03-0.1 ms a call
-                times[key + "_ms"] = cuda_ms(call, reps=100)
-                times[key + "_library_ms"] = cuda_ms(
-                    lambda: torch.bmm(gb, xb), reps=100)
-                times[key + "_bound_ms"], times[key + "_bound_by"] = \
-                    legacy_bound_ms(M, layout, G, "dw", dt)
-                times[key + "_device_launches"] = device_kernels(call)
-                del x, gy, gb, xb
+                library = {"fwd": lambda: x @ W.T, "dx": lambda: gyd @ W,
+                           "dw": lambda: torch.bmm(gb, xb)}
+                for wname, call, _ in legacy_calls(layout, G, x, w, gy):
+                    op = wname.split("_")[1]
+                    key = "bsl_%s_%s_%s" % (op, tag, dt)
+                    # 100 calls: a bf16 call takes 0.02-0.1 ms
+                    times[key + "_ms"] = cuda_ms(call, reps=100)
+                    times[key + "_library_ms"] = cuda_ms(library[op],
+                                                         reps=100)
+                    times[key + "_bound_ms"], times[key + "_bound_by"] = \
+                        legacy_bound_ms(M, layout, G, op, dt)
+                    times[key + "_device_launches"] = device_kernels(call)
+                    # what bounds a short call: its host path per call
+                    # against its kernels' device time per call
+                    times[key + "_host_ms"] = host_ms(call)
+                    times[key + "_kernel_ms"] = kernel_ms(call)
+                del x, w, gy, W, gyd, gb, xb
             torch.cuda.empty_cache()
     print("[bs_gemm_times] %s" % json.dumps(times))
     return times
+
+
+def host_path_us(dev, n=2000):
+    """Host us per call of each piece of the legacy bf16 forward's path
+    at the libri G=1 shape (the "mma" route): the output's torch.empty,
+    the operand checks, the route, the device context and the Stream
+    object the launch helper no longer builds where the device is
+    current, the raw stream handle it reads instead, the ctypes launcher
+    alone (cudaFuncSetAttribute once, then the launch), the launch helper
+    whole and bsl_fwd whole; calls enqueued back to back."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    _, layout, M, G = legacy_dw_shapes()[0]
+    x, w, _ = legacy_operands(layout, G, M, 235, dev, "bf16", "bf16")
+    w = w.reshape(layout.nnz, layout.bs, layout.bs)
+    ys = torch.empty((1, M, layout.N), dtype=x.dtype, device=dev)
+    dev = x.device
+    ptrs = (x.data_ptr(), w.data_ptr(),
+            layout.device_index("col_idx", dev).data_ptr(), None,
+            ys.data_ptr())
+    ints = (1, 1, M, layout.K, layout.N, layout.Nb, layout.R, layout.bs, 1,
+            0)
+    _, fn = BS._lib_fn("block_sparse_v3", "block_sparse_v3_fwd_packed",
+                       len(ptrs), len(ints))
+    stream = BS._raw_stream(dev.index)
+    shape = (layout.nnz, layout.bs, layout.bs)
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+    parts = {
+        "torch_empty": lambda: torch.empty((1, M, layout.N), dtype=x.dtype,
+                                           device=dev),
+        "check_operands": lambda: BS._check_operands(
+            x, (("x", x, (M, layout.K)), ("w", w, shape)),
+            BS._LEGACY_DTYPES),
+        "legacy_fwd_route": lambda: BS.legacy_fwd_route(x, w, layout.bs),
+        "device_context": context,
+        "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: BS._raw_stream(dev.index),
+        "ctypes_launcher": lambda: fn(*ptrs, *ints, stream),
+        "launch_helper": lambda: BS._launch(
+            "block_sparse_v3", "block_sparse_v3_fwd_packed", dev, ptrs, ints),
+        "bsl_fwd": lambda: BS.bsl_fwd(x, w, layout)}
+    return {k: host_ms(f, n) * 1e3 for k, f in parts.items()}
 
 
 def gemm_times_main(root):
@@ -5647,7 +5757,9 @@ def gemm_times_main(root):
     and the f32 train steps of the libri GRU and the CGS-16x LSTM (CUDA
     events, mean of 5 after 2) with the package of this checkout or of
     the tree unpacked at DIR inside it (an earlier commit's, to compare
-    kernels on one card); one JSON line."""
+    kernels on one card), and with a package that has the legacy
+    forward's routes the pieces of its host path (``host_path_us``); one
+    JSON line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -5668,6 +5780,9 @@ def gemm_times_main(root):
            "package": os.path.relpath(os.path.dirname(_build.CSRC), here),
            "card": smi_card(),
            "times": phase_bs_gemm_times(dev)}
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    if hasattr(BS, "legacy_fwd_route"):     # this tree's package
+        out["host_path_us"] = host_path_us(torch.device(dev))
     for tag, make in (("libri_gru", gru_train_runner),
                       ("cgs16x_lstm", cgs_train_runner)):
         runner, (inp, mask) = make(dev)
@@ -5930,9 +6045,11 @@ def check_gemm_launches(bs_times, dev):
     """The device kernels of one call as bs_gemm_times counted them
     against the design: the v3 forward v3_weight_t then v3_fwd_gemm; the
     dw one dw_gemm, and one dw_reduce where dw_plan splits M; the legacy
-    dw the same, dw_mma in place of dw_gemm in bf16 (where the
-    trace held only launch calls, their number). Raises on a difference;
-    where the profiler showed nothing there is nothing to hold."""
+    dw the same, dw_mma in place of dw_gemm in bf16; the legacy forward
+    packed_weight_t then v3_fwd_gemm in float32, fwd_mma alone in bf16;
+    the legacy dx bsl_dx_tile (where the trace held only launch calls,
+    their number). Raises on a difference; where the profiler showed
+    nothing there is nothing to hold."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     want = {"block_sparse_v3_fwd": {"v3_weight_t": 1, "v3_fwd_gemm": 1},
             "serve_v3_fwd": {"v3_weight_t": 1, "v3_fwd_gemm": 1}}
@@ -5942,7 +6059,9 @@ def check_gemm_launches(bs_times, dev):
         want["dw_" + tag] = dict({"dw_gemm": 1},
                                  **({"dw_reduce": 1} if splits > 1 else {}))
     # the legacy dw: float32 on dw_gemm, bf16 on dw_mma (the timed
-    # operands are fresh, so 16-byte aligned, at bs=128)
+    # operands are fresh, so 16-byte aligned, at bs=128); the forward:
+    # float32 on packed_weight_t + v3_fwd_gemm, bf16 on fwd_mma; the dx on
+    # bsl_dx_tile
     for tag, layout, M, G in legacy_dw_shapes():
         for dt, tile, kernel in (("f32", "bs_gemm", "dw_gemm"),
                                  ("bf16", "bs_mma", "dw_mma")):
@@ -5950,6 +6069,11 @@ def check_gemm_launches(bs_times, dev):
                                 BS.gemm_grid(dev, tile))[1]
             want["bsl_dw_%s_%s" % (tag, dt)] = dict(
                 {kernel: 1}, **({"dw_reduce": 1} if splits > 1 else {}))
+        want["bsl_fwd_%s_f32" % tag] = {"packed_weight_t": 1,
+                                        "v3_fwd_gemm": 1}
+        want["bsl_fwd_%s_bf16" % tag] = {"fwd_mma": 1}
+        for dt in ("f32", "bf16"):
+            want["bsl_dx_%s_%s" % (tag, dt)] = {"bsl_dx_tile": 1}
     def agrees(got, v):
         if got is None or got == v:
             return True

@@ -34,6 +34,11 @@ taken at G=1 and at G>1, float32 or bfloat16 operands, float32 sums:
 
 - ``_make_fwd`` (``:198``) / ``_make_fwd_multi`` (``:380``):
   :func:`bsl_fwd` / :func:`bsl_fwd_multi`, twin :func:`bsl_fwd_plain`;
+  the route is chosen up front (:func:`legacy_fwd_route`): float32 x
+  runs the v3 forward's GEMM over the packed weight transposed once into
+  float32 scratch, bf16 x and w the K-major tensor-core tile of
+  ``csrc/bs_mma.cuh`` (``fwd_mma``), both in ``csrc/block_sparse_v3.cu``;
+  bf16 x with float32 w keeps the legacy file's own forward;
 - ``_make_dx`` (``:248``) / ``_make_dx_multi`` (``:439``): :func:`bsl_dx`
   / :func:`bsl_dx_multi`, twin :func:`bsl_dx_plain`;
 - ``_make_dw`` (``:294``) / ``_make_dw_multi`` (``:487``): :func:`bsl_dw`
@@ -409,14 +414,30 @@ def _lib_fn(lib_name: str, name: str, n_ptrs: int, n_ints: int):
     return lib, fn
 
 
+def _raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current CUDA stream: PyTorch's raw
+    getter (the one Triton's launcher calls), which builds no Stream
+    object."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _launch(lib_name: str, name: str, dev, ptrs, ints) -> None:
     """Call the launcher ``name`` of ``lib_name`` with ``ptrs``, ``ints``
-    and the current stream of device ``dev``, that device current; a
-    failed launch raises (:func:`_build.check`)."""
+    and the current stream of device ``dev``, that device current (a
+    device guard only where another one is); a failed launch raises
+    (:func:`_build.check`). A call's host path: the argument types are
+    set once (:func:`_lib_fn`), and neither a device context nor a Stream
+    object is built where ``dev`` is current (``chip_smoke.py
+    --gemm-times`` times each piece: ``host_path_us``)."""
     from . import _build
     lib, fn = _lib_fn(lib_name, name, len(ptrs), len(ints))
-    with torch.cuda.device(dev):
-        rc = fn(*ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    if index == current:
+        rc = fn(*ptrs, *ints, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*ptrs, *ints, _raw_stream(index))
     _build.check(lib, rc, name)
 
 
@@ -759,34 +780,68 @@ def _dtype_code(t: torch.Tensor) -> int:
 
 
 def _legacy_kernel(name, ptrs, out, codes, ints):
-    """Launch ``name`` of ``csrc/block_sparse_legacy.cu``: the pointers,
-    ``out``, the operands' dtype codes, the ints and the stream."""
-    from . import _build
-    lib = _build.load("block_sparse_legacy")
-    fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 1)
-                   + [ctypes.c_int] * (len(codes) + len(ints))
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    dev = out.device
-    with torch.cuda.device(dev):
-        rc = fn(*ptrs, out.data_ptr(), *codes, *ints,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, name)
+    """Launch ``name`` of ``csrc/block_sparse_legacy.cu`` through
+    :func:`_launch`: the pointers, ``out``, the operands' dtype codes, the
+    ints and the stream."""
+    _launch("block_sparse_legacy", name, out.device,
+            (*ptrs, out.data_ptr()), (*codes, *ints))
+
+
+def legacy_fwd_route(x: torch.Tensor, w: torch.Tensor, bs: int) -> str:
+    """The kernel of the legacy forward for these operands, chosen before
+    the launch: "gemm" where x is float32, w float32 or bf16 (``v3_fwd_gemm``
+    of csrc/block_sparse_v3.cu over the packed weight transposed into
+    float32 scratch by ``packed_weight_t``: a bf16 w widens exactly; its
+    16-byte loads as :func:`gemm_vec` says); "mma" where both are bf16, bs
+    is a multiple of 8 and both are 16-byte aligned (``fwd_mma``, the
+    K-major tensor-core tile of csrc/bs_mma.cuh: a 16-byte chunk is 8
+    columns of one kept block); else "tile" (``bsl_fwd_tile`` of
+    csrc/block_sparse_legacy.cu: bf16 x with float32 w, whose float32
+    product needs w unrounded, and the other bf16 pairs)."""
+    if x.dtype == torch.float32:
+        return "gemm"
+    if x.dtype == w.dtype == torch.bfloat16 and bs % 8 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (x, w)):
+        return "mma"
+    return "tile"
+
+
+def _packed_fwd_kernel(x, w, layout, G, route, ys):
+    """The legacy forward on the "gemm" or "mma" route into ``ys`` (G, M,
+    N): ``block_sparse_v3_fwd_packed`` of csrc/block_sparse_v3.cu, with a
+    float32 scratch weight on "gemm"."""
+    dev, bs = x.device, layout.bs
+    gemm = route == "gemm"
+    wt = torch.empty((layout.Nb, layout.R * bs, G * bs), dtype=torch.float32,
+                     device=dev) if gemm else None
+    _launch("block_sparse_v3", "block_sparse_v3_fwd_packed", dev, (
+        x.data_ptr(), w.data_ptr(),
+        layout.device_index("col_idx", dev).data_ptr(),
+        None if wt is None else wt.data_ptr(), ys.data_ptr()), (
+        _dtype_code(x), _dtype_code(w), x.shape[0], layout.K, layout.N,
+        layout.Nb, layout.R, bs, G, int(gemm and gemm_vec(bs, x))))
 
 
 def _legacy_fwd(x, w, layout, G, wrapper):
-    """The forward at G: the twin on the CPU, else one launch counted on
-    ``wrapper``. -> (G, M, N) in x's dtype."""
+    """The forward at G: the twin on the CPU, else one call on the kernel
+    :func:`legacy_fwd_route` picks, counted on ``wrapper``. -> (G, M, N)
+    in x's dtype."""
     M = x.shape[0]
     if _check_operands(x, (("x", x, (M, layout.K)),
                            ("w", w, (layout.nnz, G * layout.bs, layout.bs))),
                        _LEGACY_DTYPES):
         return bsl_fwd_plain(x, w, layout, G)
     ys = torch.empty((G, M, layout.N), dtype=x.dtype, device=x.device)
-    _legacy_kernel("bsl_fwd", (x.data_ptr(), w.data_ptr(), layout.device_index(
-        "col_idx", x.device).data_ptr()), ys, (_dtype_code(x), _dtype_code(w)),
-        (M, layout.K, layout.N, layout.Nb, layout.R, layout.bs, G))
+    route = legacy_fwd_route(x, w, layout.bs)
+    if route == "tile":
+        _legacy_kernel("bsl_fwd", (x.data_ptr(), w.data_ptr(),
+                                   layout.device_index("col_idx",
+                                                       x.device).data_ptr()),
+                       ys, (_dtype_code(x), _dtype_code(w)),
+                       (M, layout.K, layout.N, layout.Nb, layout.R, layout.bs,
+                        G))
+    else:
+        _packed_fwd_kernel(x, w, layout, G, route, ys)
     wrapper.launches += 1
     return ys
 
@@ -874,8 +929,8 @@ def bsl_fwd(x: torch.Tensor, w_packed: torch.Tensor,
     """The v1 forward (TPU kernel ``_make_fwd``): ``y = x @
     scatter(w_packed).T`` over the kept blocks. x (M, K) and w_packed
     (nnz, bs, bs), each float32 or bfloat16 -> (M, N) in x's dtype,
-    summed in float32. CUDA tensors run ``bsl_fwd`` of
-    ``csrc/block_sparse_legacy.cu`` at G=1, CPU tensors the twin."""
+    summed in float32. CUDA tensors run the kernel
+    :func:`legacy_fwd_route` picks at G=1, CPU tensors the twin."""
     return _legacy_fwd(x, w_packed, layout, 1, bsl_fwd)[0]
 
 

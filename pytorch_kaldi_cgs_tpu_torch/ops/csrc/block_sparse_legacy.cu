@@ -43,18 +43,30 @@
 //     block no row keeps is written as zeros;
 //   - dw: a block owns a tile of one packed block and loops over M in
 //     slabs.
-// No tensor cores, no pipelining: simple and right first.
+// No tensor cores, no pipelining: simple and right first. The dx
+// (bsl_dx_tile) is still the only route of rows 8 and 11.
 //
-// The dw here (bsl_dw_tile) is no longer the main route of rows 9 and 12:
-// the wrapper (ops/block_sparse.py, legacy_dw_route) sends both-float32
-// operands to block_sparse_dw.cu's dw_gemm (the register-blocked tile of
-// bs_gemm.cuh with a packed-layout epilogue, M split as dw_plan says) and
-// both-bf16 operands, at bs a multiple of 8 with gy and x 16-byte aligned,
-// to its dw_mma (the tensor-core tile of bs_mma.cuh). bsl_dw_tile keeps
-// the mixed pairs (float32 gy with bf16 x, or the reverse: reachable only
-// by calling bsl_dw / bsl_dw_multi directly, since the autograd path gives
-// gy in x's type) and the bf16 pairs at other bs or alignment: float32
-// sums over all of M, rounded once to gy's type.
+// The forward and the dw here are no longer the main routes of rows 7,
+// 10 (the forward) and 9, 12 (the dw); ops/block_sparse.py picks each
+// call's kernel before the launch:
+//   - the forward (legacy_fwd_route): float32 x (w float32 or bf16) runs
+//     block_sparse_v3.cu's packed_weight_t + v3_fwd_gemm (row 13's
+//     register-blocked tile of bs_gemm.cuh over the packed weight
+//     transposed once into float32 scratch); x and w bf16, at bs a
+//     multiple of 8 with both 16-byte aligned, run its fwd_mma (the K-major
+//     tensor-core tile of bs_mma.cuh). bsl_fwd_tile keeps bf16 x with
+//     float32 w (the JAX kernel computes that product in float32 and
+//     rounds it to bf16; rounding w to bf16 would not be exact) and the
+//     bf16 pairs at other bs or alignment;
+//   - the dw (legacy_dw_route): both-float32 operands run
+//     block_sparse_dw.cu's dw_gemm (the bs_gemm.cuh tile with a
+//     packed-layout epilogue, M split as dw_plan says), both-bf16 ones, at
+//     bs a multiple of 8 with gy and x 16-byte aligned, its dw_mma (the
+//     MN-major tensor-core tile of bs_mma.cuh). bsl_dw_tile keeps the mixed
+//     pairs (float32 gy with bf16 x, or the reverse: reachable only by
+//     calling bsl_dw / bsl_dw_multi directly, since the autograd path gives
+//     gy in x's type) and the bf16 pairs at other bs or alignment: float32
+//     sums over all of M, rounded once to gy's type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

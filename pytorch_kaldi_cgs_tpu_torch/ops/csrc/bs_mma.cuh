@@ -1,5 +1,7 @@
-// The bf16 tensor-core GEMM tile of the port's block-sparse kernels: the
-// legacy dw (block_sparse_dw.cu, dw_mma) takes it for bf16 operands.
+// The bf16 tensor-core GEMM tiles of the port's block-sparse kernels: the
+// legacy dw (block_sparse_dw.cu, dw_mma) takes the MN-major half for bf16
+// operands, the legacy forward (block_sparse_v3.cu, fwd_mma) the K-major
+// half.
 //
 // A block of 256 threads, two warpgroups, owns a 128 x 128 output tile;
 // warpgroup wg owns its rows wg*64 .. +64 and issues one
@@ -26,6 +28,17 @@
 //
 // The kernel exports TILE, BK and MIN_BLOCKS (bs_mma_config), from which
 // ops/block_sparse.py plans the split of the contraction (dw_plan).
+//
+// The K-major half (km_offset, km_desc, slab_mma_k) is for operands whose
+// contraction runs along a line: an output row of A, an output column of
+// B, each contiguous in memory along k. It is wgmma's native layout
+// (imm-trans 0), the canonical K-major 128-byte-swizzled one: a line holds
+// KM_BK = 64 bf16 of k (128 bytes), 8 lines make a 1 KB atom, the 16-byte
+// chunk e of line r stored at chunk index (e ^ r % 8), and the atoms of
+// consecutive 8-line groups lie 1 KB apart (the descriptor's SBO; a
+// swizzled K-major operand has no LBO). A k16 step is 32 bytes along a
+// line, so the descriptor of step ks starts 32 * ks bytes into the atom
+// and the hardware applies the swizzle from the address bits.
 
 #pragma once
 
@@ -77,7 +90,9 @@ __device__ __forceinline__ unsigned long long sw_desc(unsigned addr) {
          ((unsigned long long)(SW_GROUP >> 4) << 32) | (1ull << 62);
 }
 
-// d += A B for a 64 x 16 A and a 16 x 128 B, both MN-major (imm-trans 1)
+// d += A B for a 64 x 16 A and a 16 x 128 B, both MN-major (TRANS 1,
+// imm-trans 1) or both K-major (TRANS 0)
+template <int TRANS = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  unsigned long long a,
                                                  unsigned long long b) {
@@ -89,7 +104,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -103,7 +118,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS));
 }
 
 // wait until at most N wgmma groups of this warpgroup are in flight
@@ -133,6 +148,48 @@ __device__ __forceinline__ void slab_mma(unsigned as_, unsigned bs_, int wg,
                      sw_desc(bs_ + 2 * ks * SW_GROUP));
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   wgmma_wait<INFLIGHT>();
+  fence_operand(acc);
+}
+
+// ---- the K-major half ----
+
+constexpr int KM_BK = 64;     // k values of one swizzled line (128 bytes)
+
+// wait until at most N groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// byte offset in a K-major slab of line r (an output row or column),
+// 16-byte chunk e (8 k values) of KM_BK / 8
+__device__ __forceinline__ int km_offset(int r, int e) {
+  return (r >> 3) * SW_GROUP + (r & 7) * 128 + ((e ^ (r & 7)) << 4);
+}
+
+// the matrix descriptor of a K-major, 128-byte-swizzled operand at shared
+// address `addr` (inside a 1 KB aligned atom): SBO the stride of the
+// 8-line groups in 16-byte units; LBO unused (1)
+__device__ __forceinline__ unsigned long long km_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((unsigned long long)(SW_GROUP >> 4) << 32) | (1ull << 62);
+}
+
+// acc += A B^T over one K-major slab of KM_BK k values at shared
+// addresses as_ (A: the tile's output rows as lines) and bs_ (B: its
+// output columns as lines), warpgroup wg owning output rows wg*64 .. +64
+// (8 atoms in); returns with at most INFL of its groups in flight
+template <int INFL>
+__device__ __forceinline__ void slab_mma_k(unsigned as_, unsigned bs_,
+                                           int wg, float (&acc)[64]) {
+  fence_operand(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int ks = 0; ks < KM_BK / 16; ++ks)
+    wgmma_m64n128k16<0>(acc, km_desc(as_ + wg * 8 * SW_GROUP + 32 * ks),
+                        km_desc(bs_ + 32 * ks));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  wgmma_wait<INFL>();
   fence_operand(acc);
 }
 

@@ -4,7 +4,10 @@
 on the register-blocked float32 tile of ``csrc/bs_gemm.cuh``; the legacy
 v1/v2 dw, ``bsl_dw`` / ``bsl_dw_multi``, on that tile with a packed-layout
 epilogue for float32 operands and on the bf16 tensor-core tile of
-``csrc/bs_mma.cuh`` for bf16 ones).
+``csrc/bs_mma.cuh`` for bf16 ones; the legacy v1/v2 forward, ``bsl_fwd``
+/ ``bsl_fwd_multi``, on the v3 forward's float32 GEMM over the packed
+weight transposed into scratch for float32 x and on the K-major bf16
+tensor-core tile of ``csrc/bs_mma.cuh`` for bf16 x and w).
 
 - On the CPU: the pure-Python plan of the two grids. ``dw_plan`` splits M
   so that the dw kernel's small output grids (the LibriSpeech GRU's dU,
@@ -43,6 +46,17 @@ epilogue for float32 operands and on the bf16 tensor-core tile of
   a bf16 output within one bf16 ulp of it: both round one float32 sum
   once); misaligned operands; two calls bit for bit; the device kernels
   of one call (``torch.profiler``).
+- The legacy forward: on the CPU, the route each dtype pair, bs and
+  alignment takes (``legacy_fwd_route``); the "gemm" route's packed
+  transposer index map (``packed_weight_t``, mirrored) and the "mma"
+  route's operand lines and epilogue column map (``fwd_mma``, mirrored)
+  over CPU stand-ins against ``bsl_fwd_plain`` at the bs=8 layouts; the
+  wrappers on CPU tensors return the twin in x's dtype. On the card
+  (``cuda``): each route against ``bsl_fwd_plain`` at every layout of
+  ``chip_smoke.legacy_layouts()``, G 1, 3, 4, M 7, 16, 4801, 6400, the
+  four dtype pairs; a misaligned x and w; the device kernels of one call
+  at the three timed shapes; ``block_sparse_matmul[_multi]`` forward and
+  backward against the dense masked float32 product.
 """
 import functools
 import os
@@ -682,3 +696,241 @@ def test_cuda_mma_grid_reads_the_library_and_the_card(cuda_device):
     assert tbs.gemm_grid(cuda_device, "bs_mma") == tbs.GemmGrid(
         props.multi_processor_count, *_tile_constants("bs_mma.cuh"),
         tbs.PARTIAL_ROUND["bs_mma"])
+
+
+# ---------------------------------------------------------------------------
+# the legacy forward (rows 7 and 10): routes and the two new routes' index
+# maps over CPU stand-ins
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("x,w,bs,off,route", [
+    ("f32", "f32", 128, None, "gemm"), ("f32", "f32", 6, None, "gemm"),
+    ("f32", "f32", 128, "x", "gemm"), ("f32", "f32", 128, "w", "gemm"),
+    ("f32", "bf16", 128, None, "gemm"), ("f32", "bf16", 8, "w", "gemm"),
+    ("bf16", "bf16", 128, None, "mma"), ("bf16", "bf16", 8, None, "mma"),
+    ("bf16", "bf16", 4, None, "tile"), ("bf16", "bf16", 12, None, "tile"),
+    ("bf16", "bf16", 128, "x", "tile"), ("bf16", "bf16", 128, "w", "tile"),
+    ("bf16", "f32", 128, None, "tile"), ("bf16", "f32", 8, None, "tile")],
+    ids=str)
+def test_legacy_fwd_route(x, w, bs, off, route):
+    """float32 x (w either type): the v3 forward's float32 GEMM over the
+    packed weight widened into scratch (its scalar loads where gemm_vec
+    says: x is its only operand in global memory); both bf16 at bs a
+    multiple of 8, 16-byte aligned: the K-major tensor-core tile; bf16 x
+    with float32 w and the other bf16 pairs: the legacy file's
+    bsl_fwd_tile."""
+    ops = {}
+    for name, dt in (("x", x), ("w", w)):
+        base = torch.zeros(65, dtype=DT[dt])
+        assert base.data_ptr() % 16 == 0
+        ops[name] = base[1:] if off == name else base[:64]
+    assert tbs.legacy_fwd_route(ops["x"], ops["w"], bs) == route
+    if route == "gemm":
+        assert tbs.gemm_vec(bs, ops["x"]) == (bs % 4 == 0 and off != "x")
+
+
+def _small_fwd_operands(tl, G, M, xdt, wdt, seed):
+    """x (M, K) and the packed w (nnz, G*bs, bs) on the CPU, in the asked
+    dtypes."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(M, tl.K).astype(np.float32)).to(DT[xdt])
+    w = torch.from_numpy((rng.randn(tl.nnz, G * tl.bs, tl.bs)
+                          / np.sqrt(tl.R * tl.bs)).astype(np.float32)
+                         ).to(DT[wdt])
+    return x, w
+
+
+def _legacy_fwd_call(x, w, tl, G):
+    """The v1 wrapper at G=1 (as (1, M, N)), the v2 one above."""
+    return tbs.bsl_fwd(x, w, tl)[None] if G == 1 else \
+        tbs.bsl_fwd_multi(x, w, tl, G)
+
+
+@pytest.mark.parametrize("wdt", ["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("name", ["small_hcgs", "small_uneven"])
+def test_legacy_fwd_packed_transpose_matches_twin(name, G, wdt):
+    """The "gemm" route on the CPU: packed_weight_t's index map
+    (wt[j][kk][n] = w[j*R + kk / bs][n][kk % bs], a bijection, widened to
+    float32) then the GEMM's contraction as block_sparse_v3_fwd_plain does
+    it: bsl_fwd_plain within 1e-5 of its scale; the wrapper on CPU tensors
+    is the twin, in x's dtype."""
+    tl = _small_legacy_layouts()[name]
+    bs, R, Nb = tl.bs, tl.R, tl.Nb
+    GB, RB = G * bs, R * bs
+    x, w = _small_fwd_operands(tl, G, 300, "f32", wdt, G)
+    assert tbs.legacy_fwd_route(x, w, bs) == "gemm"
+    j, kk, n = np.meshgrid(np.arange(Nb), np.arange(RB), np.arange(GB),
+                           indexing="ij")
+    src = ((j * R + kk // bs) * GB + n) * bs + kk % bs
+    assert sorted(src.ravel()) == list(range(tl.nnz * GB * bs))
+    wt = w.float().reshape(-1)[torch.from_numpy(src.ravel())] \
+        .reshape(Nb, RB, GB)
+    got = tbs.block_sparse_v3_fwd_plain(x, wt.transpose(1, 2), tl, G)
+    ref = tbs.bsl_fwd_plain(x, w, tl, G)
+    wrapped = _legacy_fwd_call(x, w.reshape(tl.nnz, GB, bs), tl, G)
+    assert got.dtype == ref.dtype == wrapped.dtype == torch.float32
+    assert torch.equal(wrapped, ref)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                               atol=ATOL * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("name", ["small_hcgs", "small_uneven"])
+def test_legacy_fwd_mma_operand_maps_match_twin(name, G):
+    """The "mma" route on the CPU: fwd_mma's operand lines (A's line m,
+    k = kk: x[m, col_idx[j*R + kk / bs]*bs + kk % bs]; B's line n:
+    w[j*R + kk / bs][n][kk % bs]) contracted in float32, its epilogue's
+    column map (n = g*bs + r -> ys[g][m, j*bs + r]) and one rounding to
+    bf16: bsl_fwd_plain within one bf16 ulp of its scale; the wrapper on
+    CPU tensors is the twin, in bf16."""
+    tl = _small_legacy_layouts()[name]
+    bs, R, Nb, M = tl.bs, tl.R, tl.Nb, 37
+    GB, RB = G * bs, R * bs
+    x, w = _small_fwd_operands(tl, G, M, "bf16", "bf16", 10 + G)
+    assert tbs.legacy_fwd_route(x, w, bs) == "mma"
+    kk = np.arange(RB)
+    xcol = tl.col_idx.reshape(Nb, R)[:, kk // bs] * bs + kk % bs  # (Nb, RB)
+    A = x.float()[:, torch.from_numpy(xcol.ravel())].reshape(M, Nb, RB)
+    j, n, k = np.meshgrid(np.arange(Nb), np.arange(GB), kk, indexing="ij")
+    B = w.float().reshape(-1)[torch.from_numpy(
+        (((j * R + k // bs) * GB + n) * bs + k % bs).ravel())] \
+        .reshape(Nb, GB, RB)
+    acc = torch.einsum("mjk,jnk->jmn", A, B)                     # (Nb, M, GB)
+    ys = torch.empty(G, M, tl.N)
+    for jj in range(Nb):
+        for nn in range(GB):
+            g, r = divmod(nn, bs)
+            ys[g, :, jj * bs + r] = acc[jj, :, nn]
+    got = ys.to(torch.bfloat16)
+    ref = tbs.bsl_fwd_plain(x, w, tl, G)
+    wrapped = _legacy_fwd_call(
+        x, w.reshape(tl.nnz, bs, bs) if G == 1 else w, tl, G)
+    assert got.dtype == ref.dtype == wrapped.dtype == torch.bfloat16
+    assert torch.equal(wrapped, ref)
+    _assert_legacy_close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the legacy forward on the card (skips without one)
+# ---------------------------------------------------------------------------
+
+FWD_ROUTE = {("f32", "f32"): "gemm", ("f32", "bf16"): "gemm",
+             ("bf16", "bf16"): "mma", ("bf16", "f32"): "tile"}
+FWD_KERNELS = {"gemm": {"packed_weight_t": 1, "v3_fwd_gemm": 1},
+               "mma": {"fwd_mma": 1}, "tile": {"bsl_fwd_tile": 1}}
+
+
+def _legacy_fwd_operands(tl, G, M, dev, xdt, wdt, seed=0):
+    """x (M, K; pad columns zero) and the packed w (nnz, G*bs, bs; (nnz,
+    bs, bs) at G=1) on the card, in the asked dtypes."""
+    gen = torch.Generator(device=dev).manual_seed(seed + M + G)
+    x = torch.randn(M, tl.K, device=dev, generator=gen)
+    x[:, tl.k_true:] = 0
+    w = torch.randn(tl.nnz, G * tl.bs, tl.bs, device=dev, generator=gen) \
+        / np.sqrt(tl.R * tl.bs)
+    return x.to(DT[xdt]), w.to(DT[wdt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", PAIRS, ids=["-".join(p) for p in PAIRS])
+@pytest.mark.parametrize("M", [7, 16, 4801, 6400])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("name", LEGACY_NAMES)
+def test_cuda_legacy_fwd_matches_twin(cuda_device, name, G, M, xdt, wdt):
+    """Each route against bsl_fwd_plain on the same tensors: float32
+    within 1e-5 of the twin's scale, a bf16 output within one bf16 ulp of
+    it; one launch counted on the wrapper; the output in x's dtype."""
+    tl = _legacy_layout(name)
+    x, w = _legacy_fwd_operands(tl, G, M, cuda_device, xdt, wdt)
+    assert tbs.legacy_fwd_route(x, w, tl.bs) == FWD_ROUTE[(xdt, wdt)]
+    wrapper = tbs.bsl_fwd if G == 1 else tbs.bsl_fwd_multi
+    before = wrapper.launches
+    got = _legacy_fwd_call(x, w, tl, G)
+    assert wrapper.launches == before + 1
+    ref = tbs.bsl_fwd_plain(x, w, tl, G)
+    torch.cuda.synchronize()
+    assert got.dtype == DT[xdt] and got.shape == (G, M, tl.N)
+    _assert_legacy_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["x", "w"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("M", [7, 4801])
+@pytest.mark.parametrize("name", ["small_hcgs", "libri_x"])
+def test_cuda_legacy_fwd_misaligned_operand(cuda_device, name, M, dt, which):
+    """One operand one element off a 16-byte boundary: float32 stays on
+    the GEMM (x misaligned: its scalar loads; w is read by the transposer
+    only), bf16 goes to bsl_fwd_tile; both agree with the twin."""
+    tl, G = _legacy_layout(name), 3
+    ops = dict(zip(("x", "w"), _legacy_fwd_operands(tl, G, M, cuda_device,
+                                                    dt, dt)))
+    ref = tbs.bsl_fwd_plain(ops["x"], ops["w"], tl, G)
+    ops[which] = _offset(ops[which])
+    route = tbs.legacy_fwd_route(ops["x"], ops["w"], tl.bs)
+    assert route == ("gemm" if dt == "f32" else "tile")
+    if route == "gemm":
+        assert tbs.gemm_vec(tl.bs, ops["x"]) == (which == "w")
+    got = tbs.bsl_fwd_multi(ops["x"], ops["w"], tl, G)
+    torch.cuda.synchronize()
+    _assert_legacy_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", PAIRS, ids=["-".join(p) for p in PAIRS])
+@pytest.mark.parametrize("tag", sorted(LEGACY_TIMED))
+def test_cuda_legacy_fwd_device_kernels(cuda_device, tag, xdt, wdt):
+    """The timed shapes: one call launches the route's kernels, the
+    transposer and the GEMM on "gemm", fwd_mma alone on "mma",
+    bsl_fwd_tile alone on "tile"; two calls give the same bits."""
+    M, _, G, _, _ = LEGACY_TIMED[tag]
+    tl = _legacy_layout("libri_x" if tag.startswith("libri") else "cgs16x")
+    x, w = _legacy_fwd_operands(tl, G, M, cuda_device, xdt, wdt, seed=7)
+    want = FWD_KERNELS[tbs.legacy_fwd_route(x, w, tl.bs)]
+    a = _legacy_fwd_call(x, w, tl, G)
+    b = _legacy_fwd_call(x, w, tl, G)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    got = _kernels_of(lambda: _legacy_fwd_call(x, w, tl, G))
+    assert got in (want, {"cuda_launch_calls": sum(want.values())})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("name", LEGACY_NAMES)
+def test_cuda_legacy_api_matches_dense_masked(cuda_device, name, G):
+    """block_sparse_matmul (G=1) / block_sparse_matmul_multi forward and
+    backward on the card, float32, against the dense masked product
+    (TF32 off): y, dx and dw within 1e-5 of their scale; one forward, one
+    dx and one dw launch per call."""
+    tl = _legacy_layout(name)
+    M = 240
+    x, w = _legacy_fwd_operands(tl, G, M, cuda_device, "f32", "f32", seed=3)
+    bs, Nb, Kb = tl.bs, tl.Nb, tl.Kb
+    rows = torch.as_tensor(tl.rows, dtype=torch.long, device=cuda_device)
+    cols = torch.as_tensor(tl.cols, dtype=torch.long, device=cuda_device)
+    dense = torch.zeros(G, Nb, Kb, bs, bs, device=cuda_device)
+    dense[:, rows, cols] = w.reshape(tl.nnz, G, bs, bs).transpose(0, 1)
+    W = dense.permute(0, 1, 3, 2, 4).reshape(G, tl.N, tl.K)
+    cot = torch.randn(G, M, tl.N, device=cuda_device,
+                      generator=torch.Generator(device=cuda_device)
+                      .manual_seed(G))
+    xt, wt = x.clone().requires_grad_(), w.clone().requires_grad_()
+    v = "" if G == 1 else "_multi"
+    wrappers = [getattr(tbs, "bsl_%s%s" % (op, v))
+                for op in ("fwd", "dx", "dw")]
+    before = [f.launches for f in wrappers]
+    if G == 1:
+        y = tbs.block_sparse_matmul(xt, wt, tl, M)[None]
+    else:
+        y = tbs.block_sparse_matmul_multi(xt, wt, tl, G, M)
+    y.backward(cot)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [1, 1, 1]
+    dW = torch.einsum("gmn,mk->gnk", cot, x).reshape(
+        G, Nb, bs, Kb, bs).permute(1, 3, 0, 2, 4)
+    for got, ref in ((y.detach(), torch.einsum("mk,gnk->gmn", x, W)),
+                     (xt.grad, torch.einsum("gmn,gnk->mk", cot, W)),
+                     (wt.grad, dW[rows, cols].reshape(wt.shape))):
+        _assert_legacy_close(got, ref)
