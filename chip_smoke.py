@@ -269,10 +269,12 @@ Phases (any failure raises and the script exits non-zero):
              packed_weight_t + v3_fwd_gemm, its bf16 pair fwd_mma, bf16 x
              with f32 w bsl_fwd_tile; the dw also with mixed operands (its
              bsl_dw_tile route; the f32 and bf16 pairs run
-             block_sparse_dw.cu's dw_gemm and dw_mma); each check names
-             its route; both autograd Functions against the dense masked
-             product with exact launch counts, again with the twins
-             swapped out.
+             block_sparse_dw.cu's dw_gemm and dw_mma); the dx's f32
+             pair runs block_sparse_dx.cu's dx_gemm, its bf16 pair
+             dx_mma, the mixed pairs bsl_dx_tile; each forward, dx and
+             dw check names its route; both autograd Functions against
+             the dense masked product with exact launch counts, again
+             with the twins swapped out.
 50. libri_ligru_serve, libri_ligru_stream, libri_ligru_train — the
              LibriSpeech Li-GRU cfg (``cfg/LibriSpeech_baselines/
              libri_liGRU_fmllr.cfg``: 5x1024 bidirectional relu liGRU, BN,
@@ -285,7 +287,7 @@ Phases (any failure raises and the script exits non-zero):
 51. legacy_bs_times — the legacy kernels' ms, twins, bounds and the
              dense-masked torch.matmul (dw: torch.bmm) computing the same
              function, at the libri layout (G=1, 3) and the CGS-16x G=4,
-             f32 and bf16; the device kernels of one forward and one dw
+             f32 and bf16; the device kernels of one forward, dx and dw
              call (torch.profiler); the v3 kernels at the same G=3 shape, the timed
              v3 forward and dw against their twins, two dw calls bit for
              bit.
@@ -303,7 +305,9 @@ Phases (any failure raises and the script exits non-zero):
              matmul (the dw: torch.bmm) in the same dtype; the device
              kernels of one call of each, counted by torch.profiler and
              held to the design (v3 forward 2, dw and legacy dw 1 or 2,
-             legacy forward 2 in f32 and 1 in bf16, legacy dx 1).
+             legacy forward 2 in f32 and 1 in bf16, legacy dx 1, or 2
+             where its plan splits a column: dx_gemm or dx_mma, then
+             dx_reduce).
 53. libri_ligru_times — rows 16-18 at the cfg's shapes, the libri
              Li-GRU train step and recognize.
 
@@ -316,7 +320,9 @@ steps alone and prints one JSON line: with this checkout's package, or
 with the package of an earlier tree unpacked into DIR, a git-ignored
 directory inside this checkout (``git archive <commit> | tar -x -C
 build/parent``; its kernels build under DIR/build). Run parent, change,
-change, parent in one call to compare on one card.
+change, parent in one call to compare on one card. With a package that
+has the legacy dx's plan it also times the dx at every split the plan
+weighs beside the one it picks (``dx_plan_sweep``).
 
 The line before the last pair is the kernels JSON, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, ...}``. Needs
@@ -1591,28 +1597,32 @@ def host_ms(fn, reps=100):
     return (t1 - t0) * 1e3 / reps
 
 
-def device_kernels(fn):
+def device_kernels(fn, tries=3):
     """The device kernels one call of ``fn`` launches, by short name, as
     torch.profiler's trace records them (read from the trace file it
-    writes). Where the trace holds no kernel records it counts the CUDA
-    runtime's launch calls instead, ``{"cuda_launch_calls": n}`` (late in
-    the full run the trace of such a short call had no kernel records,
-    while a fresh process's had them); None where it holds neither."""
-    events = trace_events(fn)
-    out, calls = {}, 0
-    for e in events:
-        name = str(e.get("name", ""))
-        if e.get("cat") == "kernel":
-            k = kernel_short_name(name)
-            out[k] = out.get(k, 0) + 1
-        elif e.get("cat") == "cuda_runtime" and name.startswith(
-                ("cudaLaunchKernel", "cuLaunchKernel")):
-            calls += 1
-    if out:
-        return out
-    print("[device_kernels] no kernel records, %d launch calls; trace "
-          "categories: %s" % (calls, sorted({str(e.get("cat"))
-                                             for e in events})))
+    writes). A trace is whole when it holds a kernel record for each of
+    the CUDA runtime's launch calls; one that holds fewer (late in the
+    full run a short call's trace held none, or one of a call's two) is
+    taken again, up to ``tries`` traces. Where none was whole it counts
+    the launch calls instead, ``{"cuda_launch_calls": n}``; None where
+    the traces held neither."""
+    for _ in range(tries):
+        events = trace_events(fn)
+        out, calls = {}, 0
+        for e in events:
+            name = str(e.get("name", ""))
+            if e.get("cat") == "kernel":
+                k = kernel_short_name(name)
+                out[k] = out.get(k, 0) + 1
+            elif e.get("cat") == "cuda_runtime" and name.startswith(
+                    ("cudaLaunchKernel", "cuLaunchKernel")):
+                calls += 1
+        if out and sum(out.values()) >= calls:
+            return out
+        print("[device_kernels] %d kernel records %s for %d launch calls; "
+              "trace categories: %s" % (
+                  sum(out.values()), sorted(out), calls,
+                  sorted({str(e.get("cat")) for e in events})))
     return {"cuda_launch_calls": calls} if calls else None
 
 
@@ -5289,8 +5299,8 @@ def phase_legacy_bs_kernels(dev):
     dense masked product with exact launch counts, once more with the
     six twins swapped for functions that raise (the card's path never
     reaches them). The dw also with the mixed pairs (float32 gy with bf16
-    x and the reverse: its bsl_dw_tile route); each forward and dw check
-    names the route it took (BS.legacy_fwd_route, BS.legacy_dw_route).
+    x and the reverse: its bsl_dw_tile route); each check names the route
+    it took (BS.legacy_fwd_route, BS.legacy_dx_route, BS.legacy_dw_route).
     -> (checks, API-path launches by wrapper)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     checks = []
@@ -5330,6 +5340,9 @@ def phase_legacy_bs_kernels(dev):
                     elif op == "fwd":
                         variant["route"] = BS.legacy_fwd_route(x, w,
                                                                layout.bs)
+                    else:
+                        variant["route"] = BS.legacy_dx_route(gy, w,
+                                                              layout.bs)
                     check(wname, kernel, plain, where, variant)
                 if k == 0:      # f32: the dw's mixed pairs
                     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -5391,8 +5404,8 @@ def phase_legacy_bs_times(dev):
     the v3 kernels at the same G=3 shape (no quantizer or submask, the
     same function; and as the libri GRU runs them, qbits 8 with the
     submask); the three at the CGS-16x LSTM's G=4, M=4800 (f32, bf16);
-    the device kernels of one forward and one dw call at each shape and
-    dtype (``device_kernels``)."""
+    the device kernels of one call of each at each shape and dtype
+    (``device_kernels``)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     times = {}
     (_, libri, _, _, _), (_, cgs, _, _, _) = legacy_layouts()[2:4]
@@ -5430,9 +5443,7 @@ def phase_legacy_bs_times(dev):
                                                          reps=20)
                     times[key + "_bound_ms"], times[key + "_bound_by"] = \
                         legacy_bound_ms(M, layout, G, op, dt)
-                    if op in ("fwd", "dw"):
-                        times[key + "_device_kernels"] = device_kernels(
-                            kernel)
+                    times[key + "_device_kernels"] = device_kernels(kernel)
             del x, w, gy, W, gyd, gb, xb
             torch.cuda.empty_cache()
     # the v3 kernels at the libri G=3 shape
@@ -5477,9 +5488,9 @@ def slice11_rows(checks, times, api_launches):
     autograd Functions: one launch of each a call); no model path runs
     these kernels (0 launches in every other phase, by ``expected``);
     ``library_ms`` computes the same function (the dense-masked
-    torch.matmul, or torch.bmm over the gathered operands for dw). Rows 7,
-    10 (the forward) and 9, 12 (the dw), redesigned, name their routes
-    and the device kernels of one call."""
+    torch.matmul, or torch.bmm over the gathered operands for dw). All six
+    rows, redesigned, name their routes and the device kernels of one
+    call."""
     bsp = "pytorch_kaldi_cgs_tpu/ops/block_sparse.py:%d"
     csrc = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/%s.cu"
     stats = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5498,8 +5509,8 @@ def slice11_rows(checks, times, api_launches):
         dw = op == "dw"
         r = {"name": name, "route": "cuda",
              "source": csrc % {"dw": "block_sparse_dw",
-                               "fwd": "block_sparse_v3"}.get(
-                                   op, "block_sparse_legacy"),
+                               "fwd": "block_sparse_v3",
+                               "dx": "block_sparse_dx"}[op],
              "replaces": bsp % replaces, "launches": api_launches[name],
              "launches_by_path": {"api": api_launches[name],
                                   "model_paths": 0},
@@ -5528,10 +5539,17 @@ def slice11_rows(checks, times, api_launches):
                 "bf16": "fwd_mma (block_sparse_v3.cu, bs_mma.cuh K-major, "
                         "wgmma m64n128k16 bf16, float32 sums)",
                 "bf16 x, f32 w": "bsl_fwd_tile (block_sparse_legacy.cu)"}
-        if op in ("fwd", "dw"):
-            r["device_kernels_per_call"] = {
-                dt: times[key + dt + "_device_kernels"]
-                for dt in ("f32", "bf16")}
+        else:
+            r["status"] = "redesigned"
+            r["routes"] = {
+                "f32": "dx_gemm (block_sparse_dx.cu, bs_gemm.cuh) + "
+                       "dx_reduce where dx_plan splits a column",
+                "bf16": "dx_mma (block_sparse_dx.cu, bs_mma.cuh: gy "
+                        "K-major, w MN-major, wgmma m64n128k16 bf16, "
+                        "float32 sums) + dx_reduce where dx_plan splits",
+                "mixed": "bsl_dx_tile (block_sparse_legacy.cu)"}
+        r["device_kernels_per_call"] = {
+            dt: times[key + dt + "_device_kernels"] for dt in ("f32", "bf16")}
         if G == 3:
             r["cgs16x_G4"] = {k: times["cgs16x_G4_%s_f32_" % op + k]
                               for k in stats}
@@ -5715,10 +5733,12 @@ def host_path_us(dev, n=2000):
     object the launch helper no longer builds where the device is
     current, the raw stream handle it reads instead, the ctypes launcher
     alone (cudaFuncSetAttribute once, then the launch), the launch helper
-    whole and bsl_fwd whole; calls enqueued back to back."""
+    whole and bsl_fwd whole; with a package that has the legacy dx's
+    plan, the dx's route, its plan and table lookup (``_dx_work``) and
+    bsl_dx whole at the same shape; calls enqueued back to back."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     _, layout, M, G = legacy_dw_shapes()[0]
-    x, w, _ = legacy_operands(layout, G, M, 235, dev, "bf16", "bf16")
+    x, w, gy = legacy_operands(layout, G, M, 235, dev, "bf16", "bf16")
     w = w.reshape(layout.nnz, layout.bs, layout.bs)
     ys = torch.empty((1, M, layout.N), dtype=x.dtype, device=dev)
     dev = x.device
@@ -5749,7 +5769,63 @@ def host_path_us(dev, n=2000):
         "launch_helper": lambda: BS._launch(
             "block_sparse_v3", "block_sparse_v3_fwd_packed", dev, ptrs, ints),
         "bsl_fwd": lambda: BS.bsl_fwd(x, w, layout)}
+    if hasattr(BS, "legacy_dx_route"):
+        parts.update({
+            "legacy_dx_route": lambda: BS.legacy_dx_route(gy, w, layout.bs),
+            "dx_work": lambda: BS._dx_work(layout, M, G, "mma", dev),
+            "bsl_dx": lambda: BS.bsl_dx(gy, w, layout)})
     return {k: host_ms(f, n) * 1e3 for k, f in parts.items()}
+
+
+def dx_plan_of(layout, M, G, route, dev, split=None):
+    """The legacy dx's plan (BS.legacy_dx_plan) of a call on ``route``
+    ("gemm" or "mma") at M and G on device ``dev``, or the forced
+    ``split``."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    return BS.legacy_dx_plan(layout, M, G, route,
+                             BS.gemm_grid(dev, BS.DX_TILE[route]), split)
+
+
+def dx_plan_sweep(dev):
+    """The legacy dx at each timed shape (legacy_dw_shapes), f32 and bf16,
+    at every split the plan weighs (BS.dx_splits; splits that give the
+    same items timed once), forced through the wrapper: per split the
+    device time of one call's kernels (kernel_ms), the call's CUDA-event
+    ms, the modelled us and the partial planes, beside the split the plan
+    picks. -> {shape_dtype: ...}."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    out = {}
+    plan_fn = BS.dx_plan
+    for tag, layout, M, G in legacy_dw_shapes():
+        for dt, route in (("f32", "gemm"), ("bf16", "mma")):
+            _, w, gy = legacy_operands(layout, G, M, 236, dev, dt, dt)
+            if G == 1:
+                w = w.reshape(layout.nnz, layout.bs, layout.bs)
+            call = (lambda: BS.bsl_dx(gy, w, layout)) if G == 1 else \
+                (lambda: BS.bsl_dx_multi(gy, w, layout, G))
+            pick = dx_plan_of(layout, M, G, route, dev)
+            r = {"pick": list(pick.split), "pick_model_us": pick.cost_us}
+            seen = set()
+            for sp in BS.dx_splits(BS.column_counts(layout)):
+                forced = dx_plan_of(layout, M, G, route, dev, sp)
+                if forced.items in seen:
+                    continue
+                seen.add(forced.items)
+                # the wrapper asks dx_plan for its plan: force this one
+                BS.dx_plan = lambda *a, forced=forced: forced
+                try:
+                    r["S%d_%d" % sp] = {
+                        "kernel_ms": kernel_ms(call),
+                        "ms": cuda_ms(call, reps=50),
+                        "model_us": forced.cost_us, "parts": forced.parts}
+                finally:
+                    BS.dx_plan = plan_fn
+            out["bsl_dx_%s_%s" % (tag, dt)] = r
+            print("[dx_plan_sweep] %s_%s %s" % (tag, dt, json.dumps(r)),
+                  flush=True)
+            del w, gy
+        torch.cuda.empty_cache()
+    return out
 
 
 def gemm_times_main(root):
@@ -5758,8 +5834,9 @@ def gemm_times_main(root):
     events, mean of 5 after 2) with the package of this checkout or of
     the tree unpacked at DIR inside it (an earlier commit's, to compare
     kernels on one card), and with a package that has the legacy
-    forward's routes the pieces of its host path (``host_path_us``); one
-    JSON line."""
+    forward's routes the pieces of its host path (``host_path_us``), with
+    one that has the legacy dx's plan the dx at every split it weighs
+    (``dx_plan_sweep``); one JSON line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -5781,8 +5858,10 @@ def gemm_times_main(root):
            "card": smi_card(),
            "times": phase_bs_gemm_times(dev)}
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
-    if hasattr(BS, "legacy_fwd_route"):     # this tree's package
+    if hasattr(BS, "legacy_fwd_route"):     # the legacy forward's routes
         out["host_path_us"] = host_path_us(torch.device(dev))
+    if hasattr(BS, "legacy_dx_route"):      # this tree's package
+        out["dx_plan_sweep"] = dx_plan_sweep(dev)
     for tag, make in (("libri_gru", gru_train_runner),
                       ("cgs16x_lstm", cgs_train_runner)):
         runner, (inp, mask) = make(dev)
@@ -6047,9 +6126,10 @@ def check_gemm_launches(bs_times, dev):
     dw one dw_gemm, and one dw_reduce where dw_plan splits M; the legacy
     dw the same, dw_mma in place of dw_gemm in bf16; the legacy forward
     packed_weight_t then v3_fwd_gemm in float32, fwd_mma alone in bf16;
-    the legacy dx bsl_dx_tile (where the trace held only launch calls,
-    their number). Raises on a difference; where the profiler showed
-    nothing there is nothing to hold."""
+    the legacy dx dx_gemm in float32, dx_mma in bf16, each then
+    dx_reduce where dx_plan splits a column (where the trace held only
+    launch calls, their number). Raises on a difference; where the
+    profiler showed nothing there is nothing to hold."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     want = {"block_sparse_v3_fwd": {"v3_weight_t": 1, "v3_fwd_gemm": 1},
             "serve_v3_fwd": {"v3_weight_t": 1, "v3_fwd_gemm": 1}}
@@ -6061,7 +6141,7 @@ def check_gemm_launches(bs_times, dev):
     # the legacy dw: float32 on dw_gemm, bf16 on dw_mma (the timed
     # operands are fresh, so 16-byte aligned, at bs=128); the forward:
     # float32 on packed_weight_t + v3_fwd_gemm, bf16 on fwd_mma; the dx on
-    # bsl_dx_tile
+    # dx_gemm and dx_mma
     for tag, layout, M, G in legacy_dw_shapes():
         for dt, tile, kernel in (("f32", "bs_gemm", "dw_gemm"),
                                  ("bf16", "bs_mma", "dw_mma")):
@@ -6072,8 +6152,11 @@ def check_gemm_launches(bs_times, dev):
         want["bsl_fwd_%s_f32" % tag] = {"packed_weight_t": 1,
                                         "v3_fwd_gemm": 1}
         want["bsl_fwd_%s_bf16" % tag] = {"fwd_mma": 1}
-        for dt in ("f32", "bf16"):
-            want["bsl_dx_%s_%s" % (tag, dt)] = {"bsl_dx_tile": 1}
+        for dt, route, kernel in (("f32", "gemm", "dx_gemm"),
+                                  ("bf16", "mma", "dx_mma")):
+            plan = dx_plan_of(layout, M, G, route, dev)
+            want["bsl_dx_%s_%s" % (tag, dt)] = dict(
+                {kernel: 1}, **({"dx_reduce": 1} if plan.parts else {}))
     def agrees(got, v):
         if got is None or got == v:
             return True

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("fused_lstm_fwd", "fused_lstm_bwd", "fused_lstm_sparse",
            "block_sparse_dw", "fused_ligru", "block_sparse_v3",
            "fused_gru_sparse", "fused_gru", "fused_rnn", "fused_ligru_sparse",
-           "fused_gru_torch", "fused_rnn_sparse", "block_sparse_legacy")
+           "fused_gru_torch", "fused_rnn_sparse", "block_sparse_legacy",
+           "block_sparse_dx")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -40,7 +40,12 @@ taken at G=1 and at G>1, float32 or bfloat16 operands, float32 sums:
   ``csrc/bs_mma.cuh`` (``fwd_mma``), both in ``csrc/block_sparse_v3.cu``;
   bf16 x with float32 w keeps the legacy file's own forward;
 - ``_make_dx`` (``:248``) / ``_make_dx_multi`` (``:439``): :func:`bsl_dx`
-  / :func:`bsl_dx_multi`, twin :func:`bsl_dx_plain`;
+  / :func:`bsl_dx_multi`, twin :func:`bsl_dx_plain`; the route is chosen
+  up front (:func:`legacy_dx_route`): float32 operands run the float32
+  tile, bf16 ones a tensor-core tile with gy K-major and w MN-major
+  (``dx_mma``), both in ``csrc/block_sparse_dx.cu`` over the work items
+  of :func:`dx_plan`, which balances the layout's uneven columns; mixed
+  pairs keep the legacy file's own dx;
 - ``_make_dw`` (``:294``) / ``_make_dw_multi`` (``:487``): :func:`bsl_dw`
   / :func:`bsl_dw_multi`, twin :func:`bsl_dw_plain`; the route is chosen
   up front (:func:`legacy_dw_route`): float32 operands run the dw
@@ -67,8 +72,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -306,24 +312,29 @@ class GemmGrid:
     partial_round: float = 1.0
 
 
+# the built library that reports each tile's constants
+_TILE_LIBRARY = {"bs_gemm": "block_sparse_dw", "bs_mma": "block_sparse_dw",
+                 "dx_mma": "block_sparse_dx"}
+
+
 @functools.lru_cache(maxsize=None)
 def _gemm_grid(index: int, tile_name: str) -> GemmGrid:
     from . import _build
-    fn = getattr(_build.load("block_sparse_dw"), tile_name + "_config")
+    fn = getattr(_build.load(_TILE_LIBRARY[tile_name]), tile_name + "_config")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     tile = (ctypes.c_int * 3)()
     fn(tile)
     return GemmGrid(
         torch.cuda.get_device_properties(index).multi_processor_count, *tile,
-        PARTIAL_ROUND[tile_name])
+        PARTIAL_ROUND.get(tile_name, 1.0))
 
 
 def gemm_grid(dev, tile_name: str = "bs_gemm") -> GemmGrid:
     """The GemmGrid of CUDA device ``dev``: the tile ``tile_name``
-    ("bs_gemm", the float32 tile, or "bs_mma", the bf16 one) as the built
-    dw library reports it (``<tile_name>_config``), the SM count as the
-    device does."""
+    ("bs_gemm", the float32 tile, "bs_mma", the dw's bf16 one, or
+    "dx_mma", the legacy dx's bf16 one) as the built library reports it
+    (``<tile_name>_config``), the SM count as the device does."""
     dev = torch.device(dev)
     return _gemm_grid(torch.cuda.current_device() if dev.index is None
                       else dev.index, tile_name)
@@ -336,11 +347,12 @@ DW_SPLIT_MIN_ROWS = 128
 # not fitted to a measurement; with it the plan keeps one split where the
 # tiles fill whole rounds of slots
 DW_BLOCK_OVERHEAD_SLABS = 3
-# GemmGrid.partial_round of each tile. The float32 tile charges a full
-# round: the model its plans (row 15's among them) were made and measured
-# with. The bf16 tile's share is measured: on the H100 one dw_mma block
-# alone on its SM takes 0.50 of the time of two co-resident ones over the
-# same rows (dw_split_sweep.py)
+# GemmGrid.partial_round of each tile dw_plan reads. The float32 tile
+# charges a full round: the model its plans (row 15's among them) were
+# made and measured with. The bf16 tile's share is measured: on the H100
+# one dw_mma block alone on its SM takes 0.50 of the time of two
+# co-resident ones over the same rows (dw_split_sweep.py). dx_plan reads
+# none (dx_mma's grid keeps 1.0)
 PARTIAL_ROUND = {"bs_gemm": 1.0, "bs_mma": 0.50}
 
 
@@ -401,15 +413,17 @@ def _dw_split(M, layout, G, dev, tile_name="bs_gemm"):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib_fn(lib_name: str, name: str, n_ptrs: int, n_ints: int):
+def _lib_fn(lib_name: str, name: str, n_ptrs: int, n_ints: int,
+            n_floats: int = 0):
     """The launcher ``name`` of the built library ``lib_name``, its
-    argument types set once: ``n_ptrs`` pointers, ``n_ints`` ints and the
-    stream; it returns a cudaError_t. -> (library, function)."""
+    argument types set once: ``n_ptrs`` pointers, ``n_ints`` ints,
+    ``n_floats`` floats and the stream; it returns a cudaError_t. ->
+    (library, function)."""
     from . import _build
     lib = _build.load(lib_name)
     fn = getattr(lib, name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -421,23 +435,23 @@ def _raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def _launch(lib_name: str, name: str, dev, ptrs, ints) -> None:
-    """Call the launcher ``name`` of ``lib_name`` with ``ptrs``, ``ints``
-    and the current stream of device ``dev``, that device current (a
-    device guard only where another one is); a failed launch raises
-    (:func:`_build.check`). A call's host path: the argument types are
-    set once (:func:`_lib_fn`), and neither a device context nor a Stream
-    object is built where ``dev`` is current (``chip_smoke.py
+def _launch(lib_name: str, name: str, dev, ptrs, ints, floats=()) -> None:
+    """Call the launcher ``name`` of ``lib_name`` with ``ptrs``, ``ints``,
+    ``floats`` and the current stream of device ``dev``, that device
+    current (a device guard only where another one is); a failed launch
+    raises (:func:`_build.check`). A call's host path: the argument types
+    are set once (:func:`_lib_fn`), and neither a device context nor a
+    Stream object is built where ``dev`` is current (``chip_smoke.py
     --gemm-times`` times each piece: ``host_path_us``)."""
     from . import _build
-    lib, fn = _lib_fn(lib_name, name, len(ptrs), len(ints))
+    lib, fn = _lib_fn(lib_name, name, len(ptrs), len(ints), len(floats))
     current = torch.cuda.current_device()
     index = current if dev.index is None else dev.index
     if index == current:
-        rc = fn(*ptrs, *ints, _raw_stream(index))
+        rc = fn(*ptrs, *ints, *floats, _raw_stream(index))
     else:
         with torch.cuda.device(index):
-            rc = fn(*ptrs, *ints, _raw_stream(index))
+            rc = fn(*ptrs, *ints, *floats, _raw_stream(index))
     _build.check(lib, rc, name)
 
 
@@ -572,22 +586,13 @@ def _qscale(qbits: int) -> float:
 
 
 def _v3_kernel(name, args, ints, out, qbits, sub3):
-    """Launch ``name`` of ``csrc/block_sparse_v3.cu``: the pointers of
-    ``args``, then sub3 (or null) and ``out``, the ints, the quantizer's
-    scale and the stream."""
-    from . import _build
-    lib = _build.load("block_sparse_v3")
-    fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * (len(args) + 2)
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_float,
-                                                   ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    dev = out.device
-    with torch.cuda.device(dev):
-        rc = fn(*[a.data_ptr() for a in args],
-                None if sub3 is None else sub3.data_ptr(), out.data_ptr(),
-                *ints, _qscale(qbits), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, name)
+    """Launch ``name`` of ``csrc/block_sparse_v3.cu`` through
+    :func:`_launch`: the pointers of ``args``, then sub3 (or null) and
+    ``out``, the ints, the quantizer's scale and the stream."""
+    _launch("block_sparse_v3", name, out.device,
+            (*[a.data_ptr() for a in args],
+             None if sub3 is None else sub3.data_ptr(), out.data_ptr()),
+            ints, (_qscale(qbits),))
 
 
 def block_sparse_v3_fwd(x: torch.Tensor, w3: torch.Tensor,
@@ -846,8 +851,178 @@ def _legacy_fwd(x, w, layout, G, wrapper):
     return ys
 
 
+def legacy_dx_route(gy_flat: torch.Tensor, w: torch.Tensor, bs: int) -> str:
+    """The kernel of the legacy dx for these operands, chosen before the
+    launch: "gemm" where both are float32 (``dx_gemm`` of
+    csrc/block_sparse_dx.cu, the float32 tile of csrc/bs_gemm.cuh, its
+    16-byte loads as :func:`gemm_vec` says); "mma" where both are bf16, bs
+    is a multiple of 8 and both are 16-byte aligned (``dx_mma``, gy
+    K-major and w MN-major on the tensor-core tile of csrc/bs_mma.cuh: a
+    16-byte chunk is 8 values of one entry's row or of one block row);
+    else "tile" (``bsl_dx_tile`` of csrc/block_sparse_legacy.cu: the mixed
+    pairs and the other bf16 ones)."""
+    if gy_flat.dtype == w.dtype == torch.float32:
+        return "gemm"
+    if gy_flat.dtype == w.dtype == torch.bfloat16 and bs % 8 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (gy_flat, w)):
+        return "mma"
+    return "tile"
+
+
+# dx_plan's cost model, in microseconds on the H100. A slab of one block
+# at two blocks an SM: the float32 tile's 16 rows at 0.20 us a row (the
+# dw's measured rate on that tile), the bf16 tile's 64-deep slab at 1.1 us
+# (fwd_mma's at the libri G=1 shape: 400 blocks of 8 slabs plus the fill
+# in 24.1 us, two rounds of the 264 slots). A block's fixed cost is the
+# dw's (DW_BLOCK_OVERHEAD_SLABS: the fill and the epilogue). A split plan
+# pays its float32 partials, written and read once more, at the card's
+# 3.35 TB/s and the reduce's launch and drain, DX_REDUCE_US: counted from
+# the design, not fitted (``chip_smoke.py --gemm-times`` times the picks
+# beside the forced alternatives, PERF.md)
+DX_SLAB_US = {"gemm": 3.2, "mma": 1.1}
+DX_REDUCE_US = 3.0
+HBM_BYTES_PER_US = 3.35e6
+
+
+class DxPlan(NamedTuple):
+    """The legacy dx's work items over a layout's columns (:func:`dx_plan`).
+    ``split`` (over, piece): the lists of columns with more than ``over``
+    entries are cut into near-equal parts of at most ``piece`` entries;
+    ``items``: (column, first entry, past-last entry, slot or -1), the
+    heaviest first, one per column or part, every column once (a column no
+    row keeps has the item (col, 0, 0, -1)); ``reduce``: (column, first
+    slot, parts) of each split column, its parts on consecutive slots;
+    ``parts``: the float32 partial planes (M, bs) the split parts write;
+    ``cost_us``: the modelled time."""
+    split: tuple
+    items: tuple
+    reduce: tuple
+    parts: int
+    cost_us: float
+
+
+def column_counts(layout: BlockLayout) -> tuple:
+    """The kept blocks of each column block (its real t_perm entries,
+    which pack_layout lists first), made once per layout."""
+    cache = layout.__dict__
+    if "_column_counts" not in cache:
+        cache["_column_counts"] = tuple(int(n) for n in (
+            layout.t_perm.reshape(layout.Kb, layout.C) != layout.nnz
+        ).sum(axis=1))
+    return cache["_column_counts"]
+
+
+def dx_splits(counts: tuple):
+    """The plans dx_plan weighs, as (over, piece): no split first (over =
+    the most entries a column has), then every over below it with every
+    piece up to it."""
+    top = max(max(counts, default=0), 1)
+    return [(top, top)] + [(over, piece) for over in range(top - 1, 0, -1)
+                           for piece in range(over, 0, -1)]
+
+
+def _dx_items(counts: tuple, over: int, piece: int):
+    """-> (items heaviest first, reduce list, partial planes) of a split."""
+    items, reduce, slot = [], [], 0
+    for col, n in enumerate(counts):
+        parts = _cdiv(n, piece) if n > over else 1
+        base, extra = divmod(n, parts)
+        e0 = 0
+        for i in range(parts):
+            e1 = e0 + base + (i < extra)
+            items.append((col, e0, e1, slot + i if parts > 1 else -1))
+            e0 = e1
+        if parts > 1:
+            reduce.append((col, slot, parts))
+            slot += parts
+    items.sort(key=lambda it: (it[1] - it[2], it[0], it[1]))
+    return tuple(items), tuple(reduce), slot
+
+
+@functools.lru_cache(maxsize=None)
+def dx_plan(counts: tuple, M: int, GB: int, bs: int, grid: GemmGrid,
+            slab_us: float, split: Optional[tuple] = None) -> DxPlan:
+    """The legacy dx's plan over columns of ``counts`` entries (contraction
+    G*bs = ``GB`` each) at M rows on ``grid`` (the route's tile on the
+    card: :func:`gemm_grid`), a slab costing ``slab_us``: of the splits of
+    :func:`dx_splits` (or ``split`` alone), the one of least modelled
+    time. An item is cdiv(M, tile) x cdiv(bs, tile) blocks of cdiv(entries
+    x GB, bk) slabs plus DW_BLOCK_OVERHEAD_SLABS, dispatched in item order
+    to the earliest free of the card's sms x blocks_per_sm slots; a split
+    adds its partials' bytes (written, then read) over the memory rate
+    and DX_REDUCE_US. Ties keep the fewer parts: the unsplit plan first."""
+    blocks = _cdiv(M, grid.tile) * _cdiv(bs, grid.tile)
+    slots = grid.sms * grid.blocks_per_sm
+    best = None
+    for over, piece in [split] if split else dx_splits(counts):
+        items, reduce, parts = _dx_items(counts, over, piece)
+        busy = [0.0] * slots
+        for _, e0, e1, _ in items:
+            cost = _cdiv((e1 - e0) * GB, grid.bk) + DW_BLOCK_OVERHEAD_SLABS
+            for _ in range(blocks):
+                heapq.heapreplace(busy, busy[0] + cost)
+        us = max(busy) * slab_us
+        if parts:
+            us += 2 * parts * M * bs * 4 / HBM_BYTES_PER_US + DX_REDUCE_US
+        if best is None or us < best.cost_us:
+            best = DxPlan((over, piece), items, reduce, parts, us)
+    return best
+
+
+# the tile (gemm_grid's name) of each legacy dx route
+DX_TILE = {"gemm": "bs_gemm", "mma": "dx_mma"}
+
+
+def legacy_dx_plan(layout: BlockLayout, M: int, G: int, route: str,
+                   grid: GemmGrid, split: Optional[tuple] = None) -> DxPlan:
+    """:func:`dx_plan` of a legacy dx call at M and G on ``route``
+    ("gemm" or "mma") over ``grid`` (on the card ``gemm_grid(dev,
+    DX_TILE[route])``), or of the forced ``split``."""
+    return dx_plan(column_counts(layout), M, G * layout.bs, layout.bs, grid,
+                   DX_SLAB_US[route], split)
+
+
+def _dx_work(layout, M, G, route, dev):
+    """The plan of this call (:func:`legacy_dx_plan`) and its items and
+    reduce list as one int32 tensor on ``dev``, made once per (layout, M,
+    G, route, device) and plan."""
+    plan = legacy_dx_plan(layout, M, G, route,
+                          gemm_grid(dev, DX_TILE[route]))
+    cache = layout.__dict__.setdefault("_dx_tables", {})
+    key = (M, G, route, str(dev))
+    hit = cache.get(key)
+    if hit is None or hit[0] is not plan:
+        flat = [v for it in plan.items for v in it] + \
+            [v for r in plan.reduce for v in r]
+        hit = cache[key] = (plan, torch.tensor(flat, dtype=torch.int32,
+                                               device=dev))
+    return hit
+
+
+def _packed_dx_kernel(gy_flat, w, layout, G, route, dx):
+    """The legacy dx on the "gemm" or "mma" route into ``dx`` (M, K):
+    ``block_sparse_dx_packed`` of csrc/block_sparse_dx.cu over the work
+    items of :func:`dx_plan`, float32 partials in scratch where it
+    splits."""
+    M, dev, bs = gy_flat.shape[0], gy_flat.device, layout.bs
+    plan, table = _dx_work(layout, M, G, route, dev)
+    part = torch.empty((plan.parts, M, bs), dtype=torch.float32,
+                       device=dev) if plan.parts else None
+    n_items = len(plan.items)
+    _launch("block_sparse_dx", "block_sparse_dx_packed", dev, (
+        gy_flat.data_ptr(), w.data_ptr(),
+        layout.device_index("t_row_idx", dev).data_ptr(),
+        layout.device_index("t_perm", dev).data_ptr(), table.data_ptr(),
+        table.data_ptr() + 16 * n_items, dx.data_ptr(),
+        None if part is None else part.data_ptr()), (
+        int(route == "mma"), M, layout.K, layout.Nb, bs, G, layout.C,
+        n_items, len(plan.reduce),
+        int(route == "gemm" and gemm_vec(bs, gy_flat, w))))
+
+
 def _legacy_dx(gy_flat, w, layout, G, wrapper):
-    """dx at G (see :func:`_legacy_fwd`). -> (M, K) in gy's dtype."""
+    """dx at G (see :func:`_legacy_fwd`) on the kernel
+    :func:`legacy_dx_route` picks. -> (M, K) in gy's dtype."""
     M, dev = gy_flat.shape[0], gy_flat.device
     if _check_operands(gy_flat, (
             ("gy", gy_flat, (M, _flat_width(layout, G))),
@@ -855,12 +1030,16 @@ def _legacy_dx(gy_flat, w, layout, G, wrapper):
             _LEGACY_DTYPES):
         return bsl_dx_plain(gy_flat, w, layout, G)
     dx = torch.empty((M, layout.K), dtype=gy_flat.dtype, device=dev)
-    _legacy_kernel("bsl_dx", (
-        gy_flat.data_ptr(), w.data_ptr(),
-        layout.device_index("t_row_idx", dev).data_ptr(),
-        layout.device_index("t_perm", dev).data_ptr()), dx,
-        (_dtype_code(gy_flat), _dtype_code(w)),
-        (M, layout.K, layout.Nb, layout.bs, G, layout.C, layout.nnz))
+    route = legacy_dx_route(gy_flat, w, layout.bs)
+    if route == "tile":
+        _legacy_kernel("bsl_dx", (
+            gy_flat.data_ptr(), w.data_ptr(),
+            layout.device_index("t_row_idx", dev).data_ptr(),
+            layout.device_index("t_perm", dev).data_ptr()), dx,
+            (_dtype_code(gy_flat), _dtype_code(w)),
+            (M, layout.K, layout.Nb, layout.bs, G, layout.C, layout.nnz))
+    else:
+        _packed_dx_kernel(gy_flat, w, layout, G, route, dx)
     wrapper.launches += 1
     return dx
 
@@ -937,7 +1116,9 @@ def bsl_fwd(x: torch.Tensor, w_packed: torch.Tensor,
 def bsl_dx(gy: torch.Tensor, w_packed: torch.Tensor,
            layout: BlockLayout) -> torch.Tensor:
     """The v1 input gradient (TPU kernel ``_make_dx``): ``dx = gy @
-    scatter(w_packed)``, gy (M, N) -> (M, K) in gy's dtype."""
+    scatter(w_packed)``, gy (M, N) -> (M, K) in gy's dtype, on the kernel
+    :func:`legacy_dx_route` picks (split columns' partials summed in a
+    fixed order: two calls give the same bits)."""
     return _legacy_dx(gy, w_packed, layout, 1, bsl_dx)
 
 

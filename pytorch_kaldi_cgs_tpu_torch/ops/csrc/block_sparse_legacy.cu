@@ -43,11 +43,11 @@
 //     block no row keeps is written as zeros;
 //   - dw: a block owns a tile of one packed block and loops over M in
 //     slabs.
-// No tensor cores, no pipelining: simple and right first. The dx
-// (bsl_dx_tile) is still the only route of rows 8 and 11.
+// No tensor cores, no pipelining: simple and right first.
 //
-// The forward and the dw here are no longer the main routes of rows 7,
-// 10 (the forward) and 9, 12 (the dw); ops/block_sparse.py picks each
+// None of the three is a main route any more: rows 7 and 10 (the
+// forward), 8 and 11 (the dx) and 9 and 12 (the dw) run other files'
+// tiles for their float32 and bf16 pairs; ops/block_sparse.py picks each
 // call's kernel before the launch:
 //   - the forward (legacy_fwd_route): float32 x (w float32 or bf16) runs
 //     block_sparse_v3.cu's packed_weight_t + v3_fwd_gemm (row 13's
@@ -58,6 +58,14 @@
 //     float32 w (the JAX kernel computes that product in float32 and
 //     rounds it to bf16; rounding w to bf16 would not be exact) and the
 //     bf16 pairs at other bs or alignment;
+//   - the dx (legacy_dx_route): both-float32 operands run
+//     block_sparse_dx.cu's dx_gemm (the bs_gemm.cuh tile), both-bf16 ones,
+//     at bs a multiple of 8 with gy and w 16-byte aligned, its dx_mma (gy
+//     K-major, w MN-major on bs_mma.cuh's tensor cores), each over the work
+//     items of block_sparse.dx_plan, which balances the uneven columns.
+//     bsl_dx_tile keeps the mixed pairs (reachable only by calling bsl_dx
+//     / bsl_dx_multi directly) and the bf16 pairs at other bs or
+//     alignment;
 //   - the dw (legacy_dw_route): both-float32 operands run
 //     block_sparse_dw.cu's dw_gemm (the bs_gemm.cuh tile with a
 //     packed-layout epilogue, M split as dw_plan says), both-bf16 ones, at

@@ -493,21 +493,6 @@ v3_dx_tile(const float* __restrict__ gy, const float* __restrict__ w3,
   }
 }
 
-// fwd_mma's dynamic shared memory limit, raised on each device to the
-// largest size asked for once, not on every call (the attribute is per
-// device; a second thread setting it again is harmless)
-cudaError_t allow_fwd_mma_smem(int smem) {
-  constexpr int DEVICES = 64;
-  static int allowed[DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < DEVICES && allowed[dev] >= smem) return cudaSuccess;
-  err = g::allow_smem(fwd_mma, smem);
-  if (err == cudaSuccess && dev < DEVICES) allowed[dev] = smem;
-  return err;
-}
-
 // v3_fwd_gemm over the transposed weight wt (VEC where vec says)
 cudaError_t run_fwd_gemm(const float* x, const float* wt, const int* col_idx,
                          float* ys, int M, int K, int N, int Nb, int R,
@@ -586,7 +571,8 @@ int block_sparse_v3_fwd_packed(const void* x, const void* w,
   }
   if (tx == 1 && tw == 1 && bs % 8 == 0) {
     const int smem = FM_SMEM + R * 4;
-    const cudaError_t err = allow_fwd_mma_smem(smem);
+    static int allowed[g::DEVICES];
+    const cudaError_t err = g::allow_smem_once(fwd_mma, smem, allowed);
     if (err != cudaSuccess) return err;
     const dim3 grid((GB + mma::TILE - 1) / mma::TILE,
                     (M + mma::TILE - 1) / mma::TILE, Nb);

@@ -124,4 +124,19 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
+// the same, raised on each device to the largest size asked for once, not
+// on every call: `allowed` is the kernel's own record, DEVICES entries (a
+// second thread setting the attribute again is harmless)
+constexpr int DEVICES = 64;
+template <typename K>
+inline cudaError_t allow_smem_once(K kernel, int bytes, int* allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < DEVICES && allowed[dev] >= bytes) return cudaSuccess;
+  err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess && dev < DEVICES) allowed[dev] = bytes;
+  return err;
+}
+
 }  // namespace bs_gemm

@@ -1,7 +1,8 @@
 // The bf16 tensor-core GEMM tiles of the port's block-sparse kernels: the
 // legacy dw (block_sparse_dw.cu, dw_mma) takes the MN-major half for bf16
 // operands, the legacy forward (block_sparse_v3.cu, fwd_mma) the K-major
-// half.
+// half, and the legacy dx (block_sparse_dx.cu, dx_mma) one operand from
+// each (slab_mma_km: A K-major, B MN-major, both KM_BK = 64 k deep).
 //
 // A block of 256 threads, two warpgroups, owns a 128 x 128 output tile;
 // warpgroup wg owns its rows wg*64 .. +64 and issues one
@@ -75,24 +76,34 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// byte offset in a slab of k-line k, 16-byte chunk e (8 columns) of 16
+// byte offset in an MN-major slab of DEPTH k-lines (64-column atoms
+// DEPTH / 8 KB apart) of k-line k, 16-byte chunk e (8 columns) of 16
+template <int DEPTH>
+__device__ __forceinline__ int mn_offset(int k, int e) {
+  return (e >> 3) * (DEPTH / 8 * SW_GROUP) + (k >> 3) * SW_GROUP +
+         (k & 7) * 128 + (((e & 7) ^ (k & 7)) << 4);
+}
 __device__ __forceinline__ int sw_offset(int k, int e) {
-  return (e >> 3) * SW_ATOM + (k >> 3) * SW_GROUP + (k & 7) * 128 +
-         (((e & 7) ^ (k & 7)) << 4);
+  return mn_offset<BK>(k, e);
 }
 
-// the matrix descriptor of an MN-major, 128-byte-swizzled operand at
-// shared address `addr` (1 KB aligned): LBO the stride of the 64-column
-// atoms, SBO that of the 8-line k groups, both in 16-byte units
-__device__ __forceinline__ unsigned long long sw_desc(unsigned addr) {
+// the matrix descriptor of an MN-major, 128-byte-swizzled operand of a
+// DEPTH-line slab at shared address `addr` (1 KB aligned): LBO the stride
+// of the 64-column atoms, SBO that of the 8-line k groups, both in 16-byte
+// units
+template <int DEPTH>
+__device__ __forceinline__ unsigned long long mn_desc(unsigned addr) {
   return (unsigned long long)((addr & 0x3FFFF) >> 4) |
-         ((unsigned long long)(SW_ATOM >> 4) << 16) |
+         ((unsigned long long)(DEPTH / 8 * SW_GROUP >> 4) << 16) |
          ((unsigned long long)(SW_GROUP >> 4) << 32) | (1ull << 62);
 }
+__device__ __forceinline__ unsigned long long sw_desc(unsigned addr) {
+  return mn_desc<BK>(addr);
+}
 
-// d += A B for a 64 x 16 A and a 16 x 128 B, both MN-major (TRANS 1,
-// imm-trans 1) or both K-major (TRANS 0)
-template <int TRANS = 1>
+// d += A B for a 64 x 16 A and a 16 x 128 B, each MN-major (imm-trans 1)
+// or K-major (imm-trans 0): TA for A, TB for B
+template <int TA = 1, int TB = TA>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  unsigned long long a,
                                                  unsigned long long b) {
@@ -104,7 +115,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %67;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -118,7 +129,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1), "n"(TRANS));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 // wait until at most N wgmma groups of this warpgroup are in flight
@@ -188,6 +199,28 @@ __device__ __forceinline__ void slab_mma_k(unsigned as_, unsigned bs_,
   for (int ks = 0; ks < KM_BK / 16; ++ks)
     wgmma_m64n128k16<0>(acc, km_desc(as_ + wg * 8 * SW_GROUP + 32 * ks),
                         km_desc(bs_ + 32 * ks));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  wgmma_wait<INFL>();
+  fence_operand(acc);
+}
+
+// ---- one operand of each half ----
+
+// acc += A B over one slab of KM_BK k values: A K-major at shared address
+// as_ (the tile's output rows as lines, km_offset), B MN-major at bs_ (its
+// KM_BK k-lines of 128 output columns, mn_offset<KM_BK>: atoms 8 KB
+// apart), warpgroup wg owning output rows wg*64 .. +64; returns with at
+// most INFL of its groups in flight. A k16 step is 32 bytes along A's
+// lines and two 8-line k groups (2 KB) of B.
+template <int INFL>
+__device__ __forceinline__ void slab_mma_km(unsigned as_, unsigned bs_,
+                                            int wg, float (&acc)[64]) {
+  fence_operand(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int ks = 0; ks < KM_BK / 16; ++ks)
+    wgmma_m64n128k16<0, 1>(acc, km_desc(as_ + wg * 8 * SW_GROUP + 32 * ks),
+                           mn_desc<KM_BK>(bs_ + 2 * ks * SW_GROUP));
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   wgmma_wait<INFL>();
   fence_operand(acc);

@@ -57,7 +57,21 @@ tensor-core tile of ``csrc/bs_mma.cuh`` for bf16 x and w).
   four dtype pairs; a misaligned x and w; the device kernels of one call
   at the three timed shapes; ``block_sparse_matmul[_multi]`` forward and
   backward against the dense masked float32 product.
+- The legacy dx (``bsl_dx`` / ``bsl_dx_multi``, ``csrc/block_sparse_dx.cu``):
+  on the CPU, the route each dtype pair, bs and alignment takes
+  (``legacy_dx_route``); ``dx_plan`` at the three timed shapes on the
+  H100's grid (every entry of every column in one item, heaviest first,
+  the least modelled time of the splits it weighs, the list schedule
+  within one block of the mean load); both new routes' operand maps, the
+  plan's items and the split columns' fixed-order reduce over CPU
+  stand-ins (the plan's pick and the finest split) against
+  ``bsl_dx_plain``. On the card (``cuda``): each route against
+  ``bsl_dx_plain`` at every layout of ``chip_smoke.legacy_layouts()``, G
+  1, 3, 4, M 7, 16, 4801, 6400, the four dtype pairs, columns no row
+  keeps zero; the finest split forced; a misaligned gy and w; two calls
+  bit for bit and the device kernels of one call at the timed shapes.
 """
+import dataclasses
 import functools
 import os
 import re
@@ -625,36 +639,41 @@ def test_cuda_legacy_dw_misaligned_operand(cuda_device, name, M, dt, route,
     _assert_legacy_close(got, ref)
 
 
-def _kernels_of(fn):
+def _kernels_of(fn, tries=3):
     """The device kernels one call of ``fn`` launches, by short name, from
-    torch.profiler's exported trace; where the trace holds no kernel
-    records, ``{"cuda_launch_calls": n}`` of the runtime's launch calls."""
+    torch.profiler's exported trace. A trace that holds fewer kernel
+    records than the runtime's launch calls (the profiler drops some) is
+    taken again, up to ``tries`` traces; where none was whole,
+    ``{"cuda_launch_calls": n}`` of the launch calls."""
     import json
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-    out, calls = {}, 0
-    for e in events:
-        name = str(e.get("name", ""))
-        if e.get("cat") == "kernel":
-            s = name.replace("(anonymous namespace)::", "")
-            s = s[5:] if s.startswith("void ") else s
-            k = re.match(r"[\w:]+", s).group(0).split("::")[-1]
-            out[k] = out.get(k, 0) + 1
-        elif e.get("cat") == "cuda_runtime" and name.startswith(
-                ("cudaLaunchKernel", "cuLaunchKernel")):
-            calls += 1
-    return out or {"cuda_launch_calls": calls}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        out, calls = {}, 0
+        for e in events:
+            name = str(e.get("name", ""))
+            if e.get("cat") == "kernel":
+                s = name.replace("(anonymous namespace)::", "")
+                s = s[5:] if s.startswith("void ") else s
+                k = re.match(r"[\w:]+", s).group(0).split("::")[-1]
+                out[k] = out.get(k, 0) + 1
+            elif e.get("cat") == "cuda_runtime" and name.startswith(
+                    ("cudaLaunchKernel", "cuLaunchKernel")):
+                calls += 1
+        if out and sum(out.values()) >= calls:
+            return out
+    return {"cuda_launch_calls": calls}
 
 
 @pytest.mark.cuda
@@ -934,3 +953,303 @@ def test_cuda_legacy_api_matches_dense_masked(cuda_device, name, G):
                      (xt.grad, torch.einsum("gmn,gnk->mk", cot, W)),
                      (wt.grad, dW[rows, cols].reshape(wt.shape))):
         _assert_legacy_close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the legacy dx (rows 8 and 11): routes, the work plan and the two new
+# routes' operand maps over CPU stand-ins
+# ---------------------------------------------------------------------------
+
+DX_GRID = {"gemm": H100,
+           "mma": tbs.GemmGrid(SMS, *_tile_constants("block_sparse_dx.cu"))}
+
+
+@pytest.mark.parametrize("gy,w,bs,off,route", [
+    ("f32", "f32", 128, None, "gemm"), ("f32", "f32", 6, None, "gemm"),
+    ("f32", "f32", 128, "gy", "gemm"), ("f32", "f32", 128, "w", "gemm"),
+    ("bf16", "bf16", 128, None, "mma"), ("bf16", "bf16", 8, None, "mma"),
+    ("bf16", "bf16", 4, None, "tile"), ("bf16", "bf16", 12, None, "tile"),
+    ("bf16", "bf16", 128, "gy", "tile"), ("bf16", "bf16", 128, "w", "tile"),
+    ("f32", "bf16", 128, None, "tile"), ("bf16", "f32", 128, None, "tile"),
+    ("f32", "bf16", 8, None, "tile"), ("bf16", "f32", 8, None, "tile")],
+    ids=str)
+def test_legacy_dx_route(gy, w, bs, off, route):
+    """Both float32: the float32 tile (its scalar loads where gemm_vec
+    says); both bf16 at bs a multiple of 8, 16-byte aligned: the
+    mixed-major tensor-core tile; the mixed pairs and the other bf16
+    ones: the legacy file's bsl_dx_tile."""
+    ops = {}
+    for name, dt in (("gy", gy), ("w", w)):
+        base = torch.zeros(65, dtype=DT[dt])
+        assert base.data_ptr() % 16 == 0
+        ops[name] = base[1:] if off == name else base[:64]
+    assert tbs.legacy_dx_route(ops["gy"], ops["w"], bs) == route
+    if route == "gemm":
+        assert tbs.gemm_vec(bs, ops["gy"], ops["w"]) == (bs % 4 == 0
+                                                         and off is None)
+
+
+def _plan_of(tl, M, G, route, split=None):
+    return tbs.legacy_dx_plan(tl, M, G, route, DX_GRID[route], split)
+
+
+def _assert_plan_covers(plan, counts):
+    """Every entry of every column in exactly one item, a column no row
+    keeps in one empty item; the heaviest items first; the split columns'
+    parts on consecutive slots, each slot once, listed in the reduce."""
+    sizes = [e1 - e0 for _, e0, e1, _ in plan.items]
+    assert sizes == sorted(sizes, reverse=True)
+    by_col = {}
+    for col, e0, e1, slot in plan.items:
+        by_col.setdefault(col, []).append((e0, e1, slot))
+    assert sorted(by_col) == list(range(len(counts)))
+    slots = []
+    for col, n in enumerate(counts):
+        parts = sorted(by_col[col])
+        covered = [e for e0, e1, _ in parts for e in range(e0, e1)]
+        assert covered == list(range(n))
+        if len(parts) == 1:
+            assert parts[0][2] == -1
+        else:
+            first = min(s for _, _, s in parts)
+            assert [s for _, _, s in parts] == list(
+                range(first, first + len(parts)))
+            assert (col, first, len(parts)) in plan.reduce
+            slots += [s for _, _, s in parts]
+    assert sorted(slots) == list(range(plan.parts))
+    assert len(plan.reduce) == sum(1 for c in by_col.values() if len(c) > 1)
+
+
+@pytest.mark.parametrize("route", ["gemm", "mma"])
+@pytest.mark.parametrize("tag", sorted(LEGACY_TIMED))
+def test_legacy_dx_plan_at_the_timed_shapes(tag, route):
+    """The plan at the three timed shapes on the H100's grid: it covers
+    every entry of every column once, is the least modelled time of the
+    splits it weighs, and its list schedule fills the rounds it takes: the
+    busiest slot ends within one of its heaviest blocks of the mean load.
+    The picks: no split but at the CGS-16x G=4 in float32, where the
+    4-entry column is cut into single entries (partials and a reduce)."""
+    M, _, G, _, _ = LEGACY_TIMED[tag]
+    tl = _legacy_layout("libri_x" if tag.startswith("libri") else "cgs16x")
+    counts = tbs.column_counts(tl)
+    assert counts == ((3, 4, 3, 3, 1, 0, 3, 3, 1, 2, 3, 1, 1, 1, 0, 3)
+                      if tag.startswith("libri") else (4, 1, 2, 2, 2, 2, 2, 1))
+    plan = _plan_of(tl, M, G, route)
+    _assert_plan_covers(plan, counts)
+    alts = [_plan_of(tl, M, G, route, sp) for sp in tbs.dx_splits(counts)]
+    assert plan.cost_us == min(a.cost_us for a in alts)
+    split = tag == "cgs16x_G4" and route == "gemm"
+    assert (plan.parts > 0) == split
+    assert plan.split == ((3, 1) if split else (4, 4))
+    grid, GB = DX_GRID[route], G * tl.bs
+    blocks = -(-M // grid.tile)
+    cost = [-(-(e1 - e0) * GB // grid.bk) + tbs.DW_BLOCK_OVERHEAD_SLABS
+            for _, e0, e1, _ in plan.items]
+    mean = blocks * sum(cost) / (grid.sms * grid.blocks_per_sm)
+    kernel = plan.cost_us - (2 * plan.parts * M * tl.bs * 4
+                             / tbs.HBM_BYTES_PER_US + tbs.DX_REDUCE_US
+                             if plan.parts else 0)
+    assert mean <= kernel / tbs.DX_SLAB_US[route] <= mean + max(cost)
+
+
+def _dx_emulated(gy, w, tl, G, plan):
+    """The kernels' two passes on the CPU: per item, A's lines (gy[m,
+    t_row_idx[e]*G*bs + n] at k = e*G*bs + n, the item's real entries
+    only: no pad block) against B's k-lines (w[t_perm[e]][n][c]) in
+    float32; an unsplit item rounds once into its column block of dx, a
+    split part writes its float32 partial plane; then each split column's
+    partials summed in part order and rounded once. Every element of dx
+    is written (it starts NaN)."""
+    M, bs, C = gy.shape[0], tl.bs, tl.C
+    GB = G * bs
+    dx = torch.full((M, tl.K), float("nan")).to(gy.dtype)
+    part = torch.full((plan.parts, M, bs), float("nan"))
+    gyf, wf = gy.float(), w.float().reshape(-1)
+    for col, e0, e1, slot in plan.items:
+        k = np.arange((e1 - e0) * GB)
+        e, n = col * C + e0 + k // GB, k % GB
+        p = tl.t_perm[e]
+        assert (p < tl.nnz).all()
+        A = gyf[:, torch.from_numpy(tl.t_row_idx[e] * GB + n)]
+        B = wf[torch.from_numpy(((p * GB + n) * bs)[:, None]
+                                + np.arange(bs)[None, :])]
+        acc = A @ B if len(k) else torch.zeros(M, bs)
+        if slot < 0:
+            dx[:, col * bs:(col + 1) * bs] = acc.to(gy.dtype)
+        else:
+            part[slot] = acc
+    for col, s0, parts in plan.reduce:
+        acc = part[s0]
+        for s in range(1, parts):
+            acc = acc + part[s0 + s]
+        dx[:, col * bs:(col + 1) * bs] = acc.to(gy.dtype)
+    assert not torch.isnan(dx.float()).any()
+    return dx
+
+
+@pytest.mark.parametrize("split", ["plan", "finest"])
+@pytest.mark.parametrize("route", ["gemm", "mma"])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("name", ["small_hcgs", "small_uneven"])
+def test_legacy_dx_operand_maps_match_twin(name, G, route, split):
+    """The "gemm" (float32) and "mma" (bf16) routes on the CPU: the plan
+    (its own pick, or every column with more than one entry cut into
+    single entries), the operand maps and the reduce (_dx_emulated):
+    bsl_dx_plain within 1e-5 of its scale (float32) or one bf16 ulp of
+    it; a column no row keeps is zero; the wrapper on CPU tensors is the
+    twin, in gy's dtype."""
+    tl = _small_legacy_layouts()[name]
+    bs, M = tl.bs, 37
+    dt = "f32" if route == "gemm" else "bf16"
+    rng = np.random.RandomState(20 + G)
+    gy = torch.from_numpy(rng.randn(M, tl.Nb * G * bs).astype(np.float32)
+                          ).to(DT[dt])
+    w = torch.from_numpy((rng.randn(tl.nnz, G * bs, bs) / np.sqrt(G * bs))
+                         .astype(np.float32)).to(DT[dt])
+    assert tbs.legacy_dx_route(gy, w, bs) == route
+    counts = tbs.column_counts(tl)
+    plan = _plan_of(tl, M, G, route,
+                    None if split == "plan" else tbs.dx_splits(counts)[-1])
+    _assert_plan_covers(plan, counts)
+    if split == "finest":
+        assert plan.parts == sum(n for n in counts if n > 1)
+    got = _dx_emulated(gy, w, tl, G, plan)
+    ref = tbs.bsl_dx_plain(gy, w, tl, G)
+    wrapped = tbs.bsl_dx(gy, w.reshape(tl.nnz, bs, bs), tl) if G == 1 else \
+        tbs.bsl_dx_multi(gy, w, tl, G)
+    assert got.dtype == ref.dtype == wrapped.dtype == DT[dt]
+    assert torch.equal(wrapped, ref)
+    for col, n in enumerate(counts):
+        if n == 0:
+            assert not got[:, col * bs:(col + 1) * bs].float().any()
+    _assert_legacy_close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the legacy dx on the card (skips without one)
+# ---------------------------------------------------------------------------
+
+DX_ROUTE = {("f32", "f32"): "gemm", ("bf16", "bf16"): "mma",
+            ("f32", "bf16"): "tile", ("bf16", "f32"): "tile"}
+
+
+def _legacy_dx_operands(tl, G, M, dev, gdt, wdt, seed=0):
+    """A flat cotangent (M, Nb*G*bs) and the packed w (nnz, G*bs, bs) on
+    the card, in the asked dtypes."""
+    gen = torch.Generator(device=dev).manual_seed(seed + M + G)
+    gy = torch.randn(M, tl.Nb * G * tl.bs, device=dev, generator=gen)
+    w = torch.randn(tl.nnz, G * tl.bs, tl.bs, device=dev, generator=gen) \
+        / np.sqrt(G * tl.bs)
+    return gy.to(DT[gdt]), w.to(DT[wdt])
+
+
+def _legacy_dx_call(gy, w, tl, G):
+    return tbs.bsl_dx(gy, w.reshape(tl.nnz, tl.bs, tl.bs), tl) if G == 1 \
+        else tbs.bsl_dx_multi(gy, w, tl, G)
+
+
+def _assert_empty_columns_zero(got, tl):
+    for col, n in enumerate(tbs.column_counts(tl)):
+        if n == 0:
+            assert not got[:, col * tl.bs:(col + 1) * tl.bs].float().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdt,wdt", PAIRS, ids=["-".join(p) for p in PAIRS])
+@pytest.mark.parametrize("M", [7, 16, 4801, 6400])
+@pytest.mark.parametrize("G", [1, 3, 4])
+@pytest.mark.parametrize("name", LEGACY_NAMES)
+def test_cuda_legacy_dx_matches_twin(cuda_device, name, G, M, gdt, wdt):
+    """Each route against bsl_dx_plain on the same tensors: float32
+    within 1e-5 of the twin's scale, a bf16 output within one bf16 ulp of
+    it; columns no row keeps are zero; one launch counted on the wrapper;
+    the output in gy's dtype; a second call gives the same bits."""
+    tl = _legacy_layout(name)
+    gy, w = _legacy_dx_operands(tl, G, M, cuda_device, gdt, wdt)
+    assert tbs.legacy_dx_route(gy, w, tl.bs) == DX_ROUTE[(gdt, wdt)]
+    wrapper = tbs.bsl_dx if G == 1 else tbs.bsl_dx_multi
+    before = wrapper.launches
+    got = _legacy_dx_call(gy, w, tl, G)
+    assert wrapper.launches == before + 1
+    again = _legacy_dx_call(gy, w, tl, G)
+    ref = tbs.bsl_dx_plain(gy, w, tl, G)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.dtype == DT[gdt] and got.shape == (M, tl.K)
+    _assert_empty_columns_zero(got, tl)
+    _assert_legacy_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("M", [7, 4801])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("name", LEGACY_NAMES)
+def test_cuda_legacy_dx_split_plan(cuda_device, monkeypatch, name, G, M, dt):
+    """The finest split of dx_splits forced (every column with more than
+    one entry cut into single entries, each writing a float32 partial,
+    dx_reduce summing them): the twin within the same bar, two calls bit
+    for bit."""
+    tl = _legacy_layout(name)
+    gy, w = _legacy_dx_operands(tl, G, M, cuda_device, dt, dt, seed=5)
+    finest = tbs.dx_splits(tbs.column_counts(tl))[-1]
+    plan = tbs.dx_plan
+    monkeypatch.setattr(tbs, "dx_plan",
+                        lambda *a: plan(*a[:6], split=finest))
+    a = _legacy_dx_call(gy, w, tl, G)
+    b = _legacy_dx_call(gy, w, tl, G)
+    ref = tbs.bsl_dx_plain(gy, w, tl, G)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _assert_empty_columns_zero(a, tl)
+    _assert_legacy_close(a, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gy", "w"])
+@pytest.mark.parametrize("dt,route", [("f32", "gemm"), ("bf16", "tile")])
+@pytest.mark.parametrize("M", [7, 4801])
+@pytest.mark.parametrize("name", ["small_hcgs", "libri_x"])
+def test_cuda_legacy_dx_misaligned_operand(cuda_device, name, M, dt, route,
+                                           which):
+    """One operand one element off a 16-byte boundary: float32 takes the
+    float32 tile's scalar loads, bf16 the legacy file's bsl_dx_tile; both
+    agree with the twin."""
+    tl, G = _legacy_layout(name), 3
+    ops = dict(zip(("gy", "w"), _legacy_dx_operands(tl, G, M, cuda_device,
+                                                    dt, dt)))
+    ref = tbs.bsl_dx_plain(ops["gy"], ops["w"], tl, G)
+    ops[which] = _offset(ops[which])
+    assert tbs.legacy_dx_route(ops["gy"], ops["w"], tl.bs) == route
+    if route == "gemm":
+        assert not tbs.gemm_vec(tl.bs, ops["gy"], ops["w"])
+    got = tbs.bsl_dx_multi(ops["gy"], ops["w"], tl, G)
+    torch.cuda.synchronize()
+    _assert_legacy_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdt,wdt", PAIRS, ids=["-".join(p) for p in PAIRS])
+@pytest.mark.parametrize("tag", sorted(LEGACY_TIMED))
+def test_cuda_legacy_dx_device_kernels_and_bits(cuda_device, tag, gdt, wdt):
+    """The timed shapes: two calls give the same bits; one call launches
+    the route's tile, then dx_reduce where its plan splits (bsl_dx_tile
+    alone for the mixed pairs)."""
+    M, _, G, _, _ = LEGACY_TIMED[tag]
+    tl = _legacy_layout("libri_x" if tag.startswith("libri") else "cgs16x")
+    gy, w = _legacy_dx_operands(tl, G, M, cuda_device, gdt, wdt, seed=7)
+    route = tbs.legacy_dx_route(gy, w, tl.bs)
+    a = _legacy_dx_call(gy, w, tl, G)
+    b = _legacy_dx_call(gy, w, tl, G)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    if route == "tile":
+        want = {"bsl_dx_tile": 1}
+    else:
+        grid = tbs.gemm_grid(cuda_device, tbs.DX_TILE[route])
+        assert grid == dataclasses.replace(DX_GRID[route], sms=grid.sms)
+        plan = tbs.legacy_dx_plan(tl, M, G, route, grid)
+        want = dict({"dx_gemm" if route == "gemm" else "dx_mma": 1},
+                    **({"dx_reduce": 1} if plan.parts else {}))
+    got = _kernels_of(lambda: _legacy_dx_call(gy, w, tl, G))
+    assert got in (want, {"cuda_launch_calls": sum(want.values())})
