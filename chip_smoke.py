@@ -93,7 +93,10 @@ Phases (any failure raises and the script exits non-zero):
              twins (qbits 0/16, w3g f32/bf16, tanh; relu at the small
              shape) at H=256 (T=13, B=5), the serving shape (T=398, 16
              rows; forward only) and the training shape (T=200, 32 rows,
-             H=1024); the v3 forward and dx kernels at M=6400 (G=3,
+             H=1024), the BPTT on the route its wrapper picks (named; the
+             persistent chain at both shapes), its launches and v3 calls
+             checked against the design, one call's device kernels held
+             to the route's, two calls bit for bit; the v3 forward and dx kernels at M=6400 (G=3,
              K=2048, R=4, 8-bit, submask; G=1; K-padded 2000 -> 2048;
              plain; the forward also at the serving M=6368); the dw kernel
              at the path's G=3 (v3) and G=1, 2 (dU), and at M=2400 the
@@ -190,7 +193,10 @@ Phases (any failure raises and the script exits non-zero):
              TOL_GRAD_REL.
 37. gru_torch_kernels — the torch-semantics GRU forward (zero, seeded,
              seeded from h_{k-1} against steps k..T-1) and BPTT kernels
-             against their twins at 13x5x18 and 300x8x550.
+             against their twins at 13x5x18, 300x8x550 (the BPTT on
+             the persistent chain) and 20x16x550 (the BPTT on its step
+             route); the route named, one call's device kernels held to
+             the route's, two calls bit for bit.
 38. gru_cudnn — GRU_cudnn 4x550 unidirectional, dropout 0.2, T=300, B=8:
              eval and train card vs CPU (every gradient, b_hh included),
              eval against torch.nn.GRU with the same weights, the stream
@@ -314,15 +320,22 @@ Phases (any failure raises and the script exits non-zero):
 Each phase prints its wall time (``[timing]``).
 
     python3 chip_smoke.py --gemm-times [DIR]
+    python3 chip_smoke.py --rnn-times [DIR]
 
-runs bs_gemm_times and the libri GRU's and the CGS-16x LSTM's f32 train
-steps alone and prints one JSON line: with this checkout's package, or
-with the package of an earlier tree unpacked into DIR, a git-ignored
-directory inside this checkout (``git archive <commit> | tar -x -C
-build/parent``; its kernels build under DIR/build). Run parent, change,
-change, parent in one call to compare on one card. With a package that
-has the legacy dx's plan it also times the dx at every split the plan
-weighs beside the one it picks (``dx_plan_sweep``).
+``--gemm-times`` runs bs_gemm_times and the libri GRU's and the CGS-16x
+LSTM's f32 train steps alone and prints one JSON line: with this
+checkout's package, or with the package of an earlier tree unpacked into
+DIR, a git-ignored directory inside this checkout (``git archive
+<commit> | tar -x -C build/parent``; its kernels build under DIR/build).
+Run parent, change, change, parent in one call to compare on one card.
+With a package that has the legacy dx's plan it also times the dx at
+every split the plan weighs beside the one it picks (``dx_plan_sweep``).
+
+``--rnn-times`` runs rnn_turn_times (rows 23 and 33 at their timed
+shapes with their routes, plans and device time split into rebuild and
+chain; nn.GRU(550) and the port's GRU_cudnn layer backward beside row
+23; rows 22, 32, 35, 13 and 15) and the same two
+train steps, one JSON line, the same way.
 
 The line before the last pair is the kernels JSON, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, ...}``. Needs
@@ -514,6 +527,7 @@ CL_LARGE_ROWS = 256
 CGS_LIGRU_HEAD_GAIN = 10000.0
 # GRU_cudnn at the TIMIT GRU's width and depth: 4 x 550, unidirectional
 GT_TRAIN_TBH = (300, 8, 550)
+GT_STEP_TBH = (20, 16, 550)     # the BPTT's blocks do not fit: step route
 GT_SERVE_TBH = (398, 8, 550)
 GT_LAYERS = 4
 
@@ -1486,13 +1500,18 @@ def kernel_classes(by_name):
                "ligru_sparse_fwd_kernel": ("ligru_sparse_step",),
                "ligru_sparse_bptt_kernel": ("ligru_sparse_bwd",),
                "gru_torch_fwd_kernel": ("gru_torch_step",),
-               "gru_torch_bptt_kernel": ("gru_torch_bwd",),
+               # _step, _persist, and the rebuild's GEMM
+               "gru_torch_bptt_kernel": ("gru_torch_bwd", "gru_torch_u_gemm"),
                "lstm_fwd_kernel": ("lstm_step", "sparse_fwd_step"),
                "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step"),
                "ligru_fwd_kernel": ("ligru_step",),
                "ligru_bptt_kernel": ("ligru_bwd",),
                "gru_fwd_kernel": ("gru_zr_step", "gru_h_step"),
-               "gru_bptt_kernel": ("gru_bwd_carry", "gru_bwd_ds"),
+               # the step route's and the persistent route's (its rebuild's
+               # elementwise passes; its GEMMs count under v3_kernel)
+               "gru_bptt_kernel": ("gru_bwd_carry", "gru_bwd_ds",
+                                   "gru_bwd_persist", "gru_zr_rebuild",
+                                   "gru_apre_rebuild", "quant_steps"),
                "rnn_fwd_kernel": ("rnn_step",),
                "rnn_bptt_kernel": ("rnn_bwd_step",),
                "v3_kernel": ("v3_fwd_gemm", "v3_weight_t", "v3_dx_tile"),
@@ -1615,7 +1634,8 @@ def device_kernels(fn, tries=3):
                 k = kernel_short_name(name)
                 out[k] = out.get(k, 0) + 1
             elif e.get("cat") == "cuda_runtime" and name.startswith(
-                    ("cudaLaunchKernel", "cuLaunchKernel")):
+                    ("cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaLaunchCooperativeKernel")):
                 calls += 1
         if out and sum(out.values()) >= calls:
             return out
@@ -1707,10 +1727,13 @@ def dw_operands(dg, h_prev, layout):
 
 
 def same_bits(fn):
-    """(max abs difference, the same) of two calls of ``fn``: (0, 0) when
-    they give equal bits (a check at tol 0)."""
+    """(max abs difference, the same) of two calls of ``fn`` (a tensor or
+    a tuple of them): (0, 0) when they give equal bits (a check at tol
+    0)."""
     a, b = fn(), fn()
-    err = 0.0 if torch.equal(a, b) else float((a - b).abs().max())
+    a, b = (v if isinstance(v, tuple) else (v,) for v in (a, b))
+    err = max(0.0 if torch.equal(x, y) else float((x - y).abs().max())
+              for x, y in zip(a, b))
     return err, err
 
 
@@ -2497,12 +2520,27 @@ def phase_gru_kernels(dev):
                 if serve:
                     continue
                 h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
-                check("fused_gru_bwd_sparse", shape, variant, rel_err(
-                    R.fused_gru_bwd_sparse(g, w3g, drop, h_prev, dhs, layout,
-                                           act, qbits, wbf16),
-                    R.fused_gru_bwd_sparse_plain(g, w3g, drop, h_prev, dhs,
-                                                 layout, act, qbits, wbf16)),
-                    tol, True)
+                args = (g, w3g, drop, h_prev, dhs, layout, act, qbits, wbf16)
+                # the route picked before the launch, its launches (and the
+                # v3 forward calls of its rebuild), two calls bit for bit
+                route, n, n_v3 = gru_bwd_sparse_launches(dev, T, B, layout,
+                                                         qbits, wbf16)
+                bvar = dict(variant, route=route)
+                v3_before = BS.block_sparse_v3_fwd.launches
+                got = launched(R.fused_gru_bwd_sparse, n,
+                               lambda: R.fused_gru_bwd_sparse(*args))
+                if BS.block_sparse_v3_fwd.launches - v3_before != n_v3:
+                    raise AssertionError("the %s BPTT made %d v3 calls"
+                                         % (route, BS.block_sparse_v3_fwd
+                                            .launches - v3_before))
+                check("fused_gru_bwd_sparse", shape, bvar, rel_err(
+                    got, R.fused_gru_bwd_sparse_plain(*args)), tol, True)
+                check("fused_gru_bwd_sparse/determinism", shape, bvar,
+                      same_bits(lambda: R.fused_gru_bwd_sparse(*args)), 0.0,
+                      False)
+                # the kernels that ran are the route's
+                bptt_kernels(lambda: R.fused_gru_bwd_sparse(*args),
+                             bptt_design(route, T, qbits, wbf16))
     # the v3 pair at the training M = T*B (and G=1, K-padded, plain)
     M = GR_TRAIN_TBH[0] * GR_TRAIN_TBH[1]
     for k, (G, K, qbits, sub) in enumerate(((3, 2048, 8, True),
@@ -2598,6 +2636,122 @@ def phase_gru_kernels(dev):
     return checks
 
 
+def bptt_route(dev, B, H=None, layout=None, bf16=False):
+    """The route a GRU BPTT wrapper takes at batch B (the torch-semantics
+    GRU's at width H, the sparse GRU's over ``layout``) and its plan as a
+    dict: the grid, the blocks an SM it needs and the most that fit, the
+    shared memory, resident and staged bytes of a block. A package
+    without the persistent chains (an earlier tree's) runs "step"."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    if not hasattr(R, "gru_torch_bwd_route"):
+        return "step", {}
+    if layout is None:
+        route, plan = R.gru_torch_bwd_route(B, H, dev)
+        occ = ("fused_gru_torch", "fused_gru_torch_bwd_occupancy",
+               (plan.bi, plan.smem))
+    else:
+        route, plan = R.gru_bwd_sparse_route(B, layout, bf16, dev)
+        occ = ("fused_gru_sparse", "gru_bwd_sparse_occupancy",
+               (int(bf16), plan.bi, plan.smem))
+    info = {"route": route, "grid": plan.grid,
+            "batch_rows_per_block": 8 * plan.bi,
+            "units_per_block": plan.units,
+            "smem_per_block": plan.smem + plan.static,
+            "resident_bytes_per_block": plan.resident,
+            "staged_bytes_per_block_per_step": plan.staged}
+    if plan.smem + plan.static <= R._SMEM_MAX:
+        fit, sms, _ = R._persist_occupancy(*occ, torch.device(dev).index or 0)
+        info.update(blocks_per_sm=-(-plan.grid // sms),
+                    blocks_per_sm_max=fit, sms=sms)
+    return route, info
+
+
+def gru_torch_bwd_launches(dev, T, B, H):
+    """fused_gru_torch_bwd's launches a call: the rebuild and the chain
+    (2), or the rebuild and T step kernels."""
+    return 2 if bptt_route(dev, B, H)[0] == "persist" else T + 1
+
+
+#: fused_gru_bwd_sparse's launches a call on the persistent route by
+#: (qbits > 0, wbf16), written from the design: the z/r pass, a_pre and
+#: the chain, the per-step scales with the quantizer, q(h) and q(s) where
+#: the quantizer or bf16 rounding changes them
+GRU_BWD_SPARSE_PERSIST_LAUNCHES = {(False, False): 3, (True, False): 6,
+                                   (False, True): 5, (True, True): 6}
+
+
+def gru_bwd_sparse_launches(dev, T, B, layout, qbits, bf16):
+    """fused_gru_bwd_sparse's launches a call on its route, and the v3
+    forward calls its rebuild makes: -> (route, launches, v3 calls)."""
+    route = bptt_route(dev, B, layout=layout, bf16=bf16)[0]
+    if route == "step":
+        return route, 2 * T + 2, 0
+    return route, GRU_BWD_SPARSE_PERSIST_LAUNCHES[qbits > 0, bool(bf16)], 2
+
+
+#: the port's own kernels a GRU BPTT call may launch; bptt_kernels holds a
+#: call's trace to them (PyTorch's own copies are not held)
+GRU_BPTT_KERNELS = (
+    "absmax_steps", "quant_steps", "gru_zr_rebuild", "gru_apre_rebuild",
+    "gru_bwd_persist", "v3_weight_t", "v3_fwd_gemm", "gru_zr_step",
+    "gru_h_step", "gru_bwd_carry", "gru_bwd_ds", "gru_torch_u_gemm",
+    "gru_torch_bwd_persist", "gru_torch_bwd_step", "gru_torch_step")
+
+
+def bptt_design(route, T, qbits=None, bf16=False):
+    """The device kernels of one GRU BPTT call by name, from the design:
+    qbits None for fused_gru_torch_bwd (the rebuild's GEMM, then the chain
+    or T step kernels); else fused_gru_bwd_sparse's (persistent: the
+    rebuild's passes, two v3 forward calls of v3_weight_t + v3_fwd_gemm,
+    the chain; step: the two rebuild kernels, two a reverse step)."""
+    if qbits is None:
+        return {"gru_torch_u_gemm": 1,
+                **({"gru_torch_bwd_persist": 1} if route == "persist"
+                   else {"gru_torch_bwd_step": T})}
+    want = {"absmax_steps": 1} if qbits > 0 else {}
+    if route == "step":
+        return dict(want, gru_zr_step=1, gru_h_step=1, gru_bwd_carry=T,
+                    gru_bwd_ds=T)
+    if qbits > 0 or bf16:
+        want["quant_steps"] = 2
+    return dict(want, gru_zr_rebuild=1, gru_apre_rebuild=1,
+                gru_bwd_persist=1, v3_weight_t=2, v3_fwd_gemm=2)
+
+
+def bptt_kernels(fn, want, tries=3):
+    """Hold one call of the BPTT ``fn`` to ``want`` (bptt_design): the
+    kernel records of its torch.profiler trace among GRU_BPTT_KERNELS
+    must be exactly those, so the route that ran is the one named. A
+    trace that differs is taken again, up to ``tries`` traces (the
+    profiler can drop a record, device_kernels); it raises when every
+    trace that held kernel records differed. Where none held any, there
+    must be at least as many launch calls as ``want`` names (PyTorch's
+    own copies launch too). -> the port's kernels of the trace that
+    agreed (or {"cuda_launch_calls": n})."""
+    seen, calls = [], 0
+    for _ in range(tries):
+        got, calls = {}, 0
+        for e in trace_events(fn):
+            name = str(e.get("name", ""))
+            if e.get("cat") == "kernel":
+                k = kernel_short_name(name)
+                got[k] = got.get(k, 0) + 1
+            elif e.get("cat") == "cuda_runtime" and name.startswith(
+                    ("cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaLaunchCooperativeKernel")):
+                calls += 1
+        port = {k: v for k, v in got.items() if k in GRU_BPTT_KERNELS}
+        if port == want:
+            print("[bptt_kernels] %s" % json.dumps(port))
+            return port
+        if got:
+            seen.append(got)
+    if not seen and calls >= sum(want.values()):
+        return {"cuda_launch_calls": calls}
+    raise AssertionError("a GRU BPTT call launched %s (%d launch calls); "
+                         "the design is %s" % (seen, calls, want))
+
+
 def gru_expect_serve(T):
     """Launches per recognize: 5 layers x 2 per frame (sparse GRU), one
     v3 forward for each of layers 1-4."""
@@ -2605,13 +2759,17 @@ def gru_expect_serve(T):
                     block_sparse_v3_fwd=GR_LAYERS - 1)
 
 
-def gru_expect_train(T):
-    """Launches per train step: the serving ones, the BPTT (2 + 2 per
-    frame per layer), layers 1-4's dx, and the dw kernel for layers 1-4's
-    v3 dw (G=3) and two dU products per layer (G=1 and G=2)."""
+def gru_expect_train(T, bwd=None):
+    """Launches per train step: the serving ones, the BPTT (``bwd``: one
+    (route, launches, v3 calls) a layer, gru_bwd_sparse_launches; the
+    persistent route's rebuild makes two v3 forward calls), layers 1-4's
+    dx, and the dw kernel for layers 1-4's v3 dw (G=3) and two dU
+    products per layer (G=1 and G=2)."""
+    bwd = bwd or [("step", 2 * T + 2, 0)] * GR_LAYERS
     return expected(fused_gru_fwd_sparse=GR_LAYERS * 2 * T,
-                    fused_gru_bwd_sparse=GR_LAYERS * (2 * T + 2),
-                    block_sparse_v3_fwd=GR_LAYERS - 1,
+                    fused_gru_bwd_sparse=sum(n for _, n, _ in bwd),
+                    block_sparse_v3_fwd=GR_LAYERS - 1 + sum(
+                        v for _, _, v in bwd),
                     block_sparse_v3_dx=GR_LAYERS - 1,
                     block_sparse_dw=GR_LAYERS - 1 + 2 * GR_LAYERS)
 
@@ -2699,11 +2857,13 @@ def phase_gru_train(dev):
         print("[gru_train] the CPU's own gradients under a one-ulp change "
               "of x: worst rel change %.3g at %s" % (sens, where))
         return max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
+    bwd = libri_gru_bwd(dev)
     with dw_groups() as by_g:
         out = phase_train(dev, gru_train_runner, "gru_train", (
-            ("recompute", knob, None, gru_expect_train(T)),),
+            ("recompute", knob, None, gru_expect_train(T, bwd)),),
             grad_tol=bar)
         out["block_sparse_dw_by_G"] = dict(by_g)
+    out["bptt_routes"] = [r for r, _, _ in bwd]
     print("[gru_train] dw kernel launches by G over the checked steps: %s"
           % out["block_sparse_dw_by_G"])
     if sorted(by_g) != [1, 2, 3]:
@@ -2718,6 +2878,21 @@ def phase_gru_train(dev):
     out["no_quant_inp"] = card_vs_cpu(
         runner, no_quant("cpu")[0], inp, mask, loss_err, knob, None,
         "gru_train, gru_quant_inp=False")
+    return out
+
+
+def libri_gru_bwd(dev):
+    """Each libri GRU layer's BPTT at the train step (32 rows, the 16-bit
+    quantizer, float32 w3g): gru_bwd_sparse_launches over the runner's
+    recurrent layouts, the routes printed with their plans."""
+    T, B, _ = GR_TRAIN_TBH
+    runner, _ = gru_train_runner(dev)
+    layouts = runner.graph.nets["GRU_layers"]._rec_layouts
+    out = [gru_bwd_sparse_launches(dev, T, B, layouts[i], 16, False)
+           for i in range(GR_LAYERS)]
+    print("[gru_train] BPTT per layer (route, launches, v3 calls): %s; plan "
+          "of layer 0: %s" % (out, json.dumps(bptt_route(
+              dev, B, layout=layouts[0])[1])))
     return out
 
 
@@ -2790,6 +2965,10 @@ def phase_gru_times(dev, rec, audio, lens):
         times["fused_gru_fwd_sparse_ms_q0"] = cuda_ms(
             lambda: R.fused_gru_fwd_sparse(g, w3g, drop, layout, act, 0),
             reps=10)
+        times["fused_gru_bwd_sparse_plan"] = bptt_route(dev, B,
+                                                        layout=layout)[1]
+        times["fused_gru_bwd_sparse_split"] = bptt_split(
+            calls["fused_gru_bwd_sparse"][0], 3)
         Ts, Bs, _ = GR_SERVE_TBH
         sv = gru_inputs(Ts, Bs, H, 151, dev)
         times["serve_fwd_ms"] = cuda_ms(
@@ -2866,7 +3045,8 @@ def gru_rows(checks, times, launches):
             times["cudnn_gru_bwd_ms"],
             "cuDNN nn.GRU(1024, 1024) backward (fwd+bwd minus fwd)",
             err_at("fused_gru_bwd_sparse", shape=train, qbits=16, w3g="f32"),
-            rec),
+            rec, plan=times["fused_gru_bwd_sparse_plan"],
+            split=times["fused_gru_bwd_sparse_split"]),
         row("block_sparse_v3_fwd", "block_sparse_v3", bsp % 656,
             times["dense_masked_fwd_ms"],
             dense % "(6400, 2048) x (2048, 3072)",
@@ -3099,7 +3279,10 @@ def phase_gru_large_batch(dev):
         args = (gi["g"], gi["w3g"], gi["drop"], h_prev, gi["dhs"],
                 gi["layout"], "tanh", 16)
         record_check(checks, "gru_large_batch", "fused_gru_bwd_sparse",
-                     {"T": 16, "rows": LARGE_ROWS}, {"qbits": 16}, rel_err(
+                     {"T": 16, "rows": LARGE_ROWS}, {
+                         "qbits": 16, "route": bptt_route(
+                             dev, LARGE_ROWS, layout=gi["layout"])[0]},
+                     rel_err(
                          R.fused_gru_bwd_sparse(*args),
                          R.fused_gru_bwd_sparse_plain(*args)), TOL_Q16, True)
         lay = si["layout"]
@@ -3431,7 +3614,8 @@ def phase_cudnn_wrappers(dev):
             "rnn": {"fused_rnn_fwd": 4 * T, "fused_rnn_bwd": 4 * (T + 1)},
             "lstm": {"fused_lstm_fwd": 4 * T, "fused_lstm_bwd_stash": 4 * T},
             "gru_torch": {"fused_gru_torch_fwd": 4 * T,
-                          "fused_gru_torch_bwd": 4 * (T + 1)}}[cell])
+                          "fused_gru_torch_bwd": 4 * gru_torch_bwd_launches(
+                              dev, T, B, H)}}[cell])
 
         def run(d):
             """-> (eval y, train y, grads, eval and train launches)."""
@@ -3849,13 +4033,16 @@ def gru_torch_inputs(T, B, H, seed, dev):
 def phase_gru_torch_kernels(dev):
     """The torch-semantics GRU forward (zero state, seeded, and seeded
     from h_{k-1} against the zero-state run's steps k..T-1) and BPTT
-    kernel against their twins, each launch counter checked (T, and
-    T + 1 for the BPTT), at the small ragged shape and the TIMIT width's
-    training shape."""
+    kernel against their twins, each launch counter checked (T, and for
+    the BPTT 2 on the persistent route, T + 1 on the step one: the route
+    named, and one call's device kernels held to the route's), the BPTT
+    twice bit for bit, at the small ragged shape and the TIMIT width's
+    training shape (both on the persistent route) and at 16 rows of the
+    TIMIT width (GT_STEP_TBH: its blocks do not fit, so the step route)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
     fwd, bwd = R.fused_gru_torch_fwd, R.fused_gru_torch_bwd
-    for k, shape in enumerate((SMALL_TBH, GT_TRAIN_TBH)):
+    for k, shape in enumerate((SMALL_TBH, GT_TRAIN_TBH, GT_STEP_TBH)):
         T, B, H = shape
         inp = gru_torch_inputs(T, B, H, 330 + k, dev)
         g, W, b, h0, dhs = (inp[n] for n in ("g", "W", "b", "h0", "dhs"))
@@ -3878,9 +4065,21 @@ def phase_gru_torch_kernels(dev):
                       g[s:].contiguous(), W, b, hs[s - 1].contiguous())),
                   hs[s:], False)
             h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+            route = bptt_route(dev, B, H)[0]
+            if route != ("step" if shape == GT_STEP_TBH else "persist"):
+                raise AssertionError("fused_gru_torch_bwd at %s takes the %s "
+                                     "route" % (shape, route))
+            where["route"] = route
             check("fused_gru_torch_bwd",
-                  launched(bwd, T + 1, lambda: bwd(g, W, b, h_prev, dhs)),
+                  launched(bwd, 2 if route == "persist" else T + 1,
+                           lambda: bwd(g, W, b, h_prev, dhs)),
                   R.fused_gru_torch_bwd_plain(g, W, b, h_prev, dhs), True)
+            record_check(checks, "gru_torch_kernels",
+                         "fused_gru_torch_bwd/determinism", where, {},
+                         same_bits(lambda: bwd(g, W, b, h_prev, dhs)), 0.0,
+                         False)
+            bptt_kernels(lambda: bwd(g, W, b, h_prev, dhs),
+                         bptt_design(route, T))
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
@@ -3912,8 +4111,8 @@ def phase_gru_cudnn(dev):
     unidirectional, dropout 0.2, over the fMLLR features (T=300, B=8).
     Eval and a train-mode forward + backward on the card with the launch
     counters set to 0 just before and read just after (the
-    torch-semantics GRU kernels alone: 4 x T forward, 4 x (T + 1)
-    backward), against the same model on the CPU (outputs within
+    torch-semantics GRU kernels alone: 4 x T forward, 4 x 2 backward on
+    the persistent route, 4 x (T + 1) on the step one), against the same model on the CPU (outputs within
     TOL_POST, every gradient, b_hh included, within TOL_GRAD_REL of its
     scale); the eval output against torch.nn.GRU with the same weights
     within TOL_STREAM (cudnn.allow_tf32 off); the stream in chunks of 100
@@ -3944,8 +4143,9 @@ def phase_gru_cudnn(dev):
     model, ye, yt, gd, l_eval, l_train = run(dev)
     _, ye_c, yt_c, gc, _, _ = run("cpu")
     want_eval = expected(fused_gru_torch_fwd=L * T)
-    want_train = expected(fused_gru_torch_fwd=L * T,
-                          fused_gru_torch_bwd=L * (T + 1))
+    want_train = expected(
+        fused_gru_torch_fwd=L * T,
+        fused_gru_torch_bwd=L * gru_torch_bwd_launches(dev, T, B, H))
     if l_eval != want_eval or l_train != want_train:
         raise AssertionError("GRU_cudnn launched %s (eval), %s (train)"
                              % (l_eval, l_train))
@@ -3992,8 +4192,10 @@ def _stream_chunks(model, x, chunk):
 def phase_gru_torch_times(dev):
     """CUDA-event times of the torch-semantics GRU kernels per layer call
     at the TIMIT width's training shape (the forward also at the serving
-    shape), their twins and bounds, and cuDNN's nn.GRU(550, 550): the
-    same function (torch's GRU), the library's time for it."""
+    shape), their twins and bounds, the BPTT's route, plan and split into
+    rebuild and chain, and cuDNN's nn.GRU(550, 550): the same function
+    (torch's GRU), the library's time for it, beside the port's whole
+    GRU_cudnn layer timed the same way (port_gru_layer_times)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     T, B, H = GT_TRAIN_TBH
     inp = gru_torch_inputs(T, B, H, 350, dev)
@@ -4015,6 +4217,9 @@ def phase_gru_torch_times(dev):
             times[name + "_plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
             times[name + "_bound_ms"], times[name + "_bound_by"] = \
                 gru_bound_ms(T, B, H, H, kind)
+        times["fused_gru_torch_bwd_plan"] = bptt_route(dev, B, H)[1]
+        times["fused_gru_torch_bwd_split"] = bptt_split(
+            calls["fused_gru_torch_bwd"][0])
         Ts, Bs, _ = GT_SERVE_TBH
         sv = gru_torch_inputs(Ts, Bs, H, 351, dev)
         times["serve_fwd_ms"] = cuda_ms(
@@ -4027,6 +4232,7 @@ def phase_gru_torch_times(dev):
             gru_bound_ms(Ts, Bs, H, H, "fwd")
     times.update(cudnn_times(dev, T, B, H, Ts, Bs, torch.nn.GRU(H, H),
                              "cudnn_gru550"))
+    times.update(port_gru_layer_times(dev, T, B, H))
     print("[gru_torch_times] kernels at T=%d B=%d H=%d: %s"
           % (T, B, H, json.dumps(times)))
     return times
@@ -5130,7 +5336,12 @@ def slice8_rows(cl_checks, cl_times, cl_launches, gt_checks, gt_times,
             gt_launches, gt_checks,
             err_at(gt_checks, "fused_gru_torch_bwd", GT_TRAIN_TBH),
             gt_times["cudnn_gru550_bwd_ms"],
-            lib % "backward (fwd+bwd minus fwd)", tt_)]
+            lib % "backward (fwd+bwd minus fwd, so with its input "
+            "projection's and dW's backward: port_layer_bwd_ms is the "
+            "port's layer timed the same way)", tt_,
+            plan=gt_times["fused_gru_torch_bwd_plan"],
+            split=gt_times["fused_gru_torch_bwd_split"],
+            port_layer_bwd_ms=gt_times["port_layer_bwd_ms"])]
 
 
 # ---------------------------------------------------------------------------
@@ -5869,6 +6080,165 @@ def gemm_times_main(root):
         mask = torch.as_tensor(mask, device=dev)
         out["%s_step_ms_f32" % tag] = cuda_ms(
             lambda: runner.train_step(inp, mask), reps=5)
+        del runner
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+def kernels_by_name(fn, reps=5):
+    """Device ms per call of each kernel one call of ``fn`` launches, by
+    short name (torch.profiler, ``reps`` calls after one warm-up)."""
+    out = {}
+    for e in trace_events(fn, reps):
+        if e.get("cat") == "kernel":
+            k = kernel_short_name(str(e.get("name", "")))
+            out[k] = out.get(k, 0.0) + float(e.get("dur", 0)) / reps / 1e3
+    return out
+
+
+#: a GRU BPTT's chain kernels, both routes; every other kernel of a call is
+#: its rebuild (the forward quantities that do not depend on dh)
+CHAIN_KERNELS = ("gru_torch_bwd_step", "gru_torch_bwd_persist",
+                 "gru_bwd_carry", "gru_bwd_ds", "gru_bwd_persist")
+
+
+def bptt_split(fn, reps=5):
+    """A BPTT call's device ms split into its rebuild and its chain, with
+    the kernels by name; None where the trace holds no kernel."""
+    by = kernels_by_name(fn, reps)
+    if not by:
+        return None
+    chain = sum(v for k, v in by.items() if k in CHAIN_KERNELS)
+    return {"rebuild_ms": sum(by.values()) - chain, "chain_ms": chain,
+            "kernels_ms": by}
+
+
+def port_gru_layer_times(dev, T, B, H, reps=10):
+    """The port's GRU_cudnn layer as cudnn_times times nn.GRU(H, H): the
+    input projection x @ W_ih^T + b_ih and the recurrence
+    (gru_cudnn_scan_fused), forward and forward + backward (row 23, the
+    dW_hh matmul and db sum of its Function, the projection's backward),
+    the backward as their difference."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    gen = torch.Generator(device=dev).manual_seed(352)
+    k = 1.0 / np.sqrt(H)
+
+    def param(*shape):
+        return ((torch.rand(*shape, device=dev, generator=gen) * 2 - 1) * k
+                ).requires_grad_()
+    W_ih, W_hh, b_ih, b_hh = (param(3 * H, H), param(3 * H, H),
+                              param(3 * H), param(3 * H))
+    x = torch.randn(T, B, H, device=dev, generator=gen).requires_grad_()
+    dy = torch.randn(T, B, H, device=dev, generator=gen)
+
+    def fwd():
+        return R.gru_cudnn_scan_fused(x @ W_ih.T + b_ih, W_hh, b_hh)
+    fwd_ms = cuda_ms(fwd, reps)
+    fb_ms = cuda_ms(lambda: fwd().backward(dy), reps)
+    return {"port_layer_fwd_ms": fwd_ms, "port_layer_fwd_bwd_ms": fb_ms,
+            "port_layer_bwd_ms": fb_ms - fwd_ms}
+
+
+def phase_rnn_turn_times(dev):
+    """Rows 23 and 33 at their timed shapes (gru_torch_times' and
+    gru_times' inputs): ms per call (CUDA events), the route and its plan,
+    the device time split into rebuild and chain by kernel
+    (torch.profiler); nn.GRU(550)'s forward, backward (fwd+bwd minus fwd)
+    and the port's whole GRU_cudnn layer backward the same way beside row
+    23; rows 22, 32, 35, 13 (libri G=3, 8-bit, submask) and 15 (the libri
+    v3 dw) as the rows that must not move. Public wrappers
+    only, so an earlier tree's package runs it too."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    t = {}
+    with torch.no_grad():
+        T, B, H = GT_TRAIN_TBH
+        gi = gru_torch_inputs(T, B, H, 350, dev)
+        g, W, b, dhs = (gi[n] for n in ("g", "W", "b", "dhs"))
+        hs = R.fused_gru_torch_fwd(g, W, b)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        call = lambda: R.fused_gru_torch_bwd(g, W, b, h_prev, dhs)
+        t["row23"] = {"ms": cuda_ms(call, 20),
+                      "plan": bptt_route(dev, B, H)[1],
+                      "split": bptt_split(call)}
+        t["row22_ms"] = cuda_ms(lambda: R.fused_gru_torch_fwd(g, W, b), 20)
+        del gi, g, W, b, dhs, hs, h_prev
+        T, B, H = GR_TRAIN_TBH
+        si = gru_inputs(T, B, H, 150, dev)
+        g, w3g, drop, dhs, lay = (si[n] for n in ("g", "w3g", "drop", "dhs",
+                                                  "layout"))
+        hs = R.fused_gru_fwd_sparse(g, w3g, drop, lay, "tanh", 16)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        call = lambda: R.fused_gru_bwd_sparse(g, w3g, drop, h_prev, dhs, lay,
+                                              "tanh", 16)
+        t["row33"] = {"ms": cuda_ms(call, 10),
+                      "plan": bptt_route(dev, B, layout=lay)[1],
+                      "split": bptt_split(call, 3)}
+        t["row32_ms"] = cuda_ms(
+            lambda: R.fused_gru_fwd_sparse(g, w3g, drop, lay, "tanh", 16), 10)
+        del si, g, w3g, drop, dhs, hs, h_prev
+        T, B, H = MG_TRAIN_TBH
+        sp = cgs_ligru_inputs(T, B, H, 421, dev, "relu")
+        hs = R.fused_mgru_fwd_sparse(sp["g"], sp["w3g"], sp["drop"],
+                                     sp["layout"], "relu", 16)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        t["row35_ms"] = cuda_ms(lambda: R.fused_mgru_bwd_sparse(
+            sp["g"], sp["w3g"], sp["drop"], h_prev, sp["dhs"], sp["layout"],
+            "relu", 16), 10)
+        del sp, hs, h_prev
+        M = GR_TRAIN_TBH[0] * GR_TRAIN_TBH[1]
+        v = v3_inputs(M, 3, 234, dev)
+        x = BS.pad_cols(v["x"], v["layout"].K).contiguous()
+        t["row13_ms"] = cuda_ms(lambda: BS.block_sparse_v3_fwd(
+            x, v["w3"], v["layout"], 3, 8, v["sub3"]), 20)
+        t["row15_ms"] = cuda_ms(lambda: BS.block_sparse_dw(
+            v["gy"], x, v["layout"], 3, v["sub3"]), 20)
+        del v, x
+    T, B, H = GT_TRAIN_TBH
+    t.update(cudnn_times(dev, T, B, H, *GT_SERVE_TBH[:2], torch.nn.GRU(H, H),
+                         "cudnn_gru550"))
+    t.update(port_gru_layer_times(dev, T, B, H))
+    torch.cuda.empty_cache()
+    print("[rnn_turn_times] %s" % json.dumps(t), flush=True)
+    return t
+
+
+def rnn_times_main(root):
+    """``python3 chip_smoke.py --rnn-times [DIR]``: phase_rnn_turn_times
+    and the f32 train steps of the libri GRU and the CGS-16x LSTM (CUDA
+    events, mean of 5 after 2), with the package of this checkout or of
+    the tree unpacked at DIR inside it (as ``--gemm-times``; run parent,
+    change, change, parent in one call); one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    here = os.path.realpath(ROOT)
+    root = os.path.realpath(os.path.join(ROOT, root))
+    if os.path.commonpath([here, root]) != here:
+        print("chip_smoke: --rnn-times takes a directory inside %s" % here,
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
+    from pytorch_kaldi_cgs_tpu_torch.ops import _build
+    _build.build(_build.SOURCES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    out = {"root": os.path.relpath(root, here),
+           "package": os.path.relpath(os.path.dirname(_build.CSRC), here),
+           "card": smi_card(), "times": phase_rnn_turn_times(dev)}
+    for tag, make in (("libri_gru", gru_train_runner),
+                      ("cgs16x_lstm", cgs_train_runner)):
+        runner, (inp, mask) = make(dev)
+        inp = torch.as_tensor(inp, device=dev)
+        mask = torch.as_tensor(mask, device=dev)
+        out["%s_step_ms_f32" % tag] = cuda_ms(
+            lambda: runner.train_step(inp, mask), reps=5)
+        if tag == "libri_gru":
+            out["libri_gru_step_device_ms_by_class"] = kernel_classes(
+                device_busy(lambda: runner.train_step(inp, mask))["by_name"])
         del runner
         torch.cuda.empty_cache()
     print(json.dumps(out))
@@ -6716,4 +7086,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gemm-times"]:
         sys.exit(gemm_times_main(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--rnn-times"]:
+        sys.exit(rnn_times_main(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

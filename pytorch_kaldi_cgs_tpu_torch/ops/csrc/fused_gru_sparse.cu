@@ -51,23 +51,44 @@
 // barriers): gru_zr_step (z, r, s and max|s|) then gru_h_step (the
 // candidate and h_t, max|h_t| for the next step's quantizer). It re-reads
 // w3g (6.3 MB at the GRU's shape) from the 50 MB L2 each step; its time is
-// 2T launches, far above the bound. A persistent kernel with w3g resident
-// across the SMs is later work.
+// 2T launches, far above the bound. A persistent forward is later work.
 //
 // The backward's forward quantities (z, r, s, the candidate's
-// pre-activation and both quantizer scales) do not depend on dh, so they
-// are rebuilt for all T at once before the reverse loop: one reduction
-// for the T scales of q(h_{t-1}), then the same two step kernels over a
-// grid with one z-slice per step, writing [a_pre | z | r] ([a_pre | z]) to
-// scratch and s_t to the output. The reverse chain keeps two dependent
-// steps per time step, so two kernels per step: gru_bwd_carry (dh from
-// step t+1's [dg_z | dg_r] (dg_z) against [U_z; U_r] (U_z) transposed,
-// then dg_h, and the GRU's dg_z) and gru_bwd_ds (ds from dg_h against U_h
-// transposed, then dg_r or the minimalGRU's dg_z). A transposed product
-// gathers per block column from the layout's column lists (t_row_idx,
-// t_perm; a pad entry has t_perm == nnz), so no float atomics are needed
-// and its sum is deterministic.
+// pre-activation and both quantizer scales) do not depend on dh. The GRU's
+// backward (G=3) takes one of two routes, picked by the caller before the
+// launch from the shapes and the occupancy query
+// (fused_rnn.gru_bwd_sparse_route):
 //
+//   - "persist" (TPU row 33's redesign). The forward quantities of all
+//     M = T*B rows at once, as GEMMs: absmax_steps (the T scales of
+//     q(h_{t-1})) and quant_steps write q(h_prev); the caller's
+//     block_sparse_v3_fwd (block_sparse_v3.cu, row 13's tile) forms u_z
+//     and u_r against [U_z; U_r]; gru_zr_rebuild writes z, r, s and each
+//     step's max|s|; quant_steps writes q(s); block_sparse_v3_fwd forms
+//     u_h against U_h; gru_apre_rebuild writes a_pre. Under bf16 the
+//     GEMMs' operands are bf16 values in float32 (q(h), q(s) rounded, w3g
+//     widened), so each product is the step kernels' and only the order
+//     of the sums differs. Then the whole reverse chain is ONE cooperative
+//     launch of gru_bwd_persist (persist.cuh): a block owns 16 units of one
+//     block column and 16 batch rows (8 and 8 at B <= 8; 8 and 32 where bs
+//     is not a multiple of 16) for all steps, its columns of U resident in
+//     shared memory, two grid barriers a step. The blocks of one column
+//     stage the same cotangents from L2, so 16 x 16 outputs a block stage
+//     half the bytes of 8 x 32, and the staging is what the chain waits
+//     for most.
+//   - "step" (a shape whose chain does not fit or is not co-resident; the
+//     minimalGRU always): the forward quantities by the two forward step
+//     kernels over a grid with one z-slice per step, writing [a_pre | z |
+//     r] ([a_pre | z]) to scratch and s_t to the output; then two kernels
+//     per reverse step: gru_bwd_carry (dh from step t+1's [dg_z | dg_r]
+//     (dg_z) against [U_z; U_r] (U_z) transposed, then dg_h, and the GRU's
+//     dg_z) and gru_bwd_ds (ds from dg_h against U_h transposed, then dg_r
+//     or the minimalGRU's dg_z).
+//
+// A transposed product gathers per block column from the layout's column
+// lists (t_row_idx, t_perm; a pad entry has t_perm == nnz), so no float
+// atomics are needed and its sum is deterministic.
+
 // Forward blocks own UNITS hidden units of one out-block j and BT batch
 // rows: they stage the R*bs gathered columns of q(h_{t-1}) (or q(s)) for
 // their rows in shared memory and each warp forms the dots of one w3g row
@@ -88,6 +109,7 @@
 #include <algorithm>
 #include <cmath>
 
+#include "persist.cuh"
 #include "sparse_rec.cuh"
 
 namespace {
@@ -304,6 +326,213 @@ gru_bwd_ds(const float* __restrict__ fw_t, const void* __restrict__ w3t,
   }
 }
 
+// The GRU's backward forward quantities over all M = T*B rows at once
+// (route "persist"; the products are block_sparse_v3.cu's GEMM, called by
+// the wrapper between these passes):
+
+// out = q(v) of each step's (B, H) block (scale: max|v_t| bits, or null
+// for none), rounded to bf16 under BF16 (grid.y = steps).
+template <bool BF16>
+__global__ void quant_steps(const float* __restrict__ v,
+                            const unsigned* __restrict__ scale, float qscale,
+                            float* __restrict__ out, int n) {
+  const size_t base = (size_t)blockIdx.y * n;
+  const float var = scale ? __uint_as_float(scale[blockIdx.y]) : 0.f;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    float x = v[base + i];
+    if (scale) x = quant(x, var, qscale);
+    out[base + i] = BF16 ? round_bf16(x) : x;
+  }
+}
+
+// z = sigmoid(g_z + u_z), r = sigmoid(g_r + u_r) into fw at H.. and 2H..,
+// s = r * h_prev into s_out and max|s| of each step into scale_s (or
+// nothing when null); uzr (2, M, H) = [u_z; u_r]. Blocks over (the H
+// units, rows).
+__global__ void gru_zr_rebuild(const float* __restrict__ gates,
+                               const float* __restrict__ uzr,
+                               const float* __restrict__ h_prev,
+                               float* __restrict__ fw,
+                               float* __restrict__ s_out,
+                               unsigned* __restrict__ scale_s, int M, int B,
+                               int H) {
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t MH = (size_t)M * H;
+  for (int row = blockIdx.y; row < M; row += gridDim.y) {
+    unsigned m = 0;
+    if (u < H) {
+      const size_t ih = (size_t)row * H + u, ig = (size_t)row * 3 * H;
+      const float z = sigmoid(gates[ig + H + u] + uzr[ih]);
+      const float r = sigmoid(gates[ig + 2 * H + u] + uzr[MH + ih]);
+      const float sv = r * h_prev[ih];
+      fw[ig + H + u] = z;
+      fw[ig + 2 * H + u] = r;
+      s_out[ih] = sv;
+      m = __float_as_uint(fabsf(sv));
+    }
+    if (scale_s) slot_max(m, scale_s + row / B);
+  }
+}
+
+// a_pre = g_h + u_h into fw at 0.. (uh (M, H)).
+__global__ void gru_apre_rebuild(const float* __restrict__ gates,
+                                 const float* __restrict__ uh,
+                                 float* __restrict__ fw, int M, int H) {
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= H) return;
+  for (int row = blockIdx.y; row < M; row += gridDim.y)
+    fw[(size_t)row * 3 * H + u] =
+        gates[(size_t)row * 3 * H + u] + uh[(size_t)row * H + u];
+}
+
+// The GRU's whole reverse chain in one cooperative launch (route
+// "persist", TPU row 33's redesign; persist.cuh). Block c owns the UN (8
+// or 16) units from u0 = (c % (H/UN)) * UN, all in block column blk = u0
+// / bs, and the BT = 8 * BI batch rows from b0 = (c / (H/UN)) * BT. It
+// copies into shared memory once, per kept block (j, k) of its column (nv
+// of them), its units' columns of U_z and U_r (ws1: U_z's of every entry,
+// then U_r's) and of U_h (ws2): 3bs floats a unit and an entry (12 KB an
+// entry at bs=128; a bf16 w3g widened exactly). Its thread o = b * UNITS +
+// jj keeps dh, ds, z and r of its (row, unit) in registers across the
+// steps and loads the next step's inputs (fw, dhs, h_prev) a step ahead.
+// Per reverse step, two dependent products, two grid barriers (the second
+// skipped at t = 0):
+//   1. [dg_z | dg_r]_{t+1} of the kept out-blocks, staged as a row of
+//      nv*bs dg_z then nv*bs dg_r, dots against ws1, then dh, dg_h and
+//      dg_z of step t; barrier (every unit's dg_h and dg_z written);
+//   2. dg_h of step t at the kept out-blocks, staged into the dg_r half,
+//      dots against ws2: ds_t, then dg_r; barrier.
+// Step t's dg_z, complete at the first barrier, is staged for the next
+// step's product 1 right after it, so that its copy overlaps product 2;
+// only dg_r is staged after the second. A column with no entries forms
+// zero dots. Under BF16 the staged cotangents are rounded to bf16 before
+// the dots, as in the step kernels.
+template <bool BF16, int BI, int UN>
+__global__ void __launch_bounds__(persist::THREADS, 1)
+gru_bwd_persist(const float* __restrict__ fw,    // (T, B, 3H) [a_pre|z|r]
+                const void* __restrict__ w3g,    // (Nb, 3bs, R*bs)
+                const int* __restrict__ t_row_idx,
+                const int* __restrict__ t_perm,
+                const float* __restrict__ drop,  // (B, H)
+                const float* __restrict__ h_prev, const float* __restrict__ dhs,
+                float* dg, int T, int B, int H, int R, int bs, int C, int nnz,
+                int act) {
+  namespace P = persist;
+  constexpr int G = 3, BT = P::BLANES * BI;
+  constexpr int WS = P::w_stride(UN);
+  extern __shared__ __align__(16) float psm[];
+  __shared__ int ent_j[MAX_C], ent_k[MAX_C];
+  const int K1c = C * 2 * bs, K2c = C * bs, SK = P::row_stride(K1c);
+  float* ws1 = psm;                                // (C*2bs, WS)
+  float* ws2 = ws1 + (size_t)K1c * WS;             // (C*bs, WS)
+  float* xs = ws2 + (size_t)K2c * WS;              // (BT, SK)
+  float* red = xs + (size_t)BT * SK;
+  const int ug = H / UN;
+  const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  const int blk = u0 / bs, cc0 = u0 - blk * bs;
+  const int nv = column_entries(t_row_idx, t_perm, blk, C, R, nnz, ent_j,
+                                ent_k);
+  __syncthreads();
+  const int NB = nv * bs, K1 = 2 * NB, K2 = NB, RB = R * bs, GB = G * bs;
+  for (int i = threadIdx.x; i < K1 * UN; i += P::THREADS) {
+    // k = g * NB + e * bs + q: gate z (g = 0) or r (g = 1) of entry e
+    const int k = i / UN, jj = i - k * UN, g = k / NB, e = (k - g * NB) / bs;
+    const int q = k - g * NB - e * bs;
+    const size_t row = (size_t)ent_j[e] * GB + (1 + g) * bs + q;
+    ws1[k * WS + jj] = load_w<BF16>(w3g, row * RB + ent_k[e] * bs + cc0 + jj);
+  }
+  for (int i = threadIdx.x; i < K2 * UN; i += P::THREADS) {
+    const int k = i / UN, jj = i - k * UN, e = k / bs, q = k - e * bs;
+    ws2[k * WS + jj] = load_w<BF16>(
+        w3g, ((size_t)ent_j[e] * GB + q) * RB + ent_k[e] * bs + cc0 + jj);
+  }
+  const int o = threadIdx.x, ob = o / UN, ou = u0 + o % UN;
+  const bool mine = o < BT * UN && ob < nb;
+  const size_t bh = (size_t)B * H, gbh = (size_t)G * bh;
+  const size_t ih = (size_t)(b0 + ob) * H + ou, ig = (size_t)(b0 + ob) * G * H;
+  const float dr = mine ? drop[ih] : 0.f;
+  // stage gate `gate` of step t's dg at the kept out-blocks, row b's entry
+  // e at xs[b][off + e*bs]
+  auto stage = [&](int t, int gate, int off) {
+    const float* src = dg + t * gbh + (size_t)b0 * G * H + gate * H;
+    P::stage_rows(
+        nb * nv, bs,
+        [&](int row) {
+          const int b = row / nv, e = row - b * nv;
+          return src + (size_t)b * G * H + ent_j[e] * bs;
+        },
+        [&](int row) {
+          const int b = row / nv, e = row - b * nv;
+          return xs + (size_t)b * SK + off + e * bs;
+        });
+  };
+  // step t's inputs of this thread's (row, unit), loaded a step ahead
+  struct In {
+    float a_pre, z, r, dh, hp;
+  };
+  auto fetch = [&](int t) {
+    In v{};
+    if (mine) {
+      const float* f = fw + t * gbh + ig;
+      v.a_pre = f[ou];
+      v.z = f[H + ou];
+      v.r = f[2 * H + ou];
+      v.dh = dhs[t * bh + ih];
+      v.hp = h_prev[t * bh + ih];
+    }
+    return v;
+  };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float dh = 0.f, ds = 0.f, zn = 0.f, rn = 0.f;
+  In cur = fetch(T - 1);
+  __syncthreads();
+  for (int t = T - 1; t >= 0; --t) {
+    float dot = 0.f;
+    if (t + 1 < T) {
+      stage(t + 1, 2, NB);      // dg_r; dg_z has been in flight since
+      P::cp_async_wait_all();   // the last first barrier
+      __syncthreads();
+      P::unit_dots<BI, UN, BF16>(xs, SK, ws1, K1, red);
+      if (o < BT * UN) dot = P::unit_sum<BI, UN>(red, o);
+    }
+    const float hp = cur.hp, r = cur.r;
+    if (mine) {
+      const float carry = t + 1 < T ? dh * zn + ds * rn + dot : 0.f;
+      const float dhv = carry + cur.dh;
+      const float a_pre = cur.a_pre, z = cur.z;
+      float* d = dg + t * gbh;
+      d[ig + ou] = dhv * (1.f - z) * dr * dact_pre(a_pre, act);
+      const float dz = dhv * (hp - act_fn(a_pre, act) * dr);
+      d[ig + H + ou] = dz * z * (1.f - z);
+      dh = dhv;
+      zn = z;
+      rn = r;
+    }
+    grid.sync();
+    stage(t, 0, NB);            // dg_h into the dg_r half
+    P::cp_async_commit();
+    if (t > 0) {
+      stage(t, 1, 0);           // dg_z for the next step's product 1
+      P::cp_async_commit();
+      P::cp_async_wait<1>();
+    } else {
+      P::cp_async_wait<0>();
+    }
+    __syncthreads();
+    P::unit_dots<BI, UN, BF16>(xs + NB, SK, ws2, K2, red);
+    if (mine) {
+      ds = P::unit_sum<BI, UN>(red, o);
+      dg[t * gbh + ig + 2 * H + ou] = ds * hp * r * (1.f - r);
+    }
+    if (t > 0) {
+      cur = fetch(t - 1);
+      grid.sync();
+    }
+  }
+}
+
 template <bool BF16, int G>
 cudaError_t run_fwd(const float* gates, const void* w3g, const int* col_idx,
                     const float* drop, float* hs, float* fw, float* s,
@@ -436,6 +665,32 @@ int launch_bwd(const float* gates, const void* w3g, const void* w3t,
             stream);
 }
 
+template <bool BF16, int BI, int UN>
+cudaError_t launch_persist(int grid, int smem, cudaStream_t stream,
+                           const float* fw, const void* w3g,
+                           const int* t_row_idx, const int* t_perm,
+                           const float* drop, const float* h_prev,
+                           const float* dhs, float* dg, int T, int B, int H,
+                           int R, int bs, int C, int nnz, int act) {
+  return persist::launch<gru_bwd_persist<BF16, BI, UN>>(
+      grid, smem, stream, fw, w3g, t_row_idx, t_perm, drop, h_prev, dhs, dg,
+      T, B, H, R, bs, C, nnz, act);
+}
+
+// the chain's block shapes (bi, units): (1, 8), (2, 16) or (4, 8)
+template <bool BF16>
+int persist_occupancy(int bi, int smem, int* out) {
+  return bi == 1 ? persist::occupancy<gru_bwd_persist<BF16, 1, 8>>(smem, out)
+         : bi == 2
+             ? persist::occupancy<gru_bwd_persist<BF16, 2, 16>>(smem, out)
+             : persist::occupancy<gru_bwd_persist<BF16, 4, 8>>(smem, out);
+}
+
+// grid (units in blocks of 256, rows) of the elementwise rebuild passes
+dim3 rows_grid(int M, int H) {
+  return dim3((H + 255) / 256, std::min(M, 65535));
+}
+
 }  // namespace
 
 extern "C" {
@@ -482,6 +737,106 @@ int fused_gru_bwd_sparse(const float* gates, const void* w3g, const void* w3t,
   return launch_bwd<3>(gates, w3g, w3t, col_idx, t_row_idx, t_perm, drop,
                        h_prev, dhs, fw, s_seq, dh, ds, dg, qslots, T, B, H, R,
                        bs, C, nnz, act, qbits, w_bf16, stream_ptr);
+}
+
+// The GRU backward's forward quantities on the persistent route, first
+// pass: with qbits > 0, zero the 2T scale slots and take max|h_prev| of
+// each step into slots 0..T-1; then qh = q(h_prev) (bf16-rounded under
+// w_bf16). Nothing runs with qbits == 0 in float32 (the wrapper hands
+// h_prev itself to the GEMM). Returns the first cudaError_t, 0 on success.
+//   h_prev: (T, B, H); qh: (T, B, H) output; qslots: 2T unsigned ints
+int gru_bwd_sparse_rebuild_h(const float* h_prev, float* qh, unsigned* qslots,
+                             int T, int B, int H, int qbits, int w_bf16,
+                             void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool q = qbits > 0;
+  const size_t bh = (size_t)B * H;
+  const int nblk = (int)std::min<size_t>((bh + 255) / 256, 16);
+  cudaError_t err = cudaSuccess;
+  if (q) {
+    err = cudaMemsetAsync(qslots, 0, (size_t)(2 * T) * sizeof(unsigned),
+                          stream);
+    if (err != cudaSuccess) return err;
+    absmax_steps<<<dim3(nblk, T), 256, 0, stream>>>(h_prev, (int)bh, qslots);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (q || w_bf16) {
+    const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+    auto k = w_bf16 ? quant_steps<true> : quant_steps<false>;
+    k<<<dim3(nblk, T), 256, 0, stream>>>(h_prev, q ? qslots : nullptr, qscale,
+                                         qh, (int)bh);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+// Second pass, after the wrapper's v3 GEMM of qh against [U_z; U_r]: z, r
+// into fw (at H.. and 2H..), s = r * h_prev into s_seq, max|s| of each
+// step into slots T..2T-1 (qbits > 0), then qs = q(s) (bf16-rounded under
+// w_bf16; nothing where neither applies: the wrapper uses s_seq).
+//   gates, fw: (T, B, 3H); uzr: (2, T*B, H) [u_z; u_r]; h_prev, s_seq,
+//   qs: (T, B, H)
+int gru_bwd_sparse_rebuild_zr(const float* gates, const float* uzr,
+                              const float* h_prev, float* fw, float* s_seq,
+                              float* qs, unsigned* qslots, int T, int B,
+                              int H, int qbits, int w_bf16,
+                              void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool q = qbits > 0;
+  const int M = T * B;
+  gru_zr_rebuild<<<rows_grid(M, H), 256, 0, stream>>>(
+      gates, uzr, h_prev, fw, s_seq, q ? qslots + T : nullptr, M, B, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !(q || w_bf16)) return err;
+  const size_t bh = (size_t)B * H;
+  const int nblk = (int)std::min<size_t>((bh + 255) / 256, 16);
+  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+  auto k = w_bf16 ? quant_steps<true> : quant_steps<false>;
+  k<<<dim3(nblk, T), 256, 0, stream>>>(s_seq, q ? qslots + T : nullptr,
+                                       qscale, qs, (int)bh);
+  return cudaGetLastError();
+}
+
+// The chain, after the wrapper's v3 GEMM of qs against U_h: a_pre = g_h +
+// u_h into fw, then one cooperative launch of `grid` blocks of
+// gru_bwd_persist (bi: 1, 2 or 4, BT = 8 * bi batch rows a block, 16
+// units at bi = 2, 8 else; smem bytes
+// of dynamic shared memory; fused_rnn.gru_bwd_sparse_plan sizes all
+// three).
+//   gates, fw, dg: (T, B, 3H); uh: (T*B, H); w3g: (Nb, 3bs, R*bs) float32
+//   or bf16 (w_bf16); t_row_idx, t_perm: the layout's column lists; drop:
+//   (B, H); h_prev, dhs: (T, B, H)
+int gru_bwd_sparse_persist(const float* gates, const float* uh,
+                           const void* w3g, const int* t_row_idx,
+                           const int* t_perm, const float* drop,
+                           const float* h_prev, const float* dhs, float* fw,
+                           float* dg, int T, int B, int H,
+                           int R, int bs, int C, int nnz, int act, int w_bf16,
+                           int grid, int bi, int smem, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int units = bi == 2 ? 16 : 8;
+  if (C > MAX_C || H % units || bs % units) return cudaErrorInvalidValue;
+  const int M = T * B;
+  gru_apre_rebuild<<<rows_grid(M, H), 256, 0, stream>>>(gates, uh, fw, M, H);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto fn = w_bf16 ? (bi == 1   ? launch_persist<true, 1, 8>
+                      : bi == 2 ? launch_persist<true, 2, 16>
+                                : launch_persist<true, 4, 8>)
+                   : (bi == 1   ? launch_persist<false, 1, 8>
+                      : bi == 2 ? launch_persist<false, 2, 16>
+                                : launch_persist<false, 4, 8>);
+  return fn(grid, smem, stream, fw, w3g, t_row_idx, t_perm, drop, h_prev, dhs,
+            dg, T, B, H, R, bs, C, nnz, act);
+}
+
+// out[0..2]: the chain's co-resident blocks per SM at `smem` bytes of
+// dynamic shared memory (w_bf16 and bi as above), the SM count, and
+// whether the device takes cooperative launches.
+int gru_bwd_sparse_occupancy(int w_bf16, int bi, int smem, int* out) {
+  return w_bf16 ? persist_occupancy<true>(bi, smem, out)
+                : persist_occupancy<false>(bi, smem, out);
 }
 
 // The minimalGRU forward: as fused_gru_fwd_sparse with gates (T, B, 2H)

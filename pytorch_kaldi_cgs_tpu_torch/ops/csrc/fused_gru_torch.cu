@@ -35,28 +35,49 @@
 // ms at 67 TFLOP/s; it moves ~24 MB (0.007 ms): operations bound it; the
 // backward does them twice (0.130 ms). But each step needs all of h_{t-1}
 // (forward) or all of du_{t+1} (backward), written by every block of the
-// step before, and blocks run in no order: one launch per step from the
-// host loop (the launch boundary is the grid-wide barrier), re-reading
-// W_hh (3.6 MB at H=550) from the 50 MB L2. Its time is T launches, far
-// above the bound; a persistent kernel is later work.
+// step before, and blocks run in no order.
+//
+// The forward launches one kernel per step from the host loop (the launch
+// boundary is the grid-wide barrier), re-reading W_hh (3.6 MB at H=550)
+// from the 50 MB L2; its time is T launches, far above the bound.
 //
 // The backward's pre-activations u do not depend on dh, so one launch
-// rebuilds them for all T (grid.z = steps) before the reverse loop; the
-// reverse chain then has one dependent product per step, against rows of
-// W_hh^T (passed in, (H, 3H)) so that the lanes read consecutive
-// addresses.
+// rebuilds them for all T before the reverse chain: u = h_prev @ W_hh^T +
+// b_hh as one (T*B, H) x (H, 3H) GEMM on bs_gemm.cuh's register-blocked
+// tile (gru_torch_u_gemm: 2.18 GFMA at the TIMIT shape, 247 blocks of 128
+// x 128 outputs). The chain then has one dependent product per step,
+// du_{t+1} @ W_hh, against the columns of W_hh. Two routes, picked by the
+// caller before the launch from the shapes and the occupancy query
+// (fused_rnn.gru_torch_bwd_route):
+//
+//   - "persist" (TPU row 23's redesign): ONE cooperative launch runs the
+//     whole chain (persist.cuh). A block owns UNITS = 8 units and 8 (B <=
+//     8) or 32 batch rows for the whole call; it copies its units' columns
+//     of W_hh into shared memory once (3H floats a unit, 52.8 KB at
+//     H=550), and per reverse step stages du_{t+1} of its rows (3H floats a
+//     row, from an exchange buffer the blocks write with 16-byte aligned
+//     rows, two of them by the step's parity), forms its 8 x BT dots, writes
+//     its units' dg_t, dm_t and du_t, and waits at one grid barrier. At the
+//     TIMIT shape that is ceil(550/8) = 69 blocks, one an SM (114 KB).
+//   - "step" (a shape whose blocks do not fit or are not co-resident): one
+//     launch per reverse step (gru_torch_bwd_step); the launch boundary is
+//     the barrier, each block re-staging du_{t+1} (8 x 3H floats) and
+//     re-reading its rows of W_hh^T (passed in, (H, 3H), so that the lanes
+//     read consecutive addresses) every step.
 //
 // Per step, a forward block owns UNITS hidden units (3*UNITS rows of W_hh:
 // their r, z and n rows) and BT batch rows: it stages the rows' h_{t-1}
 // (BT x H floats) in shared memory and each warp forms the dot of one row
 // of W_hh with every staged row (lanes over k, then a shuffle reduction).
-// A backward block owns BWD_UNITS units and stages du_{t+1} (BT x 3H
-// floats, 53 KB at H=550). Widths need not be multiples of 32 or of the
+// A per-step backward block owns BWD_UNITS units and stages du_{t+1} (BT x
+// 3H floats, 53 KB at H=550). Widths need not be multiples of 32 or of the
 // units (H=550): every loop masks.
 
 #include <cmath>
 
+#include "bs_gemm.cuh"
 #include "lstm_common.cuh"
+#include "persist.cuh"
 
 namespace {
 
@@ -89,24 +110,16 @@ __device__ __forceinline__ void warp_dot(const float* __restrict__ row,
   }
 }
 
-// One forward step (blockIdx.z = step within the launch: the forward
-// launches one step, the backward's rebuild all T). With h_out (the
-// forward): h_t into h_out. Without (the rebuild): u = h_prev @ W_hh^T +
-// b_hh into u_out.
+// One forward step: h_t = the GRU cell of g_t and h_{t-1} into h_out.
 __global__ void __launch_bounds__(THREADS)
 gru_torch_step(const float* __restrict__ g,        // (B, 3H) [r | z | n]
                const float* __restrict__ W,        // (3H, H) W_hh
                const float* __restrict__ bh,       // (3H,) b_hh
                const float* __restrict__ h_prev,   // (B, H); nullptr = zeros
-               float* __restrict__ h_out,          // (B, H) or nullptr
-               float* __restrict__ u_out,          // (B, 3H) or nullptr
+               float* __restrict__ h_out,          // (B, H)
                int B, int H) {
   extern __shared__ float sm[];                    // (BT, H) h_prev
   __shared__ float usm[BT][3 * UNITS];
-  const size_t t = blockIdx.z, bh3 = (size_t)B * 3 * H;
-  g += t * bh3;
-  if (u_out) u_out += t * bh3;
-  if (h_prev) h_prev += t * (size_t)B * H;
   const int u0 = blockIdx.x * UNITS;
   const int b0 = blockIdx.y * BT, nb = min(BT, B - b0);
 
@@ -132,16 +145,109 @@ gru_torch_step(const float* __restrict__ g,        // (B, 3H) [r | z | n]
     const float ur = usm[b][jj] + bh[u];
     const float uz = usm[b][UNITS + jj] + bh[H + u];
     const float un = usm[b][2 * UNITS + jj] + bh[2 * H + u];
-    if (h_out) {
-      const float r = sigmoid(g[ig + u] + ur);
-      const float z = sigmoid(g[ig + H + u] + uz);
-      const float n = tanhf(g[ig + 2 * H + u] + r * un);
-      const float hp = h_prev ? h_prev[bb * H + u] : 0.f;
-      h_out[bb * H + u] = (1.f - z) * n + z * hp;
+    const float r = sigmoid(g[ig + u] + ur);
+    const float z = sigmoid(g[ig + H + u] + uz);
+    const float n = tanhf(g[ig + 2 * H + u] + r * un);
+    const float hp = h_prev ? h_prev[bb * H + u] : 0.f;
+    h_out[bb * H + u] = (1.f - z) * n + z * hp;
+  }
+}
+
+namespace gm = bs_gemm;
+constexpr int U_SLAB_A = gm::TILE * gm::ALD;      // floats
+constexpr int U_SLAB_B = gm::BK * gm::TILE;
+constexpr int U_SMEM = gm::STAGES * (U_SLAB_A + U_SLAB_B) * 4;
+
+// The backward's rebuild as one GEMM over all M = T*B rows: u = h_prev @
+// W_hh^T + b_hh, (M, H) x (H, 3H), on bs_gemm.cuh's register-blocked tile
+// (a block 128 x 128 outputs, h_prev's rows staged along the contraction
+// and W_hh^T's rows k-major, both by cp.async; 16-byte copies where VEC,
+// H a multiple of 4 and the operands 16-byte aligned, 4-byte ones else).
+template <bool VEC>
+__global__ void __launch_bounds__(gm::THREADS, gm::MIN_BLOCKS)
+gru_torch_u_gemm(const float* __restrict__ x,    // (M, H) h_prev
+                 const float* __restrict__ wt,   // (H, 3H) W_hh^T
+                 const float* __restrict__ bh,   // (3H,)
+                 float* __restrict__ u,          // (M, 3H)
+                 int M, int H) {
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);  // [STAGES][TILE][ALD]
+  float* Bs = As + gm::STAGES * U_SLAB_A;       // [STAGES][BK][TILE]
+  const int N = 3 * H;
+  const int n0 = blockIdx.x * gm::TILE, m0 = blockIdx.y * gm::TILE;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+
+  auto load = [&](int stage, int slab) {
+    const int k0 = slab * gm::BK;
+    float* as = As + stage * U_SLAB_A;
+    float* bs_ = Bs + stage * U_SLAB_B;
+    if (VEC) {
+#pragma unroll
+      for (int q = 0; q < gm::TILE * gm::BK / 4 / gm::THREADS; ++q) {
+        const int c = tid + q * gm::THREADS;
+        const int r = c / (gm::BK / 4), e = (c % (gm::BK / 4)) * 4;
+        const int m = m0 + r, kk = k0 + e;
+        const bool ok = m < M && kk < H;
+        gm::cp_async16(as + r * gm::ALD + e, ok ? x + (size_t)m * H + kk : x,
+                       ok);
+      }
+#pragma unroll
+      for (int q = 0; q < gm::BK * gm::TILE / 4 / gm::THREADS; ++q) {
+        const int c = tid + q * gm::THREADS;
+        const int r = c / (gm::TILE / 4), e = (c % (gm::TILE / 4)) * 4;
+        const int kk = k0 + r, n = n0 + e;
+        const bool ok = kk < H && n < N;
+        gm::cp_async16(bs_ + r * gm::TILE + e,
+                       ok ? wt + (size_t)kk * N + n : wt, ok);
+      }
     } else {
-      u_out[ig + u] = ur;
-      u_out[ig + H + u] = uz;
-      u_out[ig + 2 * H + u] = un;
+#pragma unroll
+      for (int q = 0; q < gm::TILE * gm::BK / gm::THREADS; ++q) {
+        const int c = tid + q * gm::THREADS;
+        const int r = c / gm::BK, e = c % gm::BK;
+        const int m = m0 + r, kk = k0 + e;
+        const bool ok = m < M && kk < H;
+        gm::cp_async4(as + r * gm::ALD + e, ok ? x + (size_t)m * H + kk : x,
+                      ok);
+      }
+#pragma unroll
+      for (int q = 0; q < gm::BK * gm::TILE / gm::THREADS; ++q) {
+        const int c = tid + q * gm::THREADS;
+        const int r = c / gm::TILE, e = c % gm::TILE;
+        const int kk = k0 + r, n = n0 + e;
+        const bool ok = kk < H && n < N;
+        gm::cp_async4(bs_ + c, ok ? wt + (size_t)kk * N + n : wt, ok);
+      }
+    }
+  };
+
+  float acc[8][8] = {};
+  const int slabs = (H + gm::BK - 1) / gm::BK;
+#pragma unroll
+  for (int st = 0; st < gm::STAGES - 1; ++st) {
+    if (st < slabs) load(st, st);
+    gm::cp_async_commit();
+  }
+  for (int it = 0; it < slabs; ++it) {
+    gm::cp_async_wait_slab();
+    __syncthreads();          // slab `it` landed; slab it-1 is computed
+    const int nxt = it + gm::STAGES - 1;
+    if (nxt < slabs) load(nxt % gm::STAGES, nxt);
+    gm::cp_async_commit();
+    const int st = it % gm::STAGES;
+    gm::slab_fma_mk(As + st * U_SLAB_A, Bs + st * U_SLAB_B, ty, tx, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + gm::tile_at(ty, i);
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * 64 + tx * 4;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (n + q < N)
+          u[(size_t)m * N + n + q] = acc[i][h * 4 + q] + bh[n + q];
     }
   }
 }
@@ -211,6 +317,104 @@ gru_torch_bwd_step(const float* __restrict__ g_t,     // (B, 3H)
   }
 }
 
+// The whole reverse chain in one cooperative launch (route "persist"):
+// block c owns units u0 = (c % ceil(H/UNITS)) * UNITS.. and the BT = 8 *
+// BI batch rows from b0 = (c / ceil(H/UNITS)) * BT. Its thread o = b *
+// UNITS + j keeps dh and z of unit u0 + j, row b0 + b, in registers across
+// the steps, and loads the next step's gates, u, dhs and h_prev before the
+// grid barrier (they do not depend on the chain), so that their latency
+// overlaps the barrier and the staging. xbuf (2, B, XS) is the exchange
+// buffer of du = [da_r | da_z | dm], XS = 3H rounded up to 8, by the
+// step's parity.
+template <int BI>
+__global__ void __launch_bounds__(persist::THREADS, 1)
+gru_torch_bwd_persist(const float* __restrict__ gates,   // (T, B, 3H)
+                      const float* __restrict__ u,       // (T, B, 3H)
+                      const float* __restrict__ W,       // (3H, H)
+                      const float* __restrict__ h_prev,  // (T, B, H)
+                      const float* __restrict__ dhs,     // (T, B, H)
+                      float* dg, float* dm, float* xbuf, int T, int B,
+                      int H) {
+  namespace P = persist;
+  constexpr int BT = P::BLANES * BI, U = P::UNITS;
+  extern __shared__ __align__(16) float psm[];
+  const int K = 3 * H, XS = (K + 7) / 8 * 8, SK = P::row_stride(K);
+  float* ws = psm;                                // (K, U) W's columns
+  float* xs = ws + (size_t)K * U;                 // (BT, SK) du_{t+1}
+  float* red = xs + (size_t)BT * SK;              // the dots' partials
+  const int ug = (H + U - 1) / U;
+  const int u0 = (blockIdx.x % ug) * U, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  for (int e = threadIdx.x; e < K * U; e += P::THREADS) {
+    const int k = e / U, j = e - k * U;
+    ws[e] = u0 + j < H ? W[(size_t)k * H + u0 + j] : 0.f;
+  }
+  const int o = threadIdx.x, ob = o / U, ou = u0 + o % U;
+  const bool mine = o < BT * U && ob < nb && ou < H;
+  const size_t bh1 = (size_t)B * H, bh3 = 3 * bh1, xstep = (size_t)B * XS;
+  const size_t ih = (size_t)(b0 + ob) * H + ou, ig = (size_t)(b0 + ob) * K;
+  // step t's inputs of this thread's (row, unit)
+  struct In {
+    float g[3], u[3], dh, hp;
+  };
+  auto fetch = [&](int t) {
+    In v{};
+    if (mine) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        v.g[q] = gates[t * bh3 + ig + q * H + ou];
+        v.u[q] = u[t * bh3 + ig + q * H + ou];
+      }
+      v.dh = dhs[t * bh1 + ih];
+      v.hp = h_prev[t * bh1 + ih];
+    }
+    return v;
+  };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float dh = 0.f, zn = 0.f;
+  In cur = fetch(T - 1);
+  __syncthreads();
+  for (int t = T - 1; t >= 0; --t) {
+    float dot = 0.f;
+    if (t + 1 < T) {
+      const float* src = xbuf + ((t + 1) & 1) * xstep + (size_t)b0 * XS;
+      P::stage_rows(nb, XS, [&](int row) { return src + (size_t)row * XS; },
+                    [&](int row) { return xs + (size_t)row * SK; });
+      P::cp_async_wait_all();
+      __syncthreads();
+      P::unit_dots<BI>(xs, SK, ws, K, red);
+      if (o < BT * U) dot = P::unit_sum<BI>(red, o);
+    }
+    if (mine) {
+      const float carry = t + 1 < T ? dh * zn + dot : 0.f;
+      const float dhv = carry + cur.dh;
+      const float r = sigmoid(cur.g[0] + cur.u[0]);
+      const float z = sigmoid(cur.g[1] + cur.u[1]);
+      const float un = cur.u[2];
+      const float nn = tanhf(cur.g[2] + r * un);
+      const float dz = dhv * (cur.hp - nn);
+      const float da_n = dhv * (1.f - z) * (1.f - nn * nn);
+      const float da_r = da_n * un * r * (1.f - r);
+      const float da_z = dz * z * (1.f - z), dmv = da_n * r;
+      float* d = dg + t * bh3;
+      d[ig + ou] = da_r;
+      d[ig + H + ou] = da_z;
+      d[ig + 2 * H + ou] = da_n;
+      dm[t * bh1 + ih] = dmv;
+      float* x = xbuf + (t & 1) * xstep + (size_t)(b0 + ob) * XS;
+      x[ou] = da_r;
+      x[H + ou] = da_z;
+      x[2 * H + ou] = dmv;
+      dh = dhv;
+      zn = z;
+    }
+    if (t > 0) {
+      cur = fetch(t - 1);
+      grid.sync();
+    }
+  }
+}
+
 cudaError_t allow_smem(const void* kern, size_t smem) {
   return cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -241,41 +445,62 @@ int fused_gru_torch_fwd(const float* gates, const float* W, const float* bh,
   for (int t = 0; t < T; ++t) {
     gru_torch_step<<<grid, THREADS, smem, stream>>>(
         gates + t * 3 * bh1, W, bh, t ? hs + (t - 1) * bh1 : h0, hs + t * bh1,
-        nullptr, B, H);
+        B, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-// The backward on `stream`: one kernel rebuilds u for all steps, then T
-// step kernels run in reverse time. Returns the first cudaError_t seen, 0
-// on success.
+// The backward on `stream`: one kernel rebuilds u for all steps
+// (gru_torch_u_gemm), then the reverse chain: with grid > 0 one
+// cooperative launch of grid blocks (route "persist", BT = 8 * bi batch
+// rows a block, smem bytes of dynamic shared memory:
+// fused_rnn.gru_torch_bwd_plan), else T step kernels in reverse time.
+// Returns the first cudaError_t seen, 0 on success.
 //   gates: (T, B, 3H);  W, Wt: (3H, H) and its transpose (H, 3H)
 //   bh: (3H,);  h_prev, dhs: (T, B, H)
-//   u: (T, B, 3H) scratch;  dh: (B, H) scratch
+//   u: (T, B, 3H) scratch;  dh: (B, H) scratch (the step route)
+//   xbuf: (2, B, 3H rounded up to 8) scratch (the persistent route)
 //   dg: (T, B, 3H) output [da_r | da_z | da_n];  dm: (T, B, H) output
 int fused_gru_torch_bwd(const float* gates, const float* W, const float* Wt,
                         const float* bh, const float* h_prev, const float* dhs,
-                        float* u, float* dh, float* dg, float* dm, int T,
-                        int B, int H, void* stream_ptr) {
+                        float* u, float* dh, float* xbuf, float* dg,
+                        float* dm, int T, int B, int H, int grid, int bi,
+                        int smem, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem_f = (size_t)BT * H * sizeof(float);
   const size_t smem_b = (size_t)BT * 3 * H * sizeof(float);
-  cudaError_t err = allow_smem((const void*)gru_torch_step, smem_f);
-  if (err == cudaSuccess)
-    err = allow_smem((const void*)gru_torch_bwd_step, smem_b);
+  const int M = T * B;
+  const bool vec = H % 4 == 0 && reinterpret_cast<size_t>(h_prev) % 16 == 0 &&
+                   reinterpret_cast<size_t>(Wt) % 16 == 0;
+  cudaError_t err = vec ? gm::allow_smem(gru_torch_u_gemm<true>, U_SMEM)
+                        : gm::allow_smem(gru_torch_u_gemm<false>, U_SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 fgrid((H + UNITS - 1) / UNITS, (B + BT - 1) / BT, T);
-  gru_torch_step<<<fgrid, THREADS, smem_f, stream>>>(gates, W, bh, h_prev,
-                                                     nullptr, u, B, H);
+  const dim3 ugrid((3 * H + gm::TILE - 1) / gm::TILE,
+                   (M + gm::TILE - 1) / gm::TILE);
+  if (vec)
+    gru_torch_u_gemm<true><<<ugrid, gm::THREADS, U_SMEM, stream>>>(
+        h_prev, Wt, bh, u, M, H);
+  else
+    gru_torch_u_gemm<false><<<ugrid, gm::THREADS, U_SMEM, stream>>>(
+        h_prev, Wt, bh, u, M, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((H + BWD_UNITS - 1) / BWD_UNITS, (B + BT - 1) / BT);
+  if (grid > 0) {
+    if (bi == 1)
+      return persist::launch<gru_torch_bwd_persist<1>>(
+          grid, smem, stream, gates, u, W, h_prev, dhs, dg, dm, xbuf, T, B,
+          H);
+    return persist::launch<gru_torch_bwd_persist<4>>(
+        grid, smem, stream, gates, u, W, h_prev, dhs, dg, dm, xbuf, T, B, H);
+  }
+  err = allow_smem((const void*)gru_torch_bwd_step, smem_b);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_s((H + BWD_UNITS - 1) / BWD_UNITS, (B + BT - 1) / BT);
   const size_t bh1 = (size_t)B * H, bh3 = 3 * bh1;
   for (int t = T - 1; t >= 0; --t) {
     const bool last = t + 1 == T;
-    gru_torch_bwd_step<<<grid, THREADS, smem_b, stream>>>(
+    gru_torch_bwd_step<<<grid_s, THREADS, smem_b, stream>>>(
         gates + t * bh3, u + t * bh3, last ? nullptr : gates + (t + 1) * bh3,
         last ? nullptr : u + (t + 1) * bh3, Wt, h_prev + t * bh1,
         dhs + t * bh1, last ? nullptr : dg + (t + 1) * bh3,
@@ -285,6 +510,14 @@ int fused_gru_torch_bwd(const float* gates, const float* W, const float* Wt,
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// out[0..2]: the persistent chain's co-resident blocks per SM at `smem`
+// bytes of dynamic shared memory (bi as above), the SM count, and whether
+// the device takes cooperative launches.
+int fused_gru_torch_bwd_occupancy(int bi, int smem, int* out) {
+  return bi == 1 ? persist::occupancy<gru_torch_bwd_persist<1>>(smem, out)
+                 : persist::occupancy<gru_torch_bwd_persist<4>>(smem, out);
 }
 
 }  // extern "C"

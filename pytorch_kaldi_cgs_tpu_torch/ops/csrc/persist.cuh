@@ -1,0 +1,220 @@
+// The persistent cooperative reverse chain shared by the GRU BPTT kernels
+// (fused_gru_torch.cu, fused_gru_sparse.cu): one launch runs every reverse
+// step, each block owning UN (8 or 16) hidden units and BT batch rows for
+// the whole call, the recurrent weights of its units resident in its
+// shared memory, a grid-wide barrier where a step needs the cotangents
+// that the other blocks wrote.
+//
+// The launch is cooperative (cudaLaunchCooperativeKernel), so the driver
+// refuses a grid that cannot be co-resident instead of letting the spin
+// barrier hang; the caller sizes the grid from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor (queried after the dynamic
+// shared-memory attribute is set) times the SM count, and picks the route
+// before the launch.
+//
+// Per dependent product a block stages the cotangents its units need,
+// (BT, K) rows read from L2 by cp.async.cg (16 bytes, L1 bypassed: the
+// other blocks wrote them in this launch, so the non-coherent path must
+// not see them), and forms its units' dots against its weights, kept as
+// ws[k][UN]: a warp takes a contiguous range of k, its lanes 8 batch lanes
+// x 4 k lanes, a lane BT/8 rows x UN units in registers; the 4 k
+// lanes are summed with shuffles and the 8 warps' partials in a fixed
+// order, so the sums are the same in every call and no float atomics are
+// used. A staged row is K rounded up to 8 plus 4 floats long, which puts
+// the 32 lanes' reads on 32 banks.
+//
+// The barrier is cooperative_groups' grid.sync(). Timed once on the H100
+// against a hand-written counter barrier (release/acquire fences around one
+// global atomic), it took 1.13-1.15 us a barrier over 69-132 blocks against
+// the counter's 1.26-1.37 us, so the counter was not kept.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace persist {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int UNITS = 8;          // hidden units a block owns (or 16)
+constexpr int KLANES = 4;         // lanes of a warp along the contraction
+constexpr int BLANES = 8;         // lanes of a warp along the batch rows
+
+// floats between two staged rows of K values: K rounded up to 8, plus 4
+__host__ __device__ constexpr int row_stride(int K) {
+  return (K + 7) / 8 * 8 + 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups of this thread's copies are in
+// flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// Copy `rows` rows of `len` floats (len % 4 == 0, both ends 16-byte
+// aligned) from global to shared memory, row r from src(r) to dst(r);
+// every thread of the block takes part. Followed by cp_async_wait_all and
+// a __syncthreads before the rows are read.
+template <typename Src, typename Dst>
+__device__ __forceinline__ void stage_rows(int rows, int len, Src src,
+                                           Dst dst) {
+  const int chunks = len / 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += WARPS) {
+    const float* s = src(r);
+    float* d = dst(r);
+    for (int c = lane; c < chunks; c += 32) cp_async16(d + 4 * c, s + 4 * c);
+  }
+}
+
+// floats between two units' weight rows k and k+1 of ws: UN, padded at 16
+// so that the 4 k lanes' 16-byte reads fall on distinct banks
+__host__ __device__ constexpr int w_stride(int UN) {
+  return UN == 16 ? 20 : UN;
+}
+
+// red[(w * BT + b) * UN + u] = warp w's share of sum_k xs[b][k] *
+// ws[k][u] for the BT = 8 * BI staged rows (row stride SK, at least
+// row_stride(K) and 4 more than a multiple of 8) and UN (8 or 16) units
+// (ws rows w_stride(UN) apart), k over warp w's range of [0, K), each
+// staged value rounded to bf16 first under RND; followed by a
+// __syncthreads, after which out(b, u) = unit_sum(red, b * UN + u).
+template <int BI, int UN = UNITS, bool RND = false>
+__device__ __forceinline__ void unit_dots(const float* xs, int SK,
+                                          const float* ws, int K,
+                                          float* red) {
+  constexpr int BT = BLANES * BI, WS = w_stride(UN), V = UN / 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kl = lane & (KLANES - 1), bl = lane / KLANES;
+  const int kb = K * warp / WARPS, ke = K * (warp + 1) / WARPS;
+  float acc[BI][UN];
+#pragma unroll
+  for (int i = 0; i < BI; ++i)
+#pragma unroll
+    for (int u = 0; u < UN; ++u) acc[i][u] = 0.f;
+#pragma unroll 4
+  for (int k = kb + kl; k < ke; k += KLANES) {
+    float4 w[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      w[v] = *reinterpret_cast<const float4*>(ws + k * WS + 4 * v);
+#pragma unroll
+    for (int i = 0; i < BI; ++i) {
+      float x = xs[(bl + BLANES * i) * SK + k];
+      if (RND) x = __bfloat162float(__float2bfloat16_rn(x));
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        acc[i][4 * v] = fmaf(x, w[v].x, acc[i][4 * v]);
+        acc[i][4 * v + 1] = fmaf(x, w[v].y, acc[i][4 * v + 1]);
+        acc[i][4 * v + 2] = fmaf(x, w[v].z, acc[i][4 * v + 2]);
+        acc[i][4 * v + 3] = fmaf(x, w[v].w, acc[i][4 * v + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BI; ++i)
+#pragma unroll
+    for (int u = 0; u < UN; ++u) {
+      acc[i][u] += __shfl_xor_sync(0xffffffffu, acc[i][u], 1);
+      acc[i][u] += __shfl_xor_sync(0xffffffffu, acc[i][u], 2);
+    }
+  if (kl == 0) {
+#pragma unroll
+    for (int i = 0; i < BI; ++i) {
+      float* r = red + ((size_t)warp * BT + bl + BLANES * i) * UN;
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        *reinterpret_cast<float4*>(r + 4 * v) =
+            make_float4(acc[i][4 * v], acc[i][4 * v + 1], acc[i][4 * v + 2],
+                        acc[i][4 * v + 3]);
+    }
+  }
+  __syncthreads();
+}
+
+// out(b, u) for the thread of output o = b * UN + u (o < BT * UN)
+template <int BI, int UN = UNITS>
+__device__ __forceinline__ float unit_sum(const float* red, int o) {
+  constexpr int BT = BLANES * BI;
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) s += red[w * BT * UN + o];
+  return s;
+}
+
+// Raise the kernel's dynamic shared-memory limit on the current device to
+// `smem` where it is lower (never lower it: another shape may need more).
+template <auto Kern>
+cudaError_t allow_once(int smem) {
+  static int allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && allowed[dev] >= smem)) return err;
+  err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess && dev < 64) allowed[dev] = smem;
+  return err;
+}
+
+// out[0..2]: the kernel's co-resident blocks per SM at `smem` bytes of
+// dynamic shared memory (asked after the limit is raised to it), the SM
+// count, and whether the device takes cooperative launches.
+template <auto Kern>
+cudaError_t occupancy(int smem, int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = allow_once<Kern>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, Kern, THREADS,
+                                                        smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(out + 2, cudaDevAttrCooperativeLaunch, dev);
+  return err;
+}
+
+template <typename T>
+struct ident {
+  using type = T;
+};
+
+// The arguments converted to the kernel's own parameter types, whose
+// addresses cudaLaunchCooperativeKernel reads.
+template <typename... P>
+cudaError_t coop_launch(void (*kern)(P...), int grid, int smem,
+                        cudaStream_t stream, typename ident<P>::type... args) {
+  void* ptrs[] = {static_cast<void*>(&args)...};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                     dim3(grid), dim3(THREADS), ptrs,
+                                     (size_t)smem, stream);
+}
+
+// A cooperative launch of Kern over `grid` blocks on `stream`; a grid that
+// cannot be co-resident is refused (the error is returned, nothing runs).
+template <auto Kern, typename... A>
+cudaError_t launch(int grid, int smem, cudaStream_t stream, A... args) {
+  const cudaError_t err = allow_once<Kern>(smem);
+  if (err != cudaSuccess) return err;
+  return coop_launch(Kern, grid, smem, stream, args...);
+}
+
+}  // namespace persist

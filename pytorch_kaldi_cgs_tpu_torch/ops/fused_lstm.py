@@ -652,7 +652,11 @@ _SMEM_MAX, _SPARSE_BWD_STATIC = 232448, 8 * 8 * 4 + 8 * 32 * 4 + 2 * 64 * 4
 #: largest kernel ("stash", "recompute"; the recompute one also runs the
 #: forward's). Each block stages 8 batch rows of q(h) (the forwards), of
 #: dg_{t+1} (the backwards) and, in the LSTM's and the liGRU's recompute
-#: backward, of q(h) too (csrc/*.cu).
+#: backward, of q(h) too (csrc/*.cu). The torch-semantics GRU's BPTT runs
+#: its persistent chain up to a width whose block fits and whose grid is
+#: co-resident (fused_rnn.gru_torch_bwd_route: 1,056 at B <= 8 on 132
+#: SMs) and its per-step kernel past it, so the limit here is the
+#: per-step kernel's: the kernel that runs at that width.
 _DENSE_SMEM = {
     "lstm": {"fwd": (32, 512), "stash": (128, 1280), "recompute": (160, 1280)},
     "ligru": {"fwd": (32, 512), "stash": (64, 768), "recompute": (96, 768)},

@@ -45,7 +45,8 @@ float32: as in the JAX package, the fused liGRU has no bf16 variant.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -978,6 +979,141 @@ fused_mgru_fwd_sparse.launches = 0
 _GRU_BWD_STATIC = 8 * 8 * 4 + 2 * 64 * 4
 
 
+# ---------------------------------------------------------------------------
+# the GRU BPTTs' persistent reverse chains (csrc/persist.cuh): the plan and
+# the route, picked before the launch
+# ---------------------------------------------------------------------------
+
+#: persist.cuh's block: the hidden units a block owns and its warps, and
+#: the sparse chain's static shared memory (its column's entry lists)
+PERSIST_UNITS, PERSIST_WARPS = 8, 8
+_PERSIST_SPARSE_STATIC = 2 * 64 * 4
+
+
+class PersistPlan(NamedTuple):
+    """A persistent chain's launch: ``bi`` (a block's batch rows / 8) and
+    ``units`` (its hidden units), ``grid`` blocks, ``smem`` bytes of
+    dynamic and ``static`` of static shared memory a block, and per block
+    its ``resident`` weight bytes and the cotangent bytes it ``staged``
+    per reverse step (the heaviest block's)."""
+    bi: int
+    units: int
+    grid: int
+    smem: int
+    static: int
+    resident: int
+    staged: int
+
+
+def _row_stride(K: int) -> int:
+    """persist.cuh's ``row_stride``: floats between two staged rows."""
+    return (K + 7) // 8 * 8 + 4
+
+
+def gru_torch_bwd_plan(B: int, H: int) -> PersistPlan:
+    """The torch-semantics GRU's persistent chain at batch B and width H:
+    a block owns 8 units (their 3H-long columns of W_hh resident) and 8 or
+    32 batch rows, stages du_{t+1} (3H floats a row) per step."""
+    bi = 1 if B <= 8 else 4
+    bt, K = 8 * bi, 3 * H
+    ws = 4 * K * PERSIST_UNITS
+    smem = ws + 4 * bt * _row_stride(K) + 4 * PERSIST_WARPS * bt * PERSIST_UNITS
+    grid = -(-H // PERSIST_UNITS) * -(-B // bt)
+    return PersistPlan(bi, PERSIST_UNITS, grid, smem, 0, ws,
+                       4 * min(bt, B) * K)
+
+
+def gru_bwd_sparse_plan(B: int, H: int, bs: int, C: int) -> PersistPlan:
+    """The sparse GRU's persistent chain at batch B, width H, block size
+    bs and at most C kept blocks in a block column: a block owns the units
+    of one block column and batch rows, 8 and 8 (B <= 8), 16 and 16 (bs a
+    multiple of 16) or 8 and 32, with 3bs floats a unit and an entry
+    resident (U_z's, U_r's and U_h's columns; rows of 16 units padded to
+    20 floats), and stages per step [dg_z | dg_r] (2bs floats an entry and
+    a row) and dg_h (bs). Of the 256 outputs a block forms, 16 units x 16
+    rows stage half the bytes of 8 x 32: the CTAs of one block column
+    stage the same cotangents from L2."""
+    un = 16 if B > 8 and bs % 16 == 0 else PERSIST_UNITS
+    bi = 1 if B <= 8 else (2 if un == 16 else 4)
+    bt = 8 * bi
+    ws_stride = 20 if un == 16 else un
+    smem = (4 * 3 * C * bs * ws_stride + 4 * bt * _row_stride(2 * C * bs)
+            + 4 * PERSIST_WARPS * bt * un)
+    grid = (H // un) * -(-B // bt)
+    return PersistPlan(bi, un, grid, smem, _PERSIST_SPARSE_STATIC,
+                       4 * 3 * C * bs * un, 4 * min(bt, B) * 3 * C * bs)
+
+
+def persist_route(plan: PersistPlan, blocks_per_sm: int, sms: int,
+                  coop: bool = True, smem_max: int = _SMEM_MAX) -> str:
+    """"persist" where the plan's block fits ``smem_max`` bytes of shared
+    memory and its grid is co-resident (``blocks_per_sm`` on each of
+    ``sms`` SMs, cooperative launches taken), else "step" (a launch per
+    reverse step)."""
+    fits = plan.smem + plan.static <= smem_max
+    return ("persist" if coop and fits and 0 < plan.grid
+            <= blocks_per_sm * sms else "step")
+
+
+@functools.lru_cache(maxsize=None)
+def _persist_occupancy(lib_name: str, entry: str, args: tuple, index: int):
+    """(blocks per SM, SMs, cooperative) of a chain's kernel on device
+    ``index``: its library's occupancy entry ``entry`` called with the
+    ints ``args`` (the last its dynamic shared memory)."""
+    from . import _build
+    lib = _build.load(lib_name)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(index):
+        rc = fn(*args, out)
+    _build.check(lib, rc, entry)
+    return out[0], out[1], bool(out[2])
+
+
+def _route(plan: PersistPlan, lib_name: str, entry: str, args: tuple,
+           dev: torch.device) -> str:
+    """The route on device ``dev``: "step" without asking where the block
+    does not fit, else from the occupancy query."""
+    if plan.smem + plan.static > _SMEM_MAX:
+        return "step"
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    return persist_route(plan, *_persist_occupancy(lib_name, entry,
+                                                   args + (plan.smem,),
+                                                   index))
+
+
+def gru_torch_bwd_route(B: int, H: int, dev) -> tuple:
+    """(route, plan) of :func:`fused_gru_torch_bwd` at batch B and width H
+    on the card ``dev``."""
+    plan = gru_torch_bwd_plan(B, H)
+    return _route(plan, "fused_gru_torch", "fused_gru_torch_bwd_occupancy",
+                  (plan.bi,), torch.device(dev)), plan
+
+
+def gru_bwd_sparse_route(B: int, layout, bf16: bool, dev) -> tuple:
+    """(route, plan) of :func:`fused_gru_bwd_sparse` at batch B over
+    ``layout`` on the card ``dev``."""
+    plan = gru_bwd_sparse_plan(B, layout.N, layout.bs, layout.C)
+    return _route(plan, "fused_gru_sparse", "gru_bwd_sparse_occupancy",
+                  (int(bf16), plan.bi), torch.device(dev)), plan
+
+
+def gru_bwd_sparse_launches(route: str, T: int, qbits: int,
+                            bf16: bool) -> int:
+    """Kernels one :func:`fused_gru_bwd_sparse` call launches from its
+    library on ``route``: "persist" the per-step scales (qbits > 0), q(h)
+    and q(s) (qbits > 0 or bf16), the z/r pass, a_pre and the chain (and
+    two :func:`block_sparse_v3_fwd` calls, counted there); "step" the two
+    rebuild kernels and two per reverse step."""
+    if route == "step":
+        return 2 * T + 2
+    rq = qbits > 0 or bf16
+    return 3 + int(qbits > 0) + 2 * int(rq)
+
+
 def _gru_bwd_sparse(wrapper, G, gates, w3g, drop, h_prev, dhs, layout, act,
                     qbits, bf16):
     """The body of :func:`fused_gru_bwd_sparse` (G=3) and
@@ -990,6 +1126,11 @@ def _gru_bwd_sparse(wrapper, G, gates, w3g, drop, h_prev, dhs, layout, act,
     if gates.device.type == "cpu":
         return fused_gru_bwd_sparse_plain(gates, w3g, drop, h_prev, dhs,
                                           layout, act, qbits, bf16)
+    if G == 3:
+        route, plan = gru_bwd_sparse_route(B, layout, bf16, gates.device)
+        if route == "persist":
+            return _gru_bwd_sparse_persist(plan, gates, w3g, drop, h_prev, dhs,
+                                           layout, act, qbits, bf16)
     smem = 4 * 8 * layout.C * (G - 1) * layout.bs
     if smem + _GRU_BWD_STATIC > _SMEM_MAX:
         raise ValueError("%s: %d blocks per column of %d need %d bytes of "
@@ -1025,6 +1166,54 @@ def _gru_bwd_sparse(wrapper, G, gates, w3g, drop, h_prev, dhs, layout, act,
     return dg, s_seq
 
 
+def _gru_bwd_sparse_persist(plan, gates, w3g, drop, h_prev, dhs, layout,
+                            act, qbits, bf16):
+    """The GRU BPTT on the persistent route (``plan``: its PersistPlan):
+    the forward quantities of all M = T*B rows as passes of
+    ``csrc/fused_gru_sparse.cu`` around two v3 GEMMs
+    (:func:`block_sparse_v3_fwd`: q(h_prev) against [U_z; U_r], q(s)
+    against U_h; under ``bf16`` the operands rounded to bf16 values, so
+    every product is the step kernels'), then the chain in one cooperative
+    launch. -> (dg, s)."""
+    from . import block_sparse as BS
+    T, B, H = h_prev.shape
+    M, bs, dev = T * B, layout.bs, gates.device
+    wk = _sparse_w(w3g, bf16)
+    wf = wk.to(torch.float32) if bf16 else wk      # the GEMMs' float32 values
+    w_zr, w_h = wf[:, bs:].contiguous(), wf[:, :bs].contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    fw = torch.empty((T, B, 3 * H), **f32)
+    s_seq = torch.empty((T, B, H), **f32)
+    dg = torch.empty((T, B, 3 * H), **f32)
+    qslots = torch.empty(2 * T if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    rq = qbits > 0 or bf16                   # q(v) differs from v
+    qh = torch.empty((T, B, H), **f32) if rq else h_prev
+    qs = torch.empty((T, B, H), **f32) if rq else s_seq
+    lib = "fused_gru_sparse"
+    if rq:
+        BS._launch(lib, "gru_bwd_sparse_rebuild_h", dev,
+                   (h_prev.data_ptr(), qh.data_ptr(), qslots.data_ptr()),
+                   (T, B, H, qbits, int(bf16)))
+    uzr = BS.block_sparse_v3_fwd(qh.reshape(M, H), w_zr, layout, 2)
+    BS._launch(lib, "gru_bwd_sparse_rebuild_zr", dev,
+               (gates.data_ptr(), uzr.data_ptr(), h_prev.data_ptr(),
+                fw.data_ptr(), s_seq.data_ptr(), qs.data_ptr(),
+                qslots.data_ptr()), (T, B, H, qbits, int(bf16)))
+    uh = BS.block_sparse_v3_fwd(qs.reshape(M, H), w_h, layout, 1)
+    BS._launch(lib, "gru_bwd_sparse_persist", dev,
+               (gates.data_ptr(), uh.data_ptr(), wk.data_ptr(),
+                layout.device_index("t_row_idx", dev).data_ptr(),
+                layout.device_index("t_perm", dev).data_ptr(),
+                drop.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(),
+                fw.data_ptr(), dg.data_ptr()),
+               (T, B, H, layout.R, bs, layout.C, layout.nnz, _ACT_CODE[act],
+                int(bf16), plan.grid, plan.bi, plan.smem))
+    fused_gru_bwd_sparse.launches += gru_bwd_sparse_launches(
+        "persist", T, qbits, bf16)
+    return dg, s_seq
+
+
 def fused_gru_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
                          drop: torch.Tensor, h_prev: torch.Tensor,
                          dhs: torch.Tensor, layout, act: str = "tanh",
@@ -1033,8 +1222,13 @@ def fused_gru_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     are the forward's inputs, ``h_prev`` (T, B, H) the carries entering
     each step, ``dhs`` (T, B, H) the upstream cotangents. -> (dg
     (T, B, 3H), s (T, B, H), the candidate's recurrent inputs r * h_prev).
-    CUDA tensors run the kernel (two launches for the forward quantities,
-    then two per reverse step), CPU tensors the twin."""
+    CUDA tensors run the kernels on the route :func:`gru_bwd_sparse_route`
+    picks before the launch: "persist" (the forward quantities of all
+    steps as elementwise passes around two v3 GEMMs, then the reverse
+    chain in one cooperative launch: :func:`gru_bwd_sparse_launches`) where
+    the chain's blocks fit and are co-resident, else "step" (two launches
+    for the forward quantities, then two per reverse step); CPU tensors
+    the twin."""
     return _gru_bwd_sparse(fused_gru_bwd_sparse, 3, gates, w3g, drop, h_prev,
                            dhs, layout, act, qbits, bf16)
 
@@ -1991,8 +2185,11 @@ def fused_gru_torch_bwd(gates: torch.Tensor, W_hh: torch.Tensor,
     ``gates`` are the forward's inputs, ``h_prev`` (T, B, H) the carries
     entering each step, ``dhs`` (T, B, H) the upstream cotangents. ->
     (dg (T, B, 3H) [da_r | da_z | da_n], dm (T, B, H) the cotangent of
-    u_n). CUDA tensors run the kernel (one launch rebuilds u for all
-    steps, then one runs per reverse step), CPU tensors the twin."""
+    u_n). CUDA tensors run the kernels on the route
+    :func:`gru_torch_bwd_route` picks before the launch: one launch
+    rebuilds u for all steps, then "persist" runs the reverse chain in one
+    cooperative launch where its blocks fit and are co-resident, "step"
+    one launch per reverse step; CPU tensors the twin."""
     T, B, H = _gru_torch_check(gates, W_hh, b_hh, (("h_prev", h_prev),
                                                     ("dhs", dhs)), "recompute")
     _check_shapes((("h_prev", h_prev, (T, B, H)), ("dhs", dhs, (T, B, H))))
@@ -2001,23 +2198,26 @@ def fused_gru_torch_bwd(gates: torch.Tensor, W_hh: torch.Tensor,
     from . import _build
     lib = _build.load("fused_gru_torch")
     fn = lib.fused_gru_torch_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     dev = gates.device
+    route, plan = gru_torch_bwd_route(B, H, dev)
+    persist = route == "persist"
     f32 = dict(dtype=torch.float32, device=dev)
-    Wt = W_hh.t().contiguous()               # (H, 3H): rows for du @ W_hh
+    Wt = W_hh.t().contiguous()      # (H, 3H): the rebuild's B, step rows
     u = torch.empty((T, B, 3 * H), **f32)
-    dh = torch.empty((B, H), **f32)
+    dh = None if persist else torch.empty((B, H), **f32)
+    xbuf = torch.empty((2, B, -(-3 * H // 8) * 8), **f32) if persist else None
     dg = torch.empty((T, B, 3 * H), **f32)
     dm = torch.empty((T, B, H), **f32)
     with torch.cuda.device(dev):
-        rc = fn(gates.data_ptr(), W_hh.data_ptr(), Wt.data_ptr(),
-                b_hh.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(),
-                u.data_ptr(), dh.data_ptr(), dg.data_ptr(), dm.data_ptr(), T,
-                B, H, _stream(dev))
+        rc = fn(gates.data_ptr(), W_hh.data_ptr(), _ptr(Wt), b_hh.data_ptr(),
+                h_prev.data_ptr(), dhs.data_ptr(), u.data_ptr(), _ptr(dh),
+                _ptr(xbuf), dg.data_ptr(), dm.data_ptr(), T, B, H,
+                plan.grid if persist else 0, plan.bi, plan.smem, _stream(dev))
     _build.check(lib, rc, "fused_gru_torch_bwd")
-    fused_gru_torch_bwd.launches += T + 1
+    fused_gru_torch_bwd.launches += 2 if persist else T + 1
     return dg, dm
 
 

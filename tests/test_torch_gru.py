@@ -660,20 +660,28 @@ def test_cuda_v3_kernels_match_twins(cuda_device, case):
 @pytest.mark.parametrize("qbits", [0, 16])
 @pytest.mark.parametrize("act", ["tanh", "relu"])
 def test_cuda_gru_kernels_match_twins(cuda_device, act, qbits, wbf16):
-    """The sparse GRU forward (2 launches per step) and BPTT (2 + 2 per
-    step) kernels against their twins on the card."""
+    """The sparse GRU forward (2 launches per step) and BPTT (the
+    persistent route at this shape: the rebuild's passes and one chain,
+    3-6 launches, and two v3 forward calls) kernels against their twins
+    on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     _, tl, *arrays = _gru_inputs(19)
     g, w3g, drop, dhs = (tt(a).to(cuda_device) for a in arrays)
+    assert tfr.gru_bwd_sparse_route(B, tl, wbf16, cuda_device)[0] == \
+        "persist"
     before = (tfr.fused_gru_fwd_sparse.launches,
-              tfr.fused_gru_bwd_sparse.launches)
+              tfr.fused_gru_bwd_sparse.launches,
+              tbs.block_sparse_v3_fwd.launches)
     hs = tfr.fused_gru_fwd_sparse(g, w3g, drop, tl, act, qbits, wbf16)
     h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
     dg, s = tfr.fused_gru_bwd_sparse(g, w3g, drop, h_prev, dhs, tl, act,
                                      qbits, wbf16)
+    rebuild = {(0, False): 3, (16, False): 6, (0, True): 5, (16, True): 6}
     assert (tfr.fused_gru_fwd_sparse.launches,
-            tfr.fused_gru_bwd_sparse.launches) == (before[0] + 2 * T,
-                                                   before[1] + 2 * T + 2)
+            tfr.fused_gru_bwd_sparse.launches,
+            tbs.block_sparse_v3_fwd.launches) == (
+                before[0] + 2 * T, before[1] + rebuild[qbits, wbf16],
+                before[2] + 2)
     ref_h = tfr.fused_gru_fwd_sparse_plain(g, w3g, drop, tl, act, qbits,
                                            wbf16)
     ref_dg, ref_s = tfr.fused_gru_bwd_sparse_plain(g, w3g, drop, h_prev, dhs,
@@ -683,6 +691,96 @@ def test_cuda_gru_kernels_match_twins(cuda_device, act, qbits, wbf16):
     for a, b in ((hs, ref_h), (s, ref_s), (dg, ref_dg)):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=atol)
+
+
+def _empty_column_layout():
+    """H=32 at bs=8, R=2 kept blocks per block row, block column 3 kept
+    by no row (and column 0 by three): the persistent chain's blocks of
+    that column form no dots."""
+    mask = np.zeros((H, H), np.float32)
+    for j, cols in enumerate(((0, 1), (1, 2), (0, 2), (0, 1))):
+        for c in cols:
+            mask[j * BS:(j + 1) * BS, c * BS:(c + 1) * BS] = 1.0
+    return mask, tbs.pack_layout(mask, BS)
+
+
+def _persist_inputs(seed, b, layout):
+    rng = np.random.RandomState(seed)
+    d = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    h, bs = layout.N, layout.bs
+    return (d(rng.randn(T, b, 3 * h) * 0.5),
+            d(rng.randn(layout.Nb, 3 * bs, layout.R * bs) * 0.35),
+            d(rng.rand(b, h) > 0.2), d(rng.randn(T, b, h)))
+
+
+def _bs16_layout():
+    """H=64 at bs=16 (Kb=4, R=2): blocks of 16 units x 16 rows."""
+    mask = hcgs_mask(64, 64, [16], [50], rng=np.random.RandomState(43))
+    return tbs.pack_layout(mask, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wbf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("qbits", [0, 16])
+@pytest.mark.parametrize("case", ["b13", "b40", "empty_column", "bs16_b20"])
+def test_cuda_gru_bwd_persist_matches_twin(cuda_device, case, qbits, wbf16):
+    """The persistent chain (route "persist") against the twin: B=13 (one
+    block of 8 units and 32 rows, 19 idle), B=40 (two batch tiles, the
+    second ragged), a layout with an empty block column (blocks of 8 units
+    and 8 rows), and bs=16 at B=20 (blocks of 16 units and 16 rows, the
+    second batch tile ragged); two calls bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = {"b13": 13, "b40": 40, "empty_column": 5, "bs16_b20": 20}[case]
+    tl = {"empty_column": lambda: _empty_column_layout()[1],
+          "bs16_b20": _bs16_layout}.get(case, lambda: _gru_inputs(29)[1])()
+    if case == "empty_column":
+        assert 0 in tbs.column_counts(tl)
+    route, plan = tfr.gru_bwd_sparse_route(b, tl, wbf16, cuda_device)
+    assert route == "persist" and (plan.bi, plan.units) == {
+        "b13": (4, 8), "b40": (4, 8), "empty_column": (1, 8),
+        "bs16_b20": (2, 16)}[case]
+    g, w3g, drop, dhs = _persist_inputs(37, b, tl)
+    with torch.no_grad():
+        hs = tfr.fused_gru_fwd_sparse(g, w3g, drop, tl, "tanh", qbits, wbf16)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        args = (g, w3g, drop, h_prev, dhs, tl, "tanh", qbits, wbf16)
+        dg, s = tfr.fused_gru_bwd_sparse(*args)
+        dg2, s2 = tfr.fused_gru_bwd_sparse(*args)
+        ref_dg, ref_s = tfr.fused_gru_bwd_sparse_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dg, dg2) and torch.equal(s, s2)
+    atol = 2e-2 if wbf16 else (ATOL_Q if qbits else ATOL)
+    for a, r in ((s, ref_s), (dg, ref_dg)):
+        np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(),
+                                   atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_bwd_step_route_matches_twin(cuda_device):
+    """A batch whose chain blocks cannot all be co-resident (4 unit groups
+    x 1,056 batch tiles) takes the per-step kernels: 2 + 2T launches, no
+    v3 call, against the twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, tl, *_ = _gru_inputs(31)
+    b, t = 32 * 1056, 2
+    assert tfr.gru_bwd_sparse_route(b, tl, False, cuda_device)[0] == "step"
+    g, w3g, drop, dhs = _persist_inputs(41, b, tl)
+    g, dhs = g[:t], dhs[:t]
+    with torch.no_grad():
+        hs = tfr.fused_gru_fwd_sparse_plain(g, w3g, drop, tl, "tanh", 16)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        args = (g, w3g, drop, h_prev, dhs, tl, "tanh", 16)
+        before = (tfr.fused_gru_bwd_sparse.launches,
+                  tbs.block_sparse_v3_fwd.launches)
+        dg, s = tfr.fused_gru_bwd_sparse(*args)
+        assert (tfr.fused_gru_bwd_sparse.launches,
+                tbs.block_sparse_v3_fwd.launches) == (before[0] + 2 * t + 2,
+                                                      before[1])
+        ref_dg, ref_s = tfr.fused_gru_bwd_sparse_plain(*args)
+    torch.cuda.synchronize()
+    for a, r in ((s, ref_s), (dg, ref_dg)):
+        np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(),
+                                   atol=ATOL_Q)
 
 
 @pytest.mark.cuda

@@ -370,11 +370,13 @@ def cuda_device():
                          ids=["small", "timit"])
 def test_cuda_kernels_match_plain_twins(cuda_device, shape):
     """The forward (zero and seeded; one launch per step) and the BPTT
-    kernel (T + 1 launches) against their twins on the card."""
+    (the persistent route at both shapes: the rebuild and one chain, 2
+    launches) against their twins on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t, b, h = shape
     g, W, bh, h0, dhs = (tt(a).to(cuda_device)
                          for a in _inputs(21, t=t, b=b, h=h))
+    assert tfr.gru_torch_bwd_route(b, h, cuda_device)[0] == "persist"
     with torch.no_grad():
         before = (tfr.fused_gru_torch_fwd.launches,
                   tfr.fused_gru_torch_bwd.launches)
@@ -384,7 +386,7 @@ def test_cuda_kernels_match_plain_twins(cuda_device, shape):
         dg, dm = tfr.fused_gru_torch_bwd(g, W, bh, h_prev, dhs)
         assert (tfr.fused_gru_torch_fwd.launches,
                 tfr.fused_gru_torch_bwd.launches) == (before[0] + 2 * t,
-                                                      before[1] + t + 1)
+                                                      before[1] + 2)
         refs = (tfr.fused_gru_torch_fwd_plain(g, W, bh),
                 tfr.fused_gru_torch_fwd_plain(g, W, bh, h0),
                 *tfr.fused_gru_torch_bwd_plain(g, W, bh, h_prev, dhs))
@@ -392,6 +394,57 @@ def test_cuda_kernels_match_plain_twins(cuda_device, shape):
     tol = ATOL if t == T else 1e-4
     _assert_rel([a.cpu() for a in (hs, hs0, dg, dm)],
                 [r.cpu() for r in refs], tol, ["hs", "hs0", "dg", "dm"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(T, B, H), (7, 13, 45), (40, 5, 550),
+                                   (30, 40, 61), (12, 5, 64)],
+                         ids=["small", "b13_h45", "h550_b5", "b40_h61",
+                              "h64_16byte_loads"])
+def test_cuda_bwd_persist_matches_twin(cuda_device, shape):
+    """The persistent chain (route "persist") and the rebuild's GEMM
+    against the twin at widths that are not multiples of the 8 units a
+    block owns and batches that are not multiples of 8 (one block of 8 or
+    32 rows, or two of 32, the second ragged), and at H=64, where the
+    GEMM takes its 16-byte loads; two calls bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, b, h = shape
+    route, plan = tfr.gru_torch_bwd_route(b, h, cuda_device)
+    assert route == "persist" and plan.bi == (1 if b <= 8 else 4)
+    g, W, bh, _, dhs = (tt(a).to(cuda_device)
+                        for a in _inputs(27, t=t, b=b, h=h))
+    with torch.no_grad():
+        hs = tfr.fused_gru_torch_fwd(g, W, bh)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        dg, dm = tfr.fused_gru_torch_bwd(g, W, bh, h_prev, dhs)
+        dg2, dm2 = tfr.fused_gru_torch_bwd(g, W, bh, h_prev, dhs)
+        refs = tfr.fused_gru_torch_bwd_plain(g, W, bh, h_prev, dhs)
+    torch.cuda.synchronize()
+    assert torch.equal(dg, dg2) and torch.equal(dm, dm2)
+    tol = ATOL if h < 100 else 1e-4
+    _assert_rel([dg.cpu(), dm.cpu()], [r.cpu() for r in refs], tol,
+                ["dg", "dm"])
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_step_route_matches_twin(cuda_device):
+    """At B=16 a 550-wide block (8 units, 32 rows) needs more shared
+    memory than a block has: the per-step kernels (T + 1 launches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, b, h = 20, 16, 550
+    assert tfr.gru_torch_bwd_route(b, h, cuda_device)[0] == "step"
+    g, W, bh, _, dhs = (tt(a).to(cuda_device)
+                        for a in _inputs(29, t=t, b=b, h=h))
+    with torch.no_grad():
+        hs = tfr.fused_gru_torch_fwd(g, W, bh)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        before = tfr.fused_gru_torch_bwd.launches
+        dg, dm = tfr.fused_gru_torch_bwd(g, W, bh, h_prev, dhs)
+        assert tfr.fused_gru_torch_bwd.launches == before + t + 1
+        refs = tfr.fused_gru_torch_bwd_plain(g, W, bh, h_prev, dhs)
+    torch.cuda.synchronize()
+    _assert_rel([dg.cpu(), dm.cpu()], [r.cpu() for r in refs], 1e-4,
+                ["dg", "dm"])
 
 
 @pytest.mark.cuda
