@@ -412,6 +412,7 @@ LIGRU_CFG = os.path.join(ROOT, "cfg", "TIMIT_baselines",
 LG_MID_TBH = (50, 8, 550)        # the width of the 4x550 TIMIT Li-GRU
 LG_SERVE_TBH = (398, 8, 1024)
 LG_TRAIN_TBH = (300, 8, 1024)    # the cfg's batch_size_train = 8
+LG_STEP_TBH = (20, 48, 1024)     # the BPTT's 192 blocks: the step route
 LG_FEAT = 40                     # fMLLR, cw_left = cw_right = 0
 # init(1)'s head leaves the Li-GRU's log-posteriors nearly constant over
 # time: the x3000 head makes each utterance decode to several phones.
@@ -455,6 +456,7 @@ GRU_CFG = os.path.join(ROOT, "cfg", "LibriSpeech_baselines",
 GR_SMALL_TBH = (13, 5, 256)      # 128-blocks: Kb=2, R=1; ragged B
 GR_SERVE_TBH = (398, 16, 1024)   # 8 utterances, both directions
 GR_TRAIN_TBH = (200, 32, 1024)   # start_seq_len_train; 16 x 2 directions
+GR_STEP_TBH = (20, 80, 1024)     # the forward's 320 blocks: the step route
 GR_FEAT = 40                     # fMLLR, --delta-order=0, cw 0
 GR_LAYERS = 5
 # init(1)'s head over the GRU's 2048 outputs spreads the logits by only
@@ -1500,13 +1502,17 @@ def kernel_classes(by_name):
                "ligru_sparse_fwd_kernel": ("ligru_sparse_step",),
                "ligru_sparse_bptt_kernel": ("ligru_sparse_bwd",),
                "gru_torch_fwd_kernel": ("gru_torch_step",),
-               # _step, _persist, and the rebuild's GEMM
-               "gru_torch_bptt_kernel": ("gru_torch_bwd", "gru_torch_u_gemm"),
+               # the rebuild GEMM of the torch-semantics GRU's and the
+               # liGRU's recompute BPTT (and an earlier tree's name of it)
+               "rec_u_gemm_kernel": ("rec_u_gemm", "gru_torch_u_gemm"),
+               # _step and _persist
+               "gru_torch_bptt_kernel": ("gru_torch_bwd",),
                "lstm_fwd_kernel": ("lstm_step", "sparse_fwd_step"),
                "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step"),
                "ligru_fwd_kernel": ("ligru_step",),
                "ligru_bptt_kernel": ("ligru_bwd",),
-               "gru_fwd_kernel": ("gru_zr_step", "gru_h_step"),
+               "gru_fwd_kernel": ("gru_zr_step", "gru_h_step",
+                                  "gru_fwd_persist"),
                # the step route's and the persistent route's (its rebuild's
                # elementwise passes; its GEMMs count under v3_kernel)
                "gru_bptt_kernel": ("gru_bwd_carry", "gru_bwd_ds",
@@ -1572,17 +1578,22 @@ def kernel_short_name(name):
     return m.group(0).split("::")[-1] if m else name[:40]
 
 
-def trace_events(fn, reps=1):
+def trace_events(fn, reps=1, mark=False):
     """The events of torch.profiler's trace of ``reps`` calls of ``fn``
-    (after one warm-up call), read from the trace file it writes."""
+    (after one warm-up call), read from the trace file it writes; with
+    ``mark``, call i inside a host range named ``call_<i>``."""
     from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("device_kernels"):
-            for _ in range(reps):
-                fn()
+            for i in range(reps):
+                if mark:
+                    with record_function("call_%d" % i):
+                        fn()
+                else:
+                    fn()
         torch.cuda.synchronize()
     path = os.path.join(ROOT, "build", "device_kernels_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -2061,7 +2072,10 @@ def phase_ligru_kernels(dev):
     """The liGRU forward (plain, stash and seeded) and both BPTT kernels
     against their twins on the same tensors: qbits 0/16 x relu/tanh, at
     the small ragged shape, H=550, the serving shape (forward only) and
-    the training shape."""
+    the training shape; the recompute BPTT also at the libri Li-GRU's
+    training shape (qbits 0) and on its step route (LG_STEP_TBH), each
+    on its route with its launches, two calls bit for bit and its device
+    kernels (ligru_bwd_check)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
 
@@ -2101,16 +2115,54 @@ def phase_ligru_kernels(dev):
                     R.fused_ligru_bwd_stash(acts, U, drop, h_prev, dhs, act),
                     R.fused_ligru_bwd_stash_plain(acts, U, drop, h_prev, dhs,
                                                   act)), tol, True)
-                check("fused_ligru_bwd", shape, variant, rel_err(
-                    R.fused_ligru_bwd(g, U, drop, h_prev, dhs, act, qbits),
-                    R.fused_ligru_bwd_plain(g, U, drop, h_prev, dhs, act,
-                                            qbits)), tol_q, True)
+                ligru_bwd_check(check, dev, shape, variant, g, U, drop,
+                                h_prev, dhs, act, qbits, tol_q)
+    # the recompute BPTT at the libri Li-GRU's shape (its chain stages in
+    # slabs) and at a batch whose chain blocks are not co-resident (the
+    # step route)
+    for shape, qbits, acts_ in ((LL_TRAIN_TBH, 0, ("relu", "tanh")),
+                                (LG_STEP_TBH, 16, ("relu",))):
+        T, B, H = shape
+        for k, act in enumerate(acts_):
+            inp = gated_inputs(T, B, H, 90 + k, dev, act)
+            g, U, drop, dhs = (inp[n] for n in ("g", "U", "drop", "dhs"))
+            with torch.no_grad():
+                hs = R.fused_ligru_fwd(g, U, drop, act=act, qbits=qbits)
+                h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                ligru_bwd_check(check, dev, shape, {"qbits": qbits,
+                                                    "act": act},
+                                g, U, drop, h_prev, dhs, act, qbits,
+                                TOL_Q16 if qbits else TOL_F32_SERVE)
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError("a liGRU kernel disagrees with its plain twin: "
                              "%s" % bad)
+    if not any(c.get("route") == "step" for c in checks) or not any(
+            c.get("route") == "persist" and c["B"] == LL_TRAIN_TBH[1]
+            for c in checks):
+        raise AssertionError("ligru_kernels: the recompute BPTT's routes "
+                             "were not both checked")
     return checks
+
+
+def ligru_bwd_check(check, dev, shape, variant, g, U, drop, h_prev, dhs,
+                    act, qbits, tol):
+    """fused_ligru_bwd against its twin on the route its plan picks: the
+    launches a call (the smoke's own table), two calls bit for bit, and
+    one call's device kernels held to the route's design by name."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = shape
+    route, n = ligru_bwd_launches(dev, T, B, H, qbits)
+    variant = dict(variant, route=route)
+    args = (g, U, drop, h_prev, dhs, act, qbits)
+    got = launched(R.fused_ligru_bwd, n, lambda: R.fused_ligru_bwd(*args))
+    check("fused_ligru_bwd", shape, variant,
+          rel_err(got, R.fused_ligru_bwd_plain(*args)), tol, True)
+    check("fused_ligru_bwd/determinism", shape, variant,
+          same_bits(lambda: R.fused_ligru_bwd(*args)), 0.0, False)
+    bptt_kernels(lambda: R.fused_ligru_bwd(*args),
+                 ligru_bwd_design(route, T, qbits))
 
 
 def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
@@ -2194,7 +2246,9 @@ def phase_ligru_train(dev):
     """The default backward (recompute) is compared with the CPU, held to
     GRAD_FLIP_K times the CPU's own one-ulp sensitivity; the same step
     without the 16-bit quantizers to TOL_GRAD_REL; the stash backward
-    runs under PKC_BWD_STASH_CELLS=ligru."""
+    runs under PKC_BWD_STASH_CELLS=ligru. The recompute BPTT's launches
+    a layer call are its route's (ligru_bwd_launches, the cfg's 16-bit
+    quantizer)."""
     T = LG_TRAIN_TBH[0]
     knob = "PKC_BWD_STASH_CELLS"
     inp, mask = ligru_train_setup()[2]
@@ -2203,9 +2257,13 @@ def phase_ligru_train(dev):
     print("[ligru_train] the CPU's own gradients under a one-ulp change of "
           "x: worst rel change %.3g at %s; card vs CPU bar %.3g"
           % (sens, where, grad_tol))
+    route, n_bwd = ligru_bwd_launches(dev, T, LG_TRAIN_TBH[1],
+                                      LG_TRAIN_TBH[2], 16)
+    print("[ligru_train] recompute BPTT: route %s, %d launches a layer call"
+          % (route, n_bwd))
     out = phase_train(dev, ligru_train_runner, "ligru_train", (
         ("recompute", knob, None,
-         expected(fused_ligru_fwd=2 * T, fused_ligru_bwd=2 * T)),
+         expected(fused_ligru_fwd=2 * T, fused_ligru_bwd=2 * n_bwd)),
         ("stash", knob, "ligru",
          expected(fused_ligru_fwd=2 * T, fused_ligru_bwd_stash=2 * T))),
         grad_tol=grad_tol, fall_runner=lambda d, cdt="":
@@ -2308,6 +2366,10 @@ def phase_ligru_times(dev, rec, audio, lens):
             times[name + "_plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
             times[name + "_bound_ms"], times[name + "_bound_by"] = \
                 ligru_bound_ms(T, B, H, kind)
+        times["fused_ligru_bwd_plan"] = chain_route(dev, "fused_ligru_bwd",
+                                                    B, H)[1]
+        times["fused_ligru_bwd_split"] = bptt_split(
+            calls["fused_ligru_bwd"][0], 3)
         # the forward without the stash, and both without the quantizer
         # (no per-step absmax): interleaved with a repeat of the stash one
         for q in (qb, 0):
@@ -2344,7 +2406,7 @@ def phase_ligru_times(dev, rec, audio, lens):
 
 def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
                    serve_tbh, act, qbits, library, fwd_extra,
-                   lib="cudnn_gru"):
+                   lib="cudnn_gru", bwd_extra=None):
     """The kernels JSON rows of a dense fused cell's three kernels,
     ``fused_<cell>_fwd`` (the stash variant), ``_bwd_stash`` and ``_bwd``
     from ``csrc/fused_<cell>.cu``, replacing the JAX functions defined at
@@ -2356,7 +2418,8 @@ def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
     ``library_ms`` is ``library`` (a cuDNN module), a yardstick, read
     from ``times`` under ``<lib>_fwd_ms``, ``<lib>_bwd_ms`` and
     ``<lib>_serve_fwd_ms``. ``fwd_extra`` maps more keys of the forward's
-    row to ``times``."""
+    row to ``times``; ``bwd_extra`` holds more keys of the recompute
+    backward's row."""
     T, B, H = train_tbh
     note = "%s %%s: a yardstick, not the same function" % library
     bwd_note = note % "backward (fwd+bwd minus fwd)"
@@ -2398,7 +2461,7 @@ def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
         row(bwd_stash, replaces[1], times[lib + "_bwd_ms"], bwd_note,
             err_at(bwd_stash)),
         row(bwd, replaces[2], times[lib + "_bwd_ms"], bwd_note,
-            err_at(bwd))]
+            err_at(bwd), **(bwd_extra or {}))]
 
 
 # ---------------------------------------------------------------------------
@@ -2482,7 +2545,9 @@ def phase_gru_kernels(dev):
     """The sparse GRU forward and BPTT kernels (qbits 0/16, w3g f32 and
     bf16, tanh as the cfg and relu at the small shape) at the small,
     serving and training shapes (the BPTT at the small and training
-    ones), the v3 forward and dx kernels (G=3 with the 8-bit quantizer
+    ones; the forward also at GR_STEP_TBH, its step route, qbits 16 f32;
+    each call on its route with its launches, two calls bit for bit and
+    its device kernels), the v3 forward and dx kernels (G=3 with the 8-bit quantizer
     and the submask; G=1; a K-padded layout; the plain variant) and the
     dw kernel at the path's G=1, 2, 3, against their twins; the forward
     and the dw at G=3 also on their scalar-load instantiation."""
@@ -2494,11 +2559,12 @@ def phase_gru_kernels(dev):
         record_check(checks, "gru_kernels", name, {"shape": list(shape)},
                      variant, err_rel, tol, by_rel)
 
-    for shape in (GR_SMALL_TBH, GR_SERVE_TBH, GR_TRAIN_TBH):
+    for shape in (GR_SMALL_TBH, GR_SERVE_TBH, GR_TRAIN_TBH, GR_STEP_TBH):
         T, B, H = shape
         small, serve = shape == GR_SMALL_TBH, shape == GR_SERVE_TBH
+        step = shape == GR_STEP_TBH
         cases = [(q, wb, "tanh") for q in (0, 16) for wb in (False, True)
-                 if not (serve and wb)]
+                 if not (step and (wb or not q))]
         if small:
             cases += [(16, False, "relu")]
         for k, (qbits, wbf16, act) in enumerate(cases):
@@ -2511,13 +2577,20 @@ def phase_gru_kernels(dev):
                 TOL_Q16 if qbits else (TOL_F32_SMALL if small
                                        else TOL_F32_SERVE))
             with torch.no_grad():
-                hs = R.fused_gru_fwd_sparse(g, w3g, drop, layout, act, qbits,
-                                            wbf16)
-                check("fused_gru_fwd_sparse", shape, variant, rel_err(
-                    hs, R.fused_gru_fwd_sparse_plain(g, w3g, drop, layout,
-                                                     act, qbits, wbf16)),
-                    tol, False)
-                if serve:
+                # the forward on its route: launches, bits, device kernels
+                fargs = (g, w3g, drop, layout, act, qbits, wbf16)
+                route, n = gru_fwd_sparse_launches(dev, T, B, layout, wbf16)
+                fvar = dict(variant, route=route)
+                hs = launched(R.fused_gru_fwd_sparse, n,
+                              lambda: R.fused_gru_fwd_sparse(*fargs))
+                check("fused_gru_fwd_sparse", shape, fvar, rel_err(
+                    hs, R.fused_gru_fwd_sparse_plain(*fargs)), tol, False)
+                check("fused_gru_fwd_sparse/determinism", shape, fvar,
+                      same_bits(lambda: R.fused_gru_fwd_sparse(*fargs)),
+                      0.0, False)
+                bptt_kernels(lambda: R.fused_gru_fwd_sparse(*fargs),
+                             gru_fwd_sparse_design(route, T))
+                if serve or step:
                     continue
                 h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
                 args = (g, w3g, drop, h_prev, dhs, layout, act, qbits, wbf16)
@@ -2633,37 +2706,71 @@ def phase_gru_kernels(dev):
     if bad:
         raise AssertionError("a GRU-slice kernel disagrees with its plain "
                              "twin: %s" % bad)
+    routes = {(tuple(c["shape"]), c["route"]) for c in checks
+              if c["kernel"] == "fused_gru_fwd_sparse"}
+    if not {(GR_TRAIN_TBH, "persist"), (GR_SERVE_TBH, "persist"),
+            (GR_STEP_TBH, "step")} <= routes:
+        raise AssertionError("gru_kernels: the forward's routes were %s"
+                             % sorted(routes))
     return checks
 
 
-def bptt_route(dev, B, H=None, layout=None, bf16=False):
-    """The route a GRU BPTT wrapper takes at batch B (the torch-semantics
-    GRU's at width H, the sparse GRU's over ``layout``) and its plan as a
-    dict: the grid, the blocks an SM it needs and the most that fit, the
-    shared memory, resident and staged bytes of a block. A package
-    without the persistent chains (an earlier tree's) runs "step"."""
+#: each wrapper with a persistent route: its route function in fused_rnn,
+#: and its library, occupancy entry and that entry's ints before the
+#: dynamic shared memory (from the plan and bf16)
+PERSIST_ROUTES = {
+    "fused_gru_torch_bwd": ("gru_torch_bwd_route", "fused_gru_torch",
+                            "fused_gru_torch_bwd_occupancy",
+                            lambda plan, bf16: (plan.bi,)),
+    "fused_gru_bwd_sparse": ("gru_bwd_sparse_route", "fused_gru_sparse",
+                             "gru_bwd_sparse_occupancy",
+                             lambda plan, bf16: (int(bf16), plan.bi)),
+    "fused_ligru_bwd": ("ligru_bwd_route", "fused_ligru",
+                        "fused_ligru_bwd_occupancy",
+                        lambda plan, bf16: (plan.bi, plan.units)),
+    "fused_gru_fwd_sparse": ("gru_fwd_sparse_route", "fused_gru_sparse",
+                             "gru_fwd_sparse_occupancy",
+                             lambda plan, bf16: (int(bf16), plan.bi,
+                                                 plan.units))}
+
+
+def chain_route(dev, kernel, B, H=None, layout=None, bf16=False):
+    """The route the wrapper ``kernel`` (a key of PERSIST_ROUTES) takes at
+    batch B (width H for the dense ones, over ``layout`` for the sparse
+    ones) and its plan as a dict: the grid, the blocks an SM it needs and
+    the most that fit, the shared memory, resident and staged bytes of a
+    block, the slabs a staged row is cut into. A package without that
+    wrapper's persistent route (an earlier tree's) runs "step"."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
-    if not hasattr(R, "gru_torch_bwd_route"):
+    fn, lib, entry, ints = PERSIST_ROUTES[kernel]
+    if not hasattr(R, fn):
         return "step", {}
-    if layout is None:
-        route, plan = R.gru_torch_bwd_route(B, H, dev)
-        occ = ("fused_gru_torch", "fused_gru_torch_bwd_occupancy",
-               (plan.bi, plan.smem))
-    else:
-        route, plan = R.gru_bwd_sparse_route(B, layout, bf16, dev)
-        occ = ("fused_gru_sparse", "gru_bwd_sparse_occupancy",
-               (int(bf16), plan.bi, plan.smem))
+    route, plan = (getattr(R, fn)(B, H, dev) if layout is None
+                   else getattr(R, fn)(B, layout, bf16, dev))
     info = {"route": route, "grid": plan.grid,
             "batch_rows_per_block": 8 * plan.bi,
             "units_per_block": plan.units,
             "smem_per_block": plan.smem + plan.static,
             "resident_bytes_per_block": plan.resident,
             "staged_bytes_per_block_per_step": plan.staged}
+    if getattr(plan, "slab", 0):
+        info.update(slab=plan.slab, slabs=plan.slabs)
     if plan.smem + plan.static <= R._SMEM_MAX:
-        fit, sms, _ = R._persist_occupancy(*occ, torch.device(dev).index or 0)
+        fit, sms, _ = R._persist_occupancy(lib, entry, ints(plan, bf16)
+                                           + (plan.smem,),
+                                           torch.device(dev).index or 0)
         info.update(blocks_per_sm=-(-plan.grid // sms),
                     blocks_per_sm_max=fit, sms=sms)
     return route, info
+
+
+def bptt_route(dev, B, H=None, layout=None, bf16=False):
+    """chain_route of a GRU BPTT: the torch-semantics GRU's at width H,
+    the sparse GRU's over ``layout``."""
+    if layout is None:
+        return chain_route(dev, "fused_gru_torch_bwd", B, H)
+    return chain_route(dev, "fused_gru_bwd_sparse", B, layout=layout,
+                       bf16=bf16)
 
 
 def gru_torch_bwd_launches(dev, T, B, H):
@@ -2689,13 +2796,40 @@ def gru_bwd_sparse_launches(dev, T, B, layout, qbits, bf16):
     return route, GRU_BWD_SPARSE_PERSIST_LAUNCHES[qbits > 0, bool(bf16)], 2
 
 
-#: the port's own kernels a GRU BPTT call may launch; bptt_kernels holds a
-#: call's trace to them (PyTorch's own copies are not held)
-GRU_BPTT_KERNELS = (
+#: fused_ligru_bwd's launches a call on the persistent route by qbits >
+#: 0, written from the design: the rebuild's GEMM and the chain, and the
+#: per-step scales and q(h_prev) with the quantizer ("step": T)
+LIGRU_BWD_PERSIST_LAUNCHES = {False: 2, True: 4}
+#: fused_gru_fwd_sparse's launches a call on the persistent route: the
+#: one cooperative launch ("step": two a step)
+GRU_FWD_SPARSE_PERSIST_LAUNCHES = 1
+
+
+def ligru_bwd_launches(dev, T, B, H, qbits):
+    """fused_ligru_bwd's route at (B, H) and its launches a call."""
+    route = chain_route(dev, "fused_ligru_bwd", B, H)[0]
+    return route, (LIGRU_BWD_PERSIST_LAUNCHES[qbits > 0]
+                   if route == "persist" else T)
+
+
+def gru_fwd_sparse_launches(dev, T, B, layout, bf16=False):
+    """fused_gru_fwd_sparse's route at B over ``layout`` and its
+    launches a call."""
+    route = chain_route(dev, "fused_gru_fwd_sparse", B, layout=layout,
+                        bf16=bf16)[0]
+    return route, (GRU_FWD_SPARSE_PERSIST_LAUNCHES if route == "persist"
+                   else 2 * T)
+
+
+#: the port's own kernels a call on a persistent or a step route may
+#: launch; bptt_kernels holds a call's trace to them (PyTorch's own
+#: copies are not held)
+ROUTE_KERNELS = (
     "absmax_steps", "quant_steps", "gru_zr_rebuild", "gru_apre_rebuild",
     "gru_bwd_persist", "v3_weight_t", "v3_fwd_gemm", "gru_zr_step",
-    "gru_h_step", "gru_bwd_carry", "gru_bwd_ds", "gru_torch_u_gemm",
-    "gru_torch_bwd_persist", "gru_torch_bwd_step", "gru_torch_step")
+    "gru_h_step", "gru_bwd_carry", "gru_bwd_ds", "rec_u_gemm",
+    "gru_torch_bwd_persist", "gru_torch_bwd_step", "gru_torch_step",
+    "ligru_bwd_persist", "ligru_bwd_step", "gru_fwd_persist")
 
 
 def bptt_design(route, T, qbits=None, bf16=False):
@@ -2705,7 +2839,7 @@ def bptt_design(route, T, qbits=None, bf16=False):
     rebuild's passes, two v3 forward calls of v3_weight_t + v3_fwd_gemm,
     the chain; step: the two rebuild kernels, two a reverse step)."""
     if qbits is None:
-        return {"gru_torch_u_gemm": 1,
+        return {"rec_u_gemm": 1,
                 **({"gru_torch_bwd_persist": 1} if route == "persist"
                    else {"gru_torch_bwd_step": T})}
     want = {"absmax_steps": 1} if qbits > 0 else {}
@@ -2718,55 +2852,121 @@ def bptt_design(route, T, qbits=None, bf16=False):
                 gru_bwd_persist=1, v3_weight_t=2, v3_fwd_gemm=2)
 
 
+def ligru_bwd_design(route, T, qbits):
+    """fused_ligru_bwd's device kernels a call by name: with the quantizer
+    the per-step scales (and on the persistent route q(h_prev)); then the
+    rebuild's GEMM and the chain, or T step kernels."""
+    want = {"absmax_steps": 1} if qbits > 0 else {}
+    if route == "step":
+        return dict(want, ligru_bwd_step=T)
+    if qbits > 0:
+        want["quant_steps"] = 1
+    return dict(want, rec_u_gemm=1, ligru_bwd_persist=1)
+
+
+def gru_fwd_sparse_design(route, T):
+    """fused_gru_fwd_sparse's device kernels a call by name."""
+    return ({"gru_fwd_persist": 1} if route == "persist"
+            else {"gru_zr_step": T, "gru_h_step": T})
+
+
+def last_call_kernels(fn):
+    """The device kernels of the second of two profiled calls of ``fn``
+    by short name, its launch calls and, of those, its cooperative ones:
+    the kernel records whose correlation id is one of the launch calls
+    made inside that call's host range. The first call takes the records
+    the profiler may drop at the start of its window (late in the full
+    run a trace lacked a call's first three kernels, every time). ->
+    (kernels, launch calls, cooperative launch calls), or None where the
+    trace holds no such range."""
+    events = trace_events(fn, reps=2, mark=True)
+    marks = [e for e in events if e.get("name") == "call_1"
+             and e.get("cat") == "user_annotation" and "dur" in e]
+    if not marks:
+        return None
+    t0 = float(marks[0]["ts"])
+    t1 = t0 + float(marks[0]["dur"])
+    launches, coop = set(), 0
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("cat") == "cuda_runtime" and name.startswith(
+                ("cudaLaunchKernel", "cuLaunchKernel",
+                 "cudaLaunchCooperativeKernel")) \
+                and t0 <= float(e.get("ts", -1)) <= t1:
+            launches.add(e.get("args", {}).get("correlation", id(e)))
+            coop += name.startswith("cudaLaunchCooperativeKernel")
+    got = {}
+    for e in events:
+        if e.get("cat") == "kernel" and \
+                e.get("args", {}).get("correlation") in launches:
+            k = kernel_short_name(str(e.get("name", "")))
+            got[k] = got.get(k, 0) + 1
+    return got, len(launches), coop
+
+
 def bptt_kernels(fn, want, tries=3):
-    """Hold one call of the BPTT ``fn`` to ``want`` (bptt_design): the
-    kernel records of its torch.profiler trace among GRU_BPTT_KERNELS
-    must be exactly those, so the route that ran is the one named. A
-    trace that differs is taken again, up to ``tries`` traces (the
-    profiler can drop a record, device_kernels); it raises when every
-    trace that held kernel records differed. Where none held any, there
-    must be at least as many launch calls as ``want`` names (PyTorch's
-    own copies launch too). -> the port's kernels of the trace that
-    agreed (or {"cuda_launch_calls": n})."""
-    seen, calls = [], 0
+    """Hold one call of the BPTT (or routed forward) ``fn`` to ``want``
+    (bptt_design, ligru_bwd_design, gru_fwd_sparse_design): the kernel
+    records of the call (last_call_kernels) among ROUTE_KERNELS must be
+    exactly those, so the route that ran is the one named. A trace that
+    differs is taken again, up to ``tries`` traces (the profiler can
+    drop a record, device_kernels); it raises when every trace that held
+    kernel records differed. Where none held any, the call's launch
+    calls must number at least the kernels ``want`` names (PyTorch's own
+    copies launch too), and its cooperative ones exactly its chains (the
+    ``*_persist`` kernels: one on a persistent route, none on a step
+    route). -> the port's kernels of the trace that agreed (or
+    {"cuda_launch_calls": n, "cooperative": c})."""
+    seen, calls, coop = [], 0, 0
+    chains = sum(v for k, v in want.items() if k.endswith("_persist"))
     for _ in range(tries):
-        got, calls = {}, 0
-        for e in trace_events(fn):
-            name = str(e.get("name", ""))
-            if e.get("cat") == "kernel":
-                k = kernel_short_name(name)
-                got[k] = got.get(k, 0) + 1
-            elif e.get("cat") == "cuda_runtime" and name.startswith(
-                    ("cudaLaunchKernel", "cuLaunchKernel",
-                     "cudaLaunchCooperativeKernel")):
-                calls += 1
-        port = {k: v for k, v in got.items() if k in GRU_BPTT_KERNELS}
+        got, calls, coop = last_call_kernels(fn) or ({}, 0, 0)
+        port = {k: v for k, v in got.items() if k in ROUTE_KERNELS}
         if port == want:
             print("[bptt_kernels] %s" % json.dumps(port))
             return port
         if got:
             seen.append(got)
-    if not seen and calls >= sum(want.values()):
-        return {"cuda_launch_calls": calls}
-    raise AssertionError("a GRU BPTT call launched %s (%d launch calls); "
-                         "the design is %s" % (seen, calls, want))
+    if not seen and calls >= sum(want.values()) and coop == chains:
+        out = {"cuda_launch_calls": calls, "cooperative": coop}
+        print("[bptt_kernels] no kernel records in %d traces: %s (the "
+              "design %s)" % (tries, json.dumps(out), json.dumps(want)))
+        return out
+    raise AssertionError("a routed call launched %s (%d launch calls, %d "
+                         "cooperative); the design is %s"
+                         % (seen, calls, coop, want))
+
+
+def libri_gru_fwd_launches(dev, T, B, layouts=None):
+    """fused_gru_fwd_sparse's launches over the libri GRU's 5 layer calls
+    at batch B (gru_fwd_sparse_launches: 1 a call on the persistent
+    route, 2T on the step route), over ``layouts`` (the model's
+    recurrent ones) or, where they are not at hand, over the cfg's
+    layout at the timed seed (every layer's layout has the same R, bs and
+    width, which alone pick the route). -> [(route, launches)] a layer."""
+    layouts = layouts or [gru_layout(1024, 1024, 150)[1]] * GR_LAYERS
+    return [gru_fwd_sparse_launches(dev, T, B, lay) for lay in layouts]
 
 
 def gru_expect_serve(T):
-    """Launches per recognize: 5 layers x 2 per frame (sparse GRU), one
-    v3 forward for each of layers 1-4."""
-    return expected(fused_gru_fwd_sparse=GR_LAYERS * 2 * T,
+    """Launches per recognize: 5 layers of the sparse GRU forward at 16
+    rows (each its route's, libri_gru_fwd_launches), one v3 forward for
+    each of layers 1-4."""
+    fwd = libri_gru_fwd_launches("cuda", T, GR_SERVE_TBH[1])
+    return expected(fused_gru_fwd_sparse=sum(n for _, n in fwd),
                     block_sparse_v3_fwd=GR_LAYERS - 1)
 
 
-def gru_expect_train(T, bwd=None):
-    """Launches per train step: the serving ones, the BPTT (``bwd``: one
-    (route, launches, v3 calls) a layer, gru_bwd_sparse_launches; the
-    persistent route's rebuild makes two v3 forward calls), layers 1-4's
-    dx, and the dw kernel for layers 1-4's v3 dw (G=3) and two dU
-    products per layer (G=1 and G=2)."""
+def gru_expect_train(T, bwd=None, fwd=None):
+    """Launches per train step: the forward (``fwd``: one (route,
+    launches) a layer, libri_gru_fwd_launches), the layers' v3 forward,
+    the BPTT (``bwd``: one (route, launches, v3 calls) a layer,
+    gru_bwd_sparse_launches; the persistent route's rebuild makes two v3
+    forward calls), layers 1-4's dx, and the dw kernel for layers 1-4's
+    v3 dw (G=3) and two dU products per layer (G=1 and G=2)."""
     bwd = bwd or [("step", 2 * T + 2, 0)] * GR_LAYERS
-    return expected(fused_gru_fwd_sparse=GR_LAYERS * 2 * T,
+    fwd = fwd or [("step", 2 * T)] * GR_LAYERS
+    return expected(fused_gru_fwd_sparse=sum(n for _, n in fwd),
                     fused_gru_bwd_sparse=sum(n for _, n, _ in bwd),
                     block_sparse_v3_fwd=GR_LAYERS - 1 + sum(
                         v for _, _, v in bwd),
@@ -2857,12 +3057,13 @@ def phase_gru_train(dev):
         print("[gru_train] the CPU's own gradients under a one-ulp change "
               "of x: worst rel change %.3g at %s" % (sens, where))
         return max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
-    bwd = libri_gru_bwd(dev)
+    fwd, bwd = libri_gru_routes(dev)
     with dw_groups() as by_g:
         out = phase_train(dev, gru_train_runner, "gru_train", (
-            ("recompute", knob, None, gru_expect_train(T, bwd)),),
+            ("recompute", knob, None, gru_expect_train(T, bwd, fwd)),),
             grad_tol=bar)
         out["block_sparse_dw_by_G"] = dict(by_g)
+    out["forward_routes"] = [r for r, _ in fwd]
     out["bptt_routes"] = [r for r, _, _ in bwd]
     print("[gru_train] dw kernel launches by G over the checked steps: %s"
           % out["block_sparse_dw_by_G"])
@@ -2881,19 +3082,25 @@ def phase_gru_train(dev):
     return out
 
 
-def libri_gru_bwd(dev):
-    """Each libri GRU layer's BPTT at the train step (32 rows, the 16-bit
-    quantizer, float32 w3g): gru_bwd_sparse_launches over the runner's
-    recurrent layouts, the routes printed with their plans."""
+def libri_gru_routes(dev):
+    """Each libri GRU layer's forward and BPTT at the train step (32
+    rows, the 16-bit quantizer, float32 w3g) over the runner's recurrent
+    layouts: libri_gru_fwd_launches and gru_bwd_sparse_launches, the
+    routes printed with the plans of layer 0. -> (forward, BPTT) lists."""
     T, B, _ = GR_TRAIN_TBH
     runner, _ = gru_train_runner(dev)
-    layouts = runner.graph.nets["GRU_layers"]._rec_layouts
-    out = [gru_bwd_sparse_launches(dev, T, B, layouts[i], 16, False)
-           for i in range(GR_LAYERS)]
+    layouts = [runner.graph.nets["GRU_layers"]._rec_layouts[i]
+               for i in range(GR_LAYERS)]
+    fwd = libri_gru_fwd_launches(dev, T, B, layouts)
+    bwd = [gru_bwd_sparse_launches(dev, T, B, lay, 16, False)
+           for lay in layouts]
+    print("[gru_train] forward per layer (route, launches): %s; plan of "
+          "layer 0: %s" % (fwd, json.dumps(chain_route(
+              dev, "fused_gru_fwd_sparse", B, layout=layouts[0])[1])))
     print("[gru_train] BPTT per layer (route, launches, v3 calls): %s; plan "
-          "of layer 0: %s" % (out, json.dumps(bptt_route(
+          "of layer 0: %s" % (bwd, json.dumps(bptt_route(
               dev, B, layout=layouts[0])[1])))
-    return out
+    return fwd, bwd
 
 
 def gru_bound_ms(T, B, H, kept, kind):
@@ -2967,6 +3174,8 @@ def phase_gru_times(dev, rec, audio, lens):
             reps=10)
         times["fused_gru_bwd_sparse_plan"] = bptt_route(dev, B,
                                                         layout=layout)[1]
+        times["fused_gru_fwd_sparse_plan"] = chain_route(
+            dev, "fused_gru_fwd_sparse", B, layout=layout)[1]
         times["fused_gru_bwd_sparse_split"] = bptt_split(
             calls["fused_gru_bwd_sparse"][0], 3)
         Ts, Bs, _ = GR_SERVE_TBH
@@ -2980,6 +3189,8 @@ def phase_gru_times(dev, rec, audio, lens):
             reps=2, warmup=1)
         times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
             gru_bound_ms(Ts, Bs, H, kept, "fwd")
+        times["serve_fwd_plan"] = chain_route(
+            dev, "fused_gru_fwd_sparse", Bs, layout=sv["layout"])[1]
     times.update(cudnn_times(dev, T, B, H, Ts, Bs))
     print("[gru_times] kernels at T=%d B=%d H=%d (Kb=%d, R=%d; tanh, qbits "
           "16): %s" % (T, B, H, layout.Kb, layout.R, json.dumps(times)))
@@ -3035,12 +3246,14 @@ def gru_rows(checks, times, launches):
             "(dense, no quantizer)",
             err_at("fused_gru_fwd_sparse", shape=train, qbits=16, w3g="f32"),
             rec, ms_q0=times["fused_gru_fwd_sparse_ms_q0"],
+            plan=times["fused_gru_fwd_sparse_plan"],
             serve={"T": GR_SERVE_TBH[0], "B": GR_SERVE_TBH[1], "H": H,
                    "ms": times["serve_fwd_ms"],
                    "plain_ms": times["serve_fwd_plain_ms"],
                    "bound_ms": times["serve_fwd_bound_ms"],
                    "bound_by": times["serve_fwd_bound_by"],
-                   "library_ms": times["cudnn_gru_serve_fwd_ms"]}),
+                   "library_ms": times["cudnn_gru_serve_fwd_ms"],
+                   "plan": times["serve_fwd_plan"]}),
         row("fused_gru_bwd_sparse", "fused_gru_sparse", fr % 1495,
             times["cudnn_gru_bwd_ms"],
             "cuDNN nn.GRU(1024, 1024) backward (fwd+bwd minus fwd)",
@@ -3231,8 +3444,9 @@ def phase_gru_large_batch(dev):
     CGS-16x LSTM's over 160 and the CGS-16x Li-GRU's over CL_LARGE_ROWS.
     Each runs its sparse forward kernel alone, with float32 w3g (the
     scans read it in bf16 only where the rule says "bf16"), matching the
-    model run on the sparse twin; the sparse BPTT kernels take those
-    batches too (T=16, against their twins)."""
+    model run on the sparse twin (the GRU's on its route there,
+    gru_fwd_sparse_launches); the sparse BPTT kernels take those batches
+    too (T=16, against their twins)."""
     from pytorch_kaldi_cgs_tpu_torch.models import GRU, LSTM, liGRU
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
@@ -3261,6 +3475,9 @@ def phase_gru_large_batch(dev):
             y, launches = counted(lambda: net(x[:, :B]))
             with swapped(mod, kernel, getattr(mod, kernel + "_plain")):
                 y_plain = net(x[:, :B])
+        if tag == "gru":            # the forward's route at that batch
+            route, n = gru_fwd_sparse_launches(dev, T, B, layout)
+            out["gru_forward_route"] = route
         if launches != expected(**{kernel: n}):
             raise AssertionError("gru_large_batch %s: launches %s" % (tag,
                                                                     launches))
@@ -6097,10 +6314,12 @@ def kernels_by_name(fn, reps=5):
     return out
 
 
-#: a GRU BPTT's chain kernels, both routes; every other kernel of a call is
-#: its rebuild (the forward quantities that do not depend on dh)
+#: a BPTT's chain kernels (the GRUs' and the liGRU's recompute one), both
+#: routes; every other kernel of a call is its rebuild (the forward
+#: quantities that do not depend on dh)
 CHAIN_KERNELS = ("gru_torch_bwd_step", "gru_torch_bwd_persist",
-                 "gru_bwd_carry", "gru_bwd_ds", "gru_bwd_persist")
+                 "gru_bwd_carry", "gru_bwd_ds", "gru_bwd_persist",
+                 "ligru_bwd_step", "ligru_bwd_persist")
 
 
 def bptt_split(fn, reps=5):
@@ -6140,15 +6359,42 @@ def port_gru_layer_times(dev, T, B, H, reps=10):
             "port_layer_bwd_ms": fb_ms - fwd_ms}
 
 
+def forced_plan_ms(kernel, call_plan, reps):
+    """ms per call of ``kernel``'s persistent route at each block of 256
+    outputs its plan weighs, 8 units x 32 rows and 16 x 16 (where it
+    fits): ``call_plan(shape)`` returns the plan forced to (bi, units),
+    ``call_plan(shape, run=True)`` runs one call on it; {} for a package
+    without the route. The plan the route picks is timed by the caller."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    plan_fn = {"fused_ligru_bwd": "ligru_bwd_plan",
+               "fused_gru_fwd_sparse": "gru_fwd_sparse_plan"}[kernel]
+    if not hasattr(R, plan_fn):
+        return {}
+    out = {}
+    for shape_ in ((4, 8), (2, 16)):
+        plan = call_plan(shape_)
+        if plan.smem + plan.static > R._SMEM_MAX:
+            continue
+        out["%dx%d" % (plan.units, 8 * plan.bi)] = {
+            "ms": cuda_ms(lambda: call_plan(shape_, run=True), reps),
+            "slabs": plan.slabs, "smem": plan.smem,
+            "staged_bytes_per_block_per_step": plan.staged}
+    return out
+
+
 def phase_rnn_turn_times(dev):
-    """Rows 23 and 33 at their timed shapes (gru_torch_times' and
-    gru_times' inputs): ms per call (CUDA events), the route and its plan,
-    the device time split into rebuild and chain by kernel
-    (torch.profiler); nn.GRU(550)'s forward, backward (fwd+bwd minus fwd)
-    and the port's whole GRU_cudnn layer backward the same way beside row
-    23; rows 22, 32, 35, 13 (libri G=3, 8-bit, submask) and 15 (the libri
-    v3 dw) as the rows that must not move. Public wrappers
-    only, so an earlier tree's package runs it too."""
+    """The redesigned rows at their timed shapes (gru_torch_times',
+    gru_times', ligru_times' and libri_ligru_times' inputs): ms per call
+    (CUDA events), the route and its plan, a BPTT's device time split into
+    rebuild and chain by kernel (torch.profiler); row 18 at the TIMIT
+    (qbits 16) and libri (qbits 0) shapes and row 32 at the libri train
+    and serve shapes (qbits 16), each also at the block shapes its plan
+    could take (forced_plan_ms); nn.GRU(550)'s forward, backward
+    (fwd+bwd minus fwd) and the port's whole GRU_cudnn layer backward the
+    same way beside row 23; rows 16, 17, 22, 23, 33, 34, 35, 13 (libri
+    G=3, 8-bit, submask) and 15 (the libri v3 dw) as the rows that must
+    not move. Public wrappers only (and the forced plans where the
+    package has them), so an earlier tree's package runs it too."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     t = {}
@@ -6164,6 +6410,33 @@ def phase_rnn_turn_times(dev):
                       "split": bptt_split(call)}
         t["row22_ms"] = cuda_ms(lambda: R.fused_gru_torch_fwd(g, W, b), 20)
         del gi, g, W, b, dhs, hs, h_prev
+        # row 18 at both shapes; rows 16 and 17 at the TIMIT one
+        for tag, (T, B, H), qb, seed in (("timit", LG_TRAIN_TBH, 16, 240),
+                                         ("libri", LL_TRAIN_TBH, 0, 230)):
+            li = gated_inputs(T, B, H, seed, dev, "relu")
+            g, U, drop, dhs = (li[n] for n in ("g", "U", "drop", "dhs"))
+            hs, acts = R.fused_ligru_fwd(g, U, drop, act="relu", qbits=qb,
+                                         stash=True)
+            h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+            call = lambda: R.fused_ligru_bwd(g, U, drop, h_prev, dhs, "relu",
+                                             qb)
+
+            def call_plan(shape_, run=False):
+                plan = R.ligru_bwd_plan(B, H, shape_)
+                return (R._ligru_bwd_persist(plan, g, U, drop, h_prev, dhs,
+                                             "relu", qb) if run else plan)
+            t["row18_" + tag] = {
+                "ms": cuda_ms(call, 10), "qbits": qb,
+                "plan": chain_route(dev, "fused_ligru_bwd", B, H)[1],
+                "split": bptt_split(call, 3),
+                "by_block_shape": forced_plan_ms("fused_ligru_bwd",
+                                                 call_plan, 10)}
+            if tag == "timit":
+                t["row16_ms"] = cuda_ms(lambda: R.fused_ligru_fwd(
+                    g, U, drop, act="relu", qbits=qb, stash=True), 10)
+                t["row17_ms"] = cuda_ms(lambda: R.fused_ligru_bwd_stash(
+                    acts, U, drop, h_prev, dhs, "relu"), 10)
+            del li, g, U, drop, dhs, hs, acts, h_prev
         T, B, H = GR_TRAIN_TBH
         si = gru_inputs(T, B, H, 150, dev)
         g, w3g, drop, dhs, lay = (si[n] for n in ("g", "w3g", "drop", "dhs",
@@ -6175,14 +6448,38 @@ def phase_rnn_turn_times(dev):
         t["row33"] = {"ms": cuda_ms(call, 10),
                       "plan": bptt_route(dev, B, layout=lay)[1],
                       "split": bptt_split(call, 3)}
-        t["row32_ms"] = cuda_ms(
-            lambda: R.fused_gru_fwd_sparse(g, w3g, drop, lay, "tanh", 16), 10)
-        del si, g, w3g, drop, dhs, hs, h_prev
+        del hs, h_prev
+        # row 32 at the train and serve shapes
+        for tag, (T, B, H), seed in (("train", GR_TRAIN_TBH, 150),
+                                     ("serve", GR_SERVE_TBH, 151)):
+            fi = si if tag == "train" else gru_inputs(T, B, H, seed, dev)
+            g, w3g, drop, lay = (fi[n] for n in ("g", "w3g", "drop",
+                                                 "layout"))
+
+            def call_plan(shape_, run=False):
+                plan = R.gru_fwd_sparse_plan(B, lay, shape_)
+                return (R._gru_fwd_sparse_persist(plan, g, w3g, drop, lay,
+                                                  "tanh", 16, False)
+                        if run else plan)
+            t["row32_" + tag] = {
+                "ms": cuda_ms(lambda: R.fused_gru_fwd_sparse(
+                    g, w3g, drop, lay, "tanh", 16), 10),
+                "ms_q0": cuda_ms(lambda: R.fused_gru_fwd_sparse(
+                    g, w3g, drop, lay, "tanh", 0), 10),
+                "plan": chain_route(dev, "fused_gru_fwd_sparse", B,
+                                    layout=lay)[1],
+                "by_block_shape": forced_plan_ms(
+                    "fused_gru_fwd_sparse", call_plan, 10)
+                if lay.bs % 16 == 0 else {}}
+            del fi, g, w3g, drop, lay
+        del si
         T, B, H = MG_TRAIN_TBH
         sp = cgs_ligru_inputs(T, B, H, 421, dev, "relu")
         hs = R.fused_mgru_fwd_sparse(sp["g"], sp["w3g"], sp["drop"],
                                      sp["layout"], "relu", 16)
         h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        t["row34_ms"] = cuda_ms(lambda: R.fused_mgru_fwd_sparse(
+            sp["g"], sp["w3g"], sp["drop"], sp["layout"], "relu", 16), 10)
         t["row35_ms"] = cuda_ms(lambda: R.fused_mgru_bwd_sparse(
             sp["g"], sp["w3g"], sp["drop"], h_prev, sp["dhs"], sp["layout"],
             "relu", 16), 10)
@@ -6206,10 +6503,12 @@ def phase_rnn_turn_times(dev):
 
 def rnn_times_main(root):
     """``python3 chip_smoke.py --rnn-times [DIR]``: phase_rnn_turn_times
-    and the f32 train steps of the libri GRU and the CGS-16x LSTM (CUDA
-    events, mean of 5 after 2), with the package of this checkout or of
-    the tree unpacked at DIR inside it (as ``--gemm-times``; run parent,
-    change, change, parent in one call); one JSON line."""
+    and the f32 train steps of the libri GRU, the libri and TIMIT Li-GRUs
+    and the CGS-16x LSTM (CUDA events, mean of 5 after 2; the first three
+    also profiled once: device ms by class of kernel, busy share), with
+    the package of this checkout or of the tree unpacked at DIR inside it
+    (as ``--gemm-times``; run parent, change, change, parent in one
+    call); one JSON line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -6230,15 +6529,19 @@ def rnn_times_main(root):
            "package": os.path.relpath(os.path.dirname(_build.CSRC), here),
            "card": smi_card(), "times": phase_rnn_turn_times(dev)}
     for tag, make in (("libri_gru", gru_train_runner),
+                      ("libri_ligru", libri_ligru_train_runner),
+                      ("timit_ligru", ligru_train_runner),
                       ("cgs16x_lstm", cgs_train_runner)):
         runner, (inp, mask) = make(dev)
         inp = torch.as_tensor(inp, device=dev)
         mask = torch.as_tensor(mask, device=dev)
         out["%s_step_ms_f32" % tag] = cuda_ms(
             lambda: runner.train_step(inp, mask), reps=5)
-        if tag == "libri_gru":
-            out["libri_gru_step_device_ms_by_class"] = kernel_classes(
-                device_busy(lambda: runner.train_step(inp, mask))["by_name"])
+        if tag != "cgs16x_lstm":
+            busy = device_busy(lambda: runner.train_step(inp, mask), top=8)
+            out["%s_step_device_ms_by_class" % tag] = kernel_classes(
+                busy.pop("by_name"))
+            out["%s_step_busy" % tag] = busy
         del runner
         torch.cuda.empty_cache()
     print(json.dumps(out))
@@ -6343,9 +6646,10 @@ def phase_libri_ligru_train(dev):
     where relu' flips between the card's and the CPU's sums, GRAD_FLIP_K
     times the CPU's own one-ulp sensitivity and then the same step with
     tanh at TOL_GRAD_REL. Launches per step with the recompute backward
-    (the default) and the stash one (PKC_BWD_STASH_CELLS=ligru), 10 steps
-    in f32 and bf16 at the cfg's learning rates (the loss falls on random
-    labels there, unlike the TIMIT Li-GRU's)."""
+    (the default; its launches a layer call its route's,
+    ligru_bwd_launches) and the stash one (PKC_BWD_STASH_CELLS=ligru), 10
+    steps in f32 and bf16 at the cfg's learning rates (the loss falls on
+    random labels there, unlike the TIMIT Li-GRU's)."""
     T = LL_TRAIN_TBH[0]
     knob = "PKC_BWD_STASH_CELLS"
 
@@ -6358,10 +6662,15 @@ def phase_libri_ligru_train(dev):
         print("[libri_ligru_train] the CPU's own gradients under a one-ulp "
               "change of x: worst rel change %.3g at %s" % (sens, where))
         return max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
+    route, n_bwd = ligru_bwd_launches(dev, T, LL_TRAIN_TBH[1],
+                                      LL_TRAIN_TBH[2], 0)
+    print("[libri_ligru_train] recompute BPTT: route %s, %d launches a "
+          "layer call; plan %s" % (route, n_bwd, json.dumps(chain_route(
+              dev, "fused_ligru_bwd", *LL_TRAIN_TBH[1:])[1])))
     out = phase_train(dev, libri_ligru_train_runner, "libri_ligru_train", (
         ("recompute", knob, None,
          expected(fused_ligru_fwd=LL_LAYERS * T,
-                  fused_ligru_bwd=LL_LAYERS * T)),
+                  fused_ligru_bwd=LL_LAYERS * n_bwd)),
         ("stash", knob, "ligru",
          expected(fused_ligru_fwd=LL_LAYERS * T,
                   fused_ligru_bwd_stash=LL_LAYERS * T))),
@@ -6382,8 +6691,9 @@ def phase_libri_ligru_train(dev):
 def phase_libri_ligru_times(dev, rec, audio, lens):
     """The liGRU kernels (rows 16-18) per layer call at the cfg's shapes:
     T=200, 32 rows, H=1024, relu, no quantizer (the stash forward, both
-    BPTT kernels) and the forward at T=398, 16 rows; their bounds; the
-    libri Li-GRU train step (f32, bf16) and recognize."""
+    BPTT kernels; the recompute one's plan and rebuild / chain split) and
+    the forward at T=398, 16 rows; their bounds; the libri Li-GRU train
+    step (f32, bf16) and recognize."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     T, B, H = LL_TRAIN_TBH
     act = "relu"
@@ -6403,6 +6713,9 @@ def phase_libri_ligru_times(dev, rec, audio, lens):
             times[name + "_ms"] = cuda_ms(fn, reps=10)
             times[name + "_bound_ms"], times[name + "_bound_by"] = \
                 ligru_bound_ms(T, B, H, kind)
+            if name == "fused_ligru_bwd":
+                times[name + "_plan"] = chain_route(dev, name, B, H)[1]
+                times[name + "_split"] = bptt_split(fn, 3)
         Ts, Bs, _ = LL_SERVE_TBH
         sv = gated_inputs(Ts, Bs, H, 231, dev, act)
         times["serve_fwd_ms"] = cuda_ms(
@@ -7054,7 +7367,17 @@ def main():
         {"ms_nostash": "fused_ligru_fwd_nostash_ms",
          "ms_repeat": "fused_ligru_fwd_stash_ms",
          "ms_q0": "fused_ligru_fwd_stash_ms_q0",
-         "ms_nostash_q0": "fused_ligru_fwd_nostash_ms_q0"})
+         "ms_nostash_q0": "fused_ligru_fwd_nostash_ms_q0"},
+        bwd_extra={
+            "plan": lg_times["fused_ligru_bwd_plan"],
+            "split": lg_times["fused_ligru_bwd_split"],
+            "libri": {"T": LL_TRAIN_TBH[0], "B": LL_TRAIN_TBH[1],
+                      "H": LL_TRAIN_TBH[2], "qbits": 0,
+                      "ms": ll_times["fused_ligru_bwd_ms"],
+                      "bound_ms": ll_times["fused_ligru_bwd_bound_ms"],
+                      "bound_by": ll_times["fused_ligru_bwd_bound_by"],
+                      "plan": ll_times["fused_ligru_bwd_plan"],
+                      "split": ll_times["fused_ligru_bwd_split"]}})
     line["kernels"] += gru_rows(gr_checks, dict(gr_times, **bs_times),
                                 gr_launches)
     line["kernels"] += dense_rnn_rows(

@@ -1,5 +1,6 @@
 // The register-blocked float32 GEMM tile shared by the block-sparse dw
-// kernel (block_sparse_dw.cu) and the v3 forward (block_sparse_v3.cu).
+// kernel (block_sparse_dw.cu) and the v3 forward (block_sparse_v3.cu),
+// and the dense recurrences' rebuild product (rec_gemm.cuh).
 //
 // A block of 256 threads owns a 128 x 128 output tile; each thread keeps
 // an 8 x 8 register tile: rows ty*4 + {0..3} and 64 + ty*4 + {0..3},

@@ -46,13 +46,30 @@
 // 2H*R*bs = 2.52 GFLOP, 0.038 ms. But each step has TWO grid-wide
 // dependencies: the candidate's input s needs r (z) of every unit, and its
 // quantizer scale max|s| (per step over the whole (B, H) block) needs all
-// of s. Blocks run in no order, so the forward launches two kernels per
-// step from the host loop (the launch boundaries are the grid-wide
-// barriers): gru_zr_step (z, r, s and max|s|) then gru_h_step (the
-// candidate and h_t, max|h_t| for the next step's quantizer). It re-reads
-// w3g (6.3 MB at the GRU's shape) from the 50 MB L2 each step; its time is
-// 2T launches, far above the bound. A persistent forward is later work.
+// of s. The GRU's forward (G=3) takes one of two routes, picked by the
+// caller before the launch from the shapes and the occupancy query
+// (fused_rnn.gru_fwd_sparse_route):
 //
+//   - "persist" (TPU row 32's redesign): ONE cooperative launch runs all T
+//     steps (gru_fwd_persist, persist.cuh). A block owns UN (8 or 16)
+//     units of one out-block and BT (8, 16 or 32) batch rows for the whole
+//     call, its units' rows of w3g resident in shared memory (the
+//     candidate's and [z | r]'s: 3 R*bs floats a unit, 24 KB at UN=8 and
+//     the libri layout R=2, bs=128), and per step runs two phases with one
+//     grid barrier after each, the two grid-wide dependencies: A stages
+//     q(h_{t-1}) at its out-block's kept columns, forms the z and r dots,
+//     writes s = r * h_{t-1} and folds max|s| into the step's slot; B
+//     stages q(s) there (the slot now final), forms the candidate's dots,
+//     writes h_t and folds max|h_t| into the next step's slot. h_{t-1}
+//     stays in the thread that owns its (row, unit); the next step's gates
+//     load before the barrier.
+//   - "step" (a shape whose blocks do not fit or are not co-resident; the
+//     minimalGRU, G=2, always): two kernels per step from the host loop
+//     (the launch boundaries are the grid-wide barriers): gru_zr_step (z,
+//     r, s and max|s|) then gru_h_step (the candidate and h_t, max|h_t| for
+//     the next step's quantizer), re-reading w3g (6.3 MB at the GRU's
+//     shape) from the 50 MB L2 each step; its time is 2T launches.
+
 // The backward's forward quantities (z, r, s, the candidate's
 // pre-activation and both quantizer scales) do not depend on dh. The GRU's
 // backward (G=3) takes one of two routes, picked by the caller before the
@@ -89,13 +106,14 @@
 // lists (t_row_idx, t_perm; a pad entry has t_perm == nnz), so no float
 // atomics are needed and its sum is deterministic.
 
-// Forward blocks own UNITS hidden units of one out-block j and BT batch
-// rows: they stage the R*bs gathered columns of q(h_{t-1}) (or q(s)) for
-// their rows in shared memory and each warp forms the dots of one w3g row
-// with every staged row. Backward blocks own BWD_UNITS units of one block
-// column: they stage the cotangents of the kept blocks of that column and
-// each warp forms one unit's dot with a row of w3g transposed ((Nb, R*bs,
-// G*bs), passed in, so the lanes read consecutive addresses).
+// Forward step blocks own UNITS hidden units of one out-block j and BT
+// batch rows: they stage the R*bs gathered columns of q(h_{t-1}) (or
+// q(s)) for their rows in shared memory and each warp forms the dots of
+// one w3g row with every staged row. Backward step blocks own BWD_UNITS
+// units of one block column: they stage the cotangents of the kept blocks
+// of that column and each warp forms one unit's dot with a row of w3g
+// transposed ((Nb, R*bs, G*bs), passed in, so the lanes read consecutive
+// addresses).
 //
 // qbits > 0: q() scales by max|v| over the step's whole (B, H) block,
 // taken with an atomicMax on the float bits (a non-negative float's bits
@@ -330,21 +348,7 @@ gru_bwd_ds(const float* __restrict__ fw_t, const void* __restrict__ w3t,
 // (route "persist"; the products are block_sparse_v3.cu's GEMM, called by
 // the wrapper between these passes):
 
-// out = q(v) of each step's (B, H) block (scale: max|v_t| bits, or null
-// for none), rounded to bf16 under BF16 (grid.y = steps).
-template <bool BF16>
-__global__ void quant_steps(const float* __restrict__ v,
-                            const unsigned* __restrict__ scale, float qscale,
-                            float* __restrict__ out, int n) {
-  const size_t base = (size_t)blockIdx.y * n;
-  const float var = scale ? __uint_as_float(scale[blockIdx.y]) : 0.f;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    float x = v[base + i];
-    if (scale) x = quant(x, var, qscale);
-    out[base + i] = BF16 ? round_bf16(x) : x;
-  }
-}
+// (quant_steps, lstm_common.cuh, writes q(h_prev) and q(s))
 
 // z = sigmoid(g_z + u_z), r = sigmoid(g_r + u_r) into fw at H.. and 2H..,
 // s = r * h_prev into s_out and max|s| of each step into scale_s (or
@@ -533,6 +537,187 @@ gru_bwd_persist(const float* __restrict__ fw,    // (T, B, 3H) [a_pre|z|r]
   }
 }
 
+// The forward's whole recurrence in one cooperative launch (route
+// "persist", TPU row 32's redesign; persist.cuh), for a G-gate cell (the
+// GRU's G=3 is routed here; the minimalGRU's G=2 compiles the same body).
+// Block c owns the UN units from u0 = (c % (H/UN)) * UN, all in out-block
+// j = u0 / bs (UN divides bs), and the BT = 8 * BI batch rows from b0 =
+// (c / (H/UN)) * BT. It copies into shared memory once its units' rows of
+// w3g, widened to float32: [z | r] as (G-1)*UN columns of wzr and the
+// candidate's as UN columns of wh, R*bs rows each. Its thread o = b * UN +
+// jj keeps h_{t-1} of its (row, unit) in a register and loads the next
+// step's gates before the barrier. Per step t (at t = 0 the carry is zero:
+// no staging and no dots, and no barrier after phase A):
+//   A. stage h_{t-1} (hs[t-1], other blocks' rows) at the kept columns,
+//      dots against wzr with q() at the max over bmax[0] of each staged
+//      value (and bf16 rounding under BF16), z and r, s = r *
+//      h_{t-1} (z * h_{t-1}) into sbuf, the block's max|s| into its entry
+//      of bmax[1]; barrier;
+//   B. stage s from sbuf the same way, q() at the max over bmax[1], dots
+//      against wh, a_pre = g_h + dot, h_t into hs, the block's max|h_t|
+//      into its entry of bmax[0]; barrier (none after the last step).
+// The quantizer's per-step scale is a max over the grid: each block
+// stores its own (a warp reduction, then one over the warps), and after
+// the barrier each block's first warp reads the grid's entries through
+// L2 (__ldcg) while its staging copies are in flight. Each staged value
+// is quantized in the dots' loop by quant_rcp, quant()'s bits with a
+// reciprocal taken once a phase: quant()'s IEEE division there took the
+// libri call from 1.9 to 4.0 ms on the H100, and the same division in a
+// pass over the staged values before the dots to 4.8 (variants timed on
+// the card, not kept). At t = 1 the scale of h_0 is its max; at t = 0
+// h_{-1} = 0 and s = 0 need none (a scale of 0 leaves v unquantized, as
+// in quant()).
+template <bool BF16, int G, int BI, int UN>
+__global__ void __launch_bounds__(persist::THREADS, 1)
+gru_fwd_persist(const float* __restrict__ gates,   // (T, B, G*H)
+                const void* __restrict__ w3g,      // (Nb, G*bs, R*bs)
+                const int* __restrict__ col_idx,   // (Nb*R,)
+                const float* __restrict__ drop,    // (B, H)
+                float* hs,                         // (T, B, H) output
+                float* sbuf,                       // (B, H) s of the step
+                unsigned* bmax,                    // (2, grid), or null
+                int T, int B, int H, int R, int bs, int act, float qscale) {
+  namespace P = persist;
+  constexpr int BT = P::BLANES * BI, ZC = (G - 1) * UN;
+  constexpr int WZ = P::w_stride(ZC), WH = P::w_stride(UN);
+  extern __shared__ __align__(16) float psm[];
+  __shared__ unsigned wmax[P::WARPS], gmax;
+  const int K3 = R * bs, SK = P::row_stride(K3);
+  float* wzr = psm;                                // (K3, WZ)
+  float* wh = wzr + (size_t)K3 * WZ;               // (K3, WH)
+  float* xs = wh + (size_t)K3 * WH;                // (BT, SK)
+  float* red = xs + (size_t)BT * SK;
+  const int ug = H / UN;
+  const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  const int j = u0 / bs, cc0 = u0 - j * bs;
+  const size_t row0 = (size_t)j * G * bs + cc0;    // w3g row of unit u0, h
+  for (int i = threadIdx.x; i < ZC * K3; i += P::THREADS) {
+    const int c = i / K3, k = i - c * K3, g = 1 + c / UN;
+    wzr[k * WZ + c] = load_w<BF16>(
+        w3g, (row0 + g * bs + (c - (g - 1) * UN)) * K3 + k);
+  }
+  for (int i = threadIdx.x; i < UN * K3; i += P::THREADS) {
+    const int c = i / K3, k = i - c * K3;
+    wh[k * WH + c] = load_w<BF16>(w3g, (row0 + c) * K3 + k);
+  }
+  const int o = threadIdx.x, ob = o / UN, oj = o % UN, ou = u0 + oj;
+  const bool mine = o < BT * UN && ob < nb;
+  const size_t bh = (size_t)B * H, gbh = (size_t)G * bh;
+  const size_t ih = (size_t)(b0 + ob) * H + ou, ig = (size_t)(b0 + ob) * G * H;
+  const float dr = mine ? drop[ih] : 0.f;
+  unsigned* hmax = bmax;                            // max|h_t| by block
+  unsigned* smax = bmax ? bmax + gridDim.x : nullptr;   // max|s_t|
+  // stage v's kept columns of out-block j for this block's rows; with
+  // `maxes`, the grid's max of them into gmax meanwhile -> the scale
+  auto stage = [&](const float* v, const unsigned* maxes) {
+    P::stage_rows(
+        nb * R, bs,
+        [&](int row) {
+          const int b = row / R, k = row - b * R;
+          return v + (size_t)(b0 + b) * H + (size_t)col_idx[j * R + k] * bs;
+        },
+        [&](int row) {
+          const int b = row / R, k = row - b * R;
+          return xs + (size_t)b * SK + k * bs;
+        });
+    if (maxes && threadIdx.x < 32) {
+      unsigned m = 0;
+      for (int i = threadIdx.x; i < gridDim.x; i += 32)
+        m = max(m, __ldcg(maxes + i));
+      m = __reduce_max_sync(0xffffffffu, m);
+      if (threadIdx.x == 0) gmax = m;
+    }
+    P::cp_async_wait_all();
+    __syncthreads();
+    return maxes ? __uint_as_float(gmax) : 0.f;
+  };
+  // q() at scale var (0: none; quant_rcp, quant()'s bits without its
+  // division), then bf16: applied to each staged value in the dots' loop
+  const float iscale = qscale != 0.f ? 1.f / qscale : 0.f;
+  auto qf = [&](float var) {
+    const float inv = var != 0.f ? 1.f / var : 0.f, sc = qscale,
+                isc = iscale;
+    return [var, inv, sc, isc](float x) {
+      const float y = quant_rcp(x, var, inv, sc, isc);
+      return BF16 ? round_bf16(y) : y;
+    };
+  };
+  // this block's max of the threads' bits m into out[blockIdx.x]
+  auto block_max = [&](unsigned m, unsigned* out) {
+    m = __reduce_max_sync(0xffffffffu, m);
+    if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned v = 0;
+      for (int w = 0; w < P::WARPS; ++w) v = max(v, wmax[w]);
+      out[blockIdx.x] = v;
+    }
+  };
+  struct In {
+    float gh, gz, gr;
+  };
+  auto fetch = [&](int t) {
+    In v{};
+    if (mine) {
+      const float* g = gates + t * gbh + ig;
+      v.gh = g[ou];
+      v.gz = g[H + ou];
+      if (G == 3) v.gr = g[2 * H + ou];
+    }
+    return v;
+  };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float hp = 0.f;                                  // h_{t-1} of (row, unit)
+  In cur = fetch(0);
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    // A: z (and r), s
+    float dz = 0.f, dq = 0.f;
+    if (t > 0) {
+      const float var = stage(hs + (t - 1) * bh, hmax);
+      P::unit_dots<BI, ZC>(xs, SK, wzr, K3, red, qf(var));
+      if (mine) {
+        dz = P::unit_sum<BI, ZC>(red, ob * ZC + oj);
+        if (G == 3) dq = P::unit_sum<BI, ZC>(red, ob * ZC + UN + oj);
+      }
+    }
+    float z = 0.f;
+    unsigned m = 0;
+    if (mine) {
+      z = sigmoid(cur.gz + dz);
+      float s = z * hp;
+      if (G == 3) s = sigmoid(cur.gr + dq) * hp;
+      sbuf[ih] = s;
+      m = __float_as_uint(fabsf(s));
+    }
+    if (t > 0) {
+      if (smax) block_max(m, smax);
+      grid.sync();
+    }
+    // B: the candidate and h_t
+    float da = 0.f;
+    if (t > 0) {
+      const float var = stage(sbuf, smax);
+      P::unit_dots<BI, UN>(xs, SK, wh, K3, red, qf(var));
+      if (mine) da = P::unit_sum<BI, UN>(red, o);
+    }
+    m = 0;
+    if (mine) {
+      const float a_pre = cur.gh + da;
+      const float h = z * hp + (1.f - z) * (act_fn(a_pre, act) * dr);
+      hs[t * bh + ih] = h;
+      hp = h;
+      m = __float_as_uint(fabsf(h));
+    }
+    if (t + 1 < T) {
+      if (hmax) block_max(m, hmax);
+      cur = fetch(t + 1);
+      grid.sync();
+    }
+  }
+}
+
 template <bool BF16, int G>
 cudaError_t run_fwd(const float* gates, const void* w3g, const int* col_idx,
                     const float* drop, float* hs, float* fw, float* s,
@@ -686,6 +871,31 @@ int persist_occupancy(int bi, int smem, int* out) {
              : persist::occupancy<gru_bwd_persist<BF16, 4, 8>>(smem, out);
 }
 
+// one cooperative launch of the GRU forward at block shape (BI, UN)
+template <bool BF16, int BI, int UN>
+cudaError_t launch_fwd_persist(int grid, int smem, cudaStream_t stream,
+                               const float* gates, const void* w3g,
+                               const int* col_idx, const float* drop,
+                               float* hs, float* s, unsigned* bmax, int T,
+                               int B, int H, int R, int bs, int act,
+                               float qscale) {
+  return persist::launch<gru_fwd_persist<BF16, 3, BI, UN>>(
+      grid, smem, stream, gates, w3g, col_idx, drop, hs, s, bmax, T, B, H,
+      R, bs, act, qscale);
+}
+
+// the forward's block shapes (bi, units): (1, 8), (2, 8), (4, 8), (2, 16)
+template <bool BF16>
+int fwd_persist_occupancy(int bi, int units, int smem, int* out) {
+  if (units == 16)
+    return persist::occupancy<gru_fwd_persist<BF16, 3, 2, 16>>(smem, out);
+  if (bi == 1)
+    return persist::occupancy<gru_fwd_persist<BF16, 3, 1, 8>>(smem, out);
+  if (bi == 2)
+    return persist::occupancy<gru_fwd_persist<BF16, 3, 2, 8>>(smem, out);
+  return persist::occupancy<gru_fwd_persist<BF16, 3, 4, 8>>(smem, out);
+}
+
 // grid (units in blocks of 256, rows) of the elementwise rebuild passes
 dim3 rows_grid(int M, int H) {
   return dim3((H + 255) / 256, std::min(M, 65535));
@@ -699,7 +909,8 @@ const char* pk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The GRU forward on `stream`: 2T step kernels from the zero state.
+// The GRU forward on `stream` on the step route: 2T step kernels from the
+// zero state.
 // Returns the first cudaError_t seen, 0 on success.
 //   gates: (T, B, 3H) [h | z | r]; w3g: (Nb, 3bs, R*bs) float32 or bf16
 //   (w_bf16); col_idx: (Nb*R,) int32 on the device; drop: (B, H);
@@ -713,6 +924,45 @@ int fused_gru_fwd_sparse(const float* gates, const void* w3g,
                          void* stream_ptr) {
   return launch_fwd<3>(gates, w3g, col_idx, drop, hs, fw, s, qslots, T, B, H,
                        R, bs, act, qbits, w_bf16, stream_ptr);
+}
+
+// The GRU forward on the persistent route on `stream`: one cooperative
+// launch of `grid` blocks of gru_fwd_persist (bi: BT = 8 * bi rows a
+// block; units: 8 or 16, a divisor of bs; smem bytes of dynamic shared
+// memory: fused_rnn.gru_fwd_sparse_plan). Returns its cudaError_t.
+//   gates: (T, B, 3H); w3g: (Nb, 3bs, R*bs) float32 or bf16 (w_bf16);
+//   col_idx: (Nb*R,); drop: (B, H); hs: (T, B, H) output; s: (B, H)
+//   scratch; bmax: 2 * grid unsigned ints of scratch when qbits > 0.
+int gru_fwd_sparse_persist(const float* gates, const void* w3g,
+                           const int* col_idx, const float* drop, float* hs,
+                           float* s, unsigned* bmax, int T, int B, int H,
+                           int R, int bs, int act, int qbits, int w_bf16,
+                           int grid, int bi, int units, int smem,
+                           void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (bs % units || H % units || (units == 16 && bi != 2))
+    return cudaErrorInvalidValue;
+  const bool q = qbits > 0;
+  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+  auto fn = w_bf16 ? (units == 16 ? launch_fwd_persist<true, 2, 16>
+                      : bi == 1   ? launch_fwd_persist<true, 1, 8>
+                      : bi == 2   ? launch_fwd_persist<true, 2, 8>
+                                  : launch_fwd_persist<true, 4, 8>)
+                   : (units == 16 ? launch_fwd_persist<false, 2, 16>
+                      : bi == 1   ? launch_fwd_persist<false, 1, 8>
+                      : bi == 2   ? launch_fwd_persist<false, 2, 8>
+                                  : launch_fwd_persist<false, 4, 8>);
+  return fn(grid, smem, stream, gates, w3g, col_idx, drop, hs, s,
+            q ? bmax : nullptr, T, B, H, R, bs, act, qscale);
+}
+
+// out[0..2]: the forward chain's co-resident blocks per SM at `smem` bytes
+// of dynamic shared memory (w_bf16, bi and units as above), the SM count,
+// and whether the device takes cooperative launches.
+int gru_fwd_sparse_occupancy(int w_bf16, int bi, int units, int smem,
+                             int* out) {
+  return w_bf16 ? fwd_persist_occupancy<true>(bi, units, smem, out)
+                : fwd_persist_occupancy<false>(bi, units, smem, out);
 }
 
 // The GRU backward on `stream`: (with qbits > 0, one reduction for the T

@@ -44,9 +44,10 @@
 // The backward's pre-activations u do not depend on dh, so one launch
 // rebuilds them for all T before the reverse chain: u = h_prev @ W_hh^T +
 // b_hh as one (T*B, H) x (H, 3H) GEMM on bs_gemm.cuh's register-blocked
-// tile (gru_torch_u_gemm: 2.18 GFMA at the TIMIT shape, 247 blocks of 128
-// x 128 outputs). The chain then has one dependent product per step,
-// du_{t+1} @ W_hh, against the columns of W_hh. Two routes, picked by the
+// tile (rec_gemm.cuh's rec_u_gemm, which the liGRU's recompute BPTT
+// shares: 2.18 GFMA at the TIMIT shape, 247 blocks of 128 x 128 outputs).
+// The chain then has one dependent product per step, du_{t+1} @ W_hh,
+// against the columns of W_hh. Two routes, picked by the
 // caller before the launch from the shapes and the occupancy query
 // (fused_rnn.gru_torch_bwd_route):
 //
@@ -75,7 +76,7 @@
 
 #include <cmath>
 
-#include "bs_gemm.cuh"
+#include "rec_gemm.cuh"
 #include "lstm_common.cuh"
 #include "persist.cuh"
 
@@ -154,103 +155,6 @@ gru_torch_step(const float* __restrict__ g,        // (B, 3H) [r | z | n]
 }
 
 namespace gm = bs_gemm;
-constexpr int U_SLAB_A = gm::TILE * gm::ALD;      // floats
-constexpr int U_SLAB_B = gm::BK * gm::TILE;
-constexpr int U_SMEM = gm::STAGES * (U_SLAB_A + U_SLAB_B) * 4;
-
-// The backward's rebuild as one GEMM over all M = T*B rows: u = h_prev @
-// W_hh^T + b_hh, (M, H) x (H, 3H), on bs_gemm.cuh's register-blocked tile
-// (a block 128 x 128 outputs, h_prev's rows staged along the contraction
-// and W_hh^T's rows k-major, both by cp.async; 16-byte copies where VEC,
-// H a multiple of 4 and the operands 16-byte aligned, 4-byte ones else).
-template <bool VEC>
-__global__ void __launch_bounds__(gm::THREADS, gm::MIN_BLOCKS)
-gru_torch_u_gemm(const float* __restrict__ x,    // (M, H) h_prev
-                 const float* __restrict__ wt,   // (H, 3H) W_hh^T
-                 const float* __restrict__ bh,   // (3H,)
-                 float* __restrict__ u,          // (M, 3H)
-                 int M, int H) {
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);  // [STAGES][TILE][ALD]
-  float* Bs = As + gm::STAGES * U_SLAB_A;       // [STAGES][BK][TILE]
-  const int N = 3 * H;
-  const int n0 = blockIdx.x * gm::TILE, m0 = blockIdx.y * gm::TILE;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  auto load = [&](int stage, int slab) {
-    const int k0 = slab * gm::BK;
-    float* as = As + stage * U_SLAB_A;
-    float* bs_ = Bs + stage * U_SLAB_B;
-    if (VEC) {
-#pragma unroll
-      for (int q = 0; q < gm::TILE * gm::BK / 4 / gm::THREADS; ++q) {
-        const int c = tid + q * gm::THREADS;
-        const int r = c / (gm::BK / 4), e = (c % (gm::BK / 4)) * 4;
-        const int m = m0 + r, kk = k0 + e;
-        const bool ok = m < M && kk < H;
-        gm::cp_async16(as + r * gm::ALD + e, ok ? x + (size_t)m * H + kk : x,
-                       ok);
-      }
-#pragma unroll
-      for (int q = 0; q < gm::BK * gm::TILE / 4 / gm::THREADS; ++q) {
-        const int c = tid + q * gm::THREADS;
-        const int r = c / (gm::TILE / 4), e = (c % (gm::TILE / 4)) * 4;
-        const int kk = k0 + r, n = n0 + e;
-        const bool ok = kk < H && n < N;
-        gm::cp_async16(bs_ + r * gm::TILE + e,
-                       ok ? wt + (size_t)kk * N + n : wt, ok);
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < gm::TILE * gm::BK / gm::THREADS; ++q) {
-        const int c = tid + q * gm::THREADS;
-        const int r = c / gm::BK, e = c % gm::BK;
-        const int m = m0 + r, kk = k0 + e;
-        const bool ok = m < M && kk < H;
-        gm::cp_async4(as + r * gm::ALD + e, ok ? x + (size_t)m * H + kk : x,
-                      ok);
-      }
-#pragma unroll
-      for (int q = 0; q < gm::BK * gm::TILE / gm::THREADS; ++q) {
-        const int c = tid + q * gm::THREADS;
-        const int r = c / gm::TILE, e = c % gm::TILE;
-        const int kk = k0 + r, n = n0 + e;
-        const bool ok = kk < H && n < N;
-        gm::cp_async4(bs_ + c, ok ? wt + (size_t)kk * N + n : wt, ok);
-      }
-    }
-  };
-
-  float acc[8][8] = {};
-  const int slabs = (H + gm::BK - 1) / gm::BK;
-#pragma unroll
-  for (int st = 0; st < gm::STAGES - 1; ++st) {
-    if (st < slabs) load(st, st);
-    gm::cp_async_commit();
-  }
-  for (int it = 0; it < slabs; ++it) {
-    gm::cp_async_wait_slab();
-    __syncthreads();          // slab `it` landed; slab it-1 is computed
-    const int nxt = it + gm::STAGES - 1;
-    if (nxt < slabs) load(nxt % gm::STAGES, nxt);
-    gm::cp_async_commit();
-    const int st = it % gm::STAGES;
-    gm::slab_fma_mk(As + st * U_SLAB_A, Bs + st * U_SLAB_B, ty, tx, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + gm::tile_at(ty, i);
-    if (m >= M) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + h * 64 + tx * 4;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (n + q < N)
-          u[(size_t)m * N + n + q] = acc[i][h * 4 + q] + bh[n + q];
-    }
-  }
-}
 
 // Reverse step t: dh_t = dh_{t+1} * z_{t+1} + du_{t+1} @ W_hh + dhs[t]
 // (dhs[t] alone at t = T-1), then dg_t and dm_t. dh (B, H) holds dh_{t+1}
@@ -453,7 +357,7 @@ int fused_gru_torch_fwd(const float* gates, const float* W, const float* bh,
 }
 
 // The backward on `stream`: one kernel rebuilds u for all steps
-// (gru_torch_u_gemm), then the reverse chain: with grid > 0 one
+// (rec_gemm.cuh's rec_u_gemm), then the reverse chain: with grid > 0 one
 // cooperative launch of grid blocks (route "persist", BT = 8 * bi batch
 // rows a block, smem bytes of dynamic shared memory:
 // fused_rnn.gru_torch_bwd_plan), else T step kernels in reverse time.
@@ -470,21 +374,8 @@ int fused_gru_torch_bwd(const float* gates, const float* W, const float* Wt,
                         int smem, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const size_t smem_b = (size_t)BT * 3 * H * sizeof(float);
-  const int M = T * B;
-  const bool vec = H % 4 == 0 && reinterpret_cast<size_t>(h_prev) % 16 == 0 &&
-                   reinterpret_cast<size_t>(Wt) % 16 == 0;
-  cudaError_t err = vec ? gm::allow_smem(gru_torch_u_gemm<true>, U_SMEM)
-                        : gm::allow_smem(gru_torch_u_gemm<false>, U_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 ugrid((3 * H + gm::TILE - 1) / gm::TILE,
-                   (M + gm::TILE - 1) / gm::TILE);
-  if (vec)
-    gru_torch_u_gemm<true><<<ugrid, gm::THREADS, U_SMEM, stream>>>(
-        h_prev, Wt, bh, u, M, H);
-  else
-    gru_torch_u_gemm<false><<<ugrid, gm::THREADS, U_SMEM, stream>>>(
-        h_prev, Wt, bh, u, M, H);
-  err = cudaGetLastError();
+  cudaError_t err = gm::rec_u_gemm_launch(h_prev, Wt, bh, nullptr, u, T * B,
+                                          H, 3 * H, stream);
   if (err != cudaSuccess) return err;
   if (grid > 0) {
     if (bi == 1)

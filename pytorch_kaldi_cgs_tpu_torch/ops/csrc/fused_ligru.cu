@@ -30,19 +30,18 @@
 // caller computes it as one (2H, T*B) @ (T*B, H) product. Everything is
 // float32 (the TPU kernel has no bf16 variant).
 //
-// What bounds it on this card: at the training shape (T=300, B=8,
+// What bounds it on this card: at the TIMIT training shape (T=300, B=8,
 // H=1024) one (B, 2H) x (2H, H) product per step is 10.07 GFLOP of
 // float32 FMAs over the layer (0.150 ms at 67 TFLOP/s); the forward with
 // the stash moves ~58 MB (0.017 ms at 3.35 TB/s), so operations bound it;
-// the recompute backward does two products (0.300 ms). But each step
-// needs all of h_{t-1} (forward) or all of dg_{t+1} (backward), written
-// by every block of the step before, and on Hopper blocks run in no
-// order: as the LSTM kernels do, this first design launches one kernel
-// per step from the host loop (the launch boundary is the grid-wide
-// barrier) and re-reads U (8 MB at H=1024, resident in the 50 MB L2)
-// each step. Its time is ~T launches of several microseconds, far above
-// the bound; a persistent kernel with U split across the SMs' shared
-// memory is later work.
+// the recompute backward does two products (0.300 ms; 0.80 ms at the
+// LibriSpeech shape, T=200, B=32). But each step needs all of h_{t-1}
+// (forward) or all of dg_{t+1} (backward), written by every block of the
+// step before, and on Hopper blocks run in no order. The forward and the
+// stash backward launch one kernel per step from the host loop (the
+// launch boundary is the grid-wide barrier) and re-read U (8 MB at
+// H=1024, resident in the 50 MB L2) each step; their time is ~T launches
+// of several microseconds, far above the bound.
 //
 // Per step, a block owns UNITS hidden units (both gate rows of each, so
 // the gate math stays local) and BT batch rows:
@@ -50,13 +49,39 @@
 //     warp forms the dot of one U row with every staged row (lanes over
 //     k, then a shuffle reduction); the epilogue writes h_t (and the
 //     stash) and atomicMax-es |h_t| into the next step's scale slot;
-//   * backward: it stages dg_{t+1} for its rows (BT x 2H floats, 64 KB at
-//     H=1024) and each warp forms the dot of one row of U^T (passed in
-//     transposed, (H, 2H), so lanes read consecutive addresses) with
-//     them; recompute also stages q(h_{t-1}) and forms the forward's row
-//     dots; the epilogue runs the chain above, writes dg_t and keeps
-//     dh * z in place in `carry` (each block owns its units' entries).
+//   * backward (ligru_bwd_step): it stages dg_{t+1} for its rows (BT x 2H
+//     floats, 64 KB at H=1024) and each warp forms the dot of one row of
+//     U^T (passed in transposed, (H, 2H), so lanes read consecutive
+//     addresses) with them; recompute also stages q(h_{t-1}) and forms
+//     the forward's row dots; the epilogue runs the chain above, writes
+//     dg_t and keeps dh * z in place in `carry` (each block owns its
+//     units' entries).
 // Widths need not be multiples of 32 or of UNITS: every loop masks.
+//
+// The recompute backward (TPU row 18) takes one of two routes, picked by
+// the caller before the launch from the shapes and the occupancy query
+// (fused_rnn.ligru_bwd_route):
+//
+//   - "persist". The forward quantities do not depend on dh, so they are
+//     rebuilt for all M = T*B rows first: with qbits > 0 absmax_steps (the
+//     T scales) and quant_steps (q(h_prev)), then ONE GEMM, rec_gemm.cuh's
+//     rec_u_gemm, pre = gates + q(h_prev) @ U^T, (M, H) x (H, 2H), whose
+//     epilogue adds the gates, so pre is each step's pre-activation (the
+//     sum the step kernel forms, in another order). Then the whole reverse
+//     chain is ONE cooperative launch of ligru_bwd_persist (persist.cuh): a
+//     block owns UN (8 or 16) units and BT (8, 16 or 32) batch rows for all
+//     steps, its units' columns of U resident in shared memory (2H floats a
+//     unit: 64 KB at UN=8, H=1024), and per reverse step stages dg_{t+1}
+//     of its rows (from an exchange buffer of 16-byte aligned rows, two by
+//     the step's parity), forms its UN x BT carry dots, runs the
+//     elementwise chain on pre, writes dg_t and waits at one grid barrier.
+//     Where BT rows of 2H floats do not fit beside the weights (the
+//     LibriSpeech shape, B=32: 256 KB at BT=32), the rows are staged in
+//     slabs of the contraction, two in flight (persist::slab_dots); the
+//     plan (fused_rnn.ligru_bwd_plan) picks the block and the slab.
+//   - "step" (a shape whose blocks do not fit or are not co-resident): T
+//     launches of ligru_bwd_step<false>, each re-staging q(h_{t-1}) and
+//     re-forming the forward's dots beside the carry's.
 //
 // qbits > 0: q() scales by max|h_{t-1}| over the whole (B, H) block of
 // the step. Forward: step t's epilogue atomicMax-es |h_t| (the float bit
@@ -68,7 +93,9 @@
 
 #include <cmath>
 
+#include "rec_gemm.cuh"
 #include "lstm_common.cuh"
+#include "persist.cuh"
 
 namespace {
 
@@ -255,6 +282,95 @@ ligru_bwd_step(const float* __restrict__ a_t,     // STASH: (B, 2H) [a, z]
   }
 }
 
+// The recompute backward's reverse chain in one cooperative launch (route
+// "persist", TPU row 18's redesign; persist.cuh). Block c owns the UN
+// units from u0 = (c % ceil(H/UN)) * UN and the BT = 8 * BI batch rows
+// from b0 = (c / ceil(H/UN)) * BT. It copies its units' columns of U into
+// shared memory once (ws: 2H rows of UN, w_stride(UN) apart). Its thread o
+// = b * UN + j keeps dh * z of its (row, unit) in a register across the
+// steps and loads the next step's pre-activations, h_prev and dhs before
+// the grid barrier (they do not depend on the chain). Per reverse step it
+// stages dg_{t+1} of its rows from xbuf (2, B, XS), XS = 2H rounded up to
+// 8, by the step's parity, in slabs of KS values (KS >= 2H: at once),
+// forms dh_carry = dh * z + dg_{t+1} @ U for its units, runs the
+// elementwise chain, writes dg_t to dg and xbuf, and waits at the barrier.
+template <int BI, int UN>
+__global__ void __launch_bounds__(persist::THREADS, 1)
+ligru_bwd_persist(const float* __restrict__ pre,     // (T, B, 2H) g + u
+                  const float* __restrict__ U,       // (2H, H)
+                  const float* __restrict__ drop,    // (B, H)
+                  const float* __restrict__ h_prev,  // (T, B, H)
+                  const float* __restrict__ dhs,     // (T, B, H)
+                  float* dg, float* xbuf, int T, int B, int H, int act,
+                  int KS) {
+  namespace P = persist;
+  constexpr int BT = P::BLANES * BI, WS = P::w_stride(UN);
+  extern __shared__ __align__(16) float psm[];
+  const int K = 2 * H, XS = (K + 7) / 8 * 8, SK = P::row_stride(KS);
+  float* ws = psm;                                 // (K, WS) U's columns
+  float* xs = ws + (size_t)K * WS;                 // 1 or 2 x (BT, SK)
+  float* red = xs + (size_t)(KS < K ? 2 : 1) * BT * SK;
+  const int ug = (H + UN - 1) / UN;
+  const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  for (int e = threadIdx.x; e < K * UN; e += P::THREADS) {
+    const int k = e / UN, j = e - k * UN;
+    ws[k * WS + j] = u0 + j < H ? U[(size_t)k * H + u0 + j] : 0.f;
+  }
+  const int o = threadIdx.x, ob = o / UN, ou = u0 + o % UN;
+  const bool mine = o < BT * UN && ob < nb && ou < H;
+  const size_t bh = (size_t)B * H, bk = (size_t)B * K, xstep = (size_t)B * XS;
+  const size_t ih = (size_t)(b0 + ob) * H + ou, ig = (size_t)(b0 + ob) * K;
+  const float dr = mine ? drop[ih] : 0.f;
+  // step t's inputs of this thread's (row, unit)
+  struct In {
+    float ph, pz, hp, dh;
+  };
+  auto fetch = [&](int t) {
+    In v{};
+    if (mine) {
+      v.ph = pre[t * bk + ig + ou];
+      v.pz = pre[t * bk + ig + H + ou];
+      v.hp = h_prev[t * bh + ih];
+      v.dh = dhs[t * bh + ih];
+    }
+    return v;
+  };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float dhz = 0.f;                    // dh * z of step t+1
+  In cur = fetch(T - 1);
+  __syncthreads();
+  for (int t = T - 1; t >= 0; --t) {
+    float dot = 0.f;
+    if (t + 1 < T) {
+      const float* src = xbuf + ((t + 1) & 1) * xstep + (size_t)b0 * XS;
+      P::slab_dots<BI, UN>([&](int r) { return src + (size_t)r * XS; }, nb,
+                           K, XS, KS, xs, SK, ws, red);
+      if (o < BT * UN) dot = P::unit_sum<BI, UN>(red, o);
+    }
+    if (mine) {
+      // the step kernel's arithmetic, on the rebuilt pre-activations
+      const float dh = (t + 1 < T ? dhz + dot : 0.f) + cur.dh;
+      const float a = act_fn(cur.ph, act);
+      const float z = sigmoid(cur.pz);
+      const float dz = dh * (cur.hp - a * dr);
+      const float dgh = dh * (1.f - z) * dr * dact_pre(cur.ph, act);
+      const float dgz = dz * z * (1.f - z);
+      float* d = dg + t * bk + ig;
+      d[ou] = dgh;
+      d[H + ou] = dgz;
+      float* x = xbuf + (t & 1) * xstep + (size_t)(b0 + ob) * XS;
+      x[ou] = dgh;
+      x[H + ou] = dgz;
+      dhz = dh * z;
+    }
+    if (t > 0) {
+      cur = fetch(t - 1);
+      grid.sync();
+    }
+  }
+}
+
 template <bool STASH>
 cudaError_t run_fwd(const float* gates, const float* U, const float* drop,
                     const float* h0, float* hs, float* acts, unsigned* qslots,
@@ -325,6 +441,17 @@ cudaError_t run_bwd(const float* a, const float* U, const float* Ut,
   return cudaSuccess;
 }
 
+// one cooperative launch of the chain at block shape (BI, UN)
+template <int BI, int UN>
+cudaError_t launch_chain(int grid, int smem, cudaStream_t stream,
+                         const float* pre, const float* U, const float* drop,
+                         const float* h_prev, const float* dhs, float* dg,
+                         float* xbuf, int T, int B, int H, int act, int KS) {
+  return persist::launch<ligru_bwd_persist<BI, UN>>(
+      grid, smem, stream, pre, U, drop, h_prev, dhs, dg, xbuf, T, B, H, act,
+      KS);
+}
+
 }  // namespace
 
 extern "C" {
@@ -349,9 +476,10 @@ int fused_ligru_fwd(const float* gates, const float* U, const float* drop,
   return fn(gates, U, drop, h0, hs, acts, qslots, T, B, H, act, qbits, stream);
 }
 
-// Launches the whole backward on `stream`: T step kernels in reverse time
-// (and, for the recompute backward with qbits > 0, one reduction for the
-// T quantizer scales first). Returns the first cudaError_t seen.
+// Launches the whole backward on `stream` on the step route: T step
+// kernels in reverse time (and, for the recompute backward with qbits >
+// 0, one reduction for the T quantizer scales first). Returns the first
+// cudaError_t seen.
 //   a:      (T, B, 2H) stash [act(a_h), z] (stash=1) or gates (stash=0)
 //   U, Ut:  (2H, H) and its transpose (H, 2H)
 //   h_prev: (T, B, H) carries entering each step;  dhs: (T, B, H)
@@ -366,6 +494,58 @@ int fused_ligru_bwd(const float* a, const float* U, const float* Ut,
   auto fn = stash ? run_bwd<true> : run_bwd<false>;
   return fn(a, U, Ut, drop, h_prev, dhs, carry, dg, qslots, T, B, H, act,
             qbits, stream);
+}
+
+// The recompute backward on the persistent route on `stream`: with qbits >
+// 0 the T scales of q(h_prev) (qslots, zeroed here) and q(h_prev) into qh;
+// pre = gates + q(h_prev) @ U^T as one GEMM (rec_u_gemm, Ut the (H, 2H)
+// transpose of U); then one cooperative launch of `grid` blocks of
+// ligru_bwd_persist (bi: BT = 8 * bi rows a block; units: 8 or 16; slab:
+// the contraction values staged at once; smem bytes of dynamic shared
+// memory: fused_rnn.ligru_bwd_plan). Returns the first cudaError_t seen.
+//   gates, pre, dg: (T, B, 2H);  h_prev, dhs, qh: (T, B, H);  drop: (B, H)
+//   xbuf: (2, B, 2H rounded up to 8) scratch;  qslots: T unsigned ints
+int ligru_bwd_persist_run(const float* gates, const float* U, const float* Ut,
+                          const float* drop, const float* h_prev,
+                          const float* dhs, float* qh, float* pre,
+                          float* xbuf, float* dg, unsigned* qslots, int T,
+                          int B, int H, int act, int qbits, int grid, int bi,
+                          int units, int slab, int smem, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (bi != 2 && units != 8) return cudaErrorInvalidValue;
+  const size_t bh = (size_t)B * H;
+  const float* x = h_prev;
+  cudaError_t err = cudaSuccess;
+  if (qbits > 0) {
+    err = cudaMemsetAsync(qslots, 0, (size_t)T * sizeof(unsigned), stream);
+    if (err != cudaSuccess) return err;
+    const int nblk = (int)((bh + 255) / 256 < 16 ? (bh + 255) / 256 : 16);
+    absmax_steps<<<dim3(nblk, T), 256, 0, stream>>>(h_prev, (int)bh, qslots);
+    quant_steps<false><<<dim3(nblk, T), 256, 0, stream>>>(
+        h_prev, qslots, std::ldexp(1.f, qbits - 1), qh, (int)bh);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    x = qh;
+  }
+  err = bs_gemm::rec_u_gemm_launch(x, Ut, nullptr, gates, pre, T * B, H,
+                                   2 * H, stream);
+  if (err != cudaSuccess) return err;
+  auto fn = bi == 1      ? launch_chain<1, 8>
+            : bi == 4    ? launch_chain<4, 8>
+            : units == 16 ? launch_chain<2, 16>
+                          : launch_chain<2, 8>;
+  return fn(grid, smem, stream, pre, U, drop, h_prev, dhs, dg, xbuf, T, B, H,
+            act, slab);
+}
+
+// out[0..2]: the chain's co-resident blocks per SM at `smem` bytes of
+// dynamic shared memory (bi and units as above), the SM count, and
+// whether the device takes cooperative launches.
+int fused_ligru_bwd_occupancy(int bi, int units, int smem, int* out) {
+  if (bi == 1) return persist::occupancy<ligru_bwd_persist<1, 8>>(smem, out);
+  if (bi == 4) return persist::occupancy<ligru_bwd_persist<4, 8>>(smem, out);
+  return units == 16 ? persist::occupancy<ligru_bwd_persist<2, 16>>(smem, out)
+                     : persist::occupancy<ligru_bwd_persist<2, 8>>(smem, out);
 }
 
 }  // extern "C"

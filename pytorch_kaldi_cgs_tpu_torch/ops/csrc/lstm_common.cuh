@@ -1,7 +1,9 @@
 // Device helpers shared by the fused LSTM kernels (fused_lstm_fwd.cu,
 // fused_lstm_bwd.cu, fused_lstm_sparse.cu): the cell's activations and
-// their derivatives, the recurrent-input quantizer, bf16 rounding, and
-// the reductions that give the quantizer its per-step scale.
+// their derivatives, the recurrent-input quantizer, bf16 rounding, the
+// reductions that give the quantizer its per-step scale, and the pass
+// that quantizes every step at once (the rebuilds of the sparse GRU's and
+// the liGRU's BPTT).
 
 #pragma once
 
@@ -51,6 +53,24 @@ __device__ __forceinline__ float quant(float x, float var, float scale) {
   return ceilf(fabsf(x) / var * scale) / scale * var * s;
 }
 
+// quant(x, var, scale) for an inner loop: the division by var as the
+// product with inv = 1 / var and one FMA correction (Markstein), which
+// gives the correctly rounded quotient for the normal operands a
+// quantizer sees (tests/test_torch_persist.py holds it to IEEE division
+// on random pairs), without the IEEE division's sequence and slow-path
+// branch in the caller's loop; scale
+// is a power of two (2^(bits-1)), so dividing by it is the product with
+// inv_scale. The same bits as quant(); identity when var == 0.
+__device__ __forceinline__ float quant_rcp(float x, float var, float inv,
+                                           float scale, float inv_scale) {
+  if (var == 0.f) return x;
+  const float s = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  const float a = fabsf(x);
+  float q = a * inv;
+  q = fmaf(fmaf(-q, var, a), inv, q);
+  return ceilf(q * scale) * inv_scale * var * s;
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -83,6 +103,22 @@ __global__ void absmax_steps(const float* __restrict__ x, int n,
     m = max(m, __float_as_uint(fabsf(xt[i])));
   m = __reduce_max_sync(0xffffffffu, m);
   if ((threadIdx.x & 31) == 0 && m) atomicMax(slots + blockIdx.y, m);
+}
+
+// out = q(v) of each step's (B, H) block (scale: max|v_t| bits, or null
+// for none), rounded to bf16 under BF16 (grid.y = steps).
+template <bool BF16>
+__global__ void quant_steps(const float* __restrict__ v,
+                            const unsigned* __restrict__ scale, float qscale,
+                            float* __restrict__ out, int n) {
+  const size_t base = (size_t)blockIdx.y * n;
+  const float var = scale ? __uint_as_float(scale[blockIdx.y]) : 0.f;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    float x = v[base + i];
+    if (scale) x = quant(x, var, qscale);
+    out[base + i] = BF16 ? round_bf16(x) : x;
+  }
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
-// The persistent cooperative reverse chain shared by the GRU BPTT kernels
-// (fused_gru_torch.cu, fused_gru_sparse.cu): one launch runs every reverse
-// step, each block owning UN (8 or 16) hidden units and BT batch rows for
-// the whole call, the recurrent weights of its units resident in its
-// shared memory, a grid-wide barrier where a step needs the cotangents
-// that the other blocks wrote.
+// The persistent cooperative chains shared by the recurrences' kernels:
+// the GRU BPTTs (fused_gru_torch.cu, fused_gru_sparse.cu), the liGRU's
+// recompute BPTT (fused_ligru.cu) and the sparse GRU's forward
+// (fused_gru_sparse.cu). One launch runs every step, each block owning UN
+// (8 or 16) hidden units and BT batch rows for the whole call, the
+// recurrent weights of its units resident in its shared memory, a
+// grid-wide barrier where a step needs what the other blocks wrote.
 //
 // The launch is cooperative (cudaLaunchCooperativeKernel), so the driver
 // refuses a grid that cannot be co-resident instead of letting the spin
@@ -12,16 +13,18 @@
 // shared-memory attribute is set) times the SM count, and picks the route
 // before the launch.
 //
-// Per dependent product a block stages the cotangents its units need,
-// (BT, K) rows read from L2 by cp.async.cg (16 bytes, L1 bypassed: the
-// other blocks wrote them in this launch, so the non-coherent path must
-// not see them), and forms its units' dots against its weights, kept as
-// ws[k][UN]: a warp takes a contiguous range of k, its lanes 8 batch lanes
-// x 4 k lanes, a lane BT/8 rows x UN units in registers; the 4 k
-// lanes are summed with shuffles and the 8 warps' partials in a fixed
-// order, so the sums are the same in every call and no float atomics are
-// used. A staged row is K rounded up to 8 plus 4 floats long, which puts
-// the 32 lanes' reads on 32 banks.
+// Per dependent product a block stages the vectors its units need (the
+// cotangents, or the forward's carries), (BT, K) rows read from L2 by
+// cp.async.cg (16 bytes, L1 bypassed: the other blocks wrote them in this
+// launch, so the non-coherent path must not see them), and forms its
+// units' dots against its weights, kept as ws[k][UN]: a warp takes a
+// contiguous range of k, its lanes 8 batch lanes x 4 k lanes, a lane
+// BT/8 rows x UN units in registers; the 4 k lanes are summed with
+// shuffles and the 8 warps' partials in a fixed order, so the sums are
+// the same in every call and no float atomics are used. A staged row is
+// K rounded up to 8 plus 4 floats long, which puts the 32 lanes' reads on
+// 32 banks. Where BT rows of K do not fit beside the weights, slab_dots
+// stages them in slabs of the contraction, two in flight.
 //
 // The barrier is cooperative_groups' grid.sync(). Timed once on the H100
 // against a hand-written counter barrier (release/acquire fences around one
@@ -86,30 +89,27 @@ __device__ __forceinline__ void stage_rows(int rows, int len, Src src,
 }
 
 // floats between two units' weight rows k and k+1 of ws: UN, padded at 16
-// so that the 4 k lanes' 16-byte reads fall on distinct banks
+// and 32 so that the 4 k lanes' 16-byte reads fall on distinct banks
 __host__ __device__ constexpr int w_stride(int UN) {
-  return UN == 16 ? 20 : UN;
+  return UN == 16 ? 20 : (UN == 32 ? 36 : UN);
 }
 
-// red[(w * BT + b) * UN + u] = warp w's share of sum_k xs[b][k] *
-// ws[k][u] for the BT = 8 * BI staged rows (row stride SK, at least
-// row_stride(K) and 4 more than a multiple of 8) and UN (8 or 16) units
-// (ws rows w_stride(UN) apart), k over warp w's range of [0, K), each
-// staged value rounded to bf16 first under RND; followed by a
-// __syncthreads, after which out(b, u) = unit_sum(red, b * UN + u).
-template <int BI, int UN = UNITS, bool RND = false>
-__device__ __forceinline__ void unit_dots(const float* xs, int SK,
-                                          const float* ws, int K,
-                                          float* red) {
-  constexpr int BT = BLANES * BI, WS = w_stride(UN), V = UN / 4;
+// acc[i][u] += sum_k xf(xs[(bl + 8i) * SK + k]) * ws[k][u] over warp w's
+// share [n w / WARPS, n (w+1) / WARPS) of the n staged columns, this
+// lane's k lanes' part of it: the per-lane half of unit_dots, which a
+// caller that stages the contraction in slabs (slab_dots) calls once a
+// slab, ws and xs pointing at the slab's first column. xf transforms each
+// staged value before its products (bf16 rounding, a quantizer): it runs
+// inside the FMA loop, so it must not divide (an IEEE division there took
+// the sparse GRU forward's libri call from 1.9 to 4.0 ms on the H100).
+template <int BI, int UN, typename XF>
+__device__ __forceinline__ void slab_fma(const float* xs, int SK,
+                                         const float* ws, int n,
+                                         float (&acc)[BI][UN], XF xf) {
+  constexpr int WS = w_stride(UN), V = UN / 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kl = lane & (KLANES - 1), bl = lane / KLANES;
-  const int kb = K * warp / WARPS, ke = K * (warp + 1) / WARPS;
-  float acc[BI][UN];
-#pragma unroll
-  for (int i = 0; i < BI; ++i)
-#pragma unroll
-    for (int u = 0; u < UN; ++u) acc[i][u] = 0.f;
+  const int kb = n * warp / WARPS, ke = n * (warp + 1) / WARPS;
 #pragma unroll 4
   for (int k = kb + kl; k < ke; k += KLANES) {
     float4 w[V];
@@ -118,8 +118,7 @@ __device__ __forceinline__ void unit_dots(const float* xs, int SK,
       w[v] = *reinterpret_cast<const float4*>(ws + k * WS + 4 * v);
 #pragma unroll
     for (int i = 0; i < BI; ++i) {
-      float x = xs[(bl + BLANES * i) * SK + k];
-      if (RND) x = __bfloat162float(__float2bfloat16_rn(x));
+      const float x = xf(xs[(bl + BLANES * i) * SK + k]);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         acc[i][4 * v] = fmaf(x, w[v].x, acc[i][4 * v]);
@@ -129,6 +128,17 @@ __device__ __forceinline__ void unit_dots(const float* xs, int SK,
       }
     }
   }
+}
+
+// Sum the 4 k lanes of acc with shuffles and write each warp's partials
+// to red[(w * BT + b) * UN + u]; followed by a __syncthreads, after which
+// out(b, u) = unit_sum(red, b * UN + u).
+template <int BI, int UN>
+__device__ __forceinline__ void unit_reduce(float (&acc)[BI][UN],
+                                            float* red) {
+  constexpr int BT = BLANES * BI, V = UN / 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kl = lane & (KLANES - 1), bl = lane / KLANES;
 #pragma unroll
   for (int i = 0; i < BI; ++i)
 #pragma unroll
@@ -148,6 +158,79 @@ __device__ __forceinline__ void unit_dots(const float* xs, int SK,
     }
   }
   __syncthreads();
+}
+
+// each staged value as it is, or rounded to bf16 under RND
+template <bool RND>
+struct bf16_or_ident {
+  __device__ __forceinline__ float operator()(float x) const {
+    return RND ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+  }
+};
+
+// red[(w * BT + b) * UN + u] = warp w's share of sum_k xs[b][k] *
+// ws[k][u] for the BT = 8 * BI staged rows (row stride SK, at least
+// row_stride(K) and 4 more than a multiple of 8) and UN (8, 16 or 32)
+// units (ws rows w_stride(UN) apart), k over warp w's range of [0, K),
+// each staged value rounded to bf16 first under RND (or transformed by
+// xf where one is given, as slab_fma's); followed by a __syncthreads,
+// after which out(b, u) = unit_sum(red, b * UN + u).
+template <int BI, int UN = UNITS, bool RND = false,
+          typename XF = bf16_or_ident<RND>>
+__device__ __forceinline__ void unit_dots(const float* xs, int SK,
+                                          const float* ws, int K, float* red,
+                                          XF xf = XF()) {
+  float acc[BI][UN];
+#pragma unroll
+  for (int i = 0; i < BI; ++i)
+#pragma unroll
+    for (int u = 0; u < UN; ++u) acc[i][u] = 0.f;
+  slab_fma<BI, UN>(xs, SK, ws, K, acc, xf);
+  unit_reduce<BI, UN>(acc, red);
+}
+
+// unit_dots over a contraction of K values that does not fit shared
+// memory at once: the `rows` rows (row r's values from src(r), 16-byte
+// aligned, KX >= K of them readable, KX a multiple of 4) are staged
+// through two buffers of (BT, SK) floats at xs, xs + BT * SK in slabs of
+// KS values (a multiple of 4; SK >= row_stride(KS)), the next slab's
+// copy in flight while the current one is summed; with KS >= K it stages
+// once into the first buffer. Each warp sums its share of each slab, so
+// the order of the sums is fixed by K and KS. Every thread of the block
+// takes part; no cp.async group may be pending on entry.
+template <int BI, int UN, typename Src>
+__device__ __forceinline__ void slab_dots(Src src, int rows, int K, int KX,
+                                          int KS, float* xs, int SK,
+                                          const float* ws, float* red) {
+  constexpr int BT = BLANES * BI, WS = w_stride(UN);
+  const int ns = (K + KS - 1) / KS;
+  float acc[BI][UN];
+#pragma unroll
+  for (int i = 0; i < BI; ++i)
+#pragma unroll
+    for (int u = 0; u < UN; ++u) acc[i][u] = 0.f;
+  auto issue = [&](int s) {
+    const int k0 = s * KS;
+    float* d = xs + (size_t)(s & 1) * BT * SK;
+    stage_rows(rows, min(KS, KX - k0), [&](int r) { return src(r) + k0; },
+               [&](int r) { return d + (size_t)r * SK; });
+    cp_async_commit();
+  };
+  issue(0);
+  for (int s = 0; s < ns; ++s) {
+    if (s + 1 < ns) {
+      issue(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = s * KS;
+    slab_fma<BI, UN>(xs + (size_t)(s & 1) * BT * SK, SK, ws + (size_t)k0 * WS,
+                     min(KS, K - k0), acc, bf16_or_ident<false>());
+    if (s + 2 < ns) __syncthreads();    // issue(s + 2) refills this buffer
+  }
+  unit_reduce<BI, UN>(acc, red);
 }
 
 // out(b, u) for the thread of output o = b * UN + u (o < BT * UN)

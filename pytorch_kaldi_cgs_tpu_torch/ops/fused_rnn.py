@@ -20,7 +20,8 @@ the CPU runs:
 
 A wrapper launches its kernel on a CUDA tensor (or raises) and runs its
 twin on a CPU tensor; its attribute ``launches`` counts kernel launches
-(one per time step).
+(one per time step, or a few a call on a persistent route: the recompute
+BPTT's, below).
 
 :func:`ligru_scan_fused` (zero initial state) is the differentiable
 entry point: a ``torch.autograd.Function`` whose forward runs the
@@ -40,6 +41,14 @@ Per step t, gates ordered [h | z] (candidate first), U = [Uh; Uz]:
 ``q`` is the per-step recurrent-input quantizer (scale max|h| over the
 step's (B, H) block) with a straight-through gradient. Everything is
 float32: as in the JAX package, the fused liGRU has no bf16 variant.
+
+The recompute BPTT picks its route before the launch
+(:func:`ligru_bwd_route` over :func:`ligru_bwd_plan`): "persist" rebuilds
+every step's pre-activations as one GEMM and runs the reverse chain as
+one cooperative launch (``csrc/persist.cuh``); "step", where the chain's
+blocks do not fit or are not co-resident, launches one kernel per reverse
+step. The sparse GRU's forward and BPTT and the torch-semantics GRU's
+BPTT route the same way (their notes below).
 """
 
 from __future__ import annotations
@@ -229,13 +238,18 @@ def _bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
         if stash:
             return fused_ligru_bwd_stash_plain(lead, U, drop, h_prev, dhs, act)
         return fused_ligru_bwd_plain(lead, U, drop, h_prev, dhs, act, qbits)
+    dev = lead.device
+    if not stash:
+        route, plan = ligru_bwd_route(B, H, dev)
+        if route == "persist":
+            return _ligru_bwd_persist(plan, lead, U, drop, h_prev, dhs, act,
+                                      qbits)
     from . import _build
     lib = _build.load("fused_ligru")
     fn = lib.fused_ligru_bwd
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    dev = lead.device
     Ut = U.t().contiguous()                  # (H, 2H): rows for dg @ U
     dg = torch.empty_like(lead)
     carry = torch.zeros((B, H), dtype=torch.float32, device=dev)
@@ -248,6 +262,34 @@ def _bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
                 qbits, int(stash), _stream(dev))
     _build.check(lib, rc, wrapper.__name__)
     wrapper.launches += T
+    return dg
+
+
+def _ligru_bwd_persist(plan, gates, U, drop, h_prev, dhs, act, qbits):
+    """The recompute BPTT on the persistent route (``plan``: its
+    PersistPlan, :func:`ligru_bwd_plan`): with qbits > 0 the per-step
+    scales and q(h_prev), then pre = gates + q(h_prev) @ U^T as one GEMM
+    (the pre-activations of every step), then the chain in one cooperative
+    launch. -> dg (T, B, 2H)."""
+    from . import block_sparse as BS
+    T, B, H = h_prev.shape
+    dev = gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    Ut = U.t().contiguous()                  # (H, 2H): the GEMM's B
+    q = qbits > 0
+    qh = torch.empty((T, B, H), **f32) if q else None
+    pre = torch.empty_like(gates)
+    xbuf = torch.empty((2, B, -(-2 * H // 8) * 8), **f32)
+    dg = torch.empty_like(gates)
+    qslots = torch.empty(T if q else 1, dtype=torch.int32, device=dev)
+    BS._launch("fused_ligru", "ligru_bwd_persist_run", dev,
+               (gates.data_ptr(), U.data_ptr(), Ut.data_ptr(),
+                drop.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(), _ptr(qh),
+                pre.data_ptr(), xbuf.data_ptr(), dg.data_ptr(),
+                qslots.data_ptr()),
+               (T, B, H, _ACT_CODE[act], qbits, plan.grid, plan.bi,
+                plan.units, plan.slab, plan.smem))
+    fused_ligru_bwd.launches += ligru_bwd_launches("persist", T, qbits)
     return dg
 
 
@@ -272,7 +314,12 @@ def fused_ligru_bwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     """BPTT with recompute (TPU kernel ``_build_ligru_bwd``): ``gates``
     are the forward's inputs, ``h_prev`` (T, B, H) the carries entering
     each step, re-quantized per step for the recompute dot. -> as
-    :func:`fused_ligru_bwd_stash`."""
+    :func:`fused_ligru_bwd_stash`. CUDA tensors run the kernels on the
+    route :func:`ligru_bwd_route` picks before the launch: "persist" (the
+    pre-activations of all steps rebuilt as one GEMM, then the reverse
+    chain in one cooperative launch: :func:`ligru_bwd_launches`) where the
+    chain's blocks fit and are co-resident, else "step" (a launch per
+    reverse step); CPU tensors the twin."""
     return _bwd(fused_ligru_bwd, gates, U, drop, h_prev, dhs, act, qbits,
                 False)
 
@@ -840,10 +887,12 @@ def mgru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
 # _build_mgru_bwd_sparse become csrc/fused_gru_sparse.cu. The recurrent
 # matrices share one HCGS mask; their kept blocks pack into w3g
 # (Nb, G*bs, R*bs), each block gate-major [h | z | r] ([h | z]), and both
-# products run over the kept blocks only. The backward rebuilds the
-# forward's quantities for all steps at once, then runs two launches per
-# reverse step, and also returns s for the dU: two block-sparse dw
-# products.
+# products run over the kept blocks only. The GRU's forward runs all steps
+# in one cooperative launch where its blocks fit and are co-resident
+# (gru_fwd_sparse_route), else two launches per step. The backward
+# rebuilds the forward's quantities for all steps at once, then runs the
+# reverse chain (in one cooperative launch, or two launches per reverse
+# step), and also returns s for the dU: two block-sparse dw products.
 
 def _gru_sparse_fns(w3g, layout, bf16):
     """(w3g's U_h and [U_z; U_r] (U_z) parts, rec_zr, rec_h) of the
@@ -916,12 +965,17 @@ def _gru_fwd_sparse(wrapper, G, scan, gates, w3g, drop, layout, act, qbits,
     if gates.device.type == "cpu":
         return fused_gru_fwd_sparse_plain(gates, w3g, drop, layout, act,
                                           qbits, bf16)
+    dev = gates.device
+    if G == 3:
+        route, plan = gru_fwd_sparse_route(B, layout, bf16, dev)
+        if route == "persist":
+            return _gru_fwd_sparse_persist(plan, gates, w3g, drop, layout,
+                                           act, qbits, bf16)
     from . import _build
     lib = _build.load("fused_gru_sparse")
     fn = getattr(lib, wrapper.__name__)
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    dev = gates.device
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     fw = torch.empty((B, G * H), dtype=torch.float32, device=dev)
     s = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -939,6 +993,31 @@ def _gru_fwd_sparse(wrapper, G, scan, gates, w3g, drop, layout, act, qbits,
     return hs
 
 
+def _gru_fwd_sparse_persist(plan, gates, w3g, drop, layout, act, qbits,
+                            bf16):
+    """The sparse GRU forward on the persistent route (``plan``: its
+    PersistPlan, :func:`gru_fwd_sparse_plan`): all T steps in one
+    cooperative launch. -> hs (T, B, H)."""
+    from . import block_sparse as BS
+    T, B, G3 = gates.shape
+    H, dev = G3 // 3, gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    s = torch.empty((B, H), dtype=torch.float32, device=dev)
+    # each block's max|h| and max|s| of the step, for the quantizer
+    bmax = torch.empty(2 * plan.grid if qbits > 0 else 1, dtype=torch.int32,
+                       device=dev)
+    wk = _sparse_w(w3g, bf16)
+    BS._launch("fused_gru_sparse", "gru_fwd_sparse_persist", dev,
+               (gates.data_ptr(), wk.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                drop.data_ptr(), hs.data_ptr(), s.data_ptr(),
+                bmax.data_ptr()),
+               (T, B, H, layout.R, layout.bs, _ACT_CODE[act], qbits,
+                int(bf16), plan.grid, plan.bi, plan.units, plan.smem))
+    fused_gru_fwd_sparse.launches += gru_fwd_sparse_launches("persist", T)
+    return hs
+
+
 def fused_gru_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
                          drop: torch.Tensor, layout, act: str = "tanh",
                          qbits: int = 0, bf16: bool = False) -> torch.Tensor:
@@ -946,9 +1025,12 @@ def fused_gru_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     U (TPU kernel ``_build_gru_fwd_sparse``): ``gates`` (T, B, 3H) float32
     ordered [h | z | r], ``w3g`` (Nb, 3*bs, R*bs) float32 (cast to bf16
     for the kernel when ``bf16``), ``drop`` broadcastable to (B, H). ->
-    hs (T, B, H). CUDA tensors run the kernel (two launches per step),
-    CPU tensors the twin; no autograd of its own
-    (:func:`gru_scan_fused_sparse` carries the BPTT kernel)."""
+    hs (T, B, H). CUDA tensors run the kernels on the route
+    :func:`gru_fwd_sparse_route` picks before the launch: "persist" (all
+    steps in one cooperative launch) where the blocks fit and are
+    co-resident, else "step" (two launches per step); CPU tensors the
+    twin; no autograd of its own (:func:`gru_scan_fused_sparse` carries
+    the BPTT kernel)."""
     return _gru_fwd_sparse(fused_gru_fwd_sparse, 3, "gru_scan_fused_sparse",
                            gates, w3g, drop, layout, act, qbits, bf16)
 
@@ -994,8 +1076,10 @@ class PersistPlan(NamedTuple):
     """A persistent chain's launch: ``bi`` (a block's batch rows / 8) and
     ``units`` (its hidden units), ``grid`` blocks, ``smem`` bytes of
     dynamic and ``static`` of static shared memory a block, and per block
-    its ``resident`` weight bytes and the cotangent bytes it ``staged``
-    per reverse step (the heaviest block's)."""
+    its ``resident`` weight bytes and the bytes it ``staged`` per step
+    (the heaviest block's), ``slab`` values of the contraction a row at a
+    time in ``slabs`` copies (the liGRU's chain; the GRU chains stage
+    whole rows and leave 0 and 1)."""
     bi: int
     units: int
     grid: int
@@ -1003,11 +1087,78 @@ class PersistPlan(NamedTuple):
     static: int
     resident: int
     staged: int
+    slab: int = 0
+    slabs: int = 1
 
 
 def _row_stride(K: int) -> int:
     """persist.cuh's ``row_stride``: floats between two staged rows."""
     return (K + 7) // 8 * 8 + 4
+
+
+def _w_stride(units: int) -> int:
+    """persist.cuh's ``w_stride``: floats between two weight rows of
+    ``units`` columns (padded at 16 and 32 against bank conflicts)."""
+    return {16: 20, 32: 36}.get(units, units)
+
+
+#: the block shape (bi, units) of the liGRU's chain and of the sparse GRU
+#: forward's above 16 batch rows: 16 units x 16 rows, which stage half the
+#: bytes of 8 x 32 (the blocks of one unit group stage the same rows)
+WIDE_SHAPE = (2, 16)
+
+
+def _shape(B: int, wide=WIDE_SHAPE) -> tuple:
+    """(bi, units) of a chain at batch B: 8 units and 8 (B <= 8) or 16
+    (B <= 16) rows, else ``wide``."""
+    return (1, 8) if B <= 8 else ((2, 8) if B <= 16 else wide)
+
+
+def ligru_bwd_plan(B: int, H: int, shape: Optional[tuple] = None
+                   ) -> PersistPlan:
+    """The liGRU recompute BPTT's persistent chain at batch B and width H
+    (``shape`` (bi, units) forces a block shape; else :func:`_shape`): a
+    block owns its units' 2H-long columns of U (rows of 16 units padded to
+    20 floats), stages dg_{t+1} (2H floats a row) per step: at once where
+    the rows fit beside the weights and the dots' partials, else in the
+    fewest slabs of a multiple of 32 values whose two buffers fit."""
+    bi, un = shape or _shape(B)
+    bt, K = 8 * bi, 2 * H
+    XS = -(-K // 8) * 8
+    ws = 4 * K * _w_stride(un)
+    red = 4 * PERSIST_WARPS * bt * un
+    slab, bufs = XS, 1
+    if ws + 4 * bt * _row_stride(XS) + red > _SMEM_MAX:
+        avail = (_SMEM_MAX - ws - red) // (4 * 2 * bt)
+        n = 2
+        while True:                 # n slabs of ceil(XS / n), up to 32s
+            slab = (-(-XS // n) + 31) // 32 * 32
+            if _row_stride(slab) <= avail or slab <= 32:
+                break
+            n += 1
+        bufs = 2
+    smem = ws + 4 * bufs * bt * _row_stride(slab) + red
+    grid = -(-H // un) * -(-B // bt)
+    return PersistPlan(bi, un, grid, smem, 0, 4 * K * un,
+                       4 * min(bt, B) * K, slab, -(-K // slab))
+
+
+def gru_fwd_sparse_plan(B: int, layout, shape: Optional[tuple] = None
+                        ) -> PersistPlan:
+    """The sparse GRU forward's persistent chain at batch B over
+    ``layout`` (``shape`` forces (bi, units)): a block owns units of one
+    out-block (16 only where bs holds them) with their R*bs-long rows of
+    the three gates resident ([z | r] as 2 x units columns, the
+    candidate's as units; padded as :func:`_w_stride`), and stages per
+    step q(h_{t-1}) and q(s) at the out-block's R kept column blocks."""
+    bs, K3 = layout.bs, layout.R * layout.bs
+    bi, un = shape or _shape(B, WIDE_SHAPE if bs % 16 == 0 else (4, 8))
+    bt, zc = 8 * bi, 2 * un
+    smem = (4 * K3 * (_w_stride(zc) + _w_stride(un))
+            + 4 * bt * _row_stride(K3) + 4 * PERSIST_WARPS * bt * zc)
+    grid = (layout.N // un) * -(-B // bt)
+    return PersistPlan(bi, un, grid, smem, 0, 4 * 3 * K3 * un,
+                       2 * 4 * min(bt, B) * K3)
 
 
 def gru_torch_bwd_plan(B: int, H: int) -> PersistPlan:
@@ -1099,6 +1250,38 @@ def gru_bwd_sparse_route(B: int, layout, bf16: bool, dev) -> tuple:
     plan = gru_bwd_sparse_plan(B, layout.N, layout.bs, layout.C)
     return _route(plan, "fused_gru_sparse", "gru_bwd_sparse_occupancy",
                   (int(bf16), plan.bi), torch.device(dev)), plan
+
+
+def ligru_bwd_route(B: int, H: int, dev) -> tuple:
+    """(route, plan) of :func:`fused_ligru_bwd` at batch B and width H on
+    the card ``dev``."""
+    plan = ligru_bwd_plan(B, H)
+    return _route(plan, "fused_ligru", "fused_ligru_bwd_occupancy",
+                  (plan.bi, plan.units), torch.device(dev)), plan
+
+
+def ligru_bwd_launches(route: str, T: int, qbits: int) -> int:
+    """Kernels one :func:`fused_ligru_bwd` call launches on ``route``:
+    "persist" the per-step scales and q(h_prev) (qbits > 0), the rebuild's
+    GEMM and the chain; "step" one a reverse step."""
+    return 2 + 2 * int(qbits > 0) if route == "persist" else T
+
+
+def gru_fwd_sparse_route(B: int, layout, bf16: bool, dev) -> tuple:
+    """(route, plan) of :func:`fused_gru_fwd_sparse` at batch B over
+    ``layout`` on the card ``dev``: "step" where the block's units do not
+    divide bs."""
+    plan = gru_fwd_sparse_plan(B, layout)
+    if layout.bs % plan.units:
+        return "step", plan
+    return _route(plan, "fused_gru_sparse", "gru_fwd_sparse_occupancy",
+                  (int(bf16), plan.bi, plan.units), torch.device(dev)), plan
+
+
+def gru_fwd_sparse_launches(route: str, T: int) -> int:
+    """Kernels one :func:`fused_gru_fwd_sparse` call launches on
+    ``route``: "persist" the one cooperative launch, "step" two a step."""
+    return 1 if route == "persist" else 2 * T
 
 
 def gru_bwd_sparse_launches(route: str, T: int, qbits: int,

@@ -26,7 +26,9 @@ JAX comes in through fixtures, so that the ``cuda`` cases also run where
 JAX is not installed
 (``python -m pytest --noconftest -m cuda tests/test_torch_gru.py``).
 There the kernels are held against their twins on the same tensors
-(float32 atol 1e-5; the 16-bit quantizer 1e-4; bf16 w3g 2e-2).
+(float32 atol 1e-5, 1e-4 over the libri shapes' 200-398 steps; the 16-bit
+quantizer 1e-4; bf16 w3g 2e-2), each routed call on its route with its
+launches, and a persistent call bit for bit over two calls.
 """
 import configparser
 import os
@@ -660,14 +662,16 @@ def test_cuda_v3_kernels_match_twins(cuda_device, case):
 @pytest.mark.parametrize("qbits", [0, 16])
 @pytest.mark.parametrize("act", ["tanh", "relu"])
 def test_cuda_gru_kernels_match_twins(cuda_device, act, qbits, wbf16):
-    """The sparse GRU forward (2 launches per step) and BPTT (the
-    persistent route at this shape: the rebuild's passes and one chain,
-    3-6 launches, and two v3 forward calls) kernels against their twins
-    on the card."""
+    """The sparse GRU forward (the persistent route at this shape: one
+    launch) and BPTT (the persistent route: the rebuild's passes and one
+    chain, 3-6 launches, and two v3 forward calls) kernels against their
+    twins on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     _, tl, *arrays = _gru_inputs(19)
     g, w3g, drop, dhs = (tt(a).to(cuda_device) for a in arrays)
     assert tfr.gru_bwd_sparse_route(B, tl, wbf16, cuda_device)[0] == \
+        "persist"
+    assert tfr.gru_fwd_sparse_route(B, tl, wbf16, cuda_device)[0] == \
         "persist"
     before = (tfr.fused_gru_fwd_sparse.launches,
               tfr.fused_gru_bwd_sparse.launches,
@@ -680,7 +684,7 @@ def test_cuda_gru_kernels_match_twins(cuda_device, act, qbits, wbf16):
     assert (tfr.fused_gru_fwd_sparse.launches,
             tfr.fused_gru_bwd_sparse.launches,
             tbs.block_sparse_v3_fwd.launches) == (
-                before[0] + 2 * T, before[1] + rebuild[qbits, wbf16],
+                before[0] + 1, before[1] + rebuild[qbits, wbf16],
                 before[2] + 2)
     ref_h = tfr.fused_gru_fwd_sparse_plain(g, w3g, drop, tl, act, qbits,
                                            wbf16)
@@ -781,6 +785,78 @@ def test_cuda_gru_bwd_step_route_matches_twin(cuda_device):
     for a, r in ((s, ref_s), (dg, ref_dg)):
         np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(),
                                    atol=ATOL_Q)
+
+
+def _fwd_inputs(seed, t, b, layout):
+    rng = np.random.RandomState(seed)
+    d = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    h, bs = layout.N, layout.bs
+    return (d(rng.randn(t, b, 3 * h) * 0.5),
+            d(rng.randn(layout.Nb, 3 * bs, layout.R * bs)
+              / np.sqrt(layout.R * bs)), d(rng.rand(b, h) > 0.2))
+
+
+def _libri_layout():
+    """The libri GRU's recurrent layout (HCGS 128,4 at 75,50 over 1024 x
+    1024: Kb=8, R=2)."""
+    mask = hcgs_mask(1024, 1024, [128, 4], [75, 50],
+                     rng=np.random.RandomState(150))
+    return tbs.pack_layout(mask, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wbf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("qbits", [0, 16])
+@pytest.mark.parametrize("case", ["b13", "bs16_b20", "libri_train",
+                                  "libri_serve"])
+def test_cuda_gru_fwd_persist_matches_twin(cuda_device, case, qbits, wbf16):
+    """The forward's persistent route (one cooperative launch) against the
+    twin: B=13 at bs=8 (8 units x 16 rows), bs=16 at B=20 (16 x 16, the
+    second batch tile ragged), and the libri layout at the train (T=200,
+    32 rows: 16 x 16) and serve (T=398, 16 rows: 8 x 16) shapes; two calls
+    bit for bit; the float32 bar 1e-4 over the long shapes' steps (the
+    quantizer's ceil step), bf16 w3g 2e-2."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, b, tl = {"b13": (T, 13, _gru_inputs(29)[1]),
+                "bs16_b20": (T, 20, _bs16_layout()),
+                "libri_train": (200, 32, _libri_layout()),
+                "libri_serve": (398, 16, _libri_layout())}[case]
+    route, plan = tfr.gru_fwd_sparse_route(b, tl, wbf16, cuda_device)
+    assert route == "persist" and (plan.bi, plan.units) == {
+        "b13": (2, 8), "bs16_b20": (2, 16), "libri_train": (2, 16),
+        "libri_serve": (2, 8)}[case]
+    g, w3g, drop = _fwd_inputs(47, t, b, tl)
+    args = (g, w3g, drop, tl, "tanh", qbits, wbf16)
+    with torch.no_grad():
+        before = tfr.fused_gru_fwd_sparse.launches
+        hs = tfr.fused_gru_fwd_sparse(*args)
+        assert tfr.fused_gru_fwd_sparse.launches == before + 1
+        hs2 = tfr.fused_gru_fwd_sparse(*args)
+        ref = tfr.fused_gru_fwd_sparse_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(hs, hs2)
+    atol = 2e-2 if wbf16 else (ATOL_Q if qbits or t > T else ATOL)
+    np.testing.assert_allclose(hs.cpu().numpy(), ref.cpu().numpy(),
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_fwd_step_route_matches_twin(cuda_device):
+    """160 rows over the libri layout make 320 blocks of 16 units x 16
+    rows: the per-step kernels (2T launches), against the twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tl, t, b = _libri_layout(), 3, 160
+    assert tfr.gru_fwd_sparse_route(b, tl, False, cuda_device)[0] == "step"
+    g, w3g, drop = _fwd_inputs(53, t, b, tl)
+    args = (g, w3g, drop, tl, "tanh", 16)
+    with torch.no_grad():
+        before = tfr.fused_gru_fwd_sparse.launches
+        hs = tfr.fused_gru_fwd_sparse(*args)
+        assert tfr.fused_gru_fwd_sparse.launches == before + 2 * t
+        ref = tfr.fused_gru_fwd_sparse_plain(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(hs.cpu().numpy(), ref.cpu().numpy(),
+                               atol=ATOL_Q)
 
 
 @pytest.mark.cuda

@@ -30,7 +30,13 @@ float32 no cancelled gradient is amplified here, unlike
 tests/test_torch_ligru.py's narrow net); under bf16 see
 test_train_steps_match_jax.
 
-JAX comes in through fixtures.
+JAX comes in through fixtures, so that the ``cuda`` cases also run where
+JAX is not installed (``python -m pytest --noconftest -m cuda
+tests/test_torch_libri_ligru.py``): there the recompute BPTT's persistent
+route (TPU row 18) is held against its twin at the cfg's training shape
+(T=200, 32 rows, H=1024: its chain stages dg_{t+1} in slabs), at both
+blocks of 256 outputs the plan weighs, and at a ragged width, each within
+1e-4 of the twin's scale and bit for bit over two calls.
 """
 import configparser
 import os
@@ -336,3 +342,90 @@ def test_train_steps_match_jax(jm, monkeypatch, route, case):
     np.testing.assert_allclose(tres[:1], jres[:1], rtol=1e-5)
     np.testing.assert_allclose(tres[1:], jres[1:], rtol=later)
     assert tres[-1][0] < tres[0][0]
+
+
+# ---------------------------------------------------------------------------
+# on the card: the recompute BPTT at the cfg's shape (skips without one)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU "
+                    "mode (chip_smoke.py runs them on the H100)")
+    return torch.device("cuda")
+
+
+def _bwd_args(t, b, h, seed, act):
+    """The recompute BPTT's operands at (t, b, h), relu's pre-activations
+    kept away from its kink (the candidate's gate inputs at +-(4 +
+    |N(0, 0.5)|), the forward run on the card."""
+    rng = np.random.RandomState(seed)
+    g = rng.randn(t, b, 2 * h) * 0.5
+    u_scale = 1.0
+    if act == "relu":
+        sign = np.where(rng.rand(1, b, h) > 0.5, 1.0, -1.0)
+        g[..., :h] = sign * (4.0 + np.abs(g[..., :h]))
+        u_scale = 0.2
+    d = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    g, U = d(g), d(rng.randn(2 * h, h) * u_scale / np.sqrt(h))
+    drop, dhs = d(rng.rand(b, h) > 0.2), d(rng.randn(t, b, h) * 0.1)
+    with torch.no_grad():
+        hs = tfr.fused_ligru_fwd(g, U, drop, act=act)
+    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+    return g, U, drop, h_prev, dhs, act, 0
+
+
+def _close(got, ref):
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+def test_cuda_bwd_persist_at_the_cfg_shape(cuda_device, act):
+    """T=200, 32 rows, H=1024, no quantizer: 128 blocks of 16 units x 16
+    rows, dg_{t+1} staged in 5 slabs; 2 launches (the rebuild's GEMM and
+    the chain); the twin within 1e-4 of scale; two calls bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    route, plan = tfr.ligru_bwd_route(32, 1024, cuda_device)
+    assert route == "persist" and (plan.units, plan.slabs) == (16, 5)
+    args = _bwd_args(200, 32, 1024, 71, act)
+    with torch.no_grad():
+        before = tfr.fused_ligru_bwd.launches
+        dg = tfr.fused_ligru_bwd(*args)
+        assert tfr.fused_ligru_bwd.launches == before + 2
+        dg2 = tfr.fused_ligru_bwd(*args)
+        ref = tfr.fused_ligru_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dg, dg2)
+    _close(dg, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_persist_8_by_32_blocks(cuda_device):
+    """The plan's other block of 256 outputs, 8 units x 32 rows (4 slabs
+    of 512), forced, gives the twin's dg too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _bwd_args(40, 32, 1024, 73, "relu")
+    plan = tfr.ligru_bwd_plan(32, 1024, (4, 8))
+    assert plan.slabs == 4
+    with torch.no_grad():
+        dg = tfr._ligru_bwd_persist(plan, *args)
+        ref = tfr.fused_ligru_bwd_plain(*args)
+    torch.cuda.synchronize()
+    _close(dg, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_persist_ragged_slabs(cuda_device):
+    """H=777 at 20 rows: 49 unit groups of 16 (the last of 9), a ragged
+    second batch tile, and 3 slabs of 544 with a short last one."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    route, plan = tfr.ligru_bwd_route(20, 777, cuda_device)
+    assert route == "persist" and (plan.slab, plan.slabs) == (544, 3)
+    args = _bwd_args(6, 20, 777, 79, "tanh")
+    with torch.no_grad():
+        dg = tfr.fused_ligru_bwd(*args)
+        ref = tfr.fused_ligru_bwd_plain(*args)
+    torch.cuda.synchronize()
+    _close(dg, ref)

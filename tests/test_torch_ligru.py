@@ -596,7 +596,9 @@ def cuda_device():
 @pytest.mark.parametrize("act", ["relu", "tanh"])
 def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
     """The forward (plain, stash, seeded) and both BPTT kernels against
-    their twins on the card, on the same tensors; launches T each."""
+    their twins on the card, on the same tensors; launches T each, the
+    recompute BPTT's on its persistent route (2, or 4 with the
+    quantizer)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g, U, drop, h0, dhs = (tt(a).to(cuda_device) for a in _inputs(19))
     with torch.no_grad():
@@ -614,9 +616,10 @@ def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
                   tfr.fused_ligru_bwd.launches)
         dg_s = tfr.fused_ligru_bwd_stash(acts, U, drop, h_prev, dhs, act)
         dg_r = tfr.fused_ligru_bwd(g, U, drop, h_prev, dhs, act, qbits)
+        assert tfr.ligru_bwd_route(B, H, cuda_device)[0] == "persist"
         assert (tfr.fused_ligru_bwd_stash.launches,
-                tfr.fused_ligru_bwd.launches) == (before[0] + T,
-                                                  before[1] + T)
+                tfr.fused_ligru_bwd.launches) == (
+                    before[0] + T, before[1] + (4 if qbits else 2))
         ref_ds = tfr.fused_ligru_bwd_stash_plain(acts, U, drop, h_prev, dhs,
                                                  act)
         ref_dr = tfr.fused_ligru_bwd_plain(g, U, drop, h_prev, dhs, act,
@@ -626,6 +629,77 @@ def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
                  (dg_s, ref_ds), (dg_r, ref_dr)):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=_atol(qbits))
+
+
+def _wide_inputs(t, b, h, seed, act, dev):
+    """Gates, U, drop and cotangents at width h: for relu the candidate's
+    gate inputs at +-(4 + |N(0, 0.5)|) and U at 0.2/sqrt(h), so no
+    pre-activation comes within an ulp of relu's kink (chip_smoke.py's
+    gated_inputs)."""
+    rng = np.random.RandomState(seed)
+    g = rng.randn(t, b, 2 * h) * 0.5
+    u_scale = 1.0
+    if act == "relu":
+        sign = np.where(rng.rand(1, b, h) > 0.5, 1.0, -1.0)
+        g[..., :h] = sign * (4.0 + np.abs(g[..., :h]))
+        u_scale = 0.2
+    d = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    return (d(g), d(rng.randn(2 * h, h) * u_scale / np.sqrt(h)),
+            d(rng.rand(b, h) > 0.2), d(rng.randn(t, b, h) * 0.1))
+
+
+def _bwd_case(t, b, h, seed, act, qbits, dev):
+    g, U, drop, dhs = _wide_inputs(t, b, h, seed, act, dev)
+    with torch.no_grad():
+        hs = tfr.fused_ligru_fwd(g, U, drop, act=act, qbits=qbits)
+    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+    return g, U, drop, h_prev, dhs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qbits", [0, 16])
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("shape", [(50, 8, 550), (300, 8, 1024),
+                                   (9, 13, 100)],
+                         ids=["h550", "timit", "b13"])
+def test_cuda_bwd_persist_matches_twin(cuda_device, shape, act, qbits):
+    """The recompute BPTT's persistent route (the rebuild's GEMM and one
+    cooperative chain) against the twin at H=550, the TIMIT Li-GRU's
+    training shape and a ragged 13 rows (8 units x 16 rows, 13 unit
+    groups): 1e-4 of the twin's scale (its 300 reverse steps), two calls
+    bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, b, h = shape
+    route, plan = tfr.ligru_bwd_route(b, h, cuda_device)
+    assert route == "persist" and plan.slabs == 1
+    args = _bwd_case(t, b, h, 61, act, qbits, cuda_device) + (act, qbits)
+    with torch.no_grad():
+        before = tfr.fused_ligru_bwd.launches
+        dg = tfr.fused_ligru_bwd(*args)
+        assert tfr.fused_ligru_bwd.launches == before + (4 if qbits else 2)
+        dg2 = tfr.fused_ligru_bwd(*args)
+        ref = tfr.fused_ligru_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dg, dg2)
+    scale = float(ref.abs().max())
+    assert float((dg - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_step_route_matches_twin(cuda_device):
+    """48 rows at H=1024 make 192 blocks of 16 units x 16 rows, one an SM:
+    the per-step kernels (T launches), against the twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, b, h = 4, 48, 1024
+    assert tfr.ligru_bwd_route(b, h, cuda_device)[0] == "step"
+    args = _bwd_case(t, b, h, 63, "relu", 16, cuda_device) + ("relu", 16)
+    with torch.no_grad():
+        before = tfr.fused_ligru_bwd.launches
+        dg = tfr.fused_ligru_bwd(*args)
+        assert tfr.fused_ligru_bwd.launches == before + t
+        ref = tfr.fused_ligru_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert float((dg - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 @pytest.mark.cuda
