@@ -821,17 +821,18 @@ def stream_run(dev, rec, audio, lens, chunk):
 
 def phase_stream(dev, rec, audio, lens, phones, logp, chunk=100,
                  tag="stream", tol=TOL_STREAM, kernel="fused_lstm_fwd",
-                 per_frame=2):
+                 per_frame=2, count=None):
     """StreamingRecognizer over the recognizer's features in chunks: the
     dense seeded kernel (``kernel``, the cell's only streaming kernel,
-    ``per_frame`` launches a frame over all layers) against
-    whole-utterance posteriors ``logp`` within ``tol``, and the phones."""
+    ``per_frame`` launches a frame over all layers, or ``count(T,
+    chunk)`` launches a stream) against whole-utterance posteriors
+    ``logp`` within ``tol``, and the phones."""
     T = rec.frontend.num_frames(audio.shape[1])
     streamed, final, launches = stream_run(dev, rec, audio, lens, chunk)
-    if launches != expected(**{kernel: per_frame * T}):
+    want = count(T, chunk) if count else per_frame * T
+    if launches != expected(**{kernel: want}):
         raise AssertionError("%s: launches %s, expected the dense seeded "
-                             "kernel %d x %d times"
-                             % (tag, launches, per_frame, T))
+                             "kernel %d times" % (tag, launches, want))
     launches = launches[kernel]
     err = float(np.abs(streamed - logp.cpu().numpy()).max())
     print("[%s] %d chunks of <=%d frames: launches %d; streamed vs "
@@ -1497,7 +1498,9 @@ def kernel_classes(by_name):
           for p in ("", "false, ", "true, ")]
     classes = {"rnn_sparse_fwd_kernel": ("rnn_sparse_step",),
                "rnn_sparse_bptt_kernel": ("rnn_sparse_bwd",),
-               "mgru_fwd_kernel": tuple(mg[:6]),
+               # the step kernels at G=2 and the persistent forward's G=2
+               # instantiation (its G=3 one counts under gru_fwd_kernel)
+               "mgru_fwd_kernel": tuple(mg[:6]) + ("gru_dense_fwd_persist<2",),
                "mgru_bptt_kernel": tuple(mg[6:]),
                "ligru_sparse_fwd_kernel": ("ligru_sparse_step",),
                "ligru_sparse_bptt_kernel": ("ligru_sparse_bwd",),
@@ -1512,7 +1515,7 @@ def kernel_classes(by_name):
                "ligru_fwd_kernel": ("ligru_step",),
                "ligru_bptt_kernel": ("ligru_bwd",),
                "gru_fwd_kernel": ("gru_zr_step", "gru_h_step",
-                                  "gru_fwd_persist"),
+                                  "gru_fwd_persist", "gru_dense_fwd_persist"),
                # the step route's and the persistent route's (its rebuild's
                # elementwise passes; its GEMMs count under v3_kernel)
                "gru_bptt_kernel": ("gru_bwd_carry", "gru_bwd_ds",
@@ -1741,7 +1744,11 @@ def same_bits(fn):
     """(max abs difference, the same) of two calls of ``fn`` (a tensor or
     a tuple of them): (0, 0) when they give equal bits (a check at tol
     0)."""
-    a, b = fn(), fn()
+    return bits_apart(fn(), fn())
+
+
+def bits_apart(a, b):
+    """same_bits of two results in hand."""
     a, b = (v if isinstance(v, tuple) else (v,) for v in (a, b))
     err = max(0.0 if torch.equal(x, y) else float((x - y).abs().max())
               for x, y in zip(a, b))
@@ -2168,9 +2175,10 @@ def ligru_bwd_check(check, dev, shape, variant, g, U, drop, h_prev, dhs,
 def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
                        stack_fn=build_ligru_stack, tag="ligru_stream",
                        one_chunk_tol=TOL_STREAM, kernel="fused_ligru_fwd",
-                       per_frame=2):
+                       per_frame=2, count=None):
     """A Li-GRU (``stack_fn``'s; or a minimalGRU: ``kernel``, launched
-    ``per_frame`` times a frame) streams on the seeded forward. One chunk
+    ``per_frame`` times a frame, or ``count(T, chunk)`` times a stream)
+    streams on the seeded forward. One chunk
     of the whole utterance is held to the whole-utterance posteriors
     within ``one_chunk_tol``. Chunks of 100 frames are held within
     TOL_POST_Q16 (as ligru_serve) to the same chunks streamed on the CPU
@@ -2181,11 +2189,13 @@ def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
     T = rec.frontend.num_frames(audio.shape[1])
     _, err_one = phase_stream(dev, rec, audio, lens, phones, logp, chunk=T,
                               tag=tag + "_one_chunk", tol=one_chunk_tol,
-                              kernel=kernel, per_frame=per_frame)
+                              kernel=kernel, per_frame=per_frame,
+                              count=count)
     streamed, final, launches = stream_run(dev, rec, audio, lens, chunk)
-    if launches != expected(**{kernel: per_frame * T}):
+    want = count(T, chunk) if count else per_frame * T
+    if launches != expected(**{kernel: want}):
         raise AssertionError("%s: launches %s, expected the seeded forward "
-                             "%d x %d times" % (tag, launches, per_frame, T))
+                             "%d times" % (tag, launches, want))
     ref, final_ref, _ = stream_run("cpu", build_recognizer(
         "cpu", stack_fn), audio, lens, chunk)
     err = float(np.abs(streamed - ref).max())
@@ -2731,7 +2741,14 @@ PERSIST_ROUTES = {
     "fused_gru_fwd_sparse": ("gru_fwd_sparse_route", "fused_gru_sparse",
                              "gru_fwd_sparse_occupancy",
                              lambda plan, bf16: (int(bf16), plan.bi,
-                                                 plan.units))}
+                                                 plan.units)),
+    "fused_gru_fwd": ("gru_fwd_route", "fused_gru", "gru_fwd_dense_occupancy",
+                      lambda plan, bf16: (3, plan.bi, plan.units)),
+    "fused_mgru_fwd": ("gru_fwd_route", "fused_gru",
+                       "gru_fwd_dense_occupancy",
+                       lambda plan, bf16: (2, plan.bi, plan.units))}
+#: the dense forwards' gate counts (their route functions take G)
+DENSE_FWD_G = {"fused_gru_fwd": 3, "fused_mgru_fwd": 2}
 
 
 def chain_route(dev, kernel, B, H=None, layout=None, bf16=False):
@@ -2740,13 +2757,17 @@ def chain_route(dev, kernel, B, H=None, layout=None, bf16=False):
     ones) and its plan as a dict: the grid, the blocks an SM it needs and
     the most that fit, the shared memory, resident and staged bytes of a
     block, the slabs a staged row is cut into. A package without that
-    wrapper's persistent route (an earlier tree's) runs "step"."""
+    wrapper's persistent route (an earlier tree's) runs "step". The dense
+    GRU forwards (DENSE_FWD_G) take their gate count."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     fn, lib, entry, ints = PERSIST_ROUTES[kernel]
     if not hasattr(R, fn):
         return "step", {}
-    route, plan = (getattr(R, fn)(B, H, dev) if layout is None
-                   else getattr(R, fn)(B, layout, bf16, dev))
+    if kernel in DENSE_FWD_G:
+        route, plan = getattr(R, fn)(B, H, DENSE_FWD_G[kernel], dev)
+    else:
+        route, plan = (getattr(R, fn)(B, H, dev) if layout is None
+                       else getattr(R, fn)(B, layout, bf16, dev))
     info = {"route": route, "grid": plan.grid,
             "batch_rows_per_block": 8 * plan.bi,
             "units_per_block": plan.units,
@@ -2805,6 +2826,41 @@ LIGRU_BWD_PERSIST_LAUNCHES = {False: 2, True: 4}
 GRU_FWD_SPARSE_PERSIST_LAUNCHES = 1
 
 
+#: fused_gru_fwd's and fused_mgru_fwd's launches a call on the persistent
+#: route, written from the design: the one cooperative launch, a seed's
+#: scale taken inside it ("step": two a step, and the reduction of max|h0|
+#: before them with a seed and the quantizer)
+GRU_FWD_PERSIST_LAUNCHES = 1
+
+
+def gru_fwd_launches(dev, kernel, T, B, H, seeded=False, qbits=0):
+    """The dense forward ``kernel``'s (fused_gru_fwd or fused_mgru_fwd)
+    route at (B, H) and its launches a call of T steps."""
+    route = chain_route(dev, kernel, B, H)[0]
+    return route, (GRU_FWD_PERSIST_LAUNCHES if route == "persist"
+                   else 2 * T + int(seeded and qbits > 0))
+
+
+def gru_fwd_design(route, T, seeded=False, qbits=0):
+    """fused_gru_fwd's and fused_mgru_fwd's device kernels a call by
+    name."""
+    if route == "persist":
+        return {"gru_dense_fwd_persist": 1}
+    want = {"gru_zr_step": T, "gru_h_step": T}
+    if seeded and qbits > 0:
+        want["absmax_bits"] = 1
+    return want
+
+
+def dense_fwd_stream_launches(dev, kernel, T, chunk, B, H, layers, qbits):
+    """A stream's launches of the dense forward ``kernel`` over ``layers``
+    layers: each layer's seeded call a chunk of ``chunk`` of the T frames,
+    on its route (gru_fwd_launches)."""
+    return layers * sum(gru_fwd_launches(dev, kernel, min(chunk, T - a), B,
+                                         H, True, qbits)[1]
+                        for a in range(0, T, chunk))
+
+
 def ligru_bwd_launches(dev, T, B, H, qbits):
     """fused_ligru_bwd's route at (B, H) and its launches a call."""
     route = chain_route(dev, "fused_ligru_bwd", B, H)[0]
@@ -2829,7 +2885,8 @@ ROUTE_KERNELS = (
     "gru_bwd_persist", "v3_weight_t", "v3_fwd_gemm", "gru_zr_step",
     "gru_h_step", "gru_bwd_carry", "gru_bwd_ds", "rec_u_gemm",
     "gru_torch_bwd_persist", "gru_torch_bwd_step", "gru_torch_step",
-    "ligru_bwd_persist", "ligru_bwd_step", "gru_fwd_persist")
+    "ligru_bwd_persist", "ligru_bwd_step", "gru_fwd_persist",
+    "gru_dense_fwd_persist", "absmax_bits")
 
 
 def bptt_design(route, T, qbits=None, bf16=False):
@@ -2906,17 +2963,17 @@ def last_call_kernels(fn):
 
 def bptt_kernels(fn, want, tries=3):
     """Hold one call of the BPTT (or routed forward) ``fn`` to ``want``
-    (bptt_design, ligru_bwd_design, gru_fwd_sparse_design): the kernel
-    records of the call (last_call_kernels) among ROUTE_KERNELS must be
-    exactly those, so the route that ran is the one named. A trace that
-    differs is taken again, up to ``tries`` traces (the profiler can
-    drop a record, device_kernels); it raises when every trace that held
-    kernel records differed. Where none held any, the call's launch
-    calls must number at least the kernels ``want`` names (PyTorch's own
-    copies launch too), and its cooperative ones exactly its chains (the
-    ``*_persist`` kernels: one on a persistent route, none on a step
-    route). -> the port's kernels of the trace that agreed (or
-    {"cuda_launch_calls": n, "cooperative": c})."""
+    (bptt_design, ligru_bwd_design, gru_fwd_sparse_design,
+    gru_fwd_design): the kernel records of the call (last_call_kernels)
+    among ROUTE_KERNELS must be exactly those, so the route that ran is
+    the one named. A trace that differs is taken again, up to ``tries``
+    traces (the profiler can drop a record, device_kernels); it raises
+    when every trace that held kernel records differed. Where none held
+    any, the call's launch calls must number at least the kernels
+    ``want`` names (PyTorch's own copies launch too), and its cooperative
+    ones exactly its chains (the ``*_persist`` kernels: one on a
+    persistent route, none on a step route). -> the port's kernels of the
+    trace that agreed (or {"cuda_launch_calls": n, "cooperative": c})."""
     seen, calls, coop = [], 0, 0
     chains = sum(v for k, v in want.items() if k.endswith("_persist"))
     for _ in range(tries):
@@ -3318,7 +3375,12 @@ def phase_timit_gru_kernels(dev):
     kernels against their twins on the same tensors: qbits 0/16 x
     tanh/relu at the small ragged shape, the training shape, the serving
     shape (forward only) and H=1024 (T=6, 96 rows); each wrapper's
-    launch counter must move by its launches."""
+    launch counter must move by its launches. The forward runs on the
+    route its plan names (gru_fwd_launches: persistent at the first three
+    shapes, the step route at 96 rows), two calls bit for bit, its device
+    kernels held to the route's (gru_fwd_design) once a shape; at the
+    training shape the step route also runs forced
+    (fused_rnn._gru_fwd_step)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
 
@@ -3338,22 +3400,48 @@ def phase_timit_gru_kernels(dev):
             tol = TOL_F32_SMALL if small else TOL_F32_SERVE
             tol_q = TOL_Q16 if qbits else tol
             fwd = R.fused_gru_fwd
+            route, n = gru_fwd_launches(dev, "fused_gru_fwd", T, B, H)
+            n_seed = gru_fwd_launches(dev, "fused_gru_fwd", T, B, H, True,
+                                      qbits)[1]
+            fvar = dict(variant, route=route)
             with torch.no_grad():
                 ref = R.fused_gru_fwd_plain(g, U, drop, None, act, qbits, True)
-                check("fused_gru_fwd", shape, variant, rel_err(launched(
-                    fwd, 2 * T, lambda: fwd(g, U, drop, act=act,
-                                            qbits=qbits)), ref[0]),
-                    tol_q, False)
-                check("fused_gru_fwd/seeded", shape, variant, rel_err(
-                    launched(fwd, 2 * T, lambda: fwd(g, U, drop, h0, act=act,
-                                                     qbits=qbits)),
-                    R.fused_gru_fwd_plain(g, U, drop, h0, act, qbits)),
-                    tol_q, False)
+                ref_seed = R.fused_gru_fwd_plain(g, U, drop, h0, act, qbits)
+                check("fused_gru_fwd", shape, fvar, rel_err(launched(
+                    fwd, n, lambda: fwd(g, U, drop, act=act, qbits=qbits)),
+                    ref[0]), tol_q, False)
+                check("fused_gru_fwd/seeded", shape, fvar, rel_err(
+                    launched(fwd, n_seed, lambda: fwd(g, U, drop, h0, act=act,
+                                                      qbits=qbits)),
+                    ref_seed), tol_q, False)
+                check("fused_gru_fwd/determinism", shape, fvar, same_bits(
+                    lambda: fwd(g, U, drop, h0, act=act, qbits=qbits,
+                                stash=True)), 0.0, False)
+                if k + 1 == len(cases):     # the kernels of the route
+                    bptt_kernels(lambda: fwd(g, U, drop, h0, act=act,
+                                             qbits=qbits),
+                                 gru_fwd_design(route, T, True, qbits))
+                if shape == TG_TRAIN_TBH:   # the step route, forced
+                    svar = dict(variant, route="step")
+                    st = launched(fwd, 2 * T, lambda: R._gru_fwd_step(
+                        fwd, g, U, drop, None, act, qbits, True))
+                    check("fused_gru_fwd/step_route/stash", shape, svar,
+                          rel_err(st, ref), tol_q, False)
+                    # both routes sum in one order: the same bits
+                    check("fused_gru_fwd/persist_vs_step", shape, fvar,
+                          bits_apart(fwd(g, U, drop, act=act, qbits=qbits,
+                                         stash=True), st), 0.0, False)
+                    check("fused_gru_fwd/step_route/seeded", shape, svar,
+                          rel_err(launched(
+                              fwd, 2 * T + int(qbits > 0),
+                              lambda: R._gru_fwd_step(fwd, g, U, drop, h0,
+                                                      act, qbits, False)),
+                              ref_seed), tol_q, False)
                 if serve:
                     continue
-                hs, acts = launched(fwd, 2 * T, lambda: fwd(
+                hs, acts = launched(fwd, n, lambda: fwd(
                     g, U, drop, act=act, qbits=qbits, stash=True))
-                check("fused_gru_fwd/stash", shape, variant,
+                check("fused_gru_fwd/stash", shape, fvar,
                       rel_err((hs, acts), ref), tol_q, False)
                 h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
                 check("fused_gru_bwd_stash", shape, variant, rel_err(
@@ -3373,12 +3461,29 @@ def phase_timit_gru_kernels(dev):
     if bad:
         raise AssertionError("a dense GRU kernel disagrees with its plain "
                              "twin: %s" % bad)
+    check_fwd_routes(checks, "fused_gru_fwd", {
+        (SMALL_TBH, "persist"), (TG_TRAIN_TBH, "persist"),
+        (TG_SERVE_TBH, "persist"), (TG_TRAIN_TBH, "step"),
+        (TG_WIDE_TBH, "step")})
     return checks
 
 
+def check_fwd_routes(checks, kernel, want):
+    """Every (shape, route) of ``want`` among the checks of the dense
+    forward ``kernel``: both routes ran."""
+    routes = {(tuple(c[k] for k in "TBH"), c["route"]) for c in checks
+              if c["kernel"].split("/")[0] == kernel and "route" in c}
+    if not want <= routes:
+        raise AssertionError("%s ran on %s, not on %s" % (
+            kernel, sorted(routes), sorted(want - routes)))
+
+
 def timit_gru_expect_serve(T):
-    """Launches per recognize: 4 layers x 2 per frame."""
-    return expected(fused_gru_fwd=TG_LAYERS * 2 * T)
+    """Launches per recognize: 4 layers of the dense GRU forward at 8
+    rows, each its route's (gru_fwd_launches: 1 a call on the persistent
+    route, 2T on the step route)."""
+    return expected(fused_gru_fwd=TG_LAYERS * gru_fwd_launches(
+        "cuda", "fused_gru_fwd", T, N_UTT, TG_TRAIN_TBH[2])[1])
 
 
 def timit_gru_train_setup(compute_dtype=""):
@@ -3410,11 +3515,12 @@ def phase_timit_gru_train(dev):
     (the default) and, from fresh runners, with the recompute one
     (PKC_LSTM_BWD_RECOMPUTE=1); launches per step in both; 10 steps at
     the cfg's learning rates in f32 and bf16."""
-    T = TG_TRAIN_TBH[0]
-    n = TG_LAYERS * 2 * T
+    T, B, H = TG_TRAIN_TBH
+    n = TG_LAYERS * gru_fwd_launches(dev, "fused_gru_fwd", T, B, H)[1]
     out = phase_train(dev, timit_gru_train_runner, "timit_gru_train",
                       lstm_modes(T, expected(fused_gru_fwd=n,
-                                             fused_gru_bwd_stash=n),
+                                             fused_gru_bwd_stash=(
+                                                 TG_LAYERS * 2 * T)),
                                  expected(fused_gru_fwd=n, fused_gru_bwd=(
                                      TG_LAYERS * (2 * T + 2)))))
     knob = "PKC_LSTM_BWD_RECOMPUTE"
@@ -3573,6 +3679,8 @@ def phase_timit_gru_times(dev, rec, audio, lens):
                 gru_bound_ms(T, B, H, H, kind)
         times["fused_gru_fwd_nostash_ms"] = cuda_ms(
             lambda: R.fused_gru_fwd(g, U, drop, act=act), reps=10)
+        times["fused_gru_fwd_plan"] = chain_route(dev, "fused_gru_fwd", B,
+                                                  H)[1]
         times["fused_gru_fwd_ms_q16"] = cuda_ms(
             lambda: R.fused_gru_fwd(g, U, drop, act=act, qbits=16,
                                     stash=True), reps=10)
@@ -4514,9 +4622,10 @@ def build_cgs_mgru_stack(dev, quant_inp=True):
 
 
 def mgru_expect_serve(T):
-    """Launches per recognize: 2 layers x 2 per frame on the dense
-    minimalGRU forward, no other kernel."""
-    return expected(fused_mgru_fwd=2 * 2 * T)
+    """Launches per recognize: 2 layers of the dense minimalGRU forward
+    at 8 rows, each its route's (gru_fwd_launches), no other kernel."""
+    return expected(fused_mgru_fwd=2 * gru_fwd_launches(
+        "cuda", "fused_mgru_fwd", T, N_UTT, MG_TRAIN_TBH[2])[1])
 
 
 def cgs_mgru_expect_serve(T):
@@ -4530,11 +4639,15 @@ def phase_mgru_kernels(dev):
     h_{k-1} against the zero-state run's steps k..T-1) and both BPTT
     kernels, and the sparse forward and BPTT (hs, dg and the emitted s;
     w3g in f32, and in bf16 at the training shape), against their twins
-    on the same tensors, each launch counter checked (2T per forward, 2T
-    for the stash BPTT, 2T + 2 for the recompute ones): qbits 0/16 x
-    relu/tanh at MG_SMALL_TBH (sparse: Kb=2, R=1), the training shape
-    and the serving shape (forward only; sparse Kb=8, R=2); the sparse
-    kernels also at MG_LARGE_ROWS rows (T=16)."""
+    on the same tensors, each launch counter checked (the dense forward
+    its route's launches, gru_fwd_launches; the sparse one 2T, 2T for the
+    stash BPTT, 2T + 2 for the recompute ones): qbits 0/16 x relu/tanh at
+    MG_SMALL_TBH (sparse: Kb=2, R=1), the training shape and the serving
+    shape (forward only; sparse Kb=8, R=2); the sparse kernels also at
+    MG_LARGE_ROWS rows (T=16). The dense forward runs on the route its
+    plan names (persistent at all three shapes), two calls bit for bit,
+    its device kernels held to the route's once a shape, and at the
+    training shape on the step route too, forced."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
     k = 0
@@ -4552,33 +4665,62 @@ def phase_mgru_kernels(dev):
                 tol = TOL_F32_SMALL if small else TOL_F32_SERVE
                 tol_q = TOL_Q16 if qbits else tol
                 fwd = R.fused_mgru_fwd
+                route, n = gru_fwd_launches(dev, "fused_mgru_fwd", T, B, H)
 
-                def check(name, err_rel, tol_, by_rel):
+                def n_seed(steps):
+                    return gru_fwd_launches(dev, "fused_mgru_fwd", steps, B,
+                                            H, True, qbits)[1]
+
+                def check(name, err_rel, tol_, by_rel, route_=None):
                     record_check(checks, "mgru_kernels", name, where,
-                                 variant, err_rel, tol_, by_rel)
+                                 dict(variant, route=route_) if route_
+                                 else variant, err_rel, tol_, by_rel)
                 with torch.no_grad():
                     ref = R.fused_mgru_fwd_plain(g, U, drop, None, act,
                                                  qbits, True)
-                    hs = launched(fwd, 2 * T, lambda: fwd(
+                    ref_seed = R.fused_mgru_fwd_plain(g, U, drop, h0, act,
+                                                      qbits)
+                    hs = launched(fwd, n, lambda: fwd(
                         g, U, drop, act=act, qbits=qbits))
                     check("fused_mgru_fwd", rel_err(hs, ref[0]), tol_q,
-                          False)
+                          False, route)
                     check("fused_mgru_fwd/seeded", rel_err(
-                        launched(fwd, 2 * T, lambda: fwd(
+                        launched(fwd, n_seed(T), lambda: fwd(
                             g, U, drop, h0, act=act, qbits=qbits)),
-                        R.fused_mgru_fwd_plain(g, U, drop, h0, act, qbits)),
-                        tol_q, False)
+                        ref_seed), tol_q, False, route)
                     s = T // 2      # seeded from h_{s-1}: steps s..T-1
                     check("fused_mgru_fwd/seeded_vs_shifted", rel_err(
-                        launched(fwd, 2 * (T - s), lambda: fwd(
+                        launched(fwd, n_seed(T - s), lambda: fwd(
                             g[s:].contiguous(), U, drop,
                             hs[s - 1].contiguous(), act=act, qbits=qbits)),
-                        hs[s:]), tol_q, False)
+                        hs[s:]), tol_q, False, route)
+                    check("fused_mgru_fwd/determinism", same_bits(
+                        lambda: fwd(g, U, drop, h0, act=act, qbits=qbits,
+                                    stash=True)), 0.0, False, route)
+                    if qbits and act == "tanh":   # the route's kernels
+                        bptt_kernels(lambda: fwd(g, U, drop, h0, act=act,
+                                                 qbits=qbits),
+                                     gru_fwd_design(route, T, True, qbits))
+                    if shape == MG_TRAIN_TBH:     # the step route, forced
+                        st = launched(fwd, 2 * T, lambda: R._gru_fwd_step(
+                            fwd, g, U, drop, None, act, qbits, True))
+                        check("fused_mgru_fwd/step_route/stash",
+                              rel_err(st, ref), tol_q, False, "step")
+                        # both routes sum in one order: the same bits
+                        check("fused_mgru_fwd/persist_vs_step", bits_apart(
+                            fwd(g, U, drop, act=act, qbits=qbits,
+                                stash=True), st), 0.0, False, route)
+                        check("fused_mgru_fwd/step_route/seeded", rel_err(
+                            launched(fwd, 2 * T + int(qbits > 0),
+                                     lambda: R._gru_fwd_step(
+                                         fwd, g, U, drop, h0, act, qbits,
+                                         False)), ref_seed), tol_q, False,
+                              "step")
                     if not serve:
-                        hs_s, acts = launched(fwd, 2 * T, lambda: fwd(
+                        hs_s, acts = launched(fwd, n, lambda: fwd(
                             g, U, drop, act=act, qbits=qbits, stash=True))
                         check("fused_mgru_fwd/stash", rel_err(
-                            (hs_s, acts), ref), tol_q, False)
+                            (hs_s, acts), ref), tol_q, False, route)
                         h_prev = torch.cat([torch.zeros_like(hs_s[:1]),
                                             hs_s[:-1]])
                         check("fused_mgru_bwd_stash", rel_err(
@@ -4610,6 +4752,9 @@ def phase_mgru_kernels(dev):
     if bad:
         raise AssertionError("a minimalGRU kernel disagrees with its plain "
                              "twin: %s" % bad)
+    check_fwd_routes(checks, "fused_mgru_fwd", {
+        (MG_SMALL_TBH, "persist"), (MG_TRAIN_TBH, "persist"),
+        (MG_SERVE_TBH, "persist"), (MG_TRAIN_TBH, "step")})
     return checks
 
 
@@ -4679,11 +4824,12 @@ def phase_mgru_train(dev, sparse=False):
         modes = (("recompute", knob, None, want),
                  ("stash_knob", knob, "mgru", want))
     else:
+        n = 2 * gru_fwd_launches(dev, "fused_mgru_fwd", *MG_TRAIN_TBH)[1]
         modes = (("recompute", knob, None,
-                  expected(fused_mgru_fwd=2 * 2 * T,
+                  expected(fused_mgru_fwd=n,
                            fused_mgru_bwd=2 * (2 * T + 2))),
                  ("stash", knob, "mgru",
-                  expected(fused_mgru_fwd=2 * 2 * T,
+                  expected(fused_mgru_fwd=n,
                            fused_mgru_bwd_stash=2 * 2 * T)))
     out = phase_train(dev, make, tag, modes, grad_tol=grad_tol,
                       fall_runner=lambda d, cdt="": make(
@@ -4757,21 +4903,27 @@ def cgs_mgru_train_runner(dev, compute_dtype="", quant_inp=True,
 
 def phase_mgru_stream(dev, rec, audio, lens, phones, logp, noq, sparse):
     """The minimalGRU streams on the dense seeded forward (a sparse layer
-    drops its layout under a stream, as in the JAX package), 2 layers x
-    2 launches a frame: phase_ligru_stream's checks (one chunk against
+    drops its layout under a stream, as in the JAX package), 2 layers,
+    each a seeded call a chunk on its route (dense_fwd_stream_launches):
+    phase_ligru_stream's checks (one chunk against
     the whole utterance, within TOL_STREAM dense, TOL_Q16 sparse: the
     dense and the sparse product sum in another order; chunks of 100
     against the CPU's stream at TOL_POST_Q16) and, without the 16-bit
     quantizers, chunks of 100 against the whole utterance at TOL_POST."""
     tag = "cgs_mgru_stream" if sparse else "mgru_stream"
     stack = build_cgs_mgru_stack if sparse else build_mgru_stack
+
+    def count(qbits):
+        return lambda T, c: dense_fwd_stream_launches(
+            dev, "fused_mgru_fwd", T, c, N_UTT, MG_TRAIN_TBH[2], 2, qbits)
     launches, out = phase_ligru_stream(
         dev, rec, audio, lens, phones, logp, 100, stack, tag,
-        TOL_Q16 if sparse else TOL_STREAM, "fused_mgru_fwd", 4)
+        TOL_Q16 if sparse else TOL_STREAM, "fused_mgru_fwd", count=count(16))
     rec_noq, phones_noq, logp_noq = noq[:3]
     _, out["chunks_vs_whole_no_quant_inp"] = phase_stream(
         dev, rec_noq, audio, lens, phones_noq, logp_noq, 100,
-        tag + ", minimalgru_quant_inp=False", TOL_POST, "fused_mgru_fwd", 4)
+        tag + ", minimalgru_quant_inp=False", TOL_POST, "fused_mgru_fwd",
+        count=count(0))
     return launches, out
 
 
@@ -4880,6 +5032,8 @@ def phase_mgru_times(dev, rec, cgs_rec, audio, lens):
                 ligru_bound_ms(T, B, H, kind, k)
         times["fused_mgru_fwd_nostash_ms"] = cuda_ms(
             lambda: R.fused_mgru_fwd(g, U, drop, act=act, qbits=qb), reps=5)
+        times["fused_mgru_fwd_plan"] = chain_route(dev, "fused_mgru_fwd", B,
+                                                   H)[1]
         times["fused_mgru_fwd_ms_q0"] = cuda_ms(
             lambda: R.fused_mgru_fwd(g, U, drop, act=act, qbits=0,
                                      stash=True), reps=5)
@@ -5345,7 +5499,8 @@ def phase_mgru_stream_tanh(dev, audio, lens, relu):
     T = build_recognizer("cpu", stack).frontend.num_frames(audio.shape[1])
     streamed, final, launches = stream_run(
         dev, build_recognizer(dev, stack), audio, lens, 100)
-    if launches != expected(fused_mgru_fwd=4 * T):
+    if launches != expected(fused_mgru_fwd=dense_fwd_stream_launches(
+            dev, "fused_mgru_fwd", T, 100, N_UTT, MG_TRAIN_TBH[2], 2, 16)):
         raise AssertionError("mgru_stream_tanh: launches %s" % launches)
     ref, final_ref, _ = stream_run("cpu", build_recognizer("cpu", stack),
                                    audio, lens, 100)
@@ -5461,7 +5616,8 @@ def slice9_rows(checks, times, launches):
                     "PKC_BWD_STASH_CELLS=mgru); ms_nostash is the default "
                     "training and serving forward",
             ms_nostash=times["fused_mgru_fwd_nostash_ms"],
-            ms_q0=times["fused_mgru_fwd_ms_q0"], serve=serve("")),
+            ms_q0=times["fused_mgru_fwd_ms_q0"], serve=serve(""),
+            plan=times["fused_mgru_fwd_plan"]),
         row("fused_mgru_bwd_stash", "fused_gru", 848,
             err_at("fused_mgru_bwd_stash"), times["cudnn_gru_bwd_ms"],
             bwd_note),
@@ -6359,19 +6515,22 @@ def port_gru_layer_times(dev, T, B, H, reps=10):
             "port_layer_bwd_ms": fb_ms - fwd_ms}
 
 
-def forced_plan_ms(kernel, call_plan, reps):
-    """ms per call of ``kernel``'s persistent route at each block of 256
-    outputs its plan weighs, 8 units x 32 rows and 16 x 16 (where it
-    fits): ``call_plan(shape)`` returns the plan forced to (bi, units),
+def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
+    """ms per call of ``kernel``'s persistent route at each block shape
+    (bi, units) of ``shapes`` (by default the blocks of 256 outputs its
+    plan weighs, 8 units x 32 rows and 16 x 16) where it fits:
+    ``call_plan(shape)`` returns the plan forced to (bi, units),
     ``call_plan(shape, run=True)`` runs one call on it; {} for a package
     without the route. The plan the route picks is timed by the caller."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     plan_fn = {"fused_ligru_bwd": "ligru_bwd_plan",
-               "fused_gru_fwd_sparse": "gru_fwd_sparse_plan"}[kernel]
+               "fused_gru_fwd_sparse": "gru_fwd_sparse_plan",
+               "fused_gru_fwd": "gru_fwd_plan",
+               "fused_mgru_fwd": "gru_fwd_plan"}[kernel]
     if not hasattr(R, plan_fn):
         return {}
     out = {}
-    for shape_ in ((4, 8), (2, 16)):
+    for shape_ in shapes:
         plan = call_plan(shape_)
         if plan.smem + plan.static > R._SMEM_MAX:
             continue
@@ -6384,16 +6543,19 @@ def forced_plan_ms(kernel, call_plan, reps):
 
 def phase_rnn_turn_times(dev):
     """The redesigned rows at their timed shapes (gru_torch_times',
-    gru_times', ligru_times' and libri_ligru_times' inputs): ms per call
-    (CUDA events), the route and its plan, a BPTT's device time split into
-    rebuild and chain by kernel (torch.profiler); row 18 at the TIMIT
-    (qbits 16) and libri (qbits 0) shapes and row 32 at the libri train
-    and serve shapes (qbits 16), each also at the block shapes its plan
-    could take (forced_plan_ms); nn.GRU(550)'s forward, backward
-    (fwd+bwd minus fwd) and the port's whole GRU_cudnn layer backward the
-    same way beside row 23; rows 16, 17, 22, 23, 33, 34, 35, 13 (libri
-    G=3, 8-bit, submask) and 15 (the libri v3 dw) as the rows that must
-    not move. Public wrappers only (and the forced plans where the
+    gru_times', ligru_times', libri_ligru_times', timit_gru_times' and
+    mgru_times' shapes): ms per call (CUDA events), the route and its
+    plan, a BPTT's device time split into rebuild and chain by kernel
+    (torch.profiler); row 18 at the TIMIT (qbits 16) and libri (qbits 0)
+    shapes and row 32 at the libri train and serve shapes (qbits 16),
+    each also at the block shapes its plan could take (forced_plan_ms);
+    rows 19 (tanh, no quantizer) and 24 (relu, qbits 16) at their train
+    shapes with and without the stash, their serve shapes and a seeded
+    chunk of 100 frames, each also at 4 and 16 units a block;
+    nn.GRU(550)'s forward, backward (fwd+bwd minus fwd) and the port's
+    whole GRU_cudnn layer backward the same way beside row 23; rows 16,
+    17, 20, 21, 22, 23, 26, 33, 34, 35, 13 (libri G=3, 8-bit, submask)
+    and 15 (the libri v3 dw) as the rows that must not move. Public wrappers only (and the forced plans where the
     package has them), so an earlier tree's package runs it too."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
@@ -6473,6 +6635,49 @@ def phase_rnn_turn_times(dev):
                 if lay.bs % 16 == 0 else {}}
             del fi, g, w3g, drop, lay
         del si
+        # rows 19 and 24 at their train shapes (stash and not), serve
+        # shapes and a seeded chunk of 100, each also at the other block
+        # shapes instantiated for 8 rows; rows 20, 21 and 26 beside them
+        for row, kernel, G, (T, B, H), Ts, act, qb, seed in (
+                ("row19", "fused_gru_fwd", 3, TG_TRAIN_TBH, TG_SERVE_TBH[0],
+                 "tanh", 0, 360),
+                ("row24", "fused_mgru_fwd", 2, MG_TRAIN_TBH, MG_SERVE_TBH[0],
+                 "relu", 16, 363)):
+            w = getattr(R, kernel)
+            fi = gated_inputs(T, B, H, seed, dev, act, G)
+            g, U, drop, dhs = (fi[n] for n in ("g", "U", "drop", "dhs"))
+            sv = gated_inputs(Ts, B, H, seed + 1, dev, act, G)
+            ck = gated_inputs(100, B, H, seed + 2, dev, act, G)
+
+            def call_plan(shape_, run=False):
+                plan = R.gru_fwd_plan(B, H, G, shape_)
+                return (R._gru_fwd_persist(w, plan, g, U, drop, None, act,
+                                           qb, True) if run else plan)
+            t[row] = {
+                "ms": cuda_ms(lambda: w(g, U, drop, act=act, qbits=qb,
+                                        stash=True), 10),
+                "ms_nostash": cuda_ms(lambda: w(g, U, drop, act=act,
+                                                qbits=qb), 10),
+                "serve_ms": cuda_ms(lambda: w(sv["g"], sv["U"], sv["drop"],
+                                              act=act, qbits=qb), 10),
+                "seeded_chunk100_ms": cuda_ms(lambda: w(
+                    ck["g"], ck["U"], ck["drop"], ck["h0"], act=act,
+                    qbits=qb), 10),
+                "act": act, "qbits": qb,
+                "plan": chain_route(dev, kernel, B, H)[1],
+                "by_block_shape": forced_plan_ms(kernel, call_plan, 10,
+                                                 ((1, 4), (1, 16)))}
+            hs, acts = w(g, U, drop, act=act, qbits=qb, stash=True)
+            h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+            if G == 3:
+                t["row20_ms"] = cuda_ms(lambda: R.fused_gru_bwd_stash(
+                    acts, U, drop, h_prev, dhs, act), 10)
+                t["row21_ms"] = cuda_ms(lambda: R.fused_gru_bwd(
+                    g, U, drop, h_prev, dhs, act, qb), 10)
+            else:
+                t["row26_ms"] = cuda_ms(lambda: R.fused_mgru_bwd(
+                    g, U, drop, h_prev, dhs, act, qb), 10)
+            del fi, g, U, drop, dhs, sv, ck, hs, acts, h_prev
         T, B, H = MG_TRAIN_TBH
         sp = cgs_ligru_inputs(T, B, H, 421, dev, "relu")
         hs = R.fused_mgru_fwd_sparse(sp["g"], sp["w3g"], sp["drop"],
@@ -6502,10 +6707,12 @@ def phase_rnn_turn_times(dev):
 
 
 def rnn_times_main(root):
-    """``python3 chip_smoke.py --rnn-times [DIR]``: phase_rnn_turn_times
-    and the f32 train steps of the libri GRU, the libri and TIMIT Li-GRUs
-    and the CGS-16x LSTM (CUDA events, mean of 5 after 2; the first three
-    also profiled once: device ms by class of kernel, busy share), with
+    """``python3 chip_smoke.py --rnn-times [DIR]``: phase_rnn_turn_times,
+    the f32 train steps of the libri GRU, the libri and TIMIT Li-GRUs,
+    the TIMIT GRU, the minimalGRU and the CGS-16x LSTM (CUDA events, mean
+    of 5 after 2; all but the last also profiled once: device ms by class
+    of kernel, busy share), and the TIMIT GRU's and the minimalGRU's
+    recognize (8 x 4 s: serve_timings, launches by kernel), with
     the package of this checkout or of the tree unpacked at DIR inside it
     (as ``--gemm-times``; run parent, change, change, parent in one
     call); one JSON line."""
@@ -6531,6 +6738,8 @@ def rnn_times_main(root):
     for tag, make in (("libri_gru", gru_train_runner),
                       ("libri_ligru", libri_ligru_train_runner),
                       ("timit_ligru", ligru_train_runner),
+                      ("timit_gru", timit_gru_train_runner),
+                      ("mgru", mgru_train_runner),
                       ("cgs16x_lstm", cgs_train_runner)):
         runner, (inp, mask) = make(dev)
         inp = torch.as_tensor(inp, device=dev)
@@ -6543,6 +6752,16 @@ def rnn_times_main(root):
                 busy.pop("by_name"))
             out["%s_step_busy" % tag] = busy
         del runner
+        torch.cuda.empty_cache()
+    audio, lens = make_audio()
+    for tag, stack in (("timit_gru", build_timit_gru_stack),
+                       ("mgru", build_mgru_stack)):
+        rec = build_recognizer(dev, stack)
+        _, launches = counted(lambda: rec.recognize(audio, lens))
+        out["%s_recognize" % tag] = dict(
+            serve_timings(rec, audio, lens),
+            launches={k: v for k, v in launches.items() if v})
+        del rec
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
@@ -6994,7 +7213,8 @@ def main():
     tg_stream_launches, tg_stream_err = timed(
         "timit_gru_stream", phase_stream, dev, tg_rec, audio, lens, tg_phones,
         tg_logp, 100, "timit_gru_stream", TOL_STREAM, "fused_gru_fwd",
-        2 * TG_LAYERS)
+        2 * TG_LAYERS, lambda T, c: dense_fwd_stream_launches(
+            dev, "fused_gru_fwd", T, c, N_UTT, TG_TRAIN_TBH[2], TG_LAYERS, 0))
     tg_train = timed("timit_gru_train", phase_timit_gru_train, dev)
     large = timed("gru_large_batch", phase_gru_large_batch, dev)
     tr_checks = timed("timit_rnn_kernels", phase_timit_rnn_kernels, dev)
@@ -7385,7 +7605,7 @@ def main():
         TG_TRAIN_TBH, TG_SERVE_TBH, "tanh", 0,
         "cuDNN nn.GRU(550, 550) (torch's gate order, no dropout)",
         {"ms_nostash": "fused_gru_fwd_nostash_ms",
-         "ms_q16": "fused_gru_fwd_ms_q16"})
+         "ms_q16": "fused_gru_fwd_ms_q16", "plan": "fused_gru_fwd_plan"})
     line["kernels"] += dense_rnn_rows(
         tr_checks, tr_times, tr_launches, "rnn", (1047, 1116, 1160),
         TR_TRAIN_TBH, TR_SERVE_TBH, "relu", 0,

@@ -56,15 +56,31 @@
 // step has TWO grid-wide dependencies: s needs r (z) of every unit, and
 // the quantizer scale max|s| (per step over the whole (B, H) block) needs
 // all of s; in reverse, ds needs dg_h of every unit before the carry's
-// product (the GRU) or before dg_z (the minimalGRU). On Hopper blocks run
-// in no order, so, as in fused_gru_sparse.cu, the forward launches two
-// kernels per step from the host loop (the launch boundaries are the
-// grid-wide barriers): gru_zr_step (z, r, s and max|s|) then gru_h_step
-// (the candidate and h_t, max|h_t| for the next step's quantizer); each
-// re-reads its rows of U (3.6 MB at H=550, 12.6 MB for the GRU at H=1024,
-// 8.4 MB for the minimalGRU, resident in the 50 MB L2) every step. Its
-// time is 2T launches, far above the bound; a persistent kernel with U
-// split across the SMs' shared memory is later work.
+// product (the GRU) or before dg_z (the minimalGRU). The forward takes one
+// of two routes, picked by the caller before the launch from the shapes
+// and the occupancy query (fused_rnn.gru_fwd_route):
+//
+//   - "persist" (TPU rows 19 and 24's redesign): ONE cooperative launch
+//     runs all T steps (gru_dense_fwd_persist, persist.cuh). A block owns
+//     UN units (the last group masked where UN does not divide H) and BT
+//     = 8 * BI batch rows for the whole call, its units' H-long rows of U
+//     resident in shared memory ([Uz; Ur] as (G-1)*UN columns, Uh as UN),
+//     and per step runs two phases with one grid barrier after each, the
+//     two grid-wide dependencies: A stages q(h_{t-1}), forms the z (and r)
+//     dots, writes s and its block's max|s|; B stages q(s), forms the
+//     candidate's dots, writes h_t and its block's max|h_t|. The blocks
+//     exchange h_t and s through two (B, HP) buffers whose rows are padded
+//     to HP = H rounded up to 4 floats, since cp.async copies 16-byte
+//     aligned chunks and a row of hs at H=550 is not aligned. A seeded
+//     carry h0 is copied there (with its block maxima) before one extra
+//     barrier, so a call is one launch with or without it.
+//   - "step" (a shape whose blocks do not fit or are not co-resident):
+//     two kernels per step from the host loop (the launch boundaries are
+//     the grid-wide barriers): gru_zr_step (z, r, s and max|s|) then
+//     gru_h_step (the candidate and h_t, max|h_t| for the next step's
+//     quantizer); each re-reads its rows of U (3.6 MB at H=550, 12.6 MB
+//     for the GRU at H=1024, 8.4 MB for the minimalGRU, resident in the
+//     50 MB L2) every step. Its time is 2T launches, far above the bound.
 //
 // The recompute backward's forward quantities do not depend on dh, so they
 // are rebuilt for all T at once before the reverse loop: one reduction for
@@ -77,7 +93,8 @@
 // dg_z). Both products read rows of U^T (H, G*H), passed in, so the lanes
 // read consecutive addresses.
 //
-// Per step, a block owns a few hidden units and BT batch rows: it stages
+// On the step routes, a block owns a few hidden units and BT batch rows
+// per step: it stages
 // the rows' q(h_{t-1}), q(s) or cotangents (BT x H or BT x 2H floats, 64 KB
 // at H=1024) in shared memory, and each warp forms the dot of one row of U
 // (or U^T) with every staged row (lanes over k, then a shuffle reduction).
@@ -92,6 +109,7 @@
 #include <cmath>
 
 #include "lstm_common.cuh"
+#include "persist.cuh"
 
 namespace {
 
@@ -101,6 +119,7 @@ constexpr int THREADS = WARPS * 32;
 constexpr int ZR_ROWS = 8;          // rows of [Uz; Ur] (Uz) per zr block
 constexpr int H_UNITS = 8;          // units per candidate block: 8 rows of Uh
 constexpr int BWD_UNITS = 8;        // units per backward block
+constexpr int STAGE_CHUNKS = 8;     // 16-byte loads a thread in flight
 
 // Units per zr block of a G-gate cell: 4 for the GRU, 8 for the
 // minimalGRU.
@@ -429,6 +448,318 @@ cudaError_t run_fwd(const float* gates, const float* U, const float* drop,
   return cudaSuccess;
 }
 
+// usm[b][r] = sum_k xs[b * SK + k] * ws[r * K + k] over K columns for the
+// NR resident rows r of ws and the staged rows b < nb of BT (usm rows LD
+// floats apart). Each dot is summed in row_dots' order (lane l takes k =
+// l, l + 32, ... in turn, then a shuffle reduction over the 32 lanes), so
+// that the persistent forward gives the step kernels' bits; warp w takes
+// the BT/2 rows b from (w % 2) * BT/2 and the NR/4 rows r from (w / 2) *
+// NR/4, so that each value it loads serves several dots: shared memory's
+// bandwidth, not the FMAs, sets their pace (one warp a row r, reloading
+// every staged value for each, was slower; gru_fwd_variants.py times the
+// other splits of the warps).
+template <int BT, int NR, int LD>
+__device__ __forceinline__ void resident_dots(const float* ws,
+                                              const float* xs, int SK,
+                                              int K, int nb,
+                                              float (*usm)[LD]) {
+  constexpr int BQ = BT / 2, RQ = NR / 4;
+  static_assert(WARPS == 8 && NR % 4 == 0, "2 x 4 warps");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;
+  const float* x = xs + (size_t)bq * SK;
+  const float* w = ws + (size_t)rq * K;
+  float acc[BQ][RQ];
+#pragma unroll
+  for (int p = 0; p < BQ; ++p)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) acc[p][q] = 0.f;
+#pragma unroll 4
+  for (int k = lane; k < K; k += 32) {
+    float wv[RQ];
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) wv[q] = w[(size_t)q * K + k];
+#pragma unroll
+    for (int p = 0; p < BQ; ++p)
+      if (bq + p < nb) {
+        const float xv = x[(size_t)p * SK + k];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q) acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
+      }
+  }
+#pragma unroll
+  for (int p = 0; p < BQ; ++p)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) {
+      float v = acc[p][q];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) usm[bq + p][rq + q] = v;
+    }
+}
+
+// The forward's whole recurrence in one cooperative launch (route
+// "persist", TPU rows 19 and 24's redesign; persist.cuh), for a G-gate
+// cell. Block c owns the UN units from u0 = (c % ug) * UN (ug = ceil(H /
+// UN); units past H get zero weights and no output) and the BT = 8 * BI
+// batch rows from b0 = (c / ug) * BT. It copies into shared memory once
+// its units' rows of U: [Uz; Ur] ([Uz]) as the (G-1)*UN rows of wzr and
+// Uh as the UN rows of wh, H floats each. Its thread o = b * UN + jj
+// keeps h_{t-1} of its (row, unit) in a register and loads the next
+// step's gates before the barrier. With a seed h0, each thread first
+// copies its entry into xh and its block's max|h0| into bmax[0], then one
+// barrier. Per step t (at t = 0 without a seed the carry is zero: no
+// staging and no dots, and no barrier after phase A):
+//   A. stage h_{t-1} from xh, q() at the max over bmax[0], dots against
+//      wzr, z (and r), the stash's z (and r), s = r * h_{t-1} (z *
+//      h_{t-1}) into xs, the block's max|s| into its entry of bmax[1];
+//      barrier;
+//   B. stage s from xs the same way, q() at the max over bmax[1], dots
+//      against wh, a = act(g_h + dot), h_t into hs and xh, a into the
+//      stash, the block's max|h_t| into its entry of bmax[0]; barrier
+//      (none after the last step).
+// xh and xs are (B, HP) with HP = H rounded up to 4 floats, so that each
+// staged row starts 16-byte aligned; the padding is copied, never summed.
+// Each dot is one warp's, lanes over k and a shuffle reduction, as in the
+// step kernels' row_dots (resident_dots), and q() (quant_rcp: quant()'s
+// bits, with the reciprocal of the scale taken once a phase) runs once
+// over the staged values: the persistent route gives the step route's
+// bits, and so the dense stream of a sparse layer the sparse forward's,
+// as before. (The sparse chain's persist::unit_dots, whose warps split
+// the contraction, was as fast here, but its sums moved the CGS-16x
+// minimalGRU's stream, relu behind two 16-bit ceil quantizers and a
+// x10000 head, past chip_smoke.py's bound against the sparse forward.)
+template <int G, int BI, int UN>
+__global__ void __launch_bounds__(persist::THREADS, UN == 4 ? 2 : 1)
+gru_dense_fwd_persist(const float* __restrict__ gates,  // (T, B, G*H)
+                      const float* __restrict__ U,      // (G*H, H)
+                      const float* __restrict__ drop,   // (B, H)
+                      const float* __restrict__ h0,     // (B, H) or null
+                      float* __restrict__ hs,           // (T, B, H) output
+                      float* __restrict__ acts,         // (T, B, G*H) or null
+                      float* xh, float* xs,             // (B, HP) exchange
+                      unsigned* bmax,                   // (2, grid), or null
+                      int T, int B, int H, int act, float qscale) {
+  namespace P = persist;
+  constexpr int BT = P::BLANES * BI, ZC = (G - 1) * UN;
+  extern __shared__ __align__(16) float psm[];
+  __shared__ unsigned wmax[P::WARPS], gmax;
+  const int SK = P::row_stride(H), HP = (H + 3) / 4 * 4;
+  float* wzr = psm;                                // (ZC, H)
+  float* wh = wzr + (size_t)ZC * H;                // (UN, H)
+  float* xsm = wh + (size_t)UN * H;                // (BT, SK)
+  auto usm = reinterpret_cast<float (*)[ZC]>(xsm + (size_t)BT * SK);
+  const int ug = (H + UN - 1) / UN;
+  const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  for (int i = threadIdx.x; i < ZC * H; i += P::THREADS) {
+    const int r = i / H, k = i - r * H, u = u0 + r % UN;
+    wzr[i] = u < H ? U[((size_t)(1 + r / UN) * H + u) * H + k] : 0.f;
+  }
+  for (int i = threadIdx.x; i < UN * H; i += P::THREADS) {
+    const int r = i / H, k = i - r * H, u = u0 + r;
+    wh[i] = u < H ? U[(size_t)u * H + k] : 0.f;
+  }
+  const int o = threadIdx.x, ob = o / UN, oj = o % UN, ou = u0 + oj;
+  const bool mine = o < BT * UN && ob < nb && ou < H;
+  const size_t bh = (size_t)B * H, gbh = (size_t)G * bh;
+  const size_t ih = (size_t)(b0 + ob) * H + ou, ig = (size_t)(b0 + ob) * G * H;
+  const size_t ix = (size_t)(b0 + ob) * HP + ou;
+  const float dr = mine ? drop[ih] : 0.f;
+  unsigned* hmax = bmax;                            // max|h_t| by block
+  unsigned* smax = bmax ? bmax + gridDim.x : nullptr;   // max|s_t|
+  const float iscale = qscale != 0.f ? 1.f / qscale : 0.f;
+  // stage this block's rows of v (B, HP) by cp.async; with `maxes`, the
+  // grid's max of them (read meanwhile) is the scale of q(), then applied
+  // to the staged rows in place, STAGE_CHUNKS 16-byte chunks a thread in
+  // flight, since at one block of 8 warps an SM a pass one value at a time
+  // waits on each load in turn (a scale of 0 leaves them unquantized, as
+  // quant() does). q() on the values as the dots load them costs more:
+  // the warps of one row group each load them (gru_fwd_variants.py).
+  auto stage = [&](const float* v, const unsigned* maxes) {
+    P::stage_rows(nb, HP, [&](int b) { return v + (size_t)(b0 + b) * HP; },
+                  [&](int b) { return xsm + (size_t)b * SK; });
+    if (maxes && threadIdx.x < 32) {
+      unsigned m = 0;
+      for (int i = threadIdx.x; i < gridDim.x; i += 32)
+        m = max(m, __ldcg(maxes + i));
+      m = __reduce_max_sync(0xffffffffu, m);
+      if (threadIdx.x == 0) gmax = m;
+    }
+    P::cp_async_wait_all();
+    __syncthreads();
+    const float var = maxes ? __uint_as_float(gmax) : 0.f;
+    if (var == 0.f) return;
+    constexpr int NC = STAGE_CHUNKS;
+    const float inv = 1.f / var;
+    const int cpr = HP / 4, n = nb * cpr;
+    for (int c0 = 0; c0 < n; c0 += P::THREADS * NC) {
+      float4* x[NC];
+      float4 r[NC];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = c0 + i * P::THREADS + threadIdx.x;
+        const int b = c / cpr, j = c - b * cpr;
+        x[i] = reinterpret_cast<float4*>(xsm + (size_t)b * SK) + j;
+        if (c < n) r[i] = *x[i];
+      }
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+        if (c0 + i * P::THREADS + threadIdx.x < n)
+          *x[i] = make_float4(quant_rcp(r[i].x, var, inv, qscale, iscale),
+                              quant_rcp(r[i].y, var, inv, qscale, iscale),
+                              quant_rcp(r[i].z, var, inv, qscale, iscale),
+                              quant_rcp(r[i].w, var, inv, qscale, iscale));
+    }
+    __syncthreads();
+  };
+  // this block's max of the threads' bits m into out[blockIdx.x]
+  auto block_max = [&](unsigned m, unsigned* out) {
+    m = __reduce_max_sync(0xffffffffu, m);
+    if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned v = 0;
+      for (int w = 0; w < P::WARPS; ++w) v = max(v, wmax[w]);
+      out[blockIdx.x] = v;
+    }
+  };
+  struct In {
+    float gh, gz, gr;
+  };
+  auto fetch = [&](int t) {
+    In v{};
+    if (mine) {
+      const float* g = gates + t * gbh + ig;
+      v.gh = g[ou];
+      v.gz = g[H + ou];
+      if (G == 3) v.gr = g[2 * H + ou];
+    }
+    return v;
+  };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float hp = 0.f;                                  // h_{t-1} of (row, unit)
+  const bool seeded = h0 != nullptr;
+  if (seeded) {
+    unsigned m = 0;
+    if (mine) {
+      hp = h0[ih];
+      xh[ix] = hp;
+      m = __float_as_uint(fabsf(hp));
+    }
+    if (hmax) block_max(m, hmax);
+    grid.sync();
+  }
+  In cur = fetch(0);
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    const bool dots = t > 0 || seeded;
+    // A: z (and r), s
+    float dz = 0.f, dq = 0.f;
+    if (dots) {
+      stage(xh, hmax);
+      resident_dots<BT, ZC, ZC>(wzr, xsm, SK, H, nb, usm);
+      __syncthreads();
+      if (mine) {
+        dz = usm[ob][oj];
+        if (G == 3) dq = usm[ob][UN + oj];
+      }
+    }
+    float z = 0.f;
+    unsigned m = 0;
+    if (mine) {
+      z = sigmoid(cur.gz + dz);
+      float s = z * hp;
+      if (G == 3) {
+        const float r = sigmoid(cur.gr + dq);
+        s = r * hp;
+        if (acts) acts[t * gbh + ig + 2 * H + ou] = r;
+      }
+      if (acts) acts[t * gbh + ig + H + ou] = z;
+      xs[ix] = s;
+      m = __float_as_uint(fabsf(s));
+    }
+    if (dots) {
+      if (smax) block_max(m, smax);
+      grid.sync();
+    }
+    // B: the candidate and h_t
+    float da = 0.f;
+    if (dots) {
+      stage(xs, smax);
+      resident_dots<BT, UN, ZC>(wh, xsm, SK, H, nb, usm);
+      __syncthreads();
+      if (mine) da = usm[ob][oj];
+    }
+    m = 0;
+    if (mine) {
+      const float a = act_fn(cur.gh + da, act);
+      const float h = z * hp + (1.f - z) * (a * dr);
+      hs[t * bh + ih] = h;
+      xh[ix] = h;
+      if (acts) acts[t * gbh + ig + ou] = a;
+      hp = h;
+      m = __float_as_uint(fabsf(h));
+    }
+    if (t + 1 < T) {
+      if (hmax) block_max(m, hmax);
+      cur = fetch(t + 1);
+      grid.sync();
+    }
+  }
+}
+
+// one cooperative launch of the persistent forward at block shape (BI, UN)
+template <int G, int BI, int UN>
+cudaError_t launch_fwd_persist(int grid, int smem, cudaStream_t stream,
+                               const float* gates, const float* U,
+                               const float* drop, const float* h0, float* hs,
+                               float* acts, float* xh, float* xs,
+                               unsigned* bmax, int T, int B, int H, int act,
+                               float qscale) {
+  return persist::launch<gru_dense_fwd_persist<G, BI, UN>>(
+      grid, smem, stream, gates, U, drop, h0, hs, acts, xh, xs, bmax, T, B,
+      H, act, qscale);
+}
+
+// The block shapes (bi, units) of the persistent forward: the plan's
+// (1, 8), (2, 8) and (2, 16), and (1, 4) and (1, 16), which a forced plan
+// times at 8 rows. -> the launcher and the occupancy query of one, or
+// nulls for another shape.
+using FwdLaunch = cudaError_t (*)(int, int, cudaStream_t, const float*,
+                                  const float*, const float*, const float*,
+                                  float*, float*, float*, float*, unsigned*,
+                                  int, int, int, int, float);
+using FwdOccupancy = cudaError_t (*)(int, int*);
+
+template <int G>
+void fwd_shape(int bi, int units, FwdLaunch* launch, FwdOccupancy* occ) {
+#define PK_FWD_SHAPE(BI_, UN_)                                            \
+  if (bi == BI_ && units == UN_) {                                        \
+    *launch = launch_fwd_persist<G, BI_, UN_>;                            \
+    *occ = persist::occupancy<gru_dense_fwd_persist<G, BI_, UN_>>;        \
+    return;                                                               \
+  }
+  PK_FWD_SHAPE(1, 4)
+  PK_FWD_SHAPE(1, 8)
+  PK_FWD_SHAPE(2, 8)
+  PK_FWD_SHAPE(1, 16)
+  PK_FWD_SHAPE(2, 16)
+#undef PK_FWD_SHAPE
+  *launch = nullptr;
+  *occ = nullptr;
+}
+
+void fwd_shape_of(int G, int bi, int units, FwdLaunch* launch,
+                  FwdOccupancy* occ) {
+  if (G == 3)
+    fwd_shape<3>(bi, units, launch, occ);
+  else if (G == 2)
+    fwd_shape<2>(bi, units, launch, occ);
+  else
+    *launch = nullptr, *occ = nullptr;
+}
+
 template <bool PRE, int G>
 cudaError_t run_bwd(const float* lead, const float* U, const float* Ut,
                     const float* drop, const float* h_prev, const float* dhs,
@@ -515,8 +846,8 @@ const char* pk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The GRU forward on `stream`: 2T step kernels (plus one small reduction
-// over h0 when qbits > 0 and h0 is given). Returns the first cudaError_t
+// The GRU forward on the step route on `stream`: 2T step kernels (plus
+// one small reduction over h0 when qbits > 0 and h0 is given). Returns the first cudaError_t
 // seen, 0 on success.
 //   gates: (T, B, 3H) [h | z | r];  U: (3H, H) [Uh; Uz; Ur];  drop: (B, H)
 //   h0:    (B, H) seed carry, or null for zeros
@@ -529,6 +860,43 @@ int fused_gru_fwd(const float* gates, const float* U, const float* drop,
                   void* stream_ptr) {
   return run_fwd<3>(gates, U, drop, h0, hs, acts, fw, s, qslots, T, B, H, act,
                     qbits, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The GRU (G=3) or minimalGRU (G=2) forward on the persistent route on
+// `stream`: one cooperative launch of `grid` blocks of
+// gru_dense_fwd_persist (bi: BT = 8 * bi rows a block; units: 4, 8 or
+// 16; smem bytes of dynamic shared memory: fused_rnn.gru_fwd_plan sizes
+// all three). Returns its cudaError_t; cudaErrorInvalidValue for a shape
+// not instantiated.
+//   gates: (T, B, G*H);  U: (G*H, H);  drop: (B, H);  h0: (B, H) or null
+//   hs: (T, B, H) output;  acts: (T, B, G*H) stash output, or null
+//   xh, xs: (B, HP) scratch, HP = H rounded up to a multiple of 4
+//   bmax: 2 * grid unsigned ints of scratch when qbits > 0
+int gru_fwd_dense_persist(const float* gates, const float* U,
+                          const float* drop, const float* h0, float* hs,
+                          float* acts, float* xh, float* xs, unsigned* bmax,
+                          int G, int T, int B, int H, int act, int qbits,
+                          int grid, int bi, int units, int smem,
+                          void* stream_ptr) {
+  FwdLaunch fn;
+  FwdOccupancy occ;
+  fwd_shape_of(G, bi, units, &fn, &occ);
+  if (!fn) return cudaErrorInvalidValue;
+  const bool q = qbits > 0;
+  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+  return fn(grid, smem, static_cast<cudaStream_t>(stream_ptr), gates, U,
+            drop, h0, hs, acts, xh, xs, q ? bmax : nullptr, T, B, H, act,
+            qscale);
+}
+
+// out[0..2]: the persistent forward's co-resident blocks per SM at `smem`
+// bytes of dynamic shared memory (G, bi and units as above), the SM count,
+// and whether the device takes cooperative launches.
+int gru_fwd_dense_occupancy(int G, int bi, int units, int smem, int* out) {
+  FwdLaunch fn;
+  FwdOccupancy occ;
+  fwd_shape_of(G, bi, units, &fn, &occ);
+  return occ ? occ(smem, out) : cudaErrorInvalidValue;
 }
 
 // The GRU backward on `stream`: 2T step kernels in reverse time; the

@@ -406,8 +406,10 @@ def ligru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
 # ``q`` is the per-step input quantizer (its scale max|v| over the step's
 # (B, H) block) with a straight-through gradient. Each step has two
 # grid-wide dependencies (s needs r or z of every unit, q(s) needs
-# max|s|), so the forward kernels run two launches per step. In reverse,
-# from dh_carry = 0 at t = T-1:
+# max|s|): the forward runs all steps in one cooperative launch with a
+# grid barrier after each (:func:`gru_fwd_route`), or, where its blocks do
+# not fit or are not co-resident, two launches per step. In reverse, from
+# dh_carry = 0 at t = T-1:
 #
 #     dh   = dh_carry + dhs[t]
 #     dg_h = dh * (1 - z) * drop * act'
@@ -585,8 +587,9 @@ def _gru_check(name, lead, U, drop, act, others, G, backward=None):
 
 def _gru_fwd(wrapper, G, scan, gates, U, drop, h0, act, qbits, stash):
     """The body of :func:`fused_gru_fwd` (G=3) and :func:`fused_mgru_fwd`
-    (G=2): the C entry point of ``wrapper``'s name, ``scan`` the
-    differentiable caller."""
+    (G=2): ``wrapper`` the public function (its name the step route's C
+    entry point), ``scan`` the differentiable caller. On the card the
+    route is picked before the launch (:func:`gru_fwd_route`)."""
     T, B, H, drop = _gru_check("gates", gates, U, drop, act, (("h0", h0),),
                                G)
     _check_shapes((("h0", h0, (B, H)),))
@@ -595,6 +598,18 @@ def _gru_fwd(wrapper, G, scan, gates, U, drop, h0, act, qbits, stash):
                            % (wrapper.__name__, scan))
     if gates.device.type == "cpu":
         return fused_gru_fwd_plain(gates, U, drop, h0, act, qbits, stash)
+    route, plan = gru_fwd_route(B, H, G, gates.device)
+    if route == "persist":
+        return _gru_fwd_persist(wrapper, plan, gates, U, drop, h0, act,
+                                qbits, stash)
+    return _gru_fwd_step(wrapper, gates, U, drop, h0, act, qbits, stash)
+
+
+def _gru_fwd_step(wrapper, gates, U, drop, h0, act, qbits, stash):
+    """The dense forward on the step route: two kernels a step (and the
+    reduction of max|h0| first with a seed and the quantizer)."""
+    T, B, GH = gates.shape
+    H = U.shape[1]
     from . import _build
     lib = _build.load("fused_gru")
     fn = getattr(lib, wrapper.__name__)
@@ -604,7 +619,7 @@ def _gru_fwd(wrapper, G, scan, gates, U, drop, h0, act, qbits, stash):
     f32 = dict(dtype=torch.float32, device=dev)
     hs = torch.empty((T, B, H), **f32)
     acts = torch.empty_like(gates) if stash else None
-    fw = None if stash else torch.empty((B, G * H), **f32)
+    fw = None if stash else torch.empty((B, GH), **f32)
     s = torch.empty((B, H), **f32)
     qslots = torch.empty(2 * T + 1 if qbits > 0 else 1, dtype=torch.int32,
                          device=dev)
@@ -614,7 +629,33 @@ def _gru_fwd(wrapper, G, scan, gates, U, drop, h0, act, qbits, stash):
                 qslots.data_ptr(), T, B, H, _ACT_CODE[act], qbits,
                 _stream(dev))
     _build.check(lib, rc, wrapper.__name__)
-    wrapper.launches += 2 * T
+    wrapper.launches += gru_fwd_launches("step", T, h0 is not None, qbits)
+    return (hs, acts) if stash else hs
+
+
+def _gru_fwd_persist(wrapper, plan, gates, U, drop, h0, act, qbits, stash):
+    """The dense forward on the persistent route (``plan``: its
+    PersistPlan, :func:`gru_fwd_plan`): all T steps in one cooperative
+    launch, h_t and s exchanged through two (B, HP) buffers (rows padded
+    to a multiple of 4 floats for the 16-byte copies)."""
+    from . import block_sparse as BS
+    T, B, GH = gates.shape
+    H, dev = U.shape[1], gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    hs = torch.empty((T, B, H), **f32)
+    acts = torch.empty_like(gates) if stash else None
+    xch = torch.empty((2, B, gru_fwd_exchange_stride(H)), **f32)
+    # each block's max|h| and max|s| of the step, for the quantizer
+    bmax = torch.empty(2 * plan.grid if qbits > 0 else 1, dtype=torch.int32,
+                       device=dev)
+    BS._launch("fused_gru", "gru_fwd_dense_persist", dev,
+               (gates.data_ptr(), U.data_ptr(), drop.data_ptr(), _ptr(h0),
+                hs.data_ptr(), _ptr(acts), xch[0].data_ptr(),
+                xch[1].data_ptr(), bmax.data_ptr()),
+               (GH // H, T, B, H, _ACT_CODE[act], qbits, plan.grid, plan.bi,
+                plan.units, plan.smem))
+    wrapper.launches += gru_fwd_launches("persist", T, h0 is not None,
+                                         qbits)
     return (hs, acts) if stash else hs
 
 
@@ -627,9 +668,11 @@ def fused_gru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     ``h0`` (B, H). -> hs (T, B, H) float32, and ``(hs, acts)`` with the
     stash [act(a_h), z, r] (T, B, 3H) when ``stash``.
 
-    CUDA tensors run the kernel (two launches per step), CPU tensors the
-    plain twin. This is the raw kernel call, with no autograd:
-    differentiable callers use :func:`gru_scan_fused`."""
+    CUDA tensors run the kernels on the route :func:`gru_fwd_route` picks
+    before the launch: "persist" (all steps in one cooperative launch)
+    where the blocks fit and are co-resident, else "step" (two launches
+    per step); CPU tensors the plain twin. This is the raw kernel call,
+    with no autograd: differentiable callers use :func:`gru_scan_fused`."""
     return _gru_fwd(fused_gru_fwd, 3, "gru_scan_fused", gates, U, drop, h0,
                     act, qbits, stash)
 
@@ -645,8 +688,9 @@ def fused_mgru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     stacked [Uh; Uz], ``drop`` broadcastable to (B, H), optional seed
     carry ``h0`` (B, H). -> hs (T, B, H) float32, and ``(hs, acts)`` with
     the stash [act(a_h), z] (T, B, 2H) when ``stash``. CUDA tensors run
-    the kernel (two launches per step), CPU tensors the plain twin; no
-    autograd (:func:`mgru_scan_fused`)."""
+    the kernels on the route :func:`gru_fwd_route` picks (as
+    :func:`fused_gru_fwd`), CPU tensors the plain twin; no autograd
+    (:func:`mgru_scan_fused`)."""
     return _gru_fwd(fused_mgru_fwd, 2, "mgru_scan_fused", gates, U, drop, h0,
                     act, qbits, stash)
 
@@ -1282,6 +1326,57 @@ def gru_fwd_sparse_launches(route: str, T: int) -> int:
     """Kernels one :func:`fused_gru_fwd_sparse` call launches on
     ``route``: "persist" the one cooperative launch, "step" two a step."""
     return 1 if route == "persist" else 2 * T
+
+
+def gru_fwd_plan(B: int, H: int, G: int, shape: Optional[tuple] = None
+                 ) -> PersistPlan:
+    """The dense GRU (G=3) or minimalGRU (G=2) forward's persistent chain
+    at batch B and width H (``shape`` forces (bi, units), one of
+    :data:`GRU_FWD_SHAPES`; else :func:`_shape`): a block owns units (the
+    last group masked where they do not divide H) with their H-long rows
+    of the G gates resident, stages per step q(h_{t-1}) and q(s): its
+    rows of the exchange buffers, H rounded up to 4 floats each
+    (``staged``), at a row stride of :func:`_row_stride` (H), and keeps
+    one sum a row and gate-unit ((G-1) x units of them)."""
+    bi, un = shape or _shape(B)
+    bt, zc = 8 * bi, (G - 1) * un
+    resident = 4 * G * un * H
+    smem = resident + 4 * bt * _row_stride(H) + 4 * bt * zc
+    grid = -(-H // un) * -(-B // bt)
+    return PersistPlan(bi, un, grid, smem, 0, resident,
+                       2 * 4 * min(bt, B) * gru_fwd_exchange_stride(H))
+
+
+#: the dense forward's block shapes (bi, units) that fused_gru.cu
+#: instantiates: :func:`_shape`'s three and 4 and 16 units at 8 rows (the
+#: forced plans ``chip_smoke.py --rnn-times`` times at the TIMIT shapes)
+GRU_FWD_SHAPES = ((1, 4), (1, 8), (2, 8), (1, 16), (2, 16))
+
+
+def gru_fwd_exchange_stride(H: int) -> int:
+    """Floats between two rows of the dense persistent forward's exchange
+    buffers (h_t and s): H rounded up to 4, so that every row starts 16
+    bytes aligned for ``cp.async``."""
+    return -(-H // 4) * 4
+
+
+def gru_fwd_route(B: int, H: int, G: int, dev) -> tuple:
+    """(route, plan) of :func:`fused_gru_fwd` (G=3) and
+    :func:`fused_mgru_fwd` (G=2) at batch B and width H on the card
+    ``dev``."""
+    plan = gru_fwd_plan(B, H, G)
+    return _route(plan, "fused_gru", "gru_fwd_dense_occupancy",
+                  (G, plan.bi, plan.units), torch.device(dev)), plan
+
+
+def gru_fwd_launches(route: str, T: int, seeded: bool, qbits: int) -> int:
+    """Kernels one :func:`fused_gru_fwd` or :func:`fused_mgru_fwd` call
+    launches on ``route``: "persist" the one cooperative launch (a seed's
+    scale is taken inside it); "step" two a step, and the reduction of
+    max|h0| before them with a seed and the quantizer."""
+    if route == "persist":
+        return 1
+    return 2 * T + int(seeded and qbits > 0)
 
 
 def gru_bwd_sparse_launches(route: str, T: int, qbits: int,

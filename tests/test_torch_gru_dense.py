@@ -615,9 +615,9 @@ def cuda_device():
 @pytest.mark.parametrize("qbits", [0, 16])
 @pytest.mark.parametrize("act", ["tanh", "relu"])
 def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
-    """The forward (plain, stash, seeded; two launches per step) and both
-    BPTT kernels (2T, and 2T + 2 for the recompute one) against their
-    twins on the card, on the same tensors."""
+    """The forward (plain, stash, seeded; on its route, with the route's
+    launches) and both BPTT kernels (2T, and 2T + 2 for the recompute one)
+    against their twins on the card, on the same tensors."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g, U, drop, h0, dhs = (tt(a).to(cuda_device) for a in _inputs(19))
     with torch.no_grad():
@@ -626,7 +626,10 @@ def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
                                      stash=True)
         hs1 = tfr.fused_gru_fwd(g, U, drop, act=act, qbits=qbits)
         hs_s = tfr.fused_gru_fwd(g, U, drop, h0, act=act, qbits=qbits)
-        assert tfr.fused_gru_fwd.launches == before + 6 * T
+        route = tfr.gru_fwd_route(B, H, 3, cuda_device)[0]
+        assert tfr.fused_gru_fwd.launches == before + sum(
+            tfr.gru_fwd_launches(route, T, seeded, qbits)
+            for seeded in (False, False, True))
         ref, ref_a = tfr.fused_gru_fwd_plain(g, U, drop, None, act, qbits,
                                              True)
         ref_s = tfr.fused_gru_fwd_plain(g, U, drop, h0, act, qbits)

@@ -790,8 +790,8 @@ def cuda_device():
 @pytest.mark.parametrize("qbits", [0, 16])
 @pytest.mark.parametrize("act", ["relu", "tanh"])
 def test_cuda_dense_kernels_match_plain_twins(cuda_device, act, qbits):
-    """The forward (plain, stash, seeded; 2T launches each) and both BPTT
-    kernels (2T and 2T + 2) against their twins on the card."""
+    """The forward (plain, stash, seeded; the route's launches each) and
+    both BPTT kernels (2T and 2T + 2) against their twins on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g, U, drop, h0, dhs = (tt(a).to(cuda_device) for a in _inputs(19, act))
     with torch.no_grad():
@@ -800,7 +800,10 @@ def test_cuda_dense_kernels_match_plain_twins(cuda_device, act, qbits):
                                       stash=True)
         hs1 = tfr.fused_mgru_fwd(g, U, drop, act=act, qbits=qbits)
         hs_s = tfr.fused_mgru_fwd(g, U, drop, h0, act=act, qbits=qbits)
-        assert tfr.fused_mgru_fwd.launches == before + 6 * T
+        route = tfr.gru_fwd_route(B, H, 2, cuda_device)[0]
+        assert tfr.fused_mgru_fwd.launches == before + sum(
+            tfr.gru_fwd_launches(route, T, seeded, qbits)
+            for seeded in (False, False, True))
         ref, ref_a = tfr.fused_mgru_fwd_plain(g, U, drop, None, act, qbits,
                                               True)
         ref_s = tfr.fused_mgru_fwd_plain(g, U, drop, h0, act, qbits)

@@ -1,16 +1,22 @@
 """The plans and routes of the persistent chains (pytorch_kaldi_cgs_tpu_
 torch/ops/fused_rnn.py over csrc/persist.cuh): the GRU BPTTs' reverse
-chains, the liGRU recompute BPTT's and the sparse GRU forward's, in pure
-Python: which route and grid each wrapper picks for given shapes, SM
-counts and shared memory, the slabs a staged row is cut into, the
-launches it then counts, and the staging layout's claim that the 32
-lanes of a warp read 32 banks. The kernels themselves are held against
-their twins by the ``cuda`` cases of tests/test_torch_gru.py,
-tests/test_torch_gru_cudnn.py, tests/test_torch_ligru.py and
-tests/test_torch_libri_ligru.py."""
+chains, the liGRU recompute BPTT's, the sparse GRU forward's and the
+dense GRU and minimalGRU forward's, in pure Python: which route and grid
+each wrapper picks for given shapes, SM counts and shared memory, the
+slabs a staged row is cut into, the launches it then counts, and the
+staging layout's claim that the 32 lanes of a warp read 32 banks. The
+kernels themselves are held against their twins by the ``cuda`` cases
+of tests/test_torch_gru.py, tests/test_torch_gru_cudnn.py,
+tests/test_torch_ligru.py and tests/test_torch_libri_ligru.py, and the
+dense GRU forward's by this file's (every instantiated block shape and
+both routes)."""
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
+import torch
 
 from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as tbs
 from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as tfl
@@ -319,8 +325,10 @@ def test_gru_fwd_sparse_launches(route, T, n):
 
 
 def test_chain_block_shapes_are_the_kernels():
-    """Both plans pick only the block shapes the kernels instantiate:
-    (1, 8), (2, 8), (4, 8) and (2, 16)."""
+    """The plans pick only the block shapes the kernels instantiate:
+    (1, 8), (2, 8), (4, 8) and (2, 16) for the liGRU's chain and the
+    sparse GRU forward; the dense GRU forward's from GRU_FWD_SHAPES,
+    which are fused_gru.cu's instantiations."""
     shapes = {(1, 8), (2, 8), (4, 8), (2, 16)}
     layout = _libri_layout()
     for B in (1, 5, 8, 9, 16, 17, 32, 100):
@@ -328,6 +336,118 @@ def test_chain_block_shapes_are_the_kernels():
         assert (plan.bi, plan.units) in shapes
         plan = tfr.gru_fwd_sparse_plan(B, layout)
         assert (plan.bi, plan.units) in shapes
+        for H, G in ((18, 3), (550, 3), (1024, 2), (1024, 3)):
+            plan = tfr.gru_fwd_plan(B, H, G)
+            assert (plan.bi, plan.units) in tfr.GRU_FWD_SHAPES
+    src = (pathlib.Path(tfr.__file__).parent / "csrc" / "fused_gru.cu"
+           ).read_text()
+    inst = re.findall(r"^  PK_FWD_SHAPE\((\d+), (\d+)\)$", src, re.M)
+    assert tuple((int(a), int(b)) for a, b in inst) == tfr.GRU_FWD_SHAPES
+
+
+# ---------------------------------------------------------------------------
+# the dense GRU and minimalGRU forward (TPU rows 19 and 24)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B, H, G, bi, units, grid, smem, staged", [
+    # the TIMIT GRU (row 19)
+    (8, 550, 3, 1, 8, 69, 4 * (3 * 8 * 550 + 8 * 556 + 8 * 16),
+     2 * 4 * 8 * 552),
+    # the minimalGRU (row 24)
+    (8, 1024, 2, 1, 8, 128, 4 * (2 * 8 * 1024 + 8 * 1028 + 8 * 8),
+     2 * 4 * 8 * 1024),
+    # the GRU at H=1024, B=8 (the bf16 1024-wide layer's shape)
+    (8, 1024, 3, 1, 8, 128, 4 * (3 * 8 * 1024 + 8 * 1028 + 8 * 16),
+     2 * 4 * 8 * 1024),
+    # 96 rows at H=1024: 16 x 16 blocks, 264,448 bytes
+    (96, 1024, 3, 2, 16, 384, 4 * (3 * 16 * 1024 + 16 * 1028 + 16 * 32),
+     2 * 4 * 16 * 1024),
+    # the small ragged shape: 3 unit groups, the last of 2 units
+    (5, 18, 3, 1, 8, 3, 4 * (3 * 8 * 18 + 8 * 28 + 8 * 16), 2 * 4 * 5 * 20),
+    (5, 18, 2, 1, 8, 3, 4 * (2 * 8 * 18 + 8 * 28 + 8 * 8), 2 * 4 * 5 * 20),
+])
+def test_gru_fwd_plan(B, H, G, bi, units, grid, smem, staged):
+    """A block owns its units' H-long rows of the G gates, stages its rows
+    of q(h_{t-1}) and q(s) (H rounded up to 4 floats each) at a row
+    stride of _row_stride(H), and keeps one sum a row and gate-unit; the
+    last unit group is masked where units do not divide H."""
+    plan = tfr.gru_fwd_plan(B, H, G)
+    assert (plan.bi, plan.units, plan.grid, plan.smem, plan.static,
+            plan.resident, plan.staged) == (bi, units, grid, smem, 0,
+                                            4 * G * units * H, staged)
+    assert (plan.slab, plan.slabs) == (0, 1)
+
+
+@pytest.mark.parametrize("shape, grid, smem", [
+    ((1, 4), 138, 4 * (3 * 4 * 550 + 8 * 556 + 8 * 8)),
+    ((1, 16), 35, 4 * (3 * 16 * 550 + 8 * 556 + 8 * 32)),
+])
+def test_gru_fwd_plan_forced_at_the_timit_gru(shape, grid, smem):
+    """The two other shapes timed at the TIMIT GRU's 8 rows: 4 units (138
+    blocks, about 44 KB each) and 16 (35 blocks)."""
+    plan = tfr.gru_fwd_plan(8, 550, 3, shape)
+    assert (plan.bi, plan.units, plan.grid, plan.smem) == shape + (grid,
+                                                                    smem)
+
+
+@pytest.mark.parametrize("B, H, G, blocks_per_sm, route", [
+    (8, 550, 3, 1, "persist"),      # the TIMIT GRU: 69 blocks
+    (8, 1024, 2, 1, "persist"),     # the minimalGRU: 128 blocks
+    (8, 1024, 3, 1, "persist"),
+    (16, 1024, 3, 1, "persist"),    # 8 x 16 blocks, 165,120 bytes
+    (8, 2048, 3, 1, "step"),        # 262,784 bytes: more than a block has
+    (8, 2048, 2, 1, "step"),        # fits (196,992 bytes); 256 blocks
+    (8, 1100, 2, 1, "step"),        # 138 blocks, one an SM
+    (8, 1100, 2, 2, "persist"),
+    (96, 1024, 3, 3, "step"),       # 16 x 16 does not fit
+    (48, 550, 3, 1, "persist"),     # 16 x 16: 35 x 3 blocks
+])
+def test_gru_fwd_route(B, H, G, blocks_per_sm, route):
+    plan = tfr.gru_fwd_plan(B, H, G)
+    assert tfr.persist_route(plan, blocks_per_sm, H100_SMS) == route
+
+
+def test_gru_fwd_route_needs_cooperative_launch_and_room():
+    plan = tfr.gru_fwd_plan(8, 550, 3)
+    assert tfr.persist_route(plan, 1, H100_SMS, coop=False) == "step"
+    assert tfr.persist_route(plan, 0, H100_SMS) == "step"
+    assert tfr.persist_route(plan, 1, H100_SMS,
+                             smem_max=plan.smem - 1) == "step"
+    assert tfr.persist_route(plan, 1, 68) == "step"      # 69 blocks
+
+
+def test_gru_fwd_width_limit_is_the_step_kernels():
+    """The dense forward's width limit (the step kernels' staged rows) is
+    far past the widest persistent block at 8 rows."""
+    for G, cell, widest in ((3, "gru", 1808), (2, "mgru", 2416)):
+        limit = tfl.dense_max_width(cell)
+        assert tfr.persist_route(tfr.gru_fwd_plan(1, limit, G), 1,
+                                 H100_SMS) == "step"
+        fits = [h for h in range(8, limit, 8) if tfr.gru_fwd_plan(
+            8, h, G).smem <= tfl._SMEM_MAX]
+        assert max(fits) == widest
+
+
+@pytest.mark.parametrize("route, T, seeded, qbits, n", [
+    ("persist", 300, False, 0, 1), ("persist", 300, False, 16, 1),
+    ("persist", 100, True, 0, 1), ("persist", 100, True, 16, 1),
+    ("step", 300, False, 16, 600), ("step", 398, False, 0, 796),
+    ("step", 100, True, 0, 200), ("step", 100, True, 16, 201)])
+def test_gru_fwd_launches(route, T, seeded, qbits, n):
+    """One cooperative launch a call, a seed or not (its scale is taken
+    inside the chain); two kernels a step otherwise, and the reduction of
+    max|h0| first with a seed and the quantizer."""
+    assert tfr.gru_fwd_launches(route, T, seeded, qbits) == n
+
+
+@pytest.mark.parametrize("H, HP", [(550, 552), (18, 20), (1024, 1024),
+                                   (1, 4), (4, 4), (1027, 1028)])
+def test_gru_fwd_exchange_stride(H, HP):
+    """The exchange buffers' rows start 16 bytes apart (cp.async copies
+    16-byte chunks), hold the row and fit the staged row's stride."""
+    stride = tfr.gru_fwd_exchange_stride(H)
+    assert stride == HP and (4 * stride) % 16 == 0 and H <= stride < H + 4
+    assert stride <= tfr._row_stride(H)
 
 
 # ---------------------------------------------------------------------------
@@ -386,3 +506,226 @@ def test_quant_rcp_quotient_is_ieee_division():
     r = (a.astype(f64) - q.astype(f64) * var.astype(f64)).astype(f32)
     q = (r.astype(f64) * inv.astype(f64) + q.astype(f64)).astype(f32)
     np.testing.assert_array_equal(q, (a / var).astype(f32))
+
+
+def _quant_emulated(x, var, bits=16):
+    """quant() and quant_rcp() of lstm_common.cuh on float32 numpy arrays
+    (IEEE division; the reciprocal and one FMA correction, each FMA's
+    float64 value rounded once to float32, below the normal range whether
+    |x| * 2^75 > var * 2^-75), -> (quant, quant_rcp, the corrected
+    quotient's quantizer without that test)."""
+    f32, f64 = np.float32, np.float64
+    scale, iscale = f32(2.0 ** (bits - 1)), f32(2.0 ** (1 - bits))
+    a, s = np.abs(x), np.sign(x).astype(f32)
+    inv = (f32(1) / var).astype(f32)
+    q = (a * inv).astype(f32)
+    r = (a.astype(f64) - q.astype(f64) * var.astype(f64)).astype(f32)
+    q1 = (r.astype(f64) * inv.astype(f64) + q.astype(f64)).astype(f32)
+    div = (a / var).astype(f32)
+    above = (a * f32(2.0 ** 75)) > (var * f32(2.0 ** -75))
+    q2 = np.where(q1 < f32(2.0 ** -126),
+                  np.where(above, f32(2.0 ** -126), f32(0)), q1).astype(f32)
+
+    def out(quot):
+        return (np.ceil(quot * scale).astype(f32) * iscale * var * s
+                ).astype(f32)
+    return out(div), out(q2), out(q1)
+
+
+def test_quant_rcp_divides_below_the_normal_range():
+    """At var = 1.544 the smallest subnormal |x| (where a carry that
+    decays through z * h ends) has the division round to 2^-149 and one
+    correction of the reciprocal's quotient to 0: quant() gives one step,
+    var / 2^15, and the corrected quotient alone 0. quant_rcp asks there
+    whether the division would round to 0 (|x| > var * 2^-150, exactly),
+    and keeps quant()'s bits there and on the smallest subnormals and
+    normals at other scales."""
+    f32 = np.float32
+    tiny = np.array([2 ** -149, 2 ** -148, 2 ** -140, 2 ** -126, 2 ** -100],
+                    f32)
+    x = np.concatenate([tiny, -tiny, [0.0, -0.0]]).astype(f32)
+    for vbits in (0x3FC5A1E6, 0x3F800000, 0x40490FDB, 0x3C23D70A):
+        var = np.full_like(x, np.array([vbits], np.uint32).view(f32)[0])
+        want, got, one_correction = _quant_emulated(x, var)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+        if vbits == 0x3FC5A1E6:
+            assert want[0] == var[0] / f32(2 ** 15) and one_correction[0] == 0
+
+
+_QUANT_CHECK_CU = r"""
+#include <cstdint>
+#include <cstring>
+#include "lstm_common.cuh"
+__device__ unsigned long long bad;
+__global__ void check(float v, uint32_t hi) {
+  const float inv = 1.f / v, scale = 32768.f, iscale = 1.f / 32768.f;
+  unsigned long long b = 0;
+  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i <= 2ull * hi + 1; i += (uint64_t)gridDim.x * blockDim.x) {
+    const float a = __uint_as_float((uint32_t)(i >> 1) |
+                                    ((uint32_t)(i & 1) << 31));
+    b += __float_as_uint(quant(a, v, scale)) !=
+         __float_as_uint(quant_rcp(a, v, inv, scale, iscale));
+  }
+  atomicAdd(&bad, b);
+}
+extern "C" unsigned long long quant_mismatches(uint32_t vbits) {
+  float v;
+  memcpy(&v, &vbits, 4);
+  unsigned long long z = 0, h = 0;
+  cudaMemcpyToSymbol(bad, &z, 8);
+  check<<<1056, 256>>>(v, vbits);
+  cudaMemcpyFromSymbol(&h, bad, 8);
+  return cudaGetLastError() == cudaSuccess ? h : ~0ull;
+}
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_quant_rcp_is_quant_for_every_input(cuda_device, tmp_path):
+    """On the card, quant_rcp's bits equal quant()'s for every float32 x
+    with |x| <= var (both signs, subnormals and zeros; 2-4 billion values
+    a scale) at scales from the subnormal to 1.7e38."""
+    import ctypes
+    import subprocess
+    from pytorch_kaldi_cgs_tpu_torch.ops import _build
+    src = tmp_path / "quant_check.cu"
+    src.write_text(_QUANT_CHECK_CU)
+    lib = tmp_path / "libquant_check.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS[:-2], "-I",
+                    str(_build.CSRC), "-o", str(lib), str(src)], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(lib)).quant_mismatches
+    fn.argtypes, fn.restype = [ctypes.c_uint32], ctypes.c_ulonglong
+    for vbits in (0x3FC5A1E6, 0x3F800000, 0x3F7FFFFF, 0x40490FDB,
+                  0x3E4CCCCD, 0x41200000, 0x3C23D70A, 0x3A83126F, 0x447A0000,
+                  0x00400000, 0x00800000, 0x7F000000):
+        assert fn(vbits) == 0, hex(vbits)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the dense GRU forward's routes against the twin (skips
+# without one)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU "
+                    "mode (chip_smoke.py runs them on the H100)")
+    return torch.device("cuda")
+
+
+def _gru_fwd_inputs(T, B, H, G, seed, dev):
+    rng = np.random.RandomState(seed)
+
+    def d(a):
+        return torch.tensor(a.astype(np.float32), device=dev)
+    return (d(rng.randn(T, B, G * H) * 0.5), d(rng.randn(G * H, H) * 0.3),
+            d(rng.rand(B, H) > 0.2), d(rng.randn(B, H) * 0.3))
+
+
+def _gru_fwd_cases(wrapper, G, g, U, drop, h0, call):
+    """``call(h0, act, qbits, stash)`` against the twin over qbits 0/16 x
+    tanh/relu x zero or seeded carry x stash or not (atol 1e-5, 1e-4 with
+    16 bits: a one-ulp difference at a ceil step is one step); two calls
+    bit for bit. -> the wrapper's launches over all cases."""
+    before = wrapper.launches
+    for qbits in (0, 16):
+        for act in ("tanh", "relu"):
+            for seed in (None, h0):
+                for stash in (False, True):
+                    with torch.no_grad():
+                        got = call(seed, act, qbits, stash)
+                        again = call(seed, act, qbits, stash)
+                        ref = tfr.fused_gru_fwd_plain(g, U, drop, seed, act,
+                                                      qbits, stash)
+                    got, again, ref = ((x,) if not stash else x
+                                       for x in (got, again, ref))
+                    for a, b, r in zip(got, again, ref):
+                        assert torch.equal(a, b)
+                        np.testing.assert_allclose(
+                            a.cpu().numpy(), r.cpu().numpy(),
+                            atol=1e-4 if qbits else 1e-5,
+                            err_msg="G=%d %s qbits=%d seeded=%s stash=%s"
+                            % (G, act, qbits, seed is not None, stash))
+    return wrapper.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.GRU_FWD_SHAPES)
+@pytest.mark.parametrize("G", [3, 2])
+def test_cuda_gru_fwd_persist_every_block_shape(cuda_device, G, shape):
+    """The persistent forward forced to each instantiated block shape at a
+    ragged width (H=37: the last unit group masked, the exchange rows
+    padded to 40 floats) and batch (8 bi + 3 rows: a ragged last block of
+    rows), against the twin; one launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bi, un = shape
+    T, B, H = 7, 8 * bi + 3, 37
+    g, U, drop, h0 = _gru_fwd_inputs(T, B, H, G, 31 + 2 * un + bi,
+                                     cuda_device)
+    wrapper = tfr.fused_gru_fwd if G == 3 else tfr.fused_mgru_fwd
+    plan = tfr.gru_fwd_plan(B, H, G, shape)
+    n = _gru_fwd_cases(wrapper, G, g, U, drop, h0, lambda h, a, q, st:
+                       tfr._gru_fwd_persist(wrapper, plan, g, U, drop, h, a,
+                                            q, st))
+    assert n == 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [3, 2])
+def test_cuda_gru_fwd_routes(cuda_device, G):
+    """The wrapper on the route its plan names (persistent at 11 rows of
+    37 units) and the step route forced, against the twin, each with its
+    route's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B, H = 6, 11, 37
+    g, U, drop, h0 = _gru_fwd_inputs(T, B, H, G, 41 + G, cuda_device)
+    wrapper = tfr.fused_gru_fwd if G == 3 else tfr.fused_mgru_fwd
+    assert tfr.gru_fwd_route(B, H, G, cuda_device)[0] == "persist"
+    n = _gru_fwd_cases(wrapper, G, g, U, drop, h0, lambda h, a, q, st:
+                       wrapper(g, U, drop, h, act=a, qbits=q, stash=st))
+    assert n == 32
+    n = _gru_fwd_cases(wrapper, G, g, U, drop, h0, lambda h, a, q, st:
+                       tfr._gru_fwd_step(wrapper, g, U, drop, h, a, q, st))
+    assert n == sum(2 * tfr.gru_fwd_launches("step", T, seeded, q)
+                    for q in (0, 16) for _ in ("tanh", "relu")
+                    for seeded in (False, True) for _ in (0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [3, 2])
+def test_cuda_gru_fwd_persist_gives_the_step_routes_bits(cuda_device, G):
+    """Each dot of the persistent forward is one warp's, lanes over k and
+    a shuffle reduction, as in the step kernels, and its quantizer gives
+    quant()'s bits: at every instantiated block shape both routes give
+    equal bits (a dense stream of a sparse layer therefore keeps the
+    sparse forward's)."""
+    T, B, H = 5, 19, 45
+    g, U, drop, h0 = _gru_fwd_inputs(T, B, H, G, 53 + G, cuda_device)
+    wrapper = tfr.fused_gru_fwd if G == 3 else tfr.fused_mgru_fwd
+    with torch.no_grad():
+        for qbits in (0, 16):
+            for act in ("tanh", "relu"):
+                for seed in (None, h0):
+                    want = tfr._gru_fwd_step(wrapper, g, U, drop, seed, act,
+                                             qbits, True)
+                    for shape in tfr.GRU_FWD_SHAPES:
+                        got = tfr._gru_fwd_persist(
+                            wrapper, tfr.gru_fwd_plan(B, H, G, shape), g, U,
+                            drop, seed, act, qbits, True)
+                        for a, b in zip(got, want):
+                            assert torch.equal(a, b), (shape, qbits, act)
+
+
+def test_gru_fwd_variants_apply_to_the_source():
+    """gru_fwd_variants.py writes its variants of fused_gru.cu by text
+    substitution: each still applies to the source and changes it."""
+    import gru_fwd_variants
+    from pytorch_kaldi_cgs_tpu_torch.ops import _build
+    src = (_build.CSRC / "fused_gru.cu").read_text()
+    out = gru_fwd_variants.variants(src)
+    assert out.pop("base") == src
+    assert len(out) == 8 and all(v != src for v in out.values())
