@@ -343,6 +343,7 @@ no network and one card; exits non-zero without one.
 """
 
 import contextlib
+import hashlib
 import json
 import os
 import re
@@ -1501,7 +1502,11 @@ def kernel_classes(by_name):
                # the step kernels at G=2 and the persistent forward's G=2
                # instantiation (its G=3 one counts under gru_fwd_kernel)
                "mgru_fwd_kernel": tuple(mg[:6]) + ("gru_dense_fwd_persist<2",),
-               "mgru_bptt_kernel": tuple(mg[6:]),
+               # the step kernels, and the persistent chain with its
+               # rebuild's products and z pass
+               "mgru_bptt_kernel": tuple(mg[6:]) + ("gru_dense_bwd_persist<2",
+                                                    "mgru_z_rebuild",
+                                                    "rows_dots"),
                "ligru_sparse_fwd_kernel": ("ligru_sparse_step",),
                "ligru_sparse_bptt_kernel": ("ligru_sparse_bwd",),
                "gru_torch_fwd_kernel": ("gru_torch_step",),
@@ -1512,7 +1517,7 @@ def kernel_classes(by_name):
                "gru_torch_bptt_kernel": ("gru_torch_bwd",),
                "lstm_fwd_kernel": ("lstm_step", "sparse_fwd_step"),
                "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step"),
-               "ligru_fwd_kernel": ("ligru_step",),
+               "ligru_fwd_kernel": ("ligru_step", "ligru_fwd_persist"),
                "ligru_bptt_kernel": ("ligru_bwd",),
                "gru_fwd_kernel": ("gru_zr_step", "gru_h_step",
                                   "gru_fwd_persist", "gru_dense_fwd_persist"),
@@ -1584,7 +1589,8 @@ def kernel_short_name(name):
 def trace_events(fn, reps=1, mark=False):
     """The events of torch.profiler's trace of ``reps`` calls of ``fn``
     (after one warm-up call), read from the trace file it writes; with
-    ``mark``, call i inside a host range named ``call_<i>``."""
+    ``mark``, call i inside a host range named ``call_<i>``, the device
+    idle again before the next call."""
     from torch.profiler import ProfilerActivity, profile, record_function
     fn()
     torch.cuda.synchronize()
@@ -1595,6 +1601,7 @@ def trace_events(fn, reps=1, mark=False):
                 if mark:
                     with record_function("call_%d" % i):
                         fn()
+                    torch.cuda.synchronize()
                 else:
                     fn()
         torch.cuda.synchronize()
@@ -2082,13 +2089,60 @@ def phase_ligru_kernels(dev):
     the training shape; the recompute BPTT also at the libri Li-GRU's
     training shape (qbits 0) and on its step route (LG_STEP_TBH), each
     on its route with its launches, two calls bit for bit and its device
-    kernels (ligru_bwd_check)."""
+    kernels (ligru_bwd_check). The forward runs on the route its plan
+    names (ligru_fwd_launches: persistent at all but LG_STEP_TBH, whose
+    256 blocks are not co-resident), two calls bit for bit, its device
+    kernels held to the route's (ligru_fwd_design) once a shape; at every
+    shape but LG_STEP_TBH the step route also runs forced
+    (fused_rnn._ligru_fwd_step), and both routes give equal bits."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
+    fwd = R.fused_ligru_fwd
 
     def check(name, shape, variant, err_rel, tol, by_rel):
         record_check(checks, "ligru_kernels", name, dict(zip("TBH", shape)), variant,
                      err_rel, tol, by_rel)
+
+    def fwd_checks(shape, variant, g, U, drop, h0, act, qbits, tol_q, kernels,
+                   forced):
+        """The forward's checks at ``shape`` on its route: plain and
+        seeded against the twin with their launches, two calls bit for
+        bit; ``kernels``: its device kernels; ``forced``: the step route
+        forced, against the twin and bit for bit the persistent one's.
+        -> the stash forward's (hs, acts) and the twin's."""
+        T, B, H = shape
+        route, n = ligru_fwd_launches(dev, T, B, H)
+        fvar = dict(variant, route=route)
+        ref = R.fused_ligru_fwd_plain(g, U, drop, None, act, qbits, True)
+        ref_seed = R.fused_ligru_fwd_plain(g, U, drop, h0, act, qbits)
+        check("fused_ligru_fwd", shape, fvar, rel_err(launched(
+            fwd, n, lambda: fwd(g, U, drop, act=act, qbits=qbits)), ref[0]),
+            tol_q, False)
+        check("fused_ligru_fwd/seeded", shape, fvar, rel_err(launched(
+            fwd, n, lambda: fwd(g, U, drop, h0, act=act, qbits=qbits)),
+            ref_seed), tol_q, False)
+        check("fused_ligru_fwd/determinism", shape, fvar, same_bits(
+            lambda: fwd(g, U, drop, h0, act=act, qbits=qbits, stash=True)),
+            0.0, False)
+        if kernels:
+            bptt_kernels(lambda: fwd(g, U, drop, h0, act=act, qbits=qbits),
+                         ligru_fwd_design(route, T, True, qbits))
+        stash = launched(fwd, n, lambda: fwd(g, U, drop, act=act,
+                                             qbits=qbits, stash=True))
+        if forced:
+            svar = dict(variant, route="step")
+            st = launched(fwd, T, lambda: R._ligru_fwd_step(
+                g, U, drop, None, act, qbits, True))
+            check("fused_ligru_fwd/step_route/stash", shape, svar,
+                  rel_err(st, ref), tol_q, False)
+            # both routes sum in one order: the same bits
+            check("fused_ligru_fwd/persist_vs_step", shape, fvar,
+                  bits_apart(stash, st), 0.0, False)
+            check("fused_ligru_fwd/step_route/seeded", shape, svar, rel_err(
+                launched(fwd, T, lambda: R._ligru_fwd_step(
+                    g, U, drop, h0, act, qbits, False)), ref_seed), tol_q,
+                False)
+        return stash, ref
 
     for shape in (SMALL_TBH, LG_MID_TBH, LG_SERVE_TBH, LG_TRAIN_TBH):
         T, B, H = shape
@@ -2102,21 +2156,14 @@ def phase_ligru_kernels(dev):
             tol = TOL_F32_SMALL if small else TOL_F32_SERVE
             tol_q = TOL_Q16 if qbits else tol
             with torch.no_grad():
-                ref = R.fused_ligru_fwd_plain(g, U, drop, None, act, qbits,
-                                              True)
-                check("fused_ligru_fwd", shape, variant, rel_err(
-                    R.fused_ligru_fwd(g, U, drop, act=act, qbits=qbits),
-                    ref[0]), tol_q, False)
-                check("fused_ligru_fwd/seeded", shape, variant, rel_err(
-                    R.fused_ligru_fwd(g, U, drop, h0, act=act, qbits=qbits),
-                    R.fused_ligru_fwd_plain(g, U, drop, h0, act, qbits)),
-                    tol_q, False)
+                (hs, acts), ref = fwd_checks(
+                    shape, variant, g, U, drop, h0, act, qbits, tol_q,
+                    k + 1 == len(cases), True)
                 if serve:
                     continue
-                hs, acts = R.fused_ligru_fwd(g, U, drop, act=act, qbits=qbits,
-                                             stash=True)
-                check("fused_ligru_fwd/stash", shape, variant,
-                      rel_err((hs, acts), ref), tol_q, False)
+                check("fused_ligru_fwd/stash", shape, dict(
+                    variant, route=ligru_fwd_launches(dev, T, B, H)[0]),
+                    rel_err((hs, acts), ref), tol_q, False)
                 h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
                 check("fused_ligru_bwd_stash", shape, variant, rel_err(
                     R.fused_ligru_bwd_stash(acts, U, drop, h_prev, dhs, act),
@@ -2124,32 +2171,39 @@ def phase_ligru_kernels(dev):
                                                   act)), tol, True)
                 ligru_bwd_check(check, dev, shape, variant, g, U, drop,
                                 h_prev, dhs, act, qbits, tol_q)
-    # the recompute BPTT at the libri Li-GRU's shape (its chain stages in
-    # slabs) and at a batch whose chain blocks are not co-resident (the
-    # step route)
+    # the libri Li-GRU's training shape (the forward's 8 x 32 blocks; the
+    # recompute BPTT's chain stages in slabs) and a batch whose blocks are
+    # not co-resident (both kernels' step routes)
     for shape, qbits, acts_ in ((LL_TRAIN_TBH, 0, ("relu", "tanh")),
                                 (LG_STEP_TBH, 16, ("relu",))):
         T, B, H = shape
         for k, act in enumerate(acts_):
             inp = gated_inputs(T, B, H, 90 + k, dev, act)
-            g, U, drop, dhs = (inp[n] for n in ("g", "U", "drop", "dhs"))
+            g, U, drop, h0, dhs = (inp[n] for n in ("g", "U", "drop", "h0",
+                                                    "dhs"))
+            variant = {"qbits": qbits, "act": act}
+            tol_q = TOL_Q16 if qbits else TOL_F32_SERVE
             with torch.no_grad():
-                hs = R.fused_ligru_fwd(g, U, drop, act=act, qbits=qbits)
+                hs = fwd_checks(shape, variant, g, U, drop, h0, act, qbits,
+                                tol_q, k == 0, shape == LL_TRAIN_TBH)[0][0]
                 h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
-                ligru_bwd_check(check, dev, shape, {"qbits": qbits,
-                                                    "act": act},
-                                g, U, drop, h_prev, dhs, act, qbits,
-                                TOL_Q16 if qbits else TOL_F32_SERVE)
+                ligru_bwd_check(check, dev, shape, variant, g, U, drop,
+                                h_prev, dhs, act, qbits, tol_q)
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError("a liGRU kernel disagrees with its plain twin: "
                              "%s" % bad)
-    if not any(c.get("route") == "step" for c in checks) or not any(
+    bwd = [c for c in checks if c["kernel"] == "fused_ligru_bwd"]
+    if not any(c.get("route") == "step" for c in bwd) or not any(
             c.get("route") == "persist" and c["B"] == LL_TRAIN_TBH[1]
-            for c in checks):
+            for c in bwd):
         raise AssertionError("ligru_kernels: the recompute BPTT's routes "
                              "were not both checked")
+    check_fwd_routes(checks, "fused_ligru_fwd", {
+        (shape, route) for shape in (SMALL_TBH, LG_MID_TBH, LG_SERVE_TBH,
+                                     LG_TRAIN_TBH, LL_TRAIN_TBH)
+        for route in ("persist", "step")} | {(LG_STEP_TBH, "step")})
     return checks
 
 
@@ -2177,8 +2231,9 @@ def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
                        one_chunk_tol=TOL_STREAM, kernel="fused_ligru_fwd",
                        per_frame=2, count=None):
     """A Li-GRU (``stack_fn``'s; or a minimalGRU: ``kernel``, launched
-    ``per_frame`` times a frame, or ``count(T, chunk)`` times a stream)
-    streams on the seeded forward. One chunk
+    ``per_frame`` times a frame, or ``count(T, chunk)`` times a stream;
+    the liGRU's by default its route's, ligru_stream_count) streams on
+    the seeded forward. One chunk
     of the whole utterance is held to the whole-utterance posteriors
     within ``one_chunk_tol``. Chunks of 100 frames are held within
     TOL_POST_Q16 (as ligru_serve) to the same chunks streamed on the CPU
@@ -2187,6 +2242,8 @@ def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
     its own max|x|, which at the head's x3000 logits moves the
     posteriors by ~1e-2 in both packages; that difference is printed."""
     T = rec.frontend.num_frames(audio.shape[1])
+    if count is None and kernel == "fused_ligru_fwd":
+        count = ligru_stream_count(dev)
     _, err_one = phase_stream(dev, rec, audio, lens, phones, logp, chunk=T,
                               tag=tag + "_one_chunk", tol=one_chunk_tol,
                               kernel=kernel, per_frame=per_frame,
@@ -2211,6 +2268,20 @@ def phase_ligru_stream(dev, rec, audio, lens, phones, logp, chunk=100,
         "one_chunk_vs_whole": err_one, "chunked_card_vs_cpu": err,
         "chunked_vs_whole": vs_whole,
         "chunked_phones_equal_whole": final == phones}
+
+
+def ligru_expect_serve(T):
+    """Launches per recognize: 2 layers of the dense liGRU forward at 8
+    rows, each its route's (ligru_fwd_launches: 1 a call on the
+    persistent route, T on the step route), no other kernel."""
+    return expected(fused_ligru_fwd=2 * ligru_fwd_launches(
+        "cuda", T, N_UTT, LG_TRAIN_TBH[2])[1])
+
+
+def ligru_stream_count(dev, layers=2, B=N_UTT, H=LG_TRAIN_TBH[2]):
+    """``count(T, chunk)`` of a Li-GRU stream on the dense seeded forward:
+    ligru_fwd_stream_launches over ``layers`` layers."""
+    return lambda T, c: ligru_fwd_stream_launches(dev, T, c, B, H, layers)
 
 
 def ligru_train_setup(compute_dtype="", quant_inp=True, lr_scale=1.0):
@@ -2256,9 +2327,9 @@ def phase_ligru_train(dev):
     """The default backward (recompute) is compared with the CPU, held to
     GRAD_FLIP_K times the CPU's own one-ulp sensitivity; the same step
     without the 16-bit quantizers to TOL_GRAD_REL; the stash backward
-    runs under PKC_BWD_STASH_CELLS=ligru. The recompute BPTT's launches
-    a layer call are its route's (ligru_bwd_launches, the cfg's 16-bit
-    quantizer)."""
+    runs under PKC_BWD_STASH_CELLS=ligru. The forward's and the recompute
+    BPTT's launches a layer call are their routes' (ligru_fwd_launches,
+    ligru_bwd_launches, the cfg's 16-bit quantizer)."""
     T = LG_TRAIN_TBH[0]
     knob = "PKC_BWD_STASH_CELLS"
     inp, mask = ligru_train_setup()[2]
@@ -2269,13 +2340,15 @@ def phase_ligru_train(dev):
           % (sens, where, grad_tol))
     route, n_bwd = ligru_bwd_launches(dev, T, LG_TRAIN_TBH[1],
                                       LG_TRAIN_TBH[2], 16)
-    print("[ligru_train] recompute BPTT: route %s, %d launches a layer call"
-          % (route, n_bwd))
+    f_route, n_fwd = ligru_fwd_launches(dev, *LG_TRAIN_TBH)
+    print("[ligru_train] forward: route %s, %d launches a layer call; "
+          "recompute BPTT: route %s, %d launches a layer call"
+          % (f_route, n_fwd, route, n_bwd))
     out = phase_train(dev, ligru_train_runner, "ligru_train", (
         ("recompute", knob, None,
-         expected(fused_ligru_fwd=2 * T, fused_ligru_bwd=2 * n_bwd)),
+         expected(fused_ligru_fwd=2 * n_fwd, fused_ligru_bwd=2 * n_bwd)),
         ("stash", knob, "ligru",
-         expected(fused_ligru_fwd=2 * T, fused_ligru_bwd_stash=2 * T))),
+         expected(fused_ligru_fwd=2 * n_fwd, fused_ligru_bwd_stash=2 * T))),
         grad_tol=grad_tol, fall_runner=lambda d, cdt="":
         ligru_train_runner(d, cdt, lr_scale=LG_FALL_LR_SCALE))
     out.update(cpu_ulp_grad_rel_change=sens, cpu_ulp_worst=where)
@@ -2377,6 +2450,8 @@ def phase_ligru_times(dev, rec, audio, lens):
             times[name + "_bound_ms"], times[name + "_bound_by"] = \
                 ligru_bound_ms(T, B, H, kind)
         times["fused_ligru_bwd_plan"] = chain_route(dev, "fused_ligru_bwd",
+                                                    B, H)[1]
+        times["fused_ligru_fwd_plan"] = chain_route(dev, "fused_ligru_fwd",
                                                     B, H)[1]
         times["fused_ligru_bwd_split"] = bptt_split(
             calls["fused_ligru_bwd"][0], 3)
@@ -2746,6 +2821,12 @@ PERSIST_ROUTES = {
                       lambda plan, bf16: (3, plan.bi, plan.units)),
     "fused_mgru_fwd": ("gru_fwd_route", "fused_gru",
                        "gru_fwd_dense_occupancy",
+                       lambda plan, bf16: (2, plan.bi, plan.units)),
+    "fused_ligru_fwd": ("ligru_fwd_route", "fused_ligru",
+                        "fused_ligru_fwd_occupancy",
+                        lambda plan, bf16: (plan.bi, plan.units)),
+    "fused_mgru_bwd": ("mgru_bwd_route", "fused_gru",
+                       "gru_bwd_dense_occupancy",
                        lambda plan, bf16: (2, plan.bi, plan.units))}
 #: the dense forwards' gate counts (their route functions take G)
 DENSE_FWD_G = {"fused_gru_fwd": 3, "fused_mgru_fwd": 2}
@@ -2868,6 +2949,66 @@ def ligru_bwd_launches(dev, T, B, H, qbits):
                    if route == "persist" else T)
 
 
+#: fused_ligru_fwd's launches a call on the persistent route, written from
+#: the design: the one cooperative launch, a seed's scale taken inside it
+#: ("step": one a step, as its counter counts them)
+LIGRU_FWD_PERSIST_LAUNCHES = 1
+
+
+def ligru_fwd_launches(dev, T, B, H):
+    """fused_ligru_fwd's route at (B, H) and its launches a call of T
+    steps."""
+    route = chain_route(dev, "fused_ligru_fwd", B, H)[0]
+    return route, LIGRU_FWD_PERSIST_LAUNCHES if route == "persist" else T
+
+
+def ligru_fwd_design(route, T, seeded=False, qbits=0):
+    """fused_ligru_fwd's device kernels a call by name: the one
+    cooperative launch, or a step kernel a step (after the reduction of
+    max|h0| with a seed and the quantizer)."""
+    if route == "persist":
+        return {"ligru_fwd_persist": 1}
+    return dict({"absmax_bits": 1} if seeded and qbits > 0 else {},
+                ligru_step=T)
+
+
+def ligru_fwd_stream_launches(dev, T, chunk, B, H, layers):
+    """A stream's launches of fused_ligru_fwd over ``layers`` layers: each
+    layer's seeded call a chunk of ``chunk`` of the T frames, on its
+    route."""
+    return layers * sum(ligru_fwd_launches(dev, min(chunk, T - a), B, H)[1]
+                        for a in range(0, T, chunk))
+
+
+#: fused_mgru_bwd's launches a call on the persistent route by qbits > 0,
+#: written from the design: the two rebuild products around the z pass
+#: and the chain, and with the quantizer the per-step scales, q(h_prev) and
+#: q(s) ("step": the two rebuild kernels and two a reverse step)
+MGRU_BWD_PERSIST_LAUNCHES = {False: 4, True: 7}
+
+
+def mgru_bwd_launches(dev, T, B, H, qbits):
+    """fused_mgru_bwd's route at (B, H) and its launches a call."""
+    route = chain_route(dev, "fused_mgru_bwd", B, H)[0]
+    return route, (MGRU_BWD_PERSIST_LAUNCHES[qbits > 0]
+                   if route == "persist" else 2 * T + 2)
+
+
+def mgru_bwd_design(route, T, qbits):
+    """fused_mgru_bwd's device kernels a call by name: with the quantizer
+    the per-step scales (and on the persistent route q(h_prev) and q(s));
+    then the two rebuild products around the z pass and the chain, or the
+    two rebuild step kernels and two a reverse step."""
+    want = {"absmax_steps": 1} if qbits > 0 else {}
+    if route == "step":
+        return dict(want, gru_zr_step=1, gru_h_step=1, gru_bwd_carry=T,
+                    gru_bwd_ds=T)
+    if qbits > 0:
+        want["quant_steps"] = 2
+    return dict(want, rows_dots=2, mgru_z_rebuild=1,
+                gru_dense_bwd_persist=1)
+
+
 def gru_fwd_sparse_launches(dev, T, B, layout, bf16=False):
     """fused_gru_fwd_sparse's route at B over ``layout`` and its
     launches a call."""
@@ -2886,7 +3027,8 @@ ROUTE_KERNELS = (
     "gru_h_step", "gru_bwd_carry", "gru_bwd_ds", "rec_u_gemm",
     "gru_torch_bwd_persist", "gru_torch_bwd_step", "gru_torch_step",
     "ligru_bwd_persist", "ligru_bwd_step", "gru_fwd_persist",
-    "gru_dense_fwd_persist", "absmax_bits")
+    "gru_dense_fwd_persist", "absmax_bits", "ligru_fwd_persist",
+    "ligru_step", "gru_dense_bwd_persist", "mgru_z_rebuild", "rows_dots")
 
 
 def bptt_design(route, T, qbits=None, bf16=False):
@@ -2927,17 +3069,18 @@ def gru_fwd_sparse_design(route, T):
             else {"gru_zr_step": T, "gru_h_step": T})
 
 
-def last_call_kernels(fn):
-    """The device kernels of the second of two profiled calls of ``fn``
-    by short name, its launch calls and, of those, its cooperative ones:
-    the kernel records whose correlation id is one of the launch calls
-    made inside that call's host range. The first call takes the records
-    the profiler may drop at the start of its window (late in the full
-    run a trace lacked a call's first three kernels, every time). ->
+def last_call_kernels(fn, reps=3):
+    """The device kernels of the last of ``reps`` profiled calls of
+    ``fn`` by short name, its launch calls and, of those, its cooperative
+    ones: the kernel records whose correlation id is one of the launch
+    calls made inside that call's host range. The earlier calls take the
+    records the profiler may drop at the start of its window (late in the
+    full run a trace lacked a call's first three kernels, every time; a
+    3 ms minimalGRU BPTT's second call lacked its first three too). ->
     (kernels, launch calls, cooperative launch calls), or None where the
     trace holds no such range."""
-    events = trace_events(fn, reps=2, mark=True)
-    marks = [e for e in events if e.get("name") == "call_1"
+    events = trace_events(fn, reps=reps, mark=True)
+    marks = [e for e in events if e.get("name") == "call_%d" % (reps - 1)
              and e.get("cat") == "user_annotation" and "dur" in e]
     if not marks:
         return None
@@ -2964,8 +3107,9 @@ def last_call_kernels(fn):
 def bptt_kernels(fn, want, tries=3):
     """Hold one call of the BPTT (or routed forward) ``fn`` to ``want``
     (bptt_design, ligru_bwd_design, gru_fwd_sparse_design,
-    gru_fwd_design): the kernel records of the call (last_call_kernels)
-    among ROUTE_KERNELS must be exactly those, so the route that ran is
+    gru_fwd_design, ligru_fwd_design, mgru_bwd_design): the kernel
+    records of the call (last_call_kernels) among ROUTE_KERNELS must be
+    exactly those, so the route that ran is
     the one named. A trace that differs is taken again, up to ``tries``
     traces (the profiler can drop a record, device_kernels); it raises
     when every trace that held kernel records differed. Where none held
@@ -4133,7 +4277,9 @@ def phase_cgs_ligru_kernels(dev):
     the same tensors, each launch counter checked (T and T + 1): qbits
     0/16 x relu/tanh at the small shape (Kb=2, R=1), the serving shape
     (forward only) and the training shape (Kb=8, R=2); w3g in bf16 at the
-    training shape (the JAX size rule's bf16 case)."""
+    training shape (the JAX size rule's bf16 case). At the training shape
+    the dense liGRU forward over the masked U, seeded (the stream's
+    kernel), on both its routes (masked_u_checks)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
     k = 0
@@ -4163,6 +4309,9 @@ def phase_cgs_ligru_kernels(dev):
                              rel_err(hs, R.fused_ligru_fwd_sparse_plain(
                                  g, w3g, drop, lay, act, qbits, bf16)),
                              tol, False)
+                if shape == CL_TRAIN_TBH and not bf16:
+                    masked_u_checks(checks, dev, shape, variant, inp, act,
+                                    qbits, tol)
                 if serve:
                     continue
                 h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
@@ -4177,7 +4326,35 @@ def phase_cgs_ligru_kernels(dev):
     if bad:
         raise AssertionError("a sparse liGRU kernel disagrees with its plain "
                              "twin: %s" % bad)
+    check_fwd_routes(checks, "fused_ligru_fwd", {(CL_TRAIN_TBH, "persist"),
+                                                 (CL_TRAIN_TBH, "step")})
     return checks
+
+
+def masked_u_checks(checks, dev, shape, variant, inp, act, qbits, tol):
+    """The dense liGRU forward over the masked U (what a CGS-16x Li-GRU
+    stream runs, seeded): on its route (ligru_fwd_launches) against its
+    twin, and bit for bit the step route's, seeded from h0."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = shape
+    g, w3g, drop, h0, lay = (inp[n] for n in ("g", "w3g", "drop", "h0",
+                                              "layout"))
+    U = np.concatenate([BS.unpack_w3(w.cpu().numpy(), lay) for w in
+                        (w3g[:, :lay.bs], w3g[:, lay.bs:])])
+    U = torch.as_tensor(np.ascontiguousarray(U, np.float32), device=dev)
+    route, n = ligru_fwd_launches(dev, T, B, H)
+    fwd, where = R.fused_ligru_fwd, dict(zip("TBH", shape))
+    hs = launched(fwd, n, lambda: fwd(g, U, drop, h0, act=act, qbits=qbits))
+    record_check(checks, "cgs_ligru_kernels", "fused_ligru_fwd/masked_u",
+                 where, dict(variant, route=route), rel_err(
+                     hs, R.fused_ligru_fwd_plain(g, U, drop, h0, act, qbits)),
+                 tol, False)
+    st = launched(fwd, T, lambda: R._ligru_fwd_step(g, U, drop, h0, act,
+                                                    qbits, False))
+    record_check(checks, "cgs_ligru_kernels",
+                 "fused_ligru_fwd/masked_u_persist_vs_step", where,
+                 dict(variant, route="step"), bits_apart(hs, st), 0.0, False)
 
 
 def cgs_ligru_expect_serve(T):
@@ -4189,16 +4366,16 @@ def cgs_ligru_expect_serve(T):
 def phase_cgs_ligru_stream(dev, rec, audio, lens, phones, logp, noq,
                            chunk=100):
     """A stream drops the sparse layout (as the JAX package's does) and
-    runs the dense seeded liGRU forward over the masked U, 2 launches a
-    frame. As shipped: one chunk of the whole utterance against the
-    sparse whole-utterance posteriors within TOL_Q16 (the recurrent
-    quantizer's ceil steps: the dense and the sparse product sum in
-    another order); chunks of 100 frames against the CPU's stream of the
-    same chunks within TOL_POST_Q16 with equal phones (the input
-    quantizer scales each chunk by its own max|x|: phase_ligru_stream).
-    Without the 16-bit quantizers: chunks of 100 against the whole
-    utterance within TOL_POST. ``noq``: phase_serve's (rec, phones,
-    logp, ...) of the stack without them."""
+    runs the dense seeded liGRU forward over the masked U, a call a chunk
+    and layer on its route (ligru_stream_count). As shipped: one chunk of
+    the whole utterance against the sparse whole-utterance posteriors
+    within TOL_Q16 (the recurrent quantizer's ceil steps: the dense and the
+    sparse product sum in another order); chunks of 100 frames against the
+    CPU's stream of the same chunks within TOL_POST_Q16 with equal phones
+    (the input quantizer scales each chunk by its own max|x|:
+    phase_ligru_stream). Without the 16-bit quantizers: chunks of 100
+    against the whole utterance within TOL_POST. ``noq``: phase_serve's
+    (rec, phones, logp, ...) of the stack without them."""
     launches, out = phase_ligru_stream(
         dev, rec, audio, lens, phones, logp, chunk, build_cgs_ligru_stack,
         "cgs_ligru_stream", TOL_Q16)
@@ -4206,7 +4383,7 @@ def phase_cgs_ligru_stream(dev, rec, audio, lens, phones, logp, noq,
     _, out["chunks_vs_whole_no_quant_inp"] = phase_stream(
         dev, rec_noq, audio, lens, phones_noq, logp_noq, chunk,
         "cgs_ligru_stream, ligru_quant_inp=False", TOL_POST,
-        "fused_ligru_fwd")
+        "fused_ligru_fwd", count=ligru_stream_count(dev))
     return launches, out
 
 
@@ -4640,14 +4817,17 @@ def phase_mgru_kernels(dev):
     kernels, and the sparse forward and BPTT (hs, dg and the emitted s;
     w3g in f32, and in bf16 at the training shape), against their twins
     on the same tensors, each launch counter checked (the dense forward
-    its route's launches, gru_fwd_launches; the sparse one 2T, 2T for the
-    stash BPTT, 2T + 2 for the recompute ones): qbits 0/16 x relu/tanh at
+    and recompute BPTT their routes' launches, gru_fwd_launches and
+    mgru_bwd_check; the sparse forward 2T, 2T for the stash BPTT, 2T + 2
+    for the sparse recompute one): qbits 0/16 x relu/tanh at
     MG_SMALL_TBH (sparse: Kb=2, R=1), the training shape and the serving
     shape (forward only; sparse Kb=8, R=2); the sparse kernels also at
     MG_LARGE_ROWS rows (T=16). The dense forward runs on the route its
     plan names (persistent at all three shapes), two calls bit for bit,
     its device kernels held to the route's once a shape, and at the
-    training shape on the step route too, forced."""
+    training shape on the step route too, forced; the recompute BPTT
+    (mgru_bwd_check) on its persistent route and on the step route,
+    forced, at the small and the training shape."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
     k = 0
@@ -4730,13 +4910,9 @@ def phase_mgru_kernels(dev):
                             R.fused_mgru_bwd_stash_plain(acts, U, drop,
                                                          h_prev, dhs, act)),
                             tol, True)
-                        check("fused_mgru_bwd", rel_err(
-                            launched(R.fused_mgru_bwd, 2 * T + 2,
-                                     lambda: R.fused_mgru_bwd(
-                                         g, U, drop, h_prev, dhs, act,
-                                         qbits)),
-                            R.fused_mgru_bwd_plain(g, U, drop, h_prev, dhs,
-                                                   act, qbits)), tol_q, True)
+                        mgru_bwd_check(check, dev, shape, g, U, drop,
+                                       h_prev, dhs, act, qbits, tol_q,
+                                       qbits and act == "tanh", True)
                 sparse_cases = [False] + ([True] if shape == MG_TRAIN_TBH
                                           else [])
                 for bf16 in sparse_cases:
@@ -4755,7 +4931,41 @@ def phase_mgru_kernels(dev):
     check_fwd_routes(checks, "fused_mgru_fwd", {
         (MG_SMALL_TBH, "persist"), (MG_TRAIN_TBH, "persist"),
         (MG_SERVE_TBH, "persist"), (MG_TRAIN_TBH, "step")})
+    check_fwd_routes(checks, "fused_mgru_bwd", {
+        (MG_SMALL_TBH, "persist"), (MG_TRAIN_TBH, "persist"),
+        (MG_SMALL_TBH, "step"), (MG_TRAIN_TBH, "step")})
     return checks
+
+
+def mgru_bwd_check(check, dev, shape, g, U, drop, h_prev, dhs, act, qbits,
+                   tol, kernels, forced):
+    """fused_mgru_bwd against its twin on the route its plan picks
+    (mgru_bwd_launches), two calls bit for bit; ``kernels``: one call's
+    device kernels held to the route's design (mgru_bwd_design);
+    ``forced``: the step route forced (fused_rnn._gru_bwd_step) against
+    the twin, and the two routes within the same bar of each other (their
+    rebuilds give the forward's bits, but the chain's dots sum in another
+    order than the step kernels': its warps split the contraction)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = shape
+    route, n = mgru_bwd_launches(dev, T, B, H, qbits)
+    args = (g, U, drop, h_prev, dhs, act, qbits)
+    got = launched(R.fused_mgru_bwd, n, lambda: R.fused_mgru_bwd(*args))
+    ref = R.fused_mgru_bwd_plain(*args)
+    check("fused_mgru_bwd", rel_err(got, ref), tol, True, route)
+    check("fused_mgru_bwd/determinism",
+          same_bits(lambda: R.fused_mgru_bwd(*args)), 0.0, False, route)
+    if kernels:
+        bptt_kernels(lambda: R.fused_mgru_bwd(*args),
+                     mgru_bwd_design(route, T, qbits))
+    if forced:
+        st = launched(R.fused_mgru_bwd, 2 * T + 2, lambda: R._gru_bwd_step(
+            R.fused_mgru_bwd, "fused_mgru_bwd", 2, g, U, drop, h_prev, dhs,
+            act, qbits, False))
+        check("fused_mgru_bwd/step_route", rel_err(st, ref), tol, True,
+              "step")
+        check("fused_mgru_bwd/persist_vs_step", rel_err(got, st), tol, True,
+              route)
 
 
 def _mgru_sparse_check(checks, R, shape, qbits, act, bf16, bwd, seed, dev):
@@ -4825,9 +5035,9 @@ def phase_mgru_train(dev, sparse=False):
                  ("stash_knob", knob, "mgru", want))
     else:
         n = 2 * gru_fwd_launches(dev, "fused_mgru_fwd", *MG_TRAIN_TBH)[1]
+        n_bwd = mgru_bwd_launches(dev, *MG_TRAIN_TBH, 16)[1]
         modes = (("recompute", knob, None,
-                  expected(fused_mgru_fwd=n,
-                           fused_mgru_bwd=2 * (2 * T + 2))),
+                  expected(fused_mgru_fwd=n, fused_mgru_bwd=2 * n_bwd)),
                  ("stash", knob, "mgru",
                   expected(fused_mgru_fwd=n,
                            fused_mgru_bwd_stash=2 * 2 * T)))
@@ -5034,6 +5244,10 @@ def phase_mgru_times(dev, rec, cgs_rec, audio, lens):
             lambda: R.fused_mgru_fwd(g, U, drop, act=act, qbits=qb), reps=5)
         times["fused_mgru_fwd_plan"] = chain_route(dev, "fused_mgru_fwd", B,
                                                    H)[1]
+        times["fused_mgru_bwd_plan"] = chain_route(dev, "fused_mgru_bwd", B,
+                                                   H)[1]
+        times["fused_mgru_bwd_split"] = bptt_split(calls["fused_mgru_bwd"][0],
+                                                   3)
         times["fused_mgru_fwd_ms_q0"] = cuda_ms(
             lambda: R.fused_mgru_fwd(g, U, drop, act=act, qbits=0,
                                      stash=True), reps=5)
@@ -5623,7 +5837,9 @@ def slice9_rows(checks, times, launches):
             bwd_note),
         row("fused_mgru_bwd", "fused_gru", 906, err_at("fused_mgru_bwd"),
             times["cudnn_gru_bwd_ms"], bwd_note,
-            dU_matmul_ms=times["dU_matmul_ms"]),
+            dU_matmul_ms=times["dU_matmul_ms"],
+            plan=times["fused_mgru_bwd_plan"],
+            split=times["fused_mgru_bwd_split"]),
         row("fused_mgru_fwd_sparse", "fused_gru_sparse", 1617,
             err_at("fused_mgru_fwd_sparse"), times["cudnn_gru_fwd_ms"],
             yard % "forward", serve=serve("sparse_"),
@@ -6475,7 +6691,8 @@ def kernels_by_name(fn, reps=5):
 #: quantities that do not depend on dh)
 CHAIN_KERNELS = ("gru_torch_bwd_step", "gru_torch_bwd_persist",
                  "gru_bwd_carry", "gru_bwd_ds", "gru_bwd_persist",
-                 "ligru_bwd_step", "ligru_bwd_persist")
+                 "ligru_bwd_step", "ligru_bwd_persist",
+                 "gru_dense_bwd_persist")
 
 
 def bptt_split(fn, reps=5):
@@ -6526,7 +6743,9 @@ def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
     plan_fn = {"fused_ligru_bwd": "ligru_bwd_plan",
                "fused_gru_fwd_sparse": "gru_fwd_sparse_plan",
                "fused_gru_fwd": "gru_fwd_plan",
-               "fused_mgru_fwd": "gru_fwd_plan"}[kernel]
+               "fused_mgru_fwd": "gru_fwd_plan",
+               "fused_ligru_fwd": "ligru_fwd_plan",
+               "fused_mgru_bwd": "mgru_bwd_plan"}[kernel]
     if not hasattr(R, plan_fn):
         return {}
     out = {}
@@ -6541,22 +6760,36 @@ def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
     return out
 
 
+def digest(x):
+    """The first 16 hex digits of the sha256 of a call's output bytes (a
+    tensor or a tuple of them): its bits, to compare across trees."""
+    h = hashlib.sha256()
+    for v in (x if isinstance(x, tuple) else (x,)):
+        h.update(v.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def phase_rnn_turn_times(dev):
     """The redesigned rows at their timed shapes (gru_torch_times',
     gru_times', ligru_times', libri_ligru_times', timit_gru_times' and
     mgru_times' shapes): ms per call (CUDA events), the route and its
     plan, a BPTT's device time split into rebuild and chain by kernel
-    (torch.profiler); row 18 at the TIMIT (qbits 16) and libri (qbits 0)
-    shapes and row 32 at the libri train and serve shapes (qbits 16),
-    each also at the block shapes its plan could take (forced_plan_ms);
-    rows 19 (tanh, no quantizer) and 24 (relu, qbits 16) at their train
-    shapes with and without the stash, their serve shapes and a seeded
-    chunk of 100 frames, each also at 4 and 16 units a block;
+    (torch.profiler), and the digest of a call's output bits (equal
+    digests across trees: the same bits); rows 18 and 16 at the TIMIT
+    (qbits 16) and libri (qbits 0) shapes, row 16 with and without the
+    stash, at its serving shape and as a seeded chunk of 100; row 32 at
+    the libri train and serve shapes (qbits 16); each of rows 18, 32 and
+    16 (libri) also at the block shapes its plan could take
+    (forced_plan_ms); rows 19 (tanh, no quantizer) and 24 (relu, qbits
+    16) at their train shapes with and without the stash, their serve
+    shapes and a seeded chunk of 100 frames, each also at 4 and 16 units
+    a block; row 26 (relu, qbits 16) with its rebuild / chain split;
     nn.GRU(550)'s forward, backward (fwd+bwd minus fwd) and the port's
-    whole GRU_cudnn layer backward the same way beside row 23; rows 16,
-    17, 20, 21, 22, 23, 26, 33, 34, 35, 13 (libri G=3, 8-bit, submask)
-    and 15 (the libri v3 dw) as the rows that must not move. Public wrappers only (and the forced plans where the
-    package has them), so an earlier tree's package runs it too."""
+    whole GRU_cudnn layer backward the same way beside row 23; rows 17,
+    20, 21, 22, 23, 25, 33, 34, 35, 13 (libri G=3, 8-bit, submask) and 15
+    (the libri v3 dw) as the rows that must not move. Public wrappers
+    only (and the forced plans where the package has them), so an
+    earlier tree's package runs it too."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     t = {}
@@ -6569,12 +6802,16 @@ def phase_rnn_turn_times(dev):
         call = lambda: R.fused_gru_torch_bwd(g, W, b, h_prev, dhs)
         t["row23"] = {"ms": cuda_ms(call, 20),
                       "plan": bptt_route(dev, B, H)[1],
-                      "split": bptt_split(call)}
+                      "split": bptt_split(call), "digest": digest(call())}
         t["row22_ms"] = cuda_ms(lambda: R.fused_gru_torch_fwd(g, W, b), 20)
         del gi, g, W, b, dhs, hs, h_prev
-        # row 18 at both shapes; rows 16 and 17 at the TIMIT one
-        for tag, (T, B, H), qb, seed in (("timit", LG_TRAIN_TBH, 16, 240),
-                                         ("libri", LL_TRAIN_TBH, 0, 230)):
+        # rows 18 and 16 at both shapes, row 17 at the TIMIT one; row 16
+        # (relu, the stash forward) also without the stash, at its serving
+        # shape and as a seeded chunk of 100, at the libri shape also at
+        # both blocks of 256 outputs, forced
+        for tag, (T, B, H), (Ts, Bs), qb, seed in (
+                ("timit", LG_TRAIN_TBH, LG_SERVE_TBH[:2], 16, 240),
+                ("libri", LL_TRAIN_TBH, LL_SERVE_TBH[:2], 0, 230)):
             li = gated_inputs(T, B, H, seed, dev, "relu")
             g, U, drop, dhs = (li[n] for n in ("g", "U", "drop", "dhs"))
             hs, acts = R.fused_ligru_fwd(g, U, drop, act="relu", qbits=qb,
@@ -6592,13 +6829,35 @@ def phase_rnn_turn_times(dev):
                 "plan": chain_route(dev, "fused_ligru_bwd", B, H)[1],
                 "split": bptt_split(call, 3),
                 "by_block_shape": forced_plan_ms("fused_ligru_bwd",
-                                                 call_plan, 10)}
+                                                 call_plan, 10),
+                "digest": digest(call())}
+            sv = gated_inputs(Ts, Bs, H, seed + 5, dev, "relu")
+            ck = gated_inputs(100, B, H, seed + 6, dev, "relu")
+            fcall = lambda: R.fused_ligru_fwd(g, U, drop, act="relu",
+                                              qbits=qb, stash=True)
+
+            def fwd_plan(shape_, run=False):
+                plan = R.ligru_fwd_plan(B, H, shape_)
+                return (R._ligru_fwd_persist(plan, g, U, drop, None, "relu",
+                                             qb, True) if run else plan)
+            t["row16_" + tag] = {
+                "ms": cuda_ms(fcall, 10),
+                "ms_nostash": cuda_ms(lambda: R.fused_ligru_fwd(
+                    g, U, drop, act="relu", qbits=qb), 10),
+                "serve_ms": cuda_ms(lambda: R.fused_ligru_fwd(
+                    sv["g"], sv["U"], sv["drop"], act="relu", qbits=qb), 10),
+                "seeded_chunk100_ms": cuda_ms(lambda: R.fused_ligru_fwd(
+                    ck["g"], ck["U"], ck["drop"], ck["h0"], act="relu",
+                    qbits=qb), 10),
+                "qbits": qb, "serve_rows": Bs,
+                "plan": chain_route(dev, "fused_ligru_fwd", B, H)[1],
+                "by_block_shape": forced_plan_ms("fused_ligru_fwd", fwd_plan,
+                                                 10) if tag == "libri" else {},
+                "digest": digest(fcall())}
             if tag == "timit":
-                t["row16_ms"] = cuda_ms(lambda: R.fused_ligru_fwd(
-                    g, U, drop, act="relu", qbits=qb, stash=True), 10)
                 t["row17_ms"] = cuda_ms(lambda: R.fused_ligru_bwd_stash(
                     acts, U, drop, h_prev, dhs, "relu"), 10)
-            del li, g, U, drop, dhs, hs, acts, h_prev
+            del li, g, U, drop, dhs, hs, acts, h_prev, sv, ck
         T, B, H = GR_TRAIN_TBH
         si = gru_inputs(T, B, H, 150, dev)
         g, w3g, drop, dhs, lay = (si[n] for n in ("g", "w3g", "drop", "dhs",
@@ -6654,6 +6913,8 @@ def phase_rnn_turn_times(dev):
                 return (R._gru_fwd_persist(w, plan, g, U, drop, None, act,
                                            qb, True) if run else plan)
             t[row] = {
+                "digest": digest(w(g, U, drop, act=act, qbits=qb,
+                                   stash=True)),
                 "ms": cuda_ms(lambda: w(g, U, drop, act=act, qbits=qb,
                                         stash=True), 10),
                 "ms_nostash": cuda_ms(lambda: w(g, U, drop, act=act,
@@ -6675,8 +6936,15 @@ def phase_rnn_turn_times(dev):
                 t["row21_ms"] = cuda_ms(lambda: R.fused_gru_bwd(
                     g, U, drop, h_prev, dhs, act, qb), 10)
             else:
-                t["row26_ms"] = cuda_ms(lambda: R.fused_mgru_bwd(
-                    g, U, drop, h_prev, dhs, act, qb), 10)
+                call = lambda: R.fused_mgru_bwd(g, U, drop, h_prev, dhs, act,
+                                                qb)
+                t["row26"] = {"ms": cuda_ms(call, 10),
+                              "plan": chain_route(dev, "fused_mgru_bwd", B,
+                                                  H)[1],
+                              "split": bptt_split(call, 3),
+                              "digest": digest(call())}
+                t["row25_ms"] = cuda_ms(lambda: R.fused_mgru_bwd_stash(
+                    acts, U, drop, h_prev, dhs, act), 10)
             del fi, g, U, drop, dhs, sv, ck, hs, acts, h_prev
         T, B, H = MG_TRAIN_TBH
         sp = cgs_ligru_inputs(T, B, H, 421, dev, "relu")
@@ -6711,8 +6979,9 @@ def rnn_times_main(root):
     the f32 train steps of the libri GRU, the libri and TIMIT Li-GRUs,
     the TIMIT GRU, the minimalGRU and the CGS-16x LSTM (CUDA events, mean
     of 5 after 2; all but the last also profiled once: device ms by class
-    of kernel, busy share), and the TIMIT GRU's and the minimalGRU's
-    recognize (8 x 4 s: serve_timings, launches by kernel), with
+    of kernel, busy share), and the TIMIT GRU's, the minimalGRU's and the
+    TIMIT and libri Li-GRUs' recognize (8 x 4 s: serve_timings, launches
+    by kernel), with
     the package of this checkout or of the tree unpacked at DIR inside it
     (as ``--gemm-times``; run parent, change, change, parent in one
     call); one JSON line."""
@@ -6755,7 +7024,9 @@ def rnn_times_main(root):
         torch.cuda.empty_cache()
     audio, lens = make_audio()
     for tag, stack in (("timit_gru", build_timit_gru_stack),
-                       ("mgru", build_mgru_stack)):
+                       ("mgru", build_mgru_stack),
+                       ("timit_ligru", build_ligru_stack),
+                       ("libri_ligru", build_libri_ligru_stack)):
         rec = build_recognizer(dev, stack)
         _, launches = counted(lambda: rec.recognize(audio, lens))
         out["%s_recognize" % tag] = dict(
@@ -6817,9 +7088,11 @@ def build_libri_ligru_stack(dev, feat_dim=GR_FEAT):
 
 
 def libri_ligru_expect_serve(T):
-    """Launches per recognize: 5 layers x T forward steps (both
-    directions in one call)."""
-    return expected(fused_ligru_fwd=LL_LAYERS * T)
+    """Launches per recognize: 5 layer calls of the forward at 16 rows
+    (both directions in one call), each its route's
+    (ligru_fwd_launches)."""
+    return expected(fused_ligru_fwd=LL_LAYERS * ligru_fwd_launches(
+        "cuda", T, *LL_SERVE_TBH[1:])[1])
 
 
 def libri_ligru_train_runner(dev, compute_dtype="", act=None):
@@ -6865,10 +7138,11 @@ def phase_libri_ligru_train(dev):
     where relu' flips between the card's and the CPU's sums, GRAD_FLIP_K
     times the CPU's own one-ulp sensitivity and then the same step with
     tanh at TOL_GRAD_REL. Launches per step with the recompute backward
-    (the default; its launches a layer call its route's,
-    ligru_bwd_launches) and the stash one (PKC_BWD_STASH_CELLS=ligru), 10
-    steps in f32 and bf16 at the cfg's learning rates (the loss falls on
-    random labels there, unlike the TIMIT Li-GRU's)."""
+    (the default; the forward's and its launches a layer call their
+    routes', ligru_fwd_launches and ligru_bwd_launches) and the stash one
+    (PKC_BWD_STASH_CELLS=ligru), 10 steps in f32 and bf16 at the cfg's
+    learning rates (the loss falls on random labels there, unlike the
+    TIMIT Li-GRU's)."""
     T = LL_TRAIN_TBH[0]
     knob = "PKC_BWD_STASH_CELLS"
 
@@ -6883,15 +7157,19 @@ def phase_libri_ligru_train(dev):
         return max(TOL_GRAD_REL, GRAD_FLIP_K * sens)
     route, n_bwd = ligru_bwd_launches(dev, T, LL_TRAIN_TBH[1],
                                       LL_TRAIN_TBH[2], 0)
-    print("[libri_ligru_train] recompute BPTT: route %s, %d launches a "
-          "layer call; plan %s" % (route, n_bwd, json.dumps(chain_route(
-              dev, "fused_ligru_bwd", *LL_TRAIN_TBH[1:])[1])))
+    f_route, n_fwd = ligru_fwd_launches(dev, *LL_TRAIN_TBH)
+    print("[libri_ligru_train] forward: route %s, %d launches a layer call, "
+          "plan %s; recompute BPTT: route %s, %d launches a layer call; plan "
+          "%s" % (f_route, n_fwd, json.dumps(chain_route(
+              dev, "fused_ligru_fwd", *LL_TRAIN_TBH[1:])[1]), route, n_bwd,
+              json.dumps(chain_route(dev, "fused_ligru_bwd",
+                                     *LL_TRAIN_TBH[1:])[1])))
     out = phase_train(dev, libri_ligru_train_runner, "libri_ligru_train", (
         ("recompute", knob, None,
-         expected(fused_ligru_fwd=LL_LAYERS * T,
+         expected(fused_ligru_fwd=LL_LAYERS * n_fwd,
                   fused_ligru_bwd=LL_LAYERS * n_bwd)),
         ("stash", knob, "ligru",
-         expected(fused_ligru_fwd=LL_LAYERS * T,
+         expected(fused_ligru_fwd=LL_LAYERS * n_fwd,
                   fused_ligru_bwd_stash=LL_LAYERS * T))),
         grad_tol=bar)
     if out["grad_rel_err_max"] <= TOL_GRAD_REL:
@@ -6933,8 +7211,9 @@ def phase_libri_ligru_times(dev, rec, audio, lens):
             times[name + "_bound_ms"], times[name + "_bound_by"] = \
                 ligru_bound_ms(T, B, H, kind)
             if name == "fused_ligru_bwd":
-                times[name + "_plan"] = chain_route(dev, name, B, H)[1]
                 times[name + "_split"] = bptt_split(fn, 3)
+            if name != "fused_ligru_bwd_stash":
+                times[name + "_plan"] = chain_route(dev, name, B, H)[1]
         Ts, Bs, _ = LL_SERVE_TBH
         sv = gated_inputs(Ts, Bs, H, 231, dev, act)
         times["serve_fwd_ms"] = cuda_ms(
@@ -7184,11 +7463,13 @@ def main():
     sp_train = timed("sparse_train", phase_sparse_train, dev)
     lg_rec, lg_phones, lg_logp, lg_serve_launches, lg_post_err = timed(
         "ligru_serve", phase_serve, dev, audio, lens, build_ligru_stack,
-        "ligru_serve", "fused_ligru_fwd", TOL_POST_Q16)
+        "ligru_serve", "fused_ligru_fwd", TOL_POST_Q16, ligru_expect_serve)
+    lg_serve_launches = lg_serve_launches["fused_ligru_fwd"]
     lg_post_err_noq = timed(
         "ligru_serve_noq", phase_serve, dev, audio, lens,
         lambda d: build_ligru_stack(d, quant_inp=False),
-        "ligru_serve, ligru_quant_inp=False", "fused_ligru_fwd")[4]
+        "ligru_serve, ligru_quant_inp=False", "fused_ligru_fwd", TOL_POST,
+        ligru_expect_serve)[4]
     lg_stream_launches, lg_stream_err = timed(
         "ligru_stream", phase_ligru_stream, dev, lg_rec, audio, lens,
         lg_phones, lg_logp)
@@ -7587,7 +7868,8 @@ def main():
         {"ms_nostash": "fused_ligru_fwd_nostash_ms",
          "ms_repeat": "fused_ligru_fwd_stash_ms",
          "ms_q0": "fused_ligru_fwd_stash_ms_q0",
-         "ms_nostash_q0": "fused_ligru_fwd_nostash_ms_q0"},
+         "ms_nostash_q0": "fused_ligru_fwd_nostash_ms_q0",
+         "plan": "fused_ligru_fwd_plan"},
         bwd_extra={
             "plan": lg_times["fused_ligru_bwd_plan"],
             "split": lg_times["fused_ligru_bwd_split"],

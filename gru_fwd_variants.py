@@ -1,6 +1,7 @@
 """Where a step of the dense persistent GRU forward (``gru_dense_fwd_persist``
 in ``pytorch_kaldi_cgs_tpu_torch/ops/csrc/fused_gru.cu``, TPU rows 19 and
-24) spends its time, on one CUDA card: variants of that source are
+24, over the dots and the quantizer's pass of ``csrc/persist.cuh``)
+spends its time, on one CUDA card: variants of those sources are
 written into a temporary directory (the checkout's files do not change),
 each built into a library of its own and timed at the TIMIT GRU's
 training shape (row 19: T=300, B=8, H=550, tanh) and the minimalGRU's
@@ -8,7 +9,7 @@ training shape (row 19: T=300, B=8, H=550, tanh) and the minimalGRU's
 quantizer (ms a call, CUDA events, mean of 10 after a warm-up), beside
 whether its stash forward gives the step route's bits.
 
-- ``base``: the source as it is.
+- ``base``: the sources as they are.
 - ``no_quant_pass``: q() not applied to the staged values (timing only;
   its bits differ with the quantizer).
 - ``no_dots``: no dot products (timing only).
@@ -51,10 +52,15 @@ def sub(text, old, new):
     return text.replace(old, new)
 
 
+#: the sources a variant may change: the kernel's and its header's
+FILES = ("fused_gru.cu", "persist.cuh")
+
+
 def quant_in_dots(src, groups):
     """q() applied in resident_dots to each staged value it loads, the
-    warps split ``groups`` ways over the staged rows."""
-    s = sub(src, """template <int BT, int NR, int LD>
+    warps split ``groups`` ways over the staged rows (``src``: FILES'
+    texts by name)."""
+    h = sub(src["persist.cuh"], """template <int BT, int NR, int LD>
 __device__ __forceinline__ void resident_dots(const float* ws,
                                               const float* xs, int SK,
                                               int K, int nb,
@@ -65,15 +71,17 @@ __device__ __forceinline__ void resident_dots(const float* ws,
                                               int K, int nb,
                                               float (*usm)[LD], XF xf) {
   constexpr int BQ = BT / %d, RQ = NR / (WARPS / %d);""" % (groups, groups))
-    s = sub(s, "  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;",
+    h = sub(h, "  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;",
             "  const int bq = (warp %% %d) * BQ, rq = (warp / %d) * RQ;"
             % (groups, groups))
-    s = sub(s, "        const float xv = x[(size_t)p * SK + k];",
+    h = sub(h, "        const float xv = x[(size_t)p * SK + k];",
             "        const float xv = xf(x[(size_t)p * SK + k]);")
-    a = s.index("    const float var = maxes ? __uint_as_float(gmax) : 0.f;\n"
-                "    if (var == 0.f) return;")
-    b = s.index("  // this block's max of the threads' bits m into out")
-    s = s[:a] + """    return maxes ? __uint_as_float(gmax) : 0.f;
+    h = sub(h, "  if (var == 0.f) return var;", "  return var;")
+    k = sub(src["fused_gru.cu"], """  auto block_max = [&](unsigned m, unsigned* out) {
+    P::block_max(m, out, wmax);
+  };
+""", """  auto block_max = [&](unsigned m, unsigned* out) {
+    P::block_max(m, out, wmax);
   };
   auto qf = [&](float var) {
     const float inv = var != 0.f ? 1.f / var : 0.f, sc = qscale,
@@ -82,34 +90,40 @@ __device__ __forceinline__ void resident_dots(const float* ws,
       return quant_rcp(x, var, inv, sc, isc);
     };
   };
-""" + s[b:]
+""")
     for x, w, nr in (("xh, hmax", "wzr", "ZC"), ("xs, smax", "wh", "UN")):
-        s = sub(s, """      stage(%s);
-      resident_dots<BT, %s, ZC>(%s, xsm, SK, H, nb, usm);""" % (x, nr, w),
+        k = sub(k, """      stage(%s);
+      P::resident_dots<BT, %s, ZC>(%s, xsm, SK, H, nb, usm);""" % (x, nr, w),
                 """      const float var = stage(%s);
-      resident_dots<BT, %s, ZC>(%s, xsm, SK, H, nb, usm, qf(var));"""
+      P::resident_dots<BT, %s, ZC>(%s, xsm, SK, H, nb, usm, qf(var));"""
                 % (x, nr, w))
-    return s
+    return {"fused_gru.cu": k, "persist.cuh": h}
 
 
 def variants(src):
+    """Each variant's FILES texts by name, from ``src``, the checkout's."""
+    k, h = src["fused_gru.cu"], src["persist.cuh"]
     loop = "#pragma unroll 4\n  for (int k = lane; k < K; k += 32)"
     chunks = "constexpr int STAGE_CHUNKS = 8;"
-    no_dots = src
-    for call in ("      resident_dots<BT, ZC, ZC>(wzr, xsm, SK, H, nb, usm);",
-                 "      resident_dots<BT, UN, ZC>(wh, xsm, SK, H, nb, usm);"):
+    no_dots = k
+    for call in (
+            "      P::resident_dots<BT, ZC, ZC>(wzr, xsm, SK, H, nb, usm);",
+            "      P::resident_dots<BT, UN, ZC>(wh, xsm, SK, H, nb, usm);"):
         no_dots = sub(no_dots, call, "")
+
+    def header(text):
+        return {"fused_gru.cu": k, "persist.cuh": text}
     return {
-        "base": src,
-        "no_quant_pass": sub(src, "    if (var == 0.f) return;",
-                             "    return;"),
-        "no_dots": no_dots,
+        "base": dict(src),
+        "no_quant_pass": header(sub(h, "  if (var == 0.f) return var;",
+                                    "  return var;")),
+        "no_dots": {"fused_gru.cu": no_dots, "persist.cuh": h},
         "quant_in_dots_2x4": quant_in_dots(src, 2),
         "quant_in_dots_4x2": quant_in_dots(src, 4),
         "quant_in_dots_8x1": quant_in_dots(src, 8),
-        "unroll2": sub(src, loop, loop.replace("4", "2", 1)),
-        "chunks4": sub(src, chunks, chunks.replace("8", "4")),
-        "chunks16": sub(src, chunks, chunks.replace("8", "16")),
+        "unroll2": header(sub(h, loop, loop.replace("4", "2", 1))),
+        "chunks4": header(sub(h, chunks, chunks.replace("8", "4"))),
+        "chunks16": header(sub(h, chunks, chunks.replace("8", "16"))),
     }
 
 
@@ -146,13 +160,14 @@ def main():
     csrc0 = _build.CSRC
     out = {"card": card, "variants": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, text in variants((csrc0 / "fused_gru.cu").read_text()
-                                   ).items():
+        src = {f: (csrc0 / f).read_text() for f in FILES}
+        for name, texts in variants(src).items():
             csrc = Path(tmp) / name / "csrc"
             csrc.mkdir(parents=True)
             for p in csrc0.glob("*.cuh"):
                 shutil.copy(p, csrc)
-            (csrc / "fused_gru.cu").write_text(text)
+            for f, text in texts.items():
+                (csrc / f).write_text(text)
             _build.CSRC, _build.BUILD_DIR = csrc, Path(tmp) / name / "build"
             _build._LIBS.clear()
             BS._lib_fn.cache_clear()

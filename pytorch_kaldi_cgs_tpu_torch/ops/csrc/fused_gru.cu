@@ -83,15 +83,39 @@
 //     50 MB L2) every step. Its time is 2T launches, far above the bound.
 //
 // The recompute backward's forward quantities do not depend on dh, so they
-// are rebuilt for all T at once before the reverse loop: one reduction for
-// the T scales of q(h_{t-1}), then the same two step kernels over a grid
-// with one z-slice per step, writing [a_pre | z | r] (or [a_pre | z]) to
-// scratch. The reverse chain keeps two dependent steps per time step, so
-// two kernels per step: gru_bwd_carry (dh from step t+1's [dg_z | dg_r]
-// (dg_z) against [Uz; Ur] (Uz), then dg_h, and the GRU's dg_z) and
-// gru_bwd_ds (ds from dg_h against Uh, then dg_r, or the minimalGRU's
-// dg_z). Both products read rows of U^T (H, G*H), passed in, so the lanes
-// read consecutive addresses.
+// are rebuilt for all T at once before the reverse loop. The minimalGRU's
+// (TPU row 26) takes one of two routes, picked by the caller before the
+// launch (fused_rnn.mgru_bwd_route):
+//
+//   - "persist": the rebuild over all M = T*B rows as two products
+//     (rows_dots: one gate's rows of U resident in a block, the rows of
+//     every step streamed through it, each dot in the forward's order, the
+//     gates added) around one elementwise pass: with qbits > 0 the T
+//     scales and q(h_{t-1}), z's pre-activations, z, s = z * h_{t-1} and
+//     the T scales of q(s) (mgru_z_rebuild), q(s), a_pre: the forward's
+//     bits, so act' takes the forward's branch;
+//     then the whole reverse chain is ONE cooperative launch of
+//     gru_dense_bwd_persist (persist.cuh): a block owns 8 units and BT =
+//     8 * BI rows (8, 16 or 32) for all steps, its units' columns of Uz
+//     and Uh resident in shared memory, and per reverse step runs two
+//     phases with a grid barrier after each (ds = dg_h @ Uh needs dg_h of
+//     every unit before dg_z). Its chain's sums run in another order than
+//     the step route's (its warps split the contraction). The chain is a
+//     template over G and the stash, so
+//     that the GRU's backwards and the minimalGRU's stash one can take it;
+//     only the minimalGRU's recompute backward is instantiated and routed
+//     to it.
+//   - "step" (a shape whose blocks do not fit or are not co-resident, and
+//     the GRU's backwards and the minimalGRU's stash one): one reduction
+//     for the T scales of q(h_{t-1}), then the same two step kernels as
+//     the forward's over a grid with one z-slice per step, writing [a_pre
+//     | z | r] (or [a_pre | z]) to scratch. The reverse chain keeps two
+//     dependent steps per time step, so two kernels per step:
+//     gru_bwd_carry (dh from step t+1's [dg_z | dg_r] (dg_z) against [Uz;
+//     Ur] (Uz), then dg_h, and the GRU's dg_z) and gru_bwd_ds (ds from
+//     dg_h against Uh, then dg_r, or the minimalGRU's dg_z). Both products
+//     read rows of U^T (H, G*H), passed in, so the lanes read consecutive
+//     addresses.
 //
 // On the step routes, a block owns a few hidden units and BT batch rows
 // per step: it stages
@@ -119,7 +143,6 @@ constexpr int THREADS = WARPS * 32;
 constexpr int ZR_ROWS = 8;          // rows of [Uz; Ur] (Uz) per zr block
 constexpr int H_UNITS = 8;          // units per candidate block: 8 rows of Uh
 constexpr int BWD_UNITS = 8;        // units per backward block
-constexpr int STAGE_CHUNKS = 8;     // 16-byte loads a thread in flight
 
 // Units per zr block of a G-gate cell: 4 for the GRU, 8 for the
 // minimalGRU.
@@ -448,56 +471,6 @@ cudaError_t run_fwd(const float* gates, const float* U, const float* drop,
   return cudaSuccess;
 }
 
-// usm[b][r] = sum_k xs[b * SK + k] * ws[r * K + k] over K columns for the
-// NR resident rows r of ws and the staged rows b < nb of BT (usm rows LD
-// floats apart). Each dot is summed in row_dots' order (lane l takes k =
-// l, l + 32, ... in turn, then a shuffle reduction over the 32 lanes), so
-// that the persistent forward gives the step kernels' bits; warp w takes
-// the BT/2 rows b from (w % 2) * BT/2 and the NR/4 rows r from (w / 2) *
-// NR/4, so that each value it loads serves several dots: shared memory's
-// bandwidth, not the FMAs, sets their pace (one warp a row r, reloading
-// every staged value for each, was slower; gru_fwd_variants.py times the
-// other splits of the warps).
-template <int BT, int NR, int LD>
-__device__ __forceinline__ void resident_dots(const float* ws,
-                                              const float* xs, int SK,
-                                              int K, int nb,
-                                              float (*usm)[LD]) {
-  constexpr int BQ = BT / 2, RQ = NR / 4;
-  static_assert(WARPS == 8 && NR % 4 == 0, "2 x 4 warps");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;
-  const float* x = xs + (size_t)bq * SK;
-  const float* w = ws + (size_t)rq * K;
-  float acc[BQ][RQ];
-#pragma unroll
-  for (int p = 0; p < BQ; ++p)
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) acc[p][q] = 0.f;
-#pragma unroll 4
-  for (int k = lane; k < K; k += 32) {
-    float wv[RQ];
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) wv[q] = w[(size_t)q * K + k];
-#pragma unroll
-    for (int p = 0; p < BQ; ++p)
-      if (bq + p < nb) {
-        const float xv = x[(size_t)p * SK + k];
-#pragma unroll
-        for (int q = 0; q < RQ; ++q) acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
-      }
-  }
-#pragma unroll
-  for (int p = 0; p < BQ; ++p)
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) {
-      float v = acc[p][q];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) usm[bq + p][rq + q] = v;
-    }
-}
-
 // The forward's whole recurrence in one cooperative launch (route
 // "persist", TPU rows 19 and 24's redesign; persist.cuh), for a G-gate
 // cell. Block c owns the UN units from u0 = (c % ug) * UN (ug = ceil(H /
@@ -521,14 +494,15 @@ __device__ __forceinline__ void resident_dots(const float* ws,
 // xh and xs are (B, HP) with HP = H rounded up to 4 floats, so that each
 // staged row starts 16-byte aligned; the padding is copied, never summed.
 // Each dot is one warp's, lanes over k and a shuffle reduction, as in the
-// step kernels' row_dots (resident_dots), and q() (quant_rcp: quant()'s
-// bits, with the reciprocal of the scale taken once a phase) runs once
-// over the staged values: the persistent route gives the step route's
-// bits, and so the dense stream of a sparse layer the sparse forward's,
-// as before. (The sparse chain's persist::unit_dots, whose warps split
-// the contraction, was as fast here, but its sums moved the CGS-16x
-// minimalGRU's stream, relu behind two 16-bit ceil quantizers and a
-// x10000 head, past chip_smoke.py's bound against the sparse forward.)
+// step kernels' row_dots (persist::resident_dots), and q() (quant_rcp:
+// quant()'s bits, with the reciprocal of the scale taken once a phase)
+// runs once over the staged values (persist::stage_quant): the
+// persistent route gives the step route's bits, and so the dense stream
+// of a sparse layer the sparse forward's, as before. (The sparse chain's
+// persist::unit_dots, whose warps split the contraction, was as fast
+// here, but its sums moved the CGS-16x minimalGRU's stream, relu behind
+// two 16-bit ceil quantizers and a x10000 head, past chip_smoke.py's
+// bound against the sparse forward.)
 template <int G, int BI, int UN>
 __global__ void __launch_bounds__(persist::THREADS, UN == 4 ? 2 : 1)
 gru_dense_fwd_persist(const float* __restrict__ gates,  // (T, B, G*H)
@@ -569,60 +543,14 @@ gru_dense_fwd_persist(const float* __restrict__ gates,  // (T, B, G*H)
   unsigned* hmax = bmax;                            // max|h_t| by block
   unsigned* smax = bmax ? bmax + gridDim.x : nullptr;   // max|s_t|
   const float iscale = qscale != 0.f ? 1.f / qscale : 0.f;
-  // stage this block's rows of v (B, HP) by cp.async; with `maxes`, the
-  // grid's max of them (read meanwhile) is the scale of q(), then applied
-  // to the staged rows in place, STAGE_CHUNKS 16-byte chunks a thread in
-  // flight, since at one block of 8 warps an SM a pass one value at a time
-  // waits on each load in turn (a scale of 0 leaves them unquantized, as
-  // quant() does). q() on the values as the dots load them costs more:
-  // the warps of one row group each load them (gru_fwd_variants.py).
+  // stage this block's rows of v (B, HP), q() at the grid's max of
+  // `maxes` (persist::stage_quant)
   auto stage = [&](const float* v, const unsigned* maxes) {
-    P::stage_rows(nb, HP, [&](int b) { return v + (size_t)(b0 + b) * HP; },
-                  [&](int b) { return xsm + (size_t)b * SK; });
-    if (maxes && threadIdx.x < 32) {
-      unsigned m = 0;
-      for (int i = threadIdx.x; i < gridDim.x; i += 32)
-        m = max(m, __ldcg(maxes + i));
-      m = __reduce_max_sync(0xffffffffu, m);
-      if (threadIdx.x == 0) gmax = m;
-    }
-    P::cp_async_wait_all();
-    __syncthreads();
-    const float var = maxes ? __uint_as_float(gmax) : 0.f;
-    if (var == 0.f) return;
-    constexpr int NC = STAGE_CHUNKS;
-    const float inv = 1.f / var;
-    const int cpr = HP / 4, n = nb * cpr;
-    for (int c0 = 0; c0 < n; c0 += P::THREADS * NC) {
-      float4* x[NC];
-      float4 r[NC];
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const int c = c0 + i * P::THREADS + threadIdx.x;
-        const int b = c / cpr, j = c - b * cpr;
-        x[i] = reinterpret_cast<float4*>(xsm + (size_t)b * SK) + j;
-        if (c < n) r[i] = *x[i];
-      }
-#pragma unroll
-      for (int i = 0; i < NC; ++i)
-        if (c0 + i * P::THREADS + threadIdx.x < n)
-          *x[i] = make_float4(quant_rcp(r[i].x, var, inv, qscale, iscale),
-                              quant_rcp(r[i].y, var, inv, qscale, iscale),
-                              quant_rcp(r[i].z, var, inv, qscale, iscale),
-                              quant_rcp(r[i].w, var, inv, qscale, iscale));
-    }
-    __syncthreads();
+    return P::stage_quant(v, HP, b0, nb, xsm, SK, maxes, gridDim.x, &gmax,
+                          qscale, iscale);
   };
-  // this block's max of the threads' bits m into out[blockIdx.x]
   auto block_max = [&](unsigned m, unsigned* out) {
-    m = __reduce_max_sync(0xffffffffu, m);
-    if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned v = 0;
-      for (int w = 0; w < P::WARPS; ++w) v = max(v, wmax[w]);
-      out[blockIdx.x] = v;
-    }
+    P::block_max(m, out, wmax);
   };
   struct In {
     float gh, gz, gr;
@@ -658,7 +586,7 @@ gru_dense_fwd_persist(const float* __restrict__ gates,  // (T, B, G*H)
     float dz = 0.f, dq = 0.f;
     if (dots) {
       stage(xh, hmax);
-      resident_dots<BT, ZC, ZC>(wzr, xsm, SK, H, nb, usm);
+      P::resident_dots<BT, ZC, ZC>(wzr, xsm, SK, H, nb, usm);
       __syncthreads();
       if (mine) {
         dz = usm[ob][oj];
@@ -687,7 +615,7 @@ gru_dense_fwd_persist(const float* __restrict__ gates,  // (T, B, G*H)
     float da = 0.f;
     if (dots) {
       stage(xs, smax);
-      resident_dots<BT, UN, ZC>(wh, xsm, SK, H, nb, usm);
+      P::resident_dots<BT, UN, ZC>(wh, xsm, SK, H, nb, usm);
       __syncthreads();
       if (mine) da = usm[ob][oj];
     }
@@ -758,6 +686,314 @@ void fwd_shape_of(int G, int bi, int units, FwdLaunch* launch,
     fwd_shape<2>(bi, units, launch, occ);
   else
     *launch = nullptr, *occ = nullptr;
+}
+
+// The rows of the minimalGRU recompute backward's rebuild staged at once
+// by a block of rows_dots, and its weight rows.
+constexpr int REBUILD_UNITS = 16;
+
+// u[m * ldo + n] = add[m * ldo + n] + sum_k x[m][k] * W[n][k] for all M
+// rows of x (M, K) and the N rows of W (N, K): one gate's recurrent
+// pre-activations of every step at once (route "persist" of the
+// minimalGRU's recompute backward), each dot summed in the forward's order
+// (persist::resident_dots: the step kernels' row_dots order), so the
+// rebuilt z and a_pre have the forward's bits and act' the forward's
+// branch (a GEMM's order moved a relu pre-activation within 1e-7 of 0
+// across the kink between the stash and the recompute backward). Block c
+// owns REBUILD_UNITS rows of W from n0 = (c % ug) * REBUILD_UNITS,
+// resident in shared memory, and the tiles of BT rows of x c / ug, c / ug
+// + chunks, ...; per tile it stages the rows (float4 loads where K is a
+// multiple of 4 and x 16-byte aligned), forms the dots and adds `add`.
+template <int BT>
+__global__ void __launch_bounds__(persist::THREADS, 1)
+rows_dots(const float* __restrict__ x, const float* __restrict__ W,
+          const float* __restrict__ add, float* __restrict__ u, int M, int K,
+          int N, int ldo, int chunks) {
+  namespace P = persist;
+  constexpr int NR = REBUILD_UNITS;
+  extern __shared__ __align__(16) float psm[];
+  const int SK = P::row_stride(K);
+  float* ws = psm;                                 // (NR, K)
+  float* xs = ws + (size_t)NR * K;                 // (BT, SK)
+  auto usm = reinterpret_cast<float (*)[NR]>(xs + (size_t)BT * SK);
+  const int ug = (N + NR - 1) / NR;
+  const int n0 = (blockIdx.x % ug) * NR, c0 = blockIdx.x / ug;
+  for (int i = threadIdx.x; i < NR * K; i += P::THREADS) {
+    const int r = i / K, k = i - r * K;
+    ws[i] = n0 + r < N ? W[(size_t)(n0 + r) * K + k] : 0.f;
+  }
+  const bool vec = (K & 3) == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  for (int m0 = c0 * BT; m0 < M; m0 += chunks * BT) {
+    const int nb = min(BT, M - m0);
+    if (vec) {
+      const int cpr = K / 4;
+      for (int e = threadIdx.x; e < nb * cpr; e += P::THREADS) {
+        const int b = e / cpr, j = e - b * cpr;
+        reinterpret_cast<float4*>(xs + (size_t)b * SK)[j] =
+            reinterpret_cast<const float4*>(x + (size_t)(m0 + b) * K)[j];
+      }
+    } else {
+      for (int e = threadIdx.x; e < nb * K; e += P::THREADS) {
+        const int b = e / K, k = e - b * K;
+        xs[(size_t)b * SK + k] = x[(size_t)(m0 + b) * K + k];
+      }
+    }
+    __syncthreads();
+    P::resident_dots<BT, NR, NR>(ws, xs, SK, K, nb, usm);
+    __syncthreads();
+    for (int e = threadIdx.x; e < nb * NR; e += P::THREADS) {
+      const int b = e / NR, r = e - b * NR;
+      if (n0 + r < N) {
+        const size_t at = (size_t)(m0 + b) * ldo + n0 + r;
+        u[at] = add[at] + usm[b][r];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// rows_dots on `stream` with the largest tile of rows (bt: 32, 16 or 8,
+// fused_rnn.mgru_rebuild_rows) that fits beside the weight rows, over
+// about one block an SM.
+cudaError_t rows_dots_launch(const float* x, const float* W,
+                             const float* add, float* u, int M, int K, int N,
+                             int ldo, int bt, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int ug = (N + REBUILD_UNITS - 1) / REBUILD_UNITS;
+  const int tiles = (M + bt - 1) / bt;
+  const int fit = sms / ug > 1 ? sms / ug : 1;
+  const int chunks = fit < tiles ? fit : tiles;
+  const int smem = (REBUILD_UNITS * K + bt * persist::row_stride(K) +
+                    bt * REBUILD_UNITS) * (int)sizeof(float);
+#define PK_ROWS_DOTS(BT_)                                                 \
+  if (bt == BT_) {                                                        \
+    err = persist::allow_once<rows_dots<BT_>>(smem);                      \
+    if (err != cudaSuccess) return err;                                   \
+    rows_dots<BT_><<<ug * chunks, persist::THREADS, smem, stream>>>(      \
+        x, W, add, u, M, K, N, ldo, chunks);                              \
+    return cudaGetLastError();                                            \
+  }
+  PK_ROWS_DOTS(32)
+  PK_ROWS_DOTS(16)
+  PK_ROWS_DOTS(8)
+#undef PK_ROWS_DOTS
+  return cudaErrorInvalidValue;
+}
+
+// The minimalGRU recompute backward's rebuild between its two products
+// (route "persist"): fw's z half holds each row's z pre-activation g_z +
+// q(h_{t-1}) @ Uz^T; z = sigmoid(it) in its place, s = z * h_{t-1} into
+// s_out and max|s| of each step into scale_s (null: none). Blocks over
+// (the H units, rows).
+__global__ void mgru_z_rebuild(float* __restrict__ fw,
+                               const float* __restrict__ h_prev,
+                               float* __restrict__ s_out,
+                               unsigned* __restrict__ scale_s, int M, int B,
+                               int H) {
+  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int row = blockIdx.y; row < M; row += gridDim.y) {
+    unsigned m = 0;
+    if (u < H) {
+      const size_t ih = (size_t)row * H + u, iz = (size_t)row * 2 * H + H + u;
+      const float z = sigmoid(fw[iz]);
+      const float sv = z * h_prev[ih];
+      fw[iz] = z;
+      s_out[ih] = sv;
+      m = __float_as_uint(fabsf(sv));
+    }
+    if (scale_s) slot_max(m, scale_s + row / B);
+  }
+}
+
+// The dense reverse chain in one cooperative launch (route "persist", TPU
+// row 26's redesign; persist.cuh), for a G-gate cell over fw, every step's
+// [a_pre | z (| r)] (PRE: the recompute backward's rebuild) or the stash
+// [act(a_h) | z (| r)]. Block c owns the UN units from u0 = (c % ug) * UN
+// (ug = ceil(H / UN); units past H get zero weights and no output) and the
+// BT = 8 * BI batch rows from b0 = (c / ug) * BT. It copies into shared
+// memory once its units' columns of U: [Uz; Ur] ([Uz]) as the (G-1)H rows
+// of ws1, Uh as the H rows of ws2, w_stride(UN) floats apart. Its thread
+// o = b * UN + jj keeps dh, ds and step t+1's gates of its (row, unit) in
+// registers and loads the next step's inputs (fw, h_prev, dhs) before the
+// second barrier. Per reverse step t, two dependent products, so two grid
+// barriers (the second skipped at t = 0):
+//   1. stage [dg_z (| dg_r)]_{t+1} from xzr, dots against ws1: dh_t =
+//      (dh_{t+1} + ds_{t+1}) z_{t+1} + dg_z_{t+1} @ Uz + dhs[t] (the
+//      GRU: dh_{t+1} z_{t+1} + ds_{t+1} r_{t+1} + [dg_z | dg_r]_{t+1} @
+//      [Uz; Ur] + dhs[t]); dg_h of step t (and the GRU's dg_z) into dg
+//      and dg_h into xh; barrier (ds needs every unit's dg_h);
+//   2. stage dg_h of step t from xh, dots against ws2: ds_t = dg_h @ Uh,
+//      then the minimalGRU's dg_z (the GRU's dg_r) into dg and xzr;
+//      barrier.
+// The step kernels' arithmetic (gru_bwd_carry, gru_bwd_ds) on each
+// (row, unit); the dots are persist::unit_dots' (warps split the
+// contraction). xh (B, HP) and xzr (2, B, ZP) have rows padded to 4
+// floats (HP = H, ZP = (G-1)H rounded up) for cp.async; xzr is two
+// buffers picked by the step's parity, since the GRU writes dg_z of step t
+// in phase 1 while a slower block may still stage step t+1's.
+template <int G, int BI, int UN, bool PRE>
+__global__ void __launch_bounds__(persist::THREADS, 1)
+gru_dense_bwd_persist(const float* __restrict__ fw,      // (T, B, G*H)
+                      const float* __restrict__ U,       // (G*H, H)
+                      const float* __restrict__ drop,    // (B, H)
+                      const float* __restrict__ h_prev,  // (T, B, H)
+                      const float* __restrict__ dhs,     // (T, B, H)
+                      float* __restrict__ dg,            // (T, B, G*H)
+                      float* xh, float* xzr,             // exchange
+                      int T, int B, int H, int act) {
+  namespace P = persist;
+  constexpr int BT = P::BLANES * BI, WS = P::w_stride(UN);
+  extern __shared__ __align__(16) float psm[];
+  const int K1 = (G - 1) * H, HP = (H + 3) / 4 * 4, ZP = (K1 + 3) / 4 * 4;
+  const int SK = P::row_stride(K1);
+  float* ws1 = psm;                                // (K1, WS)
+  float* ws2 = ws1 + (size_t)K1 * WS;              // (H, WS)
+  float* xs = ws2 + (size_t)H * WS;                // (BT, SK)
+  float* red = xs + (size_t)BT * SK;
+  const int ug = (H + UN - 1) / UN;
+  const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  for (int e = threadIdx.x; e < K1 * UN; e += P::THREADS) {
+    const int k = e / UN, j = e - k * UN;
+    ws1[k * WS + j] = u0 + j < H ? U[(size_t)(H + k) * H + u0 + j] : 0.f;
+  }
+  for (int e = threadIdx.x; e < H * UN; e += P::THREADS) {
+    const int k = e / UN, j = e - k * UN;
+    ws2[k * WS + j] = u0 + j < H ? U[(size_t)k * H + u0 + j] : 0.f;
+  }
+  const int o = threadIdx.x, ob = o / UN, ou = u0 + o % UN;
+  const bool mine = o < BT * UN && ob < nb && ou < H;
+  const size_t bh = (size_t)B * H, gbh = (size_t)G * bh;
+  const size_t ih = (size_t)(b0 + ob) * H + ou, ig = (size_t)(b0 + ob) * G * H;
+  const size_t zstep = (size_t)B * ZP, iz = (size_t)(b0 + ob) * ZP + ou;
+  const float dr = mine ? drop[ih] : 0.f;
+  // stage `len` floats of this block's rows of x (rows `ld` apart)
+  auto stage = [&](const float* x, int ld, int len) {
+    P::stage_rows(nb, len, [&](int b) { return x + (size_t)(b0 + b) * ld; },
+                  [&](int b) { return xs + (size_t)b * SK; });
+    P::cp_async_wait_all();
+    __syncthreads();
+  };
+  // step t's inputs of this thread's (row, unit), loaded a step ahead
+  struct In {
+    float f, z, r, hp, dh;
+  };
+  auto fetch = [&](int t) {
+    In v{};
+    if (mine) {
+      const float* f = fw + t * gbh + ig;
+      v.f = f[ou];
+      v.z = f[H + ou];
+      if (G == 3) v.r = f[2 * H + ou];
+      v.hp = h_prev[t * bh + ih];
+      v.dh = dhs[t * bh + ih];
+    }
+    return v;
+  };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float dh = 0.f, ds = 0.f, zn = 0.f, rn = 0.f;
+  In cur = fetch(T - 1);
+  __syncthreads();
+  for (int t = T - 1; t >= 0; --t) {
+    float* xz = xzr + (t & 1) * zstep;
+    float dot = 0.f;
+    if (t + 1 < T) {
+      stage(xzr + ((t + 1) & 1) * zstep, ZP, ZP);
+      P::unit_dots<BI, UN>(xs, SK, ws1, K1, red);
+      if (o < BT * UN) dot = P::unit_sum<BI, UN>(red, o);
+    }
+    float a = 0.f, da = 0.f;
+    if (mine) {
+      const float gate_s = G == 3 ? rn : zn;
+      const float carry = t + 1 < T ? dh * zn + ds * gate_s + dot : 0.f;
+      const float dhv = carry + cur.dh;
+      const float z = cur.z;
+      cand<PRE>(cur.f, act, &a, &da);
+      const float dgh = dhv * (1.f - z) * dr * da;
+      float* d = dg + t * gbh + ig;
+      d[ou] = dgh;
+      xh[(size_t)(b0 + ob) * HP + ou] = dgh;
+      if constexpr (G == 3) {
+        const float dz = dhv * (cur.hp - a * dr);
+        const float dgz = dz * z * (1.f - z);
+        d[H + ou] = dgz;
+        xz[iz] = dgz;
+      }
+      dh = dhv;
+      zn = z;
+      rn = cur.r;
+    }
+    grid.sync();
+    stage(xh, HP, HP);
+    P::unit_dots<BI, UN>(xs, SK, ws2, H, red);
+    if (mine) {
+      ds = P::unit_sum<BI, UN>(red, o);
+      const float hp = cur.hp;
+      float* d = dg + t * gbh + ig;
+      if constexpr (G == 3) {
+        const float r = cur.r;
+        const float dgr = ds * hp * r * (1.f - r);
+        d[2 * H + ou] = dgr;
+        xz[iz + H] = dgr;
+      } else {
+        const float z = cur.z;
+        const float dz = dh * (hp - a * dr) + ds * hp;
+        const float dgz = dz * z * (1.f - z);
+        d[H + ou] = dgz;
+        xz[iz] = dgz;
+      }
+    }
+    if (t > 0) {
+      cur = fetch(t - 1);
+      grid.sync();
+    }
+  }
+}
+
+// one cooperative launch of the dense reverse chain at block shape (BI, UN)
+template <int G, int BI, int UN, bool PRE>
+cudaError_t launch_bwd_persist(int grid, int smem, cudaStream_t stream,
+                               const float* fw, const float* U,
+                               const float* drop, const float* h_prev,
+                               const float* dhs, float* dg, float* xh,
+                               float* xzr, int T, int B, int H, int act) {
+  return persist::launch<gru_dense_bwd_persist<G, BI, UN, PRE>>(
+      grid, smem, stream, fw, U, drop, h_prev, dhs, dg, xh, xzr, T, B, H,
+      act);
+}
+
+// The block shapes (bi, units) of the dense reverse chain, instantiated
+// for the minimalGRU's recompute backward (G=2, PRE): the plan's (1, 8),
+// (2, 8) and (4, 8). -> the launcher and the occupancy query of one, or
+// nulls for another shape or cell.
+using BwdLaunch = cudaError_t (*)(int, int, cudaStream_t, const float*,
+                                  const float*, const float*, const float*,
+                                  const float*, float*, float*, float*, int,
+                                  int, int, int);
+
+void bwd_shape_of(int G, int bi, int units, BwdLaunch* launch,
+                  FwdOccupancy* occ) {
+  *launch = nullptr;
+  *occ = nullptr;
+  if (G != 2) return;
+#define PK_BWD_SHAPE(BI_, UN_)                                            \
+  if (bi == BI_ && units == UN_) {                                        \
+    *launch = launch_bwd_persist<2, BI_, UN_, true>;                      \
+    *occ = persist::occupancy<gru_dense_bwd_persist<2, BI_, UN_, true>>;  \
+    return;                                                               \
+  }
+  PK_BWD_SHAPE(1, 8)
+  PK_BWD_SHAPE(2, 8)
+  PK_BWD_SHAPE(4, 8)
+#undef PK_BWD_SHAPE
+}
+
+dim3 rows_grid(int M, int H) {
+  return dim3((H + 255) / 256, M < 65535 ? M : 65535);
 }
 
 template <bool PRE, int G>
@@ -939,6 +1175,84 @@ int fused_mgru_bwd(const float* lead, const float* U, const float* Ut,
                    int stash, void* stream_ptr) {
   return launch_bwd<2>(lead, U, Ut, drop, h_prev, dhs, fw, s_seq, dh, ds, dg,
                        qslots, T, B, H, act, qbits, stash, stream_ptr);
+}
+
+// The minimalGRU recompute backward on the persistent route on `stream`:
+// the forward quantities of all M = T*B rows first (with qbits > 0 the T
+// scales of q(h_prev) into qslots[0, T), zeroed here, and q(h_prev) into
+// qh), z's pre-activations g_z + q(h_prev) @ Uz^T into fw's z half, z, s
+// = z * h_prev (s_seq) and the T scales of q(s) (mgru_z_rebuild), q(s)
+// into qs, a_pre = g_h + q(s) @ Uh^T into fw's candidate half (both
+// products rows_dots, tiles of `rb` rows: 32, 16 or 8); then one
+// cooperative launch of `grid` blocks of gru_dense_bwd_persist<2, ., .,
+// true> (bi: BT = 8 * bi rows a block; units: 8; smem bytes of dynamic
+// shared memory: fused_rnn.mgru_bwd_plan sizes all three). Returns the
+// first cudaError_t seen; cudaErrorInvalidValue for a shape not
+// instantiated.
+//   gates, fw, dg: (T, B, 2H);  U: (2H, H);  drop: (B, H)
+//   h_prev, dhs, qh, s_seq, qs: (T, B, H)
+//   xh: (B, HP), xzr: (2, B, HP) scratch, HP = H rounded up to 4
+//   qslots: 2T unsigned ints of scratch when qbits > 0
+int mgru_bwd_persist_run(const float* gates, const float* U,
+                         const float* drop, const float* h_prev,
+                         const float* dhs, float* qh, float* fw, float* s_seq,
+                         float* qs, float* xh, float* xzr, float* dg,
+                         unsigned* qslots, int T, int B, int H, int act,
+                         int qbits, int rb, int grid, int bi, int units,
+                         int smem, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  BwdLaunch fn;
+  FwdOccupancy occ;
+  bwd_shape_of(2, bi, units, &fn, &occ);
+  if (!fn) return cudaErrorInvalidValue;
+  const bool q = qbits > 0;
+  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+  const size_t bh = (size_t)B * H;
+  const int M = T * B, nblk = (int)((bh + 255) / 256 < 16 ? (bh + 255) / 256
+                                                           : 16);
+  const float* x = h_prev;
+  cudaError_t err = cudaSuccess;
+  if (q) {
+    err = cudaMemsetAsync(qslots, 0, (size_t)(2 * T) * sizeof(unsigned),
+                          stream);
+    if (err != cudaSuccess) return err;
+    absmax_steps<<<dim3(nblk, T), 256, 0, stream>>>(h_prev, (int)bh, qslots);
+    quant_steps<false><<<dim3(nblk, T), 256, 0, stream>>>(
+        h_prev, qslots, qscale, qh, (int)bh);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    x = qh;
+  }
+  err = rows_dots_launch(x, U + (size_t)H * H, gates + H, fw + H, M, H, H,
+                         2 * H, rb, stream);
+  if (err != cudaSuccess) return err;
+  mgru_z_rebuild<<<rows_grid(M, H), 256, 0, stream>>>(
+      fw, h_prev, s_seq, q ? qslots + T : nullptr, M, B, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* s = s_seq;
+  if (q) {
+    quant_steps<false><<<dim3(nblk, T), 256, 0, stream>>>(
+        s_seq, qslots + T, qscale, qs, (int)bh);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    s = qs;
+  }
+  err = rows_dots_launch(s, U, gates, fw, M, H, H, 2 * H, rb, stream);
+  if (err != cudaSuccess) return err;
+  return fn(grid, smem, stream, fw, U, drop, h_prev, dhs, dg, xh, xzr, T, B,
+            H, act);
+}
+
+// out[0..2]: the dense reverse chain's co-resident blocks per SM at `smem`
+// bytes of dynamic shared memory (G, bi and units as above; G=2 alone is
+// instantiated), the SM count, and whether the device takes cooperative
+// launches.
+int gru_bwd_dense_occupancy(int G, int bi, int units, int smem, int* out) {
+  BwdLaunch fn;
+  FwdOccupancy occ;
+  bwd_shape_of(G, bi, units, &fn, &occ);
+  return occ ? occ(smem, out) : cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -37,14 +37,29 @@
 // the recompute backward does two products (0.300 ms; 0.80 ms at the
 // LibriSpeech shape, T=200, B=32). But each step needs all of h_{t-1}
 // (forward) or all of dg_{t+1} (backward), written by every block of the
-// step before, and on Hopper blocks run in no order. The forward and the
-// stash backward launch one kernel per step from the host loop (the
-// launch boundary is the grid-wide barrier) and re-read U (8 MB at
-// H=1024, resident in the 50 MB L2) each step; their time is ~T launches
-// of several microseconds, far above the bound.
+// step before, and on Hopper blocks run in no order. The stash backward
+// launches one kernel per step from the host loop (the launch boundary is
+// the grid-wide barrier) and re-reads U (8 MB at H=1024, resident in the
+// 50 MB L2) each step; its time is ~T launches of several microseconds,
+// far above the bound.
 //
-// Per step, a block owns UNITS hidden units (both gate rows of each, so
-// the gate math stays local) and BT batch rows:
+// The forward (TPU row 16) takes one of two routes, picked by the caller
+// before the launch from the shapes and the occupancy query
+// (fused_rnn.ligru_fwd_route):
+//
+//   - "persist": ONE cooperative launch runs all T steps, seeded or not
+//     (ligru_fwd_persist, persist.cuh): a block owns 8 units and BT (8,
+//     16 or 32) batch rows for the whole call, its units' rows
+//     of [Uh; Uz] resident in shared memory, and per step stages
+//     q(h_{t-1}) of its rows, forms its dots, runs the gate math and waits
+//     at one grid barrier; h_t and the per-block max|h_t| go through two
+//     exchange buffers picked by the step's parity. Its sums are the step
+//     kernel's, so both routes give the same bits.
+//   - "step" (a shape whose blocks do not fit or are not co-resident): T
+//     launches of ligru_step, as below.
+//
+// Per step on the step routes, a block owns UNITS hidden units (both gate
+// rows of each, so the gate math stays local) and BT batch rows:
 //   * forward: it stages q(h_{t-1}) for its rows in shared memory; each
 //     warp forms the dot of one U row with every staged row (lanes over
 //     k, then a shuffle reduction); the epilogue writes h_t (and the
@@ -84,12 +99,13 @@
 //     re-forming the forward's dots beside the carry's.
 //
 // qbits > 0: q() scales by max|h_{t-1}| over the whole (B, H) block of
-// the step. Forward: step t's epilogue atomicMax-es |h_t| (the float bit
-// pattern orders like the value for non-negative floats) into slot t+1,
-// zeroed by cudaMemsetAsync; slot 0 holds max|h0|. Recompute backward:
-// h_prev is an input, so one reduction kernel writes all T scales first.
-// The stash backward takes no quantizer (its straight-through gradient
-// is the identity for dh).
+// the step. Forward, step route: step t's epilogue atomicMax-es |h_t| (the
+// float bit pattern orders like the value for non-negative floats) into
+// slot t+1, zeroed by cudaMemsetAsync; slot 0 holds max|h0|. Persistent
+// route: each block writes its own max, and the blocks of the next step
+// take the max of those. Recompute backward: h_prev is an input, so one
+// reduction kernel writes all T scales first. The stash backward takes no
+// quantizer (its straight-through gradient is the identity for dh).
 
 #include <cmath>
 
@@ -371,6 +387,127 @@ ligru_bwd_persist(const float* __restrict__ pre,     // (T, B, 2H) g + u
   }
 }
 
+// The forward's whole recurrence in one cooperative launch (route
+// "persist", TPU row 16's redesign; persist.cuh). Block c owns the UN
+// units from u0 = (c % ug) * UN (ug = ceil(H / UN); units past H get zero
+// weights and no output) and the BT = 8 * BI batch rows from b0 = (c /
+// ug) * BT. It copies into shared memory once its units' rows of U, Uh's
+// UN then Uz's UN, H floats each (ws). Its thread o = b * UN + jj keeps
+// h_{t-1} of its (row, unit) in a register and loads the next step's gates
+// before the barrier. The step has one grid-wide dependency, h_{t-1} of
+// every unit, so one grid barrier a step: stage h_{t-1} from the exchange
+// buffer of step t-1's parity, q() at the max over that parity's block
+// maxima, the dots against ws, the gate math, h_t into hs and into the
+// buffer of step t's parity, the stash, the block's max|h_t| into its
+// entry of that parity's maxima; barrier (none after the last step).
+// With one barrier a step the exchange needs two buffers (2, B, HP) and
+// two rows of block maxima (2, grid): a block past the barrier writes h_t
+// while a slower one may still stage h_{t-1}. With a seed h0 each thread
+// first copies its entry into buffer 1 (step -1's) and its block's max|h0|
+// into maxima row 1, then one barrier; without one, step 0's carry is
+// zero: no staging and no dots. HP = H rounded up to 4 floats, so that
+// each staged row starts 16-byte aligned; the padding is copied, never
+// summed. Each dot is one warp's, lanes over k and a shuffle reduction, in
+// ligru_step's row_dots order (persist::resident_dots), and q() (quant_rcp:
+// quant()'s bits) runs once over the staged values (persist::stage_quant):
+// both routes give the same bits, so the dense stream of a sparse
+// layer keeps the sparse forward's.
+template <int BI, int UN>
+__global__ void __launch_bounds__(persist::THREADS, 1)
+ligru_fwd_persist(const float* __restrict__ gates,  // (T, B, 2H)
+                  const float* __restrict__ U,      // (2H, H)
+                  const float* __restrict__ drop,   // (B, H)
+                  const float* __restrict__ h0,     // (B, H) or null
+                  float* __restrict__ hs,           // (T, B, H) output
+                  float* __restrict__ acts,         // (T, B, 2H) or null
+                  float* xh,                        // (2, B, HP) exchange
+                  unsigned* bmax,                   // (2, grid), or null
+                  int T, int B, int H, int act, float qscale) {
+  namespace P = persist;
+  constexpr int BT = P::BLANES * BI, NR = 2 * UN;
+  extern __shared__ __align__(16) float psm[];
+  __shared__ unsigned wmax[P::WARPS], gmax;
+  const int SK = P::row_stride(H), HP = (H + 3) / 4 * 4;
+  float* ws = psm;                                 // (NR, H)
+  float* xsm = ws + (size_t)NR * H;                // (BT, SK)
+  auto usm = reinterpret_cast<float (*)[NR]>(xsm + (size_t)BT * SK);
+  const int ug = (H + UN - 1) / UN;
+  const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  for (int i = threadIdx.x; i < NR * H; i += P::THREADS) {
+    const int r = i / H, k = i - r * H, u = u0 + r % UN;
+    ws[i] = u < H ? U[((size_t)(r / UN) * H + u) * H + k] : 0.f;
+  }
+  const int o = threadIdx.x, ob = o / UN, oj = o % UN, ou = u0 + oj;
+  const bool mine = o < BT * UN && ob < nb && ou < H;
+  const size_t bh = (size_t)B * H, xstep = (size_t)B * HP;
+  const size_t ih = (size_t)(b0 + ob) * H + ou, ig = (size_t)(b0 + ob) * 2 * H;
+  const size_t ix = (size_t)(b0 + ob) * HP + ou;
+  const float dr = mine ? drop[ih] : 0.f;
+  const float iscale = qscale != 0.f ? 1.f / qscale : 0.f;
+  struct In {
+    float gh, gz;
+  };
+  auto fetch = [&](int t) {
+    In v{};
+    if (mine) {
+      v.gh = gates[t * 2 * bh + ig + ou];
+      v.gz = gates[t * 2 * bh + ig + H + ou];
+    }
+    return v;
+  };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float hp = 0.f;                                  // h_{t-1} of (row, unit)
+  const bool seeded = h0 != nullptr;
+  if (seeded) {
+    unsigned m = 0;
+    if (mine) {
+      hp = h0[ih];
+      xh[xstep + ix] = hp;
+      m = __float_as_uint(fabsf(hp));
+    }
+    if (bmax) P::block_max(m, bmax + gridDim.x, wmax);
+    grid.sync();
+  }
+  In cur = fetch(0);
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    const int prev = (t + 1) & 1, now = t & 1;      // parities of t-1, t
+    float uh = 0.f, uz = 0.f;
+    if (t > 0 || seeded) {
+      P::stage_quant(xh + prev * xstep, HP, b0, nb, xsm, SK,
+                     bmax ? bmax + prev * gridDim.x : nullptr, gridDim.x,
+                     &gmax, qscale, iscale);
+      P::resident_dots<BT, NR, NR>(ws, xsm, SK, H, nb, usm);
+      __syncthreads();
+      if (mine) {
+        uh = usm[ob][oj];
+        uz = usm[ob][UN + oj];
+      }
+    }
+    unsigned m = 0;
+    if (mine) {
+      // ligru_step's arithmetic
+      const float a = act_fn(cur.gh + uh, act);
+      const float z = sigmoid(cur.gz + uz);
+      const float h = z * hp + (1.f - z) * (a * dr);
+      hs[t * bh + ih] = h;
+      xh[now * xstep + ix] = h;
+      if (acts) {
+        acts[t * 2 * bh + ig + ou] = a;
+        acts[t * 2 * bh + ig + H + ou] = z;
+      }
+      hp = h;
+      m = __float_as_uint(fabsf(h));
+    }
+    if (t + 1 < T) {
+      if (bmax) P::block_max(m, bmax + now * gridDim.x, wmax);
+      cur = fetch(t + 1);
+      grid.sync();
+    }
+  }
+}
+
 template <bool STASH>
 cudaError_t run_fwd(const float* gates, const float* U, const float* drop,
                     const float* h0, float* hs, float* acts, unsigned* qslots,
@@ -452,6 +589,44 @@ cudaError_t launch_chain(int grid, int smem, cudaStream_t stream,
       KS);
 }
 
+// one cooperative launch of the persistent forward at block shape (BI, UN)
+template <int BI, int UN>
+cudaError_t launch_fwd_persist(int grid, int smem, cudaStream_t stream,
+                               const float* gates, const float* U,
+                               const float* drop, const float* h0, float* hs,
+                               float* acts, float* xh, unsigned* bmax, int T,
+                               int B, int H, int act, float qscale) {
+  return persist::launch<ligru_fwd_persist<BI, UN>>(
+      grid, smem, stream, gates, U, drop, h0, hs, acts, xh, bmax, T, B, H,
+      act, qscale);
+}
+
+// The block shapes (bi, units) of the persistent forward: the plan's (1,
+// 8), (2, 8) and (4, 8), and (2, 16), which a forced plan times at 32
+// rows. -> the launcher and the occupancy query of one, or nulls for
+// another shape.
+using FwdLaunch = cudaError_t (*)(int, int, cudaStream_t, const float*,
+                                  const float*, const float*, const float*,
+                                  float*, float*, float*, unsigned*, int, int,
+                                  int, int, float);
+using FwdOccupancy = cudaError_t (*)(int, int*);
+
+void fwd_shape_of(int bi, int units, FwdLaunch* launch, FwdOccupancy* occ) {
+#define PK_FWD_SHAPE(BI_, UN_)                                            \
+  if (bi == BI_ && units == UN_) {                                        \
+    *launch = launch_fwd_persist<BI_, UN_>;                               \
+    *occ = persist::occupancy<ligru_fwd_persist<BI_, UN_>>;               \
+    return;                                                               \
+  }
+  PK_FWD_SHAPE(1, 8)
+  PK_FWD_SHAPE(2, 8)
+  PK_FWD_SHAPE(4, 8)
+  PK_FWD_SHAPE(2, 16)
+#undef PK_FWD_SHAPE
+  *launch = nullptr;
+  *occ = nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -460,9 +635,9 @@ const char* pk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches the whole forward on `stream`: T step kernels (plus one small
-// reduction over h0 when qbits > 0 and h0 is given). Returns the first
-// cudaError_t seen, 0 on success.
+// Launches the whole forward on `stream` on the step route: T step
+// kernels (plus one small reduction over h0 when qbits > 0 and h0 is
+// given). Returns the first cudaError_t seen, 0 on success.
 //   gates: (T, B, 2H) [h | z];  U: (2H, H);  drop: (B, H)
 //   h0:    (B, H) seed carry, or null for zeros
 //   hs:    (T, B, H) output;  acts: (T, B, 2H) stash output, or null
@@ -474,6 +649,41 @@ int fused_ligru_fwd(const float* gates, const float* U, const float* drop,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   auto fn = acts ? run_fwd<true> : run_fwd<false>;
   return fn(gates, U, drop, h0, hs, acts, qslots, T, B, H, act, qbits, stream);
+}
+
+// The forward on the persistent route on `stream`: one cooperative launch
+// of `grid` blocks of ligru_fwd_persist (bi: BT = 8 * bi rows a block;
+// units: 8 or 16; smem bytes of dynamic shared memory:
+// fused_rnn.ligru_fwd_plan sizes all three), seeded or not. Returns its
+// cudaError_t; cudaErrorInvalidValue for a shape not instantiated.
+//   gates: (T, B, 2H);  U: (2H, H);  drop: (B, H);  h0: (B, H) or null
+//   hs: (T, B, H) output;  acts: (T, B, 2H) stash output, or null
+//   xh: (2, B, HP) scratch, HP = H rounded up to a multiple of 4
+//   bmax: 2 * grid unsigned ints of scratch when qbits > 0
+int ligru_fwd_persist_run(const float* gates, const float* U,
+                          const float* drop, const float* h0, float* hs,
+                          float* acts, float* xh, unsigned* bmax, int T,
+                          int B, int H, int act, int qbits, int grid, int bi,
+                          int units, int smem, void* stream_ptr) {
+  FwdLaunch fn;
+  FwdOccupancy occ;
+  fwd_shape_of(bi, units, &fn, &occ);
+  if (!fn) return cudaErrorInvalidValue;
+  const bool q = qbits > 0;
+  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+  return fn(grid, smem, static_cast<cudaStream_t>(stream_ptr), gates, U,
+            drop, h0, hs, acts, xh, q ? bmax : nullptr, T, B, H, act,
+            qscale);
+}
+
+// out[0..2]: the persistent forward's co-resident blocks per SM at `smem`
+// bytes of dynamic shared memory (bi and units as above), the SM count,
+// and whether the device takes cooperative launches.
+int fused_ligru_fwd_occupancy(int bi, int units, int smem, int* out) {
+  FwdLaunch fn;
+  FwdOccupancy occ;
+  fwd_shape_of(bi, units, &fn, &occ);
+  return occ ? occ(smem, out) : cudaErrorInvalidValue;
 }
 
 // Launches the whole backward on `stream` on the step route: T step

@@ -1,7 +1,9 @@
 // The persistent cooperative chains shared by the recurrences' kernels:
 // the GRU BPTTs (fused_gru_torch.cu, fused_gru_sparse.cu), the liGRU's
-// recompute BPTT (fused_ligru.cu) and the sparse GRU's forward
-// (fused_gru_sparse.cu). One launch runs every step, each block owning UN
+// recompute BPTT and its forward (fused_ligru.cu), the sparse GRU's
+// forward (fused_gru_sparse.cu), the dense GRU and minimalGRU forward and
+// the dense minimalGRU's recompute BPTT (fused_gru.cu). One launch runs
+// every step, each block owning UN
 // (8 or 16) hidden units and BT batch rows for the whole call, the
 // recurrent weights of its units resident in its shared memory, a
 // grid-wide barrier where a step needs what the other blocks wrote.
@@ -26,6 +28,11 @@
 // 32 banks. Where BT rows of K do not fit beside the weights, slab_dots
 // stages them in slabs of the contraction, two in flight.
 //
+// The dense forwards (the GRU's, the minimalGRU's and the liGRU's) sum
+// their dots in the step kernels' order instead (resident_dots: a warp a
+// dot, lanes over k), and stage their quantized carries with
+// stage_quant, so that both of their routes give the same bits.
+//
 // The barrier is cooperative_groups' grid.sync(). Timed once on the H100
 // against a hand-written counter barrier (release/acquire fences around one
 // global atomic), it took 1.13-1.15 us a barrier over 69-132 blocks against
@@ -36,6 +43,8 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "lstm_common.cuh"
 
 namespace persist {
 
@@ -242,6 +251,131 @@ __device__ __forceinline__ float unit_sum(const float* red, int o) {
   for (int w = 0; w < WARPS; ++w) s += red[w * BT * UN + o];
   return s;
 }
+
+namespace {
+
+// 16-byte chunks a thread quantizes in flight in stage_quant's pass
+constexpr int STAGE_CHUNKS = 8;
+
+// usm[b][r] = sum_k xs[b * SK + k] * ws[r * K + k] over K columns for the
+// NR resident rows r of ws and the staged rows b < nb of BT (usm rows LD
+// floats apart): the dense forwards' dots. Each dot is summed in the step
+// kernels' row_dots order (lane l takes k = l, l + 32, ... in turn, then a
+// shuffle reduction over the 32 lanes), so that a persistent forward gives
+// its step route's bits; warp w takes the BT/2 rows b from (w % 2) * BT/2
+// and the NR/4 rows r from (w / 2) * NR/4, so that each value it loads
+// serves several dots: shared memory's bandwidth, not the FMAs, sets their
+// pace (one warp a row r, reloading every staged value for each, was
+// slower; gru_fwd_variants.py times the other splits of the warps).
+// Followed by a __syncthreads before usm is read.
+template <int BT, int NR, int LD>
+__device__ __forceinline__ void resident_dots(const float* ws,
+                                              const float* xs, int SK,
+                                              int K, int nb,
+                                              float (*usm)[LD]) {
+  constexpr int BQ = BT / 2, RQ = NR / 4;
+  static_assert(WARPS == 8 && NR % 4 == 0, "2 x 4 warps");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;
+  const float* x = xs + (size_t)bq * SK;
+  const float* w = ws + (size_t)rq * K;
+  float acc[BQ][RQ];
+#pragma unroll
+  for (int p = 0; p < BQ; ++p)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) acc[p][q] = 0.f;
+#pragma unroll 4
+  for (int k = lane; k < K; k += 32) {
+    float wv[RQ];
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) wv[q] = w[(size_t)q * K + k];
+#pragma unroll
+    for (int p = 0; p < BQ; ++p)
+      if (bq + p < nb) {
+        const float xv = x[(size_t)p * SK + k];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q) acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
+      }
+  }
+#pragma unroll
+  for (int p = 0; p < BQ; ++p)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) {
+      float v = acc[p][q];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) usm[bq + p][rq + q] = v;
+    }
+}
+
+// Stage the nb rows from row b0 of v (rows HP floats apart, HP a multiple
+// of 4, 16-byte aligned: the dense forwards' exchange buffers, written by
+// other blocks in this launch) into xsm (rows SK apart) by cp.async. With
+// `maxes`, the n blocks' max|v| bits of the step (read meanwhile) give the
+// scale var of q(), applied to the staged rows in place by quant_rcp (the
+// reciprocal of var taken once), STAGE_CHUNKS 16-byte chunks a thread in
+// flight, since at one block of 8 warps an SM a pass one value at a time
+// waits on each load in turn (var == 0 leaves them unquantized, as quant()
+// does). q() on the values as the dots load them costs more: the warps of
+// one row group each load them (gru_fwd_variants.py). Every thread takes
+// part; gmax is a __shared__ word. -> var (0 without maxes).
+__device__ __forceinline__ float stage_quant(const float* v, int HP, int b0,
+                                             int nb, float* xsm, int SK,
+                                             const unsigned* maxes, int n,
+                                             unsigned* gmax, float qscale,
+                                             float iscale) {
+  stage_rows(nb, HP, [&](int b) { return v + (size_t)(b0 + b) * HP; },
+             [&](int b) { return xsm + (size_t)b * SK; });
+  if (maxes && threadIdx.x < 32) {
+    unsigned m = 0;
+    for (int i = threadIdx.x; i < n; i += 32) m = max(m, __ldcg(maxes + i));
+    m = __reduce_max_sync(0xffffffffu, m);
+    if (threadIdx.x == 0) *gmax = m;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const float var = maxes ? __uint_as_float(*gmax) : 0.f;
+  if (var == 0.f) return var;
+  constexpr int NC = STAGE_CHUNKS;
+  const float inv = 1.f / var;
+  const int cpr = HP / 4, cn = nb * cpr;
+  for (int c0 = 0; c0 < cn; c0 += THREADS * NC) {
+    float4* x[NC];
+    float4 r[NC];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = c0 + i * THREADS + threadIdx.x;
+      const int b = c / cpr, j = c - b * cpr;
+      x[i] = reinterpret_cast<float4*>(xsm + (size_t)b * SK) + j;
+      if (c < cn) r[i] = *x[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      if (c0 + i * THREADS + threadIdx.x < cn)
+        *x[i] = make_float4(quant_rcp(r[i].x, var, inv, qscale, iscale),
+                            quant_rcp(r[i].y, var, inv, qscale, iscale),
+                            quant_rcp(r[i].z, var, inv, qscale, iscale),
+                            quant_rcp(r[i].w, var, inv, qscale, iscale));
+  }
+  __syncthreads();
+  return var;
+}
+
+// out[blockIdx.x] = this block's max of its threads' bits m (wmax: WARPS
+// __shared__ words); every thread takes part.
+__device__ __forceinline__ void block_max(unsigned m, unsigned* out,
+                                          unsigned* wmax) {
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned v = 0;
+    for (int w = 0; w < WARPS; ++w) v = max(v, wmax[w]);
+    out[blockIdx.x] = v;
+  }
+}
+
+}  // namespace
 
 // Raise the kernel's dynamic shared-memory limit on the current device to
 // `smem` where it is lower (never lower it: another shape may need more).

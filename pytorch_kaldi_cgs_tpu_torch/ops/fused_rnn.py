@@ -42,13 +42,16 @@ Per step t, gates ordered [h | z] (candidate first), U = [Uh; Uz]:
 step's (B, H) block) with a straight-through gradient. Everything is
 float32: as in the JAX package, the fused liGRU has no bf16 variant.
 
-The recompute BPTT picks its route before the launch
-(:func:`ligru_bwd_route` over :func:`ligru_bwd_plan`): "persist" rebuilds
-every step's pre-activations as one GEMM and runs the reverse chain as
-one cooperative launch (``csrc/persist.cuh``); "step", where the chain's
-blocks do not fit or are not co-resident, launches one kernel per reverse
-step. The sparse GRU's forward and BPTT and the torch-semantics GRU's
-BPTT route the same way (their notes below).
+The forward and the recompute BPTT pick their routes before the launch
+(:func:`ligru_fwd_route` over :func:`ligru_fwd_plan`,
+:func:`ligru_bwd_route` over :func:`ligru_bwd_plan`): the forward's
+"persist" runs every step in one cooperative launch (``csrc/persist.cuh``)
+with the step kernel's bits; the BPTT's rebuilds every step's
+pre-activations as one GEMM and runs the reverse chain as one cooperative
+launch; "step", where the blocks do not fit or are not co-resident,
+launches one kernel per step. The sparse GRU's forward and BPTT, the
+dense GRU's and minimalGRU's forward, the minimalGRU's recompute BPTT and
+the torch-semantics GRU's BPTT route the same way (their notes below).
 """
 
 from __future__ import annotations
@@ -197,9 +200,12 @@ def fused_ligru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     carry ``h0`` (B, H). -> hs (T, B, H) float32, and ``(hs, acts)``
     with the stash [act(a_h), z] (T, B, 2H) when ``stash``.
 
-    CUDA tensors run the kernel, CPU tensors the plain twin. This is the
-    raw kernel call, with no autograd: differentiable callers use
-    :func:`ligru_scan_fused`."""
+    CUDA tensors run the kernels on the route :func:`ligru_fwd_route`
+    picks before the launch: "persist" (all steps in one cooperative
+    launch, seeded or not) where the blocks fit and are co-resident, else
+    "step" (a launch per step); both give the same bits. CPU tensors run
+    the plain twin. This is the raw kernel call, with no autograd:
+    differentiable callers use :func:`ligru_scan_fused`."""
     T, B, H, drop = _check("gates", gates, U, drop, act, (("h0", h0),))
     _check_shapes((("h0", h0, (B, H)),))
     if _needs_grad(gates, U, h0):
@@ -207,6 +213,18 @@ def fused_ligru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
                            "call ligru_scan_fused")
     if gates.device.type == "cpu":
         return fused_ligru_fwd_plain(gates, U, drop, h0, act, qbits, stash)
+    route, plan = ligru_fwd_route(B, H, gates.device)
+    if route == "persist":
+        return _ligru_fwd_persist(plan, gates, U, drop, h0, act, qbits, stash)
+    return _ligru_fwd_step(gates, U, drop, h0, act, qbits, stash)
+
+
+def _ligru_fwd_step(gates, U, drop, h0, act, qbits, stash):
+    """The forward on the step route: a kernel a step, after the
+    reduction of max|h0| with a seed and the quantizer; ``launches``
+    counts the step kernels."""
+    T, B, G2 = gates.shape
+    H = G2 // 2
     from . import _build
     lib = _build.load("fused_ligru")
     fn = lib.fused_ligru_fwd
@@ -222,7 +240,31 @@ def fused_ligru_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
                 hs.data_ptr(), _ptr(acts), qslots.data_ptr(), T, B, H,
                 _ACT_CODE[act], qbits, _stream(dev))
     _build.check(lib, rc, "fused_ligru_fwd")
-    fused_ligru_fwd.launches += T
+    fused_ligru_fwd.launches += ligru_fwd_launches("step", T)
+    return (hs, acts) if stash else hs
+
+
+def _ligru_fwd_persist(plan, gates, U, drop, h0, act, qbits, stash):
+    """The forward on the persistent route (``plan``: its PersistPlan,
+    :func:`ligru_fwd_plan`): all T steps in one cooperative launch, h_t
+    exchanged through two (B, HP) buffers picked by the step's parity
+    (rows padded to a multiple of 4 floats for the 16-byte copies)."""
+    from . import block_sparse as BS
+    T, B, G2 = gates.shape
+    H, dev = G2 // 2, gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    hs = torch.empty((T, B, H), **f32)
+    acts = torch.empty_like(gates) if stash else None
+    xh = torch.empty((2, B, gru_fwd_exchange_stride(H)), **f32)
+    # each block's max|h| of the last two steps, for the quantizer
+    bmax = torch.empty(2 * plan.grid if qbits > 0 else 1, dtype=torch.int32,
+                       device=dev)
+    BS._launch("fused_ligru", "ligru_fwd_persist_run", dev,
+               (gates.data_ptr(), U.data_ptr(), drop.data_ptr(), _ptr(h0),
+                hs.data_ptr(), _ptr(acts), xh.data_ptr(), bmax.data_ptr()),
+               (T, B, H, _ACT_CODE[act], qbits, plan.grid, plan.bi,
+                plan.units, plan.smem))
+    fused_ligru_fwd.launches += ligru_fwd_launches("persist", T)
     return (hs, acts) if stash else hs
 
 
@@ -409,7 +451,9 @@ def ligru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
 # max|s|): the forward runs all steps in one cooperative launch with a
 # grid barrier after each (:func:`gru_fwd_route`), or, where its blocks do
 # not fit or are not co-resident, two launches per step. In reverse, from
-# dh_carry = 0 at t = T-1:
+# dh_carry = 0 at t = T-1 (the minimalGRU's recompute BPTT as one
+# cooperative chain after a rebuild of all steps at once,
+# :func:`mgru_bwd_route`; the others two launches a step):
 #
 #     dh   = dh_carry + dhs[t]
 #     dg_h = dh * (1 - z) * drop * act'
@@ -710,6 +754,22 @@ def _gru_bwd(wrapper, cname, G, lead, U, drop, h_prev, dhs, act, qbits,
         if stash:
             return fused_gru_bwd_stash_plain(lead, U, drop, h_prev, dhs, act)
         return fused_gru_bwd_plain(lead, U, drop, h_prev, dhs, act, qbits)
+    if G == 2 and not stash:
+        route, plan = mgru_bwd_route(B, H, lead.device)
+        if route == "persist":
+            return _mgru_bwd_persist(plan, lead, U, drop, h_prev, dhs, act,
+                                     qbits)
+    return _gru_bwd_step(wrapper, cname, G, lead, U, drop, h_prev, dhs, act,
+                         qbits, stash)
+
+
+def _gru_bwd_step(wrapper, cname, G, lead, U, drop, h_prev, dhs, act, qbits,
+                  stash):
+    """The dense BPTT on the step route: with recompute the two rebuild
+    kernels over all T (after the per-step scales with the quantizer),
+    then two kernels a reverse step; ``launches`` counts the rebuild
+    kernels and the chain's."""
+    T, B, H = h_prev.shape
     from . import _build
     lib = _build.load("fused_gru")
     fn = getattr(lib, cname)
@@ -733,6 +793,39 @@ def _gru_bwd(wrapper, cname, G, lead, U, drop, h_prev, dhs, act, qbits,
                 _stream(dev))
     _build.check(lib, rc, wrapper.__name__)
     wrapper.launches += 2 * T + (0 if stash else 2)
+    return dg
+
+
+def _mgru_bwd_persist(plan, gates, U, drop, h_prev, dhs, act, qbits):
+    """The minimalGRU recompute BPTT on the persistent route (``plan``: its
+    PersistPlan, :func:`mgru_bwd_plan`): the forward quantities of all
+    M = T*B rows (with qbits > 0 the per-step scales and q(h_prev); z's
+    pre-activations as one product, z, s and the scales of q(s) in one
+    pass, q(s); a_pre as one product; each dot in the forward's order, so
+    they are the forward's bits), then the chain in one cooperative
+    launch, dg_h and dg_z exchanged through buffers of rows padded to a
+    multiple of 4 floats. -> dg (T, B, 2H)."""
+    from . import block_sparse as BS
+    T, B, H = h_prev.shape
+    dev = gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    q = qbits > 0
+    qh = torch.empty((T, B, H), **f32) if q else None
+    qs = torch.empty((T, B, H), **f32) if q else None
+    fw = torch.empty_like(gates)             # [a_pre | z] of every step
+    s_seq = torch.empty((T, B, H), **f32)
+    # dg_h's exchange buffer, then dg_z's two (by the step's parity)
+    xch = torch.empty((3, B, gru_fwd_exchange_stride(H)), **f32)
+    dg = torch.empty_like(gates)
+    qslots = torch.empty(2 * T if q else 1, dtype=torch.int32, device=dev)
+    BS._launch("fused_gru", "mgru_bwd_persist_run", dev,
+               (gates.data_ptr(), U.data_ptr(), drop.data_ptr(),
+                h_prev.data_ptr(), dhs.data_ptr(), _ptr(qh), fw.data_ptr(),
+                s_seq.data_ptr(), _ptr(qs), xch[0].data_ptr(),
+                xch[1].data_ptr(), dg.data_ptr(), qslots.data_ptr()),
+               (T, B, H, _ACT_CODE[act], qbits, mgru_rebuild_rows(H),
+                plan.grid, plan.bi, plan.units, plan.smem))
+    fused_mgru_bwd.launches += mgru_bwd_launches("persist", T, qbits)
     return dg
 
 
@@ -789,8 +882,15 @@ def fused_mgru_bwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     """minimalGRU BPTT with recompute (TPU kernel ``_build_mgru_bwd``, the
     default backward): ``gates`` (T, B, 2H) are the forward's inputs,
     ``h_prev`` (T, B, H) the carries entering each step, re-quantized per
-    step. -> dg (T, B, 2H). On the card two launches rebuild the
-    forward's quantities for all steps, then two run per reverse step."""
+    step. -> dg (T, B, 2H). CUDA tensors run the kernels on the route
+    :func:`mgru_bwd_route` picks before the launch: "persist" (the forward
+    quantities of all steps as two products over the unrolled batch
+    around elementwise passes, the forward's bits, then the reverse chain
+    in one cooperative launch:
+    :func:`mgru_bwd_launches`) where the chain's blocks fit and are
+    co-resident, else "step" (two launches rebuild the forward's
+    quantities for all steps, then two run per reverse step); CPU tensors
+    the twin."""
     return _gru_bwd(fused_mgru_bwd, "fused_mgru_bwd", 2, gates, U, drop,
                     h_prev, dhs, act, qbits, False)
 
@@ -1377,6 +1477,109 @@ def gru_fwd_launches(route: str, T: int, seeded: bool, qbits: int) -> int:
     if route == "persist":
         return 1
     return 2 * T + int(seeded and qbits > 0)
+
+
+def ligru_fwd_plan(B: int, H: int, shape: Optional[tuple] = None
+                   ) -> PersistPlan:
+    """The liGRU forward's persistent chain at batch B and width H
+    (``shape`` forces (bi, units), one of :data:`LIGRU_FWD_SHAPES`; else
+    :func:`_shape`): a block owns units (the last group masked where they
+    do not divide H) with their H-long rows of Uh and Uz resident, stages
+    per step q(h_{t-1}): its rows of the exchange buffer, H rounded up to 4
+    floats each (``staged``), at a row stride of :func:`_row_stride` (H),
+    and keeps one sum a row and gate-unit (2 x units of them). Above 16
+    rows a block takes 8 units x 32 rows: at the libri Li-GRU's 32 rows of
+    1024 it ran 2.42-2.45 ms a call against 16 x 16's 3.18-3.21
+    (``chip_smoke.py --rnn-times`` on an NVIDIA H100 80GB HBM3 at 700 W,
+    both forced)."""
+    bi, un = shape or _shape(B, (4, 8))
+    bt = 8 * bi
+    resident = 4 * 2 * un * H
+    smem = resident + 4 * bt * _row_stride(H) + 4 * bt * 2 * un
+    grid = -(-H // un) * -(-B // bt)
+    return PersistPlan(bi, un, grid, smem, 0, resident,
+                       4 * min(bt, B) * gru_fwd_exchange_stride(H))
+
+
+#: the liGRU forward's block shapes (bi, units) that fused_ligru.cu
+#: instantiates: the plan's three and 16 units x 16 rows (the forced plan
+#: ``chip_smoke.py --rnn-times`` times at the libri shape)
+LIGRU_FWD_SHAPES = ((1, 8), (2, 8), (4, 8), (2, 16))
+
+
+def ligru_fwd_route(B: int, H: int, dev) -> tuple:
+    """(route, plan) of :func:`fused_ligru_fwd` at batch B and width H on
+    the card ``dev``."""
+    plan = ligru_fwd_plan(B, H)
+    return _route(plan, "fused_ligru", "fused_ligru_fwd_occupancy",
+                  (plan.bi, plan.units), torch.device(dev)), plan
+
+
+def ligru_fwd_launches(route: str, T: int) -> int:
+    """Kernels one :func:`fused_ligru_fwd` call launches on ``route``
+    (as its counter counts them): "persist" the one cooperative launch,
+    seeded or not; "step" one a step."""
+    return 1 if route == "persist" else T
+
+
+def mgru_bwd_plan(B: int, H: int, shape: Optional[tuple] = None
+                  ) -> PersistPlan:
+    """The minimalGRU recompute BPTT's persistent reverse chain at batch B
+    and width H (``shape`` forces (bi, units), one of
+    :data:`MGRU_BWD_SHAPES`; else :func:`_shape`): a block owns units (the
+    last group masked where they do not divide H) with their H-long
+    columns of Uz and Uh resident (rows of 16 units padded to 20 floats),
+    stages per reverse step dg_z of step t+1 and dg_h of step t: its rows
+    of the exchange buffers, H rounded up to 4 floats each (``staged``),
+    at a row stride of :func:`_row_stride` (H), and keeps the dots'
+    partials (8 warps' of each row and unit). Above 16 rows a block takes
+    8 units x 32 rows: 16 x 16 does not fit at H=1024 (rows of 16 units
+    padded to 20 floats)."""
+    bi, un = shape or _shape(B, (4, 8))
+    bt = 8 * bi
+    smem = (4 * 2 * H * _w_stride(un) + 4 * bt * _row_stride(H)
+            + 4 * PERSIST_WARPS * bt * un)
+    grid = -(-H // un) * -(-B // bt)
+    return PersistPlan(bi, un, grid, smem, 0, 4 * 2 * H * un,
+                       2 * 4 * min(bt, B) * gru_fwd_exchange_stride(H))
+
+
+#: the minimalGRU chain's block shapes (bi, units) that fused_gru.cu
+#: instantiates: 8 units and 8, 16 or 32 rows
+MGRU_BWD_SHAPES = ((1, 8), (2, 8), (4, 8))
+
+
+def mgru_rebuild_rows(H: int) -> int:
+    """Rows of the unrolled batch a block of the minimalGRU rebuild's
+    products (``rows_dots`` of csrc/fused_gru.cu) stages at once: the most
+    of 32, 16 and 8 that fit beside its 16 resident rows of U (rows of H
+    floats at a stride of :func:`_row_stride` (H), and the dots' sums); 0
+    where none does."""
+    for bt in (32, 16, 8):
+        if 4 * (16 * H + bt * _row_stride(H) + bt * 16) <= _SMEM_MAX:
+            return bt
+    return 0
+
+
+def mgru_bwd_route(B: int, H: int, dev) -> tuple:
+    """(route, plan) of :func:`fused_mgru_bwd` at batch B and width H on
+    the card ``dev``: "step" where the rebuild's rows do not fit
+    (:func:`mgru_rebuild_rows`)."""
+    plan = mgru_bwd_plan(B, H)
+    if not mgru_rebuild_rows(H):
+        return "step", plan
+    return _route(plan, "fused_gru", "gru_bwd_dense_occupancy",
+                  (2, plan.bi, plan.units), torch.device(dev)), plan
+
+
+def mgru_bwd_launches(route: str, T: int, qbits: int) -> int:
+    """Kernels one :func:`fused_mgru_bwd` call launches on ``route``:
+    "persist" the two rebuild products around the z pass, and the chain (4),
+    and with the quantizer the per-step scales, q(h_prev) and q(s) (7);
+    "step" the two rebuild kernels and two a reverse step."""
+    if route == "persist":
+        return 4 + 3 * int(qbits > 0)
+    return 2 * T + 2
 
 
 def gru_bwd_sparse_launches(route: str, T: int, qbits: int,

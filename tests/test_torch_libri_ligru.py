@@ -36,7 +36,10 @@ tests/test_torch_libri_ligru.py``): there the recompute BPTT's persistent
 route (TPU row 18) is held against its twin at the cfg's training shape
 (T=200, 32 rows, H=1024: its chain stages dg_{t+1} in slabs), at both
 blocks of 256 outputs the plan weighs, and at a ragged width, each within
-1e-4 of the twin's scale and bit for bit over two calls.
+1e-4 of the twin's scale and bit for bit over two calls; the forward's
+persistent route (TPU row 16) at the cfg's shape, at both blocks of 256
+outputs, bit for bit its step route and within 1e-4 of the twin's
+scale.
 """
 import configparser
 import os
@@ -429,3 +432,33 @@ def test_cuda_bwd_persist_ragged_slabs(cuda_device):
         ref = tfr.fused_ligru_bwd_plain(*args)
     torch.cuda.synchronize()
     _close(dg, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16), (4, 8)], ids=["16x16", "8x32"])
+def test_cuda_fwd_persist_at_the_cfg_shape(cuda_device, shape):
+    """The forward at 32 rows of 1024, no quantizer (the cfg's), with and
+    without the stash: the plan's 8 units x 32 rows (128 blocks, one
+    launch a call) and 16 x 16 forced, each bit for bit the step route's,
+    and within 1e-4 of the twin's scale; T=40 (the step route's 40
+    launches a call)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    route, plan = tfr.ligru_fwd_route(32, 1024, cuda_device)
+    assert route == "persist" and (plan.bi, plan.units, plan.grid) == (
+        4, 8, 128)
+    g, U, drop = _bwd_args(40, 32, 1024, 83, "relu")[:3]
+    plan = tfr.ligru_fwd_plan(32, 1024, shape)
+    with torch.no_grad():
+        for stash in (False, True):
+            before = tfr.fused_ligru_fwd.launches
+            got = tfr._ligru_fwd_persist(plan, g, U, drop, None, "relu", 0,
+                                         stash)
+            want = tfr._ligru_fwd_step(g, U, drop, None, "relu", 0, stash)
+            assert tfr.fused_ligru_fwd.launches == before + 1 + 40
+            ref = tfr.fused_ligru_fwd_plain(g, U, drop, None, "relu", 0,
+                                            stash)
+            got, want, ref = ((x,) if not stash else x
+                              for x in (got, want, ref))
+            for a, w, r in zip(got, want, ref):
+                assert torch.equal(a, w)
+                _close(a, r)

@@ -35,6 +35,13 @@ keep pre-activations away from 0 by more than an ulp.
 JAX comes in through fixtures, so that the CUDA cases also run where JAX
 is not installed
 (``python -m pytest --noconftest -m cuda tests/test_torch_ligru.py``).
+There the kernels are held against their twins; the forward's
+persistent route (TPU row 16) at every instantiated block shape at a
+ragged width and batch, with and without the seed, the stash and the
+quantizer, bit for bit its step route (both sum each dot in one order
+and quantize with quant()'s bits); both routes at their shapes with
+their launches; the recompute BPTT's persistent route at three shapes
+and its step route.
 """
 import configparser
 import os
@@ -596,8 +603,9 @@ def cuda_device():
 @pytest.mark.parametrize("act", ["relu", "tanh"])
 def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
     """The forward (plain, stash, seeded) and both BPTT kernels against
-    their twins on the card, on the same tensors; launches T each, the
-    recompute BPTT's on its persistent route (2, or 4 with the
+    their twins on the card, on the same tensors; the forward on its
+    persistent route (1 launch a call), the stash BPTT T launches, the
+    recompute BPTT on its persistent route (2, or 4 with the
     quantizer)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g, U, drop, h0, dhs = (tt(a).to(cuda_device) for a in _inputs(19))
@@ -607,7 +615,8 @@ def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
                                        stash=True)
         hs1 = tfr.fused_ligru_fwd(g, U, drop, act=act, qbits=qbits)
         hs_s = tfr.fused_ligru_fwd(g, U, drop, h0, act=act, qbits=qbits)
-        assert tfr.fused_ligru_fwd.launches == before + 3 * T
+        assert tfr.ligru_fwd_route(B, H, cuda_device)[0] == "persist"
+        assert tfr.fused_ligru_fwd.launches == before + 3
         ref, ref_a = tfr.fused_ligru_fwd_plain(g, U, drop, None, act, qbits,
                                                True)
         ref_s = tfr.fused_ligru_fwd_plain(g, U, drop, h0, act, qbits)
@@ -715,3 +724,85 @@ def test_cuda_function_grads_match_cpu(cuda_device, monkeypatch, stash):
     for name, a, b in zip(["hs", "dgates", "dU"], got, ref):
         np.testing.assert_allclose(a, b, atol=ATOL_DU_Q if name == "dU"
                                    else ATOL, err_msg=name)
+
+
+def _fwd_cases(g, U, drop, h0, call, twin=True):
+    """``call(h0, act, qbits, stash)`` over qbits 0/16 x relu/tanh x zero
+    or seeded carry x stash or not: two calls bit for bit, and with
+    ``twin`` against the twin (atol 1e-5, 1e-4 with 16 bits: a one-ulp
+    difference at a ceil step is one step). -> {case: outputs}."""
+    out = {}
+    for qbits in (0, 16):
+        for act in ("relu", "tanh"):
+            for seed in (None, h0):
+                for stash in (False, True):
+                    case = (qbits, act, seed is not None, stash)
+                    with torch.no_grad():
+                        got, again = (call(seed, act, qbits, stash)
+                                      for _ in range(2))
+                        got, again = ((x,) if not stash else x
+                                      for x in (got, again))
+                        for a, b in zip(got, again):
+                            assert torch.equal(a, b), case
+                        if twin:
+                            ref = tfr.fused_ligru_fwd_plain(
+                                g, U, drop, seed, act, qbits, stash)
+                            for a, r in zip(got, ref if stash else (ref,)):
+                                np.testing.assert_allclose(
+                                    a.cpu().numpy(), r.cpu().numpy(),
+                                    atol=1e-4 if qbits else 1e-5,
+                                    err_msg=str(case))
+                    out[case] = got
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.LIGRU_FWD_SHAPES)
+def test_cuda_fwd_persist_every_block_shape_gives_the_step_bits(cuda_device,
+                                                                shape):
+    """The persistent forward forced to each instantiated block shape at a
+    ragged width (H=37: the last unit group masked, the exchange rows
+    padded to 40 floats) and batch (8 bi + 3 rows), with and without the
+    seed, the stash and the quantizer: against the twin, and equal to the
+    step route bit for bit (the dots in the step kernel's order, q() with
+    quant()'s bits); one launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bi, un = shape
+    t, b, h = 7, 8 * bi + 3, 37
+    g, U, drop, dhs = _wide_inputs(t, b, h, 71 + bi + un, "tanh", cuda_device)
+    h0 = dhs[0] * 3.0
+    plan = tfr.ligru_fwd_plan(b, h, shape)
+    before = tfr.fused_ligru_fwd.launches
+    got = _fwd_cases(g, U, drop, h0, lambda s, a, q, st:
+                     tfr._ligru_fwd_persist(plan, g, U, drop, s, a, q, st))
+    assert tfr.fused_ligru_fwd.launches == before + 2 * len(got)
+    want = _fwd_cases(g, U, drop, h0, lambda s, a, q, st:
+                      tfr._ligru_fwd_step(g, U, drop, s, a, q, st), False)
+    for case, outs in got.items():
+        for a, w in zip(outs, want[case]):
+            assert torch.equal(a, w), case
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_routes(cuda_device):
+    """The wrapper on the route its plan names: persistent at the TIMIT
+    Li-GRU's 8 rows of 1024 (1 launch a call), the step route at 48 rows
+    (256 blocks of 8 units x 32 rows, one an SM: T launches), both
+    against the twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (t, b, h), route, n in (((12, 8, 1024), "persist", 1),
+                                ((4, 48, 1024), "step", 4)):
+        g, U, drop, dhs = _wide_inputs(t, b, h, 73, "relu", cuda_device)
+        assert tfr.ligru_fwd_route(b, h, cuda_device)[0] == route
+        assert tfr.ligru_fwd_launches(route, t) == n
+        with torch.no_grad():
+            before = tfr.fused_ligru_fwd.launches
+            hs, acts = tfr.fused_ligru_fwd(g, U, drop, dhs[0], act="relu",
+                                           qbits=16, stash=True)
+            assert tfr.fused_ligru_fwd.launches == before + n
+            ref = tfr.fused_ligru_fwd_plain(g, U, drop, dhs[0], "relu", 16,
+                                            True)
+        torch.cuda.synchronize()
+        for a, r in zip((hs, acts), ref):
+            np.testing.assert_allclose(a.cpu().numpy(), r.cpu().numpy(),
+                                       atol=1e-4)

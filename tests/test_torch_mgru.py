@@ -35,11 +35,21 @@ JAX package's ``sparse_dU`` drops the rows past one. For relu the
 candidate's gate inputs sit away from 0 by more than the recurrent term,
 so relu' cannot flip between the two packages' sums.
 
+The recompute BPTT's persistent route (TPU row 26) rebuilds z, s, q(s)
+and a_pre of all steps at once as products over the unrolled batch
+before its reverse chain; that decomposition in plain PyTorch, then the
+chain over it, is held to ``_build_mgru_bwd`` at the recompute twin's
+bars.
+
 JAX comes in through fixtures, so that the CUDA cases also run where JAX
 is not installed
 (``python -m pytest --noconftest -m cuda tests/test_torch_mgru.py``).
 There the kernels are held against their twins on the same tensors
-(float32 1e-5 of scale; the 16-bit quantizers 1e-4; bf16 w3g 2e-2).
+(float32 1e-5 of scale; the 16-bit quantizers 1e-4; bf16 w3g 2e-2), and
+the recompute BPTT's persistent route at every instantiated block shape
+against its step route and its twin at the same bars (its chain's dots
+sum in another order than the step kernels'), and both routes at their
+shapes with their launches.
 """
 import configparser
 import os
@@ -211,6 +221,63 @@ def test_bwd_recompute_twin_matches_pallas(jfr, act, qbits):
     got = tfr.fused_mgru_bwd(tt(g), tt(U), tt(drop), tt(h_prev), tt(dhs),
                              act, qbits)
     np.testing.assert_allclose(got.numpy(), _np(ref), atol=_atol(qbits))
+
+
+def _rebuild_all_steps(g, U, h_prev, qbits):
+    """TPU row 26's rebuild as the persistent route runs it, in plain
+    PyTorch: every step's forward quantities at once over the M = T*B
+    rows, q per step: z = sigmoid(g_z + q(h_prev) @ Uz^T), s = z *
+    h_prev, q(s), a_pre = g_h + q(s) @ Uh^T. -> ([a_pre | z] (T, B, 2H),
+    s, q(s))."""
+    from pytorch_kaldi_cgs_tpu_torch.sparsity.quantize import \
+        quantize_input_per_step
+    t, b, h = h_prev.shape
+    m = t * b
+
+    def q(v):
+        return quantize_input_per_step(v, qbits) if qbits > 0 else v
+    gm = g.reshape(m, 2 * h)
+    z = torch.sigmoid(gm[:, h:] + q(h_prev).reshape(m, h) @ U[h:].T)
+    s = (z * h_prev.reshape(m, h)).reshape(t, b, h)
+    sq = q(s)
+    a_pre = gm[:, :h] + sq.reshape(m, h) @ U[:h].T
+    return torch.cat([a_pre, z], 1).reshape(t, b, 2 * h), s, sq
+
+
+@pytest.mark.parametrize("qbits", [0, 16])
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+def test_bwd_rebuild_of_all_steps_matches_pallas(jfr, act, qbits):
+    """Row 26's persistent route rebuilds z, s, q(s) and a_pre for all
+    steps at once (two products over the unrolled batch) before its
+    reverse chain: that decomposition, then the chain over it, against
+    ``_build_mgru_bwd`` (per step, in interpret mode) at the recompute
+    twin's bars (float32 1e-5, 16 bits 1e-4: the products sum in another
+    order, so q(s) may sit a ceil step apart); its s against s = z *
+    h_prev of the JAX step's z, and q(s) against the JAX quantizer of
+    that s, at the same bars."""
+    import jax.numpy as jnp
+    g, U, drop, _, dhs = _inputs(7, act)
+    _, h_prev = _residuals(jfr, g, U, drop, act, qbits)
+    j = jnp.asarray
+    ref = jfr._build_mgru_bwd(T, B, H, act, qbits, True)(
+        j(g), j(U), j(drop), j(h_prev), j(dhs))
+    fw, s, sq = _rebuild_all_steps(tt(g), tt(U), tt(h_prev), qbits)
+    actf = tfl.ACTS[act]
+    _, _, dot_h, dot_zr = tfr._gru_dense_fns(tt(U))
+
+    def step(k):
+        a_pre = fw[k, :, :H]
+        return actf(a_pre), fw[k, :, H:], tfl.dact_pre(act, a_pre)
+    got = tfr._gru_bwd_loop(step, tt(h_prev), tt(dhs), tt(drop), dot_h,
+                            dot_zr, tt(g))
+    np.testing.assert_allclose(got.numpy(), _np(ref), atol=_atol(qbits))
+    jz = 1.0 / (1.0 + np.exp(-(g[..., H:] + np.einsum(
+        "tbk,gk->tbg", _np(jfr._q_vmap(j(h_prev), qbits)) if qbits
+        else h_prev, U[H:]))))
+    js = jz * h_prev
+    np.testing.assert_allclose(s.numpy(), js, atol=_atol(qbits))
+    jsq = _np(jfr._q_vmap(j(js.astype(np.float32)), qbits)) if qbits else js
+    np.testing.assert_allclose(sq.numpy(), jsq, atol=_atol(qbits))
 
 
 # ---------------------------------------------------------------------------
@@ -791,7 +858,9 @@ def cuda_device():
 @pytest.mark.parametrize("act", ["relu", "tanh"])
 def test_cuda_dense_kernels_match_plain_twins(cuda_device, act, qbits):
     """The forward (plain, stash, seeded; the route's launches each) and
-    both BPTT kernels (2T and 2T + 2) against their twins on the card."""
+    both BPTT kernels (the stash one 2T launches, the recompute one its
+    persistent route's, mgru_bwd_launches) against their twins on the
+    card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g, U, drop, h0, dhs = (tt(a).to(cuda_device) for a in _inputs(19, act))
     with torch.no_grad():
@@ -812,9 +881,12 @@ def test_cuda_dense_kernels_match_plain_twins(cuda_device, act, qbits):
                   tfr.fused_mgru_bwd.launches)
         dg_s = tfr.fused_mgru_bwd_stash(acts, U, drop, h_prev, dhs, act)
         dg_r = tfr.fused_mgru_bwd(g, U, drop, h_prev, dhs, act, qbits)
+        route = tfr.mgru_bwd_route(B, H, cuda_device)[0]
+        assert route == "persist"
         assert (tfr.fused_mgru_bwd_stash.launches,
-                tfr.fused_mgru_bwd.launches) == (before[0] + 2 * T,
-                                                 before[1] + 2 * T + 2)
+                tfr.fused_mgru_bwd.launches) == (
+                    before[0] + 2 * T,
+                    before[1] + tfr.mgru_bwd_launches(route, T, qbits))
         ref_ds = tfr.fused_mgru_bwd_stash_plain(acts, U, drop, h_prev, dhs,
                                                 act)
         ref_dr = tfr.fused_mgru_bwd_plain(g, U, drop, h_prev, dhs, act,
@@ -873,3 +945,74 @@ def test_cuda_functions_match_cpu(cuda_device, monkeypatch, stash):
     _assert_rel(_sp_torch_grads(g, w3g, drop, dhs, tl, 16, dev=cuda_device),
                 _sp_torch_grads(g, w3g, drop, dhs, tl, 16), ATOL_Q,
                 ["hs", "dgates", "dw3g"])
+
+
+def _bwd_args(t, b, h, seed, act, dev):
+    """The recompute BPTT's operands at (t, b, h) on ``dev`` (_inputs'
+    draws: relu's candidate inputs kept off its kink), the carries from
+    the forward on the card."""
+    rng = np.random.RandomState(seed)
+    d = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    g, U = d(_gates(rng, t, b, h, act)), d(rng.randn(2 * h, h) * 0.3)
+    drop, dhs = d(rng.rand(b, h) > 0.2), d(rng.randn(t, b, h))
+    with torch.no_grad():
+        hs = tfr.fused_mgru_fwd(g, U, drop, act=act)
+    return g, U, drop, torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]), dhs
+
+
+def _step_route(g, U, drop, h_prev, dhs, act, qbits):
+    return tfr._gru_bwd_step(tfr.fused_mgru_bwd, "fused_mgru_bwd", 2, g, U,
+                             drop, h_prev, dhs, act, qbits, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.MGRU_BWD_SHAPES)
+def test_cuda_bwd_persist_every_block_shape(cuda_device, shape):
+    """Row 26's persistent route (the rebuild's GEMMs and one cooperative
+    chain) forced to each instantiated block shape at a ragged width
+    (H=37: the last unit group masked, rows padded to 40 floats) and
+    batch (8 bi + 3 rows), relu and tanh, qbits 0 and 16: its launches
+    (mgru_bwd_launches), two calls bit for bit, and within 1e-5 of the
+    step route's and the twin's scale without the quantizers, 1e-4 with
+    them (the bars of the twin's checks: the rebuild gives the step
+    route's bits, but the chain's dots sum in another order, its warps
+    splitting the contraction)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bi, un = shape
+    t, b, h = 9, 8 * bi + 3, 37
+    plan = tfr.mgru_bwd_plan(b, h, shape)
+    for act in ("relu", "tanh"):
+        args = _bwd_args(t, b, h, 91 + bi + un, act, cuda_device)
+        for qbits in (0, 16):
+            with torch.no_grad():
+                before = tfr.fused_mgru_bwd.launches
+                dg = tfr._mgru_bwd_persist(plan, *args, act, qbits)
+                assert tfr.fused_mgru_bwd.launches == before + \
+                    tfr.mgru_bwd_launches("persist", t, qbits)
+                again = tfr._mgru_bwd_persist(plan, *args, act, qbits)
+                step = _step_route(*args, act, qbits)
+                ref = tfr.fused_mgru_bwd_plain(*args, act, qbits)
+            torch.cuda.synchronize()
+            assert torch.equal(dg, again)
+            _assert_rel([dg.cpu(), dg.cpu()], [step.cpu(), ref.cpu()],
+                        _atol(qbits), ["vs step (%s, q%d)" % (act, qbits),
+                                       "vs twin (%s, q%d)" % (act, qbits)])
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_routes(cuda_device):
+    """The wrapper on the route its plan names: persistent at 4 rows of 18
+    (7 launches with the quantizer), the step route at 48 rows of 1024
+    (192 blocks of 16 x 16, one an SM: 2T + 2), each against the twin."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (t, b, h), route in (((T, B, H), "persist"), ((4, 48, 1024), "step")):
+        args = _bwd_args(t, b, h, 97, "tanh", cuda_device)
+        assert tfr.mgru_bwd_route(b, h, cuda_device)[0] == route
+        with torch.no_grad():
+            before = tfr.fused_mgru_bwd.launches
+            dg = tfr.fused_mgru_bwd(*args, "tanh", 16)
+            assert tfr.fused_mgru_bwd.launches == before + \
+                tfr.mgru_bwd_launches(route, t, 16)
+            ref = tfr.fused_mgru_bwd_plain(*args, "tanh", 16)
+        torch.cuda.synchronize()
+        _assert_rel([dg.cpu()], [ref.cpu()], ATOL_Q, [route])

@@ -1,15 +1,16 @@
 """The plans and routes of the persistent chains (pytorch_kaldi_cgs_tpu_
 torch/ops/fused_rnn.py over csrc/persist.cuh): the GRU BPTTs' reverse
-chains, the liGRU recompute BPTT's, the sparse GRU forward's and the
-dense GRU and minimalGRU forward's, in pure Python: which route and grid
-each wrapper picks for given shapes, SM counts and shared memory, the
-slabs a staged row is cut into, the launches it then counts, and the
-staging layout's claim that the 32 lanes of a warp read 32 banks. The
-kernels themselves are held against their twins by the ``cuda`` cases
-of tests/test_torch_gru.py, tests/test_torch_gru_cudnn.py,
-tests/test_torch_ligru.py and tests/test_torch_libri_ligru.py, and the
-dense GRU forward's by this file's (every instantiated block shape and
-both routes)."""
+chains, the liGRU recompute BPTT's and forward's, the minimalGRU
+recompute BPTT's, the sparse GRU forward's and the dense GRU and
+minimalGRU forward's, in pure Python: which route and grid each wrapper
+picks for given shapes, SM counts and shared memory, the slabs a staged
+row is cut into, the launches it then counts, and the staging layout's
+claim that the 32 lanes of a warp read 32 banks. The kernels themselves
+are held against their twins by the ``cuda`` cases of
+tests/test_torch_gru.py, tests/test_torch_gru_cudnn.py,
+tests/test_torch_ligru.py, tests/test_torch_libri_ligru.py and
+tests/test_torch_mgru.py, and the dense GRU forward's by this file's
+(every instantiated block shape and both routes)."""
 
 import pathlib
 import re
@@ -451,6 +452,201 @@ def test_gru_fwd_exchange_stride(H, HP):
 
 
 # ---------------------------------------------------------------------------
+# the liGRU forward (TPU row 16)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B, H, bi, units, grid, smem, staged", [
+    # the TIMIT Li-GRU: 8 x 8 blocks, about 97 KB
+    (8, 1024, 1, 8, 128, 4 * (2 * 8 * 1024 + 8 * 1028 + 8 * 16),
+     4 * 8 * 1024),
+    # the libri Li-GRU's 32 rows: 8 units x 32 rows, 64 KB resident + 132
+    # KB staged
+    (32, 1024, 4, 8, 128, 4 * (2 * 8 * 1024 + 32 * 1028 + 32 * 16),
+     4 * 32 * 1024),
+    # its recognize (8 utterances x 2 directions): 8 units x 16 rows
+    (16, 1024, 2, 8, 128, 4 * (2 * 8 * 1024 + 16 * 1028 + 16 * 16),
+     4 * 16 * 1024),
+    # H=550: 69 unit groups, the last of 6 units; exchange rows of 552
+    (8, 550, 1, 8, 69, 4 * (2 * 8 * 550 + 8 * 556 + 8 * 16), 4 * 8 * 552),
+    # the small ragged shape: 3 unit groups, the last of 2 units
+    (5, 18, 1, 8, 3, 4 * (2 * 8 * 18 + 8 * 28 + 8 * 16), 4 * 5 * 20),
+])
+def test_ligru_fwd_plan(B, H, bi, units, grid, smem, staged):
+    """A block owns its units' H-long rows of Uh and Uz, stages its rows of
+    q(h_{t-1}) (H rounded up to 4 floats) at a row stride of
+    _row_stride(H), and keeps one sum a row and gate-unit; the last unit
+    group is masked where units do not divide H."""
+    plan = tfr.ligru_fwd_plan(B, H)
+    assert (plan.bi, plan.units, plan.grid, plan.smem, plan.static,
+            plan.resident, plan.staged) == (bi, units, grid, smem, 0,
+                                            4 * 2 * units * H, staged)
+    assert (plan.slab, plan.slabs) == (0, 1)
+    assert plan.smem <= tfl._SMEM_MAX
+
+
+def test_ligru_fwd_plan_forced_16_by_16_at_the_libri_shape():
+    """The other block of 256 outputs at 32 rows: 16 units x 16 rows,
+    twice the resident bytes of the plan's 8 x 32 and half the staged
+    ones."""
+    plan = tfr.ligru_fwd_plan(32, 1024, (2, 16))
+    wide = tfr.ligru_fwd_plan(32, 1024)
+    assert (plan.grid, plan.smem) == (
+        128, 4 * (2 * 16 * 1024 + 16 * 1028 + 16 * 32))
+    assert (plan.resident, 2 * plan.staged) == (2 * wide.resident,
+                                                wide.staged)
+
+
+def test_ligru_fwd_plan_too_wide_goes_to_the_step_route():
+    """At H=3700 the 8 units' rows of Uh and Uz alone take 236,800 bytes,
+    more than a block has: "step"."""
+    plan = tfr.ligru_fwd_plan(8, 3700)
+    assert plan.resident == 236800 > tfl._SMEM_MAX
+    assert tfr.persist_route(plan, 1, H100_SMS) == "step"
+
+
+@pytest.mark.parametrize("B, H, blocks_per_sm, route", [
+    (8, 1024, 1, "persist"),        # TIMIT train and serve: 128 blocks
+    (32, 1024, 1, "persist"),       # libri train: 128 blocks
+    (16, 1024, 1, "persist"),       # libri serve: 128 blocks
+    (48, 1024, 1, "step"),          # 256 blocks of 8 x 32, one an SM
+    (8, 1100, 1, "step"),           # 138 blocks
+    (8, 1100, 2, "persist"),
+    (8, 550, 1, "persist"),         # 69 blocks
+])
+def test_ligru_fwd_route(B, H, blocks_per_sm, route):
+    plan = tfr.ligru_fwd_plan(B, H)
+    assert tfr.persist_route(plan, blocks_per_sm, H100_SMS) == route
+
+
+def test_ligru_fwd_route_needs_cooperative_launch_and_room():
+    plan = tfr.ligru_fwd_plan(8, 1024)
+    assert tfr.persist_route(plan, 1, H100_SMS, coop=False) == "step"
+    assert tfr.persist_route(plan, 0, H100_SMS) == "step"
+    assert tfr.persist_route(plan, 1, H100_SMS,
+                             smem_max=plan.smem - 1) == "step"
+    assert tfr.persist_route(plan, 1, 127) == "step"     # 128 blocks
+
+
+@pytest.mark.parametrize("route, T, n", [
+    ("persist", 300, 1), ("persist", 398, 1), ("persist", 100, 1),
+    ("step", 300, 300), ("step", 200, 200)])
+def test_ligru_fwd_launches(route, T, n):
+    """One cooperative launch a call, seeded or not (a seed's scale is
+    taken inside the chain); one step kernel a step otherwise."""
+    assert tfr.ligru_fwd_launches(route, T) == n
+
+
+# ---------------------------------------------------------------------------
+# the dense minimalGRU's recompute BPTT (TPU row 26)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B, H, bi, units, grid, smem, staged", [
+    # the minimalGRU's training shape: 8 x 8 blocks, about 98 KB
+    (8, 1024, 1, 8, 128, 4 * (2 * 1024 * 8 + 8 * 1028 + 8 * 8 * 8),
+     2 * 4 * 8 * 1024),
+    # 32 rows: 8 units x 32 rows (16 x 16, its rows of U's columns padded
+    # to 20 floats, would take 237,824 bytes)
+    (32, 1024, 4, 8, 128, 4 * (2 * 1024 * 8 + 32 * 1028 + 8 * 32 * 8),
+     2 * 4 * 32 * 1024),
+    (16, 1024, 2, 8, 128, 4 * (2 * 1024 * 8 + 16 * 1028 + 8 * 16 * 8),
+     2 * 4 * 16 * 1024),
+    # the small ragged shape: 3 unit groups, exchange rows of 20
+    (4, 18, 1, 8, 3, 4 * (2 * 18 * 8 + 8 * 28 + 8 * 8 * 8), 2 * 4 * 4 * 20),
+])
+def test_mgru_bwd_plan(B, H, bi, units, grid, smem, staged):
+    """A block owns its units' H-long columns of Uz and Uh, stages dg_z of
+    step t+1 and dg_h of step t (H rounded up to 4 floats each) at a row
+    stride of _row_stride(H), and keeps the dots' partials (8 warps' of
+    each row and unit)."""
+    plan = tfr.mgru_bwd_plan(B, H)
+    assert (plan.bi, plan.units, plan.grid, plan.smem, plan.static,
+            plan.resident, plan.staged) == (bi, units, grid, smem, 0,
+                                            4 * 2 * H * units, staged)
+    assert (plan.slab, plan.slabs) == (0, 1)
+
+
+def test_mgru_bwd_plan_too_wide_goes_to_the_step_route():
+    """At H=3700 the 8 units' columns of Uz and Uh take 236,800 bytes:
+    "step"."""
+    plan = tfr.mgru_bwd_plan(8, 3700)
+    assert plan.smem > tfl._SMEM_MAX
+    assert tfr.persist_route(plan, 1, H100_SMS) == "step"
+    assert tfr.mgru_bwd_plan(32, 1024, (2, 16)).smem == 237824
+
+
+
+
+@pytest.mark.parametrize("B, H, blocks_per_sm, route", [
+    (8, 1024, 1, "persist"),        # the minimalGRU: 128 blocks
+    (32, 1024, 1, "persist"),
+    (48, 1024, 1, "step"),          # 192 blocks
+    (8, 1100, 1, "step"),           # 138 blocks
+    (8, 1100, 2, "persist"),
+    (4, 18, 1, "persist"),
+])
+def test_mgru_bwd_route(B, H, blocks_per_sm, route):
+    plan = tfr.mgru_bwd_plan(B, H)
+    assert tfr.persist_route(plan, blocks_per_sm, H100_SMS) == route
+
+
+def test_mgru_bwd_route_needs_cooperative_launch_and_room():
+    plan = tfr.mgru_bwd_plan(8, 1024)
+    assert tfr.persist_route(plan, 1, H100_SMS, coop=False) == "step"
+    assert tfr.persist_route(plan, 0, H100_SMS) == "step"
+    assert tfr.persist_route(plan, 1, H100_SMS,
+                             smem_max=plan.smem - 1) == "step"
+
+
+@pytest.mark.parametrize("route, T, qbits, n", [
+    ("persist", 300, 16, 7), ("persist", 300, 0, 4), ("step", 300, 16, 602),
+    ("step", 13, 0, 28)])
+def test_mgru_bwd_launches(route, T, qbits, n):
+    """On the persistent route the two rebuild GEMMs around the z pass and
+    the chain, and with the quantizer the per-step scales, q(h_prev) and
+    q(s); on the step route the two rebuild kernels and two a step."""
+    assert tfr.mgru_bwd_launches(route, T, qbits) == n
+
+
+@pytest.mark.parametrize("H, rows", [(18, 32), (1024, 32), (1200, 16),
+                                     (2000, 8), (2416, 0)])
+def test_mgru_rebuild_rows(H, rows):
+    """The rebuild's products stage the most rows of 32, 16 and 8 that fit
+    beside their 16 rows of U; at 2416 (the dense width limit's
+    neighbourhood) none does and the route is "step"."""
+    assert tfr.mgru_rebuild_rows(H) == rows
+    if rows:
+        assert 4 * (16 * H + rows * tfr._row_stride(H) + rows * 16) <= \
+            tfl._SMEM_MAX
+
+
+def test_mgru_rebuild_fits_wherever_the_chain_does():
+    """Every width whose chain plan fits at 8 rows has a rebuild tile."""
+    for H in range(8, 3000, 8):
+        if tfr.mgru_bwd_plan(8, H).smem <= tfl._SMEM_MAX:
+            assert tfr.mgru_rebuild_rows(H), H
+
+
+def test_ligru_fwd_and_mgru_bwd_block_shapes_are_the_kernels():
+    """The plans pick only block shapes the kernels instantiate, and the
+    shape tables are the sources' instantiations: LIGRU_FWD_SHAPES
+    fused_ligru.cu's, MGRU_BWD_SHAPES fused_gru.cu's chain's."""
+    for B in (1, 5, 8, 9, 16, 17, 32, 100):
+        for H in (18, 550, 1024):
+            plan = tfr.ligru_fwd_plan(B, H)
+            assert (plan.bi, plan.units) in tfr.LIGRU_FWD_SHAPES
+            plan = tfr.mgru_bwd_plan(B, H)
+            assert (plan.bi, plan.units) in tfr.MGRU_BWD_SHAPES
+    csrc = pathlib.Path(tfr.__file__).parent / "csrc"
+    for name, macro, table in (("fused_ligru.cu", "PK_FWD_SHAPE",
+                                tfr.LIGRU_FWD_SHAPES),
+                               ("fused_gru.cu", "PK_BWD_SHAPE",
+                                tfr.MGRU_BWD_SHAPES)):
+        inst = re.findall(r"^  %s\((\d+), (\d+)\)$" % macro,
+                          (csrc / name).read_text(), re.M)
+        assert tuple((int(a), int(b)) for a, b in inst) == table
+
+
+# ---------------------------------------------------------------------------
 # the staging layout
 # ---------------------------------------------------------------------------
 
@@ -721,11 +917,13 @@ def test_cuda_gru_fwd_persist_gives_the_step_routes_bits(cuda_device, G):
 
 
 def test_gru_fwd_variants_apply_to_the_source():
-    """gru_fwd_variants.py writes its variants of fused_gru.cu by text
-    substitution: each still applies to the source and changes it."""
+    """gru_fwd_variants.py writes its variants of fused_gru.cu and
+    persist.cuh (the dense forward's dots and quantizer's pass) by text
+    substitution: each still applies to the sources and changes them."""
     import gru_fwd_variants
     from pytorch_kaldi_cgs_tpu_torch.ops import _build
-    src = (_build.CSRC / "fused_gru.cu").read_text()
+    src = {f: (_build.CSRC / f).read_text() for f in gru_fwd_variants.FILES}
     out = gru_fwd_variants.variants(src)
     assert out.pop("base") == src
-    assert len(out) == 8 and all(v != src for v in out.values())
+    assert len(out) == 8 and all(v != src and set(v) == set(src)
+                                 for v in out.values())
