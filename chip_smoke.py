@@ -719,7 +719,13 @@ def phase_build():
 
 
 def phase_kernels(dev, shapes=(SMALL_TBH, SERVE_TBH)):
-    """Kernel vs plain twin in every variant; returns the checks."""
+    """Kernel vs plain twin in every variant, on the route the plan names
+    (lstm_fwd_launches: persistent at both shapes), the wrapper's launch
+    counter moving by its launches, the device kernels of one call a
+    shape held to the route's (lstm_fwd_design); at the serving shape
+    the step route also runs forced (fused_lstm._fwd_kernel), against
+    the twin and bit for bit the persistent route's. Returns the
+    checks."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     checks = []
     for (T, B, H) in shapes:
@@ -733,25 +739,49 @@ def phase_kernels(dev, shapes=(SMALL_TBH, SERVE_TBH)):
             g, U, drop, h0, c0 = lstm_inputs(T, B, H, 10 + k, dev,
                                              drop_bh=not serve)
             carry = (h0, c0) if seeded else (None, None)
+            route, n = lstm_fwd_launches(dev, T, B, H, bf16)
+            w = F.fused_lstm_fwd
             with torch.no_grad():
-                hs, cs = F.fused_lstm_fwd(g, U, drop, *carry, act=act,
-                                          qbits=qbits, bf16=bf16)
+                hs, cs = launched(w, n, lambda: w(g, U, drop, *carry, act=act,
+                                                  qbits=qbits, bf16=bf16))
                 hp, cp = F.fused_lstm_fwd_plain(g, U, drop, *carry, act,
                                                 qbits, bf16)
+                step = None
+                if serve:          # the step route, forced
+                    dk = torch.broadcast_to(drop, (B, H)).contiguous()
+                    step = launched(w, T, lambda: F._fwd_kernel(
+                        g, U, dk, *carry, act, qbits, bf16, False))
+                if k + 1 == len(cases):     # the kernels of the route
+                    bptt_kernels(lambda: w(g, U, drop, *carry, act=act,
+                                           qbits=qbits, bf16=bf16),
+                                 lstm_fwd_design(route, T, seeded, qbits))
             sync(dev)
-            err = max(float((hs - hp).abs().max()), float((cs - cp).abs().max()))
             tol = TOL_BF16 if bf16 else (TOL_F32_SERVE if serve else TOL_F32_SMALL)
-            ok = bool(np.isfinite(err) and err <= tol)
-            c = {"T": T, "B": B, "H": H, "dtype": "bf16" if bf16 else "f32",
-                 "carry": "seeded" if seeded else "zero", "qbits": qbits,
-                 "act": act, "drop": "(1,1)" if serve else "(B,H)",
-                 "max_abs_err": err, "tol": tol, "ok": ok}
-            checks.append(c)
-            print("[kernels] fused_lstm_fwd %s" % json.dumps(c))
+            base = {"kernel": "fused_lstm_fwd", "T": T, "B": B, "H": H,
+                    "dtype": "bf16" if bf16 else "f32",
+                    "carry": "seeded" if seeded else "zero", "qbits": qbits,
+                    "act": act, "drop": "(1,1)" if serve else "(B,H)"}
+            plan = lstm_plan_brief(dev, "fused_lstm_fwd", B, H, bf16)
+            runs = [(route, (hs, cs))] + ([("step", step)] if step else [])
+            for r, (h_, c_) in runs:
+                err = max(float((h_ - hp).abs().max()),
+                          float((c_ - cp).abs().max()))
+                c = dict(base, route=r, plan=plan if r == route else None,
+                         max_abs_err=err, tol=tol,
+                         ok=bool(np.isfinite(err) and err <= tol))
+                if r != route:      # both routes sum in one order
+                    c["kernel"] = "fused_lstm_fwd/step_route"
+                    c["bits_apart_from_%s" % route] = bits_apart(
+                        (hs, cs), step)[0]
+                    c["ok"] = c["ok"] and c["bits_apart_from_%s" % route] == 0
+                checks.append(c)
+                print("[kernels] fused_lstm_fwd %s" % json.dumps(c))
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError("fused_lstm_fwd disagrees with its plain twin: %s"
                              % bad)
+    check_fwd_routes(checks, "fused_lstm_fwd", {
+        (SMALL_TBH, "persist"), (SERVE_TBH, "persist"), (SERVE_TBH, "step")})
     return checks
 
 
@@ -847,7 +877,7 @@ def phase_stream(dev, rec, audio, lens, phones, logp, chunk=100,
 
 def phase_chunked_stream(dev, rec, audio, lens, phones, logp,
                          tag="sparse_stream", kernel="fused_lstm_fwd",
-                         per_frame=2):
+                         per_frame=2, count=None):
     """A stream whose chunks of 100 frames cannot match the whole
     utterance to TOL_STREAM: one chunk of the whole utterance is held to
     the whole-utterance posteriors within TOL_STREAM, as slice 1's
@@ -860,13 +890,13 @@ def phase_chunked_stream(dev, rec, audio, lens, phones, logp,
     packages). The TIMIT RNN's chunks run the x-projection GEMMs over
     fewer rows, where cuBLAS sums in another order: its relu recurrence
     and x5000 head carry that to ~6e-5 in the log-posteriors, the size
-    of the card-vs-CPU difference."""
+    of the card-vs-CPU difference. ``count``: as phase_stream's."""
     T = rec.frontend.num_frames(audio.shape[1])
     _, err_one = phase_stream(dev, rec, audio, lens, phones, logp, T,
                               tag + "_one_chunk", TOL_STREAM, kernel,
-                              per_frame)
+                              per_frame, count)
     launches, err = phase_stream(dev, rec, audio, lens, phones, logp, 100,
-                                 tag, TOL_POST, kernel, per_frame)
+                                 tag, TOL_POST, kernel, per_frame, count)
     return launches, {"one_chunk_vs_whole": err_one,
                       "chunks_of_100_vs_whole": err}
 
@@ -910,7 +940,8 @@ def phase_entry(dev, T=200, B=8, F_in=143):
     print("[entry] T=%d B=%d F=%d -> %s: kernel launches %d, kernel vs plain "
           "max abs err %.3g (tol %g)" % (T, B, F_in, tuple(y.shape), launched,
                                          err, TOL_F32_SERVE))
-    if torch.device(dev).type == "cuda" and launched != 2 * T:
+    if torch.device(dev).type == "cuda" and launched != 2 * \
+            lstm_fwd_launches(dev, T, B, SERVE_TBH[2])[1]:
         raise AssertionError("the entry-shape forward did not run the kernel")
     if tuple(y.shape) != (T, B, PHONES * SPP) or not bool(
             torch.isfinite(y).all()) or not err <= TOL_F32_SERVE:
@@ -937,7 +968,12 @@ def rel_err(got, ref):
 
 def phase_train_kernels(dev, shapes=(SMALL_TBH, TRAIN_TBH)):
     """The stash forward and both BPTT kernels against their twins, on
-    the same tensors, in every variant; returns the checks."""
+    the same tensors, in every variant; the forward and the stash BPTT on
+    the routes their plans name (persistent at both shapes: one launch a
+    call, lstm_fwd_launches / lstm_bwd_stash_launches), the device
+    kernels of one call a shape held to the route's; at the training
+    shape the stash BPTT's step route also runs forced
+    (fused_lstm._bwd_kernel), against the twin. Returns the checks."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     checks = []
     for (T, B, H) in shapes:
@@ -955,20 +991,50 @@ def phase_train_kernels(dev, shapes=(SMALL_TBH, TRAIN_TBH)):
             carry = (h0, c0) if seeded else (None, None)
             seeds = ((t(rng.randn(B, H) * 0.1), t(rng.randn(B, H) * 0.1))
                      if seeded else (None, None))
+            froute, nf = lstm_fwd_launches(dev, T, B, H, bf16)
+            broute, nb = lstm_bwd_stash_launches(dev, T, B, H, seeded, bf16)
+            routes = {"fused_lstm_fwd/stash": froute,
+                      "fused_lstm_bwd_stash": broute,
+                      "fused_lstm_bwd": "step"}
+            plans = {"fused_lstm_fwd/stash": lstm_plan_brief(
+                dev, "fused_lstm_fwd", B, H, bf16),
+                "fused_lstm_bwd_stash": lstm_plan_brief(
+                    dev, "fused_lstm_bwd_stash", B, H, bf16)}
+            plans["fused_lstm_bwd_stash/determinism"] = \
+                plans["fused_lstm_bwd_stash"]
+            fw, bw = F.fused_lstm_fwd, F.fused_lstm_bwd_stash
             with torch.no_grad():
-                hs, cs, acts = F.fused_lstm_fwd(g, U, drop, *carry, act=act,
-                                                qbits=qbits, bf16=bf16,
-                                                stash=True)
+                hs, cs, acts = launched(fw, nf, lambda: fw(
+                    g, U, drop, *carry, act=act, qbits=qbits, bf16=bf16,
+                    stash=True))
                 errs = {"fused_lstm_fwd/stash": rel_err(
                     (hs, cs, acts), F.fused_lstm_fwd_plain(
                         g, U, drop, *carry, act, qbits, bf16, True))}
                 h_prev, c_prev = shifted(hs, cs, *carry)
-                errs["fused_lstm_bwd_stash"] = rel_err(
-                    F.fused_lstm_bwd_stash(acts, U, drop, cs, c_prev, dhs,
-                                           *seeds, act=act, bf16=bf16),
-                    F.fused_lstm_bwd_stash_plain(acts, U, drop, cs, c_prev,
-                                                 dhs, *seeds, act=act,
-                                                 bf16=bf16))
+                ref_b = F.fused_lstm_bwd_stash_plain(
+                    acts, U, drop, cs, c_prev, dhs, *seeds, act=act,
+                    bf16=bf16)
+                errs["fused_lstm_bwd_stash"] = rel_err(launched(
+                    bw, nb, lambda: bw(acts, U, drop, cs, c_prev, dhs, *seeds,
+                                       act=act, bf16=bf16)), ref_b)
+                if not small:       # the stash BPTT's step route, forced
+                    routes["fused_lstm_bwd_stash/determinism"] = broute
+                    errs["fused_lstm_bwd_stash/determinism"] = same_bits(
+                        lambda: bw(acts, U, drop, cs, c_prev, dhs, *seeds,
+                                   act=act, bf16=bf16))
+                    routes["fused_lstm_bwd_stash/step_route"] = "step"
+                    errs["fused_lstm_bwd_stash/step_route"] = rel_err(
+                        launched(bw, T + int(seeded), lambda: F._bwd_kernel(
+                            bw, acts, U, drop, None, cs, c_prev, dhs, *seeds,
+                            act, 0, bf16, True)), ref_b)
+                if k + 1 == len(cases):     # the kernels of the routes
+                    bptt_kernels(lambda: fw(g, U, drop, *carry, act=act,
+                                            qbits=qbits, bf16=bf16,
+                                            stash=True),
+                                 lstm_fwd_design(froute, T, seeded, qbits))
+                    bptt_kernels(lambda: bw(acts, U, drop, cs, c_prev, dhs,
+                                            *seeds, act=act, bf16=bf16),
+                                 lstm_bwd_stash_design(broute, T, seeded))
                 errs["fused_lstm_bwd"] = rel_err(
                     F.fused_lstm_bwd(g, U, drop, h_prev, c_prev, dhs, *seeds,
                                      act=act, qbits=qbits, bf16=bf16),
@@ -981,18 +1047,23 @@ def phase_train_kernels(dev, shapes=(SMALL_TBH, TRAIN_TBH)):
             for name, (err, rel) in errs.items():
                 # the forward's bar is absolute (as at the serving
                 # shape), the backward's relative to the gradients' scale
-                ok = (err if name.startswith("fused_lstm_fwd") else rel) <= tol
+                ok = (err if name.startswith("fused_lstm_fwd") else rel) <= (
+                    0.0 if name.endswith("determinism") else tol)
                 c = {"kernel": name, "T": T, "B": B, "H": H,
                      "dtype": "bf16" if bf16 else "f32",
                      "carry": "seeded" if seeded else "zero", "qbits": qbits,
-                     "act": act, "max_abs_err": err, "rel_err": rel,
-                     "tol": tol, "ok": bool(np.isfinite(err) and ok)}
+                     "act": act, "route": routes[name],
+                     "plan": plans.get(name), "max_abs_err": err,
+                     "rel_err": rel, "tol": tol,
+                     "ok": bool(np.isfinite(err) and ok)}
                 checks.append(c)
                 print("[kernels] %s" % json.dumps(c))
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError("a training kernel disagrees with its plain "
                              "twin: %s" % bad)
+    check_fwd_routes(checks, "fused_lstm_bwd_stash", {
+        (SMALL_TBH, "persist"), (TRAIN_TBH, "persist"), (TRAIN_TBH, "step")})
     return checks
 
 
@@ -1176,16 +1247,23 @@ def expected(**nonzero):
     return out
 
 
-def lstm_modes(T, stash=None, recompute=None):
+def lstm_modes(T, stash=None, recompute=None, dev="cuda", B=TRAIN_TBH[1],
+               H=TRAIN_TBH[2]):
     """The LSTM train step's two backward modes: (name, knob, value,
-    expected launches per step), the first the default. Defaults: the
-    flagship's, whose two layers run the dense kernels T times each."""
-    return (("stash", "PKC_LSTM_BWD_RECOMPUTE", "0",
-             stash or expected(fused_lstm_fwd=2 * T,
-                               fused_lstm_bwd_stash=2 * T)),
-            ("recompute", "PKC_LSTM_BWD_RECOMPUTE", "1",
-             recompute or expected(fused_lstm_fwd=2 * T,
-                                   fused_lstm_bwd=2 * T)))
+    expected launches per step), the first the default. Defaults: a
+    dense 2-layer LSTM's at (T, B, H) (the flagship's), each layer call on
+    the route its plan names (lstm_fwd_launches, lstm_bwd_stash_launches:
+    one launch a call on the persistent route), the recompute BPTT T
+    times a call."""
+    if stash is None or recompute is None:
+        fwd = 2 * lstm_fwd_launches(dev, T, B, H)[1]
+        stash = stash or expected(
+            fused_lstm_fwd=fwd,
+            fused_lstm_bwd_stash=2 * lstm_bwd_stash_launches(dev, T, B, H)[1])
+        recompute = recompute or expected(fused_lstm_fwd=fwd,
+                                          fused_lstm_bwd=2 * T)
+    return (("stash", "PKC_LSTM_BWD_RECOMPUTE", "0", stash),
+            ("recompute", "PKC_LSTM_BWD_RECOMPUTE", "1", recompute))
 
 
 def dropout_gen():
@@ -1244,7 +1322,7 @@ def phase_train(dev, make_runner=train_runner, tag="train", modes=None,
     out = {}
     runner, (inp, mask) = make_runner(dev)
     T, B = inp.shape[:2]
-    modes = modes or lstm_modes(T)
+    modes = modes or lstm_modes(T, dev=dev, B=B)
     (name, knob, value, expect), *others = modes
     with env(knob, value):
         (loss, err), launches = counted(
@@ -1515,7 +1593,9 @@ def kernel_classes(by_name):
                "rec_u_gemm_kernel": ("rec_u_gemm", "gru_torch_u_gemm"),
                # _step and _persist
                "gru_torch_bptt_kernel": ("gru_torch_bwd",),
-               "lstm_fwd_kernel": ("lstm_step", "sparse_fwd_step"),
+               "lstm_fwd_kernel": ("lstm_step", "lstm_fwd_persist",
+                                   "sparse_fwd_step"),
+               # the step kernels, the dh0 dot and the persistent chain
                "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step"),
                "ligru_fwd_kernel": ("ligru_step", "ligru_fwd_persist"),
                "ligru_bptt_kernel": ("ligru_bwd",),
@@ -1671,10 +1751,11 @@ def device_kernels(fn, tries=3):
 # the CGS-16x slice: the block-sparse HCGS recurrence
 # ---------------------------------------------------------------------------
 
-def cgs_sections(compute_dtype=""):
+def cgs_sections(compute_dtype="", shipped=False):
     """The CGS-16x cfg's [architecture1..3] and [model], read from the
     file, with lstm_block_sparse=auto (the JAX package's default; the
-    file says False), the port's arch_library, N_out_lab_cd = 1944 and
+    file says False, which ``shipped`` keeps: the dense kernels over the
+    masked U), the port's arch_library, N_out_lab_cd = 1944 and
     N_out_lab_mono = 48."""
     import configparser
     src = configparser.ConfigParser()
@@ -1682,7 +1763,8 @@ def cgs_sections(compute_dtype=""):
         raise FileNotFoundError(CGS_CFG)
     secs = {k: dict(src[k]) for k in ("architecture1", "architecture2",
                                       "architecture3", "model")}
-    secs["architecture1"]["lstm_block_sparse"] = "auto"
+    if not shipped:
+        secs["architecture1"]["lstm_block_sparse"] = "auto"
     for k in ("architecture1", "architecture2", "architecture3"):
         secs[k]["arch_library"] = "pytorch_kaldi_cgs_tpu_torch.models"
         secs[k]["compute_dtype"] = compute_dtype
@@ -1886,6 +1968,71 @@ def phase_sparse_train(dev):
                     fused_lstm_bwd_sparse_stash=2 * T, block_sparse_dw=2),
         expected(fused_lstm_fwd_sparse=2 * T, fused_lstm_bwd_sparse=2 * T,
                  block_sparse_dw=2)))
+
+
+#: the CGS-16x cfg as shipped: lstm_block_sparse = False (:119) and its
+#: batch_size_train = 8 (:93); its 2x1024 LSTM runs the dense kernels
+CS_TRAIN_TBH = (300, 8, 1024)
+
+
+def cgs_shipped_train_runner(dev, compute_dtype=""):
+    """The CGS-16x train step as the cfg ships (cgs_sections(shipped)): 8
+    sentences of 300 frames, both recurrences on the dense kernels."""
+    from pytorch_kaldi_cgs_tpu_torch.runtime.chunk import ChunkRunner
+    from pytorch_kaldi_cgs_tpu_torch.runtime.graph import NetGraph
+    T, B, _ = CS_TRAIN_TBH
+    config, chunk, batch = chunk_setup(
+        cgs_sections(compute_dtype, shipped=True), T, B, "fmllr", FEAT,
+        CD_LABELS + [("lab_mono", "ali-to-phones", N_MONO)])
+    graph = NetGraph(config, chunk, seed=0, device=dev)
+    if graph.nets["LSTM_layers"]._rec_layouts:
+        raise AssertionError("the shipped CGS-16x cfg took a sparse layout")
+    return ChunkRunner(graph, config), batch
+
+
+def phase_cgs_shipped_train(dev):
+    """The shipped CGS-16x train step (dense rows 1 and 3 at 2x1024, 8
+    rows): launches a step on the routes the plans name, card vs CPU,
+    loss falling over 10 steps in f32 and bf16."""
+    T, B, H = CS_TRAIN_TBH
+    return phase_train(dev, cgs_shipped_train_runner, "cgs_shipped_train",
+                       lstm_modes(T, dev=dev, B=B, H=H))
+
+
+def phase_cgs_shipped_times(dev):
+    """Rows 1 (with the stash) and 3 at the shipped CGS-16x shape (2x1024,
+    8 rows) per layer call in f32 and bf16, with bounds and cuDNN's
+    nn.LSTM(1024) forward and backward beside them; the shipped train
+    step (train_step_times: f32 and bf16, device ms by class of
+    kernel)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    T, B, H = CS_TRAIN_TBH
+    g, U, drop, _, _ = lstm_inputs(T, B, H, 95, dev, drop_bh=True)
+    dhs = torch.randn(T, B, H, device=dev) * 0.01
+    times = {"shape": {"T": T, "B": B, "H": H},
+             "fwd_route": chain_route(dev, "fused_lstm_fwd", B, H),
+             "bwd_route": chain_route(dev, "fused_lstm_bwd_stash", B, H)}
+    with torch.no_grad():
+        for bf16 in (False, True):
+            sfx = "_bf16" if bf16 else ""
+            hs, cs, acts = F.fused_lstm_fwd(g, U, drop, bf16=bf16, stash=True)
+            c_prev = shifted(hs, cs, None, None)[1]
+            times["fwd_ms" + sfx] = cuda_ms(lambda: F.fused_lstm_fwd(
+                g, U, drop, bf16=bf16, stash=True), reps=10)
+            times["bwd_stash_ms" + sfx] = cuda_ms(
+                lambda: F.fused_lstm_bwd_stash(acts, U, drop, cs, c_prev, dhs,
+                                               bf16=bf16), reps=10)
+            for kind, key in (("fwd_stash", "fwd"), ("bwd_stash",
+                                                     "bwd_stash")):
+                bound = lstm_bound_ms(T, B, H, "bf16" if bf16 else "f32", kind)
+                times[key + "_bound_ms" + sfx] = bound[0]
+                times[key + "_bound_by" + sfx] = bound[1]
+    times.update(cudnn_times(dev, T, B, H, T, B, torch.nn.LSTM(H, H),
+                             "cudnn_lstm1024"))
+    print("[cgs_shipped_times] %s" % json.dumps(times))
+    step = train_step_times(dev, cgs_shipped_train_runner,
+                            "cgs_shipped_times", 5, 3)
+    return times, step
 
 
 def phase_sparse_times(dev, rec, audio, lens):
@@ -2827,9 +2974,19 @@ PERSIST_ROUTES = {
                         lambda plan, bf16: (plan.bi, plan.units)),
     "fused_mgru_bwd": ("mgru_bwd_route", "fused_gru",
                        "gru_bwd_dense_occupancy",
-                       lambda plan, bf16: (2, plan.bi, plan.units))}
+                       lambda plan, bf16: (2, plan.bi, plan.units)),
+    "fused_lstm_fwd": ("lstm_fwd_route", "fused_lstm_fwd",
+                       "lstm_fwd_occupancy",
+                       lambda plan, bf16: (int(bf16), plan.bi, plan.units)),
+    "fused_lstm_bwd_stash": ("lstm_bwd_stash_route", "fused_lstm_bwd",
+                             "lstm_bwd_stash_occupancy",
+                             lambda plan, bf16: (int(bf16), plan.bi,
+                                                 plan.units))}
 #: the dense forwards' gate counts (their route functions take G)
 DENSE_FWD_G = {"fused_gru_fwd": 3, "fused_mgru_fwd": 2}
+#: the dense LSTM's wrappers with a persistent route: their route
+#: functions are fused_lstm's and take (B, H, bf16, dev)
+LSTM_PERSIST = ("fused_lstm_fwd", "fused_lstm_bwd_stash")
 
 
 def chain_route(dev, kernel, B, H=None, layout=None, bf16=False):
@@ -2839,13 +2996,17 @@ def chain_route(dev, kernel, B, H=None, layout=None, bf16=False):
     the most that fit, the shared memory, resident and staged bytes of a
     block, the slabs a staged row is cut into. A package without that
     wrapper's persistent route (an earlier tree's) runs "step". The dense
-    GRU forwards (DENSE_FWD_G) take their gate count."""
+    GRU forwards (DENSE_FWD_G) take their gate count, the dense LSTM's
+    wrappers (LSTM_PERSIST) bf16."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     fn, lib, entry, ints = PERSIST_ROUTES[kernel]
-    if not hasattr(R, fn):
+    if not hasattr(F if kernel in LSTM_PERSIST else R, fn):
         return "step", {}
     if kernel in DENSE_FWD_G:
         route, plan = getattr(R, fn)(B, H, DENSE_FWD_G[kernel], dev)
+    elif kernel in LSTM_PERSIST:
+        route, plan = getattr(F, fn)(B, H, bf16, dev)
     else:
         route, plan = (getattr(R, fn)(B, H, dev) if layout is None
                        else getattr(R, fn)(B, layout, bf16, dev))
@@ -3018,6 +3179,72 @@ def gru_fwd_sparse_launches(dev, T, B, layout, bf16=False):
                    else 2 * T)
 
 
+#: fused_lstm_fwd's and fused_lstm_bwd_stash's launches a call on the
+#: persistent route, written from the design: the one cooperative launch
+#: (a seed's quantizer scale and the seeded BPTT's dh0 inside it)
+#: ("step": one a step, and the seeded BPTT's dh0 dot)
+LSTM_PERSIST_LAUNCHES = 1
+
+
+def lstm_fwd_launches(dev, T, B, H, bf16=False):
+    """fused_lstm_fwd's route at (B, H) and its launches a call of T
+    steps."""
+    route = chain_route(dev, "fused_lstm_fwd", B, H, bf16=bf16)[0]
+    return route, LSTM_PERSIST_LAUNCHES if route == "persist" else T
+
+
+def lstm_bwd_stash_launches(dev, T, B, H, seeded=False, bf16=False):
+    """fused_lstm_bwd_stash's route at (B, H) and its launches a call."""
+    route = chain_route(dev, "fused_lstm_bwd_stash", B, H, bf16=bf16)[0]
+    return route, (LSTM_PERSIST_LAUNCHES if route == "persist"
+                   else T + int(seeded))
+
+
+def lstm_plan_brief(dev, kernel, B, H, bf16=False):
+    """The plan of ``kernel``'s persistent route at (B, H) in brief
+    ("units x rows, grid blocks"; chain_route), None on the step
+    route."""
+    route, info = chain_route(dev, kernel, B, H, bf16=bf16)
+    if route != "persist":
+        return None
+    return "%d units x %d rows, %d blocks" % (
+        info["units_per_block"], info["batch_rows_per_block"], info["grid"])
+
+
+def lstm_fwd_design(route, T, seeded=False, qbits=0):
+    """fused_lstm_fwd's device kernels a call by name: the one
+    cooperative launch, or a step kernel a step (after the reduction of
+    max|h0| with a seed and the quantizer)."""
+    if route == "persist":
+        return {"lstm_fwd_persist": 1}
+    return dict({"absmax_bits": 1} if seeded and qbits > 0 else {},
+                lstm_step=T)
+
+
+def lstm_bwd_stash_design(route, T, seeded=False):
+    """fused_lstm_bwd_stash's device kernels a call by name: the one
+    cooperative launch, or a kernel a reverse step and the dh0 dot when
+    seeded."""
+    if route == "persist":
+        return {"lstm_bwd_stash_persist": 1}
+    return dict({"lstm_bwd_dh0": 1} if seeded else {}, lstm_bwd_step=T)
+
+
+def lstm_stream_launches(dev, T, chunk, B, H, layers):
+    """A stream's launches of fused_lstm_fwd over ``layers`` layers: each
+    layer's seeded call a chunk of ``chunk`` of the T frames, on its
+    route."""
+    return layers * sum(lstm_fwd_launches(dev, min(chunk, T - a), B, H)[1]
+                        for a in range(0, T, chunk))
+
+
+def flagship_expect_serve(T):
+    """Launches per recognize of the flagship: its 2 layers' dense
+    forward at 8 rows of H=512, each its route's, no other kernel."""
+    return expected(fused_lstm_fwd=2 * lstm_fwd_launches(
+        "cuda", T, N_UTT, SERVE_TBH[2])[1])
+
+
 #: the port's own kernels a call on a persistent or a step route may
 #: launch; bptt_kernels holds a call's trace to them (PyTorch's own
 #: copies are not held)
@@ -3028,7 +3255,9 @@ ROUTE_KERNELS = (
     "gru_torch_bwd_persist", "gru_torch_bwd_step", "gru_torch_step",
     "ligru_bwd_persist", "ligru_bwd_step", "gru_fwd_persist",
     "gru_dense_fwd_persist", "absmax_bits", "ligru_fwd_persist",
-    "ligru_step", "gru_dense_bwd_persist", "mgru_z_rebuild", "rows_dots")
+    "ligru_step", "gru_dense_bwd_persist", "mgru_z_rebuild", "rows_dots",
+    "lstm_fwd_persist", "lstm_step", "lstm_bwd_stash_persist",
+    "lstm_bwd_step", "lstm_bwd_dh0")
 
 
 def bptt_design(route, T, qbits=None, bf16=False):
@@ -3112,12 +3341,15 @@ def bptt_kernels(fn, want, tries=3):
     exactly those, so the route that ran is
     the one named. A trace that differs is taken again, up to ``tries``
     traces (the profiler can drop a record, device_kernels); it raises
-    when every trace that held kernel records differed. Where none held
-    any, the call's launch calls must number at least the kernels
-    ``want`` names (PyTorch's own copies launch too), and its cooperative
-    ones exactly its chains (the ``*_persist`` kernels: one on a
-    persistent route, none on a step route). -> the port's kernels of the
-    trace that agreed (or {"cuda_launch_calls": n, "cooperative": c})."""
+    when every trace that held records of the port's kernels differed.
+    Where none held any (a short call's trace can hold no kernel record,
+    or only a PyTorch copy's: a full run saw row 32's cooperative kernel
+    dropped beside a kept ``vectorized_elementwise_kernel``),
+    the call's launch calls must number at least the kernels ``want``
+    names (PyTorch's own copies launch too), and its cooperative ones
+    exactly its chains (the ``*_persist`` kernels: one on a persistent
+    route, none on a step route). -> the port's kernels of the trace that
+    agreed (or {"cuda_launch_calls": n, "cooperative": c})."""
     seen, calls, coop = [], 0, 0
     chains = sum(v for k, v in want.items() if k.endswith("_persist"))
     for _ in range(tries):
@@ -3126,12 +3358,13 @@ def bptt_kernels(fn, want, tries=3):
         if port == want:
             print("[bptt_kernels] %s" % json.dumps(port))
             return port
-        if got:
+        if port:
             seen.append(got)
     if not seen and calls >= sum(want.values()) and coop == chains:
         out = {"cuda_launch_calls": calls, "cooperative": coop}
-        print("[bptt_kernels] no kernel records in %d traces: %s (the "
-              "design %s)" % (tries, json.dumps(out), json.dumps(want)))
+        print("[bptt_kernels] no records of the port's kernels in %d "
+              "traces: %s (the design %s)" % (tries, json.dumps(out),
+                                               json.dumps(want)))
         return out
     raise AssertionError("a routed call launched %s (%d launch calls, %d "
                          "cooperative); the design is %s"
@@ -4078,10 +4311,15 @@ def phase_cudnn_wrappers(dev):
     for name, H, extra in CUDNN_CASES:
         cell = {"RNN_cudnn": "rnn", "LSTM_cudnn": "lstm",
                 "GRU_cudnn": "gru_torch"}[name]
-        want_eval = expected(**{"fused_%s_fwd" % cell: 4 * T})
+        # the LSTM's layer calls on their routes (one launch a call on
+        # the persistent route), the others' a launch a step
+        fwd = 4 * (lstm_fwd_launches(dev, T, B, H)[1] if cell == "lstm"
+                   else T)
+        want_eval = expected(**{"fused_%s_fwd" % cell: fwd})
         want_train = expected(**{
             "rnn": {"fused_rnn_fwd": 4 * T, "fused_rnn_bwd": 4 * (T + 1)},
-            "lstm": {"fused_lstm_fwd": 4 * T, "fused_lstm_bwd_stash": 4 * T},
+            "lstm": {"fused_lstm_fwd": fwd, "fused_lstm_bwd_stash":
+                     4 * lstm_bwd_stash_launches(dev, T, B, H)[1]},
             "gru_torch": {"fused_gru_torch_fwd": 4 * T,
                           "fused_gru_torch_bwd": 4 * gru_torch_bwd_launches(
                               dev, T, B, H)}}[cell])
@@ -6732,6 +6970,32 @@ def port_gru_layer_times(dev, T, B, H, reps=10):
             "port_layer_bwd_ms": fb_ms - fwd_ms}
 
 
+def port_lstm_layer_times(dev, T, B, H, reps=10):
+    """The port's dense LSTM layer as cudnn_times times nn.LSTM(H, H): the
+    input projection x @ W^T + b and the recurrence (lstm_scan_fused, no
+    dropout, no quantizer), forward and forward + backward (row 3, the
+    dU matmul of its Function, the projection's backward), the backward
+    as their difference."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    gen = torch.Generator(device=dev).manual_seed(353)
+    k = 1.0 / np.sqrt(H)
+
+    def param(*shape):
+        return ((torch.rand(*shape, device=dev, generator=gen) * 2 - 1) * k
+                ).requires_grad_()
+    W, U, b = param(4 * H, H), param(4 * H, H), param(4 * H)
+    x = torch.randn(T, B, H, device=dev, generator=gen).requires_grad_()
+    dy = torch.randn(T, B, H, device=dev, generator=gen)
+    one = torch.ones(1, 1, device=dev)
+
+    def fwd():
+        return F.lstm_scan_fused(x @ W.T + b, U, one)
+    fwd_ms = cuda_ms(fwd, reps)
+    fb_ms = cuda_ms(lambda: fwd().backward(dy), reps)
+    return {"port_layer_fwd_ms": fwd_ms, "port_layer_fwd_bwd_ms": fb_ms,
+            "port_layer_bwd_ms": fb_ms - fwd_ms}
+
+
 def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
     """ms per call of ``kernel``'s persistent route at each block shape
     (bi, units) of ``shapes`` (by default the blocks of 256 outputs its
@@ -6739,25 +7003,137 @@ def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
     ``call_plan(shape)`` returns the plan forced to (bi, units),
     ``call_plan(shape, run=True)`` runs one call on it; {} for a package
     without the route. The plan the route picks is timed by the caller."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     plan_fn = {"fused_ligru_bwd": "ligru_bwd_plan",
                "fused_gru_fwd_sparse": "gru_fwd_sparse_plan",
                "fused_gru_fwd": "gru_fwd_plan",
                "fused_mgru_fwd": "gru_fwd_plan",
                "fused_ligru_fwd": "ligru_fwd_plan",
-               "fused_mgru_bwd": "mgru_bwd_plan"}[kernel]
-    if not hasattr(R, plan_fn):
+               "fused_mgru_bwd": "mgru_bwd_plan",
+               "fused_lstm_fwd": "lstm_fwd_plan",
+               "fused_lstm_bwd_stash": "lstm_bwd_stash_plan"}[kernel]
+    if not hasattr(F if kernel in LSTM_PERSIST else R, plan_fn):
         return {}
     out = {}
     for shape_ in shapes:
         plan = call_plan(shape_)
-        if plan.smem + plan.static > R._SMEM_MAX:
+        if plan.smem + plan.static > R._SMEM_MAX or (
+                kernel in LSTM_PERSIST and not co_resident(kernel, plan)):
             continue
         out["%dx%d" % (plan.units, 8 * plan.bi)] = {
             "ms": cuda_ms(lambda: call_plan(shape_, run=True), reps),
             "slabs": plan.slabs, "smem": plan.smem,
             "staged_bytes_per_block_per_step": plan.staged}
     return out
+
+
+def co_resident(kernel, plan, bf16=False):
+    """Whether a (forced) plan of ``kernel`` (a key of PERSIST_ROUTES) has
+    a co-resident grid on this card, as its route asks."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    _, lib, entry, ints = PERSIST_ROUTES[kernel]
+    return R._route(plan, lib, entry, ints(plan, bf16),
+                    torch.device("cuda")) == "persist"
+
+
+def lstm_turn_times(dev, t):
+    """phase_rnn_turn_times' rows 1 and 3 into ``t``: the forward (tanh,
+    no quantizer, the stash) and the stash BPTT at the flagship train
+    shape, 2x1024 at 8 (the shipped CGS-16x cfg) and 16 rows, each also
+    at the other block shapes of its plan's table that are co-resident
+    (forced), with its route and plan; the forward without the stash, at
+    the flagship serve shape and as a seeded chunk of 100 (qbits 16), and
+    its output digests in f32 and bf16, zero and seeded, qbits 0 and 16
+    (equal across trees: the same bits); nn.LSTM(H)'s forward and
+    backward beside the port's whole layer's (port_lstm_layer_times)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    with torch.no_grad():
+        for tag, (T, B, H), seed in (("flagship", TRAIN_TBH, 380),
+                                     ("h1024_b8", CS_TRAIN_TBH, 383),
+                                     ("h1024_b16", SP_TRAIN_TBH, 386)):
+            g, U, drop, h0, c0 = lstm_inputs(T, B, H, seed, dev, True)
+            dhs = torch.randn(T, B, H, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(seed)) * 0.01
+            hs, cs, acts = F.fused_lstm_fwd(g, U, drop, stash=True)
+            c_prev = shifted(hs, cs, None, None)[1]
+            fcall = lambda: F.fused_lstm_fwd(g, U, drop, stash=True)
+            bcall = lambda: F.fused_lstm_bwd_stash(acts, U, drop, cs, c_prev,
+                                                   dhs)
+
+            def fwd_plan(shape_, run=False):
+                plan = F.lstm_fwd_plan(B, H, shape_)
+                return (F._fwd_persist(plan, g, U, drop, None, None, "tanh",
+                                       0, False, True) if run else plan)
+
+            def bwd_plan(shape_, run=False):
+                plan = F.lstm_bwd_stash_plan(B, H, shape_)
+                return (F._bwd_stash_persist(plan, acts, U, drop, cs, c_prev,
+                                             dhs, None, None, "tanh", False)
+                        if run else plan)
+            shapes = getattr(F, "LSTM_FWD_SHAPES", ())
+            t["row1_" + tag] = {
+                "ms": cuda_ms(fcall, 10),
+                "ms_nostash": cuda_ms(lambda: F.fused_lstm_fwd(g, U, drop),
+                                      10),
+                "ms_bf16": cuda_ms(lambda: F.fused_lstm_fwd(
+                    g, U, drop, bf16=True, stash=True), 10),
+                "bound_ms": lstm_bound_ms(T, B, H, "f32", "fwd_stash")[0],
+                "plan": chain_route(dev, "fused_lstm_fwd", B, H)[1],
+                "by_block_shape": forced_plan_ms("fused_lstm_fwd", fwd_plan,
+                                                 10, shapes),
+                "digest": digest(fcall())}
+            t["row3_" + tag] = {
+                "ms": cuda_ms(bcall, 10),
+                "ms_bf16": cuda_ms(lambda: F.fused_lstm_bwd_stash(
+                    acts, U, drop, cs, c_prev, dhs, bf16=True), 10),
+                "bound_ms": lstm_bound_ms(T, B, H, "f32", "bwd_stash")[0],
+                "plan": chain_route(dev, "fused_lstm_bwd_stash", B, H)[1],
+                "by_block_shape": forced_plan_ms(
+                    "fused_lstm_bwd_stash", bwd_plan, 10,
+                    getattr(F, "LSTM_BWD_SHAPES", ())),
+                "digest": digest(bcall())}
+            if tag == "flagship":
+                digests = {}
+                for bf16 in (False, True):
+                    for seeded in (False, True):
+                        for qb in (0, 16):
+                            carry = (h0, c0) if seeded else (None, None)
+                            digests["%s_%s_q%d" % (
+                                "bf16" if bf16 else "f32",
+                                "seeded" if seeded else "zero", qb)] = \
+                                digest(F.fused_lstm_fwd(
+                                    g, U, drop, *carry, qbits=qb, bf16=bf16,
+                                    stash=True))
+                t["row1_flagship"]["digests"] = digests
+            del g, U, drop, h0, c0, dhs, hs, cs, acts, c_prev
+        T, B, H = SERVE_TBH
+        sv = lstm_inputs(T, B, H, 389, dev, False)
+        ck = lstm_inputs(100, B, H, 390, dev, True)
+        t["row1_flagship_serve"] = {
+            "ms": cuda_ms(lambda: F.fused_lstm_fwd(*sv[:3]), 10),
+            "bound_ms": lstm_bound_ms(T, B, H)[0],
+            "plan": chain_route(dev, "fused_lstm_fwd", B, H)[1],
+            "by_block_shape": forced_plan_ms(
+                "fused_lstm_fwd", lambda shape_, run=False: (
+                    F._fwd_persist(F.lstm_fwd_plan(B, H, shape_), sv[0],
+                                   sv[1], torch.broadcast_to(
+                                       sv[2], (B, H)).contiguous(), None,
+                                   None, "tanh", 0, False, False)
+                    if run else F.lstm_fwd_plan(B, H, shape_)), 10,
+                getattr(F, "LSTM_FWD_SHAPES", ())),
+            "digest": digest(F.fused_lstm_fwd(*sv[:3])),
+            "seeded_chunk100_ms": cuda_ms(lambda: F.fused_lstm_fwd(
+                *ck, qbits=16), 10),
+            "seeded_chunk100_digest": digest(F.fused_lstm_fwd(*ck,
+                                                              qbits=16))}
+        del sv, ck
+    for tag, (T, B, H) in (("flagship", TRAIN_TBH), ("h1024_b8", CS_TRAIN_TBH),
+                           ("h1024_b16", SP_TRAIN_TBH)):
+        t["lstm_layer_" + tag] = dict(
+            cudnn_times(dev, T, B, H, T, B, torch.nn.LSTM(H, H), "cudnn_lstm"),
+            **port_lstm_layer_times(dev, T, B, H))
+    torch.cuda.empty_cache()
 
 
 def digest(x):
@@ -6787,9 +7163,9 @@ def phase_rnn_turn_times(dev):
     nn.GRU(550)'s forward, backward (fwd+bwd minus fwd) and the port's
     whole GRU_cudnn layer backward the same way beside row 23; rows 17,
     20, 21, 22, 23, 25, 33, 34, 35, 13 (libri G=3, 8-bit, submask) and 15
-    (the libri v3 dw) as the rows that must not move. Public wrappers
-    only (and the forced plans where the package has them), so an
-    earlier tree's package runs it too."""
+    (the libri v3 dw) as the rows that must not move; rows 1 and 3
+    (lstm_turn_times). Public wrappers only (and the forced plans where
+    the package has them), so an earlier tree's package runs it too."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     t = {}
@@ -6970,6 +7346,7 @@ def phase_rnn_turn_times(dev):
                          "cudnn_gru550"))
     t.update(port_gru_layer_times(dev, T, B, H))
     torch.cuda.empty_cache()
+    lstm_turn_times(dev, t)
     print("[rnn_turn_times] %s" % json.dumps(t), flush=True)
     return t
 
@@ -6977,9 +7354,10 @@ def phase_rnn_turn_times(dev):
 def rnn_times_main(root):
     """``python3 chip_smoke.py --rnn-times [DIR]``: phase_rnn_turn_times,
     the f32 train steps of the libri GRU, the libri and TIMIT Li-GRUs,
-    the TIMIT GRU, the minimalGRU and the CGS-16x LSTM (CUDA events, mean
-    of 5 after 2; all but the last also profiled once: device ms by class
-    of kernel, busy share), and the TIMIT GRU's, the minimalGRU's and the
+    the TIMIT GRU, the minimalGRU, the flagship LSTM, the CGS-16x LSTM as
+    shipped (the dense kernels, 8 rows) and under ``auto`` (CUDA events,
+    mean of 5 after 2; all but the last also profiled once: device ms by
+    class of kernel, busy share), and the TIMIT GRU's, the minimalGRU's and the
     TIMIT and libri Li-GRUs' recognize (8 x 4 s: serve_timings, launches
     by kernel), with
     the package of this checkout or of the tree unpacked at DIR inside it
@@ -7009,6 +7387,8 @@ def rnn_times_main(root):
                       ("timit_ligru", ligru_train_runner),
                       ("timit_gru", timit_gru_train_runner),
                       ("mgru", mgru_train_runner),
+                      ("flagship", train_runner),
+                      ("cgs16x_lstm_shipped", cgs_shipped_train_runner),
                       ("cgs16x_lstm", cgs_train_runner)):
         runner, (inp, mask) = make(dev)
         inp = torch.as_tensor(inp, device=dev)
@@ -7232,13 +7612,39 @@ def phase_libri_ligru_times(dev, rec, audio, lens):
     return times, step, serve
 
 
-def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
+def kernels_line(fwd_checks, train_checks, serve_times, times, launches,
+                 sp_times, cs_times, dev):
     """The kernels JSON: every kernel of the port with its numbers from
     this run. ``ms``/``plain_ms``/``bound_ms``/``library_ms`` are per layer
     call at the training shape (f32); ``launches`` counts the main path
     that runs the kernel: one train step (stash backward; the recompute
-    backward for fused_lstm_bwd); ``launches_by_path`` all paths."""
+    backward for fused_lstm_bwd); ``launches_by_path`` all paths. Rows 1
+    and 3 also name their routes and plans (``kernel_route``: the
+    training, serving and 2x1024 shapes) and their times at 2x1024 with
+    8 (the shipped CGS-16x cfg, phase_cgs_shipped_times) and 16 rows (the
+    CGS-16x layer, phase_sparse_times), beside their bounds and cuDNN's
+    nn.LSTM(1024)."""
     T, B, H = TRAIN_TBH
+
+    def routed(kernel):
+        shapes = {"train": TRAIN_TBH, "h1024_b8": CS_TRAIN_TBH,
+                  "h1024_b16": SP_TRAIN_TBH}
+        if kernel == "fused_lstm_fwd":
+            shapes["serve"] = SERVE_TBH
+        return {tag: dict(zip(("route", "plan"), chain_route(
+            dev, kernel, B_, H_))) for tag, (_, B_, H_) in shapes.items()}
+
+    def h1024(kind, dense, cs_key, cudnn):
+        T16, B16, H16 = SP_TRAIN_TBH
+        return {
+            "B8": {"T": CS_TRAIN_TBH[0], "ms": cs_times[cs_key + "_ms"],
+                   "ms_bf16": cs_times[cs_key + "_ms_bf16"],
+                   "bound_ms": cs_times[cs_key + "_bound_ms"],
+                   "library_ms": cs_times["cudnn_lstm1024_%s_ms" % cudnn]},
+            "B16": {"T": T16, "ms": sp_times["dense_%s_ms" % dense],
+                    "ms_bf16": sp_times["dense_%s_ms_bf16" % dense],
+                    "bound_ms": lstm_bound_ms(T16, B16, H16, "f32", kind)[0],
+                    "library_ms": sp_times["cudnn_%s_ms" % cudnn]}}
 
     def err_at(kernel):
         return [c for c in train_checks if c["kernel"] == kernel
@@ -7272,6 +7678,8 @@ def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
                 and c["qbits"] == 0][0]
     fwd = row("fused_lstm_fwd", 92, times["cudnn_fwd_ms"],
               variant="stash (training forward)",
+              kernel_route=routed("fused_lstm_fwd"),
+              h1024=h1024("fwd_stash", "fused_lstm_fwd", "fwd", "fwd"),
               serve={"T": SERVE_TBH[0], "B": SERVE_TBH[1], "H": SERVE_TBH[2],
                      "ms": serve_times["ms"],
                      "ms_bf16": serve_times["ms_bf16"],
@@ -7285,7 +7693,10 @@ def kernels_line(fwd_checks, train_checks, serve_times, times, launches):
     return {"kernels": [
         fwd,
         row("fused_lstm_bwd_stash", 339, times["cudnn_bwd_ms"],
-            library_note="cuDNN nn.LSTM backward (fwd+bwd minus fwd)"),
+            library_note="cuDNN nn.LSTM backward (fwd+bwd minus fwd)",
+            kernel_route=routed("fused_lstm_bwd_stash"),
+            h1024=h1024("bwd_stash", "fused_lstm_bwd_stash", "bwd_stash",
+                        "bwd")),
         row("fused_lstm_bwd", 218, times["cudnn_bwd_ms"],
             library_note="cuDNN nn.LSTM backward (fwd+bwd minus fwd)")]}
 
@@ -7449,9 +7860,13 @@ def main():
     lg_checks = timed("ligru_kernels", phase_ligru_kernels, dev)
     audio, lens = make_audio()
     rec, phones, logp, serve_launches, post_err = timed(
-        "serve", phase_serve, dev, audio, lens)
-    stream_launches, _ = timed("stream", phase_stream, dev, rec, audio, lens,
-                               phones, logp)
+        "serve", phase_serve, dev, audio, lens, build_stack, "serve",
+        "fused_lstm_fwd", TOL_POST, flagship_expect_serve)
+    serve_launches = serve_launches["fused_lstm_fwd"]
+    stream_launches, _ = timed(
+        "stream", phase_stream, dev, rec, audio, lens, phones, logp, 100,
+        "stream", TOL_STREAM, "fused_lstm_fwd", 2,
+        lambda T, c: lstm_stream_launches(dev, T, c, N_UTT, SERVE_TBH[2], 2))
     timed("entry", phase_entry, dev)
     train = timed("train", phase_train, dev)
     sp_rec, sp_phones, sp_logp, sp_serve_launches, sp_post_err = timed(
@@ -7459,8 +7874,11 @@ def main():
         "sparse_serve", "fused_lstm_fwd_sparse")
     sp_stream_launches, sp_stream_err = timed(
         "sparse_stream", phase_chunked_stream, dev, sp_rec, audio, lens,
-        sp_phones, sp_logp)
+        sp_phones, sp_logp, "sparse_stream", "fused_lstm_fwd", 2,
+        lambda T, c: lstm_stream_launches(dev, T, c, N_UTT, SP_SERVE_TBH[2],
+                                          2))
     sp_train = timed("sparse_train", phase_sparse_train, dev)
+    cs_train = timed("cgs_shipped_train", phase_cgs_shipped_train, dev)
     lg_rec, lg_phones, lg_logp, lg_serve_launches, lg_post_err = timed(
         "ligru_serve", phase_serve, dev, audio, lens, build_ligru_stack,
         "ligru_serve", "fused_ligru_fwd", TOL_POST_Q16, ligru_expect_serve)
@@ -7576,6 +7994,8 @@ def main():
     times, step = timed("train_times", phase_train_times, dev)
     sp_times, sp_step, sp_serve = timed("sparse_times", phase_sparse_times,
                                         dev, sp_rec, audio, lens)
+    cs_times, cs_step = timed("cgs_shipped_times", phase_cgs_shipped_times,
+                              dev)
     lg_times, lg_step, lg_serve = timed("ligru_times", phase_ligru_times,
                                         dev, lg_rec, audio, lens)
     gr_times, gr_step, gr_serve = timed("gru_times", phase_gru_times, dev,
@@ -7630,14 +8050,25 @@ def main():
             "train": train["launches_stash"]["fused_lstm_bwd_stash"]},
         "fused_lstm_bwd": {
             "train": train["launches_recompute"]["fused_lstm_bwd"]}}
+    cs_st, cs_rc = cs_train["launches_stash"], cs_train["launches_recompute"]
+    launches["fused_lstm_fwd"].update(
+        cgs_shipped_train=cs_st["fused_lstm_fwd"],
+        cgs_dense_stream=sp_stream_launches)
+    launches["fused_lstm_bwd_stash"]["cgs_shipped_train"] = \
+        cs_st["fused_lstm_bwd_stash"]
+    launches["fused_lstm_bwd"]["cgs_shipped_train"] = cs_rc["fused_lstm_bwd"]
     for name, paths in launches.items():
-        if not paths["train"]:
+        if not (paths["train"] and paths["cgs_shipped_train"]):
             raise AssertionError("%s was not launched on its path" % name)
     print("[summary] %s" % json.dumps({
         "serve": serve, "train": train, "train_step": step,
         "cudnn_yardstick": {k: times[k] for k in (
             "cudnn_fwd_ms", "cudnn_fwd_bwd_ms", "cudnn_bwd_ms")},
         "dU_matmul_ms": times["dU_matmul_ms"]}))
+    print("[summary] CGS-16x as shipped (lstm_block_sparse = False) %s"
+          % json.dumps({"cgs_shipped_train": cs_train,
+                        "cgs_shipped_train_step": cs_step,
+                        "rows_1_3_at_its_shape": cs_times}))
     print("[summary] CGS-16x %s" % json.dumps({
         "sparse_serve": sp_serve, "sparse_train": sp_train,
         "sparse_train_step": sp_step,
@@ -7858,7 +8289,7 @@ def main():
     print("[summary] legacy block-sparse API %s" % json.dumps({
         "api_launches": lb_api, "checks": len(lb_checks), "times": lb_times}))
     line = kernels_line(fwd_checks, train_checks, serve_times, times,
-                        launches)
+                        launches, sp_times, cs_times, dev)
     line["kernels"] += sparse_rows(sp_checks, sp_times, sp_launches,
                                    bs_times)
     line["kernels"] += dense_rnn_rows(

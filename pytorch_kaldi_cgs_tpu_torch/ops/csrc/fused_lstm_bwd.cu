@@ -26,14 +26,32 @@
 // (0.034 ms at 3.35 TB/s); recompute adds the forward's product (20.1
 // GFLOP, 0.300 ms). So operations bound both. But step t needs all of
 // dg_{t+1}, written by every block of the previous step, and on Hopper
-// blocks run in no order: as the forward kernel does, this first design
-// launches one kernel per step from the host loop below (the launch
-// boundary is the grid-wide barrier) and re-reads U from the L2 each
-// step, so its time is ~T launches of a few microseconds, far above the
-// bound. A persistent kernel with U resident in shared memory is later
-// work.
+// blocks run in no order. The stash backward takes one of two routes,
+// picked by the caller before the launch from the shapes and the
+// occupancy query (fused_lstm.lstm_bwd_stash_route):
 //
-// Per step, a block owns UNITS hidden units and BT batch rows:
+//   - "persist" (TPU row 3's redesign): ONE cooperative launch runs the
+//     whole reverse chain (lstm_bwd_stash_persist, persist.cuh). A block
+//     owns UN (4 or 8) units and BT (8 or 16) batch rows for all steps,
+//     its units' 4H-long columns of U resident in shared memory (128 KB
+//     at H=1024, 8 units), keeps dc of its (row, unit) in a register, and
+//     per reverse step stages dg_{t+1} of its rows from dg itself (a row
+//     of 4H floats is 16-byte aligned), in slabs of the contraction, two
+//     in flight, where its rows do not fit beside the weights
+//     (persist::slab_dots: 6 slabs of 704 at B=16, H=1024), forms its
+//     units' dh_carry, runs the stash chain below, writes dg_t and waits
+//     at ONE grid barrier: dg_t and dg_{t+1} are distinct slots, so no
+//     double buffer is needed. A seeded call forms dh0 = dg_0 @ U behind
+//     one more barrier. Its sums run in another order than the step
+//     route's (the warps split the contraction).
+//   - "step" (a shape whose blocks do not fit or are not co-resident, and
+//     the recompute backward at every shape): one kernel per step from
+//     the host loop below (the launch boundary is the grid-wide barrier),
+//     re-reading U from the L2 each step; its time is ~T launches of a
+//     few microseconds, far above the bound.
+//
+// Per step on the step route, a block owns UNITS hidden units and BT
+// batch rows:
 //   * it stages dg_{t+1} for its rows in shared memory (BT x 4H floats,
 //     64 KB at H=512), rounded to bf16 under bf16; each warp forms the
 //     dot of one row of U^T (passed in transposed, (H, 4H), so the
@@ -57,6 +75,7 @@
 #include <cmath>
 
 #include "lstm_common.cuh"
+#include "persist.cuh"
 
 namespace {
 
@@ -288,6 +307,160 @@ cudaError_t run(const float* a, const void* U, const void* Ut,
   return err;
 }
 
+// The stash backward's reverse chain in one cooperative launch (route
+// "persist", TPU row 3's redesign; persist.cuh). Block c owns the UN units
+// from u0 = (c % ug) * UN (ug = ceil(H / UN)) and the BT = 8 * BI batch
+// rows from b0 = (c / ug) * BT. It copies its units' columns of U into
+// shared memory once (ws: 4H rows of UN, w_stride(UN) apart; a bf16 U
+// converted exactly). Its thread o = b * UN + jj keeps dc of its (row,
+// unit) in a register across the steps (dcT on entry, dc0 written back at
+// the end) and loads the next step's stash, c_t, c_{t-1} and dhs before
+// the grid barrier. Per reverse step it stages dg_{t+1} of its rows from
+// dg in slabs of KS values (KS >= 4H: at once), rounded to bf16 under
+// BF16 as stage_dg rounds them, forms dh_carry = dg_{t+1} @ U for its
+// units (dhT, or 0, at T-1), runs lstm_bwd_step's stash arithmetic,
+// writes dg_t and waits at the barrier (none after step 0). With dh0 it
+// forms dh0 = dg_0 @ U the same way behind one more barrier.
+template <bool BF16, int BI, int UN>
+__global__ void __launch_bounds__(persist::THREADS, UN == 4 ? 2 : 1)
+lstm_bwd_stash_persist(const float* __restrict__ a,       // (T, B, 4H)
+                       const void* __restrict__ Uv,       // (4H, H)
+                       const float* __restrict__ drop,    // (B, H)
+                       const float* __restrict__ cs,      // (T, B, H)
+                       const float* __restrict__ c_prev,  // (T, B, H)
+                       const float* __restrict__ dhs,     // (T, B, H)
+                       const float* __restrict__ dhT,     // (B, H) or null
+                       float* __restrict__ dc,            // (B, H) in place
+                       float* dg,                         // (T, B, 4H)
+                       float* __restrict__ dh0,           // (B, H) or null
+                       int T, int B, int H, int act, int KS) {
+  namespace P = persist;
+  constexpr int BT = P::BLANES * BI, WS = P::w_stride(UN);
+  extern __shared__ __align__(16) float psm[];
+  const int K = 4 * H, SK = P::row_stride(KS);
+  float* ws = psm;                                 // (K, WS) U's columns
+  float* xs = ws + (size_t)K * WS;                 // 1 or 2 x (BT, SK)
+  float* red = xs + (size_t)(KS < K ? 2 : 1) * BT * SK;
+  const int ug = (H + UN - 1) / UN;
+  const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  for (int e = threadIdx.x; e < K * UN; e += P::THREADS) {
+    const int k = e / UN, j = e - k * UN;
+    ws[k * WS + j] = u0 + j < H ? load_w<BF16>(Uv, (size_t)k * H + u0 + j)
+                                : 0.f;
+  }
+  const int o = threadIdx.x, ob = o / UN, ou = u0 + o % UN;
+  const bool mine = o < BT * UN && ob < nb && ou < H;
+  const size_t bh = (size_t)B * H, bk = (size_t)B * K;
+  const size_t ih = (size_t)(b0 + ob) * H + ou, ig = (size_t)(b0 + ob) * K;
+  const float dr = mine ? drop[ih] : 0.f;
+  // this block's rows of the (B, 4H) cotangents of step t, rounded to
+  // bf16 under BF16 as they are staged: -> each unit's sum (unit_sum)
+  auto carry_dots = [&](int t) {
+    const float* src = dg + t * bk + (size_t)b0 * K;
+    P::slab_dots<BI, UN>([&](int r) { return src + (size_t)r * K; }, nb, K,
+                         K, KS, xs, SK, ws, red, P::bf16_or_ident<BF16>());
+    return o < BT * UN ? P::unit_sum<BI, UN>(red, o) : 0.f;
+  };
+  // step t's inputs of this thread's (row, unit)
+  struct In {
+    float f, i, o, c, ct, cp, dh;
+  };
+  auto fetch = [&](int t) {
+    In v{};
+    if (mine) {
+      const float* at = a + t * bk + ig;
+      v.f = at[ou];
+      v.i = at[H + ou];
+      v.o = at[2 * H + ou];
+      v.c = at[3 * H + ou];
+      v.ct = cs[t * bh + ih];
+      v.cp = c_prev[t * bh + ih];
+      v.dh = dhs[t * bh + ih];
+    }
+    return v;
+  };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float dcr = mine ? dc[ih] : 0.f;                 // dc carry of step t+1
+  In cur = fetch(T - 1);
+  __syncthreads();
+  for (int t = T - 1; t >= 0; --t) {
+    const float dot = t + 1 < T ? carry_dots(t + 1) : 0.f;
+    if (mine) {
+      // lstm_bwd_step's stash arithmetic
+      const float dh = (t + 1 < T ? dot : (dhT ? dhT[ih] : 0.f)) + cur.dh;
+      const float ac = act_fn(cur.ct, act);
+      const float dact_c = dact_out(ac, act), dact_gc = dact_out(cur.c, act);
+      const float dcv = dcr + dh * cur.o * dact_c;
+      float* d = dg + t * bk + ig;
+      d[ou] = dcv * cur.cp * cur.f * (1.f - cur.f);
+      d[H + ou] = dcv * cur.c * dr * cur.i * (1.f - cur.i);
+      d[2 * H + ou] = dh * ac * cur.o * (1.f - cur.o);
+      d[3 * H + ou] = dcv * cur.i * dr * dact_gc;
+      dcr = dcv * cur.f;
+    }
+    if (t > 0) {
+      cur = fetch(t - 1);
+      grid.sync();
+    }
+  }
+  if (mine) dc[ih] = dcr;
+  if (dh0) {
+    grid.sync();
+    const float dot = carry_dots(0);
+    if (mine) dh0[ih] = dot;
+  }
+}
+
+// one cooperative launch of the chain at block shape (BI, UN)
+template <bool BF16, int BI, int UN>
+cudaError_t launch_chain(int grid, int smem, cudaStream_t stream,
+                         const float* a, const void* U, const float* drop,
+                         const float* cs, const float* c_prev,
+                         const float* dhs, const float* dhT, float* dc,
+                         float* dg, float* dh0, int T, int B, int H, int act,
+                         int KS) {
+  return persist::launch<lstm_bwd_stash_persist<BF16, BI, UN>>(
+      grid, smem, stream, a, U, drop, cs, c_prev, dhs, dhT, dc, dg, dh0, T,
+      B, H, act, KS);
+}
+
+// The block shapes (bi, units) of the persistent chain
+// (fused_lstm.LSTM_BWD_SHAPES): 4 or 8 units and 8 or 16 rows. -> the
+// launcher and the occupancy query of one, or nulls for another shape.
+using ChainLaunch = cudaError_t (*)(int, int, cudaStream_t, const float*,
+                                    const void*, const float*, const float*,
+                                    const float*, const float*, const float*,
+                                    float*, float*, float*, int, int, int,
+                                    int, int);
+using ChainOccupancy = cudaError_t (*)(int, int*);
+
+template <bool BF16>
+void chain_shape(int bi, int units, ChainLaunch* launch,
+                 ChainOccupancy* occ) {
+#define PK_BWD_SHAPE(BI_, UN_)                                            \
+  if (bi == BI_ && units == UN_) {                                        \
+    *launch = launch_chain<BF16, BI_, UN_>;                               \
+    *occ = persist::occupancy<lstm_bwd_stash_persist<BF16, BI_, UN_>>;    \
+    return;                                                               \
+  }
+  PK_BWD_SHAPE(1, 4)
+  PK_BWD_SHAPE(1, 8)
+  PK_BWD_SHAPE(2, 4)
+  PK_BWD_SHAPE(2, 8)
+#undef PK_BWD_SHAPE
+  *launch = nullptr;
+  *occ = nullptr;
+}
+
+void chain_shape_of(int u_bf16, int bi, int units, ChainLaunch* launch,
+                    ChainOccupancy* occ) {
+  if (u_bf16)
+    chain_shape<true>(bi, units, launch, occ);
+  else
+    chain_shape<false>(bi, units, launch, occ);
+}
+
 }  // namespace
 
 extern "C" {
@@ -296,7 +469,8 @@ const char* pk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches the whole backward on `stream`: T step kernels in reverse
+// Launches the whole backward on `stream` on the step route: T step
+// kernels in reverse
 // time, plus one dot kernel when dh0 is asked for (and, for the
 // recompute backward with qbits > 0, one reduction for the T quantizer
 // scales first). Returns the first cudaError_t seen, 0 on success.
@@ -321,6 +495,39 @@ int fused_lstm_bwd(const float* a, const void* U, const void* Ut,
                   : (u_bf16 ? run<true, false> : run<false, false>);
   return fn(a, U, Ut, drop, h_prev, cs, c_prev, dhs, dhT, dc, dg, dh0,
             qslots, T, B, H, act, qbits, stream);
+}
+
+// The stash backward on the persistent route on `stream`: one cooperative
+// launch of `grid` blocks of lstm_bwd_stash_persist (bi: BT = 8 * bi rows
+// a block; units: 4 or 8; slab: the contraction values staged at once;
+// smem bytes of dynamic shared memory: fused_lstm.lstm_bwd_stash_plan
+// sizes all four). Returns its cudaError_t; cudaErrorInvalidValue for a
+// shape not instantiated. The arguments as fused_lstm_bwd's with stash=1
+// (no U^T: the block keeps its columns of U).
+int lstm_bwd_stash_persist_run(const float* a, const void* U,
+                               const float* drop, const float* cs,
+                               const float* c_prev, const float* dhs,
+                               const float* dhT, float* dc, float* dg,
+                               float* dh0, int T, int B, int H, int act,
+                               int u_bf16, int grid, int bi, int units,
+                               int slab, int smem, void* stream_ptr) {
+  ChainLaunch fn;
+  ChainOccupancy occ;
+  chain_shape_of(u_bf16, bi, units, &fn, &occ);
+  if (!fn) return cudaErrorInvalidValue;
+  return fn(grid, smem, static_cast<cudaStream_t>(stream_ptr), a, U, drop,
+            cs, c_prev, dhs, dhT, dc, dg, dh0, T, B, H, act, slab);
+}
+
+// out[0..2]: the chain's co-resident blocks per SM at `smem` bytes of
+// dynamic shared memory (u_bf16, bi and units as above), the SM count,
+// and whether the device takes cooperative launches.
+int lstm_bwd_stash_occupancy(int u_bf16, int bi, int units, int smem,
+                             int* out) {
+  ChainLaunch fn;
+  ChainOccupancy occ;
+  chain_shape_of(u_bf16, bi, units, &fn, &occ);
+  return occ ? occ(smem, out) : cudaErrorInvalidValue;
 }
 
 }  // extern "C"

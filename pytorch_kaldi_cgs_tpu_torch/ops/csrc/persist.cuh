@@ -2,9 +2,10 @@
 // the GRU BPTTs (fused_gru_torch.cu, fused_gru_sparse.cu), the liGRU's
 // recompute BPTT and its forward (fused_ligru.cu), the sparse GRU's
 // forward (fused_gru_sparse.cu), the dense GRU and minimalGRU forward and
-// the dense minimalGRU's recompute BPTT (fused_gru.cu). One launch runs
-// every step, each block owning UN
-// (8 or 16) hidden units and BT batch rows for the whole call, the
+// the dense minimalGRU's recompute BPTT (fused_gru.cu), the dense LSTM
+// forward (fused_lstm_fwd.cu) and its stash BPTT (fused_lstm_bwd.cu).
+// One launch runs every step, each block owning UN
+// (4, 8 or 16) hidden units and BT batch rows for the whole call, the
 // recurrent weights of its units resident in its shared memory, a
 // grid-wide barrier where a step needs what the other blocks wrote.
 //
@@ -28,10 +29,13 @@
 // 32 banks. Where BT rows of K do not fit beside the weights, slab_dots
 // stages them in slabs of the contraction, two in flight.
 //
-// The dense forwards (the GRU's, the minimalGRU's and the liGRU's) sum
-// their dots in the step kernels' order instead (resident_dots: a warp a
-// dot, lanes over k), and stage their quantized carries with
-// stage_quant, so that both of their routes give the same bits.
+// The dense forwards (the GRU's, the minimalGRU's, the liGRU's and the
+// LSTM's) sum their dots in the step kernels' order instead
+// (resident_dots: a warp a dot, lanes over k; the LSTM's lane_dots, the
+// same sums over a lane-major layout read 16 bytes at a time), and stage
+// their quantized carries with stage_quant (rounded to bf16 after q()
+// where the LSTM's dots are bf16), so that both of their routes give the
+// same bits.
 //
 // The barrier is cooperative_groups' grid.sync(). Timed once on the H100
 // against a hand-written counter barrier (release/acquire fences around one
@@ -205,12 +209,15 @@ __device__ __forceinline__ void unit_dots(const float* xs, int SK,
 // KS values (a multiple of 4; SK >= row_stride(KS)), the next slab's
 // copy in flight while the current one is summed; with KS >= K it stages
 // once into the first buffer. Each warp sums its share of each slab, so
-// the order of the sums is fixed by K and KS. Every thread of the block
-// takes part; no cp.async group may be pending on entry.
-template <int BI, int UN, typename Src>
+// the order of the sums is fixed by K and KS; xf transforms each staged
+// value before its products, as slab_fma's (the LSTM's bf16 rounding of
+// dg). Every thread of the block takes part; no cp.async group may be
+// pending on entry.
+template <int BI, int UN, typename Src, typename XF = bf16_or_ident<false>>
 __device__ __forceinline__ void slab_dots(Src src, int rows, int K, int KX,
                                           int KS, float* xs, int SK,
-                                          const float* ws, float* red) {
+                                          const float* ws, float* red,
+                                          XF xf = XF()) {
   constexpr int BT = BLANES * BI, WS = w_stride(UN);
   const int ns = (K + KS - 1) / KS;
   float acc[BI][UN];
@@ -236,7 +243,7 @@ __device__ __forceinline__ void slab_dots(Src src, int rows, int K, int KX,
     __syncthreads();
     const int k0 = s * KS;
     slab_fma<BI, UN>(xs + (size_t)(s & 1) * BT * SK, SK, ws + (size_t)k0 * WS,
-                     min(KS, K - k0), acc, bf16_or_ident<false>());
+                     min(KS, K - k0), acc, xf);
     if (s + 2 < ns) __syncthreads();    // issue(s + 2) refills this buffer
   }
   unit_reduce<BI, UN>(acc, red);
@@ -308,6 +315,70 @@ __device__ __forceinline__ void resident_dots(const float* ws,
     }
 }
 
+// floats between two lanes' segments of a lane-major row of K values
+// (lane_dots): the ceil(K / 32) values lane l sums (k = l, l + 32, ...)
+// rounded up to an odd number of float4s, so that the 8 lanes of each
+// phase of a 16-byte load fall on 32 distinct banks
+__host__ __device__ constexpr int lane_stride(int K) {
+  return 4 * ((((K + 31) / 32) + 3) / 4 | 1);
+}
+
+// usm[b][r] = sum_k xs[b][k] * ws[r][k] summed as resident_dots sums it
+// (a warp a dot, lane l taking k = l, l + 32, ... in turn, then the
+// shuffle reduction over the 32 lanes: the step kernels' bits), over rows
+// in the lane-major layout: value k at (k % 32) * SJ + k / 32, SJ =
+// lane_stride(K), zeros past K (fmaf(0, 0, acc) is acc: a sum from +0
+// never reaches -0), ws rows L = 32 * SJ floats apart, xs rows SK. A lane
+// reads 4 of its values in one 16-byte load, a quarter of resident_dots'
+// load instructions. Warps split as resident_dots'. Followed by a
+// __syncthreads before usm is read.
+template <int BT, int NR, int LD>
+__device__ __forceinline__ void lane_dots(const float* ws, const float* xs,
+                                          int SK, int K, int nb,
+                                          float (*usm)[LD]) {
+  constexpr int BQ = BT / 2, RQ = NR / 4;
+  static_assert(WARPS == 8 && NR % 4 == 0, "2 x 4 warps");
+  const int SJ = lane_stride(K), L = 32 * SJ, JV = ((K + 31) / 32 + 3) / 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;
+  const float* x = xs + (size_t)bq * SK + lane * SJ;
+  const float* w = ws + (size_t)rq * L + lane * SJ;
+  float acc[BQ][RQ];
+#pragma unroll
+  for (int p = 0; p < BQ; ++p)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) acc[p][q] = 0.f;
+  for (int j = 0; j < JV; ++j) {
+    float4 wv[RQ];
+#pragma unroll
+    for (int q = 0; q < RQ; ++q)
+      wv[q] = *reinterpret_cast<const float4*>(w + (size_t)q * L + 4 * j);
+#pragma unroll
+    for (int p = 0; p < BQ; ++p)
+      if (bq + p < nb) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(x + (size_t)p * SK + 4 * j);
+#pragma unroll
+        for (int q = 0; q < RQ; ++q) {
+          float a = acc[p][q];
+          a = fmaf(xv.x, wv[q].x, a);
+          a = fmaf(xv.y, wv[q].y, a);
+          a = fmaf(xv.z, wv[q].z, a);
+          acc[p][q] = fmaf(xv.w, wv[q].w, a);
+        }
+      }
+  }
+#pragma unroll
+  for (int p = 0; p < BQ; ++p)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) {
+      float v = acc[p][q];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) usm[bq + p][rq + q] = v;
+    }
+}
+
 // Stage the nb rows from row b0 of v (rows HP floats apart, HP a multiple
 // of 4, 16-byte aligned: the dense forwards' exchange buffers, written by
 // other blocks in this launch) into xsm (rows SK apart) by cp.async. With
@@ -317,8 +388,11 @@ __device__ __forceinline__ void resident_dots(const float* ws,
 // flight, since at one block of 8 warps an SM a pass one value at a time
 // waits on each load in turn (var == 0 leaves them unquantized, as quant()
 // does). q() on the values as the dots load them costs more: the warps of
-// one row group each load them (gru_fwd_variants.py). Every thread takes
-// part; gmax is a __shared__ word. -> var (0 without maxes).
+// one row group each load them (gru_fwd_variants.py). Under RND each
+// staged value is then rounded to bf16 (the LSTM's bf16 dots), also
+// where var == 0 or there are no maxes. Every thread takes part; gmax is
+// a __shared__ word. -> var (0 without maxes).
+template <bool RND = false>
 __device__ __forceinline__ float stage_quant(const float* v, int HP, int b0,
                                              int nb, float* xsm, int SK,
                                              const unsigned* maxes, int n,
@@ -335,9 +409,14 @@ __device__ __forceinline__ float stage_quant(const float* v, int HP, int b0,
   cp_async_wait_all();
   __syncthreads();
   const float var = maxes ? __uint_as_float(*gmax) : 0.f;
-  if (var == 0.f) return var;
+  if (var == 0.f && !RND) return var;
   constexpr int NC = STAGE_CHUNKS;
-  const float inv = 1.f / var;
+  const float inv = var != 0.f ? 1.f / var : 0.f;
+  // q() (the identity at var == 0), then bf16 under RND
+  auto q = [&](float x) {
+    const float y = quant_rcp(x, var, inv, qscale, iscale);
+    return RND ? round_bf16(y) : y;
+  };
   const int cpr = HP / 4, cn = nb * cpr;
   for (int c0 = 0; c0 < cn; c0 += THREADS * NC) {
     float4* x[NC];
@@ -352,10 +431,7 @@ __device__ __forceinline__ float stage_quant(const float* v, int HP, int b0,
 #pragma unroll
     for (int i = 0; i < NC; ++i)
       if (c0 + i * THREADS + threadIdx.x < cn)
-        *x[i] = make_float4(quant_rcp(r[i].x, var, inv, qscale, iscale),
-                            quant_rcp(r[i].y, var, inv, qscale, iscale),
-                            quant_rcp(r[i].z, var, inv, qscale, iscale),
-                            quant_rcp(r[i].w, var, inv, qscale, iscale));
+        *x[i] = make_float4(q(r[i].x), q(r[i].y), q(r[i].z), q(r[i].w));
   }
   __syncthreads();
   return var;

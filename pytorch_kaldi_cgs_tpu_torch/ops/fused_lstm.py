@@ -21,6 +21,11 @@ repeats its arithmetic and is what the CPU runs:
 A wrapper launches its kernel on a CUDA tensor (or raises) and runs its
 twin on a CPU tensor; its attribute ``launches`` counts kernel launches
 (one per time step, plus one for the ``dh0`` dot of a seeded backward).
+The dense forward and the stash BPTT pick their route before the launch
+(:func:`lstm_fwd_route`, :func:`lstm_bwd_stash_route`): "persist", the
+whole call as ONE cooperative launch (``csrc/persist.cuh``; counted
+once), where a plan's block fits shared memory and its grid is
+co-resident; else "step", a launch per step.
 
 :func:`lstm_scan_fused` (zero initial state) and
 :func:`lstm_scan_fused_seeded` (seeded carry, returns the final state)
@@ -350,9 +355,13 @@ def fused_lstm_fwd(gates: torch.Tensor, U: torch.Tensor,
     each (T, B, H) float32, and the stashed post-activation gates
     ``acts`` (T, B, 4H) when ``stash``.
 
-    CUDA tensors run the kernel, CPU tensors the plain twin. This is the
-    raw kernel call, with no autograd: differentiable callers use
-    :func:`lstm_scan_fused` / :func:`lstm_scan_fused_seeded`."""
+    CUDA tensors run the kernels on the route :func:`lstm_fwd_route`
+    picks before the launch: "persist" (all steps in one cooperative
+    launch, seeded or not) where the blocks fit and are co-resident, else
+    "step" (a launch per step); both give the same bits. CPU tensors run
+    the plain twin. This is the raw kernel call, with no autograd:
+    differentiable callers use :func:`lstm_scan_fused` /
+    :func:`lstm_scan_fused_seeded`."""
     if (h0 is None) != (c0 is None):
         raise ValueError("h0 and c0 go together")
     T, B, H, drop = _check_common("gates", gates, U, drop, act,
@@ -367,10 +376,42 @@ def fused_lstm_fwd(gates: torch.Tensor, U: torch.Tensor,
     if gates.device.type == "cpu":
         return fused_lstm_fwd_plain(gates, U, drop, h0, c0, act, qbits, bf16,
                                     stash)
+    route, plan = lstm_fwd_route(B, H, bf16, gates.device)
+    if route == "persist":
+        return _fwd_persist(plan, gates, U, drop, h0, c0, act, qbits, bf16,
+                            stash)
     return _fwd_kernel(gates, U, drop, h0, c0, act, qbits, bf16, stash)
 
 
 fused_lstm_fwd.launches = 0
+
+
+def _fwd_persist(plan, gates, U, drop, h0, c0, act, qbits, bf16, stash):
+    """The forward on the persistent route (``plan``: its PersistPlan,
+    :func:`lstm_fwd_plan`): all T steps in one cooperative launch, h_t
+    exchanged through two zeroed (B, :func:`lstm_fwd_exchange_row`)
+    buffers picked by the step's parity, a seed's quantizer scale taken
+    inside the launch."""
+    from . import block_sparse as BS
+    T, B, G4 = gates.shape
+    H, dev = G4 // 4, gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    Uk = U.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
+    hs = torch.empty((T, B, H), **f32)
+    cs = torch.empty_like(hs)
+    acts = torch.empty_like(gates) if stash else None
+    xh = torch.zeros((2, B, lstm_fwd_exchange_row(H, plan.units)), **f32)
+    # each block's max|h| of the last two steps, for the quantizer
+    bmax = torch.empty(2 * plan.grid if qbits > 0 else 1, dtype=torch.int32,
+                       device=dev)
+    BS._launch("fused_lstm_fwd", "lstm_fwd_persist_run", dev,
+               (gates.data_ptr(), Uk.data_ptr(), drop.data_ptr(), _ptr(h0),
+                _ptr(c0), hs.data_ptr(), cs.data_ptr(), _ptr(acts),
+                xh.data_ptr(), bmax.data_ptr()),
+               (T, B, H, _ACT_CODE[act], qbits, int(bf16), plan.grid,
+                plan.bi, plan.units, plan.smem))
+    fused_lstm_fwd.launches += lstm_fwd_launches("persist", T)
+    return (hs, cs, acts) if stash else (hs, cs)
 
 
 def _bwd_kernel(wrapper, lead, U, drop, h_prev, cs, c_prev, dhs, dhT, dcT,
@@ -404,6 +445,32 @@ def _bwd_kernel(wrapper, lead, U, drop, h_prev, cs, c_prev, dhs, dhT, dcT,
     return (dg, dh0, dc) if with_init else dg
 
 
+def _bwd_stash_persist(plan, acts, U, drop, cs, c_prev, dhs, dhT, dcT, act,
+                       bf16):
+    """The stash BPTT on the persistent route (``plan``: its
+    PersistPlan, :func:`lstm_bwd_stash_plan`): the whole reverse chain in
+    one cooperative launch, dh0 behind one more barrier when seeded.
+    -> as :func:`fused_lstm_bwd_stash`."""
+    from . import block_sparse as BS
+    T, B, G4 = acts.shape
+    H, dev = G4 // 4, acts.device
+    Uk = U.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
+    with_init = dhT is not None
+    dg = torch.empty_like(acts)
+    dc = (dcT.clone() if with_init
+          else torch.zeros((B, H), dtype=torch.float32, device=dev))
+    dh0 = torch.empty_like(dc) if with_init else None
+    BS._launch("fused_lstm_bwd", "lstm_bwd_stash_persist_run", dev,
+               (acts.data_ptr(), Uk.data_ptr(), drop.data_ptr(),
+                cs.data_ptr(), c_prev.data_ptr(), dhs.data_ptr(), _ptr(dhT),
+                dc.data_ptr(), dg.data_ptr(), _ptr(dh0)),
+               (T, B, H, _ACT_CODE[act], int(bf16), plan.grid, plan.bi,
+                plan.units, plan.slab, plan.smem))
+    fused_lstm_bwd_stash.launches += lstm_bwd_stash_launches("persist", T,
+                                                             with_init)
+    return (dg, dh0, dc) if with_init else dg
+
+
 def _check_bwd(name, lead, U, drop, act, seqs, dhT, dcT, backward):
     if (dhT is None) != (dcT is None):
         raise ValueError("dhT and dcT go together")
@@ -425,7 +492,8 @@ def fused_lstm_bwd_stash(acts: torch.Tensor, U: torch.Tensor,
     ``acts`` (T, B, 4H) from the stash forward, ``cs`` and ``c_prev``
     (T, B, H), upstream ``dhs`` (T, B, H), optional final-state
     cotangents ``dhT``/``dcT`` (B, H). -> dg (T, B, 4H), and
-    ``(dg, dh0, dc0)`` when seeded. CUDA tensors run the kernel, CPU
+    ``(dg, dh0, dc0)`` when seeded. CUDA tensors run the kernels on the
+    route :func:`lstm_bwd_stash_route` picks before the launch, CPU
     tensors the twin."""
     drop = _check_bwd("acts", acts, U, drop, act,
                       (("cs", cs), ("c_prev", c_prev), ("dhs", dhs)), dhT, dcT,
@@ -433,6 +501,11 @@ def fused_lstm_bwd_stash(acts: torch.Tensor, U: torch.Tensor,
     if acts.device.type == "cpu":
         return fused_lstm_bwd_stash_plain(acts, U, drop, cs, c_prev, dhs,
                                           dhT, dcT, act, bf16)
+    T, B, G4 = acts.shape
+    route, plan = lstm_bwd_stash_route(B, G4 // 4, bf16, acts.device)
+    if route == "persist":
+        return _bwd_stash_persist(plan, acts, U, drop, cs, c_prev, dhs, dhT,
+                                  dcT, act, bf16)
     return _bwd_kernel(fused_lstm_bwd_stash, acts, U, drop, None, cs, c_prev,
                        dhs, dhT, dcT, act, 0, bf16, True)
 
@@ -695,6 +768,143 @@ def grad_backward(cell: str, grad: bool) -> Optional[str]:
         return None
     stash = "stash" in _DENSE_SMEM[cell] and bwd_stash_enabled(cell)
     return "stash" if stash else "recompute"
+
+
+# ---------------------------------------------------------------------------
+# the dense forward's and the stash BPTT's persistent routes
+# (csrc/persist.cuh): the plan and the route, picked before the launch,
+# on fused_rnn's PersistPlan and route helpers
+# ---------------------------------------------------------------------------
+
+#: the block shapes (bi, units) that csrc/fused_lstm_fwd.cu's persistent
+#: forward and csrc/fused_lstm_bwd.cu's persistent chain instantiate: 4 or
+#: 8 units and 8 or 16 rows
+LSTM_FWD_SHAPES = ((1, 4), (1, 8), (2, 4), (2, 8))
+LSTM_BWD_SHAPES = ((1, 4), (1, 8), (2, 4), (2, 8))
+
+#: the H100's SMs, which the plans fill (the route's occupancy query
+#: decides whether a grid is co-resident on the card at hand)
+_SMS = 132
+
+
+def _lstm_shape(B: int, H: int) -> tuple:
+    """(bi, units) of the stash BPTT's persistent chain at batch B and
+    width H: 8 units and 8 (B <= 8) or 16 rows; where that grid would fill
+    at most half the SMs, half the outputs a block (8 rows at 16, else 4
+    units at 8), so that the grid spreads over them all (the flagship's
+    H=512: 128 blocks, not 64)."""
+    bi, un = (1, 8) if B <= 8 else (2, 8)
+    if -(-H // un) * -(-B // (8 * bi)) <= _SMS // 2:
+        bi, un = (1, 8) if bi == 2 else (1, 4)
+    return bi, un
+
+
+def _lstm_fwd_shape(B: int, H: int) -> tuple:
+    """(bi, units) of the persistent forward at batch B and width H: 4
+    units x 8 rows where that grid fits two blocks an SM (a 4-unit block
+    keeps to 128 registers a thread), else :func:`_lstm_shape`'s. Two
+    blocks, 16 warps, an SM run the dots faster than one block of twice
+    the outputs: the flagship train shape 1.56 ms a call against 1.96 at
+    8 units x 8 rows, 2x1024 at 8 rows 2.23 against 2.87 (``chip_smoke.py
+    --rnn-times``, NVIDIA H100 80GB HBM3 at 700 W)."""
+    if -(-H // 4) * -(-B // 8) <= 2 * _SMS:
+        return 1, 4
+    return _lstm_shape(B, H)
+
+
+def lane_row(H: int) -> int:
+    """Floats in a row of H values in persist.cuh's lane-major layout
+    (``lane_dots``): 32 lanes' segments of ``lane_stride(H)`` floats, the
+    ceil(H / 32) values a lane sums rounded up to an odd number of 4."""
+    return 32 * 4 * ((-(-H // 32) + 3) // 4 | 1)
+
+
+def lstm_fwd_exchange_row(H: int, units: int) -> int:
+    """Floats in a row of the persistent forward's exchange buffers (and
+    of its resident and staged rows at 8 units): H rounded up to 4 (16
+    bytes, for ``cp.async``) at 4 units, whose dots ``resident_dots``
+    forms; :func:`lane_row` (H) at 8, whose dots ``lane_dots`` forms."""
+    return lane_row(H) if units == 8 else -(-H // 4) * 4
+
+
+def lstm_fwd_plan(B: int, H: int, shape: Optional[tuple] = None):
+    """The dense LSTM forward's persistent chain at batch B and width H
+    (``shape`` forces (bi, units), one of :data:`LSTM_FWD_SHAPES`; else
+    :func:`_lstm_fwd_shape`): a block owns units (the last group masked
+    where they do not divide H) with their rows of the 4 gates resident
+    (float32, a bf16 U converted exactly), stages per step q(h_{t-1}): its
+    rows of the exchange buffer (``staged``; :func:`lstm_fwd_exchange_row`
+    floats each), and keeps one sum a row and gate-unit (4 x units of
+    them). At 4 units a row of U is H floats and a staged row
+    ``fused_rnn._row_stride(H)`` apart; at 8 both are :func:`lane_row`
+    (H) floats (the lane-major layout). -> fused_rnn.PersistPlan."""
+    from . import fused_rnn as R
+    bi, un = shape or _lstm_fwd_shape(B, H)
+    bt, nr, row = 8 * bi, 4 * un, lstm_fwd_exchange_row(H, un)
+    resident = 4 * nr * (row if un == 8 else H)
+    smem = resident + 4 * bt * (row if un == 8 else R._row_stride(H)) \
+        + 4 * bt * nr
+    grid = -(-H // un) * -(-B // bt)
+    return R.PersistPlan(bi, un, grid, smem, 0, resident,
+                         4 * min(bt, B) * row)
+
+
+def lstm_fwd_route(B: int, H: int, bf16: bool, dev) -> tuple:
+    """(route, plan) of :func:`fused_lstm_fwd` at batch B and width H on
+    the card ``dev``: "persist" where the plan's block fits and its grid
+    is co-resident (the occupancy query, ``fused_rnn._route``), else
+    "step"."""
+    from . import fused_rnn as R
+    plan = lstm_fwd_plan(B, H)
+    return R._route(plan, "fused_lstm_fwd", "lstm_fwd_occupancy",
+                    (int(bf16), plan.bi, plan.units),
+                    torch.device(dev)), plan
+
+
+def lstm_fwd_launches(route: str, T: int) -> int:
+    """Kernels one :func:`fused_lstm_fwd` call launches on ``route`` (as
+    its counter counts them): "persist" the one cooperative launch,
+    seeded or not (a seed's scale is taken inside it); "step" one a
+    step."""
+    return 1 if route == "persist" else T
+
+
+def lstm_bwd_stash_plan(B: int, H: int, shape: Optional[tuple] = None):
+    """The dense LSTM stash BPTT's persistent chain at batch B and width H
+    (``shape`` forces (bi, units), one of :data:`LSTM_BWD_SHAPES`; else
+    :func:`_lstm_shape`): a block owns its units' 4H-long columns of U
+    (float32; a bf16 U converted exactly), stages dg_{t+1} (4H floats a
+    row) per step: at once where the rows fit beside the weights and the
+    dots' partials, else in the fewest slabs of a multiple of 32 values
+    whose two buffers fit (``fused_rnn._slabs``).
+    -> fused_rnn.PersistPlan."""
+    from . import fused_rnn as R
+    bi, un = shape or _lstm_shape(B, H)
+    bt, K = 8 * bi, 4 * H
+    ws = 4 * K * R._w_stride(un)
+    red = 4 * R.PERSIST_WARPS * bt * un
+    slab, bufs = R._slabs(-(-K // 8) * 8, bt, ws + red)
+    smem = ws + 4 * bufs * bt * R._row_stride(slab) + red
+    grid = -(-H // un) * -(-B // bt)
+    return R.PersistPlan(bi, un, grid, smem, 0, 4 * K * un,
+                         4 * min(bt, B) * K, slab, -(-K // slab))
+
+
+def lstm_bwd_stash_route(B: int, H: int, bf16: bool, dev) -> tuple:
+    """(route, plan) of :func:`fused_lstm_bwd_stash` at batch B and width
+    H on the card ``dev``, as :func:`lstm_fwd_route`."""
+    from . import fused_rnn as R
+    plan = lstm_bwd_stash_plan(B, H)
+    return R._route(plan, "fused_lstm_bwd", "lstm_bwd_stash_occupancy",
+                    (int(bf16), plan.bi, plan.units),
+                    torch.device(dev)), plan
+
+
+def lstm_bwd_stash_launches(route: str, T: int, seeded: bool) -> int:
+    """Kernels one :func:`fused_lstm_bwd_stash` call launches on
+    ``route``: "persist" the one cooperative launch (dh0 inside it);
+    "step" one a reverse step, and the dh0 dot when seeded."""
+    return 1 if route == "persist" else T + int(seeded)
 
 
 def _check_sparse(name, lead, w3g, layout, drop, act, others, gates=4):

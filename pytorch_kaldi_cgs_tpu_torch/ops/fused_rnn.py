@@ -1258,6 +1258,22 @@ def _shape(B: int, wide=WIDE_SHAPE) -> tuple:
     return (1, 8) if B <= 8 else ((2, 8) if B <= 16 else wide)
 
 
+def _slabs(XS: int, bt: int, fixed: int) -> tuple:
+    """(slab, buffers) of a chain whose block keeps ``fixed`` bytes of
+    shared memory beside ``bt`` staged rows of XS values (a multiple of
+    8): whole rows in one buffer where they fit, else the fewest slabs of
+    a multiple of 32 values whose two buffers fit (persist::slab_dots)."""
+    if fixed + 4 * bt * _row_stride(XS) <= _SMEM_MAX:
+        return XS, 1
+    avail = (_SMEM_MAX - fixed) // (4 * 2 * bt)
+    n = 2
+    while True:                     # n slabs of ceil(XS / n), up to 32s
+        slab = (-(-XS // n) + 31) // 32 * 32
+        if _row_stride(slab) <= avail or slab <= 32:
+            return slab, 2
+        n += 1
+
+
 def ligru_bwd_plan(B: int, H: int, shape: Optional[tuple] = None
                    ) -> PersistPlan:
     """The liGRU recompute BPTT's persistent chain at batch B and width H
@@ -1268,19 +1284,9 @@ def ligru_bwd_plan(B: int, H: int, shape: Optional[tuple] = None
     fewest slabs of a multiple of 32 values whose two buffers fit."""
     bi, un = shape or _shape(B)
     bt, K = 8 * bi, 2 * H
-    XS = -(-K // 8) * 8
     ws = 4 * K * _w_stride(un)
     red = 4 * PERSIST_WARPS * bt * un
-    slab, bufs = XS, 1
-    if ws + 4 * bt * _row_stride(XS) + red > _SMEM_MAX:
-        avail = (_SMEM_MAX - ws - red) // (4 * 2 * bt)
-        n = 2
-        while True:                 # n slabs of ceil(XS / n), up to 32s
-            slab = (-(-XS // n) + 31) // 32 * 32
-            if _row_stride(slab) <= avail or slab <= 32:
-                break
-            n += 1
-        bufs = 2
+    slab, bufs = _slabs(-(-K // 8) * 8, bt, ws + red)
     smem = ws + 4 * bufs * bt * _row_stride(slab) + red
     grid = -(-H // un) * -(-B // bt)
     return PersistPlan(bi, un, grid, smem, 0, 4 * K * un,

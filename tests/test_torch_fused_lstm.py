@@ -117,10 +117,12 @@ def test_cuda_kernel_matches_plain_twin(cuda_device, bf16):
     g, U, drop, h0, c0 = (torch.from_numpy(a).to(cuda_device)
                           for a in _inputs(5, True))
     torch.backends.cuda.matmul.allow_tf32 = False
+    route = tfl.lstm_fwd_route(B, H, bf16, cuda_device)[0]
     with torch.no_grad():
         before = tfl.fused_lstm_fwd.launches
         hs, cs = tfl.fused_lstm_fwd(g, U, drop, h0, c0, qbits=16, bf16=bf16)
-        assert tfl.fused_lstm_fwd.launches == before + T
+        assert tfl.fused_lstm_fwd.launches == before + \
+            tfl.lstm_fwd_launches(route, T)
         hs_p, cs_p = tfl.fused_lstm_fwd_plain(g, U, drop, h0, c0, "tanh", 16,
                                               bf16)
     torch.cuda.synchronize()
@@ -320,18 +322,23 @@ def test_bwd_wrappers_reject_bad_inputs():
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_cuda_bwd_kernels_match_plain_twins(cuda_device, bf16, seeded, act):
     """The stash forward and both BPTT kernels against their twins on the
-    card, on the same tensors (qbits 16 on the recompute backward)."""
+    card, on the same tensors (qbits 16 on the recompute backward), each
+    on the route its plan names (the forward and the stash BPTT
+    persistent here, one launch a call)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g, U, drop, h0, c0, dhs, dhT, dcT = (torch.from_numpy(a).to(cuda_device)
                                          for a in _bwd_inputs(19))
     carry = (h0, c0) if seeded else (None, None)
     seeds = (dhT, dcT) if seeded else (None, None)
     atol = _atol(bf16)
+    fwd_route = tfl.lstm_fwd_route(B, H, bf16, cuda_device)[0]
+    bwd_route = tfl.lstm_bwd_stash_route(B, H, bf16, cuda_device)[0]
     with torch.no_grad():
         before = tfl.fused_lstm_fwd.launches
         hs, cs, acts = tfl.fused_lstm_fwd(g, U, drop, *carry, act=act,
                                           qbits=16, bf16=bf16, stash=True)
-        assert tfl.fused_lstm_fwd.launches == before + T
+        assert tfl.fused_lstm_fwd.launches == before + \
+            tfl.lstm_fwd_launches(fwd_route, T)
         ref = tfl.fused_lstm_fwd_plain(g, U, drop, *carry, act, 16, bf16,
                                        True)
         for a, b in zip((hs, cs, acts), ref):
@@ -344,7 +351,8 @@ def test_cuda_bwd_kernels_match_plain_twins(cuda_device, bf16, seeded, act):
         before = tfl.fused_lstm_bwd_stash.launches
         got = tfl.fused_lstm_bwd_stash(acts, U, drop, cs, c_prev, dhs, *seeds,
                                        act=act, bf16=bf16)
-        assert tfl.fused_lstm_bwd_stash.launches == before + T + extra
+        assert tfl.fused_lstm_bwd_stash.launches == before + \
+            tfl.lstm_bwd_stash_launches(bwd_route, T, seeded)
         ref = tfl.fused_lstm_bwd_stash_plain(acts, U, drop.expand(B, H), cs,
                                              c_prev, dhs, *seeds, act=act,
                                              bf16=bf16)
@@ -375,3 +383,203 @@ def test_cuda_function_grads_match_cpu(cuda_device, monkeypatch, stash):
     ref = _torch_grads(*args, True, 16, False)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the persistent routes of the forward (TPU row 1) and the stash BPTT
+# (row 3): every instantiated block shape, both routes (skip without a card)
+# ---------------------------------------------------------------------------
+
+def _card_inputs(T_, B_, H_, seed, dev):
+    """Forward and backward operands at (T_, B_, H_), U scaled by
+    1/sqrt(H_) so that the gates stay in the sigmoid's range at any
+    width."""
+    rng = np.random.RandomState(seed)
+
+    def d(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    return dict(g=d(rng.randn(T_, B_, 4 * H_) * 0.5),
+                U=d(rng.randn(4 * H_, H_) / np.sqrt(H_)),
+                drop=d(rng.rand(B_, H_) > 0.2), h0=d(rng.randn(B_, H_) * 0.3),
+                c0=d(rng.randn(B_, H_) * 0.3),
+                dhs=d(rng.randn(T_, B_, H_) * 0.1),
+                dhT=d(rng.randn(B_, H_) * 0.1), dcT=d(rng.randn(B_, H_) * 0.1))
+
+
+def _co_resident(plan, bwd, bf16, dev):
+    """Whether a (forced) plan's grid is co-resident on the card, as the
+    route asks (fused_rnn._route over the kernel's occupancy query)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as tfr
+    lib, entry = (("fused_lstm_bwd", "lstm_bwd_stash_occupancy") if bwd
+                  else ("fused_lstm_fwd", "lstm_fwd_occupancy"))
+    return tfr._route(plan, lib, entry, (int(bf16), plan.bi, plan.units),
+                      dev) == "persist"
+
+
+def _fwd_variants():
+    return [(bf16, seeded, qbits, act) for bf16 in (False, True)
+            for seeded in (False, True) for qbits in (0, 16)
+            for act in ("tanh", "relu")]
+
+
+#: (T, B, H) of the bit-for-bit checks: the small ragged shape of
+#: chip_smoke.py (B not a multiple of 8, H not of 4), rows not 16-byte
+#: aligned at H=550, and a ragged last row group
+BITS_TBH = ((13, 5, 18), (5, 8, 550), (6, 19, 45))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tbh", BITS_TBH, ids=["13x5x18", "5x8x550",
+                                               "6x19x45"])
+def test_cuda_lstm_fwd_persist_gives_the_step_routes_bits(cuda_device, tbh):
+    """Each dot of the persistent forward is one warp's, lanes over k and
+    a shuffle reduction, as in lstm_step, and its staging gives quant()'s
+    bits (then bf16's): at every instantiated block shape both routes
+    give equal bits in f32 and bf16, zero and seeded, with and without
+    the quantizer, tanh and relu, the stash included; one launch a
+    call."""
+    T_, B_, H_ = tbh
+    x = _card_inputs(T_, B_, H_, 31 + H_, cuda_device)
+    with torch.no_grad():
+        for bf16, seeded, qbits, act in _fwd_variants():
+            carry = (x["h0"], x["c0"]) if seeded else (None, None)
+            want = tfl._fwd_kernel(x["g"], x["U"], x["drop"], *carry, act,
+                                   qbits, bf16, True)
+            for shape in tfl.LSTM_FWD_SHAPES:
+                plan = tfl.lstm_fwd_plan(B_, H_, shape)
+                assert _co_resident(plan, False, bf16, cuda_device)
+                before = tfl.fused_lstm_fwd.launches
+                got = tfl._fwd_persist(plan, x["g"], x["U"], x["drop"],
+                                       *carry, act, qbits, bf16, True)
+                assert tfl.fused_lstm_fwd.launches == before + 1
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (shape, bf16, seeded, qbits,
+                                               act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_cuda_lstm_fwd_routes(cuda_device, bf16):
+    """The wrapper on the route its plan names (persistent at 11 rows of
+    37 units) against the twin, and the step route forced, each with its
+    route's launches; and 2x1024 at 16 rows, the plan's 8 x 16 blocks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for T_, B_, H_ in ((6, 11, 37), (4, 16, 1024)):
+        x = _card_inputs(T_, B_, H_, 41 + B_, cuda_device)
+        assert tfl.lstm_fwd_route(B_, H_, bf16, cuda_device)[0] == "persist"
+        with torch.no_grad():
+            for seeded, qbits in ((False, 0), (True, 16)):
+                carry = (x["h0"], x["c0"]) if seeded else (None, None)
+                ref = tfl.fused_lstm_fwd_plain(x["g"], x["U"], x["drop"],
+                                               *carry, "tanh", qbits, bf16,
+                                               True)
+                for call, n in (
+                        (lambda: tfl.fused_lstm_fwd(
+                            x["g"], x["U"], x["drop"], *carry, qbits=qbits,
+                            bf16=bf16, stash=True), 1),
+                        (lambda: tfl._fwd_kernel(
+                            x["g"], x["U"], x["drop"], *carry, "tanh", qbits,
+                            bf16, True), T_)):
+                    before = tfl.fused_lstm_fwd.launches
+                    got = call()
+                    assert tfl.fused_lstm_fwd.launches == before + n
+                    for a, b in zip(got, ref):
+                        np.testing.assert_allclose(
+                            a.cpu().numpy(), b.cpu().numpy(),
+                            atol=_atol(bf16) * (10 if qbits else 1),
+                            err_msg="H=%d seeded=%s" % (H_, seeded))
+
+
+def _bwd_case(x, seeded, act, bf16):
+    """The stash forward's outputs and the stash BPTT's operands."""
+    carry = (x["h0"], x["c0"]) if seeded else (None, None)
+    hs, cs, acts = tfl.fused_lstm_fwd_plain(x["g"], x["U"], x["drop"],
+                                            *carry, act, 0, bf16, True)
+    z = torch.zeros_like(x["h0"])[None]
+    c_prev = torch.cat([x["c0"][None] if seeded else z, cs[:-1]])
+    seeds = (x["dhT"], x["dcT"]) if seeded else (None, None)
+    return (acts, x["U"], x["drop"], cs, c_prev, x["dhs"]) + seeds
+
+
+def _assert_bwd_close(got, ref, bf16, what):
+    """Within the stash BPTT's bars: 1e-5 (f32) or 2e-2 (bf16) of each
+    output's scale."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        scale = max(float(b.abs().max()), 1.0)
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=_atol(bf16) * scale, err_msg=what)
+
+
+#: (T, B, H) of the stash BPTT checks: the small ragged shape, the 4x550
+#: width, and 2x1024 at 16 rows (the plan's 6 slabs of 704 a row)
+BWD_TBH = ((13, 5, 18), (5, 8, 550), (4, 16, 1024))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tbh", BWD_TBH, ids=["13x5x18", "5x8x550",
+                                              "4x16x1024"])
+def test_cuda_lstm_bwd_stash_persist_every_block_shape(cuda_device, tbh):
+    """The persistent stash BPTT forced to each instantiated block shape
+    (where its grid is co-resident) and so on the plan's own, seeded (dh0,
+    dc0) and not, f32
+    and bf16, tanh and relu: against the plain twin and the step route
+    within the stash BPTT's bars; one launch a call. At 16 rows of 1024
+    the plan stages dg_{t+1} in slabs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T_, B_, H_ = tbh
+    x = _card_inputs(T_, B_, H_, 61 + H_, cuda_device)
+    if H_ == 1024:
+        assert tfl.lstm_bwd_stash_plan(B_, H_).slabs == 6
+    with torch.no_grad():
+        for bf16 in (False, True):
+            plans = [tfl.lstm_bwd_stash_plan(B_, H_, s)
+                     for s in tfl.LSTM_BWD_SHAPES]
+            plans = [p for p in plans
+                     if _co_resident(p, True, bf16, cuda_device)]
+            assert tfl.lstm_bwd_stash_plan(B_, H_) in plans
+            for seeded in (False, True):
+                for act in ("tanh", "relu"):
+                    args = _bwd_case(x, seeded, act, bf16)
+                    ref = tfl.fused_lstm_bwd_stash_plain(*args, act=act,
+                                                         bf16=bf16)
+                    step = tfl._bwd_kernel(
+                        tfl.fused_lstm_bwd_stash, args[0], args[1], args[2],
+                        None, args[3], args[4], args[5], args[6], args[7],
+                        act, 0, bf16, True)
+                    what = "%s bf16=%s seeded=%s %s" % (tbh, bf16, seeded,
+                                                        act)
+                    _assert_bwd_close(step, ref, bf16, what + " step")
+                    for plan in plans:
+                        before = tfl.fused_lstm_bwd_stash.launches
+                        got = tfl._bwd_stash_persist(plan, *args, act, bf16)
+                        assert tfl.fused_lstm_bwd_stash.launches == before + 1
+                        _assert_bwd_close(got, ref, bf16, what)
+                        _assert_bwd_close(got, step, bf16, what + " vs step")
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_bwd_stash_in_forced_slabs(cuda_device):
+    """The chain with dg_{t+1} staged in forced slabs of 32 and 96 values
+    (two buffers, the last slab short) at a ragged width gives the
+    whole-row chain's results within the bars."""
+    import math
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as tfr
+    T_, B_, H_ = 7, 11, 37
+    x = _card_inputs(T_, B_, H_, 71, cuda_device)
+    args = _bwd_case(x, True, "tanh", False)
+    with torch.no_grad():
+        whole = tfl.fused_lstm_bwd_stash(*args)
+        for shape in tfl.LSTM_BWD_SHAPES:
+            plan = tfl.lstm_bwd_stash_plan(B_, H_, shape)
+            bt, K = 8 * plan.bi, 4 * H_
+            for ks in (32, 96):
+                forced = plan._replace(
+                    slab=ks, slabs=math.ceil(K / ks),
+                    smem=4 * K * tfr._w_stride(plan.units)
+                    + 4 * 2 * bt * tfr._row_stride(ks)
+                    + 4 * tfr.PERSIST_WARPS * bt * plan.units)
+                got = tfl._bwd_stash_persist(forced, *args, "tanh", False)
+                _assert_bwd_close(got, whole, False, "%s %d" % (shape, ks))

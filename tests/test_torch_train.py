@@ -495,18 +495,26 @@ def cuda_device():
 def test_cuda_train_step_matches_cpu(cuda_device, monkeypatch, stash):
     """One ChunkRunner.train_step on the card (the kernels) against the
     same step on the CPU (the twins): loss, every gradient, and the
-    kernel launches per step (2 layers x T steps each way)."""
+    kernel launches per step (2 layers, each way a call on the route its
+    plan names: the persistent forward and stash BPTT once a call, the
+    recompute BPTT T times)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     torch.backends.cuda.matmul.allow_tf32 = False
     monkeypatch.setenv("PKC_LSTM_BWD_RECOMPUTE", "0" if stash else "1")
-    T = 12
+    T, B, H = 12, 4, 16
     bwd = F.fused_lstm_bwd_stash if stash else F.fused_lstm_bwd
-    runner, inp, mask = _mem_runner(cuda_device, T=T)
-    cpu, _, _ = _mem_runner("cpu", T=T)
+    runner, inp, mask = _mem_runner(cuda_device, T=T, B=B)
+    cpu, _, _ = _mem_runner("cpu", T=T, B=B)
     F.fused_lstm_fwd.launches = bwd.launches = 0
     loss, err = runner.train_step(inp, mask)
     torch.cuda.synchronize()
-    assert (F.fused_lstm_fwd.launches, bwd.launches) == (2 * T, 2 * T)
+    fwd_route = F.lstm_fwd_route(B, H, False, cuda_device)[0]
+    bwd_route = F.lstm_bwd_stash_route(B, H, False, cuda_device)[0]
+    assert (fwd_route, bwd_route) == ("persist", "persist")
+    want = 2 * (F.lstm_bwd_stash_launches(bwd_route, T, False) if stash
+                else T)
+    assert (F.fused_lstm_fwd.launches, bwd.launches) == (
+        2 * F.lstm_fwd_launches(fwd_route, T), want)
     loss_c, err_c = cpu.train_step(inp, mask)
     # f32 on both sides; cuBLAS and the CPU sum in other orders
     np.testing.assert_allclose(float(loss), float(loss_c), atol=1e-5)
