@@ -1602,11 +1602,13 @@ def kernel_classes(by_name):
                "gru_fwd_kernel": ("gru_zr_step", "gru_h_step",
                                   "gru_fwd_persist", "gru_dense_fwd_persist"),
                # the step route's and the persistent route's (its rebuild's
-               # elementwise passes; its GEMMs count under v3_kernel)
+               # elementwise passes; its GEMMs count under v3_kernel), and
+               # the dense stash chain's G=3 instantiation
                "gru_bptt_kernel": ("gru_bwd_carry", "gru_bwd_ds",
                                    "gru_bwd_persist", "gru_zr_rebuild",
-                                   "gru_apre_rebuild", "quant_steps"),
-               "rnn_fwd_kernel": ("rnn_step",),
+                                   "gru_apre_rebuild", "quant_steps",
+                                   "gru_dense_bwd_persist<3"),
+               "rnn_fwd_kernel": ("rnn_step", "rnn_fwd_persist"),
                "rnn_bptt_kernel": ("rnn_bwd_step",),
                "v3_kernel": ("v3_fwd_gemm", "v3_weight_t", "v3_dx_tile"),
                "block_sparse_dw_kernel": ("dw_gemm", "dw_reduce"),
@@ -2638,7 +2640,7 @@ def phase_ligru_times(dev, rec, audio, lens):
 
 def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
                    serve_tbh, act, qbits, library, fwd_extra,
-                   lib="cudnn_gru", bwd_extra=None):
+                   lib="cudnn_gru", bwd_extra=None, stash_extra=None):
     """The kernels JSON rows of a dense fused cell's three kernels,
     ``fused_<cell>_fwd`` (the stash variant), ``_bwd_stash`` and ``_bwd``
     from ``csrc/fused_<cell>.cu``, replacing the JAX functions defined at
@@ -2649,9 +2651,9 @@ def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
     ``max_abs_err`` is the check at ``train_tbh`` with qbits 0;
     ``library_ms`` is ``library`` (a cuDNN module), a yardstick, read
     from ``times`` under ``<lib>_fwd_ms``, ``<lib>_bwd_ms`` and
-    ``<lib>_serve_fwd_ms``. ``fwd_extra`` maps more keys of the forward's
-    row to ``times``; ``bwd_extra`` holds more keys of the recompute
-    backward's row."""
+    ``<lib>_serve_fwd_ms``. ``fwd_extra`` and ``stash_extra`` map more
+    keys of the forward's and the stash backward's rows to ``times``;
+    ``bwd_extra`` holds more keys of the recompute backward's row."""
     T, B, H = train_tbh
     note = "%s %%s: a yardstick, not the same function" % library
     bwd_note = note % "backward (fwd+bwd minus fwd)"
@@ -2691,7 +2693,8 @@ def dense_rnn_rows(checks, times, launches, cell, replaces, train_tbh,
                    "library_ms": times[lib + "_serve_fwd_ms"]},
             **{k: times[v] for k, v in fwd_extra.items()}),
         row(bwd_stash, replaces[1], times[lib + "_bwd_ms"], bwd_note,
-            err_at(bwd_stash)),
+            err_at(bwd_stash),
+            **{k: times[v] for k, v in (stash_extra or {}).items()}),
         row(bwd, replaces[2], times[lib + "_bwd_ms"], bwd_note,
             err_at(bwd), **(bwd_extra or {}))]
 
@@ -2981,7 +2984,12 @@ PERSIST_ROUTES = {
     "fused_lstm_bwd_stash": ("lstm_bwd_stash_route", "fused_lstm_bwd",
                              "lstm_bwd_stash_occupancy",
                              lambda plan, bf16: (int(bf16), plan.bi,
-                                                 plan.units))}
+                                                 plan.units)),
+    "fused_gru_bwd_stash": ("gru_bwd_stash_route", "fused_gru",
+                            "gru_bwd_dense_occupancy",
+                            lambda plan, bf16: (3, plan.bi, plan.units)),
+    "fused_rnn_fwd": ("rnn_fwd_route", "fused_rnn", "fused_rnn_fwd_occupancy",
+                      lambda plan, bf16: (plan.bi, plan.units))}
 #: the dense forwards' gate counts (their route functions take G)
 DENSE_FWD_G = {"fused_gru_fwd": 3, "fused_mgru_fwd": 2}
 #: the dense LSTM's wrappers with a persistent route: their route
@@ -3170,6 +3178,52 @@ def mgru_bwd_design(route, T, qbits):
                 gru_dense_bwd_persist=1)
 
 
+def gru_bwd_stash_launches(dev, T, B, H):
+    """fused_gru_bwd_stash's route at (B, H) and its launches a call: the
+    one cooperative launch, or two a reverse step."""
+    route = chain_route(dev, "fused_gru_bwd_stash", B, H)[0]
+    return route, 1 if route == "persist" else 2 * T
+
+
+def gru_bwd_stash_design(route, T):
+    """fused_gru_bwd_stash's device kernels a call by name: the chain
+    (gru_dense_bwd_persist<3, ., ., false>), or two a reverse step."""
+    if route == "persist":
+        return {"gru_dense_bwd_persist": 1}
+    return {"gru_bwd_carry": T, "gru_bwd_ds": T}
+
+
+#: fused_rnn_fwd's launches a call on the persistent route, written from
+#: the design: the one cooperative launch, a seed's scale taken inside it
+#: ("step": one a step, as its counter counts them)
+RNN_FWD_PERSIST_LAUNCHES = 1
+
+
+def rnn_fwd_launches(dev, T, B, H):
+    """fused_rnn_fwd's route at (B, H) and its launches a call of T
+    steps."""
+    route = chain_route(dev, "fused_rnn_fwd", B, H)[0]
+    return route, RNN_FWD_PERSIST_LAUNCHES if route == "persist" else T
+
+
+def rnn_fwd_design(route, T, seeded=False, qbits=0):
+    """fused_rnn_fwd's device kernels a call by name: the one cooperative
+    launch, or a step kernel a step (after the reduction of max|h0| with
+    a seed and the quantizer)."""
+    if route == "persist":
+        return {"rnn_fwd_persist": 1}
+    return dict({"absmax_bits": 1} if seeded and qbits > 0 else {},
+                rnn_step=T)
+
+
+def rnn_stream_count(dev, layers, B, H):
+    """``count(T, chunk)`` of an RNN stream on the dense seeded forward:
+    each of ``layers`` layers' seeded call a chunk, on its route."""
+    return lambda T, c: layers * sum(
+        rnn_fwd_launches(dev, min(c, T - a), B, H)[1]
+        for a in range(0, T, c))
+
+
 def gru_fwd_sparse_launches(dev, T, B, layout, bf16=False):
     """fused_gru_fwd_sparse's route at B over ``layout`` and its
     launches a call."""
@@ -3257,7 +3311,7 @@ ROUTE_KERNELS = (
     "gru_dense_fwd_persist", "absmax_bits", "ligru_fwd_persist",
     "ligru_step", "gru_dense_bwd_persist", "mgru_z_rebuild", "rows_dots",
     "lstm_fwd_persist", "lstm_step", "lstm_bwd_stash_persist",
-    "lstm_bwd_step", "lstm_bwd_dh0")
+    "lstm_bwd_step", "lstm_bwd_dh0", "rnn_fwd_persist", "rnn_step")
 
 
 def bptt_design(route, T, qbits=None, bf16=False):
@@ -3336,7 +3390,8 @@ def last_call_kernels(fn, reps=3):
 def bptt_kernels(fn, want, tries=3):
     """Hold one call of the BPTT (or routed forward) ``fn`` to ``want``
     (bptt_design, ligru_bwd_design, gru_fwd_sparse_design,
-    gru_fwd_design, ligru_fwd_design, mgru_bwd_design): the kernel
+    gru_fwd_design, ligru_fwd_design, mgru_bwd_design,
+    gru_bwd_stash_design, rnn_fwd_design): the kernel
     records of the call (last_call_kernels) among ROUTE_KERNELS must be
     exactly those, so the route that ran is
     the one named. A trace that differs is taken again, up to ``tries``
@@ -3757,7 +3812,11 @@ def phase_timit_gru_kernels(dev):
     shapes, the step route at 96 rows), two calls bit for bit, its device
     kernels held to the route's (gru_fwd_design) once a shape; at the
     training shape the step route also runs forced
-    (fused_rnn._gru_fwd_step)."""
+    (fused_rnn._gru_fwd_step). The stash BPTT (row 20) the same way
+    (gru_bwd_stash_launches, gru_bwd_stash_design: persistent but at 96
+    rows of 1024), two calls bit for bit; at the training shape also on
+    the step route forced and at every other co-resident block shape of
+    GRU_BWD_SHAPES, forced."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
 
@@ -3821,12 +3880,40 @@ def phase_timit_gru_kernels(dev):
                 check("fused_gru_fwd/stash", shape, fvar,
                       rel_err((hs, acts), ref), tol_q, False)
                 h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
-                check("fused_gru_bwd_stash", shape, variant, rel_err(
-                    launched(R.fused_gru_bwd_stash, 2 * T,
-                             lambda: R.fused_gru_bwd_stash(
-                                 acts, U, drop, h_prev, dhs, act)),
-                    R.fused_gru_bwd_stash_plain(acts, U, drop, h_prev, dhs,
-                                                act)), tol, True)
+                bw = R.fused_gru_bwd_stash
+                b_route, n_bs = gru_bwd_stash_launches(dev, T, B, H)
+                bvar = dict(variant, route=b_route)
+                bcall = lambda: bw(acts, U, drop, h_prev, dhs, act)
+                ref_bs = R.fused_gru_bwd_stash_plain(acts, U, drop, h_prev,
+                                                     dhs, act)
+                check("fused_gru_bwd_stash", shape, bvar, rel_err(
+                    launched(bw, n_bs, bcall), ref_bs), tol, True)
+                check("fused_gru_bwd_stash/determinism", shape, bvar,
+                      same_bits(bcall), 0.0, False)
+                if k + 1 == len(cases):     # the kernels of the route
+                    bptt_kernels(bcall, gru_bwd_stash_design(b_route, T))
+                if shape == TG_TRAIN_TBH:   # the step route and each shape
+                    check("fused_gru_bwd_stash/step_route", shape,
+                          dict(variant, route="step"), rel_err(launched(
+                              bw, 2 * T, lambda: R._gru_bwd_step(
+                                  bw, "fused_gru_bwd", 3, acts, U, drop,
+                                  h_prev, dhs, act, 0, True)), ref_bs),
+                          tol, True)
+                    plan = R.gru_bwd_stash_plan(B, H)
+                    for shape_ in R.GRU_BWD_SHAPES:
+                        fp = R.gru_bwd_stash_plan(B, H, shape_)
+                        if shape_ == (plan.bi, plan.units) or \
+                                fp.smem > R._SMEM_MAX or not co_resident(
+                                    "fused_gru_bwd_stash", fp):
+                            continue
+                        check("fused_gru_bwd_stash/forced", shape,
+                              dict(variant, route="persist",
+                                   plan="%d units x %d rows" % (
+                                       fp.units, 8 * fp.bi)),
+                              rel_err(launched(
+                                  bw, 1, lambda: R._gru_bwd_stash_persist(
+                                      fp, acts, U, drop, h_prev, dhs, act)),
+                                  ref_bs), tol, True)
                 check("fused_gru_bwd", shape, variant, rel_err(
                     launched(R.fused_gru_bwd, 2 * T + 2,
                              lambda: R.fused_gru_bwd(g, U, drop, h_prev, dhs,
@@ -3842,12 +3929,15 @@ def phase_timit_gru_kernels(dev):
         (SMALL_TBH, "persist"), (TG_TRAIN_TBH, "persist"),
         (TG_SERVE_TBH, "persist"), (TG_TRAIN_TBH, "step"),
         (TG_WIDE_TBH, "step")})
+    check_fwd_routes(checks, "fused_gru_bwd_stash", {
+        (SMALL_TBH, "persist"), (TG_TRAIN_TBH, "persist"),
+        (TG_TRAIN_TBH, "step"), (TG_WIDE_TBH, "step")})
     return checks
 
 
 def check_fwd_routes(checks, kernel, want):
-    """Every (shape, route) of ``want`` among the checks of the dense
-    forward ``kernel``: both routes ran."""
+    """Every (shape, route) of ``want`` among the checks of the routed
+    ``kernel`` (a dense forward, or row 20's BPTT): both routes ran."""
     routes = {(tuple(c[k] for k in "TBH"), c["route"]) for c in checks
               if c["kernel"].split("/")[0] == kernel and "route" in c}
     if not want <= routes:
@@ -3890,14 +3980,17 @@ def timit_gru_train_runner(dev, compute_dtype=""):
 def phase_timit_gru_train(dev):
     """One train step on the card against the CPU with the stash backward
     (the default) and, from fresh runners, with the recompute one
-    (PKC_LSTM_BWD_RECOMPUTE=1); launches per step in both; 10 steps at
-    the cfg's learning rates in f32 and bf16."""
+    (PKC_LSTM_BWD_RECOMPUTE=1); launches per step in both, each routed
+    kernel its route's; 10 steps at the cfg's learning rates in f32 and
+    bf16."""
     T, B, H = TG_TRAIN_TBH
     n = TG_LAYERS * gru_fwd_launches(dev, "fused_gru_fwd", T, B, H)[1]
     out = phase_train(dev, timit_gru_train_runner, "timit_gru_train",
                       lstm_modes(T, expected(fused_gru_fwd=n,
                                              fused_gru_bwd_stash=(
-                                                 TG_LAYERS * 2 * T)),
+                                                 TG_LAYERS *
+                                                 gru_bwd_stash_launches(
+                                                     dev, T, B, H)[1])),
                                  expected(fused_gru_fwd=n, fused_gru_bwd=(
                                      TG_LAYERS * (2 * T + 2)))))
     knob = "PKC_LSTM_BWD_RECOMPUTE"
@@ -4023,7 +4116,8 @@ def phase_gru_large_batch(dev):
 def phase_timit_gru_times(dev, rec, audio, lens):
     """CUDA-event times of the dense GRU kernels per layer call at the
     training shape (the forward also at the serving shape), as the cfg
-    runs them (tanh, no quantizer); their twins and bounds; cuDNN's
+    runs them (tanh, no quantizer); their twins and bounds; row 20's route
+    and plan and its other co-resident block shapes, forced; cuDNN's
     nn.GRU(550, 550) as a yardstick; the dU matmuls; the TIMIT GRU train
     step and recognize."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
@@ -4061,6 +4155,18 @@ def phase_timit_gru_times(dev, rec, audio, lens):
         times["fused_gru_fwd_ms_q16"] = cuda_ms(
             lambda: R.fused_gru_fwd(g, U, drop, act=act, qbits=16,
                                     stash=True), reps=10)
+        # row 20: its route and plan, each other block shape forced
+        route, plan = chain_route(dev, "fused_gru_bwd_stash", B, H)
+        times["fused_gru_bwd_stash_kernel_route"] = {
+            "train": {"route": route, "plan": plan}}
+        times["fused_gru_bwd_stash_by_block_shape"] = forced_plan_ms(
+            "fused_gru_bwd_stash", lambda shape_, run=False: (
+                R._gru_bwd_stash_persist(R.gru_bwd_stash_plan(B, H, shape_),
+                                         acts, U, drop, h_prev, dhs, act)
+                if run else R.gru_bwd_stash_plan(B, H, shape_)), 10,
+            [s_ for s_ in getattr(R, "GRU_BWD_SHAPES", ())
+             if s_ != (plan.get("batch_rows_per_block", 0) // 8,
+                       plan.get("units_per_block"))])
         Ts, Bs, _ = TG_SERVE_TBH
         sv = gated_inputs(Ts, Bs, H, 176, dev, act, 3)
         times["serve_fwd_ms"] = cuda_ms(
@@ -4125,7 +4231,16 @@ def phase_timit_rnn_kernels(dev):
     scalar), the training shape (mask), the serving shape (the eval
     scalar; forward only) and H=1024 (T=6, 96 rows; the scalar); the
     seeded forward from h_{k-1} against the zero-state forward's steps
-    k..T-1; each wrapper's launch counter must move by its launches."""
+    k..T-1; each wrapper's launch counter must move by its launches. The
+    forward runs on the route its plan names (rnn_fwd_launches:
+    persistent but at 96 rows of 1024), two calls bit for bit, its device
+    kernels held to the route's (rnn_fwd_design) once a shape; at the
+    training shape also on the step route forced, whose bits the
+    persistent route must give in every variant (zero and seeded, stash
+    and not, qbits 0 and 16, tanh and relu), also forced to every other
+    co-resident block shape of RNN_FWD_SHAPES; and at the CGS-16x RNN's
+    dense stream shape (a seeded chunk of 100 frames at 8 rows of 1024,
+    relu, qbits 16) both routes, bit for bit, against the twin."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
 
@@ -4151,27 +4266,41 @@ def phase_timit_rnn_kernels(dev):
             tol = TOL_F32_SMALL if small else TOL_F32_SERVE
             tol_q = TOL_Q16 if qbits else tol
             fwd = R.fused_rnn_fwd
+            route, n = rnn_fwd_launches(dev, T, B, H)
+            fvar = dict(variant, route=route)
             with torch.no_grad():
                 ref = R.fused_rnn_fwd_plain(g, U, drop, None, act, qbits, True)
-                hs = launched(fwd, T, lambda: fwd(g, U, drop, act=act,
+                hs = launched(fwd, n, lambda: fwd(g, U, drop, act=act,
                                                   qbits=qbits))
-                check("fused_rnn_fwd", shape, variant, rel_err(hs, ref[0]),
+                check("fused_rnn_fwd", shape, fvar, rel_err(hs, ref[0]),
                       tol_q, False)
-                check("fused_rnn_fwd/seeded", shape, variant, rel_err(
-                    launched(fwd, T, lambda: fwd(g, U, drop, h0, act=act,
+                check("fused_rnn_fwd/seeded", shape, fvar, rel_err(
+                    launched(fwd, n, lambda: fwd(g, U, drop, h0, act=act,
                                                  qbits=qbits)),
                     R.fused_rnn_fwd_plain(g, U, drop, h0, act, qbits)),
                     tol_q, False)
                 s = T // 2          # seeded from h_{s-1}: steps s..T-1
-                check("fused_rnn_fwd/seeded_vs_shifted", shape, variant,
-                      rel_err(launched(fwd, T - s, lambda: fwd(
-                          g[s:].contiguous(), U, drop, hs[s - 1].contiguous(),
-                          act=act, qbits=qbits)), hs[s:]), tol_q, False)
+                check("fused_rnn_fwd/seeded_vs_shifted", shape, fvar,
+                      rel_err(launched(
+                          fwd, rnn_fwd_launches(dev, T - s, B, H)[1],
+                          lambda: fwd(g[s:].contiguous(), U, drop,
+                                      hs[s - 1].contiguous(), act=act,
+                                      qbits=qbits)), hs[s:]), tol_q, False)
+                check("fused_rnn_fwd/determinism", shape, fvar, same_bits(
+                    lambda: fwd(g, U, drop, h0, act=act, qbits=qbits,
+                                stash=True)), 0.0, False)
+                if (qbits, act) == (16, "relu"):    # the route's kernels
+                    bptt_kernels(lambda: fwd(g, U, drop, h0, act=act,
+                                             qbits=qbits),
+                                 rnn_fwd_design(route, T, True, qbits))
+                if shape == TR_TRAIN_TBH:
+                    rnn_fwd_step_checks(check, shape, variant, g, U, drop,
+                                        h0, act, qbits, tol_q)
                 if serve:
                     continue
-                hs_s, acts = launched(fwd, T, lambda: fwd(
+                hs_s, acts = launched(fwd, n, lambda: fwd(
                     g, U, drop, act=act, qbits=qbits, stash=True))
-                check("fused_rnn_fwd/stash", shape, variant,
+                check("fused_rnn_fwd/stash", shape, fvar,
                       rel_err((hs_s, acts), ref), tol_q, False)
                 h_prev = torch.cat([torch.zeros_like(hs_s[:1]), hs_s[:-1]])
                 check("fused_rnn_bwd_stash", shape, variant, rel_err(
@@ -4186,17 +4315,82 @@ def phase_timit_rnn_kernels(dev):
                                                      act, qbits)),
                     R.fused_rnn_bwd_plain(g, U, drop, h_prev, dhs, act,
                                           qbits)), tol_q, True)
+    # the CGS-16x RNN's dense stream: a seeded chunk of 100 at 8 rows of
+    # 1024, relu behind the 16-bit quantizer, on both routes
+    T, B, H = 100, RS_TRAIN_TBH[1], RS_TRAIN_TBH[2]
+    inp = gated_inputs(T, B, H, 199, dev, "relu", 1)
+    g, U, drop, h0 = (inp[n] for n in ("g", "U", "drop", "h0"))
+    variant = {"qbits": 16, "act": "relu", "drop": "(B,H)"}
+    with torch.no_grad():
+        route, n = rnn_fwd_launches(dev, T, B, H)
+        check("fused_rnn_fwd/seeded", (T, B, H), dict(variant, route=route),
+              rel_err(launched(R.fused_rnn_fwd, n, lambda: R.fused_rnn_fwd(
+                  g, U, drop, h0, act="relu", qbits=16)),
+                  R.fused_rnn_fwd_plain(g, U, drop, h0, "relu", 16)),
+              TOL_Q16, False)
+        rnn_fwd_step_checks(check, (T, B, H), variant, g, U, drop, h0,
+                            "relu", 16, TOL_Q16, shapes=False)
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError("a dense RNN kernel disagrees with its plain "
                              "twin: %s" % bad)
+    check_fwd_routes(checks, "fused_rnn_fwd", {
+        (SMALL_TBH, "persist"), (TR_TRAIN_TBH, "persist"),
+        (TR_SERVE_TBH, "persist"), (TR_TRAIN_TBH, "step"),
+        (TR_WIDE_TBH, "step"), ((T, B, H), "persist"), ((T, B, H), "step")})
     return checks
 
 
+def rnn_fwd_step_checks(check, shape, variant, g, U, drop, h0, act, qbits,
+                        tol, shapes=True):
+    """Row 27's step route forced (fused_rnn._rnn_fwd_step) against the
+    twin, and the route the wrapper takes bit for bit equal to it, zero
+    and seeded, stash and not (the persistent route gives the step
+    route's bits); with ``shapes`` also each other co-resident block shape
+    of RNN_FWD_SHAPES forced, bit for bit, with the stash."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = shape
+    fwd = R.fused_rnn_fwd
+    svar = dict(variant, route="step")
+    route = rnn_fwd_launches("cuda", T, B, H)[0]
+    for seed in (None, h0):
+        carry = "seeded" if seed is not None else "zero"
+        for stash in (False, True):
+            st = launched(fwd, T, lambda: R._rnn_fwd_step(
+                g, U, drop, seed, act, qbits, stash))
+            check("fused_rnn_fwd/step_route/%s%s" % (
+                carry, "/stash" if stash else ""), shape, svar, rel_err(
+                    st, R.fused_rnn_fwd_plain(g, U, drop, seed, act, qbits,
+                                              stash)), tol, False)
+            check("fused_rnn_fwd/%s_vs_step/%s%s" % (
+                route, carry, "/stash" if stash else ""), shape,
+                dict(variant, route=route), bits_apart(fwd(
+                    g, U, drop, seed, act=act, qbits=qbits, stash=stash),
+                    st), 0.0, False)
+            if not (shapes and stash):
+                continue
+            plan = R.rnn_fwd_plan(B, H)
+            for shape_ in R.RNN_FWD_SHAPES:
+                fp = R.rnn_fwd_plan(B, H, shape_)
+                if shape_ == (plan.bi, plan.units) or \
+                        fp.smem > R._SMEM_MAX or not co_resident(
+                            "fused_rnn_fwd", fp):
+                    continue
+                check("fused_rnn_fwd/forced_vs_step/%s/stash" % carry, shape,
+                      dict(variant, route="persist", plan="%d units x %d rows"
+                           % (fp.units, 8 * fp.bi)), bits_apart(launched(
+                               fwd, 1, lambda: R._rnn_fwd_persist(
+                                   fp, g, U, drop, seed, act, qbits, True)),
+                               st), 0.0, False)
+
+
 def timit_rnn_expect_serve(T):
-    """Launches per recognize: 4 layers x 1 per frame."""
-    return expected(fused_rnn_fwd=TR_LAYERS * T)
+    """Launches per recognize: 4 layers of the dense RNN forward at 8
+    rows, each its route's (rnn_fwd_launches: 1 a call on the persistent
+    route, T on the step route), no other kernel."""
+    return expected(fused_rnn_fwd=TR_LAYERS * rnn_fwd_launches(
+        "cuda", T, N_UTT, TR_TRAIN_TBH[2])[1])
 
 
 def timit_rnn_train_setup(compute_dtype="", lr_scale=1.0, act="relu"):
@@ -4240,8 +4434,8 @@ def phase_timit_rnn_train(dev):
     the CPU's own worst change under a one-ulp change of x (measured in
     the run, at least TOL_GRAD_REL), as the Li-GRU's; the same step with
     rnn_act=tanh (no flips) to TOL_GRAD_REL, with both backwards."""
-    T = TR_TRAIN_TBH[0]
-    n = TR_LAYERS * T
+    T, B, H = TR_TRAIN_TBH
+    n = TR_LAYERS * rnn_fwd_launches(dev, T, B, H)[1]
     knob = "PKC_BWD_STASH_CELLS"
     inp, mask = timit_rnn_train_setup()[2]
     sens, where = ulp_sensitivity(timit_rnn_train_runner, inp, mask,
@@ -4254,7 +4448,7 @@ def phase_timit_rnn_train(dev):
         ("recompute", knob, None,
          expected(fused_rnn_fwd=n, fused_rnn_bwd=TR_LAYERS * (T + 1))),
         ("stash", knob, "rnn",
-         expected(fused_rnn_fwd=n, fused_rnn_bwd_stash=n))),
+         expected(fused_rnn_fwd=n, fused_rnn_bwd_stash=TR_LAYERS * T))),
         grad_tol=grad_tol, fall_runner=lambda d, cdt="":
         timit_rnn_train_runner(d, cdt, TR_FALL_LR_SCALE))
     out.update(cpu_ulp_grad_rel_change=sens, cpu_ulp_worst=where)
@@ -4311,13 +4505,14 @@ def phase_cudnn_wrappers(dev):
     for name, H, extra in CUDNN_CASES:
         cell = {"RNN_cudnn": "rnn", "LSTM_cudnn": "lstm",
                 "GRU_cudnn": "gru_torch"}[name]
-        # the LSTM's layer calls on their routes (one launch a call on
-        # the persistent route), the others' a launch a step
-        fwd = 4 * (lstm_fwd_launches(dev, T, B, H)[1] if cell == "lstm"
-                   else T)
+        # the LSTM's and the RNN's layer calls on their routes (one
+        # launch a call on the persistent route), the GRU's a launch a step
+        fwd = 4 * {"lstm": lambda: lstm_fwd_launches(dev, T, B, H)[1],
+                   "rnn": lambda: rnn_fwd_launches(dev, T, B, H)[1],
+                   "gru_torch": lambda: T}[cell]()
         want_eval = expected(**{"fused_%s_fwd" % cell: fwd})
         want_train = expected(**{
-            "rnn": {"fused_rnn_fwd": 4 * T, "fused_rnn_bwd": 4 * (T + 1)},
+            "rnn": {"fused_rnn_fwd": fwd, "fused_rnn_bwd": 4 * (T + 1)},
             "lstm": {"fused_lstm_fwd": fwd, "fused_lstm_bwd_stash":
                      4 * lstm_bwd_stash_launches(dev, T, B, H)[1]},
             "gru_torch": {"fused_gru_torch_fwd": 4 * T,
@@ -4388,8 +4583,11 @@ def phase_timit_rnn_times(dev, rec, audio, lens):
     """CUDA-event times of the dense RNN kernels per layer call at the
     training shape (the forward also at the serving shape, with the eval
     scalar), as the cfg runs them (relu, no quantizer); their twins and
-    bounds; cuDNN's nn.RNN(550, 550, nonlinearity="relu") as a
-    yardstick; the dU matmul; the TIMIT RNN train step and recognize."""
+    bounds; row 27's routes and plans (train, serve, the CGS-16x RNN's
+    dense stream, a seeded chunk of which is timed) and its other
+    co-resident block shapes at the train shape, forced; cuDNN's
+    nn.RNN(550, 550, nonlinearity="relu") as a yardstick; the dU matmul;
+    the TIMIT RNN train step and recognize."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     T, B, H = TR_TRAIN_TBH
     act = "relu"
@@ -4432,6 +4630,31 @@ def phase_timit_rnn_times(dev, rec, audio, lens):
                                           0), reps=2, warmup=1)
         times["serve_fwd_bound_ms"], times["serve_fwd_bound_by"] = \
             rnn_bound_ms(Ts, Bs, H, "fwd")
+        # row 27's routes and plans: train, serve and the CGS-16x RNN's
+        # dense stream (a seeded chunk of 100 at 8 rows of 1024, qbits 16,
+        # timed too); at the train shape each other block shape, forced
+        Hc = RS_TRAIN_TBH[2]
+        times["fused_rnn_fwd_kernel_route"] = {
+            tag: dict(zip(("route", "plan"), chain_route(
+                dev, "fused_rnn_fwd", B_, H_)))
+            for tag, B_, H_ in (("train", B, H), ("serve", Bs, H),
+                                ("cgs16x_stream", B, Hc))}
+        plan = times["fused_rnn_fwd_kernel_route"]["train"]["plan"]
+        times["fused_rnn_fwd_by_block_shape"] = forced_plan_ms(
+            "fused_rnn_fwd", lambda shape_, run=False: (
+                R._rnn_fwd_persist(R.rnn_fwd_plan(B, H, shape_), g, U, drop,
+                                   None, act, 0, True)
+                if run else R.rnn_fwd_plan(B, H, shape_)), 10,
+            [s_ for s_ in getattr(R, "RNN_FWD_SHAPES", ())
+             if s_ != (plan.get("batch_rows_per_block", 0) // 8,
+                       plan.get("units_per_block"))])
+        ck = gated_inputs(100, B, Hc, 197, dev, act, 1)
+        times["cgs16x_stream_chunk100_ms"] = cuda_ms(
+            lambda: R.fused_rnn_fwd(ck["g"], ck["U"], ck["drop"], ck["h0"],
+                                    act=act, qbits=16), reps=10)
+        times["cgs16x_stream_chunk100_bound_ms"] = rnn_bound_ms(
+            100, B, Hc, "fwd")[0]
+        del ck
         # the dU product outside the BPTT kernel: (H, T*B) @ (T*B, H)
         dg = torch.randn(T * B, H, device=dev)
         hq = torch.randn(T * B, H, device=dev)
@@ -5661,21 +5884,23 @@ def phase_rnn_sparse_kernels(dev):
 def phase_rnn_sparse_stream(dev, rec, audio, lens, phones, logp, noq,
                             chunk=100):
     """A stream drops the sparse layout (as the JAX package's does) and
-    runs the dense seeded RNN forward over the masked U, 4 launches a
-    frame: one chunk of the whole utterance against the sparse
+    runs the dense seeded RNN forward over the masked U, each layer's
+    call a chunk on its route (rnn_stream_count: one launch a call on the
+    persistent route): one chunk of the whole utterance against the sparse
     whole-utterance posteriors within TOL_Q16, chunks of 100 against the
     CPU's stream of the same chunks within TOL_POST_Q16 with equal phones
     (phase_ligru_stream); without the 16-bit quantizers, chunks of 100
     against the whole utterance within TOL_POST. ``noq``: phase_serve's
     (rec, phones, logp, ...) of the stack without them."""
+    count = rnn_stream_count(dev, RS_LAYERS, N_UTT, RS_TRAIN_TBH[2])
     launches, out = phase_ligru_stream(
         dev, rec, audio, lens, phones, logp, chunk, build_rnn_sparse_stack,
-        "rnn_sparse_stream", TOL_Q16, "fused_rnn_fwd", RS_LAYERS)
+        "rnn_sparse_stream", TOL_Q16, "fused_rnn_fwd", RS_LAYERS, count)
     rec_noq, phones_noq, logp_noq = noq[:3]
     _, out["chunks_vs_whole_no_quant_inp"] = phase_stream(
         dev, rec_noq, audio, lens, phones_noq, logp_noq, chunk,
         "rnn_sparse_stream, rnn_quant_inp=False", TOL_POST, "fused_rnn_fwd",
-        RS_LAYERS)
+        RS_LAYERS, count)
     return launches, out
 
 
@@ -6999,7 +7224,8 @@ def port_lstm_layer_times(dev, T, B, H, reps=10):
 def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
     """ms per call of ``kernel``'s persistent route at each block shape
     (bi, units) of ``shapes`` (by default the blocks of 256 outputs its
-    plan weighs, 8 units x 32 rows and 16 x 16) where it fits:
+    plan weighs, 8 units x 32 rows and 16 x 16) where it fits and its
+    grid is co-resident:
     ``call_plan(shape)`` returns the plan forced to (bi, units),
     ``call_plan(shape, run=True)`` runs one call on it; {} for a package
     without the route. The plan the route picks is timed by the caller."""
@@ -7012,14 +7238,16 @@ def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
                "fused_ligru_fwd": "ligru_fwd_plan",
                "fused_mgru_bwd": "mgru_bwd_plan",
                "fused_lstm_fwd": "lstm_fwd_plan",
-               "fused_lstm_bwd_stash": "lstm_bwd_stash_plan"}[kernel]
+               "fused_lstm_bwd_stash": "lstm_bwd_stash_plan",
+               "fused_gru_bwd_stash": "gru_bwd_stash_plan",
+               "fused_rnn_fwd": "rnn_fwd_plan"}[kernel]
     if not hasattr(F if kernel in LSTM_PERSIST else R, plan_fn):
         return {}
     out = {}
     for shape_ in shapes:
         plan = call_plan(shape_)
-        if plan.smem + plan.static > R._SMEM_MAX or (
-                kernel in LSTM_PERSIST and not co_resident(kernel, plan)):
+        if plan.smem + plan.static > R._SMEM_MAX or not co_resident(
+                kernel, plan):
             continue
         out["%dx%d" % (plan.units, 8 * plan.bi)] = {
             "ms": cuda_ms(lambda: call_plan(shape_, run=True), reps),
@@ -7161,9 +7389,13 @@ def phase_rnn_turn_times(dev):
     shapes and a seeded chunk of 100 frames, each also at 4 and 16 units
     a block; row 26 (relu, qbits 16) with its rebuild / chain split;
     nn.GRU(550)'s forward, backward (fwd+bwd minus fwd) and the port's
-    whole GRU_cudnn layer backward the same way beside row 23; rows 17,
-    20, 21, 22, 23, 25, 33, 34, 35, 13 (libri G=3, 8-bit, submask) and 15
-    (the libri v3 dw) as the rows that must not move; rows 1 and 3
+    whole GRU_cudnn layer backward the same way beside row 23; row 20 at
+    the TIMIT GRU's train shape and each block shape of its table; row 27
+    (relu) at the TIMIT RNN's train (stash and not) and serve shapes and
+    as the CGS-16x RNN's seeded chunk of 100, each block shape of its
+    table at the train shape, its output digests; rows 17, 21, 22, 23,
+    25, 28, 29, 33, 34, 35, 13 (libri G=3, 8-bit, submask) and 15 (the
+    libri v3 dw) as the rows that must not move; rows 1 and 3
     (lstm_turn_times). Public wrappers only (and the forced plans where
     the package has them), so an earlier tree's package runs it too."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
@@ -7307,8 +7539,21 @@ def phase_rnn_turn_times(dev):
             hs, acts = w(g, U, drop, act=act, qbits=qb, stash=True)
             h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
             if G == 3:
-                t["row20_ms"] = cuda_ms(lambda: R.fused_gru_bwd_stash(
-                    acts, U, drop, h_prev, dhs, act), 10)
+                call = lambda: R.fused_gru_bwd_stash(acts, U, drop, h_prev,
+                                                     dhs, act)
+
+                def bwd_plan(shape_, run=False):
+                    plan = R.gru_bwd_stash_plan(B, H, shape_)
+                    return (R._gru_bwd_stash_persist(plan, acts, U, drop,
+                                                     h_prev, dhs, act)
+                            if run else plan)
+                t["row20"] = {
+                    "ms": cuda_ms(call, 10),
+                    "plan": chain_route(dev, "fused_gru_bwd_stash", B, H)[1],
+                    "by_block_shape": forced_plan_ms(
+                        "fused_gru_bwd_stash", bwd_plan, 10,
+                        getattr(R, "GRU_BWD_SHAPES", ())),
+                    "digest": digest(call())}
                 t["row21_ms"] = cuda_ms(lambda: R.fused_gru_bwd(
                     g, U, drop, h_prev, dhs, act, qb), 10)
             else:
@@ -7322,6 +7567,52 @@ def phase_rnn_turn_times(dev):
                 t["row25_ms"] = cuda_ms(lambda: R.fused_mgru_bwd_stash(
                     acts, U, drop, h_prev, dhs, act), 10)
             del fi, g, U, drop, dhs, sv, ck, hs, acts, h_prev
+        # row 27 (relu, as the TIMIT RNN cfg runs it) at its train shape
+        # with and without the stash, its serve shape and the CGS-16x
+        # RNN's dense stream (a seeded chunk of 100 at 8 rows of 1024,
+        # qbits 16), each block shape of its table, and its output digests
+        # (zero and seeded, qbits 0 and 16, the stash: equal across trees,
+        # the step route's bits); rows 28 and 29 beside it
+        T, B, H = TR_TRAIN_TBH
+        fi = gated_inputs(T, B, H, 370, dev, "relu", 1)
+        g, U, drop, h0, dhs = (fi[n] for n in ("g", "U", "drop", "h0",
+                                               "dhs"))
+        sv = gated_inputs(TR_SERVE_TBH[0], B, H, 371, dev, "relu", 1)
+        ck = gated_inputs(100, B, RS_TRAIN_TBH[2], 372, dev, "relu", 1)
+        fcall = lambda: R.fused_rnn_fwd(g, U, drop, act="relu", stash=True)
+
+        def rnn_plan(shape_, run=False):
+            plan = R.rnn_fwd_plan(B, H, shape_)
+            return (R._rnn_fwd_persist(plan, g, U, drop, None, "relu", 0,
+                                       True) if run else plan)
+        ckcall = lambda: R.fused_rnn_fwd(ck["g"], ck["U"], ck["drop"],
+                                         ck["h0"], act="relu", qbits=16)
+        t["row27"] = {
+            "ms": cuda_ms(fcall, 10),
+            "ms_nostash": cuda_ms(lambda: R.fused_rnn_fwd(g, U, drop,
+                                                          act="relu"), 10),
+            "serve_ms": cuda_ms(lambda: R.fused_rnn_fwd(
+                sv["g"], sv["U"], sv["drop"], act="relu"), 10),
+            "cgs16x_chunk100_ms": cuda_ms(ckcall, 10),
+            "plan": chain_route(dev, "fused_rnn_fwd", B, H)[1],
+            "by_block_shape": forced_plan_ms(
+                "fused_rnn_fwd", rnn_plan, 10,
+                getattr(R, "RNN_FWD_SHAPES", ())),
+            "digests": {"%s_q%d" % ("seeded" if seed is not None else "zero",
+                                    qb): digest(R.fused_rnn_fwd(
+                                        g, U, drop, seed, act="relu",
+                                        qbits=qb, stash=True))
+                        for seed in (None, h0) for qb in (0, 16)},
+            "serve_digest": digest(R.fused_rnn_fwd(
+                sv["g"], sv["U"], sv["drop"], act="relu")),
+            "cgs16x_chunk100_digest": digest(ckcall())}
+        hs, acts = fcall()
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        t["row28_ms"] = cuda_ms(lambda: R.fused_rnn_bwd_stash(
+            acts, U, drop, dhs, "relu"), 10)
+        t["row29_ms"] = cuda_ms(lambda: R.fused_rnn_bwd(
+            g, U, drop, h_prev, dhs, "relu"), 10)
+        del fi, g, U, drop, h0, dhs, sv, ck, hs, acts, h_prev
         T, B, H = MG_TRAIN_TBH
         sp = cgs_ligru_inputs(T, B, H, 421, dev, "relu")
         hs = R.fused_mgru_fwd_sparse(sp["g"], sp["w3g"], sp["drop"],
@@ -7354,12 +7645,13 @@ def phase_rnn_turn_times(dev):
 def rnn_times_main(root):
     """``python3 chip_smoke.py --rnn-times [DIR]``: phase_rnn_turn_times,
     the f32 train steps of the libri GRU, the libri and TIMIT Li-GRUs,
-    the TIMIT GRU, the minimalGRU, the flagship LSTM, the CGS-16x LSTM as
-    shipped (the dense kernels, 8 rows) and under ``auto`` (CUDA events,
-    mean of 5 after 2; all but the last also profiled once: device ms by
-    class of kernel, busy share), and the TIMIT GRU's, the minimalGRU's and the
-    TIMIT and libri Li-GRUs' recognize (8 x 4 s: serve_timings, launches
-    by kernel), with
+    the TIMIT GRU, the TIMIT RNN, the minimalGRU, the flagship LSTM, the
+    CGS-16x LSTM as shipped (the dense kernels, 8 rows) and under
+    ``auto`` (CUDA events, mean of 5 after 2; all but the last also
+    profiled once: device ms by class of kernel, busy share), and the
+    TIMIT GRU's, the TIMIT RNN's, the minimalGRU's and the TIMIT and
+    libri Li-GRUs' recognize (8 x 4 s: serve_timings, launches by
+    kernel), with
     the package of this checkout or of the tree unpacked at DIR inside it
     (as ``--gemm-times``; run parent, change, change, parent in one
     call); one JSON line."""
@@ -7386,6 +7678,7 @@ def rnn_times_main(root):
                       ("libri_ligru", libri_ligru_train_runner),
                       ("timit_ligru", ligru_train_runner),
                       ("timit_gru", timit_gru_train_runner),
+                      ("timit_rnn", timit_rnn_train_runner),
                       ("mgru", mgru_train_runner),
                       ("flagship", train_runner),
                       ("cgs16x_lstm_shipped", cgs_shipped_train_runner),
@@ -7404,6 +7697,7 @@ def rnn_times_main(root):
         torch.cuda.empty_cache()
     audio, lens = make_audio()
     for tag, stack in (("timit_gru", build_timit_gru_stack),
+                       ("timit_rnn", build_timit_rnn_stack),
                        ("mgru", build_mgru_stack),
                        ("timit_ligru", build_ligru_stack),
                        ("libri_ligru", build_libri_ligru_stack)):
@@ -7923,7 +8217,8 @@ def main():
         timit_rnn_expect_serve)
     tr_stream_launches, tr_stream_err = timed(
         "timit_rnn_stream", phase_chunked_stream, dev, tr_rec, audio, lens,
-        tr_phones, tr_logp, "timit_rnn_stream", "fused_rnn_fwd", TR_LAYERS)
+        tr_phones, tr_logp, "timit_rnn_stream", "fused_rnn_fwd", TR_LAYERS,
+        rnn_stream_count(dev, TR_LAYERS, N_UTT, TR_TRAIN_TBH[2]))
     tr_train = timed("timit_rnn_train", phase_timit_rnn_train, dev)
     cudnn = timed("cudnn_wrappers", phase_cudnn_wrappers, dev)
     cl_checks = timed("cgs_ligru_kernels", phase_cgs_ligru_kernels, dev)
@@ -8318,13 +8613,20 @@ def main():
         TG_TRAIN_TBH, TG_SERVE_TBH, "tanh", 0,
         "cuDNN nn.GRU(550, 550) (torch's gate order, no dropout)",
         {"ms_nostash": "fused_gru_fwd_nostash_ms",
-         "ms_q16": "fused_gru_fwd_ms_q16", "plan": "fused_gru_fwd_plan"})
+         "ms_q16": "fused_gru_fwd_ms_q16", "plan": "fused_gru_fwd_plan"},
+        stash_extra={"kernel_route": "fused_gru_bwd_stash_kernel_route",
+                     "by_block_shape": "fused_gru_bwd_stash_by_block_shape"})
     line["kernels"] += dense_rnn_rows(
         tr_checks, tr_times, tr_launches, "rnn", (1047, 1116, 1160),
         TR_TRAIN_TBH, TR_SERVE_TBH, "relu", 0,
         "cuDNN nn.RNN(550, 550, nonlinearity='relu') (no dropout)",
         {"ms_nostash": "fused_rnn_fwd_nostash_ms",
-         "ms_q16": "fused_rnn_fwd_ms_q16"}, "cudnn_rnn")
+         "ms_q16": "fused_rnn_fwd_ms_q16",
+         "kernel_route": "fused_rnn_fwd_kernel_route",
+         "by_block_shape": "fused_rnn_fwd_by_block_shape",
+         "cgs16x_stream_chunk100_ms": "cgs16x_stream_chunk100_ms",
+         "cgs16x_stream_chunk100_bound_ms":
+             "cgs16x_stream_chunk100_bound_ms"}, "cudnn_rnn")
     line["kernels"] += slice8_rows(cl_checks, cl_times, cl_launches,
                                    gt_checks, gt_times, gt_launches)
     line["kernels"] += slice9_rows(mg_checks, mg_times, mg_launches)

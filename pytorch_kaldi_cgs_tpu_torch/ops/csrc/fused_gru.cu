@@ -101,16 +101,31 @@
 //     phases with a grid barrier after each (ds = dg_h @ Uh needs dg_h of
 //     every unit before dg_z). Its chain's sums run in another order than
 //     the step route's (its warps split the contraction). The chain is a
-//     template over G and the stash, so
-//     that the GRU's backwards and the minimalGRU's stash one can take it;
-//     only the minimalGRU's recompute backward is instantiated and routed
-//     to it.
-//   - "step" (a shape whose blocks do not fit or are not co-resident, and
-//     the GRU's backwards and the minimalGRU's stash one): one reduction
-//     for the T scales of q(h_{t-1}), then the same two step kernels as
-//     the forward's over a grid with one z-slice per step, writing [a_pre
-//     | z | r] (or [a_pre | z]) to scratch. The reverse chain keeps two
-//     dependent steps per time step, so two kernels per step:
+//     template over G and the stash.
+//   - "step" (a shape whose blocks do not fit or are not co-resident):
+//     one reduction for the T scales of q(h_{t-1}), then the same two
+//     step kernels as the forward's over a grid with one z-slice per
+//     step, writing [a_pre | z | r] (or [a_pre | z]) to scratch, then the
+//     reverse chain's two step kernels a step, as below.
+//
+// The GRU's stash backward (TPU row 20, the TIMIT GRU's default) takes
+// one of two routes, picked by the caller before the launch
+// (fused_rnn.gru_bwd_stash_route):
+//
+//   - "persist": the same chain, gru_dense_bwd_persist<3, BI, UN, false>,
+//     over the stash [act(a_h) | z | r] as the forward wrote it: ONE
+//     cooperative launch, a block's units' columns of [Uz; Ur] (2H rows)
+//     and of Uh (H rows) resident, two grid barriers a reverse step (phase
+//     1 stages [dg_z | dg_r] of step t+1, 2H floats a row; phase 2 dg_h of
+//     step t). 8 units and 8, 16 or 32 rows (4 units x 8 rows, two blocks
+//     an SM, is instantiated too: slower at the TIMIT GRU's shape). Where a
+//     block's rows of 2H floats do not fit beside its weights (H=1024 at 16
+//     rows and above), "step".
+//   - "step": the two step kernels a reverse step below.
+//
+// The GRU's recompute backward and the minimalGRU's stash one run on the
+// step kernels only. The reverse chain keeps two dependent steps per time
+// step, so two kernels per step:
 //     gru_bwd_carry (dh from step t+1's [dg_z | dg_r] (dg_z) against [Uz;
 //     Ur] (Uz), then dg_h, and the GRU's dg_z) and gru_bwd_ds (ds from
 //     dg_h against Uh, then dg_r, or the minimalGRU's dg_z). Both products
@@ -836,7 +851,7 @@ __global__ void mgru_z_rebuild(float* __restrict__ fw,
 // buffers picked by the step's parity, since the GRU writes dg_z of step t
 // in phase 1 while a slower block may still stage step t+1's.
 template <int G, int BI, int UN, bool PRE>
-__global__ void __launch_bounds__(persist::THREADS, 1)
+__global__ void __launch_bounds__(persist::THREADS, UN == 4 ? 2 : 1)
 gru_dense_bwd_persist(const float* __restrict__ fw,      // (T, B, G*H)
                       const float* __restrict__ U,       // (G*H, H)
                       const float* __restrict__ drop,    // (B, H)
@@ -966,10 +981,11 @@ cudaError_t launch_bwd_persist(int grid, int smem, cudaStream_t stream,
       act);
 }
 
-// The block shapes (bi, units) of the dense reverse chain, instantiated
-// for the minimalGRU's recompute backward (G=2, PRE): the plan's (1, 8),
-// (2, 8) and (4, 8). -> the launcher and the occupancy query of one, or
-// nulls for another shape or cell.
+// The block shapes (bi, units) of the dense reverse chain: for the
+// minimalGRU's recompute backward (G=2, PRE) the plan's (1, 8), (2, 8) and
+// (4, 8); for the GRU's stash backward (G=3, the stash) those and (1, 4),
+// two blocks an SM, which a forced plan times. -> the launcher and the
+// occupancy query of one, or nulls for another shape or cell.
 using BwdLaunch = cudaError_t (*)(int, int, cudaStream_t, const float*,
                                   const float*, const float*, const float*,
                                   const float*, float*, float*, float*, int,
@@ -979,7 +995,7 @@ void bwd_shape_of(int G, int bi, int units, BwdLaunch* launch,
                   FwdOccupancy* occ) {
   *launch = nullptr;
   *occ = nullptr;
-  if (G != 2) return;
+  if (G == 2) {
 #define PK_BWD_SHAPE(BI_, UN_)                                            \
   if (bi == BI_ && units == UN_) {                                        \
     *launch = launch_bwd_persist<2, BI_, UN_, true>;                      \
@@ -990,6 +1006,19 @@ void bwd_shape_of(int G, int bi, int units, BwdLaunch* launch,
   PK_BWD_SHAPE(2, 8)
   PK_BWD_SHAPE(4, 8)
 #undef PK_BWD_SHAPE
+  } else if (G == 3) {
+#define PK_GRU_BWD_SHAPE(BI_, UN_)                                        \
+  if (bi == BI_ && units == UN_) {                                        \
+    *launch = launch_bwd_persist<3, BI_, UN_, false>;                     \
+    *occ = persist::occupancy<gru_dense_bwd_persist<3, BI_, UN_, false>>; \
+    return;                                                               \
+  }
+  PK_GRU_BWD_SHAPE(1, 4)
+  PK_GRU_BWD_SHAPE(1, 8)
+  PK_GRU_BWD_SHAPE(2, 8)
+  PK_GRU_BWD_SHAPE(4, 8)
+#undef PK_GRU_BWD_SHAPE
+  }
 }
 
 dim3 rows_grid(int M, int H) {
@@ -1244,10 +1273,34 @@ int mgru_bwd_persist_run(const float* gates, const float* U,
             H, act);
 }
 
+// The GRU's stash backward on the persistent route on `stream`: one
+// cooperative launch of `grid` blocks of gru_dense_bwd_persist<3, ., .,
+// false> over the stash (bi: BT = 8 * bi rows a block; units: 4 or 8;
+// smem bytes of dynamic shared memory: fused_rnn.gru_bwd_stash_plan sizes
+// all three). Returns its cudaError_t; cudaErrorInvalidValue for a shape
+// not instantiated.
+//   acts, dg: (T, B, 3H) the stash [act(a_h), z, r] and the output
+//   U: (3H, H);  drop: (B, H);  h_prev, dhs: (T, B, H)
+//   xh: (B, HP), xzr: (2, B, ZP) scratch, HP = H and ZP = 2H rounded up
+//   to a multiple of 4
+int gru_bwd_stash_persist_run(const float* acts, const float* U,
+                              const float* drop, const float* h_prev,
+                              const float* dhs, float* xh, float* xzr,
+                              float* dg, int T, int B, int H, int act,
+                              int grid, int bi, int units, int smem,
+                              void* stream_ptr) {
+  BwdLaunch fn;
+  FwdOccupancy occ;
+  bwd_shape_of(3, bi, units, &fn, &occ);
+  if (!fn) return cudaErrorInvalidValue;
+  return fn(grid, smem, static_cast<cudaStream_t>(stream_ptr), acts, U, drop,
+            h_prev, dhs, dg, xh, xzr, T, B, H, act);
+}
+
 // out[0..2]: the dense reverse chain's co-resident blocks per SM at `smem`
-// bytes of dynamic shared memory (G, bi and units as above; G=2 alone is
-// instantiated), the SM count, and whether the device takes cooperative
-// launches.
+// bytes of dynamic shared memory (G: 2 the minimalGRU's recompute chain, 3
+// the GRU's stash chain; bi and units as above), the SM count, and whether
+// the device takes cooperative launches.
 int gru_bwd_dense_occupancy(int G, int bi, int units, int smem, int* out) {
   BwdLaunch fn;
   FwdOccupancy occ;

@@ -35,12 +35,27 @@
 // does the forward's products and their transposes (0.043 ms). But each
 // step needs all of h_{t-1} (forward) or all of dg_{t+1} (backward),
 // written by every block of the step before, and on Hopper blocks run in
-// no order: as the other fused recurrences do, this first design launches
-// one kernel per step from the host loop (the launch boundary is the
-// grid-wide barrier) and re-reads U (1.2 MB at H=550, resident in the
-// 50 MB L2) every step. Its time is ~T launches, far above the bound; a
-// persistent kernel with U split across the SMs' shared memory is later
-// work.
+// no order.
+//
+// The forward (TPU row 27) takes one of two routes, picked by the caller
+// before the launch from the shapes and the occupancy query
+// (fused_rnn.rnn_fwd_route):
+//
+//   - "persist": ONE cooperative launch runs all T steps, seeded or not
+//     (rnn_fwd_persist, persist.cuh): a block owns UN units and BT = 8 *
+//     BI batch rows for the whole call, its units' rows of U resident in
+//     shared memory, and per step stages q(h_{t-1}) of its rows, forms its
+//     dots, runs the activation and waits at one grid barrier (h_{t-1} is
+//     the step's only grid-wide dependency); h_t and the per-block
+//     max|h_t| go through two exchange buffers picked by the step's
+//     parity. Its sums are rnn_step's, so both routes give the same bits
+//     (the CGS-16x RNN's dense stream is held to its sparse forward).
+//   - "step" (a shape whose blocks do not fit or are not co-resident): one
+//     kernel per step from the host loop (the launch boundary is the
+//     grid-wide barrier), re-reading U (1.2 MB at H=550, resident in the
+//     50 MB L2) every step: T launches, far above the bound.
+//
+// The backwards launch one kernel a reverse step.
 //
 // The recompute backward's pre-activations a_pre = g + q(h_{t-1}) @ U^T
 // do not depend on dh, so one launch rebuilds them for all T (grid.z =
@@ -49,21 +64,25 @@
 // product per step, against rows of U^T (passed in, (H, H)) so that the
 // lanes read consecutive addresses.
 //
-// Per step, a block owns UNITS hidden units and BT batch rows: it stages
+// Per step on the step routes, a block owns UNITS hidden units and BT
+// batch rows: it stages
 // the rows' q(h_{t-1}) or dg_{t+1} (BT x H floats, 32 KB at H=1024) in
 // shared memory, and each warp forms the dot of one row of U (or U^T)
 // with every staged row (lanes over k, then a shuffle reduction). Widths
 // need not be multiples of 32 or of UNITS (H=550): every loop masks.
 //
 // qbits > 0: q() scales by max|h_{t-1}| over the step's whole (B, H)
-// block, taken with an atomicMax on the float bits (a non-negative float's
-// bits order like its value) into a per-step slot zeroed first; slot 0
-// holds max|h0| (0 for the zero state, which leaves h unquantized). The
-// stash backward takes no quantizer.
+// block. Step route: taken with an atomicMax on the float bits (a
+// non-negative float's bits order like its value) into a per-step slot
+// zeroed first; slot 0 holds max|h0| (0 for the zero state, which leaves h
+// unquantized). Persistent route: each block writes its own max, and the
+// blocks of the next step take the max of those. The stash backward takes
+// no quantizer.
 
 #include <cmath>
 
 #include "lstm_common.cuh"
+#include "persist.cuh"
 
 namespace {
 
@@ -204,6 +223,106 @@ rnn_bwd_step(const float* __restrict__ a_t,      // (B, H) a or a_pre
   }
 }
 
+// The forward's whole recurrence in one cooperative launch (route
+// "persist", TPU row 27's redesign; persist.cuh): fused_ligru.cu's
+// ligru_fwd_persist with one gate. Block c owns the UN units from u0 = (c
+// % ug) * UN (ug = ceil(H / UN); units past H get zero weights and no
+// output) and the BT = 8 * BI batch rows from b0 = (c / ug) * BT. It
+// copies its units' rows of U (H floats each) into shared memory once
+// (ws). Its thread o = b * UN + jj owns one (row, unit) and loads the
+// next step's gate before the barrier. Per step: stage h_{t-1} from the
+// exchange buffer of step t-1's parity, q() at the max over that parity's
+// block maxima, the dots against ws, a = act(g + dot), h_t = a * drop into
+// hs and into the buffer of step t's parity, a into the stash, the
+// block's max|h_t| into its entry of that parity's maxima; one grid
+// barrier (none after the last step). Two buffers (2, B, HP) and two rows
+// of block maxima (2, grid), since a block past the barrier writes h_t
+// while a slower one may still stage h_{t-1}. With a seed h0 each thread
+// first copies its entry into buffer 1 (step -1's) and the block's max|h0|
+// into maxima row 1, then one barrier; without one, step 0's carry is
+// zero: no staging and no dots. HP = H rounded up to 4 floats, so that
+// each staged row starts 16-byte aligned; the padding is copied, never
+// summed. Each dot is one warp's, lanes over k and a shuffle reduction, in
+// rnn_step's row_dots order (persist::resident_dots), and q() (quant_rcp:
+// quant()'s bits) runs once over the staged values (persist::stage_quant):
+// both routes give the same bits.
+template <int BI, int UN>
+__global__ void __launch_bounds__(persist::THREADS, UN == 4 ? 2 : 1)
+rnn_fwd_persist(const float* __restrict__ gates,  // (T, B, H)
+                const float* __restrict__ U,      // (H, H)
+                const float* __restrict__ drop,   // (B, H)
+                const float* __restrict__ h0,     // (B, H) or null
+                float* __restrict__ hs,           // (T, B, H) output
+                float* __restrict__ acts,         // (T, B, H) or null
+                float* xh,                        // (2, B, HP) exchange
+                unsigned* bmax,                   // (2, grid), or null
+                int T, int B, int H, int act, float qscale) {
+  namespace P = persist;
+  constexpr int BT = P::BLANES * BI;
+  extern __shared__ __align__(16) float psm[];
+  __shared__ unsigned wmax[P::WARPS], gmax;
+  const int SK = P::row_stride(H), HP = (H + 3) / 4 * 4;
+  float* ws = psm;                                 // (UN, H)
+  float* xsm = ws + (size_t)UN * H;                // (BT, SK)
+  auto usm = reinterpret_cast<float (*)[UN]>(xsm + (size_t)BT * SK);
+  const int ug = (H + UN - 1) / UN;
+  const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  for (int i = threadIdx.x; i < UN * H; i += P::THREADS) {
+    const int r = i / H, k = i - r * H, u = u0 + r;
+    ws[i] = u < H ? U[(size_t)u * H + k] : 0.f;
+  }
+  const int o = threadIdx.x, ob = o / UN, oj = o % UN, ou = u0 + oj;
+  const bool mine = o < BT * UN && ob < nb && ou < H;
+  const size_t bh = (size_t)B * H, xstep = (size_t)B * HP;
+  const size_t ih = (size_t)(b0 + ob) * H + ou;
+  const size_t ix = (size_t)(b0 + ob) * HP + ou;
+  const float dr = mine ? drop[ih] : 0.f;
+  const float iscale = qscale != 0.f ? 1.f / qscale : 0.f;
+  auto fetch = [&](int t) { return mine ? gates[t * bh + ih] : 0.f; };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const bool seeded = h0 != nullptr;
+  if (seeded) {
+    unsigned m = 0;
+    if (mine) {
+      const float hp = h0[ih];
+      xh[xstep + ix] = hp;
+      m = __float_as_uint(fabsf(hp));
+    }
+    if (bmax) P::block_max(m, bmax + gridDim.x, wmax);
+    grid.sync();
+  }
+  float cur = fetch(0);
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    const int prev = (t + 1) & 1, now = t & 1;      // parities of t-1, t
+    float u = 0.f;
+    if (t > 0 || seeded) {
+      P::stage_quant(xh + prev * xstep, HP, b0, nb, xsm, SK,
+                     bmax ? bmax + prev * gridDim.x : nullptr, gridDim.x,
+                     &gmax, qscale, iscale);
+      P::resident_dots<BT, UN, UN>(ws, xsm, SK, H, nb, usm);
+      __syncthreads();
+      if (mine) u = usm[ob][oj];
+    }
+    unsigned m = 0;
+    if (mine) {
+      // rnn_step's arithmetic
+      const float a = act_fn(cur + u, act);
+      const float h = a * dr;
+      hs[t * bh + ih] = h;
+      xh[now * xstep + ix] = h;
+      if (acts) acts[t * bh + ih] = a;
+      m = __float_as_uint(fabsf(h));
+    }
+    if (t + 1 < T) {
+      if (bmax) P::block_max(m, bmax + now * gridDim.x, wmax);
+      cur = fetch(t + 1);
+      grid.sync();
+    }
+  }
+}
+
 cudaError_t allow_smem(const void* kern, size_t smem) {
   return cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -286,6 +405,45 @@ cudaError_t run_bwd(const float* lead, const float* U, const float* Ut,
   return cudaSuccess;
 }
 
+// one cooperative launch of the persistent forward at block shape (BI, UN)
+template <int BI, int UN>
+cudaError_t launch_fwd_persist(int grid, int smem, cudaStream_t stream,
+                               const float* gates, const float* U,
+                               const float* drop, const float* h0, float* hs,
+                               float* acts, float* xh, unsigned* bmax, int T,
+                               int B, int H, int act, float qscale) {
+  return persist::launch<rnn_fwd_persist<BI, UN>>(
+      grid, smem, stream, gates, U, drop, h0, hs, acts, xh, bmax, T, B, H,
+      act, qscale);
+}
+
+// The block shapes (bi, units) of the persistent forward: the plan's (1,
+// 4), (1, 8), (2, 8) and (2, 16), and (1, 16), which a forced plan times
+// at 8 rows. -> the launcher and the occupancy query of one, or nulls for
+// another shape.
+using FwdLaunch = cudaError_t (*)(int, int, cudaStream_t, const float*,
+                                  const float*, const float*, const float*,
+                                  float*, float*, float*, unsigned*, int, int,
+                                  int, int, float);
+using FwdOccupancy = cudaError_t (*)(int, int*);
+
+void fwd_shape_of(int bi, int units, FwdLaunch* launch, FwdOccupancy* occ) {
+#define PK_RNN_FWD_SHAPE(BI_, UN_)                                        \
+  if (bi == BI_ && units == UN_) {                                        \
+    *launch = launch_fwd_persist<BI_, UN_>;                               \
+    *occ = persist::occupancy<rnn_fwd_persist<BI_, UN_>>;                 \
+    return;                                                               \
+  }
+  PK_RNN_FWD_SHAPE(1, 4)
+  PK_RNN_FWD_SHAPE(1, 8)
+  PK_RNN_FWD_SHAPE(2, 8)
+  PK_RNN_FWD_SHAPE(1, 16)
+  PK_RNN_FWD_SHAPE(2, 16)
+#undef PK_RNN_FWD_SHAPE
+  *launch = nullptr;
+  *occ = nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -294,9 +452,9 @@ const char* pk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The forward on `stream`: T step kernels (plus one small reduction over
-// h0 when qbits > 0 and h0 is given). Returns the first cudaError_t seen,
-// 0 on success.
+// The forward on the step route on `stream`: T step kernels (plus one
+// small reduction over h0 when qbits > 0 and h0 is given). Returns the
+// first cudaError_t seen, 0 on success.
 //   gates: (T, B, H);  U: (H, H);  drop: (B, H)
 //   h0:    (B, H) seed carry, or null for zeros
 //   hs:    (T, B, H) output;  acts: (T, B, H) stash output (a), or null
@@ -306,6 +464,40 @@ int fused_rnn_fwd(const float* gates, const float* U, const float* drop,
                   int T, int B, int H, int act, int qbits, void* stream_ptr) {
   return run_fwd(gates, U, drop, h0, hs, acts, qslots, T, B, H, act, qbits,
                  static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The forward on the persistent route on `stream`: one cooperative launch
+// of `grid` blocks of rnn_fwd_persist (bi: BT = 8 * bi rows a block;
+// units: 4, 8 or 16; smem bytes of dynamic shared memory:
+// fused_rnn.rnn_fwd_plan sizes all three), seeded or not. Returns its
+// cudaError_t; cudaErrorInvalidValue for a shape not instantiated.
+//   gates: (T, B, H);  U: (H, H);  drop: (B, H);  h0: (B, H) or null
+//   hs: (T, B, H) output;  acts: (T, B, H) stash output, or null
+//   xh: (2, B, HP) scratch, HP = H rounded up to a multiple of 4
+//   bmax: 2 * grid unsigned ints of scratch when qbits > 0
+int rnn_fwd_persist_run(const float* gates, const float* U, const float* drop,
+                        const float* h0, float* hs, float* acts, float* xh,
+                        unsigned* bmax, int T, int B, int H, int act,
+                        int qbits, int grid, int bi, int units, int smem,
+                        void* stream_ptr) {
+  FwdLaunch fn;
+  FwdOccupancy occ;
+  fwd_shape_of(bi, units, &fn, &occ);
+  if (!fn) return cudaErrorInvalidValue;
+  const bool q = qbits > 0;
+  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+  return fn(grid, smem, static_cast<cudaStream_t>(stream_ptr), gates, U,
+            drop, h0, hs, acts, xh, q ? bmax : nullptr, T, B, H, act, qscale);
+}
+
+// out[0..2]: the persistent forward's co-resident blocks per SM at `smem`
+// bytes of dynamic shared memory (bi and units as above), the SM count,
+// and whether the device takes cooperative launches.
+int fused_rnn_fwd_occupancy(int bi, int units, int smem, int* out) {
+  FwdLaunch fn;
+  FwdOccupancy occ;
+  fwd_shape_of(bi, units, &fn, &occ);
+  return occ ? occ(smem, out) : cudaErrorInvalidValue;
 }
 
 // The backward on `stream`: T step kernels in reverse time; the recompute

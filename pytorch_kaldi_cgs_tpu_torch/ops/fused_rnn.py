@@ -759,6 +759,11 @@ def _gru_bwd(wrapper, cname, G, lead, U, drop, h_prev, dhs, act, qbits,
         if route == "persist":
             return _mgru_bwd_persist(plan, lead, U, drop, h_prev, dhs, act,
                                      qbits)
+    if G == 3 and stash:
+        route, plan = gru_bwd_stash_route(B, H, lead.device)
+        if route == "persist":
+            return _gru_bwd_stash_persist(plan, lead, U, drop, h_prev, dhs,
+                                          act)
     return _gru_bwd_step(wrapper, cname, G, lead, U, drop, h_prev, dhs, act,
                          qbits, stash)
 
@@ -829,14 +834,40 @@ def _mgru_bwd_persist(plan, gates, U, drop, h_prev, dhs, act, qbits):
     return dg
 
 
+def _gru_bwd_stash_persist(plan, acts, U, drop, h_prev, dhs, act):
+    """The GRU stash BPTT on the persistent route (``plan``: its
+    PersistPlan, :func:`gru_bwd_stash_plan`): the reverse chain over the
+    stash in one cooperative launch, dg_h and [dg_z | dg_r] exchanged
+    through buffers of rows padded to a multiple of 4 floats (the latter
+    two, by the step's parity). -> dg (T, B, 3H)."""
+    from . import block_sparse as BS
+    T, B, H = h_prev.shape
+    dev = acts.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    xh = torch.empty((B, gru_fwd_exchange_stride(H)), **f32)
+    xzr = torch.empty((2, B, gru_fwd_exchange_stride(2 * H)), **f32)
+    dg = torch.empty_like(acts)
+    BS._launch("fused_gru", "gru_bwd_stash_persist_run", dev,
+               (acts.data_ptr(), U.data_ptr(), drop.data_ptr(),
+                h_prev.data_ptr(), dhs.data_ptr(), xh.data_ptr(),
+                xzr.data_ptr(), dg.data_ptr()),
+               (T, B, H, _ACT_CODE[act], plan.grid, plan.bi, plan.units,
+                plan.smem))
+    fused_gru_bwd_stash.launches += gru_bwd_stash_launches("persist", T)
+    return dg
+
+
 def fused_gru_bwd_stash(acts: torch.Tensor, U: torch.Tensor,
                         drop: torch.Tensor, h_prev: torch.Tensor,
                         dhs: torch.Tensor, act: str = "tanh") -> torch.Tensor:
     """BPTT over the stash (TPU kernel ``_build_gru_bwd_stash``, the
     default backward): ``acts`` (T, B, 3H) from the stash forward,
     ``h_prev`` (T, B, H) the carries entering each step, upstream ``dhs``
-    (T, B, H). -> dg (T, B, 3H). CUDA tensors run the kernel (two
-    launches per reverse step), CPU tensors the twin."""
+    (T, B, H). -> dg (T, B, 3H). CUDA tensors run the kernels on the route
+    :func:`gru_bwd_stash_route` picks before the launch: "persist" (the
+    reverse chain in one cooperative launch) where its blocks fit and are
+    co-resident, else "step" (two launches per reverse step); CPU tensors
+    the twin."""
     return _gru_bwd(fused_gru_bwd_stash, "fused_gru_bwd", 3, acts, U, drop,
                     h_prev, dhs, act, 0, True)
 
@@ -1528,26 +1559,37 @@ def ligru_fwd_launches(route: str, T: int) -> int:
     return 1 if route == "persist" else T
 
 
+def _dense_bwd_plan(B: int, H: int, G: int, shape: tuple) -> PersistPlan:
+    """The dense GRU-family reverse chain (csrc/fused_gru.cu's
+    ``gru_dense_bwd_persist``) of a G-gate cell at batch B and width H on
+    blocks of ``shape`` (bi, units): a block owns units (the last group
+    masked where they do not divide H) with their columns of U resident,
+    (G-1)H rows of [Uz (; Ur)] and H of Uh (rows of 16 units padded to 20
+    floats), stages per reverse step [dg_z (| dg_r)] of step t+1 and dg_h
+    of step t: its rows of the exchange buffers, (G-1)H and H rounded up
+    to 4 floats (``staged``), at a row stride of :func:`_row_stride`
+    ((G-1)H), and keeps the dots' partials (8 warps' of each row and
+    unit)."""
+    bi, un = shape
+    bt = 8 * bi
+    smem = (4 * G * H * _w_stride(un) + 4 * bt * _row_stride((G - 1) * H)
+            + 4 * PERSIST_WARPS * bt * un)
+    grid = -(-H // un) * -(-B // bt)
+    return PersistPlan(bi, un, grid, smem, 0, 4 * G * H * un,
+                       4 * min(bt, B) * (gru_fwd_exchange_stride((G - 1) * H)
+                                         + gru_fwd_exchange_stride(H)))
+
+
 def mgru_bwd_plan(B: int, H: int, shape: Optional[tuple] = None
                   ) -> PersistPlan:
     """The minimalGRU recompute BPTT's persistent reverse chain at batch B
     and width H (``shape`` forces (bi, units), one of
-    :data:`MGRU_BWD_SHAPES`; else :func:`_shape`): a block owns units (the
-    last group masked where they do not divide H) with their H-long
-    columns of Uz and Uh resident (rows of 16 units padded to 20 floats),
-    stages per reverse step dg_z of step t+1 and dg_h of step t: its rows
-    of the exchange buffers, H rounded up to 4 floats each (``staged``),
-    at a row stride of :func:`_row_stride` (H), and keeps the dots'
-    partials (8 warps' of each row and unit). Above 16 rows a block takes
-    8 units x 32 rows: 16 x 16 does not fit at H=1024 (rows of 16 units
-    padded to 20 floats)."""
-    bi, un = shape or _shape(B, (4, 8))
-    bt = 8 * bi
-    smem = (4 * 2 * H * _w_stride(un) + 4 * bt * _row_stride(H)
-            + 4 * PERSIST_WARPS * bt * un)
-    grid = -(-H // un) * -(-B // bt)
-    return PersistPlan(bi, un, grid, smem, 0, 4 * 2 * H * un,
-                       2 * 4 * min(bt, B) * gru_fwd_exchange_stride(H))
+    :data:`MGRU_BWD_SHAPES`; else :func:`_shape`; :func:`_dense_bwd_plan`
+    at G=2): a block's H-long columns of Uz and Uh resident, dg_z of step
+    t+1 and dg_h of step t staged, H floats each. Above 16 rows a block
+    takes 8 units x 32 rows: 16 x 16 does not fit at H=1024 (rows of 16
+    units padded to 20 floats)."""
+    return _dense_bwd_plan(B, H, 2, shape or _shape(B, (4, 8)))
 
 
 #: the minimalGRU chain's block shapes (bi, units) that fused_gru.cu
@@ -1576,6 +1618,43 @@ def mgru_bwd_route(B: int, H: int, dev) -> tuple:
         return "step", plan
     return _route(plan, "fused_gru", "gru_bwd_dense_occupancy",
                   (2, plan.bi, plan.units), torch.device(dev)), plan
+
+
+def gru_bwd_stash_plan(B: int, H: int, shape: Optional[tuple] = None
+                       ) -> PersistPlan:
+    """The GRU stash BPTT's persistent reverse chain at batch B and width
+    H (``shape`` forces (bi, units), one of :data:`GRU_BWD_SHAPES`; else
+    :func:`_shape`'s 8 units and 8, 16 or 32 rows): :func:`_dense_bwd_plan`
+    at G=3, a block's 2H-long columns of [Uz; Ur] and H-long ones of Uh
+    resident, [dg_z | dg_r] (2H floats a row) and dg_h staged. Where the
+    staged rows do not fit beside the weights (H=1024 at 16 rows) the
+    plan's block exceeds shared memory and the route is "step". At the
+    TIMIT GRU's 8 rows of 550, 8 units a block (69 blocks) ran 2.00 ms a
+    call against 2.48-2.49 for 4 units (138 blocks, two an SM) and
+    2.24-2.25 for 8 x 16 (``chip_smoke.py --rnn-times``, NVIDIA H100 80GB
+    HBM3 at 700 W, the forced shapes)."""
+    return _dense_bwd_plan(B, H, 3, shape or _shape(B, (4, 8)))
+
+
+#: the GRU stash chain's block shapes (bi, units) that fused_gru.cu
+#: instantiates (``PK_GRU_BWD_SHAPE``): the plan's 8 units and 8, 16 or 32
+#: rows, and 4 units x 8 rows (two blocks an SM), which a forced plan
+#: times at the TIMIT GRU's shape
+GRU_BWD_SHAPES = ((1, 4), (1, 8), (2, 8), (4, 8))
+
+
+def gru_bwd_stash_route(B: int, H: int, dev) -> tuple:
+    """(route, plan) of :func:`fused_gru_bwd_stash` at batch B and width H
+    on the card ``dev``."""
+    plan = gru_bwd_stash_plan(B, H)
+    return _route(plan, "fused_gru", "gru_bwd_dense_occupancy",
+                  (3, plan.bi, plan.units), torch.device(dev)), plan
+
+
+def gru_bwd_stash_launches(route: str, T: int) -> int:
+    """Kernels one :func:`fused_gru_bwd_stash` call launches on ``route``:
+    "persist" the one cooperative launch; "step" two a reverse step."""
+    return 1 if route == "persist" else 2 * T
 
 
 def mgru_bwd_launches(route: str, T: int, qbits: int) -> int:
@@ -2173,7 +2252,10 @@ def fused_rnn_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     and ``(hs, acts)`` with the stash a (T, B, H), the activations before
     the dropout, when ``stash``.
 
-    CUDA tensors run the kernel (one launch per step), CPU tensors the
+    CUDA tensors run the kernels on the route :func:`rnn_fwd_route` picks
+    before the launch: "persist" (all steps in one cooperative launch,
+    seeded or not) where the blocks fit and are co-resident, else "step"
+    (a launch per step); both give the same bits. CPU tensors run the
     plain twin. This is the raw kernel call, with no autograd:
     differentiable callers use :func:`rnn_scan_fused`."""
     T, B, H, drop = _rnn_check("gates", gates, U, drop, act, (("h0", h0),))
@@ -2183,6 +2265,17 @@ def fused_rnn_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
                            "rnn_scan_fused")
     if gates.device.type == "cpu":
         return fused_rnn_fwd_plain(gates, U, drop, h0, act, qbits, stash)
+    route, plan = rnn_fwd_route(B, H, gates.device)
+    if route == "persist":
+        return _rnn_fwd_persist(plan, gates, U, drop, h0, act, qbits, stash)
+    return _rnn_fwd_step(gates, U, drop, h0, act, qbits, stash)
+
+
+def _rnn_fwd_step(gates, U, drop, h0, act, qbits, stash):
+    """The forward on the step route: a kernel a step, after the
+    reduction of max|h0| with a seed and the quantizer; ``launches``
+    counts the step kernels."""
+    T, B, H = gates.shape
     from . import _build
     lib = _build.load("fused_rnn")
     fn = lib.fused_rnn_fwd
@@ -2199,11 +2292,80 @@ def fused_rnn_fwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
                 hs.data_ptr(), _ptr(acts), qslots.data_ptr(), T, B, H,
                 _ACT_CODE[act], qbits, _stream(dev))
     _build.check(lib, rc, "fused_rnn_fwd")
-    fused_rnn_fwd.launches += T
+    fused_rnn_fwd.launches += rnn_fwd_launches("step", T)
+    return (hs, acts) if stash else hs
+
+
+def _rnn_fwd_persist(plan, gates, U, drop, h0, act, qbits, stash):
+    """The forward on the persistent route (``plan``: its PersistPlan,
+    :func:`rnn_fwd_plan`): all T steps in one cooperative launch, h_t
+    exchanged through two (B, HP) buffers picked by the step's parity
+    (rows padded to a multiple of 4 floats for the 16-byte copies)."""
+    from . import block_sparse as BS
+    T, B, H = gates.shape
+    dev = gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    hs = torch.empty((T, B, H), **f32)
+    acts = torch.empty_like(hs) if stash else None
+    xh = torch.empty((2, B, gru_fwd_exchange_stride(H)), **f32)
+    # each block's max|h| of the last two steps, for the quantizer
+    bmax = torch.empty(2 * plan.grid if qbits > 0 else 1, dtype=torch.int32,
+                       device=dev)
+    BS._launch("fused_rnn", "rnn_fwd_persist_run", dev,
+               (gates.data_ptr(), U.data_ptr(), drop.data_ptr(), _ptr(h0),
+                hs.data_ptr(), _ptr(acts), xh.data_ptr(), bmax.data_ptr()),
+               (T, B, H, _ACT_CODE[act], qbits, plan.grid, plan.bi,
+                plan.units, plan.smem))
+    fused_rnn_fwd.launches += rnn_fwd_launches("persist", T)
     return (hs, acts) if stash else hs
 
 
 fused_rnn_fwd.launches = 0
+
+
+def rnn_fwd_plan(B: int, H: int, shape: Optional[tuple] = None
+                 ) -> PersistPlan:
+    """The dense RNN forward's persistent chain at batch B and width H
+    (``shape`` forces (bi, units), one of :data:`RNN_FWD_SHAPES`; else
+    :func:`_shape`): a block owns units (the last group masked where they
+    do not divide H) with their H-long rows of U resident, stages per
+    step q(h_{t-1}): its rows of the exchange buffer, H rounded up to 4
+    floats each (``staged``), at a row stride of :func:`_row_stride` (H),
+    and keeps one sum a row and unit. At the TIMIT RNN's 8 rows of 550, 8
+    units x 8 rows ran 0.97-0.98 ms a call against 1.00-1.01 for 16 x 8,
+    1.21-1.22 for 8 x 16 and 1.26-1.27 for 4 x 8 (two blocks an SM;
+    ``chip_smoke.py --rnn-times``, NVIDIA H100 80GB HBM3 at 700 W, the
+    forced shapes)."""
+    bi, un = shape or _shape(B)
+    bt = 8 * bi
+    resident = 4 * un * H
+    smem = resident + 4 * bt * _row_stride(H) + 4 * bt * un
+    grid = -(-H // un) * -(-B // bt)
+    return PersistPlan(bi, un, grid, smem, 0, resident,
+                       4 * min(bt, B) * gru_fwd_exchange_stride(H))
+
+
+#: the RNN forward's block shapes (bi, units) that fused_rnn.cu
+#: instantiates (``PK_RNN_FWD_SHAPE``): :func:`_shape`'s three and 4 and
+#: 16 units at 8 rows (the forced plans ``chip_smoke.py --rnn-times``
+#: times at the TIMIT shapes)
+RNN_FWD_SHAPES = ((1, 4), (1, 8), (2, 8), (1, 16), (2, 16))
+
+
+def rnn_fwd_route(B: int, H: int, dev) -> tuple:
+    """(route, plan) of :func:`fused_rnn_fwd` at batch B and width H on
+    the card ``dev``."""
+    plan = rnn_fwd_plan(B, H)
+    return _route(plan, "fused_rnn", "fused_rnn_fwd_occupancy",
+                  (plan.bi, plan.units), torch.device(dev)), plan
+
+
+def rnn_fwd_launches(route: str, T: int) -> int:
+    """Kernels one :func:`fused_rnn_fwd` call launches on ``route`` (as
+    its counter counts them): "persist" the one cooperative launch,
+    seeded or not (a seed's scale is taken inside it); "step" one a
+    step."""
+    return 1 if route == "persist" else T
 
 
 def _rnn_bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):

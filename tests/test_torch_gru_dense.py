@@ -616,8 +616,9 @@ def cuda_device():
 @pytest.mark.parametrize("act", ["tanh", "relu"])
 def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
     """The forward (plain, stash, seeded; on its route, with the route's
-    launches) and both BPTT kernels (2T, and 2T + 2 for the recompute one)
-    against their twins on the card, on the same tensors."""
+    launches) and both BPTT kernels (the stash one on its route, with its
+    launches; 2T + 2 for the recompute one) against their twins on the
+    card, on the same tensors."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g, U, drop, h0, dhs = (tt(a).to(cuda_device) for a in _inputs(19))
     with torch.no_grad():
@@ -637,9 +638,11 @@ def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
         before = (tfr.fused_gru_bwd_stash.launches, tfr.fused_gru_bwd.launches)
         dg_s = tfr.fused_gru_bwd_stash(acts, U, drop, h_prev, dhs, act)
         dg_r = tfr.fused_gru_bwd(g, U, drop, h_prev, dhs, act, qbits)
+        bwd_route = tfr.gru_bwd_stash_route(B, H, cuda_device)[0]
         assert (tfr.fused_gru_bwd_stash.launches,
-                tfr.fused_gru_bwd.launches) == (before[0] + 2 * T,
-                                                before[1] + 2 * T + 2)
+                tfr.fused_gru_bwd.launches) == (
+                    before[0] + tfr.gru_bwd_stash_launches(bwd_route, T),
+                    before[1] + 2 * T + 2)
         ref_ds = tfr.fused_gru_bwd_stash_plain(acts, U, drop, h_prev, dhs,
                                                act)
         ref_dr = tfr.fused_gru_bwd_plain(g, U, drop, h_prev, dhs, act, qbits)
@@ -691,3 +694,77 @@ def test_cuda_wide_layer_matches_twin(cuda_device):
     for a, b in pairs:
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=ATOL_Q)
+
+
+def _stash_bwd_inputs(T_, B_, H_, seed, dev, act="tanh"):
+    """The stash forward's outputs and a cotangent at (T_, B_, H_) on the
+    card: (acts, U, drop, h_prev, dhs)."""
+    rng = np.random.RandomState(seed)
+    d = lambda a: torch.tensor(a.astype(np.float32), device=dev)
+    g = d(rng.randn(T_, B_, 3 * H_) * 0.5)
+    U = d(rng.randn(3 * H_, H_) * 0.3 * np.sqrt(18.0 / H_))
+    drop, dhs = d(rng.rand(B_, H_) > 0.2), d(rng.randn(T_, B_, H_))
+    with torch.no_grad():
+        hs, acts = tfr.fused_gru_fwd(g, U, drop, act=act, stash=True)
+    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+    return acts, U, drop, h_prev, dhs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.GRU_BWD_SHAPES)
+@pytest.mark.parametrize("act", ["tanh", "relu"])
+def test_cuda_bwd_stash_persist_every_block_shape(cuda_device, act, shape):
+    """The stash BPTT's persistent chain (TPU row 20) forced to each
+    instantiated block shape at a ragged width (H=37: the last unit group
+    masked, the exchange rows padded) and batch (8 bi + 3 rows: a ragged
+    last block of rows), against the twin; two calls bit for bit, one
+    launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bi, un = shape
+    T_, B_, H_ = 7, 8 * bi + 3, 37
+    acts, U, drop, h_prev, dhs = _stash_bwd_inputs(T_, B_, H_,
+                                                   61 + 2 * un + bi,
+                                                   cuda_device, act)
+    plan = tfr.gru_bwd_stash_plan(B_, H_, shape)
+    before = tfr.fused_gru_bwd_stash.launches
+    with torch.no_grad():
+        got = tfr._gru_bwd_stash_persist(plan, acts, U, drop, h_prev, dhs,
+                                         act)
+        again = tfr._gru_bwd_stash_persist(plan, acts, U, drop, h_prev, dhs,
+                                           act)
+        ref = tfr.fused_gru_bwd_stash_plain(acts, U, drop, h_prev, dhs, act)
+    assert tfr.fused_gru_bwd_stash.launches == before + 2
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=ATOL * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_, H_", [(8, 550), (11, 37), (16, 1024)])
+def test_cuda_bwd_stash_routes(cuda_device, B_, H_):
+    """The wrapper on the route its plan names (persistent at 8 rows of
+    550, 69 blocks of 8 units, and at 11 rows of 37; the step route at 16
+    rows of 1024, whose staged rows do not fit beside the weights) and the
+    step route forced, each against the twin with its route's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T_ = 12
+    acts, U, drop, h_prev, dhs = _stash_bwd_inputs(T_, B_, H_, 71 + B_,
+                                                   cuda_device)
+    route, plan = tfr.gru_bwd_stash_route(B_, H_, cuda_device)
+    assert route == ("step" if H_ == 1024 else "persist")
+    if (B_, H_) == (8, 550):
+        assert (plan.bi, plan.units, plan.grid) == (1, 8, 69)
+    w = tfr.fused_gru_bwd_stash
+    with torch.no_grad():
+        ref = tfr.fused_gru_bwd_stash_plain(acts, U, drop, h_prev, dhs)
+        before = w.launches
+        got = w(acts, U, drop, h_prev, dhs)
+        assert w.launches == before + tfr.gru_bwd_stash_launches(route, T_)
+        before = w.launches
+        step = tfr._gru_bwd_step(w, "fused_gru_bwd", 3, acts, U, drop,
+                                 h_prev, dhs, "tanh", 0, True)
+        assert w.launches == before + tfr.gru_bwd_stash_launches("step", T_)
+    scale = float(ref.abs().max())
+    for a in (got, step):
+        np.testing.assert_allclose(a.cpu().numpy(), ref.cpu().numpy(),
+                                   atol=ATOL * scale)

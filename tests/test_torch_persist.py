@@ -647,6 +647,227 @@ def test_ligru_fwd_and_mgru_bwd_block_shapes_are_the_kernels():
 
 
 # ---------------------------------------------------------------------------
+# the dense GRU's stash BPTT (TPU row 20)
+# ---------------------------------------------------------------------------
+
+def _gru_bwd_smem(H, bi, un):
+    """The GRU stash chain's shared memory: [Uz; Ur]'s and Uh's columns
+    (3H rows of units, padded at 16), 8 bi staged rows of 2H at a stride
+    of _row_stride(2H), the 8 warps' partials."""
+    return 4 * (3 * H * tfr._w_stride(un) + 8 * bi * tfr._row_stride(2 * H)
+                + 8 * 8 * bi * un)
+
+
+@pytest.mark.parametrize("B, H, bi, units, grid", [
+    (8, 550, 1, 8, 69),      # the TIMIT GRU's train shape
+    (16, 550, 2, 8, 69),
+    (8, 1024, 1, 8, 128),
+    (16, 1024, 2, 8, 128),   # does not fit: the step route
+    (100, 550, 4, 8, 276),
+    (5, 18, 1, 8, 3),        # the small ragged shape: the last group of 2
+])
+def test_gru_bwd_stash_plan(B, H, bi, units, grid):
+    """A block owns its units' columns of [Uz; Ur] (2H rows) and Uh (H),
+    stages [dg_z | dg_r] of step t+1 (2H rounded up to 4) and dg_h of step
+    t (H rounded up to 4) at a row stride of _row_stride(2H), and keeps
+    the dots' partials: 8 units and 8, 16 or 32 rows."""
+    plan = tfr.gru_bwd_stash_plan(B, H)
+    HP, ZP = (tfr.gru_fwd_exchange_stride(k) for k in (H, 2 * H))
+    assert (plan.bi, plan.units, plan.grid, plan.smem, plan.static,
+            plan.resident, plan.staged) == (
+                bi, units, grid, _gru_bwd_smem(H, bi, units), 0,
+                4 * 3 * H * units, 4 * min(8 * bi, B) * (ZP + HP))
+    assert (plan.slab, plan.slabs) == (0, 1)
+
+
+@pytest.mark.parametrize("B, H, smem", [
+    (8, 550, 90304), (16, 550, 127808), (8, 1024, 166016),
+    (16, 1024, 233728)])
+def test_gru_bwd_stash_plan_bytes_at_the_timit_and_1024_shapes(B, H, smem):
+    """The bytes a block takes, written out: at 16 rows of 1024 the
+    staged rows do not fit beside the weights (233,728 > 232,448)."""
+    plan = tfr.gru_bwd_stash_plan(B, H)
+    assert plan.smem == smem
+    assert (plan.smem <= tfl._SMEM_MAX) == ((B, H) != (16, 1024))
+
+
+@pytest.mark.parametrize("H, grid, smem", [(550, 138, 62880),
+                                            (1024, 256, 115840)])
+def test_gru_bwd_stash_plan_forced_4_units(H, grid, smem):
+    """The other shape timed at 8 rows: 4 units, twice the blocks; two
+    fit an SM's 228 KiB at H=550 (with the 1 KiB the runtime keeps a
+    block), not at H=1024."""
+    plan = tfr.gru_bwd_stash_plan(8, H, (1, 4))
+    assert (plan.grid, plan.smem) == (grid, smem)
+    assert (2 * (plan.smem + 1024) <= 228 * 1024) == (H == 550)
+
+
+def test_dense_bwd_plan_at_g2_is_the_minimalgru_plan():
+    """mgru_bwd_plan is the shared plan at G=2: its numbers as before."""
+    for B, H in ((8, 1024), (32, 1024), (4, 18)):
+        assert tfr.mgru_bwd_plan(B, H) == tfr._dense_bwd_plan(
+            B, H, 2, tfr._shape(B, (4, 8)))
+
+
+@pytest.mark.parametrize("B, H, blocks_per_sm, route", [
+    (8, 550, 1, "persist"),       # the TIMIT GRU: 69 blocks
+    (16, 550, 1, "persist"),      # 69 blocks
+    (8, 1024, 1, "persist"),      # 128 blocks
+    (16, 1024, 1, "step"),        # does not fit
+    (100, 550, 1, "step"),        # 276 blocks
+    (100, 550, 3, "persist"),
+])
+def test_gru_bwd_stash_route(B, H, blocks_per_sm, route):
+    plan = tfr.gru_bwd_stash_plan(B, H)
+    assert tfr.persist_route(plan, blocks_per_sm, H100_SMS) == route
+
+
+def test_gru_bwd_stash_route_needs_cooperative_launch_and_room():
+    plan = tfr.gru_bwd_stash_plan(8, 550)
+    assert tfr.persist_route(plan, 1, H100_SMS, coop=False) == "step"
+    assert tfr.persist_route(plan, 0, H100_SMS) == "step"
+    assert tfr.persist_route(plan, 1, H100_SMS,
+                             smem_max=plan.smem - 1) == "step"
+    assert tfr.persist_route(plan, 1, 68) == "step"     # 69 blocks
+
+
+def test_gru_bwd_stash_route_asks_the_g3_chain(monkeypatch):
+    """The route asks the occupancy of the G=3 chain at the plan's shape
+    and shared memory, and skips the query where the block does not
+    fit."""
+    asked = []
+
+    def occupancy(lib, entry, args, index):
+        asked.append((lib, entry, args))
+        return 1, H100_SMS, True
+    monkeypatch.setattr(tfr, "_persist_occupancy", occupancy)
+    dev = torch.device("cuda", 0)
+    route, plan = tfr.gru_bwd_stash_route(8, 550, dev)
+    assert route == "persist"
+    assert asked == [("fused_gru", "gru_bwd_dense_occupancy",
+                      (3, 1, 8, plan.smem))]
+    assert tfr.gru_bwd_stash_route(16, 1024, dev)[0] == "step"
+    assert len(asked) == 1
+
+
+@pytest.mark.parametrize("route, T, n", [
+    ("persist", 300, 1), ("persist", 7, 1), ("step", 300, 600),
+    ("step", 13, 26)])
+def test_gru_bwd_stash_launches(route, T, n):
+    """One cooperative launch a call, or two kernels a reverse step."""
+    assert tfr.gru_bwd_stash_launches(route, T) == n
+
+
+# ---------------------------------------------------------------------------
+# the dense RNN forward (TPU row 27)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B, H, bi, units, grid", [
+    (8, 550, 1, 8, 69),      # the TIMIT RNN's train and serve shapes
+    (16, 550, 2, 8, 69),
+    (8, 1024, 1, 8, 128),    # the CGS-16x RNN's dense stream
+    (16, 1024, 2, 8, 128),
+    (100, 550, 2, 16, 245),
+    (5, 18, 1, 8, 3),        # the small ragged shape: the last group of 2
+])
+def test_rnn_fwd_plan(B, H, bi, units, grid):
+    """A block owns its units' H-long rows of U, stages its rows of
+    q(h_{t-1}) (H rounded up to 4 floats) at a row stride of
+    _row_stride(H), and keeps one sum a row and unit."""
+    plan = tfr.rnn_fwd_plan(B, H)
+    bt = 8 * bi
+    assert (plan.bi, plan.units, plan.grid, plan.smem, plan.static,
+            plan.resident, plan.staged) == (
+                bi, units, grid,
+                4 * (units * H + bt * tfr._row_stride(H) + bt * units), 0,
+                4 * units * H, 4 * min(bt, B) * tfr.gru_fwd_exchange_stride(H))
+    assert (plan.slab, plan.slabs) == (0, 1)
+    assert plan.smem <= tfl._SMEM_MAX
+
+
+@pytest.mark.parametrize("shape, grid, smem", [
+    ((1, 4), 138, 4 * (4 * 550 + 8 * 556 + 8 * 4)),
+    ((1, 16), 35, 4 * (16 * 550 + 8 * 556 + 8 * 16)),
+])
+def test_rnn_fwd_plan_forced_at_the_timit_rnn(shape, grid, smem):
+    """The two other shapes timed at the TIMIT RNN's 8 rows."""
+    plan = tfr.rnn_fwd_plan(8, 550, shape)
+    assert (plan.bi, plan.units, plan.grid, plan.smem) == shape + (grid,
+                                                                    smem)
+
+
+def test_rnn_fwd_plan_too_wide_goes_to_the_step_route():
+    """At H=7300 the 8 units' rows of U and 8 staged rows take more than
+    a block has: "step"."""
+    plan = tfr.rnn_fwd_plan(8, 7300)
+    assert plan.smem > tfl._SMEM_MAX
+    assert tfr.persist_route(plan, 1, H100_SMS) == "step"
+
+
+@pytest.mark.parametrize("B, H, blocks_per_sm, route", [
+    (8, 550, 1, "persist"),       # 69 blocks
+    (16, 550, 1, "persist"),
+    (8, 1024, 1, "persist"),      # 128 blocks
+    (16, 1024, 1, "persist"),
+    (100, 550, 1, "step"),        # 245 blocks
+    (100, 550, 2, "persist"),
+    (96, 1024, 2, "step"),        # 384 blocks
+])
+def test_rnn_fwd_route(B, H, blocks_per_sm, route):
+    plan = tfr.rnn_fwd_plan(B, H)
+    assert tfr.persist_route(plan, blocks_per_sm, H100_SMS) == route
+
+
+def test_rnn_fwd_route_needs_cooperative_launch_and_room(monkeypatch):
+    plan = tfr.rnn_fwd_plan(8, 550)
+    assert tfr.persist_route(plan, 1, H100_SMS, coop=False) == "step"
+    assert tfr.persist_route(plan, 0, H100_SMS) == "step"
+    assert tfr.persist_route(plan, 1, H100_SMS,
+                             smem_max=plan.smem - 1) == "step"
+    assert tfr.persist_route(plan, 1, 68) == "step"      # 69 blocks
+    asked = []
+
+    def occupancy(lib, entry, args, index):
+        asked.append((lib, entry, args))
+        return 1, H100_SMS, True
+    monkeypatch.setattr(tfr, "_persist_occupancy", occupancy)
+    assert tfr.rnn_fwd_route(8, 550, torch.device("cuda", 0)) == (
+        "persist", plan)
+    assert asked == [("fused_rnn", "fused_rnn_fwd_occupancy",
+                      (1, 8, plan.smem))]
+
+
+@pytest.mark.parametrize("route, T, n", [
+    ("persist", 300, 1), ("persist", 398, 1), ("persist", 100, 1),
+    ("step", 300, 300), ("step", 398, 398)])
+def test_rnn_fwd_launches(route, T, n):
+    """One cooperative launch a call, seeded or not (a seed's scale is
+    taken inside the chain); one step kernel a step otherwise."""
+    assert tfr.rnn_fwd_launches(route, T) == n
+
+
+def test_gru_bwd_stash_and_rnn_fwd_block_shapes_are_the_kernels():
+    """The plans pick only block shapes the kernels instantiate, and the
+    shape tables are the sources' instantiations: GRU_BWD_SHAPES
+    fused_gru.cu's PK_GRU_BWD_SHAPE lines, RNN_FWD_SHAPES fused_rnn.cu's
+    PK_RNN_FWD_SHAPE lines."""
+    for B in (1, 5, 8, 9, 16, 17, 32, 100):
+        for H in (18, 550, 1024):
+            plan = tfr.gru_bwd_stash_plan(B, H)
+            assert (plan.bi, plan.units) in tfr.GRU_BWD_SHAPES
+            plan = tfr.rnn_fwd_plan(B, H)
+            assert (plan.bi, plan.units) in tfr.RNN_FWD_SHAPES
+    csrc = pathlib.Path(tfr.__file__).parent / "csrc"
+    for name, macro, table in (("fused_gru.cu", "PK_GRU_BWD_SHAPE",
+                                tfr.GRU_BWD_SHAPES),
+                               ("fused_rnn.cu", "PK_RNN_FWD_SHAPE",
+                                tfr.RNN_FWD_SHAPES)):
+        inst = re.findall(r"^  %s\((\d+), (\d+)\)$" % macro,
+                          (csrc / name).read_text(), re.M)
+        assert tuple((int(a), int(b)) for a, b in inst) == table
+
+
+# ---------------------------------------------------------------------------
 # the staging layout
 # ---------------------------------------------------------------------------
 

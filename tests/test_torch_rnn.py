@@ -868,9 +868,9 @@ def cuda_device():
 @pytest.mark.parametrize("qbits", [0, 16])
 @pytest.mark.parametrize("act", ["tanh", "relu"])
 def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
-    """The forward (plain, stash, seeded; one launch per step) and both
-    BPTT kernels (T, and T + 1 for the recompute one) against their twins
-    on the card, on the same tensors."""
+    """The forward (plain, stash, seeded; on its route, with the route's
+    launches) and both BPTT kernels (T, and T + 1 for the recompute one)
+    against their twins on the card, on the same tensors."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g, U, drop, h0, dhs = (tt(a).to(cuda_device) for a in _inputs(19))
     with torch.no_grad():
@@ -879,7 +879,9 @@ def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
                                      stash=True)
         hs1 = tfr.fused_rnn_fwd(g, U, drop, act=act, qbits=qbits)
         hs_s = tfr.fused_rnn_fwd(g, U, drop, h0, act=act, qbits=qbits)
-        assert tfr.fused_rnn_fwd.launches == before + 3 * T
+        route = tfr.rnn_fwd_route(B, H, cuda_device)[0]
+        assert tfr.fused_rnn_fwd.launches == before + 3 * tfr.rnn_fwd_launches(
+            route, T)
         ref, ref_a = tfr.fused_rnn_fwd_plain(g, U, drop, None, act, qbits,
                                              True)
         ref_s = tfr.fused_rnn_fwd_plain(g, U, drop, h0, act, qbits)
@@ -965,3 +967,84 @@ def test_cuda_cudnn_wrappers_match_cpu(cuda_device, kind):
     for a, b in zip(out["cuda"], out["cpu"]):
         scale = max(float(b.abs().max()), 1e-30)
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.RNN_FWD_SHAPES)
+def test_cuda_fwd_persist_is_the_step_routes_bits(cuda_device, shape):
+    """The forward's persistent route (TPU row 27) forced to each
+    instantiated block shape at a ragged width (H=37: the last unit group
+    masked, the exchange rows padded to 40 floats) and batch (8 bi + 3
+    rows): bit for bit its forced step route, stash and not, zero and
+    seeded, qbits 0 and 16, tanh and relu (each dot is one warp's in
+    rnn_step's order, q() quant()'s bits), within the twin's bar (times
+    the outputs' scale where it passes 1); one launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bi, un = shape
+    T_, B_, H_ = 7, 8 * bi + 3, 37
+    g, U, drop, h0, _ = (tt(a).to(cuda_device) for a in _inputs(
+        83 + 2 * un + bi, h=H_, t=T_, b=B_))
+    U = U * float(np.sqrt(H / H_))      # the recurrent gain of H=18's U
+    plan = tfr.rnn_fwd_plan(B_, H_, shape)
+    with torch.no_grad():
+        for qbits in (0, 16):
+            for act in ("tanh", "relu"):
+                for seed in (None, h0):
+                    for stash in (False, True):
+                        before = tfr.fused_rnn_fwd.launches
+                        got = tfr._rnn_fwd_persist(plan, g, U, drop, seed, act,
+                                                   qbits, stash)
+                        assert tfr.fused_rnn_fwd.launches == before + 1
+                        want = tfr._rnn_fwd_step(g, U, drop, seed, act, qbits,
+                                                 stash)
+                        ref = tfr.fused_rnn_fwd_plain(g.cpu(), U.cpu(),
+                                                      drop.cpu(),
+                                                      None if seed is None
+                                                      else seed.cpu(), act,
+                                                      qbits, stash)
+                        got, want, ref = ((x,) if not stash else x
+                                          for x in (got, want, ref))
+                        for a, b, r in zip(got, want, ref):
+                            assert torch.equal(a, b), (shape, qbits, act,
+                                                       seed is not None,
+                                                       stash)
+                            # a 16-bit level is max|h| / 2^15: the bar
+                            # scales with the outputs, which relu lets pass 1
+                            np.testing.assert_allclose(
+                                a.cpu().numpy(), r.numpy(),
+                                atol=_atol(qbits) * max(
+                                    1.0, float(r.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_, B_, H_, act, qbits, seeded", [
+    (300, 8, 550, "relu", 0, False),     # the TIMIT RNN's train shape
+    (300, 8, 550, "tanh", 0, False),
+    (300, 8, 1024, "relu", 16, True),    # the CGS-16x RNN's dense stream
+])
+def test_cuda_fwd_persist_at_the_timit_shapes(cuda_device, T_, B_, H_, act,
+                                              qbits, seeded):
+    """At full width the wrapper takes the persistent route (one launch a
+    call) and gives its forced step route's bits, with the stash; the
+    stash holds a before the dropout; a call seeded from h_{s-1} gives the
+    zero-state call's steps s..T-1 bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(H_ + qbits)
+    d = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    g = d(rng.randn(T_, B_, H_) * 0.5)
+    U = d(rng.randn(H_, H_) * 0.3 / np.sqrt(H_))
+    drop = d(rng.rand(B_, H_) > 0.2) / 0.8
+    h0 = d(rng.randn(B_, H_) * 0.3) if seeded else None
+    assert tfr.rnn_fwd_route(B_, H_, cuda_device)[0] == "persist"
+    w = tfr.fused_rnn_fwd
+    with torch.no_grad():
+        before = w.launches
+        hs, acts = w(g, U, drop, h0, act=act, qbits=qbits, stash=True)
+        assert w.launches == before + 1
+        s_hs, s_acts = tfr._rnn_fwd_step(g, U, drop, h0, act, qbits, True)
+        assert torch.equal(hs, s_hs) and torch.equal(acts, s_acts)
+        assert torch.equal(hs, acts * drop)
+        s = T_ // 2
+        shifted = w(g[s:].contiguous(), U, drop, hs[s - 1].contiguous(),
+                    act=act, qbits=qbits)
+        assert torch.equal(shifted, hs[s:])
