@@ -1567,8 +1567,9 @@ def step_parts(runner, inp, mask, reps=5):
     return {k: float(np.median(v)) for k, v in parts.items()}
 
 
-def kernel_classes(by_name):
-    """Device ms per class of kernel, from the profile's kernel names."""
+def kernel_classes(by_name, launches=False):
+    """Device ms per class of kernel, from the profile's kernel names (with
+    ``launches``, the kernel records per class)."""
     # the first match names the class: the sparse RNN's and the sparse
     # liGRU's kernels before the sparse LSTM's ("sparse_bwd_step"), the
     # minimalGRU's (the GRU's step kernels at G=2) before the GRU's
@@ -1609,18 +1610,23 @@ def kernel_classes(by_name):
                                    "gru_apre_rebuild", "quant_steps",
                                    "gru_dense_bwd_persist<3"),
                "rnn_fwd_kernel": ("rnn_step", "rnn_fwd_persist"),
-               "rnn_bptt_kernel": ("rnn_bwd_step",),
-               "v3_kernel": ("v3_fwd_gemm", "v3_weight_t", "v3_dx_tile"),
+               # the step kernels and the persistent chain (the recompute
+               # backward's rebuild is rnn_step's, under rnn_fwd_kernel)
+               "rnn_bptt_kernel": ("rnn_bwd_step", "rnn_bwd_persist"),
+               # the forward's weight pass and GEMM, the dx's weight pass
+               # and the legacy dx's float32 tile it runs on
+               "v3_kernel": ("v3_fwd_gemm", "v3_weight_t", "v3_weight_packed",
+                             "dx_gemm", "dx_reduce"),
                "block_sparse_dw_kernel": ("dw_gemm", "dw_reduce"),
                "matmul": ("gemm", "cutlass", "sm90_", "ampere_", "cublas"),
                }
     out = {k: 0.0 for k in classes}
     out["other"] = 0.0
-    for name, (_, us) in by_name.items():
+    for name, (n, us) in by_name.items():
         low = name.lower()
         cls = next((k for k, subs in classes.items()
                     if any(sub in low for sub in subs)), "other")
-        out[cls] += us / 1e3
+        out[cls] += n if launches else us / 1e3
     return out
 
 
@@ -2776,6 +2782,41 @@ def v3_inputs(M, G, seed, dev, K=2048, N=1024):
             "gy": t(rng.randn(M, layout.Nb * G * 128))}
 
 
+def v3_dx_variant_checks(check, v, layout, G, qbits, sub3, M, K, variant,
+                         ref):
+    """Row 14 beyond the plan's own call at M: the serving M (398 x 16, a
+    ragged last tile of M), gy 4 bytes off a float4 (dx_gemm's 4-byte
+    loads) and the finest split of dx_splits forced (every column with
+    more than one entry cut into single entries, dx_reduce summing the
+    parts), each against the twin within TOL_F32_SMALL."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
+    gy, w3 = v["gy"], v["w3"]
+    Ms = GR_SERVE_TBH[0] * GR_SERVE_TBH[1]
+    gs = gy[:Ms].contiguous()
+    check("block_sparse_v3_dx", (Ms, K, layout.N), dict(variant, M=Ms),
+          rel_err(BS.block_sparse_v3_dx(gs, w3, layout, G, qbits, sub3),
+                  BS.block_sparse_v3_dx_plain(gs, w3, layout, G, qbits,
+                                              sub3)), TOL_F32_SMALL, True)
+    buf = torch.empty(gy.numel() + 1, device=gy.device)
+    gyo = buf[1:].view(gy.shape).copy_(gy)
+    if BS.gemm_vec(layout.bs, gyo):
+        raise AssertionError("gy 4 bytes off a float4 took the 16-byte loads")
+    check("block_sparse_v3_dx", (M, K, layout.N),
+          dict(variant, loads="scalar"), rel_err(BS.block_sparse_v3_dx(
+              gyo, w3, layout, G, qbits, sub3), ref), TOL_F32_SMALL, True)
+    finest = BS.dx_splits(BS.column_counts(layout))[-1]
+    plan_fn = BS.dx_plan
+    BS.dx_plan = lambda *a: plan_fn(*a[:6], split=finest)
+    try:
+        got = BS.block_sparse_v3_dx(gy, w3, layout, G, qbits, sub3)
+        parts = dx_plan_of(layout, M, G, "gemm", gy.device).parts
+    finally:
+        BS.dx_plan = plan_fn
+    check("block_sparse_v3_dx", (M, K, layout.N),
+          dict(variant, split=list(finest), parts=parts), rel_err(got, ref),
+          TOL_F32_SMALL, True)
+
+
 def phase_gru_kernels(dev):
     """The sparse GRU forward and BPTT kernels (qbits 0/16, w3g f32 and
     bf16, tanh as the cfg and relu at the small shape) at the small,
@@ -2783,7 +2824,9 @@ def phase_gru_kernels(dev):
     ones; the forward also at GR_STEP_TBH, its step route, qbits 16 f32;
     each call on its route with its launches, two calls bit for bit and
     its device kernels), the v3 forward and dx kernels (G=3 with the 8-bit quantizer
-    and the submask; G=1; a K-padded layout; the plain variant) and the
+    and the submask; G=1; a K-padded layout; the plain variant; the dx
+    two calls bit for bit, and at G=3 also at the serving M, on dx_gemm's
+    4-byte loads and at the finest split: v3_dx_variant_checks) and the
     dw kernel at the path's G=1, 2, 3, against their twins; the forward
     and the dw at G=3 also on their scalar-load instantiation."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
@@ -2865,13 +2908,18 @@ def phase_gru_kernels(dev):
                 BS.block_sparse_v3_fwd(xp, v["w3"], layout, G, qbits, sub3),
                 BS.block_sparse_v3_fwd_plain(xp, v["w3"], layout, G, qbits,
                                              sub3)), TOL_F32_SMALL, True)
-            check("block_sparse_v3_dx", (M, K, layout.N), variant, rel_err(
-                BS.block_sparse_v3_dx(v["gy"], v["w3"], layout, G, qbits,
-                                      sub3),
-                BS.block_sparse_v3_dx_plain(v["gy"], v["w3"], layout, G,
-                                            qbits, sub3)),
-                TOL_F32_SMALL, True)
+            # row 14: the weight pass and dx_gemm over dx_plan's items
+            dcall = lambda: BS.block_sparse_v3_dx(v["gy"], v["w3"], layout,
+                                                  G, qbits, sub3)
+            dx_ref = BS.block_sparse_v3_dx_plain(v["gy"], v["w3"], layout, G,
+                                                 qbits, sub3)
+            check("block_sparse_v3_dx", (M, K, layout.N), variant,
+                  rel_err(dcall(), dx_ref), TOL_F32_SMALL, True)
+            check("block_sparse_v3_dx/determinism", (M, K, layout.N),
+                  variant, same_bits(dcall), 0.0, False)
             if k == 0:
+                v3_dx_variant_checks(check, v, layout, G, qbits, sub3, M, K,
+                                     variant, dx_ref)
                 check("block_sparse_dw", (M, K, layout.N),
                       dict(variant, path="v3 dw, G=3"), rel_err(
                           BS.block_sparse_dw(v["gy"], xp, layout, G, sub3),
@@ -2989,6 +3037,8 @@ PERSIST_ROUTES = {
                             "gru_bwd_dense_occupancy",
                             lambda plan, bf16: (3, plan.bi, plan.units)),
     "fused_rnn_fwd": ("rnn_fwd_route", "fused_rnn", "fused_rnn_fwd_occupancy",
+                      lambda plan, bf16: (plan.bi, plan.units)),
+    "fused_rnn_bwd": ("rnn_bwd_route", "fused_rnn", "fused_rnn_bwd_occupancy",
                       lambda plan, bf16: (plan.bi, plan.units))}
 #: the dense forwards' gate counts (their route functions take G)
 DENSE_FWD_G = {"fused_gru_fwd": 3, "fused_mgru_fwd": 2}
@@ -3216,6 +3266,32 @@ def rnn_fwd_design(route, T, seeded=False, qbits=0):
                 rnn_step=T)
 
 
+#: fused_rnn_bwd's launches a call on the persistent route by qbits > 0,
+#: written from the design: the rebuild and the chain, and the per-step
+#: scales of q(h_prev) with the quantizer ("step": the rebuild and one a
+#: reverse step, T + 1, as its counter counts them)
+RNN_BWD_PERSIST_LAUNCHES = {False: 2, True: 3}
+
+
+def rnn_bwd_launches(dev, T, B, H, qbits=0):
+    """fused_rnn_bwd's route at (B, H) and its launches a call of T
+    steps."""
+    route = chain_route(dev, "fused_rnn_bwd", B, H)[0]
+    return route, (RNN_BWD_PERSIST_LAUNCHES[qbits > 0] if route == "persist"
+                   else T + 1)
+
+
+def rnn_bwd_design(route, T, qbits):
+    """fused_rnn_bwd's device kernels a call by name: with the quantizer
+    the per-step scales, the rebuild (rnn_step over all T), then the
+    chain or T step kernels."""
+    want = {"absmax_steps": 1} if qbits > 0 else {}
+    want["rnn_step"] = 1
+    if route == "persist":
+        return dict(want, rnn_bwd_persist=1)
+    return dict(want, rnn_bwd_step=T)
+
+
 def rnn_stream_count(dev, layers, B, H):
     """``count(T, chunk)`` of an RNN stream on the dense seeded forward:
     each of ``layers`` layers' seeded call a chunk, on its route."""
@@ -3311,7 +3387,8 @@ ROUTE_KERNELS = (
     "gru_dense_fwd_persist", "absmax_bits", "ligru_fwd_persist",
     "ligru_step", "gru_dense_bwd_persist", "mgru_z_rebuild", "rows_dots",
     "lstm_fwd_persist", "lstm_step", "lstm_bwd_stash_persist",
-    "lstm_bwd_step", "lstm_bwd_dh0", "rnn_fwd_persist", "rnn_step")
+    "lstm_bwd_step", "lstm_bwd_dh0", "rnn_fwd_persist", "rnn_step",
+    "rnn_bwd_persist", "rnn_bwd_step")
 
 
 def bptt_design(route, T, qbits=None, bf16=False):
@@ -3391,21 +3468,26 @@ def bptt_kernels(fn, want, tries=3):
     """Hold one call of the BPTT (or routed forward) ``fn`` to ``want``
     (bptt_design, ligru_bwd_design, gru_fwd_sparse_design,
     gru_fwd_design, ligru_fwd_design, mgru_bwd_design,
-    gru_bwd_stash_design, rnn_fwd_design): the kernel
+    gru_bwd_stash_design, rnn_fwd_design, rnn_bwd_design): the kernel
     records of the call (last_call_kernels) among ROUTE_KERNELS must be
     exactly those, so the route that ran is
     the one named. A trace that differs is taken again, up to ``tries``
-    traces (the profiler can drop a record, device_kernels); it raises
-    when every trace that held records of the port's kernels differed.
-    Where none held any (a short call's trace can hold no kernel record,
-    or only a PyTorch copy's: a full run saw row 32's cooperative kernel
-    dropped beside a kept ``vectorized_elementwise_kernel``),
-    the call's launch calls must number at least the kernels ``want``
-    names (PyTorch's own copies launch too), and its cooperative ones
-    exactly its chains (the ``*_persist`` kernels: one on a persistent
-    route, none on a step route). -> the port's kernels of the trace that
-    agreed (or {"cuda_launch_calls": n, "cooperative": c})."""
-    seen, calls, coop = [], 0, 0
+    traces (the profiler can drop a record, device_kernels). The profiler
+    drops records often: a short call's trace can hold no kernel record,
+    or only a PyTorch copy's (a full run saw row 32's cooperative kernel
+    dropped beside a kept ``vectorized_elementwise_kernel``), and a full
+    run's three traces of row 29 each lacked the call's first kernel
+    (``absmax_steps``) beside its two others. So where no trace equals
+    the design, a trace whose records of the port's kernels are only
+    part of it (none outside it, none more often) stands for it when its
+    launch calls number at least the kernels ``want`` names (PyTorch's
+    own copies launch too) and its cooperative ones exactly its chains
+    (the ``*_persist`` kernels: one on a persistent route, none on a step
+    route). It raises where any trace held a port kernel outside the
+    design, or more often, or no trace stood for it. -> the port's
+    kernels of the trace that agreed (or, for a partial trace, what it
+    held with {"cuda_launch_calls": n, "cooperative": c})."""
+    seen, partial, outside = [], None, False
     chains = sum(v for k, v in want.items() if k.endswith("_persist"))
     for _ in range(tries):
         got, calls, coop = last_call_kernels(fn) or ({}, 0, 0)
@@ -3415,12 +3497,15 @@ def bptt_kernels(fn, want, tries=3):
             return port
         if port:
             seen.append(got)
-    if not seen and calls >= sum(want.values()) and coop == chains:
-        out = {"cuda_launch_calls": calls, "cooperative": coop}
-        print("[bptt_kernels] no records of the port's kernels in %d "
-              "traces: %s (the design %s)" % (tries, json.dumps(out),
+        if any(v > want.get(k, 0) for k, v in port.items()):
+            outside = True
+        elif calls >= sum(want.values()) and coop == chains:
+            partial = dict(port, cuda_launch_calls=calls, cooperative=coop)
+    if partial is not None and not outside:
+        print("[bptt_kernels] %d traces held part of the design's records "
+              "or none: %s (the design %s)" % (tries, json.dumps(partial),
                                                json.dumps(want)))
-        return out
+        return partial
     raise AssertionError("a routed call launched %s (%d launch calls, %d "
                          "cooperative); the design is %s"
                          % (seen, calls, coop, want))
@@ -3765,11 +3850,14 @@ def gru_rows(checks, times, launches):
                                          M=GR_SERVE_TBH[0] * GR_SERVE_TBH[1])},
             ms_q0=times["block_sparse_v3_fwd_ms_q0"],
             device_launches=times["block_sparse_v3_fwd_device_launches"]),
-        row("block_sparse_v3_dx", "block_sparse_v3", bsp % 744,
+        row("block_sparse_v3_dx", "block_sparse_dx", bsp % 744,
             times["dense_masked_dx_ms"],
             dense % "(6400, 3072) x (3072, 2048)",
             err_at("block_sparse_v3_dx", G=3, K=2048, qbits=8), v3,
-            v3_dw_ms=times["dw_libri_v3_G3_ms"])]
+            v3_dw_ms=times["dw_libri_v3_G3_ms"],
+            device_launches=times["block_sparse_v3_dx_device_launches"],
+            kernels_ms=times["block_sparse_v3_dx_kernels_ms"],
+            plan=times["block_sparse_v3_dx_plan"])]
 
 
 # ---------------------------------------------------------------------------
@@ -4309,12 +4397,25 @@ def phase_timit_rnn_kernels(dev):
                                  acts, U, drop, dhs, act)),
                     R.fused_rnn_bwd_stash_plain(acts, U, drop, dhs, act)),
                     tol, True)
-                check("fused_rnn_bwd", shape, variant, rel_err(
-                    launched(R.fused_rnn_bwd, T + 1,
-                             lambda: R.fused_rnn_bwd(g, U, drop, h_prev, dhs,
-                                                     act, qbits)),
-                    R.fused_rnn_bwd_plain(g, U, drop, h_prev, dhs, act,
-                                          qbits)), tol_q, True)
+                # row 29 on the route its plan names, its launches, two
+                # calls bit for bit, its device kernels once a shape
+                b_route, n_b = rnn_bwd_launches(dev, T, B, H, qbits)
+                bvar = dict(variant, route=b_route)
+                bcall = lambda: R.fused_rnn_bwd(g, U, drop, h_prev, dhs, act,
+                                                qbits)
+                ref_b = R.fused_rnn_bwd_plain(g, U, drop, h_prev, dhs, act,
+                                              qbits)
+                check("fused_rnn_bwd", shape, bvar, rel_err(
+                    launched(R.fused_rnn_bwd, n_b, bcall), ref_b), tol_q,
+                    True)
+                check("fused_rnn_bwd/determinism", shape, bvar,
+                      same_bits(bcall), 0.0, False)
+                if (qbits, act) == (16, "relu"):
+                    bptt_kernels(bcall, rnn_bwd_design(b_route, T, qbits))
+                if shape == TR_TRAIN_TBH:
+                    rnn_bwd_step_checks(check, shape, variant, g, U, drop,
+                                        h_prev, dhs, act, qbits, ref_b,
+                                        tol_q)
     # the CGS-16x RNN's dense stream: a seeded chunk of 100 at 8 rows of
     # 1024, relu behind the 16-bit quantizer, on both routes
     T, B, H = 100, RS_TRAIN_TBH[1], RS_TRAIN_TBH[2]
@@ -4339,7 +4440,39 @@ def phase_timit_rnn_kernels(dev):
         (SMALL_TBH, "persist"), (TR_TRAIN_TBH, "persist"),
         (TR_SERVE_TBH, "persist"), (TR_TRAIN_TBH, "step"),
         (TR_WIDE_TBH, "step"), ((T, B, H), "persist"), ((T, B, H), "step")})
+    check_fwd_routes(checks, "fused_rnn_bwd", {
+        (SMALL_TBH, "persist"), (TR_TRAIN_TBH, "persist"),
+        (TR_TRAIN_TBH, "step"), (TR_WIDE_TBH, "step")})
     return checks
+
+
+def rnn_bwd_step_checks(check, shape, variant, g, U, drop, h_prev, dhs, act,
+                        qbits, ref, tol):
+    """Row 29's step route forced (fused_rnn._rnn_bwd_step) against the
+    twin, the route the wrapper takes bit for bit equal to it (the chain's
+    dots are rnn_bwd_step's sums), and each co-resident block shape of
+    RNN_BWD_SHAPES forced onto the persistent route, bit for bit."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = shape
+    w = R.fused_rnn_bwd
+    route = rnn_bwd_launches("cuda", T, B, H, qbits)[0]
+    st = launched(w, T + 1, lambda: R._rnn_bwd_step(
+        w, g, U, drop, h_prev, dhs, act, qbits, False))
+    check("fused_rnn_bwd/step_route", shape, dict(variant, route="step"),
+          rel_err(st, ref), tol, True)
+    check("fused_rnn_bwd/%s_vs_step" % route, shape,
+          dict(variant, route=route), bits_apart(
+              w(g, U, drop, h_prev, dhs, act, qbits), st), 0.0, False)
+    for shape_ in R.RNN_BWD_SHAPES:
+        fp = R.rnn_bwd_plan(B, H, shape_)
+        if fp.smem > R._SMEM_MAX or not co_resident("fused_rnn_bwd", fp):
+            continue
+        check("fused_rnn_bwd/forced_vs_step", shape, dict(
+            variant, route="persist", plan="%d units x %d rows" % (
+                fp.units, 8 * fp.bi)), bits_apart(launched(
+                    w, RNN_BWD_PERSIST_LAUNCHES[qbits > 0],
+                    lambda: R._rnn_bwd_persist(fp, g, U, drop, h_prev, dhs,
+                                               act, qbits)), st), 0.0, False)
 
 
 def rnn_fwd_step_checks(check, shape, variant, g, U, drop, h0, act, qbits,
@@ -4446,7 +4579,8 @@ def phase_timit_rnn_train(dev):
           % (sens, where, grad_tol))
     out = phase_train(dev, timit_rnn_train_runner, "timit_rnn_train", (
         ("recompute", knob, None,
-         expected(fused_rnn_fwd=n, fused_rnn_bwd=TR_LAYERS * (T + 1))),
+         expected(fused_rnn_fwd=n, fused_rnn_bwd=TR_LAYERS * rnn_bwd_launches(
+             dev, T, B, H)[1])),
         ("stash", knob, "rnn",
          expected(fused_rnn_fwd=n, fused_rnn_bwd_stash=TR_LAYERS * T))),
         grad_tol=grad_tol, fall_runner=lambda d, cdt="":
@@ -4512,7 +4646,8 @@ def phase_cudnn_wrappers(dev):
                    "gru_torch": lambda: T}[cell]()
         want_eval = expected(**{"fused_%s_fwd" % cell: fwd})
         want_train = expected(**{
-            "rnn": {"fused_rnn_fwd": fwd, "fused_rnn_bwd": 4 * (T + 1)},
+            "rnn": {"fused_rnn_fwd": fwd, "fused_rnn_bwd":
+                    4 * rnn_bwd_launches(dev, T, B, H)[1]},
             "lstm": {"fused_lstm_fwd": fwd, "fused_lstm_bwd_stash":
                      4 * lstm_bwd_stash_launches(dev, T, B, H)[1]},
             "gru_torch": {"fused_gru_torch_fwd": 4 * T,
@@ -4585,7 +4720,9 @@ def phase_timit_rnn_times(dev, rec, audio, lens):
     scalar), as the cfg runs them (relu, no quantizer); their twins and
     bounds; row 27's routes and plans (train, serve, the CGS-16x RNN's
     dense stream, a seeded chunk of which is timed) and its other
-    co-resident block shapes at the train shape, forced; cuDNN's
+    co-resident block shapes at the train shape, forced; row 29's route
+    and plan at the train shape and RNN_cudnn's, its rebuild / chain
+    split and its other co-resident block shapes, forced; cuDNN's
     nn.RNN(550, 550, nonlinearity="relu") as a yardstick; the dU matmul;
     the TIMIT RNN train step and recognize."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
@@ -4655,6 +4792,25 @@ def phase_timit_rnn_times(dev, rec, audio, lens):
         times["cgs16x_stream_chunk100_bound_ms"] = rnn_bound_ms(
             100, B, Hc, "fwd")[0]
         del ck
+        # row 29's route and plan at the TIMIT RNN's train shape and at
+        # RNN_cudnn's (each direction's layer call at 8 rows), its
+        # rebuild / chain split and its other block shapes, forced
+        Hr = dict((n, h) for n, h, _ in CUDNN_CASES)["RNN_cudnn"]
+        times["fused_rnn_bwd_kernel_route"] = {
+            tag: dict(zip(("route", "plan"), chain_route(
+                dev, "fused_rnn_bwd", B, H_)))
+            for tag, H_ in (("train", H), ("rnn_cudnn", Hr))}
+        bcall = calls["fused_rnn_bwd"][0]
+        times["fused_rnn_bwd_split"] = bptt_split(bcall, 3)
+        plan = times["fused_rnn_bwd_kernel_route"]["train"]["plan"]
+        times["fused_rnn_bwd_by_block_shape"] = forced_plan_ms(
+            "fused_rnn_bwd", lambda shape_, run=False: (
+                R._rnn_bwd_persist(R.rnn_bwd_plan(B, H, shape_), g, U, drop,
+                                   h_prev, dhs, act, 0)
+                if run else R.rnn_bwd_plan(B, H, shape_)), 10,
+            [s_ for s_ in getattr(R, "RNN_BWD_SHAPES", ())
+             if s_ != (plan.get("batch_rows_per_block", 0) // 8,
+                       plan.get("units_per_block"))])
         # the dU product outside the BPTT kernel: (H, T*B) @ (T*B, H)
         dg = torch.randn(T * B, H, device=dev)
         hq = torch.randn(T * B, H, device=dev)
@@ -6725,6 +6881,8 @@ def phase_legacy_bs_times(dev):
             for op, got, ref in (
                     ("fwd", BS.block_sparse_v3_fwd(x, w3, vl, 3, q, sub),
                      BS.block_sparse_v3_fwd_plain(x, w3, vl, 3, q, sub)),
+                    ("dx", BS.block_sparse_v3_dx(gy, w3, vl, 3, q, sub),
+                     BS.block_sparse_v3_dx_plain(gy, w3, vl, 3, q, sub)),
                     ("dw", BS.block_sparse_dw(gy, x, vl, 3, sub),
                      BS.block_sparse_dw_plain(gy, x, vl, 3, sub))):
                 rel = rel_err(got, ref)[1]
@@ -6945,6 +7103,17 @@ def phase_bs_gemm_times(dev, reps=20):
                     reps=3, warmup=1)
                 times[dx + "_bound_ms"], times[dx + "_bound_by"] = \
                     v3_bound_ms(M, vl, G)
+                # its device kernels, each one's ms (the weight pass apart
+                # from the GEMM) and, on the legacy dx's tile, the plan's
+                # pick (dx_plan_sweep times every split beside it)
+                dxcall = lambda: BS.block_sparse_v3_dx(gy, w3, vl, G, 8, sub3)
+                times[dx + "_device_launches"] = device_kernels(dxcall)
+                times[dx + "_kernels_ms"] = kernels_by_name(dxcall)
+                if hasattr(BS, "v3_weight_packed_plain"):
+                    pick = dx_plan_of(vl, M, G, "gemm", dev)
+                    times[dx + "_plan"] = {"split": list(pick.split),
+                                           "parts": pick.parts,
+                                           "model_us": pick.cost_us}
                 dy = torch.randn(M, G * vl.N, device=dev, generator=gen)
                 times["dense_masked_dx_ms"] = cuda_ms(lambda: dy @ W,
                                                       reps=reps)
@@ -7051,14 +7220,39 @@ def dx_plan_of(layout, M, G, route, dev, split=None):
 
 def dx_plan_sweep(dev):
     """The legacy dx at each timed shape (legacy_dw_shapes), f32 and bf16,
-    at every split the plan weighs (BS.dx_splits; splits that give the
-    same items timed once), forced through the wrapper: per split the
-    device time of one call's kernels (kernel_ms), the call's CUDA-event
-    ms, the modelled us and the partial planes, beside the split the plan
-    picks. -> {shape_dtype: ...}."""
+    and, with a package that runs the v3 dx on the legacy dx's float32
+    tile, the v3 dx at the libri GRU's training shape (M = 6400, G=3,
+    qbits 8 with the submask, bs_gemm_times' operands), at every split the
+    plan weighs (BS.dx_splits; splits that give the same items timed
+    once), forced through the wrapper: per split the device time of one
+    call's kernels (kernel_ms), the call's CUDA-event ms, the modelled us
+    and the partial planes, beside the split the plan picks. ->
+    {shape_dtype: ...}."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     out = {}
     plan_fn = BS.dx_plan
+
+    def sweep(key, call, layout, M, G, route):
+        pick = dx_plan_of(layout, M, G, route, dev)
+        r = {"pick": list(pick.split), "pick_model_us": pick.cost_us}
+        seen = set()
+        for sp in BS.dx_splits(BS.column_counts(layout)):
+            forced = dx_plan_of(layout, M, G, route, dev, sp)
+            if forced.items in seen:
+                continue
+            seen.add(forced.items)
+            # the wrapper asks dx_plan for its plan: force this one
+            BS.dx_plan = lambda *a, forced=forced: forced
+            try:
+                r["S%d_%d" % sp] = {
+                    "kernel_ms": kernel_ms(call),
+                    "ms": cuda_ms(call, reps=50),
+                    "model_us": forced.cost_us, "parts": forced.parts}
+            finally:
+                BS.dx_plan = plan_fn
+        out[key] = r
+        print("[dx_plan_sweep] %s %s" % (key, json.dumps(r)), flush=True)
+
     for tag, layout, M, G in legacy_dw_shapes():
         for dt, route in (("f32", "gemm"), ("bf16", "mma")):
             _, w, gy = legacy_operands(layout, G, M, 236, dev, dt, dt)
@@ -7066,27 +7260,16 @@ def dx_plan_sweep(dev):
                 w = w.reshape(layout.nnz, layout.bs, layout.bs)
             call = (lambda: BS.bsl_dx(gy, w, layout)) if G == 1 else \
                 (lambda: BS.bsl_dx_multi(gy, w, layout, G))
-            pick = dx_plan_of(layout, M, G, route, dev)
-            r = {"pick": list(pick.split), "pick_model_us": pick.cost_us}
-            seen = set()
-            for sp in BS.dx_splits(BS.column_counts(layout)):
-                forced = dx_plan_of(layout, M, G, route, dev, sp)
-                if forced.items in seen:
-                    continue
-                seen.add(forced.items)
-                # the wrapper asks dx_plan for its plan: force this one
-                BS.dx_plan = lambda *a, forced=forced: forced
-                try:
-                    r["S%d_%d" % sp] = {
-                        "kernel_ms": kernel_ms(call),
-                        "ms": cuda_ms(call, reps=50),
-                        "model_us": forced.cost_us, "parts": forced.parts}
-                finally:
-                    BS.dx_plan = plan_fn
-            out["bsl_dx_%s_%s" % (tag, dt)] = r
-            print("[dx_plan_sweep] %s_%s %s" % (tag, dt, json.dumps(r)),
-                  flush=True)
+            sweep("bsl_dx_%s_%s" % (tag, dt), call, layout, M, G, route)
             del w, gy
+        torch.cuda.empty_cache()
+    if hasattr(BS, "v3_weight_packed_plain"):
+        M = GR_TRAIN_TBH[0] * GR_TRAIN_TBH[1]
+        v = v3_inputs(M, 3, 234, dev)
+        sweep("v3_dx_libri_G3_f32", lambda: BS.block_sparse_v3_dx(
+            v["gy"], v["w3"], v["layout"], 3, 8, v["sub3"]), v["layout"], M,
+            3, "gemm")
+        del v
         torch.cuda.empty_cache()
     return out
 
@@ -7155,7 +7338,7 @@ def kernels_by_name(fn, reps=5):
 CHAIN_KERNELS = ("gru_torch_bwd_step", "gru_torch_bwd_persist",
                  "gru_bwd_carry", "gru_bwd_ds", "gru_bwd_persist",
                  "ligru_bwd_step", "ligru_bwd_persist",
-                 "gru_dense_bwd_persist")
+                 "gru_dense_bwd_persist", "rnn_bwd_step", "rnn_bwd_persist")
 
 
 def bptt_split(fn, reps=5):
@@ -7240,7 +7423,8 @@ def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
                "fused_lstm_fwd": "lstm_fwd_plan",
                "fused_lstm_bwd_stash": "lstm_bwd_stash_plan",
                "fused_gru_bwd_stash": "gru_bwd_stash_plan",
-               "fused_rnn_fwd": "rnn_fwd_plan"}[kernel]
+               "fused_rnn_fwd": "rnn_fwd_plan",
+               "fused_rnn_bwd": "rnn_bwd_plan"}[kernel]
     if not hasattr(F if kernel in LSTM_PERSIST else R, plan_fn):
         return {}
     out = {}
@@ -7373,6 +7557,36 @@ def digest(x):
     return h.hexdigest()[:16]
 
 
+def rnn_bwd_turn_times(dev, g, U, drop, h_prev, dhs, reps=10):
+    """Row 29 (relu, as the TIMIT RNN cfg runs it) at the TIMIT RNN's
+    train shape: ms per call without and with the 16-bit quantizer, the
+    route's plan, the rebuild / chain split, each block shape of
+    RNN_BWD_SHAPES forced, and, with a package that has the persistent
+    route, the step route forced; the output digests (qbits 0 and
+    16)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = g.shape
+    call = lambda: R.fused_rnn_bwd(g, U, drop, h_prev, dhs, "relu")
+    call16 = lambda: R.fused_rnn_bwd(g, U, drop, h_prev, dhs, "relu", 16)
+
+    def bwd_plan(shape_, run=False):
+        plan = R.rnn_bwd_plan(B, H, shape_)
+        return (R._rnn_bwd_persist(plan, g, U, drop, h_prev, dhs, "relu", 0)
+                if run else plan)
+    out = {"ms": cuda_ms(call, reps), "ms_q16": cuda_ms(call16, reps),
+           "plan": chain_route(dev, "fused_rnn_bwd", B, H)[1],
+           "split": bptt_split(call, 3),
+           "by_block_shape": forced_plan_ms(
+               "fused_rnn_bwd", bwd_plan, reps,
+               getattr(R, "RNN_BWD_SHAPES", ())),
+           "digest": digest(call()), "digest_q16": digest(call16())}
+    if hasattr(R, "rnn_bwd_plan"):
+        out["step_route_ms"] = cuda_ms(lambda: R._rnn_bwd_step(
+            R.fused_rnn_bwd, g, U, drop, h_prev, dhs, "relu", 0, False),
+            reps)
+    return out
+
+
 def phase_rnn_turn_times(dev):
     """The redesigned rows at their timed shapes (gru_torch_times',
     gru_times', ligru_times', libri_ligru_times', timit_gru_times' and
@@ -7393,8 +7607,9 @@ def phase_rnn_turn_times(dev):
     the TIMIT GRU's train shape and each block shape of its table; row 27
     (relu) at the TIMIT RNN's train (stash and not) and serve shapes and
     as the CGS-16x RNN's seeded chunk of 100, each block shape of its
-    table at the train shape, its output digests; rows 17, 21, 22, 23,
-    25, 28, 29, 33, 34, 35, 13 (libri G=3, 8-bit, submask) and 15 (the
+    table at the train shape, its output digests; row 29 (relu) at the
+    TIMIT RNN's train shape (rnn_bwd_turn_times); rows 17, 21, 22, 23,
+    25, 28, 33, 34, 35, 13 (libri G=3, 8-bit, submask) and 15 (the
     libri v3 dw) as the rows that must not move; rows 1 and 3
     (lstm_turn_times). Public wrappers only (and the forced plans where
     the package has them), so an earlier tree's package runs it too."""
@@ -7572,7 +7787,8 @@ def phase_rnn_turn_times(dev):
         # RNN's dense stream (a seeded chunk of 100 at 8 rows of 1024,
         # qbits 16), each block shape of its table, and its output digests
         # (zero and seeded, qbits 0 and 16, the stash: equal across trees,
-        # the step route's bits); rows 28 and 29 beside it
+        # the step route's bits); rows 28 and 29 beside it (row 29 redesigned:
+        # its route, plan, split, block shapes and digests)
         T, B, H = TR_TRAIN_TBH
         fi = gated_inputs(T, B, H, 370, dev, "relu", 1)
         g, U, drop, h0, dhs = (fi[n] for n in ("g", "U", "drop", "h0",
@@ -7610,8 +7826,7 @@ def phase_rnn_turn_times(dev):
         h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
         t["row28_ms"] = cuda_ms(lambda: R.fused_rnn_bwd_stash(
             acts, U, drop, dhs, "relu"), 10)
-        t["row29_ms"] = cuda_ms(lambda: R.fused_rnn_bwd(
-            g, U, drop, h_prev, dhs, "relu"), 10)
+        t["row29"] = rnn_bwd_turn_times(dev, g, U, drop, h_prev, dhs)
         del fi, g, U, drop, h0, dhs, sv, ck, hs, acts, h_prev
         T, B, H = MG_TRAIN_TBH
         sp = cgs_ligru_inputs(T, B, H, 421, dev, "relu")
@@ -7648,8 +7863,8 @@ def rnn_times_main(root):
     the TIMIT GRU, the TIMIT RNN, the minimalGRU, the flagship LSTM, the
     CGS-16x LSTM as shipped (the dense kernels, 8 rows) and under
     ``auto`` (CUDA events, mean of 5 after 2; all but the last also
-    profiled once: device ms by class of kernel, busy share), and the
-    TIMIT GRU's, the TIMIT RNN's, the minimalGRU's and the TIMIT and
+    profiled once: device ms and kernel records by class of kernel, busy
+    share), and the TIMIT GRU's, the TIMIT RNN's, the minimalGRU's and the TIMIT and
     libri Li-GRUs' recognize (8 x 4 s: serve_timings, launches by
     kernel), with
     the package of this checkout or of the tree unpacked at DIR inside it
@@ -7690,8 +7905,10 @@ def rnn_times_main(root):
             lambda: runner.train_step(inp, mask), reps=5)
         if tag != "cgs16x_lstm":
             busy = device_busy(lambda: runner.train_step(inp, mask), top=8)
-            out["%s_step_device_ms_by_class" % tag] = kernel_classes(
-                busy.pop("by_name"))
+            by_name = busy.pop("by_name")
+            out["%s_step_device_ms_by_class" % tag] = kernel_classes(by_name)
+            out["%s_step_launches_by_class" % tag] = kernel_classes(
+                by_name, launches=True)
             out["%s_step_busy" % tag] = busy
         del runner
         torch.cuda.empty_cache()
@@ -8009,7 +8226,8 @@ def dw_by_shape(bs_times):
 def check_gemm_launches(bs_times, dev):
     """The device kernels of one call as bs_gemm_times counted them
     against the design: the v3 forward v3_weight_t then v3_fwd_gemm; the
-    dw one dw_gemm, and one dw_reduce where dw_plan splits M; the legacy
+    v3 dx v3_weight_packed then dx_gemm, and dx_reduce where dx_plan
+    splits a column; the dw one dw_gemm, and one dw_reduce where dw_plan splits M; the legacy
     dw the same, dw_mma in place of dw_gemm in bf16; the legacy forward
     packed_weight_t then v3_fwd_gemm in float32, fwd_mma alone in bf16;
     the legacy dx dx_gemm in float32, dx_mma in bf16, each then
@@ -8019,6 +8237,10 @@ def check_gemm_launches(bs_times, dev):
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     want = {"block_sparse_v3_fwd": {"v3_weight_t": 1, "v3_fwd_gemm": 1},
             "serve_v3_fwd": {"v3_weight_t": 1, "v3_fwd_gemm": 1}}
+    want["block_sparse_v3_dx"] = dict(
+        {"v3_weight_packed": 1, "dx_gemm": 1},
+        **({"dx_reduce": 1} if bs_times["block_sparse_v3_dx_plan"]["parts"]
+           else {}))
     for tag, layout, M, G, _ in dw_shapes():
         splits = BS.dw_plan(M, layout.Nb, G, layout.R, layout.bs,
                             BS.gemm_grid(dev))[1]
@@ -8626,7 +8848,9 @@ def main():
          "by_block_shape": "fused_rnn_fwd_by_block_shape",
          "cgs16x_stream_chunk100_ms": "cgs16x_stream_chunk100_ms",
          "cgs16x_stream_chunk100_bound_ms":
-             "cgs16x_stream_chunk100_bound_ms"}, "cudnn_rnn")
+             "cgs16x_stream_chunk100_bound_ms"}, "cudnn_rnn",
+        bwd_extra={k: tr_times["fused_rnn_bwd_" + k] for k in (
+            "kernel_route", "split", "by_block_shape")})
     line["kernels"] += slice8_rows(cl_checks, cl_times, cl_launches,
                                    gt_checks, gt_times, gt_launches)
     line["kernels"] += slice9_rows(mg_checks, mg_times, mg_launches)

@@ -581,18 +581,22 @@ def block_sparse_v3_dx_plain(gy_flat: torch.Tensor, w3: torch.Tensor,
     return dx.reshape(M, layout.K)
 
 
+def v3_weight_packed_plain(w3: torch.Tensor, layout: BlockLayout, G: int,
+                           qbits: int = 0,
+                           sub3: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Twin of the v3 dx's weight pass (``v3_weight_packed`` of
+    csrc/block_sparse_dx.cu): the effective weight (:func:`v3_weight`) in
+    the legacy packed layout, ``wp[j*R + k][n][c] = w_eff[j][n][k*bs +
+    c]``. -> (nnz, G*bs, bs)."""
+    bs = layout.bs
+    return v3_weight(w3, qbits, sub3).reshape(
+        layout.Nb, G * bs, layout.R, bs).permute(0, 2, 1, 3).reshape(
+            layout.nnz, G * bs, bs)
+
+
 def _qscale(qbits: int) -> float:
     return 2.0 ** (qbits - 1) if qbits else 0.0
-
-
-def _v3_kernel(name, args, ints, out, qbits, sub3):
-    """Launch ``name`` of ``csrc/block_sparse_v3.cu`` through
-    :func:`_launch`: the pointers of ``args``, then sub3 (or null) and
-    ``out``, the ints, the quantizer's scale and the stream."""
-    _launch("block_sparse_v3", name, out.device,
-            (*[a.data_ptr() for a in args],
-             None if sub3 is None else sub3.data_ptr(), out.data_ptr()),
-            ints, (_qscale(qbits),))
 
 
 def block_sparse_v3_fwd(x: torch.Tensor, w3: torch.Tensor,
@@ -616,10 +620,12 @@ def block_sparse_v3_fwd(x: torch.Tensor, w3: torch.Tensor,
     ys = torch.empty((G, M, layout.N), dtype=torch.float32, device=x.device)
     wt = torch.empty((layout.Nb, layout.R * layout.bs, G * layout.bs),
                      dtype=torch.float32, device=x.device)
-    _v3_kernel("block_sparse_v3_fwd",
-               (x, w3, layout.device_index("col_idx", x.device), wt),
-               (M, layout.K, layout.N, layout.Nb, layout.R, layout.bs, G,
-                int(gemm_vec(layout.bs, x))), ys, qbits, sub3)
+    _launch("block_sparse_v3", "block_sparse_v3_fwd", x.device, (
+        x.data_ptr(), w3.data_ptr(),
+        layout.device_index("col_idx", x.device).data_ptr(), wt.data_ptr(),
+        None if sub3 is None else sub3.data_ptr(), ys.data_ptr()), (
+        M, layout.K, layout.N, layout.Nb, layout.R, layout.bs, G,
+        int(gemm_vec(layout.bs, x))), (_qscale(qbits),))
     block_sparse_v3_fwd.launches += 1
     return ys
 
@@ -633,21 +639,36 @@ def block_sparse_v3_dx(gy_flat: torch.Tensor, w3: torch.Tensor,
     """The v3 input gradient (TPU kernel ``_make_dx_v3``): ``gy_flat``
     (M, Nb*G*bs), per out-block its G gates' bs-wide cotangent slices
     side by side, against the forward's effective weight. -> dx (M, K)
-    float32 (K the layout's padded width). CUDA tensors run the kernel,
-    CPU tensors the twin."""
+    float32 (K the layout's padded width). CUDA tensors run the kernels
+    (float32 FMAs, no TF32): ``v3_weight_packed`` writes the effective
+    weight once into scratch in the legacy packed layout, then the legacy
+    dx's float32 tile (``dx_gemm`` of csrc/block_sparse_dx.cu, its 16-byte
+    loads as :func:`gemm_vec` says) runs the work items of
+    :func:`dx_plan`, ``dx_reduce`` summing a split column's parts: two or
+    three device kernels; ``launches`` counts calls. CPU tensors run the
+    twin."""
     M = gy_flat.shape[0]
     if _check_operands(gy_flat, (
             ("gy_flat", gy_flat, (M, _flat_width(layout, G))),
             ("w3", w3, _w3_shape(layout, G)),
             ("sub3", sub3, _w3_shape(layout, G)))):
         return block_sparse_v3_dx_plain(gy_flat, w3, layout, G, qbits, sub3)
-    dev = gy_flat.device
-    dx = torch.empty((M, layout.K), dtype=torch.float32, device=dev)
-    _v3_kernel("block_sparse_v3_dx",
-               (gy_flat, w3, layout.device_index("t_row_idx", dev),
-                layout.device_index("t_perm", dev)),
-               (M, layout.K, layout.Nb, layout.R, layout.bs, G, layout.C,
-                layout.nnz), dx, qbits, sub3)
+    dev, bs = gy_flat.device, layout.bs
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((M, layout.K), **f32)
+    wp = torch.empty((layout.nnz, G * bs, bs), **f32)
+    plan, table = _dx_work(layout, M, G, "gemm", dev)
+    part = torch.empty((plan.parts, M, bs), **f32) if plan.parts else None
+    n_items = len(plan.items)
+    _launch("block_sparse_dx", "block_sparse_v3_dx", dev, (
+        gy_flat.data_ptr(), w3.data_ptr(),
+        None if sub3 is None else sub3.data_ptr(), wp.data_ptr(),
+        layout.device_index("t_row_idx", dev).data_ptr(),
+        layout.device_index("t_perm", dev).data_ptr(), table.data_ptr(),
+        table.data_ptr() + 16 * n_items, dx.data_ptr(),
+        None if part is None else part.data_ptr()), (
+        M, layout.K, layout.Nb, layout.R, bs, G, layout.C, n_items,
+        len(plan.reduce), int(gemm_vec(bs, gy_flat, wp))), (_qscale(qbits),))
     block_sparse_v3_dx.launches += 1
     return dx
 

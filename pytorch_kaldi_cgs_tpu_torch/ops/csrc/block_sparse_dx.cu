@@ -1,5 +1,5 @@
-// The legacy block-sparse input gradient for Hopper (sm_90a), plain C
-// interface.
+// The legacy and v3 block-sparse input gradients for Hopper (sm_90a),
+// plain C interface.
 //
 // Replaces _make_dx and _make_dx_multi of
 // pytorch_kaldi_cgs_tpu/ops/block_sparse.py (:248, :439), the legacy v1/v2
@@ -48,6 +48,19 @@
 // float32 partial plane (M, bs) at its slot and dx_reduce sums a column's
 // partials in part order and rounds once; unsplit columns (slot -1) write
 // dx directly. No float atomics: two calls give the same bits.
+//
+// It also replaces _make_dx_v3 (block_sparse.py:744), the v3 dx against
+// the forward's effective weight w_eff = ceil_quant(w3) * sub3 (w3 and
+// sub3 (Nb, G*bs, R*bs); block_sparse_v3.cu's header): that is the legacy
+// dx over the packed blocks w[j*R + k][n][c] = w_eff[j][n][k*bs + c].
+// block_sparse_v3_dx runs it as two launches (three where the plan
+// splits): v3_weight_packed applies the quantizer and the submask once a
+// call and writes that packed w_eff into float32 scratch (6.3 MB read and
+// 6.3 MB written at the libri layout, about 0.004 ms at 3.35 TB/s, and it
+// stays in the 50 MB L2), then the unchanged dx_gemm over the plan's
+// items (and dx_reduce). The earlier v3 tile applied the epilogue inside
+// its loop, once per M tile that read a block, on a 64 x 64 tile: 1.64-1.71
+// ms at the libri shape where dx_gemm ran the legacy dx in 0.61 (PERF.md).
 //
 // What bounds it on this card: at the LibriSpeech GRU's x-projection
 // (M = 6400, K = 2048, Nb = 8, Kb = 16, R = 4, bs = 128) the dx does
@@ -348,6 +361,25 @@ dx_mma(const __nv_bfloat16* __restrict__ gy,
   }
 }
 
+// The v3 dx's weight pass: the effective weight of w3 (bs_gemm::w_eff)
+// in the legacy packed layout dx_gemm reads, wp[j*R + k][n][c] =
+// w_eff[j][n][k*bs + c], (nnz, G*bs, bs); the inverse of the forward's
+// packed_weight_t mapping with v3_weight_t's epilogue. Each index of w3 in
+// order, so that both reads and writes run along c.
+__global__ void __launch_bounds__(256)
+v3_weight_packed(const float* __restrict__ w3, const float* __restrict__ sub3,
+                 float* __restrict__ wp, int GB, int R, int bs, size_t n,
+                 float qscale) {
+  const size_t RB = (size_t)R * bs;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t row = i / RB, kk = i - row * RB;     // row = j*GB + n
+    const size_t j = row / GB, nn = row - j * GB;
+    const size_t k = kk / bs, c = kk - k * bs;
+    wp[((j * R + k) * GB + nn) * bs + c] = g::w_eff(w3, sub3, i, qscale);
+  }
+}
+
 __device__ __forceinline__ void store(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16(v);   // round to nearest even, as XLA's convert
@@ -381,6 +413,32 @@ cudaError_t run_reduce(const float* part, const int* red, T* dx, int M,
   dx_reduce<T><<<dim3(blocks, n_red), 256, 0, stream>>>(part, red, dx, M, K,
                                                         bs);
   return cudaGetLastError();
+}
+
+// The float32 route: dx_gemm over the plan's items (vec: its 16-byte
+// loads), then dx_reduce where the plan splits a column.
+cudaError_t run_gemm(const float* gy, const float* w, const int* t_row_idx,
+                     const int* t_perm, const int4* items, const int* red,
+                     float* dx, float* part, int M, int K, int Nb, int bs,
+                     int G, int C, int n_items, int n_red, int vec,
+                     cudaStream_t stream) {
+  static int allowed_vec[g::DEVICES], allowed_scalar[g::DEVICES];
+  const int smem = DG_SMEM + 2 * C * 4;             // + the entries
+  cudaError_t err =
+      vec ? g::allow_smem_once(dx_gemm<true>, smem, allowed_vec)
+          : g::allow_smem_once(dx_gemm<false>, smem, allowed_scalar);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + g::TILE - 1) / g::TILE, (bs + g::TILE - 1) / g::TILE,
+                  n_items);
+  if (vec)
+    dx_gemm<true><<<grid, g::THREADS, smem, stream>>>(
+        gy, w, t_row_idx, t_perm, items, dx, part, M, K, Nb, bs, G, C);
+  else
+    dx_gemm<false><<<grid, g::THREADS, smem, stream>>>(
+        gy, w, t_row_idx, t_perm, items, dx, part, M, K, Nb, bs, G, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_red == 0) return err;
+  return run_reduce(part, red, dx, M, K, bs, n_red, stream);
 }
 
 }  // namespace
@@ -423,27 +481,11 @@ int block_sparse_dx_packed(const void* gy, const void* w,
   const int4* it = reinterpret_cast<const int4*>(items);
   const int entries = 2 * C * 4;          // eg and ep, bytes
   cudaError_t err;
-  if (dtype == 0) {
-    static int allowed_vec[g::DEVICES], allowed_scalar[g::DEVICES];
-    const int smem = DG_SMEM + entries;
-    err = vec ? g::allow_smem_once(dx_gemm<true>, smem, allowed_vec)
-              : g::allow_smem_once(dx_gemm<false>, smem, allowed_scalar);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((M + g::TILE - 1) / g::TILE, (bs + g::TILE - 1) / g::TILE,
-                    n_items);
-    const float* a = static_cast<const float*>(gy);
-    const float* b = static_cast<const float*>(w);
-    float* o = static_cast<float*>(dx);
-    if (vec)
-      dx_gemm<true><<<grid, g::THREADS, smem, stream>>>(
-          a, b, t_row_idx, t_perm, it, o, part, M, K, Nb, bs, G, C);
-    else
-      dx_gemm<false><<<grid, g::THREADS, smem, stream>>>(
-          a, b, t_row_idx, t_perm, it, o, part, M, K, Nb, bs, G, C);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || n_red == 0) return err;
-    return run_reduce(part, red, o, M, K, bs, n_red, stream);
-  }
+  if (dtype == 0)
+    return run_gemm(static_cast<const float*>(gy),
+                    static_cast<const float*>(w), t_row_idx, t_perm, it, red,
+                    static_cast<float*>(dx), part, M, K, Nb, bs, G, C,
+                    n_items, n_red, vec, stream);
   if (dtype == 1 && bs % 8 == 0) {
     static int allowed[g::DEVICES];
     const int smem = DM_SMEM + entries;
@@ -461,6 +503,34 @@ int block_sparse_dx_packed(const void* gy, const void* w,
     return run_reduce(part, red, o, M, K, bs, n_red, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// On `stream`: the v3 dx (M, K), float32, from gy (M, Nb*G*bs) and w3
+// (Nb, G*bs, R*bs), against w_eff = ceil_quant(w3) * sub3 (sub3 like w3,
+// or null; qscale: 2^(bits-1) of the weight quantizer, 0 for none).
+// v3_weight_packed writes w_eff packed into wp ((Nb*R, G*bs, bs) floats of
+// scratch), then the float32 route of block_sparse_dx_packed over it with
+// the same t_row_idx, t_perm, items, red, part and vec (gy and wp 16-byte
+// aligned, bs a multiple of 4). Every column block of dx is written.
+// Returns the first cudaError_t, 0 on success.
+int block_sparse_v3_dx(const float* gy, const float* w3, const float* sub3,
+                       float* wp, const int* t_row_idx, const int* t_perm,
+                       const int* items, const int* red, float* dx,
+                       float* part, int M, int K, int Nb, int R, int bs, int G,
+                       int C, int n_items, int n_red, int vec, float qscale,
+                       void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n_items < 1 || n_items > 65535 || M < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = (size_t)Nb * G * bs * R * bs;
+  const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  v3_weight_packed<<<blocks, 256, 0, stream>>>(w3, sub3, wp, G * bs, R, bs, n,
+                                               qscale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return run_gemm(gy, wp, t_row_idx, t_perm,
+                  reinterpret_cast<const int4*>(items), red, dx, part, M, K,
+                  Nb, bs, G, C, n_items, n_red, vec, stream);
 }
 
 }  // extern "C"

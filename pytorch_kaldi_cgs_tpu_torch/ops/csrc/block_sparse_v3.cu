@@ -1,21 +1,18 @@
-// The v3 block-sparse projection for Hopper (sm_90a), forward and input
-// gradient, plain C interface.
+// The v3 block-sparse projection's forward for Hopper (sm_90a), plain C
+// interface.
 //
-// Replaces two TPU kernels of pytorch_kaldi_cgs_tpu/ops/block_sparse.py:
-//   _make_fwd_v3 (block_sparse_v3_fwd): for each out-block j of an HCGS
-//     layout with R kept column blocks per block row,
+// Replaces the TPU kernel _make_fwd_v3 of
+// pytorch_kaldi_cgs_tpu/ops/block_sparse.py (block_sparse_v3_fwd): for
+// each out-block j of an HCGS layout with R kept column blocks per block
+// row,
 //       ys[g][m, j*bs + r] = sum_{k<R, c<bs} x[m, col_idx[j*R+k]*bs + c]
 //                                           * w_eff[j, g*bs + r, k*bs + c]
-//   _make_dx_v3 (block_sparse_v3_dx): the input gradient against the same
-//     effective weight,
-//       dx[m, col*bs + c] = sum over the kept blocks (j, k) of column block
-//                           col of sum_n gy[m, j*G*bs + n] * w_eff[j, n, k*bs + c]
 // with w_eff = ceil_quant(w3) * sub3: the 8-bit weight quantizer (clip to
 // [-1, 1], ceil of |w| * 2^(bits-1), sign restored; qscale = 0 skips it)
 // and the level-2 submask (sub3, or none).
-// x: (M, K), w3 and sub3: (Nb, G*bs, R*bs), ys: (G, M, N), gy: (M,
-// Nb*G*bs) (out-block j's G gate slices side by side), dx: (M, K); all
-// float32. The weight gradient is block_sparse_dw.cu's.
+// x: (M, K), w3 and sub3: (Nb, G*bs, R*bs), ys: (G, M, N); all float32.
+// The input gradient (_make_dx_v3) is block_sparse_dx.cu's, the weight
+// gradient block_sparse_dw.cu's.
 //
 // It also replaces _make_fwd and _make_fwd_multi (block_sparse.py:198,
 // :380), the legacy v1/v2 forward over packed blocks w (nnz, G*bs, bs),
@@ -62,10 +59,10 @@
 //
 // What bounds it on this card: at the LibriSpeech GRU's training shape
 // (M = T*B = 6400, K = 2048, N = 1024, G = 3, Kb = 16, R = 4, bs = 128)
-// each kernel does 2*M*nnz*bs^2*G = 20.1 GFLOP of float32 FMAs (0.300 ms
+// the forward does 2*M*nnz*bs^2*G = 20.1 GFLOP of float32 FMAs (0.300 ms
 // at 67 TFLOP/s without tensor cores; TF32 would break the 1e-5 parity
 // with the JAX package) and moves ~137 MB (0.041 ms), so operations bound
-// both. Per out-block the work is a dense (M x R*bs) @ (R*bs x G*bs)
+// it. Per out-block the work is a dense (M x R*bs) @ (R*bs x G*bs)
 // product over the gathered columns.
 //
 // The forward is two launches. v3_weight_t applies the quantizer and the
@@ -81,12 +78,7 @@
 // gathered columns row-major and wt k-major with cp.async (three slabs of
 // 16 in flight; the block's R col_idx entries in shared memory), keeps
 // an 8 x 8 register tile per thread and stores float4 rows into each
-// gate's plane of ys. The dx kernel is the earlier design: a block owns
-// a 64 x 64 tile of one column block of dx and sums over that column's
-// kept blocks (the layout's transposed lists t_row_idx / t_perm), so no
-// float atomics are needed and a column block no row keeps is written as
-// zeros; it stages w_eff through the same helper as it reads it, and
-// each of 256 threads keeps a 4 x 4 register tile.
+// gate's plane of ys.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,43 +87,6 @@
 #include "bs_mma.cuh"
 
 namespace {
-
-constexpr int TM = 64;        // tile rows (M side)
-constexpr int TN = 64;        // tile columns
-constexpr int BK = 16;        // contraction slab
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each (dx)
-
-// w_eff at flat index i of one out-block's (G*bs, R*bs) slice
-__device__ __forceinline__ float w_eff(const float* __restrict__ w,
-                                       const float* __restrict__ sub, size_t i,
-                                       float qscale) {
-  float v = w[i];
-  if (qscale > 0.f) {
-    v = fminf(fmaxf(v, -1.f), 1.f);
-    const float s = v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-    v = s * (ceilf(fabsf(v) * qscale) / qscale);
-  }
-  return sub ? v * sub[i] : v;
-}
-
-// acc += as^T-slab x bs-slab for this thread's 4 x 4 tile
-__device__ __forceinline__ void slab_fma(float (*as)[TM + 1],
-                                         float (*bs_)[TN + 1], int ty, int tx,
-                                         float (*acc)[4]) {
-#pragma unroll
-  for (int p = 0; p < BK; ++p) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = as[p][ty * 4 + i];
-      b[i] = bs_[p][tx * 4 + i];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(a[i], b[q], acc[i][q]);
-  }
-}
 
 // w_eff of out-block j, transposed: wt[j][kk][n] = w_eff[j][n][kk], so
 // that the forward stages it k-major with 16-byte copies. A 32 x 32 tile
@@ -147,7 +102,7 @@ v3_weight_t(const float* __restrict__ w3, const float* __restrict__ sub3,
   for (int r = ty; r < 32; r += 8) {
     const int n = n0 + r, kk = k0 + tx;
     if (n < GB && kk < RB)
-      t[r][tx] = w_eff(wj, sj, (size_t)n * RB + kk, qscale);
+      t[r][tx] = bs_gemm::w_eff(wj, sj, (size_t)n * RB + kk, qscale);
   }
   __syncthreads();
   float* o = wt + (size_t)j * RB * GB;
@@ -440,59 +395,6 @@ fwd_mma(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-v3_dx_tile(const float* __restrict__ gy, const float* __restrict__ w3,
-           const int* __restrict__ t_row_idx, const int* __restrict__ t_perm,
-           const float* __restrict__ sub3, float* __restrict__ dx, int M,
-           int K, int Nb, int R, int bs, int G, int C, int nnz,
-           float qscale) {
-  __shared__ float as[BK][TM + 1];   // gy slab, [n][m]
-  __shared__ float ws[BK][TN + 1];   // w_eff slab, [n][c]
-  const int GB = G * bs, RB = R * bs;
-  const int col = blockIdx.z;              // column block of dx
-  const int m0 = blockIdx.x * TM, c0 = blockIdx.y * TN;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t ld = (size_t)Nb * GB;
-
-  float acc[4][4] = {};
-  for (int e = 0; e < C; ++e) {            // the valid entries come first
-    const int p = t_perm[col * C + e];
-    if (p == nnz) break;
-    const int j = t_row_idx[col * C + e], k = p - j * R;
-    const float* wj = w3 + (size_t)j * GB * RB;
-    const float* sj = sub3 ? sub3 + (size_t)j * GB * RB : nullptr;
-    for (int n0 = 0; n0 < GB; n0 += BK) {
-      for (int i = threadIdx.x; i < TM * BK; i += THREADS) {
-        const int r = i / BK, q = i % BK;
-        const int m = m0 + r, n = n0 + q;
-        as[q][r] = (m < M && n < GB) ? gy[(size_t)m * ld + (size_t)j * GB + n]
-                                     : 0.f;
-      }
-      for (int i = threadIdx.x; i < BK * TN; i += THREADS) {
-        const int q = i / TN, c = i % TN;
-        const int n = n0 + q, cc = c0 + c;
-        ws[q][c] = (n < GB && cc < bs)
-                       ? w_eff(wj, sj, (size_t)n * RB + k * bs + cc, qscale)
-                       : 0.f;
-      }
-      __syncthreads();
-      slab_fma(as, ws, ty, tx, acc);
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int cc = c0 + tx * 4 + q;
-      if (cc < bs) dx[(size_t)m * K + (size_t)col * bs + cc] = acc[i][q];
-    }
-  }
-}
-
 // v3_fwd_gemm over the transposed weight wt (VEC where vec says)
 cudaError_t run_fwd_gemm(const float* x, const float* wt, const int* col_idx,
                          float* ys, int M, int K, int N, int Nb, int R,
@@ -583,22 +485,6 @@ int block_sparse_v3_fwd_packed(const void* x, const void* w,
     return cudaGetLastError();
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// One launch on `stream`: dx (M, K) from gy (M, Nb*G*bs) and w3; the
-// layout's transposed lists t_row_idx / t_perm ((K/bs)*C int32 each on the
-// device, t_perm == nnz marks a pad entry); sub3 and qscale as above.
-// Every column block of dx is written.
-int block_sparse_v3_dx(const float* gy, const float* w3, const int* t_row_idx,
-                       const int* t_perm, const float* sub3, float* dx, int M,
-                       int K, int Nb, int R, int bs, int G, int C, int nnz,
-                       float qscale, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const dim3 grid((M + TM - 1) / TM, (bs + TN - 1) / TN, K / bs);
-  v3_dx_tile<<<grid, THREADS, 0, stream>>>(gy, w3, t_row_idx, t_perm, sub3,
-                                           dx, M, K, Nb, R, bs, G, C, nnz,
-                                           qscale);
-  return cudaGetLastError();
 }
 
 }  // extern "C"

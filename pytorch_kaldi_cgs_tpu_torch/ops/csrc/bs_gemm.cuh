@@ -1,6 +1,7 @@
 // The register-blocked float32 GEMM tile shared by the block-sparse dw
-// kernel (block_sparse_dw.cu) and the v3 forward (block_sparse_v3.cu),
-// and the dense recurrences' rebuild product (rec_gemm.cuh).
+// kernel (block_sparse_dw.cu), the v3 forward (block_sparse_v3.cu), the
+// legacy and v3 dx (block_sparse_dx.cu), and the dense recurrences'
+// rebuild product (rec_gemm.cuh).
 //
 // A block of 256 threads owns a 128 x 128 output tile; each thread keeps
 // an 8 x 8 register tile: rows ty*4 + {0..3} and 64 + ty*4 + {0..3},
@@ -25,6 +26,23 @@ constexpr int BK = 16;        // contraction rows per slab
 constexpr int STAGES = 3;     // slabs in flight
 constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
 constexpr int MIN_BLOCKS = 2; // resident blocks per SM (128 registers)
+
+// The v3 projection's effective weight at flat index i of one out-block's
+// (G*bs, R*bs) slice of w3: ceil_quant(w) (clip to [-1, 1], ceil of |w| *
+// qscale, sign restored; qscale = 0 skips it) times the submask (or
+// none). The weight passes of the v3 forward (block_sparse_v3.cu) and dx
+// (block_sparse_dx.cu) apply it once a call.
+__device__ __forceinline__ float w_eff(const float* __restrict__ w,
+                                       const float* __restrict__ sub, size_t i,
+                                       float qscale) {
+  float v = w[i];
+  if (qscale > 0.f) {
+    v = fminf(fmaxf(v, -1.f), 1.f);
+    const float s = v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
+    v = s * (ceilf(fabsf(v) * qscale) / qscale);
+  }
+  return sub ? v * sub[i] : v;
+}
 
 // the row (or column) of a thread's i-th register row (column), i < 8
 __device__ __forceinline__ int tile_at(int t, int i) {

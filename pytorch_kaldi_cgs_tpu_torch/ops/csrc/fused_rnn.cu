@@ -55,14 +55,31 @@
 //     grid-wide barrier), re-reading U (1.2 MB at H=550, resident in the
 //     50 MB L2) every step: T launches, far above the bound.
 //
-// The backwards launch one kernel a reverse step.
-//
 // The recompute backward's pre-activations a_pre = g + q(h_{t-1}) @ U^T
 // do not depend on dh, so one launch rebuilds them for all T (grid.z =
 // steps) before the reverse loop, after one reduction for the T scales of
-// q(h_{t-1}) when qbits > 0. The reverse chain then has one dependent
-// product per step, against rows of U^T (passed in, (H, H)) so that the
-// lanes read consecutive addresses.
+// q(h_{t-1}) when qbits > 0; it sums in the forward's order, so relu' at
+// the kink takes the forward's branch (a GEMM's order had moved a
+// pre-activation across it in the minimalGRU's rebuild). The reverse
+// chain then has one dependent product per step. The recompute backward
+// (TPU row 29, the TIMIT RNN's default) runs it on one of two routes,
+// picked by the caller before the launch (fused_rnn.rnn_bwd_route):
+//
+//   - "persist": ONE cooperative launch runs the whole reverse chain
+//     (rnn_bwd_persist): the forward's persistent design against U's
+//     columns instead of its rows. A block owns UN units and BT = 8 * BI
+//     rows, its units' columns of U resident, and per reverse step stages
+//     dg_{t+1} of its rows, forms carry = dg_{t+1} @ U for its units,
+//     writes dg_t = (carry + dhs[t]) * drop * act'(a_pre[t]) and waits at
+//     one grid barrier (dg_{t+1} is the only grid-wide dependency). Its
+//     dots are the step kernel's sums (persist::resident_dots), so both
+//     routes give the same bits. Two launches a call, three with the
+//     quantizer's reduction.
+//   - "step" (a shape whose blocks do not fit or are not co-resident):
+//     one kernel a reverse step against rows of U^T (passed in, (H, H)) so
+//     that the lanes read consecutive addresses: T + 1 launches.
+//
+// The stash backward (row 28) runs on the step kernels.
 //
 // Per step on the step routes, a block owns UNITS hidden units and BT
 // batch rows: it stages
@@ -323,6 +340,89 @@ rnn_fwd_persist(const float* __restrict__ gates,  // (T, B, H)
   }
 }
 
+// The BPTT's reverse chain in one cooperative launch (route "persist",
+// TPU row 29's redesign; persist.cuh): rnn_fwd_persist run backwards
+// against U's columns. Block c owns the UN units from u0 = (c % ug) * UN
+// and the BT = 8 * BI rows from b0 = (c / ug) * BT; it copies its units'
+// columns of U into shared memory once as rows (ws[r][k] = U[k][u0 + r],
+// zeros past H), so that the dots are the step kernel's against U^T's
+// rows. Its thread o = b * UN + jj owns one (row, unit) and loads the
+// next reverse step's a and dhs before the barrier. Per reverse step t
+// (from T-1): stage dg_{t+1} of its rows, carry = the dots against ws
+// (none at T-1), dg_t = (carry + dhs[t]) * drop * act'(a[t]) into dg and
+// into the exchange buffer of t's parity; one grid barrier (none after
+// step 0). dg_{t+1} is staged by cp.async from xg, two (B, HP) buffers
+// picked by the step's parity with rows padded to 4 floats (HP = H
+// rounded up), since a row of dg at H=550 is not 16-byte aligned for
+// cp.async and a block past the barrier writes dg_t while a slower one may
+// still stage dg_{t+1}. (Staging from dg itself by 4-byte loads through L2
+// took 1.29-1.30 ms a call against 1.08 at the TIMIT RNN's train shape,
+// chip_smoke.py --rnn-times on an H100 at 700 W.) The dots are
+// persist::resident_dots, rnn_bwd_step's row_dots sums (lane l takes k =
+// l, l + 32, ... in turn, then the shuffle reduction), so both routes
+// give the same bits. PRE: a holds a_pre (act' from the input, the
+// recompute backward), else the stash a (act' from the output).
+template <int BI, int UN, bool PRE>
+__global__ void __launch_bounds__(persist::THREADS, UN == 4 ? 2 : 1)
+rnn_bwd_persist(const float* __restrict__ a_all,  // (T, B, H) a_pre or a
+                const float* __restrict__ U,      // (H, H)
+                const float* __restrict__ drop,   // (B, H)
+                const float* __restrict__ dhs,    // (T, B, H)
+                float* __restrict__ dg,           // (T, B, H) output
+                float* xg,                        // (2, B, HP) exchange
+                int T, int B, int H, int act) {
+  namespace P = persist;
+  constexpr int BT = P::BLANES * BI;
+  extern __shared__ __align__(16) float psm[];
+  const int SK = P::row_stride(H), HP = (H + 3) / 4 * 4;
+  float* ws = psm;                                 // (UN, H)
+  float* xsm = ws + (size_t)UN * H;                // (BT, SK)
+  auto csm = reinterpret_cast<float (*)[UN]>(xsm + (size_t)BT * SK);
+  const int ug = (H + UN - 1) / UN;
+  const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
+  const int nb = min(BT, B - b0);
+  // U's rows k, UN neighbouring columns at a time
+  for (int i = threadIdx.x; i < UN * H; i += P::THREADS) {
+    const int k = i / UN, r = i - k * UN, u = u0 + r;
+    ws[(size_t)r * H + k] = u < H ? U[(size_t)k * H + u] : 0.f;
+  }
+  const int o = threadIdx.x, ob = o / UN, oj = o % UN, ou = u0 + oj;
+  const bool mine = o < BT * UN && ob < nb && ou < H;
+  const size_t bh = (size_t)B * H, xstep = (size_t)B * HP;
+  const size_t ih = (size_t)(b0 + ob) * H + ou;
+  const size_t ix = (size_t)(b0 + ob) * HP + ou;
+  const float dr = mine ? drop[ih] : 0.f;
+  // step t's a and dhs of this thread's (row, unit), loaded a step ahead
+  auto fetch = [&](int t) {
+    return mine ? make_float2(a_all[t * bh + ih], dhs[t * bh + ih])
+                : make_float2(0.f, 0.f);
+  };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float2 cur = fetch(T - 1);
+  __syncthreads();
+  for (int t = T - 1; t >= 0; --t) {
+    float c = 0.f;
+    if (t + 1 < T) {
+      P::stage_quant(xg + ((t + 1) & 1) * xstep, HP, b0, nb, xsm, SK,
+                     nullptr, 0, nullptr, 0.f, 0.f);
+      P::resident_dots<BT, UN, UN>(ws, xsm, SK, H, nb, csm);
+      __syncthreads();
+      if (mine) c = csm[ob][oj];
+    }
+    if (mine) {
+      // rnn_bwd_step's arithmetic
+      const float da = PRE ? dact_pre(cur.x, act) : dact_out(cur.x, act);
+      const float d = (c + cur.y) * dr * da;
+      dg[t * bh + ih] = d;
+      xg[(t & 1) * xstep + ix] = d;
+    }
+    if (t > 0) {
+      cur = fetch(t - 1);
+      grid.sync();
+    }
+  }
+}
+
 cudaError_t allow_smem(const void* kern, size_t smem) {
   return cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -360,6 +460,34 @@ cudaError_t run_fwd(const float* gates, const float* U, const float* drop,
   return cudaSuccess;
 }
 
+// The recompute backward's rebuild into pre (T, B, H): one reduction for
+// the T scales of q(h_{t-1}) when qbits > 0, then one rnn_step launch over
+// all T steps (grid.z = T) writing a_pre = g + q(h_{t-1}) @ U^T.
+cudaError_t rebuild_pre(const float* gates, const float* U, const float* drop,
+                        const float* h_prev, float* pre, unsigned* qslots,
+                        int T, int B, int H, int act, int qbits,
+                        cudaStream_t stream) {
+  const size_t smem = (size_t)BT * H * sizeof(float);
+  cudaError_t err = allow_smem((const void*)rnn_step, smem);
+  if (err != cudaSuccess) return err;
+  const size_t bh = (size_t)B * H;
+  const bool q = qbits > 0;
+  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+  if (q) {
+    err = cudaMemsetAsync(qslots, 0, (size_t)T * sizeof(unsigned), stream);
+    if (err != cudaSuccess) return err;
+    const int nblk = (int)((bh + 255) / 256 < 16 ? (bh + 255) / 256 : 16);
+    absmax_steps<<<dim3(nblk, T), 256, 0, stream>>>(h_prev, (int)bh, qslots);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((H + UNITS - 1) / UNITS, (B + BT - 1) / BT, T);
+  rnn_step<<<grid, THREADS, smem, stream>>>(gates, U, drop, h_prev, nullptr,
+                                            pre, q ? qslots : nullptr,
+                                            nullptr, B, H, act, qscale);
+  return cudaGetLastError();
+}
+
 template <bool PRE>
 cudaError_t run_bwd(const float* lead, const float* U, const float* Ut,
                     const float* drop, const float* h_prev, const float* dhs,
@@ -372,24 +500,8 @@ cudaError_t run_bwd(const float* lead, const float* U, const float* Ut,
   const float* a = lead;
   if (PRE) {
     // the pre-activations of every step at once, from the gates
-    err = allow_smem((const void*)rnn_step, smem);
-    if (err != cudaSuccess) return err;
-    const bool q = qbits > 0;
-    const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
-    if (q) {
-      err = cudaMemsetAsync(qslots, 0, (size_t)T * sizeof(unsigned), stream);
-      if (err != cudaSuccess) return err;
-      const int nblk = (int)((bh + 255) / 256 < 16 ? (bh + 255) / 256 : 16);
-      absmax_steps<<<dim3(nblk, T), 256, 0, stream>>>(h_prev, (int)bh,
-                                                      qslots);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    const dim3 grid((H + UNITS - 1) / UNITS, (B + BT - 1) / BT, T);
-    rnn_step<<<grid, THREADS, smem, stream>>>(
-        lead, U, drop, h_prev, nullptr, pre, q ? qslots : nullptr, nullptr, B,
-        H, act, qscale);
-    err = cudaGetLastError();
+    err = rebuild_pre(lead, U, drop, h_prev, pre, qslots, T, B, H, act,
+                      qbits, stream);
     if (err != cudaSuccess) return err;
     a = pre;
   }
@@ -440,6 +552,43 @@ void fwd_shape_of(int bi, int units, FwdLaunch* launch, FwdOccupancy* occ) {
   PK_RNN_FWD_SHAPE(1, 16)
   PK_RNN_FWD_SHAPE(2, 16)
 #undef PK_RNN_FWD_SHAPE
+  *launch = nullptr;
+  *occ = nullptr;
+}
+
+// one cooperative launch of the persistent reverse chain at block shape
+// (BI, UN)
+template <int BI, int UN, bool PRE>
+cudaError_t launch_bwd_persist(int grid, int smem, cudaStream_t stream,
+                               const float* a, const float* U,
+                               const float* drop, const float* dhs, float* dg,
+                               float* xg, int T, int B, int H, int act) {
+  return persist::launch<rnn_bwd_persist<BI, UN, PRE>>(
+      grid, smem, stream, a, U, drop, dhs, dg, xg, T, B, H, act);
+}
+
+// The block shapes (bi, units) of the recompute backward's persistent
+// chain (PRE): the forward's, whose plan it shares, the plan's (1, 8),
+// (2, 8) and (2, 16) and the (1, 4) and (1, 16) a forced plan times at 8
+// rows. -> the launcher and the occupancy query of one, or nulls for
+// another shape.
+using BwdLaunch = cudaError_t (*)(int, int, cudaStream_t, const float*,
+                                  const float*, const float*, const float*,
+                                  float*, float*, int, int, int, int);
+
+void bwd_shape_of(int bi, int units, BwdLaunch* launch, FwdOccupancy* occ) {
+#define PK_RNN_BWD_SHAPE(BI_, UN_)                                        \
+  if (bi == BI_ && units == UN_) {                                        \
+    *launch = launch_bwd_persist<BI_, UN_, true>;                         \
+    *occ = persist::occupancy<rnn_bwd_persist<BI_, UN_, true>>;           \
+    return;                                                               \
+  }
+  PK_RNN_BWD_SHAPE(1, 4)
+  PK_RNN_BWD_SHAPE(1, 8)
+  PK_RNN_BWD_SHAPE(2, 8)
+  PK_RNN_BWD_SHAPE(1, 16)
+  PK_RNN_BWD_SHAPE(2, 16)
+#undef PK_RNN_BWD_SHAPE
   *launch = nullptr;
   *occ = nullptr;
 }
@@ -500,10 +649,11 @@ int fused_rnn_fwd_occupancy(int bi, int units, int smem, int* out) {
   return occ ? occ(smem, out) : cudaErrorInvalidValue;
 }
 
-// The backward on `stream`: T step kernels in reverse time; the recompute
-// backward (stash=0) first rebuilds the pre-activations of all steps in
-// one launch (after one reduction for the T scales of q(h_{t-1}) when
-// qbits > 0). Returns the first cudaError_t seen, 0 on success.
+// The backward on the step route on `stream`: T step kernels in reverse
+// time; the recompute backward (stash=0) first rebuilds the
+// pre-activations of all steps in one launch (after one reduction for the
+// T scales of q(h_{t-1}) when qbits > 0). Returns the first cudaError_t
+// seen, 0 on success.
 //   lead:   (T, B, H) stash a (stash=1) or gates (stash=0)
 //   U, Ut:  (H, H) and its transpose
 //   h_prev: (T, B, H) carries entering each step (read when stash=0)
@@ -518,6 +668,43 @@ int fused_rnn_bwd(const float* lead, const float* U, const float* Ut,
   auto fn = stash ? run_bwd<false> : run_bwd<true>;
   return fn(lead, U, Ut, drop, h_prev, dhs, pre, dg, qslots, T, B, H, act,
             qbits, stream);
+}
+
+// The recompute backward on the persistent route on `stream`: the rebuild
+// of every step's pre-activations into pre (one launch, after the
+// reduction for the T scales of q(h_{t-1}) when qbits > 0), then one
+// cooperative launch of `grid` blocks of rnn_bwd_persist (bi: BT = 8 * bi
+// rows a block; units: 4, 8 or 16; smem bytes of dynamic shared memory:
+// fused_rnn.rnn_bwd_plan sizes all three). Returns the first cudaError_t
+// seen; cudaErrorInvalidValue for a shape not instantiated.
+//   gates: (T, B, H);  U: (H, H);  drop: (B, H)
+//   h_prev, dhs: (T, B, H);  pre: (T, B, H) scratch;  dg: (T, B, H) output
+//   xg: (2, B, HP) scratch, HP = H rounded up to a multiple of 4
+//   qslots: T unsigned ints of scratch when qbits > 0
+int rnn_bwd_persist_run(const float* gates, const float* U, const float* drop,
+                        const float* h_prev, const float* dhs, float* pre,
+                        float* dg, float* xg, unsigned* qslots, int T, int B,
+                        int H, int act, int qbits, int grid, int bi,
+                        int units, int smem, void* stream_ptr) {
+  BwdLaunch fn;
+  FwdOccupancy occ;
+  bwd_shape_of(bi, units, &fn, &occ);
+  if (!fn) return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const cudaError_t err = rebuild_pre(gates, U, drop, h_prev, pre, qslots, T,
+                                      B, H, act, qbits, stream);
+  if (err != cudaSuccess) return err;
+  return fn(grid, smem, stream, pre, U, drop, dhs, dg, xg, T, B, H, act);
+}
+
+// out[0..2]: the persistent reverse chain's co-resident blocks per SM at
+// `smem` bytes of dynamic shared memory (bi and units as above), the SM
+// count, and whether the device takes cooperative launches.
+int fused_rnn_bwd_occupancy(int bi, int units, int smem, int* out) {
+  BwdLaunch fn;
+  FwdOccupancy occ;
+  bwd_shape_of(bi, units, &fn, &occ);
+  return occ ? occ(smem, out) : cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -2368,6 +2368,43 @@ def rnn_fwd_launches(route: str, T: int) -> int:
     return 1 if route == "persist" else T
 
 
+def rnn_bwd_plan(B: int, H: int, shape: Optional[tuple] = None
+                 ) -> PersistPlan:
+    """The dense RNN recompute BPTT's persistent reverse chain at batch B
+    and width H (``shape`` forces (bi, units), one of
+    :data:`RNN_BWD_SHAPES`; else :func:`_shape`): the forward's chain
+    (:func:`rnn_fwd_plan`) run against U's columns, with the same bytes: a
+    block's units' H-long columns of U resident, its rows of dg_{t+1}
+    staged per reverse step from the exchange buffer (H rounded up to 4
+    floats each), one sum a row and unit. At the TIMIT RNN's 8 rows of
+    550, 8 units x 8 rows ran 1.076-1.085 ms a call against 1.26-1.27 for
+    16 x 8, 1.31 for 8 x 16, 1.33 for 4 x 8 (two blocks an SM) and
+    1.42-1.43 for 16 x 16 (``chip_smoke.py --rnn-times``, NVIDIA H100 80GB
+    HBM3 at 700 W, the forced shapes)."""
+    return rnn_fwd_plan(B, H, shape)
+
+
+#: the RNN chain's block shapes (bi, units) that fused_rnn.cu instantiates
+#: (``PK_RNN_BWD_SHAPE``): the forward's, whose plan it shares
+RNN_BWD_SHAPES = RNN_FWD_SHAPES
+
+
+def rnn_bwd_route(B: int, H: int, dev) -> tuple:
+    """(route, plan) of :func:`fused_rnn_bwd` at batch B and width H on
+    the card ``dev``."""
+    plan = rnn_bwd_plan(B, H)
+    return _route(plan, "fused_rnn", "fused_rnn_bwd_occupancy",
+                  (plan.bi, plan.units), torch.device(dev)), plan
+
+
+def rnn_bwd_launches(route: str, T: int, qbits: int) -> int:
+    """Kernels one :func:`fused_rnn_bwd` call launches on ``route`` (as its
+    counter counts them): "persist" the rebuild and the chain, and the
+    per-step scales of q(h_prev) with the quantizer; "step" the rebuild
+    and one a reverse step."""
+    return 2 + int(qbits > 0) if route == "persist" else T + 1
+
+
 def _rnn_bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
     T, B, H, drop = _rnn_check("acts" if stash else "gates", lead, U, drop,
                                act, (("h_prev", h_prev), ("dhs", dhs)),
@@ -2377,6 +2414,20 @@ def _rnn_bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
         if stash:
             return fused_rnn_bwd_stash_plain(lead, U, drop, dhs, act)
         return fused_rnn_bwd_plain(lead, U, drop, h_prev, dhs, act, qbits)
+    if not stash:
+        route, plan = rnn_bwd_route(B, H, lead.device)
+        if route == "persist":
+            return _rnn_bwd_persist(plan, lead, U, drop, h_prev, dhs, act,
+                                    qbits)
+    return _rnn_bwd_step(wrapper, lead, U, drop, h_prev, dhs, act, qbits,
+                         stash)
+
+
+def _rnn_bwd_step(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
+    """The BPTT on the step route: the recompute one's rebuild (after the
+    per-step scales with the quantizer), then a kernel a reverse step;
+    ``wrapper.launches`` counts the rebuild and the step kernels."""
+    T, B, H = lead.shape
     from . import _build
     lib = _build.load("fused_rnn")
     fn = lib.fused_rnn_bwd
@@ -2395,7 +2446,33 @@ def _rnn_bwd(wrapper, lead, U, drop, h_prev, dhs, act, qbits, stash):
                 qslots.data_ptr(), T, B, H, _ACT_CODE[act], qbits, int(stash),
                 _stream(dev))
     _build.check(lib, rc, wrapper.__name__)
-    wrapper.launches += T + (0 if stash else 1)
+    wrapper.launches += T if stash else rnn_bwd_launches("step", T, qbits)
+    return dg
+
+
+def _rnn_bwd_persist(plan, gates, U, drop, h_prev, dhs, act, qbits):
+    """The recompute BPTT on the persistent route (``plan``: its
+    PersistPlan, :func:`rnn_bwd_plan`): the rebuild of every step's a_pre
+    (after the per-step scales with the quantizer), then the whole reverse
+    chain in one cooperative launch, dg exchanged through two (B, HP)
+    buffers picked by the step's parity (rows padded to a multiple of 4
+    floats for the 16-byte copies)."""
+    from . import block_sparse as BS
+    T, B, H = gates.shape
+    dev = gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    pre = torch.empty((T, B, H), **f32)
+    dg = torch.empty((T, B, H), **f32)
+    xg = torch.empty((2, B, gru_fwd_exchange_stride(H)), **f32)
+    qslots = torch.empty(T if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    BS._launch("fused_rnn", "rnn_bwd_persist_run", dev,
+               (gates.data_ptr(), U.data_ptr(), drop.data_ptr(),
+                h_prev.data_ptr(), dhs.data_ptr(), pre.data_ptr(),
+                dg.data_ptr(), xg.data_ptr(), qslots.data_ptr()),
+               (T, B, H, _ACT_CODE[act], qbits, plan.grid, plan.bi,
+                plan.units, plan.smem))
+    fused_rnn_bwd.launches += rnn_bwd_launches("persist", T, qbits)
     return dg
 
 
@@ -2421,7 +2498,11 @@ def fused_rnn_bwd(gates: torch.Tensor, U: torch.Tensor, drop: torch.Tensor,
     backward): ``gates`` are the forward's inputs, ``h_prev`` (T, B, H)
     the carries entering each step, re-quantized per step. -> as
     :func:`fused_rnn_bwd_stash`. On the card one launch rebuilds the
-    pre-activations of all steps, then one runs per reverse step."""
+    pre-activations of all steps (after the per-step scales with the
+    quantizer), then the reverse chain runs on the route
+    :func:`rnn_bwd_route` picks before the launch: "persist" (one
+    cooperative launch) where the blocks fit and are co-resident, else
+    "step" (a launch per reverse step); both give the same bits."""
     return _rnn_bwd(fused_rnn_bwd, gates, U, drop, h_prev, dhs, act, qbits,
                     False)
 

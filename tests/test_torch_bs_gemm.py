@@ -1253,3 +1253,130 @@ def test_cuda_legacy_dx_device_kernels_and_bits(cuda_device, tag, gdt, wdt):
                     **({"dx_reduce": 1} if plan.parts else {}))
     got = _kernels_of(lambda: _legacy_dx_call(gy, w, tl, G))
     assert got in (want, {"cuda_launch_calls": sum(want.values())})
+
+
+# ---------------------------------------------------------------------------
+# the v3 dx on the legacy dx's float32 tile (TPU row 14): the effective
+# weight packed once, then dx_gemm over dx_plan's items
+# ---------------------------------------------------------------------------
+
+def _v3_dx_operands(name, G, qbits, with_sub, M, seed=0, dev="cpu"):
+    """LAYOUTS' layout, a flat cotangent (M, Nb*G*bs), w3 (Nb, G*bs,
+    R*bs) with entries past the quantizer's clip, and the G gates' stacked
+    submask (or None) on ``dev``."""
+    mask, tl = _layout(name)
+    rng = np.random.RandomState(seed + 31 * G + qbits)
+    gy = rng.randn(M, tl.Nb * G * tl.bs).astype(np.float32)
+    w3 = (rng.randn(tl.Nb, G * tl.bs, tl.R * tl.bs) * 0.6).astype(np.float32)
+    sub3 = tbs.stack_w3_gates([tbs.pack_w3(mask, tl)] * G) if with_sub \
+        else None
+    d = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    return tl, d(gy), d(w3), d(sub3)
+
+
+V3_DX_NAMES = ("bs8_r2", "bs8_padk", "bs6_r4", "bs6_padk")
+
+
+@pytest.mark.parametrize("split", ["plan", "finest"])
+@pytest.mark.parametrize("G,qbits,with_sub", [(1, 0, False), (3, 8, True)])
+@pytest.mark.parametrize("name", V3_DX_NAMES)
+def test_v3_dx_packed_weight_and_operand_maps_match_twin(name, G, qbits,
+                                                         with_sub, split):
+    """On the CPU: the weight pass's twin (v3_weight_packed_plain) read as
+    the legacy packed weight through dx_gemm's operand maps, the plan's
+    items and the reduce (_dx_emulated), at the plan's pick and at the
+    finest split: the v3 dx twin within 1e-5 of its scale, columns no row
+    keeps zero; bs 8 takes gemm_vec's 16-byte loads, bs 6 the 4-byte
+    ones."""
+    tl, gy, w3, sub3 = _v3_dx_operands(name, G, qbits, with_sub, 37)
+    wp = tbs.v3_weight_packed_plain(w3, tl, G, qbits, sub3)
+    assert tuple(wp.shape) == (tl.nnz, G * tl.bs, tl.bs)
+    assert tbs.gemm_vec(tl.bs, gy, wp) == (tl.bs % 4 == 0)
+    counts = tbs.column_counts(tl)
+    plan = _plan_of(tl, gy.shape[0], G, "gemm",
+                    None if split == "plan" else tbs.dx_splits(counts)[-1])
+    _assert_plan_covers(plan, counts)
+    got = _dx_emulated(gy, wp, tl, G, plan)
+    ref = tbs.block_sparse_v3_dx_plain(gy, w3, tl, G, qbits, sub3)
+    assert torch.equal(tbs.block_sparse_v3_dx(gy, w3, tl, G, qbits, sub3),
+                       ref)
+    _assert_empty_columns_zero(got, tl)
+    _assert_legacy_close(got, ref)
+
+
+@pytest.mark.parametrize("M, G", [(6400, 3), (6368, 3), (6400, 1), (24, 3)])
+def test_v3_dx_plan_at_the_libri_layout(M, G):
+    """dx_plan over the libri GRU's x-projection layout's column counts (0
+    to 4 kept blocks a column) at its train M (T*B = 6400), serve M (398 x
+    16) and a short M: every entry of every column once, the least
+    modelled time of the splits it weighs; no split at the libri shapes
+    (the 4-entry column's 4 x 3 x 128 contraction is 96 slabs of 16, the
+    whole dispatch two rounds)."""
+    tl = _legacy_layout("libri_x")
+    counts = tbs.column_counts(tl)
+    assert min(counts) == 0 and max(counts) == 4
+    plan = _plan_of(tl, M, G, "gemm")
+    _assert_plan_covers(plan, counts)
+    alts = [_plan_of(tl, M, G, "gemm", sp) for sp in tbs.dx_splits(counts)]
+    assert plan.cost_us == min(a.cost_us for a in alts)
+    if M >= 6368:
+        assert plan.split == (4, 4) and plan.parts == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "finest"])
+@pytest.mark.parametrize("G,qbits,with_sub", [(1, 0, False), (3, 8, True),
+                                              (4, 8, False)])
+@pytest.mark.parametrize("M", [7, 4801])
+@pytest.mark.parametrize("name", V3_DX_NAMES + ("bs128_cgs16x",))
+def test_cuda_v3_dx_matches_twin(cuda_device, monkeypatch, name, M, G, qbits,
+                                 with_sub, split):
+    """The v3 dx on the card (the weight pass, dx_gemm over the plan's
+    items, dx_reduce where it splits) against its twin within 1e-5 of its
+    scale at bs 8 and 128 (16-byte loads) and bs 6 (4-byte loads), with
+    the quantizer and the submask, at the plan's pick and the finest
+    split; two calls bit for bit; one launch counted a call."""
+    tl, gy, w3, sub3 = _v3_dx_operands(name, G, qbits, with_sub, M,
+                                       dev=cuda_device)
+    if split == "finest":
+        finest = tbs.dx_splits(tbs.column_counts(tl))[-1]
+        plan = tbs.dx_plan
+        monkeypatch.setattr(tbs, "dx_plan",
+                            lambda *a: plan(*a[:6], split=finest))
+    before = tbs.block_sparse_v3_dx.launches
+    a = tbs.block_sparse_v3_dx(gy, w3, tl, G, qbits, sub3)
+    b = tbs.block_sparse_v3_dx(gy, w3, tl, G, qbits, sub3)
+    assert tbs.block_sparse_v3_dx.launches == before + 2
+    ref = tbs.block_sparse_v3_dx_plain(gy, w3, tl, G, qbits, sub3)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _assert_empty_columns_zero(a, tl)
+    _assert_legacy_close(a, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [7, 6400])
+def test_cuda_v3_dx_misaligned_gy_and_device_kernels(cuda_device, M):
+    """The libri x-projection layout at G=3 with the quantizer and the
+    submask: gy one element off a 16-byte boundary takes dx_gemm's 4-byte
+    loads and agrees with the twin; an aligned call launches the weight
+    pass, dx_gemm and, where its plan splits, dx_reduce."""
+    tl, G = _legacy_layout("libri_x"), 3
+    gen = torch.Generator(device=cuda_device).manual_seed(M)
+    gy = torch.randn(M, tl.Nb * G * tl.bs, device=cuda_device, generator=gen)
+    w3 = torch.randn(tl.Nb, G * tl.bs, tl.R * tl.bs, device=cuda_device,
+                     generator=gen) * 0.6
+    sub3 = (torch.rand(w3.shape, device=cuda_device, generator=gen)
+            > 0.5).float()
+    ref = tbs.block_sparse_v3_dx_plain(gy, w3, tl, G, 8, sub3)
+    gyo = _offset(gy)
+    assert not tbs.gemm_vec(tl.bs, gyo)
+    got = tbs.block_sparse_v3_dx(gyo, w3, tl, G, 8, sub3)
+    torch.cuda.synchronize()
+    _assert_legacy_close(got, ref)
+    grid = tbs.gemm_grid(cuda_device, "bs_gemm")
+    plan = tbs.legacy_dx_plan(tl, M, G, "gemm", grid)
+    want = dict({"v3_weight_packed": 1, "dx_gemm": 1},
+                **({"dx_reduce": 1} if plan.parts else {}))
+    got = _kernels_of(lambda: tbs.block_sparse_v3_dx(gy, w3, tl, G, 8, sub3))
+    assert got in (want, {"cuda_launch_calls": sum(want.values())})

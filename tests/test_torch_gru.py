@@ -137,6 +137,60 @@ def test_v3_dx_twin_matches_pallas(jbs, case):
     np.testing.assert_allclose(got.numpy(), _np(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("with_sub", [False, True], ids=["plain", "sub"])
+@pytest.mark.parametrize("qbits", [0, 8])
+def test_v3_weight_packed_matches_jax_effective_weight(jbs, qbits, with_sub,
+                                                       G):
+    """The v3 dx's weight pass twin: the JAX kernels' effective weight
+    (``_ceil_quant(w3, qbits) * sub3``), rearranged into the legacy packed
+    layout, wp[j*R + k][n][c] = w_eff[j][n][k*bs + c], bit for bit (the
+    same float32 operations)."""
+    import jax.numpy as jnp
+    mask = hcgs_mask(32, 64, [8, 2], [75, 50], rng=np.random.RandomState(3))
+    tl = tbs.pack_layout(mask, 8)
+    rng = np.random.RandomState(4 + G)
+    w3 = (rng.randn(tl.Nb, G * 8, tl.R * 8) * 0.8).astype(np.float32)
+    sub3 = tbs.stack_w3_gates([tbs.pack_w3(mask, tl)] * G) if with_sub \
+        else None
+    w_eff = jbs._ceil_quant(jnp.asarray(w3), qbits) if qbits \
+        else jnp.asarray(w3)
+    if with_sub:
+        w_eff = w_eff * jnp.asarray(sub3)
+    want = _np(w_eff).reshape(tl.Nb, G * 8, tl.R, 8).transpose(0, 2, 1, 3) \
+        .reshape(tl.nnz, G * 8, 8)
+    got = tbs.v3_weight_packed_plain(tt(w3), tl, G, qbits, _opt(tt, sub3))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bs, G, qbits, with_sub", [
+    (8, 3, 8, True), (8, 1, 0, False),     # 16-byte loads on the card
+    (6, 3, 8, True), (6, 1, 0, False)])    # 4-byte loads
+def test_legacy_dx_over_packed_weight_matches_pallas_v3_dx(jbs, bs, G, qbits,
+                                                           with_sub):
+    """The v3 dx as the card runs it, on the CPU: the legacy dx twin over
+    the packed effective weight (v3_weight_packed_plain) against
+    ``_make_dx_v3`` in interpret mode, at a bs whose rows dx_gemm reads 16
+    bytes at a time and at one it reads 4 at a time."""
+    import jax.numpy as jnp
+    mask = hcgs_mask(4 * bs, 8 * bs, [bs, 2], [75, 50],
+                     rng=np.random.RandomState(bs + G))
+    tl = tbs.pack_layout(mask, bs)
+    rng = np.random.RandomState(7 * bs + G)
+    w3 = (rng.randn(tl.Nb, G * bs, tl.R * bs) * 0.6).astype(np.float32)
+    sub3 = tbs.stack_w3_gates([tbs.pack_w3(mask, tl)] * G) if with_sub \
+        else None
+    gy = rng.randn(V3_M, tl.Nb * G * bs).astype(np.float32)
+    dxk = jbs._build_v3_ops(jbs.pack_layout(mask, bs), G, 8, True,
+                            with_sub, qbits)[1]
+    ref = dxk(jnp.asarray(gy), jnp.asarray(w3), jnp.float32,
+              _opt(jnp.asarray, sub3))
+    wp = tbs.v3_weight_packed_plain(tt(w3), tl, G, qbits, _opt(tt, sub3))
+    got = tbs.bsl_dx_plain(tt(gy), wp, tl, G)
+    assert tuple(got.shape) == (V3_M, tl.K)
+    np.testing.assert_allclose(got.numpy(), _np(ref), atol=ATOL)
+
+
 def _v3_grads(x, w3, sub3, layout, G, qbits, gy, dev="cpu"):
     d = lambda a: tt(a).to(dev)
     xs, ws = d(x).requires_grad_(), d(w3).requires_grad_()

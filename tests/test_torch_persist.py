@@ -868,6 +868,113 @@ def test_gru_bwd_stash_and_rnn_fwd_block_shapes_are_the_kernels():
 
 
 # ---------------------------------------------------------------------------
+# the dense RNN's recompute BPTT (TPU row 29)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B, H, bi, units, grid", [
+    (8, 550, 1, 8, 69),      # the TIMIT RNN's train shape
+    (16, 1024, 2, 8, 128),
+    (8, 512, 1, 8, 64),      # RNN_cudnn's 2x512 layers
+    (100, 550, 2, 16, 245),
+    (5, 18, 1, 8, 3),        # the small ragged shape: the last group of 2
+])
+def test_rnn_bwd_plan(B, H, bi, units, grid):
+    """A block owns its units' H-long columns of U, stages its rows of
+    dg_{t+1} from the exchange buffer (H rounded up to 4 floats) at a row
+    stride of _row_stride(H), and keeps one sum a row and unit: the
+    forward's bytes."""
+    plan = tfr.rnn_bwd_plan(B, H)
+    bt = 8 * bi
+    assert (plan.bi, plan.units, plan.grid, plan.smem, plan.static,
+            plan.resident, plan.staged) == (
+                bi, units, grid,
+                4 * (units * H + bt * tfr._row_stride(H) + bt * units), 0,
+                4 * units * H, 4 * min(bt, B) * tfr.gru_fwd_exchange_stride(H))
+    assert plan == tfr.rnn_fwd_plan(B, H)
+    assert plan.smem <= tfl._SMEM_MAX
+
+
+@pytest.mark.parametrize("shape, grid, smem", [
+    ((1, 4), 138, 4 * (4 * 550 + 8 * 556 + 8 * 4)),
+    ((1, 16), 35, 4 * (16 * 550 + 8 * 556 + 8 * 16)),
+    ((2, 8), 69, 4 * (8 * 550 + 16 * 556 + 16 * 8)),
+    ((2, 16), 35, 4 * (16 * 550 + 16 * 556 + 16 * 16)),
+])
+def test_rnn_bwd_plan_forced_at_the_timit_rnn(shape, grid, smem):
+    """The other block shapes timed at the TIMIT RNN's 8 rows of 550:
+    4 x 8 (two blocks an SM), 16 x 8, 8 x 16 and 16 x 16 (units x rows)."""
+    plan = tfr.rnn_bwd_plan(8, 550, shape)
+    assert (plan.bi, plan.units, plan.grid, plan.smem) == shape + (grid,
+                                                                    smem)
+
+
+@pytest.mark.parametrize("B, H, blocks_per_sm, route", [
+    (8, 550, 1, "persist"),       # 69 blocks
+    (8, 512, 1, "persist"),       # 64 blocks
+    (16, 1024, 1, "persist"),     # 128 blocks
+    (100, 550, 1, "step"),        # 245 blocks
+    (100, 550, 2, "persist"),
+    (96, 1024, 1, "step"),        # 384 blocks
+    (96, 1024, 2, "step"),
+])
+def test_rnn_bwd_route(B, H, blocks_per_sm, route):
+    """"step" where the grid is not co-resident at the occupancy the card
+    reports (fed here), chosen before any launch."""
+    plan = tfr.rnn_bwd_plan(B, H)
+    assert tfr.persist_route(plan, blocks_per_sm, H100_SMS) == route
+
+
+def test_rnn_bwd_route_asks_the_chain_and_needs_room(monkeypatch):
+    """The route asks fused_rnn.cu's chain for its occupancy at the plan's
+    shape and shared memory; without cooperative launches, a block that
+    does not fit or too few SMs it is "step"; a block over the card's
+    shared memory is "step" without asking."""
+    plan = tfr.rnn_bwd_plan(8, 550)
+    assert tfr.persist_route(plan, 1, H100_SMS, coop=False) == "step"
+    assert tfr.persist_route(plan, 0, H100_SMS) == "step"
+    assert tfr.persist_route(plan, 1, H100_SMS,
+                             smem_max=plan.smem - 1) == "step"
+    assert tfr.persist_route(plan, 1, 68) == "step"      # 69 blocks
+    asked = []
+
+    def occupancy(lib, entry, args, index):
+        asked.append((lib, entry, args))
+        return 1, H100_SMS, True
+    monkeypatch.setattr(tfr, "_persist_occupancy", occupancy)
+    assert tfr.rnn_bwd_route(8, 550, torch.device("cuda", 0)) == (
+        "persist", plan)
+    assert tfr.rnn_bwd_route(96, 1024, torch.device("cuda", 0))[0] == "step"
+    assert tfr.rnn_bwd_route(8, 7300, torch.device("cuda", 0))[0] == "step"
+    assert asked == [("fused_rnn", "fused_rnn_bwd_occupancy",
+                      (1, 8, plan.smem)),
+                     ("fused_rnn", "fused_rnn_bwd_occupancy",
+                      (2, 16, tfr.rnn_bwd_plan(96, 1024).smem))]
+
+
+@pytest.mark.parametrize("route, T, qbits, n", [
+    ("persist", 300, 0, 2), ("persist", 300, 16, 3), ("persist", 1, 0, 2),
+    ("step", 300, 0, 301), ("step", 300, 16, 301), ("step", 6, 0, 7)])
+def test_rnn_bwd_launches(route, T, qbits, n):
+    """The rebuild and the one cooperative chain a call, and the per-step
+    scales with the quantizer; the rebuild and a step kernel a reverse
+    step otherwise."""
+    assert tfr.rnn_bwd_launches(route, T, qbits) == n
+
+
+def test_rnn_bwd_block_shapes_are_the_kernels():
+    """The plan picks only block shapes the chain instantiates, and
+    RNN_BWD_SHAPES is fused_rnn.cu's PK_RNN_BWD_SHAPE lines."""
+    for B in (1, 5, 8, 9, 16, 17, 32, 100):
+        for H in (18, 512, 550, 1024):
+            plan = tfr.rnn_bwd_plan(B, H)
+            assert (plan.bi, plan.units) in tfr.RNN_BWD_SHAPES
+    src = (pathlib.Path(tfr.__file__).parent / "csrc" / "fused_rnn.cu"
+           ).read_text()
+    inst = re.findall(r"^  PK_RNN_BWD_SHAPE\((\d+), (\d+)\)$", src, re.M)
+    assert tuple((int(a), int(b)) for a, b in inst) == tfr.RNN_BWD_SHAPES
+
+
+# ---------------------------------------------------------------------------
 # the staging layout
 # ---------------------------------------------------------------------------
 

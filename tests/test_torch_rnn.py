@@ -869,8 +869,9 @@ def cuda_device():
 @pytest.mark.parametrize("act", ["tanh", "relu"])
 def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
     """The forward (plain, stash, seeded; on its route, with the route's
-    launches) and both BPTT kernels (T, and T + 1 for the recompute one)
-    against their twins on the card, on the same tensors."""
+    launches) and both BPTT kernels (T for the stash one, the recompute
+    one's on its route: rnn_bwd_launches) against their twins on the card,
+    on the same tensors."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g, U, drop, h0, dhs = (tt(a).to(cuda_device) for a in _inputs(19))
     with torch.no_grad():
@@ -889,9 +890,11 @@ def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits):
         before = (tfr.fused_rnn_bwd_stash.launches, tfr.fused_rnn_bwd.launches)
         dg_s = tfr.fused_rnn_bwd_stash(acts, U, drop, dhs, act)
         dg_r = tfr.fused_rnn_bwd(g, U, drop, h_prev, dhs, act, qbits)
+        b_route = tfr.rnn_bwd_route(B, H, cuda_device)[0]
         assert (tfr.fused_rnn_bwd_stash.launches,
-                tfr.fused_rnn_bwd.launches) == (before[0] + T,
-                                                before[1] + T + 1)
+                tfr.fused_rnn_bwd.launches) == (
+                    before[0] + T,
+                    before[1] + tfr.rnn_bwd_launches(b_route, T, qbits))
         ref_ds = tfr.fused_rnn_bwd_stash_plain(acts, U, drop, dhs, act)
         ref_dr = tfr.fused_rnn_bwd_plain(g, U, drop, h_prev, dhs, act, qbits)
     torch.cuda.synchronize()
@@ -1048,3 +1051,79 @@ def test_cuda_fwd_persist_at_the_timit_shapes(cuda_device, T_, B_, H_, act,
         shifted = w(g[s:].contiguous(), U, drop, hs[s - 1].contiguous(),
                     act=act, qbits=qbits)
         assert torch.equal(shifted, hs[s:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.RNN_BWD_SHAPES)
+def test_cuda_bwd_persist_is_the_step_routes_bits(cuda_device, shape):
+    """The recompute BPTT's persistent chain (TPU row 29) forced to each
+    instantiated block shape at a ragged width (H=37: the last unit group
+    masked, the exchange rows padded to 40 floats) and batch (8 bi + 3
+    rows): bit for bit its forced step route (each dot is one warp's in
+    rnn_bwd_step's order), qbits 0 and 16, tanh and relu, within the
+    twin's bar; the rebuild and the chain a call, and the per-step scales
+    with the quantizer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bi, un = shape
+    T_, B_, H_ = 7, 8 * bi + 3, 37
+    g, U, drop, _, dhs = (tt(a).to(cuda_device) for a in _inputs(
+        91 + 2 * un + bi, h=H_, t=T_, b=B_))
+    U = U * float(np.sqrt(H / H_))
+    plan = tfr.rnn_bwd_plan(B_, H_, shape)
+    w = tfr.fused_rnn_bwd
+    with torch.no_grad():
+        for qbits in (0, 16):
+            for act in ("tanh", "relu"):
+                hs = tfr.fused_rnn_fwd(g, U, drop, act=act, qbits=qbits)
+                h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                before = w.launches
+                got = tfr._rnn_bwd_persist(plan, g, U, drop, h_prev, dhs, act,
+                                           qbits)
+                assert w.launches == before + 2 + (qbits > 0)
+                want = tfr._rnn_bwd_step(w, g, U, drop, h_prev, dhs, act,
+                                         qbits, False)
+                ref = tfr.fused_rnn_bwd_plain(g.cpu(), U.cpu(), drop.cpu(),
+                                              h_prev.cpu(), dhs.cpu(), act,
+                                              qbits)
+                assert torch.equal(got, want), (shape, qbits, act)
+                np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(),
+                                           atol=_atol(qbits) * max(
+                                               1.0, float(ref.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_, B_, H_, act, qbits, route", [
+    (300, 8, 550, "relu", 0, "persist"),   # the TIMIT RNN's train shape
+    (300, 8, 550, "tanh", 16, "persist"),
+    (300, 8, 512, "relu", 0, "persist"),   # RNN_cudnn's 512-wide layers
+    (6, 96, 1024, "tanh", 0, "step"),      # 384 blocks: not co-resident
+])
+def test_cuda_bwd_route_at_the_timit_shapes(cuda_device, T_, B_, H_, act,
+                                            qbits, route):
+    """At full width the wrapper takes the route its plan names before
+    the launch (2 launches a call on the persistent route, 3 with the
+    quantizer; T + 1 on the step route) and gives its forced step route's
+    bits, within the twin's bar."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(H_ + qbits + 1)
+    d = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda_device)
+    g = d(rng.randn(T_, B_, H_) * 0.5)
+    U = d(rng.randn(H_, H_) * 0.3 / np.sqrt(H_))
+    drop = d(rng.rand(B_, H_) > 0.2) / 0.8
+    dhs = d(rng.randn(T_, B_, H_))
+    assert tfr.rnn_bwd_route(B_, H_, cuda_device)[0] == route
+    w = tfr.fused_rnn_bwd
+    with torch.no_grad():
+        hs = tfr.fused_rnn_fwd(g, U, drop, act=act, qbits=qbits)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        before = w.launches
+        got = w(g, U, drop, h_prev, dhs, act, qbits)
+        assert w.launches == before + tfr.rnn_bwd_launches(route, T_, qbits)
+        want = tfr._rnn_bwd_step(w, g, U, drop, h_prev, dhs, act, qbits,
+                                 False)
+        assert torch.equal(got, want)
+        ref = tfr.fused_rnn_bwd_plain(g, U, drop, h_prev, dhs, act, qbits)
+    torch.cuda.synchronize()
+    scale = max(float(ref.abs().max()), 1.0)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=_atol(qbits) * scale)
