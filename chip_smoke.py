@@ -1578,14 +1578,18 @@ def kernel_classes(by_name, launches=False):
           for p in ("", "false, ", "true, ")]
     classes = {"rnn_sparse_fwd_kernel": ("rnn_sparse_step",),
                "rnn_sparse_bptt_kernel": ("rnn_sparse_bwd",),
-               # the step kernels at G=2 and the persistent forward's G=2
-               # instantiation (its G=3 one counts under gru_fwd_kernel)
-               "mgru_fwd_kernel": tuple(mg[:6]) + ("gru_dense_fwd_persist<2",),
-               # the step kernels, and the persistent chain with its
-               # rebuild's products and z pass
-               "mgru_bptt_kernel": tuple(mg[6:]) + ("gru_dense_bwd_persist<2",
-                                                    "mgru_z_rebuild",
-                                                    "rows_dots"),
+               # the step kernels at G=2 and the persistent forwards' G=2
+               # instantiations, dense and sparse (their G=3 ones count
+               # under gru_fwd_kernel)
+               "mgru_fwd_kernel": tuple(mg[:6]) + (
+                   "gru_dense_fwd_persist<2", "gru_fwd_persist<false, 2",
+                   "gru_fwd_persist<true, 2"),
+               # the step kernels, and the persistent chains (the dense one
+               # with its rebuild's products and z pass; the sparse one's
+               # rebuild is the step kernels')
+               "mgru_bptt_kernel": tuple(mg[6:]) + (
+                   "gru_dense_bwd_persist<2", "mgru_z_rebuild", "rows_dots",
+                   "gru_bwd_persist<false, 2", "gru_bwd_persist<true, 2"),
                "ligru_sparse_fwd_kernel": ("ligru_sparse_step",),
                "ligru_sparse_bptt_kernel": ("ligru_sparse_bwd",),
                "gru_torch_fwd_kernel": ("gru_torch_step",),
@@ -3039,9 +3043,20 @@ PERSIST_ROUTES = {
     "fused_rnn_fwd": ("rnn_fwd_route", "fused_rnn", "fused_rnn_fwd_occupancy",
                       lambda plan, bf16: (plan.bi, plan.units)),
     "fused_rnn_bwd": ("rnn_bwd_route", "fused_rnn", "fused_rnn_bwd_occupancy",
-                      lambda plan, bf16: (plan.bi, plan.units))}
+                      lambda plan, bf16: (plan.bi, plan.units)),
+    "fused_mgru_fwd_sparse": ("gru_fwd_sparse_route", "fused_gru_sparse",
+                              "mgru_fwd_sparse_occupancy",
+                              lambda plan, bf16: (int(bf16), plan.bi,
+                                                  plan.units)),
+    "fused_mgru_bwd_sparse": ("mgru_bwd_sparse_route", "fused_gru_sparse",
+                              "mgru_bwd_sparse_occupancy",
+                              lambda plan, bf16: (int(bf16), plan.bi))}
 #: the dense forwards' gate counts (their route functions take G)
 DENSE_FWD_G = {"fused_gru_fwd": 3, "fused_mgru_fwd": 2}
+#: the sparse minimalGRU's wrappers: their routes are in a package that
+#: has mgru_bwd_sparse_route (an earlier tree's runs both on "step"); the
+#: forward's route function is the GRU's, at G=2
+MGRU_SPARSE = ("fused_mgru_fwd_sparse", "fused_mgru_bwd_sparse")
 #: the dense LSTM's wrappers with a persistent route: their route
 #: functions are fused_lstm's and take (B, H, bf16, dev)
 LSTM_PERSIST = ("fused_lstm_fwd", "fused_lstm_bwd_stash")
@@ -3055,14 +3070,18 @@ def chain_route(dev, kernel, B, H=None, layout=None, bf16=False):
     block, the slabs a staged row is cut into. A package without that
     wrapper's persistent route (an earlier tree's) runs "step". The dense
     GRU forwards (DENSE_FWD_G) take their gate count, the dense LSTM's
-    wrappers (LSTM_PERSIST) bf16."""
+    wrappers (LSTM_PERSIST) bf16, the sparse minimalGRU's forward the
+    GRU's route at G=2."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     fn, lib, entry, ints = PERSIST_ROUTES[kernel]
-    if not hasattr(F if kernel in LSTM_PERSIST else R, fn):
+    if not hasattr(F if kernel in LSTM_PERSIST else R, fn) or (
+            kernel in MGRU_SPARSE and not hasattr(R, "mgru_bwd_sparse_route")):
         return "step", {}
     if kernel in DENSE_FWD_G:
         route, plan = getattr(R, fn)(B, H, DENSE_FWD_G[kernel], dev)
+    elif kernel == "fused_mgru_fwd_sparse":
+        route, plan = R.gru_fwd_sparse_route(B, layout, bf16, dev, 2)
     elif kernel in LSTM_PERSIST:
         route, plan = getattr(F, fn)(B, H, bf16, dev)
     else:
@@ -3300,13 +3319,63 @@ def rnn_stream_count(dev, layers, B, H):
         for a in range(0, T, c))
 
 
-def gru_fwd_sparse_launches(dev, T, B, layout, bf16=False):
-    """fused_gru_fwd_sparse's route at B over ``layout`` and its
-    launches a call."""
-    route = chain_route(dev, "fused_gru_fwd_sparse", B, layout=layout,
-                        bf16=bf16)[0]
+def gru_fwd_sparse_launches(dev, T, B, layout, bf16=False,
+                            kernel="fused_gru_fwd_sparse"):
+    """fused_gru_fwd_sparse's (or ``kernel``'s, fused_mgru_fwd_sparse's)
+    route at B over ``layout`` and its launches a call."""
+    route = chain_route(dev, kernel, B, layout=layout, bf16=bf16)[0]
     return route, (GRU_FWD_SPARSE_PERSIST_LAUNCHES if route == "persist"
                    else 2 * T)
+
+
+def mgru_fwd_sparse_launches(dev, T, B, layout, bf16=False):
+    """fused_mgru_fwd_sparse's route at B over ``layout`` and its
+    launches a call: the GRU's counts (gru_fwd_sparse_launches)."""
+    return gru_fwd_sparse_launches(dev, T, B, layout, bf16,
+                                   "fused_mgru_fwd_sparse")
+
+
+#: fused_mgru_bwd_sparse's launches a call on the persistent route by
+#: qbits > 0, written from the design: the rebuild's two step kernels over
+#: all T and the chain, and the per-step scales with the quantizer
+#: ("step": the two rebuild kernels and two a reverse step, 2T + 2, as its
+#: counter counts them)
+MGRU_BWD_SPARSE_PERSIST_LAUNCHES = {False: 3, True: 4}
+
+
+def mgru_bwd_sparse_launches(dev, T, B, layout, qbits, bf16=False):
+    """fused_mgru_bwd_sparse's route at B over ``layout`` and its
+    launches a call."""
+    route = chain_route(dev, "fused_mgru_bwd_sparse", B, layout=layout,
+                        bf16=bf16)[0]
+    return route, (MGRU_BWD_SPARSE_PERSIST_LAUNCHES[qbits > 0]
+                   if route == "persist" else 2 * T + 2)
+
+
+def mgru_bwd_sparse_design(route, T, qbits):
+    """fused_mgru_bwd_sparse's device kernels a call by name: with the
+    quantizer the per-step scales, the rebuild's two step kernels over all
+    T, then the chain or two a reverse step."""
+    want = dict({"absmax_steps": 1} if qbits > 0 else {}, gru_zr_step=1,
+                gru_h_step=1)
+    if route == "persist":
+        return dict(want, gru_bwd_persist=1)
+    return dict(want, gru_bwd_carry=T, gru_bwd_ds=T)
+
+
+def cgs_mgru_layer_launches(dev, T, B, qbits, train):
+    """One CGS-16x minimalGRU layer call's launches at (T, B) on each
+    sparse kernel's route over the cfg's layout at the timed seed (every
+    layer's layout has Kb=8, R=2 and width 1024, and the chain's block
+    fits at every column count up to 8 at 8 rows, so they alone pick the
+    route): {wrapper: launches}, the BPTT's with ``train``."""
+    lay = cgs_layout(MG_TRAIN_TBH[2], 421)[1]
+    out = {"fused_mgru_fwd_sparse": mgru_fwd_sparse_launches(dev, T, B,
+                                                            lay)[1]}
+    if train:
+        out["fused_mgru_bwd_sparse"] = mgru_bwd_sparse_launches(
+            dev, T, B, lay, qbits)[1]
+    return out
 
 
 #: fused_lstm_fwd's and fused_lstm_bwd_stash's launches a call on the
@@ -5423,23 +5492,29 @@ def mgru_expect_serve(T):
 
 
 def cgs_mgru_expect_serve(T):
-    """Launches per recognize: 2 layers x 2 per frame on the sparse
-    minimalGRU forward, no other kernel."""
-    return expected(fused_mgru_fwd_sparse=2 * 2 * T)
+    """Launches per recognize: 2 layers of the sparse minimalGRU forward
+    at 8 rows, each its route's (cgs_mgru_layer_launches: one launch a
+    layer on the persistent route), no other kernel."""
+    return expected(fused_mgru_fwd_sparse=2 * cgs_mgru_layer_launches(
+        "cuda", T, N_UTT, 16, False)["fused_mgru_fwd_sparse"])
 
 
 def phase_mgru_kernels(dev):
     """The dense minimalGRU forward (plain, stash, seeded, and seeded from
     h_{k-1} against the zero-state run's steps k..T-1) and both BPTT
     kernels, and the sparse forward and BPTT (hs, dg and the emitted s;
-    w3g in f32, and in bf16 at the training shape), against their twins
-    on the same tensors, each launch counter checked (the dense forward
-    and recompute BPTT their routes' launches, gru_fwd_launches and
-    mgru_bwd_check; the sparse forward 2T, 2T for the stash BPTT, 2T + 2
-    for the sparse recompute one): qbits 0/16 x relu/tanh at
+    w3g in f32, and in bf16 at the training and serving shapes), against
+    their twins on the same tensors, each launch counter checked (the
+    dense forward and recompute BPTT their routes' launches,
+    gru_fwd_launches and mgru_bwd_check; 2T for the stash BPTT; the sparse
+    kernels their routes', _mgru_sparse_check): qbits 0/16 x relu/tanh at
     MG_SMALL_TBH (sparse: Kb=2, R=1), the training shape and the serving
     shape (forward only; sparse Kb=8, R=2); the sparse kernels also at
-    MG_LARGE_ROWS rows (T=16). The dense forward runs on the route its
+    MG_LARGE_ROWS rows (T=16, their step routes). The sparse kernels' step
+    routes forced at the training and serving shapes (the forward bit for
+    bit its persistent route), their device kernels held to each route's
+    once, rows 34 and 35 at every block shape (mgru_sparse_shapes). The
+    dense forward runs on the route its
     plan names (persistent at all three shapes), two calls bit for bit,
     its device kernels held to the route's once a shape, and at the
     training shape on the step route too, forced; the recompute BPTT
@@ -5530,16 +5605,20 @@ def phase_mgru_kernels(dev):
                         mgru_bwd_check(check, dev, shape, g, U, drop,
                                        h_prev, dhs, act, qbits, tol_q,
                                        qbits and act == "tanh", True)
-                sparse_cases = [False] + ([True] if shape == MG_TRAIN_TBH
-                                          else [])
-                for bf16 in sparse_cases:
+                for bf16 in (False, True) if not small else (False,):
                     k += 1
-                    _mgru_sparse_check(checks, R, shape, qbits, act, bf16,
-                                       not serve, 400 + k, dev)
+                    _mgru_sparse_check(
+                        checks, R, shape, qbits, act, bf16, not serve,
+                        400 + k, dev, forced=not small,
+                        kernels=(not small and not bf16 and qbits
+                                 and act == "relu"))
     for qbits, act in ((16, "relu"), (0, "tanh")):
         k += 1
         _mgru_sparse_check(checks, R, (16, MG_LARGE_ROWS, 1024), qbits, act,
-                           False, True, 400 + k, dev)
+                           False, True, 400 + k, dev, kernels=qbits > 0)
+    shapes = mgru_sparse_shapes(checks, R, dev)
+    print("[mgru_kernels] rows 34 and 35 by block shape: %s"
+          % json.dumps(shapes))
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
@@ -5551,6 +5630,13 @@ def phase_mgru_kernels(dev):
     check_fwd_routes(checks, "fused_mgru_bwd", {
         (MG_SMALL_TBH, "persist"), (MG_TRAIN_TBH, "persist"),
         (MG_SMALL_TBH, "step"), (MG_TRAIN_TBH, "step")})
+    large = (16, MG_LARGE_ROWS, 1024)
+    check_fwd_routes(checks, "fused_mgru_fwd_sparse", {
+        (MG_SMALL_TBH, "persist"), (MG_TRAIN_TBH, "persist"),
+        (MG_SERVE_TBH, "persist"), (large, "step")})
+    check_fwd_routes(checks, "fused_mgru_bwd_sparse", {
+        (MG_SMALL_TBH, "persist"), (MG_TRAIN_TBH, "persist"),
+        (MG_TRAIN_TBH, "step"), (large, "step")})
     return checks
 
 
@@ -5585,9 +5671,19 @@ def mgru_bwd_check(check, dev, shape, g, U, drop, h_prev, dhs, act, qbits,
               route)
 
 
-def _mgru_sparse_check(checks, R, shape, qbits, act, bf16, bwd, seed, dev):
+def _mgru_sparse_check(checks, R, shape, qbits, act, bf16, bwd, seed, dev,
+                       forced=False, kernels=False):
     """The sparse minimalGRU forward (and, with ``bwd``, its BPTT: dg and
-    s) against the twins at ``shape``."""
+    s) against the twins at ``shape`` on the routes their plans name
+    (mgru_fwd_sparse_launches, mgru_bwd_sparse_launches), two calls bit
+    for bit; ``kernels``: one call of each held to its route's device
+    kernels (gru_fwd_sparse_design, mgru_bwd_sparse_design); ``forced``:
+    each step route forced (fused_rnn._gru_fwd_sparse_step,
+    _gru_bwd_sparse_step) against the twin, the forward's bits those of
+    its persistent route (both sum in row_dots' order), the BPTT's dg
+    within the same bar of the persistent route's (its chain sums in
+    another order) and its rebuilt s bit for bit (both routes rebuild on
+    the forward's step kernels: the forward's sums)."""
     T, B, H = shape
     inp = cgs_ligru_inputs(T, B, H, seed, dev, act)
     gm, w3g, drop, dhs, lay = (inp[n] for n in ("g", "w3g", "drop", "dhs",
@@ -5599,20 +5695,108 @@ def _mgru_sparse_check(checks, R, shape, qbits, act, bf16, bwd, seed, dev):
                                else TOL_F32_SERVE))
     where = dict(zip("TBH", shape))
     fwd, bwdk = R.fused_mgru_fwd_sparse, R.fused_mgru_bwd_sparse
+    dbh = torch.broadcast_to(drop, (B, H)).contiguous()
+
+    def check(name, err_rel, tol_, by_rel, route):
+        record_check(checks, "mgru_kernels", name, where,
+                     dict(variant, route=route), err_rel, tol_, by_rel)
     with torch.no_grad():
-        hs = launched(fwd, 2 * T, lambda: fwd(gm, w3g, drop, lay, act, qbits,
-                                              bf16))
-        record_check(checks, "mgru_kernels", "fused_mgru_fwd_sparse", where,
-                     variant, rel_err(hs, R.fused_mgru_fwd_sparse_plain(
-                         gm, w3g, drop, lay, act, qbits, bf16)), tol, False)
+        fargs = (gm, w3g, drop, lay, act, qbits, bf16)
+        route, n = mgru_fwd_sparse_launches(dev, T, B, lay, bf16)
+        hs = launched(fwd, n, lambda: fwd(*fargs))
+        check("fused_mgru_fwd_sparse", rel_err(
+            hs, R.fused_mgru_fwd_sparse_plain(*fargs)), tol, False, route)
+        check("fused_mgru_fwd_sparse/determinism",
+              same_bits(lambda: fwd(*fargs)), 0.0, False, route)
+        if kernels:
+            bptt_kernels(lambda: fwd(*fargs), gru_fwd_sparse_design(route, T))
+        if forced:
+            st = launched(fwd, 2 * T, lambda: R._gru_fwd_sparse_step(
+                fwd, gm, w3g, dbh, lay, act, qbits, bf16))
+            check("fused_mgru_fwd_sparse/persist_vs_step", bits_apart(hs, st),
+                  0.0, False, route)
         if not bwd:
             return
         h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
         args = (gm, w3g, drop, h_prev, dhs, lay, act, qbits, bf16)
-        record_check(checks, "mgru_kernels", "fused_mgru_bwd_sparse", where,
-                     variant, rel_err(
-                         launched(bwdk, 2 * T + 2, lambda: bwdk(*args)),
-                         R.fused_mgru_bwd_sparse_plain(*args)), tol, True)
+        route, n = mgru_bwd_sparse_launches(dev, T, B, lay, qbits, bf16)
+        got = launched(bwdk, n, lambda: bwdk(*args))
+        ref = R.fused_mgru_bwd_sparse_plain(*args)
+        check("fused_mgru_bwd_sparse", rel_err(got, ref), tol, True, route)
+        check("fused_mgru_bwd_sparse/determinism",
+              same_bits(lambda: bwdk(*args)), 0.0, False, route)
+        if kernels:
+            bptt_kernels(lambda: bwdk(*args),
+                         mgru_bwd_sparse_design(route, T, qbits))
+        if forced:
+            st = launched(bwdk, 2 * T + 2, lambda: R._gru_bwd_sparse_step(
+                bwdk, gm, w3g, dbh, h_prev, dhs, lay, act, qbits, bf16))
+            check("fused_mgru_bwd_sparse/step_route", rel_err(st, ref), tol,
+                  True, "step")
+            check("fused_mgru_bwd_sparse/persist_vs_step",
+                  rel_err(got[0], st[0]), tol, True, route)
+            check("fused_mgru_bwd_sparse/rebuild_s_vs_step",
+                  bits_apart(got[1], st[1]), 0.0, False, route)
+
+
+#: the steps at which mgru_sparse_shapes forces each block shape of rows
+#: 34 and 35 (at 8 bi - 3 rows: one ragged row group, so that every grid
+#: of 1024 units is co-resident; 8 bi + 3 rows at 8 and 16 rows, two row
+#: groups, left the forward's grid of 256 blocks at one block an SM)
+MG_SHAPES_T = 24
+
+
+def mgru_sparse_shapes(checks, R, dev):
+    """Rows 34 and 35's persistent routes forced to every block shape
+    their plans can take (fused_rnn.GRU_FWD_SPARSE_SHAPES,
+    GRU_BWD_SPARSE_SHAPES) at the CGS-16x layout, 8 bi - 3 rows of 1024,
+    relu, qbits 16, f32 w3g: each against its twin at TOL_Q16, the
+    forward bit for bit its step route; a shape whose grid is not
+    co-resident is recorded as skipped."""
+    out = {}
+    for kind, shapes in (("fwd", R.GRU_FWD_SPARSE_SHAPES),
+                         ("bwd", R.GRU_BWD_SPARSE_SHAPES)):
+        for bi, un in shapes:
+            T, B, H = MG_SHAPES_T, 8 * bi - 3, MG_TRAIN_TBH[2]
+            inp = cgs_ligru_inputs(T, B, H, 430 + bi + un, dev, "relu")
+            gm, w3g, drop, dhs, lay = (inp[n] for n in (
+                "g", "w3g", "drop", "dhs", "layout"))
+            dbh = torch.broadcast_to(drop, (B, H)).contiguous()
+            where = {"T": T, "B": B, "H": H}
+            variant = {"qbits": 16, "act": "relu", "Kb": lay.Kb, "R": lay.R,
+                       "w3g": "f32", "route": "persist",
+                       "block": "%d units x %d rows" % (un, 8 * bi)}
+            kernel = "fused_mgru_%s_sparse" % kind
+            plan = (R.gru_fwd_sparse_plan(B, lay, (bi, un), G=2)
+                    if kind == "fwd" else
+                    R.mgru_bwd_sparse_plan(B, H, lay.bs, lay.C, (bi, un)))
+            if not co_resident(kernel, plan):
+                out["%s %s" % (kind, variant["block"])] = "not co-resident"
+                continue
+            with torch.no_grad():
+                fargs = (gm, w3g, dbh, lay, "relu", 16, False)
+                if kind == "fwd":
+                    hs = R._gru_fwd_sparse_persist(plan, *fargs)
+                    record_check(checks, "mgru_kernels", kernel + "/block",
+                                 where, variant, rel_err(
+                                     hs, R.fused_mgru_fwd_sparse_plain(
+                                         *fargs)), TOL_Q16, False)
+                    record_check(checks, "mgru_kernels",
+                                 kernel + "/block_vs_step", where, variant,
+                                 bits_apart(hs, R._gru_fwd_sparse_step(
+                                     R.fused_mgru_fwd_sparse, gm, w3g, dbh,
+                                     lay, "relu", 16, False)), 0.0, False)
+                else:
+                    hs = R.fused_mgru_fwd_sparse(*fargs)
+                    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                    args = (gm, w3g, dbh, h_prev, dhs, lay, "relu", 16, False)
+                    record_check(checks, "mgru_kernels", kernel + "/block",
+                                 where, variant, rel_err(
+                                     R._mgru_bwd_sparse_persist(plan, *args),
+                                     R.fused_mgru_bwd_sparse_plain(*args)),
+                                 TOL_Q16, True)
+            out["%s %s" % (kind, variant["block"])] = "checked"
+    return out
 
 
 def phase_mgru_train(dev, sparse=False):
@@ -5645,9 +5829,9 @@ def phase_mgru_train(dev, sparse=False):
           "worst rel change %.3g at %s; card vs CPU bar %.3g"
           % (tag, sens, where, grad_tol))
     if sparse:
-        want = expected(fused_mgru_fwd_sparse=2 * 2 * T,
-                        fused_mgru_bwd_sparse=2 * (2 * T + 2),
-                        block_sparse_dw=2 * 2)
+        n = cgs_mgru_layer_launches(dev, *MG_TRAIN_TBH[:2], 16, True)
+        want = expected(block_sparse_dw=2 * 2,
+                        **{k: 2 * v for k, v in n.items()})
         modes = (("recompute", knob, None, want),
                  ("stash_knob", knob, "mgru", want))
     else:
@@ -5757,9 +5941,10 @@ def phase_mgru_stream(dev, rec, audio, lens, phones, logp, noq, sparse):
 def phase_mgru_large_batch(dev):
     """The CGS-16x minimalGRU's first layer over MG_LARGE_ROWS utterances
     of T=398, where the JAX size rule says "" (it would run its float32
-    lax.scan over the masked U): the sparse forward alone, 2 x 398
-    launches, with float32 w3g (the scan reads it in bf16 only where the
-    rule says "bf16"), against the model on the sparse twin;
+    lax.scan over the masked U): the sparse forward alone, on its step
+    route (1,024 blocks are not co-resident: 2 x 398 launches), with
+    float32 w3g (the scan reads it in bf16 only where the rule says
+    "bf16"), against the model on the sparse twin;
     as shipped at TOL_Q16 and without the 16-bit quantizers at
     MG_LARGE_TOL."""
     from pytorch_kaldi_cgs_tpu_torch.models import minimalGRU
@@ -5784,8 +5969,11 @@ def phase_mgru_large_batch(dev):
             with swapped(R, "fused_mgru_fwd_sparse",
                          R.fused_mgru_fwd_sparse_plain):
                 y_plain = net(x)
-        if launches != expected(fused_mgru_fwd_sparse=2 * T):
-            raise AssertionError("mgru_large_batch: launches %s" % launches)
+        route, n = mgru_fwd_sparse_launches(dev, T, rows, layout)
+        if route != "step" or launches != expected(
+                fused_mgru_fwd_sparse=n):
+            raise AssertionError("mgru_large_batch: launches %s on route %s"
+                                 % (launches, route))
         record_check(checks, "mgru_large_batch",
                      "fused_mgru_fwd_sparse/model",
                      {"T": T, "rows": rows},
@@ -5865,6 +6053,10 @@ def phase_mgru_times(dev, rec, cgs_rec, audio, lens):
                                                    H)[1]
         times["fused_mgru_bwd_split"] = bptt_split(calls["fused_mgru_bwd"][0],
                                                    3)
+        for k in ("fused_mgru_fwd_sparse", "fused_mgru_bwd_sparse"):
+            times[k + "_plan"] = chain_route(dev, k, B, layout=lay)[1]
+        times["fused_mgru_bwd_sparse_split"] = bptt_split(
+            calls["fused_mgru_bwd_sparse"][0], 3)
         times["fused_mgru_fwd_ms_q0"] = cuda_ms(
             lambda: R.fused_mgru_fwd(g, U, drop, act=act, qbits=0,
                                      stash=True), reps=5)
@@ -6462,11 +6654,14 @@ def slice9_rows(checks, times, launches):
         row("fused_mgru_fwd_sparse", "fused_gru_sparse", 1617,
             err_at("fused_mgru_fwd_sparse"), times["cudnn_gru_fwd_ms"],
             yard % "forward", serve=serve("sparse_"),
-            sparse={"Kb": 8, "R": 2, "bs": 128, "w3g": "f32"}),
+            sparse={"Kb": 8, "R": 2, "bs": 128, "w3g": "f32"},
+            plan=times["fused_mgru_fwd_sparse_plan"]),
         row("fused_mgru_bwd_sparse", "fused_gru_sparse", 1663,
             err_at("fused_mgru_bwd_sparse"), times["cudnn_gru_bwd_ms"],
             bwd_note, sparse={"Kb": 8, "R": 2, "bs": 128, "w3g": "f32"},
-            dU_dw_ms=times["dU_dw_ms"])]
+            dU_dw_ms=times["dU_dw_ms"],
+            plan=times["fused_mgru_bwd_sparse_plan"],
+            split=times["fused_mgru_bwd_sparse_split"])]
 
 
 def slice8_rows(cl_checks, cl_times, cl_launches, gt_checks, gt_times,
@@ -7424,7 +7619,9 @@ def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
                "fused_lstm_bwd_stash": "lstm_bwd_stash_plan",
                "fused_gru_bwd_stash": "gru_bwd_stash_plan",
                "fused_rnn_fwd": "rnn_fwd_plan",
-               "fused_rnn_bwd": "rnn_bwd_plan"}[kernel]
+               "fused_rnn_bwd": "rnn_bwd_plan",
+               "fused_mgru_fwd_sparse": "gru_fwd_sparse_plan",
+               "fused_mgru_bwd_sparse": "mgru_bwd_sparse_plan"}[kernel]
     if not hasattr(F if kernel in LSTM_PERSIST else R, plan_fn):
         return {}
     out = {}
@@ -7587,6 +7784,76 @@ def rnn_bwd_turn_times(dev, g, U, drop, h_prev, dhs, reps=10):
     return out
 
 
+def mgru_sparse_turn_times(dev, t):
+    """phase_rnn_turn_times' rows 34 and 35 into ``t`` (relu, qbits 16, as
+    the CGS-16x minimalGRU runs them) at its train shape: ms per call,
+    row 34 also without the quantizer and at the serve shape; route and
+    plan, row 35's rebuild / chain split, each block shape of their tables
+    forced (co-resident ones), the step routes forced where the package
+    has the persistent ones, and the output digests (row 34's equal across
+    trees: its persistent route gives the step route's bits; row 35's
+    chain sums in another order than its step route)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = MG_TRAIN_TBH
+    sp = cgs_ligru_inputs(T, B, H, 421, dev, "relu")
+    g, w3g, drop, dhs, lay = (sp[n] for n in ("g", "w3g", "drop", "dhs",
+                                              "layout"))
+    sv = cgs_ligru_inputs(MG_SERVE_TBH[0], B, H, 423, dev, "relu")
+    dbh = torch.broadcast_to(drop, (B, H)).contiguous()
+    new = hasattr(R, "mgru_bwd_sparse_route")
+    with torch.no_grad():
+        fcall = lambda: R.fused_mgru_fwd_sparse(g, w3g, drop, lay, "relu", 16)
+        scall = lambda: R.fused_mgru_fwd_sparse(
+            sv["g"], sv["w3g"], sv["drop"], sv["layout"], "relu", 16)
+        hs = fcall()
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        bcall = lambda: R.fused_mgru_bwd_sparse(g, w3g, drop, h_prev, dhs,
+                                                lay, "relu", 16)
+
+        def fwd_plan(shape_, run=False):
+            plan = R.gru_fwd_sparse_plan(B, lay, shape_, G=2)
+            return (R._gru_fwd_sparse_persist(plan, g, w3g, dbh, lay, "relu",
+                                              16, False) if run else plan)
+
+        def bwd_plan(shape_, run=False):
+            plan = R.mgru_bwd_sparse_plan(B, H, lay.bs, lay.C, shape_)
+            return (R._mgru_bwd_sparse_persist(plan, g, w3g, dbh, h_prev, dhs,
+                                               lay, "relu", 16, False)
+                    if run else plan)
+        t["row34"] = {
+            "ms": cuda_ms(fcall, 10),
+            "ms_q0": cuda_ms(lambda: R.fused_mgru_fwd_sparse(
+                g, w3g, drop, lay, "relu", 0), 10),
+            "serve_ms": cuda_ms(scall, 10),
+            "plan": chain_route(dev, "fused_mgru_fwd_sparse", B,
+                                layout=lay)[1],
+            "by_block_shape": forced_plan_ms(
+                "fused_mgru_fwd_sparse", fwd_plan, 10,
+                R.GRU_FWD_SPARSE_SHAPES) if new else {},
+            "digest": digest(fcall()), "serve_digest": digest(scall()),
+            "digest_q0": digest(R.fused_mgru_fwd_sparse(
+                g, w3g, drop, lay, "relu", 0))}
+        t["row35"] = {
+            "ms": cuda_ms(bcall, 10),
+            "plan": chain_route(dev, "fused_mgru_bwd_sparse", B,
+                                layout=lay)[1],
+            "split": bptt_split(bcall, 3),
+            "by_block_shape": forced_plan_ms(
+                "fused_mgru_bwd_sparse", bwd_plan, 10,
+                R.GRU_BWD_SPARSE_SHAPES) if new else {},
+            "digest": digest(bcall())}
+        if new:
+            t["row34"]["step_route_ms"] = cuda_ms(
+                lambda: R._gru_fwd_sparse_step(
+                    R.fused_mgru_fwd_sparse, g, w3g, dbh, lay, "relu", 16,
+                    False), 10)
+            t["row35"]["step_route_ms"] = cuda_ms(
+                lambda: R._gru_bwd_sparse_step(
+                    R.fused_mgru_bwd_sparse, g, w3g, dbh, h_prev, dhs, lay,
+                    "relu", 16, False), 10)
+    del sp, sv, hs, h_prev
+
+
 def phase_rnn_turn_times(dev):
     """The redesigned rows at their timed shapes (gru_torch_times',
     gru_times', ligru_times', libri_ligru_times', timit_gru_times' and
@@ -7608,9 +7875,10 @@ def phase_rnn_turn_times(dev):
     (relu) at the TIMIT RNN's train (stash and not) and serve shapes and
     as the CGS-16x RNN's seeded chunk of 100, each block shape of its
     table at the train shape, its output digests; row 29 (relu) at the
-    TIMIT RNN's train shape (rnn_bwd_turn_times); rows 17, 21, 22, 23,
-    25, 28, 33, 34, 35, 13 (libri G=3, 8-bit, submask) and 15 (the
-    libri v3 dw) as the rows that must not move; rows 1 and 3
+    TIMIT RNN's train shape (rnn_bwd_turn_times); rows 34 and 35 at the
+    CGS-16x minimalGRU's shapes (mgru_sparse_turn_times); rows 17, 21,
+    22, 23, 25, 28, 33, 13 (libri G=3, 8-bit, submask) and 15 (the libri
+    v3 dw) as the rows that must not move; rows 1 and 3
     (lstm_turn_times). Public wrappers only (and the forced plans where
     the package has them), so an earlier tree's package runs it too."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
@@ -7691,7 +7959,7 @@ def phase_rnn_turn_times(dev):
                                               "tanh", 16)
         t["row33"] = {"ms": cuda_ms(call, 10),
                       "plan": bptt_route(dev, B, layout=lay)[1],
-                      "split": bptt_split(call, 3)}
+                      "split": bptt_split(call, 3), "digest": digest(call())}
         del hs, h_prev
         # row 32 at the train and serve shapes
         for tag, (T, B, H), seed in (("train", GR_TRAIN_TBH, 150),
@@ -7714,7 +7982,9 @@ def phase_rnn_turn_times(dev):
                                     layout=lay)[1],
                 "by_block_shape": forced_plan_ms(
                     "fused_gru_fwd_sparse", call_plan, 10)
-                if lay.bs % 16 == 0 else {}}
+                if lay.bs % 16 == 0 else {},
+                "digest": digest(R.fused_gru_fwd_sparse(g, w3g, drop, lay,
+                                                        "tanh", 16))}
             del fi, g, w3g, drop, lay
         del si
         # rows 19 and 24 at their train shapes (stash and not), serve
@@ -7828,17 +8098,7 @@ def phase_rnn_turn_times(dev):
             acts, U, drop, dhs, "relu"), 10)
         t["row29"] = rnn_bwd_turn_times(dev, g, U, drop, h_prev, dhs)
         del fi, g, U, drop, h0, dhs, sv, ck, hs, acts, h_prev
-        T, B, H = MG_TRAIN_TBH
-        sp = cgs_ligru_inputs(T, B, H, 421, dev, "relu")
-        hs = R.fused_mgru_fwd_sparse(sp["g"], sp["w3g"], sp["drop"],
-                                     sp["layout"], "relu", 16)
-        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
-        t["row34_ms"] = cuda_ms(lambda: R.fused_mgru_fwd_sparse(
-            sp["g"], sp["w3g"], sp["drop"], sp["layout"], "relu", 16), 10)
-        t["row35_ms"] = cuda_ms(lambda: R.fused_mgru_bwd_sparse(
-            sp["g"], sp["w3g"], sp["drop"], h_prev, sp["dhs"], sp["layout"],
-            "relu", 16), 10)
-        del sp, hs, h_prev
+        mgru_sparse_turn_times(dev, t)
         M = GR_TRAIN_TBH[0] * GR_TRAIN_TBH[1]
         v = v3_inputs(M, 3, 234, dev)
         x = BS.pad_cols(v["x"], v["layout"].K).contiguous()
@@ -7860,13 +8120,13 @@ def phase_rnn_turn_times(dev):
 def rnn_times_main(root):
     """``python3 chip_smoke.py --rnn-times [DIR]``: phase_rnn_turn_times,
     the f32 train steps of the libri GRU, the libri and TIMIT Li-GRUs,
-    the TIMIT GRU, the TIMIT RNN, the minimalGRU, the flagship LSTM, the
-    CGS-16x LSTM as shipped (the dense kernels, 8 rows) and under
-    ``auto`` (CUDA events, mean of 5 after 2; all but the last also
-    profiled once: device ms and kernel records by class of kernel, busy
-    share), and the TIMIT GRU's, the TIMIT RNN's, the minimalGRU's and the TIMIT and
-    libri Li-GRUs' recognize (8 x 4 s: serve_timings, launches by
-    kernel), with
+    the TIMIT GRU, the TIMIT RNN, the minimalGRU, the CGS-16x minimalGRU,
+    the flagship LSTM, the CGS-16x LSTM as shipped (the dense kernels, 8
+    rows) and under ``auto`` (CUDA events, mean of 5 after 2; all but the
+    last also profiled once: device ms and kernel records by class of
+    kernel, busy share), and the TIMIT GRU's, the TIMIT RNN's, both
+    minimalGRUs' and the TIMIT and libri Li-GRUs' recognize (8 x 4 s:
+    serve_timings, launches by kernel), with
     the package of this checkout or of the tree unpacked at DIR inside it
     (as ``--gemm-times``; run parent, change, change, parent in one
     call); one JSON line."""
@@ -7895,6 +8155,7 @@ def rnn_times_main(root):
                       ("timit_gru", timit_gru_train_runner),
                       ("timit_rnn", timit_rnn_train_runner),
                       ("mgru", mgru_train_runner),
+                      ("cgs_mgru", cgs_mgru_train_runner),
                       ("flagship", train_runner),
                       ("cgs16x_lstm_shipped", cgs_shipped_train_runner),
                       ("cgs16x_lstm", cgs_train_runner)):
@@ -7916,6 +8177,7 @@ def rnn_times_main(root):
     for tag, stack in (("timit_gru", build_timit_gru_stack),
                        ("timit_rnn", build_timit_rnn_stack),
                        ("mgru", build_mgru_stack),
+                       ("cgs_mgru", build_cgs_mgru_stack),
                        ("timit_ligru", build_ligru_stack),
                        ("libri_ligru", build_libri_ligru_stack)):
         rec = build_recognizer(dev, stack)

@@ -76,7 +76,7 @@ __device__ __forceinline__ void resident_dots(const float* ws,
             % (groups, groups))
     h = sub(h, "        const float xv = x[(size_t)p * SK + k];",
             "        const float xv = xf(x[(size_t)p * SK + k]);")
-    h = sub(h, "  if (var == 0.f && !RND) return var;", "  return var;")
+    h = sub(h, "  if (var == 0.f && !RND) return;", "  return;")
     k = sub(src["fused_gru.cu"], """  auto block_max = [&](unsigned m, unsigned* out) {
     P::block_max(m, out, wmax);
   };
@@ -115,8 +115,8 @@ def variants(src):
         return {"fused_gru.cu": k, "persist.cuh": text}
     return {
         "base": dict(src),
-        "no_quant_pass": header(sub(h, "  if (var == 0.f && !RND) return var;",
-                                    "  return var;")),
+        "no_quant_pass": header(sub(h, "  if (var == 0.f && !RND) return;",
+                                    "  return;")),
         "no_dots": {"fused_gru.cu": no_dots, "persist.cuh": h},
         "quant_in_dots_2x4": quant_in_dots(src, 2),
         "quant_in_dots_4x2": quant_in_dots(src, 4),

@@ -46,38 +46,40 @@
 // 2H*R*bs = 2.52 GFLOP, 0.038 ms. But each step has TWO grid-wide
 // dependencies: the candidate's input s needs r (z) of every unit, and its
 // quantizer scale max|s| (per step over the whole (B, H) block) needs all
-// of s. The GRU's forward (G=3) takes one of two routes, picked by the
+// of s. The forward of either cell takes one of two routes, picked by the
 // caller before the launch from the shapes and the occupancy query
 // (fused_rnn.gru_fwd_sparse_route):
 //
-//   - "persist" (TPU row 32's redesign): ONE cooperative launch runs all T
-//     steps (gru_fwd_persist, persist.cuh). A block owns UN (8 or 16)
-//     units of one out-block and BT (8, 16 or 32) batch rows for the whole
-//     call, its units' rows of w3g resident in shared memory (the
-//     candidate's and [z | r]'s: 3 R*bs floats a unit, 24 KB at UN=8 and
-//     the libri layout R=2, bs=128), and per step runs two phases with one
-//     grid barrier after each, the two grid-wide dependencies: A stages
-//     q(h_{t-1}) at its out-block's kept columns, forms the z and r dots,
-//     writes s = r * h_{t-1} and folds max|s| into the step's slot; B
-//     stages q(s) there (the slot now final), forms the candidate's dots,
-//     writes h_t and folds max|h_t| into the next step's slot. h_{t-1}
-//     stays in the thread that owns its (row, unit); the next step's gates
-//     load before the barrier.
-//   - "step" (a shape whose blocks do not fit or are not co-resident; the
-//     minimalGRU, G=2, always): two kernels per step from the host loop
-//     (the launch boundaries are the grid-wide barriers): gru_zr_step (z,
-//     r, s and max|s|) then gru_h_step (the candidate and h_t, max|h_t| for
-//     the next step's quantizer), re-reading w3g (6.3 MB at the GRU's
-//     shape) from the 50 MB L2 each step; its time is 2T launches.
+//   - "persist" (TPU rows 32 (G=3) and 34 (G=2)'s redesign): ONE
+//     cooperative launch runs all T steps (gru_fwd_persist, persist.cuh).
+//     A block owns UN (8 or 16) units of one out-block and BT (8, 16 or
+//     32) batch rows for the whole call, its units' rows of w3g resident
+//     in shared memory (G R*bs floats a unit: 24 KB at G=3, UN=8 and the
+//     libri layout R=2, bs=128; 16 KB for the CGS-16x minimalGRU), and per
+//     step runs two phases with one grid barrier after each, the two
+//     grid-wide dependencies: A stages q(h_{t-1}) at its out-block's kept
+//     columns, forms the z (and r) dots, writes s = r * h_{t-1} (z *
+//     h_{t-1}) and folds max|s| into the step's slot; B stages q(s) there
+//     (the slot now final), forms the candidate's dots, writes h_t and
+//     folds max|h_t| into the next step's slot. h_{t-1} stays in the
+//     thread that owns its (row, unit); the next step's gates load before
+//     the barrier. The minimalGRU's dots sum in the step kernels' order, so
+//     its two routes give the same bits.
+//   - "step" (a shape whose blocks do not fit or are not co-resident, e.g.
+//     256 rows of 1024): two kernels per step from the host loop (the
+//     launch boundaries are the grid-wide barriers): gru_zr_step (z, r, s
+//     and max|s|) then gru_h_step (the candidate and h_t, max|h_t| for the
+//     next step's quantizer), re-reading w3g (6.3 MB at the GRU's shape)
+//     from the 50 MB L2 each step; its time is 2T launches.
 
 // The backward's forward quantities (z, r, s, the candidate's
-// pre-activation and both quantizer scales) do not depend on dh. The GRU's
-// backward (G=3) takes one of two routes, picked by the caller before the
-// launch from the shapes and the occupancy query
-// (fused_rnn.gru_bwd_sparse_route):
+// pre-activation and both quantizer scales) do not depend on dh. The
+// backward of either cell takes one of two routes, picked by the caller
+// before the launch from the shapes and the occupancy query
+// (fused_rnn.gru_bwd_sparse_route, fused_rnn.mgru_bwd_sparse_route):
 //
-//   - "persist" (TPU row 33's redesign). The forward quantities of all
-//     M = T*B rows at once, as GEMMs: absmax_steps (the T scales of
+//   - "persist", the GRU (TPU row 33's redesign). The forward quantities
+//     of all M = T*B rows at once, as GEMMs: absmax_steps (the T scales of
 //     q(h_{t-1})) and quant_steps write q(h_prev); the caller's
 //     block_sparse_v3_fwd (block_sparse_v3.cu, row 13's tile) forms u_z
 //     and u_r against [U_z; U_r]; gru_zr_rebuild writes z, r, s and each
@@ -93,14 +95,19 @@
 //     stage the same cotangents from L2, so 16 x 16 outputs a block stage
 //     half the bytes of 8 x 32, and the staging is what the chain waits
 //     for most.
-//   - "step" (a shape whose chain does not fit or is not co-resident; the
-//     minimalGRU always): the forward quantities by the two forward step
-//     kernels over a grid with one z-slice per step, writing [a_pre | z |
-//     r] ([a_pre | z]) to scratch and s_t to the output; then two kernels
-//     per reverse step: gru_bwd_carry (dh from step t+1's [dg_z | dg_r]
-//     (dg_z) against [U_z; U_r] (U_z) transposed, then dg_h, and the GRU's
-//     dg_z) and gru_bwd_ds (ds from dg_h against U_h transposed, then dg_r
-//     or the minimalGRU's dg_z).
+//   - "persist", the minimalGRU (TPU row 35's redesign): the forward
+//     quantities as on the step route (run_rebuild: the forward's sums, so
+//     relu' takes the forward's branch; a GEMM's order had flipped it for
+//     the dense minimalGRU's recompute BPTT), then the same chain at G=2:
+//     2bs floats a unit and an entry resident, two grid barriers a step.
+//   - "step" (a shape whose chain does not fit or is not co-resident):
+//     the forward quantities by the two forward step kernels over a grid
+//     with one z-slice per step (run_rebuild), writing [a_pre | z | r]
+//     ([a_pre | z]) to scratch and s_t to the output; then two kernels per
+//     reverse step: gru_bwd_carry (dh from step t+1's [dg_z | dg_r] (dg_z)
+//     against [U_z; U_r] (U_z) transposed, then dg_h, and the GRU's dg_z)
+//     and gru_bwd_ds (ds from dg_h against U_h transposed, then dg_r or the
+//     minimalGRU's dg_z).
 //
 // A transposed product gathers per block column from the layout's column
 // lists (t_row_idx, t_perm; a pad entry has t_perm == nnz), so no float
@@ -390,32 +397,39 @@ __global__ void gru_apre_rebuild(const float* __restrict__ gates,
         gates[(size_t)row * 3 * H + u] + uh[(size_t)row * H + u];
 }
 
-// The GRU's whole reverse chain in one cooperative launch (route
-// "persist", TPU row 33's redesign; persist.cuh). Block c owns the UN (8
-// or 16) units from u0 = (c % (H/UN)) * UN, all in block column blk = u0
-// / bs, and the BT = 8 * BI batch rows from b0 = (c / (H/UN)) * BT. It
-// copies into shared memory once, per kept block (j, k) of its column (nv
-// of them), its units' columns of U_z and U_r (ws1: U_z's of every entry,
-// then U_r's) and of U_h (ws2): 3bs floats a unit and an entry (12 KB an
-// entry at bs=128; a bf16 w3g widened exactly). Its thread o = b * UNITS +
-// jj keeps dh, ds, z and r of its (row, unit) in registers across the
-// steps and loads the next step's inputs (fw, dhs, h_prev) a step ahead.
-// Per reverse step, two dependent products, two grid barriers (the second
-// skipped at t = 0):
-//   1. [dg_z | dg_r]_{t+1} of the kept out-blocks, staged as a row of
-//      nv*bs dg_z then nv*bs dg_r, dots against ws1, then dh, dg_h and
-//      dg_z of step t; barrier (every unit's dg_h and dg_z written);
-//   2. dg_h of step t at the kept out-blocks, staged into the dg_r half,
-//      dots against ws2: ds_t, then dg_r; barrier.
-// Step t's dg_z, complete at the first barrier, is staged for the next
-// step's product 1 right after it, so that its copy overlaps product 2;
-// only dg_r is staged after the second. A column with no entries forms
-// zero dots. Under BF16 the staged cotangents are rounded to bf16 before
-// the dots, as in the step kernels.
-template <bool BF16, int BI, int UN>
+// The whole reverse chain of a G-gate cell in one cooperative launch
+// (route "persist", TPU rows 33 (G=3) and 35 (G=2)'s redesign;
+// persist.cuh). Block c owns the UN (8 or 16) units from u0 = (c % (H/UN))
+// * UN, all in block column blk = u0 / bs, and the BT = 8 * BI batch rows
+// from b0 = (c / (H/UN)) * BT. It copies into shared memory once, per
+// kept block (j, k) of its column (nv of them), its units' columns of U_z
+// and U_r (ws1: U_z's of every entry, then U_r's; the minimalGRU's U_z
+// alone) and of U_h (ws2): G*bs floats a unit and an entry (12 KB an
+// entry at G=3, bs=128; a bf16 w3g widened exactly). Its thread o = b *
+// UNITS + jj keeps dh, ds, z (and r) of its (row, unit) in registers
+// across the steps and loads the next step's inputs (fw, dhs, h_prev) a
+// step ahead. Per reverse step, two dependent products, two grid barriers
+// (the second skipped at t = 0):
+//   1. [dg_z | dg_r]_{t+1} ([dg_z]_{t+1}) of the kept out-blocks, staged
+//      as a row of nv*bs dg_z (then nv*bs dg_r), dots against ws1, then
+//      dh, dg_h (and the GRU's dg_z) of step t; barrier (every unit's dg_h
+//      written);
+//   2. dg_h of step t at the kept out-blocks (staged into the GRU's dg_r
+//      half), dots against ws2: ds_t, then the GRU's dg_r or the
+//      minimalGRU's dg_z = (dh (h_{t-1} - a drop) + ds h_{t-1}) z (1 - z);
+//      barrier.
+// The GRU's dg_z of step t, complete at the first barrier, is staged for
+// the next step's product 1 right after it, so that its copy overlaps
+// product 2, and only dg_r is staged after the second; the minimalGRU's
+// is complete only after product 2, so it is staged after the second
+// barrier. A column with no entries forms zero dots. Under BF16 the
+// staged cotangents are rounded to bf16 before the dots, as in the step
+// kernels. The dots are persist::unit_dots' (the warps split the
+// contraction): another order than the step kernels' col_dots.
+template <bool BF16, int G, int BI, int UN>
 __global__ void __launch_bounds__(persist::THREADS, 1)
-gru_bwd_persist(const float* __restrict__ fw,    // (T, B, 3H) [a_pre|z|r]
-                const void* __restrict__ w3g,    // (Nb, 3bs, R*bs)
+gru_bwd_persist(const float* __restrict__ fw,    // (T, B, G*H) [a_pre|z..]
+                const void* __restrict__ w3g,    // (Nb, G*bs, R*bs)
                 const int* __restrict__ t_row_idx,
                 const int* __restrict__ t_perm,
                 const float* __restrict__ drop,  // (B, H)
@@ -423,12 +437,12 @@ gru_bwd_persist(const float* __restrict__ fw,    // (T, B, 3H) [a_pre|z|r]
                 float* dg, int T, int B, int H, int R, int bs, int C, int nnz,
                 int act) {
   namespace P = persist;
-  constexpr int G = 3, BT = P::BLANES * BI;
+  constexpr int BT = P::BLANES * BI;
   constexpr int WS = P::w_stride(UN);
   extern __shared__ __align__(16) float psm[];
   __shared__ int ent_j[MAX_C], ent_k[MAX_C];
-  const int K1c = C * 2 * bs, K2c = C * bs, SK = P::row_stride(K1c);
-  float* ws1 = psm;                                // (C*2bs, WS)
+  const int K1c = C * (G - 1) * bs, K2c = C * bs, SK = P::row_stride(K1c);
+  float* ws1 = psm;                                // (C*(G-1)bs, WS)
   float* ws2 = ws1 + (size_t)K1c * WS;             // (C*bs, WS)
   float* xs = ws2 + (size_t)K2c * WS;              // (BT, SK)
   float* red = xs + (size_t)BT * SK;
@@ -439,7 +453,8 @@ gru_bwd_persist(const float* __restrict__ fw,    // (T, B, 3H) [a_pre|z|r]
   const int nv = column_entries(t_row_idx, t_perm, blk, C, R, nnz, ent_j,
                                 ent_k);
   __syncthreads();
-  const int NB = nv * bs, K1 = 2 * NB, K2 = NB, RB = R * bs, GB = G * bs;
+  const int NB = nv * bs, K1 = (G - 1) * NB, K2 = NB, RB = R * bs;
+  const int GB = G * bs;
   for (int i = threadIdx.x; i < K1 * UN; i += P::THREADS) {
     // k = g * NB + e * bs + q: gate z (g = 0) or r (g = 1) of entry e
     const int k = i / UN, jj = i - k * UN, g = k / NB, e = (k - g * NB) / bs;
@@ -482,7 +497,7 @@ gru_bwd_persist(const float* __restrict__ fw,    // (T, B, 3H) [a_pre|z|r]
       const float* f = fw + t * gbh + ig;
       v.a_pre = f[ou];
       v.z = f[H + ou];
-      v.r = f[2 * H + ou];
+      if (G == 3) v.r = f[2 * H + ou];
       v.dh = dhs[t * bh + ih];
       v.hp = h_prev[t * bh + ih];
     }
@@ -495,40 +510,56 @@ gru_bwd_persist(const float* __restrict__ fw,    // (T, B, 3H) [a_pre|z|r]
   for (int t = T - 1; t >= 0; --t) {
     float dot = 0.f;
     if (t + 1 < T) {
-      stage(t + 1, 2, NB);      // dg_r; dg_z has been in flight since
-      P::cp_async_wait_all();   // the last first barrier
+      // the GRU's dg_r (its dg_z has been in flight since the last first
+      // barrier), the minimalGRU's dg_z (complete at the last second one)
+      stage(t + 1, G - 1, G == 3 ? NB : 0);
+      P::cp_async_wait_all();
       __syncthreads();
       P::unit_dots<BI, UN, BF16>(xs, SK, ws1, K1, red);
       if (o < BT * UN) dot = P::unit_sum<BI, UN>(red, o);
     }
     const float hp = cur.hp, r = cur.r;
     if (mine) {
-      const float carry = t + 1 < T ? dh * zn + ds * rn + dot : 0.f;
+      const float gate_s = G == 3 ? rn : zn;
+      const float carry = t + 1 < T ? dh * zn + ds * gate_s + dot : 0.f;
       const float dhv = carry + cur.dh;
       const float a_pre = cur.a_pre, z = cur.z;
       float* d = dg + t * gbh;
       d[ig + ou] = dhv * (1.f - z) * dr * dact_pre(a_pre, act);
-      const float dz = dhv * (hp - act_fn(a_pre, act) * dr);
-      d[ig + H + ou] = dz * z * (1.f - z);
+      if constexpr (G == 3) {
+        const float dz = dhv * (hp - act_fn(a_pre, act) * dr);
+        d[ig + H + ou] = dz * z * (1.f - z);
+      }
       dh = dhv;
       zn = z;
       rn = r;
     }
     grid.sync();
-    stage(t, 0, NB);            // dg_h into the dg_r half
-    P::cp_async_commit();
-    if (t > 0) {
-      stage(t, 1, 0);           // dg_z for the next step's product 1
+    if constexpr (G == 3) {
+      stage(t, 0, NB);          // dg_h into the dg_r half
       P::cp_async_commit();
-      P::cp_async_wait<1>();
+      if (t > 0) {
+        stage(t, 1, 0);         // dg_z for the next step's product 1
+        P::cp_async_commit();
+        P::cp_async_wait<1>();
+      } else {
+        P::cp_async_wait<0>();
+      }
     } else {
-      P::cp_async_wait<0>();
+      stage(t, 0, 0);
+      P::cp_async_wait_all();
     }
     __syncthreads();
-    P::unit_dots<BI, UN, BF16>(xs + NB, SK, ws2, K2, red);
+    P::unit_dots<BI, UN, BF16>(xs + (G == 3 ? NB : 0), SK, ws2, K2, red);
     if (mine) {
       ds = P::unit_sum<BI, UN>(red, o);
-      dg[t * gbh + ig + 2 * H + ou] = ds * hp * r * (1.f - r);
+      if constexpr (G == 3) {
+        dg[t * gbh + ig + 2 * H + ou] = ds * hp * r * (1.f - r);
+      } else {
+        const float z = cur.z;
+        const float dz = dh * (hp - act_fn(cur.a_pre, act) * dr) + ds * hp;
+        dg[t * gbh + ig + H + ou] = dz * z * (1.f - z);
+      }
     }
     if (t > 0) {
       cur = fetch(t - 1);
@@ -538,16 +569,16 @@ gru_bwd_persist(const float* __restrict__ fw,    // (T, B, 3H) [a_pre|z|r]
 }
 
 // The forward's whole recurrence in one cooperative launch (route
-// "persist", TPU row 32's redesign; persist.cuh), for a G-gate cell (the
-// GRU's G=3 is routed here; the minimalGRU's G=2 compiles the same body).
-// Block c owns the UN units from u0 = (c % (H/UN)) * UN, all in out-block
-// j = u0 / bs (UN divides bs), and the BT = 8 * BI batch rows from b0 =
-// (c / (H/UN)) * BT. It copies into shared memory once its units' rows of
-// w3g, widened to float32: [z | r] as (G-1)*UN columns of wzr and the
-// candidate's as UN columns of wh, R*bs rows each. Its thread o = b * UN +
-// jj keeps h_{t-1} of its (row, unit) in a register and loads the next
-// step's gates before the barrier. Per step t (at t = 0 the carry is zero:
-// no staging and no dots, and no barrier after phase A):
+// "persist", TPU rows 32 and 34's redesign; persist.cuh), for a G-gate
+// cell: the GRU's G=3 and the minimalGRU's G=2. Block c owns the UN units
+// from u0 = (c % (H/UN)) * UN, all in out-block j = u0 / bs (UN divides
+// bs), and the BT = 8 * BI batch rows from b0 = (c / (H/UN)) * BT. It
+// copies into shared memory once its units' rows of w3g, widened to
+// float32: [z | r] ([z]) as (G-1)*UN weight rows of wzr and the
+// candidate's as UN of wh, R*bs values each. Its thread o = b * UN + jj
+// keeps h_{t-1} of its (row, unit) in a register and loads the next
+// step's gates before the barrier. Per step t (at t = 0 the carry is
+// zero: no staging and no dots, and no barrier after phase A):
 //   A. stage h_{t-1} (hs[t-1], other blocks' rows) at the kept columns,
 //      dots against wzr with q() at the max over bmax[0] of each staged
 //      value (and bf16 rounding under BF16), z and r, s = r *
@@ -567,6 +598,17 @@ gru_bwd_persist(const float* __restrict__ fw,    // (T, B, 3H) [a_pre|z|r]
 // the card, not kept). At t = 1 the scale of h_0 is its max; at t = 0
 // h_{-1} = 0 and s = 0 need none (a scale of 0 leaves v unquantized, as
 // in quant()).
+// The two cells' dots sum in different orders. The GRU's are
+// persist::unit_dots' (wzr and wh k-major, the warps splitting the
+// contraction, q() and the bf16 rounding in the FMA loop). The
+// minimalGRU's are the step kernels' row_dots order (wzr and wh as rows,
+// one pass of q() and the bf16 rounding over the staged values,
+// persist::quant_staged, then persist::resident_dots: a warp a dot, lanes
+// over k, the shuffle tree), so that its persistent route gives its step
+// route's bits, and the dense seeded forward (TPU row 24, the same order)
+// a sparse minimalGRU's stream the bits of its sparse forward on the kept
+// columns. (A row 24 on unit_dots moved that stream past chip_smoke.py's
+// bound against the sparse forward.)
 template <bool BF16, int G, int BI, int UN>
 __global__ void __launch_bounds__(persist::THREADS, 1)
 gru_fwd_persist(const float* __restrict__ gates,   // (T, B, G*H)
@@ -578,15 +620,18 @@ gru_fwd_persist(const float* __restrict__ gates,   // (T, B, G*H)
                 unsigned* bmax,                    // (2, grid), or null
                 int T, int B, int H, int R, int bs, int act, float qscale) {
   namespace P = persist;
+  constexpr bool ROWS = G == 2;                    // row_dots' order
   constexpr int BT = P::BLANES * BI, ZC = (G - 1) * UN;
-  constexpr int WZ = P::w_stride(ZC), WH = P::w_stride(UN);
+  constexpr int WZ = ROWS ? ZC : P::w_stride(ZC);
+  constexpr int WH = ROWS ? UN : P::w_stride(UN);
   extern __shared__ __align__(16) float psm[];
   __shared__ unsigned wmax[P::WARPS], gmax;
   const int K3 = R * bs, SK = P::row_stride(K3);
-  float* wzr = psm;                                // (K3, WZ)
-  float* wh = wzr + (size_t)K3 * WZ;               // (K3, WH)
+  float* wzr = psm;                                // (K3, WZ) or (ZC, K3)
+  float* wh = wzr + (size_t)K3 * WZ;               // (K3, WH) or (UN, K3)
   float* xs = wh + (size_t)K3 * WH;                // (BT, SK)
-  float* red = xs + (size_t)BT * SK;
+  float* red = xs + (size_t)BT * SK;               // partials, or (BT, ZC)
+  auto usm = reinterpret_cast<float (*)[ZC]>(red);
   const int ug = H / UN;
   const int u0 = (blockIdx.x % ug) * UN, b0 = (blockIdx.x / ug) * BT;
   const int nb = min(BT, B - b0);
@@ -594,12 +639,12 @@ gru_fwd_persist(const float* __restrict__ gates,   // (T, B, G*H)
   const size_t row0 = (size_t)j * G * bs + cc0;    // w3g row of unit u0, h
   for (int i = threadIdx.x; i < ZC * K3; i += P::THREADS) {
     const int c = i / K3, k = i - c * K3, g = 1 + c / UN;
-    wzr[k * WZ + c] = load_w<BF16>(
+    wzr[ROWS ? i : k * WZ + c] = load_w<BF16>(
         w3g, (row0 + g * bs + (c - (g - 1) * UN)) * K3 + k);
   }
   for (int i = threadIdx.x; i < UN * K3; i += P::THREADS) {
     const int c = i / K3, k = i - c * K3;
-    wh[k * WH + c] = load_w<BF16>(w3g, (row0 + c) * K3 + k);
+    wh[ROWS ? i : k * WH + c] = load_w<BF16>(w3g, (row0 + c) * K3 + k);
   }
   const int o = threadIdx.x, ob = o / UN, oj = o % UN, ou = u0 + oj;
   const bool mine = o < BT * UN && ob < nb;
@@ -676,10 +721,17 @@ gru_fwd_persist(const float* __restrict__ gates,   // (T, B, G*H)
     float dz = 0.f, dq = 0.f;
     if (t > 0) {
       const float var = stage(hs + (t - 1) * bh, hmax);
-      P::unit_dots<BI, ZC>(xs, SK, wzr, K3, red, qf(var));
-      if (mine) {
-        dz = P::unit_sum<BI, ZC>(red, ob * ZC + oj);
-        if (G == 3) dq = P::unit_sum<BI, ZC>(red, ob * ZC + UN + oj);
+      if constexpr (ROWS) {
+        P::quant_staged<BF16>(xs, SK, nb, K3, var, qscale, iscale);
+        P::resident_dots<BT, ZC, ZC>(wzr, xs, SK, K3, nb, usm);
+        __syncthreads();
+        if (mine) dz = usm[ob][oj];
+      } else {
+        P::unit_dots<BI, ZC>(xs, SK, wzr, K3, red, qf(var));
+        if (mine) {
+          dz = P::unit_sum<BI, ZC>(red, ob * ZC + oj);
+          dq = P::unit_sum<BI, ZC>(red, ob * ZC + UN + oj);
+        }
       }
     }
     float z = 0.f;
@@ -699,8 +751,15 @@ gru_fwd_persist(const float* __restrict__ gates,   // (T, B, G*H)
     float da = 0.f;
     if (t > 0) {
       const float var = stage(sbuf, smax);
-      P::unit_dots<BI, UN>(xs, SK, wh, K3, red, qf(var));
-      if (mine) da = P::unit_sum<BI, UN>(red, o);
+      if constexpr (ROWS) {
+        P::quant_staged<BF16>(xs, SK, nb, K3, var, qscale, iscale);
+        P::resident_dots<BT, UN, ZC>(wh, xs, SK, K3, nb, usm);
+        __syncthreads();
+        if (mine) da = usm[ob][oj];
+      } else {
+        P::unit_dots<BI, UN>(xs, SK, wh, K3, red, qf(var));
+        if (mine) da = P::unit_sum<BI, UN>(red, o);
+      }
     }
     m = 0;
     if (mine) {
@@ -759,21 +818,21 @@ cudaError_t run_fwd(const float* gates, const void* w3g, const int* col_idx,
   return cudaSuccess;
 }
 
+// The backward's forward quantities of every step at once (both cells'
+// step routes and the minimalGRU's persistent one): with qbits > 0 the T
+// scales of q(h_{t-1}) into slots 0..T-1 (and those of q(s) into T..2T-1,
+// all zeroed first), then the two forward step kernels over a grid with
+// one z-slice per step, writing [a_pre | z (| r)] into fw and s_t into
+// s_seq: the forward's sums, so act' takes the forward's branch.
 template <bool BF16, int G>
-cudaError_t run_bwd(const float* gates, const void* w3g, const void* w3t,
-                    const int* col_idx, const int* t_row_idx,
-                    const int* t_perm, const float* drop, const float* h_prev,
-                    const float* dhs, float* fw, float* s_seq, float* dh,
-                    float* ds, float* dg, unsigned* qslots, int T, int B,
-                    int H, int R, int bs, int C, int nnz, int act, int qbits,
-                    cudaStream_t stream) {
+cudaError_t run_rebuild(const float* gates, const void* w3g,
+                        const int* col_idx, const float* drop,
+                        const float* h_prev, float* fw, float* s_seq,
+                        unsigned* qslots, int T, int B, int H, int R, int bs,
+                        int act, int qbits, cudaStream_t stream) {
   const size_t smem_f = (size_t)BT * R * bs * sizeof(float);
-  const size_t smem_c = (size_t)BT * C * (G - 1) * bs * sizeof(float);
-  const size_t smem_d = (size_t)BT * C * bs * sizeof(float);
   cudaError_t err = allow_smem(gru_zr_step<BF16, G>, smem_f);
   if (err == cudaSuccess) err = allow_smem(gru_h_step<BF16, G>, smem_f);
-  if (err == cudaSuccess) err = allow_smem(gru_bwd_carry<BF16, G>, smem_c);
-  if (err == cudaSuccess) err = allow_smem(gru_bwd_ds<BF16, G>, smem_d);
   if (err != cudaSuccess) return err;
   const bool q = qbits > 0;
   const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
@@ -789,7 +848,6 @@ cudaError_t run_bwd(const float* gates, const void* w3g, const void* w3t,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  // the forward quantities of every step at once
   constexpr int ZU = zr_units(G);
   const dim3 zr_grid((H + ZU - 1) / ZU, (B + BT - 1) / BT, T);
   gru_zr_step<BF16, G><<<zr_grid, THREADS, smem_f, stream>>>(
@@ -801,9 +859,27 @@ cudaError_t run_bwd(const float* gates, const void* w3g, const void* w3t,
   gru_h_step<BF16, G><<<h_grid, THREADS, smem_f, stream>>>(
       gates, w3g, col_idx, drop, nullptr, s_seq, fw, nullptr,
       q ? ss : nullptr, nullptr, B, H, R, bs, act, qscale);
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <bool BF16, int G>
+cudaError_t run_bwd(const float* gates, const void* w3g, const void* w3t,
+                    const int* col_idx, const int* t_row_idx,
+                    const int* t_perm, const float* drop, const float* h_prev,
+                    const float* dhs, float* fw, float* s_seq, float* dh,
+                    float* ds, float* dg, unsigned* qslots, int T, int B,
+                    int H, int R, int bs, int C, int nnz, int act, int qbits,
+                    cudaStream_t stream) {
+  const size_t smem_c = (size_t)BT * C * (G - 1) * bs * sizeof(float);
+  const size_t smem_d = (size_t)BT * C * bs * sizeof(float);
+  cudaError_t err = allow_smem(gru_bwd_carry<BF16, G>, smem_c);
+  if (err == cudaSuccess) err = allow_smem(gru_bwd_ds<BF16, G>, smem_d);
+  if (err == cudaSuccess)
+    err = run_rebuild<BF16, G>(gates, w3g, col_idx, drop, h_prev, fw, s_seq,
+                               qslots, T, B, H, R, bs, act, qbits, stream);
   if (err != cudaSuccess) return err;
   // the reverse chain, two kernels per step
+  const size_t bh = (size_t)B * H;
   const dim3 grid((H + BWD_UNITS - 1) / BWD_UNITS, (B + BT - 1) / BT);
   const size_t GB = (size_t)G * bh;
   for (int t = T - 1; t >= 0; --t) {
@@ -850,50 +926,126 @@ int launch_bwd(const float* gates, const void* w3g, const void* w3t,
             stream);
 }
 
-template <bool BF16, int BI, int UN>
-cudaError_t launch_persist(int grid, int smem, cudaStream_t stream,
-                           const float* fw, const void* w3g,
-                           const int* t_row_idx, const int* t_perm,
-                           const float* drop, const float* h_prev,
-                           const float* dhs, float* dg, int T, int B, int H,
-                           int R, int bs, int C, int nnz, int act) {
-  return persist::launch<gru_bwd_persist<BF16, BI, UN>>(
-      grid, smem, stream, fw, w3g, t_row_idx, t_perm, drop, h_prev, dhs, dg,
-      T, B, H, R, bs, C, nnz, act);
-}
-
-// the chain's block shapes (bi, units): (1, 8), (2, 16) or (4, 8)
-template <bool BF16>
-int persist_occupancy(int bi, int smem, int* out) {
-  return bi == 1 ? persist::occupancy<gru_bwd_persist<BF16, 1, 8>>(smem, out)
-         : bi == 2
-             ? persist::occupancy<gru_bwd_persist<BF16, 2, 16>>(smem, out)
-             : persist::occupancy<gru_bwd_persist<BF16, 4, 8>>(smem, out);
-}
-
-// one cooperative launch of the GRU forward at block shape (BI, UN)
-template <bool BF16, int BI, int UN>
+// one cooperative launch of the forward at block shape (BI, UN)
+template <bool BF16, int G, int BI, int UN>
 cudaError_t launch_fwd_persist(int grid, int smem, cudaStream_t stream,
                                const float* gates, const void* w3g,
                                const int* col_idx, const float* drop,
                                float* hs, float* s, unsigned* bmax, int T,
                                int B, int H, int R, int bs, int act,
                                float qscale) {
-  return persist::launch<gru_fwd_persist<BF16, 3, BI, UN>>(
+  return persist::launch<gru_fwd_persist<BF16, G, BI, UN>>(
       grid, smem, stream, gates, w3g, col_idx, drop, hs, s, bmax, T, B, H,
       R, bs, act, qscale);
 }
 
-// the forward's block shapes (bi, units): (1, 8), (2, 8), (4, 8), (2, 16)
-template <bool BF16>
-int fwd_persist_occupancy(int bi, int units, int smem, int* out) {
-  if (units == 16)
-    return persist::occupancy<gru_fwd_persist<BF16, 3, 2, 16>>(smem, out);
-  if (bi == 1)
-    return persist::occupancy<gru_fwd_persist<BF16, 3, 1, 8>>(smem, out);
-  if (bi == 2)
-    return persist::occupancy<gru_fwd_persist<BF16, 3, 2, 8>>(smem, out);
-  return persist::occupancy<gru_fwd_persist<BF16, 3, 4, 8>>(smem, out);
+// one cooperative launch of the reverse chain at block shape (BI, UN)
+template <bool BF16, int G, int BI, int UN>
+cudaError_t launch_bwd_persist(int grid, int smem, cudaStream_t stream,
+                               const float* fw, const void* w3g,
+                               const int* t_row_idx, const int* t_perm,
+                               const float* drop, const float* h_prev,
+                               const float* dhs, float* dg, int T, int B,
+                               int H, int R, int bs, int C, int nnz,
+                               int act) {
+  return persist::launch<gru_bwd_persist<BF16, G, BI, UN>>(
+      grid, smem, stream, fw, w3g, t_row_idx, t_perm, drop, h_prev, dhs, dg,
+      T, B, H, R, bs, C, nnz, act);
+}
+
+using FwdLaunch = cudaError_t (*)(int, int, cudaStream_t, const float*,
+                                  const void*, const int*, const float*,
+                                  float*, float*, unsigned*, int, int, int,
+                                  int, int, int, float);
+using BwdLaunch = cudaError_t (*)(int, int, cudaStream_t, const float*,
+                                  const void*, const int*, const int*,
+                                  const float*, const float*, const float*,
+                                  float*, int, int, int, int, int, int, int,
+                                  int);
+using Occupancy = cudaError_t (*)(int, int*);
+
+// The forward's block shapes (bi, units), both cells: the plan's
+// (fused_rnn.GRU_FWD_SPARSE_SHAPES). -> the launcher and the occupancy
+// query of one, or nulls for another shape.
+template <bool BF16, int G>
+void fwd_shape(int bi, int units, FwdLaunch* launch, Occupancy* occ) {
+#define PK_SPARSE_FWD_SHAPE(BI_, UN_)                                     \
+  if (bi == BI_ && units == UN_) {                                        \
+    *launch = launch_fwd_persist<BF16, G, BI_, UN_>;                      \
+    *occ = persist::occupancy<gru_fwd_persist<BF16, G, BI_, UN_>>;        \
+    return;                                                               \
+  }
+  PK_SPARSE_FWD_SHAPE(1, 8)
+  PK_SPARSE_FWD_SHAPE(2, 8)
+  PK_SPARSE_FWD_SHAPE(4, 8)
+  PK_SPARSE_FWD_SHAPE(2, 16)
+#undef PK_SPARSE_FWD_SHAPE
+  *launch = nullptr;
+  *occ = nullptr;
+}
+
+void fwd_shape_of(int G, int w_bf16, int bi, int units, FwdLaunch* launch,
+                  Occupancy* occ) {
+  auto fn = G == 3 ? (w_bf16 ? fwd_shape<true, 3> : fwd_shape<false, 3>)
+                   : (w_bf16 ? fwd_shape<true, 2> : fwd_shape<false, 2>);
+  fn(bi, units, launch, occ);
+}
+
+// The reverse chain's block shapes (bi, units), both cells, told apart by
+// bi: the plan's (fused_rnn.GRU_BWD_SPARSE_SHAPES). -> the launcher and
+// the occupancy query of one, or nulls for another shape.
+template <bool BF16, int G>
+void bwd_shape(int bi, BwdLaunch* launch, Occupancy* occ) {
+#define PK_SPARSE_BWD_SHAPE(BI_, UN_)                                     \
+  if (bi == BI_) {                                                        \
+    *launch = launch_bwd_persist<BF16, G, BI_, UN_>;                      \
+    *occ = persist::occupancy<gru_bwd_persist<BF16, G, BI_, UN_>>;        \
+    return;                                                               \
+  }
+  PK_SPARSE_BWD_SHAPE(1, 8)
+  PK_SPARSE_BWD_SHAPE(2, 16)
+  PK_SPARSE_BWD_SHAPE(4, 8)
+#undef PK_SPARSE_BWD_SHAPE
+  *launch = nullptr;
+  *occ = nullptr;
+}
+
+void bwd_shape_of(int G, int w_bf16, int bi, BwdLaunch* launch,
+                  Occupancy* occ) {
+  auto fn = G == 3 ? (w_bf16 ? bwd_shape<true, 3> : bwd_shape<false, 3>)
+                   : (w_bf16 ? bwd_shape<true, 2> : bwd_shape<false, 2>);
+  fn(bi, launch, occ);
+}
+
+// the forward at G gates on the persistent route (the entry points below)
+int fwd_persist(int G, const float* gates, const void* w3g,
+                const int* col_idx, const float* drop, float* hs, float* s,
+                unsigned* bmax, int T, int B, int H, int R, int bs, int act,
+                int qbits, int w_bf16, int grid, int bi, int units, int smem,
+                void* stream_ptr) {
+  FwdLaunch launch;
+  Occupancy occ;
+  fwd_shape_of(G, w_bf16, bi, units, &launch, &occ);
+  if (!launch || bs % units || H % units) return cudaErrorInvalidValue;
+  const bool q = qbits > 0;
+  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
+  return launch(grid, smem, static_cast<cudaStream_t>(stream_ptr), gates,
+                w3g, col_idx, drop, hs, s, q ? bmax : nullptr, T, B, H, R,
+                bs, act, qscale);
+}
+
+int fwd_occupancy(int G, int w_bf16, int bi, int units, int smem, int* out) {
+  FwdLaunch launch;
+  Occupancy occ;
+  fwd_shape_of(G, w_bf16, bi, units, &launch, &occ);
+  return occ ? occ(smem, out) : cudaErrorInvalidValue;
+}
+
+int bwd_occupancy(int G, int w_bf16, int bi, int smem, int* out) {
+  BwdLaunch launch;
+  Occupancy occ;
+  bwd_shape_of(G, w_bf16, bi, &launch, &occ);
+  return occ ? occ(smem, out) : cudaErrorInvalidValue;
 }
 
 // grid (units in blocks of 256, rows) of the elementwise rebuild passes
@@ -927,9 +1079,10 @@ int fused_gru_fwd_sparse(const float* gates, const void* w3g,
 }
 
 // The GRU forward on the persistent route on `stream`: one cooperative
-// launch of `grid` blocks of gru_fwd_persist (bi: BT = 8 * bi rows a
-// block; units: 8 or 16, a divisor of bs; smem bytes of dynamic shared
-// memory: fused_rnn.gru_fwd_sparse_plan). Returns its cudaError_t.
+// launch of `grid` blocks of gru_fwd_persist<., 3, bi, units> (bi: BT = 8
+// * bi rows a block; units: 8 or 16, a divisor of bs; a shape of
+// PK_SPARSE_FWD_SHAPE; smem bytes of dynamic shared memory:
+// fused_rnn.gru_fwd_sparse_plan). Returns its cudaError_t.
 //   gates: (T, B, 3H); w3g: (Nb, 3bs, R*bs) float32 or bf16 (w_bf16);
 //   col_idx: (Nb*R,); drop: (B, H); hs: (T, B, H) output; s: (B, H)
 //   scratch; bmax: 2 * grid unsigned ints of scratch when qbits > 0.
@@ -939,21 +1092,9 @@ int gru_fwd_sparse_persist(const float* gates, const void* w3g,
                            int R, int bs, int act, int qbits, int w_bf16,
                            int grid, int bi, int units, int smem,
                            void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (bs % units || H % units || (units == 16 && bi != 2))
-    return cudaErrorInvalidValue;
-  const bool q = qbits > 0;
-  const float qscale = q ? std::ldexp(1.f, qbits - 1) : 0.f;
-  auto fn = w_bf16 ? (units == 16 ? launch_fwd_persist<true, 2, 16>
-                      : bi == 1   ? launch_fwd_persist<true, 1, 8>
-                      : bi == 2   ? launch_fwd_persist<true, 2, 8>
-                                  : launch_fwd_persist<true, 4, 8>)
-                   : (units == 16 ? launch_fwd_persist<false, 2, 16>
-                      : bi == 1   ? launch_fwd_persist<false, 1, 8>
-                      : bi == 2   ? launch_fwd_persist<false, 2, 8>
-                                  : launch_fwd_persist<false, 4, 8>);
-  return fn(grid, smem, stream, gates, w3g, col_idx, drop, hs, s,
-            q ? bmax : nullptr, T, B, H, R, bs, act, qscale);
+  return fwd_persist(3, gates, w3g, col_idx, drop, hs, s, bmax, T, B, H, R,
+                     bs, act, qbits, w_bf16, grid, bi, units, smem,
+                     stream_ptr);
 }
 
 // out[0..2]: the forward chain's co-resident blocks per SM at `smem` bytes
@@ -961,8 +1102,7 @@ int gru_fwd_sparse_persist(const float* gates, const void* w3g,
 // and whether the device takes cooperative launches.
 int gru_fwd_sparse_occupancy(int w_bf16, int bi, int units, int smem,
                              int* out) {
-  return w_bf16 ? fwd_persist_occupancy<true>(bi, units, smem, out)
-                : fwd_persist_occupancy<false>(bi, units, smem, out);
+  return fwd_occupancy(3, w_bf16, bi, units, smem, out);
 }
 
 // The GRU backward on `stream`: (with qbits > 0, one reduction for the T
@@ -1066,31 +1206,28 @@ int gru_bwd_sparse_persist(const float* gates, const float* uh,
                            int grid, int bi, int smem, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int units = bi == 2 ? 16 : 8;
-  if (C > MAX_C || H % units || bs % units) return cudaErrorInvalidValue;
+  BwdLaunch launch;
+  Occupancy occ;
+  bwd_shape_of(3, w_bf16, bi, &launch, &occ);
+  if (!launch || C > MAX_C || H % units || bs % units)
+    return cudaErrorInvalidValue;
   const int M = T * B;
   gru_apre_rebuild<<<rows_grid(M, H), 256, 0, stream>>>(gates, uh, fw, M, H);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto fn = w_bf16 ? (bi == 1   ? launch_persist<true, 1, 8>
-                      : bi == 2 ? launch_persist<true, 2, 16>
-                                : launch_persist<true, 4, 8>)
-                   : (bi == 1   ? launch_persist<false, 1, 8>
-                      : bi == 2 ? launch_persist<false, 2, 16>
-                                : launch_persist<false, 4, 8>);
-  return fn(grid, smem, stream, fw, w3g, t_row_idx, t_perm, drop, h_prev, dhs,
-            dg, T, B, H, R, bs, C, nnz, act);
+  return launch(grid, smem, stream, fw, w3g, t_row_idx, t_perm, drop, h_prev,
+                dhs, dg, T, B, H, R, bs, C, nnz, act);
 }
 
 // out[0..2]: the chain's co-resident blocks per SM at `smem` bytes of
 // dynamic shared memory (w_bf16 and bi as above), the SM count, and
 // whether the device takes cooperative launches.
 int gru_bwd_sparse_occupancy(int w_bf16, int bi, int smem, int* out) {
-  return w_bf16 ? persist_occupancy<true>(bi, smem, out)
-                : persist_occupancy<false>(bi, smem, out);
+  return bwd_occupancy(3, w_bf16, bi, smem, out);
 }
 
-// The minimalGRU forward: as fused_gru_fwd_sparse with gates (T, B, 2H)
-// [h | z], w3g (Nb, 2bs, R*bs) and fw (B, 2H).
+// The minimalGRU forward on the step route: as fused_gru_fwd_sparse with
+// gates (T, B, 2H) [h | z], w3g (Nb, 2bs, R*bs) and fw (B, 2H).
 int fused_mgru_fwd_sparse(const float* gates, const void* w3g,
                           const int* col_idx, const float* drop, float* hs,
                           float* fw, float* s, unsigned* qslots, int T, int B,
@@ -1100,9 +1237,31 @@ int fused_mgru_fwd_sparse(const float* gates, const void* w3g,
                        R, bs, act, qbits, w_bf16, stream_ptr);
 }
 
-// The minimalGRU backward: as fused_gru_bwd_sparse with gates, fw and dg
-// (T, B, 2H), w3g (Nb, 2bs, R*bs), w3t (Nb, R*bs, 2bs) and s_seq
-// z_t * h_{t-1}.
+// The minimalGRU forward on the persistent route: as
+// gru_fwd_sparse_persist with gates (T, B, 2H) [h | z] and w3g (Nb, 2bs,
+// R*bs), one cooperative launch of gru_fwd_persist<., 2, bi, units>,
+// whose dots sum in the step kernels' order (the step route's bits).
+int mgru_fwd_sparse_persist(const float* gates, const void* w3g,
+                            const int* col_idx, const float* drop, float* hs,
+                            float* s, unsigned* bmax, int T, int B, int H,
+                            int R, int bs, int act, int qbits, int w_bf16,
+                            int grid, int bi, int units, int smem,
+                            void* stream_ptr) {
+  return fwd_persist(2, gates, w3g, col_idx, drop, hs, s, bmax, T, B, H, R,
+                     bs, act, qbits, w_bf16, grid, bi, units, smem,
+                     stream_ptr);
+}
+
+// out[0..2] of the minimalGRU forward's kernel, as
+// gru_fwd_sparse_occupancy.
+int mgru_fwd_sparse_occupancy(int w_bf16, int bi, int units, int smem,
+                              int* out) {
+  return fwd_occupancy(2, w_bf16, bi, units, smem, out);
+}
+
+// The minimalGRU backward on the step route: as fused_gru_bwd_sparse with
+// gates, fw and dg (T, B, 2H), w3g (Nb, 2bs, R*bs), w3t (Nb, R*bs, 2bs)
+// and s_seq z_t * h_{t-1}.
 int fused_mgru_bwd_sparse(const float* gates, const void* w3g,
                           const void* w3t, const int* col_idx,
                           const int* t_row_idx, const int* t_perm,
@@ -1114,6 +1273,46 @@ int fused_mgru_bwd_sparse(const float* gates, const void* w3g,
   return launch_bwd<2>(gates, w3g, w3t, col_idx, t_row_idx, t_perm, drop,
                        h_prev, dhs, fw, s_seq, dh, ds, dg, qslots, T, B, H, R,
                        bs, C, nnz, act, qbits, w_bf16, stream_ptr);
+}
+
+// The minimalGRU backward on the persistent route on `stream`: the
+// forward quantities of every step on the two forward step kernels (with
+// qbits > 0 after the T scales of q(h_{t-1}): the forward's bits), then
+// the reverse chain as one cooperative launch of `grid` blocks of
+// gru_bwd_persist<., 2, bi, .> (bi: 1, 2 or 4, BT = 8 * bi batch rows a
+// block, 16 units at bi = 2, 8 else; smem bytes of dynamic shared memory:
+// fused_rnn.mgru_bwd_sparse_plan). Returns the first cudaError_t seen.
+//   gates, fw, dg: (T, B, 2H); w3g: (Nb, 2bs, R*bs) float32 or bf16
+//   (w_bf16); col_idx, t_row_idx, t_perm: the layout's index arrays; drop:
+//   (B, H); h_prev, dhs: (T, B, H); s_seq: (T, B, H) output (z_t *
+//   h_{t-1}); qslots: 2T unsigned ints of scratch when qbits > 0.
+int mgru_bwd_sparse_persist(const float* gates, const void* w3g,
+                            const int* col_idx, const int* t_row_idx,
+                            const int* t_perm, const float* drop,
+                            const float* h_prev, const float* dhs, float* fw,
+                            float* s_seq, float* dg, unsigned* qslots, int T,
+                            int B, int H, int R, int bs, int C, int nnz,
+                            int act, int qbits, int w_bf16, int grid, int bi,
+                            int smem, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int units = bi == 2 ? 16 : 8;
+  BwdLaunch launch;
+  Occupancy occ;
+  bwd_shape_of(2, w_bf16, bi, &launch, &occ);
+  if (!launch || C > MAX_C || H % units || bs % units)
+    return cudaErrorInvalidValue;
+  auto rebuild = w_bf16 ? run_rebuild<true, 2> : run_rebuild<false, 2>;
+  const cudaError_t err = rebuild(gates, w3g, col_idx, drop, h_prev, fw,
+                                  s_seq, qslots, T, B, H, R, bs, act, qbits,
+                                  stream);
+  if (err != cudaSuccess) return err;
+  return launch(grid, smem, stream, fw, w3g, t_row_idx, t_perm, drop, h_prev,
+                dhs, dg, T, B, H, R, bs, C, nnz, act);
+}
+
+// out[0..2] of the minimalGRU's chain, as gru_bwd_sparse_occupancy.
+int mgru_bwd_sparse_occupancy(int w_bf16, int bi, int smem, int* out) {
+  return bwd_occupancy(2, w_bf16, bi, smem, out);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // The persistent cooperative chains shared by the recurrences' kernels:
 // the GRU BPTTs (fused_gru_torch.cu, fused_gru_sparse.cu), the liGRU's
-// recompute BPTT and its forward (fused_ligru.cu), the sparse GRU's
-// forward (fused_gru_sparse.cu), the dense GRU and minimalGRU forward and
+// recompute BPTT and its forward (fused_ligru.cu), the sparse GRU's and
+// minimalGRU's forward and the sparse minimalGRU's BPTT
+// (fused_gru_sparse.cu), the dense GRU and minimalGRU forward and
 // the dense minimalGRU's recompute BPTT (fused_gru.cu), the dense LSTM
 // forward (fused_lstm_fwd.cu) and its stash BPTT (fused_lstm_bwd.cu).
 // One launch runs every step, each block owning UN
@@ -30,7 +31,8 @@
 // stages them in slabs of the contraction, two in flight.
 //
 // The dense forwards (the GRU's, the minimalGRU's, the liGRU's and the
-// LSTM's) sum their dots in the step kernels' order instead
+// LSTM's) and the sparse minimalGRU's forward sum their dots in the step
+// kernels' order instead
 // (resident_dots: a warp a dot, lanes over k; the LSTM's lane_dots, the
 // same sums over a lane-major layout read 16 bytes at a time), and stage
 // their quantized carries with stage_quant (rounded to bf16 after q()
@@ -379,15 +381,51 @@ __device__ __forceinline__ void lane_dots(const float* ws, const float* xs,
     }
 }
 
+// Apply q() at scale var (quant_rcp: the reciprocal of var taken once;
+// var == 0 leaves the values unquantized, as quant() does), then bf16
+// rounding under RND, in place to the nb staged rows of `len` floats (a
+// multiple of 4) at xsm, rows SK apart, STAGE_CHUNKS 16-byte chunks a
+// thread in flight, since at one block of 8 warps an SM a pass one value
+// at a time waits on each load in turn. Nothing runs where neither
+// changes a value. Every thread takes part; a __syncthreads follows a
+// pass, and one must precede the call (the rows staged).
+template <bool RND = false>
+__device__ __forceinline__ void quant_staged(float* xsm, int SK, int nb,
+                                             int len, float var,
+                                             float qscale, float iscale) {
+  if (var == 0.f && !RND) return;
+  constexpr int NC = STAGE_CHUNKS;
+  const float inv = var != 0.f ? 1.f / var : 0.f;
+  // q() (the identity at var == 0), then bf16 under RND
+  auto q = [&](float x) {
+    const float y = quant_rcp(x, var, inv, qscale, iscale);
+    return RND ? round_bf16(y) : y;
+  };
+  const int cpr = len / 4, cn = nb * cpr;
+  for (int c0 = 0; c0 < cn; c0 += THREADS * NC) {
+    float4* x[NC];
+    float4 r[NC];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = c0 + i * THREADS + threadIdx.x;
+      const int b = c / cpr, j = c - b * cpr;
+      x[i] = reinterpret_cast<float4*>(xsm + (size_t)b * SK) + j;
+      if (c < cn) r[i] = *x[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      if (c0 + i * THREADS + threadIdx.x < cn)
+        *x[i] = make_float4(q(r[i].x), q(r[i].y), q(r[i].z), q(r[i].w));
+  }
+  __syncthreads();
+}
+
 // Stage the nb rows from row b0 of v (rows HP floats apart, HP a multiple
 // of 4, 16-byte aligned: the dense forwards' exchange buffers, written by
 // other blocks in this launch) into xsm (rows SK apart) by cp.async. With
 // `maxes`, the n blocks' max|v| bits of the step (read meanwhile) give the
-// scale var of q(), applied to the staged rows in place by quant_rcp (the
-// reciprocal of var taken once), STAGE_CHUNKS 16-byte chunks a thread in
-// flight, since at one block of 8 warps an SM a pass one value at a time
-// waits on each load in turn (var == 0 leaves them unquantized, as quant()
-// does). q() on the values as the dots load them costs more: the warps of
+// scale var of q(), applied to the staged rows in place (quant_staged).
+// q() on the values as the dots load them costs more: the warps of
 // one row group each load them (gru_fwd_variants.py). Under RND each
 // staged value is then rounded to bf16 (the LSTM's bf16 dots), also
 // where var == 0 or there are no maxes. Every thread takes part; gmax is
@@ -409,31 +447,7 @@ __device__ __forceinline__ float stage_quant(const float* v, int HP, int b0,
   cp_async_wait_all();
   __syncthreads();
   const float var = maxes ? __uint_as_float(*gmax) : 0.f;
-  if (var == 0.f && !RND) return var;
-  constexpr int NC = STAGE_CHUNKS;
-  const float inv = var != 0.f ? 1.f / var : 0.f;
-  // q() (the identity at var == 0), then bf16 under RND
-  auto q = [&](float x) {
-    const float y = quant_rcp(x, var, inv, qscale, iscale);
-    return RND ? round_bf16(y) : y;
-  };
-  const int cpr = HP / 4, cn = nb * cpr;
-  for (int c0 = 0; c0 < cn; c0 += THREADS * NC) {
-    float4* x[NC];
-    float4 r[NC];
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = c0 + i * THREADS + threadIdx.x;
-      const int b = c / cpr, j = c - b * cpr;
-      x[i] = reinterpret_cast<float4*>(xsm + (size_t)b * SK) + j;
-      if (c < cn) r[i] = *x[i];
-    }
-#pragma unroll
-    for (int i = 0; i < NC; ++i)
-      if (c0 + i * THREADS + threadIdx.x < cn)
-        *x[i] = make_float4(q(r[i].x), q(r[i].y), q(r[i].z), q(r[i].w));
-  }
-  __syncthreads();
+  quant_staged<RND>(xsm, SK, nb, HP, var, qscale, iscale);
   return var;
 }
 

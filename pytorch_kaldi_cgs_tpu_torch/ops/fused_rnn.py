@@ -1062,12 +1062,14 @@ def mgru_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
 # _build_mgru_bwd_sparse become csrc/fused_gru_sparse.cu. The recurrent
 # matrices share one HCGS mask; their kept blocks pack into w3g
 # (Nb, G*bs, R*bs), each block gate-major [h | z | r] ([h | z]), and both
-# products run over the kept blocks only. The GRU's forward runs all steps
-# in one cooperative launch where its blocks fit and are co-resident
+# products run over the kept blocks only. Either cell's forward runs all
+# steps in one cooperative launch where its blocks fit and are co-resident
 # (gru_fwd_sparse_route), else two launches per step. The backward
 # rebuilds the forward's quantities for all steps at once, then runs the
-# reverse chain (in one cooperative launch, or two launches per reverse
-# step), and also returns s for the dU: two block-sparse dw products.
+# reverse chain (in one cooperative launch where it fits and is
+# co-resident, gru_bwd_sparse_route / mgru_bwd_sparse_route, or two
+# launches per reverse step), and also returns s for the dU: two
+# block-sparse dw products.
 
 def _gru_sparse_fns(w3g, layout, bf16):
     """(w3g's U_h and [U_z; U_r] (U_z) parts, rec_zr, rec_h) of the
@@ -1140,12 +1142,22 @@ def _gru_fwd_sparse(wrapper, G, scan, gates, w3g, drop, layout, act, qbits,
     if gates.device.type == "cpu":
         return fused_gru_fwd_sparse_plain(gates, w3g, drop, layout, act,
                                           qbits, bf16)
-    dev = gates.device
-    if G == 3:
-        route, plan = gru_fwd_sparse_route(B, layout, bf16, dev)
-        if route == "persist":
-            return _gru_fwd_sparse_persist(plan, gates, w3g, drop, layout,
-                                           act, qbits, bf16)
+    route, plan = gru_fwd_sparse_route(B, layout, bf16, gates.device, G)
+    if route == "persist":
+        return _gru_fwd_sparse_persist(plan, gates, w3g, drop, layout, act,
+                                       qbits, bf16)
+    return _gru_fwd_sparse_step(wrapper, gates, w3g, drop, layout, act,
+                                qbits, bf16)
+
+
+def _gru_fwd_sparse_step(wrapper, gates, w3g, drop, layout, act, qbits,
+                         bf16):
+    """The sparse forward of ``wrapper`` (:func:`fused_gru_fwd_sparse` or
+    :func:`fused_mgru_fwd_sparse`, checked operands, ``drop`` (B, H)) on
+    the step route: two launches a step. -> hs (T, B, H)."""
+    T, B, GH = gates.shape
+    H, dev = layout.N, gates.device
+    G = GH // H
     from . import _build
     lib = _build.load("fused_gru_sparse")
     fn = getattr(lib, wrapper.__name__)
@@ -1170,26 +1182,31 @@ def _gru_fwd_sparse(wrapper, G, scan, gates, w3g, drop, layout, act, qbits,
 
 def _gru_fwd_sparse_persist(plan, gates, w3g, drop, layout, act, qbits,
                             bf16):
-    """The sparse GRU forward on the persistent route (``plan``: its
-    PersistPlan, :func:`gru_fwd_sparse_plan`): all T steps in one
-    cooperative launch. -> hs (T, B, H)."""
+    """The sparse GRU or minimalGRU forward (told apart by the gates'
+    width) on the persistent route (``plan``: its PersistPlan,
+    :func:`gru_fwd_sparse_plan`): all T steps in one cooperative launch.
+    -> hs (T, B, H)."""
     from . import block_sparse as BS
-    T, B, G3 = gates.shape
-    H, dev = G3 // 3, gates.device
+    T, B, GH = gates.shape
+    H, dev = layout.N, gates.device
+    G = GH // H
+    wrapper, entry = ((fused_gru_fwd_sparse, "gru_fwd_sparse_persist")
+                      if G == 3 else
+                      (fused_mgru_fwd_sparse, "mgru_fwd_sparse_persist"))
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     s = torch.empty((B, H), dtype=torch.float32, device=dev)
     # each block's max|h| and max|s| of the step, for the quantizer
     bmax = torch.empty(2 * plan.grid if qbits > 0 else 1, dtype=torch.int32,
                        device=dev)
     wk = _sparse_w(w3g, bf16)
-    BS._launch("fused_gru_sparse", "gru_fwd_sparse_persist", dev,
+    BS._launch("fused_gru_sparse", entry, dev,
                (gates.data_ptr(), wk.data_ptr(),
                 layout.device_index("col_idx", dev).data_ptr(),
                 drop.data_ptr(), hs.data_ptr(), s.data_ptr(),
                 bmax.data_ptr()),
                (T, B, H, layout.R, layout.bs, _ACT_CODE[act], qbits,
                 int(bf16), plan.grid, plan.bi, plan.units, plan.smem))
-    fused_gru_fwd_sparse.launches += gru_fwd_sparse_launches("persist", T)
+    wrapper.launches += gru_fwd_sparse_launches("persist", T)
     return hs
 
 
@@ -1221,9 +1238,11 @@ def fused_mgru_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     blocks of U (TPU kernel ``_build_mgru_fwd_sparse``): ``gates``
     (T, B, 2H) float32 ordered [h | z], ``w3g`` (Nb, 2*bs, R*bs) float32
     (cast to bf16 for the kernel when ``bf16``), ``drop`` broadcastable to
-    (B, H). -> hs (T, B, H). CUDA tensors run the kernel (two launches per
-    step), CPU tensors the twin; no autograd
-    (:func:`mgru_scan_fused_sparse`)."""
+    (B, H). -> hs (T, B, H). CUDA tensors run the kernels on the route
+    :func:`gru_fwd_sparse_route` picks before the launch at G=2: "persist"
+    (all steps in one cooperative launch, the step route's bits) where the
+    blocks fit and are co-resident, else "step" (two launches per step);
+    CPU tensors the twin; no autograd (:func:`mgru_scan_fused_sparse`)."""
     return _gru_fwd_sparse(fused_mgru_fwd_sparse, 2, "mgru_scan_fused_sparse",
                            gates, w3g, drop, layout, act, qbits, bf16)
 
@@ -1324,22 +1343,35 @@ def ligru_bwd_plan(B: int, H: int, shape: Optional[tuple] = None
                        4 * min(bt, B) * K, slab, -(-K // slab))
 
 
-def gru_fwd_sparse_plan(B: int, layout, shape: Optional[tuple] = None
-                        ) -> PersistPlan:
-    """The sparse GRU forward's persistent chain at batch B over
-    ``layout`` (``shape`` forces (bi, units)): a block owns units of one
-    out-block (16 only where bs holds them) with their R*bs-long rows of
-    the three gates resident ([z | r] as 2 x units columns, the
-    candidate's as units; padded as :func:`_w_stride`), and stages per
-    step q(h_{t-1}) and q(s) at the out-block's R kept column blocks."""
+def gru_fwd_sparse_plan(B: int, layout, shape: Optional[tuple] = None,
+                        G: int = 3) -> PersistPlan:
+    """The sparse GRU (G=3) or minimalGRU (G=2) forward's persistent chain
+    at batch B over ``layout`` (``shape`` forces (bi, units), one of
+    :data:`GRU_FWD_SPARSE_SHAPES`): a block owns units of one out-block
+    (16 only where bs holds them) with their R*bs-long rows of the G gates
+    resident, and stages per step q(h_{t-1}) and q(s) at the out-block's R
+    kept column blocks. The GRU keeps [z | r] as 2 x units columns and the
+    candidate's as units (padded as :func:`_w_stride`) and the dots'
+    partials of 8 warps; the minimalGRU, whose dots sum in the step
+    kernels' order, keeps its 2 x units weights as rows and one sum a row
+    and unit."""
     bs, K3 = layout.bs, layout.R * layout.bs
     bi, un = shape or _shape(B, WIDE_SHAPE if bs % 16 == 0 else (4, 8))
-    bt, zc = 8 * bi, 2 * un
-    smem = (4 * K3 * (_w_stride(zc) + _w_stride(un))
-            + 4 * bt * _row_stride(K3) + 4 * PERSIST_WARPS * bt * zc)
+    bt, zc = 8 * bi, (G - 1) * un
+    if G == 3:
+        ws = 4 * K3 * (_w_stride(zc) + _w_stride(un))
+        red = 4 * PERSIST_WARPS * bt * zc
+    else:
+        ws, red = 4 * K3 * (zc + un), 4 * bt * zc
+    smem = ws + 4 * bt * _row_stride(K3) + red
     grid = (layout.N // un) * -(-B // bt)
-    return PersistPlan(bi, un, grid, smem, 0, 4 * 3 * K3 * un,
+    return PersistPlan(bi, un, grid, smem, 0, 4 * G * K3 * un,
                        2 * 4 * min(bt, B) * K3)
+
+
+#: the sparse forward's block shapes (bi, units) that fused_gru_sparse.cu
+#: instantiates for both cells (``PK_SPARSE_FWD_SHAPE``): the plan's
+GRU_FWD_SPARSE_SHAPES = ((1, 8), (2, 8), (4, 8), (2, 16))
 
 
 def gru_torch_bwd_plan(B: int, H: int) -> PersistPlan:
@@ -1355,25 +1387,51 @@ def gru_torch_bwd_plan(B: int, H: int) -> PersistPlan:
                        4 * min(bt, B) * K)
 
 
-def gru_bwd_sparse_plan(B: int, H: int, bs: int, C: int) -> PersistPlan:
-    """The sparse GRU's persistent chain at batch B, width H, block size
-    bs and at most C kept blocks in a block column: a block owns the units
+def _sparse_bwd_plan(B: int, H: int, bs: int, C: int, G: int,
+                     shape: Optional[tuple]) -> PersistPlan:
+    """The sparse reverse chain (csrc/fused_gru_sparse.cu's
+    ``gru_bwd_persist``) of a G-gate cell at batch B, width H, block size
+    bs and at most C kept blocks in a block column (``shape`` forces (bi,
+    units), one of :data:`GRU_BWD_SPARSE_SHAPES`): a block owns the units
     of one block column and batch rows, 8 and 8 (B <= 8), 16 and 16 (bs a
-    multiple of 16) or 8 and 32, with 3bs floats a unit and an entry
-    resident (U_z's, U_r's and U_h's columns; rows of 16 units padded to
-    20 floats), and stages per step [dg_z | dg_r] (2bs floats an entry and
-    a row) and dg_h (bs). Of the 256 outputs a block forms, 16 units x 16
-    rows stage half the bytes of 8 x 32: the CTAs of one block column
-    stage the same cotangents from L2."""
+    multiple of 16) or 8 and 32, with G*bs floats a unit and an entry
+    resident (the columns of U_z (and U_r) and U_h; rows of 16 units
+    padded to 20 floats), and stages per step [dg_z (| dg_r)] ((G-1)bs
+    floats an entry and a row) and dg_h (bs). Of the 256 outputs a block
+    forms, 16 units x 16 rows stage half the bytes of 8 x 32: the CTAs of
+    one block column stage the same cotangents from L2."""
     un = 16 if B > 8 and bs % 16 == 0 else PERSIST_UNITS
     bi = 1 if B <= 8 else (2 if un == 16 else 4)
+    if shape:
+        bi, un = shape
     bt = 8 * bi
-    ws_stride = 20 if un == 16 else un
-    smem = (4 * 3 * C * bs * ws_stride + 4 * bt * _row_stride(2 * C * bs)
+    smem = (4 * G * C * bs * _w_stride(un)
+            + 4 * bt * _row_stride((G - 1) * C * bs)
             + 4 * PERSIST_WARPS * bt * un)
     grid = (H // un) * -(-B // bt)
     return PersistPlan(bi, un, grid, smem, _PERSIST_SPARSE_STATIC,
-                       4 * 3 * C * bs * un, 4 * min(bt, B) * 3 * C * bs)
+                       4 * G * C * bs * un, 4 * min(bt, B) * G * C * bs)
+
+
+def gru_bwd_sparse_plan(B: int, H: int, bs: int, C: int) -> PersistPlan:
+    """The sparse GRU's persistent chain (:func:`_sparse_bwd_plan` at
+    G=3): 3bs floats a unit and an entry resident, [dg_z | dg_r] (2bs
+    floats an entry and a row) and dg_h (bs) staged per step."""
+    return _sparse_bwd_plan(B, H, bs, C, 3, None)
+
+
+def mgru_bwd_sparse_plan(B: int, H: int, bs: int, C: int,
+                         shape: Optional[tuple] = None) -> PersistPlan:
+    """The sparse minimalGRU's persistent chain (:func:`_sparse_bwd_plan`
+    at G=2; ``shape`` forces (bi, units)): 2bs floats a unit and an entry
+    resident (U_z's and U_h's columns), dg_z and dg_h (bs floats an entry
+    and a row each) staged per step."""
+    return _sparse_bwd_plan(B, H, bs, C, 2, shape)
+
+
+#: the sparse chain's block shapes (bi, units) that fused_gru_sparse.cu
+#: instantiates for both cells (``PK_SPARSE_BWD_SHAPE``): the plan's
+GRU_BWD_SPARSE_SHAPES = ((1, 8), (2, 16), (4, 8))
 
 
 def persist_route(plan: PersistPlan, blocks_per_sm: int, sms: int,
@@ -1448,20 +1506,24 @@ def ligru_bwd_launches(route: str, T: int, qbits: int) -> int:
     return 2 + 2 * int(qbits > 0) if route == "persist" else T
 
 
-def gru_fwd_sparse_route(B: int, layout, bf16: bool, dev) -> tuple:
-    """(route, plan) of :func:`fused_gru_fwd_sparse` at batch B over
-    ``layout`` on the card ``dev``: "step" where the block's units do not
-    divide bs."""
-    plan = gru_fwd_sparse_plan(B, layout)
+def gru_fwd_sparse_route(B: int, layout, bf16: bool, dev, G: int = 3
+                         ) -> tuple:
+    """(route, plan) of :func:`fused_gru_fwd_sparse` (G=3) and
+    :func:`fused_mgru_fwd_sparse` (G=2) at batch B over ``layout`` on the
+    card ``dev``: "step" where the block's units do not divide bs."""
+    plan = gru_fwd_sparse_plan(B, layout, G=G)
     if layout.bs % plan.units:
         return "step", plan
-    return _route(plan, "fused_gru_sparse", "gru_fwd_sparse_occupancy",
+    entry = "gru_fwd_sparse_occupancy" if G == 3 else \
+        "mgru_fwd_sparse_occupancy"
+    return _route(plan, "fused_gru_sparse", entry,
                   (int(bf16), plan.bi, plan.units), torch.device(dev)), plan
 
 
 def gru_fwd_sparse_launches(route: str, T: int) -> int:
-    """Kernels one :func:`fused_gru_fwd_sparse` call launches on
-    ``route``: "persist" the one cooperative launch, "step" two a step."""
+    """Kernels one :func:`fused_gru_fwd_sparse` or
+    :func:`fused_mgru_fwd_sparse` call launches on ``route``: "persist"
+    the one cooperative launch, "step" two a step."""
     return 1 if route == "persist" else 2 * T
 
 
@@ -1667,6 +1729,24 @@ def mgru_bwd_launches(route: str, T: int, qbits: int) -> int:
     return 2 * T + 2
 
 
+def mgru_bwd_sparse_route(B: int, layout, bf16: bool, dev) -> tuple:
+    """(route, plan) of :func:`fused_mgru_bwd_sparse` at batch B over
+    ``layout`` on the card ``dev``."""
+    plan = mgru_bwd_sparse_plan(B, layout.N, layout.bs, layout.C)
+    return _route(plan, "fused_gru_sparse", "mgru_bwd_sparse_occupancy",
+                  (int(bf16), plan.bi), torch.device(dev)), plan
+
+
+def mgru_bwd_sparse_launches(route: str, T: int, qbits: int) -> int:
+    """Kernels one :func:`fused_mgru_bwd_sparse` call launches on
+    ``route``: "persist" the rebuild's two step kernels over all T (after
+    the per-step scales with the quantizer) and the chain; "step" the two
+    rebuild kernels and two a reverse step."""
+    if route == "persist":
+        return 3 + int(qbits > 0)
+    return 2 * T + 2
+
+
 def gru_bwd_sparse_launches(route: str, T: int, qbits: int,
                             bf16: bool) -> int:
     """Kernels one :func:`fused_gru_bwd_sparse` call launches from its
@@ -1692,11 +1772,25 @@ def _gru_bwd_sparse(wrapper, G, gates, w3g, drop, h_prev, dhs, layout, act,
     if gates.device.type == "cpu":
         return fused_gru_bwd_sparse_plain(gates, w3g, drop, h_prev, dhs,
                                           layout, act, qbits, bf16)
-    if G == 3:
-        route, plan = gru_bwd_sparse_route(B, layout, bf16, gates.device)
-        if route == "persist":
-            return _gru_bwd_sparse_persist(plan, gates, w3g, drop, h_prev, dhs,
-                                           layout, act, qbits, bf16)
+    route, plan = (gru_bwd_sparse_route if G == 3 else mgru_bwd_sparse_route)(
+        B, layout, bf16, gates.device)
+    if route == "persist":
+        persist = _gru_bwd_sparse_persist if G == 3 else \
+            _mgru_bwd_sparse_persist
+        return persist(plan, gates, w3g, drop, h_prev, dhs, layout, act,
+                       qbits, bf16)
+    return _gru_bwd_sparse_step(wrapper, gates, w3g, drop, h_prev, dhs,
+                                layout, act, qbits, bf16)
+
+
+def _gru_bwd_sparse_step(wrapper, gates, w3g, drop, h_prev, dhs, layout,
+                         act, qbits, bf16):
+    """The sparse BPTT of ``wrapper`` (:func:`fused_gru_bwd_sparse` or
+    :func:`fused_mgru_bwd_sparse`, checked operands, ``drop`` (B, H)) on
+    the step route: the two rebuild kernels, two launches a reverse step.
+    -> (dg, s)."""
+    T, B, H = h_prev.shape
+    G = gates.shape[2] // H
     smem = 4 * 8 * layout.C * (G - 1) * layout.bs
     if smem + _GRU_BWD_STATIC > _SMEM_MAX:
         raise ValueError("%s: %d blocks per column of %d need %d bytes of "
@@ -1780,6 +1874,37 @@ def _gru_bwd_sparse_persist(plan, gates, w3g, drop, h_prev, dhs, layout,
     return dg, s_seq
 
 
+def _mgru_bwd_sparse_persist(plan, gates, w3g, drop, h_prev, dhs, layout,
+                             act, qbits, bf16):
+    """The minimalGRU BPTT on the persistent route (``plan``: its
+    PersistPlan, :func:`mgru_bwd_sparse_plan`): the forward quantities of
+    all steps on the forward's step kernels (its bits, so act' takes its
+    branch), then the chain in one cooperative launch, all from one entry
+    point. -> (dg, s)."""
+    from . import block_sparse as BS
+    T, B, H = h_prev.shape
+    dev = gates.device
+    wk = _sparse_w(w3g, bf16)
+    f32 = dict(dtype=torch.float32, device=dev)
+    fw = torch.empty((T, B, 2 * H), **f32)
+    s_seq = torch.empty((T, B, H), **f32)
+    dg = torch.empty((T, B, 2 * H), **f32)
+    qslots = torch.empty(2 * T if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    idx = [layout.device_index(n, dev).data_ptr()
+           for n in ("col_idx", "t_row_idx", "t_perm")]
+    BS._launch("fused_gru_sparse", "mgru_bwd_sparse_persist", dev,
+               (gates.data_ptr(), wk.data_ptr(), *idx, drop.data_ptr(),
+                h_prev.data_ptr(), dhs.data_ptr(), fw.data_ptr(),
+                s_seq.data_ptr(), dg.data_ptr(), qslots.data_ptr()),
+               (T, B, H, layout.R, layout.bs, layout.C, layout.nnz,
+                _ACT_CODE[act], qbits, int(bf16), plan.grid, plan.bi,
+                plan.smem))
+    fused_mgru_bwd_sparse.launches += mgru_bwd_sparse_launches("persist", T,
+                                                               qbits)
+    return dg, s_seq
+
+
 def fused_gru_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
                          drop: torch.Tensor, h_prev: torch.Tensor,
                          dhs: torch.Tensor, layout, act: str = "tanh",
@@ -1809,9 +1934,13 @@ def fused_mgru_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     """Sparse minimalGRU BPTT (TPU kernel ``_build_mgru_bwd_sparse``):
     ``gates`` (T, B, 2H) are the forward's inputs, ``h_prev`` and ``dhs``
     (T, B, H). -> (dg (T, B, 2H), s (T, B, H), the candidate's recurrent
-    inputs z * h_prev). CUDA tensors run the kernel (two launches for the
-    forward quantities, then two per reverse step), CPU tensors the
-    twin."""
+    inputs z * h_prev). CUDA tensors run the kernels on the route
+    :func:`mgru_bwd_sparse_route` picks before the launch: both take the
+    forward quantities of all steps from the forward's two step kernels
+    (the forward's bits), then "persist" runs the reverse chain in one
+    cooperative launch (:func:`mgru_bwd_sparse_launches`) where its blocks
+    fit and are co-resident, else "step" two launches per reverse step;
+    CPU tensors the twin."""
     return _gru_bwd_sparse(fused_mgru_bwd_sparse, 2, gates, w3g, drop, h_prev,
                            dhs, layout, act, qbits, bf16)
 
@@ -1930,7 +2059,9 @@ def mgru_scan_fused_sparse(gates_t: torch.Tensor, w3g: torch.Tensor, layout,
     ``gates_t`` (T, B, 2H) [h | z] and ``w3g`` (Nb, 2*bs, R*bs)
     (``drop_mask`` is a constant); float32, with w3g read in bf16 only
     where :func:`sparse_scan_fits` says "bf16" (at G=2), as in the JAX
-    package."""
+    package. On the card the forward and the BPTT each take the route
+    their wrapper picks before the launch (one cooperative launch of all
+    steps, or two launches a step)."""
     return _gated_scan_sparse("mgru", gates_t, w3g, layout, drop_mask, act,
                               quant_bits)
 

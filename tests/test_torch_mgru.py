@@ -904,11 +904,14 @@ def test_cuda_dense_kernels_match_plain_twins(cuda_device, act, qbits):
 @pytest.mark.parametrize("act", ["relu", "tanh"])
 def test_cuda_sparse_kernels_match_plain_twins(cuda_device, act, qbits,
                                                wbf16):
-    """The sparse forward (2T launches) and BPTT (2T + 2) against their
-    twins on the card: hs, dg and s."""
+    """The sparse forward and BPTT against their twins on the card: hs, dg
+    and s; each call's launches those of the route its wrapper picks
+    (gru_fwd_sparse_launches, mgru_bwd_sparse_launches)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     _, tl, g, w3g, drop, dhs = _sp_inputs(19, act)
     g, w3g, drop, dhs = (tt(a).to(cuda_device) for a in (g, w3g, drop, dhs))
+    f_route = tfr.gru_fwd_sparse_route(B, tl, wbf16, cuda_device, 2)[0]
+    b_route = tfr.mgru_bwd_sparse_route(B, tl, wbf16, cuda_device)[0]
     with torch.no_grad():
         before = (tfr.fused_mgru_fwd_sparse.launches,
                   tfr.fused_mgru_bwd_sparse.launches)
@@ -918,7 +921,9 @@ def test_cuda_sparse_kernels_match_plain_twins(cuda_device, act, qbits,
                                           qbits, wbf16)
         assert (tfr.fused_mgru_fwd_sparse.launches,
                 tfr.fused_mgru_bwd_sparse.launches) == (
-                    before[0] + 2 * SP_T, before[1] + 2 * SP_T + 2)
+                    before[0] + tfr.gru_fwd_sparse_launches(f_route, SP_T),
+                    before[1] + tfr.mgru_bwd_sparse_launches(b_route, SP_T,
+                                                             qbits))
         ref = tfr.fused_mgru_fwd_sparse_plain(g, w3g, drop, tl, act, qbits,
                                               wbf16)
         ref_dg, ref_s = tfr.fused_mgru_bwd_sparse_plain(
@@ -1016,3 +1021,153 @@ def test_cuda_bwd_routes(cuda_device):
             ref = tfr.fused_mgru_bwd_plain(*args, "tanh", 16)
         torch.cuda.synchronize()
         _assert_rel([dg.cpu()], [ref.cpu()], ATOL_Q, [route])
+
+
+def _cgs_layout(seed, h=1024):
+    """The CGS-16x minimalGRU's recurrent layout at width h: HCGS 128,8 at
+    75,75 (Kb=8, R=2 at 1024)."""
+    mask = hcgs_mask(h, h, [128, 8], [75, 75],
+                     rng=np.random.RandomState(seed))
+    return tbs.pack_layout(mask, 128)
+
+
+def _sp_case(t, b, layout, seed, act, dev):
+    """Sparse operands over ``layout`` at (t, b) on ``dev``: gates, w3g,
+    drop (b, H), dhs; relu's candidate inputs kept off its kink."""
+    h, bs = layout.N, layout.bs
+    rng = np.random.RandomState(seed)
+    d = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    g = d(_gates(rng, t, b, h, act))
+    w3g = d(rng.randn(layout.Nb, 2 * bs, layout.R * bs) * 0.3
+            / np.sqrt(layout.R * bs))
+    return g, w3g, d((rng.rand(b, h) > 0.2) * 1.0), d(rng.randn(t, b, h))
+
+
+def _fwd_step(g, w3g, drop, layout, act, qbits, wbf16):
+    return tfr._gru_fwd_sparse_step(tfr.fused_mgru_fwd_sparse, g, w3g, drop,
+                                    layout, act, qbits, wbf16)
+
+
+def _bwd_step(*args):
+    return tfr._gru_bwd_sparse_step(tfr.fused_mgru_bwd_sparse, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.GRU_FWD_SPARSE_SHAPES)
+def test_cuda_sparse_fwd_persist_every_block_shape(cuda_device, shape):
+    """Row 34's persistent route forced to each instantiated block shape at
+    H=256 (Kb=2, R=1) and a ragged batch (8 bi + 3 rows), relu and tanh,
+    qbits 0 and 16, w3g f32 and bf16: one launch, the step route's bits
+    (its dots sum in row_dots' order), and the twin's bars."""
+    bi, un = shape
+    b = 8 * bi + 3
+    _, tl, *_ = _sp_inputs(31)
+    plan = tfr.gru_fwd_sparse_plan(b, tl, shape, G=2)
+    for act in ("relu", "tanh"):
+        g, w3g, drop, _ = _sp_case(SP_T, b, tl, 40 + bi + un, act,
+                                   cuda_device)
+        for qbits in (0, 16):
+            for wbf16 in (False, True):
+                with torch.no_grad():
+                    before = tfr.fused_mgru_fwd_sparse.launches
+                    hs = tfr._gru_fwd_sparse_persist(plan, g, w3g, drop, tl,
+                                                     act, qbits, wbf16)
+                    assert tfr.fused_mgru_fwd_sparse.launches == before + 1
+                    step = _fwd_step(g, w3g, drop, tl, act, qbits, wbf16)
+                    ref = tfr.fused_mgru_fwd_sparse_plain(g, w3g, drop, tl,
+                                                          act, qbits, wbf16)
+                torch.cuda.synchronize()
+                case = (shape, act, qbits, wbf16)
+                assert torch.equal(hs, step), case
+                _assert_rel([hs.cpu()], [ref.cpu()],
+                            2e-2 if wbf16 else _atol(qbits), [str(case)])
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_fwd_routes(cuda_device):
+    """The wrapper on the route its plan names: "persist" at the CGS-16x
+    minimalGRU's 8 rows of 1024 (one launch, the forced step route's bits
+    with and without the quantizer), "step" at 256 rows (1,024 blocks of
+    16 x 16: 2T launches), each against the twin."""
+    lay = _cgs_layout(421)
+    for (t, b), route in (((12, 8), "persist"), ((3, 256), "step")):
+        assert tfr.gru_fwd_sparse_route(b, lay, False, cuda_device,
+                                        2)[0] == route
+        g, w3g, drop, _ = _sp_case(t, b, lay, 44, "relu", cuda_device)
+        for qbits in (0, 16):
+            with torch.no_grad():
+                before = tfr.fused_mgru_fwd_sparse.launches
+                hs = tfr.fused_mgru_fwd_sparse(g, w3g, drop, lay, "relu",
+                                               qbits)
+                assert tfr.fused_mgru_fwd_sparse.launches == before + \
+                    tfr.gru_fwd_sparse_launches(route, t)
+                step = _fwd_step(g, w3g, drop, lay, "relu", qbits, False)
+                ref = tfr.fused_mgru_fwd_sparse_plain(g, w3g, drop, lay,
+                                                      "relu", qbits)
+            torch.cuda.synchronize()
+            assert torch.equal(hs, step), (route, qbits)
+            _assert_rel([hs.cpu()], [ref.cpu()], _atol(qbits), [route])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.GRU_BWD_SPARSE_SHAPES)
+def test_cuda_sparse_bwd_persist_every_block_shape(cuda_device, shape):
+    """Row 35's persistent route (the step kernels' rebuild, then one
+    cooperative chain) forced to each instantiated block shape at H=256
+    and a ragged batch, relu and tanh, qbits 0 and 16: its launches, two
+    calls bit for bit, s bit for bit the step route's (the same rebuild:
+    the forward's sums), dg within the twin's bars of the step route's
+    and the twin's (its dots sum in another order)."""
+    bi, un = shape
+    b = 8 * bi + 3
+    _, tl, *_ = _sp_inputs(33)
+    plan = tfr.mgru_bwd_sparse_plan(b, tl.N, tl.bs, tl.C, shape)
+    for act in ("relu", "tanh"):
+        g, w3g, drop, dhs = _sp_case(SP_T, b, tl, 50 + bi + un, act,
+                                     cuda_device)
+        with torch.no_grad():
+            hs = tfr.fused_mgru_fwd_sparse(g, w3g, drop, tl, act)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        for qbits in (0, 16):
+            args = (g, w3g, drop, h_prev, dhs, tl, act, qbits, False)
+            with torch.no_grad():
+                before = tfr.fused_mgru_bwd_sparse.launches
+                dg, s = tfr._mgru_bwd_sparse_persist(plan, *args)
+                assert tfr.fused_mgru_bwd_sparse.launches == before + \
+                    tfr.mgru_bwd_sparse_launches("persist", SP_T, qbits)
+                again = tfr._mgru_bwd_sparse_persist(plan, *args)
+                dg_st, s_st = _bwd_step(*args)
+                ref, ref_s = tfr.fused_mgru_bwd_sparse_plain(*args)
+            torch.cuda.synchronize()
+            case = "%s, %s, q%d" % (shape, act, qbits)
+            assert torch.equal(dg, again[0]) and torch.equal(s, s_st), case
+            _assert_rel([dg.cpu(), dg.cpu(), s.cpu()],
+                        [dg_st.cpu(), ref.cpu(), ref_s.cpu()], _atol(qbits),
+                        ["vs step " + case, "vs twin " + case, "s " + case])
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_bwd_routes(cuda_device):
+    """The BPTT on the route its plan names: "persist" at the CGS-16x
+    minimalGRU's 8 rows of 1024 (4 launches with the quantizer), "step"
+    at 256 rows (2T + 2), each against the twin, w3g f32 and bf16."""
+    lay = _cgs_layout(421)
+    for (t, b), route in (((12, 8), "persist"), ((3, 256), "step")):
+        g, w3g, drop, dhs = _sp_case(t, b, lay, 46, "relu", cuda_device)
+        with torch.no_grad():
+            hs = tfr.fused_mgru_fwd_sparse(g, w3g, drop, lay, "relu", 16)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        for wbf16 in (False, True):
+            assert tfr.mgru_bwd_sparse_route(b, lay, wbf16,
+                                             cuda_device)[0] == route
+            args = (g, w3g, drop, h_prev, dhs, lay, "relu", 16, wbf16)
+            with torch.no_grad():
+                before = tfr.fused_mgru_bwd_sparse.launches
+                dg, s = tfr.fused_mgru_bwd_sparse(*args)
+                assert tfr.fused_mgru_bwd_sparse.launches == before + \
+                    tfr.mgru_bwd_sparse_launches(route, t, 16)
+                ref, ref_s = tfr.fused_mgru_bwd_sparse_plain(*args)
+            torch.cuda.synchronize()
+            _assert_rel([dg.cpu(), s.cpu()], [ref.cpu(), ref_s.cpu()],
+                        2e-2 if wbf16 else ATOL_Q,
+                        ["dg " + route, "s " + route])

@@ -327,23 +327,172 @@ def test_gru_fwd_sparse_launches(route, T, n):
 
 def test_chain_block_shapes_are_the_kernels():
     """The plans pick only the block shapes the kernels instantiate:
-    (1, 8), (2, 8), (4, 8) and (2, 16) for the liGRU's chain and the
-    sparse GRU forward; the dense GRU forward's from GRU_FWD_SHAPES,
-    which are fused_gru.cu's instantiations."""
+    (1, 8), (2, 8), (4, 8) and (2, 16) for the liGRU's chain; the sparse
+    GRU and minimalGRU forward's from GRU_FWD_SPARSE_SHAPES and both
+    sparse chains' from GRU_BWD_SPARSE_SHAPES, which are
+    fused_gru_sparse.cu's instantiations (at bs 128 and 8); the dense GRU
+    forward's from GRU_FWD_SHAPES, which are fused_gru.cu's."""
     shapes = {(1, 8), (2, 8), (4, 8), (2, 16)}
-    layout = _libri_layout()
-    for B in (1, 5, 8, 9, 16, 17, 32, 100):
+    layouts = (_libri_layout(), _cgs16x_layout(),
+               tbs.pack_layout(hcgs_mask(64, 64, [8], [50],
+                                         rng=np.random.RandomState(3)), 8))
+    for B in (1, 5, 8, 9, 16, 17, 32, 100, 256):
         plan = tfr.ligru_bwd_plan(B, 1024)
         assert (plan.bi, plan.units) in shapes
-        plan = tfr.gru_fwd_sparse_plan(B, layout)
-        assert (plan.bi, plan.units) in shapes
+        for layout in layouts:
+            for G in (2, 3):
+                plan = tfr.gru_fwd_sparse_plan(B, layout, G=G)
+                assert (plan.bi, plan.units) in tfr.GRU_FWD_SPARSE_SHAPES
+                plan = tfr._sparse_bwd_plan(B, layout.N, layout.bs,
+                                            layout.C, G, None)
+                assert (plan.bi, plan.units) in tfr.GRU_BWD_SPARSE_SHAPES
         for H, G in ((18, 3), (550, 3), (1024, 2), (1024, 3)):
             plan = tfr.gru_fwd_plan(B, H, G)
             assert (plan.bi, plan.units) in tfr.GRU_FWD_SHAPES
-    src = (pathlib.Path(tfr.__file__).parent / "csrc" / "fused_gru.cu"
-           ).read_text()
-    inst = re.findall(r"^  PK_FWD_SHAPE\((\d+), (\d+)\)$", src, re.M)
-    assert tuple((int(a), int(b)) for a, b in inst) == tfr.GRU_FWD_SHAPES
+    csrc = pathlib.Path(tfr.__file__).parent / "csrc"
+    for name, macro, table in (
+            ("fused_gru.cu", "PK_FWD_SHAPE", tfr.GRU_FWD_SHAPES),
+            ("fused_gru_sparse.cu", "PK_SPARSE_FWD_SHAPE",
+             tfr.GRU_FWD_SPARSE_SHAPES),
+            ("fused_gru_sparse.cu", "PK_SPARSE_BWD_SHAPE",
+             tfr.GRU_BWD_SPARSE_SHAPES)):
+        inst = re.findall(r"^  %s\((\d+), (\d+)\)$" % macro,
+                          (csrc / name).read_text(), re.M)
+        assert tuple((int(a), int(b)) for a, b in inst) == table, macro
+
+
+# ---------------------------------------------------------------------------
+# the sparse minimalGRU forward and BPTT (TPU rows 34 and 35)
+# ---------------------------------------------------------------------------
+
+def _cgs16x_layout():
+    """The CGS-16x minimalGRU's recurrent layout at chip_smoke.py's timed
+    seed (HCGS 128,8 at 75,75 over 1024 x 1024: Kb=8, R=2)."""
+    mask = hcgs_mask(1024, 1024, [128, 8], [75, 75],
+                     rng=np.random.RandomState(421))
+    return tbs.pack_layout(mask, 128)
+
+
+def test_cgs16x_layout_columns():
+    """The timed layout's block columns hold 0-5 kept blocks."""
+    layout = _cgs16x_layout()
+    assert (layout.R, layout.C) == (2, 5)
+    assert tbs.column_counts(layout) == (5, 1, 2, 0, 0, 2, 4, 2)
+
+
+@pytest.mark.parametrize("B, bi, units, grid", [
+    (8, 1, 8, 128),                 # train (T=300) and serve (T=398)
+    (16, 2, 8, 128),
+    (32, 2, 16, 128),
+    (256, 2, 16, 1024),             # MG_LARGE_ROWS
+])
+def test_mgru_fwd_sparse_plan_at_the_cgs16x_layout(B, bi, units, grid):
+    """Row 34: the GRU's block shapes; the two gates' R*bs-long rows
+    resident as rows (row_dots' order, no padding), the staged rows and
+    one sum a row and unit (no warps' partials): 16 KB of w3g a block at
+    8 units."""
+    layout = _cgs16x_layout()
+    plan = tfr.gru_fwd_sparse_plan(B, layout, G=2)
+    bt, K3 = 8 * bi, 256
+    assert (plan.bi, plan.units, plan.grid, plan.static) == (bi, units,
+                                                             grid, 0)
+    assert plan.resident == 4 * 2 * K3 * units
+    assert plan.smem == 4 * (2 * units * K3 + bt * (K3 + 4) + bt * units)
+    assert plan.staged == 2 * 4 * min(bt, B) * K3
+    assert tfr.gru_fwd_sparse_plan(B, layout) == tfr.gru_fwd_sparse_plan(
+        B, layout, G=3)
+    if B == 8:
+        assert plan.resident == 16384 and plan.smem == 24960
+
+
+@pytest.mark.parametrize("B, bi, units, grid", [
+    (8, 1, 8, 128), (16, 2, 16, 64), (32, 2, 16, 128), (256, 2, 16, 1024)])
+def test_mgru_bwd_sparse_plan_at_the_cgs16x_layout(B, bi, units, grid):
+    """Row 35: a block owns units of one block column, 2bs floats a unit
+    and each of the column's (at most C = 5) entries resident (U_z's and
+    U_h's columns; rows of 16 units padded to 20), dg_z's staged row (C*bs
+    values) and the dots' partials; dg_z and dg_h staged per step."""
+    layout = _cgs16x_layout()
+    plan = tfr.mgru_bwd_sparse_plan(B, layout.N, layout.bs, layout.C)
+    bt = 8 * bi
+    assert (plan.bi, plan.units, plan.grid) == (bi, units, grid)
+    assert plan.smem == 4 * (2 * 5 * 128 * (20 if units == 16 else 8)
+                             + bt * (5 * 128 + 4) + 8 * bt * units)
+    assert (plan.static, plan.resident) == (512, 4 * 2 * 5 * 128 * units)
+    assert plan.staged == 4 * min(bt, B) * 2 * 5 * 128
+    forced = tfr.mgru_bwd_sparse_plan(B, layout.N, layout.bs, layout.C,
+                                      (4, 8))
+    assert (forced.bi, forced.units, forced.grid) == (4, 8, 128 * -(-B // 32))
+    # the GRU's chain is the same plan at G=3
+    assert tfr.gru_bwd_sparse_plan(B, 1024, 128, 5) == tfr._sparse_bwd_plan(
+        B, 1024, 128, 5, 3, None)
+
+
+@pytest.mark.parametrize("B, blocks_per_sm, fwd, bwd", [
+    (8, 1, "persist", "persist"),   # train and serve: 128 blocks each
+    (16, 1, "persist", "persist"),
+    (32, 1, "persist", "persist"),
+    (256, 1, "step", "step"),       # MG_LARGE_ROWS: 1,024 blocks
+    (256, 7, "step", "step"),       # 924 co-resident
+    (256, 8, "persist", "persist"),     # 1,056
+])
+def test_mgru_sparse_routes(B, blocks_per_sm, fwd, bwd):
+    layout = _cgs16x_layout()
+    f = tfr.gru_fwd_sparse_plan(B, layout, G=2)
+    b = tfr.mgru_bwd_sparse_plan(B, layout.N, layout.bs, layout.C)
+    assert tfr.persist_route(f, blocks_per_sm, H100_SMS) == fwd
+    assert tfr.persist_route(b, blocks_per_sm, H100_SMS) == bwd
+    for plan in (f, b):
+        assert tfr.persist_route(plan, blocks_per_sm, H100_SMS,
+                                 coop=False) == "step"
+        assert tfr.persist_route(plan, 0, H100_SMS) == "step"
+
+
+def test_mgru_sparse_routes_ask_their_kernels(monkeypatch):
+    """Each route asks the occupancy entry of its own kernel (the
+    minimalGRU's, not the GRU's) with its plan's ints, and takes "step"
+    where the grid is not co-resident."""
+    asked = []
+
+    def occ(lib, entry, args, index):
+        asked.append((lib, entry, args))
+        return 1, H100_SMS, True
+    monkeypatch.setattr(tfr, "_persist_occupancy", occ)
+    layout = _cgs16x_layout()
+    dev = torch.device("cuda", 0)
+    route, plan = tfr.gru_fwd_sparse_route(8, layout, True, dev, 2)
+    assert route == "persist" and plan.units == 8
+    assert tfr.gru_fwd_sparse_route(256, layout, False, dev, 2)[0] == "step"
+    route, bplan = tfr.mgru_bwd_sparse_route(8, layout, False, dev)
+    assert route == "persist"
+    assert asked == [
+        ("fused_gru_sparse", "mgru_fwd_sparse_occupancy",
+         (1, 1, 8, plan.smem)),
+        ("fused_gru_sparse", "mgru_fwd_sparse_occupancy",
+         (0, 2, 16, tfr.gru_fwd_sparse_plan(256, layout, G=2).smem)),
+        ("fused_gru_sparse", "mgru_bwd_sparse_occupancy",
+         (0, 1, bplan.smem))]
+
+
+@pytest.mark.parametrize("route, T, qbits, n", [
+    ("persist", 300, 16, 4), ("persist", 300, 0, 3), ("persist", 398, 16, 4),
+    ("step", 300, 16, 602), ("step", 398, 0, 798)])
+def test_mgru_bwd_sparse_launches(route, T, qbits, n):
+    """On the persistent route the rebuild's two step kernels over all
+    steps (after the per-step scales with the quantizer) and the chain;
+    else the rebuild and two a reverse step."""
+    assert tfr.mgru_bwd_sparse_launches(route, T, qbits) == n
+
+
+@pytest.mark.parametrize("route, T, n", [("persist", 300, 1),
+                                         ("persist", 398, 1),
+                                         ("step", 300, 600),
+                                         ("step", 398, 796)])
+def test_mgru_fwd_sparse_launches(route, T, n):
+    """The minimalGRU's forward counts as the GRU's: one cooperative
+    launch a call, or two a step (1,592 a two-layer recognize at T=398
+    on the step route, 2 on the persistent one)."""
+    assert tfr.gru_fwd_sparse_launches(route, T) == n
 
 
 # ---------------------------------------------------------------------------
