@@ -238,12 +238,18 @@ Phases (any failure raises and the script exits non-zero):
              and the 16-bit quantizers: chunks of 100 card vs CPU beside
              the relu stream's, naming which of relu or the quantizer
              moves the chunked stream past 1e-3.
-45. rnn_sparse_kernels — the sparse RNN forward and BPTT kernels against
-             their twins, each launch counter checked: qbits 0/16 x
-             tanh/relu at 13x5x256 (Kb=2, R=1), 398x8x1024 (forward only)
-             and 300x8x1024 (Kb=8, R=2; w3g f32 and bf16), 100 x 256 rows
-             (the JAX size rule's "", f32 w3g); rnn_scan_fused_sparse
-             with w3g in bf16 under a small PKC_SPARSE_SCAN_VMEM_MB.
+45. rnn_sparse_kernels — the sparse RNN forward and BPTT kernels
+             (rows 36 and 37) against their twins on the routes their
+             plans name, each launch counter checked against the route's
+             count: qbits 0/16 x tanh/relu at 13x5x256 (Kb=2, R=1),
+             398x8x1024 (forward only) and 300x8x1024 (Kb=8, R=2; w3g
+             f32 and bf16), 100 x 256 rows (the step routes; the JAX
+             size rule's "", f32 w3g); below 256 rows the step routes
+             forced, the forward's hs, the BPTT's dg and its rebuilt
+             a_pre bit for bit the persistent route's; device kernels by
+             name; every block shape of both tables (rnn_sparse_shapes);
+             rnn_scan_fused_sparse with w3g in bf16 under a small
+             PKC_SPARSE_SCAN_VMEM_MB.
 46. rnn_sparse_serve, rnn_sparse_stream, rnn_sparse_train — the TIMIT
              RNN cfg at rnn_lay = 4 x 1024 with rnn_hcgs, the CGS-16x
              HCGS and quantizer fields (in memory): every recurrence on
@@ -1576,8 +1582,13 @@ def kernel_classes(by_name, launches=False):
     mg = ["gru_%s<%s2>" % (k, p) for k in ("zr_step", "h_step", "bwd_carry",
                                           "bwd_ds")
           for p in ("", "false, ", "true, ")]
-    classes = {"rnn_sparse_fwd_kernel": ("rnn_sparse_step",),
-               "rnn_sparse_bptt_kernel": ("rnn_sparse_bwd",),
+    classes = {"rnn_sparse_fwd_kernel": ("rnn_sparse_step",
+                                         "rnn_sparse_fwd_persist"),
+               # the chain's step kernels or persistent kernel and the
+               # persistent route's rebuild (the step route's is
+               # rnn_sparse_step's, under rnn_sparse_fwd_kernel)
+               "rnn_sparse_bptt_kernel": ("rnn_sparse_bwd",
+                                          "rnn_sparse_rebuild"),
                # the step kernels at G=2 and the persistent forwards' G=2
                # instantiations, dense and sparse (their G=3 ones count
                # under gru_fwd_kernel)
@@ -3050,7 +3061,15 @@ PERSIST_ROUTES = {
                                                   plan.units)),
     "fused_mgru_bwd_sparse": ("mgru_bwd_sparse_route", "fused_gru_sparse",
                               "mgru_bwd_sparse_occupancy",
-                              lambda plan, bf16: (int(bf16), plan.bi))}
+                              lambda plan, bf16: (int(bf16), plan.bi)),
+    "fused_rnn_fwd_sparse": ("rnn_fwd_sparse_route", "fused_rnn_sparse",
+                             "rnn_fwd_sparse_occupancy",
+                             lambda plan, bf16: (int(bf16), plan.bi,
+                                                 plan.units)),
+    "fused_rnn_bwd_sparse": ("rnn_bwd_sparse_route", "fused_rnn_sparse",
+                             "rnn_bwd_sparse_occupancy",
+                             lambda plan, bf16: (int(bf16), plan.bi,
+                                                 plan.units))}
 #: the dense forwards' gate counts (their route functions take G)
 DENSE_FWD_G = {"fused_gru_fwd": 3, "fused_mgru_fwd": 2}
 #: the sparse minimalGRU's wrappers: their routes are in a package that
@@ -3363,6 +3382,65 @@ def mgru_bwd_sparse_design(route, T, qbits):
     return dict(want, gru_bwd_carry=T, gru_bwd_ds=T)
 
 
+def rnn_fwd_sparse_launches(dev, T, B, layout, bf16=False):
+    """fused_rnn_fwd_sparse's route at B over ``layout`` and its launches
+    a call: one on the persistent route, T on the step route (an earlier
+    tree's package runs "step")."""
+    route = chain_route(dev, "fused_rnn_fwd_sparse", B, layout=layout,
+                        bf16=bf16)[0]
+    return route, 1 if route == "persist" else T
+
+
+#: fused_rnn_bwd_sparse's launches a call on the persistent route by
+#: qbits > 0, written from the design: the rebuild and the chain, and with
+#: the quantizer the per-step scales and q(h_prev) ("step": the rebuild
+#: and one a reverse step, T + 1, as its counter counts them)
+RNN_BWD_SPARSE_PERSIST_LAUNCHES = {False: 2, True: 4}
+
+
+def rnn_bwd_sparse_launches(dev, T, B, layout, qbits, bf16=False):
+    """fused_rnn_bwd_sparse's route at B over ``layout`` and its launches
+    a call."""
+    route = chain_route(dev, "fused_rnn_bwd_sparse", B, layout=layout,
+                        bf16=bf16)[0]
+    return route, (RNN_BWD_SPARSE_PERSIST_LAUNCHES[qbits > 0]
+                   if route == "persist" else T + 1)
+
+
+def rnn_fwd_sparse_design(route, T):
+    """fused_rnn_fwd_sparse's device kernels a call by name."""
+    return ({"rnn_sparse_fwd_persist": 1} if route == "persist"
+            else {"rnn_sparse_step": T})
+
+
+def rnn_bwd_sparse_design(route, T, qbits):
+    """fused_rnn_bwd_sparse's device kernels a call by name: with the
+    quantizer the per-step scales (and on the persistent route
+    q(h_prev)); then the rebuild and the chain, or the step kernel over
+    all T and one a reverse step."""
+    want = {"absmax_steps": 1} if qbits > 0 else {}
+    if route == "step":
+        return dict(want, rnn_sparse_step=1, rnn_sparse_bwd_step=T)
+    if qbits > 0:
+        want["quant_steps"] = 1
+    return dict(want, rnn_sparse_rebuild=1, rnn_sparse_bwd_persist=1)
+
+
+def rnn_sparse_layer_launches(dev, T, B, qbits, train):
+    """One CGS-16x RNN layer call's launches at (T, B) on each sparse
+    kernel's route over the cfg's layout at the timed seed (every layer's
+    layout has Kb=8, R=2 and width 1024, and the chain's block fits at
+    every column count up to 8 at 8 rows, so they alone pick the route):
+    {wrapper: launches}, the BPTT's with ``train``."""
+    lay = cgs_layout(RS_TRAIN_TBH[2], 421)[1]
+    out = {"fused_rnn_fwd_sparse": rnn_fwd_sparse_launches(dev, T, B,
+                                                          lay)[1]}
+    if train:
+        out["fused_rnn_bwd_sparse"] = rnn_bwd_sparse_launches(
+            dev, T, B, lay, qbits)[1]
+    return out
+
+
 def cgs_mgru_layer_launches(dev, T, B, qbits, train):
     """One CGS-16x minimalGRU layer call's launches at (T, B) on each
     sparse kernel's route over the cfg's layout at the timed seed (every
@@ -3457,7 +3535,9 @@ ROUTE_KERNELS = (
     "ligru_step", "gru_dense_bwd_persist", "mgru_z_rebuild", "rows_dots",
     "lstm_fwd_persist", "lstm_step", "lstm_bwd_stash_persist",
     "lstm_bwd_step", "lstm_bwd_dh0", "rnn_fwd_persist", "rnn_step",
-    "rnn_bwd_persist", "rnn_bwd_step")
+    "rnn_bwd_persist", "rnn_bwd_step", "rnn_sparse_fwd_persist",
+    "rnn_sparse_step", "rnn_sparse_rebuild", "rnn_sparse_bwd_step",
+    "rnn_sparse_bwd_persist")
 
 
 def bptt_design(route, T, qbits=None, bf16=False):
@@ -3537,8 +3617,9 @@ def bptt_kernels(fn, want, tries=3):
     """Hold one call of the BPTT (or routed forward) ``fn`` to ``want``
     (bptt_design, ligru_bwd_design, gru_fwd_sparse_design,
     gru_fwd_design, ligru_fwd_design, mgru_bwd_design,
-    gru_bwd_stash_design, rnn_fwd_design, rnn_bwd_design): the kernel
-    records of the call (last_call_kernels) among ROUTE_KERNELS must be
+    gru_bwd_stash_design, rnn_fwd_design, rnn_bwd_design,
+    rnn_fwd_sparse_design, rnn_bwd_sparse_design): the kernel records of
+    the call (last_call_kernels) among ROUTE_KERNELS must be
     exactly those, so the route that ran is
     the one named. A trace that differs is taken again, up to ``tries``
     traces (the profiler can drop a record, device_kernels). The profiler
@@ -6149,19 +6230,32 @@ def build_rnn_sparse_stack(dev, feat_dim=TR_FEAT, quant_inp=True):
 
 
 def rnn_sparse_expect_serve(T):
-    """Launches per recognize: 4 layers x 1 sparse step per frame; no
-    dense RNN kernel."""
-    return expected(fused_rnn_fwd_sparse=RS_LAYERS * T)
+    """Launches per recognize: 4 layers of the sparse RNN forward at 8
+    rows, each its route's (rnn_sparse_layer_launches: one launch a layer
+    on the persistent route); no dense RNN kernel."""
+    return expected(fused_rnn_fwd_sparse=RS_LAYERS * rnn_sparse_layer_launches(
+        "cuda", T, N_UTT, 16, False)["fused_rnn_fwd_sparse"])
 
 
 def phase_rnn_sparse_kernels(dev):
     """The sparse RNN forward and BPTT kernels against their twins on the
-    same tensors, each launch counter checked (T and T + 1): qbits 0/16 x
+    same tensors, each on the route its plan names and its launch counter
+    checked against that route's count (rnn_fwd_sparse_launches,
+    rnn_bwd_sparse_launches), two calls bit for bit: qbits 0/16 x
     tanh/relu at the small shape (Kb=2, R=1), the serving shape (forward
-    only) and the training shape (Kb=8, R=2; and w3g in bf16); the
-    layer at RS_LARGE_TBH's 256 rows, where the JAX size rule says "",
-    on f32 w3g; rnn_scan_fused_sparse reading w3g in bf16 where a small
-    PKC_SPARSE_SCAN_VMEM_MB makes the rule say "bf16"."""
+    only) and the training shape (Kb=8, R=2; and w3g in bf16); the layer
+    at RS_LARGE_TBH's 256 rows (the step routes: 1,024 blocks are not
+    co-resident), where the JAX size rule says "", on f32 w3g;
+    rnn_scan_fused_sparse reading w3g in bf16 where a small
+    PKC_SPARSE_SCAN_VMEM_MB makes the rule say "bf16". Below 256 rows
+    each step route forced (fused_rnn._rnn_fwd_sparse_step,
+    _rnn_bwd_sparse_step) against the twin, the forward's hs and the
+    BPTT's dg bit for bit the persistent route's (both sum in the step
+    kernels' order), the BPTT's rebuilt a_pre bit for bit the step
+    route's; one relu, qbits 16, f32 call of each a shape held to its
+    route's device kernels by name (rnn_fwd_sparse_design,
+    rnn_bwd_sparse_design); rows 36 and 37 at every block shape of their
+    tables (rnn_sparse_shapes)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     checks = []
@@ -6170,63 +6264,174 @@ def phase_rnn_sparse_kernels(dev):
     for shape in (RS_SMALL_TBH, RS_SERVE_TBH, RS_TRAIN_TBH, RS_LARGE_TBH):
         T, B, H = shape
         small, serve = shape == RS_SMALL_TBH, shape == RS_SERVE_TBH
+        large = shape == RS_LARGE_TBH
         cases = [(q, a, False) for q in (0, 16) for a in ("tanh", "relu")]
         if shape == RS_TRAIN_TBH:
             cases += [(16, "relu", True), (0, "tanh", True)]
-        if shape == RS_LARGE_TBH:
+        if large:
             cases = [(16, "relu", False), (0, "tanh", False)]
         for qbits, act, bf16 in cases:
             k += 1
             inp = cgs_ligru_inputs(T, B, H, 500 + k, dev, act, 1)
             g, w3g, drop, dhs, lay = (inp[n] for n in ("g", "w3g", "drop",
                                                        "dhs", "layout"))
-            if shape == RS_LARGE_TBH and F.sparse_scan_fits(B, H, lay, 1):
+            if large and F.sparse_scan_fits(B, H, lay, 1):
                 raise AssertionError("rnn_sparse_kernels: the JAX size rule "
                                      "keeps %d rows" % B)
+            dbh = torch.broadcast_to(drop, (B, H)).contiguous()
             variant = {"qbits": qbits, "act": act, "Kb": lay.Kb, "R": lay.R,
                        "w3g": "bf16" if bf16 else "f32"}
             tol = TOL_BF16 if bf16 else (
                 TOL_Q16 if qbits else (TOL_F32_SMALL if small
                                        else TOL_F32_SERVE))
             where = dict(zip("TBH", shape))
+            kernels = (qbits, act, bf16) == (16, "relu", False)
+
+            def check(name, err_rel, tol_, by_rel, route):
+                record_check(checks, "rnn_sparse_kernels", name, where,
+                             dict(variant, route=route), err_rel, tol_,
+                             by_rel)
             with torch.no_grad():
-                hs = launched(fwd, T, lambda: fwd(g, w3g, drop, lay, act,
-                                                  qbits, bf16))
-                record_check(checks, "rnn_sparse_kernels",
-                             "fused_rnn_fwd_sparse", where, variant,
-                             rel_err(hs, R.fused_rnn_fwd_sparse_plain(
-                                 g, w3g, drop, lay, act, qbits, bf16)),
-                             tol, False)
+                fargs = (g, w3g, drop, lay, act, qbits, bf16)
+                route, n = rnn_fwd_sparse_launches(dev, T, B, lay, bf16)
+                hs = launched(fwd, n, lambda: fwd(*fargs))
+                ref = R.fused_rnn_fwd_sparse_plain(*fargs)
+                check("fused_rnn_fwd_sparse", rel_err(hs, ref), tol, False,
+                      route)
+                check("fused_rnn_fwd_sparse/determinism",
+                      same_bits(lambda: fwd(*fargs)), 0.0, False, route)
+                if kernels:
+                    bptt_kernels(lambda: fwd(*fargs),
+                                 rnn_fwd_sparse_design(route, T))
+                if not large:
+                    st = launched(fwd, T, lambda: R._rnn_fwd_sparse_step(
+                        g, w3g, dbh, lay, act, qbits, bf16))
+                    check("fused_rnn_fwd_sparse/step_route",
+                          rel_err(st, ref), tol, False, "step")
+                    check("fused_rnn_fwd_sparse/persist_vs_step",
+                          bits_apart(hs, st), 0.0, False, route)
                 if serve:
                     continue
                 h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
                 args = (g, w3g, drop, h_prev, dhs, lay, act, qbits, bf16)
-                record_check(checks, "rnn_sparse_kernels",
-                             "fused_rnn_bwd_sparse", where, variant,
-                             rel_err(launched(bwd, T + 1, lambda: bwd(*args)),
-                                     R.fused_rnn_bwd_sparse_plain(*args)),
-                             tol, True)
+                route, n = rnn_bwd_sparse_launches(dev, T, B, lay, qbits,
+                                                   bf16)
+                got = launched(bwd, n, lambda: bwd(*args))
+                ref = R.fused_rnn_bwd_sparse_plain(*args)
+                check("fused_rnn_bwd_sparse", rel_err(got, ref), tol, True,
+                      route)
+                check("fused_rnn_bwd_sparse/determinism",
+                      same_bits(lambda: bwd(*args)), 0.0, False, route)
+                if kernels:
+                    bptt_kernels(lambda: bwd(*args),
+                                 rnn_bwd_sparse_design(route, T, qbits))
+                if large:
+                    continue
+                dargs = (g, w3g, dbh, h_prev, dhs, lay, act, qbits, bf16)
+                dg_st, pre_st = launched(bwd, T + 1,
+                                         lambda: R._rnn_bwd_sparse_step(
+                                             *dargs, with_pre=True))
+                check("fused_rnn_bwd_sparse/step_route", rel_err(dg_st, ref),
+                      tol, True, "step")
+                check("fused_rnn_bwd_sparse/persist_vs_step",
+                      bits_apart(got, dg_st), 0.0, False, route)
+                if route == "persist":
+                    plan = R.rnn_bwd_sparse_route(B, lay, bf16, dev)[1]
+                    pre = launched(bwd, n, lambda: R._rnn_bwd_sparse_persist(
+                        plan, *dargs, with_pre=True))[1]
+                    check("fused_rnn_bwd_sparse/rebuild_pre_vs_step",
+                          bits_apart(pre, pre_st), 0.0, False, route)
     T, B, H = RS_BF16_TBH
     inp = cgs_ligru_inputs(T, B, H, 520, dev, "relu", 1)
     g, w3g, drop, lay = (inp[n] for n in ("g", "w3g", "drop", "layout"))
     with env("PKC_SPARSE_SCAN_VMEM_MB", RS_BF16_VMEM_MB), torch.no_grad():
         if F.sparse_scan_fits(B, H, lay, 1) != "bf16":
             raise AssertionError("rnn_sparse_kernels: no bf16 case")
-        hs = launched(fwd, T, lambda: R.rnn_scan_fused_sparse(
+        route, n = rnn_fwd_sparse_launches(dev, T, B, lay, True)
+        hs = launched(fwd, n, lambda: R.rnn_scan_fused_sparse(
             g, w3g, lay, drop, "relu", 16))
     record_check(checks, "rnn_sparse_kernels",
                  "fused_rnn_fwd_sparse/scan", dict(zip("TBH", RS_BF16_TBH)),
                  {"qbits": 16, "act": "relu", "Kb": lay.Kb, "R": lay.R,
                   "w3g": "bf16 (PKC_SPARSE_SCAN_VMEM_MB=%s)"
-                         % RS_BF16_VMEM_MB},
+                         % RS_BF16_VMEM_MB, "route": route},
                  rel_err(hs, R.fused_rnn_fwd_sparse_plain(
                      g, w3g, drop, lay, "relu", 16, True)), TOL_BF16, False)
+    shapes = rnn_sparse_shapes(checks, R, dev)
+    print("[rnn_sparse_kernels] rows 36 and 37 by block shape: %s"
+          % json.dumps(shapes))
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError("a sparse RNN kernel disagrees with its plain "
                              "twin: %s" % bad)
     return checks
+
+
+#: the steps at which rnn_sparse_shapes forces each block shape of rows
+#: 36 and 37 (at 8 bi - 3 rows, as mgru_sparse_shapes': one ragged row
+#: group)
+RS_SHAPES_T = 24
+
+
+def rnn_sparse_shapes(checks, R, dev):
+    """Rows 36 and 37's persistent routes forced to every block shape
+    their plans can take (fused_rnn.RNN_FWD_SPARSE_SHAPES,
+    RNN_BWD_SPARSE_SHAPES) at the CGS-16x layout, 8 bi - 3 rows of 1024,
+    relu, qbits 16, f32 w3g: each against its twin at TOL_Q16, the
+    forward's hs and the BPTT's dg and rebuilt a_pre bit for bit its step
+    route's; a shape whose grid is not co-resident is recorded as
+    skipped."""
+    out = {}
+    for kind, shapes in (("fwd", R.RNN_FWD_SPARSE_SHAPES),
+                         ("bwd", R.RNN_BWD_SPARSE_SHAPES)):
+        for bi, un in shapes:
+            T, B, H = RS_SHAPES_T, 8 * bi - 3, RS_TRAIN_TBH[2]
+            inp = cgs_ligru_inputs(T, B, H, 540 + bi + un, dev, "relu", 1)
+            g, w3g, drop, dhs, lay = (inp[n] for n in (
+                "g", "w3g", "drop", "dhs", "layout"))
+            dbh = torch.broadcast_to(drop, (B, H)).contiguous()
+            where = {"T": T, "B": B, "H": H}
+            variant = {"qbits": 16, "act": "relu", "Kb": lay.Kb, "R": lay.R,
+                       "w3g": "f32", "route": "persist",
+                       "block": "%d units x %d rows" % (un, 8 * bi)}
+            kernel = "fused_rnn_%s_sparse" % kind
+            plan = (R.rnn_fwd_sparse_plan(B, lay, (bi, un)) if kind == "fwd"
+                    else R.rnn_bwd_sparse_plan(B, H, lay.bs, lay.C,
+                                               (bi, un)))
+            if not co_resident(kernel, plan):
+                out["%s %s" % (kind, variant["block"])] = "not co-resident"
+                continue
+
+            def check(name, err_rel, tol, by_rel):
+                record_check(checks, "rnn_sparse_kernels", kernel + name,
+                             where, variant, err_rel, tol, by_rel)
+            with torch.no_grad():
+                fargs = (g, w3g, dbh, lay, "relu", 16, False)
+                if kind == "fwd":
+                    hs = R._rnn_fwd_sparse_persist(plan, *fargs)
+                    check("/block", rel_err(
+                        hs, R.fused_rnn_fwd_sparse_plain(*fargs)), TOL_Q16,
+                        False)
+                    check("/block_vs_step", bits_apart(
+                        hs, R._rnn_fwd_sparse_step(*fargs)), 0.0, False)
+                else:
+                    hs = R.fused_rnn_fwd_sparse(*fargs)
+                    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                    args = (g, w3g, dbh, h_prev, dhs, lay, "relu", 16, False)
+                    dg, pre = R._rnn_bwd_sparse_persist(plan, *args,
+                                                        with_pre=True)
+                    dg_st, pre_st = R._rnn_bwd_sparse_step(*args,
+                                                           with_pre=True)
+                    check("/block", rel_err(
+                        dg, R.fused_rnn_bwd_sparse_plain(*args)), TOL_Q16,
+                        True)
+                    check("/block_vs_step", bits_apart(dg, dg_st), 0.0,
+                          False)
+                    check("/block_rebuild_pre_vs_step",
+                          bits_apart(pre, pre_st), 0.0, False)
+            out["%s %s" % (kind, variant["block"])] = "checked"
+    return out
 
 
 def phase_rnn_sparse_stream(dev, rec, audio, lens, phones, logp, noq,
@@ -6284,9 +6489,10 @@ def phase_rnn_sparse_train(dev):
     """One train step on the card against the CPU, held to GRAD_FLIP_K
     times the CPU's own one-ulp sensitivity (relu behind the 16-bit ceil
     quantizers, as the TIMIT RNN's and the Li-GRU's), launches per step
-    (the sparse kernels alone: T per layer forward, T + 1 per layer
-    backward, one dw launch per layer; no dense RNN kernel; the same
-    under PKC_BWD_STASH_CELLS=rnn, as the sparse RNN has no stash
+    (the sparse kernels alone, each layer call its route's,
+    rnn_sparse_layer_launches: 1 forward and 4 backward a layer on the
+    persistent routes; one dw launch per layer; no dense RNN kernel; the
+    same under PKC_BWD_STASH_CELLS=rnn, as the sparse RNN has no stash
     variant), 10 steps in f32 and bf16 at TR_FALL_LR_SCALE times the
     cfg's rates (the cfg's own diverge on random labels, in both
     packages); the same step with rnn_act=tanh and no 16-bit quantizers
@@ -6300,9 +6506,9 @@ def phase_rnn_sparse_train(dev):
     print("[rnn_sparse_train] the CPU's own gradients under a one-ulp change "
           "of x: worst rel change %.3g at %s; card vs CPU bar %.3g"
           % (sens, where, grad_tol))
-    want = expected(fused_rnn_fwd_sparse=RS_LAYERS * T,
-                    fused_rnn_bwd_sparse=RS_LAYERS * (T + 1),
-                    block_sparse_dw=RS_LAYERS)
+    n = rnn_sparse_layer_launches(dev, T, RS_TRAIN_TBH[1], 16, True)
+    want = expected(block_sparse_dw=RS_LAYERS,
+                    **{k: RS_LAYERS * v for k, v in n.items()})
     out = phase_train(dev, rnn_sparse_train_runner, "rnn_sparse_train", (
         ("recompute", knob, None, want), ("stash_knob", knob, "rnn", want)),
         grad_tol=grad_tol, fall_runner=lambda d, cdt="":
@@ -6323,8 +6529,10 @@ def phase_rnn_sparse_times(dev, rec, audio, lens):
     """CUDA-event times of the sparse RNN kernels per layer call at the
     training shape (the forward also at the serving shape), as the model
     runs them (relu, 16-bit recurrent quantizer, Kb=8, R=2, f32 w3g);
-    their twins and bounds; the dense fused RNN kernels on the same layer
-    (the masked U); cuDNN's nn.RNN(1024, 1024, relu) at B=8 as a
+    their twins and bounds; each one's route and plan, us a step, the
+    BPTT's rebuild / chain split, each block shape of their tables
+    (forced, co-resident ones); the dense fused RNN kernels on the same
+    layer (the masked U); cuDNN's nn.RNN(1024, 1024, relu) at B=8 as a
     yardstick (dense, no quantizer: not the same function); the dU dw
     product; the CGS-16x RNN train step and recognize."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
@@ -6357,6 +6565,13 @@ def phase_rnn_sparse_times(dev, rec, audio, lens):
         times["fused_rnn_fwd_sparse_ms_q0"] = cuda_ms(
             lambda: R.fused_rnn_fwd_sparse(g, w3g, drop, lay, act, 0),
             reps=10)
+        for k in ("fused_rnn_fwd_sparse", "fused_rnn_bwd_sparse"):
+            times[k + "_plan"] = chain_route(dev, k, B, layout=lay)[1]
+            times[k + "_us_per_step"] = 1e3 * times[k + "_ms"] / T
+        times["fused_rnn_bwd_sparse_split"] = bptt_split(
+            calls["fused_rnn_bwd_sparse"][0], 3)
+        times.update(rnn_sparse_block_shapes(g, w3g, drop, h_prev, dhs, lay,
+                                             act, qb))
         # the dense RNN kernels on the same layer: the masked U
         U = torch.as_tensor(np.ascontiguousarray(
             BS.unpack_w3(w3g.cpu().numpy(), lay), np.float32), device=dev)
@@ -6381,6 +6596,8 @@ def phase_rnn_sparse_times(dev, rec, audio, lens):
     times.update(cudnn_times(dev, T, B, H, Ts, Bs,
                              torch.nn.RNN(H, H, nonlinearity="relu"),
                              "cudnn_rnn1024"))
+    times["serve_fwd_plan"] = chain_route(dev, "fused_rnn_fwd_sparse", Bs,
+                                          layout=lay)[1]
     print("[rnn_sparse_times] kernels at T=%d B=%d H=%d (relu, qbits 16, "
           "Kb=%d, R=%d): %s" % (T, B, H, lay.Kb, lay.R, json.dumps(times)))
     step = train_step_times(dev, rnn_sparse_train_runner, "rnn_sparse_times",
@@ -6579,15 +6796,23 @@ def slice10_rows(checks, times, launches):
     return [
         row("fused_rnn_fwd_sparse", 1779, times["cudnn_rnn1024_fwd_ms"],
             yard % "forward", ms_q0=times["fused_rnn_fwd_sparse_ms_q0"],
+            plan=times["fused_rnn_fwd_sparse_plan"],
+            us_per_step=times["fused_rnn_fwd_sparse_us_per_step"],
+            by_block_shape=times["fused_rnn_fwd_sparse_by_block_shape"],
             dense_fused_rnn_fwd_ms=times["dense_fused_rnn_fwd_ms"],
             serve={"T": RS_SERVE_TBH[0], "B": RS_SERVE_TBH[1], "H": H,
                    "ms": times["serve_fwd_ms"],
                    "plain_ms": times["serve_fwd_plain_ms"],
                    "bound_ms": times["serve_fwd_bound_ms"],
                    "bound_by": times["serve_fwd_bound_by"],
-                   "library_ms": times["cudnn_rnn1024_serve_fwd_ms"]}),
+                   "library_ms": times["cudnn_rnn1024_serve_fwd_ms"],
+                   "plan": times["serve_fwd_plan"]}),
         row("fused_rnn_bwd_sparse", 1818, times["cudnn_rnn1024_bwd_ms"],
             yard % "backward (fwd+bwd minus fwd)",
+            plan=times["fused_rnn_bwd_sparse_plan"],
+            split=times["fused_rnn_bwd_sparse_split"],
+            us_per_step=times["fused_rnn_bwd_sparse_us_per_step"],
+            by_block_shape=times["fused_rnn_bwd_sparse_by_block_shape"],
             dense_fused_rnn_bwd_ms=times["dense_fused_rnn_bwd_ms"],
             dU_dw_ms=times["dU_dw_ms"])]
 
@@ -7533,7 +7758,8 @@ def kernels_by_name(fn, reps=5):
 CHAIN_KERNELS = ("gru_torch_bwd_step", "gru_torch_bwd_persist",
                  "gru_bwd_carry", "gru_bwd_ds", "gru_bwd_persist",
                  "ligru_bwd_step", "ligru_bwd_persist",
-                 "gru_dense_bwd_persist", "rnn_bwd_step", "rnn_bwd_persist")
+                 "gru_dense_bwd_persist", "rnn_bwd_step", "rnn_bwd_persist",
+                 "rnn_sparse_bwd_step", "rnn_sparse_bwd_persist")
 
 
 def bptt_split(fn, reps=5):
@@ -7621,7 +7847,9 @@ def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
                "fused_rnn_fwd": "rnn_fwd_plan",
                "fused_rnn_bwd": "rnn_bwd_plan",
                "fused_mgru_fwd_sparse": "gru_fwd_sparse_plan",
-               "fused_mgru_bwd_sparse": "mgru_bwd_sparse_plan"}[kernel]
+               "fused_mgru_bwd_sparse": "mgru_bwd_sparse_plan",
+               "fused_rnn_fwd_sparse": "rnn_fwd_sparse_plan",
+               "fused_rnn_bwd_sparse": "rnn_bwd_sparse_plan"}[kernel]
     if not hasattr(F if kernel in LSTM_PERSIST else R, plan_fn):
         return {}
     out = {}
@@ -7854,6 +8082,114 @@ def mgru_sparse_turn_times(dev, t):
     del sp, sv, hs, h_prev
 
 
+def rnn_sparse_block_shapes(g, w3g, drop, h_prev, dhs, lay, act, qb,
+                            reps=10):
+    """ms per call of rows 36 and 37's persistent routes forced to each
+    block shape of their tables (forced_plan_ms: co-resident ones only)
+    on these operands: {"fused_rnn_{fwd,bwd}_sparse_by_block_shape": ...};
+    {} each for a package without the routes."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    B, H = g.shape[1], g.shape[2]
+    dbh = torch.broadcast_to(drop, (B, H)).contiguous()
+
+    def fwd_plan(shape_, run=False):
+        plan = R.rnn_fwd_sparse_plan(B, lay, shape_)
+        return (R._rnn_fwd_sparse_persist(plan, g, w3g, dbh, lay, act, qb,
+                                          False) if run else plan)
+
+    def bwd_plan(shape_, run=False):
+        plan = R.rnn_bwd_sparse_plan(B, H, lay.bs, lay.C, shape_)
+        return (R._rnn_bwd_sparse_persist(plan, g, w3g, dbh, h_prev, dhs,
+                                          lay, act, qb, False)
+                if run else plan)
+    return {
+        "fused_rnn_fwd_sparse_by_block_shape": forced_plan_ms(
+            "fused_rnn_fwd_sparse", fwd_plan, reps,
+            getattr(R, "RNN_FWD_SPARSE_SHAPES", ())),
+        "fused_rnn_bwd_sparse_by_block_shape": forced_plan_ms(
+            "fused_rnn_bwd_sparse", bwd_plan, reps,
+            getattr(R, "RNN_BWD_SPARSE_SHAPES", ()))}
+
+
+def rnn_sparse_turn_times(dev, t):
+    """phase_rnn_turn_times' rows 36 and 37 into ``t`` (relu, qbits 16, as
+    the CGS-16x RNN runs them, f32 w3g) at its train shape (the seed of
+    phase_rnn_sparse_times): ms and us per step of a call, row 36 also
+    without the quantizer and at the serve shape; route and plan, row
+    37's rebuild / chain split, each block shape of their tables forced
+    (co-resident ones), the step routes forced where the package has the
+    persistent ones, and the output digests: train (and serve for row
+    36), qbits 0 and 16, relu and tanh, f32 and bf16 w3g (equal across
+    trees: both routes give the step route's bits)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
+    T, B, H = RS_TRAIN_TBH
+    Ts, Bs, _ = RS_SERVE_TBH
+    new = hasattr(R, "rnn_fwd_sparse_route")
+    with torch.no_grad():
+        digests = {}
+        for act in ("relu", "tanh"):
+            sp = cgs_ligru_inputs(T, B, H, 530, dev, act, 1)
+            sv = cgs_ligru_inputs(Ts, Bs, H, 531, dev, act, 1)
+            for qb in (0, 16):
+                for bf16 in (False, True):
+                    tag = "%s_q%d_%s" % (act, qb, "bf16" if bf16 else "f32")
+                    hs = R.fused_rnn_fwd_sparse(sp["g"], sp["w3g"],
+                                                sp["drop"], sp["layout"],
+                                                act, qb, bf16)
+                    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                    digests["fwd_" + tag] = digest(hs)
+                    digests["serve_fwd_" + tag] = digest(
+                        R.fused_rnn_fwd_sparse(sv["g"], sv["w3g"], sv["drop"],
+                                               sv["layout"], act, qb, bf16))
+                    digests["bwd_" + tag] = digest(R.fused_rnn_bwd_sparse(
+                        sp["g"], sp["w3g"], sp["drop"], h_prev, sp["dhs"],
+                        sp["layout"], act, qb, bf16))
+            del sv
+        sp = cgs_ligru_inputs(T, B, H, 530, dev, "relu", 1)
+        g, w3g, drop, dhs, lay = (sp[n] for n in ("g", "w3g", "drop", "dhs",
+                                                  "layout"))
+        sv = cgs_ligru_inputs(Ts, Bs, H, 531, dev, "relu", 1)
+        dbh = torch.broadcast_to(drop, (B, H)).contiguous()
+        fcall = lambda: R.fused_rnn_fwd_sparse(g, w3g, drop, lay, "relu", 16)
+        hs = fcall()
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        bcall = lambda: R.fused_rnn_bwd_sparse(g, w3g, drop, h_prev, dhs,
+                                               lay, "relu", 16)
+        shapes = rnn_sparse_block_shapes(g, w3g, drop, h_prev, dhs, lay,
+                                         "relu", 16)
+        fms, bms = cuda_ms(fcall, 10), cuda_ms(bcall, 10)
+        t["row36"] = {
+            "ms": fms, "us_per_step": 1e3 * fms / T,
+            "ms_q0": cuda_ms(lambda: R.fused_rnn_fwd_sparse(
+                g, w3g, drop, lay, "relu", 0), 10),
+            "serve_ms": cuda_ms(lambda: R.fused_rnn_fwd_sparse(
+                sv["g"], sv["w3g"], sv["drop"], sv["layout"], "relu", 16),
+                10),
+            "plan": chain_route(dev, "fused_rnn_fwd_sparse", B,
+                                layout=lay)[1],
+            "by_block_shape": shapes["fused_rnn_fwd_sparse_by_block_shape"],
+            "digests": {k[4:]: v for k, v in digests.items()
+                        if k.startswith("fwd_")},
+            "serve_digests": {k[10:]: v for k, v in digests.items()
+                              if k.startswith("serve_fwd_")}}
+        t["row37"] = {
+            "ms": bms, "us_per_step": 1e3 * bms / T,
+            "plan": chain_route(dev, "fused_rnn_bwd_sparse", B,
+                                layout=lay)[1],
+            "split": bptt_split(bcall, 3),
+            "by_block_shape": shapes["fused_rnn_bwd_sparse_by_block_shape"],
+            "digests": {k[4:]: v for k, v in digests.items()
+                        if k.startswith("bwd_")}}
+        if new:
+            t["row36"]["step_route_ms"] = cuda_ms(
+                lambda: R._rnn_fwd_sparse_step(g, w3g, dbh, lay, "relu", 16,
+                                               False), 10)
+            t["row37"]["step_route_ms"] = cuda_ms(
+                lambda: R._rnn_bwd_sparse_step(g, w3g, dbh, h_prev, dhs, lay,
+                                               "relu", 16, False), 10)
+    del sp, sv, hs, h_prev
+
+
 def phase_rnn_turn_times(dev):
     """The redesigned rows at their timed shapes (gru_torch_times',
     gru_times', ligru_times', libri_ligru_times', timit_gru_times' and
@@ -7876,7 +8212,8 @@ def phase_rnn_turn_times(dev):
     as the CGS-16x RNN's seeded chunk of 100, each block shape of its
     table at the train shape, its output digests; row 29 (relu) at the
     TIMIT RNN's train shape (rnn_bwd_turn_times); rows 34 and 35 at the
-    CGS-16x minimalGRU's shapes (mgru_sparse_turn_times); rows 17, 21,
+    CGS-16x minimalGRU's shapes (mgru_sparse_turn_times); rows 36 and 37
+    at the CGS-16x RNN's (rnn_sparse_turn_times); rows 17, 21,
     22, 23, 25, 28, 33, 13 (libri G=3, 8-bit, submask) and 15 (the libri
     v3 dw) as the rows that must not move; rows 1 and 3
     (lstm_turn_times). Public wrappers only (and the forced plans where
@@ -8099,6 +8436,7 @@ def phase_rnn_turn_times(dev):
         t["row29"] = rnn_bwd_turn_times(dev, g, U, drop, h_prev, dhs)
         del fi, g, U, drop, h0, dhs, sv, ck, hs, acts, h_prev
         mgru_sparse_turn_times(dev, t)
+        rnn_sparse_turn_times(dev, t)
         M = GR_TRAIN_TBH[0] * GR_TRAIN_TBH[1]
         v = v3_inputs(M, 3, 234, dev)
         x = BS.pad_cols(v["x"], v["layout"].K).contiguous()
@@ -8121,11 +8459,12 @@ def rnn_times_main(root):
     """``python3 chip_smoke.py --rnn-times [DIR]``: phase_rnn_turn_times,
     the f32 train steps of the libri GRU, the libri and TIMIT Li-GRUs,
     the TIMIT GRU, the TIMIT RNN, the minimalGRU, the CGS-16x minimalGRU,
-    the flagship LSTM, the CGS-16x LSTM as shipped (the dense kernels, 8
-    rows) and under ``auto`` (CUDA events, mean of 5 after 2; all but the
-    last also profiled once: device ms and kernel records by class of
-    kernel, busy share), and the TIMIT GRU's, the TIMIT RNN's, both
-    minimalGRUs' and the TIMIT and libri Li-GRUs' recognize (8 x 4 s:
+    the CGS-16x RNN, the flagship LSTM, the CGS-16x LSTM as shipped (the
+    dense kernels, 8 rows) and under ``auto`` (CUDA events, mean of 5
+    after 2; all but the last also profiled once: device ms and kernel
+    records by class of kernel, busy share), and the TIMIT GRU's, the
+    TIMIT RNN's, both minimalGRUs', the CGS-16x RNN's and the TIMIT and
+    libri Li-GRUs' recognize (8 x 4 s:
     serve_timings, launches by kernel), with
     the package of this checkout or of the tree unpacked at DIR inside it
     (as ``--gemm-times``; run parent, change, change, parent in one
@@ -8156,6 +8495,7 @@ def rnn_times_main(root):
                       ("timit_rnn", timit_rnn_train_runner),
                       ("mgru", mgru_train_runner),
                       ("cgs_mgru", cgs_mgru_train_runner),
+                      ("cgs16x_rnn", rnn_sparse_train_runner),
                       ("flagship", train_runner),
                       ("cgs16x_lstm_shipped", cgs_shipped_train_runner),
                       ("cgs16x_lstm", cgs_train_runner)):
@@ -8178,6 +8518,7 @@ def rnn_times_main(root):
                        ("timit_rnn", build_timit_rnn_stack),
                        ("mgru", build_mgru_stack),
                        ("cgs_mgru", build_cgs_mgru_stack),
+                       ("cgs16x_rnn", build_rnn_sparse_stack),
                        ("timit_ligru", build_ligru_stack),
                        ("libri_ligru", build_libri_ligru_stack)):
         rec = build_recognizer(dev, stack)

@@ -50,8 +50,9 @@ with the step kernel's bits; the BPTT's rebuilds every step's
 pre-activations as one GEMM and runs the reverse chain as one cooperative
 launch; "step", where the blocks do not fit or are not co-resident,
 launches one kernel per step. The sparse GRU's forward and BPTT, the
-dense GRU's and minimalGRU's forward, the minimalGRU's recompute BPTT and
-the torch-semantics GRU's BPTT route the same way (their notes below).
+dense GRU's and minimalGRU's forward, the minimalGRU's recompute BPTT,
+the RNN's forward and recompute BPTT (dense and block-sparse) and the
+torch-semantics GRU's BPTT route the same way (their notes below).
 """
 
 from __future__ import annotations
@@ -2702,8 +2703,10 @@ def rnn_scan_fused_stream(gates_t: torch.Tensor, U: torch.Tensor,
 # -- the block-sparse RNN: TPU kernels _build_rnn_fwd_sparse and
 # _build_rnn_bwd_sparse become csrc/fused_rnn_sparse.cu. U's kept blocks
 # pack into w3g (Nb, bs, R*bs) and the step's product runs over them only.
-# The backward rebuilds a_pre for all steps at once, then runs one launch
-# per reverse step, the carry dg @ U gathered per block column; dU is one
+# The backward rebuilds a_pre for all steps at once, then runs the
+# reverse chain, the carry dg @ U gathered per block column; each picks a
+# route before the launch: one cooperative launch for all steps where the
+# blocks fit and are co-resident, else a launch a step. dU is one
 # block-sparse dw product (G=1) over q(h_{t-1}). As in the JAX package
 # there is no stash variant.
 
@@ -2763,9 +2766,12 @@ def fused_rnn_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     of U (TPU kernel ``_build_rnn_fwd_sparse``): ``gates`` (T, B, H)
     float32, ``w3g`` (Nb, bs, R*bs) float32 (cast to bf16 for the kernel
     when ``bf16``), ``drop`` broadcastable to (B, H). -> hs (T, B, H).
-    CUDA tensors run the kernel (one launch per step), CPU tensors the
-    twin; no autograd of its own (:func:`rnn_scan_fused_sparse` carries
-    the BPTT kernel)."""
+    CUDA tensors run the kernels on the route :func:`rnn_fwd_sparse_route`
+    picks before the launch: "persist" (all steps in one cooperative
+    launch) where the blocks fit and are co-resident, else "step" (a
+    launch per step); both give the same bits. CPU tensors run the twin;
+    no autograd of its own (:func:`rnn_scan_fused_sparse` carries the
+    BPTT kernel)."""
     T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act, (),
                                   gates=1)
     if _needs_grad(gates, w3g):
@@ -2774,29 +2780,158 @@ def fused_rnn_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     if gates.device.type == "cpu":
         return fused_rnn_fwd_sparse_plain(gates, w3g, drop, layout, act,
                                           qbits, bf16)
-    from . import _build
-    lib = _build.load("fused_rnn_sparse")
-    fn = lib.fused_rnn_fwd_sparse
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    route, plan = rnn_fwd_sparse_route(B, layout, bf16, gates.device)
+    if route == "persist":
+        return _rnn_fwd_sparse_persist(plan, gates, w3g, drop, layout, act,
+                                       qbits, bf16)
+    return _rnn_fwd_sparse_step(gates, w3g, drop, layout, act, qbits, bf16)
+
+
+def _rnn_fwd_sparse_step(gates, w3g, drop, layout, act, qbits, bf16):
+    """The sparse forward (checked operands, ``drop`` (B, H)) on the step
+    route: a launch a step. -> hs (T, B, H)."""
+    from . import block_sparse as BS
+    T, B, H = gates.shape
     dev = gates.device
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     qslots = torch.empty(T + 1 if qbits > 0 else 1, dtype=torch.int32,
                          device=dev)
     wk = _sparse_w(w3g, bf16)
-    with torch.cuda.device(dev):
-        rc = fn(gates.data_ptr(), wk.data_ptr(),
+    BS._launch("fused_rnn_sparse", "fused_rnn_fwd_sparse", dev,
+               (gates.data_ptr(), wk.data_ptr(),
                 layout.device_index("col_idx", dev).data_ptr(),
-                drop.data_ptr(), hs.data_ptr(), qslots.data_ptr(), T, B, H,
-                layout.R, layout.bs, _ACT_CODE[act], qbits, int(bf16),
-                _stream(dev))
-    _build.check(lib, rc, "fused_rnn_fwd_sparse")
-    fused_rnn_fwd_sparse.launches += T
+                drop.data_ptr(), hs.data_ptr(), qslots.data_ptr()),
+               (T, B, H, layout.R, layout.bs, _ACT_CODE[act], qbits,
+                int(bf16)))
+    fused_rnn_fwd_sparse.launches += rnn_fwd_sparse_launches("step", T)
+    return hs
+
+
+def _rnn_fwd_sparse_persist(plan, gates, w3g, drop, layout, act, qbits,
+                            bf16):
+    """The sparse forward on the persistent route (``plan``: its
+    PersistPlan, :func:`rnn_fwd_sparse_plan`): all T steps in one
+    cooperative launch. -> hs (T, B, H)."""
+    from . import block_sparse as BS
+    T, B, H = gates.shape
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    # each block's max|h| of the last two steps, for the quantizer
+    bmax = torch.empty(2 * plan.grid if qbits > 0 else 1, dtype=torch.int32,
+                       device=dev)
+    wk = _sparse_w(w3g, bf16)
+    BS._launch("fused_rnn_sparse", "rnn_fwd_sparse_persist", dev,
+               (gates.data_ptr(), wk.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                drop.data_ptr(), hs.data_ptr(), bmax.data_ptr()),
+               (T, B, H, layout.R, layout.bs, _ACT_CODE[act], qbits,
+                int(bf16), plan.grid, plan.bi, plan.units, plan.smem))
+    fused_rnn_fwd_sparse.launches += rnn_fwd_sparse_launches("persist", T)
     return hs
 
 
 fused_rnn_fwd_sparse.launches = 0
+
+
+def _rnn_sparse_plan(B: int, H: int, bs: int, K: int, static: int,
+                     shape: Optional[tuple]) -> PersistPlan:
+    """A sparse RNN chain at batch B, width H and block size bs whose
+    block keeps its units' K-long weight rows resident as rows (the step
+    kernels' dot order, no padding), stages K values a row per step (at a
+    stride of :func:`_row_stride` (K)) and keeps one sum a row and unit:
+    ``shape`` (bi, units) forced, else :func:`_shape`, 16 units only where
+    bs holds them."""
+    bi, un = shape or _shape(B, WIDE_SHAPE if bs % 16 == 0 else (4, 8))
+    bt = 8 * bi
+    resident = 4 * un * K
+    smem = resident + 4 * bt * _row_stride(K) + 4 * bt * un
+    grid = (H // un) * -(-B // bt)
+    return PersistPlan(bi, un, grid, smem, static, resident,
+                       4 * min(bt, B) * K)
+
+
+def rnn_fwd_sparse_plan(B: int, layout, shape: Optional[tuple] = None
+                        ) -> PersistPlan:
+    """The sparse RNN forward's persistent chain at batch B over
+    ``layout`` (``shape`` forces (bi, units), one of
+    :data:`RNN_FWD_SPARSE_SHAPES`; :func:`_rnn_sparse_plan`): a block owns
+    units of one out-block with their R*bs-long rows of w3g resident and
+    stages q(h_{t-1}) at the out-block's R kept column blocks per step."""
+    return _rnn_sparse_plan(B, layout.N, layout.bs, layout.R * layout.bs, 0,
+                            shape)
+
+
+#: the sparse RNN forward's block shapes (bi, units) that
+#: fused_rnn_sparse.cu instantiates (``PK_RNN_SPARSE_FWD_SHAPE``): the
+#: plan's
+RNN_FWD_SPARSE_SHAPES = ((1, 8), (2, 8), (4, 8), (2, 16))
+
+
+def rnn_fwd_sparse_route(B: int, layout, bf16: bool, dev) -> tuple:
+    """(route, plan) of :func:`fused_rnn_fwd_sparse` at batch B over
+    ``layout`` on the card ``dev``: "step" where the block's units do not
+    divide bs."""
+    plan = rnn_fwd_sparse_plan(B, layout)
+    if layout.bs % plan.units:
+        return "step", plan
+    return _route(plan, "fused_rnn_sparse", "rnn_fwd_sparse_occupancy",
+                  (int(bf16), plan.bi, plan.units), torch.device(dev)), plan
+
+
+def rnn_fwd_sparse_launches(route: str, T: int) -> int:
+    """Kernels one :func:`fused_rnn_fwd_sparse` call launches on
+    ``route`` (as its counter counts them): "persist" the one cooperative
+    launch, "step" one a step."""
+    return 1 if route == "persist" else T
+
+
+def rnn_bwd_sparse_plan(B: int, H: int, bs: int, C: int,
+                        shape: Optional[tuple] = None) -> PersistPlan:
+    """The sparse RNN BPTT's persistent reverse chain at batch B, width H,
+    block size bs and at most C kept blocks in a block column (``shape``
+    forces (bi, units), one of :data:`RNN_BWD_SPARSE_SHAPES`;
+    :func:`_rnn_sparse_plan`): a block owns units of one block column
+    with their columns of U at each of the column's entries resident as
+    rows (C*bs floats a unit at most) and stages dg_{t+1} at the entries'
+    out-blocks per reverse step; its static shared memory holds the
+    column's entry lists."""
+    return _rnn_sparse_plan(B, H, bs, C * bs, _PERSIST_SPARSE_STATIC, shape)
+
+
+#: the sparse RNN chain's block shapes (bi, units) that
+#: fused_rnn_sparse.cu instantiates (``PK_RNN_SPARSE_BWD_SHAPE``): the
+#: forward's, whose plan it shares
+RNN_BWD_SPARSE_SHAPES = RNN_FWD_SPARSE_SHAPES
+
+
+def rnn_sparse_rebuild_smem(layout) -> int:
+    """Dynamic shared memory of a block of the sparse RNN BPTT's rebuild
+    (``rnn_sparse_rebuild``): 16 resident rows of w3g (R*bs floats each),
+    32 staged rows of the unrolled batch at a stride of
+    :func:`_row_stride` (R*bs), and their sums."""
+    K3 = layout.R * layout.bs
+    return 4 * (16 * K3 + 32 * _row_stride(K3) + 32 * 16)
+
+
+def rnn_bwd_sparse_route(B: int, layout, bf16: bool, dev) -> tuple:
+    """(route, plan) of :func:`fused_rnn_bwd_sparse` at batch B over
+    ``layout`` on the card ``dev``: "step" where bs is not a multiple of
+    32 (the chain's sums are the step kernel's only then) or of the
+    block's units, or the rebuild's block does not fit."""
+    plan = rnn_bwd_sparse_plan(B, layout.N, layout.bs, layout.C)
+    if layout.bs % 32 or layout.bs % plan.units or \
+            rnn_sparse_rebuild_smem(layout) > _SMEM_MAX:
+        return "step", plan
+    return _route(plan, "fused_rnn_sparse", "rnn_bwd_sparse_occupancy",
+                  (int(bf16), plan.bi, plan.units), torch.device(dev)), plan
+
+
+def rnn_bwd_sparse_launches(route: str, T: int, qbits: int) -> int:
+    """Kernels one :func:`fused_rnn_bwd_sparse` call launches on ``route``
+    (as its counter counts them): "persist" the rebuild and the chain,
+    and with the quantizer the per-step scales and q(h_prev); "step" the
+    rebuild and one a reverse step."""
+    return 2 + 2 * int(qbits > 0) if route == "persist" else T + 1
 
 
 def fused_rnn_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
@@ -2806,9 +2941,12 @@ def fused_rnn_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     """Sparse RNN BPTT (TPU kernel ``_build_rnn_bwd_sparse``): ``gates``
     are the forward's inputs, ``h_prev`` (T, B, H) the carries entering
     each step, ``dhs`` (T, B, H) the upstream cotangents. -> dg
-    (T, B, H). CUDA tensors run the kernel (one launch for the
-    pre-activations of all steps, then one per reverse step), CPU
-    tensors the twin."""
+    (T, B, H). CUDA tensors run the kernels on the route
+    :func:`rnn_bwd_sparse_route` picks before the launch: "persist" (the
+    pre-activations of all steps rebuilt in the forward's order, then the
+    reverse chain in one cooperative launch), else "step" (the rebuild,
+    then one launch per reverse step); both give the same bits. CPU
+    tensors run the twin."""
     seqs = (("h_prev", h_prev), ("dhs", dhs))
     T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act,
                                   seqs, gates=1)
@@ -2816,17 +2954,26 @@ def fused_rnn_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     if gates.device.type == "cpu":
         return fused_rnn_bwd_sparse_plain(gates, w3g, drop, h_prev, dhs,
                                           layout, act, qbits, bf16)
+    route, plan = rnn_bwd_sparse_route(B, layout, bf16, gates.device)
+    if route == "persist":
+        return _rnn_bwd_sparse_persist(plan, gates, w3g, drop, h_prev, dhs,
+                                       layout, act, qbits, bf16)
+    return _rnn_bwd_sparse_step(gates, w3g, drop, h_prev, dhs, layout, act,
+                                qbits, bf16)
+
+
+def _rnn_bwd_sparse_step(gates, w3g, drop, h_prev, dhs, layout, act, qbits,
+                         bf16, with_pre=False):
+    """The sparse BPTT (checked operands, ``drop`` (B, H)) on the step
+    route: the rebuild of every step's a_pre, then a launch a reverse
+    step. -> dg (T, B, H), and with ``with_pre`` (dg, a_pre)."""
+    from . import block_sparse as BS
+    T, B, H = h_prev.shape
     smem = 4 * 8 * layout.C * layout.bs
     if smem + _GRU_BWD_STATIC > _SMEM_MAX:
         raise ValueError("fused_rnn_bwd_sparse: %d blocks per column of %d "
                          "need %d bytes of shared memory, more than a block "
                          "has" % (layout.C, layout.bs, smem))
-    from . import _build
-    lib = _build.load("fused_rnn_sparse")
-    fn = lib.fused_rnn_bwd_sparse
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     dev = gates.device
     wk = _sparse_w(w3g, bf16)
     wt = wk.transpose(1, 2).contiguous()      # (Nb, R*bs, bs): carry dots
@@ -2836,15 +2983,47 @@ def fused_rnn_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
                          device=dev)
     idx = [layout.device_index(n, dev).data_ptr()
            for n in ("col_idx", "t_row_idx", "t_perm")]
-    with torch.cuda.device(dev):
-        rc = fn(gates.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
+    BS._launch("fused_rnn_sparse", "fused_rnn_bwd_sparse", dev,
+               (gates.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
                 drop.data_ptr(), h_prev.data_ptr(), dhs.data_ptr(),
-                pre.data_ptr(), dg.data_ptr(), qslots.data_ptr(), T, B, H,
-                layout.R, layout.bs, layout.C, layout.nnz, _ACT_CODE[act],
-                qbits, int(bf16), _stream(dev))
-    _build.check(lib, rc, "fused_rnn_bwd_sparse")
-    fused_rnn_bwd_sparse.launches += T + 1
-    return dg
+                pre.data_ptr(), dg.data_ptr(), qslots.data_ptr()),
+               (T, B, H, layout.R, layout.bs, layout.C, layout.nnz,
+                _ACT_CODE[act], qbits, int(bf16)))
+    fused_rnn_bwd_sparse.launches += rnn_bwd_sparse_launches("step", T,
+                                                             qbits)
+    return (dg, pre) if with_pre else dg
+
+
+def _rnn_bwd_sparse_persist(plan, gates, w3g, drop, h_prev, dhs, layout,
+                            act, qbits, bf16, with_pre=False):
+    """The sparse BPTT on the persistent route (``plan``: its
+    PersistPlan, :func:`rnn_bwd_sparse_plan`): with the quantizer the
+    per-step scales and q(h_prev), the rebuild of every step's a_pre in
+    the forward's order, then the whole reverse chain in one cooperative
+    launch, all from one entry point. -> dg (T, B, H), and with
+    ``with_pre`` (dg, a_pre)."""
+    from . import block_sparse as BS
+    T, B, H = h_prev.shape
+    dev = gates.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    pre = torch.empty((T, B, H), **f32)
+    dg = torch.empty((T, B, H), **f32)
+    qh = torch.empty((T, B, H), **f32) if qbits > 0 else pre
+    qslots = torch.empty(T if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    wk = _sparse_w(w3g, bf16)
+    idx = [layout.device_index(n, dev).data_ptr()
+           for n in ("col_idx", "t_row_idx", "t_perm")]
+    BS._launch("fused_rnn_sparse", "rnn_bwd_sparse_persist", dev,
+               (gates.data_ptr(), wk.data_ptr(), *idx, drop.data_ptr(),
+                h_prev.data_ptr(), dhs.data_ptr(), qh.data_ptr(),
+                pre.data_ptr(), dg.data_ptr(), qslots.data_ptr()),
+               (T, B, H, layout.R, layout.bs, layout.C, layout.nnz,
+                _ACT_CODE[act], qbits, int(bf16), plan.grid, plan.bi,
+                plan.units, plan.smem))
+    fused_rnn_bwd_sparse.launches += rnn_bwd_sparse_launches("persist", T,
+                                                             qbits)
+    return (dg, pre) if with_pre else dg
 
 
 fused_rnn_bwd_sparse.launches = 0

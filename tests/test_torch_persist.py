@@ -496,6 +496,204 @@ def test_mgru_fwd_sparse_launches(route, T, n):
 
 
 # ---------------------------------------------------------------------------
+# the sparse RNN forward and BPTT (TPU rows 36 and 37)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B, bi, units, grid", [
+    (8, 1, 8, 128),                 # train (T=300) and serve (T=398)
+    (16, 2, 8, 128),
+    (32, 2, 16, 128),
+    (256, 2, 16, 1024),             # RS_LARGE_TBH
+])
+def test_rnn_fwd_sparse_plan_at_the_cgs16x_layout(B, bi, units, grid):
+    """Row 36: the sparse GRU forward's block shapes; the units' R*bs-long
+    rows of w3g resident as rows (row_dots' order, no padding), the
+    staged rows of q(h_{t-1}) and one sum a row and unit: 8 KB of w3g a
+    block at 8 units."""
+    layout = _cgs16x_layout()
+    plan = tfr.rnn_fwd_sparse_plan(B, layout)
+    bt, K3 = 8 * bi, 256
+    assert (plan.bi, plan.units, plan.grid, plan.static) == (bi, units,
+                                                             grid, 0)
+    assert plan.resident == 4 * units * K3
+    assert plan.smem == 4 * (units * K3 + bt * (K3 + 4) + bt * units)
+    assert plan.staged == 4 * min(bt, B) * K3
+    if B == 8:
+        assert (plan.resident, plan.staged, plan.smem) == (8192, 8192,
+                                                           16768)
+    forced = tfr.rnn_fwd_sparse_plan(B, layout, (4, 8))
+    assert (forced.bi, forced.units, forced.grid) == (4, 8, 128 * -(-B // 32))
+
+
+@pytest.mark.parametrize("B, bi, units, grid", [
+    (8, 1, 8, 128), (16, 2, 8, 128), (32, 2, 16, 128), (256, 2, 16, 1024)])
+def test_rnn_bwd_sparse_plan_at_the_cgs16x_layout(B, bi, units, grid):
+    """Row 37: a block owns units of one block column with their columns
+    of U at each of the column's (at most C = 5) entries resident as rows,
+    bs floats a unit and an entry (no padding: the step kernel's dot
+    order), the staged row of dg_{t+1} (C*bs values), one sum a row and
+    unit, and the entry lists in static shared memory."""
+    layout = _cgs16x_layout()
+    plan = tfr.rnn_bwd_sparse_plan(B, layout.N, layout.bs, layout.C)
+    bt, KC = 8 * bi, 5 * 128
+    assert (plan.bi, plan.units, plan.grid) == (bi, units, grid)
+    assert (plan.static, plan.resident) == (512, 4 * units * KC)
+    assert plan.smem == 4 * (units * KC + bt * (KC + 4) + bt * units)
+    assert plan.staged == 4 * min(bt, B) * KC
+    if B == 8:
+        assert (plan.resident, plan.staged, plan.smem) == (20480, 20480,
+                                                           41344)
+    forced = tfr.rnn_bwd_sparse_plan(B, layout.N, layout.bs, layout.C,
+                                     (4, 8))
+    assert (forced.bi, forced.units, forced.grid) == (4, 8, 128 * -(-B // 32))
+
+
+def test_rnn_sparse_rebuild_smem_at_the_cgs16x_layout():
+    """The BPTT's rebuild block: 16 rows of w3g (R*bs = 256 floats), 32
+    staged rows at a stride of 260 and their 32 x 16 sums, within a
+    block's shared memory; R = 8 kept blocks of 128 still fit."""
+    layout = _cgs16x_layout()
+    assert tfr.rnn_sparse_rebuild_smem(layout) == 4 * (16 * 256 + 32 * 260
+                                                       + 32 * 16) == 51712
+
+    class Wide:
+        bs, R = 128, 8
+    assert tfr.rnn_sparse_rebuild_smem(Wide) <= tfl._SMEM_MAX
+
+
+@pytest.mark.parametrize("B, blocks_per_sm, route", [
+    (8, 1, "persist"),              # train and serve: 128 blocks each
+    (16, 1, "persist"),
+    (32, 1, "persist"),
+    (256, 1, "step"),               # RS_LARGE_TBH: 1,024 blocks
+    (256, 7, "step"),               # 924 co-resident
+    (256, 8, "persist"),            # 1,056
+])
+def test_rnn_sparse_routes(B, blocks_per_sm, route):
+    """Both plans take "persist" where their grids are co-resident (every
+    block fits shared memory at the CGS-16x layout), "step" where not or
+    without cooperative launches."""
+    layout = _cgs16x_layout()
+    f = tfr.rnn_fwd_sparse_plan(B, layout)
+    b = tfr.rnn_bwd_sparse_plan(B, layout.N, layout.bs, layout.C)
+    for plan in (f, b):
+        assert plan.smem + plan.static <= tfl._SMEM_MAX
+        assert tfr.persist_route(plan, blocks_per_sm, H100_SMS) == route
+        assert tfr.persist_route(plan, blocks_per_sm, H100_SMS,
+                                 coop=False) == "step"
+        assert tfr.persist_route(plan, 0, H100_SMS) == "step"
+
+
+def test_rnn_sparse_routes_ask_their_kernels(monkeypatch):
+    """Each route asks the occupancy entry of its own kernel in
+    fused_rnn_sparse with its plan's ints (w3g's dtype, the block shape,
+    the dynamic shared memory) and takes "step" where the grid is not
+    co-resident; the BPTT takes "step" without asking where bs is not a
+    multiple of 32 (its chain's sums are the step kernel's only then)."""
+    asked = []
+
+    def occ(lib, entry, args, index):
+        asked.append((lib, entry, args))
+        return 1, H100_SMS, True
+    monkeypatch.setattr(tfr, "_persist_occupancy", occ)
+    layout = _cgs16x_layout()
+    dev = torch.device("cuda", 0)
+    route, plan = tfr.rnn_fwd_sparse_route(8, layout, True, dev)
+    assert route == "persist" and (plan.bi, plan.units) == (1, 8)
+    assert tfr.rnn_fwd_sparse_route(256, layout, False, dev)[0] == "step"
+    route, bplan = tfr.rnn_bwd_sparse_route(8, layout, False, dev)
+    assert route == "persist" and (bplan.bi, bplan.units) == (1, 8)
+    assert tfr.rnn_bwd_sparse_route(32, layout, True, dev)[0] == "persist"
+    small = tbs.pack_layout(hcgs_mask(64, 64, [16], [50],
+                                      rng=np.random.RandomState(5)), 16)
+    assert tfr.rnn_bwd_sparse_route(8, small, False, dev)[0] == "step"
+    assert asked == [
+        ("fused_rnn_sparse", "rnn_fwd_sparse_occupancy",
+         (1, 1, 8, plan.smem)),
+        ("fused_rnn_sparse", "rnn_fwd_sparse_occupancy",
+         (0, 2, 16, tfr.rnn_fwd_sparse_plan(256, layout).smem)),
+        ("fused_rnn_sparse", "rnn_bwd_sparse_occupancy",
+         (0, 1, 8, bplan.smem)),
+        ("fused_rnn_sparse", "rnn_bwd_sparse_occupancy",
+         (1, 2, 16, tfr.rnn_bwd_sparse_plan(32, 1024, 128, 5).smem))]
+
+
+@pytest.mark.parametrize("route, T, n", [("persist", 300, 1),
+                                         ("persist", 398, 1),
+                                         ("step", 300, 300),
+                                         ("step", 398, 398)])
+def test_rnn_fwd_sparse_launches(route, T, n):
+    """One cooperative launch a call, or one kernel a step (1,592 a
+    four-layer recognize at T=398 on the step route, 4 on the persistent
+    one)."""
+    assert tfr.rnn_fwd_sparse_launches(route, T) == n
+
+
+@pytest.mark.parametrize("route, T, qbits, n", [
+    ("persist", 300, 16, 4), ("persist", 300, 0, 2), ("persist", 1, 16, 4),
+    ("step", 300, 16, 301), ("step", 300, 0, 301), ("step", 6, 0, 7)])
+def test_rnn_bwd_sparse_launches(route, T, qbits, n):
+    """On the persistent route the rebuild and the chain, and with the
+    quantizer the per-step scales and q(h_prev); on the step route the
+    rebuild and one kernel a reverse step (a CGS-16x RNN train step: 4 x
+    (1 + 4) launches of rows 36-37 against 4 x (300 + 301))."""
+    assert tfr.rnn_bwd_sparse_launches(route, T, qbits) == n
+
+
+def test_rnn_sparse_block_shapes_are_the_kernels():
+    """Both plans pick only block shapes the kernels instantiate, at bs
+    128 and 8, and RNN_FWD_SPARSE_SHAPES / RNN_BWD_SPARSE_SHAPES are
+    fused_rnn_sparse.cu's PK_RNN_SPARSE_FWD_SHAPE / _BWD_SHAPE lines."""
+    layouts = (_cgs16x_layout(), _libri_layout(),
+               tbs.pack_layout(hcgs_mask(64, 64, [8], [50],
+                                         rng=np.random.RandomState(3)), 8))
+    for B in (1, 5, 8, 9, 16, 17, 32, 100, 256):
+        for layout in layouts:
+            plan = tfr.rnn_fwd_sparse_plan(B, layout)
+            assert (plan.bi, plan.units) in tfr.RNN_FWD_SPARSE_SHAPES
+            assert layout.bs % plan.units == 0
+            plan = tfr.rnn_bwd_sparse_plan(B, layout.N, layout.bs, layout.C)
+            assert (plan.bi, plan.units) in tfr.RNN_BWD_SPARSE_SHAPES
+    src = (pathlib.Path(tfr.__file__).parent / "csrc" / "fused_rnn_sparse.cu"
+           ).read_text()
+    for macro, table in (
+            ("PK_RNN_SPARSE_FWD_SHAPE", tfr.RNN_FWD_SPARSE_SHAPES),
+            ("PK_RNN_SPARSE_BWD_SHAPE", tfr.RNN_BWD_SPARSE_SHAPES)):
+        inst = re.findall(r"^  %s\((\d+), (\d+)\)$" % macro, src, re.M)
+        assert tuple((int(a), int(b)) for a, b in inst) == table, macro
+
+
+def _lane_order_col_dots(ent, bs, lane):
+    """(entry, q) in the order lane ``lane`` of rnn_sparse_bwd_step's
+    col_dots takes them: entry by entry, q = lane, lane + 32, ..."""
+    return [(e, q) for e in range(ent) for q in range(lane, bs, 32)]
+
+
+def _lane_order_resident(ent, bs, lane):
+    """(entry, q) in the order lane ``lane`` of resident_dots over the
+    chain's concatenated rows (k = e * bs + q) takes them: k = lane,
+    lane + 32, ..."""
+    return [divmod(k, bs) for k in range(lane, ent * bs, 32)]
+
+
+@pytest.mark.parametrize("bs, same", [(128, True), (32, True), (64, True),
+                                      (16, False), (8, False)])
+def test_rnn_sparse_chain_lanes_take_col_dots_order(bs, same):
+    """Row 37's chain gives the step route's bits only where bs is a
+    multiple of 32: then each lane of resident_dots over the nv entries'
+    concatenated bs-long rows takes the same (entry, q) products in the
+    same order as col_dots' lane, before the same shuffle tree. Where bs
+    is not, the lanes' shares differ once a column holds two entries,
+    which is why rnn_bwd_sparse_route sends such layouts to the step
+    route."""
+    for nv in (0, 1, 2, 5):
+        orders = [(_lane_order_col_dots(nv, bs, lane),
+                   _lane_order_resident(nv, bs, lane))
+                  for lane in range(32)]
+        assert all(a == b for a, b in orders) == (same or nv <= 1)
+
+
+# ---------------------------------------------------------------------------
 # the dense GRU and minimalGRU forward (TPU rows 19 and 24)
 # ---------------------------------------------------------------------------
 

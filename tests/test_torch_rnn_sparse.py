@@ -604,11 +604,14 @@ def cuda_device():
 @pytest.mark.parametrize("qbits", [0, 16])
 @pytest.mark.parametrize("act", ["relu", "tanh"])
 def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits, wbf16):
-    """The forward (T launches) and the BPTT kernel (T + 1) against their
-    twins on the card, on the same tensors."""
+    """The forward and the BPTT kernels against their twins on the card,
+    on the same tensors, each counting its route's launches
+    (rnn_fwd_sparse_launches, rnn_bwd_sparse_launches)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     _, tl, g, w3g, drop, dhs = _inputs(19, act)
     g, w3g, drop, dhs = (tt(a).to(cuda_device) for a in (g, w3g, drop, dhs))
+    f_route = tfr.rnn_fwd_sparse_route(B, tl, wbf16, cuda_device)[0]
+    b_route = tfr.rnn_bwd_sparse_route(B, tl, wbf16, cuda_device)[0]
     with torch.no_grad():
         before = (tfr.fused_rnn_fwd_sparse.launches,
                   tfr.fused_rnn_bwd_sparse.launches)
@@ -617,8 +620,9 @@ def test_cuda_kernels_match_plain_twins(cuda_device, act, qbits, wbf16):
         dg = tfr.fused_rnn_bwd_sparse(g, w3g, drop, h_prev, dhs, tl, act,
                                       qbits, wbf16)
         assert (tfr.fused_rnn_fwd_sparse.launches,
-                tfr.fused_rnn_bwd_sparse.launches) == (before[0] + T,
-                                                       before[1] + T + 1)
+                tfr.fused_rnn_bwd_sparse.launches) == (
+            before[0] + tfr.rnn_fwd_sparse_launches(f_route, T),
+            before[1] + tfr.rnn_bwd_sparse_launches(b_route, T, qbits))
         ref = tfr.fused_rnn_fwd_sparse_plain(g, w3g, drop, tl, act, qbits,
                                              wbf16)
         ref_dg = tfr.fused_rnn_bwd_sparse_plain(g, w3g, drop, h_prev, dhs,
@@ -638,3 +642,137 @@ def test_cuda_function_grads_match_cpu(cuda_device):
     _assert_rel(_torch_grads(g, w3g, drop, dhs, tl, 16, dev=cuda_device),
                 _torch_grads(g, w3g, drop, dhs, tl, 16), ATOL_Q,
                 ["hs", "dgates", "dw3g"])
+
+
+def _cgs_layout(seed, h=1024):
+    """The CGS-16x RNN's recurrent layout at width h: HCGS 128,8 at 75,75
+    (Kb=8, R=2 at 1024)."""
+    mask = hcgs_mask(h, h, [128, 8], [75, 75],
+                     rng=np.random.RandomState(seed))
+    return tbs.pack_layout(mask, 128)
+
+
+def _case(t, b, layout, seed, act, dev):
+    """Operands over ``layout`` at (t, b) on ``dev``: gates (relu's away
+    from its kink, as _inputs'), w3g, drop (b, H), dhs."""
+    h, bs = layout.N, layout.bs
+    rng = np.random.RandomState(seed)
+    g = rng.randn(t, b, h) * 0.5
+    if act == "relu":
+        g = np.where(rng.rand(1, b, h) > 0.5, 1.0, -1.0) * (2.0 + np.abs(g))
+    d = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    w3g = rng.randn(layout.Nb, bs, layout.R * bs) * 0.3 / np.sqrt(
+        layout.R * bs)
+    return (d(g), d(w3g), d((rng.rand(b, h) > 0.2) * 1.0),
+            d(rng.randn(t, b, h)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.RNN_FWD_SPARSE_SHAPES)
+def test_cuda_fwd_persist_every_block_shape(cuda_device, shape):
+    """Row 36's persistent route forced to each instantiated block shape
+    at H=256 (Kb=2, R=1) and a ragged batch (8 bi + 3 rows), relu and
+    tanh, qbits 0 and 16, w3g f32 and bf16: one launch, the step route's
+    bits (its dots sum in row_dots' order), and the twin's bars."""
+    bi, un = shape
+    b = 8 * bi + 3
+    _, tl, *_ = _inputs(31)
+    plan = tfr.rnn_fwd_sparse_plan(b, tl, shape)
+    for act in ("relu", "tanh"):
+        g, w3g, drop, _ = _case(T, b, tl, 40 + bi + un, act, cuda_device)
+        for qbits in (0, 16):
+            for wbf16 in (False, True):
+                with torch.no_grad():
+                    before = tfr.fused_rnn_fwd_sparse.launches
+                    hs = tfr._rnn_fwd_sparse_persist(plan, g, w3g, drop, tl,
+                                                     act, qbits, wbf16)
+                    assert tfr.fused_rnn_fwd_sparse.launches == before + 1
+                    step = tfr._rnn_fwd_sparse_step(g, w3g, drop, tl, act,
+                                                    qbits, wbf16)
+                    ref = tfr.fused_rnn_fwd_sparse_plain(g, w3g, drop, tl,
+                                                         act, qbits, wbf16)
+                torch.cuda.synchronize()
+                case = (shape, act, qbits, wbf16)
+                assert torch.equal(hs, step), case
+                _assert_rel([hs.cpu()], [ref.cpu()],
+                            2e-2 if wbf16 else _atol(qbits, False),
+                            [str(case)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", tfr.RNN_BWD_SPARSE_SHAPES)
+def test_cuda_bwd_persist_every_block_shape(cuda_device, shape):
+    """Row 37's persistent route (the rebuild in the forward's order, then
+    one cooperative chain) forced to each instantiated block shape at
+    H=256 and a ragged batch, relu and tanh, qbits 0 and 16, w3g f32 and
+    bf16: its launches, two calls bit for bit, dg and the rebuilt a_pre
+    bit for bit the step route's, and the twin's bars."""
+    bi, un = shape
+    b = 8 * bi + 3
+    _, tl, *_ = _inputs(33)
+    plan = tfr.rnn_bwd_sparse_plan(b, tl.N, tl.bs, tl.C, shape)
+    for act in ("relu", "tanh"):
+        g, w3g, drop, dhs = _case(T, b, tl, 50 + bi + un, act, cuda_device)
+        with torch.no_grad():
+            hs = tfr.fused_rnn_fwd_sparse(g, w3g, drop, tl, act)
+        h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+        for qbits in (0, 16):
+            for wbf16 in (False, True):
+                args = (g, w3g, drop, h_prev, dhs, tl, act, qbits, wbf16)
+                with torch.no_grad():
+                    before = tfr.fused_rnn_bwd_sparse.launches
+                    dg, pre = tfr._rnn_bwd_sparse_persist(plan, *args,
+                                                          with_pre=True)
+                    assert tfr.fused_rnn_bwd_sparse.launches == before + \
+                        tfr.rnn_bwd_sparse_launches("persist", T, qbits)
+                    again = tfr._rnn_bwd_sparse_persist(plan, *args)
+                    dg_st, pre_st = tfr._rnn_bwd_sparse_step(*args,
+                                                             with_pre=True)
+                    ref = tfr.fused_rnn_bwd_sparse_plain(*args)
+                torch.cuda.synchronize()
+                case = "%s, %s, q%d, bf16 %s" % (shape, act, qbits, wbf16)
+                assert torch.equal(dg, again), case
+                assert torch.equal(pre, pre_st), case
+                assert torch.equal(dg, dg_st), case
+                _assert_rel([dg.cpu()], [ref.cpu()],
+                            2e-2 if wbf16 else _atol(qbits, False), [case])
+
+
+@pytest.mark.cuda
+def test_cuda_routes_at_the_cgs16x_shapes(cuda_device):
+    """Both wrappers on the routes their plans name: "persist" at the
+    CGS-16x RNN's 8 rows of 1024 (one launch; the rebuild and the chain,
+    4 with the quantizer), "step" at 256 rows (1,024 blocks of 16 x 16: T
+    and T + 1 launches); each the forced step route's bits and within
+    the twin's bars, w3g f32 and bf16."""
+    lay = _cgs_layout(421)
+    for (t, b), route in (((12, 8), "persist"), ((3, 256), "step")):
+        g, w3g, drop, dhs = _case(t, b, lay, 46, "relu", cuda_device)
+        for wbf16 in (False, True):
+            assert tfr.rnn_fwd_sparse_route(b, lay, wbf16,
+                                            cuda_device)[0] == route
+            assert tfr.rnn_bwd_sparse_route(b, lay, wbf16,
+                                            cuda_device)[0] == route
+            with torch.no_grad():
+                before = (tfr.fused_rnn_fwd_sparse.launches,
+                          tfr.fused_rnn_bwd_sparse.launches)
+                hs = tfr.fused_rnn_fwd_sparse(g, w3g, drop, lay, "relu", 16,
+                                              wbf16)
+                h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+                args = (g, w3g, drop, h_prev, dhs, lay, "relu", 16, wbf16)
+                dg = tfr.fused_rnn_bwd_sparse(*args)
+                assert (tfr.fused_rnn_fwd_sparse.launches,
+                        tfr.fused_rnn_bwd_sparse.launches) == (
+                    before[0] + tfr.rnn_fwd_sparse_launches(route, t),
+                    before[1] + tfr.rnn_bwd_sparse_launches(route, t, 16))
+                hs_st = tfr._rnn_fwd_sparse_step(g, w3g, drop, lay, "relu",
+                                                 16, wbf16)
+                dg_st = tfr._rnn_bwd_sparse_step(*args)
+                ref = tfr.fused_rnn_fwd_sparse_plain(g, w3g, drop, lay,
+                                                     "relu", 16, wbf16)
+                ref_dg = tfr.fused_rnn_bwd_sparse_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(hs, hs_st) and torch.equal(dg, dg_st), route
+            tol = 2e-2 if wbf16 else ATOL_Q
+            _assert_rel([hs.cpu(), dg.cpu()], [ref.cpu(), ref_dg.cpu()], tol,
+                        ["hs " + route, "dg " + route])
