@@ -51,7 +51,11 @@ Phases (any failure raises and the script exits non-zero):
              and without the level-2 submask (and at the training shape
              twice, bit for bit: its M is split), at a small shape, the
              serving shape (T=398, B=8, H=1024) and the training shape
-             (T=300, B=16, H=1024), on the CGS-16x recurrent layout.
+             (T=300, B=16, H=1024), on the CGS-16x recurrent layout; the
+             forward and the stash BPTT on the routes their plans name
+             (one cooperative launch a call on "persist"), twice bit for
+             bit, their step routes forced and bit for bit, their device
+             kernels by name, every block shape of their tables.
 9. sparse_serve — ``Recognizer.recognize`` over the CGS-16x stack (the
              cfg's 2x1024 LSTM with lstm_block_sparse=auto -> 1944-way
              head, feat_dim 40) on the same audio: card vs CPU, the
@@ -1610,9 +1614,11 @@ def kernel_classes(by_name, launches=False):
                # _step and _persist
                "gru_torch_bptt_kernel": ("gru_torch_bwd",),
                "lstm_fwd_kernel": ("lstm_step", "lstm_fwd_persist",
-                                   "sparse_fwd_step"),
-               # the step kernels, the dh0 dot and the persistent chain
-               "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step"),
+                                   "sparse_fwd_step",
+                                   "lstm_sparse_fwd_persist"),
+               # the step kernels, the dh0 dot and the persistent chains
+               "lstm_bptt_kernel": ("lstm_bwd", "sparse_bwd_step",
+                                    "lstm_sparse_bwd"),
                "ligru_fwd_kernel": ("ligru_step", "ligru_fwd_persist"),
                "ligru_bptt_kernel": ("ligru_bwd",),
                "gru_fwd_kernel": ("gru_zr_step", "gru_h_step",
@@ -1884,14 +1890,20 @@ def phase_sparse_kernels(dev):
     """The sparse forward (plain and stash), both sparse BPTT kernels
     and the block-sparse dw kernel against their twins on the same
     tensors: qbits 0/16 x tanh/relu x w3g f32/bf16; dw with and without
-    the level-2 submask; at the small, serving and training shapes."""
+    the level-2 submask; at the small, serving and training shapes. Rows
+    4 and 5 on the routes their plans name, each call's launches checked
+    against its route's count (lstm_fwd_sparse_launches,
+    lstm_bwd_sparse_stash_launches), two calls bit for bit, each step
+    route forced (fused_lstm._fwd_sparse_step, _bwd_sparse_step) against
+    the twin and bit for bit the wrapper's route (the forward's hs, cs
+    and acts, the chain's dg); one tanh, qbits 16, f32 call of each a
+    shape held to its route's device kernels by name
+    (lstm_fwd_sparse_design, lstm_bwd_sparse_stash_design); both rows at
+    every block shape of their tables (lstm_sparse_shapes)."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     checks = []
-
-    def check(name, shape, variant, err_rel, tol, by_rel):
-        record_check(checks, "sparse_kernels", name, dict(zip("TBH", shape)), variant,
-                     err_rel, tol, by_rel)
+    fwd, bwd = F.fused_lstm_fwd_sparse, F.fused_lstm_bwd_sparse_stash
 
     for shape in (SP_SMALL_TBH, SP_SERVE_TBH, SP_TRAIN_TBH):
         T, B, H = shape
@@ -1902,6 +1914,7 @@ def phase_sparse_kernels(dev):
             inp = sparse_inputs(T, B, H, 70 + k, dev)
             g, w3g, drop, dhs, layout = (inp[n] for n in (
                 "g", "w3g", "drop", "dhs", "layout"))
+            dbh = torch.broadcast_to(drop, (B, H)).contiguous()
             # the JAX package's rule reads w3g in bf16 when its budget is
             # small; a 256-wide layer always fits, so there the bf16
             # variant is asked for directly
@@ -1915,54 +1928,181 @@ def phase_sparse_kernels(dev):
                        "act": act, "Kb": layout.Kb, "R": layout.R}
             tol = TOL_BF16 if bf16 else (TOL_F32_SMALL if small
                                          else TOL_F32_SERVE)
+            kernels = (wbf16, qbits, act) == (False, 16, "tanh")
+
+            def check(name, err_rel, tol_, by_rel, route=None):
+                record_check(checks, "sparse_kernels", name,
+                             dict(zip("TBH", shape)),
+                             dict(variant, **({"route": route} if route
+                                              else {})),
+                             err_rel, tol_, by_rel)
             with torch.no_grad():
-                ref = F.fused_lstm_fwd_sparse_plain(g, w3g, drop, layout, act,
-                                                    qbits, bf16, True)
-                check("fused_lstm_fwd_sparse", shape, variant, rel_err(
-                    F.fused_lstm_fwd_sparse(g, w3g, drop, layout, act, qbits,
-                                            bf16), ref[:2]), tol, False)
+                fargs = (g, w3g, drop, layout, act, qbits, bf16)
+                ref = F.fused_lstm_fwd_sparse_plain(*fargs, True)
+                route, n = lstm_fwd_sparse_launches(dev, T, B, layout, bf16)
+                hc = launched(fwd, n, lambda: fwd(*fargs))
+                check("fused_lstm_fwd_sparse", rel_err(hc, ref[:2]), tol,
+                      False, route)
+                st = launched(fwd, T, lambda: F._fwd_sparse_step(
+                    g, w3g, dbh, layout, act, qbits, bf16, not serve))
+                check("fused_lstm_fwd_sparse/step_route",
+                      rel_err(st, ref if not serve else ref[:2]), tol,
+                      False, "step")
                 if serve:
+                    check("fused_lstm_fwd_sparse/persist_vs_step",
+                          bits_apart(hc, st), 0.0, False, route)
+                    if kernels:
+                        bptt_kernels(lambda: fwd(*fargs),
+                                     lstm_fwd_sparse_design(route, T))
                     continue
-                hs, cs, acts = F.fused_lstm_fwd_sparse(
-                    g, w3g, drop, layout, act, qbits, bf16, stash=True)
-                check("fused_lstm_fwd_sparse/stash", shape, variant,
-                      rel_err((hs, cs, acts), ref), tol, False)
+                hs, cs, acts = launched(fwd, n, lambda: fwd(*fargs,
+                                                            stash=True))
+                check("fused_lstm_fwd_sparse/stash", rel_err(
+                    (hs, cs, acts), ref), tol, False, route)
+                check("fused_lstm_fwd_sparse/determinism", same_bits(
+                    lambda: fwd(*fargs, stash=True)), 0.0, False, route)
+                check("fused_lstm_fwd_sparse/persist_vs_step",
+                      bits_apart((hs, cs, acts), st), 0.0, False, route)
+                if kernels:
+                    bptt_kernels(lambda: fwd(*fargs, stash=True),
+                                 lstm_fwd_sparse_design(route, T))
                 h_prev, c_prev = shifted(hs, cs, None, None)
-                dg = F.fused_lstm_bwd_sparse_stash(acts, w3g, drop, cs, c_prev,
-                                                   dhs, layout, act, bf16)
-                check("fused_lstm_bwd_sparse_stash", shape, variant, rel_err(
-                    dg, F.fused_lstm_bwd_sparse_stash_plain(
-                        acts, w3g, drop, cs, c_prev, dhs, layout, act,
-                        bf16)), tol, True)
-                check("fused_lstm_bwd_sparse", shape, variant, rel_err(
-                    F.fused_lstm_bwd_sparse(g, w3g, drop, h_prev, c_prev, dhs,
-                                            layout, act, qbits, bf16),
+                bargs = (acts, w3g, drop, cs, c_prev, dhs, layout, act, bf16)
+                route, n = lstm_bwd_sparse_stash_launches(dev, T, B, layout,
+                                                          bf16)
+                dg = launched(bwd, n, lambda: bwd(*bargs))
+                ref = F.fused_lstm_bwd_sparse_stash_plain(*bargs)
+                check("fused_lstm_bwd_sparse_stash", rel_err(dg, ref), tol,
+                      True, route)
+                check("fused_lstm_bwd_sparse_stash/determinism",
+                      same_bits(lambda: bwd(*bargs)), 0.0, False, route)
+                dg_st = launched(bwd, T, lambda: F._bwd_sparse_step(
+                    bwd, acts, w3g, dbh, None, cs, c_prev, dhs, layout,
+                    act, 0, bf16, True))
+                check("fused_lstm_bwd_sparse_stash/step_route",
+                      rel_err(dg_st, ref), tol, True, "step")
+                check("fused_lstm_bwd_sparse_stash/persist_vs_step",
+                      bits_apart(dg, dg_st), 0.0, False, route)
+                if kernels:
+                    bptt_kernels(lambda: bwd(*bargs),
+                                 lstm_bwd_sparse_stash_design(route, T))
+                check("fused_lstm_bwd_sparse", rel_err(
+                    launched(F.fused_lstm_bwd_sparse, T,
+                             lambda: F.fused_lstm_bwd_sparse(
+                                 g, w3g, drop, h_prev, c_prev, dhs, layout,
+                                 act, qbits, bf16)),
                     F.fused_lstm_bwd_sparse_plain(
                         g, w3g, drop, h_prev, c_prev, dhs, layout, act, qbits,
-                        bf16)), tol, True)
+                        bf16)), tol, True, "step")
                 if bf16 or qbits:
                     continue
                 dg_flat, x = dw_operands(dg, h_prev, layout)
                 for sub in (None, inp["sub3"]):
-                    check("block_sparse_dw", shape,
-                          {"fuse_sub": sub is not None, "act": act,
-                           "M": T * B, "Kb": layout.Kb, "R": layout.R},
-                          rel_err(BS.block_sparse_dw(dg_flat, x, layout, 4,
-                                                     sub),
-                                  BS.block_sparse_dw_plain(dg_flat, x, layout,
-                                                           4, sub)),
-                          TOL_F32_SMALL, True)
+                    record_check(
+                        checks, "sparse_kernels", "block_sparse_dw",
+                        dict(zip("TBH", shape)),
+                        {"fuse_sub": sub is not None, "act": act,
+                         "M": T * B, "Kb": layout.Kb, "R": layout.R},
+                        rel_err(BS.block_sparse_dw(dg_flat, x, layout, 4,
+                                                   sub),
+                                BS.block_sparse_dw_plain(dg_flat, x, layout,
+                                                         4, sub)),
+                        TOL_F32_SMALL, True)
                 if shape == SP_TRAIN_TBH and act == "tanh":
-                    check("block_sparse_dw/determinism", shape,
-                          {"M": T * B, "G": 4}, same_bits(
-                              lambda: BS.block_sparse_dw(dg_flat, x, layout,
-                                                         4)), 0.0, False)
+                    record_check(
+                        checks, "sparse_kernels", "block_sparse_dw/determinism",
+                        dict(zip("TBH", shape)), {"M": T * B, "G": 4},
+                        same_bits(lambda: BS.block_sparse_dw(dg_flat, x,
+                                                             layout, 4)),
+                        0.0, False)
+    shapes = lstm_sparse_shapes(checks, F, dev)
+    print("[sparse_kernels] rows 4 and 5 by block shape: %s"
+          % json.dumps(shapes))
     sync(dev)
     bad = [c for c in checks if not c["ok"]]
     if bad:
         raise AssertionError("a sparse kernel disagrees with its plain "
                              "twin: %s" % bad)
     return checks
+
+
+#: the steps at which lstm_sparse_shapes forces each block shape of rows
+#: 4 and 5 (at 8 bi - 3 rows: one ragged row group), over the layout of
+#: seed 421, whose heaviest column holds 5 blocks
+SP_SHAPES_T = 24
+SP_SHAPES_SEED = 421
+
+
+def lstm_sparse_shapes(checks, F, dev):
+    """Rows 4 and 5's persistent routes forced to every block shape their
+    plans can take (fused_lstm.LSTM_FWD_SPARSE_SHAPES,
+    LSTM_BWD_SPARSE_SHAPES) at the CGS-16x layout of SP_SHAPES_SEED, 8 bi
+    - 3 rows of 1024, tanh, qbits 16, f32 w3g: each against its twin at
+    TOL_Q16, the forward's hs, cs and acts and the chain's dg bit for bit
+    its step route's; the chain also forced to stage one entry a slab
+    through two buffers (the plan's choice where whole rows do not fit);
+    a shape whose grid is not co-resident is recorded as skipped."""
+    out = {}
+    for kind, shapes in (("fwd", F.LSTM_FWD_SPARSE_SHAPES),
+                         ("bwd", F.LSTM_BWD_SPARSE_SHAPES)):
+        for bi, un in shapes:
+            T, B, H = SP_SHAPES_T, 8 * bi - 3, SP_TRAIN_TBH[2]
+            inp = sparse_inputs(T, B, H, SP_SHAPES_SEED, dev)
+            g, w3g, drop, dhs, lay = (inp[n] for n in (
+                "g", "w3g", "drop", "dhs", "layout"))
+            dbh = torch.broadcast_to(drop, (B, H)).contiguous()
+            where = {"T": T, "B": B, "H": H}
+            block = "%d units x %d rows" % (un, 8 * bi)
+            kernel = ("fused_lstm_fwd_sparse" if kind == "fwd"
+                      else "fused_lstm_bwd_sparse_stash")
+            if kind == "fwd":
+                plans = [F.lstm_fwd_sparse_plan(B, lay, (bi, un))]
+            else:
+                plan = F.lstm_bwd_sparse_stash_plan(B, H, lay.bs, lay.C,
+                                                    (bi, un))
+                plans = [plan] + ([F.lstm_bwd_sparse_stash_plan(
+                    B, H, lay.bs, lay.C, (bi, un), entry_slabs=True)]
+                    if plan.slabs == 1 else [])
+            for plan in plans:
+                tag = "%s %s, %d slab%s" % (kind, block, plan.slabs,
+                                            "s" if plan.slabs > 1 else "")
+                if not co_resident(kernel, plan):
+                    out[tag] = "not co-resident"
+                    continue
+                variant = {"qbits": 16, "act": "tanh", "Kb": lay.Kb,
+                           "R": lay.R, "C": lay.C, "w3g": "f32",
+                           "route": "persist", "block": block,
+                           "slabs": plan.slabs}
+
+                def check(name, err_rel, tol, by_rel):
+                    record_check(checks, "sparse_kernels", kernel + name,
+                                 where, variant, err_rel, tol, by_rel)
+                with torch.no_grad():
+                    fargs = (g, w3g, dbh, lay, "tanh", 16, False, True)
+                    st = F._fwd_sparse_step(*fargs)
+                    if kind == "fwd":
+                        got = F._fwd_sparse_persist(plan, *fargs)
+                        check("/block", rel_err(
+                            got, F.fused_lstm_fwd_sparse_plain(*fargs)),
+                            TOL_Q16, False)
+                        check("/block_vs_step", bits_apart(got, st), 0.0,
+                              False)
+                    else:
+                        hs, cs, acts = st
+                        c_prev = shifted(hs, cs, None, None)[1]
+                        bargs = (acts, w3g, dbh, cs, c_prev, dhs, lay,
+                                 "tanh", False)
+                        dg = F._bwd_sparse_stash_persist(plan, *bargs)
+                        check("/block", rel_err(
+                            dg, F.fused_lstm_bwd_sparse_stash_plain(*bargs)),
+                            TOL_Q16, True)
+                        check("/block_vs_step", bits_apart(
+                            dg, F._bwd_sparse_step(
+                                F.fused_lstm_bwd_sparse_stash, acts, w3g,
+                                dbh, None, cs, c_prev, dhs, lay, "tanh", 0,
+                                False, True)), 0.0, False)
+                out[tag] = "checked"
+    return out
 
 
 def cgs_train_setup(compute_dtype=""):
@@ -1985,12 +2125,28 @@ def cgs_train_runner(dev, compute_dtype=""):
 
 
 def phase_sparse_train(dev):
-    T = SP_TRAIN_TBH[0]
+    """The CGS-16x train step (phase_train): launches a step in both
+    backward modes, each sparse kernel's layer call on its route
+    (lstm_sparse_layer_launches: one launch a call on the persistent
+    routes), the recompute BPTT T a call, card vs CPU, loss falling."""
+    T, B, _ = SP_TRAIN_TBH
+    n = lstm_sparse_layer_launches(dev, T, B, True)
+    fwd = 2 * n["fused_lstm_fwd_sparse"]
     return phase_train(dev, cgs_train_runner, "sparse_train", lstm_modes(
-        T, expected(fused_lstm_fwd_sparse=2 * T,
-                    fused_lstm_bwd_sparse_stash=2 * T, block_sparse_dw=2),
-        expected(fused_lstm_fwd_sparse=2 * T, fused_lstm_bwd_sparse=2 * T,
+        T, expected(fused_lstm_fwd_sparse=fwd,
+                    fused_lstm_bwd_sparse_stash=2 * n[
+                        "fused_lstm_bwd_sparse_stash"],
+                    block_sparse_dw=2),
+        expected(fused_lstm_fwd_sparse=fwd, fused_lstm_bwd_sparse=2 * T,
                  block_sparse_dw=2)))
+
+
+def cgs_expect_serve(T):
+    """Launches per recognize of the CGS-16x stack: its 2 layers' sparse
+    forward at 8 rows, each its route's (lstm_sparse_layer_launches), no
+    other kernel."""
+    return expected(fused_lstm_fwd_sparse=2 * lstm_sparse_layer_launches(
+        "cuda", T, N_UTT, False)["fused_lstm_fwd_sparse"])
 
 
 #: the CGS-16x cfg as shipped: lstm_block_sparse = False (:119) and its
@@ -2063,8 +2219,10 @@ def phase_sparse_times(dev, rec, audio, lens):
     training shape (the forward also at the serving shape), in f32 and
     with w3g in bf16; their twins, bounds and yardsticks (cuDNN's dense
     nn.LSTM(1024, 1024); torch.bmm over the pre-gathered dw operands);
-    the dense fused kernels on the same layer (the masked U, H=1024);
-    the CGS-16x train step and recognize."""
+    rows 4 and 5's routes and plans (chain_route), us a step and each
+    block shape of their tables (lstm_sparse_block_shapes); the dense
+    fused kernels on the same layer (the masked U, H=1024); the CGS-16x
+    train step and recognize."""
     from pytorch_kaldi_cgs_tpu_torch.ops import block_sparse as BS
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     T, B, H = SP_TRAIN_TBH
@@ -2116,9 +2274,18 @@ def phase_sparse_times(dev, rec, audio, lens):
                     g, U, drop, h_prev, c_prev, dhs, bf16=bf16)}
             for name, fn in dense.items():
                 times["dense_" + name + "_ms" + sfx] = cuda_ms(fn, reps=10)
+        # rows 4 and 5's routes, plans, us a step and block shapes
+        for name in ("fused_lstm_fwd_sparse", "fused_lstm_bwd_sparse_stash"):
+            times[name + "_kernel_route"] = chain_route(dev, name, B,
+                                                        layout=layout)[1]
+            times[name + "_us_per_step"] = 1e3 * times[name + "_ms"] / T
+        times.update(lstm_sparse_block_shapes(g, w3g, drop, dhs, layout,
+                                              "tanh", 0))
         # the serving forward (no stash) at the serving shape
         Ts, Bs, _ = SP_SERVE_TBH
         sv = sparse_inputs(Ts, Bs, H, 96, dev)
+        times["serve_fwd_sparse_kernel_route"] = chain_route(
+            dev, "fused_lstm_fwd_sparse", Bs, layout=sv["layout"])[1]
         for bf16 in (False, True):
             sfx = "_bf16" if bf16 else ""
             times["serve_fwd_sparse_ms" + sfx] = cuda_ms(
@@ -2128,6 +2295,8 @@ def phase_sparse_times(dev, rec, audio, lens):
             times["serve_dense_fwd_ms" + sfx] = cuda_ms(
                 lambda: F.fused_lstm_fwd(sv["g"], sv["U"], sv["drop"],
                                          bf16=bf16), reps=10)
+        times["serve_fwd_sparse_us_per_step"] = \
+            1e3 * times["serve_fwd_sparse_ms"] / Ts
         times["serve_fwd_sparse_plain_ms"] = cuda_ms(
             lambda: F.fused_lstm_fwd_sparse_plain(
                 sv["g"], sv["w3g"], sv["drop"], sv["layout"], "tanh", 0,
@@ -3069,7 +3238,16 @@ PERSIST_ROUTES = {
     "fused_rnn_bwd_sparse": ("rnn_bwd_sparse_route", "fused_rnn_sparse",
                              "rnn_bwd_sparse_occupancy",
                              lambda plan, bf16: (int(bf16), plan.bi,
-                                                 plan.units))}
+                                                 plan.units)),
+    "fused_lstm_fwd_sparse": ("lstm_fwd_sparse_route", "fused_lstm_sparse",
+                              "lstm_fwd_sparse_occupancy",
+                              lambda plan, bf16: (int(bf16), plan.bi,
+                                                  plan.units)),
+    "fused_lstm_bwd_sparse_stash": ("lstm_bwd_sparse_stash_route",
+                                    "fused_lstm_sparse",
+                                    "lstm_bwd_sparse_stash_occupancy",
+                                    lambda plan, bf16: (int(bf16), plan.bi,
+                                                        plan.units))}
 #: the dense forwards' gate counts (their route functions take G)
 DENSE_FWD_G = {"fused_gru_fwd": 3, "fused_mgru_fwd": 2}
 #: the sparse minimalGRU's wrappers: their routes are in a package that
@@ -3079,6 +3257,9 @@ MGRU_SPARSE = ("fused_mgru_fwd_sparse", "fused_mgru_bwd_sparse")
 #: the dense LSTM's wrappers with a persistent route: their route
 #: functions are fused_lstm's and take (B, H, bf16, dev)
 LSTM_PERSIST = ("fused_lstm_fwd", "fused_lstm_bwd_stash")
+#: the sparse LSTM's wrappers with a persistent route: their route
+#: functions are fused_lstm's and take (B, layout, bf16, dev)
+LSTM_SPARSE = ("fused_lstm_fwd_sparse", "fused_lstm_bwd_sparse_stash")
 
 
 def chain_route(dev, kernel, B, H=None, layout=None, bf16=False):
@@ -3089,12 +3270,14 @@ def chain_route(dev, kernel, B, H=None, layout=None, bf16=False):
     block, the slabs a staged row is cut into. A package without that
     wrapper's persistent route (an earlier tree's) runs "step". The dense
     GRU forwards (DENSE_FWD_G) take their gate count, the dense LSTM's
-    wrappers (LSTM_PERSIST) bf16, the sparse minimalGRU's forward the
-    GRU's route at G=2."""
+    wrappers (LSTM_PERSIST) bf16, the sparse LSTM's (LSTM_SPARSE) a
+    layout and bf16, the sparse minimalGRU's forward the GRU's route at
+    G=2."""
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
     fn, lib, entry, ints = PERSIST_ROUTES[kernel]
-    if not hasattr(F if kernel in LSTM_PERSIST else R, fn) or (
+    in_f = kernel in LSTM_PERSIST + LSTM_SPARSE
+    if not hasattr(F if in_f else R, fn) or (
             kernel in MGRU_SPARSE and not hasattr(R, "mgru_bwd_sparse_route")):
         return "step", {}
     if kernel in DENSE_FWD_G:
@@ -3103,6 +3286,8 @@ def chain_route(dev, kernel, B, H=None, layout=None, bf16=False):
         route, plan = R.gru_fwd_sparse_route(B, layout, bf16, dev, 2)
     elif kernel in LSTM_PERSIST:
         route, plan = getattr(F, fn)(B, H, bf16, dev)
+    elif kernel in LSTM_SPARSE:
+        route, plan = getattr(F, fn)(B, layout, bf16, dev)
     else:
         route, plan = (getattr(R, fn)(B, H, dev) if layout is None
                        else getattr(R, fn)(B, layout, bf16, dev))
@@ -3426,6 +3611,52 @@ def rnn_bwd_sparse_design(route, T, qbits):
     return dict(want, rnn_sparse_rebuild=1, rnn_sparse_bwd_persist=1)
 
 
+def lstm_fwd_sparse_launches(dev, T, B, layout, bf16=False):
+    """fused_lstm_fwd_sparse's route at B over ``layout`` and its launches
+    a call: one on the persistent route, T on the step route (an earlier
+    tree's package runs "step")."""
+    route = chain_route(dev, "fused_lstm_fwd_sparse", B, layout=layout,
+                        bf16=bf16)[0]
+    return route, 1 if route == "persist" else T
+
+
+def lstm_bwd_sparse_stash_launches(dev, T, B, layout, bf16=False):
+    """fused_lstm_bwd_sparse_stash's route at B over ``layout`` and its
+    launches a call: one on the persistent route, T on the step route."""
+    route = chain_route(dev, "fused_lstm_bwd_sparse_stash", B, layout=layout,
+                        bf16=bf16)[0]
+    return route, 1 if route == "persist" else T
+
+
+def lstm_fwd_sparse_design(route, T):
+    """fused_lstm_fwd_sparse's device kernels a call by name."""
+    return ({"lstm_sparse_fwd_persist": 1} if route == "persist"
+            else {"sparse_fwd_step": T})
+
+
+def lstm_bwd_sparse_stash_design(route, T):
+    """fused_lstm_bwd_sparse_stash's device kernels a call by name (the
+    step route's transposed copy of w3g is PyTorch's)."""
+    return ({"lstm_sparse_bwd_stash_persist": 1} if route == "persist"
+            else {"sparse_bwd_step": T})
+
+
+def lstm_sparse_layer_launches(dev, T, B, train):
+    """One CGS-16x LSTM layer call's launches at (T, B) on each sparse
+    kernel's route over the cfg's layout at a seed whose heaviest column
+    holds 5 blocks (every layer's layout has Kb=8, R=2 and width 1024,
+    and both blocks fit at every column count up to 8 at 8 and 16 rows,
+    so they alone pick the route): {wrapper: launches}, the stash BPTT's
+    with ``train``."""
+    lay = cgs_layout(SP_TRAIN_TBH[2], 421)[1]
+    out = {"fused_lstm_fwd_sparse": lstm_fwd_sparse_launches(dev, T, B,
+                                                            lay)[1]}
+    if train:
+        out["fused_lstm_bwd_sparse_stash"] = lstm_bwd_sparse_stash_launches(
+            dev, T, B, lay)[1]
+    return out
+
+
 def rnn_sparse_layer_launches(dev, T, B, qbits, train):
     """One CGS-16x RNN layer call's launches at (T, B) on each sparse
     kernel's route over the cfg's layout at the timed seed (every layer's
@@ -3537,7 +3768,8 @@ ROUTE_KERNELS = (
     "lstm_bwd_step", "lstm_bwd_dh0", "rnn_fwd_persist", "rnn_step",
     "rnn_bwd_persist", "rnn_bwd_step", "rnn_sparse_fwd_persist",
     "rnn_sparse_step", "rnn_sparse_rebuild", "rnn_sparse_bwd_step",
-    "rnn_sparse_bwd_persist")
+    "rnn_sparse_bwd_persist", "sparse_fwd_step", "lstm_sparse_fwd_persist",
+    "sparse_bwd_step", "lstm_sparse_bwd_stash_persist")
 
 
 def bptt_design(route, T, qbits=None, bf16=False):
@@ -4258,9 +4490,9 @@ def phase_gru_large_batch(dev):
     CGS-16x LSTM's over 160 and the CGS-16x Li-GRU's over CL_LARGE_ROWS.
     Each runs its sparse forward kernel alone, with float32 w3g (the
     scans read it in bf16 only where the rule says "bf16"), matching the
-    model run on the sparse twin (the GRU's on its route there,
-    gru_fwd_sparse_launches); the sparse BPTT kernels take those batches
-    too (T=16, against their twins)."""
+    model run on the sparse twin (the GRU's and the LSTM's on their routes
+    there, gru_fwd_sparse_launches, lstm_fwd_sparse_launches); the sparse
+    BPTT kernels take those batches too (T=16, against their twins)."""
     from pytorch_kaldi_cgs_tpu_torch.models import GRU, LSTM, liGRU
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
     from pytorch_kaldi_cgs_tpu_torch.ops import fused_rnn as R
@@ -4292,6 +4524,9 @@ def phase_gru_large_batch(dev):
         if tag == "gru":            # the forward's route at that batch
             route, n = gru_fwd_sparse_launches(dev, T, B, layout)
             out["gru_forward_route"] = route
+        if tag == "lstm":
+            route, n = lstm_fwd_sparse_launches(dev, T, B, layout)
+            out["lstm_forward_route"] = route
         if launches != expected(**{kernel: n}):
             raise AssertionError("gru_large_batch %s: launches %s" % (tag,
                                                                     launches))
@@ -4324,7 +4559,10 @@ def phase_gru_large_batch(dev):
         a_rc = (si["g"], si["w3g"], si["drop"], h_prev, c_prev, si["dhs"],
                 lay)
         record_check(checks, "gru_large_batch", "fused_lstm_bwd_sparse_stash",
-                     {"T": 16, "rows": LARGE_ROWS}, {"qbits": 0}, rel_err(
+                     {"T": 16, "rows": LARGE_ROWS}, {
+                         "qbits": 0, "route": chain_route(
+                             dev, "fused_lstm_bwd_sparse_stash", LARGE_ROWS,
+                             layout=lay)[0]}, rel_err(
                          F.fused_lstm_bwd_sparse_stash(*a_st),
                          F.fused_lstm_bwd_sparse_stash_plain(*a_st)),
                      TOL_F32_SERVE, True)
@@ -7849,8 +8087,12 @@ def forced_plan_ms(kernel, call_plan, reps, shapes=((4, 8), (2, 16))):
                "fused_mgru_fwd_sparse": "gru_fwd_sparse_plan",
                "fused_mgru_bwd_sparse": "mgru_bwd_sparse_plan",
                "fused_rnn_fwd_sparse": "rnn_fwd_sparse_plan",
-               "fused_rnn_bwd_sparse": "rnn_bwd_sparse_plan"}[kernel]
-    if not hasattr(F if kernel in LSTM_PERSIST else R, plan_fn):
+               "fused_rnn_bwd_sparse": "rnn_bwd_sparse_plan",
+               "fused_lstm_fwd_sparse": "lstm_fwd_sparse_plan",
+               "fused_lstm_bwd_sparse_stash": "lstm_bwd_sparse_stash_plan",
+               }[kernel]
+    if not hasattr(F if kernel in LSTM_PERSIST + LSTM_SPARSE else R,
+                   plan_fn):
         return {}
     out = {}
     for shape_ in shapes:
@@ -8111,6 +8353,144 @@ def rnn_sparse_block_shapes(g, w3g, drop, h_prev, dhs, lay, act, qb,
             getattr(R, "RNN_BWD_SPARSE_SHAPES", ()))}
 
 
+def lstm_sparse_block_shapes(g, w3g, drop, dhs, lay, act, qb, reps=10):
+    """ms per call of rows 4 and 5's persistent routes forced to each
+    block shape of their tables (forced_plan_ms: co-resident ones only)
+    on these operands (the forward with the stash, the chain over its
+    output), f32 w3g:
+    {"fused_lstm_{fwd_sparse,bwd_sparse_stash}_by_block_shape": ...}; {}
+    each for a package without the routes."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    B, H = g.shape[1], g.shape[2] // 4
+    dbh = torch.broadcast_to(drop, (B, H)).contiguous()
+    hs, cs, acts = F.fused_lstm_fwd_sparse(g, w3g, drop, lay, act, qb,
+                                           stash=True)
+    c_prev = shifted(hs, cs, None, None)[1]
+
+    def fwd_plan(shape_, run=False):
+        plan = F.lstm_fwd_sparse_plan(B, lay, shape_)
+        return (F._fwd_sparse_persist(plan, g, w3g, dbh, lay, act, qb, False,
+                                      True) if run else plan)
+
+    def bwd_plan(shape_, run=False):
+        plan = F.lstm_bwd_sparse_stash_plan(B, H, lay.bs, lay.C, shape_)
+        return (F._bwd_sparse_stash_persist(plan, acts, w3g, dbh, cs, c_prev,
+                                            dhs, lay, act, False)
+                if run else plan)
+    return {
+        "fused_lstm_fwd_sparse_by_block_shape": forced_plan_ms(
+            "fused_lstm_fwd_sparse", fwd_plan, reps,
+            getattr(F, "LSTM_FWD_SPARSE_SHAPES", ())),
+        "fused_lstm_bwd_sparse_stash_by_block_shape": forced_plan_ms(
+            "fused_lstm_bwd_sparse_stash", bwd_plan, reps,
+            getattr(F, "LSTM_BWD_SPARSE_SHAPES", ()))}
+
+
+def lstm_sparse_turn_times(dev, t):
+    """phase_rnn_turn_times' rows 4 and 5 into ``t`` at the CGS-16x LSTM's
+    train shape (the seed of phase_sparse_times; tanh, f32 w3g, the stash
+    forward), row 4 also at the serve shape (no stash): ms and us per
+    step of a call with the 16-bit quantizer (as the cfg runs it) and
+    without, w3g in bf16; route and plan, each block shape of their
+    tables forced (co-resident ones), the step routes forced where the
+    package has the persistent ones, and the output digests: train (hs,
+    cs, acts; the chain's dg over them) and serve (hs, cs), qbits 0 and
+    16, tanh and relu, f32 and bf16 w3g (equal across trees: both routes
+    give the step route's bits); row 5 also over a layout of C = 4, as the
+    cfg's layers have (``C4``)."""
+    from pytorch_kaldi_cgs_tpu_torch.ops import fused_lstm as F
+    T, B, H = SP_TRAIN_TBH
+    Ts, Bs, _ = SP_SERVE_TBH
+    fwd, bwd = F.fused_lstm_fwd_sparse, F.fused_lstm_bwd_sparse_stash
+    new = hasattr(F, "lstm_fwd_sparse_route")
+    with torch.no_grad():
+        sp = sparse_inputs(T, B, H, 97, dev)
+        sv = sparse_inputs(Ts, Bs, H, 96, dev)
+        g, w3g, drop, dhs, lay = (sp[n] for n in ("g", "w3g", "drop", "dhs",
+                                                  "layout"))
+        sargs = (sv["g"], sv["w3g"], sv["drop"], sv["layout"])
+        digests = {}
+        for act in ("tanh", "relu"):
+            for qb in (0, 16):
+                for bf16 in (False, True):
+                    tag = "%s_q%d_%s" % (act, qb, "bf16" if bf16 else "f32")
+                    hs, cs, acts = fwd(g, w3g, drop, lay, act, qb, bf16,
+                                       stash=True)
+                    c_prev = shifted(hs, cs, None, None)[1]
+                    digests["fwd_" + tag] = digest((hs, cs, acts))
+                    digests["serve_fwd_" + tag] = digest(fwd(*sargs, act, qb,
+                                                             bf16))
+                    digests["bwd_" + tag] = digest(bwd(
+                        acts, w3g, drop, cs, c_prev, dhs, lay, act, bf16))
+        fcall = lambda: fwd(g, w3g, drop, lay, "tanh", 16, stash=True)
+        hs, cs, acts = fcall()
+        c_prev = shifted(hs, cs, None, None)[1]
+        bcall = lambda: bwd(acts, w3g, drop, cs, c_prev, dhs, lay)
+        shapes = lstm_sparse_block_shapes(g, w3g, drop, dhs, lay, "tanh", 16)
+        fms, bms = cuda_ms(fcall, 10), cuda_ms(bcall, 10)
+        sms = cuda_ms(lambda: fwd(*sargs, "tanh", 16), 10)
+        t["row4"] = {
+            "ms": fms, "us_per_step": 1e3 * fms / T,
+            "ms_q0": cuda_ms(lambda: fwd(g, w3g, drop, lay, stash=True), 10),
+            "ms_bf16": cuda_ms(lambda: fwd(g, w3g, drop, lay, "tanh", 16,
+                                           True, stash=True), 10),
+            "serve_ms": sms, "serve_us_per_step": 1e3 * sms / Ts,
+            "serve_ms_q0": cuda_ms(lambda: fwd(*sargs), 10),
+            "bound_ms": lstm_bound_ms(T, B, H, "f32", "fwd_stash",
+                                      lay.R * lay.bs)[0],
+            "serve_bound_ms": lstm_bound_ms(Ts, Bs, H, "f32", "fwd",
+                                            lay.R * lay.bs)[0],
+            "plan": chain_route(dev, "fused_lstm_fwd_sparse", B,
+                                layout=lay)[1],
+            "serve_plan": chain_route(dev, "fused_lstm_fwd_sparse", Bs,
+                                      layout=sv["layout"])[1],
+            "by_block_shape": shapes["fused_lstm_fwd_sparse_by_block_shape"],
+            "digests": {k[4:]: v for k, v in digests.items()
+                        if k.startswith("fwd_")},
+            "serve_digests": {k[10:]: v for k, v in digests.items()
+                              if k.startswith("serve_fwd_")}}
+        t["row5"] = {
+            "ms": bms, "us_per_step": 1e3 * bms / T,
+            "ms_bf16": cuda_ms(lambda: bwd(acts, w3g, drop, cs, c_prev, dhs,
+                                           lay, bf16=True), 10),
+            "bound_ms": lstm_bound_ms(T, B, H, "f32", "bwd_stash",
+                                      lay.R * lay.bs)[0],
+            "plan": chain_route(dev, "fused_lstm_bwd_sparse_stash", B,
+                                layout=lay)[1],
+            "by_block_shape": shapes[
+                "fused_lstm_bwd_sparse_stash_by_block_shape"],
+            "digests": {k[4:]: v for k, v in digests.items()
+                        if k.startswith("bwd_")}}
+        # row 5 over a layout whose heaviest column holds 4 blocks, as the
+        # CGS-16x cfg's two layers' do (seed 0 of the model)
+        c4 = sparse_inputs(T, B, H, 96, dev)
+        hs4, cs4, acts4 = fwd(c4["g"], c4["w3g"], c4["drop"], c4["layout"],
+                              "tanh", 16, stash=True)
+        cp4 = shifted(hs4, cs4, None, None)[1]
+        ms4 = cuda_ms(lambda: bwd(acts4, c4["w3g"], c4["drop"], cs4, cp4,
+                                  c4["dhs"], c4["layout"]), 10)
+        t["row5"]["C4"] = {
+            "C": c4["layout"].C, "ms": ms4, "us_per_step": 1e3 * ms4 / T,
+            "plan": chain_route(dev, "fused_lstm_bwd_sparse_stash", B,
+                                layout=c4["layout"])[1],
+            "by_block_shape": lstm_sparse_block_shapes(
+                c4["g"], c4["w3g"], c4["drop"], c4["dhs"], c4["layout"],
+                "tanh", 16)["fused_lstm_bwd_sparse_stash_by_block_shape"],
+            "digest": digest(bwd(acts4, c4["w3g"], c4["drop"], cs4, cp4,
+                                 c4["dhs"], c4["layout"]))}
+        del c4, hs4, cs4, acts4, cp4
+        if new:
+            dbh = torch.broadcast_to(drop, (B, H)).contiguous()
+            t["row4"]["step_route_ms"] = cuda_ms(
+                lambda: F._fwd_sparse_step(g, w3g, dbh, lay, "tanh", 16,
+                                           False, True), 10)
+            t["row5"]["step_route_ms"] = cuda_ms(
+                lambda: F._bwd_sparse_step(bwd, acts, w3g, dbh, None, cs,
+                                           c_prev, dhs, lay, "tanh", 0,
+                                           False, True), 10)
+    del sp, sv, hs, cs, acts, c_prev
+
+
 def rnn_sparse_turn_times(dev, t):
     """phase_rnn_turn_times' rows 36 and 37 into ``t`` (relu, qbits 16, as
     the CGS-16x RNN runs them, f32 w3g) at its train shape (the seed of
@@ -8213,7 +8593,8 @@ def phase_rnn_turn_times(dev):
     table at the train shape, its output digests; row 29 (relu) at the
     TIMIT RNN's train shape (rnn_bwd_turn_times); rows 34 and 35 at the
     CGS-16x minimalGRU's shapes (mgru_sparse_turn_times); rows 36 and 37
-    at the CGS-16x RNN's (rnn_sparse_turn_times); rows 17, 21,
+    at the CGS-16x RNN's (rnn_sparse_turn_times); rows 4 and 5 at the
+    CGS-16x LSTM's (lstm_sparse_turn_times); rows 17, 21,
     22, 23, 25, 28, 33, 13 (libri G=3, 8-bit, submask) and 15 (the libri
     v3 dw) as the rows that must not move; rows 1 and 3
     (lstm_turn_times). Public wrappers only (and the forced plans where
@@ -8437,6 +8818,7 @@ def phase_rnn_turn_times(dev):
         del fi, g, U, drop, h0, dhs, sv, ck, hs, acts, h_prev
         mgru_sparse_turn_times(dev, t)
         rnn_sparse_turn_times(dev, t)
+        lstm_sparse_turn_times(dev, t)
         M = GR_TRAIN_TBH[0] * GR_TRAIN_TBH[1]
         v = v3_inputs(M, 3, 234, dev)
         x = BS.pad_cols(v["x"], v["layout"].K).contiguous()
@@ -8461,9 +8843,9 @@ def rnn_times_main(root):
     the TIMIT GRU, the TIMIT RNN, the minimalGRU, the CGS-16x minimalGRU,
     the CGS-16x RNN, the flagship LSTM, the CGS-16x LSTM as shipped (the
     dense kernels, 8 rows) and under ``auto`` (CUDA events, mean of 5
-    after 2; all but the last also profiled once: device ms and kernel
-    records by class of kernel, busy share), and the TIMIT GRU's, the
-    TIMIT RNN's, both minimalGRUs', the CGS-16x RNN's and the TIMIT and
+    after 2; each also profiled once: device ms and kernel records by
+    class of kernel, busy share), and the TIMIT GRU's, the TIMIT RNN's,
+    both minimalGRUs', the CGS-16x RNN's and LSTM's and the TIMIT and
     libri Li-GRUs' recognize (8 x 4 s:
     serve_timings, launches by kernel), with
     the package of this checkout or of the tree unpacked at DIR inside it
@@ -8504,13 +8886,12 @@ def rnn_times_main(root):
         mask = torch.as_tensor(mask, device=dev)
         out["%s_step_ms_f32" % tag] = cuda_ms(
             lambda: runner.train_step(inp, mask), reps=5)
-        if tag != "cgs16x_lstm":
-            busy = device_busy(lambda: runner.train_step(inp, mask), top=8)
-            by_name = busy.pop("by_name")
-            out["%s_step_device_ms_by_class" % tag] = kernel_classes(by_name)
-            out["%s_step_launches_by_class" % tag] = kernel_classes(
-                by_name, launches=True)
-            out["%s_step_busy" % tag] = busy
+        busy = device_busy(lambda: runner.train_step(inp, mask), top=8)
+        by_name = busy.pop("by_name")
+        out["%s_step_device_ms_by_class" % tag] = kernel_classes(by_name)
+        out["%s_step_launches_by_class" % tag] = kernel_classes(
+            by_name, launches=True)
+        out["%s_step_busy" % tag] = busy
         del runner
         torch.cuda.empty_cache()
     audio, lens = make_audio()
@@ -8519,6 +8900,7 @@ def rnn_times_main(root):
                        ("mgru", build_mgru_stack),
                        ("cgs_mgru", build_cgs_mgru_stack),
                        ("cgs16x_rnn", build_rnn_sparse_stack),
+                       ("cgs16x_lstm", build_cgs_stack),
                        ("timit_ligru", build_ligru_stack),
                        ("libri_ligru", build_libri_ligru_stack)):
         rec = build_recognizer(dev, stack)
@@ -8887,7 +9269,9 @@ def sparse_rows(checks, times, launches, bs_times):
     per layer call at the CGS-16x training shape (f32 w3g); ``launches``
     counts one CGS-16x train step (stash backward; the recompute
     backward for fused_lstm_bwd_sparse); ``dense_h1024_ms`` is the
-    dense fused kernel on the same layer (the masked U). Row 15 also at
+    dense fused kernel on the same layer (the masked U); rows 4 and 5
+    name their routes and plans (``kernel_route``), us a step and each
+    block shape's ms (row 6 has only the step route). Row 15 also at
     every shape a model path gives it (``by_shape``, bs_gemm_times)."""
     T, B, H = SP_TRAIN_TBH
     csrc = "pytorch_kaldi_cgs_tpu_torch/ops/csrc/%s.cu"
@@ -8926,7 +9310,12 @@ def sparse_rows(checks, times, launches, bs_times):
             times["cudnn_fwd_ms"], "cuDNN nn.LSTM(1024, 1024) forward",
             err_at("fused_lstm_fwd_sparse/stash", **f32), "fused_lstm_fwd",
             variant="stash (training forward)",
+            kernel_route=times["fused_lstm_fwd_sparse_kernel_route"],
+            us_per_step=times["fused_lstm_fwd_sparse_us_per_step"],
+            by_block_shape=times["fused_lstm_fwd_sparse_by_block_shape"],
             serve={"T": SP_SERVE_TBH[0], "B": SP_SERVE_TBH[1], "H": H,
+                   "kernel_route": times["serve_fwd_sparse_kernel_route"],
+                   "us_per_step": times["serve_fwd_sparse_us_per_step"],
                    "ms": times["serve_fwd_sparse_ms"],
                    "ms_bf16": times["serve_fwd_sparse_ms_bf16"],
                    "plain_ms": times["serve_fwd_sparse_plain_ms"],
@@ -8938,10 +9327,15 @@ def sparse_rows(checks, times, launches, bs_times):
         row("fused_lstm_bwd_sparse_stash", "fused_lstm_sparse", jax_fl % 788,
             times["cudnn_bwd_ms"], cudnn_bwd,
             err_at("fused_lstm_bwd_sparse_stash", **f32),
-            "fused_lstm_bwd_stash"),
+            "fused_lstm_bwd_stash",
+            kernel_route=times["fused_lstm_bwd_sparse_stash_kernel_route"],
+            us_per_step=times["fused_lstm_bwd_sparse_stash_us_per_step"],
+            by_block_shape=times[
+                "fused_lstm_bwd_sparse_stash_by_block_shape"]),
         row("fused_lstm_bwd_sparse", "fused_lstm_sparse", jax_fl % 859,
             times["cudnn_bwd_ms"], cudnn_bwd,
-            err_at("fused_lstm_bwd_sparse", **f32), "fused_lstm_bwd"),
+            err_at("fused_lstm_bwd_sparse", **f32), "fused_lstm_bwd",
+            kernel_route={"route": "step"}),
         row("block_sparse_dw", "block_sparse_dw",
             "pytorch_kaldi_cgs_tpu/ops/block_sparse.py:856",
             times["block_sparse_dw_library_ms"],
@@ -8990,7 +9384,8 @@ def main():
     train = timed("train", phase_train, dev)
     sp_rec, sp_phones, sp_logp, sp_serve_launches, sp_post_err = timed(
         "sparse_serve", phase_serve, dev, audio, lens, build_cgs_stack,
-        "sparse_serve", "fused_lstm_fwd_sparse")
+        "sparse_serve", "fused_lstm_fwd_sparse", TOL_POST, cgs_expect_serve)
+    sp_serve_launches = sp_serve_launches["fused_lstm_fwd_sparse"]
     sp_stream_launches, sp_stream_err = timed(
         "sparse_stream", phase_chunked_stream, dev, sp_rec, audio, lens,
         sp_phones, sp_logp, "sparse_stream", "fused_lstm_fwd", 2,

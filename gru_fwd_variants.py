@@ -57,20 +57,43 @@ FILES = ("fused_gru.cu", "persist.cuh")
 
 
 def quant_in_dots(src, groups):
-    """q() applied in resident_dots to each staged value it loads, the
-    warps split ``groups`` ways over the staged rows (``src``: FILES'
-    texts by name)."""
-    h = sub(src["persist.cuh"], """template <int BT, int NR, int LD>
+    """q() applied in resident_dots to each staged value it loads (its
+    resident_fma part; the identity for the callers that pass none, as
+    rows_dots), the warps split ``groups`` ways over the staged rows
+    (``src``: FILES' texts by name)."""
+    h = sub(src["persist.cuh"], """template <int BT, int NR>
+__device__ __forceinline__ void resident_fma(const float* ws, int WK,
+                                             const float* xs, int SK, int k0,
+                                             int n, int nb,
+                                             float (&acc)[BT / 2][NR / 4]) {""",
+            """template <int BT, int NR, typename XF = bf16_or_ident<false>>
+__device__ __forceinline__ void resident_fma(const float* ws, int WK,
+                                             const float* xs, int SK, int k0,
+                                             int n, int nb,
+                                             float (&acc)[BT / 2][NR / 4],
+                                             XF xf = XF()) {""")
+    h = sub(h, """template <int BT, int NR, int LD>
 __device__ __forceinline__ void resident_dots(const float* ws,
                                               const float* xs, int SK,
                                               int K, int nb,
                                               float (*usm)[LD]) {
-  constexpr int BQ = BT / 2, RQ = NR / 4;""", """template <int BT, int NR, int LD, typename XF>
+  float acc[BT / 2][NR / 4];
+  resident_zero<BT, NR>(acc);
+  resident_fma<BT, NR>(ws, K, xs, SK, 0, K, nb, acc);""",
+            """template <int BT, int NR, int LD,
+          typename XF = bf16_or_ident<false>>
 __device__ __forceinline__ void resident_dots(const float* ws,
                                               const float* xs, int SK,
                                               int K, int nb,
-                                              float (*usm)[LD], XF xf) {
-  constexpr int BQ = BT / %d, RQ = NR / (WARPS / %d);""" % (groups, groups))
+                                              float (*usm)[LD],
+                                              XF xf = XF()) {
+  float acc[BT / 2][NR / 4];
+  resident_zero<BT, NR>(acc);
+  resident_fma<BT, NR>(ws, K, xs, SK, 0, K, nb, acc, xf);""")
+    # the split of the warps, in resident_dots' parts (and lane_dots', which
+    # the GRU does not instantiate)
+    h = sub(h, "BT / 2", "BT / %d" % groups)
+    h = sub(h, "NR / 4", "NR / (WARPS / %d)" % groups)
     h = sub(h, "  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;",
             "  const int bq = (warp %% %d) * BQ, rq = (warp / %d) * RQ;"
             % (groups, groups))
@@ -103,7 +126,7 @@ __device__ __forceinline__ void resident_dots(const float* ws,
 def variants(src):
     """Each variant's FILES texts by name, from ``src``, the checkout's."""
     k, h = src["fused_gru.cu"], src["persist.cuh"]
-    loop = "#pragma unroll 4\n  for (int k = lane; k < K; k += 32)"
+    loop = "#pragma unroll 4\n  for (int k = lane; k < n; k += 32)"
     chunks = "constexpr int STAGE_CHUNKS = 8;"
     no_dots = k
     for call in (

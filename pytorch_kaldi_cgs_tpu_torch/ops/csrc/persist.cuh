@@ -4,7 +4,9 @@
 // minimalGRU's forward and the sparse minimalGRU's BPTT
 // (fused_gru_sparse.cu), the dense GRU and minimalGRU forward and
 // the dense minimalGRU's recompute BPTT (fused_gru.cu), the dense LSTM
-// forward (fused_lstm_fwd.cu) and its stash BPTT (fused_lstm_bwd.cu).
+// forward (fused_lstm_fwd.cu) and its stash BPTT (fused_lstm_bwd.cu), the
+// sparse RNN forward and BPTT (fused_rnn_sparse.cu) and the sparse LSTM
+// forward and stash BPTT (fused_lstm_sparse.cu).
 // One launch runs every step, each block owning UN
 // (4, 8 or 16) hidden units and BT batch rows for the whole call, the
 // recurrent weights of its units resident in its shared memory, a
@@ -31,8 +33,9 @@
 // stages them in slabs of the contraction, two in flight.
 //
 // The dense forwards (the GRU's, the minimalGRU's, the liGRU's and the
-// LSTM's) and the sparse minimalGRU's forward sum their dots in the step
-// kernels' order instead
+// LSTM's), the sparse minimalGRU's, RNN's and LSTM's forwards and the
+// sparse RNN's and LSTM's chains sum their dots in the step kernels' order
+// instead
 // (resident_dots: a warp a dot, lanes over k; the LSTM's lane_dots, the
 // same sums over a lane-major layout read 16 bytes at a time), and stage
 // their quantized carries with stage_quant (rounded to bf16 after q()
@@ -266,6 +269,64 @@ namespace {
 // 16-byte chunks a thread quantizes in flight in stage_quant's pass
 constexpr int STAGE_CHUNKS = 8;
 
+// The parts of resident_dots, for a caller that stages the contraction in
+// slabs (the sparse LSTM's chain): acc (BT/2 rows x NR/4 weight rows a
+// warp) zeroed; then per slab resident_fma adds, over its n columns from
+// k0 (xs the slab, ws rows WK floats apart at absolute k), the products
+// each lane takes (k = k0 + lane, k0 + lane + 32, ...: with every slab a
+// multiple of 32 long, the order of the whole contraction's); then
+// resident_store reduces each dot over the 32 lanes into usm.
+template <int BT, int NR>
+__device__ __forceinline__ void resident_zero(float (&acc)[BT / 2][NR / 4]) {
+#pragma unroll
+  for (int p = 0; p < BT / 2; ++p)
+#pragma unroll
+    for (int q = 0; q < NR / 4; ++q) acc[p][q] = 0.f;
+}
+
+template <int BT, int NR>
+__device__ __forceinline__ void resident_fma(const float* ws, int WK,
+                                             const float* xs, int SK, int k0,
+                                             int n, int nb,
+                                             float (&acc)[BT / 2][NR / 4]) {
+  constexpr int BQ = BT / 2, RQ = NR / 4;
+  static_assert(WARPS == 8 && NR % 4 == 0, "2 x 4 warps");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;
+  const float* x = xs + (size_t)bq * SK;
+  const float* w = ws + (size_t)rq * WK + k0;
+#pragma unroll 4
+  for (int k = lane; k < n; k += 32) {
+    float wv[RQ];
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) wv[q] = w[(size_t)q * WK + k];
+#pragma unroll
+    for (int p = 0; p < BQ; ++p)
+      if (bq + p < nb) {
+        const float xv = x[(size_t)p * SK + k];
+#pragma unroll
+        for (int q = 0; q < RQ; ++q) acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
+      }
+  }
+}
+
+template <int BT, int NR, int LD>
+__device__ __forceinline__ void resident_store(
+    float (&acc)[BT / 2][NR / 4], float (*usm)[LD]) {
+  constexpr int BQ = BT / 2, RQ = NR / 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;
+#pragma unroll
+  for (int p = 0; p < BQ; ++p)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) {
+      float v = acc[p][q];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) usm[bq + p][rq + q] = v;
+    }
+}
+
 // usm[b][r] = sum_k xs[b * SK + k] * ws[r * K + k] over K columns for the
 // NR resident rows r of ws and the staged rows b < nb of BT (usm rows LD
 // floats apart): the dense forwards' dots. Each dot is summed in the step
@@ -282,39 +343,10 @@ __device__ __forceinline__ void resident_dots(const float* ws,
                                               const float* xs, int SK,
                                               int K, int nb,
                                               float (*usm)[LD]) {
-  constexpr int BQ = BT / 2, RQ = NR / 4;
-  static_assert(WARPS == 8 && NR % 4 == 0, "2 x 4 warps");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bq = (warp & 1) * BQ, rq = (warp >> 1) * RQ;
-  const float* x = xs + (size_t)bq * SK;
-  const float* w = ws + (size_t)rq * K;
-  float acc[BQ][RQ];
-#pragma unroll
-  for (int p = 0; p < BQ; ++p)
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) acc[p][q] = 0.f;
-#pragma unroll 4
-  for (int k = lane; k < K; k += 32) {
-    float wv[RQ];
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) wv[q] = w[(size_t)q * K + k];
-#pragma unroll
-    for (int p = 0; p < BQ; ++p)
-      if (bq + p < nb) {
-        const float xv = x[(size_t)p * SK + k];
-#pragma unroll
-        for (int q = 0; q < RQ; ++q) acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
-      }
-  }
-#pragma unroll
-  for (int p = 0; p < BQ; ++p)
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) {
-      float v = acc[p][q];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) usm[bq + p][rq + q] = v;
-    }
+  float acc[BT / 2][NR / 4];
+  resident_zero<BT, NR>(acc);
+  resident_fma<BT, NR>(ws, K, xs, SK, 0, K, nb, acc);
+  resident_store<BT, NR, LD>(acc, usm);
 }
 
 // floats between two lanes' segments of a lane-major row of K values

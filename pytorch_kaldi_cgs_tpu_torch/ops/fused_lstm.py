@@ -720,6 +720,10 @@ def fused_lstm_bwd_sparse_plain(gates: torch.Tensor, w3g: torch.Tensor,
 #: lists).
 _SMEM_MAX, _SPARSE_BWD_STATIC = 232448, 8 * 8 * 4 + 8 * 32 * 4 + 2 * 64 * 4
 
+#: An sm_90 SM's shared memory, and what the runtime keeps of it for each
+#: resident block (bytes)
+_SMEM_SM, _SMEM_RESERVED = 233472, 1024
+
 #: The dense fused kernels' shared memory per block as (bytes per unit of
 #: the width H, static bytes), by cell: the forward's and each backward's
 #: largest kernel ("stash", "recompute"; the recompute one also runs the
@@ -907,6 +911,142 @@ def lstm_bwd_stash_launches(route: str, T: int, seeded: bool) -> int:
     return 1 if route == "persist" else T + int(seeded)
 
 
+#: the block shapes (bi, units) that csrc/fused_lstm_sparse.cu's
+#: persistent forward (``PK_LSTM_SPARSE_FWD_SHAPE``) and stash chain
+#: (``PK_LSTM_SPARSE_BWD_SHAPE``) instantiate: 4 or 8 units and 8 or 16
+#: rows (the chain's plan takes no 4 x 16)
+LSTM_FWD_SPARSE_SHAPES = ((1, 4), (1, 8), (2, 4), (2, 8))
+LSTM_BWD_SPARSE_SHAPES = ((1, 4), (1, 8), (2, 8))
+
+
+def _lstm_fwd_sparse_shape(B: int, H: int) -> tuple:
+    """(bi, units) of the sparse forward's persistent chain at batch B and
+    width H: 4 units and 8 rows, or 16, where two such blocks an SM hold
+    the grid (two blocks, 16 warps, an SM, as the dense forward's
+    :func:`_lstm_fwd_shape`), else :func:`_lstm_shape`'s. At the CGS-16x
+    train shape (16 rows of 1024, tanh, qbits 16) 4 x 16 took 2.20-2.22
+    ms a call against 2.28-2.30 at 8 x 16 (``chip_smoke.py --rnn-times``,
+    NVIDIA H100 80GB HBM3 at 700 W)."""
+    for bi in (1, 2):
+        if -(-H // 4) * -(-B // (8 * bi)) <= 2 * _SMS:
+            return bi, 4
+    return _lstm_shape(B, H)
+
+
+def lstm_fwd_sparse_plan(B: int, layout, shape: Optional[tuple] = None):
+    """The sparse LSTM forward's persistent chain at batch B over
+    ``layout`` (``shape`` forces (bi, units), one of
+    :data:`LSTM_FWD_SPARSE_SHAPES`; else :func:`_lstm_fwd_sparse_shape`):
+    a block owns units of one out-block with their rows of the 4 gates
+    resident as rows (R*bs floats each, float32; a bf16 w3g converted
+    exactly), stages per step q(h_{t-1}) at the out-block's R kept column
+    blocks (rows ``fused_rnn._row_stride`` (R*bs) apart) and keeps one sum
+    a row and gate-unit. -> fused_rnn.PersistPlan."""
+    from . import fused_rnn as R
+    bi, un = shape or _lstm_fwd_sparse_shape(B, layout.N)
+    bt, nr, K3 = 8 * bi, 4 * un, layout.R * layout.bs
+    resident = 4 * nr * K3
+    smem = resident + 4 * bt * R._row_stride(K3) + 4 * bt * nr
+    grid = (layout.N // un) * -(-B // bt)
+    return R.PersistPlan(bi, un, grid, smem, 0, resident,
+                         4 * min(bt, B) * K3)
+
+
+def lstm_fwd_sparse_route(B: int, layout, bf16: bool, dev) -> tuple:
+    """(route, plan) of :func:`fused_lstm_fwd_sparse` at batch B over
+    ``layout`` on the card ``dev``: "persist" where the plan's block fits
+    and its grid is co-resident (the occupancy query,
+    ``fused_rnn._route``), else "step"; "step" also where the block's
+    units do not divide bs."""
+    from . import fused_rnn as R
+    plan = lstm_fwd_sparse_plan(B, layout)
+    if layout.bs % plan.units:
+        return "step", plan
+    return R._route(plan, "fused_lstm_sparse", "lstm_fwd_sparse_occupancy",
+                    (int(bf16), plan.bi, plan.units),
+                    torch.device(dev)), plan
+
+
+def lstm_fwd_sparse_launches(route: str, T: int) -> int:
+    """Kernels one :func:`fused_lstm_fwd_sparse` call launches on
+    ``route`` (as its counter counts them): "persist" the one cooperative
+    launch, "step" one a step."""
+    return 1 if route == "persist" else T
+
+
+def lstm_bwd_sparse_stash_plan(B: int, H: int, bs: int, C: int,
+                               shape: Optional[tuple] = None,
+                               entry_slabs: bool = False):
+    """The sparse LSTM stash BPTT's persistent reverse chain at batch B,
+    width H, block size bs and at most C kept blocks in a block column
+    (``shape`` forces (bi, units), one of :data:`LSTM_BWD_SPARSE_SHAPES`;
+    else 8 units x 8 rows where two such blocks an SM hold the grid and
+    fit its shared memory, else :func:`_lstm_shape`'s; at 16 rows of
+    1024 two 8 x 8 blocks an SM took 2.50-2.52 ms a call against 3.00 at
+    8 x 16 with C = 3, in slabs 3.34 against 3.80 whole at C = 4,
+    ``chip_smoke.py --rnn-times``, NVIDIA H100 80GB HBM3 at 700 W): a
+    block owns units of one block column with their columns of the 4
+    gates' U at each of the column's entries resident as rows (4bs floats
+    a unit and an entry, C entries at most), stages dg_{t+1} at the
+    entries' out-blocks per reverse step (4bs floats an entry and a row)
+    and keeps one sum a row and unit; its static shared memory holds the
+    column's entry lists. The staged rows are whole (``slab`` C*4bs values, one buffer)
+    where they fit beside the weights, in half an SM's shared memory
+    where the grid needs two blocks of 8 rows an SM, else (or where
+    ``entry_slabs`` asks) one entry a slab (``slab`` 4bs, C ``slabs`` at
+    most) through two buffers. -> fused_rnn.PersistPlan."""
+    from . import fused_rnn as R
+    static = R._PERSIST_SPARSE_STATIC
+
+    def plan(bi, un):
+        bt, GB = 8 * bi, 4 * bs
+        KC = C * GB
+        resident, sums = 4 * un * KC, 4 * bt * un
+        grid = (H // un) * -(-B // bt)
+        room = _SMEM_MAX - static
+        if bi == 1 and grid > _SMS:     # built for two blocks an SM
+            room = _SMEM_SM // 2 - _SMEM_RESERVED - static
+        slab, slabs = KC, 1
+        smem = resident + 4 * bt * R._row_stride(KC) + sums
+        if entry_slabs or smem > room:
+            slab, slabs = GB, C
+            smem = resident + 2 * 4 * bt * R._row_stride(GB) + sums
+        return R.PersistPlan(bi, un, grid, smem, static, resident,
+                             4 * min(bt, B) * KC, slab, slabs)
+    if shape:
+        return plan(*shape)
+    if entry_slabs:
+        raise ValueError("entry_slabs needs a shape")
+    two = plan(1, 8)
+    if two.grid <= 2 * _SMS and \
+            2 * (two.smem + static + _SMEM_RESERVED) <= _SMEM_SM:
+        return two
+    return plan(*_lstm_shape(B, H))
+
+
+def lstm_bwd_sparse_stash_route(B: int, layout, bf16: bool, dev) -> tuple:
+    """(route, plan) of :func:`fused_lstm_bwd_sparse_stash` at batch B
+    over ``layout`` on the card ``dev``, as :func:`lstm_fwd_sparse_route`;
+    "step" also where bs is not a multiple of 8 (the chain's sums are the
+    step kernel's where an entry's 4bs values are a multiple of the 32
+    lanes) or of the block's units."""
+    from . import fused_rnn as R
+    plan = lstm_bwd_sparse_stash_plan(B, layout.N, layout.bs, layout.C)
+    if layout.bs % 8 or layout.bs % plan.units:
+        return "step", plan
+    return R._route(plan, "fused_lstm_sparse",
+                    "lstm_bwd_sparse_stash_occupancy",
+                    (int(bf16), plan.bi, plan.units),
+                    torch.device(dev)), plan
+
+
+def lstm_bwd_sparse_stash_launches(route: str, T: int) -> int:
+    """Kernels one :func:`fused_lstm_bwd_sparse_stash` call launches on
+    ``route``: "persist" the one cooperative launch, "step" one a reverse
+    step."""
+    return 1 if route == "persist" else T
+
+
 def _check_sparse(name, lead, w3g, layout, drop, act, others, gates=4):
     """A sparse recurrence's operands: (T, B, gates*H) ``lead`` with H the
     square layout's width, w3g (Nb, gates*bs, R*bs), and on the card the
@@ -928,33 +1068,6 @@ def _sparse_w(w3g, bf16):
     return w3g.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
 
 
-def _fwd_sparse_kernel(gates, w3g, drop, layout, act, qbits, bf16, stash):
-    from . import _build
-    lib = _build.load("fused_lstm_sparse")
-    fn = lib.fused_lstm_fwd_sparse
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    T, B, G4 = gates.shape
-    H = G4 // 4
-    dev = gates.device
-    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    cs = torch.empty_like(hs)
-    acts = torch.empty_like(gates) if stash else None
-    qslots = torch.empty(T + 1 if qbits > 0 else 1, dtype=torch.int32,
-                         device=dev)
-    wk = _sparse_w(w3g, bf16)
-    with torch.cuda.device(dev):
-        rc = fn(gates.data_ptr(), wk.data_ptr(),
-                layout.device_index("col_idx", dev).data_ptr(),
-                drop.data_ptr(), hs.data_ptr(), cs.data_ptr(), _ptr(acts),
-                qslots.data_ptr(), T, B, H, layout.R, layout.bs,
-                _ACT_CODE[act], qbits, int(bf16), _stream(dev))
-    _build.check(lib, rc, "fused_lstm_fwd_sparse")
-    fused_lstm_fwd_sparse.launches += T
-    return (hs, cs, acts) if stash else (hs, cs)
-
-
 def fused_lstm_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
                           drop: torch.Tensor, layout, act: str = "tanh",
                           qbits: int = 0, bf16: bool = False,
@@ -964,8 +1077,11 @@ def fused_lstm_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     float32, ``w3g`` (Nb, 4*bs, R*bs) float32 (cast to bf16 for the
     kernel when ``bf16``), ``drop`` broadcastable to (B, H). -> ``(hs,
     cs)``, and ``acts`` (T, B, 4H) when ``stash``. CUDA tensors run the
-    kernel, CPU tensors the plain twin; no autograd of its own
-    (:func:`lstm_scan_fused_sparse` carries the BPTT kernels)."""
+    kernels on the route :func:`lstm_fwd_sparse_route` picks before the
+    launch: "persist" (all steps in one cooperative launch) where the
+    blocks fit and are co-resident, else "step" (a launch per step); both
+    give the same bits. CPU tensors run the plain twin; no autograd of
+    its own (:func:`lstm_scan_fused_sparse` carries the BPTT kernels)."""
     T, B, H, drop = _check_sparse("gates", gates, w3g, layout, drop, act, ())
     if _needs_grad(gates, w3g):
         raise RuntimeError("fused_lstm_fwd_sparse has no autograd of its "
@@ -973,16 +1089,75 @@ def fused_lstm_fwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     if gates.device.type == "cpu":
         return fused_lstm_fwd_sparse_plain(gates, w3g, drop, layout, act,
                                            qbits, bf16, stash)
-    return _fwd_sparse_kernel(gates, w3g, drop, layout, act, qbits, bf16,
-                              stash)
+    route, plan = lstm_fwd_sparse_route(B, layout, bf16, gates.device)
+    if route == "persist":
+        return _fwd_sparse_persist(plan, gates, w3g, drop, layout, act,
+                                   qbits, bf16, stash)
+    return _fwd_sparse_step(gates, w3g, drop, layout, act, qbits, bf16,
+                            stash)
+
+
+def _fwd_sparse_step(gates, w3g, drop, layout, act, qbits, bf16, stash):
+    """The sparse forward (checked operands, ``drop`` (B, H)) on the step
+    route: a launch a step. -> as :func:`fused_lstm_fwd_sparse`."""
+    from . import block_sparse as BS
+    T, B, G4 = gates.shape
+    H = G4 // 4
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(hs)
+    acts = torch.empty_like(gates) if stash else None
+    qslots = torch.empty(T + 1 if qbits > 0 else 1, dtype=torch.int32,
+                         device=dev)
+    wk = _sparse_w(w3g, bf16)
+    BS._launch("fused_lstm_sparse", "fused_lstm_fwd_sparse", dev,
+               (gates.data_ptr(), wk.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                drop.data_ptr(), hs.data_ptr(), cs.data_ptr(), _ptr(acts),
+                qslots.data_ptr()),
+               (T, B, H, layout.R, layout.bs, _ACT_CODE[act], qbits,
+                int(bf16)))
+    fused_lstm_fwd_sparse.launches += lstm_fwd_sparse_launches("step", T)
+    return (hs, cs, acts) if stash else (hs, cs)
+
+
+def _fwd_sparse_persist(plan, gates, w3g, drop, layout, act, qbits, bf16,
+                        stash):
+    """The sparse forward on the persistent route (``plan``: its
+    PersistPlan, :func:`lstm_fwd_sparse_plan`): all T steps in one
+    cooperative launch. -> as :func:`fused_lstm_fwd_sparse`."""
+    from . import block_sparse as BS
+    T, B, G4 = gates.shape
+    H = G4 // 4
+    dev = gates.device
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(hs)
+    acts = torch.empty_like(gates) if stash else None
+    # each block's max|h| of the last two steps, for the quantizer
+    bmax = torch.empty(2 * plan.grid if qbits > 0 else 1, dtype=torch.int32,
+                       device=dev)
+    wk = _sparse_w(w3g, bf16)
+    BS._launch("fused_lstm_sparse", "lstm_fwd_sparse_persist", dev,
+               (gates.data_ptr(), wk.data_ptr(),
+                layout.device_index("col_idx", dev).data_ptr(),
+                drop.data_ptr(), hs.data_ptr(), cs.data_ptr(), _ptr(acts),
+                bmax.data_ptr()),
+               (T, B, H, layout.R, layout.bs, _ACT_CODE[act], qbits,
+                int(bf16), plan.grid, plan.bi, plan.units, plan.smem))
+    fused_lstm_fwd_sparse.launches += lstm_fwd_sparse_launches("persist", T)
+    return (hs, cs, acts) if stash else (hs, cs)
 
 
 fused_lstm_fwd_sparse.launches = 0
 
 
-def _bwd_sparse_kernel(wrapper, lead, w3g, drop, h_prev, cs, c_prev, dhs,
-                       layout, act, qbits, bf16, stash):
-    from . import _build
+def _bwd_sparse_step(wrapper, lead, w3g, drop, h_prev, cs, c_prev, dhs,
+                     layout, act, qbits, bf16, stash):
+    """A sparse BPTT (checked operands, ``drop`` (B, H)) on the step
+    route, counted on ``wrapper``: the stash one (``stash``, ``lead`` the
+    stash) or the recompute one (``lead`` the gates): a launch a reverse
+    step. -> dg (T, B, 4H)."""
+    from . import block_sparse as BS
     T, B, G4 = lead.shape
     H = G4 // 4
     R, bs, C = layout.R, layout.bs, layout.C
@@ -991,11 +1166,6 @@ def _bwd_sparse_kernel(wrapper, lead, w3g, drop, h_prev, cs, c_prev, dhs,
         raise ValueError("%s: %d blocks per column of %d need %d bytes of "
                          "shared memory, more than a block has"
                          % (wrapper.__name__, C, bs, smem))
-    lib = _build.load("fused_lstm_sparse")
-    fn = lib.fused_lstm_bwd_sparse
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     dev = lead.device
     wk = _sparse_w(w3g, bf16)
     wt = wk.transpose(1, 2).contiguous()      # (Nb, R*bs, 4bs): carry dots
@@ -1005,14 +1175,39 @@ def _bwd_sparse_kernel(wrapper, lead, w3g, drop, h_prev, cs, c_prev, dhs,
                          dtype=torch.int32, device=dev)
     idx = [layout.device_index(n, dev).data_ptr()
            for n in ("col_idx", "t_row_idx", "t_perm")]
-    with torch.cuda.device(dev):
-        rc = fn(lead.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
+    BS._launch("fused_lstm_sparse", "fused_lstm_bwd_sparse", dev,
+               (lead.data_ptr(), wk.data_ptr(), wt.data_ptr(), *idx,
                 drop.data_ptr(), _ptr(h_prev), _ptr(cs), c_prev.data_ptr(),
                 dhs.data_ptr(), dc.data_ptr(), dg.data_ptr(),
-                qslots.data_ptr(), T, B, H, R, bs, C, layout.nnz,
-                _ACT_CODE[act], qbits, int(stash), int(bf16), _stream(dev))
-    _build.check(lib, rc, wrapper.__name__)
+                qslots.data_ptr()),
+               (T, B, H, R, bs, C, layout.nnz, _ACT_CODE[act], qbits,
+                int(stash), int(bf16)))
     wrapper.launches += T
+    return dg
+
+
+def _bwd_sparse_stash_persist(plan, acts, w3g, drop, cs, c_prev, dhs, layout,
+                              act, bf16):
+    """The sparse stash BPTT on the persistent route (``plan``: its
+    PersistPlan, :func:`lstm_bwd_sparse_stash_plan`): the whole reverse
+    chain in one cooperative launch, each block's columns of U read from
+    w3g itself. -> dg (T, B, 4H)."""
+    from . import block_sparse as BS
+    T, B, G4 = acts.shape
+    dev = acts.device
+    dg = torch.empty_like(acts)
+    wk = _sparse_w(w3g, bf16)
+    idx = [layout.device_index(n, dev).data_ptr()
+           for n in ("t_row_idx", "t_perm")]
+    BS._launch("fused_lstm_sparse", "lstm_bwd_sparse_stash_persist", dev,
+               (acts.data_ptr(), wk.data_ptr(), *idx, drop.data_ptr(),
+                cs.data_ptr(), c_prev.data_ptr(), dhs.data_ptr(),
+                dg.data_ptr()),
+               (T, B, G4 // 4, layout.R, layout.bs, layout.C, layout.nnz,
+                _ACT_CODE[act], int(bf16), plan.grid, plan.bi, plan.units,
+                plan.slab // (4 * layout.bs), plan.smem))
+    fused_lstm_bwd_sparse_stash.launches += lstm_bwd_sparse_stash_launches(
+        "persist", T)
     return dg
 
 
@@ -1024,16 +1219,23 @@ def fused_lstm_bwd_sparse_stash(acts: torch.Tensor, w3g: torch.Tensor,
     """Sparse BPTT over the stashed activations (TPU kernel
     ``_build_bwd_sparse_stash``): ``acts`` (T, B, 4H) from the stash
     forward, ``cs``, ``c_prev``, ``dhs`` (T, B, H). -> dg (T, B, 4H).
-    CUDA tensors run the kernel, CPU tensors the twin."""
+    CUDA tensors run the kernels on the route
+    :func:`lstm_bwd_sparse_stash_route` picks before the launch:
+    "persist" (the reverse chain in one cooperative launch) where the
+    blocks fit and are co-resident, else "step" (a launch per reverse
+    step); both give the same bits. CPU tensors run the twin."""
     seqs = (("cs", cs), ("c_prev", c_prev), ("dhs", dhs))
     T, B, H, drop = _check_sparse("acts", acts, w3g, layout, drop, act, seqs)
     _check_shapes([(n, t, (T, B, H)) for n, t in seqs])
     if acts.device.type == "cpu":
         return fused_lstm_bwd_sparse_stash_plain(acts, w3g, drop, cs, c_prev,
                                                  dhs, layout, act, bf16)
-    return _bwd_sparse_kernel(fused_lstm_bwd_sparse_stash, acts, w3g, drop,
-                              None, cs, c_prev, dhs, layout, act, 0, bf16,
-                              True)
+    route, plan = lstm_bwd_sparse_stash_route(B, layout, bf16, acts.device)
+    if route == "persist":
+        return _bwd_sparse_stash_persist(plan, acts, w3g, drop, cs, c_prev,
+                                         dhs, layout, act, bf16)
+    return _bwd_sparse_step(fused_lstm_bwd_sparse_stash, acts, w3g, drop,
+                            None, cs, c_prev, dhs, layout, act, 0, bf16, True)
 
 
 fused_lstm_bwd_sparse_stash.launches = 0
@@ -1054,9 +1256,9 @@ def fused_lstm_bwd_sparse(gates: torch.Tensor, w3g: torch.Tensor,
     if gates.device.type == "cpu":
         return fused_lstm_bwd_sparse_plain(gates, w3g, drop, h_prev, c_prev,
                                            dhs, layout, act, qbits, bf16)
-    return _bwd_sparse_kernel(fused_lstm_bwd_sparse, gates, w3g, drop, h_prev,
-                              None, c_prev, dhs, layout, act, qbits, bf16,
-                              False)
+    return _bwd_sparse_step(fused_lstm_bwd_sparse, gates, w3g, drop, h_prev,
+                            None, c_prev, dhs, layout, act, qbits, bf16,
+                            False)
 
 
 fused_lstm_bwd_sparse.launches = 0

@@ -655,7 +655,9 @@ def test_cuda_sparse_kernels_match_twins(cuda_device, bf16, act, qbits):
                                                  bf16, stash=True)
         hs2, cs2 = tfl.fused_lstm_fwd_sparse(g, w3g, drop, tl, act, qbits,
                                              bf16)
-        assert tfl.fused_lstm_fwd_sparse.launches == before + 2 * T
+        route = tfl.lstm_fwd_sparse_route(B, tl, bf16, cuda_device)[0]
+        assert tfl.fused_lstm_fwd_sparse.launches == \
+            before + 2 * tfl.lstm_fwd_sparse_launches(route, T)
         if bf16:
             ref = _twin_steps(g, w3g, drop, tl, act, qbits, bf16, hs, cs)
         else:
@@ -679,6 +681,99 @@ def test_cuda_sparse_kernels_match_twins(cuda_device, bf16, act, qbits):
     for a, b in ((got, ref), (got_r, ref_r)):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qbits", [0, 16])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_cuda_sparse_persist_routes_give_the_step_bits(cuda_device, bf16, act,
+                                                       qbits):
+    """Rows 4 and 5 at every block shape of their tables (persistent,
+    forced) give the bits of their step routes (forced): the forward's
+    hs, cs and acts, the stash chain's dg, whole rows and one entry a
+    slab alike; the routes the wrappers pick at this shape are the
+    persistent ones."""
+    mask, _, w3g, g, drop, dhs = _rec_inputs(31)
+    tl = tbs.pack_layout(mask, BS)
+    tt = lambda a: torch.from_numpy(a).to(cuda_device)
+    g, w3g, drop, dhs = tt(g), tt(w3g), tt(drop), tt(dhs)
+    assert tfl.lstm_fwd_sparse_route(B, tl, bf16, cuda_device)[0] == \
+        "persist"
+    assert tfl.lstm_bwd_sparse_stash_route(B, tl, bf16, cuda_device)[0] == \
+        "persist"
+    with torch.no_grad():
+        fargs = (g, w3g, drop, tl, act, qbits, bf16, True)
+        st = tfl._fwd_sparse_step(*fargs)
+        for shape in tfl.LSTM_FWD_SPARSE_SHAPES:
+            got = tfl._fwd_sparse_persist(
+                tfl.lstm_fwd_sparse_plan(B, tl, shape), *fargs)
+            assert all(torch.equal(a, b) for a, b in zip(got, st)), shape
+        hs, cs, acts = st
+        c_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
+        bargs = (acts, w3g, drop, cs, c_prev, dhs, tl, act, bf16)
+        dg_st = tfl._bwd_sparse_step(tfl.fused_lstm_bwd_sparse_stash, acts,
+                                     w3g, drop, None, cs, c_prev, dhs, tl,
+                                     act, 0, bf16, True)
+        for shape in tfl.LSTM_BWD_SPARSE_SHAPES:
+            plan = tfl.lstm_bwd_sparse_stash_plan(B, H, BS, tl.C, shape)
+            slabbed = tfl.lstm_bwd_sparse_stash_plan(B, H, BS, tl.C, shape,
+                                                     entry_slabs=True)
+            for p in (plan, slabbed):
+                dg = tfl._bwd_sparse_stash_persist(p, *bargs)
+                assert torch.equal(dg, dg_st), (shape, p.slabs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [97, 421])
+@pytest.mark.parametrize("rows", [8, 16])
+def test_cuda_sparse_routes_at_the_cgs16x_layout(cuda_device, seed, rows):
+    """At the CGS-16x layout (1024 wide, C = 3 at seed 97, C = 5 at 421:
+    one entry a slab at 16 rows) both wrappers take the persistent route,
+    one launch a call, within 1e-4 of their twins (tanh, qbits 16: an ulp
+    at a ceil step of the quantizer moves h by one of its levels) and bit
+    for bit their step routes."""
+    Hc, Tc = 1024, 12
+    mask = hcgs_mask(Hc, Hc, [128, 8], [75, 75],
+                     rng=np.random.RandomState(seed))
+    tl = tbs.pack_layout(mask, 128)
+    rng = np.random.RandomState(seed + 1)
+    U = (rng.randn(4 * Hc, Hc) / 8.0).astype(np.float32) * np.tile(mask,
+                                                                   (4, 1))
+    tt = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
+        cuda_device)
+    w3g = tt(tbs.stack_w3_gates([tbs.pack_w3(U[k * Hc:(k + 1) * Hc], tl)
+                                 for k in range(4)]))
+    g = tt(rng.randn(Tc, rows, 4 * Hc) * 0.5)
+    drop = tt(rng.rand(rows, Hc) > 0.2)
+    dhs = tt(rng.randn(Tc, rows, Hc) * 0.1)
+    fwd, bwd = tfl.fused_lstm_fwd_sparse, tfl.fused_lstm_bwd_sparse_stash
+    assert tfl.lstm_fwd_sparse_route(rows, tl, False, cuda_device)[0] == \
+        "persist"
+    route, plan = tfl.lstm_bwd_sparse_stash_route(rows, tl, False,
+                                                  cuda_device)
+    assert route == "persist" and plan.slabs == (5 if (seed, rows) == (
+        421, 16) else 1)
+    with torch.no_grad():
+        n0, n1 = fwd.launches, bwd.launches
+        hs, cs, acts = fwd(g, w3g, drop, tl, "tanh", 16, stash=True)
+        c_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
+        dg = bwd(acts, w3g, drop, cs, c_prev, dhs, tl)
+        assert (fwd.launches - n0, bwd.launches - n1) == (1, 1)
+        ref = tfl.fused_lstm_fwd_sparse_plain(g, w3g, drop, tl, "tanh", 16,
+                                              False, True)
+        for a, b in zip((hs, cs, acts), ref):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       atol=1e-4)
+        np.testing.assert_allclose(
+            dg.cpu().numpy(), tfl.fused_lstm_bwd_sparse_stash_plain(
+                acts, w3g, drop, cs, c_prev, dhs, tl).cpu().numpy(),
+            atol=1e-5)
+        st = tfl._fwd_sparse_step(g, w3g, drop, tl, "tanh", 16, False, True)
+        assert all(torch.equal(a, b) for a, b in zip((hs, cs, acts), st))
+        assert torch.equal(dg, tfl._bwd_sparse_step(
+            bwd, acts, w3g, drop, None, cs, c_prev, dhs, tl, "tanh", 0,
+            False, True))
 
 
 @pytest.mark.cuda
